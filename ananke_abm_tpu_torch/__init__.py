@@ -1,0 +1,23 @@
+"""Ananke ABM — the PyTorch / CUDA port of ``ananke_abm_tpu``.
+
+The JAX package ``ananke_abm_tpu`` is the reference; this package mirrors
+its module paths so that each module's counterpart is easy to find:
+
+- ``ananke_abm_tpu_torch.device``        — device resolution and the f32
+                                            matmul policy (no TF32).
+- ``ananke_abm_tpu_torch.utils.ckpt``    — pickle-of-numpy checkpoints,
+                                            readable by both packages.
+- ``ananke_abm_tpu_torch.ode.rk4``       — fixed-step RK4 on tensors.
+- ``ananke_abm_tpu_torch.models.gnn_embed`` — the GAT-ODE: zone encoder,
+                                            model, flax parameter bridge,
+                                            decoded rollout and ``serve``.
+- ``ananke_abm_tpu_torch.ops.cuda``      — hand-written Hopper kernels
+                                            (``csrc/``) with their plain
+                                            PyTorch versions beside them.
+
+The package imports ``torch`` and never ``jax``, ``flax`` or ``optax``.
+"""
+
+__version__ = "0.1.0"
+
+__all__ = ["__version__"]

@@ -1,0 +1,131 @@
+"""Fused integrate-and-decode rollout for population-scale inference
+(port of ``ananke_abm_tpu/models/gnn_embed/rollout.py``).
+
+The carry is the (N, Da) agent state and each output interval emits only
+the (N,) zone ids, so memory stays O(N * Da + N * T) whatever the zone
+count: the (N, T, Z) logits of ``GATODE.forward`` are never built.
+
+Two bodies, as in the reference:
+
+- the float32 body: ``GATODE.rhs`` under RK4 and ``GATODE.decode`` +
+  argmax after every interval;
+- the kernel body: bf16 weights packed once per call, a bf16 decode at
+  t=0, then one :func:`rk4_interval_decode_fused` per output interval
+  (all substeps plus the decode and argmax).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ananke_abm_tpu_torch.ode.rk4 import rk4_step
+from ananke_abm_tpu_torch.ops.cuda.fused_step import (
+    BF16,
+    decode_ids_bf16,
+    interval_stage_times,
+    pack_weights_bf16,
+    rk4_interval_decode_fused,
+    time_feature_table,
+)
+
+
+def _kernel_eligible(config, device) -> bool:
+    """The kernel body serves when the tensors are on a CUDA device and the
+    drift has residual blocks. Widths or block counts the CUDA kernel is
+    not compiled for raise from its wrapper; they never fall back."""
+    return torch.device(device).type == "cuda" and config.num_blocks >= 1
+
+
+def make_decoded_rollout(model, config, zone_feats, adj, times,
+                         use_kernel: str | bool = "auto"):
+    """Returns ``rollout(person_feats, home_zone_ids) -> (N, T) int32``
+    zone ids, with the decode fused into the integration.
+
+    ``use_kernel``: ``"auto"`` takes the kernel body where
+    :func:`_kernel_eligible` holds, else the float32 body; ``True`` forces
+    the kernel body (on CPU tensors the interval runs through its plain
+    version, as the reference runs Pallas in interpret mode off-TPU);
+    ``False`` forces the float32 body.
+
+    Every call reads the module's current parameters, so updated weights
+    take effect without a new rollout. ``zone_feats``, ``adj`` and
+    ``times`` are tensors on the model's device. Sparse edge-list zone
+    graphs are not ported yet (ROADMAP.md queue 1 item 9).
+    """
+    if use_kernel not in ("auto", True, False):
+        raise ValueError(f"use_kernel must be 'auto', True or False, got "
+                         f"{use_kernel!r}")
+    if use_kernel == "auto":
+        use_kernel = _kernel_eligible(config, zone_feats.device)
+    substeps = config.substeps
+    if use_kernel:
+        body = _kernel_body(model, substeps, rk4_interval_decode_fused)
+    else:
+        body = _f32_body(model, substeps)
+
+    def rollout(person_feats, home_zone_ids):
+        with torch.inference_mode():
+            return body(zone_feats, adj, times, person_feats,
+                        home_zone_ids)
+
+    return rollout
+
+
+def _f32_body(model, substeps):
+    def body(zone_feats, adj, times, person_feats, home_zone_ids):
+        zone_emb = model.encode_zones(zone_feats, adj)
+        x, h = model.initial_state(person_feats, home_zone_ids, zone_emb)
+
+        def rhs(t, y, args):
+            return model.rhs(t, y, h, zone_emb)
+
+        def decode_ids(x):
+            logits = model.decode(x, zone_emb)
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+
+        ids = [decode_ids(x)]
+        for i in range(times.shape[0] - 1):
+            t0, t1 = times[i], times[i + 1]
+            dt = (t1 - t0) / substeps
+            for s in range(substeps):
+                x = rk4_step(rhs, t0 + s * dt, dt, x, None)
+            ids.append(decode_ids(x))
+        return torch.stack(ids, dim=1)
+
+    return body
+
+
+def _kernel_body(model, substeps, interval):
+    """The kernel body with ``interval`` as its per-interval step:
+    :func:`rk4_interval_decode_fused`, or its plain version
+    ``rk4_interval_decode_reference`` to check and time the kernel
+    against. Callers run it under ``torch.inference_mode()``."""
+    def body(zone_feats, adj, times, person_feats, home_zone_ids):
+        zone_emb = model.encode_zones(zone_feats, adj)
+        ze_bf16 = zone_emb.to(BF16)
+        weights = pack_weights_bf16(model)
+        wd_bf16 = model.decode_proj.weight.T.to(BF16)  # (Da, Dz)
+        x, h = model.initial_state(person_feats, home_zone_ids, zone_emb)
+
+        # interval starts and substep sizes in the reference's float32
+        # arithmetic, on the host: the kernel takes dt as a scalar argument
+        # and the per-stage time table is built for all intervals at once
+        t_host = times.detach().cpu().numpy().astype(np.float32)
+        dts = (t_host[1:] - t_host[:-1]) / np.float32(substeps)
+        stage_t = np.asarray([
+            interval_stage_times(t0, dt, substeps)
+            for t0, dt in zip(t_host[:-1], dts)
+        ], np.float32).reshape(-1)
+        tf_all = time_feature_table(
+            torch.from_numpy(stage_t).to(x.device), weights[3], weights[4],
+        ).reshape(len(dts), 4 * substeps, -1)
+
+        # the t=0 ids: the kernel's own bf16 decode, as the reference does
+        ids = [decode_ids_bf16(x, wd_bf16, ze_bf16)]
+        for i in range(len(dts)):
+            x, ids_i = interval(x, h, ze_bf16, weights, wd_bf16, tf_all[i],
+                                float(dts[i]))
+            ids.append(ids_i)
+        return torch.stack(ids, dim=1)
+
+    return body

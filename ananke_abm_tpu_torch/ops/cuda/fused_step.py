@@ -1,0 +1,305 @@
+"""One output interval of the GAT-ODE serving rollout: ``substeps`` RK4
+steps of the drift, then the decode and its argmax.
+
+Port of ``ananke_abm_tpu/ops/pallas/fused_step.py``. The kernel
+(:func:`rk4_interval_decode_fused`, CUDA C++ in ``csrc/fused_step.cu``)
+replaces the Pallas kernel ``rk4_interval_decode_fused`` of that file;
+:func:`rk4_interval_decode_reference` is its plain PyTorch version, which
+the wrapper takes for tensors on the CPU and the tests compare against.
+
+Every rounding point of the reference stage math is kept: activations are
+rounded to bf16 before each matmul, products accumulate in float32, the
+softmax is max-free with the exp clamped at 80 and normalised after the
+context product, and the RK4 state stays float32. In PyTorch ``a16 @ b16``
+returns bf16, which would round away the float32 accumulation, so the
+plain version multiplies the bf16-rounded operands as float32
+(:func:`_dot`); that is exact for bf16 x bf16 -> f32.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+BF16 = torch.bfloat16
+# (agent_dim, zone_dim, context_dim, hidden_dim) the CUDA kernel is
+# compiled for: the shipping GATODEConfig widths. Must match the template
+# instantiation in csrc/fused_step.cu.
+KERNEL_WIDTHS = ((32, 64, 32, 128),)
+# residual blocks the kernel takes (kMaxBlocks in csrc/fused_step.cu)
+MAX_KERNEL_BLOCKS = 8
+
+
+def pack_weights_bf16(model):
+    """GATODE -> bf16 weight tuple for the interval kernel, in the JAX
+    package's layout (every matrix (in, out)).
+
+    Dense_0's kernel is split by the drift's concat order
+    [x, ctx, h, sin_t, cos_t]: the x/ctx rows go into the per-stage
+    matmul, the h rows into a once-per-interval precompute (h is constant
+    across RK4 stages) and the 2 time-feature rows into a per-stage table
+    (:func:`time_feature_table`).
+
+    Returns (Wq, W1xc, W1h, W1t, b1, blocks, W3, b3), ``blocks`` a tuple
+    of (Wr1, br1, Wr2, br2) per residual block. Reads the module's
+    current parameters.
+    """
+    dense = model.drift.dense
+    n_dense = len(dense)
+    num_blocks = (n_dense - 2) // 2
+    if num_blocks < 1:
+        raise ValueError(
+            "the fused interval kernel requires num_blocks >= 1 residual "
+            f"drift blocks (got a drift with {n_dense} Dense layers => "
+            f"num_blocks={num_blocks}); use the float32 path for "
+            "block-free drifts"
+        )
+    to = lambda t: t.detach().to(BF16)
+    Wq = model.query_proj.weight.T
+    Da, Dz = Wq.shape
+    W1 = dense[0].weight.T  # (in, out)
+    Hc = W1.shape[0] - Da - Dz - 2
+    blocks = tuple(
+        (to(dense[1 + 2 * i].weight.T), to(dense[1 + 2 * i].bias),
+         to(dense[2 + 2 * i].weight.T), to(dense[2 + 2 * i].bias))
+        for i in range(num_blocks)
+    )
+    return (
+        to(Wq),
+        to(W1[: Da + Dz]),               # x/ctx rows: per-stage matmul
+        to(W1[Da + Dz: Da + Dz + Hc]),   # h rows: per-interval precompute
+        to(W1[Da + Dz + Hc:]),           # sin/cos rows: per-stage table
+        to(dense[0].bias),
+        blocks,
+        to(dense[-1].weight.T), to(dense[-1].bias),
+    )
+
+
+def interval_stage_times(t0, dt_sub, substeps: int) -> np.ndarray:
+    """(substeps * 4,) float32 RK4 stage times of one output interval, in
+    the reference's float32 arithmetic."""
+    f32 = np.float32
+    t0, dt_sub = f32(t0), f32(dt_sub)
+    sub_starts = t0 + dt_sub * np.arange(substeps, dtype=f32)
+    offs = np.asarray([0.0, 0.5, 0.5, 1.0], f32) * dt_sub
+    return (sub_starts[:, None] + offs[None, :]).reshape(-1).astype(f32)
+
+
+def time_feature_table(stage_t, W1t_bf16, b1_bf16):
+    """(S,) float32 stage times -> (S, H) float32 additive pre-activations:
+    the sin/cos rows of Dense_0 plus its bias, evaluated per stage."""
+    ang = stage_t * (2 * np.pi / 24.0)
+    tfeat = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return tfeat.float() @ W1t_bf16.float() + b1_bf16.float()[None, :]
+
+
+def _dot(a16, b16):
+    """bf16 x bf16 -> float32, exactly: the operands are bf16 values, the
+    product and sums are float32."""
+    return a16.float() @ b16.float()
+
+
+def stage_math(xb, hpre, tfp_row, ze, scale, wq, w1xc, blocks, w3, b3):
+    """One drift-RHS evaluation of the interval kernel (forward only).
+
+    xb: (N, Da) bf16 stage input; hpre: (N, H) float32 h-row
+    pre-activation; tfp_row: (1, H) float32 time-row pre-activation;
+    ze: (Z, Dz) bf16. Returns k (N, Da) float32.
+    """
+    q = _dot(xb, wq)
+    scores = _dot(q.to(BF16), ze.T) * scale
+    # max-free softmax: the max subtraction cancels in the ratio; the
+    # clamp guards float32 overflow for scores > 80
+    p_att = torch.exp(torch.clamp_max(scores, 80.0))
+    inv = 1.0 / torch.sum(p_att, dim=-1, keepdim=True)
+    # normalised AFTER the context product, as the reference kernel does
+    ctx = _dot(p_att.to(BF16), ze) * inv
+    feats = torch.cat([xb, ctx.to(BF16)], dim=-1)
+    z = torch.tanh(_dot(feats, w1xc) + hpre + tfp_row)
+    for (wr1, br1, wr2, br2) in blocks:
+        rt = torch.tanh(_dot(z.to(BF16), wr1) + br1.float())
+        r3 = _dot(rt.to(BF16), wr2) + br2.float()
+        z = torch.tanh(z + r3)
+    return _dot(z.to(BF16), w3) + b3.float()
+
+
+def decode_ids_bf16(x, wd_bf16, ze_bf16):
+    """The interval kernel's decode: ids = argmax(bf16(bf16(x) @ Wd) @
+    ze^T), float32 sums, the FIRST index of the largest logit."""
+    logits = _dot(_dot(x.to(BF16), wd_bf16).to(BF16), ze_bf16.T)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _rk4_coefs(dt_sub):
+    """(dt, dt/2, dt/6) as float32 values, computed in float32."""
+    f32 = np.float32
+    step = f32(dt_sub)
+    return float(step), float(step * f32(0.5)), float(step / f32(6.0))
+
+
+def rk4_interval_decode_reference(x, h, ze_bf16, weights_bf16, wd_bf16,
+                                  tf_pre, dt_sub):
+    """Plain PyTorch version of the interval kernel.
+
+    x: (N, Da) float32; h: (N, Dc) float32; ze_bf16: (Z, Dz) bf16;
+    weights_bf16: tuple from :func:`pack_weights_bf16`; wd_bf16: (Da, Dz)
+    bf16 decode projection; tf_pre: (substeps * 4, H) float32 from
+    :func:`time_feature_table`; dt_sub: the substep size. Returns
+    (x_new (N, Da) float32, ids (N,) int32), ids the FIRST index of the
+    largest logit.
+    """
+    (Wq, W1xc, W1h, _W1t, _b1, blocks, W3, b3) = weights_bf16
+    scale = float(np.float32(1.0 / np.sqrt(float(ze_bf16.shape[1]))))
+    step, half, sixth = _rk4_coefs(dt_sub)
+    # h is constant across the interval: one Dense_0 h-row product
+    h_pre = _dot(h.to(BF16), W1h)
+
+    def rhs(xc, stage):
+        return stage_math(xc.to(BF16), h_pre, tf_pre[stage][None, :],
+                          ze_bf16, scale, Wq, W1xc, blocks, W3, b3)
+
+    xs = x
+    for s in range(tf_pre.shape[0] // 4):
+        k1 = rhs(xs, 4 * s + 0)
+        k2 = rhs(xs + half * k1, 4 * s + 1)
+        k3 = rhs(xs + half * k2, 4 * s + 2)
+        k4 = rhs(xs + step * k3, 4 * s + 3)
+        xs = xs + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    return xs, decode_ids_bf16(xs, wd_bf16, ze_bf16)
+
+
+def _check(x, h, ze, weights, wd, tf_pre):
+    """Validate the interval's operands; returns (N, Da, Z, Dz, Dc, H)."""
+    (Wq, W1xc, W1h, W1t, b1, blocks, W3, b3) = weights
+    if x.ndim != 2 or h.ndim != 2 or ze.ndim != 2 or tf_pre.ndim != 2:
+        raise ValueError("x, h, ze and tf_pre must be 2-D")
+    N, Da = x.shape
+    Z, Dz = ze.shape
+    Dc = h.shape[1]
+    H = W1xc.shape[1]
+    S = tf_pre.shape[0]
+    if len(blocks) < 1:
+        raise ValueError("the interval kernel needs >= 1 residual block")
+    want = {
+        "x": (x, torch.float32, (N, Da)),
+        "h": (h, torch.float32, (N, Dc)),
+        "ze": (ze, BF16, (Z, Dz)),
+        "tf_pre": (tf_pre, torch.float32, (S, H)),
+        "Wq": (Wq, BF16, (Da, Dz)),
+        "W1xc": (W1xc, BF16, (Da + Dz, H)),
+        "W1h": (W1h, BF16, (Dc, H)),
+        "W1t": (W1t, BF16, (2, H)),
+        "b1": (b1, BF16, (H,)),
+        "W3": (W3, BF16, (H, Da)),
+        "b3": (b3, BF16, (Da,)),
+        "wd": (wd, BF16, (Da, Dz)),
+    }
+    for i, (wr1, br1, wr2, br2) in enumerate(blocks):
+        want[f"Wr1[{i}]"] = (wr1, BF16, (H, H))
+        want[f"br1[{i}]"] = (br1, BF16, (H,))
+        want[f"Wr2[{i}]"] = (wr2, BF16, (H, H))
+        want[f"br2[{i}]"] = (br2, BF16, (H,))
+    for name, (t, dtype, shape) in want.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, "
+                             f"got {tuple(t.shape)}")
+    for name in ("x", "h", "ze", "tf_pre"):
+        if not want[name][0].is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if S < 4 or S % 4:
+        raise ValueError(f"tf_pre must have substeps * 4 rows, got {S}")
+    if Z < 1:
+        raise ValueError("ze must hold at least one zone")
+    return N, Da, Z, Dz, Dc, H
+
+
+def rk4_interval_decode_fused(x, h, ze_bf16, weights_bf16, wd_bf16, tf_pre,
+                              dt_sub):
+    """One output interval: ``tf_pre.shape[0] // 4`` RK4 substeps, then the
+    decode and first-index argmax. Arguments and result as
+    :func:`rk4_interval_decode_reference`.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel of
+    ``csrc/fused_step.cu``, or raise (unsupported widths, too many blocks,
+    a refused launch); there is no fallback. ``.launches`` counts the
+    kernel launches.
+    """
+    N, Da, Z, Dz, Dc, H = _check(x, h, ze_bf16, weights_bf16, wd_bf16,
+                                 tf_pre)
+    if x.device.type == "cpu":
+        return rk4_interval_decode_reference(
+            x, h, ze_bf16, weights_bf16, wd_bf16, tf_pre, dt_sub
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if (Da, Dz, Dc, H) not in KERNEL_WIDTHS:
+        raise ValueError(
+            f"the CUDA interval kernel is compiled for (agent, zone, "
+            f"context, hidden) widths {KERNEL_WIDTHS}, got "
+            f"{(Da, Dz, Dc, H)}"
+        )
+    blocks = weights_bf16[5]
+    if len(blocks) > MAX_KERNEL_BLOCKS:
+        raise ValueError(f"the CUDA interval kernel takes at most "
+                         f"{MAX_KERNEL_BLOCKS} residual blocks")
+    x_new = torch.empty_like(x)
+    ids = torch.empty((N,), dtype=torch.int32, device=x.device)
+    if N == 0:
+        return x_new, ids
+    _launch(x, h, ze_bf16, weights_bf16, wd_bf16, tf_pre, dt_sub,
+            x_new, ids)
+    return x_new, ids
+
+
+rk4_interval_decode_fused.launches = 0
+
+
+def _launch(x, h, ze, weights, wd, tf_pre, dt_sub, x_new, ids):
+    from ananke_abm_tpu_torch.ops.cuda._build import load_library
+
+    lib = load_library()
+    (Wq, W1xc, W1h, _W1t, _b1, blocks, W3, b3) = weights
+    N, Da = x.shape
+    Z, Dz = ze.shape
+    H = W1xc.shape[1]
+    # the kernel reads weights as (out, in) rows, so that the two bf16 of
+    # one mma B-fragment register are adjacent; zones are padded to a
+    # multiple of 16 with zero rows (masked in the kernel)
+    zp = -(-Z // 16) * 16
+    ze_p = torch.zeros((zp, Dz), dtype=BF16, device=x.device)
+    ze_p[:Z] = ze
+    zeT = ze_p.T.contiguous()
+    wrT = torch.stack(
+        [w.T for blk in blocks for w in (blk[0], blk[2])]
+    ).contiguous()
+    br = torch.stack([b for blk in blocks for b in (blk[1], blk[3])])
+    ops = [x, h, ze_p, zeT, Wq.T.contiguous(), W1xc.T.contiguous(),
+           W1h.T.contiguous(), wrT, br.contiguous(), W3.T.contiguous(),
+           b3.contiguous(), wd.T.contiguous(), tf_pre, x_new, ids]
+    step, _, _ = _rk4_coefs(dt_sub)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.ananke_rk4_interval_decode(
+            *[t.data_ptr() for t in ops],
+            N, Z, zp, len(blocks), tf_pre.shape[0], ctypes.c_float(step),
+            Da, Dz, h.shape[1], H, stream,
+        )
+    if err != 0:
+        name = lib.ananke_cuda_error_string(err) or b"unknown"
+        raise RuntimeError(
+            f"rk4_interval_decode_fused: CUDA launch failed with error "
+            f"{err} ({name.decode()})"
+        )
+    rk4_interval_decode_fused.launches += 1
+
+
+__all__ = [
+    "pack_weights_bf16", "interval_stage_times", "time_feature_table",
+    "stage_math", "decode_ids_bf16", "rk4_interval_decode_reference",
+    "rk4_interval_decode_fused",
+]
