@@ -7,10 +7,13 @@ its module paths so that each module's counterpart is easy to find:
                                             matmul policy (no TF32).
 - ``ananke_abm_tpu_torch.utils.ckpt``    — pickle-of-numpy checkpoints,
                                             readable by both packages.
-- ``ananke_abm_tpu_torch.ode.rk4``       — fixed-step RK4 on tensors.
+- ``ananke_abm_tpu_torch.ode``           — ``odeint``: fixed-step RK4 and
+                                            Euler, adaptive DOPRI5, the
+                                            continuous adjoint.
 - ``ananke_abm_tpu_torch.models.gnn_embed`` — the GAT-ODE: zone encoder,
                                             model, flax parameter bridge,
-                                            decoded rollout and ``serve``.
+                                            decoded rollout, ``serve`` and
+                                            the continuous-adjoint trainer.
 - ``ananke_abm_tpu_torch.ops.cuda``      — hand-written Hopper kernels
                                             (``csrc/``) with their plain
                                             PyTorch versions beside them.

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ananke_abm_tpu_torch.models.gnn_embed.gat import ZoneGAT
-from ananke_abm_tpu_torch.ode.rk4 import rk4_solve
+from ananke_abm_tpu_torch.ode import odeint
 
 
 def _mm_f32(a, b):
@@ -135,19 +135,17 @@ class GATODE(nn.Module):
                 *, ode_method: str = "rk4", substeps: int = 4,
                 rtol: float = 1e-5, atol: float = 1e-5,
                 checkpoint: bool = True, edge_index=None, edge_chunks=None):
-        """Full integrate-then-decode. Returns (logits (N, T, Z), xs (N, T, Da))."""
-        del rtol, atol
-        if ode_method != "rk4":
-            raise NotImplementedError(
-                f"ode_method={ode_method!r} is not ported yet (adaptive "
-                "solvers: ROADMAP.md queue 1 item 7)"
-            )
+        """Full integrate-then-decode. Returns (logits (N, T, Z), xs (N, T, Da)).
+
+        ``ode_method``: "rk4", "euler" or "dopri5" (adaptive at
+        ``rtol``/``atol``, forward only, as the reference runs it here)."""
         zone_emb = self.encode_zones(zone_feats, adj, edge_index,
                                      edge_chunks)
         x0, h = self.initial_state(person_feats, home_zone_ids, zone_emb)
-        xs = rk4_solve(
+        xs = odeint(
             lambda t, x, args: self.rhs(t, x, h, zone_emb), x0, times,
-            substeps=substeps, checkpoint=checkpoint,
+            method=ode_method, substeps=substeps, rtol=rtol, atol=atol,
+            adjoint=False, checkpoint=checkpoint,
         )  # (T, N, Da)
         xs = xs.transpose(0, 1)
         return self.decode(xs, zone_emb), xs

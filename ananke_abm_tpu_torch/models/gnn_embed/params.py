@@ -48,6 +48,20 @@ def _vectors(model):
     return out
 
 
+def flax_leaf_params(model) -> list:
+    """Every parameter of ``model`` as ``(flax path, tensor)``, in the
+    order JAX flattens the flax tree (keys sorted at every level). The
+    tensors are the module's own, in PyTorch's layout: a ``kernel`` path
+    holds the (out, in) ``nn.Linear.weight``."""
+    out = []
+    for path, lin in _linears(model).items():
+        out.append((path + ("kernel",), lin.weight))
+        if lin.bias is not None:
+            out.append((path + ("bias",), lin.bias))
+    out += list(_vectors(model).items())
+    return sorted(out, key=lambda item: item[0])
+
+
 def _get(tree, path):
     node = tree
     for key in path:

@@ -1,8 +1,9 @@
-"""GAT-ODE configuration, construction, initialisation and serving (port
-of the serving part of ``ananke_abm_tpu/models/gnn_embed/train.py``).
+"""GAT-ODE configuration, construction, initialisation, serving and the
+continuous-adjoint trainer (port of parts of
+``ananke_abm_tpu/models/gnn_embed/train.py``).
 
-Training, the optimizer and ``train()`` are not ported yet (ROADMAP.md
-queue 1 item 6).
+Not ported yet: the fixed-step trainers, ``make_epoch_fn`` and ``train()``
+(ROADMAP.md queue 1 item 6), and the discrete adjoint (item 7).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from ananke_abm_tpu_torch.device import resolve_device
 from ananke_abm_tpu_torch.models.gnn_embed.model import GATODE
 from ananke_abm_tpu_torch.models.gnn_embed.params import (
     _linears,
+    flax_leaf_params,
     load_flax_params,
 )
 from ananke_abm_tpu_torch.models.gnn_embed.rollout import (
@@ -176,3 +178,199 @@ def serve(
         "seconds": elapsed,
         "out": out_npz,
     }
+
+
+class ClippedAdamW:
+    """``optax.chain(clip_by_global_norm(grad_clip), adamw(lr,
+    weight_decay))`` on a model's ``.grad``s.
+
+    The clip is optax's: when the global norm ``g`` of all gradients
+    reaches ``max_norm``, each gradient becomes ``grad / g * max_norm``
+    (``torch.nn.utils.clip_grad_norm_`` would add 1e-6 to ``g``). AdamW
+    takes optax's defaults: betas (0.9, 0.999), eps 1e-8, decoupled weight
+    decay ``config.weight_decay`` (torch's own default is 1e-2). The clip
+    decides on the device: no host sync.
+    """
+
+    def __init__(self, params, lr: float, weight_decay: float,
+                 max_norm: float):
+        self.params = list(params)
+        self.max_norm = float(max_norm)
+        self.adamw = torch.optim.AdamW(self.params, lr=lr,
+                                       betas=(0.9, 0.999), eps=1e-8,
+                                       weight_decay=weight_decay)
+
+    def zero_grad(self):
+        self.adamw.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self):
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        keep = g_norm < self.max_norm
+        for g in grads:
+            g.copy_(torch.where(keep, g, g / g_norm * self.max_norm))
+        self.adamw.step()
+
+
+def make_optimizer(model, config: GATODEConfig) -> ClippedAdamW:
+    """The reference trainer's optimizer (global-norm clip, then AdamW)
+    over every parameter of ``model``."""
+    return ClippedAdamW(model.parameters(), config.lr, config.weight_decay,
+                        config.grad_clip)
+
+
+class _Rhs(torch.nn.Module):
+    """``model.rhs`` as a module's forward, for ``functional_call``."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, t, x, h, zone_emb):
+        return self.model.rhs(t, x, h, zone_emb)
+
+
+def _adjoint_loss_fn(model, config, rhs_vjp, stats=None):
+    """``loss_fn(pf, hz, targets, graph) -> (mean nll, accuracy)`` whose
+    integration is adaptive DOPRI5 with continuous-adjoint gradients.
+
+    The solver's ``args`` are ``(params, h, zone_emb)`` with ``params``
+    every model parameter in the reference's leaf order, as the reference
+    threads its whole flax tree: the backward's error norm counts them
+    all. ``rhs`` reads its weights from ``args`` (``functional_call``), so
+    the generic backward differentiates the drift through them.
+    """
+    from torch.func import functional_call
+
+    from ananke_abm_tpu_torch.ode import odeint_adjoint
+
+    leaves = flax_leaf_params(model)
+    by_id = {id(p): name for name, p in model.named_parameters()}
+    names = ["model." + by_id[id(p)] for _, p in leaves]
+    rhs_module = _Rhs(model)
+
+    def rhs(t, x, args):
+        params, h, zone_emb = args
+        return functional_call(rhs_module, dict(zip(names, params)),
+                               (t, x, h, zone_emb))
+
+    def loss_fn(pf, hz, targets, graph):
+        zone_feats, adj, times = graph
+        zone_emb = model.encode_zones(zone_feats, adj)
+        x0, h = model.initial_state(pf, hz, zone_emb)
+        params = tuple(p for _, p in leaves)
+        xs = odeint_adjoint(rhs, x0, times, (params, h, zone_emb),
+                            rtol=config.rtol, atol=config.atol,
+                            rhs_vjp=rhs_vjp, stats=stats)
+        logits = model.decode(xs.transpose(0, 1), zone_emb)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        acc = (torch.argmax(logits, -1) == targets).float().mean()
+        return nll.mean(), acc
+
+    return loss_fn
+
+
+def _graph(static):
+    if len(static) > 3 and static[3] is not None:
+        raise NotImplementedError(
+            "sparse edge-list zone graphs are not ported yet: ROADMAP.md "
+            "queue 1 item 9"
+        )
+    return tuple(static[:3])
+
+
+def build_adjoint_loss_fn_g(model, config, static, use_fused="auto",
+                            adjoint_mode="continuous", max_accepted=512,
+                            ckpt_every=16, bwd_precision=None,
+                            store_f="auto", ckpt_dtype="auto", stats=None):
+    """``loss_fn_g(pf, hz, targets, graph) -> (loss, acc)`` whose
+    integration is adaptive DOPRI5 at ``config.rtol``/``config.atol`` with
+    continuous-adjoint gradients; ``loss.backward()`` fills the model's
+    ``.grad``s. The forward runs ``model.rhs`` in float32.
+
+    ``use_fused``: "auto" takes the adjoint RHS kernel
+    (``ops/cuda/fused_rhs.py::drift_rhs_and_vjp``) for the backward
+    whenever the model is on CUDA, ``attn_temp == 1.0`` and
+    ``num_blocks >= 1``; widths the kernel is not compiled for then raise
+    from the kernel's wrapper. True forces the fused route (its plain
+    version on the CPU); False keeps ``torch.autograd.grad`` of
+    ``model.rhs``. ``static`` is ``(zone_feats, adj, times)``.
+
+    ``adjoint_mode="discrete"`` is not ported yet (ROADMAP.md queue 1
+    item 7) and raises. ``max_accepted``, ``ckpt_every``,
+    ``bwd_precision``, ``store_f`` and ``ckpt_dtype`` belong to it: they
+    are accepted for the reference's signature and unused.
+
+    ``stats``: a dict that each call fills with the solves' step counts
+    (``odeint_adjoint``'s ``stats``).
+    """
+    del max_accepted, ckpt_every, bwd_precision, store_f, ckpt_dtype
+    if adjoint_mode not in ("continuous", "discrete"):
+        raise ValueError(f"unknown adjoint_mode {adjoint_mode!r}")
+    if adjoint_mode == "discrete":
+        raise NotImplementedError(
+            "adjoint_mode='discrete' is not ported yet: ROADMAP.md queue 1 "
+            "item 7 (slice 3, kernels K5-K7)"
+        )
+    _graph(static)
+    on_cuda = next(model.parameters()).device.type == "cuda"
+    if use_fused == "auto":
+        use_fused = (on_cuda and getattr(model, "attn_temp", 1.0) == 1.0
+                     and getattr(config, "num_blocks", 0) >= 1)
+    rhs_vjp = None
+    if use_fused:
+        if getattr(model, "attn_temp", 1.0) != 1.0:
+            raise ValueError(
+                "the fused adjoint RHS requires attn_temp == 1.0 (the "
+                "kernel hard-codes that attention); pass use_fused=False"
+            )
+        from ananke_abm_tpu_torch.ops.cuda.fused_rhs import (
+            make_fused_adjoint_rhs,
+        )
+
+        _, rhs_vjp = make_fused_adjoint_rhs(model)
+    return _adjoint_loss_fn(model, config, rhs_vjp, stats)
+
+
+def make_adjoint_step_fns(model, optimizer, config, static,
+                          use_fused="auto", adjoint_mode="continuous",
+                          max_accepted=512, ckpt_every=16,
+                          bwd_precision=None, store_f="auto",
+                          ckpt_dtype="auto"):
+    """Training step whose integration is adaptive DOPRI5 with
+    continuous-adjoint gradients (the reference's
+    ``make_adjoint_step_fns``; knobs as :func:`build_adjoint_loss_fn_g`).
+
+    Returns ``(train_step, loss_fn)``. ``train_step(pf, hz, targets)``
+    computes the loss and its gradients, steps ``optimizer`` (from
+    :func:`make_optimizer`), updates the model in place and returns
+    ``(loss, acc)``. ``loss_fn(pf, hz, targets)`` returns ``(loss, acc)``
+    with the graph attached. Both record the last solve's step counts in
+    ``.stats``: ``stats["forward"]`` (the forward solve's) and
+    ``stats["backward"]`` (one per backward interval, last first).
+    """
+    stats: dict = {}
+    loss_fn_g = build_adjoint_loss_fn_g(
+        model, config, static, use_fused=use_fused,
+        adjoint_mode=adjoint_mode, max_accepted=max_accepted,
+        ckpt_every=ckpt_every, bwd_precision=bwd_precision,
+        store_f=store_f, ckpt_dtype=ckpt_dtype, stats=stats)
+    graph = _graph(static)
+
+    def train_step(pf, hz, targets):
+        optimizer.zero_grad()
+        loss, acc = loss_fn_g(pf, hz, targets, graph)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), acc
+
+    def loss_fn(pf, hz, targets):
+        return loss_fn_g(pf, hz, targets, graph)
+
+    train_step.stats = loss_fn.stats = stats
+    return train_step, loss_fn

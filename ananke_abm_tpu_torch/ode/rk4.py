@@ -44,3 +44,19 @@ def rk4_solve(rhs, y0, ts, args=None, *, substeps: int = 1,
             y = rk4_step(rhs, t0 + s * dt, dt, y, args)
         ys.append(y)
     return torch.stack(ys, dim=0)
+
+
+def euler_solve(rhs, y0, ts, args=None, *, substeps: int = 1,
+                checkpoint: bool = True):
+    """Fixed-step explicit Euler, as :func:`rk4_solve` (a control for
+    convergence tests); ``checkpoint`` is ignored likewise."""
+    del checkpoint
+    ys = [y0]
+    y = y0
+    for i in range(ts.shape[0] - 1):
+        t0, t1 = ts[i], ts[i + 1]
+        dt = (t1 - t0) / substeps
+        for s in range(substeps):
+            y = y + dt * rhs(t0 + s * dt, y, args)
+        ys.append(y)
+    return torch.stack(ys, dim=0)

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` is compiled by ``nvcc`` at first use into a shared library
-with a plain C interface, loaded through ``ctypes``. The library lands in
-``build/ananke_abm_tpu_torch/`` at the repository root, under a name that
-hashes the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. Nothing is compiled when a module is imported.
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` at first use into its own
+shared library with a plain C interface, loaded through ``ctypes``. The
+libraries land in ``build/ananke_abm_tpu_torch/`` at the repository root,
+under names that hash the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source is rebuilt and an unchanged one is reused.
+:func:`build_all` starts one ``nvcc`` per source, all at once. Nothing is
+compiled when a module is imported.
 """
 from __future__ import annotations
 
@@ -18,15 +20,25 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "fused_step.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ananke_abm_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# kernel library -> its source
+NAMES = ("fused_step", "fused_rhs")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# the C interface of each library's launch function:
+# (name, argument types)
+_ENTRY = {
+    "fused_step": ("ananke_rk4_interval_decode",
+                   [_P] * 15 + [_I] * 5 + [ctypes.c_float] + [_I] * 4
+                   + [_P]),
+    "fused_rhs": ("ananke_drift_rhs_and_vjp", [_P] * 23 + [_I] * 9 + [_P]),
+}
 
 
 def nvcc_path() -> str:
@@ -41,45 +53,66 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(verbose: bool = False) -> tuple[Path, str, float]:
-    """Compile ``SOURCE`` unless an up-to-date library exists.
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(
+        src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
-    Returns (library path, compiler output, seconds spent compiling — 0.0
-    when the library was already built). Raises ``RuntimeError`` with the
-    compiler's output when the build fails.
+
+def build_all(names=NAMES) -> dict:
+    """Compile every library of ``names`` that is not built yet, one
+    ``nvcc`` per source, all started together.
+
+    Returns ``{name: (library path, compiler output, seconds compiling --
+    0.0 when it was already built)}``. Raises ``RuntimeError`` with the
+    compiler's output when a build fails.
     """
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"fused_step-{digest[:16]}.so"
-    if lib.exists():
-        return lib, "", 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{log}")
-    os.replace(tmp, lib)
-    if verbose:
-        print(log, end="")
-    return lib, log, seconds
+    out, running = {}, {}
+    for name in names:
+        lib = _target(name)
+        if lib.exists():
+            out[name] = (lib, "", 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, cmd, lib, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, cmd, lib, tmp, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, lib)
+        out[name] = (lib, log, seconds)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare the C interface."""
-    path, _, _ = build()
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed, load it, and declare its C
+    interface."""
+    path, _, _ = build_all((name,))[name]
     lib = ctypes.CDLL(str(path))
-    fn = lib.ananke_rk4_interval_decode
+    entry, argtypes = _ENTRY[name]
+    fn = getattr(lib, entry)
     # every pointer and the stream as c_void_p: a bare Python int would be
     # passed as a 32-bit int and cut the address
-    fn.argtypes = [_P] * 15 + [_I] * 5 + [ctypes.c_float] + [_I] * 4 + [_P]
+    fn.argtypes = argtypes
     fn.restype = _I
+    if name == "fused_rhs":
+        lib.ananke_drift_rhs_tile_rows.argtypes = [_I]
+        lib.ananke_drift_rhs_tile_rows.restype = _I
     lib.ananke_cuda_error_string.argtypes = [_I]
     lib.ananke_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,355 @@
+"""The GAT-ODE drift as the continuous adjoint's augmented right-hand side:
+one drift evaluation and its whole VJP in one launch.
+
+Port of ``ananke_abm_tpu/ops/pallas/fused_rhs.py``. The kernel
+(:func:`drift_rhs_and_vjp`, CUDA C++ in ``csrc/fused_rhs.cu``) replaces
+the Pallas kernel ``drift_rhs_and_vjp`` of that file;
+:func:`drift_rhs_and_vjp_reference` is its plain PyTorch version, which
+the wrapper takes for tensors on the CPU. Both are one
+:func:`~ananke_abm_tpu_torch.ops.cuda.fused_step.stage_math` and one
+:func:`~ananke_abm_tpu_torch.ops.cuda.fused_step.stage_vjp_math`: bf16
+operands, float32 sums, the rounding points of the reference.
+
+:func:`drift_rhs_fused` (the forward-only Pallas kernel) is ported as its
+plain version only: no trainer path calls it (the reference trainer keeps
+only ``rhs_vjp``), and on CUDA it raises.
+
+Weights are passed as the reference passes them: float32, in the JAX
+package's layout (every matrix (in, out)), as :func:`split_drift_params`
+returns them; they are rounded to bf16 here.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ananke_abm_tpu_torch.models.gnn_embed.params import flax_leaf_params
+from ananke_abm_tpu_torch.ops.cuda.fused_step import (
+    BF16,
+    KERNEL_WIDTHS,
+    MAX_KERNEL_BLOCKS,
+    _dot,
+    _nt_dot,
+    stage_math,
+    stage_vjp_math,
+)
+
+# CTAs of the kernel, each summing its share of agent tiles into its own
+# partial slab of the weight gradients; the slabs are then summed in a
+# fixed order. A constant, so the sums' order depends on N alone and a
+# launch repeated on the same operands gives the same bits. 132 = the
+# H100's SM count: one CTA per SM fits its shared memory.
+NUM_SLABS = 132
+
+
+def split_drift_params(named):
+    """Flax path -> tensor mapping (``dict(flax_leaf_params(model))``) ->
+    the drift's float32 weights in the JAX package's layout:
+    ``(Wq, W1xc, W1h, W1t, b1, blocks, W3, b3)``, ``blocks`` a tuple of
+    (Wr1, br1, Wr2, br2) per residual block. Dense_0's kernel is split by
+    the drift's concat order [x, ctx, h, sin_t, cos_t]. The results are
+    views of the tensors given, so autograd sees through them.
+    """
+    Wq = named[("query_proj", "kernel")].T
+    Da, Dz = Wq.shape
+    n_dense = sum(1 for p in named if p[0] == "drift" and p[-1] == "kernel")
+    num_blocks = (n_dense - 2) // 2
+    if num_blocks < 1:
+        raise ValueError(
+            "the fused adjoint RHS requires num_blocks >= 1 residual drift "
+            f"blocks (got a drift with {n_dense} Dense layers); use the "
+            "plain path for block-free drifts"
+        )
+    dense = lambda i, leaf: named[("drift", f"Dense_{i}", leaf)]
+    W1 = dense(0, "kernel").T
+    Hc = W1.shape[0] - Da - Dz - 2
+    blocks = tuple(
+        (dense(1 + 2 * i, "kernel").T, dense(1 + 2 * i, "bias"),
+         dense(2 + 2 * i, "kernel").T, dense(2 + 2 * i, "bias"))
+        for i in range(num_blocks)
+    )
+    return (Wq, W1[: Da + Dz], W1[Da + Dz: Da + Dz + Hc],
+            W1[Da + Dz + Hc:], dense(0, "bias"), blocks,
+            dense(n_dense - 1, "kernel").T, dense(n_dense - 1, "bias"))
+
+
+def time_features(t, device) -> torch.Tensor:
+    """(2,) float32 [sin, cos] of the day angle at time ``t``."""
+    ang = torch.as_tensor(t, dtype=torch.float32, device=device) * (
+        2 * np.pi / 24.0)
+    return torch.stack([torch.sin(ang), torch.cos(ang)])
+
+
+def time_row(t, W1t, b1):
+    """Scalar time -> (1, H) float32 additive Dense_0 pre-activation: the
+    sin/cos rows plus the bias, from the float32 weights."""
+    tfeat = time_features(t, W1t.device)
+    return tfeat[None, :] @ W1t.float() + b1.float()[None, :]
+
+
+def _to16(blocks):
+    return tuple(tuple(w.to(BF16) for w in blk) for blk in blocks)
+
+
+def _scale(dz) -> float:
+    return float(np.float32(1.0 / np.sqrt(float(dz))))
+
+
+def drift_rhs_fused(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3):
+    """dx/dt of the drift, forward only (plain version of the Pallas
+    kernel K8a). x (N, Da), h (N, Hc), ze (Z, Dz) float32; tf_row (1, H)
+    from :func:`time_row`; float32 weights. Returns (N, Da) float32.
+
+    On CUDA it raises: the kernel is not ported (ROADMAP.md queue 2, K8a),
+    because no trainer path calls it."""
+    if x.device.type != "cpu":
+        raise NotImplementedError(
+            "drift_rhs_fused (K8a) has no CUDA kernel yet: ROADMAP.md "
+            "queue 2 lists it; the continuous-adjoint trainer runs its "
+            "forward through model.rhs"
+        )
+    hpre = _dot(h.to(BF16), W1h.to(BF16))
+    k, _ = stage_math(x.to(BF16), hpre, tf_row.float(), ze.to(BF16),
+                      _scale(ze.shape[1]), Wq.to(BF16), W1xc.to(BF16),
+                      _to16(blocks), W3.to(BF16), b3.to(BF16))
+    return k
+
+
+def drift_rhs_and_vjp_reference(x, h, ze, tf_row, Wq, W1xc, W1h, blocks,
+                                W3, b3, a):
+    """Plain PyTorch version of the kernel. Arguments as
+    :func:`drift_rhs_fused`, plus ``a`` (N, Da) float32, the cotangent of
+    the output. Returns ``(f, gx, gh, gze, gtf, gWq, gW1xc, gW1h, gblocks,
+    gW3, gb3)``: f, gx (N, Da), gh (N, Hc), and, summed over agents, gze
+    (Z, Dz), gtf (1, H), and the weight gradients shaped like the
+    weights (``gblocks``: per block (gWr1, gbr1, gWr2, gbr2)), all
+    float32."""
+    N, Da = x.shape
+    Z, Dz = ze.shape
+    H = W1xc.shape[1]
+    scale = _scale(Dz)
+    hb, ze16 = h.to(BF16), ze.to(BF16)
+    wq16, w1xc16, w1h16, w316 = (w.to(BF16) for w in (Wq, W1xc, W1h, W3))
+    blk16 = _to16(blocks)
+    hpre = _dot(hb, w1h16)
+    f, inter = stage_math(x.to(BF16), hpre, tf_row.float(), ze16, scale,
+                          wq16, w1xc16, blk16, w316, b3.to(BF16))
+    tw = (ze16, ze16.T, wq16.T, w1xc16.T,
+          tuple((b[0].T, b[2].T) for b in blk16), w316.T)
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32,
+                                   device=x.device)
+    acc0 = (z(Z, Dz), z(Da, Dz), z(Da + Dz, H), z(N, H),
+            tuple((z(H, H), z(1, H), z(H, H), z(1, H)) for _ in blocks),
+            z(H, Da), z(1, Da))
+    gx, gtf, acc = stage_vjp_math(a, inter, acc0, tw, scale, Da)
+    (gze, gWq, gW1xc, ghp, gblk, gW3, gb3) = acc
+    # hpre = hb @ W1h: gh per agent, gW1h summed over agents
+    ghp16 = ghp.to(BF16)
+    gh = _dot(ghp16, w1h16.T)
+    gW1h = _nt_dot(hb, ghp16)
+    gblocks = tuple((g1, gb1[0], g2, gb2[0]) for (g1, gb1, g2, gb2) in gblk)
+    return f, gx, gh, gze, gtf, gWq, gW1xc, gW1h, gblocks, gW3, gb3[0]
+
+
+def _check(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a):
+    """Validate the operands; returns (N, Da, Z, Dz, Dc, H)."""
+    N, Da = x.shape
+    Z, Dz = ze.shape
+    Dc = h.shape[1]
+    H = W1xc.shape[1]
+    want = {
+        "x": (x, (N, Da)), "h": (h, (N, Dc)), "a": (a, (N, Da)),
+        "ze": (ze, (Z, Dz)), "tf_row": (tf_row, (1, H)),
+        "Wq": (Wq, (Da, Dz)), "W1xc": (W1xc, (Da + Dz, H)),
+        "W1h": (W1h, (Dc, H)), "W3": (W3, (H, Da)), "b3": (b3, (Da,)),
+    }
+    for i, (wr1, br1, wr2, br2) in enumerate(blocks):
+        want[f"Wr1[{i}]"] = (wr1, (H, H))
+        want[f"br1[{i}]"] = (br1, (H,))
+        want[f"Wr2[{i}]"] = (wr2, (H, H))
+        want[f"br2[{i}]"] = (br2, (H,))
+    for name, (t, shape) in want.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, "
+                             f"got {tuple(t.shape)}")
+    if len(blocks) < 1:
+        raise ValueError("the adjoint RHS kernel needs >= 1 residual block")
+    if Z < 1:
+        raise ValueError("ze must hold at least one zone")
+    return N, Da, Z, Dz, Dc, H
+
+
+def grad_layout(Z, Dz, Da, Dc, H, num_blocks):
+    """Names and shapes of the summed gradients, in the order the kernel
+    writes them into one float32 vector."""
+    out = [("gze", (Z, Dz)), ("gtf", (1, H)), ("gWq", (Da, Dz)),
+           ("gW1xc", (Da + Dz, H)), ("gW1h", (Dc, H))]
+    for i in range(num_blocks):
+        out += [(f"gWr1[{i}]", (H, H)), (f"gbr1[{i}]", (H,)),
+                (f"gWr2[{i}]", (H, H)), (f"gbr2[{i}]", (H,))]
+    return out + [("gW3", (H, Da)), ("gb3", (Da,))]
+
+
+def drift_rhs_and_vjp(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a):
+    """One drift evaluation and its VJP at ``a``. Arguments and result as
+    :func:`drift_rhs_and_vjp_reference`.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel of
+    ``csrc/fused_rhs.cu`` or raise (widths it is not compiled for, too
+    many blocks, a refused launch); there is no fallback. The summed
+    gradients are deterministic: the same operands give the same bits.
+    ``.launches`` counts the kernel launches.
+    """
+    N, Da, Z, Dz, Dc, H = _check(x, h, ze, tf_row, Wq, W1xc, W1h, blocks,
+                                 W3, b3, a)
+    if x.device.type == "cpu":
+        return drift_rhs_and_vjp_reference(x, h, ze, tf_row, Wq, W1xc, W1h,
+                                           blocks, W3, b3, a)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if (Da, Dz, Dc, H) not in KERNEL_WIDTHS:
+        raise ValueError(
+            f"the CUDA adjoint RHS kernel is compiled for (agent, zone, "
+            f"context, hidden) widths {KERNEL_WIDTHS}, got {(Da, Dz, Dc, H)}"
+        )
+    nb = len(blocks)
+    if nb > MAX_KERNEL_BLOCKS:
+        raise ValueError(f"the CUDA adjoint RHS kernel takes at most "
+                         f"{MAX_KERNEL_BLOCKS} residual blocks")
+    dev = x.device
+    f = torch.empty((N, Da), dtype=torch.float32, device=dev)
+    gx = torch.empty_like(f)
+    gh = torch.empty((N, Dc), dtype=torch.float32, device=dev)
+    layout = grad_layout(Z, Dz, Da, Dc, H, nb)
+    sizes = [int(np.prod(s)) for _, s in layout]
+    gsum = torch.zeros((sum(sizes),), dtype=torch.float32, device=dev)
+    if N > 0:
+        _launch(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a,
+                f, gx, gh, gsum)
+    parts = [p.view(s) for p, (_, s) in zip(torch.split(gsum, sizes),
+                                             layout)]
+    gze, gtf, gWq, gW1xc, gW1h = parts[:5]
+    gblocks = tuple(tuple(parts[5 + 4 * i: 9 + 4 * i]) for i in range(nb))
+    gW3, gb3 = parts[5 + 4 * nb:]
+    return f, gx, gh, gze, gtf, gWq, gW1xc, gW1h, gblocks, gW3, gb3
+
+
+drift_rhs_and_vjp.launches = 0
+
+
+def _launch(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a,
+            f, gx, gh, gsum):
+    from ananke_abm_tpu_torch.ops.cuda._build import load_library
+
+    lib = load_library("fused_rhs")
+    N = x.shape[0]
+    Z, Dz = ze.shape
+    Da, Dc, H = x.shape[1], h.shape[1], W1xc.shape[1]
+    nb = len(blocks)
+    dev = x.device
+    c16 = lambda w: w.to(BF16).contiguous()
+    # the kernel reads each weight both ways: (out, in) rows for the
+    # forward products and (in, out) rows for the backward ones, so that
+    # one 32-bit load gives the two bf16 of an mma B-fragment register;
+    # zones are padded to a multiple of 16 with zero rows (masked)
+    zp = -(-Z // 16) * 16
+    ze_p = torch.zeros((zp, Dz), dtype=BF16, device=dev)
+    ze_p[:Z] = ze
+    mats = [w for blk in blocks for w in (blk[0], blk[2])]
+    ops = [
+        x.contiguous(), h.contiguous(), a.contiguous(), ze_p,
+        ze_p.T.contiguous(), tf_row.float().contiguous(),
+        c16(Wq.T), c16(Wq), c16(W1xc.T), c16(W1xc), c16(W1h.T), c16(W1h),
+        torch.stack([w.T for w in mats]).to(BF16).contiguous(),
+        torch.stack(mats).to(BF16).contiguous(),
+        torch.stack([b for blk in blocks for b in (blk[1], blk[3])]).to(
+            BF16).contiguous(),
+        c16(W3.T), c16(W3), c16(b3),
+        f, gx, gh,
+    ]
+    # agent rows per tile: the kernel's choice for this depth
+    rows = lib.ananke_drift_rhs_tile_rows(nb)
+    num_ctas = min(NUM_SLABS, -(-N // rows))
+    slabs = torch.empty((num_ctas, gsum.numel()), dtype=torch.float32,
+                        device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.ananke_drift_rhs_and_vjp(
+            *[t.data_ptr() for t in ops], slabs.data_ptr(), gsum.data_ptr(),
+            N, Z, zp, nb, num_ctas, Da, Dz, Dc, H, stream,
+        )
+    if err != 0:
+        name = lib.ananke_cuda_error_string(err) or b"unknown"
+        raise RuntimeError(
+            f"drift_rhs_and_vjp: CUDA launch failed with error {err} "
+            f"({name.decode()})"
+        )
+    drift_rhs_and_vjp.launches += 1
+
+
+def make_fused_adjoint_rhs(model, drift_vjp=None):
+    """``(rhs, rhs_vjp)`` for ``ode.odeint_adjoint`` over the GAT-ODE drift
+    with ``args = (params, h, zone_emb)``, ``params`` the tuple of every
+    model parameter in :func:`flax_leaf_params` order.
+
+    ``rhs`` runs :func:`drift_rhs_fused`. ``rhs_vjp`` runs ``drift_vjp``
+    (default :func:`drift_rhs_and_vjp`) and scatters the weight
+    cotangents into a gradient for every parameter in the same order:
+    the drift's from the kernel, Dense_0's time rows and bias through
+    :func:`time_row`, exact zeros for the parameters the drift never
+    reads (the encoder's, the context's, the decode's).
+    """
+    drift_vjp = drift_vjp or drift_rhs_and_vjp
+    paths = [p for p, _ in flax_leaf_params(model)]
+    split_drift_params(dict(flax_leaf_params(model)))  # raises early
+    n_dense = 2 + 2 * model.num_blocks
+
+    def prep(params, t):
+        (Wq, W1xc, W1h, W1t, b1, blocks, W3, b3) = split_drift_params(
+            dict(zip(paths, params)))
+        return (Wq, W1xc, W1h, blocks, W3, b3), time_row(t, W1t, b1)
+
+    def rhs(t, x, args):
+        params, h, zone_emb = args
+        w, tf = prep(params, t)
+        return drift_rhs_fused(x, h, zone_emb, tf, *w)
+
+    def rhs_vjp(t, x, args, a):
+        params, h, zone_emb = args
+        (Wq, W1xc, W1h, blocks, W3, b3), tf = prep(params, t)
+        (f, gx, gh, gze, gtf, gWq, gW1xc, gW1h, gblocks, gW3,
+         gb3) = drift_vjp(x, h, zone_emb, tf, Wq, W1xc, W1h, blocks, W3,
+                          b3, a)
+        # tf = tfeat @ W1t + b1
+        gW1t = time_features(t, x.device)[:, None] * gtf
+        grads = {
+            ("query_proj", "kernel"): gWq.T,
+            ("drift", "Dense_0", "kernel"): torch.cat(
+                [gW1xc, gW1h, gW1t]).T,
+            ("drift", "Dense_0", "bias"): gtf[0],
+            ("drift", f"Dense_{n_dense - 1}", "kernel"): gW3.T,
+            ("drift", f"Dense_{n_dense - 1}", "bias"): gb3,
+        }
+        for i, (g1, gb1, g2, gb2) in enumerate(gblocks):
+            grads[("drift", f"Dense_{1 + 2 * i}", "kernel")] = g1.T
+            grads[("drift", f"Dense_{1 + 2 * i}", "bias")] = gb1
+            grads[("drift", f"Dense_{2 + 2 * i}", "kernel")] = g2.T
+            grads[("drift", f"Dense_{2 + 2 * i}", "bias")] = gb2
+        gparams = tuple(grads[p] if p in grads else torch.zeros_like(w)
+                        for p, w in zip(paths, params))
+        return f, gx, (gparams, gh, gze)
+
+    return rhs, rhs_vjp
+
+
+__all__ = [
+    "split_drift_params", "time_row", "drift_rhs_fused",
+    "drift_rhs_and_vjp_reference", "drift_rhs_and_vjp",
+    "make_fused_adjoint_rhs",
+]

@@ -100,28 +100,112 @@ def _dot(a16, b16):
     return a16.float() @ b16.float()
 
 
+def _nt_dot(a16, b16):
+    """(N, I), (N, O) bf16 -> (I, O) float32: contract the agent axis
+    (the weight gradients)."""
+    return a16.float().T @ b16.float()
+
+
 def stage_math(xb, hpre, tfp_row, ze, scale, wq, w1xc, blocks, w3, b3):
-    """One drift-RHS evaluation of the interval kernel (forward only).
+    """One drift-RHS evaluation: the one copy of the stage math, shared by
+    the interval kernel's and the adjoint RHS kernel's plain versions.
 
     xb: (N, Da) bf16 stage input; hpre: (N, H) float32 h-row
     pre-activation; tfp_row: (1, H) float32 time-row pre-activation;
-    ze: (Z, Dz) bf16. Returns k (N, Da) float32.
+    ze: (Z, Dz) bf16. Returns (k (N, Da) float32, intermediates): the
+    intermediates are ``(q16, attn16, ((z_in16, rt16, z_out16) per
+    block), feats)``, all bf16, for :func:`stage_vjp_math`.
     """
     q = _dot(xb, wq)
-    scores = _dot(q.to(BF16), ze.T) * scale
+    q16 = q.to(BF16)
+    scores = _dot(q16, ze.T) * scale
     # max-free softmax: the max subtraction cancels in the ratio; the
     # clamp guards float32 overflow for scores > 80
     p_att = torch.exp(torch.clamp_max(scores, 80.0))
     inv = 1.0 / torch.sum(p_att, dim=-1, keepdim=True)
     # normalised AFTER the context product, as the reference kernel does
     ctx = _dot(p_att.to(BF16), ze) * inv
+    attn16 = (p_att * inv).to(BF16)
     feats = torch.cat([xb, ctx.to(BF16)], dim=-1)
     z = torch.tanh(_dot(feats, w1xc) + hpre + tfp_row)
+    block_inter = []
     for (wr1, br1, wr2, br2) in blocks:
-        rt = torch.tanh(_dot(z.to(BF16), wr1) + br1.float())
-        r3 = _dot(rt.to(BF16), wr2) + br2.float()
+        z_in16 = z.to(BF16)
+        rt = torch.tanh(_dot(z_in16, wr1) + br1.float())
+        rt16 = rt.to(BF16)
+        r3 = _dot(rt16, wr2) + br2.float()
         z = torch.tanh(z + r3)
-    return _dot(z.to(BF16), w3) + b3.float()
+        block_inter.append((z_in16, rt16, z.to(BF16)))
+    k = _dot(z.to(BF16), w3) + b3.float()
+    return k, (q16, attn16, tuple(block_inter), feats)
+
+
+def stage_vjp_math(gk, inter, acc, tw, scale, Da):
+    """The VJP of one :func:`stage_math` evaluation at cotangent ``gk``
+    (N, Da) float32, with the rounding points of the reference's
+    ``_stage_vjp_math``: cotangents are rounded to bf16 before each
+    product, ``tanh'`` is recomputed from the bf16 activation, bias and
+    time-row gradients are float32 sums.
+
+    inter: from :func:`stage_math`. acc: float32 accumulators
+    ``(gze, gwq, gw1, ghp, blocks, gw3, gb3)`` (``blocks``: per block
+    ``(gwr1, gbr1, gwr2, gbr2)``; ``ghp`` (N, H), the rest summed over
+    agents). tw: bf16 ``(ze, ze.T, wq.T, w1xc.T, ((wr1.T, wr2.T) per
+    block), w3.T)``. Returns ``(gx, gtf (1, H), acc')``.
+    """
+    (ze16, zeT, wqT, w1xcT, blkT, w3T) = tw
+    (q16, attn16, block_inter, feats) = inter
+    (gzeA, gwqA, gw1A, ghpA, blkA, gw3A, gb3A) = acc
+    gk16 = gk.to(BF16)
+    # k = z_out @ W3 + b3
+    gw3A = gw3A + _nt_dot(block_inter[-1][2], gk16)
+    gb3A = gb3A + torch.sum(gk, dim=0, keepdim=True)
+    gz = _dot(gk16, w3T)
+    # residual blocks, reversed: z_out = tanh(z_in + rt @ Wr2 + br2)
+    blkA = list(blkA)
+    for b in range(len(blkT) - 1, -1, -1):
+        z_in16, rt16, zo16 = block_inter[b]
+        (gwr1A, gbr1A, gwr2A, gbr2A) = blkA[b]
+        wr1T, wr2T = blkT[b]
+        zo = zo16.float()
+        gpre = gz * (1.0 - zo * zo)
+        gp16 = gpre.to(BF16)
+        gwr2A = gwr2A + _nt_dot(rt16, gp16)
+        gbr2A = gbr2A + torch.sum(gpre, dim=0, keepdim=True)
+        grt = _dot(gp16, wr2T)
+        rt = rt16.float()
+        gpre2 = grt * (1.0 - rt * rt)
+        gp216 = gpre2.to(BF16)
+        gwr1A = gwr1A + _nt_dot(z_in16, gp216)
+        gbr1A = gbr1A + torch.sum(gpre2, dim=0, keepdim=True)
+        gz = gpre + _dot(gp216, wr1T)
+        blkA[b] = (gwr1A, gbr1A, gwr2A, gbr2A)
+    # z1 = tanh(feats @ W1xc + hpre + tfp_row), the first block's input
+    z1 = block_inter[0][0].float()
+    gpre1 = gz * (1.0 - z1 * z1)
+    gp116 = gpre1.to(BF16)
+    gw1A = gw1A + _nt_dot(feats, gp116)
+    ghpA = ghpA + gpre1
+    gtf = torch.sum(gpre1, dim=0, keepdim=True)
+    gfeats = _dot(gp116, w1xcT)
+    gxb = gfeats[:, :Da]
+    gctx16 = gfeats[:, Da:].to(BF16)
+    # ctx = attn @ ze
+    gzeA = gzeA + _nt_dot(attn16, gctx16)
+    gattn = _dot(gctx16, zeT)
+    # softmax VJP (the max-free form has the same Jacobian)
+    attn = attn16.float()
+    ds = attn * (gattn - torch.sum(attn * gattn, dim=-1, keepdim=True)) \
+        * scale
+    ds16 = ds.to(BF16)
+    # scores = (q @ ze.T) * scale
+    gq = _dot(ds16, ze16)
+    gzeA = gzeA + _nt_dot(ds16, q16)
+    # q = xb @ Wq
+    gq16 = gq.to(BF16)
+    gwqA = gwqA + _nt_dot(feats[:, :Da], gq16)
+    gx = gxb + _dot(gq16, wqT)
+    return gx, gtf, (gzeA, gwqA, gw1A, ghpA, tuple(blkA), gw3A, gb3A)
 
 
 def decode_ids_bf16(x, wd_bf16, ze_bf16):
@@ -156,8 +240,9 @@ def rk4_interval_decode_reference(x, h, ze_bf16, weights_bf16, wd_bf16,
     h_pre = _dot(h.to(BF16), W1h)
 
     def rhs(xc, stage):
-        return stage_math(xc.to(BF16), h_pre, tf_pre[stage][None, :],
+        k, _ = stage_math(xc.to(BF16), h_pre, tf_pre[stage][None, :],
                           ze_bf16, scale, Wq, W1xc, blocks, W3, b3)
+        return k
 
     xs = x
     for s in range(tf_pre.shape[0] // 4):
@@ -262,7 +347,7 @@ rk4_interval_decode_fused.launches = 0
 def _launch(x, h, ze, weights, wd, tf_pre, dt_sub, x_new, ids):
     from ananke_abm_tpu_torch.ops.cuda._build import load_library
 
-    lib = load_library()
+    lib = load_library("fused_step")
     (Wq, W1xc, W1h, _W1t, _b1, blocks, W3, b3) = weights
     N, Da = x.shape
     Z, Dz = ze.shape
@@ -300,6 +385,6 @@ def _launch(x, h, ze, weights, wd, tf_pre, dt_sub, x_new, ids):
 
 __all__ = [
     "pack_weights_bf16", "interval_stage_times", "time_feature_table",
-    "stage_math", "decode_ids_bf16", "rk4_interval_decode_reference",
+    "stage_math", "stage_vjp_math", "decode_ids_bf16", "rk4_interval_decode_reference",
     "rk4_interval_decode_fused",
 ]

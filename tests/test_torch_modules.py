@@ -8,6 +8,7 @@ import torch
 
 from _torch_port import make_pair, t32, tlong
 from ananke_abm_tpu.ode.rk4 import rk4_solve as jax_rk4_solve
+from ananke_abm_tpu_torch.models.gnn_embed import train as ttrain
 from ananke_abm_tpu_torch.ode.rk4 import rk4_solve
 
 # per-call modules: float32 rounding only
@@ -141,5 +142,8 @@ def test_sparse_and_adaptive_paths_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         pair.tmodel.encode_zones(zf, adj, edge_index=(tlong([0]),
                                                       tlong([0])))
+    # the adaptive forward is ported; the discrete adjoint is not yet
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        pair.tmodel(zf, adj, pf, hz, times, ode_method="dopri5")
+        ttrain.build_adjoint_loss_fn_g(pair.tmodel, pair.tcfg,
+                                       (zf, adj, times),
+                                       adjoint_mode="discrete")
