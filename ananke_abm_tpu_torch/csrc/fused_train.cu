@@ -1,0 +1,709 @@
+// The fixed-step training day of the GAT-ODE on Hopper (sm_90a): four
+// kernels, each replacing a Pallas TPU kernel of
+// ananke_abm_tpu/ops/pallas/fused_train.py. Plain PyTorch versions:
+// ananke_abm_tpu_torch/ops/cuda/fused_train.py::*_reference.
+//
+// K2f day_fwd_kernel  <- _day_fwd_impl. The whole RK4 day per agent tile:
+//   S substeps of 4 stages (drift_stage.cuh's stage_forward), every substep
+//   carry written to xs_all (S+1, N, DA) f32. Work ~26 kFLOP per agent and
+//   stage at Z=500 against ~128 bytes of carry written per agent and
+//   substep: compute-bound, like the serving kernel. Each warp owns 16 rows
+//   end to end; the state and the RK4 sum stay in registers.
+//
+// K2b day_bwd_kernel  <- _day_bwd_impl. The reverse sweep. The Pallas
+//   kernel recomputes a substep's four stages and keeps all their
+//   intermediates on chip; one stage's take ~130 KB of shared memory per
+//   64-row tile here, so four do not fit in an SM's 227 KB. Per substep,
+//   in reverse, this kernel runs stages 1-3 forward keeping only their f32
+//   k (DA per row, in shared memory), then for stage 4 -> 1 recomputes the
+//   stage from its input x + c dt k (stage_forward) and runs its VJP
+//   (stage_backward). That is 7 stage forwards per substep where the
+//   Pallas kernel runs 4 (~+35% FLOPs). The row state (x, the cotangent
+//   carry g, the three k and the stage gx that replace them, and the per-row
+//   sum of Dense_0's h-row gradient) stays in shared memory in fragment
+//   order across the sweep. Summed gradients (zone embeddings, the (S, 4,
+//   H) time table, the weights) go into per-CTA slabs in device memory,
+//   zeroed by the caller, then summed in CTA order: no atomics, the same
+//   operands give the same bits. Every stage VJP adds into the slab (~130k
+//   floats at Z=500, read and written per stage and tile): at bench rung 2
+//   ~45 GB of traffic, about 14 ms at 3.35 TB/s, against a compute bound of
+//   ~2.4 ms and a kernel far slower than both (mma.sync at one 4-warp CTA
+//   per SM): the slab traffic is not what bounds it yet.
+//
+// K3f ce_fwd_kernel   <- _ce_fwd_impl. Per row: d = bf16(x) @ Wd, logits =
+//   bf16(d) @ ze^T by zone chunks, a max-subtracted log-sum-exp (one pass
+//   for the max, the first-index argmax and the target logit, one for the
+//   sum), nll and the correct flag. The logits never reach device memory.
+//   ~70 kFLOP per row at Z=500 against ~140 bytes: compute-bound.
+//
+// K3b ce_bwd_kernel   <- _ce_bwd_impl. Per row it recomputes d and the
+//   log-sum-exp, then per 16-zone chunk grow = bf16((p - onehot) g_nll):
+//   gd += grow @ ze per row, gze += grow^T d16 summed over the tile's rows
+//   (ldmatrix.trans agent contraction into the CTA's slab); then gx =
+//   bf16(gd) @ Wd^T per row and gWd += bf16(x)^T bf16(gd). Slabs as K2b.
+//
+// The stage attention is max-free and clamped at 80; the decode's softmax
+// subtracts the max: both as in the reference.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "drift_stage.cuh"
+
+namespace {
+
+using namespace ananke;
+
+constexpr int kMaxBlocks = 8;
+constexpr int kFwdWarps = 4;  // K2f, K3f: 64 rows per block
+constexpr int kCeWarps = 4;   // K3b: 64 rows per tile
+
+struct DayFwdParams {
+  StageWeights w;
+  const float* x0;   // (n, DA)
+  const float* h;    // (n, DC)
+  const float* tf;   // (steps, 4, H)
+  const float* dts;  // (steps)
+  float* xs;         // (steps + 1, n, DA)
+  int n, steps;
+};
+
+struct DayBwdParams {
+  StageWeights w;
+  const float* xs;   // (steps + 1, n, DA)
+  const float* gxs;  // (steps + 1, n, DA)
+  const float* h;    // (n, DC)
+  const float* tf;   // (steps, 4, H)
+  const float* dts;  // (steps)
+  float* gx0;        // (n, DA), without gxs[0]
+  float* gh;         // (n, DC)
+  float* slab;       // (num_ctas, slab_size), zeroed
+  float* gsum;       // (slab_size)
+  int n, steps, num_ctas;
+  long slab_size;
+};
+
+// xa = bf16(x + c * k) (separate multiply and add, no fma: the rounding of
+// the reference), or bf16(x) when `plain`; x and k per-warp fragment arrays
+template <int DA>
+__device__ __forceinline__ void stage_input(uint32_t (&xa)[DA / 16][4],
+                                            const float* fx, const float* fk,
+                                            float c, bool plain, int lane) {
+  float xin[DA / 8][4];
+  frag_ld<DA / 8>(xin, fx, lane);
+  if (!plain) {
+    float k[DA / 8][4];
+    frag_ld<DA / 8>(k, fk, lane);
+#pragma unroll
+    for (int j = 0; j < DA / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        xin[j][i] = __fadd_rn(xin[j][i], __fmul_rn(c, k[j][i]));
+  }
+  c_to_a<DA>(xin, xa);
+}
+
+// ---- K2f ---------------------------------------------------------------------
+template <int DA, int DZ, int DC, int H>
+__global__ void __launch_bounds__(32 * kFwdWarps)
+    day_fwd_kernel(const DayFwdParams p) {
+  constexpr int W = kFwdWarps, ROWS = 16 * W;
+  constexpr int NX = DA / 8, KC = DC / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const StageSmem sm = stage_smem_forward<DA, DZ, DC, H, W>(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, wr0 = warp * 16;
+  const long ra = (long)blockIdx.x * ROWS + wr0 + g, rb = ra + 8;
+  const bool va = ra < p.n, vb = rb < p.n;
+  const size_t plane = (size_t)p.n * DA;
+
+  float xs[NX][4];
+  ldg_rows_c<NX>(xs, p.x0, ra, rb, va, vb, t);
+  stg_rows_c<NX>(xs, p.xs, ra, rb, va, vb, t);
+  uint32_t ha[KC][4];
+  ldg_rows_a<DC>(ha, p.h, ra, rb, va, vb, t);
+
+  // k: the last stage's derivative; ksum: k1 + 2 k2 + 2 k3 + k4
+  float k[NX][4], ksum[NX][4];
+  zero(k);
+  zero(ksum);
+  for (int st = 0; st < 4 * p.steps; ++st) {
+    const int r = st & 3, s = st >> 2;
+    const float dt = p.dts[s];
+    const float cr = (r == 0) ? 0.f : ((r == 3) ? dt : dt * 0.5f);
+    uint32_t xa[NX / 2][4];
+    {
+      float xin[NX][4];
+#pragma unroll
+      for (int j = 0; j < NX; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          xin[j][c] = (r == 0) ? xs[j][c]
+                               : __fadd_rn(xs[j][c], __fmul_rn(cr, k[j][c]));
+      c_to_a<DA>(xin, xa);
+    }
+    float inv_a, inv_b;
+    stage_forward<DA, DZ, DC, H, W>(p.w, sm, xa, ha, p.tf + (size_t)st * H,
+                                    k, inv_a, inv_b, wr0, g, t);
+    const float wgt = (r == 1 || r == 2) ? 2.0f : 1.0f;
+#pragma unroll
+    for (int j = 0; j < NX; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        ksum[j][c] = (r == 0) ? k[j][c]
+                              : __fadd_rn(ksum[j][c], __fmul_rn(wgt, k[j][c]));
+    if (r == 3) {
+      const float sixth = dt / 6.0f;
+#pragma unroll
+      for (int j = 0; j < NX; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          xs[j][c] = __fadd_rn(xs[j][c], __fmul_rn(sixth, ksum[j][c]));
+      stg_rows_c<NX>(xs, p.xs + (size_t)(s + 1) * plane, ra, rb, va, vb, t);
+    }
+  }
+}
+
+// ---- K2b ---------------------------------------------------------------------
+template <int DA, int DZ, int DC, int H, int W>
+__global__ void __launch_bounds__(32 * W)
+    day_bwd_kernel(const DayBwdParams p) {
+  constexpr int ROWS = 16 * W;
+  constexpr int NX = DA / 8, KX = DA / 16;
+  constexpr int NC = DC / 8, KC = DC / 16;
+  constexpr int NH = H / 8, KH = H / 16;
+  constexpr int FX = NX * 4 * 32;  // floats of one per-warp row array
+  using L = Layout<DA, DZ, DC, H>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nb = p.w.num_blocks;
+  const StageSmem sm = stage_smem<DA, DZ, DC, H, W>(smem_raw, nb);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, wr0 = warp * 16;
+  // the warp's row state in fragment order: x | g | k slots 0-2 | ghp
+  float* fx = reinterpret_cast<float*>(sm.end) + (size_t)warp * (5 * FX + NH * 4 * 32);
+  float* fg = fx + FX;
+  float* fk = fg + FX;
+  float* fghp = fk + 3 * FX;
+  const Slab<DA, DZ, DC, H> sl(p.w.z, nb, 4 * p.steps);
+  float* slab = p.slab + (size_t)blockIdx.x * p.slab_size;
+  const int n_tiles = (p.n + ROWS - 1) / ROWS;
+  const size_t plane = (size_t)p.n * DA;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += p.num_ctas) {
+    const long ra = (long)tile * ROWS + wr0 + g, rb = ra + 8;
+    const bool va = ra < p.n, vb = rb < p.n;
+    uint32_t ha[KC][4];
+    ldg_rows_a<DC>(ha, p.h, ra, rb, va, vb, t);
+    for (int i = 0; i < NH * 4; ++i) fghp[i * 32 + lane] = 0.f;
+    for (int i = 0; i < NX * 4; ++i) fg[i * 32 + lane] = 0.f;
+
+    for (int s = p.steps - 1; s >= 0; --s) {
+      const float dt = p.dts[s];
+      const float half = dt * 0.5f, third = dt / 3.0f, sixth = dt / 6.0f;
+      const float* tfs = p.tf + (size_t)4 * s * H;
+      // x = xs[s]; g += gxs[s + 1]
+      {
+        float v[NX][4], gc[NX][4];
+        ldg_rows_c<NX>(v, p.xs + (size_t)s * plane, ra, rb, va, vb, t);
+        frag_st<NX>(v, fx, lane);
+        ldg_rows_c<NX>(v, p.gxs + (size_t)(s + 1) * plane, ra, rb, va, vb, t);
+        frag_ld<NX>(gc, fg, lane);
+#pragma unroll
+        for (int j = 0; j < NX; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) gc[j][c] = gc[j][c] + v[j][c];
+        frag_st<NX>(gc, fg, lane);
+      }
+      // stages 1-3 forward: k_r = f(x + c_r k_{r-1}) into slot r
+      for (int r = 0; r < 3; ++r) {
+        uint32_t xa[KX][4];
+        stage_input<DA>(xa, fx, fk + (r > 0 ? r - 1 : 0) * FX, half, r == 0,
+                        lane);
+        float k[NX][4], ia, ib;
+        stage_forward<DA, DZ, DC, H, W>(p.w, sm, xa, ha, tfs + r * H, k, ia,
+                                        ib, wr0, g, t);
+        frag_st<NX>(k, fk + r * FX, lane);
+      }
+      // stages 4 -> 1: recompute the stage, then its VJP. The input of
+      // stage r reads k_{r-1} (slot r-1); once read, the slot takes this
+      // stage's gx, which the next (earlier) stage's cotangent reads.
+      for (int r = 3; r >= 0; --r) {
+        uint32_t xa[KX][4];
+        stage_input<DA>(xa, fx, fk + (r > 0 ? r - 1 : 0) * FX,
+                        r == 3 ? dt : half, r == 0, lane);
+        // gk4 = dt/6 g; gk3 = dt/3 g + dt gx4; gk2 = dt/3 g + dt/2 gx3;
+        // gk1 = dt/6 g + dt/2 gx2
+        float gk[NX][4];
+        {
+          const float cg = (r == 3 || r == 0) ? sixth : third;
+          frag_ld<NX>(gk, fg, lane);
+          if (r == 3) {
+#pragma unroll
+            for (int j = 0; j < NX; ++j)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) gk[j][c] = __fmul_rn(cg, gk[j][c]);
+          } else {
+            const float cx = (r == 2) ? dt : half;
+            float gn[NX][4];
+            frag_ld<NX>(gn, fk + r * FX, lane);
+#pragma unroll
+            for (int j = 0; j < NX; ++j)
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                gk[j][c] = __fadd_rn(__fmul_rn(cg, gk[j][c]),
+                                     __fmul_rn(cx, gn[j][c]));
+          }
+        }
+        float k[NX][4], ia, ib, gx[NX][4];
+        stage_forward<DA, DZ, DC, H, W>(p.w, sm, xa, ha, tfs + r * H, k, ia,
+                                        ib, wr0, g, t);
+        stage_backward<DA, DZ, DC, H, W, true>(
+            p.w, sm, gk, ha, ia, ib, slab, sl, sl.gtf + (long)(4 * s + r) * H,
+            false, gx, nullptr, ra, rb, va, vb, fghp, warp, lane);
+        if (r > 0) {
+          frag_st<NX>(gx, fk + (r - 1) * FX, lane);
+        } else {
+          // g = g + gx1 + gx2 + gx3 + gx4, in the reference's order
+          float gc[NX][4], v[NX][4];
+          frag_ld<NX>(gc, fg, lane);
+#pragma unroll
+          for (int j = 0; j < NX; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) gc[j][c] = gc[j][c] + gx[j][c];
+          for (int i = 0; i < 3; ++i) {
+            frag_ld<NX>(v, fk + i * FX, lane);
+#pragma unroll
+            for (int j = 0; j < NX; ++j)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) gc[j][c] = gc[j][c] + v[j][c];
+          }
+          frag_st<NX>(gc, fg, lane);
+        }
+      }
+    }
+
+    // gx0 = g; hpre = bf16(h) @ W1h: gh = bf16(ghp) @ W1h^T per row,
+    // gW1h = bf16(h)^T bf16(ghp) summed
+    {
+      float gc[NX][4];
+      frag_ld<NX>(gc, fg, lane);
+      stg_rows_c<NX>(gc, p.gx0, ra, rb, va, vb, t);
+      float gp[NH][4];
+      frag_ld<NH>(gp, fghp, lane);
+      uint32_t g1a[KH][4];
+      c_to_a<H>(gp, g1a);
+      sts_a<H>(g1a, sm.g + wr0 * L::SH, L::SH, g, t);
+      sts_a<DC>(ha, sm.small + wr0 * L::SS, L::SS, g, t);
+      float ghh[NC][4];
+      zero(ghh);
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+        mma_nblocks<H, 1>(ghh, j, g1a, p.w.w1h + (size_t)8 * j * H, g, t);
+      stg_rows_c<NC>(ghh, p.gh, ra, rb, va, vb, t);
+    }
+    __syncthreads();
+    nt_dot1<DC, H, ROWS, W>(sm.small, L::SS, sm.g, L::SH, slab + sl.gw1h,
+                            false, warp, lane);
+    __syncthreads();
+  }
+}
+
+// ---- K3f / K3b: the decode head's cross-entropy -------------------------------
+struct CeParams {
+  const float* x;      // (m, DA)
+  const int* tgt;      // (m)
+  const float* gnll;   // (m), backward only
+  const bf16* wdT;     // (DZ, DA)
+  const bf16* wd;      // (DA, DZ)
+  const bf16* ze;      // (zp, DZ), zero rows past z
+  const bf16* zeT;     // (DZ, zp)
+  float* nll;          // (m)
+  int* correct;        // (m)
+  float* gx;           // (m, DA)
+  float* slab;         // (num_ctas, slab_size): gze (z, DZ) | gWd (DA, DZ)
+  float* gsum;         // (slab_size)
+  int m, z, zp, num_ctas;
+  long slab_size;
+};
+
+// d = bf16(x) @ Wd for the warp's 16 rows -> bf16 A fragments
+template <int DA, int DZ>
+__device__ __forceinline__ void decode_rows(uint32_t (&dA)[DZ / 16][4],
+                                            const uint32_t (&xa)[DA / 16][4],
+                                            const bf16* wdT, int g, int t) {
+  float d[DZ / 8][4];
+  zero(d);
+#pragma unroll
+  for (int j = 0; j < DZ / 8; ++j)
+    mma_nblocks<DA, 1>(d, j, xa, wdT + (size_t)8 * j * DA, g, t);
+  c_to_a<DZ>(d, dA);
+}
+
+// per row (g: .a, g+8: .b) the max logit over valid zones, its first index
+// and the target's logit, reduced over the 4 lanes that share the rows
+struct RowMax {
+  float mx_a, mx_b, lt_a, lt_b;
+  int id_a, id_b;
+};
+
+template <int DZ>
+__device__ __forceinline__ RowMax row_max(const uint32_t (&dA)[DZ / 16][4],
+                                          const bf16* ze, int z, int zp,
+                                          int ta, int tb, int g, int t) {
+  RowMax m = {-INFINITY, -INFINITY, 0.f, 0.f, 0, 0};
+  for (int z0 = 0; z0 < zp; z0 += 8) {
+    float lg[1][4] = {{0.f, 0.f, 0.f, 0.f}};
+    mma_nblocks<DZ, 1>(lg, 0, dA, ze + (size_t)z0 * DZ, g, t);
+    const float* l = lg[0];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int zi = z0 + 2 * t + c;
+      if (zi < z) {
+        if (l[c] > m.mx_a) { m.mx_a = l[c]; m.id_a = zi; }
+        if (l[2 + c] > m.mx_b) { m.mx_b = l[2 + c]; m.id_b = zi; }
+        if (zi == ta) m.lt_a = l[c];
+        if (zi == tb) m.lt_b = l[2 + c];
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 1; s <= 2; s <<= 1) {
+    const float oa = __shfl_xor_sync(0xffffffffu, m.mx_a, s);
+    const int ia = __shfl_xor_sync(0xffffffffu, m.id_a, s);
+    const float ob = __shfl_xor_sync(0xffffffffu, m.mx_b, s);
+    const int ib = __shfl_xor_sync(0xffffffffu, m.id_b, s);
+    if (oa > m.mx_a || (oa == m.mx_a && ia < m.id_a)) { m.mx_a = oa; m.id_a = ia; }
+    if (ob > m.mx_b || (ob == m.mx_b && ib < m.id_b)) { m.mx_b = ob; m.id_b = ib; }
+    m.lt_a += __shfl_xor_sync(0xffffffffu, m.lt_a, s);
+    m.lt_b += __shfl_xor_sync(0xffffffffu, m.lt_b, s);
+  }
+  return m;
+}
+
+// per row sum over valid zones of exp(logit - max), reduced over the lanes
+template <int DZ>
+__device__ __forceinline__ void row_sumexp(const uint32_t (&dA)[DZ / 16][4],
+                                           const bf16* ze, int z, int zp,
+                                           float mx_a, float mx_b, float& s_a,
+                                           float& s_b, int g, int t) {
+  s_a = 0.f;
+  s_b = 0.f;
+  for (int z0 = 0; z0 < zp; z0 += 8) {
+    float lg[1][4] = {{0.f, 0.f, 0.f, 0.f}};
+    mma_nblocks<DZ, 1>(lg, 0, dA, ze + (size_t)z0 * DZ, g, t);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (z0 + 2 * t + c < z) {
+        s_a += expf(lg[0][c] - mx_a);
+        s_b += expf(lg[0][2 + c] - mx_b);
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 1; s <= 2; s <<= 1) {
+    s_a += __shfl_xor_sync(0xffffffffu, s_a, s);
+    s_b += __shfl_xor_sync(0xffffffffu, s_b, s);
+  }
+}
+
+template <int DA, int DZ>
+__global__ void __launch_bounds__(32 * kFwdWarps) ce_fwd_kernel(const CeParams p) {
+  constexpr int KX = DA / 16, KZ = DZ / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const long ra = ((long)blockIdx.x * kFwdWarps + warp) * 16 + g, rb = ra + 8;
+  const bool va = ra < p.m, vb = rb < p.m;
+  uint32_t xa[KX][4];
+  ldg_rows_a<DA>(xa, p.x, ra, rb, va, vb, t);
+  uint32_t dA[KZ][4];
+  decode_rows<DA, DZ>(dA, xa, p.wdT, g, t);
+  const int ta = va ? p.tgt[ra] : -1, tb = vb ? p.tgt[rb] : -1;
+  const RowMax m = row_max<DZ>(dA, p.ze, p.z, p.zp, ta, tb, g, t);
+  float s_a, s_b;
+  row_sumexp<DZ>(dA, p.ze, p.z, p.zp, m.mx_a, m.mx_b, s_a, s_b, g, t);
+  if (t == 0) {
+    if (va) {
+      p.nll[ra] = (logf(s_a) + m.mx_a) - m.lt_a;
+      p.correct[ra] = m.id_a == ta ? 1 : 0;
+    }
+    if (vb) {
+      p.nll[rb] = (logf(s_b) + m.mx_b) - m.lt_b;
+      p.correct[rb] = m.id_b == tb ? 1 : 0;
+    }
+  }
+}
+
+template <int DA, int DZ, int W>
+__global__ void __launch_bounds__(32 * W) ce_bwd_kernel(const CeParams p) {
+  constexpr int ROWS = 16 * W;
+  constexpr int NX = DA / 8, KX = DA / 16;
+  constexpr int NZ = DZ / 8, KZ = DZ / 16;
+  constexpr int SX = DA + 8, SZ = DZ + 8, SC = 16 + 8;
+  __shared__ __align__(16) bf16 s_x[ROWS * SX];
+  __shared__ __align__(16) bf16 s_d[ROWS * SZ];
+  __shared__ __align__(16) bf16 s_gr[ROWS * SC];
+  __shared__ __align__(16) bf16 s_gd[ROWS * SZ];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, wr0 = warp * 16;
+  float* slab = p.slab + (size_t)blockIdx.x * p.slab_size;
+  float* slab_gwd = slab + (size_t)p.z * DZ;
+  const int n_tiles = (p.m + ROWS - 1) / ROWS;
+
+  bool first = true;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += p.num_ctas) {
+    const long ra = (long)tile * ROWS + wr0 + g, rb = ra + 8;
+    const bool va = ra < p.m, vb = rb < p.m;
+    uint32_t xa[KX][4];
+    ldg_rows_a<DA>(xa, p.x, ra, rb, va, vb, t);
+    sts_a<DA>(xa, s_x + wr0 * SX, SX, g, t);
+    uint32_t dA[KZ][4];
+    decode_rows<DA, DZ>(dA, xa, p.wdT, g, t);
+    sts_a<DZ>(dA, s_d + wr0 * SZ, SZ, g, t);
+    const int ta = va ? p.tgt[ra] : -1, tb = vb ? p.tgt[rb] : -1;
+    // padded rows carry a zero upstream gradient
+    const float gn_a = va ? p.gnll[ra] : 0.f, gn_b = vb ? p.gnll[rb] : 0.f;
+    const RowMax m = row_max<DZ>(dA, p.ze, p.z, p.zp, ta, tb, g, t);
+    float s_a, s_b;
+    row_sumexp<DZ>(dA, p.ze, p.z, p.zp, m.mx_a, m.mx_b, s_a, s_b, g, t);
+
+    // per 16-zone chunk: grow = bf16((p - onehot) g_nll); gd += grow @ ze;
+    // gze[chunk] += grow^T d16
+    float gd[NZ][4];
+    zero(gd);
+    for (int z0 = 0; z0 < p.zp; z0 += 16) {
+      float sc[2][4];
+      zero(sc);
+      mma_nblocks<DZ, 2>(sc, 0, dA, p.ze + (size_t)z0 * DZ, g, t);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int zi = z0 + 8 * i + 2 * t + (c & 1);
+          const bool b = (c & 2) != 0;
+          float gr = 0.f;
+          if (zi < p.z) {
+            const float pr = expf(sc[i][c] - (b ? m.mx_b : m.mx_a)) /
+                             (b ? s_b : s_a);
+            const float oh = zi == (b ? tb : ta) ? 1.f : 0.f;
+            gr = (pr - oh) * (b ? gn_b : gn_a);
+          }
+          sc[i][c] = gr;
+        }
+      uint32_t gra[1][4];
+      gra[0][0] = pack_bf16(sc[0][0], sc[0][1]);
+      gra[0][1] = pack_bf16(sc[0][2], sc[0][3]);
+      gra[0][2] = pack_bf16(sc[1][0], sc[1][1]);
+      gra[0][3] = pack_bf16(sc[1][2], sc[1][3]);
+      const bf16* zt = p.zeT + z0;
+#pragma unroll
+      for (int j = 0; j < NZ; ++j) {
+        const bf16* rowp = zt + (size_t)(8 * j + g) * p.zp + 2 * t;
+        mma(gd[j], gra[0], ldg32(rowp), ldg32(rowp + 8));
+      }
+      sts_a<16>(gra, s_gr + wr0 * SC, SC, g, t);
+      __syncthreads();
+      nt_dot<16, DZ, ROWS, W, false>(s_gr, SC, s_d, SZ, nullptr, 0, nullptr,
+                                     0, slab + (size_t)z0 * DZ, p.z - z0,
+                                     first, warp, lane);
+      __syncthreads();
+    }
+
+    // d = xb @ Wd: gx = bf16(gd) @ Wd^T; gWd += xb^T bf16(gd)
+    {
+      uint32_t gda[KZ][4];
+      c_to_a<DZ>(gd, gda);
+      sts_a<DZ>(gda, s_gd + wr0 * SZ, SZ, g, t);
+      float gx[NX][4];
+      zero(gx);
+#pragma unroll
+      for (int j = 0; j < NX; ++j)
+        mma_nblocks<DZ, 1>(gx, j, gda, p.wd + (size_t)8 * j * DZ, g, t);
+      stg_rows_c<NX>(gx, p.gx, ra, rb, va, vb, t);
+    }
+    __syncthreads();
+    nt_dot1<DA, DZ, ROWS, W>(s_x, SX, s_gd, SZ, slab_gwd, first, warp, lane);
+    __syncthreads();
+    first = false;
+  }
+}
+
+bool shipping_widths(int da, int dz, int dc, int hdim) {
+  return da == 32 && dz == 64 && dc == 32 && hdim == 128;
+}
+
+template <int W>
+int launch_day_bwd(const DayBwdParams& p, cudaStream_t s) {
+  auto* kernel = day_bwd_kernel<32, 64, 32, 128, W>;
+  constexpr int ROWS = 16 * W;
+  const size_t smem =
+      Layout<32, 64, 32, 128>::bytes(ROWS, W, p.w.num_blocks) +
+      (size_t)W * (5 * 32 + 128) * 16 * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<p.num_ctas, 32 * W, smem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_reduce_slabs(p.slab, p.gsum, p.slab_size, p.num_ctas, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Agent rows per tile of the day's reverse sweep for `num_blocks` residual
+// blocks: 64 (4 warps), or 32 (2 warps) where a 64-row tile's state would
+// not fit in shared memory.
+int ananke_day_bwd_tile_rows(int num_blocks) {
+  return num_blocks <= 3 ? 64 : 32;
+}
+
+// Agent rows per tile of the cross-entropy's backward.
+int ananke_ce_bwd_tile_rows() { return 16 * kCeWarps; }
+
+// Floats of one CTA's slab of the day's reverse sweep.
+long ananke_day_bwd_slab_size(int z, int num_blocks, int steps) {
+  return Slab<32, 64, 32, 128>(z, num_blocks, 4 * steps).size;
+}
+
+// K2f on `stream`: the whole day's RK4 forward, every substep carry into
+// xs. `w` points at the 12 weights in set_weights' order. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for widths
+// this file was not compiled for or bad sizes.
+int ananke_day_forward(const void* x0, const void* h, const void* ze,
+                       const void* zeT, const void* tf, const void* dts,
+                       const void* w0, const void* w1, const void* w2,
+                       const void* w3, const void* w4, const void* w5,
+                       const void* w6, const void* w7, const void* w8,
+                       const void* w9, const void* w10, const void* w11,
+                       void* xs, int n, int z, int zp, int num_blocks,
+                       int steps, int da, int dz, int dc, int hdim,
+                       void* stream) {
+  if (num_blocks < 1 || num_blocks > kMaxBlocks || n < 1 || z < 1 ||
+      zp % 16 != 0 || zp < z || steps < 1 ||
+      !shipping_widths(da, dz, dc, hdim)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  DayFwdParams p;
+  const void* wts[12] = {w0, w1, w2, w3, w4, w5, w6, w7, w8, w9, w10, w11};
+  set_weights(p.w, wts);
+  p.w.ze = static_cast<const bf16*>(ze);
+  p.w.zeT = static_cast<const bf16*>(zeT);
+  p.w.z = z; p.w.zp = zp; p.w.num_blocks = num_blocks;
+  p.x0 = static_cast<const float*>(x0);
+  p.h = static_cast<const float*>(h);
+  p.tf = static_cast<const float*>(tf);
+  p.dts = static_cast<const float*>(dts);
+  p.xs = static_cast<float*>(xs);
+  p.n = n; p.steps = steps;
+  auto* kernel = day_fwd_kernel<32, 64, 32, 128>;
+  const int rows = 16 * kFwdWarps;
+  const size_t smem = Layout<32, 64, 32, 128>::bytes_forward(rows, num_blocks);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<(unsigned)((n + rows - 1) / rows), 32 * kFwdWarps, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// K2b on `stream`: the reverse sweep, then the slab reduction into gsum
+// (layout: Slab with 4 * steps time rows). The slabs must be zeroed.
+int ananke_day_backward(const void* xs, const void* gxs, const void* h,
+                        const void* ze, const void* zeT, const void* tf,
+                        const void* dts, const void* w0, const void* w1,
+                        const void* w2, const void* w3, const void* w4,
+                        const void* w5, const void* w6, const void* w7,
+                        const void* w8, const void* w9, const void* w10,
+                        const void* w11, void* gx0, void* gh, void* slab,
+                        void* gsum, int n, int z, int zp, int num_blocks,
+                        int steps, int num_ctas, int da, int dz, int dc,
+                        int hdim, void* stream) {
+  const int rows = ananke_day_bwd_tile_rows(num_blocks);
+  const int n_tiles = (n + rows - 1) / rows;
+  if (num_blocks < 1 || num_blocks > kMaxBlocks || n < 1 || z < 1 ||
+      zp % 16 != 0 || zp < z || steps < 1 || num_ctas < 1 ||
+      num_ctas > n_tiles || !shipping_widths(da, dz, dc, hdim)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  DayBwdParams p;
+  const void* wts[12] = {w0, w1, w2, w3, w4, w5, w6, w7, w8, w9, w10, w11};
+  set_weights(p.w, wts);
+  p.w.ze = static_cast<const bf16*>(ze);
+  p.w.zeT = static_cast<const bf16*>(zeT);
+  p.w.z = z; p.w.zp = zp; p.w.num_blocks = num_blocks;
+  p.xs = static_cast<const float*>(xs);
+  p.gxs = static_cast<const float*>(gxs);
+  p.h = static_cast<const float*>(h);
+  p.tf = static_cast<const float*>(tf);
+  p.dts = static_cast<const float*>(dts);
+  p.gx0 = static_cast<float*>(gx0);
+  p.gh = static_cast<float*>(gh);
+  p.slab = static_cast<float*>(slab);
+  p.gsum = static_cast<float*>(gsum);
+  p.n = n; p.steps = steps; p.num_ctas = num_ctas;
+  p.slab_size = ananke_day_bwd_slab_size(z, num_blocks, steps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return rows == 64 ? launch_day_bwd<4>(p, s) : launch_day_bwd<2>(p, s);
+}
+
+// K3f on `stream`: nll and the correct flag per row.
+int ananke_ce_forward(const void* x, const void* tgt, const void* wdT,
+                      const void* ze, void* nll, void* correct, int m, int z,
+                      int zp, int da, int dz, void* stream) {
+  if (m < 1 || z < 1 || zp % 16 != 0 || zp < z || da != 32 || dz != 64)
+    return (int)cudaErrorInvalidValue;
+  CeParams p = {};
+  p.x = static_cast<const float*>(x);
+  p.tgt = static_cast<const int*>(tgt);
+  p.wdT = static_cast<const bf16*>(wdT);
+  p.ze = static_cast<const bf16*>(ze);
+  p.nll = static_cast<float*>(nll);
+  p.correct = static_cast<int*>(correct);
+  p.m = m; p.z = z; p.zp = zp;
+  const int rows = 16 * kFwdWarps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ce_fwd_kernel<32, 64><<<(unsigned)((m + rows - 1) / rows), 32 * kFwdWarps,
+                          0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// K3b on `stream`: gx per row, then gze | gWd summed over the rows into
+// gsum through num_ctas slabs (written, not added: need no zeroing).
+int ananke_ce_backward(const void* x, const void* tgt, const void* gnll,
+                       const void* wdT, const void* wd, const void* ze,
+                       const void* zeT, void* gx, void* slab, void* gsum,
+                       int m, int z, int zp, int num_ctas, int da, int dz,
+                       void* stream) {
+  const int rows = 16 * kCeWarps;
+  const int n_tiles = (m + rows - 1) / rows;
+  if (m < 1 || z < 1 || zp % 16 != 0 || zp < z || num_ctas < 1 ||
+      num_ctas > n_tiles || da != 32 || dz != 64)
+    return (int)cudaErrorInvalidValue;
+  CeParams p = {};
+  p.x = static_cast<const float*>(x);
+  p.tgt = static_cast<const int*>(tgt);
+  p.gnll = static_cast<const float*>(gnll);
+  p.wdT = static_cast<const bf16*>(wdT);
+  p.wd = static_cast<const bf16*>(wd);
+  p.ze = static_cast<const bf16*>(ze);
+  p.zeT = static_cast<const bf16*>(zeT);
+  p.gx = static_cast<float*>(gx);
+  p.slab = static_cast<float*>(slab);
+  p.gsum = static_cast<float*>(gsum);
+  p.m = m; p.z = z; p.zp = zp; p.num_ctas = num_ctas;
+  p.slab_size = (long)(z + da) * dz;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ce_bwd_kernel<32, 64, kCeWarps><<<num_ctas, 32 * kCeWarps, 0, s>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_reduce_slabs(p.slab, p.gsum, p.slab_size, p.num_ctas, s);
+}
+
+const char* ananke_cuda_error_string(int err) {
+  return cudaGetErrorName(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,9 +1,10 @@
-"""GAT-ODE configuration, construction, initialisation, serving and the
-continuous-adjoint trainer (port of parts of
+"""GAT-ODE configuration, construction, initialisation, serving, the
+fixed-step trainers (plain autograd, and fused through the training-day
+kernels) and the continuous-adjoint trainer (port of parts of
 ``ananke_abm_tpu/models/gnn_embed/train.py``).
 
-Not ported yet: the fixed-step trainers, ``make_epoch_fn`` and ``train()``
-(ROADMAP.md queue 1 item 6), and the discrete adjoint (item 7).
+Not ported yet: ``make_epoch_fn``, ``accum`` and ``train()`` (ROADMAP.md
+queue 1 item 6), and the discrete adjoint (item 7).
 """
 from __future__ import annotations
 
@@ -54,8 +55,9 @@ class GATODEConfig:
 
 
 def build_model(config: GATODEConfig, num_zone_features: int,
-                person_feat_dim: int, *, device) -> GATODE:
-    """A GATODE with uninitialised parameters on ``device``; fill it with
+                person_feat_dim: int, *, device="cuda") -> GATODE:
+    """A GATODE with uninitialised parameters on ``device`` (the card unless
+    the caller asks for the CPU; no fallback); fill it with
     :func:`init_params` or ``load_flax_params``."""
     return GATODE(
         num_zone_features=num_zone_features,
@@ -114,7 +116,7 @@ def serve(
     use_kernel: str | bool = "auto",
     world_seed: int | None = None,
     *,
-    device,
+    device="cuda",
 ):
     """Serve a GAT-ODE checkpoint (written by either package): regenerate
     its zone world from the checkpoint's world keys, draw a FRESH agent
@@ -122,7 +124,8 @@ def serve(
     decoded rollout on ``device`` and write
     ``out_npz{zone_ids (N, T) int32, times (T,)}``.
 
-    ``use_kernel`` as in ``make_decoded_rollout``. ``world_seed``
+    ``use_kernel`` as in ``make_decoded_rollout``. ``device``: the card
+    unless the caller asks for the CPU (no fallback). ``world_seed``
     overrides the checkpoint's stored world seed. Checkpoints written
     before the world keys existed record none; serving them requires
     passing it, because guessing would rebuild a different zone world than
@@ -223,6 +226,141 @@ def make_optimizer(model, config: GATODEConfig) -> ClippedAdamW:
                         config.grad_clip)
 
 
+def _cross_entropy(logits, targets):
+    """(mean NLL of the targets, accuracy of the argmax) over (N, T, Z)
+    logits."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    acc = (torch.argmax(logits, -1) == targets).float().mean()
+    return nll.mean(), acc
+
+
+def _build_loss_fn_g(model, config):
+    """``loss_fn_g(pf, hz, targets, graph) -> (mean nll, accuracy)``
+    through ``GATODE.forward`` at ``config.method`` (plain autograd through
+    the solver); ``graph`` is ``(zone_feats, adj, times)``."""
+
+    def loss_fn_g(pf, hz, targets, graph):
+        zone_feats, adj, times = graph
+        logits, _ = model(zone_feats, adj, pf, hz, times,
+                          ode_method=config.method,
+                          substeps=config.substeps, rtol=config.rtol,
+                          atol=config.atol)
+        return _cross_entropy(logits, targets)
+
+    return loss_fn_g
+
+
+def _step_fns(loss_fn_g, optimizer, graph):
+    """(train_step, loss_fn) around ``loss_fn_g(pf, hz, targets, graph)``:
+    ``train_step`` zeroes the gradients, backpropagates, steps
+    ``optimizer`` (anything with ``zero_grad`` / ``step``) and returns
+    ``(loss, acc)``."""
+
+    def train_step(pf, hz, targets):
+        optimizer.zero_grad()
+        loss, acc = loss_fn_g(pf, hz, targets, graph)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), acc
+
+    def loss_fn(pf, hz, targets):
+        return loss_fn_g(pf, hz, targets, graph)
+
+    return train_step, loss_fn
+
+
+def make_step_fns(model, optimizer, config, static):
+    """The plain training step: ``GATODE.forward`` at ``config.method``
+    with autograd through the solver (the reference's ``make_step_fns``).
+    ``static`` is ``(zone_feats, adj, times)``. Returns ``(train_step,
+    loss_fn)`` as :func:`make_adjoint_step_fns` does."""
+    return _step_fns(_build_loss_fn_g(model, config), optimizer,
+                     _graph(static))
+
+
+def build_fused_loss_fn(model, config, zone_feats, adj, times,
+                        _plain=False):
+    """``loss_fn(pf, hz, targets) -> (loss, acc)`` of the fused fixed-step
+    trainer: the zone encoder and the initial state in plain PyTorch, the
+    day's RK4 integration through the day kernels (``rk4_day_rollout``,
+    K2f/K2b) and the decode's cross-entropy through the cross-entropy
+    kernels (``decode_ce``, K3f/K3b). On the CPU the kernels' wrappers run
+    their plain versions.
+
+    The kernels' contract is enforced: fixed-step RK4 (``config.method``),
+    ``attn_temp == 1.0`` (the kernels hard-code that attention) and at
+    least one residual drift block; anything else raises. The zone encoder
+    is ``model.encode_zones``, the reference's own encoder branch; its
+    fused kernel pair (K4f/K4b) comes in a later slice.
+
+    Loss and accuracy are means over the agent-time rows. ``_plain``: run
+    the kernels' plain versions wherever the tensors lie (to hold the
+    kernels' step against).
+    """
+    if getattr(config, "method", "rk4") != "rk4":
+        raise ValueError(
+            f"fused train step implements fixed-step rk4, not "
+            f"{config.method!r}; use make_step_fns/make_adjoint_step_fns"
+        )
+    if getattr(model, "attn_temp", 1.0) != 1.0:
+        raise ValueError("fused train step requires attn_temp == 1.0")
+    if getattr(config, "num_blocks", 1) < 1:
+        raise ValueError(
+            "fused train step requires num_blocks >= 1 (the VJP kernel's "
+            "reverse sweep assumes at least one residual drift block); "
+            "use make_step_fns for a block-free drift"
+        )
+    from ananke_abm_tpu_torch.ops.cuda.fused_train import (
+        PLAIN,
+        decode_ce,
+        rk4_day_rollout,
+    )
+
+    day_impl, ce_impl = (PLAIN["day"], PLAIN["ce"]) if _plain else (None,
+                                                                    None)
+
+    def loss_fn(pf, hz, targets):
+        zone_emb = model.encode_zones(zone_feats, adj)
+        x0, h = model.initial_state(pf, hz, zone_emb)
+        dense = model.drift.dense
+        blocks = tuple(
+            (dense[1 + 2 * i].weight.T, dense[1 + 2 * i].bias,
+             dense[2 + 2 * i].weight.T, dense[2 + 2 * i].bias)
+            for i in range((len(dense) - 2) // 2)
+        )
+        xs = rk4_day_rollout(
+            x0, h, zone_emb, dense[0].weight.T, dense[0].bias,
+            model.query_proj.weight.T, blocks, dense[-1].weight.T,
+            dense[-1].bias, times, substeps=config.substeps, _impl=day_impl,
+        )  # (T, N, Da)
+        # the (N, T, Z) logits are never stored
+        T, N, Da = xs.shape
+        rows = xs.transpose(0, 1).reshape(N * T, Da)
+        nll, correct = decode_ce(rows, targets.reshape(-1).to(torch.int32),
+                                 model.decode_proj.weight.T, zone_emb,
+                                 _impl=ce_impl)
+        return nll.sum() / (N * T), correct.float().sum() / (N * T)
+
+    return loss_fn
+
+
+def make_fused_train_step(model, optimizer, config, static):
+    """Training step whose day integration and decode cross-entropy run
+    through the training-day kernels (:func:`build_fused_loss_fn`); the
+    same loss and gradients as :func:`make_step_fns` to bf16 accuracy.
+
+    ``static`` is ``(zone_feats, adj, times)``. Returns ``(train_step,
+    loss_fn)``: ``train_step(pf, hz, targets)`` zeroes the gradients,
+    backpropagates, steps ``optimizer`` (``make_optimizer``'s or a
+    ``torch.optim`` optimizer) and returns ``(loss, acc)``.
+    """
+    zone_feats, adj, times = _graph(static)
+    loss_fn = build_fused_loss_fn(model, config, zone_feats, adj, times)
+    return _step_fns(lambda pf, hz, tg, _graph: loss_fn(pf, hz, tg),
+                     optimizer, None)
+
+
 class _Rhs(torch.nn.Module):
     """``model.rhs`` as a module's forward, for ``functional_call``."""
 
@@ -266,11 +404,8 @@ def _adjoint_loss_fn(model, config, rhs_vjp, stats=None):
         xs = odeint_adjoint(rhs, x0, times, (params, h, zone_emb),
                             rtol=config.rtol, atol=config.atol,
                             rhs_vjp=rhs_vjp, stats=stats)
-        logits = model.decode(xs.transpose(0, 1), zone_emb)
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-        acc = (torch.argmax(logits, -1) == targets).float().mean()
-        return nll.mean(), acc
+        return _cross_entropy(model.decode(xs.transpose(0, 1), zone_emb),
+                              targets)
 
     return loss_fn
 
@@ -360,17 +495,6 @@ def make_adjoint_step_fns(model, optimizer, config, static,
         adjoint_mode=adjoint_mode, max_accepted=max_accepted,
         ckpt_every=ckpt_every, bwd_precision=bwd_precision,
         store_f=store_f, ckpt_dtype=ckpt_dtype, stats=stats)
-    graph = _graph(static)
-
-    def train_step(pf, hz, targets):
-        optimizer.zero_grad()
-        loss, acc = loss_fn_g(pf, hz, targets, graph)
-        loss.backward()
-        optimizer.step()
-        return loss.detach(), acc
-
-    def loss_fn(pf, hz, targets):
-        return loss_fn_g(pf, hz, targets, graph)
-
+    train_step, loss_fn = _step_fns(loss_fn_g, optimizer, _graph(static))
     train_step.stats = loss_fn.stats = stats
     return train_step, loss_fn

@@ -27,17 +27,30 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # kernel library -> its source
-NAMES = ("fused_step", "fused_rhs")
+NAMES = ("fused_step", "fused_rhs", "fused_train")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# the C interface of each library's launch function:
-# (name, argument types)
+_L = ctypes.c_long
+# the C interface of each library: {function: (argument types, result)}
 _ENTRY = {
-    "fused_step": ("ananke_rk4_interval_decode",
-                   [_P] * 15 + [_I] * 5 + [ctypes.c_float] + [_I] * 4
-                   + [_P]),
-    "fused_rhs": ("ananke_drift_rhs_and_vjp", [_P] * 23 + [_I] * 9 + [_P]),
+    "fused_step": {
+        "ananke_rk4_interval_decode": (
+            [_P] * 15 + [_I] * 5 + [ctypes.c_float] + [_I] * 4 + [_P], _I),
+    },
+    "fused_rhs": {
+        "ananke_drift_rhs_and_vjp": ([_P] * 23 + [_I] * 9 + [_P], _I),
+        "ananke_drift_rhs_tile_rows": ([_I], _I),
+    },
+    "fused_train": {
+        "ananke_day_forward": ([_P] * 19 + [_I] * 9 + [_P], _I),
+        "ananke_day_backward": ([_P] * 23 + [_I] * 10 + [_P], _I),
+        "ananke_day_bwd_tile_rows": ([_I], _I),
+        "ananke_day_bwd_slab_size": ([_I] * 3, _L),
+        "ananke_ce_forward": ([_P] * 6 + [_I] * 5 + [_P], _I),
+        "ananke_ce_backward": ([_P] * 10 + [_I] * 6 + [_P], _I),
+        "ananke_ce_bwd_tile_rows": ([], _I),
+    },
 }
 
 
@@ -104,15 +117,12 @@ def load_library(name: str) -> ctypes.CDLL:
     interface."""
     path, _, _ = build_all((name,))[name]
     lib = ctypes.CDLL(str(path))
-    entry, argtypes = _ENTRY[name]
-    fn = getattr(lib, entry)
     # every pointer and the stream as c_void_p: a bare Python int would be
     # passed as a 32-bit int and cut the address
-    fn.argtypes = argtypes
-    fn.restype = _I
-    if name == "fused_rhs":
-        lib.ananke_drift_rhs_tile_rows.argtypes = [_I]
-        lib.ananke_drift_rhs_tile_rows.restype = _I
+    for entry, (argtypes, restype) in _ENTRY[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = restype
     lib.ananke_cuda_error_string.argtypes = [_I]
     lib.ananke_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -185,10 +185,12 @@ def _check(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a):
     return N, Da, Z, Dz, Dc, H
 
 
-def grad_layout(Z, Dz, Da, Dc, H, num_blocks):
-    """Names and shapes of the summed gradients, in the order the kernel
-    writes them into one float32 vector."""
-    out = [("gze", (Z, Dz)), ("gtf", (1, H)), ("gWq", (Da, Dz)),
+def grad_layout(Z, Dz, Da, Dc, H, num_blocks, time_shape=None):
+    """Names and shapes of the summed gradients, in the order the kernels
+    write them into one float32 vector (``Slab`` in
+    ``csrc/drift_stage.cuh``). ``time_shape``: that of the time rows'
+    gradient, (1, H) for one stage."""
+    out = [("gze", (Z, Dz)), ("gtf", time_shape or (1, H)), ("gWq", (Da, Dz)),
            ("gW1xc", (Da + Dz, H)), ("gW1h", (Dc, H))]
     for i in range(num_blocks):
         out += [(f"gWr1[{i}]", (H, H)), (f"gbr1[{i}]", (H,)),
@@ -227,20 +229,54 @@ def drift_rhs_and_vjp(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a):
     gx = torch.empty_like(f)
     gh = torch.empty((N, Dc), dtype=torch.float32, device=dev)
     layout = grad_layout(Z, Dz, Da, Dc, H, nb)
-    sizes = [int(np.prod(s)) for _, s in layout]
-    gsum = torch.zeros((sum(sizes),), dtype=torch.float32, device=dev)
+    gsum = torch.zeros((sum(int(np.prod(s)) for _, s in layout),),
+                       dtype=torch.float32, device=dev)
     if N > 0:
         _launch(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a,
                 f, gx, gh, gsum)
+    return (f, gx, gh, *split_grads(gsum, layout, nb))
+
+
+def split_grads(gsum, layout, nb):
+    """The kernel's summed-gradient vector -> ``(gze, gtf, gWq, gW1xc,
+    gW1h, gblocks, gW3, gb3)`` as views, shaped by ``layout``."""
+    sizes = [int(np.prod(s)) for _, s in layout]
     parts = [p.view(s) for p, (_, s) in zip(torch.split(gsum, sizes),
                                              layout)]
-    gze, gtf, gWq, gW1xc, gW1h = parts[:5]
     gblocks = tuple(tuple(parts[5 + 4 * i: 9 + 4 * i]) for i in range(nb))
-    gW3, gb3 = parts[5 + 4 * nb:]
-    return f, gx, gh, gze, gtf, gWq, gW1xc, gW1h, gblocks, gW3, gb3
+    return (*parts[:5], gblocks, *parts[5 + 4 * nb:])
 
 
 drift_rhs_and_vjp.launches = 0
+
+
+def pad_zones(ze):
+    """(Z, Dz) zones -> bf16 (zp, Dz) and its (Dz, zp) transpose, zp the
+    next multiple of 16: the kernels walk zones in chunks of 16 and mask the
+    zero rows past Z."""
+    Z, Dz = ze.shape
+    zp = -(-Z // 16) * 16
+    ze_p = torch.zeros((zp, Dz), dtype=BF16, device=ze.device)
+    ze_p[:Z] = ze
+    return ze_p, ze_p.T.contiguous()
+
+
+def pack_stage_weights(Wq, W1xc, W1h, blocks, W3, b3):
+    """The drift's weights ((in, out) layout, any float type) -> the 12 bf16
+    tensors the stage kernels take, in the order of ``set_weights`` in
+    ``csrc/drift_stage.cuh``. Each matrix comes both ways: (out, in) rows
+    for the forward products and (in, out) rows for the backward ones, so
+    that one 32-bit load gives the two bf16 of an mma B-fragment register."""
+    c16 = lambda w: w.to(BF16).contiguous()
+    mats = [w for blk in blocks for w in (blk[0], blk[2])]
+    return [
+        c16(Wq.T), c16(Wq), c16(W1xc.T), c16(W1xc), c16(W1h.T), c16(W1h),
+        torch.stack([w.T for w in mats]).to(BF16).contiguous(),
+        torch.stack(mats).to(BF16).contiguous(),
+        torch.stack([b for blk in blocks for b in (blk[1], blk[3])]).to(
+            BF16).contiguous(),
+        c16(W3.T), c16(W3), c16(b3),
+    ]
 
 
 def _launch(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a,
@@ -253,26 +289,14 @@ def _launch(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a,
     Da, Dc, H = x.shape[1], h.shape[1], W1xc.shape[1]
     nb = len(blocks)
     dev = x.device
-    c16 = lambda w: w.to(BF16).contiguous()
-    # the kernel reads each weight both ways: (out, in) rows for the
-    # forward products and (in, out) rows for the backward ones, so that
-    # one 32-bit load gives the two bf16 of an mma B-fragment register;
-    # zones are padded to a multiple of 16 with zero rows (masked)
-    zp = -(-Z // 16) * 16
-    ze_p = torch.zeros((zp, Dz), dtype=BF16, device=dev)
-    ze_p[:Z] = ze
-    mats = [w for blk in blocks for w in (blk[0], blk[2])]
+    ze_p, zeT = pad_zones(ze)
     ops = [
-        x.contiguous(), h.contiguous(), a.contiguous(), ze_p,
-        ze_p.T.contiguous(), tf_row.float().contiguous(),
-        c16(Wq.T), c16(Wq), c16(W1xc.T), c16(W1xc), c16(W1h.T), c16(W1h),
-        torch.stack([w.T for w in mats]).to(BF16).contiguous(),
-        torch.stack(mats).to(BF16).contiguous(),
-        torch.stack([b for blk in blocks for b in (blk[1], blk[3])]).to(
-            BF16).contiguous(),
-        c16(W3.T), c16(W3), c16(b3),
+        x.contiguous(), h.contiguous(), a.contiguous(), ze_p, zeT,
+        tf_row.float().contiguous(),
+        *pack_stage_weights(Wq, W1xc, W1h, blocks, W3, b3),
         f, gx, gh,
     ]
+    zp = ze_p.shape[0]
     # agent rows per tile: the kernel's choice for this depth
     rows = lib.ananke_drift_rhs_tile_rows(nb)
     num_ctas = min(NUM_SLABS, -(-N // rows))

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card: the GAT-ODE serving
-path (kernel K1) and the continuous-adjoint DOPRI5 trainer (kernel K8).
+path (kernel K1), the continuous-adjoint DOPRI5 trainer (kernel K8) and the
+fixed-step RK4 trainer (kernels K2f, K2b, K3f, K3b).
 
 Run from the repository root, on a machine with a CUDA device:
 
@@ -24,8 +25,8 @@ Phases (any failure raises and the script exits non-zero):
    agents, and per-launch times of the kernel and its plain version;
 6. adjoint kernel: the drift-and-VJP kernel against its plain version at
    the three shapes of K8_SHAPES (f, gx, gh and every summed gradient
-   within the bounds of k8_bounds: mean and max difference against their
-   scale, 1 - cosine),
+   within the bounds of ``ops/cuda/checks.py``'s k8_bounds: mean and max
+   difference against their scale, 1 - cosine),
    a repeat on the same operands that must give the same bits, and a
    bf16-product control that must fail the same check;
 7. trainer: 3 steps of ``make_adjoint_step_fns`` (continuous adjoint,
@@ -36,14 +37,44 @@ Phases (any failure raises and the script exits non-zero):
 8. trainer check: loss and full gradient of one step at 8,192 agents with
    the kernel against the same step with its plain version;
 9. times: the adjoint kernel and its plain version per launch at 98,304
-   agents, and one full-size training step with each.
+   agents, and one full-size training step with each;
+10. training-day kernels: the day forward and backward (K2f, K2b) and the
+    decode cross-entropy forward and backward (K3f, K3b) against their
+    plain versions at the shapes of DAY_SHAPES (every output within the
+    bounds of ``ops/cuda/checks.py``: day_bounds, CE_BOUNDS), repeats of
+    K2b and K3b that must give the same bits, and a bf16-product control
+    that must fail each check;
+11. fixed-step trainer: 3 steps of ``make_fused_train_step`` with
+    ``torch.optim.AdamW`` at optax's defaults at bench rung 2's shape,
+    32,768 agents x 500 zones x 12 times, GATODEConfig(substeps=2,
+    num_blocks=2): one launch of each of the four kernels per step, finite
+    losses, the third below the first;
+12. fixed-step trainer check: loss and full gradient of one step at 4,096
+    agents with the kernels against the same step with their plain
+    versions;
+13. times: the four kernels and their plain versions per launch at rung 2,
+    and one full-size fixed-step training step with each.
+
+``python3 chip_smoke.py --readings`` runs phases 1-2 and then only the
+training kernels' checks of phase 10, at DAY_SHAPES and DEPTH_SHAPES for 3
+seeds with the control everywhere, printing the readings the bounds were
+set from and failing on none of them; then, at WITNESS_SHAPES, the day
+kernels, their plain versions and the control each against a float64
+witness. ``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` runs phases 1-2
+and then compares K8 of this checkout with K8 built from each checkout at
+DIR: ptxas and SASS counts of each build, bits at K8_SHAPES and
+alternating per-launch times.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
-``{"kernels": [...]}``, the line before that the card's name and power
-limit.
+``{"kernels": [...]}`` (for every kernel its launches on the main path,
+largest difference from its plain version, times, and ``bound_ms``: the
+larger of the bytes it must move over 3.35 TB/s and its matmul operations
+over 989 TFLOP/s, the H100's dense bf16 peak), the line before that the
+card's name and power limit.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import subprocess
@@ -118,6 +149,34 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# the H100 SXM's published peaks (700 W): dense bf16 tensor-core rate and
+# device-memory rate
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def bound(flop, nbytes):
+    """(bound_ms, bound_by): the least time the card could take for
+    ``flop`` bf16 matmul operations moving ``nbytes`` bytes."""
+    t_ops, t_bytes = flop / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_entry(name, source, replaces, launches, max_abs_err, ms,
+                 plain_ms, flop, nbytes):
+    """One kernel's entry of the {"kernels": [...]} line. No single PyTorch
+    call computes any of the port's kernels' functions (each is a chain of
+    products, activations and reductions), so library_ms is null."""
+    bound_ms, bound_by = bound(flop, nbytes)
+    return {"name": name, "route": "cuda",
+            "source": f"ananke_abm_tpu_torch/csrc/{source}",
+            "replaces": f"ananke_abm_tpu/ops/pallas/{replaces}",
+            "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
 def compare(kernel_out, plain_out):
     """x_new's (max abs, mean abs, max abs / max |x|) difference and the
     ids' agreement."""
@@ -142,14 +201,13 @@ def describe(r):
             f"(<= {X_MAX_RTOL}); ids agree {r['ids']:.6f} (>= {IDS_MIN})")
 
 
-def bf16_product_dot(a16, b16):
-    """The control of the kernel check: bf16 x bf16 products rounded to
-    bf16 (PyTorch's ``a16 @ b16``), a kernel that lost the float32
-    accumulation."""
-    return (a16.to(torch.bfloat16) @ b16.to(torch.bfloat16)).float()
-
-
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--readings", action="store_true",
+                        help="print the training kernels' readings only")
+    parser.add_argument("--ab-k8", metavar="DIR", nargs="+",
+                        help="time K8 against K8 of the checkouts at DIR")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this runs on a CUDA card")
     if not (ROOT / "ananke_abm_tpu_torch" / "csrc").is_dir():
@@ -172,6 +230,7 @@ def main():
         serve,
     )
     from ananke_abm_tpu_torch.ops.cuda import _build, fused_step
+    from ananke_abm_tpu_torch.ops.cuda.checks import bf16_product_dot
     from ananke_abm_tpu_torch.ops.cuda.fused_step import (
         interval_stage_times,
         pack_weights_bf16,
@@ -204,6 +263,13 @@ def main():
                 print(line.strip())
         _build.load_library(name)
     sys.stdout.flush()
+
+    if args.readings:
+        readings(dev)
+        return
+    if args.ab_k8:
+        ab_k8(dev, [Path(d) for d in args.ab_k8])
+        return
 
     # ---- 3. kernel against its plain version --------------------------------
     config = GATODEConfig()
@@ -355,20 +421,16 @@ def main():
               f"{best:.4f} s (runs {', '.join(f'{s:.4f}' for s in w)}), "
               f"{N_AGENTS / best:.0f} agents/s [card {card}]", flush=True)
 
-    k1 = {
-        "name": "rk4_interval_decode_fused",
-        "route": "cuda",
-        "source": "ananke_abm_tpu_torch/csrc/fused_step.cu",
-        "replaces": "ananke_abm_tpu/ops/pallas/fused_step.py:385",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }
+    # per agent and interval: read x and h, write x and the id
+    k1 = kernel_entry(
+        "rk4_interval_decode_fused", "fused_step.cu", "fused_step.py:385",
+        launches, max_err, ms, plain_ms, flop,
+        N_AGENTS * (4 * (2 * config.agent_dim + config.context_dim) + 4))
     k8 = adjoint_phases(dev, card)
+    fixed = fixed_step_phases(dev, card)
 
     print(card)
-    print(json.dumps({"kernels": [k1, k8]}))
+    print(json.dumps({"kernels": [k1, k8, *fixed]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -390,62 +452,27 @@ TRAIN_LOSS_RTOL = 2e-3
 TRAIN_COS_MIN = 0.999
 # (agents, zones, residual blocks) of the kernel check
 K8_SHAPES = ((98_304, 64, 2), (1_000, 500, 1), (4_096, 2_048, 2))
-# Kernel vs plain version, per output (f, gx, gh and each summed
-# gradient): mean |d| / mean |ref|, max |d| / max |ref| and 1 - cosine.
-# Both round at the same bf16 points and sum in other orders, and the
-# flips compound through the residual blocks: readings grow about
-# linearly with depth. Bounds for 2 blocks, scaled by (2 + blocks) / 4,
-# set from H100 readings over 1-8 blocks and 2-3 weight seeds each
-# (PERF.md, "Tolerance of the K8 check"). At 2 blocks a sound kernel read
-# worst mean <= 1.04e-3, worst max <= 3.95e-3, worst 1 - cosine <=
-# 5.3e-7; a control whose products round to bf16 read worst mean >=
-# 6.9e-3 and worst 1 - cosine >= 2.5e-5. The mean and the cosine separate
-# a lower-precision kernel; the max catches a few rows gone wrong.
-K8_REL_MEAN = 3e-3
-K8_REL_MAX = 1e-2
-K8_ONE_MINUS_COS = 1e-5
 
 
-def k8_bounds(num_blocks):
-    """(mean, max, 1 - cosine) bounds of the K8 check at a depth."""
-    s = (2 + num_blocks) / 4
-    return K8_REL_MEAN * s, K8_REL_MAX * s, K8_ONE_MINUS_COS * s
-
-def drift_vjp_flops(da, dz, dc, hidden, num_zones, num_blocks):
-    """Matmul FLOPs per agent of one launch of the adjoint RHS kernel as
-    it computes them (2*m*k*n per product): the forward, the backward's
-    per-row products and weight-gradient products, the recomputed inner
-    activation of each block and the attention scores recomputed in two
-    passes."""
+def stage_flops(da, dz, dc, hidden, num_zones, num_blocks):
+    """(forward, VJP) matmul FLOPs per agent of one stage evaluation as the
+    stage kernels compute them (2*m*k*n per product). The forward's h-row
+    product (bf16(h) @ W1h) is 2*dc*hidden of it. The VJP counts its
+    per-row and weight-gradient products, the recomputed inner activation
+    of each block and the attention scores recomputed in two passes; its
+    h-row terms (gh, gW1h) are 4*hidden*dc of it."""
     h, z, f = hidden, num_zones, da + dz
     fwd = 2 * (da * dz + 2 * dz * z + f * h + dc * h
                + num_blocks * 2 * h * h + h * da)
     bwd = 2 * (2 * h * da + num_blocks * 5 * h * h + 2 * h * dc
                + 2 * f * h + 4 * dz * z + z * dz + 2 * z * dz
                + 2 * da * dz)
-    return fwd + bwd
+    return fwd, bwd
 
 
-def k8_operands(model, n, z, dev, seed):
-    from ananke_abm_tpu_torch.models.gnn_embed.params import (
-        flax_leaf_params,
-    )
-    from ananke_abm_tpu_torch.ops.cuda.fused_rhs import (
-        split_drift_params,
-        time_row,
-    )
-
-    with torch.no_grad():
-        (Wq, W1xc, W1h, W1t, b1, blocks, W3, b3) = (
-            split_drift_params(dict(flax_leaf_params(model))))
-        g = torch.Generator(device=dev).manual_seed(seed)
-        rows = lambda d: torch.randn(n, d, device=dev, generator=g)
-        x, h, a = rows(Wq.shape[0]), rows(W1h.shape[0]), rows(Wq.shape[0])
-        ze = torch.randn(z, Wq.shape[1], device=dev, generator=g)
-        d = lambda w: w.detach()
-        return (x, h, ze, time_row(7.3, d(W1t), d(b1)), d(Wq), d(W1xc),
-                d(W1h), tuple(tuple(d(w) for w in b) for b in blocks),
-                d(W3), d(b3), a)
+def drift_vjp_flops(da, dz, dc, hidden, num_zones, num_blocks):
+    """Matmul FLOPs per agent of one launch of the adjoint RHS kernel."""
+    return sum(stage_flops(da, dz, dc, hidden, num_zones, num_blocks))
 
 
 def k8_outputs(out):
@@ -458,15 +485,16 @@ def k8_outputs(out):
     return items + [("gW3", out[9]), ("gb3", out[10])]
 
 
-def k8_compare(got, want):
-    """Per output: mean |d| / mean |ref|, max |d| / max |ref|, cosine;
-    the worst of each over the outputs, the largest |d|, and the output
-    that set each worst."""
+def worst_of(got, want):
+    """Per output ((name, tensor) pairs): mean |d| / mean |ref|, max |d| /
+    max |ref|, cosine; the worst of each over the outputs, the largest
+    |d|, and the output that set each worst."""
     worst = {"mean": (0.0, ""), "max": (0.0, ""), "cos": (1.0, "")}
     max_abs = 0.0
-    for (name, u), (_, v) in zip(k8_outputs(got), k8_outputs(want)):
+    for (name, u), (_, v) in zip(got, want):
+        u, v = u.float(), v.float()
         if not torch.isfinite(u).all():
-            fail(f"adjoint kernel output {name} is not finite")
+            fail(f"kernel output {name} is not finite")
         d = (u - v).abs()
         max_abs = max(max_abs, d.max().item())
         mean = d.mean().item() / max(v.abs().mean().item(), 1e-30)
@@ -482,40 +510,19 @@ def k8_compare(got, want):
     return worst, max_abs
 
 
-def k8_agrees(worst, num_blocks):
-    mean, mx, one_minus_cos = k8_bounds(num_blocks)
+def within(worst, bounds):
+    mean, mx, one_minus_cos = bounds
     return (worst["mean"][0] <= mean and worst["max"][0] <= mx
             and 1 - worst["cos"][0] <= one_minus_cos)
 
 
-def k8_describe(worst, num_blocks):
-    mean, mx, one_minus_cos = k8_bounds(num_blocks)
+def describe_worst(worst, bounds):
+    mean, mx, one_minus_cos = bounds
     return (f"worst mean|d|/mean|ref| {worst['mean'][0]:.3e} "
             f"({worst['mean'][1]}; <= {mean:.3g}), worst max|d|/max|ref| "
             f"{worst['max'][0]:.3e} ({worst['max'][1]}; <= {mx:.3g}), "
             f"worst 1 - cosine {1 - worst['cos'][0]:.3e} ({worst['cos'][1]}; "
             f"<= {one_minus_cos:.3g})")
-
-
-def bf16_product_nt_dot(a16, b16):
-    """The control's agent contraction: bf16 products rounded to bf16."""
-    return (a16.to(torch.bfloat16).T @ b16.to(torch.bfloat16)).float()
-
-
-def k8_control(args):
-    """The plain version with every product rounded to bf16: a kernel that
-    lost the float32 accumulation."""
-    from ananke_abm_tpu_torch.ops.cuda import fused_rhs, fused_step
-
-    saved = (fused_step._dot, fused_step._nt_dot, fused_rhs._dot,
-             fused_rhs._nt_dot)
-    fused_step._dot = fused_rhs._dot = bf16_product_dot
-    fused_step._nt_dot = fused_rhs._nt_dot = bf16_product_nt_dot
-    try:
-        return fused_rhs.drift_rhs_and_vjp_reference(*args)
-    finally:
-        (fused_step._dot, fused_step._nt_dot, fused_rhs._dot,
-         fused_rhs._nt_dot) = saved
 
 
 def grads_of(model):
@@ -534,6 +541,11 @@ def adjoint_phases(dev, card):
         init_params,
         make_adjoint_step_fns,
         make_optimizer,
+    )
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        bf16_control,
+        k8_bounds,
+        k8_operands,
     )
     from ananke_abm_tpu_torch.ops.cuda.fused_rhs import (
         drift_rhs_and_vjp,
@@ -559,21 +571,25 @@ def adjoint_phases(dev, card):
                    zip(k8_outputs(got), k8_outputs(again))):
             fail(f"adjoint kernel repeat at N={n} Z={z} is not "
                  "bit-identical")
-        worst, err = k8_compare(got, want)
+        worst, err = worst_of(k8_outputs(got), k8_outputs(want))
         max_err = max(max_err, err)
         print(f"adjoint kernel check N={n} Z={z} num_blocks={nb}: "
-              f"{k8_describe(worst, nb)}; max |d| {err:.3e}; repeat "
+              f"{describe_worst(worst, k8_bounds(nb))}; max |d| {err:.3e}; "
+              f"repeat "
               f"bit-identical", flush=True)
-        if not k8_agrees(worst, nb):
+        if not within(worst, k8_bounds(nb)):
             fail(f"adjoint kernel disagrees with its plain version at N={n}")
         if main_args is None:
             main_args = args
     with torch.inference_mode():
-        control, _ = k8_compare(k8_control(main_args),
-                                drift_rhs_and_vjp_reference(*main_args))
+        control, _ = worst_of(
+            k8_outputs(bf16_control(drift_rhs_and_vjp_reference,
+                                    *main_args)),
+            k8_outputs(drift_rhs_and_vjp_reference(*main_args)))
+    bounds = k8_bounds(K8_SHAPES[0][2])
     print(f"control (bf16-rounded products) at N={K8_SHAPES[0][0]}: "
-          f"{k8_describe(control, K8_SHAPES[0][2])}", flush=True)
-    if k8_agrees(control, K8_SHAPES[0][2]):
+          f"{describe_worst(control, bounds)}", flush=True)
+    if within(control, bounds):
         fail("the adjoint kernel check passes the bf16-product control")
 
     # ---- 7. the trainer at bench rung 3 ---------------------------------
@@ -675,16 +691,482 @@ def adjoint_phases(dev, card):
     print(f"training step at rung 3: kernel {min(walls[1:]):.3f} s (best of "
           f"steps 2-{TRAIN_STEPS}), plain version {plain_wall:.3f} s (one "
           f"step, loss {loss:.6f}) [card {card}]", flush=True)
-    return {
-        "name": "drift_rhs_and_vjp",
-        "route": "cuda",
-        "source": "ananke_abm_tpu_torch/csrc/fused_rhs.cu",
-        "replaces": "ananke_abm_tpu/ops/pallas/fused_rhs.py:184",
-        "launches": k8_launches,
-        "max_abs_err": max_err,
-        "ms": k8_ms,
-        "plain_ms": plain_ms,
-    }
+    # per agent: read x, h and a, write f, gx and gh; the summed gradients
+    da, dc = config.agent_dim, config.context_dim
+    nbytes = ADAPT_N * 4 * (5 * da + 2 * dc) + 4 * 92_832
+    return kernel_entry("drift_rhs_and_vjp", "fused_rhs.cu",
+                        "fused_rhs.py:184", k8_launches, max_err, k8_ms,
+                        plain_ms, flop, nbytes)
+
+# ---- the fixed-step trainer and its kernels, K2f, K2b, K3f, K3b ------------
+
+# bench rung 2 (bench.py TRAIN_*): 32,768 agents x 500 zones x 12 times
+TRAIN_N = 32_768
+TRAIN_ZONES = 500
+TRAIN_TIMES = 12
+TRAIN_SEED = 1  # the data (bench.py's)
+# the weights: AdamW's first steps move every weight by about lr, and from
+# some initialisations the loss rises before it falls (weight seed 1 on the
+# CPU plain versions: 38.30, 44.91, 54.94); from seed 3 it falls by the
+# third step (31.21, 32.41, 19.52)
+TRAIN_WEIGHT_SEED = 3
+FIXED_STEPS = 3
+# the kernel trainer against the plain-version trainer: the JAX tests'
+# bounds for its fused step against its XLA step (1e-2, 0.999), tightened
+# from an H100 reading of 2.2e-5 and 1 - cos 1.7e-9
+CHECK_FIXED_AGENTS = 4_096
+FIXED_LOSS_RTOL = 1e-3
+FIXED_COS_MIN = 0.99999
+# (agents, zones, residual blocks, output times) of the kernel checks; the
+# first is the main path's shape
+DAY_SHAPES = ((32_768, 500, 2, 12), (1_000, 64, 1, 5), (4_096, 2_048, 2, 4))
+# deeper drifts, for the readings that set the depth scaling
+DEPTH_SHAPES = ((4_096, 64, 4, 5), (4_096, 64, 6, 5), (4_096, 64, 8, 5),
+                (200, 64, 8, 3))
+# the day kernels against a float64 witness, where few agents and a deep
+# drift put kernel and plain version far apart
+WITNESS_SHAPES = ((200, 64, 8, 3), (4_096, 64, 8, 5), (1_000, 64, 1, 5))
+WITNESS_SEEDS = 6
+SUBSTEPS = 2
+
+
+def day_bwd_outputs(out):
+    names = ["gx0", "gh", "gze", "gWq", "gW1xc", "gW1h", "gtfp"]
+    items = list(zip(names, out[:7]))
+    for i, blk in enumerate(out[7]):
+        items += list(zip([f"gWr1[{i}]", f"gbr1[{i}]", f"gWr2[{i}]",
+                           f"gbr2[{i}]"], blk))
+    return items + [("gW3", out[8]), ("gb3", out[9])]
+
+
+def check(label, got, want, bounds, control=None, enforce=True):
+    """Hold ``got`` against ``want`` ((name, tensor) pairs) within
+    ``bounds``; the control, where given, must fail the same check.
+    Returns the largest |d|. With ``enforce`` off it only reports."""
+    worst, err = worst_of(got, want)
+    print(f"{label}: {describe_worst(worst, bounds)}; max |d| {err:.3e}",
+          flush=True)
+    cw = None
+    if control is not None:
+        cw, _ = worst_of(control, want)
+        print(f"{label} control (bf16-rounded products): "
+              f"{describe_worst(cw, bounds)}", flush=True)
+    if enforce and not within(worst, bounds):
+        fail(f"{label}: the kernel disagrees with its plain version")
+    if enforce and cw is not None and within(cw, bounds):
+        fail(f"{label}: the check passes the bf16-product control")
+    return err
+
+
+def same_bits(a, b):
+    return all(torch.equal(u, v) for (_, u), (_, v) in zip(a, b))
+
+
+def training_operands(dev, n, z, nb, num_times, seed):
+    """(model, the day forward's operands, a generator for the rest) of
+    the training kernels' checks at one shape: random weights, states and
+    zones from ``seed``."""
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        init_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda.checks import day_operands
+
+    config = GATODEConfig(substeps=SUBSTEPS, num_blocks=nb)
+    model = build_model(config, 7, 8, device=dev)
+    init_params(model, torch.Generator().manual_seed(nb + 10 * seed))
+    fargs = day_operands(model, n, z, num_times, SUBSTEPS, dev, seed=n + seed)
+    return model, fargs, torch.Generator(device=dev).manual_seed(n + seed + 1)
+
+
+def training_kernel_checks(dev, n, z, nb, num_times, seed, control,
+                           enforce=True):
+    """K2f, K2b, K3f and K3b against their plain versions at one shape
+    (random weights, states, zones, cotangents and targets from ``seed``),
+    with the bf16-product control where ``control``; K2b and K3b run twice
+    and must give the same bits. Returns (the largest |d| of each kernel,
+    the four kernels' operands)."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        CE_BOUNDS,
+        CE_CORRECT_MIN,
+        DAY_BWD_BOUNDS,
+        DAY_FWD_BOUNDS,
+        bf16_control,
+        day_bounds,
+    )
+
+    model, fargs, g = training_operands(dev, n, z, nb, num_times, seed)
+    x0, h, ze, tf, dts, w16 = fargs
+    tag = f"N={n} Z={z} num_blocks={nb} T={num_times} seed={seed}"
+    fwd_b = day_bounds(DAY_FWD_BOUNDS, nb)
+    bwd_b = day_bounds(DAY_BWD_BOUNDS, nb)
+    errs = []
+    with torch.inference_mode():
+        xs = ft.day_forward_fused(*fargs)
+        torch.cuda.synchronize()
+        xs_ref = ft.day_forward_reference(*fargs)
+        ctl = [("xs_all", bf16_control(ft.day_forward_reference, *fargs))] \
+            if control else None
+        errs.append(check(f"K2f {tag}", [("xs_all", xs)],
+                          [("xs_all", xs_ref)], fwd_b, ctl, enforce))
+        gxs = torch.randn(xs_ref.shape, device=dev, generator=g)
+        bargs = (xs_ref, gxs, h, ze, tf, dts, w16)
+        got = day_bwd_outputs(ft.day_backward_fused(*bargs))
+        again = day_bwd_outputs(ft.day_backward_fused(*bargs))
+        torch.cuda.synchronize()
+        if not same_bits(got, again):
+            fail(f"K2b repeat at {tag} is not bit-identical")
+        want = day_bwd_outputs(ft.day_backward_reference(*bargs))
+        ctl = day_bwd_outputs(bf16_control(ft.day_backward_reference,
+                                           *bargs)) if control else None
+        errs.append(check(f"K2b {tag} (repeat bit-identical)", got, want,
+                          bwd_b, ctl, enforce))
+        rows = xs_ref[::SUBSTEPS].transpose(0, 1).reshape(
+            -1, model.agent_dim).contiguous()
+        tgt = torch.randint(0, z, (rows.shape[0],), device=dev, generator=g,
+                            dtype=torch.int32)
+        cargs = (rows, tgt, model.decode_proj.weight.T.bfloat16(), ze)
+        nll, corr = ft.ce_forward_fused(*cargs)
+        torch.cuda.synchronize()
+        nll_ref, corr_ref = ft.ce_forward_reference(*cargs)
+        agree = (corr == corr_ref).float().mean().item()
+        ctl = [("nll", bf16_control(ft.ce_forward_reference, *cargs)[0])] \
+            if control else None
+        errs.append(check(
+            f"K3f M={rows.shape[0]} Z={z} seed={seed} (correct agree "
+            f"{agree:.6f} >= {CE_CORRECT_MIN})", [("nll", nll)],
+            [("nll", nll_ref)], CE_BOUNDS, ctl, enforce))
+        if enforce and agree < CE_CORRECT_MIN:
+            fail(f"K3f correct flags disagree at {tag}")
+        gnll = torch.rand(rows.shape[0], device=dev, generator=g) / (
+            rows.shape[0])
+        bcargs = (*cargs, gnll)
+        names = ("gx", "gWd", "gze")
+        got = list(zip(names, ft.ce_backward_fused(*bcargs)))
+        again = list(zip(names, ft.ce_backward_fused(*bcargs)))
+        torch.cuda.synchronize()
+        if not same_bits(got, again):
+            fail(f"K3b repeat at {tag} is not bit-identical")
+        want = list(zip(names, ft.ce_backward_reference(*bcargs)))
+        ctl = list(zip(names, bf16_control(ft.ce_backward_reference,
+                                           *bcargs))) if control else None
+        errs.append(check(
+            f"K3b M={rows.shape[0]} Z={z} seed={seed} (repeat "
+            "bit-identical)", got, want, CE_BOUNDS, ctl, enforce))
+    return errs, (fargs, bargs, cargs, bcargs)
+
+
+def readings(dev):
+    """``--readings``: the four training kernels against their plain
+    versions and the bf16-product control at every shape of DAY_SHAPES and
+    DEPTH_SHAPES for seeds 0-2, printed against the bounds, then the day
+    kernels' float64 witness readings; nothing fails on a bound."""
+    for seed in range(3):
+        for n, z, nb, num_times in DAY_SHAPES + DEPTH_SHAPES:
+            training_kernel_checks(dev, n, z, nb, num_times, seed,
+                                   control=True, enforce=False)
+    for n, z, nb, num_times in WITNESS_SHAPES:
+        for seed in range(WITNESS_SEEDS):
+            witness_readings(dev, n, z, nb, num_times, seed)
+
+
+def describe_far(worst):
+    return (f"mean {worst['mean'][0]:.3e} ({worst['mean'][1]}), max "
+            f"{worst['max'][0]:.3e} ({worst['max'][1]}), 1 - cos "
+            f"{1 - worst['cos'][0]:.3e} ({worst['cos'][1]})")
+
+
+def witness_readings(dev, n, z, nb, num_times, seed):
+    """K2f's and K2b's kernel, plain version and bf16-product control,
+    each against the float64 witness (the plain version with its products
+    and all after them in float64) on the operands of
+    ``training_kernel_checks`` at the same shape and seed."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        bf16_control,
+        float64_witness,
+    )
+
+    _, fargs, g = training_operands(dev, n, z, nb, num_times, seed)
+    tag = f"N={n} Z={z} num_blocks={nb} T={num_times} seed={seed}"
+    with torch.inference_mode():
+        xs_ref = ft.day_forward_reference(*fargs)
+        gxs = torch.randn(xs_ref.shape, device=dev, generator=g)
+        bargs = (xs_ref, gxs, *fargs[1:])
+        for label, fn, args, out in (
+                ("K2f", "day_forward", fargs, lambda o: [("xs_all", o)]),
+                ("K2b", "day_backward", bargs, day_bwd_outputs)):
+            kernel, plain = (getattr(ft, f"{fn}_fused"),
+                             getattr(ft, f"{fn}_reference"))
+            want = out(float64_witness(plain, *args))
+            far = {side: worst_of(out(f(*args)), want)[0] for side, f in (
+                ("kernel", kernel), ("plain", plain),
+                ("control", lambda *a: bf16_control(plain, *a)))}
+            ratio = far["kernel"]["mean"][0] / far["plain"]["mean"][0]
+            print(f"{label} {tag} against the float64 witness: "
+                  + "; ".join(f"{side} {describe_far(w)}"
+                              for side, w in far.items())
+                  + f"; kernel / plain worst mean {ratio:.3f}", flush=True)
+
+
+def build_k8(checkout, name):
+    """Compile ``checkout``'s ``csrc/fused_rhs.cu`` (its own headers) with
+    the port's flags into ``OUT/ab/<name>.so``, print ptxas's per-kernel
+    registers and spills and the kernels' SASS opcode counts, and load it
+    with the port's C interface."""
+    import ctypes
+    import re
+
+    from ananke_abm_tpu_torch.ops.cuda import _build
+
+    path = OUT / "ab" / f"{name}.so"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    src = checkout / "ananke_abm_tpu_torch" / "csrc" / "fused_rhs.cu"
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                           str(path), str(src)], capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    print(f"build [{name}]: {src}")
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if ("Compiling entry" in line or "registers" in line
+                or "spill" in line):
+            print(f"  {line.strip()}")
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, timeout=300).stdout
+    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        ops = {}
+        for m in op.finditer(fn):
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+        keys = ("HMMA", "LDS", "STS", "LDSM", "LDG", "STG", "LDL", "STL",
+                "BAR", "SHFL", "MUFU")
+        print(f"  sass {fn.split(chr(10), 1)[0][:60]}: {sum(ops.values())} "
+              "instructions; " + ", ".join(f"{k} {ops.get(k, 0)}"
+                                           for k in keys))
+    lib = ctypes.CDLL(str(path))
+    for entry, (argtypes, restype) in _build._ENTRY["fused_rhs"].items():
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = restype
+    lib.ananke_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.ananke_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def ab_k8(dev, others):
+    """``--ab-k8 DIR [DIR ...]``: K8 of this checkout against K8 of each
+    checkout at DIR (its ``csrc/fused_rhs.cu`` and headers, the same flags
+    and C interface): the bits at every shape of K8_SHAPES, then the
+    per-launch time at the main path's shape in the order DIR..., this,
+    this, ...DIR."""
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        init_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import _build
+    from ananke_abm_tpu_torch.ops.cuda.checks import k8_operands
+    from ananke_abm_tpu_torch.ops.cuda.fused_rhs import drift_rhs_and_vjp
+
+    libs = {"this": build_k8(ROOT, "this")}
+    for i, other in enumerate(others):
+        libs[str(other)] = build_k8(other, f"other{i}")
+    load = _build.load_library
+
+    def run(which, args):
+        _build.load_library = lambda name: libs[which]
+        try:
+            return drift_rhs_and_vjp(*args)
+        finally:
+            _build.load_library = load
+
+    config = GATODEConfig(method="dopri5")
+    main_args = None
+    for n, z, nb in K8_SHAPES:
+        model = build_model(dataclasses.replace(config, num_blocks=nb), 7, 8,
+                            device=dev)
+        init_params(model, torch.Generator().manual_seed(nb))
+        args = k8_operands(model, n, z, dev, seed=n)
+        main_args = main_args or args
+        with torch.inference_mode():
+            out = {w: k8_outputs(run(w, args)) for w in libs}
+        for w in others:
+            a, b = out["this"], out[str(w)]
+            same = all(torch.equal(u, v) for (_, u), (_, v) in zip(a, b))
+            diff = max((u - v).abs().max().item()
+                       for (_, u), (_, v) in zip(a, b))
+            print(f"K8 A/B N={n} Z={z} num_blocks={nb}: this against {w}: "
+                  f"same bits {same} (max |d| {diff:.3e})", flush=True)
+    times = {w: [] for w in libs}
+    order = [str(w) for w in others]
+    with torch.inference_mode():
+        for w in order + ["this", "this"] + order[::-1]:
+            times[w].append(cuda_ms(lambda: run(w, main_args), 20))
+    for w, t in times.items():
+        print(f"K8 A/B at N={K8_SHAPES[0][0]} Z={K8_SHAPES[0][1]}: {w} "
+              f"{', '.join(f'{m:.3f}' for m in t)} ms per launch",
+              flush=True)
+
+
+def fixed_step_phases(dev, card):
+    """Phases 10-13: K2f, K2b, K3f and K3b against their plain versions,
+    the fixed-step trainer at rung 2, the kernel trainer against the
+    plain-version trainer, and times. Returns the four kernels' entries of
+    the {"kernels": [...]} line."""
+    from ananke_abm_tpu_torch.data_generator import generate_agent_population
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_fused_loss_fn,
+        build_model,
+        init_params,
+        make_fused_train_step,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
+
+    kernels = (ft.day_forward_fused, ft.day_backward_fused,
+               ft.ce_forward_fused, ft.ce_backward_fused)
+    plains = (ft.day_forward_reference, ft.day_backward_reference,
+              ft.ce_forward_reference, ft.ce_backward_reference)
+    config = GATODEConfig(substeps=SUBSTEPS, num_blocks=2)
+
+    # ---- 10. the four kernels against their plain versions ---------------
+    errs = [0.0] * 4
+    main = None
+    for n, z, nb, num_times in DAY_SHAPES:
+        e, operands = training_kernel_checks(dev, n, z, nb, num_times,
+                                             seed=0, control=main is None)
+        errs = [max(a, b) for a, b in zip(errs, e)]
+        main = main or operands
+
+    # ---- 13a. per-launch times at rung 2 (before the trainer, for its
+    # kernel share) --------------------------------------------------------
+    with torch.inference_mode():
+        ms = [cuda_ms(lambda k=k, a=a: k(*a), 5)
+              for k, a in zip(kernels, main)]
+        plain_ms = [cuda_ms(lambda p=p, a=a: p(*a), 1)
+                    for p, a in zip(plains, main)]
+
+    # ---- 11. the fixed-step trainer at bench rung 2 -----------------------
+    data = generate_agent_population(TRAIN_N, num_times=TRAIN_TIMES,
+                                     seed=TRAIN_SEED, num_zones=TRAIN_ZONES)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)
+    static = (on(data["zone_features"]), on(data["adj"]), on(data["times"]))
+    batch = (on(data["person_feats"]), on(data["home_zone"], torch.long),
+             on(data["zone_ids"], torch.long))
+    model = build_model(config, data["zone_features"].shape[-1],
+                        data["person_feats"].shape[-1], device=dev)
+    init_params(model, torch.Generator().manual_seed(TRAIN_WEIGHT_SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    # optax.adamw(1e-3) as bench.py uses it: betas (0.9, 0.999), eps 1e-8,
+    # decoupled weight decay 1e-4
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4)
+    step, _ = make_fused_train_step(model, opt, config, static)
+    losses, walls = [], []
+    for k in kernels:
+        k.launches = 0
+    for i in range(FIXED_STEPS):
+        before = [k.launches for k in kernels]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        loss, acc = step(*batch)
+        end.record()
+        loss = loss.item()
+        torch.cuda.synchronize()
+        wall = start.elapsed_time(end) / 1e3
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        share = sum(ms) / 1e3 / wall
+        print(f"fixed train step {i + 1}: loss {loss:.6f} acc "
+              f"{acc.item():.4f}, wall {wall:.4f} s (CUDA events); launches "
+              f"K2f/K2b/K3f/K3b {launched}; kernel share {share:.1%} "
+              f"({' + '.join(f'{m:.3f}' for m in ms)} ms) [card {card}]",
+              flush=True)
+        if launched != [1, 1, 1, 1]:
+            fail(f"fixed step {i + 1} launched the kernels {launched} times, "
+                 "expected once each")
+        losses.append(loss)
+        walls.append(wall)
+    launches = [k.launches for k in kernels]
+    print(f"fixed trainer: {TRAIN_N} agents x {TRAIN_ZONES} zones x "
+          f"{TRAIN_TIMES} times, {n_params} parameters, {FIXED_STEPS} steps, "
+          f"losses {losses}, launches {launches}", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"fixed-step training losses {losses}: not finite and falling")
+
+    # ---- 12. kernel trainer against the plain-version trainer -------------
+    sub = tuple(b[:CHECK_FIXED_AGENTS] for b in batch)
+    results = []
+    for plain in (False, True):
+        fn = build_fused_loss_fn(model, config, *static, _plain=plain)
+        model.zero_grad()
+        loss, _ = fn(*sub)
+        loss.backward()
+        results.append((loss.item(), grads_of(model)))
+    (lk, gk), (lp, gp) = results
+    cos = (torch.dot(gk.double(), gp.double())
+           / (gk.double().norm() * gp.double().norm())).item()
+    rel = abs(lk - lp) / abs(lp)
+    print(f"fixed trainer check at {CHECK_FIXED_AGENTS} agents: loss kernels "
+          f"{lk:.7f} plain {lp:.7f} (rel {rel:.3e} <= {FIXED_LOSS_RTOL}); "
+          f"gradient cosine {cos:.9f}, 1 - cosine {1 - cos:.3e} (cosine > "
+          f"{FIXED_COS_MIN})", flush=True)
+    if not (rel <= FIXED_LOSS_RTOL and cos > FIXED_COS_MIN):
+        fail("the kernel trainer disagrees with the plain-version trainer")
+
+    # ---- 13b. times ---------------------------------------------------------
+    da, dz, dc, hd = (config.agent_dim, config.zone_dim, config.context_dim,
+                      config.hidden_dim)
+    S = (TRAIN_TIMES - 1) * SUBSTEPS
+    M = TRAIN_N * TRAIN_TIMES
+    fwd, bwd = stage_flops(da, dz, dc, hd, TRAIN_ZONES, config.num_blocks)
+    # the functions' work: the day forward, its h-row product once per
+    # agent (the kernels redo it in every stage; it is not the function's
+    # work); the reverse sweep with one recompute of each stage (the kernel
+    # runs 7 stage forwards per substep where this counts 4) and the h-row
+    # product and its two VJP products once per agent; the decode once, and
+    # its backward's three products on each side of it
+    hrow = 2 * dc * hd
+    flops = [TRAIN_N * (4 * S * (fwd - hrow) + hrow),
+             TRAIN_N * (4 * S * (fwd - hrow + bwd - 2 * hrow) + 3 * hrow),
+             M * 2 * (da * dz + dz * TRAIN_ZONES),
+             M * 2 * 3 * (da * dz + dz * TRAIN_ZONES)]
+    grads = 4 * (TRAIN_ZONES * dz + 4 * S * hd + da * dz + (da + dz) * hd
+                 + dc * hd + config.num_blocks * (2 * hd * hd + 2 * hd)
+                 + hd * da + da)
+    nbytes = [TRAIN_N * 4 * (da + dc + (S + 1) * da),
+              TRAIN_N * 4 * (2 * (S + 1) * da + 2 * dc + da) + grads,
+              M * 4 * (da + 3),
+              M * 4 * (2 * da + 2) + 4 * (TRAIN_ZONES + da) * dz]
+    names = ("day_forward_fused", "day_backward_fused", "ce_forward_fused",
+             "ce_backward_fused")
+    for name, f, nb, m, p in zip(names, flops, nbytes, ms, plain_ms):
+        b, by = bound(f, nb)
+        print(f"{name} at rung 2: kernel {m:.3f} ms ({f / m / 1e9:.1f} "
+              f"TFLOP/s, {b / m:.1%} of the {by} bound), plain version "
+              f"{p:.3f} ms ({f / p / 1e9:.1f} TFLOP/s) of {f / 1e9:.1f} GFLOP "
+              f"[card {card}]", flush=True)
+    plain_loss = build_fused_loss_fn(model, config, *static, _plain=True)
+    opt.zero_grad()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = plain_loss(*batch)
+    loss.backward()
+    opt.step()
+    loss = loss.item()
+    plain_wall = time.perf_counter() - t0
+    print(f"fixed training step at rung 2: kernels {min(walls[1:]):.4f} s "
+          f"(best of steps 2-{FIXED_STEPS}), plain versions {plain_wall:.4f} "
+          f"s (one step, loss {loss:.6f}) [card {card}]", flush=True)
+    sources = ("fused_train.py:145", "fused_train.py:229",
+               "fused_train.py:486", "fused_train.py:537")
+    return [kernel_entry(*a, "fused_train.cu", *b)
+            for a, b in zip(zip(names), zip(sources, launches, errs, ms,
+                                            plain_ms, flops, nbytes))]
 
 
 if __name__ == "__main__":

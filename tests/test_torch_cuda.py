@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: the
-serving interval (K1) and the adjoint RHS (K8) with the trainer around it.
+serving interval (K1), the adjoint RHS (K8) with the trainer around it, and
+the training-day kernels (K2f, K2b, K3f, K3b) with the fixed-step trainer.
 
 Marked ``cuda``: every test here skips on a host without a CUDA device.
 On a card without JAX installed, run them with
@@ -13,7 +14,6 @@ import pytest
 import torch
 
 from ananke_abm_tpu_torch.data_generator import generate_agent_population
-from ananke_abm_tpu_torch.models.gnn_embed.params import flax_leaf_params
 from ananke_abm_tpu_torch.models.gnn_embed.rollout import (
     _kernel_body,
     make_decoded_rollout,
@@ -21,17 +21,31 @@ from ananke_abm_tpu_torch.models.gnn_embed.rollout import (
 from ananke_abm_tpu_torch.models.gnn_embed.train import (
     GATODEConfig,
     _adjoint_loss_fn,
+    build_fused_loss_fn,
     build_model,
     init_params,
     make_adjoint_step_fns,
+    make_fused_train_step,
+)
+from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
+from ananke_abm_tpu_torch.ops.cuda.checks import (
+    CE_BOUNDS,
+    CE_CORRECT_MIN,
+    DAY_BWD_BOUNDS,
+    DAY_FWD_BOUNDS,
+    WITNESS_BWD_BOUNDS,
+    bf16_control,
+    day_bounds,
+    day_operands,
+    float64_witness,
+    k8_bounds,
+    k8_operands,
 )
 from ananke_abm_tpu_torch.ops.cuda.fused_rhs import (
     drift_rhs_and_vjp,
     drift_rhs_and_vjp_reference,
     drift_rhs_fused,
     make_fused_adjoint_rhs,
-    split_drift_params,
-    time_row,
 )
 from ananke_abm_tpu_torch.ops.cuda.fused_step import (
     interval_stage_times,
@@ -48,13 +62,6 @@ X_MAX_RTOL = 2e-3
 IDS_MIN = 0.999
 # a whole rollout: an id flipped in one interval carries into later ones
 ROLLOUT_IDS_MIN = 0.995
-# K8 against its plain version, per output: mean |d| / mean |ref|, max |d|
-# / max |ref|, 1 - cosine, for 2 residual blocks and scaled by
-# (2 + blocks) / 4: bf16 flips compound through the blocks (chip_smoke.py's
-# k8_bounds)
-K8_REL_MEAN = 3e-3
-K8_REL_MAX = 1e-2
-K8_ONE_MINUS_COS = 1e-5
 
 
 @pytest.fixture
@@ -150,18 +157,28 @@ def test_kernel_rejects_widths_it_is_not_compiled_for(cuda):
         rk4_interval_decode_fused(x, x.clone(), ze, w, wd, tf, 0.1)
 
 
-def _k8_args(model, n, num_zones, cuda, seed=0):
-    with torch.no_grad():
-        (Wq, W1xc, W1h, W1t, b1, blocks, W3, b3) = split_drift_params(
-            dict(flax_leaf_params(model)))
-        g = torch.Generator(device=cuda).manual_seed(seed)
-        x, h, a = (torch.randn(n, 32, device=cuda, generator=g)
-                   for _ in range(3))
-        ze = torch.randn(num_zones, 64, device=cuda, generator=g)
-        d = lambda w: w.detach()
-        return (x, h, ze, time_row(7.3, d(W1t), d(b1)), d(Wq), d(W1xc),
-                d(W1h), tuple(tuple(d(w) for w in b) for b in blocks),
-                d(W3), d(b3), a)
+def _readings(u, v):
+    """(mean |d| / mean |ref|, max |d| / max |ref|, 1 - cosine) of ``u``
+    against the reference ``v``."""
+    u, v = u.double(), v.double()
+    d = (u - v).abs()
+    cos = torch.dot(u.flatten(), v.flatten()) / (u.norm() * v.norm())
+    return ((d.mean() / v.abs().mean()).item(),
+            (d.max() / v.abs().max()).item(), (1 - cos).item())
+
+
+def _within(got, want, bounds):
+    return all(r <= b for u, v in zip(got, want)
+               for r, b in zip(_readings(u, v), bounds))
+
+
+def _assert_close(got, want, bounds):
+    """Per output: mean |d| / mean |ref|, max |d| / max |ref| and 1 -
+    cosine within ``bounds`` (``ops/cuda/checks.py``)."""
+    for u, v in zip(got, want):
+        assert torch.isfinite(u).all()
+        assert all(r <= b for r, b in zip(_readings(u, v), bounds)), (
+            _readings(u, v), bounds)
 
 
 def _k8_flat(out):
@@ -176,7 +193,7 @@ def test_adjoint_kernel_matches_plain_version(cuda, n, num_zones,
                                               num_blocks):
     """Every output within the bounds, and a repeat on the same operands
     gives the same bits (the sums over agents run in a fixed order)."""
-    args = _k8_args(_model(cuda, num_blocks), n, num_zones, cuda)
+    args = k8_operands(_model(cuda, num_blocks), n, num_zones, cuda, seed=0)
     with torch.inference_mode():
         before = drift_rhs_and_vjp.launches
         got = drift_rhs_and_vjp(*args)
@@ -184,16 +201,9 @@ def test_adjoint_kernel_matches_plain_version(cuda, n, num_zones,
         torch.cuda.synchronize()
         assert drift_rhs_and_vjp.launches == before + 2
         want = drift_rhs_and_vjp_reference(*args)
-    depth = (2 + num_blocks) / 4
-    for u, u2, v in zip(_k8_flat(got), _k8_flat(again), _k8_flat(want)):
-        assert torch.equal(u, u2)
-        assert torch.isfinite(u).all()
-        d = (u - v).abs()
-        assert d.mean() <= K8_REL_MEAN * depth * v.abs().mean()
-        assert d.max() <= K8_REL_MAX * depth * v.abs().max()
-        cos = torch.dot(u.flatten().double(), v.flatten().double()) / (
-            u.double().norm() * v.double().norm())
-        assert 1 - cos <= K8_ONE_MINUS_COS * depth
+    assert all(torch.equal(u, v) for u, v in zip(_k8_flat(got),
+                                                 _k8_flat(again)))
+    _assert_close(_k8_flat(got), _k8_flat(want), k8_bounds(num_blocks))
 
 
 def test_adjoint_trainer_runs_its_backward_through_the_kernel(cuda):
@@ -249,6 +259,139 @@ def test_auto_adjoint_raises_where_the_kernel_cannot_serve(cuda, change,
 
 
 def test_drift_rhs_fused_has_no_cuda_kernel_yet(cuda):
-    args = _k8_args(_model(cuda, 1), 16, 8, cuda)
+    args = k8_operands(_model(cuda, 1), 16, 8, cuda, seed=0)
     with pytest.raises(NotImplementedError, match="queue 2"):
         drift_rhs_fused(*args[:-1])
+
+
+def _day_args(cuda, n, num_zones, num_blocks, num_times):
+    model = _model(cuda, num_blocks)
+    args = day_operands(model, n, num_zones, num_times, 2, cuda, seed=n)
+    return model, args, torch.Generator(device=cuda).manual_seed(n + 1)
+
+
+def _flat_day(out):
+    return [*out[:7], *[w for b in out[7] for w in b], out[8], out[9]]
+
+
+@pytest.mark.parametrize("n,num_zones,num_blocks,num_times", [
+    (1_000, 64, 1, 5), (4_096, 500, 2, 4), (70, 5, 3, 3), (4_096, 64, 8, 5),
+])
+def test_day_kernels_match_plain_versions(cuda, n, num_zones, num_blocks,
+                                          num_times):
+    """K2f and K2b within the bounds; K2b twice gives the same bits."""
+    _, args, g = _day_args(cuda, n, num_zones, num_blocks, num_times)
+    with torch.inference_mode():
+        before = (ft.day_forward_fused.launches,
+                  ft.day_backward_fused.launches)
+        xs = ft.day_forward_fused(*args)
+        xs_ref = ft.day_forward_reference(*args)
+        gxs = torch.randn(xs_ref.shape, device=cuda, generator=g)
+        bargs = (xs_ref, gxs, *args[1:])
+        got = _flat_day(ft.day_backward_fused(*bargs))
+        again = _flat_day(ft.day_backward_fused(*bargs))
+        torch.cuda.synchronize()
+        assert (ft.day_forward_fused.launches,
+                ft.day_backward_fused.launches) == (before[0] + 1,
+                                                    before[1] + 2)
+        want = _flat_day(ft.day_backward_reference(*bargs))
+    assert xs.shape == (2 * (num_times - 1) + 1, n, 32)
+    _assert_close([xs], [xs_ref], day_bounds(DAY_FWD_BOUNDS, num_blocks))
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    _assert_close(got, want, day_bounds(DAY_BWD_BOUNDS, num_blocks))
+
+
+def test_day_backward_kernel_against_a_float64_witness(cuda):
+    """200 agents and 8 blocks, where kernel and plain version read farther
+    apart than DAY_BWD_BOUNDS allow: each lies within WITNESS_BWD_BOUNDS of
+    the float64 witness, and the bf16-product control does not."""
+    _, args, g = _day_args(cuda, 200, 64, 8, 3)
+    with torch.inference_mode():
+        xs = ft.day_forward_reference(*args)
+        gxs = torch.randn(xs.shape, device=cuda, generator=g)
+        bargs = (xs, gxs, *args[1:])
+        got = _flat_day(ft.day_backward_fused(*bargs))
+        torch.cuda.synchronize()
+        plain = _flat_day(ft.day_backward_reference(*bargs))
+        control = _flat_day(bf16_control(ft.day_backward_reference, *bargs))
+        witness = _flat_day(float64_witness(ft.day_backward_reference,
+                                            *bargs))
+    _assert_close(got, witness, WITNESS_BWD_BOUNDS)
+    _assert_close(plain, witness, WITNESS_BWD_BOUNDS)
+    assert not _within(control, witness, WITNESS_BWD_BOUNDS)
+
+
+@pytest.mark.parametrize("m,num_zones", [(5_000, 64), (16_384, 500),
+                                         (210, 5), (4_096, 2_048)])
+def test_ce_kernels_match_plain_versions(cuda, m, num_zones):
+    """K3f and K3b within the bounds; K3b twice gives the same bits."""
+    model = _model(cuda, 1)
+    g = torch.Generator(device=cuda).manual_seed(m)
+    rows = torch.randn(m, 32, device=cuda, generator=g)
+    tgt = torch.randint(0, num_zones, (m,), device=cuda, generator=g,
+                        dtype=torch.int32)
+    ze = torch.randn(num_zones, 64, device=cuda, generator=g).bfloat16()
+    wd = model.decode_proj.weight.T.detach().bfloat16()
+    gnll = torch.rand(m, device=cuda, generator=g)
+    with torch.inference_mode():
+        nll, corr = ft.ce_forward_fused(rows, tgt, wd, ze)
+        got = ft.ce_backward_fused(rows, tgt, wd, ze, gnll)
+        again = ft.ce_backward_fused(rows, tgt, wd, ze, gnll)
+        torch.cuda.synchronize()
+        nll_ref, corr_ref = ft.ce_forward_reference(rows, tgt, wd, ze)
+        want = ft.ce_backward_reference(rows, tgt, wd, ze, gnll)
+    assert (corr == corr_ref).float().mean() >= CE_CORRECT_MIN
+    _assert_close([nll], [nll_ref], CE_BOUNDS)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    _assert_close(got, want, CE_BOUNDS)
+
+
+def test_training_kernels_reject_widths_they_are_not_compiled_for(cuda):
+    config = GATODEConfig(hidden_dim=64)
+    model = build_model(config, 7, 8, device=cuda)
+    init_params(model, torch.Generator().manual_seed(0))
+    args = day_operands(model, 16, 8, 2, 2, cuda, seed=0)
+    with pytest.raises(ValueError, match="compiled for"):
+        ft.day_forward_fused(*args)
+    ze = args[2]
+    rows = torch.zeros(16, 16, device=cuda)
+    with pytest.raises(ValueError, match="compiled for"):
+        ft.ce_forward_fused(rows, torch.zeros(16, dtype=torch.int32,
+                                              device=cuda),
+                            torch.zeros(16, 64, dtype=torch.bfloat16,
+                                        device=cuda), ze)
+
+
+def test_fixed_step_trainer_runs_through_the_kernels(cuda):
+    """One launch of each kernel per step, and the loss and gradient of the
+    plain-version step (the JAX tests' bounds for the fused step)."""
+    config = GATODEConfig()
+    d = generate_agent_population(1_024, num_times=6, num_zones=64, seed=0)
+    model = _model(cuda, config.num_blocks)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(cuda)
+    static = (on(d["zone_features"]), on(d["adj"]), on(d["times"]))
+    batch = (on(d["person_feats"]), on(d["home_zone"], torch.long),
+             on(d["zone_ids"], torch.long))
+    kernels = (ft.day_forward_fused, ft.day_backward_fused,
+               ft.ce_forward_fused, ft.ce_backward_fused)
+    before = [k.launches for k in kernels]
+    _, loss_fn = make_fused_train_step(model, None, config, static)
+    model.zero_grad()
+    loss, _ = loss_fn(*batch)
+    loss.backward()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1, 1]
+    grads = torch.cat([p.grad.flatten() for p in model.parameters()])
+    plain = build_fused_loss_fn(model, config, *static, _plain=True)
+    model.zero_grad()
+    loss_p, _ = plain(*batch)
+    loss_p.backward()
+    grads_p = torch.cat([p.grad.flatten() for p in model.parameters()])
+    assert abs(loss.item() - loss_p.item()) <= 1e-2 * abs(loss_p.item())
+    cos = torch.dot(grads.double(), grads_p.double()) / (
+        grads.double().norm() * grads_p.double().norm())
+    assert cos > 0.999
+
+
+def test_build_model_defaults_to_the_card(cuda):
+    model = build_model(GATODEConfig(), 7, 8)
+    assert next(model.parameters()).device.type == "cuda"
