@@ -62,6 +62,8 @@ class ZoneGAT(nn.Module):
     def __init__(self, in_features: int, features: int = 64, heads: int = 4,
                  num_layers: int = 2, *, device):
         super().__init__()
+        self.heads = heads
+        self.num_layers = num_layers
         self.inp = nn.Linear(in_features, features, device=device)
         self.layers = nn.ModuleList(
             GATLayer(features, features, heads, device=device)

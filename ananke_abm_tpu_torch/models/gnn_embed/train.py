@@ -1,10 +1,11 @@
 """GAT-ODE configuration, construction, initialisation, serving, the
-fixed-step trainers (plain autograd, and fused through the training-day
-kernels) and the continuous-adjoint trainer (port of parts of
-``ananke_abm_tpu/models/gnn_embed/train.py``).
+fixed-step trainers (plain autograd, and fused through the zone-encoder and
+training-day kernels), the continuous-adjoint trainer, the epoch function
+and ``train()`` (port of ``ananke_abm_tpu/models/gnn_embed/train.py``).
 
-Not ported yet: ``make_epoch_fn``, ``accum`` and ``train()`` (ROADMAP.md
-queue 1 item 6), and the discrete adjoint (item 7).
+Not ported yet: the discrete adjoint (ROADMAP.md queue 1 item 7, which
+``train()`` needs for ``method="dopri5"``), sparse zone graphs (item 9) and
+the data-parallel step across cards (item 11).
 """
 from __future__ import annotations
 
@@ -26,11 +27,19 @@ from ananke_abm_tpu_torch.models.gnn_embed.params import (
     _linears,
     flax_leaf_params,
     load_flax_params,
+    to_flax_params,
 )
 from ananke_abm_tpu_torch.models.gnn_embed.rollout import (
     make_decoded_rollout,
 )
-from ananke_abm_tpu_torch.utils.ckpt import load_checkpoint
+from ananke_abm_tpu_torch.utils.cfg import ensure_dir
+from ananke_abm_tpu_torch.utils.ckpt import (
+    OPT_STATE_FORMAT,
+    adamw_state,
+    load_adamw_state,
+    load_checkpoint,
+    save_checkpoint,
+)
 
 
 @dataclasses.dataclass
@@ -203,6 +212,10 @@ class ClippedAdamW:
                                        betas=(0.9, 0.999), eps=1e-8,
                                        weight_decay=weight_decay)
 
+    @property
+    def param_groups(self):
+        return self.adamw.param_groups
+
     def zero_grad(self):
         self.adamw.zero_grad(set_to_none=True)
 
@@ -282,7 +295,8 @@ def make_step_fns(model, optimizer, config, static):
 def build_fused_loss_fn(model, config, zone_feats, adj, times,
                         _plain=False):
     """``loss_fn(pf, hz, targets) -> (loss, acc)`` of the fused fixed-step
-    trainer: the zone encoder and the initial state in plain PyTorch, the
+    trainer: the zone encoder through the encoder kernels
+    (``zone_gat_fused``, K4f/K4b), the initial state in plain PyTorch, the
     day's RK4 integration through the day kernels (``rk4_day_rollout``,
     K2f/K2b) and the decode's cross-entropy through the cross-entropy
     kernels (``decode_ce``, K3f/K3b). On the CPU the kernels' wrappers run
@@ -290,9 +304,8 @@ def build_fused_loss_fn(model, config, zone_feats, adj, times,
 
     The kernels' contract is enforced: fixed-step RK4 (``config.method``),
     ``attn_temp == 1.0`` (the kernels hard-code that attention) and at
-    least one residual drift block; anything else raises. The zone encoder
-    is ``model.encode_zones``, the reference's own encoder branch; its
-    fused kernel pair (K4f/K4b) comes in a later slice.
+    least one residual drift block; anything else raises, as do widths the
+    kernels are not compiled for.
 
     Loss and accuracy are means over the agent-time rows. ``_plain``: run
     the kernels' plain versions wherever the tensors lie (to hold the
@@ -311,17 +324,22 @@ def build_fused_loss_fn(model, config, zone_feats, adj, times,
             "reverse sweep assumes at least one residual drift block); "
             "use make_step_fns for a block-free drift"
         )
+    from ananke_abm_tpu_torch.ops.cuda import fused_gat
     from ananke_abm_tpu_torch.ops.cuda.fused_train import (
         PLAIN,
         decode_ce,
         rk4_day_rollout,
     )
 
-    day_impl, ce_impl = (PLAIN["day"], PLAIN["ce"]) if _plain else (None,
-                                                                    None)
+    day_impl, ce_impl, gat_impl = ((PLAIN["day"], PLAIN["ce"],
+                                    fused_gat.PLAIN) if _plain
+                                   else (None, None, None))
+    gat = model.zone_gat
 
     def loss_fn(pf, hz, targets):
-        zone_emb = model.encode_zones(zone_feats, adj)
+        zone_emb = fused_gat.zone_gat_fused(
+            zone_feats, adj, gat, heads=gat.heads,
+            num_layers=gat.num_layers, _impl=gat_impl)
         x0, h = model.initial_state(pf, hz, zone_emb)
         dense = model.drift.dense
         blocks = tuple(
@@ -359,6 +377,239 @@ def make_fused_train_step(model, optimizer, config, static):
     loss_fn = build_fused_loss_fn(model, config, zone_feats, adj, times)
     return _step_fns(lambda pf, hz, tg, _graph: loss_fn(pf, hz, tg),
                      optimizer, None)
+
+
+def make_epoch_fn(optimizer, loss_fn_g, graph=(), accum=1):
+    """One epoch of training steps over permuted batches, with the data on
+    the device (the reference's ``make_epoch_fn``; there one jitted scan).
+
+    ``loss_fn_g(pf, hz, targets, graph) -> (loss, acc)``; ``optimizer``:
+    ``make_optimizer``'s or a ``torch.optim`` optimizer over the model's
+    parameters. Returns ``epoch(pf, hz, tg, batches) -> (losses, accs)``
+    with ``batches`` an (n_batches, bsz) long tensor of agent rows on the
+    model's device; it steps the model and the optimizer in place, in the
+    order of a per-step loop (same batches, same ops), and returns the
+    per-microbatch (n_batches,) losses and accuracies on the device: no
+    host sync.
+
+    ``accum=k`` turns every k consecutive microbatches into ONE optimizer
+    update on the mean of their gradients (backward k times into ``.grad``,
+    divide by k, step: the clip of ``ClippedAdamW`` sees the mean, as
+    optax's chain does). ``n_batches`` must be a multiple of ``accum``.
+    """
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def epoch(pf, hz, tg, batches):
+        n_b = batches.shape[0]
+        if n_b % accum:
+            raise ValueError(f"accum={accum} must divide n_batches={n_b}")
+        losses, accs = [], []
+        for u in range(0, n_b, accum):
+            optimizer.zero_grad()
+            for rows in batches[u:u + accum]:
+                loss, acc = loss_fn_g(pf[rows], hz[rows], tg[rows], graph)
+                loss.backward()
+                losses.append(loss.detach())
+                accs.append(acc.detach())
+            if accum > 1:
+                with torch.no_grad():
+                    for p in params:
+                        if p.grad is not None:
+                            p.grad.div_(accum)
+            optimizer.step()
+        return torch.stack(losses), torch.stack(accs)
+
+    return epoch
+
+
+# zone counts up to which train() runs the fused step (the reference's gate)
+FUSED_MAX_ZONES = 2048
+
+
+def _resume_checkpoint(path, config, run):
+    """The ``gatode_last.ckpt`` at ``path`` if this package wrote it for the
+    same run (``run``: the world keys; ``config`` but its ``epochs``)."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"resume=True but no {path}; run with ckpt_every to produce one")
+    refuse = (f"{path} holds an optax optimizer state (a checkpoint of the "
+              "JAX package); the port resumes only the checkpoints it wrote")
+    try:
+        ck = load_checkpoint(path)
+    except ModuleNotFoundError as e:  # optax's classes, where optax is absent
+        raise ValueError(f"{refuse} (unpickling needs {e.name!r})") from e
+    opt = ck.get("opt_state")
+    if not (isinstance(opt, dict) and opt.get("format") == OPT_STATE_FORMAT):
+        raise ValueError(refuse)
+    # everything but the epoch target must match, or the continued run
+    # silently diverges from the uninterrupted one
+    got = {k: ck.get(k) for k in run}
+    cfg_now = {k: v for k, v in dataclasses.asdict(config).items()
+               if k != "epochs"}
+    cfg_ck = {k: v for k, v in (ck.get("config") or {}).items()
+              if k != "epochs"}
+    if got != run or cfg_ck != cfg_now:
+        diffs = [f"{k}: ckpt {got[k]!r} vs {run[k]!r}"
+                 for k in run if got[k] != run[k]]
+        diffs += [f"config.{k}: ckpt {cfg_ck.get(k)!r} vs {v!r}"
+                  for k, v in cfg_now.items() if cfg_ck.get(k) != v]
+        raise ValueError("resume checkpoint was written for a different "
+                         "run: " + "; ".join(diffs))
+    return ck
+
+
+def train(
+    outdir: str,
+    n_agents: int = 8192,
+    num_times: int = 48,
+    config: GATODEConfig | None = None,
+    seed: int = 0,
+    num_zones: int | None = None,
+    sparse_zones: bool = False,
+    sparse_world: bool = False,
+    data_parallel: bool = False,
+    ckpt_every: int = 0,
+    resume: bool = False,
+    accum_steps: int = 1,
+    *,
+    device="cuda",
+):
+    """Train a GAT-ODE on a generated world (the reference's ``train()``,
+    same keys, files and refusals): ``generate_agent_population(n_agents,
+    num_times, seed, num_zones)``, :func:`init_params` from ``seed``,
+    :func:`make_optimizer`, then ``config.epochs`` epochs of
+    :func:`make_epoch_fn`, each over ``np.random.default_rng(seed +
+    epoch).permutation(n_agents)`` cut into ``max(1, n_agents // bsz)``
+    batches (the reference's batches).
+
+    The step: on the card with ``config.method == "rk4"`` and at most
+    FUSED_MAX_ZONES zones, the fused step (:func:`build_fused_loss_fn`: the
+    encoder, day and cross-entropy kernels); otherwise the plain step at
+    ``config.method`` (what the reference runs off the TPU, and what runs on
+    the CPU). ``method="dopri5"`` trains through the discrete adjoint and
+    raises (not ported yet: ROADMAP.md queue 1 item 7), as do
+    ``sparse_zones`` / ``sparse_world`` (item 9) and ``data_parallel`` over
+    more than one card (item 11); with one card ``data_parallel`` runs the
+    single-device step, as the reference does with one device.
+
+    ``ckpt_every=k`` writes ``gatode_last.ckpt`` (flax-layout params, this
+    package's AdamW state, epoch, history, world keys) every k epochs;
+    ``resume=True`` continues from it and reproduces the uninterrupted run.
+    A ``gatode_last.ckpt`` of the JAX package (an optax state) is refused.
+    ``accum_steps=k`` makes each update the mean gradient of k microbatches;
+    it must divide the epoch's batch count. ``gatode_best.ckpt`` is written
+    at the end in the reference's format: the JAX package's ``serve()``
+    reads it. ``device``: the card unless the caller asks for the CPU (no
+    fallback).
+
+    Returns ``{final_loss, final_acc, seconds, ckpt}``; ``seconds`` is the
+    epochs' wall time, the device synchronised before each reading.
+    """
+    if sparse_zones or sparse_world:
+        raise NotImplementedError(
+            "sparse zone graphs (sparse_zones / sparse_world) are not ported "
+            "yet: ROADMAP.md queue 1 item 9")
+    config = config or GATODEConfig()
+    device = resolve_device(device)
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    data_parallel = data_parallel and n_dev > 1
+    if accum_steps > 1 and data_parallel:
+        raise ValueError(
+            "accum_steps > 1 is a single-device feature; the data-parallel "
+            "step scales its effective batch across chips instead")
+    if data_parallel:
+        raise NotImplementedError(
+            f"data_parallel over {n_dev} cards is not ported yet: "
+            "ROADMAP.md queue 1 item 11")
+    if config.method == "dopri5":
+        raise NotImplementedError(
+            "train() with method='dopri5' trains through the discrete "
+            "adjoint, which is not ported yet: ROADMAP.md queue 1 item 7")
+    ensure_dir(outdir)
+    data = generate_agent_population(n_agents, num_times=num_times,
+                                     seed=seed, num_zones=num_zones)
+    model = build_model(config, data["zone_features"].shape[-1],
+                        data["person_feats"].shape[-1], device=device)
+    init_params(model, torch.Generator(device).manual_seed(seed))
+    optimizer = make_optimizer(model, config)
+    bsz = min(config.batch_size, n_agents)
+    on = lambda a, dtype=torch.float32: torch.as_tensor(
+        a, dtype=dtype).to(device)
+    static = (on(data["zone_features"]), on(data["adj"]), on(data["times"]))
+    Z = int(static[0].shape[0])
+    if (config.method == "rk4" and device.type == "cuda"
+            and Z <= FUSED_MAX_ZONES):
+        fused_loss = build_fused_loss_fn(model, config, *static)
+        epoch_fn = make_epoch_fn(
+            optimizer, lambda pf, hz, tg, _g: fused_loss(pf, hz, tg),
+            graph=(), accum=accum_steps)
+    else:
+        epoch_fn = make_epoch_fn(optimizer, _build_loss_fn_g(model, config),
+                                 graph=static, accum=accum_steps)
+    pf = on(data["person_feats"])
+    hz = on(data["home_zone"], torch.long)
+    tg = on(data["zone_ids"], torch.long)
+    n_batches = max(1, n_agents // bsz)
+    if accum_steps > 1 and n_batches % accum_steps:
+        raise ValueError(
+            f"accum_steps={accum_steps} must divide the epoch's batch count "
+            f"({n_batches} batches of {bsz} agents)")
+
+    last_ckpt = os.path.join(outdir, "gatode_last.ckpt")
+    names = [name for name, _ in model.named_parameters()]
+    run = {"world_seed": seed, "n_agents": n_agents, "num_times": num_times,
+           "num_zones": Z, "sparse_world": False}
+    start_epoch, hist = 1, []
+    if resume:
+        ck = _resume_checkpoint(last_ckpt, config, run)
+        load_flax_params(model, ck["params"])
+        load_adamw_state(optimizer.adamw, ck["opt_state"], names)
+        hist = list(ck["history"])
+        start_epoch = int(ck["epoch"]) + 1
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    sync()
+    t0 = time.time()
+    for epoch in range(start_epoch, config.epochs + 1):
+        perm = np.random.default_rng(seed + epoch).permutation(n_agents)
+        batches = on(perm[: n_batches * bsz].reshape(n_batches, bsz),
+                     torch.long)
+        losses, accs = epoch_fn(pf, hz, tg, batches)
+        # the epoch's one host sync
+        hist.append({"epoch": epoch, "loss": float(losses.mean()),
+                     "acc": float(accs.mean())})
+        if ckpt_every and epoch % ckpt_every == 0:
+            save_checkpoint({
+                "params": to_flax_params(model),
+                "opt_state": adamw_state(optimizer.adamw, names),
+                "epoch": epoch,
+                "history": hist,
+                "config": dataclasses.asdict(config),
+                **run,
+            }, last_ckpt)
+    sync()
+    elapsed = time.time() - t0
+
+    ckpt = os.path.join(outdir, "gatode_best.ckpt")
+    save_checkpoint({
+        "params": to_flax_params(model),
+        "config": dataclasses.asdict(config),
+        "num_zones": Z,
+        "num_times": num_times,
+        "history": hist,
+        # world reconstruction keys for serve()
+        "world_seed": seed,
+        "sparse_world": False,
+    }, ckpt)
+    return {
+        "final_loss": hist[-1]["loss"],
+        "final_acc": hist[-1]["acc"],
+        "seconds": elapsed,
+        "ckpt": ckpt,
+    }
 
 
 class _Rhs(torch.nn.Module):

@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # kernel library -> its source
-NAMES = ("fused_step", "fused_rhs", "fused_train")
+NAMES = ("fused_step", "fused_rhs", "fused_train", "fused_gat")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +50,12 @@ _ENTRY = {
         "ananke_ce_forward": ([_P] * 6 + [_I] * 5 + [_P], _I),
         "ananke_ce_backward": ([_P] * 10 + [_I] * 6 + [_P], _I),
         "ananke_ce_bwd_tile_rows": ([], _I),
+    },
+    "fused_gat": {
+        "ananke_gat_forward": ([_P] * 8 + [_I] * 5 + [_P], _I),
+        "ananke_gat_backward": ([_P] * 14 + [_I] * 6 + [_P], _I),
+        "ananke_gat_param_size": ([_I] * 2, _L),
+        "ananke_gat_bwd_tile_rows": ([], _I),
     },
 }
 

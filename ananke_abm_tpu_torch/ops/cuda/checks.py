@@ -1,6 +1,7 @@
-"""The bounds the training kernels (K8, K2f, K2b, K3f, K3b) are held to
-against their plain versions on the card, and the random operands of those
-checks: one copy, for ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+"""The bounds the training kernels (K8, K2f, K2b, K3f, K3b, K4f, K4b) are
+held to against their plain versions on the card, and the random operands of
+those checks: one copy, for ``chip_smoke.py`` and
+``tests/test_torch_cuda.py``.
 
 Every bound is per output: mean |d| / mean |ref|, max |d| / max |ref| and
 1 - cosine, kernel against plain version. Kernel and plain version round at
@@ -54,6 +55,25 @@ CE_CORRECT_MIN = 0.999
 # version <= 2.67e-2, 5.6e-2, 2.9e-4; the control >= 3.36e-2 mean and
 # 1.24e-3 1 - cos (its max, >= 3.5e-2, does not separate).
 WITNESS_BWD_BOUNDS = (3e-2, 1.2e-1, 6e-4)
+# K4f / K4b (the zone encoder, float32 throughout: kernel and plain version
+# differ only in the order of their float32 sums), per ZoneGAT parameter
+# (gat_grad_outputs). The control is the plain version with every matrix
+# product's operands rounded to TF32, forward and backward: the precision
+# PyTorch's TF32 switch would give it on this card. Readings (chip_smoke.py
+# --readings encoder, GAT_SHAPES and GAT_READING_SHAPES but Z = 1 x 3 seeds,
+# H100 80GB HBM3):
+# - K4f: sound mean <= 2.0e-7, max <= 6.9e-7, 1 - cos <= 2.2e-14; control
+#   >= 2.9e-4, >= 3.5e-4, >= 4.4e-8;
+# - K4b, the plain version on the kernel's side of each leaky-relu's kink
+#   (on_kernel_sides): sound mean <= 2.6e-6, max <= 5.3e-6, 1 - cos <=
+#   4.4e-12; control >= 7.2e-4, >= 6.1e-4, >= 2.3e-7. On its own sides the
+#   plain version read up to 5.4e-4, 1.6e-3, 5.7e-7 from the kernel at a
+#   draw with a score within rounding of the kink, as far as the control;
+#   the kernel then lies as near a float64 run on its sides (4.2e-7) as
+#   the plain version (4.2e-7). At Z = 1 a_src's gradient is exactly 0 (one
+#   score per row): the relative readings are 0 / 0 there.
+GAT_FWD_BOUNDS = (1e-5, 1e-4, 1e-9)
+GAT_BWD_BOUNDS = (1e-4, 1e-4, 1e-9)
 
 
 def bf16_product_dot(a16, b16):
@@ -99,6 +119,140 @@ def float64_witness(fn, *args):
     third party for kernel and plain version where they read far apart."""
     return _with_products(lambda a, b: a.double() @ b.double(),
                           lambda a, b: a.double().T @ b.double(), fn, *args)
+
+
+def round_tf32(x):
+    """float32 ``x`` rounded to TF32's 10 mantissa bits, to nearest with
+    ties away from zero (as the card's ``cvt.rna.tf32.f32``)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+class _Tf32MatMul(torch.autograd.Function):
+    """``a @ b`` with both operands rounded to TF32 and float32 sums; its
+    backward's two products likewise."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return round_tf32(a) @ round_tf32(b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = round_tf32(g)
+        return g @ round_tf32(b).T, round_tf32(a).T @ g
+
+
+def tf32_control(fn, *args):
+    """``fn(*args)``, a plain version of the encoder kernels, with every
+    matrix product in TF32: a kernel that took the card's TF32 path."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_gat
+
+    saved = fused_gat._mm
+    fused_gat._mm = _Tf32MatMul.apply
+    try:
+        return fn(*args)
+    finally:
+        fused_gat._mm = saved
+
+
+def kernel_kink_sides(res, num_layers, heads):
+    """K4f's side of the leaky-relu's kink for every score, one (Z, Z) bool
+    per layer and head: e_src_i + e_dst_j >= 0 from the kernel's own saved
+    e_src and e_dst (``gat_forward_fused``'s residuals), rounded as the
+    kernel adds them. None for the plain version's residuals (None)."""
+    if res is None:
+        return None
+    st = res[3]  # (4, layers, Z, heads): e_src, e_dst, row max, row sum
+    return [st[0, k][:, h, None] + st[1, k][None, :, h] >= 0
+            for k in range(num_layers) for h in range(heads)]
+
+
+def on_kernel_sides(sides, fn, *args):
+    """``fn(*args)``, a plain version of the encoder kernels, with every
+    leaky-relu on the kernel's side of its kink (``kernel_kink_sides``).
+    The gradient jumps by 0.8 alpha (g_alpha - D) where a score crosses 0,
+    and scores within float32 rounding of 0 occur (~one a call at Z = 2048,
+    2 layers): held to its own sides, the plain version would differ from
+    the kernel there by a step, not by rounding."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_gat
+
+    if sides is None:
+        return fn(*args)
+    it = iter(sides)
+    saved = fused_gat._kink_side
+    fused_gat._kink_side = lambda s: next(it).to(s.device)
+    try:
+        return fn(*args)
+    finally:
+        fused_gat._kink_side = saved
+
+
+def float64_encoder(fn, *args):
+    """``fn(*args)``, a plain version of the encoder kernels, on every
+    tensor operand (and tuple of them) cast to float64: a witness for
+    kernel and plain version alike."""
+    up = lambda a: (a.double() if torch.is_tensor(a) else
+                    tuple(w.double() for w in a) if isinstance(a, tuple)
+                    else a)
+    return fn(*(up(a) for a in args))
+
+
+def gat_operands(z, f, num_layers, dev, seed, isolated=None, graph=None):
+    """``(zf, adj, flat, heads, num_layers)`` and a cotangent ``g`` of the
+    encoder kernels' checks at the shipping widths (64 features, 4 heads):
+    a model's encoder initialised as :func:`init_params` does, its
+    LayerNorm scale and bias moved off 1 and 0, random zone features and a
+    random graph with self loops (the row ``isolated`` zeroed), all from
+    ``seed``; ``graph``: (zf, adj) to use instead of the random ones."""
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        init_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda.fused_gat import flatten_gat_params
+
+    model = build_model(GATODEConfig(gat_layers=num_layers), f, 8,
+                        device=dev)
+    init_params(model, torch.Generator().manual_seed(seed))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for norm in model.zone_gat.norms:
+            norm.weight.add_(0.1 * torch.randn(norm.weight.shape, device=dev,
+                                               generator=g))
+            norm.bias.add_(0.1 * torch.randn(norm.bias.shape, device=dev,
+                                             generator=g))
+        zf = torch.randn(z, f, device=dev, generator=g)
+        adj = (torch.rand(z, z, device=dev, generator=g) < 0.1).float()
+        adj.fill_diagonal_(1.0)
+        if graph is not None:
+            zf, adj = (t.to(dev, torch.float32) for t in graph)
+        if isolated is not None:
+            adj[isolated] = 0.0
+        flat = tuple(w.detach().clone()
+                     for w in flatten_gat_params(model.zone_gat))
+        cot = torch.randn(z, model.zone_dim, device=dev, generator=g)
+    return (zf, adj, flat, model.zone_gat.heads, num_layers), cot
+
+
+def gat_grad_outputs(grads, num_layers, heads=4):
+    """(name, tensor) per ``ZoneGAT`` parameter of gradients in
+    ``flatten_gat_params``' order: the per-head rows of ``a_src`` and
+    ``a_dst`` joined into the module's (heads, d) parameters. A check holds
+    whole parameters: a head whose scores all lie on one side of the
+    leaky-relu's kink has a zero ``a_src`` gradient, where kernel and plain
+    version are both rounding noise."""
+    out = [("Win", grads[0]), ("bin", grads[1])]
+    per = 3 + 2 * heads
+    for k in range(num_layers):
+        lg = grads[2 + per * k: 2 + per * (k + 1)]
+        out += [(f"W[{k}]", lg[0]),
+                (f"a_src[{k}]", torch.cat(lg[1:1 + heads])),
+                (f"a_dst[{k}]", torch.cat(lg[1 + heads:1 + 2 * heads])),
+                (f"scale[{k}]", lg[1 + 2 * heads]),
+                (f"bias[{k}]", lg[2 + 2 * heads])]
+    return out
 
 
 def k8_bounds(num_blocks):

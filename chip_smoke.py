@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card: the GAT-ODE serving
-path (kernel K1), the continuous-adjoint DOPRI5 trainer (kernel K8) and the
-fixed-step RK4 trainer (kernels K2f, K2b, K3f, K3b).
+path (kernel K1), the continuous-adjoint DOPRI5 trainer (kernel K8), the
+fixed-step RK4 trainer (kernels K4f, K4b, K2f, K2b, K3f, K3b) and
+``train()`` through it, then ``serve()`` of what it trained.
 
 Run from the repository root, on a machine with a CUDA device:
 
@@ -47,36 +48,63 @@ Phases (any failure raises and the script exits non-zero):
 11. fixed-step trainer: 3 steps of ``make_fused_train_step`` with
     ``torch.optim.AdamW`` at optax's defaults at bench rung 2's shape,
     32,768 agents x 500 zones x 12 times, GATODEConfig(substeps=2,
-    num_blocks=2): one launch of each of the four kernels per step, finite
-    losses, the third below the first;
+    num_blocks=2): one launch of each of the six kernels (the encoder's
+    K4f / K4b included) per step, finite losses, the third below the first;
 12. fixed-step trainer check: loss and full gradient of one step at 4,096
     agents with the kernels against the same step with their plain
-    versions;
-13. times: the four kernels and their plain versions per launch at rung 2,
-    and one full-size fixed-step training step with each.
+    versions (the encoder's too);
+13. times: the four day and cross-entropy kernels and their plain versions
+    per launch at rung 2, and one full-size fixed-step training step with
+    each;
+14. encoder kernels: K4f and K4b against their plain versions at the
+    shapes of GAT_SHAPES (the first the main path's zone world; the last
+    with a zone whose adjacency row is all zero): the output and every
+    parameter gradient within ``ops/cuda/checks.py``'s GAT_FWD_BOUNDS /
+    GAT_BWD_BOUNDS, repeats that must give the same bits, and a control
+    whose products run in TF32 that must fail each check;
+15. ``train()`` on the card at rung 2's widths: 65,536 agents x 500 zones x
+    12 times, batches of 32,768, 2 epochs with ``ckpt_every=1``: finite
+    losses and one launch of each of the six kernels per step; then
+    ``resume=True`` to 3 epochs against a straight 3-epoch run (histories
+    within rtol 1e-5), then one ``accum_steps=2`` epoch (2 microbatches, 1
+    update);
+16. ``serve()`` of phase 15's ``gatode_best.ckpt`` at 65,536 agents through
+    K1;
+17. times: K4f, K4b and their plain versions per call at Z=500 (device
+    time, each call captured in a CUDA graph and replayed, and eager time),
+    the encoder forward and backward through K4 and through
+    ``model.encode_zones`` (the step's encoder before K4), one rung-2 fixed
+    step with each encoder, and the wall time of a ``train()`` epoch.
 
 ``python3 chip_smoke.py --readings`` runs phases 1-2 and then only the
 training kernels' checks of phase 10, at DAY_SHAPES and DEPTH_SHAPES for 3
 seeds with the control everywhere, printing the readings the bounds were
 set from and failing on none of them; then, at WITNESS_SHAPES, the day
 kernels, their plain versions and the control each against a float64
-witness. ``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` runs phases 1-2
-and then compares K8 of this checkout with K8 built from each checkout at
-DIR: ptxas and SASS counts of each build, bits at K8_SHAPES and
-alternating per-launch times.
+witness. ``python3 chip_smoke.py --readings encoder`` prints the same
+readings of K4f and K4b, at GAT_SHAPES and GAT_READING_SHAPES for 3 seeds,
+and K4b and its plain version each against a float64 run.
+``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` runs phases 1-2 and then
+compares K8 of this checkout with K8 built from each checkout at DIR:
+ptxas and SASS counts of each build, bits at K8_SHAPES and alternating
+per-launch times.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``{"kernels": [...]}`` (for every kernel its launches on the main path,
 largest difference from its plain version, times, and ``bound_ms``: the
-larger of the bytes it must move over 3.35 TB/s and its matmul operations
-over 989 TFLOP/s, the H100's dense bf16 peak), the line before that the
-card's name and power limit.
+larger of the bytes it must move over 3.35 TB/s and its operations over
+the peak of their type: for the bf16 kernels their matmul operations over
+989 TFLOP/s, the H100's dense bf16 peak; for the float32 encoder kernels
+every arithmetic operation over 67 TFLOP/s, its FP32 peak outside the
+tensor cores), the line before that the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -149,26 +177,45 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-# the H100 SXM's published peaks (700 W): dense bf16 tensor-core rate and
-# device-memory rate
+def graph_ms(fn, reps):
+    """Device milliseconds of one call of ``fn``: the call captured in a
+    CUDA graph and replayed ``reps`` times between CUDA events, so the
+    host's enqueue (Python, checks, ctypes) is not timed. For calls whose
+    device work is shorter than their enqueue, where ``cuda_ms`` times the
+    host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
+# the H100 SXM's published peaks (700 W): dense bf16 tensor-core rate, FP32
+# rate outside the tensor cores and device-memory rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
-def bound(flop, nbytes):
+def bound(flop, nbytes, peak=PEAK_BF16_FLOPS):
     """(bound_ms, bound_by): the least time the card could take for
-    ``flop`` bf16 matmul operations moving ``nbytes`` bytes."""
-    t_ops, t_bytes = flop / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    ``flop`` operations at ``peak`` (default: bf16 matmul operations)
+    moving ``nbytes`` bytes."""
+    t_ops, t_bytes = flop / peak, nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms,
-                 plain_ms, flop, nbytes):
+                 plain_ms, flop, nbytes, peak=PEAK_BF16_FLOPS):
     """One kernel's entry of the {"kernels": [...]} line. No single PyTorch
     call computes any of the port's kernels' functions (each is a chain of
     products, activations and reductions), so library_ms is null."""
-    bound_ms, bound_by = bound(flop, nbytes)
+    bound_ms, bound_by = bound(flop, nbytes, peak)
     return {"name": name, "route": "cuda",
             "source": f"ananke_abm_tpu_torch/csrc/{source}",
             "replaces": f"ananke_abm_tpu/ops/pallas/{replaces}",
@@ -203,8 +250,10 @@ def describe(r):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--readings", action="store_true",
-                        help="print the training kernels' readings only")
+    parser.add_argument("--readings", nargs="?", const="training",
+                        choices=("training", "encoder"),
+                        help="print the training (or the encoder) kernels' "
+                        "readings only")
     parser.add_argument("--ab-k8", metavar="DIR", nargs="+",
                         help="time K8 against K8 of the checkouts at DIR")
     args = parser.parse_args()
@@ -264,8 +313,11 @@ def main():
         _build.load_library(name)
     sys.stdout.flush()
 
-    if args.readings:
+    if args.readings == "training":
         readings(dev)
+        return
+    if args.readings == "encoder":
+        encoder_readings(dev)
         return
     if args.ab_k8:
         ab_k8(dev, [Path(d) for d in args.ab_k8])
@@ -427,10 +479,11 @@ def main():
         launches, max_err, ms, plain_ms, flop,
         N_AGENTS * (4 * (2 * config.agent_dim + config.context_dim) + 4))
     k8 = adjoint_phases(dev, card)
-    fixed = fixed_step_phases(dev, card)
+    fixed, rung2 = fixed_step_phases(dev, card)
+    k4 = encoder_phases(dev, card, rung2)
 
     print(card)
-    print(json.dumps({"kernels": [k1, k8, *fixed]}))
+    print(json.dumps({"kernels": [k1, k8, *fixed, *k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -739,7 +792,8 @@ def day_bwd_outputs(out):
     return items + [("gW3", out[8]), ("gb3", out[9])]
 
 
-def check(label, got, want, bounds, control=None, enforce=True):
+def check(label, got, want, bounds, control=None, enforce=True,
+          control_kind="bf16-rounded products"):
     """Hold ``got`` against ``want`` ((name, tensor) pairs) within
     ``bounds``; the control, where given, must fail the same check.
     Returns the largest |d|. With ``enforce`` off it only reports."""
@@ -749,12 +803,12 @@ def check(label, got, want, bounds, control=None, enforce=True):
     cw = None
     if control is not None:
         cw, _ = worst_of(control, want)
-        print(f"{label} control (bf16-rounded products): "
+        print(f"{label} control ({control_kind}): "
               f"{describe_worst(cw, bounds)}", flush=True)
     if enforce and not within(worst, bounds):
         fail(f"{label}: the kernel disagrees with its plain version")
     if enforce and cw is not None and within(cw, bounds):
-        fail(f"{label}: the check passes the bf16-product control")
+        fail(f"{label}: the check passes the control ({control_kind})")
     return err
 
 
@@ -1015,7 +1069,8 @@ def fixed_step_phases(dev, card):
     """Phases 10-13: K2f, K2b, K3f and K3b against their plain versions,
     the fixed-step trainer at rung 2, the kernel trainer against the
     plain-version trainer, and times. Returns the four kernels' entries of
-    the {"kernels": [...]} line."""
+    the {"kernels": [...]} line and (model, config, static, batch,
+    optimizer) of the rung-2 trainer."""
     from ananke_abm_tpu_torch.data_generator import generate_agent_population
     from ananke_abm_tpu_torch.models.gnn_embed.train import (
         GATODEConfig,
@@ -1024,10 +1079,12 @@ def fixed_step_phases(dev, card):
         init_params,
         make_fused_train_step,
     )
+    from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
     from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
 
     kernels = (ft.day_forward_fused, ft.day_backward_fused,
                ft.ce_forward_fused, ft.ce_backward_fused)
+    encoder = (fg.gat_forward_fused, fg.gat_backward_fused)
     plains = (ft.day_forward_reference, ft.day_backward_reference,
               ft.ce_forward_reference, ft.ce_backward_reference)
     config = GATODEConfig(substeps=SUBSTEPS, num_blocks=2)
@@ -1066,10 +1123,10 @@ def fixed_step_phases(dev, card):
                             eps=1e-8, weight_decay=1e-4)
     step, _ = make_fused_train_step(model, opt, config, static)
     losses, walls = [], []
-    for k in kernels:
+    for k in kernels + encoder:
         k.launches = 0
     for i in range(FIXED_STEPS):
-        before = [k.launches for k in kernels]
+        before = [k.launches for k in kernels + encoder]
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -1079,14 +1136,16 @@ def fixed_step_phases(dev, card):
         loss = loss.item()
         torch.cuda.synchronize()
         wall = start.elapsed_time(end) / 1e3
-        launched = [k.launches - b for k, b in zip(kernels, before)]
+        launched = [k.launches - b for k, b in zip(kernels + encoder,
+                                                    before)]
         share = sum(ms) / 1e3 / wall
         print(f"fixed train step {i + 1}: loss {loss:.6f} acc "
               f"{acc.item():.4f}, wall {wall:.4f} s (CUDA events); launches "
-              f"K2f/K2b/K3f/K3b {launched}; kernel share {share:.1%} "
+              f"K2f/K2b/K3f/K3b/K4f/K4b {launched}; day and cross-entropy "
+              f"kernel share {share:.1%} "
               f"({' + '.join(f'{m:.3f}' for m in ms)} ms) [card {card}]",
               flush=True)
-        if launched != [1, 1, 1, 1]:
+        if launched != [1] * 6:
             fail(f"fixed step {i + 1} launched the kernels {launched} times, "
                  "expected once each")
         losses.append(loss)
@@ -1164,9 +1223,314 @@ def fixed_step_phases(dev, card):
           f"s (one step, loss {loss:.6f}) [card {card}]", flush=True)
     sources = ("fused_train.py:145", "fused_train.py:229",
                "fused_train.py:486", "fused_train.py:537")
-    return [kernel_entry(*a, "fused_train.cu", *b)
-            for a, b in zip(zip(names), zip(sources, launches, errs, ms,
-                                            plain_ms, flops, nbytes))]
+    entries = [kernel_entry(*a, "fused_train.cu", *b)
+               for a, b in zip(zip(names), zip(sources, launches, errs, ms,
+                                               plain_ms, flops, nbytes))]
+    return entries, (model, config, static, batch, opt)
+
+
+# ---- the zone encoder's kernels K4f / K4b, train() and serve() ------------
+
+# (zones, zone features, layers, isolated zone) of the encoder checks; the
+# first is the main path's (rung 2's zone world), the last has a zone whose
+# adjacency row is all zero (it attends uniformly over every zone)
+GAT_SHAPES = ((500, 7, 2, None), (64, 7, 2, None), (2048, 7, 2, None),
+              (37, 7, 1, 5))
+# more shapes for the readings: depth, many zone features, one zone
+GAT_READING_SHAPES = ((500, 7, 4, None), (1000, 16, 3, 7), (1, 7, 2, None),
+                      (129, 64, 1, 0))
+# train() at rung 2's widths: 2 steps per epoch
+APP_AGENTS = 65_536
+APP_BATCH = 32_768
+APP_SEED = 1
+APP_EPOCHS = 2
+# a resumed run's history against the straight run's (the JAX test's bound)
+HISTORY_RTOL = 1e-5
+
+
+def encoder_flops(z, f, num_layers, nnz, d=64, heads=4):
+    """(forward, VJP) arithmetic operations of the encoder at ``z`` zones
+    whose masked softmax needs ``nnz`` scores per head (each zone's edges,
+    and every zone for a zone with none). Forward per layer: the projection
+    and e_src / e_dst, 5 per score and head (add, leaky-relu, subtract the
+    max, exp, sum), 2 per score and feature (the weighted sum), ~11 per
+    zone and feature (normalise, elu, residual, LayerNorm). VJP per layer:
+    10 per score and head (the recomputed alpha, g_s, the mask's slope, the
+    row and column sums), 4 per score and feature (g_out . Wh, g_Wh), two
+    products of the projection, ~27 per zone and feature."""
+    fwd = 2 * z * f * d + num_layers * (2 * z * d * d + 4 * z * d
+                                        + 5 * nnz * heads + 2 * nnz * d
+                                        + 11 * z * d)
+    bwd = 2 * z * f * d + z * d + num_layers * (
+        4 * z * d * d + 4 * nnz * d + 10 * nnz * heads + 27 * z * d)
+    return fwd, bwd
+
+
+def encoder_operands(dev, z, f, num_layers, isolated, seed):
+    """``gat_operands`` at one shape; at the main path's shape, rung 2's own
+    zone world."""
+    from ananke_abm_tpu_torch.data_generator import generate_agent_population
+    from ananke_abm_tpu_torch.ops.cuda.checks import gat_operands
+
+    graph = None
+    if (z, f, isolated) == (TRAIN_ZONES, 7, None):
+        world = generate_agent_population(1, num_times=TRAIN_TIMES,
+                                          seed=TRAIN_SEED,
+                                          num_zones=TRAIN_ZONES)
+        graph = tuple(torch.as_tensor(world[k]) for k in ("zone_features",
+                                                          "adj"))
+    return gat_operands(z, f, num_layers, dev, seed, isolated, graph)
+
+
+def encoder_kernel_checks(dev, z, f, num_layers, isolated, seed, control,
+                          enforce=True, witness=False):
+    """K4f and K4b against their plain versions at one shape, each run
+    twice (the same bits), with the TF32 control where ``control``; with
+    ``witness``, kernel and plain version each against a float64 run too.
+    Returns (the largest |d| of each kernel, (operands, residuals,
+    cotangent))."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        GAT_BWD_BOUNDS,
+        GAT_FWD_BOUNDS,
+        float64_encoder,
+        gat_grad_outputs,
+        kernel_kink_sides,
+        on_kernel_sides,
+        tf32_control,
+    )
+
+    args, g = encoder_operands(dev, z, f, num_layers, isolated, seed)
+    tag = f"Z={z} F={f} layers={num_layers} isolated={isolated} seed={seed}"
+    params = lambda grads: gat_grad_outputs(grads, num_layers)
+    kind = "TF32 products"
+    with torch.no_grad():
+        out, res = fg.gat_forward_fused(*args)
+        again, _ = fg.gat_forward_fused(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            fail(f"K4f repeat at {tag} is not bit-identical")
+        want, _ = fg.gat_forward_reference(*args)
+        ctl = ([("out", tf32_control(fg.gat_forward_reference, *args)[0])]
+               if control else None)
+        e_f = check(f"K4f {tag} (repeat bit-identical)", [("out", out)],
+                    [("out", want)], GAT_FWD_BOUNDS, ctl, enforce, kind)
+        bargs = (*args[:3], g, *args[3:])
+        got = params(fg.gat_backward_fused(*bargs, res))
+        again = params(fg.gat_backward_fused(*bargs, res))
+        torch.cuda.synchronize()
+        if not same_bits(got, again):
+            fail(f"K4b repeat at {tag} is not bit-identical")
+        # the plain versions on the kernel's side of each leaky-relu's kink
+        sides = kernel_kink_sides(res, num_layers, args[3])
+        plain = lambda *a: on_kernel_sides(sides, fg.gat_backward_reference,
+                                           *a)
+        want = params(plain(*bargs))
+        ctl = params(tf32_control(plain, *bargs)) if control else None
+        e_b = check(f"K4b {tag} (repeat bit-identical; kink sides of K4f)",
+                    got, want, GAT_BWD_BOUNDS, ctl, enforce, kind)
+        if witness:
+            exact = params(float64_encoder(plain, *bargs))
+            unaligned = params(fg.gat_backward_reference(*bargs))
+            far = {side: worst_of(o, exact)[0]
+                   for side, o in (("kernel", got), ("plain", want),
+                                   ("plain on its own sides", unaligned))}
+            print(f"K4b {tag} against the float64 witness: "
+                  + "; ".join(f"{side} {describe_far(w)}"
+                              for side, w in far.items()), flush=True)
+    return (e_f, e_b), (args, res, g)
+
+
+def encoder_readings(dev):
+    """``--readings encoder``: K4f and K4b against their plain versions and
+    the TF32 control at every shape of GAT_SHAPES and GAT_READING_SHAPES
+    for seeds 0-2, printed against the bounds; nothing fails on a bound."""
+    for seed in range(3):
+        for z, f, num_layers, isolated in GAT_SHAPES + GAT_READING_SHAPES:
+            encoder_kernel_checks(dev, z, f, num_layers, isolated, seed,
+                                  control=True, enforce=False, witness=True)
+
+
+@contextlib.contextmanager
+def encoder_as_module(model):
+    """The fused step with the encoder it ran before K4,
+    ``model.encode_zones`` (the loss looks ``zone_gat_fused`` up at each
+    call)."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_gat
+
+    saved = fused_gat.zone_gat_fused
+    fused_gat.zone_gat_fused = (
+        lambda zf, adj, gat, **kw: model.encode_zones(zf, adj))
+    try:
+        yield
+    finally:
+        fused_gat.zone_gat_fused = saved
+
+
+def encoder_phases(dev, card, rung2):
+    """Phases 14-17: K4f and K4b against their plain versions, ``train()``
+    at rung 2's widths with resume and accumulation, ``serve()`` of what it
+    trained, and times. Returns K4f's and K4b's entries of the
+    {"kernels": [...]} line."""
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        build_fused_loss_fn,
+        serve,
+        train,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
+    from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
+    from ananke_abm_tpu_torch.ops.cuda.fused_step import (
+        rk4_interval_decode_fused,
+    )
+    from ananke_abm_tpu_torch.utils.ckpt import load_checkpoint
+
+    # ---- 14. the encoder kernels against their plain versions ------------
+    errs = [0.0, 0.0]
+    main = None
+    for z, f, num_layers, isolated in GAT_SHAPES:
+        e, operands = encoder_kernel_checks(dev, z, f, num_layers, isolated,
+                                            seed=0, control=True)
+        errs = [max(a, b) for a, b in zip(errs, e)]
+        main = main or operands
+
+    # ---- 15. train() on the card at rung 2's widths ------------------------
+    model, config, static, batch, opt = rung2
+    cfg = dataclasses.replace(config, batch_size=APP_BATCH,
+                              epochs=APP_EPOCHS)
+    kernels = (fg.gat_forward_fused, fg.gat_backward_fused,
+               ft.day_forward_fused, ft.day_backward_fused,
+               ft.ce_forward_fused, ft.ce_backward_fused)
+    kw = dict(n_agents=APP_AGENTS, num_times=TRAIN_TIMES, seed=APP_SEED,
+              num_zones=TRAIN_ZONES, device=dev)
+    steps = APP_AGENTS // APP_BATCH
+    dirs = {k: OUT / f"train_{k}" for k in ("resumed", "straight", "accum")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    history = lambda res: load_checkpoint(res["ckpt"])["history"]
+    for k in kernels:
+        k.launches = 0
+    first = train(str(dirs["resumed"]), config=cfg, ckpt_every=1, **kw)
+    launches = [k.launches for k in kernels]
+    losses = [h["loss"] for h in history(first)]
+    print(f"train(): {APP_AGENTS} agents x {TRAIN_ZONES} zones x "
+          f"{TRAIN_TIMES} times, batches of {APP_BATCH}, {APP_EPOCHS} epochs "
+          f"in {first['seconds']:.3f} s; losses {losses}; launches "
+          f"K4f/K4b/K2f/K2b/K3f/K3b {launches} [card {card}]", flush=True)
+    if launches != [APP_EPOCHS * steps] * len(kernels):
+        fail(f"train() launched the kernels {launches} times, expected "
+             f"once each per step ({APP_EPOCHS * steps} steps)")
+    if not all(np.isfinite(losses)):
+        fail(f"train() losses {losses} are not finite")
+    longer = dataclasses.replace(cfg, epochs=APP_EPOCHS + 1)
+    resumed = train(str(dirs["resumed"]), config=longer, resume=True, **kw)
+    straight = train(str(dirs["straight"]), config=longer, **kw)
+    h_r, h_s = history(resumed), history(straight)
+    rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+              for a, b in zip(h_r, h_s))
+    epoch_s = straight["seconds"] / longer.epochs
+    print(f"train() resumed to {longer.epochs} epochs against a straight run: "
+          f"losses {[h['loss'] for h in h_r]} vs {[h['loss'] for h in h_s]}, "
+          f"largest relative difference {rel:.3e} (<= {HISTORY_RTOL}); "
+          f"epoch wall {epoch_s:.4f} s (straight run, {steps} steps of "
+          f"{APP_BATCH}) [card {card}]", flush=True)
+    if len(h_r) != longer.epochs or not rel <= HISTORY_RTOL:
+        fail("the resumed run does not reproduce the straight run")
+    before = [k.launches for k in kernels]
+    accum = train(str(dirs["accum"]), config=dataclasses.replace(
+        cfg, epochs=1), accum_steps=steps, ckpt_every=1, **kw)
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    updates = load_checkpoint(str(dirs["accum"] / "gatode_last.ckpt"))[
+        "opt_state"]["step"]
+    print(f"train(accum_steps={steps}): loss {accum['final_loss']:.6f}, "
+          f"launches {launched}, optimizer updates {updates}", flush=True)
+    if (updates != 1 or launched != [steps] * len(kernels)
+            or not np.isfinite(accum["final_loss"])):
+        fail("train(accum_steps) did not make one update of its microbatches")
+
+    # ---- 16. serve the trained model ----------------------------------------
+    rk4_interval_decode_fused.launches = 0
+    info = serve(straight["ckpt"], str(OUT / "served_trained.npz"),
+                 n_agents=APP_AGENTS, seed=AGENT_SEED, device=dev)
+    k1_launches = rk4_interval_decode_fused.launches
+    with np.load(OUT / "served_trained.npz") as served:
+        ids = served["zone_ids"]
+    print(f"serve() of the trained checkpoint: {info['n_agents']} agents x "
+          f"{info['num_times']} times in {info['seconds']:.3f} s; K1 launches "
+          f"{k1_launches}", flush=True)
+    if k1_launches != TRAIN_TIMES - 1 or ids.shape != (APP_AGENTS,
+                                                       TRAIN_TIMES):
+        fail(f"serving the trained model: {k1_launches} K1 launches, ids "
+             f"{ids.shape}")
+    if ids.min() < 0 or ids.max() >= TRAIN_ZONES:
+        fail(f"served ids out of [0, {TRAIN_ZONES})")
+
+    # ---- 17. times ----------------------------------------------------------
+    args, res, g = main
+    bargs = (*args[:3], g, *args[3:])
+    calls = [lambda: fg.gat_forward_fused(*args),
+             lambda: fg.gat_backward_fused(*bargs, res),
+             lambda: fg.gat_forward_reference(*args),
+             lambda: fg.gat_backward_reference(*bargs)]
+    with torch.no_grad():
+        # device time (the kernels line); eager time, the host's enqueue
+        # included, beside it
+        device = [graph_ms(c, 50) for c in calls]
+        eager = [cuda_ms(c, 20) for c in calls]
+    ms, plain_ms = device[:2], device[2:]
+    gat = model.zone_gat
+
+    def encoder_k4():
+        fg.zone_gat_fused(static[0], static[1], gat, heads=gat.heads,
+                          num_layers=gat.num_layers).backward(g)
+
+    def encoder_module():
+        model.encode_zones(static[0], static[1]).backward(g)
+
+    enc = {"module": cuda_ms(encoder_module, 20),
+           "K4": cuda_ms(encoder_k4, 20)}
+    loss_fn = build_fused_loss_fn(model, config, *static)
+
+    def step():
+        opt.zero_grad()
+        loss, _ = loss_fn(*batch)
+        loss.backward()
+        opt.step()
+
+    walls = {"module": [], "K4": []}
+    for name in ("module", "K4", "K4", "module"):
+        with (encoder_as_module(model) if name == "module"
+              else contextlib.nullcontext()):
+            walls[name].append(cuda_ms(step, 3))
+    z, f = args[0].shape
+    rows = args[1].gt(0).sum(dim=1)
+    nnz = int(torch.where(rows > 0, rows, z).sum())
+    flops = encoder_flops(z, f, args[4], nnz)
+    n_params = sum(w.numel() for w in args[2])
+    nbytes = [4 * (z * f + z * z + n_params + z * 64),
+              4 * (z * f + z * z + 2 * n_params + z * 64)]
+    names = ("gat_forward_fused", "gat_backward_fused")
+    for i, (name, fl, nb) in enumerate(zip(names, flops, nbytes)):
+        b, by = bound(fl, nb, PEAK_FP32_FLOPS)
+        m, p = ms[i], plain_ms[i]
+        print(f"{name} at Z={z}: kernel {m:.4f} ms device, {eager[i]:.4f} "
+              f"ms eager ({b / m:.2%} of the FP32 {by} bound {b:.5f} ms: "
+              f"{fl / 1e6:.1f} MFLOP, {nb / 1e6:.2f} MB), plain version "
+              f"{p:.4f} ms device, {eager[i + 2]:.4f} ms eager [card {card}]",
+              flush=True)
+    print(f"encoder forward + backward at Z={z}: K4 {enc['K4']:.4f} ms, "
+          f"model.encode_zones {enc['module']:.4f} ms [card {card}]",
+          flush=True)
+    k4_step, module_step = min(walls["K4"]), min(walls["module"])
+    print(f"fixed training step at rung 2 ({TRAIN_N} agents): encoder K4 "
+          f"{k4_step:.3f} ms (runs {walls['K4']}), model.encode_zones "
+          f"{module_step:.3f} ms (runs {walls['module']}); encoder share "
+          f"{enc['K4'] / k4_step:.2%} with K4, {enc['module'] / module_step:.2%}"
+          f" before [card {card}]", flush=True)
+    return [kernel_entry(name, "fused_gat.cu", src, n, e, m, p, fl, nb,
+                         PEAK_FP32_FLOPS)
+            for name, src, n, e, m, p, fl, nb in zip(
+                names, ("fused_gat.py:235", "fused_gat.py:256"),
+                launches[:2], errs, ms, plain_ms, flops, nbytes)]
 
 
 if __name__ == "__main__":

@@ -62,3 +62,79 @@ def test_day_bounds_scale_with_depth():
     assert checks.k8_bounds(6) == tuple(
         2 * b for b in (checks.K8_REL_MEAN, checks.K8_REL_MAX,
                         checks.K8_ONE_MINUS_COS))
+
+
+def test_round_tf32_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -12,
+                      -3.14159, 0.0])
+    want = [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -10, -3.140625, 0.0]
+    assert checks.round_tf32(x).tolist() == want
+
+
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_tf32_control_lies_farther_from_float64_than_the_plain_encoder(
+        which):
+    """The encoder's plain version in float32 lies near its float64 run
+    (the same code on float64 tensors); the TF32 control, whose products
+    round their operands to 10 mantissa bits, far from it."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
+
+    args, g = checks.gat_operands(48, 7, 2, CPU, seed=1, isolated=3)
+    f64 = tuple(a.double() if torch.is_tensor(a) else
+                tuple(w.double() for w in a) if isinstance(a, tuple) else a
+                for a in args)
+    if which == "forward":
+        run = lambda fn, a: fn(fg.gat_forward_reference, *a)[0]
+    else:
+        # all gradients as one vector (the last layer's bias gradient, the
+        # sum of the cotangent, has no product to round)
+        run = lambda fn, a: torch.cat([x.reshape(-1) for x in fn(
+            fg.gat_backward_reference, *a[:3],
+            g.double() if a is f64 else g, *a[3:])])
+    witness = run(lambda f, *a: f(*a), f64)
+    plain = run(lambda f, *a: f(*a), args)
+    control = run(checks.tf32_control, args)
+    assert fg._mm.__name__ == "_mm"
+    assert _far(plain, witness) < 1e-5
+    assert _far(control, witness) > 10 * _far(plain, witness)
+
+
+def test_gat_grad_outputs_join_the_heads_into_module_parameters():
+    args, _ = checks.gat_operands(9, 7, 2, CPU, seed=0)
+    out = dict(checks.gat_grad_outputs(args[2], 2))
+    assert list(out) == ["Win", "bin"] + [
+        f"{p}[{k}]" for k in range(2)
+        for p in ("W", "a_src", "a_dst", "scale", "bias")]
+    assert out["a_src[1]"].shape == (4, 16)
+    # flatten_gat_params: Win, bin, W[0], a_src[0] rows 0-3, a_dst[0] rows
+    torch.testing.assert_close(out["a_dst[0]"], torch.cat(args[2][7:11]))
+
+
+def test_kink_sides_from_residuals_steer_the_plain_encoder():
+    """kernel_kink_sides reads e_src / e_dst from K4f's residual layout;
+    the plain backward on those sides equals its own where they agree, and
+    one score moved across the kink changes the gradient by a step."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
+
+    args, g = checks.gat_operands(9, 7, 1, CPU, seed=4)
+    zf, adj, flat, heads, num_layers = args
+    h0 = zf @ flat[0] + flat[1]
+    wh = h0 @ flat[2]
+    e_src = torch.stack([(wh[:, 16 * h:16 * h + 16] * flat[3 + h]).sum(1)
+                         for h in range(heads)], 1)
+    e_dst = torch.stack([(wh[:, 16 * h:16 * h + 16] * flat[7 + h]).sum(1)
+                         for h in range(heads)], 1)
+    st = torch.stack([e_src, e_dst, e_src, e_src])[:, None]  # (4, 1, Z, H)
+    sides = checks.kernel_kink_sides((None, None, None, st), 1, heads)
+    assert len(sides) == heads and sides[0].shape == (9, 9)
+    bargs = (*args[:3], g, *args[3:])
+    own = fg.gat_backward_reference(*bargs)
+    steered = checks.on_kernel_sides(sides, fg.gat_backward_reference, *bargs)
+    for a, b in zip(own, steered):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    i, j = torch.nonzero(adj > 0)[1].tolist()
+    sides[2][i, j] = ~sides[2][i, j]
+    moved = checks.on_kernel_sides(sides, fg.gat_backward_reference, *bargs)
+    assert fg._kink_side.__name__ == "_kink_side"
+    assert not all(torch.allclose(a, b) for a, b in zip(own, moved))
+    assert checks.kernel_kink_sides(None, 1, heads) is None

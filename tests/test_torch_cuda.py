@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the
-serving interval (K1), the adjoint RHS (K8) with the trainer around it, and
-the training-day kernels (K2f, K2b, K3f, K3b) with the fixed-step trainer.
+serving interval (K1), the adjoint RHS (K8) with the trainer around it, the
+training-day kernels (K2f, K2b, K3f, K3b) and the zone-encoder kernels
+(K4f, K4b) with the fixed-step trainer and ``train()``.
 
 Marked ``cuda``: every test here skips on a host without a CUDA device.
 On a card without JAX installed, run them with
@@ -27,20 +28,30 @@ from ananke_abm_tpu_torch.models.gnn_embed.train import (
     make_adjoint_step_fns,
     make_fused_train_step,
 )
+from ananke_abm_tpu_torch.models.gnn_embed.train import train
+from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
 from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
 from ananke_abm_tpu_torch.ops.cuda.checks import (
     CE_BOUNDS,
     CE_CORRECT_MIN,
     DAY_BWD_BOUNDS,
     DAY_FWD_BOUNDS,
+    GAT_BWD_BOUNDS,
+    GAT_FWD_BOUNDS,
     WITNESS_BWD_BOUNDS,
     bf16_control,
     day_bounds,
     day_operands,
     float64_witness,
+    gat_grad_outputs,
+    gat_operands,
     k8_bounds,
     k8_operands,
+    kernel_kink_sides,
+    on_kernel_sides,
+    tf32_control,
 )
+from ananke_abm_tpu_torch.utils.ckpt import load_checkpoint
 from ananke_abm_tpu_torch.ops.cuda.fused_rhs import (
     drift_rhs_and_vjp,
     drift_rhs_and_vjp_reference,
@@ -373,13 +384,14 @@ def test_fixed_step_trainer_runs_through_the_kernels(cuda):
     batch = (on(d["person_feats"]), on(d["home_zone"], torch.long),
              on(d["zone_ids"], torch.long))
     kernels = (ft.day_forward_fused, ft.day_backward_fused,
-               ft.ce_forward_fused, ft.ce_backward_fused)
+               ft.ce_forward_fused, ft.ce_backward_fused,
+               fg.gat_forward_fused, fg.gat_backward_fused)
     before = [k.launches for k in kernels]
     _, loss_fn = make_fused_train_step(model, None, config, static)
     model.zero_grad()
     loss, _ = loss_fn(*batch)
     loss.backward()
-    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1, 1]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1] * 6
     grads = torch.cat([p.grad.flatten() for p in model.parameters()])
     plain = build_fused_loss_fn(model, config, *static, _plain=True)
     model.zero_grad()
@@ -395,3 +407,84 @@ def test_fixed_step_trainer_runs_through_the_kernels(cuda):
 def test_build_model_defaults_to_the_card(cuda):
     model = build_model(GATODEConfig(), 7, 8)
     assert next(model.parameters()).device.type == "cuda"
+
+
+@pytest.mark.parametrize("num_zones,num_layers,isolated", [
+    (500, 2, None), (64, 2, None), (2_048, 2, None), (37, 1, 5), (300, 4, 0),
+])
+def test_encoder_kernels_match_plain_versions(cuda, num_zones, num_layers,
+                                              isolated):
+    """K4f and K4b within the bounds, every parameter gradient (the plain
+    backward on the kernel's side of each leaky-relu's kink); each twice
+    gives the same bits; the TF32 control fails the same bounds."""
+    args, g = gat_operands(num_zones, 7, num_layers, cuda, seed=num_zones,
+                           isolated=isolated)
+    bargs = (*args[:3], g, *args[3:])
+    with torch.no_grad():
+        before = (fg.gat_forward_fused.launches,
+                  fg.gat_backward_fused.launches)
+        out, res = fg.gat_forward_fused(*args)
+        again, _ = fg.gat_forward_fused(*args)
+        got = fg.gat_backward_fused(*bargs, res)
+        got2 = fg.gat_backward_fused(*bargs, res)
+        torch.cuda.synchronize()
+        assert (fg.gat_forward_fused.launches,
+                fg.gat_backward_fused.launches) == (before[0] + 2,
+                                                    before[1] + 2)
+        want, _ = fg.gat_forward_reference(*args)
+        sides = kernel_kink_sides(res, num_layers, 4)
+        plain = lambda *a: on_kernel_sides(sides, fg.gat_backward_reference,
+                                           *a)
+        want_g = plain(*bargs)
+        control = tf32_control(fg.gat_forward_reference, *args)[0]
+        control_g = tf32_control(plain, *bargs)
+    assert out.shape == (num_zones, 64)
+    assert torch.equal(out, again)
+    assert all(torch.equal(u, v) for u, v in zip(got, got2))
+    params = lambda grads: [t for _, t in gat_grad_outputs(grads,
+                                                           num_layers)]
+    _assert_close([out], [want], GAT_FWD_BOUNDS)
+    _assert_close(params(got), params(want_g), GAT_BWD_BOUNDS)
+    assert not _within([control], [want], GAT_FWD_BOUNDS)
+    assert not _within(params(control_g), params(want_g), GAT_BWD_BOUNDS)
+
+
+def test_encoder_kernels_reject_what_they_are_not_compiled_for(cuda):
+    model = build_model(GATODEConfig(gat_heads=2), 7, 8, device=cuda)
+    init_params(model, torch.Generator().manual_seed(0))
+    flat = tuple(w.detach() for w in fg.flatten_gat_params(model.zone_gat))
+    zf = torch.zeros(8, 7, device=cuda)
+    adj = torch.eye(8, device=cuda)
+    with pytest.raises(ValueError, match="compiled for"):
+        fg.gat_forward_fused(zf, adj, flat, 2, 2)
+    args, g = gat_operands(8, 7, 1, cuda, seed=0)
+    with pytest.raises(ValueError, match="residuals"):
+        fg.gat_backward_fused(*args[:3], g, *args[3:], None)
+
+
+def test_train_on_the_card_resumes_the_straight_run(cuda, tmp_path):
+    """train() on the card: the fused step (one launch of each kernel per
+    step), resume reproducing the straight run, one accumulated update."""
+    config = GATODEConfig(batch_size=512, epochs=3)
+    kw = dict(n_agents=1_024, num_times=4, num_zones=64, seed=2,
+              device="cuda")
+    kernels = (fg.gat_forward_fused, fg.gat_backward_fused,
+               ft.day_forward_fused, ft.day_backward_fused,
+               ft.ce_forward_fused, ft.ce_backward_fused)
+    before = [k.launches for k in kernels]
+    straight = train(str(tmp_path / "a"), config=config, **kw)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [6] * 6
+    short = GATODEConfig(batch_size=512, epochs=2)
+    train(str(tmp_path / "b"), config=short, ckpt_every=1, **kw)
+    resumed = train(str(tmp_path / "b"), config=config, resume=True, **kw)
+    h_a = load_checkpoint(straight["ckpt"])["history"]
+    h_b = load_checkpoint(resumed["ckpt"])["history"]
+    assert len(h_a) == len(h_b) == 3
+    for a, b in zip(h_a, h_b):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-5)
+    acc = train(str(tmp_path / "c"), config=GATODEConfig(batch_size=512,
+                                                         epochs=1),
+                accum_steps=2, ckpt_every=1, **kw)
+    assert torch.isfinite(torch.tensor(acc["final_loss"]))
+    last = load_checkpoint(str(tmp_path / "c" / "gatode_last.ckpt"))
+    assert last["opt_state"]["step"] == 1
