@@ -1,11 +1,11 @@
 """GAT-ODE configuration, construction, initialisation, serving, the
 fixed-step trainers (plain autograd, and fused through the zone-encoder and
-training-day kernels), the continuous-adjoint trainer, the epoch function
-and ``train()`` (port of ``ananke_abm_tpu/models/gnn_embed/train.py``).
+training-day kernels), the continuous- and discrete-adjoint trainers, the
+epoch function and ``train()`` (port of
+``ananke_abm_tpu/models/gnn_embed/train.py``).
 
-Not ported yet: the discrete adjoint (ROADMAP.md queue 1 item 7, which
-``train()`` needs for ``method="dopri5"``), sparse zone graphs (item 9) and
-the data-parallel step across cards (item 11).
+Not ported yet: sparse zone graphs (ROADMAP.md queue 1 item 9) and the
+data-parallel step across cards (item 11).
 """
 from __future__ import annotations
 
@@ -307,6 +307,11 @@ def build_fused_loss_fn(model, config, zone_feats, adj, times,
     least one residual drift block; anything else raises, as do widths the
     kernels are not compiled for.
 
+    The encoder goes through K4 where its kernels take the encoder's widths
+    (``fused_gat.kernels_fit``) and through ``model.encode_zones``
+    elsewhere, as the reference drops back to flax where its kernel does
+    not fit.
+
     Loss and accuracy are means over the agent-time rows. ``_plain``: run
     the kernels' plain versions wherever the tensors lie (to hold the
     kernels' step against).
@@ -335,11 +340,17 @@ def build_fused_loss_fn(model, config, zone_feats, adj, times,
                                     fused_gat.PLAIN) if _plain
                                    else (None, None, None))
     gat = model.zone_gat
+    fuse_gat = fused_gat.kernels_fit(zone_feats.shape[0], zone_feats.shape[1],
+                                     model.zone_dim, gat.heads,
+                                     gat.num_layers)
 
     def loss_fn(pf, hz, targets):
-        zone_emb = fused_gat.zone_gat_fused(
-            zone_feats, adj, gat, heads=gat.heads,
-            num_layers=gat.num_layers, _impl=gat_impl)
+        if fuse_gat:
+            zone_emb = fused_gat.zone_gat_fused(
+                zone_feats, adj, gat, heads=gat.heads,
+                num_layers=gat.num_layers, _impl=gat_impl)
+        else:
+            zone_emb = model.encode_zones(zone_feats, adj)
         x0, h = model.initial_state(pf, hz, zone_emb)
         dense = model.drift.dense
         blocks = tuple(
@@ -426,6 +437,21 @@ def make_epoch_fn(optimizer, loss_fn_g, graph=(), accum=1):
 FUSED_MAX_ZONES = 2048
 
 
+def fused_step_fits(config) -> bool:
+    """Whether the fused fixed-step trainer's day and cross-entropy kernels
+    (K2, K3) take ``config``'s widths and depth: train()'s gate, decided
+    from the configuration before anything launches."""
+    from ananke_abm_tpu_torch.ops.cuda.fused_train import (
+        ce_kernels_fit,
+        day_kernels_fit,
+    )
+
+    return (day_kernels_fit(config.agent_dim, config.zone_dim,
+                            config.context_dim, config.hidden_dim,
+                            config.num_blocks)
+            and ce_kernels_fit(config.agent_dim, config.zone_dim))
+
+
 def _resume_checkpoint(path, config, run):
     """The ``gatode_last.ckpt`` at ``path`` if this package wrote it for the
     same run (``run``: the world keys; ``config`` but its ``epochs``)."""
@@ -482,14 +508,17 @@ def train(
     epoch).permutation(n_agents)`` cut into ``max(1, n_agents // bsz)``
     batches (the reference's batches).
 
-    The step: on the card with ``config.method == "rk4"`` and at most
-    FUSED_MAX_ZONES zones, the fused step (:func:`build_fused_loss_fn`: the
-    encoder, day and cross-entropy kernels); otherwise the plain step at
-    ``config.method`` (what the reference runs off the TPU, and what runs on
-    the CPU). ``method="dopri5"`` trains through the discrete adjoint and
-    raises (not ported yet: ROADMAP.md queue 1 item 7), as do
-    ``sparse_zones`` / ``sparse_world`` (item 9) and ``data_parallel`` over
-    more than one card (item 11); with one card ``data_parallel`` runs the
+    The step: on the card with ``config.method == "rk4"``, at most
+    FUSED_MAX_ZONES zones and widths the day and cross-entropy kernels take
+    (:func:`fused_step_fits`), the fused step (:func:`build_fused_loss_fn`:
+    the encoder kernels where they fit, the day and cross-entropy kernels);
+    ``method="dopri5"`` trains through the discrete adjoint
+    (:func:`build_adjoint_loss_fn_g` with ``adjoint_mode="discrete"`` and
+    its defaults: K5 and K7 on the card where they fit); otherwise the
+    plain step at ``config.method`` (what the reference runs off the TPU,
+    and what runs on the CPU). ``sparse_zones`` / ``sparse_world`` raise
+    (ROADMAP.md queue 1 item 9), as does ``data_parallel`` over more than
+    one card (item 11); with one card ``data_parallel`` runs the
     single-device step, as the reference does with one device.
 
     ``ckpt_every=k`` writes ``gatode_last.ckpt`` (flax-layout params, this
@@ -521,10 +550,6 @@ def train(
         raise NotImplementedError(
             f"data_parallel over {n_dev} cards is not ported yet: "
             "ROADMAP.md queue 1 item 11")
-    if config.method == "dopri5":
-        raise NotImplementedError(
-            "train() with method='dopri5' trains through the discrete "
-            "adjoint, which is not ported yet: ROADMAP.md queue 1 item 7")
     ensure_dir(outdir)
     data = generate_agent_population(n_agents, num_times=num_times,
                                      seed=seed, num_zones=num_zones)
@@ -538,11 +563,17 @@ def train(
     static = (on(data["zone_features"]), on(data["adj"]), on(data["times"]))
     Z = int(static[0].shape[0])
     if (config.method == "rk4" and device.type == "cuda"
-            and Z <= FUSED_MAX_ZONES):
+            and Z <= FUSED_MAX_ZONES and fused_step_fits(config)):
         fused_loss = build_fused_loss_fn(model, config, *static)
         epoch_fn = make_epoch_fn(
             optimizer, lambda pf, hz, tg, _g: fused_loss(pf, hz, tg),
             graph=(), accum=accum_steps)
+    elif config.method == "dopri5":
+        # the adaptive solve trains through the discrete adjoint
+        epoch_fn = make_epoch_fn(
+            optimizer, build_adjoint_loss_fn_g(model, config, static,
+                                               adjoint_mode="discrete"),
+            graph=static, accum=accum_steps)
     else:
         epoch_fn = make_epoch_fn(optimizer, _build_loss_fn_g(model, config),
                                  graph=static, accum=accum_steps)
@@ -623,19 +654,26 @@ class _Rhs(torch.nn.Module):
         return self.model.rhs(t, x, h, zone_emb)
 
 
-def _adjoint_loss_fn(model, config, rhs_vjp, stats=None):
+def _adjoint_loss_fn(model, config, rhs_vjp, stats=None, discrete=None):
     """``loss_fn(pf, hz, targets, graph) -> (mean nll, accuracy)`` whose
-    integration is adaptive DOPRI5 with continuous-adjoint gradients.
+    integration is adaptive DOPRI5 with adjoint gradients: continuous
+    (``rhs_vjp`` its joint evaluator, or None), or discrete where
+    ``discrete`` holds ``odeint_discrete_adjoint``'s keywords (its step
+    hooks and recording knobs).
 
     The solver's ``args`` are ``(params, h, zone_emb)`` with ``params``
     every model parameter in the reference's leaf order, as the reference
-    threads its whole flax tree: the backward's error norm counts them
-    all. ``rhs`` reads its weights from ``args`` (``functional_call``), so
-    the generic backward differentiates the drift through them.
+    threads its whole flax tree: the continuous backward's error norm
+    counts them all. ``rhs`` reads its weights from ``args``
+    (``functional_call``), so the generic backward differentiates the drift
+    through them.
     """
     from torch.func import functional_call
 
-    from ananke_abm_tpu_torch.ode import odeint_adjoint
+    from ananke_abm_tpu_torch.ode import (
+        odeint_adjoint,
+        odeint_discrete_adjoint,
+    )
 
     leaves = flax_leaf_params(model)
     by_id = {id(p): name for name, p in model.named_parameters()}
@@ -652,9 +690,15 @@ def _adjoint_loss_fn(model, config, rhs_vjp, stats=None):
         zone_emb = model.encode_zones(zone_feats, adj)
         x0, h = model.initial_state(pf, hz, zone_emb)
         params = tuple(p for _, p in leaves)
-        xs = odeint_adjoint(rhs, x0, times, (params, h, zone_emb),
-                            rtol=config.rtol, atol=config.atol,
-                            rhs_vjp=rhs_vjp, stats=stats)
+        args = (params, h, zone_emb)
+        if discrete is None:
+            xs = odeint_adjoint(rhs, x0, times, args, rtol=config.rtol,
+                                atol=config.atol, rhs_vjp=rhs_vjp,
+                                stats=stats)
+        else:
+            xs = odeint_discrete_adjoint(rhs, x0, times, args,
+                                         rtol=config.rtol, atol=config.atol,
+                                         stats=stats, **discrete)
         return _cross_entropy(model.decode(xs.transpose(0, 1), zone_emb),
                               targets)
 
@@ -673,54 +717,83 @@ def _graph(static):
 def build_adjoint_loss_fn_g(model, config, static, use_fused="auto",
                             adjoint_mode="continuous", max_accepted=512,
                             ckpt_every=16, bwd_precision=None,
-                            store_f="auto", ckpt_dtype="auto", stats=None):
+                            store_f="auto", ckpt_dtype="auto", stats=None,
+                            _plain=False):
     """``loss_fn_g(pf, hz, targets, graph) -> (loss, acc)`` whose
     integration is adaptive DOPRI5 at ``config.rtol``/``config.atol`` with
-    continuous-adjoint gradients; ``loss.backward()`` fills the model's
-    ``.grad``s. The forward runs ``model.rhs`` in float32.
+    adjoint gradients; ``loss.backward()`` fills the model's ``.grad``s.
+    ``static`` is ``(zone_feats, adj, times)``.
 
-    ``use_fused``: "auto" takes the adjoint RHS kernel
-    (``ops/cuda/fused_rhs.py::drift_rhs_and_vjp``) for the backward
-    whenever the model is on CUDA, ``attn_temp == 1.0`` and
-    ``num_blocks >= 1``; widths the kernel is not compiled for then raise
-    from the kernel's wrapper. True forces the fused route (its plain
-    version on the CPU); False keeps ``torch.autograd.grad`` of
-    ``model.rhs``. ``static`` is ``(zone_feats, adj, times)``.
+    ``adjoint_mode="continuous"``: the forward runs ``model.rhs`` in
+    float32, the backward solves the augmented system, its right-hand side
+    through the adjoint RHS kernel (``fused_rhs.drift_rhs_and_vjp``, K8)
+    under ``use_fused``. ``"discrete"``: backprop through the forward's
+    accepted steps (``ode.odeint_discrete_adjoint``); under ``use_fused``
+    each attempted step runs the step kernel (K5, with the controller's
+    error norm reduced in the kernel at the config's tolerances) and each
+    accepted step's VJP the VJP kernel (K7); ``max_accepted`` and
+    ``ckpt_every`` size its recording, ``bwd_precision`` sets the VJP's
+    precision (None: the forward's float32). ``store_f="auto"`` records the
+    FSAL evals, and ``ckpt_dtype="auto"`` narrows the state checkpoints to
+    bf16, exactly when ``ckpt_every == 1`` with ``bwd_precision="bf16"``
+    (the two bf16 buffers then cost what the float32 state buffer alone
+    did); explicit values override.
 
-    ``adjoint_mode="discrete"`` is not ported yet (ROADMAP.md queue 1
-    item 7) and raises. ``max_accepted``, ``ckpt_every``,
-    ``bwd_precision``, ``store_f`` and ``ckpt_dtype`` belong to it: they
-    are accepted for the reference's signature and unused.
+    ``use_fused``: "auto" takes the mode's kernels where the model is on
+    CUDA, ``attn_temp == 1.0`` and the kernels take the configuration's
+    widths and depth, decided before anything launches; elsewhere the
+    plain route (autograd of ``model.rhs``). True forces the kernels'
+    route (their plain versions on the CPU; on CUDA widths they do not
+    take raise from the wrappers); False keeps the plain route. On CUDA
+    the discrete kernels take ``bwd_precision="bf16"`` only with K6 (ROADMAP
+    item 7b): their route raises NotImplementedError when it is built.
+    ``_plain``: the discrete kernels' route runs their plain versions, on
+    the card too (the check the kernels are held against).
 
     ``stats``: a dict that each call fills with the solves' step counts
-    (``odeint_adjoint``'s ``stats``).
+    (``stats["forward"]``; the continuous backward's per interval in
+    ``stats["backward"]``, the discrete backward's step replays and VJPs
+    in ``stats["replays"]`` and ``stats["vjps"]``).
     """
-    del max_accepted, ckpt_every, bwd_precision, store_f, ckpt_dtype
     if adjoint_mode not in ("continuous", "discrete"):
         raise ValueError(f"unknown adjoint_mode {adjoint_mode!r}")
-    if adjoint_mode == "discrete":
-        raise NotImplementedError(
-            "adjoint_mode='discrete' is not ported yet: ROADMAP.md queue 1 "
-            "item 7 (slice 3, kernels K5-K7)"
-        )
     _graph(static)
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5, fused_rhs
+
+    widths = (config.agent_dim, config.zone_dim, config.context_dim,
+              config.hidden_dim, config.num_blocks)
+    fits = (fused_rhs.kernel_fits if adjoint_mode == "continuous"
+            else fused_dopri5.kernels_fit)
     on_cuda = next(model.parameters()).device.type == "cuda"
     if use_fused == "auto":
         use_fused = (on_cuda and getattr(model, "attn_temp", 1.0) == 1.0
-                     and getattr(config, "num_blocks", 0) >= 1)
-    rhs_vjp = None
+                     and fits(*widths))
+    if use_fused and getattr(model, "attn_temp", 1.0) != 1.0:
+        raise ValueError(
+            "the fused adjoint kernels require attn_temp == 1.0 (they "
+            "hard-code that attention); pass use_fused=False")
+    if adjoint_mode == "continuous":
+        rhs_vjp = (fused_rhs.make_fused_adjoint_rhs(model)[1] if use_fused
+                   else None)
+        return _adjoint_loss_fn(model, config, rhs_vjp, stats)
+    explicit_ckpt_dtype = None if ckpt_dtype == "auto" else ckpt_dtype
+    ckpt_dtype = None
+    if store_f == "auto":
+        if ckpt_every == 1 and bwd_precision == "bf16":
+            store_f = ckpt_dtype = "bf16"
+        else:
+            store_f = False
+    if explicit_ckpt_dtype is not None:
+        ckpt_dtype = explicit_ckpt_dtype
+    step_impl = step_vjp = None
     if use_fused:
-        if getattr(model, "attn_temp", 1.0) != 1.0:
-            raise ValueError(
-                "the fused adjoint RHS requires attn_temp == 1.0 (the "
-                "kernel hard-codes that attention); pass use_fused=False"
-            )
-        from ananke_abm_tpu_torch.ops.cuda.fused_rhs import (
-            make_fused_adjoint_rhs,
-        )
-
-        _, rhs_vjp = make_fused_adjoint_rhs(model)
-    return _adjoint_loss_fn(model, config, rhs_vjp, stats)
+        step_impl, step_vjp = fused_dopri5.make_fused_dopri5_hooks(
+            model, bwd_precision=bwd_precision,
+            err_stats=(config.rtol, config.atol), _plain=_plain)
+    discrete = dict(max_accepted=max_accepted, ckpt_every=ckpt_every,
+                    store_f=store_f, ckpt_dtype=ckpt_dtype,
+                    step_impl=step_impl, step_vjp=step_vjp)
+    return _adjoint_loss_fn(model, config, None, stats, discrete)
 
 
 def make_adjoint_step_fns(model, optimizer, config, static,
@@ -728,8 +801,8 @@ def make_adjoint_step_fns(model, optimizer, config, static,
                           max_accepted=512, ckpt_every=16,
                           bwd_precision=None, store_f="auto",
                           ckpt_dtype="auto"):
-    """Training step whose integration is adaptive DOPRI5 with
-    continuous-adjoint gradients (the reference's
+    """Training step whose integration is adaptive DOPRI5 with adjoint
+    gradients, continuous or discrete (the reference's
     ``make_adjoint_step_fns``; knobs as :func:`build_adjoint_loss_fn_g`).
 
     Returns ``(train_step, loss_fn)``. ``train_step(pf, hz, targets)``
@@ -737,8 +810,10 @@ def make_adjoint_step_fns(model, optimizer, config, static,
     :func:`make_optimizer`), updates the model in place and returns
     ``(loss, acc)``. ``loss_fn(pf, hz, targets)`` returns ``(loss, acc)``
     with the graph attached. Both record the last solve's step counts in
-    ``.stats``: ``stats["forward"]`` (the forward solve's) and
-    ``stats["backward"]`` (one per backward interval, last first).
+    ``.stats``: ``stats["forward"]`` (the forward solve's ``n_steps``,
+    ``n_accepted``, ``ok``) and, once the backward has run,
+    ``stats["backward"]`` (continuous: one per backward interval, last
+    first) or ``stats["replays"]`` and ``stats["vjps"]`` (discrete).
     """
     stats: dict = {}
     loss_fn_g = build_adjoint_loss_fn_g(

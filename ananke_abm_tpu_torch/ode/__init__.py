@@ -3,16 +3,18 @@
 - :func:`odeint`: one entry over methods and gradient modes;
 - :func:`rk4_solve`, :func:`euler_solve`: fixed step;
 - :func:`dopri5_solve`: adaptive, dense output, forward only;
-- :func:`odeint_adjoint`: adaptive with continuous-adjoint gradients.
+- :func:`odeint_adjoint`: adaptive with continuous-adjoint gradients;
+- :func:`odeint_discrete_adjoint`: adaptive with discrete-adjoint gradients
+  (the reference's ``odeint`` has no discrete mode either).
 
-Not ported yet: ``odeint_discrete_adjoint`` and ``euler_maruyama_solve``
-(ROADMAP.md queue 1 items 7 and 10).
+Not ported yet: ``euler_maruyama_solve`` (ROADMAP.md queue 1 item 10).
 """
 from __future__ import annotations
 
 import torch
 
 from ananke_abm_tpu_torch.ode.adjoint import odeint_adjoint
+from ananke_abm_tpu_torch.ode.discrete_adjoint import odeint_discrete_adjoint
 from ananke_abm_tpu_torch.ode.dopri5 import dopri5_solve
 from ananke_abm_tpu_torch.ode.rk4 import euler_solve, rk4_solve
 
@@ -55,5 +57,5 @@ def odeint(rhs, y0, ts, args=None, *, method: str = "dopri5",
     raise ValueError(f"Unknown ODE method: {method!r}")
 
 
-__all__ = ["odeint", "odeint_adjoint", "dopri5_solve", "rk4_solve",
-           "euler_solve"]
+__all__ = ["odeint", "odeint_adjoint", "odeint_discrete_adjoint",
+           "dopri5_solve", "rk4_solve", "euler_solve"]

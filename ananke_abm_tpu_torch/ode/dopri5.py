@@ -8,8 +8,10 @@ scalars, so the two packages take the same step sequence. Reading the
 error norm is one device-to-host sync per attempted step (plus three for
 the initial step size); nothing else in the loop waits for the device.
 
-Not ported yet: ``step_impl=``, ``record=`` and ``ErrNormSq``, which serve
-the discrete adjoint (ROADMAP.md queue 1 item 7).
+For the discrete adjoint (``ode/discrete_adjoint.py``) a ``step_impl`` may
+replace the tableau step (the fused step kernel, K5), may return an
+:class:`ErrNormSq` in place of the error vector, and ``record=`` keeps the
+accepted-step sequence and the state checkpoints the backward replays.
 """
 from __future__ import annotations
 
@@ -67,6 +69,17 @@ def _mul(h, c) -> float:
     """f32(h) * f32(c) as a Python float (exact in float32), the product a
     float32 scalar times a weakly typed constant gives in the reference."""
     return float(F(h) * F(c))
+
+
+class ErrNormSq(NamedTuple):
+    """A pre-reduced error norm from a fused step: ``sq_sum`` a float32
+    tensor (one element) holding ``sum((err / scale)^2)`` with Hairer's
+    scale ``atol + rtol * max(|y0|, |y1|)`` already applied, ``count`` the
+    number of elements. The controller then reads that one scalar instead
+    of forming :func:`tree_error_norm` over the state."""
+
+    sq_sum: torch.Tensor
+    count: int
 
 
 class _Interp(NamedTuple):
@@ -155,9 +168,47 @@ def _host_times(ts) -> np.ndarray:
     return np.asarray(ts, dtype=np.float32)
 
 
+_RECORD_DTYPES = {None: None, False: None, True: None,
+                  "bf16": torch.bfloat16}
+
+
+def _record_buffers(record, y0, f0, num_out):
+    """The discrete adjoint's recording: host ``rec_t0`` / ``rec_h``
+    (max_accepted,) float32 and ``out_step`` (T,) int, device ``ckpts``
+    (and ``ckpt_f`` under ``store_f``) of ``ceil(max_accepted /
+    ckpt_every)`` states, narrowed to bf16 where asked."""
+    max_acc = int(record["max_accepted"])
+    every = int(record["ckpt_every"])
+    store_f = record.get("store_f", False)
+    ckpt_dtype = record.get("ckpt_dtype")
+    # a typo'd value would otherwise pick another memory or precision
+    if store_f not in (False, True, "bf16"):
+        raise ValueError(
+            f"store_f must be False, True, or 'bf16'; got {store_f!r}")
+    if ckpt_dtype not in (None, "bf16"):
+        raise ValueError(
+            f"ckpt_dtype must be None or 'bf16'; got {ckpt_dtype!r}")
+    if max_acc < 1 or every < 1:
+        raise ValueError("max_accepted and ckpt_every must be >= 1")
+    n_ckpt = -(-max_acc // every)
+
+    def buf(like, dtype):
+        return tree_map(lambda l: torch.zeros(
+            (n_ckpt,) + tuple(l.shape), dtype=dtype or l.dtype,
+            device=l.device), like)
+
+    rec = {"rec_t0": np.zeros((max_acc,), np.float32),
+           "rec_h": np.zeros((max_acc,), np.float32),
+           "out_step": np.full((num_out,), -1, np.int64),
+           "ckpts": buf(y0, _RECORD_DTYPES[ckpt_dtype])}
+    if store_f:
+        rec["ckpt_f"] = buf(f0, _RECORD_DTYPES[store_f])
+    return rec, max_acc, every
+
+
 def dopri5_solve(rhs, y0, ts, args=None, *, rtol: float = 1e-5,
                  atol: float = 1e-5, max_steps: int = 16384,
-                 first_step=None):
+                 first_step=None, step_impl=None, record=None):
     """Integrate ``dy/dt = rhs(t, y, args)`` with adaptive DOPRI5 and
     return dense output at ``ts``.
 
@@ -167,9 +218,27 @@ def dopri5_solve(rhs, y0, ts, args=None, *, rtol: float = 1e-5,
     for HINIT. ``max_steps`` caps the attempted steps; when it runs out,
     the output rows not yet filled are NaN and ``ok`` is False.
 
+    ``step_impl(t0, h, y, f, args) -> (y1, f1, err, interp)`` replaces the
+    tableau step (``f`` the FSAL eval at ``(t0, y)``, ``interp`` an
+    ``_Interp``; ``err`` the error vector or an :class:`ErrNormSq`); the
+    controller stays this one. ``rhs`` still makes the initial eval and
+    HINIT's probe.
+
+    ``record={"max_accepted": m, "ckpt_every": k[, "store_f": False | True
+    | "bf16"][, "ckpt_dtype": None | "bf16"]}`` records the accepted-step
+    sequence for the discrete adjoint: stats gain ``rec_t0`` / ``rec_h``
+    ((m,) float32 numpy: each accepted step's start and actual step size),
+    ``out_step`` ((T,) int numpy: the accepted step whose interpolant filled
+    each row; -1 for row 0 and unfilled rows) and ``ckpts`` (the pre-step
+    state of every k-th accepted step, leaves ``(ceil(m / k),) +
+    leaf.shape`` on the state's device, bf16 under ``ckpt_dtype="bf16"``);
+    ``store_f`` adds ``ckpt_f``, the pre-step FSAL eval at the same steps.
+    A solve that would take more than m accepted steps stops there: the
+    unfilled rows are NaN and ``ok`` is False, as at ``max_steps``.
+
     Returns (ys, stats): ``ys`` with leaves of shape ``(T,) + leaf.shape``;
     ``stats`` with ``n_steps`` and ``n_accepted`` (ints), ``ok`` (bool) and
-    ``h_next`` (the controller's next proposal, float32).
+    ``h_next`` (the controller's next proposal, float32), and the record.
     """
     ts = _host_times(ts)
     num_out = ts.shape[0]
@@ -189,12 +258,23 @@ def dopri5_solve(rhs, y0, ts, args=None, *, rtol: float = 1e-5,
         return buf
 
     ys = tree_map(buffer, y0)
+    rec, max_acc = None, None
+    if record is not None:
+        rec, max_acc, every = _record_buffers(record, y0, f0, num_out)
     t, y, f = t0, y0, f0
     out_idx, n_steps, n_acc = 1, 0, 0
-    while out_idx < num_out and n_steps < max_steps:
+    while (out_idx < num_out and n_steps < max_steps
+           and (rec is None or n_acc < max_acc)):
         h = min(h, F(t_end - t))
-        y1, f1, err, interp = _step(rhs, t, h, y, f, args)
-        err_norm = F(tree_error_norm(err, y, y1, rtol, atol).item())
+        if step_impl is None:
+            y1, f1, err, interp = _step(rhs, t, h, y, f, args)
+        else:
+            y1, f1, err, interp = step_impl(t, h, y, f, args)
+        if isinstance(err, ErrNormSq):
+            # the step pre-reduced the scaled error: one scalar read
+            err_norm = F(np.sqrt(F(F(err.sq_sum.item()) / F(err.count))))
+        else:
+            err_norm = F(tree_error_norm(err, y, y1, rtol, atol).item())
         # a NaN error is a rejection with the largest shrink
         bad = not np.isfinite(err_norm)
         if bad:
@@ -213,7 +293,19 @@ def dopri5_solve(rhs, y0, ts, args=None, *, rtol: float = 1e-5,
                 y_t = _dense_eval(interp, ts[out_idx])
                 for buf, v in zip(tree_leaves(ys), tree_leaves(y_t)):
                     buf[out_idx] = v
+                if rec is not None:
+                    rec["out_step"][out_idx] = n_acc
                 out_idx += 1
+            if rec is not None:
+                rec["rec_t0"][n_acc] = t
+                rec["rec_h"][n_acc] = h
+                if n_acc % every == 0:
+                    bufs = [("ckpts", y)] + (
+                        [("ckpt_f", f)] if "ckpt_f" in rec else [])
+                    for key, val in bufs:
+                        for buf, v in zip(tree_leaves(rec[key]),
+                                          tree_leaves(val)):
+                            buf[n_acc // every] = v
             t = t_new
         y = tree_where(accept, y1, y)
         f = tree_where(accept, f1, f)
@@ -233,7 +325,9 @@ def dopri5_solve(rhs, y0, ts, args=None, *, rtol: float = 1e-5,
                   "are NaN)")
     stats = {"n_steps": n_steps, "n_accepted": n_acc, "ok": ok,
              "h_next": h}
+    if rec is not None:
+        stats.update(rec)
     return ys, stats
 
 
-__all__ = ["dopri5_solve"]
+__all__ = ["dopri5_solve", "ErrNormSq"]

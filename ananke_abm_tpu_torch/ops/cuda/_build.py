@@ -27,11 +27,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # kernel library -> its source
-NAMES = ("fused_step", "fused_rhs", "fused_train", "fused_gat")
+NAMES = ("fused_step", "fused_rhs", "fused_train", "fused_gat", "fused_dopri5")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
+_F = ctypes.c_float
 # the C interface of each library: {function: (argument types, result)}
 _ENTRY = {
     "fused_step": {
@@ -56,6 +57,14 @@ _ENTRY = {
         "ananke_gat_backward": ([_P] * 14 + [_I] * 6 + [_P], _I),
         "ananke_gat_param_size": ([_I] * 2, _L),
         "ananke_gat_bwd_tile_rows": ([], _I),
+    },
+    "fused_dopri5": {
+        "ananke_dopri5_step": (
+            [_P] * 24 + [_I] * 6 + [_F] * 3 + [_I] * 4 + [_P], _I),
+        "ananke_dopri5_step_vjp": (
+            [_P] * 28 + [_I] * 5 + [_F] + [_I] * 4 + [_P], _I),
+        "ananke_dopri5_tile_rows": ([_I] * 2, _I),
+        "ananke_dopri5_slab_size": ([_I] * 2, _L),
     },
 }
 

@@ -1,4 +1,4 @@
-"""The bounds the training kernels (K8, K2f, K2b, K3f, K3b, K4f, K4b) are
+"""The bounds the training kernels (K8, K2f, K2b, K3f, K3b, K4f, K4b, K5, K7) are
 held to against their plain versions on the card, and the random operands of
 those checks: one copy, for ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py``.
@@ -74,6 +74,25 @@ WITNESS_BWD_BOUNDS = (3e-2, 1.2e-1, 6e-4)
 #   score per row): the relative readings are 0 / 0 there.
 GAT_FWD_BOUNDS = (1e-5, 1e-4, 1e-9)
 GAT_BWD_BOUNDS = (1e-4, 1e-4, 1e-9)
+# K5 / K7 (the DOPRI5 step and its VJP, float32 throughout: kernel and plain
+# version differ only in the order of their float32 sums and in fused
+# multiply-adds), per output (dopri5_step_outputs, dopri5_vjp_outputs). The
+# control is the plain version with every product's operands rounded to
+# TF32 (tf32_products). Readings (chip_smoke.py --readings dopri5:
+# DOPRI5_SHAPES and DOPRI5_READING_SHAPES, N 333-98,304, Z 7-2,048, 1-8
+# blocks, seeds 0-2; H100 80GB HBM3, 700 W):
+# - K5: sound mean <= 1.7e-5, max <= 1.8e-5, 1 - cos <= 1.4e-10, all on the
+#   embedded error, a difference of nearly equal sums (the plain version
+#   lies as far from a float64 run: 1.7e-5); control >= 2.0e-3, >= 2.0e-3,
+#   >= 2.1e-6;
+# - K7: sound mean <= 5.7e-6, max <= 8.3e-6, 1 - cos <= 1.6e-11 (the plain
+#   version lies as far from float64: <= 5.3e-6); control >= 1.7e-3, >=
+#   1.8e-3, >= 1.5e-6.
+# Against the float64 witness (float64_operands) kernel and plain version
+# lie as far as from each other, so the same bounds hold there, and the
+# control fails them.
+DOPRI5_STEP_BOUNDS = (1e-4, 1e-4, 1e-9)
+DOPRI5_VJP_BOUNDS = (5e-5, 5e-5, 1e-9)
 
 
 def bf16_product_dot(a16, b16):
@@ -111,6 +130,24 @@ def bf16_control(fn, *args):
     """``fn(*args)`` with every product rounded to bf16: a kernel that lost
     the float32 accumulation."""
     return _with_products(bf16_product_dot, bf16_product_nt_dot, fn, *args)
+
+
+def tf32_products(fn, *args):
+    """``fn(*args)``, a plain version of the float32 DOPRI5 step kernels,
+    with every product's operands rounded to TF32 and float32 sums: a
+    kernel that took the card's TF32 path."""
+    return _with_products(lambda a, b: round_tf32(a) @ round_tf32(b),
+                          lambda a, b: round_tf32(a).T @ round_tf32(b), fn,
+                          *args)
+
+
+def float64_operands(args):
+    """Every float32 tensor of ``args`` (and of the tuples in it) cast to
+    float64: the plain versions run on them are a witness with sums all but
+    exact."""
+    up = lambda a: (a.double() if torch.is_tensor(a) else
+                    tuple(up(w) for w in a) if isinstance(a, tuple) else a)
+    return tuple(up(a) for a in args)
 
 
 def float64_witness(fn, *args):
@@ -253,6 +290,47 @@ def gat_grad_outputs(grads, num_layers, heads=4):
                 (f"scale[{k}]", lg[1 + 2 * heads]),
                 (f"bias[{k}]", lg[2 + 2 * heads])]
     return out
+
+
+def dopri5_operands(model, n, z, dev, seed, t0=6.1, h_step=0.37):
+    """The operands of ``dopri5_step_fused`` for a model (random states,
+    FSAL evals, context and zones from ``seed``, the time rows of a step of
+    ``h_step`` at ``t0``) and the five folded cotangents of
+    ``dopri5_step_vjp_fused``."""
+    from ananke_abm_tpu_torch.models.gnn_embed.params import (
+        flax_leaf_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda.fused_dopri5 import stage_time_rows
+    from ananke_abm_tpu_torch.ops.cuda.fused_rhs import split_drift_params
+
+    with torch.no_grad():
+        (Wq, W1xc, W1h, W1t, b1, blocks, W3, b3) = (
+            split_drift_params(dict(flax_leaf_params(model))))
+        g = torch.Generator(device=dev).manual_seed(seed)
+        rows = lambda d: torch.randn(n, d, device=dev, generator=g)
+        da, dc = Wq.shape[0], W1h.shape[0]
+        x, f0, h = rows(da), 0.3 * rows(da), rows(dc)
+        ze = torch.randn(z, Wq.shape[1], device=dev, generator=g)
+        d = lambda w: w.detach().contiguous()
+        args = (x, f0, h, ze, stage_time_rows(t0, h_step, d(W1t), d(b1)),
+                d(Wq), d(W1xc), d(W1h),
+                tuple(tuple(d(w) for w in b) for b in blocks), d(W3), d(b3),
+                h_step)
+        cot = tuple(rows(da) for _ in range(5))
+    return args, cot
+
+
+def dopri5_step_outputs(out):
+    return list(zip(("y1", "f1", "err", "r5"), out))
+
+
+def dopri5_vjp_outputs(out):
+    names = ["gy0", "gf0", "gh", "gze", "gtf", "gWq", "gW1xc", "gW1h"]
+    items = list(zip(names, out[:8]))
+    for i, blk in enumerate(out[8]):
+        items += list(zip([f"gWr1[{i}]", f"gbr1[{i}]", f"gWr2[{i}]",
+                           f"gbr2[{i}]"], blk))
+    return items + [("gW3", out[9]), ("gb3", out[10])]
 
 
 def k8_bounds(num_blocks):

@@ -157,6 +157,17 @@ def _check(name, zf, adj, flat, heads, num_layers, g=None):
     return Z, F, D
 
 
+def kernels_fit(z, f, d, heads, num_layers) -> bool:
+    """Whether the encoder kernels (K4f / K4b) take ``z`` zones of ``f``
+    features, ``d`` output features in ``heads`` heads and ``num_layers``
+    layers: the rule their wrappers enforce on CUDA tensors, for callers to
+    choose a route before anything launches."""
+    return (d == KERNEL_FEATURES and heads == KERNEL_HEADS
+            and 1 <= num_layers <= MAX_KERNEL_LAYERS
+            and 1 <= f <= MAX_KERNEL_IN_FEATURES
+            and 1 <= z <= MAX_KERNEL_ZONES)
+
+
 def _kernel_device(name, zf, Z, F, D, heads, num_layers):
     """True for a CUDA tensor the kernel takes, False for a CPU tensor;
     raises for anything else."""
@@ -164,10 +175,7 @@ def _kernel_device(name, zf, Z, F, D, heads, num_layers):
         return False
     if zf.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {zf.device}")
-    if not (D == KERNEL_FEATURES and heads == KERNEL_HEADS
-            and 1 <= num_layers <= MAX_KERNEL_LAYERS
-            and 1 <= F <= MAX_KERNEL_IN_FEATURES
-            and 1 <= Z <= MAX_KERNEL_ZONES):
+    if not kernels_fit(Z, F, D, heads, num_layers):
         raise ValueError(
             f"{name}: the CUDA kernel is compiled for {KERNEL_FEATURES} "
             f"features in {KERNEL_HEADS} heads, 1-{MAX_KERNEL_LAYERS} layers, "
@@ -299,7 +307,7 @@ def zone_gat_fused(zone_feats, adj, zone_gat, *, heads, num_layers,
 
 
 __all__ = [
-    "flatten_gat_params",
+    "flatten_gat_params", "kernels_fit",
     "gat_forward_reference", "gat_forward_fused",
     "gat_backward_reference", "gat_backward_fused",
     "zone_gat_fused", "KERNELS", "PLAIN",

@@ -32,6 +32,7 @@ from ananke_abm_tpu_torch.ops.cuda.fused_step import (
     MAX_KERNEL_BLOCKS,
     _dot,
     _nt_dot,
+    stage_kernels_fit,
     stage_math,
     stage_vjp_math,
 )
@@ -198,6 +199,10 @@ def grad_layout(Z, Dz, Da, Dc, H, num_blocks, time_shape=None):
     return out + [("gW3", (H, Da)), ("gb3", (Da,))]
 
 
+# whether K8 takes (agent, zone, context, hidden) widths and residual blocks
+kernel_fits = stage_kernels_fit
+
+
 def drift_rhs_and_vjp(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a):
     """One drift evaluation and its VJP at ``a``. Arguments and result as
     :func:`drift_rhs_and_vjp_reference`.
@@ -215,13 +220,13 @@ def drift_rhs_and_vjp(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a):
                                            blocks, W3, b3, a)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if (Da, Dz, Dc, H) not in KERNEL_WIDTHS:
-        raise ValueError(
-            f"the CUDA adjoint RHS kernel is compiled for (agent, zone, "
-            f"context, hidden) widths {KERNEL_WIDTHS}, got {(Da, Dz, Dc, H)}"
-        )
     nb = len(blocks)
-    if nb > MAX_KERNEL_BLOCKS:
+    if not kernel_fits(Da, Dz, Dc, H, nb):
+        if (Da, Dz, Dc, H) not in KERNEL_WIDTHS:
+            raise ValueError(
+                f"the CUDA adjoint RHS kernel is compiled for (agent, zone, "
+                f"context, hidden) widths {KERNEL_WIDTHS}, got "
+                f"{(Da, Dz, Dc, H)}")
         raise ValueError(f"the CUDA adjoint RHS kernel takes at most "
                          f"{MAX_KERNEL_BLOCKS} residual blocks")
     dev = x.device
@@ -373,7 +378,7 @@ def make_fused_adjoint_rhs(model, drift_vjp=None):
 
 
 __all__ = [
-    "split_drift_params", "time_row", "drift_rhs_fused",
+    "split_drift_params", "time_row", "drift_rhs_fused", "kernel_fits",
     "drift_rhs_and_vjp_reference", "drift_rhs_and_vjp",
     "make_fused_adjoint_rhs",
 ]

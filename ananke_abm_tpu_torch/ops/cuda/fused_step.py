@@ -31,6 +31,15 @@ KERNEL_WIDTHS = ((32, 64, 32, 128),)
 MAX_KERNEL_BLOCKS = 8
 
 
+def stage_kernels_fit(da, dz, dc, hidden, num_blocks) -> bool:
+    """Whether the kernels compiled for this width set (K8, K2f / K2b, K5,
+    K7) take these (agent, zone, context, hidden) widths and residual
+    blocks: the rule their wrappers enforce on CUDA tensors, for callers to
+    choose a route before anything launches."""
+    return ((da, dz, dc, hidden) in KERNEL_WIDTHS
+            and 1 <= num_blocks <= MAX_KERNEL_BLOCKS)
+
+
 def pack_weights_bf16(model):
     """GATODE -> bf16 weight tuple for the interval kernel, in the JAX
     package's layout (every matrix (in, out)).
@@ -106,46 +115,60 @@ def _nt_dot(a16, b16):
     return a16.float().T @ b16.float()
 
 
-def stage_math(xb, hpre, tfp_row, ze, scale, wq, w1xc, blocks, w3, b3):
-    """One drift-RHS evaluation: the one copy of the stage math, shared by
-    the interval kernel's and the adjoint RHS kernel's plain versions.
+def _to16(a):
+    return a.to(BF16)
 
-    xb: (N, Da) bf16 stage input; hpre: (N, H) float32 h-row
+
+def keep(a):
+    """The identity cast: nothing is narrowed (the DOPRI5 step kernels'
+    float32 stage math)."""
+    return a
+
+
+def stage_math(xb, hpre, tfp_row, ze, scale, wq, w1xc, blocks, w3, b3,
+               cast=_to16):
+    """One drift-RHS evaluation: the one copy of the stage math, shared by
+    the plain versions of every stage kernel.
+
+    xb: (N, Da) stage input, already cast; hpre: (N, H) float32 h-row
     pre-activation; tfp_row: (1, H) float32 time-row pre-activation;
-    ze: (Z, Dz) bf16. Returns (k (N, Da) float32, intermediates): the
-    intermediates are ``(q16, attn16, ((z_in16, rt16, z_out16) per
-    block), feats)``, all bf16, for :func:`stage_vjp_math`.
+    ze: (Z, Dz), already cast. ``cast`` narrows each activation before its
+    product and the stored intermediates: bf16 by default (the serving and
+    fixed-step kernels' rounding points), :func:`keep` for the DOPRI5 step
+    kernels, which stay float32 throughout. Returns (k (N, Da) float32,
+    intermediates): the intermediates are ``(q, attn, ((z_in, rt, z_out)
+    per block), feats)``, each cast, for :func:`stage_vjp_math`.
     """
     q = _dot(xb, wq)
-    q16 = q.to(BF16)
+    q16 = cast(q)
     scores = _dot(q16, ze.T) * scale
     # max-free softmax: the max subtraction cancels in the ratio; the
     # clamp guards float32 overflow for scores > 80
     p_att = torch.exp(torch.clamp_max(scores, 80.0))
     inv = 1.0 / torch.sum(p_att, dim=-1, keepdim=True)
     # normalised AFTER the context product, as the reference kernel does
-    ctx = _dot(p_att.to(BF16), ze) * inv
-    attn16 = (p_att * inv).to(BF16)
-    feats = torch.cat([xb, ctx.to(BF16)], dim=-1)
+    ctx = _dot(cast(p_att), ze) * inv
+    attn16 = cast(p_att * inv)
+    feats = torch.cat([xb, cast(ctx)], dim=-1)
     z = torch.tanh(_dot(feats, w1xc) + hpre + tfp_row)
     block_inter = []
     for (wr1, br1, wr2, br2) in blocks:
-        z_in16 = z.to(BF16)
+        z_in16 = cast(z)
         rt = torch.tanh(_dot(z_in16, wr1) + br1.float())
-        rt16 = rt.to(BF16)
+        rt16 = cast(rt)
         r3 = _dot(rt16, wr2) + br2.float()
         z = torch.tanh(z + r3)
-        block_inter.append((z_in16, rt16, z.to(BF16)))
-    k = _dot(z.to(BF16), w3) + b3.float()
+        block_inter.append((z_in16, rt16, cast(z)))
+    k = _dot(cast(z), w3) + b3.float()
     return k, (q16, attn16, tuple(block_inter), feats)
 
 
-def stage_vjp_math(gk, inter, acc, tw, scale, Da):
+def stage_vjp_math(gk, inter, acc, tw, scale, Da, cast=_to16):
     """The VJP of one :func:`stage_math` evaluation at cotangent ``gk``
     (N, Da) float32, with the rounding points of the reference's
-    ``_stage_vjp_math``: cotangents are rounded to bf16 before each
-    product, ``tanh'`` is recomputed from the bf16 activation, bias and
-    time-row gradients are float32 sums.
+    ``_stage_vjp_math``: cotangents are cast (bf16 by default, as the
+    forward) before each product, ``tanh'`` is recomputed from the cast
+    activation, bias and time-row gradients are float32 sums.
 
     inter: from :func:`stage_math`. acc: float32 accumulators
     ``(gze, gwq, gw1, ghp, blocks, gw3, gb3)`` (``blocks``: per block
@@ -156,7 +179,7 @@ def stage_vjp_math(gk, inter, acc, tw, scale, Da):
     (ze16, zeT, wqT, w1xcT, blkT, w3T) = tw
     (q16, attn16, block_inter, feats) = inter
     (gzeA, gwqA, gw1A, ghpA, blkA, gw3A, gb3A) = acc
-    gk16 = gk.to(BF16)
+    gk16 = cast(gk)
     # k = z_out @ W3 + b3
     gw3A = gw3A + _nt_dot(block_inter[-1][2], gk16)
     gb3A = gb3A + torch.sum(gk, dim=0, keepdim=True)
@@ -169,13 +192,13 @@ def stage_vjp_math(gk, inter, acc, tw, scale, Da):
         wr1T, wr2T = blkT[b]
         zo = zo16.float()
         gpre = gz * (1.0 - zo * zo)
-        gp16 = gpre.to(BF16)
+        gp16 = cast(gpre)
         gwr2A = gwr2A + _nt_dot(rt16, gp16)
         gbr2A = gbr2A + torch.sum(gpre, dim=0, keepdim=True)
         grt = _dot(gp16, wr2T)
         rt = rt16.float()
         gpre2 = grt * (1.0 - rt * rt)
-        gp216 = gpre2.to(BF16)
+        gp216 = cast(gpre2)
         gwr1A = gwr1A + _nt_dot(z_in16, gp216)
         gbr1A = gbr1A + torch.sum(gpre2, dim=0, keepdim=True)
         gz = gpre + _dot(gp216, wr1T)
@@ -183,13 +206,13 @@ def stage_vjp_math(gk, inter, acc, tw, scale, Da):
     # z1 = tanh(feats @ W1xc + hpre + tfp_row), the first block's input
     z1 = block_inter[0][0].float()
     gpre1 = gz * (1.0 - z1 * z1)
-    gp116 = gpre1.to(BF16)
+    gp116 = cast(gpre1)
     gw1A = gw1A + _nt_dot(feats, gp116)
     ghpA = ghpA + gpre1
     gtf = torch.sum(gpre1, dim=0, keepdim=True)
     gfeats = _dot(gp116, w1xcT)
     gxb = gfeats[:, :Da]
-    gctx16 = gfeats[:, Da:].to(BF16)
+    gctx16 = cast(gfeats[:, Da:])
     # ctx = attn @ ze
     gzeA = gzeA + _nt_dot(attn16, gctx16)
     gattn = _dot(gctx16, zeT)
@@ -197,12 +220,12 @@ def stage_vjp_math(gk, inter, acc, tw, scale, Da):
     attn = attn16.float()
     ds = attn * (gattn - torch.sum(attn * gattn, dim=-1, keepdim=True)) \
         * scale
-    ds16 = ds.to(BF16)
+    ds16 = cast(ds)
     # scores = (q @ ze.T) * scale
     gq = _dot(ds16, ze16)
     gzeA = gzeA + _nt_dot(ds16, q16)
     # q = xb @ Wq
-    gq16 = gq.to(BF16)
+    gq16 = cast(gq)
     gwqA = gwqA + _nt_dot(feats[:, :Da], gq16)
     gx = gxb + _dot(gq16, wqT)
     return gx, gtf, (gzeA, gwqA, gw1A, ghpA, tuple(blkA), gw3A, gb3A)
@@ -385,6 +408,6 @@ def _launch(x, h, ze, weights, wd, tf_pre, dt_sub, x_new, ids):
 
 __all__ = [
     "pack_weights_bf16", "interval_stage_times", "time_feature_table",
-    "stage_math", "stage_vjp_math", "decode_ids_bf16", "rk4_interval_decode_reference",
+    "keep", "stage_kernels_fit", "stage_math", "stage_vjp_math", "decode_ids_bf16", "rk4_interval_decode_reference",
     "rk4_interval_decode_fused",
 ]

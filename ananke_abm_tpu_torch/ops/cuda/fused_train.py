@@ -45,6 +45,7 @@ from ananke_abm_tpu_torch.ops.cuda.fused_step import (
     _dot,
     _nt_dot,
     _rk4_coefs,
+    stage_kernels_fit,
     stage_math,
     stage_vjp_math,
 )
@@ -162,20 +163,32 @@ def _check_stage_operands(name, x, ze, tf_pre, dts, weights, rows):
 CE_WIDTHS = tuple(w[:2] for w in KERNEL_WIDTHS)
 
 
-def _kernel_device(name, x, widths, compiled=KERNEL_WIDTHS, blocks=()):
-    """True for a CUDA tensor the kernel takes, False for a CPU tensor;
-    raises for anything else."""
+# whether the day kernels (K2f / K2b) take (agent, zone, context, hidden)
+# widths and residual blocks
+day_kernels_fit = stage_kernels_fit
+
+
+def ce_kernels_fit(da, dz) -> bool:
+    """Whether the cross-entropy kernels (K3f / K3b) take these (agent,
+    zone) widths."""
+    return (da, dz) in CE_WIDTHS
+
+
+def _kernel_device(name, x, fits, widths, compiled, num_blocks=None):
+    """True for a CUDA tensor the kernel takes (``fits``, its predicate's
+    answer), False for a CPU tensor; raises for anything else."""
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if widths not in compiled:
-        raise ValueError(
-            f"{name}: the CUDA kernel is compiled for widths {compiled}, "
-            f"got {widths}")
-    if len(blocks) > MAX_KERNEL_BLOCKS:
+    if not fits:
+        if widths not in compiled:
+            raise ValueError(
+                f"{name}: the CUDA kernel is compiled for widths {compiled}, "
+                f"got {widths}")
         raise ValueError(f"{name}: the CUDA kernel takes at most "
-                         f"{MAX_KERNEL_BLOCKS} residual blocks")
+                         f"{MAX_KERNEL_BLOCKS} residual blocks, got "
+                         f"{num_blocks}")
     return True
 
 
@@ -199,8 +212,9 @@ def day_forward_fused(x0, h, ze, tf_pre, dts, weights):
         "day_forward_fused", x0, ze, tf_pre, dts, weights,
         [("x0", x0, x0.shape), ("h", h, (x0.shape[0], weights[2].shape[0]))])
     blocks = weights[3]
-    if not _kernel_device("day_forward_fused", x0, (Da, Dz, Dc, H),
-                          blocks=blocks):
+    if not _kernel_device("day_forward_fused", x0,
+                          day_kernels_fit(Da, Dz, Dc, H, len(blocks)),
+                          (Da, Dz, Dc, H), KERNEL_WIDTHS, len(blocks)):
         return day_forward_reference(x0, h, ze, tf_pre, dts, weights)
     xs = torch.empty((S + 1, N, Da), dtype=torch.float32, device=x0.device)
     if N == 0:
@@ -296,8 +310,9 @@ def day_backward_fused(xs_all, g_xs, h, ze, tf_pre, dts, weights):
          ("h", h, (N, weights[2].shape[0]))])
     blocks = weights[3]
     nb = len(blocks)
-    if not _kernel_device("day_backward_fused", xs_all, (Da, Dz, Dc, H),
-                          blocks=blocks):
+    if not _kernel_device("day_backward_fused", xs_all,
+                          day_kernels_fit(Da, Dz, Dc, H, nb),
+                          (Da, Dz, Dc, H), KERNEL_WIDTHS, nb):
         return day_backward_reference(xs_all, g_xs, h, ze, tf_pre, dts,
                                       weights)
     dev = xs_all.device
@@ -405,7 +420,8 @@ def ce_forward_fused(rows, targets, wd, ze):
     """The cross-entropy forward. Arguments and result as
     :func:`ce_forward_reference`; on CUDA the kernel K3f."""
     M, Da, Z, Dz = _check_ce("ce_forward_fused", rows, targets, wd, ze)
-    if not _kernel_device("ce_forward_fused", rows, (Da, Dz), CE_WIDTHS):
+    if not _kernel_device("ce_forward_fused", rows, ce_kernels_fit(Da, Dz),
+                          (Da, Dz), CE_WIDTHS):
         return ce_forward_reference(rows, targets, wd, ze)
     nll = torch.empty((M,), dtype=torch.float32, device=rows.device)
     correct = torch.empty((M,), dtype=torch.int32, device=rows.device)
@@ -433,7 +449,8 @@ def ce_backward_fused(rows, targets, wd, ze, g_nll):
     gradients are deterministic: the same operands give the same bits."""
     M, Da, Z, Dz = _check_ce("ce_backward_fused", rows, targets, wd, ze,
                              g_nll)
-    if not _kernel_device("ce_backward_fused", rows, (Da, Dz), CE_WIDTHS):
+    if not _kernel_device("ce_backward_fused", rows, ce_kernels_fit(Da, Dz),
+                          (Da, Dz), CE_WIDTHS):
         return ce_backward_reference(rows, targets, wd, ze, g_nll)
     dev = rows.device
     gx = torch.zeros((M, Da), dtype=torch.float32, device=dev)
@@ -557,7 +574,7 @@ def decode_ce(rows, targets, Wd, ze, *, _impl=None):
 
 
 __all__ = [
-    "split_w1", "stage_times_table",
+    "split_w1", "stage_times_table", "day_kernels_fit", "ce_kernels_fit",
     "day_forward_reference", "day_forward_fused",
     "day_backward_reference", "day_backward_fused",
     "ce_forward_reference", "ce_forward_fused",

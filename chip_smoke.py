@@ -2,7 +2,9 @@
 """Smoke test of the PyTorch port on one CUDA card: the GAT-ODE serving
 path (kernel K1), the continuous-adjoint DOPRI5 trainer (kernel K8), the
 fixed-step RK4 trainer (kernels K4f, K4b, K2f, K2b, K3f, K3b) and
-``train()`` through it, then ``serve()`` of what it trained.
+``train()`` through it, ``serve()`` of what it trained, and the
+discrete-adjoint DOPRI5 trainer (kernels K5, K7) with
+``train(method="dopri5")``.
 
 Run from the repository root, on a machine with a CUDA device:
 
@@ -74,7 +76,30 @@ Phases (any failure raises and the script exits non-zero):
     time, each call captured in a CUDA graph and replayed, and eager time),
     the encoder forward and backward through K4 and through
     ``model.encode_zones`` (the step's encoder before K4), one rung-2 fixed
-    step with each encoder, and the wall time of a ``train()`` epoch.
+    step with each encoder, and the wall time of a ``train()`` epoch;
+18. DOPRI5 step kernels: K5 (with and without the in-kernel error sum)
+    and K7 against their plain versions at the shapes of DOPRI5_SHAPES
+    (rung 3's operands, an N no tile divides, 1 and 8 blocks) within
+    ``ops/cuda/checks.py``'s DOPRI5_STEP_BOUNDS / DOPRI5_VJP_BOUNDS,
+    repeats that must give the same bits, a control whose products run in
+    TF32 that must fail each check, and kernel, plain version and control
+    against a float64 run at DOPRI5_WITNESS_SHAPE;
+19. discrete trainer: 3 steps of ``make_adjoint_step_fns(adjoint_mode=
+    "discrete")`` at rung 3's shape with train()'s defaults (max_accepted
+    512, ckpt_every 16): finite losses, the third below the first, K5
+    launched once per attempted forward step and backward replay, K7 once
+    per accepted step; its step wall beside phase 7's;
+20. discrete trainer check at 8,192 agents: the kernels against their
+    plain versions (the same accepted steps, loss rel <= 1e-4, gradient
+    cosine > 0.9999) and against the continuous adjoint (loss rel <= 2e-4,
+    cosine > 0.999);
+21. ``train(method="dopri5")``: 32,768 agents x 64 zones x 12 times,
+    batches of 16,384, 2 epochs: finite losses and the launch counts of
+    phase 19 summed over its steps;
+22. repair check: ``train()`` at ``gat_heads=2`` (no K4 launch, each day
+    and cross-entropy kernel once a step) and ``hidden_dim=64`` (no kernel
+    launch);
+23. times: K5 and K7 and their plain versions per launch at rung 3.
 
 ``python3 chip_smoke.py --readings`` runs phases 1-2 and then only the
 training kernels' checks of phase 10, at DAY_SHAPES and DEPTH_SHAPES for 3
@@ -83,7 +108,10 @@ set from and failing on none of them; then, at WITNESS_SHAPES, the day
 kernels, their plain versions and the control each against a float64
 witness. ``python3 chip_smoke.py --readings encoder`` prints the same
 readings of K4f and K4b, at GAT_SHAPES and GAT_READING_SHAPES for 3 seeds,
-and K4b and its plain version each against a float64 run.
+and K4b and its plain version each against a float64 run;
+``--readings dopri5`` those of K5 and K7 at DOPRI5_SHAPES and
+DOPRI5_READING_SHAPES for 3 seeds, with the TF32 control and the float64
+witness.
 ``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` runs phases 1-2 and then
 compares K8 of this checkout with K8 built from each checkout at DIR:
 ptxas and SASS counts of each build, bits at K8_SHAPES and alternating
@@ -94,9 +122,10 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it is
 largest difference from its plain version, times, and ``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and its operations over
 the peak of their type: for the bf16 kernels their matmul operations over
-989 TFLOP/s, the H100's dense bf16 peak; for the float32 encoder kernels
-every arithmetic operation over 67 TFLOP/s, its FP32 peak outside the
-tensor cores), the line before that the card's name and power limit.
+989 TFLOP/s, the H100's dense bf16 peak; for the float32 encoder and
+DOPRI5 step kernels their operations over 67 TFLOP/s, its FP32 peak
+outside the tensor cores), the line before that the card's name and power
+limit.
 """
 from __future__ import annotations
 
@@ -251,9 +280,9 @@ def describe(r):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--readings", nargs="?", const="training",
-                        choices=("training", "encoder"),
-                        help="print the training (or the encoder) kernels' "
-                        "readings only")
+                        choices=("training", "encoder", "dopri5"),
+                        help="print the training (or the encoder, or the "
+                        "DOPRI5 step) kernels' readings only")
     parser.add_argument("--ab-k8", metavar="DIR", nargs="+",
                         help="time K8 against K8 of the checkouts at DIR")
     args = parser.parse_args()
@@ -318,6 +347,9 @@ def main():
         return
     if args.readings == "encoder":
         encoder_readings(dev)
+        return
+    if args.readings == "dopri5":
+        dopri5_readings(dev)
         return
     if args.ab_k8:
         ab_k8(dev, [Path(d) for d in args.ab_k8])
@@ -478,12 +510,13 @@ def main():
         "rk4_interval_decode_fused", "fused_step.cu", "fused_step.py:385",
         launches, max_err, ms, plain_ms, flop,
         N_AGENTS * (4 * (2 * config.agent_dim + config.context_dim) + 4))
-    k8 = adjoint_phases(dev, card)
+    k8, continuous_wall = adjoint_phases(dev, card)
     fixed, rung2 = fixed_step_phases(dev, card)
     k4 = encoder_phases(dev, card, rung2)
+    k57 = dopri5_phases(dev, card, continuous_wall)
 
     print(card)
-    print(json.dumps({"kernels": [k1, k8, *fixed, *k4]}))
+    print(json.dumps({"kernels": [k1, k8, *fixed, *k4, *k57]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -509,18 +542,16 @@ K8_SHAPES = ((98_304, 64, 2), (1_000, 500, 1), (4_096, 2_048, 2))
 
 def stage_flops(da, dz, dc, hidden, num_zones, num_blocks):
     """(forward, VJP) matmul FLOPs per agent of one stage evaluation as the
-    stage kernels compute them (2*m*k*n per product). The forward's h-row
-    product (bf16(h) @ W1h) is 2*dc*hidden of it. The VJP counts its
-    per-row and weight-gradient products, the recomputed inner activation
-    of each block and the attention scores recomputed in two passes; its
-    h-row terms (gh, gW1h) are 4*hidden*dc of it."""
+    function needs them (2*m*k*n per product). The forward's h-row product
+    (h @ W1h) is 2*dc*hidden of it. The VJP takes two products per forward
+    product, the input's cotangent and the weight's; its h-row terms (gh,
+    gW1h) are 4*hidden*dc of it. What a kernel recomputes (the stage
+    kernels redo each block's inner activation and the attention scores in
+    the VJP) is not the function's work and is not counted."""
     h, z, f = hidden, num_zones, da + dz
     fwd = 2 * (da * dz + 2 * dz * z + f * h + dc * h
                + num_blocks * 2 * h * h + h * da)
-    bwd = 2 * (2 * h * da + num_blocks * 5 * h * h + 2 * h * dc
-               + 2 * f * h + 4 * dz * z + z * dz + 2 * z * dz
-               + 2 * da * dz)
-    return fwd, bwd
+    return fwd, 2 * fwd
 
 
 def drift_vjp_flops(da, dz, dc, hidden, num_zones, num_blocks):
@@ -585,7 +616,8 @@ def grads_of(model):
 def adjoint_phases(dev, card):
     """Phases 6-9: K8 against its plain version, the trainer at rung 3,
     the kernel trainer against the plain-version trainer, and times.
-    Returns K8's entry of the {"kernels": [...]} line."""
+    Returns K8's entry of the {"kernels": [...]} line and the best wall
+    time of a rung-3 training step."""
     from ananke_abm_tpu_torch.data_generator import generate_agent_population
     from ananke_abm_tpu_torch.models.gnn_embed.train import (
         GATODEConfig,
@@ -749,7 +781,7 @@ def adjoint_phases(dev, card):
     nbytes = ADAPT_N * 4 * (5 * da + 2 * dc) + 4 * 92_832
     return kernel_entry("drift_rhs_and_vjp", "fused_rhs.cu",
                         "fused_rhs.py:184", k8_launches, max_err, k8_ms,
-                        plain_ms, flop, nbytes)
+                        plain_ms, flop, nbytes), min(walls[1:])
 
 # ---- the fixed-step trainer and its kernels, K2f, K2b, K3f, K3b ------------
 
@@ -1531,6 +1563,381 @@ def encoder_phases(dev, card, rung2):
             for name, src, n, e, m, p, fl, nb in zip(
                 names, ("fused_gat.py:235", "fused_gat.py:256"),
                 launches[:2], errs, ms, plain_ms, flops, nbytes)]
+
+
+# ---- the discrete-adjoint trainer and its kernels K5 / K7 -----------------
+
+# (agents, zones, residual blocks) of the K5 / K7 checks: rung 3's operands,
+# an N no tile divides with 500 zones and 1 block, and 8 blocks
+DOPRI5_SHAPES = ((98_304, 64, 2), (1_000, 500, 1), (2_000, 64, 8))
+# more shapes and seeds for the readings
+DOPRI5_READING_SHAPES = ((4_096, 64, 4), (333, 7, 5), (8_192, 2_048, 2))
+# the float64 witness's shape
+DOPRI5_WITNESS_SHAPE = (1_000, 64, 2)
+# the kernel trainer against the plain-version trainer (the same float32
+# solve, sums in other orders) and against the continuous adjoint (the
+# bounds of the reference's test_trainer_discrete_mode_matches_continuous)
+DISCRETE_LOSS_RTOL = 1e-4
+DISCRETE_COS_MIN = 0.9999
+MODES_LOSS_RTOL = 2e-4
+MODES_COS_MIN = 0.999
+# train(method="dopri5"): 2 epochs of 2 steps
+DOPRI5_APP_AGENTS = 32_768
+DOPRI5_APP_BATCH = 16_384
+# the repair check: train() at widths the kernels do not all take
+REPAIR_AGENTS = 4_096
+REPAIR_BATCH = 2_048
+REPAIR_TIMES = 6
+
+
+def dopri5_kernel_checks(dev, n, z, nb, seed, control, enforce=True,
+                         witness=False):
+    """K5 (with and without err_stats) and K7 against their plain versions
+    at one shape, each run twice (the same bits), with the TF32-product
+    control where ``control``; with ``witness`` kernel, plain version and
+    control each against a float64 run too. Returns (the largest |d| of
+    each kernel, the operands)."""
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        init_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        DOPRI5_STEP_BOUNDS,
+        DOPRI5_VJP_BOUNDS,
+        dopri5_operands,
+        dopri5_step_outputs,
+        dopri5_vjp_outputs,
+        float64_operands,
+        tf32_products,
+    )
+
+    model = build_model(GATODEConfig(num_blocks=nb), 7, 8, device=dev)
+    init_params(model, torch.Generator().manual_seed(nb + 10 * seed))
+    args, cot = dopri5_operands(model, n, z, dev, seed=n + seed)
+    tag = f"N={n} Z={z} num_blocks={nb} seed={seed}"
+    kind = "TF32 products"
+    errs = [0.0, 0.0]
+    with torch.no_grad():
+        for stats in (None, (1e-5, 1e-5)):
+            step = lambda *a: fd.dopri5_step_fused(*a, err_stats=stats)
+            plain = lambda *a: fd.dopri5_step_reference(*a, err_stats=stats)
+            got = dopri5_step_outputs(step(*args))
+            again = dopri5_step_outputs(step(*args))
+            torch.cuda.synchronize()
+            if not same_bits(got, again):
+                fail(f"K5 repeat at {tag} is not bit-identical")
+            want = dopri5_step_outputs(plain(*args))
+            ctl = (dopri5_step_outputs(tf32_products(plain, *args))
+                   if control else None)
+            check(f"K5 {tag} err_stats={stats} (repeat bit-identical)", got,
+                  want, DOPRI5_STEP_BOUNDS, ctl, enforce, kind)
+            # the largest |d| of the per-agent outputs (the error sum of
+            # these random operands is ~1e9: its |d| says nothing)
+            rows = [0, 1, 3] if stats else [0, 1, 2, 3]
+            errs[0] = max(errs[0], worst_of([got[i] for i in rows],
+                                            [want[i] for i in rows])[1])
+        got = dopri5_vjp_outputs(fd.dopri5_step_vjp_fused(*args, *cot))
+        again = dopri5_vjp_outputs(fd.dopri5_step_vjp_fused(*args, *cot))
+        torch.cuda.synchronize()
+        if not same_bits(got, again):
+            fail(f"K7 repeat at {tag} is not bit-identical")
+        want = dopri5_vjp_outputs(fd.dopri5_step_vjp_reference(*args, *cot))
+        ctl = (dopri5_vjp_outputs(tf32_products(
+            fd.dopri5_step_vjp_reference, *args, *cot)) if control else None)
+        errs[1] = check(f"K7 {tag} (repeat bit-identical)", got, want,
+                        DOPRI5_VJP_BOUNDS, ctl, enforce, kind)
+        if witness:
+            a64, c64 = float64_operands(args), float64_operands(cot)
+            for label, outs, fn, wargs, bounds in (
+                    ("K5", dopri5_step_outputs, "dopri5_step", a64,
+                     DOPRI5_STEP_BOUNDS),
+                    ("K7", dopri5_vjp_outputs, "dopri5_step_vjp", a64 + c64,
+                     DOPRI5_VJP_BOUNDS)):
+                kernel = getattr(fd, f"{fn}_fused")
+                plain = getattr(fd, f"{fn}_reference")
+                fargs = args if label == "K5" else args + cot
+                exact = outs(plain(*wargs))
+                far = {side: worst_of(outs(f(*fargs)), exact)[0]
+                       for side, f in (
+                           ("kernel", kernel), ("plain", plain),
+                           ("control", lambda *a: tf32_products(plain, *a)))}
+                print(f"{label} {tag} against the float64 witness: "
+                      + "; ".join(f"{side} {describe_far(w)}"
+                                  for side, w in far.items()), flush=True)
+                if enforce and not within(far["kernel"], bounds):
+                    fail(f"{label} lies outside {bounds} of the float64 "
+                         "witness")
+                if enforce and within(far["control"], bounds):
+                    fail(f"{label}'s witness check passes the TF32 control")
+    return errs, (args, cot)
+
+
+def dopri5_readings(dev):
+    """``--readings dopri5``: K5 and K7 against their plain versions, the
+    TF32 control and the float64 witness at every shape of DOPRI5_SHAPES
+    and DOPRI5_READING_SHAPES for seeds 0-2; nothing fails on a bound."""
+    for seed in range(3):
+        for n, z, nb in DOPRI5_SHAPES + DOPRI5_READING_SHAPES:
+            dopri5_kernel_checks(dev, n, z, nb, seed, control=True,
+                                 enforce=False, witness=n <= 4_096)
+
+
+def dopri5_flops(config, num_zones):
+    """(K5, K7) operations per agent as the functions need them: K5 six
+    stage forwards, the h-row product once; K7 the six stage forwards again
+    and six stage VJPs (stage_flops' VJP), the h-row product and its two
+    VJP products once."""
+    fwd, bwd = stage_flops(config.agent_dim, config.zone_dim,
+                           config.context_dim, config.hidden_dim, num_zones,
+                           config.num_blocks)
+    hrow = 2 * config.context_dim * config.hidden_dim
+    return (6 * (fwd - hrow) + hrow,
+            6 * (fwd - hrow) + 6 * (bwd - 2 * hrow) + 3 * hrow)
+
+
+def folded_stats(build):
+    """``build_adjoint_loss_fn_g`` whose losses record, summed over every
+    call, the forward's attempted and accepted steps and the backward's
+    replays and VJPs (each call's stats are folded in at the next call and
+    by ``totals()``)."""
+    totals = {"n_steps": 0, "n_accepted": 0, "replays": 0, "vjps": 0,
+              "ok": True}
+    pending = []
+
+    def fold():
+        for st in pending:
+            totals["n_steps"] += st["forward"]["n_steps"]
+            totals["n_accepted"] += st["forward"]["n_accepted"]
+            totals["ok"] &= bool(st["forward"]["ok"])
+            totals["replays"] += st.get("replays", 0)
+            totals["vjps"] += st.get("vjps", 0)
+        pending.clear()
+
+    def wrapped(*a, **kw):
+        loss_fn_g = build(*a, **kw, stats=(st := {}))
+
+        def loss(*b):
+            fold()
+            pending.append(st)
+            return loss_fn_g(*b)
+
+        return loss
+
+    def read():
+        fold()
+        return dict(totals)
+
+    return wrapped, read
+
+
+def dopri5_phases(dev, card, continuous_wall):
+    """Phases 18-22: K5 and K7 against their plain versions, the discrete
+    trainer at rung 3, the kernel trainer against the plain-version trainer
+    and the continuous adjoint, ``train(method="dopri5")``, the repair
+    check of train()'s kernel gates, and times. Returns K5's and K7's
+    entries of the {"kernels": [...]} line."""
+    from ananke_abm_tpu_torch.data_generator import generate_agent_population
+    from ananke_abm_tpu_torch.models.gnn_embed import train as tr
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+    from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
+    from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
+
+    # ---- 18. K5 and K7 against their plain versions ----------------------
+    errs, main = [0.0, 0.0], None
+    for n, z, nb in DOPRI5_SHAPES:
+        e, operands = dopri5_kernel_checks(
+            dev, n, z, nb, seed=0, control=main is None,
+            witness=(n, z, nb) == DOPRI5_WITNESS_SHAPE)
+        errs = [max(a, b) for a, b in zip(errs, e)]
+        main = main or operands
+    n, z, nb = DOPRI5_WITNESS_SHAPE
+    if (n, z, nb) not in DOPRI5_SHAPES:
+        dopri5_kernel_checks(dev, n, z, nb, seed=0, control=False,
+                             witness=True)
+
+    # ---- 19. the discrete trainer at bench rung 3 ------------------------
+    config = tr.GATODEConfig(method="dopri5")
+    data = generate_agent_population(ADAPT_N, num_times=ADAPT_TIMES,
+                                     seed=ADAPT_SEED, num_zones=ADAPT_ZONES)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)
+    static = (on(data["zone_features"]), on(data["adj"]), on(data["times"]))
+    batch = (on(data["person_feats"]), on(data["home_zone"], torch.long),
+             on(data["zone_ids"], torch.long))
+    model = tr.build_model(config, data["zone_features"].shape[-1],
+                           data["person_feats"].shape[-1], device=dev)
+    tr.init_params(model, torch.Generator().manual_seed(ADAPT_SEED))
+    opt = tr.make_optimizer(model, config)
+    step, _ = tr.make_adjoint_step_fns(model, opt, config, static,
+                                       adjoint_mode="discrete")
+    kernels = (fd.dopri5_step_fused, fd.dopri5_step_vjp_fused)
+    for k in kernels:
+        k.launches = 0
+    losses, walls = [], []
+    for i in range(TRAIN_STEPS):
+        before = [k.launches for k in kernels]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, acc = step(*batch)
+        loss = loss.item()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k5, k7 = (k.launches - b for k, b in zip(kernels, before))
+        st = step.stats
+        fwd = st["forward"]
+        want5 = fwd["n_steps"] + st["replays"]
+        print(f"discrete train step {i + 1}: loss {loss:.6f} acc "
+              f"{acc.item():.4f}, wall {wall:.3f} s (host clock, synced); "
+              f"forward {fwd['n_steps']} steps ({fwd['n_accepted']} "
+              f"accepted), backward {st['replays']} replays and "
+              f"{st['vjps']} step VJPs; K5 launches {k5} (expected "
+              f"{want5}), K7 launches {k7} (expected {fwd['n_accepted']}); "
+              f"host syncs {fwd['n_steps'] + 3} [card {card}]", flush=True)
+        if k7 != fwd["n_accepted"] or k5 != want5:
+            fail(f"discrete step {i + 1} launched K5 {k5} and K7 {k7} "
+                 f"times, expected {want5} and {fwd['n_accepted']}")
+        if not fwd["ok"]:
+            fail(f"discrete step {i + 1}: the solve ran out of steps")
+        losses.append(loss)
+        walls.append(wall)
+    launches = [k.launches for k in kernels]
+    print(f"discrete trainer: {ADAPT_N} agents x {ADAPT_ZONES} zones x "
+          f"{ADAPT_TIMES} times, {TRAIN_STEPS} steps, losses {losses}, "
+          f"launches K5/K7 {launches}; step wall {min(walls[1:]):.3f} s "
+          f"(best of steps 2-{TRAIN_STEPS}) against the continuous "
+          f"adjoint's {continuous_wall:.3f} s [card {card}]", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"discrete training losses {losses}: not finite and falling")
+
+    # ---- 20. kernel trainer against plain versions and continuous mode ---
+    sub = tuple(b[:CHECK_TRAIN_AGENTS] for b in batch)
+    results = {}
+    for name, kw in (
+            ("kernels", dict(adjoint_mode="discrete")),
+            ("plain", dict(adjoint_mode="discrete", use_fused=True,
+                           _plain=True)),
+            ("continuous", dict(adjoint_mode="continuous"))):
+        stats = {}
+        fn = tr.build_adjoint_loss_fn_g(model, config, static, stats=stats,
+                                        **kw)
+        model.zero_grad()
+        loss, _ = fn(*sub, static)
+        loss.backward()
+        results[name] = (loss.item(), grads_of(model),
+                         stats["forward"]["n_accepted"])
+    lk, gk, ak = results["kernels"]
+    for name, rtol, cmin in (("plain", DISCRETE_LOSS_RTOL, DISCRETE_COS_MIN),
+                             ("continuous", MODES_LOSS_RTOL, MODES_COS_MIN)):
+        lp, gp, ap = results[name]
+        cos = (torch.dot(gk.double(), gp.double())
+               / (gk.double().norm() * gp.double().norm())).item()
+        rel = abs(lk - lp) / abs(lp)
+        print(f"discrete trainer check at {CHECK_TRAIN_AGENTS} agents, "
+              f"kernels against {name}: loss {lk:.7f} vs {lp:.7f} (rel "
+              f"{rel:.3e} <= {rtol}); gradient cosine {cos:.9f} (> {cmin}); "
+              f"accepted steps {ak} vs {ap}", flush=True)
+        if not (rel <= rtol and cos > cmin):
+            fail(f"the discrete kernel trainer disagrees with {name}")
+        if name == "plain" and ak != ap:
+            fail("the kernel solve took another accepted-step count than "
+                 "the plain-version solve")
+
+    # ---- 21. train(method="dopri5") on the card --------------------------
+    build, totals = folded_stats(tr.build_adjoint_loss_fn_g)
+    saved = tr.build_adjoint_loss_fn_g
+    tr.build_adjoint_loss_fn_g = build
+    before = [k.launches for k in kernels]
+    out_dir = OUT / "train_dopri5"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        res = tr.train(str(out_dir), n_agents=DOPRI5_APP_AGENTS,
+                       num_times=ADAPT_TIMES, seed=ADAPT_SEED,
+                       num_zones=ADAPT_ZONES, device=dev,
+                       config=dataclasses.replace(
+                           config, batch_size=DOPRI5_APP_BATCH, epochs=2))
+    finally:
+        tr.build_adjoint_loss_fn_g = saved
+    k5, k7 = (k.launches - b for k, b in zip(kernels, before))
+    tot = totals()
+    from ananke_abm_tpu_torch.utils.ckpt import load_checkpoint
+
+    hist = [h["loss"] for h in load_checkpoint(res["ckpt"])["history"]]
+    print(f"train(method='dopri5'): {DOPRI5_APP_AGENTS} agents x "
+          f"{ADAPT_ZONES} zones x {ADAPT_TIMES} times, batches of "
+          f"{DOPRI5_APP_BATCH}, 2 epochs in {res['seconds']:.3f} s; losses "
+          f"{hist}; forward steps {tot['n_steps']} ({tot['n_accepted']} "
+          f"accepted), replays {tot['replays']}; K5 launches {k5} (expected "
+          f"{tot['n_steps'] + tot['replays']}), K7 {k7} (expected "
+          f"{tot['n_accepted']}) [card {card}]", flush=True)
+    if (k5 != tot["n_steps"] + tot["replays"] or k7 != tot["n_accepted"]
+            or tot["vjps"] != k7 or k7 == 0 or not tot["ok"]):
+        fail("train(method='dopri5') did not run every step through K5/K7")
+    if not all(np.isfinite(hist)):
+        fail(f"train(method='dopri5') losses {hist} are not finite")
+
+    # ---- 22. repair check: train() at widths some kernels do not take -----
+    all_kernels = (fg.gat_forward_fused, fg.gat_backward_fused,
+                   ft.day_forward_fused, ft.day_backward_fused,
+                   ft.ce_forward_fused, ft.ce_backward_fused)
+    steps = REPAIR_AGENTS // REPAIR_BATCH
+    for change, want in (({"gat_heads": 2}, [0, 0] + [steps] * 4),
+                         ({"hidden_dim": 64}, [0] * 6)):
+        before = [k.launches for k in all_kernels]
+        d = OUT / "train_repair"
+        shutil.rmtree(d, ignore_errors=True)
+        res = tr.train(str(d), n_agents=REPAIR_AGENTS,
+                       num_times=REPAIR_TIMES, seed=APP_SEED,
+                       num_zones=ADAPT_ZONES, device=dev,
+                       config=tr.GATODEConfig(batch_size=REPAIR_BATCH,
+                                              epochs=1, **change))
+        got = [k.launches - b for k, b in zip(all_kernels, before)]
+        print(f"train({change}) on the card: loss {res['final_loss']:.6f}; "
+              f"launches K4f/K4b/K2f/K2b/K3f/K3b {got} (expected {want})",
+              flush=True)
+        if got != want or not np.isfinite(res["final_loss"]):
+            fail(f"train({change}) took the wrong kernel route")
+
+    # ---- 23. times -----------------------------------------------------------
+    args, cot = main
+    stats = (config.rtol, config.atol)
+    # the kernels over operands packed once, as the trainer's hooks pack
+    # them once per solve
+    packed = fd.pack_operands(args[3], *args[5:11])
+    with torch.no_grad():
+        ms = [cuda_ms(lambda: fd.dopri5_step_fused(
+                  *args, err_stats=stats, packed=packed), 10),
+              cuda_ms(lambda: fd.dopri5_step_vjp_fused(
+                  *args, *cot, packed=packed), 5)]
+        plain_ms = [cuda_ms(lambda: fd.dopri5_step_reference(
+                        *args, err_stats=stats), 3),
+                    cuda_ms(lambda: fd.dopri5_step_vjp_reference(*args, *cot),
+                            3)]
+    flops = [f * ADAPT_N for f in dopri5_flops(config, ADAPT_ZONES)]
+    da, dc = config.agent_dim, config.context_dim
+    n_w = sum(w.numel() for w in args[5:8]) + sum(
+        w.numel() for b in args[8] for w in b) + args[9].numel() + 32
+    grads = 4 * (n_w + ADAPT_ZONES * config.zone_dim + 7 * config.hidden_dim)
+    weights = 4 * (n_w + ADAPT_ZONES * config.zone_dim
+                   + 7 * config.hidden_dim)
+    # K5: read x, f0, h, write y1, f1, r5 (the error is one sum); K7: read
+    # x, f0, h and the five cotangents, write gy0, gf0, gh and the summed
+    # gradients
+    nbytes = [ADAPT_N * 4 * (5 * da + dc) + weights,
+              ADAPT_N * 4 * (9 * da + 2 * dc) + weights + grads]
+    names = ("dopri5_step_fused", "dopri5_step_vjp_fused")
+    for name, f, nb_, m, p in zip(names, flops, nbytes, ms, plain_ms):
+        b, by = bound(f, nb_, PEAK_FP32_FLOPS)
+        print(f"{name} at rung 3 (N={ADAPT_N}, Z={ADAPT_ZONES}): kernel "
+              f"{m:.3f} ms ({f / m / 1e9:.1f} TFLOP/s, {b / m:.1%} of the "
+              f"FP32 {by} bound {b:.3f} ms), plain version {p:.3f} ms "
+              f"({f / p / 1e9:.1f} TFLOP/s) of {f / 1e9:.1f} GFLOP "
+              f"[card {card}]", flush=True)
+    return [kernel_entry(name, "fused_dopri5.cu", src, n_, e, m, p, f, nb_,
+                         PEAK_FP32_FLOPS)
+            for name, src, n_, e, m, p, f, nb_ in zip(
+                names, ("fused_dopri5.py:104", "fused_dopri5.py:254"),
+                launches, errs, ms, plain_ms, flops, nbytes)]
 
 
 if __name__ == "__main__":

@@ -175,9 +175,15 @@ def test_adjoint_modes_and_fused_contract():
     pair = make_pair(**SETUP)
     static = tuple(t32(pair.data[k]) for k in
                    ("zone_features", "adj", "times"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        ttrain.make_adjoint_step_fns(pair.tmodel, None, pair.tcfg, static,
-                                     adjoint_mode="discrete")
+    # the discrete mode runs (its parity: tests/test_torch_discrete_adjoint.py)
+    _, loss_fn = ttrain.make_adjoint_step_fns(pair.tmodel, None, pair.tcfg,
+                                              static, adjoint_mode="discrete")
+    d = pair.data
+    loss, _ = loss_fn(t32(d["person_feats"]), tlong(d["home_zone"]),
+                      tlong(d["zone_ids"]))
+    loss.backward()
+    assert np.isfinite(loss.item())
+    assert loss_fn.stats["vjps"] == loss_fn.stats["forward"]["n_accepted"]
     with pytest.raises(ValueError, match="adjoint_mode"):
         ttrain.build_adjoint_loss_fn_g(pair.tmodel, pair.tcfg, static,
                                        adjoint_mode="banana")

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: the
 serving interval (K1), the adjoint RHS (K8) with the trainer around it, the
 training-day kernels (K2f, K2b, K3f, K3b) and the zone-encoder kernels
-(K4f, K4b) with the fixed-step trainer and ``train()``.
+(K4f, K4b) with the fixed-step trainer and ``train()``, and the DOPRI5
+step kernels (K5, K7) with the discrete-adjoint trainer.
 
 Marked ``cuda``: every test here skips on a host without a CUDA device.
 On a card without JAX installed, run them with
@@ -11,6 +12,7 @@ Kernel and plain version round at the same points; their float32 sums
 run in different orders, so now and then a value rounds the other way.
 The bounds are chip_smoke.py's, set from H100 readings (PERF.md).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -22,6 +24,7 @@ from ananke_abm_tpu_torch.models.gnn_embed.rollout import (
 from ananke_abm_tpu_torch.models.gnn_embed.train import (
     GATODEConfig,
     _adjoint_loss_fn,
+    build_adjoint_loss_fn_g,
     build_fused_loss_fn,
     build_model,
     init_params,
@@ -252,19 +255,27 @@ def test_adjoint_trainer_runs_its_backward_through_the_kernel(cuda):
 ])
 def test_auto_adjoint_raises_where_the_kernel_cannot_serve(cuda, change,
                                                            match):
-    """``use_fused="auto"`` on the card never moves to the plain version:
-    a configuration the kernel is not compiled for raises."""
+    """``use_fused="auto"`` chooses from the configuration before anything
+    launches: where the kernel is not compiled for it, the plain route
+    trains with no launch; ``use_fused=True`` there raises from the
+    kernel's wrapper, never moving to the plain version."""
     config = GATODEConfig(method="dopri5", **change)
     d = generate_agent_population(64, num_times=3, num_zones=8, seed=0)
     model = build_model(config, d["zone_features"].shape[-1],
                         d["person_feats"].shape[-1], device=cuda)
     init_params(model, torch.Generator().manual_seed(0))
     on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(cuda)
-    _, loss_fn = make_adjoint_step_fns(
-        model, None, config,
-        (on(d["zone_features"]), on(d["adj"]), on(d["times"])))
-    loss, _ = loss_fn(on(d["person_feats"]), on(d["home_zone"], torch.long),
-                      on(d["zone_ids"], torch.long))
+    static = (on(d["zone_features"]), on(d["adj"]), on(d["times"]))
+    batch = (on(d["person_feats"]), on(d["home_zone"], torch.long),
+             on(d["zone_ids"], torch.long))
+    before = drift_rhs_and_vjp.launches
+    _, loss_fn = make_adjoint_step_fns(model, None, config, static)
+    loss, _ = loss_fn(*batch)
+    loss.backward()
+    assert drift_rhs_and_vjp.launches == before
+    _, loss_fn = make_adjoint_step_fns(model, None, config, static,
+                                       use_fused=True)
+    loss, _ = loss_fn(*batch)
     with pytest.raises(ValueError, match=match):
         loss.backward()
 
@@ -488,3 +499,171 @@ def test_train_on_the_card_resumes_the_straight_run(cuda, tmp_path):
     assert torch.isfinite(torch.tensor(acc["final_loss"]))
     last = load_checkpoint(str(tmp_path / "c" / "gatode_last.ckpt"))
     assert last["opt_state"]["step"] == 1
+
+
+# ---- K5 / K7: the DOPRI5 step and its VJP ---------------------------------
+
+def _dopri5_args(cuda, n, num_zones, num_blocks):
+    from ananke_abm_tpu_torch.ops.cuda.checks import dopri5_operands
+
+    return dopri5_operands(_model(cuda, num_blocks), n, num_zones, cuda,
+                           seed=n)
+
+
+def _worst(got, want):
+    """(mean |d| / mean |ref|, max |d| / max |ref|, 1 - cosine), the worst
+    over the (name, tensor) outputs."""
+    worst = [0.0, 0.0, 0.0]
+    for (_, u), (_, v) in zip(got, want):
+        u, v = u.double().flatten(), v.double().flatten()
+        assert torch.isfinite(u).all()
+        d = (u - v).abs()
+        worst[0] = max(worst[0], (d.mean() / v.abs().mean()).item())
+        worst[1] = max(worst[1], (d.max() / v.abs().max()).item())
+        worst[2] = max(worst[2], 1 - (u @ v / (u.norm() * v.norm())).item())
+    return worst
+
+
+@pytest.mark.parametrize("n,num_zones,num_blocks", [
+    (98_304, 64, 2), (1_000, 500, 1), (2_000, 64, 8), (33, 3, 5),
+])
+def test_dopri5_kernels_match_plain_versions(cuda, n, num_zones, num_blocks):
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        DOPRI5_STEP_BOUNDS,
+        DOPRI5_VJP_BOUNDS,
+        dopri5_step_outputs,
+        dopri5_vjp_outputs,
+    )
+
+    args, cot = _dopri5_args(cuda, n, num_zones, num_blocks)
+    with torch.no_grad():
+        for stats in (None, (1e-5, 1e-5)):
+            got = dopri5_step_outputs(fd.dopri5_step_fused(*args,
+                                                           err_stats=stats))
+            again = dopri5_step_outputs(fd.dopri5_step_fused(
+                *args, err_stats=stats))
+            want = dopri5_step_outputs(fd.dopri5_step_reference(
+                *args, err_stats=stats))
+            assert all(torch.equal(u, v) for (_, u), (_, v) in
+                       zip(got, again))
+            assert all(w <= b for w, b in zip(_worst(got, want),
+                                              DOPRI5_STEP_BOUNDS))
+        got = dopri5_vjp_outputs(fd.dopri5_step_vjp_fused(*args, *cot))
+        again = dopri5_vjp_outputs(fd.dopri5_step_vjp_fused(*args, *cot))
+        want = dopri5_vjp_outputs(fd.dopri5_step_vjp_reference(*args, *cot))
+    assert all(torch.equal(u, v) for (_, u), (_, v) in zip(got, again))
+    assert all(w <= b for w, b in zip(_worst(got, want), DOPRI5_VJP_BOUNDS))
+
+
+def test_dopri5_kernels_against_a_float64_witness(cuda):
+    """Kernel within the check's bounds of a float64 run; the TF32-product
+    control not."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        DOPRI5_STEP_BOUNDS,
+        DOPRI5_VJP_BOUNDS,
+        dopri5_step_outputs,
+        dopri5_vjp_outputs,
+        float64_operands,
+        tf32_products,
+    )
+
+    args, cot = _dopri5_args(cuda, 1_000, 64, 2)
+    a64, c64 = float64_operands(args), float64_operands(cot)
+    with torch.no_grad():
+        for outs, kernel, plain, kargs, wargs, bounds in (
+                (dopri5_step_outputs, fd.dopri5_step_fused,
+                 fd.dopri5_step_reference, args, a64,
+                 DOPRI5_STEP_BOUNDS),
+                (dopri5_vjp_outputs, fd.dopri5_step_vjp_fused,
+                 fd.dopri5_step_vjp_reference, args + cot, a64 + c64,
+                 DOPRI5_VJP_BOUNDS)):
+            exact = outs(plain(*wargs))
+            k = _worst(outs(kernel(*kargs)), exact)
+            c = _worst(outs(tf32_products(plain, *kargs)), exact)
+            assert all(w <= b for w, b in zip(k, bounds))
+            assert not all(w <= b for w, b in zip(c, bounds))
+
+
+def test_dopri5_kernels_reject_what_they_are_not_compiled_for(cuda):
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+
+    args, cot = _dopri5_args(cuda, 64, 8, 1)
+    with pytest.raises(NotImplementedError, match="7b"):
+        fd.dopri5_step_vjp_fused(*args, *cot, precision="bf16")
+    # the hooks refuse a bf16 backward when they are built, before the
+    # forward launches anything; their plain versions take it
+    bf16 = dict(adjoint_mode="discrete", bwd_precision="bf16")
+    model = _model(cuda, 2)
+    static = (torch.zeros(8, 7, device=cuda), torch.eye(8, device=cuda),
+              torch.linspace(0.0, 1.0, 4, device=cuda))
+    before = [k.launches for k in fd.KERNELS]
+    with pytest.raises(NotImplementedError, match="7b"):
+        build_adjoint_loss_fn_g(model, GATODEConfig(method="dopri5"), static,
+                                **bf16)
+    assert [k.launches for k in fd.KERNELS] == before
+    assert callable(build_adjoint_loss_fn_g(
+        model, GATODEConfig(method="dopri5"), static, use_fused=True,
+        _plain=True, **bf16))
+    model = build_model(GATODEConfig(hidden_dim=64), 7, 8, device=cuda)
+    init_params(model, torch.Generator().manual_seed(0))
+    from ananke_abm_tpu_torch.ops.cuda.checks import dopri5_operands
+
+    args, _ = dopri5_operands(model, 64, 8, cuda, seed=0)
+    with pytest.raises(ValueError, match="compiled for"):
+        fd.dopri5_step_fused(*args)
+
+
+def test_discrete_trainer_runs_through_the_kernels(cuda):
+    """One K5 launch per attempted step and replay, one K7 launch per
+    accepted step; the loss and gradient of the plain-version step."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+
+    config = GATODEConfig(method="dopri5")
+    d = generate_agent_population(1_024, num_times=6, num_zones=64, seed=0)
+    model = _model(cuda, config.num_blocks)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(cuda)
+    static = (on(d["zone_features"]), on(d["adj"]), on(d["times"]))
+    batch = (on(d["person_feats"]), on(d["home_zone"], torch.long),
+             on(d["zone_ids"], torch.long))
+    before = [k.launches for k in fd.KERNELS]
+    _, loss_fn = make_adjoint_step_fns(model, None, config, static,
+                                       adjoint_mode="discrete")
+    model.zero_grad()
+    loss, _ = loss_fn(*batch)
+    loss.backward()
+    st = loss_fn.stats
+    assert [k.launches - b for k, b in zip(fd.KERNELS, before)] == [
+        st["forward"]["n_steps"] + st["replays"],
+        st["forward"]["n_accepted"]]
+    grads = torch.cat([p.grad.flatten() for p in model.parameters()])
+    plain = build_adjoint_loss_fn_g(model, config, static,
+                                    adjoint_mode="discrete", use_fused=True,
+                                    _plain=True)
+    model.zero_grad()
+    loss_p, _ = plain(*batch, static)
+    loss_p.backward()
+    grads_p = torch.cat([p.grad.flatten() for p in model.parameters()])
+    assert abs(loss.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())
+    cos = torch.dot(grads.double(), grads_p.double()) / (
+        grads.double().norm() * grads_p.double().norm())
+    assert cos > 0.9999
+
+
+@pytest.mark.parametrize("change,want", [
+    ({"gat_heads": 2}, [0, 0, 2, 2, 2, 2]), ({"hidden_dim": 64}, [0] * 6),
+])
+def test_train_takes_only_the_kernels_that_fit(cuda, tmp_path, change, want):
+    """train() routes by what each kernel is compiled for: at two heads the
+    encoder runs through ``model.encode_zones`` and the day and
+    cross-entropy kernels once a step; at hidden 64 the plain step."""
+    kernels = (fg.gat_forward_fused, fg.gat_backward_fused,
+               ft.day_forward_fused, ft.day_backward_fused,
+               ft.ce_forward_fused, ft.ce_backward_fused)
+    before = [k.launches for k in kernels]
+    res = train(str(tmp_path), n_agents=512, num_times=4, num_zones=16,
+                config=GATODEConfig(batch_size=256, epochs=1, **change),
+                device=cuda)
+    assert np.isfinite(res["final_loss"])
+    assert [k.launches - b for k, b in zip(kernels, before)] == want

@@ -203,7 +203,6 @@ def test_loss_decreases(tmp_path):
 
 
 @pytest.mark.parametrize("change,error,match", [
-    (dict(config=tiny_cfg(method="dopri5")), NotImplementedError, "item 7"),
     (dict(sparse_zones=True), NotImplementedError, "item 9"),
     (dict(sparse_world=True), NotImplementedError, "item 9"),
     (dict(resume=True), FileNotFoundError, "ckpt_every"),
