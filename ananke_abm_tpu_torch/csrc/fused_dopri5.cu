@@ -1,57 +1,80 @@
-// One DOPRI5 5(4) step of the GAT-ODE drift (K5) and the VJP of one
-// accepted step (K7), for the discrete adjoint, on Hopper (sm_90a), in
-// float32 throughout.
+// The discrete adjoint's kernels on Hopper (sm_90a): one DOPRI5 5(4) step
+// of the GAT-ODE drift (K5), the VJP of one accepted step (K7) and the whole
+// backward over every accepted step (K6).
 //
 // Replaces the Pallas TPU kernels
 //   K5 ananke_abm_tpu/ops/pallas/fused_dopri5.py::dopri5_step_fused
 //   K7 ananke_abm_tpu/ops/pallas/fused_dopri5.py::dopri5_step_vjp_fused
+//   K6 ananke_abm_tpu/ops/pallas/fused_dopri5.py::dopri5_backward_fused
 // (stage math and stage VJP: _stage_math and _stage_vjp_math in
-// ops/pallas/fused_step.py with the identity cast). Plain PyTorch versions:
-// ananke_abm_tpu_torch/ops/cuda/fused_dopri5.py::dopri5_step_reference and
-// ::dopri5_step_vjp_reference.
+// ops/pallas/fused_step.py). Plain PyTorch versions:
+// ananke_abm_tpu_torch/ops/cuda/fused_dopri5.py::dopri5_step_reference,
+// ::dopri5_step_vjp_reference and ::dopri5_backward_reference.
 //
 // What they compute, per agent row:
 // - K5: the six stage evaluations k2..k7 of the drift from (x, f0 = k1),
 //   y1 = x + h sum b5_j k_j, f1 = k7, the embedded error h sum (b5 - b4)_j
 //   k_j (or, with err_stats, the sum over every real element of (err /
 //   (atol + rtol max(|x|, |y1|)))^2) and r5 = h sum d_j k_j;
-// - K7: the six stages again, then, stage by stage in reverse, the stage
-//   recomputed and its VJP at gk_i, the cotangents chained through the
-//   tableau: gk_j += h a_ij gx_i, gy0 += gx_i. Per agent gy0, gf0 (= gk_1)
-//   and gh; summed over agents the gradients of the zones, the seven time
-//   rows, Wq, W1xc, W1h, every residual block and the output layer.
+// - K7: stages 1-5 again (k7 feeds no stage input), then, stage by stage
+//   in reverse, the stage recomputed and its VJP at gk_i, the cotangents
+//   chained through the tableau: gk_j += h a_ij gx_i, gy0 += gx_i. Per
+//   agent gy0, gf0 (= gk_1) and gh; summed over agents the gradients of the
+//   zones, the seven time rows, Wq, W1xc, W1h, every residual block and the
+//   output layer;
+// - K6: K7's step VJP for the accepted steps n_acc - 1 .. 0 in turn, each
+//   step's cotangents folded from the carries (g_y, g_f) and the output
+//   rows it filled (CONTD5 weights), its time rows' gradients in a slot of
+//   their own.
 //
-// Why float32 FFMA: bf16 rounding of the stage activations is noise that
-// does not cancel in the embedded 5(4) error and floors the step
-// controller; TF32 keeps three decimal digits, the same class. So every
-// product here is a float32 fused multiply-add on the CUDA cores.
+// Two step bodies. float32 (K5 always; K7 and K6 at precision "f32"): bf16
+// rounding of the stage activations is noise that does not cancel in the
+// embedded 5(4) error and floors the step controller, and TF32 keeps three
+// decimal digits, the same class; so every product of this body is a
+// float32 fused multiply-add on the CUDA cores. bf16 (K7 and K6 at
+// precision "bf16", the adaptive trainer's backward at bench rung 3): the
+// stage and its VJP of drift_stage.cuh (K8's and K2b's), bf16 operands on
+// mma.sync with float32 sums at the reference's rounding points; the
+// backward replays the forward's float32 steps, so the noise moves the
+// gradient, not the step sequence.
 //
 // What bounds them on the card: operations. One stage is ~92 kMAC per agent
 // at the shipping widths and Z = 64, its VJP about twice that; the bytes
-// per agent are a few hundred. The design:
+// per agent are a few hundred a step (K6: the two checkpoints, read once,
+// and the output rows' cotangents). At bench rung 3 K6 at bf16 needs ~5.6
+// TFLOP, 5.7 ms at the dense bf16 peak, its bytes ~1 ms. The design:
 //
-// - A CTA of 8 warps owns a tile of R agent rows (32; K7 16 for deep
-//   drifts) and walks tiles tile = blockIdx.x, + gridDim.x, ...
-// - Activations of the tile live in shared memory, float32 row-major.
+// - The float32 body: a CTA of 8 warps owns a tile of R agent rows (32; 16
+//   for deep drifts) and walks tiles tile = blockIdx.x, + gridDim.x, ...
+//   Activations of the tile live in shared memory, float32 row-major.
 //   Every product out = A W runs as register tiles: warp w computes rows
 //   w, w + 8, ..., lane l a run of adjacent columns; A is read from shared
 //   memory four columns at a time (a broadcast within the warp), W is
 //   staged through two shared-memory buffers of 16 rows by cp.async, the
 //   next chunk's copy in flight while this one is multiplied (the weights,
-//   ~0.35 MB in float32, stay hot in L2).
-// - The attention runs by chunks of 32 zones: no Z-wide row is stored, any
-//   zone count; the max-free softmax (exp clamped at 80) sums its rows
-//   chunk by chunk, the context is normalised after the product.
-// - K7 cannot keep six stages of intermediates (~24 KB per agent): it keeps
-//   the stage outputs k_j (and the cotangents gk_j, in a per-CTA scratch in
-//   device memory, each element only ever touched by the thread that owns
-//   it) and recomputes stage i's intermediates just before its VJP: 12
-//   stage forwards and 6 stage VJPs per step.
+//   ~0.35 MB in float32, stay hot in L2). The attention runs by chunks of
+//   32 zones: no Z-wide row is stored, any zone count; the max-free
+//   softmax (exp clamped at 80) sums its rows chunk by chunk, the context
+//   is normalised after the product.
+// - The bf16 body: a CTA of W warps (4; 2 at 8 blocks, where 4 warps'
+//   stage buffers would not fit) owns 16 W rows, each warp its 16 rows end
+//   to end, as K2b's tiles.
+// - Neither can keep six stages of intermediates (~24 KB per agent): each
+//   keeps the stage outputs k_j (and the cotangents, in a per-CTA scratch
+//   in device memory, each element only ever touched by the thread that
+//   owns it) and recomputes stage i's intermediates just before its VJP:
+//   11 stage forwards and 6 stage VJPs per step.
+// - K6: one CTA owns an agent tile for all steps, the step loop inside the
+//   block, so no grid-wide sync; the carries stay in registers (float32)
+//   or the warp's scratch (bf16) between steps; the recorded steps, output
+//   times and rows' steps sit in shared memory, and the fold skips the rows
+//   a step did not fill. One launch per backward.
 // - Weight gradients are contractions over the tile's rows, added into the
 //   CTA's own slab in device memory (plain loads and stores); a second
 //   kernel sums the slabs in CTA order. K5's error sum is per CTA the same
 //   way. No atomics: the same operands give the same bits, and so the same
-//   step sequence.
+//   step sequence. K6's slab holds 7 time rows per accepted step (sized by
+//   n_acc, not max_acc).
 //
 // Rows past N read zeros: their cotangents are zero, so every gradient term
 // they could feed is zero, and K5's error sum masks them.
@@ -59,9 +82,12 @@
 // Compiled for (agent, zone, context, hidden) = (32, 64, 32, 128), 1-8
 // residual blocks and any zone count.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "drift_stage.cuh"
 
 namespace {
 
@@ -408,13 +434,15 @@ __device__ void stage_forward(const Weights& w, const StageBufs& s, int stage,
 }
 
 // offsets (floats) of the summed gradients in a slab: gze (z, DZ) | gtf
-// (7, H) | gWq (DA, DZ) | gW1xc (DF, H) | gW1h (DC, H) | per block gWr1
-// (H, H), gbr1 (H), gWr2 (H, H), gbr2 (H) | gW3 (H, DA) | gb3 (DA)
+// (tf_rows, H): K7's 7 stage rows, K6's 7 per step | gWq (DA, DZ) | gW1xc
+// (DF, H) | gW1h (DC, H) | per block gWr1 (H, H), gbr1 (H), gWr2 (H, H),
+// gbr2 (H) | gW3 (H, DA) | gb3 (DA); drift_stage.cuh's Slab, the same
+// layout
 struct SlabLayout {
   long gtf, gwq, gw1, gw1h, blk0, gw3, gb3, size;
-  __host__ __device__ SlabLayout(int z, int nb) {
+  __host__ __device__ SlabLayout(int z, int nb, int tf_rows) {
     gtf = (long)z * DZ;
-    gwq = gtf + 7 * H;
+    gwq = gtf + (long)tf_rows * H;
     gw1 = gwq + DA * DZ;
     gw1h = gw1 + DF * H;
     blk0 = gw1h + DC * H;
@@ -430,13 +458,14 @@ struct SlabLayout {
   __host__ __device__ long br2(int b) const { return wr2(b) + H * H; }
 };
 
-// the VJP of stage_i at gk ([R][DA] in shared memory), its forward just
-// recomputed into s (every chain level kept): gradients into the slab, ghp
-// += the Dense_0 pre-activation's cotangent, and gx ([R][DA], the
-// per-element mapping) the cotangent of the stage input.
+// the VJP of a stage at gk ([R][DA] in shared memory), its forward just
+// recomputed into s (every chain level kept): gradients into the slab (the
+// time row's at slab + gtf), ghp += the Dense_0 pre-activation's
+// cotangent, and gx ([R][DA], the per-element mapping) the cotangent of
+// the stage input.
 template <int R>
 __device__ void stage_backward(const Weights& w, const StageBufs& s,
-                               const SlabLayout& L, float* slab, int stage,
+                               const SlabLayout& L, float* slab, long gtf,
                                const float* gk, float* gp, float* ta,
                                float* tb, float* ghp, float* gx) {
   constexpr int RPT = R / kWarps;
@@ -505,7 +534,7 @@ __device__ void stage_backward(const Weights& w, const StageBufs& s,
   // cotangent
   ntdot<R, DF, H, false>(s.feats, DF, gp, H, nullptr, 0, nullptr, 0,
                          slab + L.gw1, H);
-  colsum<R, H>(gp, H, slab + L.gtf + stage * H);
+  colsum<R, H>(gp, H, slab + gtf);
   // ghp += gp; gf = gp W1xc^T into ta (cols 0..DF): gxb | gctx
   mm<R, H, DF>(gp, H, w.w1xcT, DF, s.wbuf, [&](float (&acc)[RPT][3]) {
 #pragma unroll
@@ -700,6 +729,324 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (threadIdx.x == 0) p.partial[blockIdx.x] = red[0];
 }
 
+// ---- the step VJP's cotangents ---------------------------------------------
+
+// the folded cotangents of one step (ode/discrete_adjoint.py derives them)
+struct Gset {
+  float dy, r5, k1x, k7x, y0d;
+};
+
+// stage j's initial cotangent h (b5_j g_dy + d_j g_r5), plus g_k1x on k1 and
+// g_k7x on k7, each operation rounded as the reference rounds it
+__device__ __forceinline__ float stage_cot(int j, float hs, const Gset& c) {
+  float v = 0.f;
+  if (cB5[j] != 0.f || cD[j] != 0.f)
+    v = __fmul_rn(hs, __fadd_rn(__fmul_rn(cB5[j], c.dy),
+                                __fmul_rn(cD[j], c.r5)));
+  if (j == 0) v = __fadd_rn(v, c.k1x);
+  if (j == 6) v = __fadd_rn(v, c.k7x);
+  return v;
+}
+
+// K6's fold: a step's cotangents from the carries (g_y, g_f) and gr, the
+// sums over the output rows it filled of the CONTD5 weights times the rows'
+// cotangents
+__device__ __forceinline__ Gset fold_gset(float gy, float gf,
+                                          const float (&gr)[5], float hs) {
+  Gset c;
+  c.dy = __fadd_rn(__fsub_rn(__fadd_rn(gy, gr[1]), gr[2]),
+                   __fmul_rn(2.f, gr[3]));
+  c.r5 = gr[4];
+  c.k1x = __fmul_rn(hs, __fsub_rn(gr[2], gr[3]));
+  c.k7x = __fsub_rn(gf, __fmul_rn(hs, gr[3]));
+  c.y0d = __fadd_rn(gy, gr[0]);
+  return c;
+}
+
+// the CONTD5 weights (1, th, th om, th^2 om, th^2 om^2) of output time ts in
+// the step [t0, t0 + hs]: th clipped to [0, 1], a zero step divides by 1
+__device__ __forceinline__ void contd5_weights(float ts, float t0, float hs,
+                                               float (&w)[5]) {
+  const float safe = hs == 0.f ? 1.f : hs;
+  const float th = fminf(fmaxf(__fdiv_rn(__fsub_rn(ts, t0), safe), 0.f), 1.f);
+  const float om = __fsub_rn(1.f, th);
+  w[0] = 1.f;
+  w[1] = th;
+  w[2] = __fmul_rn(th, om);
+  w[3] = __fmul_rn(__fmul_rn(th, th), om);
+  w[4] = __fmul_rn(w[3], om);
+}
+
+// ---- the float32 step VJP: K7 at precision "f32", and K6's f32 body --------
+
+// a tile's shared memory for the float32 step VJP
+struct F32Vjp {
+  StageBufs s;
+  float* hin;  // [R][DC]
+  float* ghp;  // [R][H]
+  float* gp;   // [R][H]
+  float* gks;  // [R][DA]: gk_i, then gx
+  float* ta;   // [R][H], the forward's rt too
+  float* tb;   // [R][H]
+};
+
+template <int R>
+size_t f32_vjp_smem_floats(int nb) {
+  return kWbuf + (size_t)R * (DC + 3 * H + DF + DZ + kZC + DA + 1 +
+                              2 * H + (size_t)(nb + 1) * H);
+}
+
+template <int R>
+__device__ __forceinline__ F32Vjp f32_vjp_smem(float* sm) {
+  F32Vjp t;
+  t.s.wbuf = sm;
+  t.hin = t.s.wbuf + kWbuf;
+  t.s.hpre = t.hin + R * DC;
+  t.ghp = t.s.hpre + R * H;
+  t.gp = t.ghp + R * H;
+  t.s.feats = t.gp + R * H;
+  t.s.q = t.s.feats + R * DF;              // [R][DZ + kZC]
+  t.gks = t.s.q + R * (DZ + kZC);
+  t.s.inv = t.gks + R * DA;                // [R]
+  t.ta = t.s.inv + R;
+  t.tb = t.ta + R * H;
+  t.s.rt = t.ta;
+  t.s.chain = t.tb + R * H;                // (nb + 1) x [R][H]
+  t.s.chain_step = R * H;
+  return t;
+}
+
+// The VJP of one accepted step for a tile of R rows. On entry t.s.hpre holds
+// h W1h for the tile's rows (h is constant over the step), ks[0] = f0 and
+// gk[j] stage j's initial cotangent (stage_cot) in the CTA's scratch ([7][R]
+// [DA] each, the per-element mapping: element m of a thread is row wp + 8 m,
+// column lane, and only that thread touches it); x0 and gy (= g_y0_direct)
+// the thread's elements. The forward stages 1-5 keep their k (k7 feeds no
+// stage input); then for stages 6 -> 1 the stage is recomputed from its
+// input and its VJP runs: gk_j += h a_ij gx_i, gy += gx_i. On return gy =
+// gy0, gk[0] = gf0 and t.ghp the step's sum of the h-row pre-activation's
+// cotangent. The time rows are w.tf (7, H); their gradients go to slab +
+// gtf0 + st H.
+template <int R>
+__device__ void step_vjp_f32(const Weights& w, const F32Vjp& t,
+                             const SlabLayout& L, float* slab, long gtf0,
+                             float hs, float* ks, float* gk,
+                             const float (&x0)[R * DA / kThreads],
+                             float (&gy)[R * DA / kThreads]) {
+  constexpr int M = R * DA / kThreads;
+  const int wp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < R * H; i += kThreads) t.ghp[i] = 0.f;
+  // the stage input of stage st, x0 + sum_j (h a_st,j) k_j, into feats
+  auto stage_input = [&](int st) {
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int o = (wp + kWarps * m) * DA + lane;
+      float y = x0[m];
+      for (int j = 0; j < st; ++j) {
+        const float a = cA[st][j];
+        if (a != 0.f)
+          y = __fadd_rn(y, __fmul_rn(__fmul_rn(hs, a), ks[j * R * DA + o]));
+      }
+      t.s.feats[(wp + kWarps * m) * DF + lane] = y;
+    }
+  };
+  for (int st = 1; st < 6; ++st) {
+    stage_input(st);
+    stage_forward<R>(w, t.s, st, t.gks);
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int o = (wp + kWarps * m) * DA + lane;
+      ks[st * R * DA + o] = t.gks[o];
+    }
+  }
+  for (int st = 6; st >= 1; --st) {
+    stage_input(st);
+    stage_forward<R>(w, t.s, st, t.gks);
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int o = (wp + kWarps * m) * DA + lane;
+      t.gks[o] = gk[st * R * DA + o];
+    }
+    stage_backward<R>(w, t.s, L, slab, gtf0 + (long)st * H, t.gks, t.gp,
+                      t.ta, t.tb, t.ghp, t.gks);
+    // gx (in gks, the per-element mapping): into y0 and the earlier k_j
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int o = (wp + kWarps * m) * DA + lane;
+      const float gx = t.gks[o];
+      gy[m] = __fadd_rn(gy[m], gx);
+      for (int j = 0; j < st; ++j) {
+        const float a = cA[st][j];
+        if (a != 0.f)
+          gk[j * R * DA + o] = __fadd_rn(gk[j * R * DA + o],
+                                         __fmul_rn(__fmul_rn(hs, a), gx));
+      }
+    }
+  }
+}
+
+// h W1h for the tile's rows (in hin) into t.s.hpre
+template <int R>
+__device__ __forceinline__ void f32_hpre(const Weights& w, const F32Vjp& t) {
+  constexpr int RPT = R / kWarps;
+  const int wp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  mm<R, DC, H>(t.hin, DC, w.w1h, H, t.s.wbuf, [&](float (&acc)[RPT][4]) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        t.s.hpre[(wp + kWarps * i) * H + ocol<H>(lane, j)] = acc[i][j];
+  });
+}
+
+// ---- the bf16 step VJP: K7 at precision "bf16", and K6's bf16 body ---------
+//
+// The stage math and its VJP are drift_stage.cuh's (K8's and K2b's): bf16
+// operands on mma.sync, float32 sums, the reference's rounding points. A
+// tile is 16 W agent rows, warp w owns rows 16 w .. 16 w + 15 end to end.
+// Each warp keeps its rows' float32 step state in fragment order
+// (frag_ld / frag_st) in a scratch of its own in device memory, FX floats
+// an array: 0 x0 | 1-6 k_1 .. k_6, each slot taking stage i's gx once
+// stage i + 1 no longer reads its k (slot i - 1 takes gx_i) | 7 g_dy | 8
+// g_r5 | 9 g_k1x | 10 g_k7x | 11 gy (g_y0_direct in, gy0 out) | 12 gf0 |
+// 13 K6's gh carry | then the step's per-row sum of the h-row
+// pre-activation's cotangent ([H/2][32]). Only the owning lane touches a
+// slot: no barrier guards them.
+
+constexpr int kFX = (DA / 8) * 4 * 32;        // floats of one array
+constexpr int kGhp = 14 * kFX;                // offset of the ghp sum
+constexpr int kWarpFloats = kGhp + (H / 8) * 4 * 32;
+static_assert(DC == DA, "the gh carry takes one DA-wide array");
+
+using ananke::bf16;
+using ananke::StageSmem;
+using ananke::StageWeights;
+using BSlab = ananke::Slab<DA, DZ, DC, H>;
+using BLayout = ananke::Layout<DA, DZ, DC, H>;
+
+// warps of the bf16 tile: 4 (64 rows) while a tile's stage buffers fit the
+// SM's shared memory, 2 (32 rows) for 8 blocks
+inline int bf16_warps(int nb) { return nb <= 7 ? 4 : 2; }
+
+// xa = bf16(x0 + sum_j (h a_st,j) k_j), summed in the tableau's order
+__device__ __forceinline__ void bf16_stage_input(uint32_t (&xa)[DA / 16][4],
+                                                 const float* fr, int st,
+                                                 float hs, int lane) {
+  float xin[DA / 8][4];
+  ananke::frag_ld<DA / 8>(xin, fr, lane);
+  for (int j = 0; j < st; ++j) {
+    const float a = cA[st][j];
+    if (a == 0.f) continue;
+    const float ha = __fmul_rn(hs, a);
+    float k[DA / 8][4];
+    ananke::frag_ld<DA / 8>(k, fr + (1 + j) * kFX, lane);
+#pragma unroll
+    for (int q = 0; q < DA / 8; ++q)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        xin[q][c] = __fadd_rn(xin[q][c], __fmul_rn(ha, k[q][c]));
+  }
+  ananke::c_to_a<DA>(xin, xa);
+}
+
+// stage st's cotangent: stage_cot, then h a_i,st gx_i for i = 6 .. st + 1 in
+// the order the reference adds them (gx_i in slot i - 1)
+__device__ __forceinline__ void bf16_stage_cot(float (&gk)[DA / 8][4],
+                                               const float* fr, int st,
+                                               float hs, int lane) {
+#pragma unroll
+  for (int q = 0; q < DA / 8; ++q)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i0 = (4 * q + c) * 32 + lane;
+      const Gset gs = {fr[7 * kFX + i0], fr[8 * kFX + i0], fr[9 * kFX + i0],
+                       fr[10 * kFX + i0], 0.f};
+      float v = stage_cot(st, hs, gs);
+      for (int i = 6; i > st; --i) {
+        const float a = cA[i][st];
+        if (a != 0.f)
+          v = __fadd_rn(v, __fmul_rn(__fmul_rn(hs, a), fr[i * kFX + i0]));
+      }
+      gk[q][c] = v;
+    }
+}
+
+// The VJP of one accepted step for the warp's 16 rows (fr: the warp's
+// scratch, its step inputs in place; ha: bf16(h)'s A fragments; tf: the
+// step's 7 time rows). Leaves gy0 in slot 11, gf0 in 12 and the step's ghp
+// sum at kGhp; the time rows' gradients go to slab + gtf0 + st H. Every
+// thread of the block calls it (stage_backward holds block barriers).
+template <int W>
+__device__ void step_vjp_bf16(const StageWeights& w, const StageSmem& sm,
+                              float* fr, const uint32_t (&ha)[DC / 16][4],
+                              const float* tf, float hs, float* slab,
+                              const BSlab& sl, long gtf0, int warp,
+                              int lane) {
+  constexpr int NX = DA / 8;
+  const int g = lane >> 2, t = lane & 3, wr0 = warp * 16;
+  float* ghp = fr + kGhp;
+  for (int i = 0; i < (H / 8) * 4; ++i) ghp[i * 32 + lane] = 0.f;
+  for (int st = 1; st < 6; ++st) {
+    uint32_t xa[DA / 16][4];
+    bf16_stage_input(xa, fr, st, hs, lane);
+    float k[NX][4], ia, ib;
+    ananke::stage_forward<DA, DZ, DC, H, W>(w, sm, xa, ha, tf + st * H, k, ia,
+                                            ib, wr0, g, t);
+    ananke::frag_st<NX>(k, fr + (1 + st) * kFX, lane);
+  }
+  for (int st = 6; st >= 1; --st) {
+    uint32_t xa[DA / 16][4];
+    bf16_stage_input(xa, fr, st, hs, lane);
+    float gk[NX][4];
+    bf16_stage_cot(gk, fr, st, hs, lane);
+    float k[NX][4], ia, ib, gx[NX][4];
+    ananke::stage_forward<DA, DZ, DC, H, W>(w, sm, xa, ha, tf + st * H, k, ia,
+                                            ib, wr0, g, t);
+    ananke::stage_backward<DA, DZ, DC, H, W, true>(
+        w, sm, gk, ha, ia, ib, slab, sl, gtf0 + (long)st * H, false, gx,
+        nullptr, 0, 0, false, false, ghp, warp, lane);
+    float gy[NX][4];
+    ananke::frag_ld<NX>(gy, fr + 11 * kFX, lane);
+#pragma unroll
+    for (int q = 0; q < NX; ++q)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) gy[q][c] = __fadd_rn(gy[q][c], gx[q][c]);
+    ananke::frag_st<NX>(gy, fr + 11 * kFX, lane);
+    ananke::frag_st<NX>(gx, fr + st * kFX, lane);
+  }
+  float gf[NX][4];
+  bf16_stage_cot(gf, fr, 0, hs, lane);
+  ananke::frag_st<NX>(gf, fr + 12 * kFX, lane);
+}
+
+// hpre = bf16(h) @ W1h: the step's gh = bf16(ghp) @ W1h^T per row (into ghh,
+// accumulator fragments) and gW1h += bf16(h)^T bf16(ghp) into the slab, at
+// the reference's rounding points. Every thread of the block calls it.
+template <int W>
+__device__ void bf16_h_rows(const StageWeights& w, const StageSmem& sm,
+                            const float* ghp, const uint32_t (&ha)[DC / 16][4],
+                            float* slab, long gw1h, float (&ghh)[DC / 8][4],
+                            int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3, wr0 = warp * 16;
+  float gp[H / 8][4];
+  ananke::frag_ld<H / 8>(gp, ghp, lane);
+  uint32_t g1a[H / 16][4];
+  ananke::c_to_a<H>(gp, g1a);
+  ananke::sts_a<H>(g1a, sm.g + wr0 * BLayout::SH, BLayout::SH, g, t);
+  ananke::sts_a<DC>(ha, sm.small + wr0 * BLayout::SS, BLayout::SS, g, t);
+  ananke::zero(ghh);
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j)
+    ananke::mma_nblocks<H, 1>(ghh, j, g1a, w.w1h + (size_t)8 * j * H, g, t);
+  __syncthreads();
+  ananke::nt_dot1<DC, H, 16 * W, W>(sm.small, BLayout::SS, sm.g, BLayout::SH,
+                                    slab + gw1h, false, warp, lane);
+  __syncthreads();
+}
+
 // ---- K7 -------------------------------------------------------------------
 
 struct VjpParams {
@@ -723,36 +1070,15 @@ struct VjpParams {
 };
 
 template <int R>
-size_t vjp_smem_floats(int nb) {
-  return kWbuf + (size_t)R * (DC + 3 * H + DF + DZ + kZC + DA + 1 +
-                              2 * H + (size_t)(nb + 1) * H);
-}
-
-template <int R>
 __global__ void __launch_bounds__(kThreads, 1)
     dopri5_vjp_kernel(const VjpParams p) {
   constexpr int M = R * DA / kThreads;
   constexpr int RPT = R / kWarps;
   extern __shared__ __align__(16) float sm[];
-  const int nb = p.w.nb;
-  StageBufs s;
-  s.wbuf = sm;
-  float* hin = s.wbuf + kWbuf;         // [R][DC]
-  s.hpre = hin + R * DC;               // [R][H]
-  float* ghp = s.hpre + R * H;         // [R][H]
-  float* gp = ghp + R * H;             // [R][H]
-  s.feats = gp + R * H;                // [R][DF]
-  s.q = s.feats + R * DF;              // [R][DZ + kZC]
-  float* gks = s.q + R * (DZ + kZC);   // [R][DA]: gk_i, then gx
-  s.inv = gks + R * DA;                // [R]
-  float* ta = s.inv + R;               // [R][H], the forward's rt too
-  float* tb = ta + R * H;              // [R][H]
-  s.rt = ta;
-  s.chain = tb + R * H;                // (nb + 1) x [R][H]
-  s.chain_step = R * H;
+  const F32Vjp t = f32_vjp_smem<R>(sm);
   const int wp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float hs = p.hstep;
-  const SlabLayout L(p.w.z, nb);
+  const SlabLayout L(p.w.z, p.w.nb, 7);
   float* slab = p.slab + (size_t)blockIdx.x * p.slab_size;
   float* ks = p.scratch + (size_t)blockIdx.x * 14 * R * DA;  // [7][R][DA]
   float* gk = ks + 7 * R * DA;                                // [7][R][DA]
@@ -761,8 +1087,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long row0 = (long)tile * R;
     __syncthreads();
-    // element m of this thread: row wp + 8 m, column lane; the k_j and
-    // gk_j of the scratch are only ever touched by their owner
     float x0[M], gy[M];
 #pragma unroll
     for (int m = 0; m < M; ++m) {
@@ -773,73 +1097,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       const long go = g * DA + lane;
       x0[m] = v ? p.x[go] : 0.f;
       ks[o] = v ? p.f0[go] : 0.f;
-      hin[r * DC + lane] = v ? p.h[g * DC + lane] : 0.f;
-      const float dy = v ? p.gdy[go] : 0.f, r5 = v ? p.gr5[go] : 0.f;
-      for (int j = 0; j < 7; ++j) {
-        float c = 0.f;
-        if (cB5[j] != 0.f || cD[j] != 0.f) c = hs * (cB5[j] * dy + cD[j] * r5);
-        if (j == 0) c = c + (v ? p.gk1[go] : 0.f);
-        if (j == 6) c = c + (v ? p.gk7[go] : 0.f);
-        gk[j * R * DA + o] = c;
-      }
+      t.hin[r * DC + lane] = v ? p.h[g * DC + lane] : 0.f;
+      const Gset c = {v ? p.gdy[go] : 0.f, v ? p.gr5[go] : 0.f,
+                      v ? p.gk1[go] : 0.f, v ? p.gk7[go] : 0.f, 0.f};
+      for (int j = 0; j < 7; ++j) gk[j * R * DA + o] = stage_cot(j, hs, c);
       gy[m] = v ? p.gy0d[go] : 0.f;
     }
-    mm<R, DC, H>(hin, DC, p.w.w1h, H, s.wbuf, [&](float (&acc)[RPT][4]) {
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int o = (wp + kWarps * i) * H + ocol<H>(lane, j);
-          s.hpre[o] = acc[i][j];
-          ghp[o] = 0.f;
-        }
-    });
-    // the stage input of stage st, from x0 and the k_j
-    auto stage_input = [&](int st) {
-      __syncthreads();
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int o = (wp + kWarps * m) * DA + lane;
-        float y = x0[m];
-        for (int j = 0; j < st; ++j) {
-          const float a = cA[st][j];
-          if (a != 0.f) y = y + (hs * a) * ks[j * R * DA + o];
-        }
-        s.feats[(wp + kWarps * m) * DF + lane] = y;
-      }
-    };
-    for (int st = 1; st < 7; ++st) {
-      stage_input(st);
-      stage_forward<R>(p.w, s, st, gks);
-      __syncthreads();
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int o = (wp + kWarps * m) * DA + lane;
-        ks[st * R * DA + o] = gks[o];
-      }
-    }
-    for (int st = 6; st >= 1; --st) {
-      stage_input(st);
-      stage_forward<R>(p.w, s, st, gks);
-      __syncthreads();
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int o = (wp + kWarps * m) * DA + lane;
-        gks[o] = gk[st * R * DA + o];
-      }
-      stage_backward<R>(p.w, s, L, slab, st, gks, gp, ta, tb, ghp, gks);
-      // gx (in gks, the per-element mapping): into y0 and the earlier k_j
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int o = (wp + kWarps * m) * DA + lane;
-        const float gx = gks[o];
-        gy[m] = gy[m] + gx;
-        for (int j = 0; j < st; ++j) {
-          const float a = cA[st][j];
-          if (a != 0.f) gk[j * R * DA + o] = gk[j * R * DA + o] + (hs * a) * gx;
-        }
-      }
-    }
+    f32_hpre<R>(p.w, t);
+    step_vjp_f32<R>(p.w, t, L, slab, L.gtf, hs, ks, gk, x0, gy);
 #pragma unroll
     for (int m = 0; m < M; ++m) {
       const int r = wp + kWarps * m;
@@ -850,15 +1115,345 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     // hpre = h W1h: gh = ghp W1h^T, gW1h += h^T ghp
-    ntdot<R, DC, H, false>(hin, DC, ghp, H, nullptr, 0, nullptr, 0,
+    ntdot<R, DC, H, false>(t.hin, DC, t.ghp, H, nullptr, 0, nullptr, 0,
                            slab + L.gw1h, DC);
-    mm<R, H, DC>(ghp, H, p.w.w1hT, DC, s.wbuf, [&](float (&acc)[RPT][1]) {
+    mm<R, H, DC>(t.ghp, H, p.w.w1hT, DC, t.s.wbuf, [&](float (&acc)[RPT][1]) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         const long g = row0 + wp + kWarps * i;
         if (g < p.n) p.gh[g * DC + lane] = acc[i][0];
       }
     });
+  }
+}
+
+struct VjpBf16Params {
+  StageWeights w;
+  const float* tf;   // (7, H)
+  const float* x;    // (n, DA)
+  const float* f0;
+  const float* h;    // (n, DC)
+  const float* gdy;  // (n, DA) the folded output cotangents
+  const float* gr5;
+  const float* gk1;
+  const float* gk7;
+  const float* gy0d;
+  float* gy0;        // (n, DA)
+  float* gf0;
+  float* gh;         // (n, DC)
+  float* scratch;    // (gridDim.x, W, kWarpFloats)
+  float* slab;       // (gridDim.x, slab size), zeroed by the caller
+  long slab_size;
+  int n;
+  float hstep;
+};
+
+template <int W>
+__global__ void __launch_bounds__(32 * W, 1)
+    dopri5_vjp_bf16_kernel(const VjpBf16Params p) {
+  constexpr int ROWS = 16 * W, NX = DA / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const StageSmem sm =
+      ananke::stage_smem<DA, DZ, DC, H, W>(smem_raw, p.w.num_blocks);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = lane & 3, g = lane >> 2;
+  const BSlab sl(p.w.z, p.w.num_blocks, 7);
+  float* slab = p.slab + (size_t)blockIdx.x * p.slab_size;
+  float* fr = p.scratch + ((size_t)blockIdx.x * W + warp) * kWarpFloats;
+  const int n_tiles = (p.n + ROWS - 1) / ROWS;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long ra = (long)tile * ROWS + warp * 16 + g, rb = ra + 8;
+    const bool va = ra < p.n, vb = rb < p.n;
+    uint32_t ha[DC / 16][4];
+    ananke::ldg_rows_a<DC>(ha, p.h, ra, rb, va, vb, t);
+    const float* in[7] = {p.x, p.f0, p.gdy, p.gr5, p.gk1, p.gk7, p.gy0d};
+    const int slot[7] = {0, 1, 7, 8, 9, 10, 11};
+    for (int i = 0; i < 7; ++i) {
+      float v[NX][4];
+      ananke::ldg_rows_c<NX>(v, in[i], ra, rb, va, vb, t);
+      ananke::frag_st<NX>(v, fr + slot[i] * kFX, lane);
+    }
+    step_vjp_bf16<W>(p.w, sm, fr, ha, p.tf, p.hstep, slab, sl, sl.gtf, warp,
+                     lane);
+    float v[NX][4];
+    ananke::frag_ld<NX>(v, fr + 11 * kFX, lane);
+    ananke::stg_rows_c<NX>(v, p.gy0, ra, rb, va, vb, t);
+    ananke::frag_ld<NX>(v, fr + 12 * kFX, lane);
+    ananke::stg_rows_c<NX>(v, p.gf0, ra, rb, va, vb, t);
+    float ghh[DC / 8][4];
+    bf16_h_rows<W>(p.w, sm, fr + kGhp, ha, slab, sl.gw1h, ghh, warp, lane);
+    ananke::stg_rows_c<DC / 8>(ghh, p.gh, ra, rb, va, vb, t);
+  }
+}
+
+// ---- K6 -------------------------------------------------------------------
+//
+// One CTA owns an agent tile for every step: the TPU grid's sequential step
+// axis is the loop inside the block (the agents of a tile never interact in
+// the backward, so no grid-wide sync), the carries g_y, g_f (and, at bf16,
+// gh) never leave the chip between steps but through the CTA's own
+// scratch, the dense-output fold runs in the kernel from shared memory (the
+// rows a step did not fill are skipped), and every step's weight, zone and
+// time-row gradients go into the CTA's slab (time rows at slot 7 s + st),
+// summed over the CTAs in CTA order afterwards. The step body is a template
+// parameter: the float32 one (step_vjp_f32) or the bf16 one
+// (step_vjp_bf16); so is the checkpoints' storage type, widened as read.
+
+template <class Wt>
+struct BwdParams {
+  Wt w;
+  const float* tf;        // (n_acc, 7, H): each step's stage time rows
+  const void* ckpts;      // (max_acc, n, DA), CkptT
+  const void* ckpt_f;     // (max_acc, n, DA), CkptT
+  const float* g;         // (T, n, DA) the output rows' cotangents
+  const float* hc;        // (n, DC)
+  const float* steps;     // rec_t0 (n_acc) | rec_h (n_acc) | ts (T)
+  const int* out_step;    // (T): the step that filled each row, or -1
+  float* gy0;             // (n, DA)
+  float* gf0;             // (n, DA)
+  float* gh;              // (n, DC)
+  float* scratch;         // the tile bodies' per-CTA scratch
+  float* slab;            // (gridDim.x, slab size), zeroed by the caller
+  long slab_size;
+  size_t body_smem;       // bytes of the body's shared memory
+  int n, n_acc, T;
+};
+
+__device__ __forceinline__ float widen(const float* p, size_t i) {
+  return p[i];
+}
+__device__ __forceinline__ float widen(const bf16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+
+// K6's float32 body: tiles of R rows, 8 warps, the per-element mapping
+template <int R>
+struct F32Body {
+  static constexpr int kThreadsPerCta = kThreads;
+  static constexpr int kRows = R;
+  static constexpr int kElems = R * DA / kThreads;
+  static constexpr int RPT = R / kWarps;
+  using Params = BwdParams<Weights>;
+  static size_t smem_bytes(int nb) {
+    return f32_vjp_smem_floats<R>(nb) * sizeof(float);
+  }
+
+  const Params& p;
+  F32Vjp t;
+  SlabLayout L;
+  float *slab, *ks, *gk;
+  int wp, lane;
+  long row0;
+  float x0[kElems], gy[kElems], cy[kElems], cf[kElems], ghc[RPT];
+
+  __device__ F32Body(const Params& p_, unsigned char* raw)
+      : p(p_), L(p_.w.z, p_.w.nb, 7 * p_.n_acc) {
+    t = f32_vjp_smem<R>(reinterpret_cast<float*>(raw));
+    slab = p.slab + (size_t)blockIdx.x * p.slab_size;
+    ks = p.scratch + (size_t)blockIdx.x * 14 * R * DA;
+    gk = ks + 7 * R * DA;
+    wp = threadIdx.x >> 5;
+    lane = threadIdx.x & 31;
+  }
+  __device__ bool elem(int e, long& row, int& col) const {
+    row = row0 + wp + kWarps * e;
+    col = lane;
+    return row < p.n;
+  }
+  __device__ float carry_y(int e) const { return cy[e]; }
+  __device__ float carry_f(int e) const { return cf[e]; }
+  __device__ void begin_tile(int tile) {
+    row0 = (long)tile * R;
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < kElems; ++e) {
+      const int r = wp + kWarps * e;
+      const long g = row0 + r;
+      t.hin[r * DC + lane] = g < p.n ? p.hc[g * DC + lane] : 0.f;
+      cy[e] = cf[e] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) ghc[i] = 0.f;
+    f32_hpre<R>(p.w, t);
+  }
+  __device__ void set_step_input(int e, float x, float f0, const Gset& c,
+                                 float hs) {
+    const int o = (wp + kWarps * e) * DA + lane;
+    x0[e] = x;
+    ks[o] = f0;
+    for (int j = 0; j < 7; ++j) gk[j * R * DA + o] = stage_cot(j, hs, c);
+    gy[e] = c.y0d;
+  }
+  __device__ void step(int s, float hs) {
+    Weights ws = p.w;
+    ws.tf = p.tf + (size_t)7 * s * H;
+    step_vjp_f32<R>(ws, t, L, slab, L.gtf + (long)7 * s * H, hs, ks, gk, x0,
+                    gy);
+#pragma unroll
+    for (int e = 0; e < kElems; ++e) {
+      cy[e] = gy[e];
+      cf[e] = gk[(wp + kWarps * e) * DA + lane];
+    }
+    // hpre = h W1h: gh += ghp W1h^T, gW1h += h^T ghp, once a step
+    ntdot<R, DC, H, false>(t.hin, DC, t.ghp, H, nullptr, 0, nullptr, 0,
+                           slab + L.gw1h, DC);
+    mm<R, H, DC>(t.ghp, H, p.w.w1hT, DC, t.s.wbuf,
+                 [&](float (&acc)[RPT][1]) {
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) ghc[i] = __fadd_rn(ghc[i], acc[i][0]);
+    });
+  }
+  __device__ void end_tile() {
+#pragma unroll
+    for (int e = 0; e < kElems; ++e) {
+      long g;
+      int c;
+      if (elem(e, g, c)) {
+        p.gy0[g * DA + c] = cy[e];
+        p.gf0[g * DA + c] = cf[e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const long g = row0 + wp + kWarps * i;
+      if (g < p.n) p.gh[g * DC + lane] = ghc[i];
+    }
+  }
+};
+
+// K6's bf16 body: tiles of 16 W rows, the fragment mapping (element 4 q + c
+// of a lane: row g + 8 (c >> 1) of its warp's 16, column 8 q + 2 t + (c & 1))
+template <int W>
+struct Bf16Body {
+  static constexpr int kThreadsPerCta = 32 * W;
+  static constexpr int kRows = 16 * W;
+  static constexpr int kElems = (DA / 8) * 4;
+  using Params = BwdParams<StageWeights>;
+  static size_t smem_bytes(int nb) { return BLayout::bytes(kRows, W, nb); }
+
+  const Params& p;
+  StageSmem sm;
+  BSlab sl;
+  float *slab, *fr;
+  int warp, lane, g, t;
+  long ra, rb;
+  bool va, vb;
+  uint32_t ha[DC / 16][4];
+
+  __device__ Bf16Body(const Params& p_, unsigned char* raw)
+      : p(p_), sl(p_.w.z, p_.w.num_blocks, 7 * p_.n_acc) {
+    sm = ananke::stage_smem<DA, DZ, DC, H, W>(raw, p.w.num_blocks);
+    warp = threadIdx.x / 32;
+    lane = threadIdx.x % 32;
+    g = lane >> 2;
+    t = lane & 3;
+    slab = p.slab + (size_t)blockIdx.x * p.slab_size;
+    fr = p.scratch + ((size_t)blockIdx.x * W + warp) * kWarpFloats;
+  }
+  __device__ bool elem(int e, long& row, int& col) const {
+    const int c = e & 3;
+    row = (c & 2) ? rb : ra;
+    col = 8 * (e >> 2) + 2 * t + (c & 1);
+    return (c & 2) ? vb : va;
+  }
+  __device__ float carry_y(int e) const { return fr[11 * kFX + e * 32 + lane]; }
+  __device__ float carry_f(int e) const { return fr[12 * kFX + e * 32 + lane]; }
+  __device__ void begin_tile(int tile) {
+    ra = (long)tile * kRows + warp * 16 + g;
+    rb = ra + 8;
+    va = ra < p.n;
+    vb = rb < p.n;
+    ananke::ldg_rows_a<DC>(ha, p.hc, ra, rb, va, vb, t);
+    for (int i = 0; i < kElems; ++i)
+      fr[11 * kFX + i * 32 + lane] = fr[12 * kFX + i * 32 + lane] =
+          fr[13 * kFX + i * 32 + lane] = 0.f;
+  }
+  __device__ void set_step_input(int e, float x, float f0, const Gset& c,
+                                 float) {
+    const int i0 = e * 32 + lane;
+    fr[i0] = x;
+    fr[kFX + i0] = f0;
+    fr[7 * kFX + i0] = c.dy;
+    fr[8 * kFX + i0] = c.r5;
+    fr[9 * kFX + i0] = c.k1x;
+    fr[10 * kFX + i0] = c.k7x;
+    fr[11 * kFX + i0] = c.y0d;
+  }
+  __device__ void step(int s, float hs) {
+    step_vjp_bf16<W>(p.w, sm, fr, ha, p.tf + (size_t)7 * s * H, hs, slab, sl,
+                     sl.gtf + (long)7 * s * H, warp, lane);
+    float ghh[DC / 8][4], acc[DC / 8][4];
+    bf16_h_rows<W>(p.w, sm, fr + kGhp, ha, slab, sl.gw1h, ghh, warp, lane);
+    ananke::frag_ld<DC / 8>(acc, fr + 13 * kFX, lane);
+#pragma unroll
+    for (int q = 0; q < DC / 8; ++q)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[q][c] = __fadd_rn(acc[q][c], ghh[q][c]);
+    ananke::frag_st<DC / 8>(acc, fr + 13 * kFX, lane);
+  }
+  __device__ void end_tile() {
+    float v[DA / 8][4];
+    ananke::frag_ld<DA / 8>(v, fr + 11 * kFX, lane);
+    ananke::stg_rows_c<DA / 8>(v, p.gy0, ra, rb, va, vb, t);
+    ananke::frag_ld<DA / 8>(v, fr + 12 * kFX, lane);
+    ananke::stg_rows_c<DA / 8>(v, p.gf0, ra, rb, va, vb, t);
+    ananke::frag_ld<DA / 8>(v, fr + 13 * kFX, lane);
+    ananke::stg_rows_c<DC / 8>(v, p.gh, ra, rb, va, vb, t);
+  }
+};
+
+// floats of shared memory K6 adds to its body's: the recorded steps' starts
+// and sizes, the output times and the rows' steps
+inline size_t bwd_extra_bytes(int n_acc, int T) {
+  return (size_t)(2 * n_acc + 2 * T) * sizeof(float);
+}
+
+template <class Body, class CkptT>
+__global__ void __launch_bounds__(Body::kThreadsPerCta, 1)
+    dopri5_backward_kernel(const typename Body::Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Body body(p, smem_raw);
+  float* t0s = reinterpret_cast<float*>(smem_raw + p.body_smem);
+  float* hss = t0s + p.n_acc;
+  float* tss = hss + p.n_acc;
+  int* ost = reinterpret_cast<int*>(tss + p.T);
+  for (int i = threadIdx.x; i < 2 * p.n_acc + p.T; i += blockDim.x)
+    t0s[i] = p.steps[i];
+  for (int i = threadIdx.x; i < p.T; i += blockDim.x) ost[i] = p.out_step[i];
+  __syncthreads();
+  const CkptT* ck = static_cast<const CkptT*>(p.ckpts);
+  const CkptT* ckf = static_cast<const CkptT*>(p.ckpt_f);
+  const int n_tiles = (p.n + Body::kRows - 1) / Body::kRows;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    body.begin_tile(tile);
+    for (int s = p.n_acc - 1; s >= 0; --s) {
+      const float hs = hss[s], t0 = t0s[s];
+      const size_t plane = (size_t)s * p.n * DA;
+#pragma unroll
+      for (int e = 0; e < Body::kElems; ++e) {
+        long row;
+        int col;
+        const bool v = body.elem(e, row, col);
+        float gr[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+        for (int r = 0; r < p.T; ++r) {
+          if (ost[r] != s) continue;
+          float w[5];
+          contd5_weights(tss[r], t0, hs, w);
+          const float gv = v ? p.g[((size_t)r * p.n + row) * DA + col] : 0.f;
+#pragma unroll
+          for (int k = 0; k < 5; ++k)
+            gr[k] = __fadd_rn(gr[k], __fmul_rn(w[k], gv));
+        }
+        const size_t i = plane + (size_t)row * DA + col;
+        body.set_step_input(
+            e, v ? widen(ck, i) : 0.f, v ? widen(ckf, i) : 0.f,
+            fold_gset(body.carry_y(e), body.carry_f(e), gr, hs), hs);
+      }
+      body.step(s, hs);
+    }
+    body.end_tile();
   }
 }
 
@@ -897,8 +1492,20 @@ void set_weights(Weights& w, const void* const* p, const void* ze,
   w.scale = 0.125f;  // 1 / sqrt(DZ)
 }
 
+void set_weights_bf16(StageWeights& w, const void* const* p, const void* ze,
+                      const void* zeT, int z, int zp, int nb) {
+  ananke::set_weights(w, p);
+  w.ze = static_cast<const bf16*>(ze);
+  w.zeT = static_cast<const bf16*>(zeT);
+  w.z = z; w.zp = zp; w.num_blocks = nb;
+}
+
+// the largest dynamic shared memory a block can use
+constexpr size_t kMaxSmem = 232448;
+
 template <class K>
 int set_smem(K kernel, size_t bytes) {
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
@@ -906,7 +1513,7 @@ int set_smem(K kernel, size_t bytes) {
 template <int R>
 int launch_vjp(const VjpParams& p, int num_ctas, cudaStream_t s) {
   auto* kernel = dopri5_vjp_kernel<R>;
-  const size_t bytes = vjp_smem_floats<R>(p.w.nb) * sizeof(float);
+  const size_t bytes = f32_vjp_smem_floats<R>(p.w.nb) * sizeof(float);
   int err = set_smem(kernel, bytes);
   if (err) return err;
   kernel<<<num_ctas, kThreads, bytes, s>>>(p);
@@ -916,18 +1523,81 @@ int launch_vjp(const VjpParams& p, int num_ctas, cudaStream_t s) {
                        p.slab_size, num_ctas, s);
 }
 
+template <int W>
+int launch_vjp_bf16(const VjpBf16Params& p, int num_ctas, cudaStream_t s) {
+  auto* kernel = dopri5_vjp_bf16_kernel<W>;
+  const size_t bytes = BLayout::bytes(16 * W, W, p.w.num_blocks);
+  int err = set_smem(kernel, bytes);
+  if (err) return err;
+  kernel<<<num_ctas, 32 * W, bytes, s>>>(p);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_reduce(p.slab, p.slab + (size_t)num_ctas * p.slab_size,
+                       p.slab_size, num_ctas, s);
+}
+
+template <class Body, class CkptT>
+int launch_backward(typename Body::Params p, int nb, int num_ctas,
+                    cudaStream_t s) {
+  auto* kernel = dopri5_backward_kernel<Body, CkptT>;
+  p.body_smem = Body::smem_bytes(nb);
+  const size_t bytes = p.body_smem + bwd_extra_bytes(p.n_acc, p.T);
+  int err = set_smem(kernel, bytes);
+  if (err) return err;
+  kernel<<<num_ctas, Body::kThreadsPerCta, bytes, s>>>(p);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_reduce(p.slab, p.slab + (size_t)num_ctas * p.slab_size,
+                       p.slab_size, num_ctas, s);
+}
+
+template <class Wt>
+void set_bwd_params(BwdParams<Wt>& p, const void* ckpts, const void* ckpt_f,
+                    const void* g, const void* hc, const void* tf,
+                    const void* steps, const void* out_step, void* gy0,
+                    void* gf0, void* gh, void* scratch, void* slab,
+                    long slab_size, int n, int n_acc, int T) {
+  p.tf = static_cast<const float*>(tf);
+  p.ckpts = ckpts;
+  p.ckpt_f = ckpt_f;
+  p.g = static_cast<const float*>(g);
+  p.hc = static_cast<const float*>(hc);
+  p.steps = static_cast<const float*>(steps);
+  p.out_step = static_cast<const int*>(out_step);
+  p.gy0 = static_cast<float*>(gy0);
+  p.gf0 = static_cast<float*>(gf0);
+  p.gh = static_cast<float*>(gh);
+  p.scratch = static_cast<float*>(scratch);
+  p.slab = static_cast<float*>(slab);
+  p.slab_size = slab_size;
+  p.n = n;
+  p.n_acc = n_acc;
+  p.T = T;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Agent rows per tile: K5 32; K7 32 up to 4 residual blocks, 16 beyond
-// (its chain of block activations must fit in shared memory).
-int ananke_dopri5_tile_rows(int num_blocks, int vjp) {
-  return vjp && num_blocks > 4 ? 16 : 32;
+// Agent rows per tile of a kernel's body: kind 0 K5 (32), kind 1 the
+// float32 step VJP (32 up to 4 residual blocks, 16 beyond: its chain of
+// block activations must fit in shared memory), kind 2 the bf16 step VJP
+// (64, or 32 at 8 blocks).
+int ananke_dopri5_tile_rows(int num_blocks, int kind) {
+  if (kind == 2) return 16 * bf16_warps(num_blocks);
+  return kind == 1 && num_blocks > 4 ? 16 : 32;
 }
 
-long ananke_dopri5_slab_size(int z, int num_blocks) {
-  return SlabLayout(z, num_blocks).size;
+// Floats of one CTA's scratch in device memory of a step-VJP body (kind 1
+// or 2, as ananke_dopri5_tile_rows).
+long ananke_dopri5_scratch_floats(int num_blocks, int kind) {
+  if (kind == 2) return (long)bf16_warps(num_blocks) * kWarpFloats;
+  return 14L * ananke_dopri5_tile_rows(num_blocks, 1) * DA;
+}
+
+// Floats of one CTA's slab with `tf_rows` time rows (K7 7, K6 7 n_acc).
+long ananke_dopri5_slab_size(int z, int num_blocks, int tf_rows) {
+  return SlabLayout(z, num_blocks, tf_rows).size;
 }
 
 // K5 on `stream`: the step kernel, then the sum of the CTAs' partial error
@@ -978,28 +1648,55 @@ int ananke_dopri5_step(
                        s);
 }
 
-// K7 on `stream`: the VJP kernel, then the slab reduction into gsum, which
+// K7 on `stream` at float32 (bf16 = 0: the 12 float32 weights of
+// set_weights, zones padded to a multiple of 32) or bf16 (bf16 = 1: the 12
+// bf16 weights of drift_stage.cuh's set_weights, zones padded to a multiple
+// of 16): the VJP kernel, then the slab reduction into the slab that
 // follows the num_ctas slabs in `slab` (the caller zeroes the slabs).
 int ananke_dopri5_step_vjp(
     const void* x, const void* f0, const void* h, const void* ze,
-    const void* zeT, const void* tf, const void* wq, const void* wqT,
-    const void* w1xc, const void* w1xcT, const void* w1h, const void* w1hT,
-    const void* wr, const void* wrT, const void* br, const void* w3,
-    const void* w3T, const void* b3, const void* gdy, const void* gr5,
+    const void* zeT, const void* tf, const void* w0, const void* w1,
+    const void* w2, const void* w3, const void* w4, const void* w5,
+    const void* w6, const void* w7, const void* w8, const void* w9,
+    const void* w10, const void* w11, const void* gdy, const void* gr5,
     const void* gk1, const void* gk7, const void* gy0d, void* gy0, void* gf0,
     void* gh, void* scratch, void* slab, int n, int z, int zp,
-    int num_blocks, int num_ctas, float hstep, int da, int dz, int dc,
-    int hdim, void* stream) {
-  const int rows = ananke_dopri5_tile_rows(num_blocks, 1);
+    int num_blocks, int num_ctas, int bf16_body, float hstep, int da, int dz,
+    int dc, int hdim, void* stream) {
+  const int rows = ananke_dopri5_tile_rows(num_blocks, bf16_body ? 2 : 1);
   const int n_tiles = (n + rows - 1) / rows;
   if (!widths_ok(da, dz, dc, hdim) || num_blocks < 1 ||
-      num_blocks > kMaxBlocks || n < 1 || z < 1 || zp % kZC != 0 || zp < z ||
-      num_ctas < 1 || num_ctas > n_tiles) {
+      num_blocks > kMaxBlocks || n < 1 || z < 1 ||
+      zp % (bf16_body ? 16 : kZC) != 0 || zp < z || num_ctas < 1 ||
+      num_ctas > n_tiles) {
     return (int)cudaErrorInvalidValue;
   }
+  const void* wts[12] = {w0, w1, w2, w3, w4, w5, w6, w7, w8, w9, w10, w11};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_body) {
+    VjpBf16Params p;
+    set_weights_bf16(p.w, wts, ze, zeT, z, zp, num_blocks);
+    p.tf = static_cast<const float*>(tf);
+    p.x = static_cast<const float*>(x);
+    p.f0 = static_cast<const float*>(f0);
+    p.h = static_cast<const float*>(h);
+    p.gdy = static_cast<const float*>(gdy);
+    p.gr5 = static_cast<const float*>(gr5);
+    p.gk1 = static_cast<const float*>(gk1);
+    p.gk7 = static_cast<const float*>(gk7);
+    p.gy0d = static_cast<const float*>(gy0d);
+    p.gy0 = static_cast<float*>(gy0);
+    p.gf0 = static_cast<float*>(gf0);
+    p.gh = static_cast<float*>(gh);
+    p.scratch = static_cast<float*>(scratch);
+    p.slab = static_cast<float*>(slab);
+    p.slab_size = SlabLayout(z, num_blocks, 7).size;
+    p.n = n;
+    p.hstep = hstep;
+    return bf16_warps(num_blocks) == 4 ? launch_vjp_bf16<4>(p, num_ctas, s)
+                                       : launch_vjp_bf16<2>(p, num_ctas, s);
+  }
   VjpParams p;
-  const void* wts[12] = {wq, wqT, w1xc, w1xcT, w1h, w1hT,
-                         wr, wrT, br, w3, w3T, b3};
   set_weights(p.w, wts, ze, zeT, tf, z, zp, num_blocks);
   p.x = static_cast<const float*>(x);
   p.f0 = static_cast<const float*>(f0);
@@ -1014,12 +1711,64 @@ int ananke_dopri5_step_vjp(
   p.gh = static_cast<float*>(gh);
   p.scratch = static_cast<float*>(scratch);
   p.slab = static_cast<float*>(slab);
-  p.slab_size = SlabLayout(z, num_blocks).size;
+  p.slab_size = SlabLayout(z, num_blocks, 7).size;
   p.n = n;
   p.hstep = hstep;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return rows == 32 ? launch_vjp<32>(p, num_ctas, s)
                     : launch_vjp<16>(p, num_ctas, s);
+}
+
+// K6 on `stream`: the whole backward over the n_acc recorded steps, then the
+// slab reduction into the slab that follows the num_ctas slabs in `slab`
+// (the caller zeroes the slabs; their time rows are 7 n_acc). Weights and
+// zones as ananke_dopri5_step_vjp takes them at `bf16_body`; tf (n_acc, 7,
+// H); steps rec_t0 (n_acc) | rec_h (n_acc) | ts (T); out_step (T) int32;
+// the checkpoints float32, or bf16 where ckpt_bf16.
+int ananke_dopri5_backward_all(
+    const void* ckpts, const void* ckpt_f, const void* g, const void* hc,
+    const void* ze, const void* zeT, const void* tf, const void* steps,
+    const void* out_step, const void* w0, const void* w1, const void* w2,
+    const void* w3, const void* w4, const void* w5, const void* w6,
+    const void* w7, const void* w8, const void* w9, const void* w10,
+    const void* w11, void* gy0, void* gf0, void* gh, void* scratch,
+    void* slab, int n, int z, int zp, int num_blocks, int num_ctas,
+    int n_acc, int T, int bf16_body, int ckpt_bf16, int da, int dz, int dc,
+    int hdim, void* stream) {
+  const int rows = ananke_dopri5_tile_rows(num_blocks, bf16_body ? 2 : 1);
+  const int n_tiles = (n + rows - 1) / rows;
+  if (!widths_ok(da, dz, dc, hdim) || num_blocks < 1 ||
+      num_blocks > kMaxBlocks || n < 1 || z < 1 ||
+      zp % (bf16_body ? 16 : kZC) != 0 || zp < z || num_ctas < 1 ||
+      num_ctas > n_tiles || n_acc < 1 || T < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const void* wts[12] = {w0, w1, w2, w3, w4, w5, w6, w7, w8, w9, w10, w11};
+  const long size = SlabLayout(z, num_blocks, 7 * n_acc).size;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_body) {
+    BwdParams<StageWeights> p;
+    set_weights_bf16(p.w, wts, ze, zeT, z, zp, num_blocks);
+    set_bwd_params(p, ckpts, ckpt_f, g, hc, tf, steps, out_step, gy0, gf0,
+                   gh, scratch, slab, size, n, n_acc, T);
+    if (bf16_warps(num_blocks) == 4)
+      return ckpt_bf16
+                 ? launch_backward<Bf16Body<4>, bf16>(p, num_blocks, num_ctas, s)
+                 : launch_backward<Bf16Body<4>, float>(p, num_blocks, num_ctas, s);
+    return ckpt_bf16
+               ? launch_backward<Bf16Body<2>, bf16>(p, num_blocks, num_ctas, s)
+               : launch_backward<Bf16Body<2>, float>(p, num_blocks, num_ctas, s);
+  }
+  BwdParams<Weights> p;
+  set_weights(p.w, wts, ze, zeT, tf, z, zp, num_blocks);
+  set_bwd_params(p, ckpts, ckpt_f, g, hc, tf, steps, out_step, gy0, gf0, gh,
+                 scratch, slab, size, n, n_acc, T);
+  if (rows == 32)
+    return ckpt_bf16
+               ? launch_backward<F32Body<32>, bf16>(p, num_blocks, num_ctas, s)
+               : launch_backward<F32Body<32>, float>(p, num_blocks, num_ctas, s);
+  return ckpt_bf16
+             ? launch_backward<F32Body<16>, bf16>(p, num_blocks, num_ctas, s)
+             : launch_backward<F32Body<16>, float>(p, num_blocks, num_ctas, s);
 }
 
 const char* ananke_cuda_error_string(int err) {

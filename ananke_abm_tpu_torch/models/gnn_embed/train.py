@@ -732,21 +732,23 @@ def build_adjoint_loss_fn_g(model, config, static, use_fused="auto",
     each attempted step runs the step kernel (K5, with the controller's
     error norm reduced in the kernel at the config's tolerances) and each
     accepted step's VJP the VJP kernel (K7); ``max_accepted`` and
-    ``ckpt_every`` size its recording, ``bwd_precision`` sets the VJP's
-    precision (None: the forward's float32). ``store_f="auto"`` records the
-    FSAL evals, and ``ckpt_dtype="auto"`` narrows the state checkpoints to
-    bf16, exactly when ``ckpt_every == 1`` with ``bwd_precision="bf16"``
-    (the two bf16 buffers then cost what the float32 state buffer alone
-    did); explicit values override.
+    ``ckpt_every`` size its recording, ``bwd_precision`` sets the VJPs'
+    precision (None: the forward's float32; "bf16": the bf16 stage math).
+    ``store_f="auto"`` records the FSAL evals, and ``ckpt_dtype="auto"``
+    narrows the state checkpoints to bf16, exactly when ``ckpt_every == 1``
+    with ``bwd_precision="bf16"`` (the two bf16 buffers then cost what the
+    float32 state buffer alone did); explicit values override. With
+    ``ckpt_every == 1`` and the FSAL evals recorded the whole backward is
+    one launch of K6 (``fused_dopri5.dopri5_backward_fused``) in place of
+    one K7 launch per accepted step: bench rung 3's
+    ``max_accepted=256, ckpt_every=1, bwd_precision="bf16"``.
 
     ``use_fused``: "auto" takes the mode's kernels where the model is on
     CUDA, ``attn_temp == 1.0`` and the kernels take the configuration's
     widths and depth, decided before anything launches; elsewhere the
     plain route (autograd of ``model.rhs``). True forces the kernels'
     route (their plain versions on the CPU; on CUDA widths they do not
-    take raise from the wrappers); False keeps the plain route. On CUDA
-    the discrete kernels take ``bwd_precision="bf16"`` only with K6 (ROADMAP
-    item 7b): their route raises NotImplementedError when it is built.
+    take raise from the wrappers); False keeps the plain route.
     ``_plain``: the discrete kernels' route runs their plain versions, on
     the card too (the check the kernels are held against).
 

@@ -20,7 +20,14 @@ Hooks, the split of ``dopri5_solve``:
   forward's bits for the VJP to be exact);
 - ``step_vjp(t0, h, y, f, args, gset) -> (gy, gf, gargs)`` with ``gset =
   (g_dy, g_r5, g_k1x, g_k7x, g_y0_direct)``: one step's VJP. The generic
-  one differentiates the tableau step with ``torch.autograd.grad``.
+  one differentiates the tableau step with ``torch.autograd.grad``;
+- ``step_vjp.backward_all(ckpts, ckpt_f, rec_t0, rec_h, n_acc, g,
+  out_step, ts, args) -> (gy, gf, gargs)``, where a ``step_vjp`` has it:
+  the whole backward at once (every step's VJP in reverse, the
+  dense-output fold and the carries), taken in place of the per-step loop
+  at ``ckpt_every=1`` with ``store_f`` recording and a single-tensor
+  state; ``gy`` and ``gf`` are the carries after step 0. Its replays and
+  VJPs are not counted in ``stats``.
 
 Cotangent folding: with ``dy = h sum_j b5_j k_j`` the step's outputs are
 ``y1 = y0 + dy``, ``f1 = k7`` and the CONTD5 coefficients ``r1 = y0``,
@@ -127,7 +134,17 @@ class _OdeintDiscrete(torch.autograd.Function):
         g_f = torch.zeros_like(g[0])
         g_args = [torch.zeros_like(l) for l in leaves]
         zero_row = torch.zeros_like(g[0])
-        for s in range(-(-n_acc // K) - 1, -1, -1):
+        # the whole backward in one hook call (a kernel that carries the
+        # cotangents on chip): every step checkpointed with its FSAL eval,
+        # and a single-tensor state
+        backward_all = getattr(vjp, "backward_all", None)
+        whole = (backward_all is not None and K == 1 and ckpt_f is not None
+                 and torch.is_tensor(ckpts) and torch.is_tensor(ckpt_f))
+        if whole:
+            g_y, g_f, gargs = backward_all(ckpts, ckpt_f, rec_t0, rec_h,
+                                           n_acc, g, out_step, ts, args)
+            g_args = tree_leaves(gargs)
+        for s in range(-1 if whole else -(-n_acc // K) - 1, -1, -1):
             # checkpoints may be stored narrowed: widen to the cotangent's
             # type for the replay and the VJP
             y = ckpts[s].to(g.dtype)

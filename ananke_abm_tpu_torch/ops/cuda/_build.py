@@ -62,9 +62,11 @@ _ENTRY = {
         "ananke_dopri5_step": (
             [_P] * 24 + [_I] * 6 + [_F] * 3 + [_I] * 4 + [_P], _I),
         "ananke_dopri5_step_vjp": (
-            [_P] * 28 + [_I] * 5 + [_F] + [_I] * 4 + [_P], _I),
+            [_P] * 28 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
+        "ananke_dopri5_backward_all": ([_P] * 26 + [_I] * 13 + [_P], _I),
         "ananke_dopri5_tile_rows": ([_I] * 2, _I),
-        "ananke_dopri5_slab_size": ([_I] * 2, _L),
+        "ananke_dopri5_scratch_floats": ([_I] * 2, _L),
+        "ananke_dopri5_slab_size": ([_I] * 3, _L),
     },
 }
 

@@ -1,5 +1,5 @@
-"""The bounds the training kernels (K8, K2f, K2b, K3f, K3b, K4f, K4b, K5, K7) are
-held to against their plain versions on the card, and the random operands of
+"""The bounds the training kernels (K8, K2f, K2b, K3f, K3b, K4f, K4b, K5, K7,
+K6) are held to against their plain versions on the card, and the random operands of
 those checks: one copy, for ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py``.
 
@@ -14,6 +14,7 @@ the float32 accumulation), which must fail it: ``chip_smoke.py
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # K8 (the adjoint RHS), for 2 residual blocks, scaled by (2 + blocks) / 4:
@@ -93,6 +94,38 @@ GAT_BWD_BOUNDS = (1e-4, 1e-4, 1e-9)
 # control fails them.
 DOPRI5_STEP_BOUNDS = (1e-4, 1e-4, 1e-9)
 DOPRI5_VJP_BOUNDS = (5e-5, 5e-5, 1e-9)
+# K7 at bf16 and K6 (the whole backward) at both precisions, per output
+# (dopri5_vjp_outputs). The controls: bf16 products (bf16_control) for the
+# bf16 kernels, TF32 products for K6 at float32. The bf16 bounds grow with
+# depth as the day kernels' do: (bound at 2 blocks, power of s = (2 +
+# blocks) / 4), through day_bounds; the powers are those that best part the
+# sound readings from the control's. Readings (chip_smoke.py --readings
+# dopri5: DOPRI5_SHAPES and DOPRI5_READING_SHAPES, N 333-98,304, Z 7-2,048,
+# 1-8 blocks, seeds 0-2, K6 over 6 of 8 recorded steps and 12 output rows,
+# checkpoints bf16 and float32; H100 80GB HBM3, 700 W), at 2 blocks' scale:
+# - K7-bf16: sound mean <= 8.9e-3 (s^1.25), max <= 1.9e-2 (s^1), 1 - cos
+#   <= 3.9e-5 (s^2.5); control >= 1.8e-2, >= 2.4e-2, >= 1.6e-4;
+# - K6-bf16: sound mean <= 1.4e-2 (s^1.5), max <= 3.6e-2 (s^1), 1 - cos
+#   <= 9.5e-5 (s^3); control >= 2.5e-2, >= 4.2e-2, >= 3.5e-4. At the CUDA
+#   tests' small shapes (33 and 333 agents, 5 blocks, records (7, 5, 6)
+#   and (8, 6, 12), seed 0) a sound K6 read up to 1.8e-2 mean and 1.6e-4
+#   1 - cos at 2 blocks' scale (333 agents, record (7, 5, 6): a bias
+#   gradient summed over few agents), the control >= 3.0e-2 and 5.0e-4.
+#   As for the day kernels, the mean and the cosine part the two; the max
+#   only catches rows gone wrong;
+# - K6-f32 (float32, sums in other orders): sound <= 1.8e-5, 2.6e-5,
+#   1.5e-10 at any depth; control >= 2.2e-3, >= 2.7e-3, >= 2.5e-6.
+# Against the float64 witness (float64_witness for the bf16 kernels,
+# float64_operands for K6-f32) kernel and plain version lie about as far
+# as from each other, within these bounds (<= 0.87 of each), and every
+# control outside them.
+DOPRI5_VJP_BF16_BOUNDS = ((1.2e-2, 1.25), (3e-2, 1), (8e-5, 2.5))
+# (max_acc, n_acc, output rows) of the K6 checks' recordings
+# (dopri5_backward_operands): steps past n_acc recorded too, one output row
+# at the end of the last accepted step; rung 3's 12 output times
+K6_RECORD = (8, 6, 12)
+DOPRI5_BWD_BOUNDS = (5e-5, 5e-5, 1e-9)
+DOPRI5_BWD_BF16_BOUNDS = ((2.2e-2, 1.5), (6e-2, 1), (2.4e-4, 3))
 
 
 def bf16_product_dot(a16, b16):
@@ -318,6 +351,51 @@ def dopri5_operands(model, n, z, dev, seed, t0=6.1, h_step=0.37):
                 h_step)
         cot = tuple(rows(da) for _ in range(5))
     return args, cot
+
+
+def dopri5_backward_operands(model, n, z, dev, seed, max_acc, n_acc,
+                             num_times, ckpt_dtype=torch.float32):
+    """The operands of ``dopri5_backward_fused`` for a model: a recording of
+    ``n_acc`` of ``max_acc`` steps (sizes in [0.2, 2), random checkpoints
+    and FSAL evals in ``ckpt_dtype``, past n_acc too), ``num_times`` output
+    rows (row 0 filled by no step, the rest inside random accepted steps,
+    the last at the end of the last step), their random cotangents, random
+    context and zones, all from ``seed``; the time rows of every recorded
+    step; the weights split from the model. Without the precision."""
+    from ananke_abm_tpu_torch.models.gnn_embed.params import (
+        flax_leaf_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda.fused_dopri5 import stage_time_table
+    from ananke_abm_tpu_torch.ops.cuda.fused_rhs import split_drift_params
+
+    rng = np.random.default_rng(seed)
+    rec_h = np.zeros(max_acc, np.float32)
+    rec_t0 = np.zeros(max_acc, np.float32)
+    rec_h[:n_acc] = rng.uniform(0.2, 2.0, n_acc).astype(np.float32)
+    rec_t0[1:n_acc] = np.cumsum(rec_h[:n_acc - 1], dtype=np.float32)
+    steps = rng.integers(0, n_acc, num_times - 2)
+    theta = rng.uniform(0.05, 1.0, num_times - 2).astype(np.float32)
+    order = np.argsort(steps + theta)  # increasing output times
+    steps, theta = steps[order], theta[order]
+    out_step = np.concatenate([[-1], steps, [n_acc - 1]])
+    ts = np.concatenate([[0.0], rec_t0[steps] + theta * rec_h[steps],
+                         [rec_t0[n_acc - 1] + rec_h[n_acc - 1]]]).astype(
+        np.float32)
+    with torch.no_grad():
+        (Wq, W1xc, W1h, W1t, b1, blocks, W3, b3) = (
+            split_drift_params(dict(flax_leaf_params(model))))
+        g = torch.Generator(device=dev).manual_seed(seed)
+        rnd = lambda *s: torch.randn(*s, device=dev, generator=g)
+        da, dc = Wq.shape[0], W1h.shape[0]
+        d = lambda w: w.detach().contiguous()
+        ckpts = rnd(max_acc, n, da).to(ckpt_dtype)
+        ckpt_f = (0.3 * rnd(max_acc, n, da)).to(ckpt_dtype)
+        hc, ze = rnd(n, dc), rnd(z, Wq.shape[1])
+        cot = 0.1 * rnd(num_times, n, da)
+        tf_all = stage_time_table(rec_t0, rec_h, d(W1t), d(b1))
+        return (ckpts, ckpt_f, hc, ze, tf_all, rec_t0, rec_h, n_acc, cot,
+                out_step, ts, d(Wq), d(W1xc), d(W1h),
+                tuple(tuple(d(w) for w in b) for b in blocks), d(W3), d(b3))
 
 
 def dopri5_step_outputs(out):

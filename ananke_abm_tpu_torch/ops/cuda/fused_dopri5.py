@@ -1,9 +1,8 @@
-"""One DOPRI5 step of the GAT-ODE drift, and its VJP, for the discrete
-adjoint: each one kernel.
+"""The DOPRI5 step of the GAT-ODE drift, the VJP of one accepted step, and
+the whole discrete-adjoint backward: each one kernel.
 
-Port of ``ananke_abm_tpu/ops/pallas/fused_dopri5.py`` but its whole-backward
-kernel (``dopri5_backward_fused``, ROADMAP.md queue 1 item 7b). Two kernels
-(CUDA C++ in ``csrc/fused_dopri5.cu``) replace two Pallas kernels of that
+Port of ``ananke_abm_tpu/ops/pallas/fused_dopri5.py``. Three kernels (CUDA
+C++ in ``csrc/fused_dopri5.cu``) replace the three Pallas kernels of that
 file, each with its plain PyTorch version beside it:
 
 - :func:`dopri5_step_fused` (K5, ``dopri5_step_fused``) and
@@ -11,21 +10,29 @@ file, each with its plain PyTorch version beside it:
   update, the FSAL eval, the embedded error (or, with ``err_stats``, the
   masked sum of its scaled squares) and the CONTD5 coefficient ``r5``;
 - :func:`dopri5_step_vjp_fused` (K7, ``dopri5_step_vjp_fused``) and
-  :func:`dopri5_step_vjp_reference`: the VJP of one accepted step.
+  :func:`dopri5_step_vjp_reference`: the VJP of one accepted step;
+- :func:`dopri5_backward_fused` (K6, ``dopri5_backward_fused``) and
+  :func:`dopri5_backward_reference`: the VJPs of every accepted step in
+  reverse, the dense-output cotangent fold of each step and the cotangent
+  carries between steps, in one launch.
 
-Both run the shared stage math (``fused_step.stage_math`` /
-``stage_vjp_math``) in float32 throughout (``precision="f32"``, the
-identity cast): bf16 rounding of the stage activations is noise that does
-not cancel in the embedded 5(4) error and floors the step controller. The
-plain versions also take ``precision="bf16"`` (the reference's loose
-class); the kernels take float32 only.
+All run the shared stage math (``fused_step.stage_math`` /
+``stage_vjp_math``). K5 runs it in float32 throughout (``precision="f32"``,
+the identity cast): bf16 rounding of the stage activations is noise that
+does not cancel in the embedded 5(4) error and floors the step controller.
+K5's bf16 branch has no kernel (no trainer path runs a bf16 forward; ROADMAP.md
+queue 2): on CUDA it raises. K7 and K6 take ``precision="f32"`` (float32
+FFMA) or ``"bf16"`` (bf16 operands and float32 sums at the reference's
+rounding points, on ``csrc/drift_stage.cuh``): the backward replays the
+forward's float32 step sequence, so a bf16 backward costs gradient noise,
+not a different solve.
 
 Each wrapper takes its plain version for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises (widths it is not compiled for, a
 precision it does not take, a refused launch); there is no fallback.
 ``.launches`` counts the kernel launches. :func:`make_fused_dopri5_hooks`
 builds the ``(step_impl, step_vjp)`` pair ``ode.odeint_discrete_adjoint``
-takes.
+takes, ``step_vjp.backward_all`` the whole-backward hook.
 
 Weights are passed as the reference passes them: float32, in the JAX
 package's layout (every matrix (in, out)), as ``split_drift_params``
@@ -53,6 +60,8 @@ from ananke_abm_tpu_torch.ops.cuda.fused_rhs import (
     NUM_SLABS,
     _scale,
     grad_layout,
+    pack_stage_weights,
+    pad_zones,
     split_drift_params,
     split_grads,
 )
@@ -89,9 +98,24 @@ def stage_time_rows(t0, h_step, W1t, b1):
     times ``t0 + c_i h`` (row 0 unused: k1 is the FSAL input), the times
     in the reference's float32 arithmetic. Differentiable with respect to
     W1t and b1."""
-    stage_t = F(t0) + np.asarray(_C, np.float32) * F(h_step)
-    return time_feature_table(torch.from_numpy(stage_t).to(W1t.device),
-                              W1t, b1)
+    return stage_time_table([t0], [h_step], W1t, b1)[0]
+
+
+def _host_f32(a):
+    return (a.detach().cpu().numpy() if torch.is_tensor(a)
+            else np.asarray(a)).astype(np.float32)
+
+
+def stage_time_table(rec_t0, rec_h, W1t, b1):
+    """(S, 7, H) float32: :func:`stage_time_rows` of every recorded step
+    (start ``rec_t0[s]``, size ``rec_h[s]``, each (S,)), the times in the
+    reference's float32 arithmetic. Differentiable with respect to W1t and
+    b1."""
+    t0, h = _host_f32(rec_t0), _host_f32(rec_h)
+    stage_t = t0[:, None] + np.asarray(_C, np.float32)[None, :] * h[:, None]
+    return time_feature_table(
+        torch.from_numpy(stage_t.reshape(-1)).to(W1t.device), W1t,
+        b1).reshape(len(t0), 7, -1)
 
 
 def _prepare(h, ze, Wq, W1xc, W1h, blocks, W3, b3, cast):
@@ -211,6 +235,83 @@ def dopri5_step_vjp_reference(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks,
             gW3, gb3[0])
 
 
+def _dense_fold(g, g_y, g_f, out_step, ts, t0, h_step, step):
+    """The step's folded cotangents ``(g_dy, g_r5, g_k1x, g_k7x,
+    g_y0_direct)`` (``ode/discrete_adjoint.py`` derives them) from the
+    carries ``g_y``, ``g_f`` and the output cotangents ``g`` (T, N, Da), as
+    the reference's whole-backward kernel forms them: branch-free over the
+    T rows, row t weighted by ``out_step[t] == step`` times the CONTD5
+    basis ``(1, th, th om, th^2 om, th^2 om^2)``, ``th`` the row's clipped
+    position in the step (``h_step == 0`` divides by 1). ``out_step`` and
+    ``ts`` are (T,) tensors on g's device; ``t0`` and ``h_step`` float32
+    values."""
+    T = g.shape[0]
+    safe_h = F(1.0) if F(h_step) == 0 else F(h_step)
+    mask = (out_step == step).float()
+    th = torch.clamp((ts - float(F(t0))) / float(safe_h), 0.0, 1.0)
+    om = 1.0 - th
+    w = torch.stack([mask, th * mask, th * om * mask, th * th * om * mask,
+                     th * th * om * om * mask])  # (5, T)
+    gr = [torch.zeros_like(g_y)] * 5
+    for t in range(T):
+        gr = [gr[k] + w[k, t] * g[t] for k in range(5)]
+    gr1, gr2, gr3, gr4, gr5 = gr
+    hf = float(F(h_step))
+    return (g_y + gr2 - gr3 + 2.0 * gr4, gr5, hf * (gr3 - gr4),
+            g_f - hf * gr4, g_y + gr1)
+
+
+def dopri5_backward_reference(ckpts, ckpt_f, hc, ze, tf_all, rec_t0, rec_h,
+                              n_acc, g, out_step, ts, Wq, W1xc, W1h, blocks,
+                              W3, b3, precision="bf16"):
+    """Plain PyTorch version of K6: the whole discrete-adjoint backward at
+    ``ckpt_every=1`` with the FSAL evals recorded.
+
+    ckpts, ckpt_f: (max_acc, N, Da) float32 or bf16, the pre-step state and
+    FSAL eval of every accepted step (widened to float32 here); hc (N, Hc)
+    and ze (Z, Dz) float32; tf_all (max_acc, 7, H) float32, the stage time
+    rows of every recorded step (:func:`stage_time_table`); rec_t0, rec_h
+    (max_acc,) the steps' starts and sizes, n_acc the accepted count; g (T,
+    N, Da) float32 output cotangents; out_step (T,) the step that filled
+    each row (-1: none), ts (T,) the output times; float32 weights.
+
+    The steps ``n_acc - 1 ... 0`` are replayed in reverse: each folds the
+    output rows it filled into its cotangents (:func:`_dense_fold`), runs
+    :func:`dopri5_step_vjp_reference` at ``precision`` and carries ``(gy0,
+    gf0)`` into the step before. Returns ``(gy0, gf0, gh, gze, gtf_all,
+    gWq, gW1xc, gW1h, gblocks, gW3, gb3)``: gy0, gf0 the carries after step
+    0 (the caller adds row 0 and the initial FSAL eval's VJP), gh (N, Hc)
+    and the weight gradients summed over steps, gtf_all (max_acc, 7, H)
+    each step's time-row cotangents (zero from n_acc on).
+    """
+    max_acc, N, Da = ckpts.shape
+    Z, Dz = ze.shape
+    H = W1xc.shape[1]
+    dev = g.device
+    t0s, hs = _host_f32(rec_t0), _host_f32(rec_h)
+    ostep = torch.as_tensor(np.asarray(out_step), device=dev)
+    tsd = torch.as_tensor(_host_f32(ts), device=dev)
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
+    g_y, g_f, gh = z(N, Da), z(N, Da), z(N, hc.shape[1])
+    sums = [z(Z, Dz), z(Da, Dz), z(Da + Dz, H), z(W1h.shape[0], H),
+            tuple((z(H, H), z(H), z(H, H), z(H)) for _ in blocks), z(H, Da),
+            z(Da)]
+    gtf_all = z(max_acc, 7, H)
+    for s in range(int(n_acc) - 1, -1, -1):
+        gset = _dense_fold(g, g_y, g_f, ostep, tsd, t0s[s], hs[s], s)
+        (g_y, g_f, gh_s, gze, gtf_all[s], *gw) = dopri5_step_vjp_reference(
+            ckpts[s].float(), ckpt_f[s].float(), hc, ze, tf_all[s], Wq,
+            W1xc, W1h, blocks, W3, b3, float(hs[s]), *gset,
+            precision=precision)
+        gh = gh + gh_s
+        sums = [tuple(tuple(a + b for a, b in zip(u, v))
+                      for u, v in zip(acc, part)) if i == 4 else acc + part
+                for i, (acc, part) in enumerate(zip(sums, [gze, *gw]))]
+    gze, gWq, gW1xc, gW1h, gblocks, gW3, gb3 = sums
+    return (g_y, g_f, gh, gze, gtf_all, gWq, gW1xc, gW1h, gblocks, gW3,
+            gb3)
+
+
 def _check(name, rows, ze, tf_rows, Wq, W1xc, W1h, blocks, W3, b3):
     """Validate the operands: ``rows`` the (name, tensor, shape) of the
     per-agent ones. Returns (N, Da, Z, Dz, Dc, H)."""
@@ -242,19 +343,20 @@ def _check(name, rows, ze, tf_rows, Wq, W1xc, W1h, blocks, W3, b3):
     return N, Da, Z, Dz, Dc, H
 
 
-def _kernel_device(name, x, widths, num_blocks, precision):
+def _kernel_device(name, x, widths, num_blocks, precision, bf16=True):
     """True for a CUDA tensor the kernel takes, False for a CPU tensor;
-    raises for anything else."""
+    raises for anything else (``bf16``: whether the kernel has a bf16
+    branch)."""
+    _mk_cast(precision)
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if precision != "f32":
-        _mk_cast(precision)
+    if precision == "bf16" and not bf16:
         raise NotImplementedError(
             f"{name}: the CUDA kernel runs precision='f32' only; its bf16 "
-            "branch lands with the whole-backward kernel K6 (ROADMAP.md "
-            "queue 1 item 7b)")
+            "branch is still to port (ROADMAP.md queue 2, K5's bf16 "
+            "branch)")
     if not kernels_fit(*widths, num_blocks):
         if widths not in KERNEL_WIDTHS:
             raise ValueError(
@@ -273,7 +375,7 @@ def _lib():
 
 def pack_weights_f32(Wq, W1xc, W1h, blocks, W3, b3):
     """The drift's float32 weights ((in, out) layout) -> the 12 contiguous
-    tensors the kernels take, in the order of ``set_weights`` in
+    tensors the float32 kernels take, in the order of ``set_weights`` in
     ``csrc/fused_dopri5.cu``: each matrix (in, out) and its transpose (the
     forward's products read the first, the VJP's the second), the blocks'
     matrices stacked (Wr1_0, Wr2_0, ...) and their biases."""
@@ -285,13 +387,17 @@ def pack_weights_f32(Wq, W1xc, W1h, blocks, W3, b3):
             c(W3), c(W3.T), c(b3)]
 
 
-# zones per attention chunk of the kernels (kZC in csrc/fused_dopri5.cu)
+# zones per attention chunk of the float32 kernels (kZC in
+# csrc/fused_dopri5.cu); the bf16 ones take chunks of 16 (pad_zones)
 ZONE_CHUNK = 32
-# CTAs of K5 (two fit an SM's shared memory) and of K7 (one): each sums its
-# tiles into its own slab, summed in a fixed order; constants, so the sums'
-# order depends on N alone and a repeated launch gives the same bits
+# CTAs of K5 (two fit an SM's shared memory) and of K7 and K6 (one): each
+# sums its tiles into its own slab, summed in a fixed order; constants, so
+# the sums' order depends on N alone and a repeated launch gives the same
+# bits
 STEP_CTAS = 2 * NUM_SLABS
 VJP_CTAS = NUM_SLABS
+# the kernels' tile bodies (ananke_dopri5_tile_rows' `kind`)
+_K5, _F32_VJP, _BF16_VJP = 0, 1, 2
 
 
 def _zones(ze):
@@ -304,32 +410,40 @@ def _zones(ze):
     return ze_p, ze_p.T.contiguous()
 
 
-def pack_operands(ze, Wq, W1xc, W1h, blocks, W3, b3):
-    """The kernels' zone and weight operands: the padded zones and their
-    transpose, then :func:`pack_weights_f32`'s 12 tensors. One packing
-    serves every launch over the same zones and weights (the hooks make it
-    once per solve); the wrappers take it as ``packed=``."""
-    return (*_zones(ze), *pack_weights_f32(Wq, W1xc, W1h, blocks, W3, b3))
+def pack_operands(ze, Wq, W1xc, W1h, blocks, W3, b3, precision="f32"):
+    """The kernels' zone and weight operands at ``precision``: the padded
+    zones and their transpose, then the 12 weight tensors
+    (:func:`pack_weights_f32`; for "bf16" ``fused_rhs.pad_zones`` and
+    ``pack_stage_weights``, rounded to bf16). One packing serves every
+    launch over the same zones and weights (the hooks make one per solve
+    and precision); the wrappers take it as ``packed=``."""
+    w = (Wq, W1xc, W1h, blocks, W3, b3)
+    if _mk_cast(precision) is keep:
+        return (*_zones(ze), *pack_weights_f32(*w))
+    return (*pad_zones(ze), *pack_stage_weights(*w))
 
 
-def _packed(name, packed, ze, weights):
+def _packed(name, packed, ze, weights, precision="f32"):
     """``packed``, checked against the zones, or a packing made here."""
     if packed is None:
-        return pack_operands(ze, *weights)
+        return pack_operands(ze, *weights, precision=precision)
     Z, Dz = ze.shape
+    f32 = precision == "f32"
+    chunk = ZONE_CHUNK if f32 else 16
     if (len(packed) != 14 or tuple(packed[0].shape)
-            != (-(-Z // ZONE_CHUNK) * ZONE_CHUNK, Dz)):
+            != (-(-Z // chunk) * chunk, Dz) or packed[0].dtype
+            != (torch.float32 if f32 else torch.bfloat16)):
         raise ValueError(f"{name}: packed is not pack_operands of these "
-                         "zones and weights")
+                         f"zones and weights at precision {precision!r}")
     return packed
 
 
 def dopri5_step_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3, b3,
                       h_step, precision="f32", err_stats=None, packed=None):
     """One DOPRI5 step. Arguments and result as
-    :func:`dopri5_step_reference`; on CUDA the kernel K5, over ``packed``
-    (:func:`pack_operands` of these zones and weights) or a packing made
-    for this launch. With ``err_stats`` the sum of squares is
+    :func:`dopri5_step_reference`; on CUDA the kernel K5 (float32 only),
+    over ``packed`` (:func:`pack_operands` of these zones and weights) or a
+    packing made for this launch. With ``err_stats`` the sum of squares is
     deterministic: the same operands give the same bits, and so the same
     step sequence."""
     rows = [("x", x, tuple(x.shape)), ("f0", f0, tuple(x.shape)),
@@ -338,7 +452,7 @@ def dopri5_step_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3, b3,
                                  W1xc, W1h, blocks, W3, b3)
     nb = len(blocks)
     if not _kernel_device("dopri5_step_fused", x, (Da, Dz, Dc, H), nb,
-                          precision):
+                          precision, bf16=False):
         return dopri5_step_reference(x, f0, h, ze, tf_rows, Wq, W1xc, W1h,
                                      blocks, W3, b3, h_step, precision,
                                      err_stats)
@@ -350,7 +464,7 @@ def dopri5_step_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3, b3,
         return (*out[:2], err_sum if err_stats is not None else out[2],
                 out[3])
     lib = _lib()
-    num_ctas = min(STEP_CTAS, -(-N // lib.ananke_dopri5_tile_rows(nb, 0)))
+    num_ctas = min(STEP_CTAS, -(-N // lib.ananke_dopri5_tile_rows(nb, _K5)))
     partial = torch.empty((num_ctas,), dtype=torch.float32, device=dev)
     rtol, atol = (F(v) for v in err_stats) if err_stats else (F(0), F(0))
     ze_p, zeT, *w = _packed("dopri5_step_fused", packed, ze,
@@ -372,13 +486,31 @@ def dopri5_step_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3, b3,
 dopri5_step_fused.launches = 0
 
 
+def _slabs(lib, dev, N, Z, nb, tf_rows, kind, layout):
+    """(num_ctas, zeroed slabs (num_ctas + 1, size): the CTAs' and their
+    sum, tile scratch) of a VJP launch; checks the kernel's slab layout
+    against ``layout``."""
+    size = sum(int(np.prod(s)) for _, s in layout)
+    if lib.ananke_dopri5_slab_size(Z, nb, tf_rows) != size:
+        raise RuntimeError("fused_dopri5: the kernel's gradient layout "
+                           "differs from grad_layout's")
+    num_ctas = min(VJP_CTAS, -(-N // lib.ananke_dopri5_tile_rows(nb, kind)))
+    slabs = torch.zeros((num_ctas + 1, size), dtype=torch.float32,
+                        device=dev)
+    scratch = torch.empty(
+        (num_ctas, lib.ananke_dopri5_scratch_floats(nb, kind)),
+        dtype=torch.float32, device=dev)
+    return num_ctas, slabs, scratch
+
+
 def dopri5_step_vjp_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3,
                           b3, h_step, g_dy, g_r5, g_k1x, g_k7x, g_y0_direct,
                           precision="f32", packed=None):
     """The VJP of one accepted step. Arguments and result as
-    :func:`dopri5_step_vjp_reference`; on CUDA the kernel K7 (float32
-    only), ``packed`` as :func:`dopri5_step_fused` takes it. The summed
-    gradients are deterministic: the same operands give the same bits."""
+    :func:`dopri5_step_vjp_reference`; on CUDA the kernel K7 at
+    ``precision``, ``packed`` as :func:`dopri5_step_fused` takes it (at the
+    same precision). The summed gradients are deterministic: the same
+    operands give the same bits."""
     shape = tuple(x.shape)
     rows = [("x", x, shape), ("f0", f0, shape),
             ("h", h, (x.shape[0], W1h.shape[0])), ("g_dy", g_dy, shape),
@@ -397,22 +529,15 @@ def dopri5_step_vjp_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3,
     gf0 = torch.empty_like(gy0)
     gh = torch.empty((N, Dc), dtype=torch.float32, device=dev)
     layout = grad_layout(Z, Dz, Da, Dc, H, nb, time_shape=(7, H))
-    size = sum(int(np.prod(s)) for _, s in layout)
-    gsum = torch.zeros((size,), dtype=torch.float32, device=dev)
+    gsum = torch.zeros((sum(int(np.prod(s)) for _, s in layout),),
+                       dtype=torch.float32, device=dev)
     if N > 0:
         lib = _lib()
-        if lib.ananke_dopri5_slab_size(Z, nb) != size:
-            raise RuntimeError("dopri5_step_vjp_fused: the kernel's gradient "
-                               "layout differs from grad_layout's")
-        rows = lib.ananke_dopri5_tile_rows(nb, 1)
-        num_ctas = min(VJP_CTAS, -(-N // rows))
-        # the CTAs' slabs (zeroed: the kernel adds into them), then their sum
-        slabs = torch.zeros((num_ctas + 1, size), dtype=torch.float32,
-                            device=dev)
-        scratch = torch.empty((num_ctas, 14, rows, Da), dtype=torch.float32,
-                              device=dev)
+        kind = _F32_VJP if precision == "f32" else _BF16_VJP
+        num_ctas, slabs, scratch = _slabs(lib, dev, N, Z, nb, 7, kind,
+                                          layout)
         ze_p, zeT, *w = _packed("dopri5_step_vjp_fused", packed, ze,
-                                (Wq, W1xc, W1h, blocks, W3, b3))
+                                (Wq, W1xc, W1h, blocks, W3, b3), precision)
         ops = [x.contiguous(), f0.contiguous(), h.contiguous(), ze_p, zeT,
                tf_rows.contiguous(), *w,
                *(g.contiguous() for g in (g_dy, g_r5, g_k1x, g_k7x,
@@ -422,7 +547,8 @@ def dopri5_step_vjp_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3,
         with torch.cuda.device(dev):
             err = lib.ananke_dopri5_step_vjp(
                 *[t.data_ptr() for t in ops], N, Z, ze_p.shape[0], nb,
-                num_ctas, F(h_step), Da, Dz, Dc, H, stream)
+                num_ctas, int(kind == _BF16_VJP), F(h_step), Da, Dz, Dc, H,
+                stream)
         _raise_on(lib, err, "dopri5_step_vjp_fused")
         dopri5_step_vjp_fused.launches += 1
         gsum = slabs[num_ctas]
@@ -433,9 +559,90 @@ def dopri5_step_vjp_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3,
 
 dopri5_step_vjp_fused.launches = 0
 
-KERNELS = (dopri5_step_fused, dopri5_step_vjp_fused)
+
+def dopri5_backward_fused(ckpts, ckpt_f, hc, ze, tf_all, rec_t0, rec_h,
+                          n_acc, g, out_step, ts, Wq, W1xc, W1h, blocks, W3,
+                          b3, precision="bf16", packed=None):
+    """The whole discrete-adjoint backward. Arguments and result as
+    :func:`dopri5_backward_reference`; on CUDA the kernel K6 at
+    ``precision`` (one launch, then the sum of the CTAs' slabs), ``packed``
+    as :func:`dopri5_step_fused` takes it (at the same precision). The
+    checkpoints may be float32 or bf16; where the two buffers differ the
+    bf16 one is widened first. The output rows a step did not fill are
+    skipped in the kernel's fold (the plain version multiplies them by a
+    zero weight: only a non-finite cotangent there tells the two apart).
+    The summed gradients are deterministic: the same operands give the
+    same bits."""
+    max_acc, N, Da = ckpts.shape
+    T = g.shape[0]
+    Dc, H = W1h.shape[0], W1xc.shape[1]
+    rows = [("g[0]", g[0], (N, Da)), ("hc", hc, (N, Dc)),
+            ("g", g, (T, N, Da)), ("tf_all", tf_all, (max_acc, 7, H))]
+    N, Da, Z, Dz, Dc, H = _check("dopri5_backward_fused", rows, ze,
+                                 tf_all[0], Wq, W1xc, W1h, blocks, W3, b3)
+    for key, t in (("ckpts", ckpts), ("ckpt_f", ckpt_f)):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"dopri5_backward_fused: {key} must be float32 "
+                            f"or bfloat16, got {t.dtype}")
+        if tuple(t.shape) != (max_acc, N, Da) or t.device != g.device:
+            raise ValueError(f"dopri5_backward_fused: {key} must be "
+                             f"({max_acc}, {N}, {Da}) on {g.device}")
+    n_acc = int(n_acc)
+    if not 0 <= n_acc <= max_acc or len(out_step) != T or len(ts) != T:
+        raise ValueError("dopri5_backward_fused: n_acc must lie in [0, "
+                         "max_acc] and out_step, ts hold one entry per row")
+    nb = len(blocks)
+    if not _kernel_device("dopri5_backward_fused", g, (Da, Dz, Dc, H), nb,
+                          precision):
+        return dopri5_backward_reference(
+            ckpts, ckpt_f, hc, ze, tf_all, rec_t0, rec_h, n_acc, g, out_step,
+            ts, Wq, W1xc, W1h, blocks, W3, b3, precision)
+    dev = g.device
+    if ckpts.dtype != ckpt_f.dtype:
+        ckpts, ckpt_f = ckpts.float(), ckpt_f.float()
+    gy0 = torch.zeros((N, Da), dtype=torch.float32, device=dev)
+    gf0 = torch.zeros_like(gy0)
+    gh = torch.zeros((N, Dc), dtype=torch.float32, device=dev)
+    layout = grad_layout(Z, Dz, Da, Dc, H, nb, time_shape=(n_acc, 7, H))
+    gsum = torch.zeros((sum(int(np.prod(s)) for _, s in layout),),
+                       dtype=torch.float32, device=dev)
+    if N > 0 and n_acc > 0:
+        lib = _lib()
+        kind = _F32_VJP if precision == "f32" else _BF16_VJP
+        num_ctas, slabs, scratch = _slabs(lib, dev, N, Z, nb, 7 * n_acc,
+                                          kind, layout)
+        ze_p, zeT, *w = _packed("dopri5_backward_fused", packed, ze,
+                                (Wq, W1xc, W1h, blocks, W3, b3), precision)
+        steps = torch.from_numpy(np.concatenate([
+            _host_f32(rec_t0)[:n_acc], _host_f32(rec_h)[:n_acc],
+            _host_f32(ts)])).to(dev)
+        ostep = torch.as_tensor(np.asarray(out_step), dtype=torch.int32,
+                                device=dev)
+        ops = [ckpts.contiguous(), ckpt_f.contiguous(), g.contiguous(),
+               hc.contiguous(), ze_p, zeT, tf_all.contiguous(), steps,
+               ostep, *w, gy0, gf0, gh, scratch, slabs]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            err = lib.ananke_dopri5_backward_all(
+                *[t.data_ptr() for t in ops], N, Z, ze_p.shape[0], nb,
+                num_ctas, n_acc, T, int(kind == _BF16_VJP),
+                int(ckpts.dtype == torch.bfloat16), Da, Dz, Dc, H, stream)
+        _raise_on(lib, err, "dopri5_backward_fused")
+        dopri5_backward_fused.launches += 1
+        gsum = slabs[num_ctas]
+    gze, gtf, gWq, gW1xc, gW1h, gblocks, gW3, gb3 = split_grads(gsum, layout,
+                                                                nb)
+    gtf_all = torch.zeros((max_acc, 7, H), dtype=torch.float32, device=dev)
+    gtf_all[:n_acc] = gtf
+    return gy0, gf0, gh, gze, gtf_all, gWq, gW1xc, gW1h, gblocks, gW3, gb3
+
+
+dopri5_backward_fused.launches = 0
+
+KERNELS = (dopri5_step_fused, dopri5_step_vjp_fused, dopri5_backward_fused)
 # the plain versions in the same places: the same solve without the kernels
-PLAIN = (dopri5_step_reference, dopri5_step_vjp_reference)
+PLAIN = (dopri5_step_reference, dopri5_step_vjp_reference,
+         dopri5_backward_reference)
 
 
 def make_fused_dopri5_hooks(model, precision="f32", bwd_precision=None,
@@ -446,24 +653,27 @@ def make_fused_dopri5_hooks(model, precision="f32", bwd_precision=None,
 
     ``step_impl`` runs :func:`dopri5_step_fused` (the forward's attempted
     steps and the backward's replays); ``step_vjp`` runs
-    :func:`dopri5_step_vjp_fused` and scatters its weight cotangents into a
-    gradient for every parameter in the same order: the drift's from the
-    kernel, Dense_0's time rows and bias by autograd of
-    :func:`stage_time_rows` at the time rows' cotangent, exact zeros for the
-    parameters the drift never reads. The weights are split from
-    ``params``, and packed for the kernels, once per solve: the forward's
+    :func:`dopri5_step_vjp_fused`, and ``step_vjp.backward_all`` (the
+    whole backward, which ``odeint_discrete_adjoint`` takes at
+    ``ckpt_every=1`` with the FSAL evals recorded) runs
+    :func:`dopri5_backward_fused`. Both scatter the kernel's weight
+    cotangents into a gradient for every parameter in the same order: the
+    drift's from the kernel, Dense_0's time rows and bias by autograd of
+    the time rows at their cotangent, exact zeros for the parameters the
+    drift never reads. The weights are split from ``params``, and packed
+    for the kernels (once per precision), once per solve: the forward's
     steps share one ``args`` tree, the backward's another.
 
     ``precision`` is the forward's; ``bwd_precision`` (default the same)
-    the VJP's. The kernels run float32 only: with the model on CUDA a bf16
-    precision raises NotImplementedError here, before anything launches.
-    ``err_stats=(rtol, atol)``: the step returns an ``ErrNormSq`` reduced
-    with those tolerances (pass the solve's own), and the controller reads
-    one scalar per attempted step. ``_plain``: the pair runs the plain
-    versions (:data:`PLAIN`) on any device, the check the kernels are held
-    against.
+    the VJPs'. The forward kernel K5 runs float32 only: with the model on
+    CUDA ``precision="bf16"`` raises NotImplementedError here, before
+    anything launches; K7 and K6 take either. ``err_stats=(rtol, atol)``:
+    the step returns an ``ErrNormSq`` reduced with those tolerances (pass
+    the solve's own), and the controller reads one scalar per attempted
+    step. ``_plain``: the hooks run the plain versions (:data:`PLAIN`) on
+    any device, the check the kernels are held against.
     """
-    step_fn, vjp_fn = PLAIN if _plain else KERNELS
+    step_fn, vjp_fn, bwd_fn = PLAIN if _plain else KERNELS
     bwd_precision = bwd_precision or precision
     _mk_cast(precision)
     _mk_cast(bwd_precision)
@@ -471,50 +681,33 @@ def make_fused_dopri5_hooks(model, precision="f32", bwd_precision=None,
     paths = [p for p, _ in leaves]
     split_drift_params(dict(leaves))  # raises early on a block-free drift
     if (not _plain and leaves[0][1].device.type == "cuda"
-            and "bf16" in (precision, bwd_precision)):
+            and precision == "bf16"):
         raise NotImplementedError(
-            "the CUDA kernels K5/K7 run precision='f32' only; their bf16 "
-            "branch lands with the whole-backward kernel K6 (ROADMAP.md "
-            "queue 1 item 7b)")
+            "the CUDA kernel K5 runs precision='f32' only; its bf16 branch "
+            "is still to port (ROADMAP.md queue 2, K5's bf16 branch)")
     n_dense = 2 + 2 * model.num_blocks
-    solve = [None, None, None]  # its args tree, the params' versions, operands
+    # its args tree, the params' versions, (weights, (W1t, b1), packings)
+    solve = [None, None, None]
 
-    def operands(args):
-        """(drift weights, (W1t, b1), the wrappers' keywords) of the solve
-        that ``args`` belongs to."""
+    def operands(args, prec):
+        """(drift weights, (W1t, b1), the wrappers' keywords at ``prec``)
+        of the solve that ``args`` belongs to."""
         params, _, ze = args
         versions = tuple(p._version for p in params)
         if solve[0] is not args or solve[1] != versions:
             (Wq, W1xc, W1h, W1t, b1, blocks, W3, b3) = split_drift_params(
                 dict(zip(paths, (p.detach() for p in params))))
-            w = (Wq, W1xc, W1h, blocks, W3, b3)
-            kw = ({} if _plain or ze.device.type != "cuda"
-                  else {"packed": pack_operands(ze.detach(), *w)})
-            solve[:] = [args, versions, (w, (W1t, b1), kw)]
-        return solve[2]
+            solve[:] = [args, versions,
+                        ((Wq, W1xc, W1h, blocks, W3, b3), (W1t, b1), {})]
+        w, tw, packs = solve[2]
+        if prec not in packs:
+            packs[prec] = (
+                {} if _plain or ze.device.type != "cuda" else
+                {"packed": pack_operands(ze.detach(), *w, precision=prec)})
+        return w, tw, packs[prec]
 
-    def step_impl(t0, h_step, y, f, args):
-        _, hc, ze = args
-        wts, (W1t, b1), kw = operands(args)
-        tf_rows = stage_time_rows(t0, h_step, W1t, b1)
-        y1, f1, err, r5 = step_fn(y, f, hc.detach(), ze.detach(), tf_rows,
-                                  *wts, h_step, precision=precision,
-                                  err_stats=err_stats, **kw)
-        if err_stats is not None:
-            err = ErrNormSq(sq_sum=err.reshape(()), count=y.numel())
-        return y1, f1, err, _Interp(F(t0), F(h_step), y, f, y1, f1, r5)
-
-    def step_vjp(t0, h_step, y, f, args, gset):
-        params, hc, ze = args
-        wts, (W1t, b1), kw = operands(args)
-        with torch.enable_grad():
-            W1t = W1t.clone().requires_grad_(True)
-            b1 = b1.clone().requires_grad_(True)
-            tf_rows = stage_time_rows(t0, h_step, W1t, b1)
-        (gy0, gf0, gh, gze, gtf, gWq, gW1xc, gW1h, gblocks, gW3,
-         gb3) = vjp_fn(y, f, hc.detach(), ze.detach(), tf_rows.detach(),
-                       *wts, h_step, *gset, precision=bwd_precision, **kw)
-        gW1t, gb1 = torch.autograd.grad(tf_rows, (W1t, b1), gtf)
+    def gradients(params, gWq, gW1xc, gW1h, gW1t, gb1, gblocks, gW3, gb3):
+        """A gradient for every parameter, in ``paths``' order."""
         grads = {
             ("query_proj", "kernel"): gWq.T,
             ("drift", "Dense_0", "kernel"): torch.cat(
@@ -528,16 +721,64 @@ def make_fused_dopri5_hooks(model, precision="f32", bwd_precision=None,
             grads[("drift", f"Dense_{1 + 2 * i}", "bias")] = gbr1
             grads[("drift", f"Dense_{2 + 2 * i}", "kernel")] = g2.T
             grads[("drift", f"Dense_{2 + 2 * i}", "bias")] = gbr2
-        gparams = tuple(grads[p] if p in grads else torch.zeros_like(w)
-                        for p, w in zip(paths, params))
-        return gy0, gf0, (gparams, gh, gze)
+        return tuple(grads[p] if p in grads else torch.zeros_like(w)
+                     for p, w in zip(paths, params))
 
+    def time_rows(W1t, b1, table):
+        """(W1t, b1) as leaves of autograd and the time rows from them."""
+        with torch.enable_grad():
+            W1t = W1t.clone().requires_grad_(True)
+            b1 = b1.clone().requires_grad_(True)
+            return W1t, b1, table(W1t, b1)
+
+    def step_impl(t0, h_step, y, f, args):
+        _, hc, ze = args
+        wts, (W1t, b1), kw = operands(args, precision)
+        tf_rows = stage_time_rows(t0, h_step, W1t, b1)
+        y1, f1, err, r5 = step_fn(y, f, hc.detach(), ze.detach(), tf_rows,
+                                  *wts, h_step, precision=precision,
+                                  err_stats=err_stats, **kw)
+        if err_stats is not None:
+            err = ErrNormSq(sq_sum=err.reshape(()), count=y.numel())
+        return y1, f1, err, _Interp(F(t0), F(h_step), y, f, y1, f1, r5)
+
+    def step_vjp(t0, h_step, y, f, args, gset):
+        params, hc, ze = args
+        wts, (W1t, b1), kw = operands(args, bwd_precision)
+        W1t, b1, tf_rows = time_rows(
+            W1t, b1, lambda w, b: stage_time_rows(t0, h_step, w, b))
+        (gy0, gf0, gh, gze, gtf, gWq, gW1xc, gW1h, gblocks, gW3,
+         gb3) = vjp_fn(y, f, hc.detach(), ze.detach(), tf_rows.detach(),
+                       *wts, h_step, *gset, precision=bwd_precision, **kw)
+        gW1t, gb1 = torch.autograd.grad(tf_rows, (W1t, b1), gtf)
+        return gy0, gf0, (gradients(params, gWq, gW1xc, gW1h, gW1t, gb1,
+                                    gblocks, gW3, gb3), gh, gze)
+
+    def backward_all(ckpts, ckpt_f, rec_t0, rec_h, n_acc, g, out_step, ts,
+                     args):
+        """The whole backward in one :func:`dopri5_backward_fused` launch
+        in place of ``n_acc`` step VJPs; the stage time rows of every
+        recorded step are formed once."""
+        params, hc, ze = args
+        wts, (W1t, b1), kw = operands(args, bwd_precision)
+        W1t, b1, tf_all = time_rows(
+            W1t, b1, lambda w, b: stage_time_table(rec_t0, rec_h, w, b))
+        (gy0, gf0, gh, gze, gtf_all, gWq, gW1xc, gW1h, gblocks, gW3,
+         gb3) = bwd_fn(ckpts, ckpt_f, hc.detach(), ze.detach(),
+                       tf_all.detach(), rec_t0, rec_h, n_acc, g, out_step,
+                       ts, *wts, precision=bwd_precision, **kw)
+        gW1t, gb1 = torch.autograd.grad(tf_all, (W1t, b1), gtf_all)
+        return gy0, gf0, (gradients(params, gWq, gW1xc, gW1h, gW1t, gb1,
+                                    gblocks, gW3, gb3), gh, gze)
+
+    step_vjp.backward_all = backward_all
     return step_impl, step_vjp
 
 
 __all__ = [
-    "kernels_fit", "stage_time_rows", "pack_weights_f32", "pack_operands",
-    "dopri5_step_reference", "dopri5_step_fused",
-    "dopri5_step_vjp_reference", "dopri5_step_vjp_fused",
-    "make_fused_dopri5_hooks", "KERNELS", "PLAIN",
+    "kernels_fit", "stage_time_rows", "stage_time_table",
+    "pack_weights_f32", "pack_operands", "dopri5_step_reference",
+    "dopri5_step_fused", "dopri5_step_vjp_reference",
+    "dopri5_step_vjp_fused", "dopri5_backward_reference",
+    "dopri5_backward_fused", "make_fused_dopri5_hooks", "KERNELS", "PLAIN",
 ]

@@ -2,9 +2,11 @@
 """Smoke test of the PyTorch port on one CUDA card: the GAT-ODE serving
 path (kernel K1), the continuous-adjoint DOPRI5 trainer (kernel K8), the
 fixed-step RK4 trainer (kernels K4f, K4b, K2f, K2b, K3f, K3b) and
-``train()`` through it, ``serve()`` of what it trained, and the
+``train()`` through it, ``serve()`` of what it trained, the
 discrete-adjoint DOPRI5 trainer (kernels K5, K7) with
-``train(method="dopri5")``.
+``train(method="dopri5")``, and that trainer at bench rung 3's own
+settings, its whole backward one launch of K6 (K7's bf16 branch on the
+per-step bf16 route).
 
 Run from the repository root, on a machine with a CUDA device:
 
@@ -99,7 +101,30 @@ Phases (any failure raises and the script exits non-zero):
 22. repair check: ``train()`` at ``gat_heads=2`` (no K4 launch, each day
     and cross-entropy kernel once a step) and ``hidden_dim=64`` (no kernel
     launch);
-23. times: K5 and K7 and their plain versions per launch at rung 3.
+23. times: K5 and K7 and their plain versions per launch at rung 3;
+24. whole-backward kernels: K6 (precision bf16 and f32, checkpoints bf16
+    and float32, recordings of ``checks.K6_RECORD``, steps past the
+    accepted count among them) and K7's bf16 branch against their plain
+    versions at the shapes of DOPRI5_SHAPES within ``ops/cuda/checks.py``'s
+    DOPRI5_BWD_BF16_BOUNDS
+    (scaled with depth), DOPRI5_BWD_BOUNDS and DOPRI5_VJP_BF16_BOUNDS,
+    repeats that must give the same bits, the bf16-product control (TF32
+    for K6 at f32) that must fail each check, and kernel, plain version and
+    control against a float64 run at DOPRI5_WITNESS_SHAPE;
+25. rung 3 at its own settings: 3 steps of ``make_adjoint_step_fns(
+    adjoint_mode="discrete", max_accepted=256, ckpt_every=1,
+    bwd_precision="bf16")`` at 98,304 x 64 x 12, seed 7: finite losses,
+    the third below the first, K6 launched once and K7 never per step, K5
+    once per attempted forward step; its step wall beside phase 19's;
+26. at 8,192 agents the K6 route against the same route with K6's plain
+    version (the same forward: the same loss bits and accepted steps,
+    cosine > 0.999), with ``_plain=True`` (every plain version: loss rel
+    <= 1e-4 as phase 20, the same accepted steps, cosine > 0.999), the
+    per-step bf16 route (``ckpt_every=2``, K7-bf16; cosine > 0.9999) and
+    the float32 per-step route of phase 20 (cosine > 0.999);
+27. times: K6 and its plain version per launch on phase 25's last
+    recording, K7-bf16 and its plain version per launch at rung 3, and the
+    rung-3 step.
 
 ``python3 chip_smoke.py --readings`` runs phases 1-2 and then only the
 training kernels' checks of phase 10, at DAY_SHAPES and DEPTH_SHAPES for 3
@@ -109,8 +134,8 @@ kernels, their plain versions and the control each against a float64
 witness. ``python3 chip_smoke.py --readings encoder`` prints the same
 readings of K4f and K4b, at GAT_SHAPES and GAT_READING_SHAPES for 3 seeds,
 and K4b and its plain version each against a float64 run;
-``--readings dopri5`` those of K5 and K7 at DOPRI5_SHAPES and
-DOPRI5_READING_SHAPES for 3 seeds, with the TF32 control and the float64
+``--readings dopri5`` those of K5, K7, K6 and K7-bf16 at DOPRI5_SHAPES
+and DOPRI5_READING_SHAPES for 3 seeds, with their controls and the float64
 witness.
 ``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` runs phases 1-2 and then
 compares K8 of this checkout with K8 built from each checkout at DIR:
@@ -121,11 +146,11 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``{"kernels": [...]}`` (for every kernel its launches on the main path,
 largest difference from its plain version, times, and ``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and its operations over
-the peak of their type: for the bf16 kernels their matmul operations over
-989 TFLOP/s, the H100's dense bf16 peak; for the float32 encoder and
-DOPRI5 step kernels their operations over 67 TFLOP/s, its FP32 peak
-outside the tensor cores), the line before that the card's name and power
-limit.
+the peak of their type: for the bf16 kernels (K6 and K7-bf16 among them)
+their matmul operations over 989 TFLOP/s, the H100's dense bf16 peak; for
+the float32 encoder and DOPRI5 step kernels their operations over 67
+TFLOP/s, its FP32 peak outside the tensor cores), the line before that the
+card's name and power limit.
 """
 from __future__ import annotations
 
@@ -513,10 +538,11 @@ def main():
     k8, continuous_wall = adjoint_phases(dev, card)
     fixed, rung2 = fixed_step_phases(dev, card)
     k4 = encoder_phases(dev, card, rung2)
-    k57 = dopri5_phases(dev, card, continuous_wall)
+    k57, discrete_wall = dopri5_phases(dev, card, continuous_wall)
+    k67 = backward_all_phases(dev, card, discrete_wall)
 
     print(card)
-    print(json.dumps({"kernels": [k1, k8, *fixed, *k4, *k57]}))
+    print(json.dumps({"kernels": [k1, k8, *fixed, *k4, *k57, *k67]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -1682,6 +1708,8 @@ def dopri5_readings(dev):
         for n, z, nb in DOPRI5_SHAPES + DOPRI5_READING_SHAPES:
             dopri5_kernel_checks(dev, n, z, nb, seed, control=True,
                                  enforce=False, witness=n <= 4_096)
+            backward_kernel_checks(dev, n, z, nb, seed, control=True,
+                                   enforce=False, witness=n <= 4_096)
 
 
 def dopri5_flops(config, num_zones):
@@ -1937,7 +1965,308 @@ def dopri5_phases(dev, card, continuous_wall):
                          PEAK_FP32_FLOPS)
             for name, src, n_, e, m, p, f, nb_ in zip(
                 names, ("fused_dopri5.py:104", "fused_dopri5.py:254"),
-                launches, errs, ms, plain_ms, flops, nbytes)]
+                launches, errs, ms, plain_ms, flops, nbytes)], min(walls[1:])
+
+
+# ---- the whole discrete-adjoint backward K6 and K7's bf16 branch ----------
+
+# bench rung 3's own settings of the discrete trainer (bench.py:250-266)
+RUNG3 = dict(adjoint_mode="discrete", max_accepted=256, ckpt_every=1,
+             bwd_precision="bf16")
+# the per-step route at bf16: K7's bf16 branch for every accepted step
+PER_STEP_BF16 = dict(adjoint_mode="discrete", ckpt_every=2,
+                     bwd_precision="bf16")
+# K6's route against the same route with K6's plain version (the same
+# forward: the same loss bits), against the route on every plain version
+# (K5's float32 sums in another order: the loss within phase 20's
+# DISCRETE_LOSS_RTOL), against the per-step bf16 route (the reference's
+# whole-versus-per-step bound, tests/test_ops_kernels.py:1112-1113) and
+# against the float32 route
+K6_PLAIN_COS_MIN = 0.999
+WHOLE_COS_MIN = 0.9999
+K6_F32_COS_MIN = 0.999
+
+
+def backward_kernel_checks(dev, n, z, nb, seed, control, enforce=True,
+                           witness=False):
+    """K7 at bf16 and K6 at both precisions and checkpoint types against
+    their plain versions at one shape, each run twice (the same bits), with
+    the controls where ``control`` (bf16 products for the bf16 kernels, TF32
+    products for K6 at float32); with ``witness`` kernel, plain version and
+    control each against a float64 run. Returns (the largest |d| of K6, of
+    K7 at bf16)."""
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        init_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        DOPRI5_BWD_BF16_BOUNDS,
+        DOPRI5_BWD_BOUNDS,
+        DOPRI5_VJP_BF16_BOUNDS,
+        K6_RECORD,
+        bf16_control,
+        day_bounds,
+        dopri5_backward_operands,
+        dopri5_operands,
+        dopri5_vjp_outputs,
+        float64_operands,
+        float64_witness,
+        tf32_products,
+    )
+
+    model = build_model(GATODEConfig(num_blocks=nb), 7, 8, device=dev)
+    init_params(model, torch.Generator().manual_seed(nb + 10 * seed))
+    args, cot = dopri5_operands(model, n, z, dev, seed=n + seed)
+    tag = f"N={n} Z={z} num_blocks={nb} seed={seed}"
+    at = lambda fn, prec: (lambda *a: fn(*a, precision=prec))  # noqa: E731
+    exact32 = lambda fn: (lambda *a: fn(*float64_operands(a)))  # noqa: E731
+    runs = [("K7 bf16", 1, at(fd.dopri5_step_vjp_fused, "bf16"),
+             at(fd.dopri5_step_vjp_reference, "bf16"), args + cot,
+             day_bounds(DOPRI5_VJP_BF16_BOUNDS, nb), bf16_control,
+             "bf16-rounded products",
+             lambda f: (lambda *a: float64_witness(f, *a)))]
+    for prec, bounds, ctl, kind, exact in (
+            ("bf16", day_bounds(DOPRI5_BWD_BF16_BOUNDS, nb), bf16_control,
+             "bf16-rounded products",
+             lambda f: (lambda *a: float64_witness(f, *a))),
+            ("f32", DOPRI5_BWD_BOUNDS, tf32_products, "TF32 products",
+             exact32)):
+        for dt in (torch.bfloat16, torch.float32):
+            bargs = dopri5_backward_operands(model, n, z, dev, n + seed,
+                                             *K6_RECORD, ckpt_dtype=dt)
+            runs.append((f"K6 {prec} checkpoints {str(dt)[6:]}", 0,
+                         at(fd.dopri5_backward_fused, prec),
+                         at(fd.dopri5_backward_reference, prec), bargs,
+                         bounds, ctl, kind, exact))
+    outs = dopri5_vjp_outputs
+    errs = [0.0, 0.0]
+    with torch.no_grad():
+        for label, i, kernel, plain, a, bounds, ctl, kind, exact in runs:
+            got = outs(kernel(*a))
+            again = outs(kernel(*a))
+            torch.cuda.synchronize()
+            if not same_bits(got, again):
+                fail(f"{label} repeat at {tag} is not bit-identical")
+            want = outs(plain(*a))
+            c = outs(ctl(plain, *a)) if control else None
+            errs[i] = max(errs[i], check(
+                f"{label} {tag} (repeat bit-identical)", got, want, bounds,
+                c, enforce, kind))
+            if not witness:
+                continue
+            ref = outs(exact(plain)(*a))
+            far = {side: worst_of(outs(f(*a)), ref)[0] for side, f in (
+                ("kernel", kernel), ("plain", plain),
+                ("control", lambda *b: ctl(plain, *b)))}
+            print(f"{label} {tag} against the float64 witness: "
+                  + "; ".join(f"{side} {describe_far(w)}"
+                              for side, w in far.items()), flush=True)
+            if enforce and not within(far["kernel"], bounds):
+                fail(f"{label} lies outside {bounds} of the float64 witness")
+            if enforce and within(far["control"], bounds):
+                fail(f"{label}'s witness check passes its control")
+    return errs
+
+
+def backward_all_phases(dev, card, discrete_wall):
+    """Phases 24-27: K6 and K7 at bf16 against their plain versions, the
+    discrete trainer at bench rung 3's own settings, the K6 route against
+    its plain versions, the per-step bf16 route and the float32 route, and
+    times. Returns K6's and K7-bf16's entries of the {"kernels": [...]}
+    line."""
+    from ananke_abm_tpu_torch.data_generator import generate_agent_population
+    from ananke_abm_tpu_torch.models.gnn_embed import train as tr
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+    from ananke_abm_tpu_torch.ops.cuda.checks import dopri5_operands
+
+    # ---- 24. K6 and K7-bf16 against their plain versions -----------------
+    errs = [0.0, 0.0]
+    for n, z, nb in DOPRI5_SHAPES:
+        e = backward_kernel_checks(
+            dev, n, z, nb, seed=0, control=(n, z, nb) == DOPRI5_SHAPES[0],
+            witness=(n, z, nb) == DOPRI5_WITNESS_SHAPE)
+        errs = [max(a, b) for a, b in zip(errs, e)]
+    if DOPRI5_WITNESS_SHAPE not in DOPRI5_SHAPES:
+        backward_kernel_checks(dev, *DOPRI5_WITNESS_SHAPE, seed=0,
+                               control=False, witness=True)
+
+    # ---- 25. the discrete trainer at bench rung 3's own settings ---------
+    config = tr.GATODEConfig(method="dopri5")
+    data = generate_agent_population(ADAPT_N, num_times=ADAPT_TIMES,
+                                     seed=ADAPT_SEED, num_zones=ADAPT_ZONES)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)
+    static = (on(data["zone_features"]), on(data["adj"]), on(data["times"]))
+    batch = (on(data["person_feats"]), on(data["home_zone"], torch.long),
+             on(data["zone_ids"], torch.long))
+    model = tr.build_model(config, data["zone_features"].shape[-1],
+                           data["person_feats"].shape[-1], device=dev)
+    tr.init_params(model, torch.Generator().manual_seed(ADAPT_SEED))
+    opt = tr.make_optimizer(model, config)
+    # the hooks take K6 from fd.KERNELS when they are built: a wrapper that
+    # keeps the last backward's operands, for phase 27's times
+    kernels = fd.KERNELS
+    recorded = []
+
+    def keep_operands(*a, **kw):
+        recorded[:] = [(a, kw)]
+        return kernels[2](*a, **kw)
+
+    def plain_k6(*a, packed=None, **kw):
+        return fd.dopri5_backward_reference(*a, **kw)
+
+    @contextlib.contextmanager
+    def hooks_with(backward_all):
+        """fd.KERNELS with another whole backward, while hooks are built"""
+        fd.KERNELS = (*kernels[:2], backward_all)
+        try:
+            yield
+        finally:
+            fd.KERNELS = kernels
+
+    with hooks_with(keep_operands):
+        step, _ = tr.make_adjoint_step_fns(model, opt, config, static,
+                                           **RUNG3)
+    for k in kernels:
+        k.launches = 0
+    losses, walls = [], []
+    for i in range(TRAIN_STEPS):
+        before = [k.launches for k in kernels]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, acc = step(*batch)
+        loss = loss.item()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k5, k7, k6 = (k.launches - b for k, b in zip(kernels, before))
+        st = step.stats
+        fwd = st["forward"]
+        print(f"rung 3 train step {i + 1} (max_accepted 256, ckpt_every 1, "
+              f"bf16 backward): loss {loss:.6f} acc {acc.item():.4f}, wall "
+              f"{wall:.3f} s (host clock, synced); forward {fwd['n_steps']} "
+              f"steps ({fwd['n_accepted']} accepted), backward "
+              f"{st['replays']} replays and {st['vjps']} step VJPs; launches "
+              f"K5 {k5} (expected {fwd['n_steps']}), K7 {k7} (expected 0), "
+              f"K6 {k6} (expected 1) [card {card}]", flush=True)
+        if (k6, k7, k5) != (1, 0, fwd["n_steps"]) or st["replays"] or st[
+                "vjps"]:
+            fail(f"rung-3 step {i + 1} launched K5 {k5}, K7 {k7} and K6 {k6}"
+                 f" times, expected {fwd['n_steps']}, 0 and 1")
+        if not fwd["ok"]:
+            fail(f"rung-3 step {i + 1}: the solve ran out of steps")
+        losses.append(loss)
+        walls.append(wall)
+    launches = [k.launches for k in kernels]
+    step_wall = min(walls[1:])
+    print(f"rung 3 at its own settings: {ADAPT_N} agents x {ADAPT_ZONES} "
+          f"zones x {ADAPT_TIMES} times, {TRAIN_STEPS} steps, losses "
+          f"{losses}, launches K5/K7/K6 {launches}; step wall {step_wall:.3f}"
+          f" s (best of steps 2-{TRAIN_STEPS}) against phase 19's "
+          f"{discrete_wall:.3f} s (train()'s defaults, float32 K7) "
+          f"[card {card}]", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"rung-3 training losses {losses}: not finite and falling")
+
+    # ---- 26. the K6 route against the plain, per-step and float32 routes --
+    sub = tuple(b[:CHECK_TRAIN_AGENTS] for b in batch)
+    results = {}
+    for name, kw in (("K6", RUNG3), ("K6's plain version", RUNG3),
+                     ("plain", dict(RUNG3, use_fused=True, _plain=True)),
+                     ("per-step bf16", PER_STEP_BF16),
+                     ("float32 per-step", dict(adjoint_mode="discrete"))):
+        stats = {}
+        with hooks_with(plain_k6 if name == "K6's plain version"
+                        else kernels[2]):
+            fn = tr.build_adjoint_loss_fn_g(model, config, static,
+                                            stats=stats, **kw)
+        before = [k.launches for k in kernels]
+        model.zero_grad()
+        loss, _ = fn(*sub, static)
+        loss.backward()
+        counts = [k.launches - b for k, b in zip(kernels, before)]
+        results[name] = (loss.item(), grads_of(model),
+                         stats["forward"]["n_accepted"], counts)
+        print(f"{name} route at {CHECK_TRAIN_AGENTS} agents: loss "
+              f"{loss.item():.9f}, {stats['forward']['n_accepted']} accepted"
+              f" steps, launches K5/K7/K6 {counts}", flush=True)
+    lk, gk, ak, ck = results["K6"]
+    if ck[1:] != [0, 1]:
+        fail(f"the K6 route launched K7/K6 {ck[1:]} times, expected 0 / 1")
+    k7_bf16_launches = results["per-step bf16"][3][1]
+    if (results["per-step bf16"][3][1:] != [results["per-step bf16"][2], 0]
+            or results["plain"][3] != [0, 0, 0]):
+        fail("the per-step bf16 route or the plain route took the wrong "
+             "kernels")
+    if results["K6's plain version"][3] != [ck[0], 0, 0]:
+        fail("the route on K6's plain version took the wrong kernels")
+    for name, cmin in (("K6's plain version", K6_PLAIN_COS_MIN),
+                       ("plain", K6_PLAIN_COS_MIN),
+                       ("per-step bf16", WHOLE_COS_MIN),
+                       ("float32 per-step", K6_F32_COS_MIN)):
+        lp, gp, ap, _ = results[name]
+        cos = (torch.dot(gk.double(), gp.double())
+               / (gk.double().norm() * gp.double().norm())).item()
+        print(f"K6 route check at {CHECK_TRAIN_AGENTS} agents against the "
+              f"{name} route: loss {lk:.9f} vs {lp:.9f} (rel "
+              f"{abs(lk - lp) / abs(lp):.3e}); gradient cosine {cos:.9f} (> "
+              f"{cmin}); accepted steps {ak} vs {ap}", flush=True)
+        if not cos > cmin:
+            fail(f"the K6 route's gradient disagrees with the {name} route")
+        if name == "K6's plain version" and (lk != lp or ak != ap):
+            fail("the K6 route's loss bits or accepted steps differ from "
+                 "those of the same route on K6's plain version")
+        if name == "plain" and (abs(lk - lp) > DISCRETE_LOSS_RTOL * abs(lp)
+                                or ak != ap):
+            fail("the K6 route's loss or accepted steps differ from the "
+                 "plain versions'")
+
+    # ---- 27. times ------------------------------------------------------------
+    (a, kw), = recorded
+    n_acc = a[7]
+    args, cot = dopri5_operands(model, ADAPT_N, ADAPT_ZONES, dev, seed=1)
+    packed = fd.pack_operands(args[3], *args[5:11], precision="bf16")
+    with torch.no_grad():
+        ms = [cuda_ms(lambda: kernels[2](*a, **kw), 3),
+              cuda_ms(lambda: fd.dopri5_step_vjp_fused(
+                  *args, *cot, precision="bf16", packed=packed), 5)]
+        plain_ms = [cuda_ms(lambda: fd.dopri5_backward_reference(
+                        *a, precision="bf16"), 1),
+                    cuda_ms(lambda: fd.dopri5_step_vjp_reference(
+                        *args, *cot, precision="bf16"), 3)]
+    k7_flop = dopri5_flops(config, ADAPT_ZONES)[1] * ADAPT_N
+    flops = [n_acc * k7_flop, k7_flop]
+    da, dc, hd = config.agent_dim, config.context_dim, config.hidden_dim
+    n_w = sum(w.numel() for w in args[5:8]) + sum(
+        w.numel() for b in args[8] for w in b) + args[9].numel() + da
+    zones = ADAPT_ZONES * config.zone_dim
+    T = a[8].shape[0]
+    # K6: read each accepted step's two checkpoints, the output rows'
+    # cotangents, h and each step's time rows, the bf16 weights and zones;
+    # write gy0, gf0, gh and the summed gradients (7 time rows a step). K7:
+    # as phase 23 counts it, with bf16 weights
+    nbytes = [n_acc * ADAPT_N * da * 2 * a[0].element_size()
+              + 4 * ADAPT_N * (T * da + dc) + 4 * n_acc * 7 * hd
+              + 2 * (n_w + zones) + 4 * ADAPT_N * (2 * da + dc)
+              + 4 * (n_w + zones + 7 * n_acc * hd),
+              ADAPT_N * 4 * (9 * da + 2 * dc) + 2 * (n_w + zones)
+              + 4 * (n_w + zones + 7 * hd)]
+    names = ("dopri5_backward_fused", "dopri5_step_vjp_fused (bf16)")
+    for name, f, nb_, m, p in zip(names, flops, nbytes, ms, plain_ms):
+        b, by = bound(f, nb_)
+        print(f"{name} at rung 3 (N={ADAPT_N}, Z={ADAPT_ZONES}"
+              + (f", {n_acc} accepted steps" if name == names[0] else "")
+              + f"): kernel {m:.3f} ms ({f / m / 1e9:.1f} TFLOP/s, {b / m:.1%}"
+              f" of the bf16 {by} bound {b:.3f} ms), plain version {p:.3f} ms"
+              f" of {f / 1e9:.1f} GFLOP [card {card}]", flush=True)
+    print(f"rung-3 step at its own settings: {step_wall:.3f} s, K6 "
+          f"{ms[0]:.3f} ms of it ({ms[0] / 1e3 / step_wall:.1%}) [card "
+          f"{card}]", flush=True)
+    return [kernel_entry(name, "fused_dopri5.cu", src, n_, e, m, p, f, nb_)
+            for name, src, n_, e, m, p, f, nb_ in zip(
+                names, ("fused_dopri5.py:474", "fused_dopri5.py:254"),
+                (launches[2], k7_bf16_launches), errs, ms, plain_ms, flops,
+                nbytes)]
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 serving interval (K1), the adjoint RHS (K8) with the trainer around it, the
 training-day kernels (K2f, K2b, K3f, K3b) and the zone-encoder kernels
 (K4f, K4b) with the fixed-step trainer and ``train()``, and the DOPRI5
-step kernels (K5, K7) with the discrete-adjoint trainer.
+kernels (K5, K7 at float32 and bf16, K6) with the discrete-adjoint
+trainer.
 
 Marked ``cuda``: every test here skips on a host without a CUDA device.
 On a card without JAX installed, run them with
@@ -587,32 +588,152 @@ def test_dopri5_kernels_against_a_float64_witness(cuda):
 
 
 def test_dopri5_kernels_reject_what_they_are_not_compiled_for(cuda):
+    """A bf16 backward launches (K7 and K6 take bf16); K5's bf16 branch and
+    widths the kernels are not compiled for raise before anything
+    launches; the hooks refuse a bf16 forward when they are built."""
     from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
 
     args, cot = _dopri5_args(cuda, 64, 8, 1)
-    with pytest.raises(NotImplementedError, match="7b"):
-        fd.dopri5_step_vjp_fused(*args, *cot, precision="bf16")
-    # the hooks refuse a bf16 backward when they are built, before the
-    # forward launches anything; their plain versions take it
-    bf16 = dict(adjoint_mode="discrete", bwd_precision="bf16")
+    before = fd.dopri5_step_vjp_fused.launches
+    fd.dopri5_step_vjp_fused(*args, *cot, precision="bf16")
+    assert fd.dopri5_step_vjp_fused.launches == before + 1
+    before = [k.launches for k in fd.KERNELS]
+    with pytest.raises(NotImplementedError, match="K5's bf16 branch"):
+        fd.dopri5_step_fused(*args, precision="bf16")
     model = _model(cuda, 2)
     static = (torch.zeros(8, 7, device=cuda), torch.eye(8, device=cuda),
               torch.linspace(0.0, 1.0, 4, device=cuda))
-    before = [k.launches for k in fd.KERNELS]
-    with pytest.raises(NotImplementedError, match="7b"):
-        build_adjoint_loss_fn_g(model, GATODEConfig(method="dopri5"), static,
-                                **bf16)
-    assert [k.launches for k in fd.KERNELS] == before
+    with pytest.raises(NotImplementedError, match="K5's bf16 branch"):
+        fd.make_fused_dopri5_hooks(model, precision="bf16")
     assert callable(build_adjoint_loss_fn_g(
-        model, GATODEConfig(method="dopri5"), static, use_fused=True,
-        _plain=True, **bf16))
+        model, GATODEConfig(method="dopri5"), static,
+        adjoint_mode="discrete", bwd_precision="bf16"))
     model = build_model(GATODEConfig(hidden_dim=64), 7, 8, device=cuda)
     init_params(model, torch.Generator().manual_seed(0))
-    from ananke_abm_tpu_torch.ops.cuda.checks import dopri5_operands
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        dopri5_backward_operands,
+        dopri5_operands,
+    )
 
-    args, _ = dopri5_operands(model, 64, 8, cuda, seed=0)
+    args, cot = dopri5_operands(model, 64, 8, cuda, seed=0)
     with pytest.raises(ValueError, match="compiled for"):
         fd.dopri5_step_fused(*args)
+    for precision in ("f32", "bf16"):
+        with pytest.raises(ValueError, match="compiled for"):
+            fd.dopri5_step_vjp_fused(*args, *cot, precision=precision)
+        with pytest.raises(ValueError, match="compiled for"):
+            fd.dopri5_backward_fused(*dopri5_backward_operands(
+                model, 64, 8, cuda, 0, 4, 3, 3), precision=precision)
+    assert [k.launches for k in fd.KERNELS] == before
+
+
+def _k6_k7_bf16_checks(cuda, n, num_zones, num_blocks, control=False):
+    """(label, kernel outputs, plain outputs, bounds, control outputs or
+    None) of K7 at bf16 and of K6 at both precisions and checkpoint types,
+    each kernel output checked for the same bits on a repeat."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        DOPRI5_BWD_BF16_BOUNDS,
+        DOPRI5_BWD_BOUNDS,
+        DOPRI5_VJP_BF16_BOUNDS,
+        K6_RECORD,
+        bf16_control,
+        day_bounds,
+        dopri5_backward_operands,
+        dopri5_vjp_outputs,
+        tf32_products,
+    )
+
+    out = []
+    model = _model(cuda, num_blocks)
+    args, cot = _dopri5_args(cuda, n, num_zones, num_blocks)
+    with torch.no_grad():
+        runs = [("K7 bf16", lambda p, *a: p(*a, precision="bf16"),
+                 (fd.dopri5_step_vjp_fused, fd.dopri5_step_vjp_reference),
+                 args + cot, day_bounds(DOPRI5_VJP_BF16_BOUNDS, num_blocks),
+                 bf16_control)]
+        for prec, bounds, ctl in (("bf16", day_bounds(
+                DOPRI5_BWD_BF16_BOUNDS, num_blocks), bf16_control),
+                                  ("f32", DOPRI5_BWD_BOUNDS, tf32_products)):
+            for dt in (torch.bfloat16, torch.float32):
+                bargs = dopri5_backward_operands(
+                    model, n, num_zones, cuda, n, *K6_RECORD, ckpt_dtype=dt)
+                runs.append((f"K6 {prec} {dt}",
+                             lambda p, *a, prec=prec: p(*a, precision=prec),
+                             (fd.dopri5_backward_fused,
+                              fd.dopri5_backward_reference),
+                             bargs, bounds, ctl))
+        for label, call, (kernel, plain), a, bounds, ctl in runs:
+            got = dopri5_vjp_outputs(call(kernel, *a))
+            again = dopri5_vjp_outputs(call(kernel, *a))
+            assert all(torch.equal(u, v) for (_, u), (_, v) in
+                       zip(got, again)), label
+            want = dopri5_vjp_outputs(call(plain, *a))
+            c = (dopri5_vjp_outputs(ctl(lambda *b: call(plain, *b), *a))
+                 if control else None)
+            out.append((label, got, want, bounds, c))
+    return out
+
+
+@pytest.mark.parametrize("n,num_zones,num_blocks", [
+    (98_304, 64, 2), (1_000, 500, 1), (2_000, 64, 8), (33, 3, 5),
+])
+def test_dopri5_bf16_and_backward_kernels_match_plain_versions(
+        cuda, n, num_zones, num_blocks):
+    """K7 at bf16 and K6 (both precisions, both checkpoint types) within
+    ``checks.py``'s bounds of their plain versions; repeats give the same
+    bits."""
+    for label, got, want, bounds, _ in _k6_k7_bf16_checks(
+            cuda, n, num_zones, num_blocks):
+        assert all(w <= b for w, b in zip(_worst(got, want), bounds)), label
+
+
+def test_dopri5_bf16_and_backward_controls_fail(cuda):
+    """The bf16-product control fails K7-bf16's and K6-bf16's bounds, the
+    TF32-product control K6-f32's: the bounds tell a kernel that lost its
+    float32 sums (or took TF32) from a sound one."""
+    for label, _, want, bounds, ctl in _k6_k7_bf16_checks(
+            cuda, 2_000, 64, 2, control=True):
+        assert not all(w <= b for w, b in zip(_worst(ctl, want), bounds)), \
+            label
+
+
+def test_bf16_discrete_route_launches_k6_once(cuda):
+    """Bench rung 3's settings (max_accepted=256, ckpt_every=1,
+    bwd_precision="bf16"): K5 once per attempted forward step, K6 once per
+    backward, K7 never; the gradient of the same route on the plain
+    versions."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+
+    config = GATODEConfig(method="dopri5")
+    d = generate_agent_population(1_024, num_times=6, num_zones=64, seed=0)
+    model = _model(cuda, config.num_blocks)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(cuda)
+    static = (on(d["zone_features"]), on(d["adj"]), on(d["times"]))
+    batch = (on(d["person_feats"]), on(d["home_zone"], torch.long),
+             on(d["zone_ids"], torch.long))
+    rung3 = dict(adjoint_mode="discrete", max_accepted=256, ckpt_every=1,
+                 bwd_precision="bf16")
+    before = [k.launches for k in fd.KERNELS]
+    _, loss_fn = make_adjoint_step_fns(model, None, config, static, **rung3)
+    model.zero_grad()
+    loss, _ = loss_fn(*batch)
+    loss.backward()
+    st = loss_fn.stats
+    assert [k.launches - b for k, b in zip(fd.KERNELS, before)] == [
+        st["forward"]["n_steps"], 0, 1]
+    assert st["vjps"] == st["replays"] == 0
+    grads = torch.cat([p.grad.flatten() for p in model.parameters()])
+    plain = build_adjoint_loss_fn_g(model, config, static, use_fused=True,
+                                    _plain=True, **rung3)
+    model.zero_grad()
+    loss_p, _ = plain(*batch, static)
+    loss_p.backward()
+    grads_p = torch.cat([p.grad.flatten() for p in model.parameters()])
+    assert abs(loss.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())
+    cos = torch.dot(grads.double(), grads_p.double()) / (
+        grads.double().norm() * grads_p.double().norm())
+    assert cos > 0.999
 
 
 def test_discrete_trainer_runs_through_the_kernels(cuda):
@@ -636,7 +757,7 @@ def test_discrete_trainer_runs_through_the_kernels(cuda):
     st = loss_fn.stats
     assert [k.launches - b for k, b in zip(fd.KERNELS, before)] == [
         st["forward"]["n_steps"] + st["replays"],
-        st["forward"]["n_accepted"]]
+        st["forward"]["n_accepted"], 0]
     grads = torch.cat([p.grad.flatten() for p in model.parameters()])
     plain = build_adjoint_loss_fn_g(model, config, static,
                                     adjoint_mode="discrete", use_fused=True,

@@ -11,7 +11,10 @@ increment |y1 - x| it cancels from (at h = 0.125 err itself is ~1e-4 of
 the increment, and float32 rounding of the increments shows there as
 ~1e-5 of err's own largest value); the
 in-kernel error sum within rtol 1e-5 of ``tree_error_norm``'s, and every
-VJP output at cosine > 1 - 1e-6 and within 1e-4 of its largest |ref|.
+VJP output at cosine > 1 - 1e-6 and within 1e-4 of its largest |ref|; at
+``precision="bf16"`` every VJP output at cosine > 0.999, the bf16 class
+(ROADMAP.md, North star): both round the same bf16 points, but a float32
+sum in another order now and then rounds the other way.
 """
 import jax
 import jax.numpy as jnp
@@ -107,19 +110,24 @@ def _vjp_items(out):
     return flat + [w for blk in gblocks for w in blk]
 
 
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("num_blocks", [1, 2])
-def test_step_vjp_matches_pallas(num_blocks):
+def test_step_vjp_matches_pallas(num_blocks, precision):
     ops, cot = _operands(num_blocks, seed=10 + num_blocks)
     jout = jfd.dopri5_step_vjp_fused(*_jax_args(ops, 3.0, 0.4),
                                      *map(jnp.asarray, cot), interpret=True,
-                                     tile=TILE)
+                                     tile=TILE, precision=precision)
     tout = tfd.dopri5_step_vjp_fused(*_port_args(ops, 3.0, 0.4),
-                                     *map(torch.from_numpy, cot))
+                                     *map(torch.from_numpy, cot),
+                                     precision=precision)
     for g, w in zip(_vjp_items(tout), _vjp_items(jout)):
         g = g.numpy().astype(np.float64).ravel()
         w = np.asarray(w, np.float64).ravel()
         assert g.shape == w.shape
         cos = g @ w / (np.linalg.norm(g) * np.linalg.norm(w))
+        if precision == "bf16":
+            assert cos > 0.999
+            continue
         assert cos > 1 - 1e-6
         assert np.max(np.abs(g - w)) <= 1e-4 * np.max(np.abs(w))
 
