@@ -1457,24 +1457,6 @@ __global__ void __launch_bounds__(Body::kThreadsPerCta, 1)
   }
 }
 
-// out[i] = sum over CTAs, in order, of slab[c][i]
-__global__ void reduce_slabs(const float* slab, float* out, long size,
-                             int num_ctas) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= size) return;
-  float s = 0.f;
-  for (int c = 0; c < num_ctas; ++c) s += slab[(size_t)c * size + i];
-  out[i] = s;
-}
-
-int launch_reduce(const float* slab, float* out, long size, int num_ctas,
-                  cudaStream_t s) {
-  const int threads = 256;
-  reduce_slabs<<<(unsigned)((size + threads - 1) / threads), threads, 0, s>>>(
-      slab, out, size, num_ctas);
-  return (int)cudaGetLastError();
-}
-
 bool widths_ok(int da, int dz, int dc, int hdim) {
   return da == DA && dz == DZ && dc == DC && hdim == H;
 }
@@ -1519,8 +1501,9 @@ int launch_vjp(const VjpParams& p, int num_ctas, cudaStream_t s) {
   kernel<<<num_ctas, kThreads, bytes, s>>>(p);
   err = (int)cudaGetLastError();
   if (err) return err;
-  return launch_reduce(p.slab, p.slab + (size_t)num_ctas * p.slab_size,
-                       p.slab_size, num_ctas, s);
+  return ananke::launch_reduce_slabs(
+      p.slab, p.slab + (size_t)num_ctas * p.slab_size, p.slab_size, num_ctas,
+      s);
 }
 
 template <int W>
@@ -1532,8 +1515,9 @@ int launch_vjp_bf16(const VjpBf16Params& p, int num_ctas, cudaStream_t s) {
   kernel<<<num_ctas, 32 * W, bytes, s>>>(p);
   err = (int)cudaGetLastError();
   if (err) return err;
-  return launch_reduce(p.slab, p.slab + (size_t)num_ctas * p.slab_size,
-                       p.slab_size, num_ctas, s);
+  return ananke::launch_reduce_slabs(
+      p.slab, p.slab + (size_t)num_ctas * p.slab_size, p.slab_size, num_ctas,
+      s);
 }
 
 template <class Body, class CkptT>
@@ -1547,8 +1531,9 @@ int launch_backward(typename Body::Params p, int nb, int num_ctas,
   kernel<<<num_ctas, Body::kThreadsPerCta, bytes, s>>>(p);
   err = (int)cudaGetLastError();
   if (err) return err;
-  return launch_reduce(p.slab, p.slab + (size_t)num_ctas * p.slab_size,
-                       p.slab_size, num_ctas, s);
+  return ananke::launch_reduce_slabs(
+      p.slab, p.slab + (size_t)num_ctas * p.slab_size, p.slab_size, num_ctas,
+      s);
 }
 
 template <class Wt>
@@ -1644,8 +1629,8 @@ int ananke_dopri5_step(
   kernel<<<num_ctas, kThreads, bytes, s>>>(p);
   e = (int)cudaGetLastError();
   if (e) return e;
-  return launch_reduce(p.partial, static_cast<float*>(err_sum), 1, num_ctas,
-                       s);
+  return ananke::launch_reduce_slabs(
+      p.partial, static_cast<float*>(err_sum), 1, num_ctas, s);
 }
 
 // K7 on `stream` at float32 (bf16 = 0: the 12 float32 weights of

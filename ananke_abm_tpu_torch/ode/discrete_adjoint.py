@@ -141,44 +141,51 @@ class _OdeintDiscrete(torch.autograd.Function):
         whole = (backward_all is not None and K == 1 and ckpt_f is not None
                  and torch.is_tensor(ckpts) and torch.is_tensor(ckpt_f))
         if whole:
+            if stats is not None and stats.get("keep_backward_all"):
+                # the operands the hook is given, the weights copied (an
+                # optimizer may update them in place after the backward)
+                stats["backward_all"] = (
+                    ckpts, ckpt_f, rec_t0, rec_h, n_acc, g, out_step, ts,
+                    _rebuild(args, [l.detach().clone() for l in leaves]))
             g_y, g_f, gargs = backward_all(ckpts, ckpt_f, rec_t0, rec_h,
                                            n_acc, g, out_step, ts, args)
             g_args = tree_leaves(gargs)
-        for s in range(-1 if whole else -(-n_acc // K) - 1, -1, -1):
-            # checkpoints may be stored narrowed: widen to the cotangent's
-            # type for the replay and the VJP
-            y = ckpts[s].to(g.dtype)
-            if ckpt_f is not None:
-                f = ckpt_f[s].to(g.dtype)
-            else:
-                f = rhs(float(rec_t0[s * K]), y, args)
-            seg = [(y, f)]
-            # replay the segment's steps whose outputs the VJPs read
-            for idx in range(s * K, min(s * K + K, n_acc) - 1):
-                y, f, _err, _interp = step(float(rec_t0[idx]),
-                                           float(rec_h[idx]), y, f, args)
-                seg.append((y, f))
-                if stats is not None:
-                    stats["replays"] += 1
-            for j in range(len(seg) - 1, -1, -1):
-                idx = s * K + j
-                t0j, hj = rec_t0[idx], rec_h[idx]
-                w = _dense_weights(out_step, ts, idx, t0j, hj)
-                if w is None:
-                    gset = (g_y, zero_row, zero_row, g_f, g_y)
+        else:
+            for s in range(-(-n_acc // K) - 1, -1, -1):
+                # checkpoints may be stored narrowed: widen to the cotangent's
+                # type for the replay and the VJP
+                y = ckpts[s].to(g.dtype)
+                if ckpt_f is not None:
+                    f = ckpt_f[s].to(g.dtype)
                 else:
-                    gr1, gr2, gr3, gr4, gr5 = torch.tensordot(
-                        torch.from_numpy(w).to(g.device), g, dims=1)
-                    hf = float(F(hj))
-                    gset = (g_y + gr2 - gr3 + 2.0 * gr4, gr5,
-                            hf * (gr3 - gr4), g_f - hf * gr4, g_y + gr1)
-                y_j, f_j = seg[j]
-                g_y, g_f, gargs_j = vjp(float(t0j), float(hj), y_j, f_j,
-                                        args, gset)
-                g_args = [a + b for a, b in zip(g_args,
-                                                tree_leaves(gargs_j))]
-                if stats is not None:
-                    stats["vjps"] += 1
+                    f = rhs(float(rec_t0[s * K]), y, args)
+                seg = [(y, f)]
+                # replay the segment's steps whose outputs the VJPs read
+                for idx in range(s * K, min(s * K + K, n_acc) - 1):
+                    y, f, _err, _interp = step(float(rec_t0[idx]),
+                                               float(rec_h[idx]), y, f, args)
+                    seg.append((y, f))
+                    if stats is not None:
+                        stats["replays"] += 1
+                for j in range(len(seg) - 1, -1, -1):
+                    idx = s * K + j
+                    t0j, hj = rec_t0[idx], rec_h[idx]
+                    w = _dense_weights(out_step, ts, idx, t0j, hj)
+                    if w is None:
+                        gset = (g_y, zero_row, zero_row, g_f, g_y)
+                    else:
+                        gr1, gr2, gr3, gr4, gr5 = torch.tensordot(
+                            torch.from_numpy(w).to(g.device), g, dims=1)
+                        hf = float(F(hj))
+                        gset = (g_y + gr2 - gr3 + 2.0 * gr4, gr5,
+                                hf * (gr3 - gr4), g_f - hf * gr4, g_y + gr1)
+                    y_j, f_j = seg[j]
+                    g_y, g_f, gargs_j = vjp(float(t0j), float(hj), y_j, f_j,
+                                            args, gset)
+                    g_args = [a + b for a, b in zip(g_args,
+                                                    tree_leaves(gargs_j))]
+                    if stats is not None:
+                        stats["vjps"] += 1
         # row 0 of ys is y0 itself; the rows never filled (max_accepted or
         # max_steps ran out) match no accepted step: route their cotangents
         # into y0 so that a loss that touched a NaN row gets a NaN
@@ -230,7 +237,11 @@ def odeint_discrete_adjoint(rhs, y0, ts, args=None, *, rtol: float = 1e-5,
     ``stats``: a dict to fill with the forward solve's ``n_steps``,
     ``n_accepted``, ``ok`` and ``h_next`` (``stats["forward"]``) and, once
     the backward has run, its step replays (``stats["replays"]``) and step
-    VJPs (``stats["vjps"]``, one per accepted step).
+    VJPs (``stats["vjps"]``, one per accepted step). With
+    ``stats["keep_backward_all"]`` true, a backward that takes
+    ``step_vjp.backward_all`` leaves the arguments it passed there in
+    ``stats["backward_all"]``, ``args`` as copies: the whole backward can
+    then be run again on the same operands.
     """
     if (step_impl is None) != (step_vjp is None):
         raise ValueError(

@@ -116,15 +116,17 @@ Phases (any failure raises and the script exits non-zero):
     bwd_precision="bf16")`` at 98,304 x 64 x 12, seed 7: finite losses,
     the third below the first, K6 launched once and K7 never per step, K5
     once per attempted forward step; its step wall beside phase 19's;
-26. at 8,192 agents the K6 route against the same route with K6's plain
-    version (the same forward: the same loss bits and accepted steps,
-    cosine > 0.999), with ``_plain=True`` (every plain version: loss rel
-    <= 1e-4 as phase 20, the same accepted steps, cosine > 0.999), the
-    per-step bf16 route (``ckpt_every=2``, K7-bf16; cosine > 0.9999) and
-    the float32 per-step route of phase 20 (cosine > 0.999);
-27. times: K6 and its plain version per launch on phase 25's last
-    recording, K7-bf16 and its plain version per launch at rung 3, and the
-    rung-3 step.
+26. at 8,192 agents the K6 route against the same route with
+    ``_plain=True`` (every plain version: loss rel <= 1e-4 as phase 20,
+    the same accepted steps, cosine > 0.999), the per-step bf16 route
+    (``ckpt_every=2``, K7-bf16; cosine > 0.9999) and the float32 per-step
+    route of phase 20 (cosine > 0.999);
+27. K6 against its plain version on the operands phase 25's last step
+    gave it (its recording of 16-17 accepted steps in a 256-step buffer,
+    bf16 checkpoints, the loss's cotangents) within DOPRI5_BWD_BF16_BOUNDS,
+    the same bits on a repeat; times: K6 and its plain version per launch
+    on those operands, K7-bf16 and its plain version per launch at rung 3,
+    and the rung-3 step.
 
 ``python3 chip_smoke.py --readings`` runs phases 1-2 and then only the
 training kernels' checks of phase 10, at DAY_SHAPES and DEPTH_SHAPES for 3
@@ -1976,12 +1978,10 @@ RUNG3 = dict(adjoint_mode="discrete", max_accepted=256, ckpt_every=1,
 # the per-step route at bf16: K7's bf16 branch for every accepted step
 PER_STEP_BF16 = dict(adjoint_mode="discrete", ckpt_every=2,
                      bwd_precision="bf16")
-# K6's route against the same route with K6's plain version (the same
-# forward: the same loss bits), against the route on every plain version
-# (K5's float32 sums in another order: the loss within phase 20's
-# DISCRETE_LOSS_RTOL), against the per-step bf16 route (the reference's
-# whole-versus-per-step bound, tests/test_ops_kernels.py:1112-1113) and
-# against the float32 route
+# K6's route against the route on every plain version (K5's float32 sums
+# in another order: the loss within phase 20's DISCRETE_LOSS_RTOL),
+# against the per-step bf16 route (the reference's whole-versus-per-step
+# bound, tests/test_ops_kernels.py:1112-1113) and against the float32 route
 K6_PLAIN_COS_MIN = 0.999
 WHOLE_COS_MIN = 0.9999
 K6_F32_COS_MIN = 0.999
@@ -2073,13 +2073,23 @@ def backward_kernel_checks(dev, n, z, nb, seed, control, enforce=True,
 def backward_all_phases(dev, card, discrete_wall):
     """Phases 24-27: K6 and K7 at bf16 against their plain versions, the
     discrete trainer at bench rung 3's own settings, the K6 route against
-    its plain versions, the per-step bf16 route and the float32 route, and
-    times. Returns K6's and K7-bf16's entries of the {"kernels": [...]}
-    line."""
+    the plain versions' route, the per-step bf16 route and the float32
+    route, K6 against its plain version on the operands of rung 3's last
+    step, and times. Returns K6's and K7-bf16's entries of the
+    {"kernels": [...]} line."""
     from ananke_abm_tpu_torch.data_generator import generate_agent_population
     from ananke_abm_tpu_torch.models.gnn_embed import train as tr
+    from ananke_abm_tpu_torch.models.gnn_embed.params import (
+        flax_leaf_params,
+    )
     from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
-    from ananke_abm_tpu_torch.ops.cuda.checks import dopri5_operands
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        DOPRI5_BWD_BF16_BOUNDS,
+        day_bounds,
+        dopri5_operands,
+        dopri5_vjp_outputs,
+    )
+    from ananke_abm_tpu_torch.ops.cuda.fused_rhs import split_drift_params
 
     # ---- 24. K6 and K7-bf16 against their plain versions -----------------
     errs = [0.0, 0.0]
@@ -2104,34 +2114,15 @@ def backward_all_phases(dev, card, discrete_wall):
                            data["person_feats"].shape[-1], device=dev)
     tr.init_params(model, torch.Generator().manual_seed(ADAPT_SEED))
     opt = tr.make_optimizer(model, config)
-    # the hooks take K6 from fd.KERNELS when they are built: a wrapper that
-    # keeps the last backward's operands, for phase 27's times
+    step, _ = tr.make_adjoint_step_fns(model, opt, config, static, **RUNG3)
     kernels = fd.KERNELS
-    recorded = []
-
-    def keep_operands(*a, **kw):
-        recorded[:] = [(a, kw)]
-        return kernels[2](*a, **kw)
-
-    def plain_k6(*a, packed=None, **kw):
-        return fd.dopri5_backward_reference(*a, **kw)
-
-    @contextlib.contextmanager
-    def hooks_with(backward_all):
-        """fd.KERNELS with another whole backward, while hooks are built"""
-        fd.KERNELS = (*kernels[:2], backward_all)
-        try:
-            yield
-        finally:
-            fd.KERNELS = kernels
-
-    with hooks_with(keep_operands):
-        step, _ = tr.make_adjoint_step_fns(model, opt, config, static,
-                                           **RUNG3)
     for k in kernels:
         k.launches = 0
     losses, walls = [], []
     for i in range(TRAIN_STEPS):
+        # the last step's backward keeps the operands it gives K6, for
+        # phase 27
+        step.stats["keep_backward_all"] = i == TRAIN_STEPS - 1
         before = [k.launches for k in kernels]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2158,6 +2149,7 @@ def backward_all_phases(dev, card, discrete_wall):
         losses.append(loss)
         walls.append(wall)
     launches = [k.launches for k in kernels]
+    recorded = step.stats.pop("backward_all")
     step_wall = min(walls[1:])
     print(f"rung 3 at its own settings: {ADAPT_N} agents x {ADAPT_ZONES} "
           f"zones x {ADAPT_TIMES} times, {TRAIN_STEPS} steps, losses "
@@ -2171,15 +2163,13 @@ def backward_all_phases(dev, card, discrete_wall):
     # ---- 26. the K6 route against the plain, per-step and float32 routes --
     sub = tuple(b[:CHECK_TRAIN_AGENTS] for b in batch)
     results = {}
-    for name, kw in (("K6", RUNG3), ("K6's plain version", RUNG3),
+    for name, kw in (("K6", RUNG3),
                      ("plain", dict(RUNG3, use_fused=True, _plain=True)),
                      ("per-step bf16", PER_STEP_BF16),
                      ("float32 per-step", dict(adjoint_mode="discrete"))):
         stats = {}
-        with hooks_with(plain_k6 if name == "K6's plain version"
-                        else kernels[2]):
-            fn = tr.build_adjoint_loss_fn_g(model, config, static,
-                                            stats=stats, **kw)
+        fn = tr.build_adjoint_loss_fn_g(model, config, static, stats=stats,
+                                        **kw)
         before = [k.launches for k in kernels]
         model.zero_grad()
         loss, _ = fn(*sub, static)
@@ -2198,10 +2188,7 @@ def backward_all_phases(dev, card, discrete_wall):
             or results["plain"][3] != [0, 0, 0]):
         fail("the per-step bf16 route or the plain route took the wrong "
              "kernels")
-    if results["K6's plain version"][3] != [ck[0], 0, 0]:
-        fail("the route on K6's plain version took the wrong kernels")
-    for name, cmin in (("K6's plain version", K6_PLAIN_COS_MIN),
-                       ("plain", K6_PLAIN_COS_MIN),
+    for name, cmin in (("plain", K6_PLAIN_COS_MIN),
                        ("per-step bf16", WHOLE_COS_MIN),
                        ("float32 per-step", K6_F32_COS_MIN)):
         lp, gp, ap, _ = results[name]
@@ -2213,21 +2200,39 @@ def backward_all_phases(dev, card, discrete_wall):
               f"{cmin}); accepted steps {ak} vs {ap}", flush=True)
         if not cos > cmin:
             fail(f"the K6 route's gradient disagrees with the {name} route")
-        if name == "K6's plain version" and (lk != lp or ak != ap):
-            fail("the K6 route's loss bits or accepted steps differ from "
-                 "those of the same route on K6's plain version")
         if name == "plain" and (abs(lk - lp) > DISCRETE_LOSS_RTOL * abs(lp)
                                 or ak != ap):
             fail("the K6 route's loss or accepted steps differ from the "
                  "plain versions'")
 
-    # ---- 27. times ------------------------------------------------------------
-    (a, kw), = recorded
-    n_acc = a[7]
-    args, cot = dopri5_operands(model, ADAPT_N, ADAPT_ZONES, dev, seed=1)
-    packed = fd.pack_operands(args[3], *args[5:11], precision="bf16")
+    # ---- 27. K6 on the main path's own operands, and times ---------------
+    # the operands the hooks formed from the last rung-3 step's recording
+    (ckpts, ckpt_f, rec_t0, rec_h, n_acc, g, out_step, ts,
+     (params, hc, ze)) = recorded
+    (Wq, W1xc, W1h, W1t, b1, blocks, W3, b3) = split_drift_params(
+        dict(zip([p for p, _ in flax_leaf_params(model)], params)))
+    wts = (Wq, W1xc, W1h, blocks, W3, b3)
+    a = (ckpts, ckpt_f, hc, ze, fd.stage_time_table(rec_t0, rec_h, W1t, b1),
+         rec_t0, rec_h, n_acc, g, out_step, ts, *wts)
+    kw = dict(precision="bf16",
+              packed=fd.pack_operands(ze, *wts, precision="bf16"))
+    tag = (f"on rung 3's last recording ({n_acc} of {ckpts.shape[0]} steps,"
+           f" {str(ckpts.dtype)[6:]} checkpoints, N={ADAPT_N})")
     with torch.no_grad():
-        ms = [cuda_ms(lambda: kernels[2](*a, **kw), 3),
+        got = dopri5_vjp_outputs(fd.dopri5_backward_fused(*a, **kw))
+        again = dopri5_vjp_outputs(fd.dopri5_backward_fused(*a, **kw))
+        torch.cuda.synchronize()
+        if not same_bits(got, again):
+            fail(f"K6 {tag}: a repeat is not bit-identical")
+        want = dopri5_vjp_outputs(fd.dopri5_backward_reference(
+            *a, precision="bf16"))
+        errs[0] = check(f"K6 bf16 {tag} (repeat bit-identical)", got, want,
+                        day_bounds(DOPRI5_BWD_BF16_BOUNDS,
+                                   config.num_blocks))
+        del got, again, want
+        args, cot = dopri5_operands(model, ADAPT_N, ADAPT_ZONES, dev, seed=1)
+        packed = fd.pack_operands(args[3], *args[5:11], precision="bf16")
+        ms = [cuda_ms(lambda: fd.dopri5_backward_fused(*a, **kw), 3),
               cuda_ms(lambda: fd.dopri5_step_vjp_fused(
                   *args, *cot, precision="bf16", packed=packed), 5)]
         plain_ms = [cuda_ms(lambda: fd.dopri5_backward_reference(

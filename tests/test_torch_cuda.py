@@ -676,7 +676,8 @@ def _k6_k7_bf16_checks(cuda, n, num_zones, num_blocks, control=False):
 
 
 @pytest.mark.parametrize("n,num_zones,num_blocks", [
-    (98_304, 64, 2), (1_000, 500, 1), (2_000, 64, 8), (33, 3, 5),
+    (98_304, 64, 2), (1_000, 500, 1), (2_000, 64, 8), (333, 7, 5),
+    (33, 3, 5),
 ])
 def test_dopri5_bf16_and_backward_kernels_match_plain_versions(
         cuda, n, num_zones, num_blocks):

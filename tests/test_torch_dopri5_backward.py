@@ -38,6 +38,7 @@ from ananke_abm_tpu.ops.pallas import fused_dopri5 as jfd
 from ananke_abm_tpu_torch.models.gnn_embed import train as ttrain
 from ananke_abm_tpu_torch.models.gnn_embed.params import flax_leaf_params
 from ananke_abm_tpu_torch.ode import odeint_discrete_adjoint
+from ananke_abm_tpu_torch.ode.tree import tree_leaves
 from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as tfd
 
 N, DA, DZ, DC, H, Z = 24, 8, 16, 8, 16, 10
@@ -139,10 +140,12 @@ SETUP = dict(num_blocks=2, n_agents=32, num_times=5, num_zones=10, seed=11,
              substeps=1, rtol=1e-5, atol=1e-7)
 
 
-def _solve_grads(pair, ckpt_every, precision):
+def _solve_grads(pair, ckpt_every, precision, keep=False):
     """Gradients of sum(ys * cot) with respect to y0 and every parameter
     of the drift's ``args``, through the port's hooks (the plain versions
-    here), at ``ckpt_every``; and the solve's stats."""
+    here), at ``ckpt_every``; the solve's stats (with
+    ``stats["keep_backward_all"] = keep``); and the arguments each call of
+    the hooks' ``backward_all`` was given."""
     model = pair.tmodel
     zf, adj, times, pf, hz = pair.tensors()
     leaves = flax_leaf_params(model)
@@ -163,7 +166,14 @@ def _solve_grads(pair, ckpt_every, precision):
     x0 = x0.detach().requires_grad_(True)
     step_impl, step_vjp = tfd.make_fused_dopri5_hooks(
         model, bwd_precision=precision, err_stats=(1e-5, 1e-7))
-    stats = {}
+    given, whole = [], step_vjp.backward_all
+
+    def backward_all(*a):
+        given.append(a)
+        return whole(*a)
+
+    step_vjp.backward_all = backward_all
+    stats = {"keep_backward_all": keep}
     ys = odeint_discrete_adjoint(
         rhs, x0, times, (params, h, ze), rtol=1e-5, atol=1e-7,
         max_accepted=256, ckpt_every=ckpt_every, store_f=True,
@@ -174,7 +184,7 @@ def _solve_grads(pair, ckpt_every, precision):
                                    allow_unused=True)
     flat = torch.cat([torch.zeros_like(p).flatten() if g is None
                       else g.flatten() for g, p in zip(gp, params)])
-    return gy0.flatten().double(), flat.double(), stats
+    return gy0.flatten().double(), flat.double(), stats, given
 
 
 def _cos(a, b):
@@ -187,13 +197,32 @@ def test_whole_backward_matches_the_per_step_path(precision):
     ``backward_all`` (no step VJP counted); ``ckpt_every=2`` the per-step
     loop over the same step VJP."""
     pair = make_pair(**SETUP)
-    gy_w, gp_w, st_w = _solve_grads(pair, 1, precision)
-    gy_s, gp_s, st_s = _solve_grads(pair, 2, precision)
+    gy_w, gp_w, st_w, _ = _solve_grads(pair, 1, precision)
+    gy_s, gp_s, st_s, _ = _solve_grads(pair, 2, precision)
     assert st_w["vjps"] == st_w["replays"] == 0
     assert st_s["vjps"] == st_s["forward"]["n_accepted"] > 2
     assert st_w["forward"]["n_accepted"] == st_s["forward"]["n_accepted"]
     assert _cos(gy_w, gy_s) > 0.99999
     assert _cos(gp_w, gp_s) > 0.9999
+
+
+def test_whole_backward_keeps_its_operands_when_asked():
+    """With ``stats["keep_backward_all"]`` the whole backward leaves in
+    ``stats["backward_all"]`` the arguments it gave ``backward_all``, the
+    ``args`` tree as copies of equal value; without it, nothing."""
+    pair = make_pair(**SETUP)
+    *_, st, given = _solve_grads(pair, 1, "bf16")
+    assert "backward_all" not in st and len(given) == 1
+    *_, st, given = _solve_grads(pair, 1, "bf16", keep=True)
+    (*rec, args), ((*rec_h, args_h),) = st["backward_all"], given
+    assert rec[4] == st["forward"]["n_accepted"] and len(rec) == 8
+    for kept, hook in zip(rec, rec_h):
+        if torch.is_tensor(hook):
+            assert kept is hook
+        else:
+            assert np.array_equal(np.asarray(kept), np.asarray(hook))
+    for kept, hook in zip(tree_leaves(args), tree_leaves(args_h)):
+        assert kept is not hook and torch.equal(kept, hook)
 
 
 def test_rung3_configuration_matches_jax():
