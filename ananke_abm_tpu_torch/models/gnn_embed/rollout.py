@@ -8,7 +8,8 @@ count: the (N, T, Z) logits of ``GATODE.forward`` are never built.
 Two bodies, as in the reference:
 
 - the float32 body: ``GATODE.rhs`` under RK4 and ``GATODE.decode`` +
-  argmax after every interval;
+  argmax after every interval; a sparse edge-list zone graph always takes
+  it;
 - the kernel body: bf16 weights packed once per call, a bf16 decode at
   t=0, then one :func:`rk4_interval_decode_fused` per output interval
   (all substeps plus the decode and argmax).
@@ -37,7 +38,8 @@ def _kernel_eligible(config, device) -> bool:
 
 
 def make_decoded_rollout(model, config, zone_feats, adj, times,
-                         use_kernel: str | bool = "auto"):
+                         use_kernel: str | bool = "auto", edge_index=None,
+                         edge_chunks=None):
     """Returns ``rollout(person_feats, home_zone_ids) -> (N, T) int32``
     zone ids, with the decode fused into the integration.
 
@@ -49,19 +51,27 @@ def make_decoded_rollout(model, config, zone_feats, adj, times,
 
     Every call reads the module's current parameters, so updated weights
     take effect without a new rollout. ``zone_feats``, ``adj`` and
-    ``times`` are tensors on the model's device. Sparse edge-list zone
-    graphs are not ported yet (ROADMAP.md queue 1 item 9).
+    ``times`` are tensors on the model's device.
+
+    ``edge_index``: serve with the sparse edge-list zone encoder (``adj``
+    may then be None; on CUDA the encoder runs the CSR kernels). As in the
+    reference it forces the float32 body, whatever ``use_kernel`` says: the
+    kernel body's zone-encode is dense. ``edge_chunks`` is accepted for the
+    reference's signature and ignored (the CSR kernels need no chunks).
     """
     if use_kernel not in ("auto", True, False):
         raise ValueError(f"use_kernel must be 'auto', True or False, got "
                          f"{use_kernel!r}")
+    del edge_chunks
+    if edge_index is not None:
+        use_kernel = False
     if use_kernel == "auto":
         use_kernel = _kernel_eligible(config, zone_feats.device)
     substeps = config.substeps
     if use_kernel:
         body = _kernel_body(model, substeps, rk4_interval_decode_fused)
     else:
-        body = _f32_body(model, substeps)
+        body = _f32_body(model, substeps, edge_index)
 
     def rollout(person_feats, home_zone_ids):
         with torch.inference_mode():
@@ -71,9 +81,9 @@ def make_decoded_rollout(model, config, zone_feats, adj, times,
     return rollout
 
 
-def _f32_body(model, substeps):
+def _f32_body(model, substeps, edge_index=None):
     def body(zone_feats, adj, times, person_feats, home_zone_ids):
-        zone_emb = model.encode_zones(zone_feats, adj)
+        zone_emb = model.encode_zones(zone_feats, adj, edge_index)
         x, h = model.initial_state(person_feats, home_zone_ids, zone_emb)
 
         def rhs(t, y, args):

@@ -4,8 +4,11 @@ training-day kernels), the continuous- and discrete-adjoint trainers, the
 epoch function and ``train()`` (port of
 ``ananke_abm_tpu/models/gnn_embed/train.py``).
 
-Not ported yet: sparse zone graphs (ROADMAP.md queue 1 item 9) and the
-data-parallel step across cards (item 11).
+A zone graph is dense, ``static = (zone_feats, adj, times)``, or a sparse
+edge list, ``static = (zone_feats, adj_or_None, times, edge_index)`` with
+an optional fifth element (the reference's ``EdgeChunks``, ignored here:
+the CSR kernels need no chunks). Not ported yet: the data-parallel step
+across cards (ROADMAP.md queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from ananke_abm_tpu_torch.models.gnn_embed.params import (
 from ananke_abm_tpu_torch.models.gnn_embed.rollout import (
     make_decoded_rollout,
 )
+from ananke_abm_tpu_torch.ops.segment import edges_from_adj
 from ananke_abm_tpu_torch.utils.cfg import ensure_dir
 from ananke_abm_tpu_torch.utils.ckpt import (
     OPT_STATE_FORMAT,
@@ -131,7 +135,9 @@ def serve(
     its zone world from the checkpoint's world keys, draw a FRESH agent
     population of ``n_agents`` (``seed`` governs the agents only), run the
     decoded rollout on ``device`` and write
-    ``out_npz{zone_ids (N, T) int32, times (T,)}``.
+    ``out_npz{zone_ids (N, T) int32, times (T,)}``. A sparse-world
+    checkpoint serves through the edge-list encoder (no (Z, Z) array), in
+    the rollout's float32 body.
 
     ``use_kernel`` as in ``make_decoded_rollout``. ``device``: the card
     unless the caller asks for the CPU (no fallback). ``world_seed``
@@ -144,15 +150,10 @@ def serve(
     ck = load_checkpoint(ckpt_path)
     config = GATODEConfig(**ck["config"])
     sparse = bool(ck.get("sparse_world", False))
-    if sparse:
-        raise NotImplementedError(
-            "sparse-world checkpoints are not served by the port yet: "
-            "ROADMAP.md queue 1 item 9"
-        )
     if world_seed is None:
         if "world_seed" in ck:
             world_seed = int(ck["world_seed"])
-        elif int(ck["num_zones"]) == len(ZONES):
+        elif not sparse and int(ck["num_zones"]) == len(ZONES):
             # the default mock world is fixed and seed-independent
             world_seed = 0
         else:
@@ -167,16 +168,22 @@ def serve(
         num_times=int(num_times or ck["num_times"]),
         seed=seed,
         num_zones=int(ck["num_zones"]),
+        sparse_world=sparse,
         world_seed=int(world_seed),
     )
     model = build_model(config, data["zone_features"].shape[-1],
                         data["person_feats"].shape[-1], device=device)
     load_flax_params(model, ck["params"])
     on = lambda a, dtype: torch.as_tensor(a, dtype=dtype).to(device)
+    adj = edge_index = None
+    if sparse:
+        edge_index = tuple(on(e, torch.long) for e in data["edge_index"])
+    else:
+        adj = on(data["adj"], torch.float32)
     rollout = make_decoded_rollout(
-        model, config, on(data["zone_features"], torch.float32),
-        on(data["adj"], torch.float32), on(data["times"], torch.float32),
-        use_kernel=use_kernel,
+        model, config, on(data["zone_features"], torch.float32), adj,
+        on(data["times"], torch.float32), use_kernel=use_kernel,
+        edge_index=edge_index,
     )
     t0 = time.time()
     ids = rollout(on(data["person_feats"], torch.float32),
@@ -251,14 +258,17 @@ def _cross_entropy(logits, targets):
 def _build_loss_fn_g(model, config):
     """``loss_fn_g(pf, hz, targets, graph) -> (mean nll, accuracy)``
     through ``GATODE.forward`` at ``config.method`` (plain autograd through
-    the solver); ``graph`` is ``(zone_feats, adj, times)``."""
+    the solver, each fixed-step interval rematerialised in the backward);
+    ``graph`` is a static (:func:`_unpack_static`)."""
 
     def loss_fn_g(pf, hz, targets, graph):
-        zone_feats, adj, times = graph
+        zone_feats, adj, times, edge_index, edge_chunks = _unpack_static(
+            graph)
         logits, _ = model(zone_feats, adj, pf, hz, times,
                           ode_method=config.method,
                           substeps=config.substeps, rtol=config.rtol,
-                          atol=config.atol)
+                          atol=config.atol, edge_index=edge_index,
+                          edge_chunks=edge_chunks)
         return _cross_entropy(logits, targets)
 
     return loss_fn_g
@@ -286,10 +296,11 @@ def _step_fns(loss_fn_g, optimizer, graph):
 def make_step_fns(model, optimizer, config, static):
     """The plain training step: ``GATODE.forward`` at ``config.method``
     with autograd through the solver (the reference's ``make_step_fns``).
-    ``static`` is ``(zone_feats, adj, times)``. Returns ``(train_step,
-    loss_fn)`` as :func:`make_adjoint_step_fns` does."""
+    ``static`` is ``(zone_feats, adj, times)`` or a sparse static
+    (:func:`_unpack_static`). Returns ``(train_step, loss_fn)`` as
+    :func:`make_adjoint_step_fns` does."""
     return _step_fns(_build_loss_fn_g(model, config), optimizer,
-                     _graph(static))
+                     _unpack_static(static))
 
 
 def build_fused_loss_fn(model, config, zone_feats, adj, times,
@@ -379,12 +390,17 @@ def make_fused_train_step(model, optimizer, config, static):
     through the training-day kernels (:func:`build_fused_loss_fn`); the
     same loss and gradients as :func:`make_step_fns` to bf16 accuracy.
 
-    ``static`` is ``(zone_feats, adj, times)``. Returns ``(train_step,
+    ``static`` is ``(zone_feats, adj, times)``: the kernels' encoder is
+    dense, so a sparse static raises (``train()`` never takes this step on
+    a sparse graph, as the reference's gate). Returns ``(train_step,
     loss_fn)``: ``train_step(pf, hz, targets)`` zeroes the gradients,
     backpropagates, steps ``optimizer`` (``make_optimizer``'s or a
     ``torch.optim`` optimizer) and returns ``(loss, acc)``.
     """
-    zone_feats, adj, times = _graph(static)
+    zone_feats, adj, times, edge_index, _ = _unpack_static(static)
+    if edge_index is not None:
+        raise ValueError("the fused train step is dense-only; train a "
+                         "sparse zone graph with make_step_fns")
     loss_fn = build_fused_loss_fn(model, config, zone_feats, adj, times)
     return _step_fns(lambda pf, hz, tg, _graph: loss_fn(pf, hz, tg),
                      optimizer, None)
@@ -516,10 +532,19 @@ def train(
     (:func:`build_adjoint_loss_fn_g` with ``adjoint_mode="discrete"`` and
     its defaults: K5 and K7 on the card where they fit); otherwise the
     plain step at ``config.method`` (what the reference runs off the TPU,
-    and what runs on the CPU). ``sparse_zones`` / ``sparse_world`` raise
-    (ROADMAP.md queue 1 item 9), as does ``data_parallel`` over more than
-    one card (item 11); with one card ``data_parallel`` runs the
-    single-device step, as the reference does with one device.
+    and what runs on the CPU), each fixed-step interval rematerialised in
+    the backward.
+
+    ``sparse_zones=True`` trains with the edge-list zone encoder: the graph
+    rides a COO edge list (the world's ``edge_index``, or
+    ``edges_from_adj`` of its adjacency) and the dense (Z, Z) matrix never
+    reaches the device; the fused step is never taken on a sparse graph
+    (its encoder is dense), as in the reference. ``sparse_world=True``
+    (implies ``sparse_zones``) has the generator build the graph as an edge
+    list (``sparse_zone_world``), so no O(Z^2) array exists at any stage.
+    ``data_parallel`` over more than one card raises (ROADMAP.md queue 1
+    item 11); with one card it runs the single-device step, as the
+    reference does with one device.
 
     ``ckpt_every=k`` writes ``gatode_last.ckpt`` (flax-layout params, this
     package's AdamW state, epoch, history, world keys) every k epochs;
@@ -534,10 +559,7 @@ def train(
     Returns ``{final_loss, final_acc, seconds, ckpt}``; ``seconds`` is the
     epochs' wall time, the device synchronised before each reading.
     """
-    if sparse_zones or sparse_world:
-        raise NotImplementedError(
-            "sparse zone graphs (sparse_zones / sparse_world) are not ported "
-            "yet: ROADMAP.md queue 1 item 9")
+    sparse_zones = sparse_zones or sparse_world
     config = config or GATODEConfig()
     device = resolve_device(device)
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -552,7 +574,8 @@ def train(
             "ROADMAP.md queue 1 item 11")
     ensure_dir(outdir)
     data = generate_agent_population(n_agents, num_times=num_times,
-                                     seed=seed, num_zones=num_zones)
+                                     seed=seed, num_zones=num_zones,
+                                     sparse_world=sparse_world)
     model = build_model(config, data["zone_features"].shape[-1],
                         data["person_feats"].shape[-1], device=device)
     init_params(model, torch.Generator(device).manual_seed(seed))
@@ -560,9 +583,14 @@ def train(
     bsz = min(config.batch_size, n_agents)
     on = lambda a, dtype=torch.float32: torch.as_tensor(
         a, dtype=dtype).to(device)
-    static = (on(data["zone_features"]), on(data["adj"]), on(data["times"]))
+    static = (on(data["zone_features"]),
+              None if sparse_zones else on(data["adj"]), on(data["times"]))
+    if sparse_zones:
+        ei = (data["edge_index"] if "edge_index" in data
+              else edges_from_adj(data["adj"]))
+        static += (tuple(on(e, torch.long) for e in ei),)
     Z = int(static[0].shape[0])
-    if (config.method == "rk4" and device.type == "cuda"
+    if (config.method == "rk4" and device.type == "cuda" and not sparse_zones
             and Z <= FUSED_MAX_ZONES and fused_step_fits(config)):
         fused_loss = build_fused_loss_fn(model, config, *static)
         epoch_fn = make_epoch_fn(
@@ -589,7 +617,7 @@ def train(
     last_ckpt = os.path.join(outdir, "gatode_last.ckpt")
     names = [name for name, _ in model.named_parameters()]
     run = {"world_seed": seed, "n_agents": n_agents, "num_times": num_times,
-           "num_zones": Z, "sparse_world": False}
+           "num_zones": Z, "sparse_world": bool(sparse_world)}
     start_epoch, hist = 1, []
     if resume:
         ck = _resume_checkpoint(last_ckpt, config, run)
@@ -633,7 +661,7 @@ def train(
         "history": hist,
         # world reconstruction keys for serve()
         "world_seed": seed,
-        "sparse_world": False,
+        "sparse_world": bool(sparse_world),
     }, ckpt)
     return {
         "final_loss": hist[-1]["loss"],
@@ -686,8 +714,10 @@ def _adjoint_loss_fn(model, config, rhs_vjp, stats=None, discrete=None):
                                (t, x, h, zone_emb))
 
     def loss_fn(pf, hz, targets, graph):
-        zone_feats, adj, times = graph
-        zone_emb = model.encode_zones(zone_feats, adj)
+        zone_feats, adj, times, edge_index, edge_chunks = _unpack_static(
+            graph)
+        zone_emb = model.encode_zones(zone_feats, adj, edge_index,
+                                      edge_chunks)
         x0, h = model.initial_state(pf, hz, zone_emb)
         params = tuple(p for _, p in leaves)
         args = (params, h, zone_emb)
@@ -705,13 +735,17 @@ def _adjoint_loss_fn(model, config, rhs_vjp, stats=None, discrete=None):
     return loss_fn
 
 
-def _graph(static):
-    if len(static) > 3 and static[3] is not None:
-        raise NotImplementedError(
-            "sparse edge-list zone graphs are not ported yet: ROADMAP.md "
-            "queue 1 item 9"
-        )
-    return tuple(static[:3])
+def _unpack_static(static):
+    """``static`` is ``(zone_feats, adj, times)`` or, for a sparse edge-list
+    zone graph, ``(zone_feats, adj_or_None, times, edge_index)``: the fourth
+    element routes the zone encoder over the edge list (``adj`` may then be
+    None). An optional fifth element (the reference's ``EdgeChunks``) is
+    carried and ignored. Returns the 5-tuple ``(zone_feats, adj, times,
+    edge_index, edge_chunks)``."""
+    zone_feats, adj, times = static[:3]
+    edge_index = static[3] if len(static) > 3 else None
+    edge_chunks = static[4] if len(static) > 4 else None
+    return zone_feats, adj, times, edge_index, edge_chunks
 
 
 def build_adjoint_loss_fn_g(model, config, static, use_fused="auto",
@@ -722,7 +756,8 @@ def build_adjoint_loss_fn_g(model, config, static, use_fused="auto",
     """``loss_fn_g(pf, hz, targets, graph) -> (loss, acc)`` whose
     integration is adaptive DOPRI5 at ``config.rtol``/``config.atol`` with
     adjoint gradients; ``loss.backward()`` fills the model's ``.grad``s.
-    ``static`` is ``(zone_feats, adj, times)``.
+    ``static`` is ``(zone_feats, adj, times)`` or a sparse static
+    (:func:`_unpack_static`), whose edge list the zone encoder reads.
 
     ``adjoint_mode="continuous"``: the forward runs ``model.rhs`` in
     float32, the backward solves the augmented system, its right-hand side
@@ -759,7 +794,6 @@ def build_adjoint_loss_fn_g(model, config, static, use_fused="auto",
     """
     if adjoint_mode not in ("continuous", "discrete"):
         raise ValueError(f"unknown adjoint_mode {adjoint_mode!r}")
-    _graph(static)
     from ananke_abm_tpu_torch.ops.cuda import fused_dopri5, fused_rhs
 
     widths = (config.agent_dim, config.zone_dim, config.context_dim,
@@ -823,6 +857,7 @@ def make_adjoint_step_fns(model, optimizer, config, static,
         adjoint_mode=adjoint_mode, max_accepted=max_accepted,
         ckpt_every=ckpt_every, bwd_precision=bwd_precision,
         store_f=store_f, ckpt_dtype=ckpt_dtype, stats=stats)
-    train_step, loss_fn = _step_fns(loss_fn_g, optimizer, _graph(static))
+    train_step, loss_fn = _step_fns(loss_fn_g, optimizer,
+                                    _unpack_static(static))
     train_step.stats = loss_fn.stats = stats
     return train_step, loss_fn

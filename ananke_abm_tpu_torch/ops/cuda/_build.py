@@ -27,7 +27,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # kernel library -> its source
-NAMES = ("fused_step", "fused_rhs", "fused_train", "fused_gat", "fused_dopri5")
+NAMES = ("fused_step", "fused_rhs", "fused_train", "fused_gat", "fused_dopri5",
+         "edge_segment")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,6 +68,10 @@ _ENTRY = {
         "ananke_dopri5_tile_rows": ([_I] * 2, _I),
         "ananke_dopri5_scratch_floats": ([_I] * 2, _L),
         "ananke_dopri5_slab_size": ([_I] * 3, _L),
+    },
+    "edge_segment": {
+        "ananke_edge_csr_forward": ([_P] * 7 + [_I] * 3 + [_P], _I),
+        "ananke_edge_csr_backward": ([_P] * 13 + [_I] * 5 + [_P], _I),
     },
 }
 

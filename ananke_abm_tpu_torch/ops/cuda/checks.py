@@ -481,3 +481,94 @@ def day_operands(model, n, z, num_times, substeps, dev, seed):
                                num_times, device=dev)
         dts, tf = stage_times_table(times, substeps, W1t, dense[0].bias)
     return x0, h, ze, tf, dts, w16
+
+
+# The CSR edge kernels (``edge_segment.py``, float32 throughout: kernel and
+# plain version differ only in the order of their float32 sums and in fused
+# multiply-adds), per output: the forward's ``out``; the backward's
+# ``d_wh``, ``d_recv`` and ``d_send``. The control is the plain version with
+# ``wh`` rounded to bf16 (bf16_features), the TPU kernels' own feature
+# precision; it leaves ``d_wh`` (which does not read ``wh``) as it is and
+# fails through the other outputs. Readings (chip_smoke.py --readings edge:
+# EDGE_SHAPES x seeds 0-2; H100 80GB HBM3, 700 W):
+# - forward: sound mean <= 8.2e-8, max <= 3.1e-7, 1 - cos <= 5.0e-15;
+#   control >= 5.3e-4, >= 1.5e-3, >= 1.9e-7;
+# - backward: sound mean <= 4.7e-7, max <= 5.6e-7, 1 - cos <= 8.4e-14
+#   (d_recv at one head of 64, a sum of alpha (<g, Wh> - corr) whose terms
+#   nearly cancel); control >= 7.6e-3, >= 5.6e-3, >= 2.0e-5 (d_recv).
+EDGE_FWD_BOUNDS = (1e-6, 1e-5, 1e-12)
+EDGE_BWD_BOUNDS = (5e-6, 1e-5, 1e-11)
+# (kind, source rows, heads, features per head) of the edge kernels' checks
+# (edge_operands): the sparse world of the main path, rung 2's dense world
+# as an edge list, a random graph with isolated destinations, duplicate
+# edges and edges past num_nodes (also in heads of 48, which straddle lanes:
+# the backward's shared-memory head sums), and one head of 64
+# (gat_edge_layer)
+EDGE_SHAPES = (("world", 32_768, 4, 16), ("rung2", 500, 4, 16),
+               ("random", 3_000, 2, 32), ("random", 3_000, 3, 48),
+               ("single", 4_096, 1, 64))
+
+
+def edge_operands(kind, z, heads, d, dev, seed):
+    """``(wh, e_recv, e_send, layout)`` and a cotangent ``g`` of the edge
+    kernels' checks (``kind`` as in EDGE_SHAPES). On the two zone worlds
+    the operands are a model's first GAT layer at the worlds' zone features
+    (initialised as :func:`init_params` does from ``seed``); on the random
+    graphs they are standard normal draws from ``seed``."""
+    from ananke_abm_tpu_torch.data_generator import generate_agent_population
+    from ananke_abm_tpu_torch.data_generator.agent_trajectories import (
+        sparse_zone_world,
+    )
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        init_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda.edge_segment import build_csr
+    from ananke_abm_tpu_torch.ops.segment import edges_from_adj
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    num_nodes = z
+    with torch.no_grad():
+        if kind in ("world", "rung2"):
+            if kind == "world":
+                zf, (src, dst) = sparse_zone_world(z, seed=0)
+            else:
+                w = generate_agent_population(1, num_times=12, seed=1,
+                                              num_zones=z)
+                zf, (src, dst) = w["zone_features"], edges_from_adj(w["adj"])
+            model = build_model(GATODEConfig(gat_heads=heads,
+                                             zone_dim=heads * d),
+                                zf.shape[1], 8, device=dev)
+            init_params(model, torch.Generator().manual_seed(seed))
+            layer = model.zone_gat.layers[0]
+            wh = layer.proj(model.zone_gat.inp(
+                torch.as_tensor(zf, device=dev))).reshape(z, heads, d)
+            e_recv = torch.einsum("zhd,hd->zh", wh, layer.a_src)
+            e_send = torch.einsum("zhd,hd->zh", wh, layer.a_dst)
+            src, dst = (torch.as_tensor(a, device=dev) for a in (src, dst))
+        else:
+            rnd = lambda *s: torch.randn(*s, device=dev, generator=g)
+            ids = lambda hi, n: torch.randint(0, hi, (n,), device=dev,
+                                              generator=g)
+            wh, e_recv, e_send = rnd(z, heads, d), rnd(z, heads), rnd(z,
+                                                                      heads)
+            src = ids(z, 8 * z)
+            if kind == "random":
+                num_nodes = z - z // 6
+                dst = ids(num_nodes + z // 12, 8 * z)  # some dropped
+                dst = torch.where(dst % 7 == 0, dst + 1, dst)  # isolated
+                dst = torch.clamp(dst, max=z - 1)
+                src = torch.cat([src, src[: z]])  # duplicate edges
+                dst = torch.cat([dst, dst[: z]])
+            else:
+                dst = ids(z, 8 * z)
+        layout = build_csr(src, dst, num_nodes, z)
+        cot = torch.randn(num_nodes, heads, d, device=dev, generator=g)
+    return (wh, e_recv, e_send, layout), cot
+
+
+def bf16_features(wh):
+    """``wh`` rounded to bf16 (and back to float32): the feature precision
+    of the TPU edge kernels, the edge checks' control."""
+    return wh.bfloat16().float()

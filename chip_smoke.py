@@ -4,9 +4,10 @@ path (kernel K1), the continuous-adjoint DOPRI5 trainer (kernel K8), the
 fixed-step RK4 trainer (kernels K4f, K4b, K2f, K2b, K3f, K3b) and
 ``train()`` through it, ``serve()`` of what it trained, the
 discrete-adjoint DOPRI5 trainer (kernels K5, K7) with
-``train(method="dopri5")``, and that trainer at bench rung 3's own
-settings, its whole backward one launch of K6 (K7's bf16 branch on the
-per-step bf16 route).
+``train(method="dopri5")``, that trainer at bench rung 3's own settings,
+its whole backward one launch of K6 (K7's bf16 branch on the per-step bf16
+route), and sparse edge-list zone graphs (the CSR edge kernel pair):
+``serve()`` and ``train()`` of the Z=32,768 sparse world.
 
 Run from the repository root, on a machine with a CUDA device:
 
@@ -126,7 +127,37 @@ Phases (any failure raises and the script exits non-zero):
     bf16 checkpoints, the loss's cotangents) within DOPRI5_BWD_BF16_BOUNDS,
     the same bits on a repeat; times: K6 and its plain version per launch
     on those operands, K7-bf16 and its plain version per launch at rung 3,
-    and the rung-3 step.
+    and the rung-3 step;
+28. CSR edge kernels: the forward and backward of ``ops/cuda/
+    edge_segment.py`` against their plain versions at the shapes of
+    ``ops/cuda/checks.py``'s EDGE_SHAPES (the Z=32,768 sparse world, rung
+    2's Z=500 world as an edge list, a random graph with isolated
+    destinations, duplicate edges and num_nodes below the source count, in
+    heads of 32 and of 48, which straddle lanes; one head of 64) within EDGE_FWD_BOUNDS / EDGE_BWD_BOUNDS, repeats that
+    must give the same bits, and a control whose features round to bf16
+    (the TPU kernels' own) that must fail each check;
+29. the sparse encoder against the dense one at rung 2's world:
+    ``encode_zones(zf, None, edge_index)`` against ``encode_zones(zf,
+    adj)``, output and parameter gradients (tests/test_gnn_embed.py's
+    bounds), the CSR kernels launched ``gat_layers`` times each;
+30. ``serve()`` of a seeded random-weight sparse-world checkpoint at
+    Z=32,768, 65,536 agents x 48 times: the CSR forward launched
+    ``gat_layers`` times and the backward never, wall time, agents/s and
+    peak device memory; the first 8,192 agents served again with the
+    encoder's plain version (ids agree >= SPARSE_IDS_MIN);
+31. ``train(sparse_world=True)`` at Z=32,768, 8,192 agents x 12 times,
+    batches of 4,096, 2 epochs, the plain RK4 step with remat: finite
+    losses, each CSR kernel launched ``gat_layers`` times a step, no dense
+    kernel, the step's wall time and peak device memory beside the
+    no-remat estimate; ``serve()`` of what it trained;
+32. ``train(sparse_world=True, num_zones=4096, method="dopri5")``, 4,096
+    agents x 12 times, 1 epoch: a finite loss, the CSR launches per step
+    and the K5 / K7 counts;
+33. times: the CSR forward and backward and their plain versions per call
+    at Z=32,768 (CUDA-graph replay, eager beside), the sparse training
+    step with the kernels and with their plain versions, and a dense plain
+    RK4 step (Z=4,096, no kernel) with remat and without: its wall time
+    and peak device memory at ``checkpoint=True`` and ``False``.
 
 ``python3 chip_smoke.py --readings`` runs phases 1-2 and then only the
 training kernels' checks of phase 10, at DAY_SHAPES and DEPTH_SHAPES for 3
@@ -138,7 +169,8 @@ readings of K4f and K4b, at GAT_SHAPES and GAT_READING_SHAPES for 3 seeds,
 and K4b and its plain version each against a float64 run;
 ``--readings dopri5`` those of K5, K7, K6 and K7-bf16 at DOPRI5_SHAPES
 and DOPRI5_READING_SHAPES for 3 seeds, with their controls and the float64
-witness.
+witness; ``--readings edge`` those of the CSR edge kernels at EDGE_SHAPES
+for 3 seeds with their bf16-feature control.
 ``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` runs phases 1-2 and then
 compares K8 of this checkout with K8 built from each checkout at DIR:
 ptxas and SASS counts of each build, bits at K8_SHAPES and alternating
@@ -150,9 +182,9 @@ largest difference from its plain version, times, and ``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and its operations over
 the peak of their type: for the bf16 kernels (K6 and K7-bf16 among them)
 their matmul operations over 989 TFLOP/s, the H100's dense bf16 peak; for
-the float32 encoder and DOPRI5 step kernels their operations over 67
-TFLOP/s, its FP32 peak outside the tensor cores), the line before that the
-card's name and power limit.
+the float32 encoder, DOPRI5 step and CSR edge kernels their operations over
+67 TFLOP/s, its FP32 peak outside the tensor cores), the line before that
+the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -307,9 +339,9 @@ def describe(r):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--readings", nargs="?", const="training",
-                        choices=("training", "encoder", "dopri5"),
-                        help="print the training (or the encoder, or the "
-                        "DOPRI5 step) kernels' readings only")
+                        choices=("training", "encoder", "dopri5", "edge"),
+                        help="print the training (or the encoder, the "
+                        "DOPRI5 step or the CSR edge) kernels' readings only")
     parser.add_argument("--ab-k8", metavar="DIR", nargs="+",
                         help="time K8 against K8 of the checkouts at DIR")
     args = parser.parse_args()
@@ -377,6 +409,9 @@ def main():
         return
     if args.readings == "dopri5":
         dopri5_readings(dev)
+        return
+    if args.readings == "edge":
+        edge_readings(dev)
         return
     if args.ab_k8:
         ab_k8(dev, [Path(d) for d in args.ab_k8])
@@ -542,9 +577,10 @@ def main():
     k4 = encoder_phases(dev, card, rung2)
     k57, discrete_wall = dopri5_phases(dev, card, continuous_wall)
     k67 = backward_all_phases(dev, card, discrete_wall)
+    k9 = edge_phases(dev, card)
 
     print(card)
-    print(json.dumps({"kernels": [k1, k8, *fixed, *k4, *k57, *k67]}))
+    print(json.dumps({"kernels": [k1, k8, *fixed, *k4, *k57, *k67, *k9]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -2273,6 +2309,451 @@ def backward_all_phases(dev, card, discrete_wall):
                 (launches[2], k7_bf16_launches), errs, ms, plain_ms, flops,
                 nbytes)]
 
+
+# ---- sparse zone graphs: the CSR edge kernel pair ---------------------------
+
+# the sparse world of serve_ladder.py's sparse point, at GATODEConfig()'s
+# widths
+SPARSE_ZONES = 32_768
+SPARSE_SERVE_AGENTS = 65_536
+SPARSE_SERVE_TIMES = 48
+# served again with the encoder's plain version: over the whole 48-time
+# day, where a flipped id carries into later intervals, the two read
+# 0.999992 and 0.999995 agreement (H100 80GB HBM3, 700 W; PERF.md)
+SPARSE_CHECK_AGENTS = 8_192
+SPARSE_IDS_MIN = 0.999
+# train(sparse_world=True): 12 times (48 would put 25.8 GB in the logits
+# alone), 2 epochs of 2 steps of 4,096
+SPARSE_TRAIN_AGENTS = 8_192
+SPARSE_TRAIN_TIMES = 12
+SPARSE_EPOCHS = 2
+# the discrete-adjoint trainer on a sparse graph, small enough for K5 / K7
+SPARSE_DOPRI5_ZONES = 4_096
+SPARSE_DOPRI5_AGENTS = 4_096
+# the dense plain step timed with and without remat (phase 33): past
+# FUSED_MAX_ZONES, where train() takes that step
+REMAT_DENSE_ZONES = 4_096
+# the sparse encoder against the dense one (tests/test_gnn_embed.py's bounds)
+ENCODER_FWD_TOL = (2e-5, 2e-5)
+ENCODER_GRAD_TOL = (5e-4, 5e-5)
+
+
+def edge_counts():
+    from ananke_abm_tpu_torch.ops.cuda import edge_segment as es
+
+    return [es.gat_edge_csr_forward.launches,
+            es.gat_edge_csr_backward.launches]
+
+
+@contextlib.contextmanager
+def edge_plain():
+    """The encoder's edge attention through the CSR kernels' plain
+    versions (``gat_edge_csr`` looks its pair up at each call)."""
+    from ananke_abm_tpu_torch.ops.cuda import edge_segment as es
+
+    saved, es.KERNELS = es.KERNELS, es.PLAIN
+    try:
+        yield
+    finally:
+        es.KERNELS = saved
+
+
+def edge_sizes(wh, e_recv, layout):
+    """(Zs, Zr, Zd, H, HD, E) of one edge-kernel call."""
+    Zs, H, d = wh.shape
+    return (Zs, e_recv.shape[0], layout.num_nodes, H, H * d,
+            layout.src.numel())
+
+
+def edge_work(wh, e_recv, layout):
+    """(forward, backward) operations and bytes the functions need. Forward:
+    6 per edge and head (add, leaky-relu, max, subtract, exp, sum), 2 per
+    edge and feature (the weighted sum); it reads Wh, both logit tables and
+    the CSR layout once and writes out and lse. Backward: 10 per edge and
+    head (alpha, ds, the two sums), 4 per edge and feature (<g, Wh>, the
+    weighted sum of g); it reads g, Wh, the logit tables, lse, corr and
+    both orders of the layout, and writes the three gradients."""
+    Zs, Zr, Zd, H, HD, E = edge_sizes(wh, e_recv, layout)
+    flop = (E * (6 * H + 2 * HD), E * (10 * H + 4 * HD))
+    nbytes = (4 * (Zs * HD + Zr * H + Zs * H + Zd + 1 + E + Zd * HD + Zd * H),
+              4 * (Zd * HD + Zs * HD + Zr * H + Zs * H + 2 * Zd * H
+                   + Zd + 1 + E + Zs + 1 + E + Zs * HD + Zr * H + Zs * H))
+    return flop, nbytes
+
+
+def edge_kernel_checks(dev, kind, z, heads, d, seed, control=True,
+                       enforce=True):
+    """The CSR forward and backward against their plain versions at one
+    shape (``checks.edge_operands``), each run twice (the same bits), with
+    the bf16-feature control. Returns (the largest |d| of each kernel,
+    (operands, lse, corr, cotangent))."""
+    from ananke_abm_tpu_torch.ops.cuda import edge_segment as es
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        EDGE_BWD_BOUNDS,
+        EDGE_FWD_BOUNDS,
+        bf16_features,
+        edge_operands,
+    )
+
+    (wh, er, esd, lay), g = edge_operands(kind, z, heads, d, dev, seed)
+    tag = (f"{kind} Zs={z} num_nodes={lay.num_nodes} E={lay.src.numel()} "
+           f"H={heads} d={d} seed={seed}")
+    kind_c = "bf16-rounded features"
+    with torch.no_grad():
+        out, lse = es.gat_edge_csr_forward(wh, er, esd, lay)
+        again = es.gat_edge_csr_forward(wh, er, esd, lay)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            fail(f"CSR forward repeat at {tag} is not bit-identical")
+        want, _ = es.gat_edge_csr_forward_reference(wh, er, esd, lay)
+        ctl = ([("out", es.gat_edge_csr_forward_reference(
+            bf16_features(wh), er, esd, lay)[0])] if control else None)
+        e_f = check(f"CSR forward {tag} (repeat bit-identical)",
+                    [("out", out)], [("out", want)], EDGE_FWD_BOUNDS, ctl,
+                    enforce, kind_c)
+        corr = torch.sum(g * out, dim=-1)
+        names = ("d_wh", "d_recv", "d_send")
+        bargs = (g, wh, er, esd, lse, corr, lay)
+        got = list(zip(names, es.gat_edge_csr_backward(*bargs)))
+        again = list(zip(names, es.gat_edge_csr_backward(*bargs)))
+        torch.cuda.synchronize()
+        if not same_bits(got, again):
+            fail(f"CSR backward repeat at {tag} is not bit-identical")
+        want = list(zip(names, es.gat_edge_csr_backward_reference(*bargs)))
+        ctl = (list(zip(names, es.gat_edge_csr_backward_reference(
+            g, bf16_features(wh), *bargs[2:])))
+            if control else None)
+        e_b = check(f"CSR backward {tag} (repeat bit-identical)", got, want,
+                    EDGE_BWD_BOUNDS, ctl, enforce, kind_c)
+    return (e_f, e_b), ((wh, er, esd, lay), lse, corr, g)
+
+
+def edge_readings(dev):
+    """``--readings edge``: the CSR kernels against their plain versions
+    and the bf16-feature control at every shape of EDGE_SHAPES for seeds
+    0-2, printed against the bounds; nothing fails on a bound."""
+    from ananke_abm_tpu_torch.ops.cuda.checks import EDGE_SHAPES
+
+    for seed in range(3):
+        for shape in EDGE_SHAPES:
+            edge_kernel_checks(dev, *shape, seed, enforce=False)
+
+
+def close(name, got, want, tol):
+    """Fail unless |got - want| <= atol + rtol |want| everywhere; returns
+    the largest |got - want|."""
+    rtol, atol = tol
+    d = (got - want).abs()
+    err = d.max().item() if d.numel() else 0.0
+    if not bool((d <= atol + rtol * want.abs()).all()):
+        fail(f"{name}: |d| up to {err:.3e} outside rtol {rtol}, atol {atol}")
+    return err
+
+
+def edge_phases(dev, card):
+    """Phases 28-33: the CSR edge kernels against their plain versions, the
+    sparse encoder against the dense one, ``serve()`` of a sparse-world
+    checkpoint at Z=32,768, ``train(sparse_world=True)`` at that world and
+    with ``method="dopri5"`` at Z=4,096, and times. Returns the two
+    kernels' entries of the {"kernels": [...]} line."""
+    from ananke_abm_tpu_torch.data_generator import generate_agent_population
+    from ananke_abm_tpu_torch.models.gnn_embed.params import (
+        load_flax_params,
+        to_flax_params,
+    )
+    from ananke_abm_tpu_torch.models.gnn_embed.rollout import (
+        make_decoded_rollout,
+    )
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        _cross_entropy,
+        build_model,
+        init_params,
+        make_optimizer,
+        make_step_fns,
+        serve,
+        train,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import edge_segment as es
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+    from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
+    from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
+    from ananke_abm_tpu_torch.ops.cuda.checks import EDGE_SHAPES
+    from ananke_abm_tpu_torch.ops.segment import edges_from_adj
+    from ananke_abm_tpu_torch.utils.ckpt import load_checkpoint, \
+        save_checkpoint
+
+    config = GATODEConfig()
+    layers = config.gat_layers
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)
+
+    # ---- 28. the CSR kernels against their plain versions -----------------
+    errs = [0.0, 0.0]
+    main = None
+    for shape in EDGE_SHAPES:
+        e, operands = edge_kernel_checks(dev, *shape, seed=0)
+        errs = [max(a, b) for a, b in zip(errs, e)]
+        main = main or operands
+
+    # ---- 29. the sparse encoder against the dense one, rung 2's world -----
+    model = build_model(config, 7, 8, device=dev)
+    init_params(model, torch.Generator().manual_seed(0))
+    world = generate_agent_population(1, num_times=TRAIN_TIMES,
+                                      seed=TRAIN_SEED, num_zones=TRAIN_ZONES)
+    zf, adj = on(world["zone_features"]), on(world["adj"])
+    ei = tuple(on(e, torch.long) for e in edges_from_adj(world["adj"]))
+    params = list(model.zone_gat.parameters())
+    cot = torch.randn(TRAIN_ZONES, config.zone_dim, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    outs = {}
+    for name, args in (("sparse", (None, ei)), ("dense", (adj,))):
+        before = edge_counts()
+        out = model.encode_zones(zf, *args)
+        grads = torch.autograd.grad(out, params, cot)
+        outs[name] = (out.detach(), grads,
+                      [a - b for a, b in zip(edge_counts(), before)])
+    (sp, gs, ls), (de, gd, _) = outs["sparse"], outs["dense"]
+    e_out = close("sparse encoder against dense", sp, de, ENCODER_FWD_TOL)
+    e_grad = max(close(f"sparse encoder gradient {i}", a, b,
+                       ENCODER_GRAD_TOL) for i, (a, b) in
+                 enumerate(zip(gs, gd)))
+    print(f"sparse encoder (CSR kernels, launches fwd/bwd {ls}) against the "
+          f"dense encoder at rung 2's world (Z={TRAIN_ZONES}, "
+          f"E={ei[0].numel()}): output |d| <= {e_out:.3e} (rtol/atol "
+          f"{ENCODER_FWD_TOL}), parameter gradients |d| <= {e_grad:.3e} "
+          f"(rtol/atol {ENCODER_GRAD_TOL})", flush=True)
+    if ls != [layers, layers]:
+        fail(f"the sparse encoder launched the CSR kernels {ls} times, "
+             f"expected {layers} each")
+
+    # ---- 30. serve() of a sparse-world checkpoint at Z=32,768 -------------
+    main_counts = [0, 0]  # the slice's main path: phases 30-32
+
+    def driven(fn, *a, **kw):
+        """``fn(*a, **kw)`` with the CSR counts set to 0 just before and
+        read just after (added to the main path's counts)."""
+        es.gat_edge_csr_forward.launches = 0
+        es.gat_edge_csr_backward.launches = 0
+        res = fn(*a, **kw)
+        counts = edge_counts()
+        for i, c in enumerate(counts):
+            main_counts[i] += c
+        return res, counts
+
+    ckpt = OUT / "gatode_sparse_random.ckpt"
+    model = build_model(config, 7, 8, device=dev)
+    init_params(model, torch.Generator().manual_seed(0))
+    save_checkpoint({
+        "params": to_flax_params(model),
+        "config": dataclasses.asdict(config),
+        "num_zones": SPARSE_ZONES,
+        "num_times": SPARSE_SERVE_TIMES,
+        "history": [],
+        "world_seed": WORLD_SEED,
+        "sparse_world": True,
+    }, str(ckpt))
+    torch.cuda.reset_peak_memory_stats()
+    info, counts = driven(serve, str(ckpt), str(OUT / "served_sparse.npz"),
+                          n_agents=SPARSE_SERVE_AGENTS, seed=AGENT_SEED,
+                          device=dev)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"serve() sparse world: {info['n_agents']} agents x "
+          f"{info['num_times']} times x {SPARSE_ZONES} zones in "
+          f"{info['seconds']:.3f} s ({info['n_agents'] / info['seconds']:.0f}"
+          f" agents/s, host clock around the rollout); CSR launches fwd/bwd "
+          f"{counts}; peak device memory {peak:.2f} GB [card {card}]",
+          flush=True)
+    if counts != [layers, 0]:
+        fail(f"the sparse serve launched the CSR kernels {counts} times, "
+             f"expected [{layers}, 0]")
+    with np.load(OUT / "served_sparse.npz") as served:
+        ids = served["zone_ids"]
+    if ids.shape != (SPARSE_SERVE_AGENTS, SPARSE_SERVE_TIMES):
+        fail(f"served ids {ids.shape}")
+    if ids.min() < 0 or ids.max() >= SPARSE_ZONES:
+        fail(f"served ids out of [0, {SPARSE_ZONES})")
+    data = generate_agent_population(
+        SPARSE_SERVE_AGENTS, num_times=SPARSE_SERVE_TIMES, seed=AGENT_SEED,
+        num_zones=SPARSE_ZONES, sparse_world=True, world_seed=WORLD_SEED)
+    served_model = build_model(config, 7, 8, device=dev)
+    load_flax_params(served_model, load_checkpoint(str(ckpt))["params"])
+    sparse_ei = tuple(on(e, torch.long) for e in data["edge_index"])
+    with edge_plain():
+        plain = make_decoded_rollout(
+            served_model, config, on(data["zone_features"]), None,
+            on(data["times"]), edge_index=sparse_ei)
+        ref = plain(on(data["person_feats"][:SPARSE_CHECK_AGENTS]),
+                    on(data["home_zone"][:SPARSE_CHECK_AGENTS], torch.long))
+    agree = float(np.mean(ref.cpu().numpy() == ids[:SPARSE_CHECK_AGENTS]))
+    print(f"sparse serve check: ids[:{SPARSE_CHECK_AGENTS}] against the "
+          f"rollout with the encoder's plain version: agree {agree:.6f} (>= "
+          f"{SPARSE_IDS_MIN})", flush=True)
+    if agree < SPARSE_IDS_MIN:
+        fail("the sparse serve disagrees with the encoder's plain version")
+
+    # ---- 31. train(sparse_world=True) at Z=32,768 --------------------------
+    dense_kernels = (fg.gat_forward_fused, fg.gat_backward_fused,
+                     ft.day_forward_fused, ft.day_backward_fused,
+                     ft.ce_forward_fused, ft.ce_backward_fused)
+    before = [k.launches for k in dense_kernels]
+    cfg = dataclasses.replace(config, epochs=SPARSE_EPOCHS)
+    steps = SPARSE_EPOCHS * (SPARSE_TRAIN_AGENTS // cfg.batch_size)
+    shutil.rmtree(OUT / "train_sparse", ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    res, counts = driven(train, str(OUT / "train_sparse"),
+                         n_agents=SPARSE_TRAIN_AGENTS,
+                         num_times=SPARSE_TRAIN_TIMES, config=cfg,
+                         seed=WORLD_SEED, num_zones=SPARSE_ZONES,
+                         sparse_world=True, device=dev)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    dense = [k.launches - b for k, b in zip(dense_kernels, before)]
+    losses = [h["loss"] for h in load_checkpoint(res["ckpt"])["history"]]
+    # without remat a plain RK4 step keeps two (batch, Z) float32 tensors
+    # per stage evaluation: 4 stages x substeps x intervals
+    no_remat = (2 * 4 * cfg.substeps * (SPARSE_TRAIN_TIMES - 1)
+                * cfg.batch_size * SPARSE_ZONES * 4 / 1e9)
+    step_s = res["seconds"] / steps
+    print(f"train(sparse_world=True): {SPARSE_TRAIN_AGENTS} agents x "
+          f"{SPARSE_TRAIN_TIMES} times x {SPARSE_ZONES} zones, batches of "
+          f"{cfg.batch_size}, {SPARSE_EPOCHS} epochs ({steps} steps) in "
+          f"{res['seconds']:.3f} s, {step_s:.3f} s a step; losses {losses}; "
+          f"CSR launches fwd/bwd {counts}; K4f/K4b/K2f/K2b/K3f/K3b {dense}; "
+          f"peak device memory {peak:.2f} GB with remat (the no-remat "
+          f"estimate of the stage activations alone: {no_remat:.1f} GB) "
+          f"[card {card}]", flush=True)
+    if counts != [layers * steps] * 2:
+        fail(f"train(sparse_world=True) launched the CSR kernels {counts} "
+             f"times, expected {layers} each a step")
+    if any(dense):
+        fail(f"train(sparse_world=True) launched a dense kernel: {dense}")
+    if not all(np.isfinite(losses)):
+        fail(f"train(sparse_world=True) losses {losses} are not finite")
+    info, counts = driven(serve, res["ckpt"],
+                          str(OUT / "served_sparse_trained.npz"),
+                          n_agents=SPARSE_CHECK_AGENTS, seed=AGENT_SEED,
+                          device=dev)
+    with np.load(OUT / "served_sparse_trained.npz") as served:
+        ids = served["zone_ids"]
+    print(f"serve() of the sparse-trained checkpoint: {info['n_agents']} "
+          f"agents x {info['num_times']} times in {info['seconds']:.3f} s; "
+          f"CSR launches fwd/bwd {counts}", flush=True)
+    if counts != [layers, 0] or ids.shape != (SPARSE_CHECK_AGENTS,
+                                             SPARSE_TRAIN_TIMES):
+        fail(f"serving the sparse-trained model: CSR launches {counts}, ids "
+             f"{ids.shape}")
+    if ids.min() < 0 or ids.max() >= SPARSE_ZONES:
+        fail(f"served ids out of [0, {SPARSE_ZONES})")
+
+    # ---- 32. train(sparse_world=True, method="dopri5") at Z=4,096 ----------
+    k57 = (fd.dopri5_step_fused, fd.dopri5_step_vjp_fused)
+    before = [k.launches for k in k57]
+    cfg = dataclasses.replace(config, method="dopri5", epochs=1)
+    shutil.rmtree(OUT / "train_sparse_dopri5", ignore_errors=True)
+    res, counts = driven(train, str(OUT / "train_sparse_dopri5"),
+                         n_agents=SPARSE_DOPRI5_AGENTS,
+                         num_times=SPARSE_TRAIN_TIMES, config=cfg,
+                         seed=WORLD_SEED, num_zones=SPARSE_DOPRI5_ZONES,
+                         sparse_world=True, device=dev)
+    k57_counts = [k.launches - b for k, b in zip(k57, before)]
+    steps = SPARSE_DOPRI5_AGENTS // cfg.batch_size
+    print(f"train(sparse_world=True, method='dopri5'): "
+          f"{SPARSE_DOPRI5_AGENTS} agents x {SPARSE_TRAIN_TIMES} times x "
+          f"{SPARSE_DOPRI5_ZONES} zones, {steps} step in "
+          f"{res['seconds']:.3f} s; loss {res['final_loss']:.6f}; CSR "
+          f"launches fwd/bwd {counts}; K5/K7 launches {k57_counts} "
+          f"[card {card}]", flush=True)
+    if counts != [layers * steps] * 2:
+        fail(f"the sparse discrete-adjoint trainer launched the CSR kernels "
+             f"{counts} times, expected {layers} each a step")
+    if not (k57_counts[0] > 0 and k57_counts[1] > 0):
+        fail(f"the sparse discrete-adjoint trainer did not run K5 / K7: "
+             f"{k57_counts}")
+    if not np.isfinite(res["final_loss"]):
+        fail("the sparse discrete-adjoint trainer's loss is not finite")
+
+    # ---- 33. times ---------------------------------------------------------
+    (wh, er, esd, lay), lse, corr, g = main
+    bargs = (g, wh, er, esd, lse, corr, lay)
+    calls = [lambda: es.gat_edge_csr_forward(wh, er, esd, lay),
+             lambda: es.gat_edge_csr_backward(*bargs),
+             lambda: es.gat_edge_csr_forward_reference(wh, er, esd, lay),
+             lambda: es.gat_edge_csr_backward_reference(*bargs)]
+    with torch.no_grad():
+        device = [graph_ms(c, 50) for c in calls]
+        eager = [cuda_ms(c, 20) for c in calls]
+    ms, plain_ms = device[:2], device[2:]
+    flops, nbytes = edge_work(wh, er, lay)
+    names = ("gat_edge_csr_forward", "gat_edge_csr_backward")
+    Zs, _, _, _, _, E = edge_sizes(wh, er, lay)
+    for i, (name, fl, nb) in enumerate(zip(names, flops, nbytes)):
+        b, by = bound(fl, nb, PEAK_FP32_FLOPS)
+        print(f"{name} at Z={Zs}, E={E}: kernel {ms[i]:.4f} ms device "
+              f"({eager[i]:.4f} ms eager; {b / ms[i]:.2%} of the {by} bound "
+              f"{b:.5f} ms: {fl / 1e6:.1f} MFLOP, {nb / 1e6:.2f} MB), plain "
+              f"version {plain_ms[i]:.4f} ms device ({eager[i + 2]:.4f} ms "
+              f"eager) [card {card}]", flush=True)
+    # the sparse training step, encoder through the kernels and through
+    # their plain versions
+    data = generate_agent_population(
+        config.batch_size, num_times=SPARSE_TRAIN_TIMES, seed=WORLD_SEED,
+        num_zones=SPARSE_ZONES, sparse_world=True)
+    static = (on(data["zone_features"]), None, on(data["times"]),
+              tuple(on(e, torch.long) for e in data["edge_index"]))
+    batch = (on(data["person_feats"]), on(data["home_zone"], torch.long),
+             on(data["zone_ids"], torch.long))
+    model = build_model(config, 7, 8, device=dev)
+    init_params(model, torch.Generator().manual_seed(0))
+    step, _ = make_step_fns(model, make_optimizer(model, config), config,
+                            static)
+    walls = {"plain": [], "kernels": []}
+    for name in ("plain", "kernels", "kernels", "plain"):
+        with (edge_plain() if name == "plain" else contextlib.nullcontext()):
+            walls[name].append(cuda_ms(lambda: step(*batch), 2))
+    print(f"sparse training step ({config.batch_size} agents x "
+          f"{SPARSE_TRAIN_TIMES} times x {SPARSE_ZONES} zones, remat): "
+          f"encoder through the CSR kernels {min(walls['kernels']):.3f} ms "
+          f"(runs {walls['kernels']}), through their plain versions "
+          f"{min(walls['plain']):.3f} ms (runs {walls['plain']}) [card "
+          f"{card}]", flush=True)
+    # what remat costs a dense plain step: train() takes that step past
+    # FUSED_MAX_ZONES; make_step_fns runs GATODE.forward at checkpoint=True
+    data = generate_agent_population(
+        config.batch_size, num_times=SPARSE_TRAIN_TIMES, seed=WORLD_SEED,
+        num_zones=REMAT_DENSE_ZONES)
+    zf, adj, ts = (on(data[k]) for k in ("zone_features", "adj", "times"))
+    pf, hz, tg = (on(data["person_feats"]), on(data["home_zone"], torch.long),
+                  on(data["zone_ids"], torch.long))
+    model = build_model(config, 7, 8, device=dev)
+    init_params(model, torch.Generator().manual_seed(0))
+    opt = make_optimizer(model, config)
+
+    def dense_step(remat):
+        opt.zero_grad()
+        logits, _ = model(zf, adj, pf, hz, ts, ode_method="rk4",
+                          substeps=config.substeps, checkpoint=remat)
+        _cross_entropy(logits, tg)[0].backward()
+        opt.step()
+
+    walls, peaks = {False: [], True: []}, {False: 0.0, True: 0.0}
+    for remat in (False, True, True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls[remat].append(cuda_ms(lambda: dense_step(remat), 2))
+        peaks[remat] = max(peaks[remat],
+                           torch.cuda.max_memory_allocated() / 1e9)
+    print(f"dense plain step ({config.batch_size} agents x "
+          f"{SPARSE_TRAIN_TIMES} times x {REMAT_DENSE_ZONES} zones, no "
+          f"kernel): checkpoint=True {min(walls[True]):.3f} ms (runs "
+          f"{walls[True]}, peak {peaks[True]:.2f} GB), checkpoint=False "
+          f"{min(walls[False]):.3f} ms (runs {walls[False]}, peak "
+          f"{peaks[False]:.2f} GB): remat x"
+          f"{min(walls[True]) / min(walls[False]):.3f} [card {card}]",
+          flush=True)
+    return [kernel_entry(name, "edge_segment.cu", src, n, e, m, p, fl, nb,
+                         PEAK_FP32_FLOPS)
+            for name, src, n, e, m, p, fl, nb in zip(
+                names, ("edge_segment.py:428", "edge_segment.py:610"),
+                main_counts, errs, ms, plain_ms, flops, nbytes)]
 
 if __name__ == "__main__":
     main()

@@ -191,6 +191,13 @@ def test_adjoint_modes_and_fused_contract():
     with pytest.raises(ValueError, match="attn_temp"):
         ttrain.build_adjoint_loss_fn_g(pair.tmodel, pair.tcfg, static,
                                        use_fused=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ttrain.build_adjoint_loss_fn_g(pair.tmodel, pair.tcfg,
-                                       static + ((tlong([0]), tlong([0])),))
+    # a sparse static (adj None, the world's edge list) gives the dense loss
+    src, dst = np.nonzero(d["adj"])[::-1]
+    sparse = (static[0], None, static[2], (tlong(src), tlong(dst)))
+    losses = []
+    for graph in (static, sparse):
+        loss_g = ttrain.build_adjoint_loss_fn_g(pair.tmodel, pair.tcfg,
+                                                graph, adjoint_mode="discrete")
+        losses.append(loss_g(t32(d["person_feats"]), tlong(d["home_zone"]),
+                             tlong(d["zone_ids"]), graph)[0].item())
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)

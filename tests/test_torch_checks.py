@@ -138,3 +138,27 @@ def test_kink_sides_from_residuals_steer_the_plain_encoder():
     assert fg._kink_side.__name__ == "_kink_side"
     assert not all(torch.allclose(a, b) for a, b in zip(own, moved))
     assert checks.kernel_kink_sides(None, 1, heads) is None
+
+
+@pytest.mark.parametrize("kind,z,heads,d", [("rung2", 500, 4, 16),
+                                            ("random", 300, 2, 32),
+                                            ("random", 300, 3, 48)])
+def test_edge_operands_and_the_bf16_feature_control(kind, z, heads, d):
+    """The CSR checks' operands (a random graph: rows past num_nodes
+    dropped, isolated rows, duplicates) and their control, whose
+    bf16-rounded features lie outside the forward's mean bound."""
+    from ananke_abm_tpu_torch.ops.cuda import edge_segment as es
+
+    (wh, er, esd, lay), g = checks.edge_operands(kind, z, heads, d, CPU,
+                                                 seed=0)
+    assert wh.shape == (z, heads, d) and g.shape == (lay.num_nodes, heads,
+                                                     d)
+    deg = lay.row_ptr[1:] - lay.row_ptr[:-1]
+    if kind == "random":
+        assert lay.num_nodes < z and (deg == 0).any()
+        assert lay.src.numel() < 9 * z  # some of the 9 z edges dropped
+    with torch.no_grad():
+        out, _ = es.gat_edge_csr_forward_reference(wh, er, esd, lay)
+        ctl, _ = es.gat_edge_csr_forward_reference(
+            checks.bf16_features(wh), er, esd, lay)
+    assert _far(ctl, out) > 10 * checks.EDGE_FWD_BOUNDS[0]

@@ -1,9 +1,9 @@
 """The CUDA kernels against their plain versions, on the card: the
 serving interval (K1), the adjoint RHS (K8) with the trainer around it, the
 training-day kernels (K2f, K2b, K3f, K3b) and the zone-encoder kernels
-(K4f, K4b) with the fixed-step trainer and ``train()``, and the DOPRI5
+(K4f, K4b) with the fixed-step trainer and ``train()``, the DOPRI5
 kernels (K5, K7 at float32 and bf16, K6) with the discrete-adjoint
-trainer.
+trainer, and the CSR edge kernels with ``train(sparse_world=True)``.
 
 Marked ``cuda``: every test here skips on a host without a CUDA device.
 On a card without JAX installed, run them with
@@ -33,6 +33,7 @@ from ananke_abm_tpu_torch.models.gnn_embed.train import (
     make_fused_train_step,
 )
 from ananke_abm_tpu_torch.models.gnn_embed.train import train
+from ananke_abm_tpu_torch.ops.cuda import edge_segment as es
 from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
 from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
 from ananke_abm_tpu_torch.ops.cuda.checks import (
@@ -40,12 +41,16 @@ from ananke_abm_tpu_torch.ops.cuda.checks import (
     CE_CORRECT_MIN,
     DAY_BWD_BOUNDS,
     DAY_FWD_BOUNDS,
+    EDGE_BWD_BOUNDS,
+    EDGE_FWD_BOUNDS,
     GAT_BWD_BOUNDS,
     GAT_FWD_BOUNDS,
     WITNESS_BWD_BOUNDS,
     bf16_control,
+    bf16_features,
     day_bounds,
     day_operands,
+    edge_operands,
     float64_witness,
     gat_grad_outputs,
     gat_operands,
@@ -638,6 +643,7 @@ def _k6_k7_bf16_checks(cuda, n, num_zones, num_blocks, control=False):
         DOPRI5_VJP_BF16_BOUNDS,
         K6_RECORD,
         bf16_control,
+    bf16_features,
         day_bounds,
         dopri5_backward_operands,
         dopri5_vjp_outputs,
@@ -789,3 +795,81 @@ def test_train_takes_only_the_kernels_that_fit(cuda, tmp_path, change, want):
                 device=cuda)
     assert np.isfinite(res["final_loss"])
     assert [k.launches - b for k, b in zip(kernels, before)] == want
+
+
+@pytest.mark.parametrize("kind,z,heads,d", [("rung2", 500, 4, 16),
+                                            ("random", 3_000, 2, 32),
+                                            ("random", 700, 4, 12)])
+def test_edge_kernels_match_plain_versions(cuda, kind, z, heads, d):
+    """The CSR forward and backward within the bounds of their plain
+    versions; each twice gives the same bits; the bf16-feature control
+    fails the same bounds."""
+    (wh, er, esd, lay), g = edge_operands(kind, z, heads, d, cuda, seed=0)
+    before = (es.gat_edge_csr_forward.launches,
+              es.gat_edge_csr_backward.launches)
+    out, lse = es.gat_edge_csr_forward(wh, er, esd, lay)
+    out2, lse2 = es.gat_edge_csr_forward(wh, er, esd, lay)
+    corr = torch.sum(g * out, dim=-1)
+    bargs = (g, wh, er, esd, lse, corr, lay)
+    got = es.gat_edge_csr_backward(*bargs)
+    got2 = es.gat_edge_csr_backward(*bargs)
+    torch.cuda.synchronize()
+    assert (es.gat_edge_csr_forward.launches,
+            es.gat_edge_csr_backward.launches) == (before[0] + 2,
+                                                   before[1] + 2)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert all(torch.equal(u, v) for u, v in zip(got, got2))
+    want, _ = es.gat_edge_csr_forward_reference(wh, er, esd, lay)
+    want_g = es.gat_edge_csr_backward_reference(*bargs)
+    _assert_close([out], [want], EDGE_FWD_BOUNDS)
+    _assert_close(got, want_g, EDGE_BWD_BOUNDS)
+    wh16 = bf16_features(wh)
+    control = es.gat_edge_csr_forward_reference(wh16, er, esd, lay)[0]
+    control_g = es.gat_edge_csr_backward_reference(g, wh16, *bargs[2:])
+    assert not _within([control], [want], EDGE_FWD_BOUNDS)
+    assert not _within(control_g, want_g, EDGE_BWD_BOUNDS)
+
+
+def test_edge_kernels_reject_what_they_are_not_compiled_for(cuda):
+    """Operands split across devices, a type the kernels are not compiled
+    for, head widths they do not take and ids out of range raise before
+    anything launches."""
+    (wh, er, esd, lay), _ = edge_operands("random", 300, 2, 32, cuda,
+                                          seed=1)
+    before = es.gat_edge_csr_forward.launches
+    with pytest.raises(ValueError, match="is on cpu"):
+        es.gat_edge_csr_forward(wh, er.cpu(), esd, lay)
+    with pytest.raises(TypeError, match="float32"):
+        es.gat_edge_csr_forward(wh.double(), er, esd, lay)
+    odd = es.build_csr(lay.src, lay.dst, lay.num_nodes, 300)
+    with pytest.raises(ValueError, match="compiled for"):
+        es.gat_edge_csr_forward(torch.zeros(300, 3, 96, device=cuda),
+                                torch.zeros(300, 3, device=cuda),
+                                torch.zeros(300, 3, device=cuda), odd)
+    src = lay.src.long()
+    with pytest.raises(IndexError, match="source"):
+        es.build_csr(torch.cat([src, src.new_tensor([300])]),
+                     torch.cat([lay.dst.long(), src.new_tensor([0])]),
+                     lay.num_nodes, 300)
+    with pytest.raises(IndexError, match="negative"):
+        es.build_csr(src, -lay.dst.long() - 1, lay.num_nodes, 300)
+    assert es.gat_edge_csr_forward.launches == before
+
+
+def test_sparse_train_runs_through_the_csr_kernels(cuda, tmp_path):
+    """train(sparse_world=True) on the card: each CSR kernel launched
+    gat_layers times a step, the dense encoder, day and cross-entropy
+    kernels never."""
+    kernels = (fg.gat_forward_fused, fg.gat_backward_fused,
+               ft.day_forward_fused, ft.day_backward_fused,
+               ft.ce_forward_fused, ft.ce_backward_fused,
+               es.gat_edge_csr_forward, es.gat_edge_csr_backward)
+    before = [k.launches for k in kernels]
+    config = GATODEConfig(batch_size=256, epochs=1)
+    res = train(str(tmp_path), n_agents=512, num_times=4, num_zones=300,
+                config=config, sparse_world=True, device=cuda)
+    steps = 2
+    assert np.isfinite(res["final_loss"])
+    assert load_checkpoint(res["ckpt"])["sparse_world"] is True
+    assert [k.launches - b for k, b in zip(kernels, before)] == (
+        [0] * 6 + [config.gat_layers * steps] * 2)

@@ -137,11 +137,16 @@ def test_rk4_solve_is_fourth_order():
 
 
 def test_sparse_and_adaptive_paths_raise_not_implemented():
+    """The sparse and adaptive paths, once refused, run: the encoder over
+    the world's edge list (adj=None) equals the dense encoder, and the
+    discrete adjoint's loss is built."""
     pair = make_pair(num_blocks=1, n_agents=8)
     zf, adj, times, pf, hz = pair.tensors()
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        pair.tmodel.encode_zones(zf, adj, edge_index=(tlong([0]),
-                                                      tlong([0])))
+    src, dst = np.nonzero(pair.data["adj"])[::-1]
+    with torch.no_grad():
+        _close(pair.tmodel.encode_zones(zf, None, (tlong(src), tlong(dst))),
+               pair.tmodel.encode_zones(zf, adj).numpy(), atol=2e-5,
+               rtol=2e-5)
     # the adaptive paths run: the discrete adjoint's loss is built
     loss_fn = ttrain.build_adjoint_loss_fn_g(pair.tmodel, pair.tcfg,
                                              (zf, adj, times),

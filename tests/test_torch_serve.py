@@ -115,9 +115,17 @@ def test_serve_refuses_a_checkpoint_without_its_world_seed(tmp_path):
 
 
 def test_serve_rejects_sparse_world_checkpoints(tmp_path):
-    ckpt = _port_ckpt(tmp_path / "s.ckpt", sparse_world=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        serve(str(ckpt), str(tmp_path / "o.npz"), n_agents=8, device="cpu")
+    """A sparse-world checkpoint of the port, once refused, is served by
+    both packages from its regenerated edge-list world."""
+    ckpt = _port_ckpt(tmp_path / "s.ckpt", num_blocks=2, sparse_world=True)
+    jax_serve(str(ckpt), str(tmp_path / "jax.npz"), n_agents=64, seed=3,
+              use_pallas=False)
+    info = serve(str(ckpt), str(tmp_path / "o.npz"), n_agents=64, seed=3,
+                 device="cpu")
+    want, got = _served(tmp_path / "jax.npz"), _served(tmp_path / "o.npz")
+    assert got["zone_ids"].shape == want["zone_ids"].shape == (64, 10)
+    assert agreement(got["zone_ids"], want["zone_ids"]) >= F32_IDS_MIN
+    assert info["num_times"] == WORLD["num_times"]
 
 
 def test_port_serves_without_importing_jax(tmp_path):

@@ -33,7 +33,10 @@ from _torch_port import agreement, make_pair, t32, tlong
 from ananke_abm_tpu.models.gnn_embed import train as jtrain
 from ananke_abm_tpu.utils import save_checkpoint as jax_save
 from ananke_abm_tpu_torch.models.gnn_embed import train as ttrain
-from ananke_abm_tpu_torch.models.gnn_embed.params import to_flax_params
+from ananke_abm_tpu_torch.models.gnn_embed.params import (
+    load_flax_params,
+    to_flax_params,
+)
 from ananke_abm_tpu_torch.utils.ckpt import load_checkpoint
 
 F32_IDS_MIN = 0.999
@@ -203,14 +206,48 @@ def test_loss_decreases(tmp_path):
 
 
 @pytest.mark.parametrize("change,error,match", [
-    (dict(sparse_zones=True), NotImplementedError, "item 9"),
-    (dict(sparse_world=True), NotImplementedError, "item 9"),
     (dict(resume=True), FileNotFoundError, "ckpt_every"),
 ])
 def test_train_refusals(tmp_path, change, error, match):
     kw = dict(WORLD, config=tiny_cfg(), device="cpu")
     with pytest.raises(error, match=match):
         ttrain.train(str(tmp_path), **{**kw, **change})
+
+
+@pytest.mark.parametrize("change", [dict(sparse_zones=True),
+                                    dict(sparse_world=True)],
+                         ids=["sparse_zones", "sparse_world"])
+def test_train_sparse_histories_match_jax(tmp_path, monkeypatch, change):
+    """train() on an edge-list zone graph (the two cases that were refused):
+    both packages from the same initial parameters (JAX's init_params,
+    loaded into the port's model), histories within rtol 1e-5, and the
+    checkpoint's sparse_world key."""
+    world = dict(n_agents=32, num_times=4, num_zones=16, seed=3)
+    base = dict(zone_dim=16, agent_dim=8, context_dim=8, hidden_dim=16,
+                gat_heads=2, gat_layers=1, num_blocks=1, substeps=1,
+                batch_size=16, epochs=2)
+    jparams = []
+    real_init = jtrain.init_params
+
+    def keep_init(*a, **kw):
+        jparams.append(real_init(*a, **kw))
+        return jparams[-1]
+
+    monkeypatch.setattr(jtrain, "init_params", keep_init)
+    jres = jtrain.train(str(tmp_path / "jax"),
+                        config=jtrain.GATODEConfig(**base), **world, **change)
+    monkeypatch.setattr(ttrain, "init_params",
+                        lambda model, gen: load_flax_params(model,
+                                                            jparams[0]))
+    tres = ttrain.train(str(tmp_path / "port"),
+                        config=ttrain.GATODEConfig(**base), device="cpu",
+                        **world, **change)
+    jck, tck = load_checkpoint(jres["ckpt"]), load_checkpoint(tres["ckpt"])
+    assert len(tck["history"]) == len(jck["history"]) == 2
+    for a, b in zip(tck["history"], jck["history"]):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-5)
+    assert tck["sparse_world"] == jck["sparse_world"] == bool(
+        change.get("sparse_world"))
 
 
 def test_data_parallel_on_one_device_runs_the_single_device_step(tmp_path):
