@@ -41,7 +41,28 @@
 // half-warp are later work.
 //
 // Compiled for H * d <= 256 features, heads of any width d.
+//
+// ananke_segment_sum <- edge_segment.py segment_sum_pallas (K9e): (E, D)
+//   float32 values, each rounded to bf16, summed in float32 into
+//   (num_segments, D) by unsorted int32 ids; ids outside [0, num_segments)
+//   are dropped, an empty segment is 0. What bounds it is memory: every
+//   value and id is read once, ~1 FLOP per 4 bytes. Its rows are skewed (at
+//   bench rung 1, 1,048,576 persons fall in 64 zones, ~16,000 a zone), so
+//   the work is split by rows, not by segments: a grid of chunks x zone
+//   slices. A CTA of 8 warps owns a contiguous chunk of rows; each warp a
+//   contiguous part of it, walked in order, lane l adding column l (+ 32,
+//   ...) of each row whose id falls in the CTA's zone slice into the warp's
+//   own (slice, D) float32 table in shared memory; 16 rows' loads are in
+//   flight at a time. The warps' tables are summed in warp order into the
+//   chunk's partial sums in device memory, and a second kernel sums the
+//   chunks in chunk order. No atomics: the order of every sum depends on
+//   E, Z and D alone, so the same operands give the same bits. Zone
+//   slices keep a warp's table within kSegSliceBytes of shared memory (96
+//   zones at D = 32: rung 1's 64 zones take one slice, BASELINE config 4's
+//   500 take 6, each re-reading the ids but not the values of other
+//   slices).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -287,6 +308,86 @@ csr_backward_kernel(const Bwd b) {
   }
 }
 
+// ---- K9e: the segment sum --------------------------------------------------
+
+constexpr int kSegWarps = 8;    // warps per CTA, each with its own table
+constexpr int kSegUnroll = 16;  // rows whose loads are in flight at a time
+// the warps' tables of one CTA: 96 KB, so that 2 CTAs share an SM
+constexpr int kSegSliceBytes = 96 * 1024;
+
+// (values, ids) rows [r0, r1) of this CTA's chunk -> the chunk's partial
+// sums (z, d) of the zone slice [z0, z0 + zn), blockIdx.y = slice index
+__global__ void __launch_bounds__(32 * kSegWarps)
+    segment_sum_kernel(const float* __restrict__ vals,
+                       const int* __restrict__ ids, float* partial, long e,
+                       int d, int z, int zs, int num_chunks) {
+  extern __shared__ float tab[];  // [kSegWarps][zs][d]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int z0 = blockIdx.y * zs;
+  const int zn = min(zs, z - z0);
+  float* mine = tab + (size_t)warp * zs * d;
+  for (int i = lane; i < zn * d; i += 32) mine[i] = 0.f;
+  __syncwarp();
+  const long c0 = e * blockIdx.x / num_chunks;
+  const long c1 = e * (blockIdx.x + 1) / num_chunks;
+  const long r0 = c0 + (c1 - c0) * warp / kSegWarps;
+  const long r1 = c0 + (c1 - c0) * (warp + 1) / kSegWarps;
+  for (int col0 = 0; col0 < d; col0 += 32) {
+    const int col = col0 + lane;
+    const bool cv = col < d;
+    for (long r = r0; r < r1; r += kSegUnroll) {
+      // lane u < kSegUnroll holds row r + u's id relative to the slice;
+      // a row past r1, or an id outside the slice, reads as zn (dropped).
+      // Unsigned: a negative id or one below z0 wraps past zn.
+      unsigned rel = (unsigned)zn;
+      if (lane < kSegUnroll && r + lane < r1)
+        rel = min((unsigned)__ldg(ids + r + lane) - (unsigned)z0,
+                  (unsigned)zn);
+      float v[kSegUnroll];
+#pragma unroll
+      for (int u = 0; u < kSegUnroll; ++u) {
+        const unsigned ru = __shfl_sync(0xffffffffu, rel, u);
+        v[u] = (cv && ru < (unsigned)zn)
+                   ? __bfloat162float(__float2bfloat16_rn(
+                         __ldg(vals + (r + u) * d + col)))
+                   : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kSegUnroll; ++u) {
+        const unsigned ru = __shfl_sync(0xffffffffu, rel, u);
+        if (cv && ru < (unsigned)zn) mine[ru * d + col] += v[u];
+      }
+    }
+  }
+  __syncthreads();
+  float* out = partial + ((size_t)blockIdx.x * z + z0) * d;
+  for (int i = threadIdx.x; i < zn * d; i += blockDim.x) {
+    float acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSegWarps; ++w) acc += tab[(size_t)w * zs * d + i];
+    out[i] = acc;
+  }
+}
+
+// out[i] = sum over chunks, in order, of partial[c][i]
+__global__ void segment_sum_chunks(const float* partial, float* out,
+                                   long size, int num_chunks) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= size) return;
+  float acc = 0.f;
+  for (int c = 0; c < num_chunks; ++c) acc += partial[(size_t)c * size + i];
+  out[i] = acc;
+}
+
+// zones of one slice: as many as kSegSliceBytes holds for every warp, the
+// slices of a zone count made even; 0 where one zone does not fit
+int segment_slice(int z, int d) {
+  const long fit = kSegSliceBytes / ((long)kSegWarps * d * sizeof(float));
+  if (fit < 1) return 0;
+  const long slices = (z + fit - 1) / fit;
+  return (int)((z + slices - 1) / slices);
+}
+
 bool compiled_for(int H, int d) {
   return H >= 1 && d >= 1 && H * d <= 32 * kMaxSlots;
 }
@@ -371,6 +472,43 @@ int ananke_edge_csr_backward(const void* g, const void* wh,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ANANKE_BWD
+  return (int)cudaGetLastError();
+}
+
+// The largest row width the segment sum takes: one zone's row for every
+// warp must fit its shared memory.
+int ananke_segment_sum_max_features() {
+  return kSegSliceBytes / (kSegWarps * (int)sizeof(float));
+}
+
+// The segment sum on `stream`: out (z, d) from vals (e, d) and ids (e),
+// through `partial` (num_chunks, z, d) when num_chunks > 1 (the caller
+// chooses num_chunks from e, z and d alone; at 1 the CTAs write `out`).
+// Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
+// for a width this file does not take or bad sizes.
+int ananke_segment_sum(const void* vals, const void* ids, void* partial,
+                       void* out, long e, int d, int z, int num_chunks,
+                       void* stream) {
+  const int zs = segment_slice(z, d);
+  if (e < 1 || d < 1 || z < 1 || zs < 1 || num_chunks < 1 ||
+      num_chunks > e)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = (size_t)kSegWarps * zs * d * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      segment_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  float* dst = static_cast<float*>(num_chunks > 1 ? partial : out);
+  const dim3 grid((unsigned)num_chunks, (unsigned)((z + zs - 1) / zs));
+  segment_sum_kernel<<<grid, 32 * kSegWarps, bytes, s>>>(
+      static_cast<const float*>(vals), static_cast<const int*>(ids), dst, e,
+      d, z, zs, num_chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || num_chunks == 1) return (int)err;
+  const long size = (long)z * d;
+  segment_sum_chunks<<<(unsigned)((size + 255) / 256), 256, 0, s>>>(
+      dst, static_cast<float*>(out), size, num_chunks);
   return (int)cudaGetLastError();
 }
 

@@ -27,16 +27,17 @@
 //   rows it filled (CONTD5 weights), its time rows' gradients in a slot of
 //   their own.
 //
-// Two step bodies. float32 (K5 always; K7 and K6 at precision "f32"): bf16
-// rounding of the stage activations is noise that does not cancel in the
-// embedded 5(4) error and floors the step controller, and TF32 keeps three
-// decimal digits, the same class; so every product of this body is a
-// float32 fused multiply-add on the CUDA cores. bf16 (K7 and K6 at
-// precision "bf16", the adaptive trainer's backward at bench rung 3): the
-// stage and its VJP of drift_stage.cuh (K8's and K2b's), bf16 operands on
-// mma.sync with float32 sums at the reference's rounding points; the
-// backward replays the forward's float32 steps, so the noise moves the
-// gradient, not the step sequence.
+// Two step bodies. float32 (K5, K7 and K6 at precision "f32", the
+// trainers' forward): bf16 rounding of the stage activations is noise that
+// does not cancel in the embedded 5(4) error and floors the step
+// controller, and TF32 keeps three decimal digits, the same class; so every
+// product of this body is a float32 fused multiply-add on the CUDA cores.
+// bf16 (K7 and K6 at precision "bf16", the adaptive trainer's backward at
+// bench rung 3; K5 at "bf16", the forward the reference keeps for loose
+// tolerances, rtol >= ~1e-3): the stage and its VJP of drift_stage.cuh
+// (K8's and K2b's), bf16 operands on mma.sync with float32 sums at the
+// reference's rounding points; a bf16 backward replays the forward's
+// steps, so the noise moves the gradient, not the step sequence.
 //
 // What bounds them on the card: operations. One stage is ~92 kMAC per agent
 // at the shipping widths and Z = 64, its VJP about twice that; the bytes
@@ -58,7 +59,8 @@
 //   is normalised after the product.
 // - The bf16 body: a CTA of W warps (4; 2 at 8 blocks, where 4 warps'
 //   stage buffers would not fit) owns 16 W rows, each warp its 16 rows end
-//   to end, as K2b's tiles.
+//   to end, as K2b's tiles. K5 at bf16 keeps its warp's x0 and k_1 .. k_7
+//   in shared memory (16 KB a warp) beside the stage's buffers.
 // - Neither can keep six stages of intermediates (~24 KB per agent): each
 //   keeps the stage outputs k_j (and the cotangents, in a per-CTA scratch
 //   in device memory, each element only ever touched by the thread that
@@ -1187,6 +1189,136 @@ __global__ void __launch_bounds__(32 * W, 1)
   }
 }
 
+// ---- K5 at bf16 -------------------------------------------------------------
+//
+// The step of K5 with the bf16 stage math of drift_stage.cuh (the reference's
+// precision="bf16": every stage activation and weight narrowed to bf16,
+// float32 sums), the tableau, y1, f1, err (or its masked sum of scaled
+// squares) and r5 in float32 as K5's float32 body forms them. A tile is 16 W
+// rows, warp w owns rows 16 w .. 16 w + 15 end to end, as the bf16 step
+// VJP's tiles: the stage inputs are bf16_stage_input's, each stage is
+// stage_forward, and the warp keeps its rows' step state in shared memory in
+// fragment order, kStepFr floats: 0 x0 | 1-7 k_1 .. k_7. No block barrier
+// but the CTA's error sum at the end.
+
+constexpr int kStepFr = 8 * kFX;  // floats of a warp's step state
+
+struct StepBf16Params {
+  StageWeights w;
+  const float* tf;  // (7, H)
+  const float* x;   // (n, DA)
+  const float* f0;  // (n, DA)
+  const float* h;   // (n, DC)
+  float* y1;        // (n, DA)
+  float* f1;        // (n, DA)
+  float* err;       // (n, DA), unless err_stats
+  float* r5;        // (n, DA)
+  float* partial;   // (gridDim.x): each CTA's sum of scaled squares
+  size_t state_off; // bytes of shared memory before the warps' step states
+  int n, err_stats;
+  float hstep, rtol, atol;
+};
+
+// bytes of K5-bf16's shared memory: the stage forward's buffers, then the
+// warps' step states
+inline size_t step_bf16_smem(int W, int nb) {
+  return BLayout::bytes_forward(16 * W, nb) +
+         (size_t)W * kStepFr * sizeof(float);
+}
+
+template <int W>
+__global__ void __launch_bounds__(32 * W, 1)
+    dopri5_step_bf16_kernel(const StepBf16Params p) {
+  constexpr int ROWS = 16 * W, NX = DA / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float red[32 * W];
+  const StageSmem sm = ananke::stage_smem_forward<DA, DZ, DC, H, W>(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, wr0 = warp * 16;
+  float* fr = reinterpret_cast<float*>(smem_raw + p.state_off) +
+              (size_t)warp * kStepFr;
+  const float hs = p.hstep;
+  const int n_tiles = (p.n + ROWS - 1) / ROWS;
+  float sq = 0.f;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long ra = (long)tile * ROWS + wr0 + g, rb = ra + 8;
+    const bool va = ra < p.n, vb = rb < p.n;
+    uint32_t ha[DC / 16][4];
+    ananke::ldg_rows_a<DC>(ha, p.h, ra, rb, va, vb, t);
+    float x0[NX][4], v[NX][4];
+    ananke::ldg_rows_c<NX>(x0, p.x, ra, rb, va, vb, t);
+    ananke::frag_st<NX>(x0, fr, lane);
+    ananke::ldg_rows_c<NX>(v, p.f0, ra, rb, va, vb, t);
+    ananke::frag_st<NX>(v, fr + kFX, lane);
+    for (int st = 1; st < 7; ++st) {
+      uint32_t xa[DA / 16][4];
+      bf16_stage_input(xa, fr, st, hs, lane);
+      float k[NX][4], ia, ib;
+      ananke::stage_forward<DA, DZ, DC, H, W>(p.w, sm, xa, ha, p.tf + st * H,
+                                              k, ia, ib, wr0, g, t);
+      ananke::frag_st<NX>(k, fr + (1 + st) * kFX, lane);
+    }
+    // the tableau in the reference's order, each operation rounded alone
+    float inc[NX][4], e[NX][4], d[NX][4];
+    ananke::zero(inc);
+    ananke::zero(e);
+    ananke::zero(d);
+    for (int j = 0; j < 7; ++j) {
+      ananke::frag_ld<NX>(v, fr + (1 + j) * kFX, lane);
+#pragma unroll
+      for (int q = 0; q < NX; ++q)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (cB5[j] != 0.f)
+            inc[q][c] = __fadd_rn(inc[q][c], __fmul_rn(cB5[j], v[q][c]));
+          if (cBE[j] != 0.f)
+            e[q][c] = __fadd_rn(e[q][c], __fmul_rn(cBE[j], v[q][c]));
+          if (cD[j] != 0.f)
+            d[q][c] = __fadd_rn(d[q][c], __fmul_rn(cD[j], v[q][c]));
+        }
+    }
+    // v holds k_7 = f1
+#pragma unroll
+    for (int q = 0; q < NX; ++q)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        inc[q][c] = __fadd_rn(x0[q][c], __fmul_rn(hs, inc[q][c]));  // y1
+        e[q][c] = __fmul_rn(hs, e[q][c]);
+        d[q][c] = __fmul_rn(hs, d[q][c]);                            // r5
+      }
+    ananke::stg_rows_c<NX>(inc, p.y1, ra, rb, va, vb, t);
+    ananke::stg_rows_c<NX>(v, p.f1, ra, rb, va, vb, t);
+    ananke::stg_rows_c<NX>(d, p.r5, ra, rb, va, vb, t);
+    if (p.err_stats) {
+#pragma unroll
+      for (int q = 0; q < NX; ++q)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          // elements 0, 1 of a fragment are row ra's, 2, 3 row rb's
+          if (c < 2 ? va : vb) {
+            const float esc = __fdiv_rn(
+                e[q][c],
+                __fadd_rn(p.atol,
+                          __fmul_rn(p.rtol, fmaxf(fabsf(x0[q][c]),
+                                                  fabsf(inc[q][c])))));
+            sq = __fadd_rn(sq, __fmul_rn(esc, esc));
+          }
+        }
+    } else {
+      ananke::stg_rows_c<NX>(e, p.err, ra, rb, va, vb, t);
+    }
+  }
+  // the CTA's sum, in a fixed order
+  red[threadIdx.x] = sq;
+  __syncthreads();
+  for (int m = 16 * W; m >= 1; m >>= 1) {
+    if (threadIdx.x < m) red[threadIdx.x] += red[threadIdx.x + m];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) p.partial[blockIdx.x] = red[0];
+}
+
 // ---- K6 -------------------------------------------------------------------
 //
 // One CTA owns an agent tile for every step: the TPU grid's sequential step
@@ -1520,6 +1652,17 @@ int launch_vjp_bf16(const VjpBf16Params& p, int num_ctas, cudaStream_t s) {
       s);
 }
 
+template <int W>
+int launch_step_bf16(StepBf16Params p, int num_ctas, cudaStream_t s) {
+  auto* kernel = dopri5_step_bf16_kernel<W>;
+  const size_t bytes = step_bf16_smem(W, p.w.num_blocks);
+  p.state_off = BLayout::bytes_forward(16 * W, p.w.num_blocks);
+  int err = set_smem(kernel, bytes);
+  if (err) return err;
+  kernel<<<num_ctas, 32 * W, bytes, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <class Body, class CkptT>
 int launch_backward(typename Body::Params p, int nb, int num_ctas,
                     cudaStream_t s) {
@@ -1567,9 +1710,9 @@ extern "C" {
 // Agent rows per tile of a kernel's body: kind 0 K5 (32), kind 1 the
 // float32 step VJP (32 up to 4 residual blocks, 16 beyond: its chain of
 // block activations must fit in shared memory), kind 2 the bf16 step VJP
-// (64, or 32 at 8 blocks).
+// and kind 3 K5 at bf16 (64, or 32 at 8 blocks).
 int ananke_dopri5_tile_rows(int num_blocks, int kind) {
-  if (kind == 2) return 16 * bf16_warps(num_blocks);
+  if (kind == 2 || kind == 3) return 16 * bf16_warps(num_blocks);
   return kind == 1 && num_blocks > 4 ? 16 : 32;
 }
 
@@ -1628,6 +1771,53 @@ int ananke_dopri5_step(
   if (e) return e;
   kernel<<<num_ctas, kThreads, bytes, s>>>(p);
   e = (int)cudaGetLastError();
+  if (e) return e;
+  return ananke::launch_reduce_slabs(
+      p.partial, static_cast<float*>(err_sum), 1, num_ctas, s);
+}
+
+// K5 at bf16 on `stream`: as ananke_dopri5_step, but the 12 bf16 weights
+// of drift_stage.cuh's set_weights and zones padded to a multiple of 16
+// (the order of the bf16 step VJP's operands), tiles of
+// ananke_dopri5_tile_rows(num_blocks, 3) rows.
+int ananke_dopri5_step_bf16(
+    const void* x, const void* f0, const void* h, const void* ze,
+    const void* zeT, const void* tf, const void* wqT, const void* wq,
+    const void* w1xcT, const void* w1xc, const void* w1hT, const void* w1h,
+    const void* wrT, const void* wr, const void* br, const void* w3T,
+    const void* w3, const void* b3, void* y1, void* f1, void* err, void* r5,
+    void* partial, void* err_sum, int n, int z, int zp, int num_blocks,
+    int num_ctas, int err_stats, float hstep, float rtol, float atol, int da,
+    int dz, int dc, int hdim, void* stream) {
+  const int rows = ananke_dopri5_tile_rows(num_blocks, 3);
+  const int n_tiles = (n + rows - 1) / rows;
+  if (!widths_ok(da, dz, dc, hdim) || num_blocks < 1 ||
+      num_blocks > kMaxBlocks || n < 1 || z < 1 || zp % 16 != 0 || zp < z ||
+      num_ctas < 1 || num_ctas > n_tiles) {
+    return (int)cudaErrorInvalidValue;
+  }
+  StepBf16Params p;
+  const void* wts[12] = {wqT, wq, w1xcT, w1xc, w1hT, w1h,
+                         wrT, wr, br, w3T, w3, b3};
+  set_weights_bf16(p.w, wts, ze, zeT, z, zp, num_blocks);
+  p.tf = static_cast<const float*>(tf);
+  p.x = static_cast<const float*>(x);
+  p.f0 = static_cast<const float*>(f0);
+  p.h = static_cast<const float*>(h);
+  p.y1 = static_cast<float*>(y1);
+  p.f1 = static_cast<float*>(f1);
+  p.err = static_cast<float*>(err);
+  p.r5 = static_cast<float*>(r5);
+  p.partial = static_cast<float*>(partial);
+  p.n = n;
+  p.err_stats = err_stats;
+  p.hstep = hstep;
+  p.rtol = rtol;
+  p.atol = atol;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int e = bf16_warps(num_blocks) == 4
+                    ? launch_step_bf16<4>(p, num_ctas, s)
+                    : launch_step_bf16<2>(p, num_ctas, s);
   if (e) return e;
   return ananke::launch_reduce_slabs(
       p.partial, static_cast<float*>(err_sum), 1, num_ctas, s);

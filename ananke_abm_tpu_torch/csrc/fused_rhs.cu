@@ -1,12 +1,24 @@
-// The continuous adjoint's augmented right-hand side on Hopper (sm_90a):
-// one GAT-ODE drift evaluation and its whole VJP at a cotangent `a`, for
-// every agent, with the weight gradients summed over agents.
+// The continuous adjoint's right-hand sides on Hopper (sm_90a), for every
+// agent in one launch each:
+// - K8: one GAT-ODE drift evaluation and its whole VJP at a cotangent `a`,
+//   with the weight gradients summed over agents (the augmented right-hand
+//   side of the backward solve; ananke_drift_rhs_and_vjp);
+// - K8a: the drift evaluation alone, f = stage(bf16(x)) (the forward
+//   solve's; ananke_drift_rhs).
 //
-// Replaces the Pallas TPU kernel
-//   ananke_abm_tpu/ops/pallas/fused_rhs.py::drift_rhs_and_vjp
+// Replaces the Pallas TPU kernels
+//   K8  ananke_abm_tpu/ops/pallas/fused_rhs.py::drift_rhs_and_vjp
+//   K8a ananke_abm_tpu/ops/pallas/fused_rhs.py::drift_rhs_fused
 // (stage math and stage VJP: _stage_math and _stage_vjp_math in
-// ops/pallas/fused_step.py). The plain PyTorch version is
-// ananke_abm_tpu_torch/ops/cuda/fused_rhs.py::drift_rhs_and_vjp_reference.
+// ops/pallas/fused_step.py). The plain PyTorch versions are
+// ananke_abm_tpu_torch/ops/cuda/fused_rhs.py::drift_rhs_and_vjp_reference
+// and ::drift_rhs_reference.
+//
+// K8a is K8's forward half: drift_stage.cuh's stage_forward over a tile of
+// 16 W rows, each warp its 16 rows end to end, no block barrier and no
+// sums over agents; the forward's intermediates go to shared memory only
+// because stage_forward keeps them there. Per agent ~190 kFLOP of bf16
+// products against ~384 bytes (read x and h, write f): compute-bound.
 //
 // What it computes, per agent row: f = stage(x) (bf16 operands, f32 sums,
 // max-free softmax clamped at 80 and normalised after the context
@@ -111,6 +123,38 @@ __global__ void __launch_bounds__(32 * W)
   }
 }
 
+struct FwdParams {
+  StageWeights w;
+  const float* x;   // (n, DA)
+  const float* h;   // (n, DC)
+  const float* tf;  // (H) time-row pre-activation
+  float* f;         // (n, DA)
+  int n;
+};
+
+template <int DA, int DZ, int DC, int H, int W>
+__global__ void __launch_bounds__(32 * W) drift_rhs_kernel(const FwdParams p) {
+  constexpr int NX = DA / 8, KX = DA / 16, KC = DC / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const StageSmem sm = stage_smem_forward<DA, DZ, DC, H, W>(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr0 = warp * 16;
+  const long ra = (long)blockIdx.x * 16 * W + wr0 + g, rb = ra + 8;
+  const bool va = ra < p.n, vb = rb < p.n;
+  uint32_t xa[KX][4];
+  ldg_rows_a<DA>(xa, p.x, ra, rb, va, vb, t);
+  uint32_t ha[KC][4];
+  ldg_rows_a<DC>(ha, p.h, ra, rb, va, vb, t);
+  float k[NX][4], inv_a, inv_b;
+  stage_forward<DA, DZ, DC, H, W>(p.w, sm, xa, ha, p.tf, k, inv_a, inv_b,
+                                  wr0, g, t);
+  stg_rows_c<NX>(k, p.f, ra, rb, va, vb, t);
+}
+
+// warps of K8a's tile: 4 (64 rows); its forward buffers fit at 8 blocks
+constexpr int kFwdWarps = 4;
+
 template <int DA, int DZ, int DC, int H, int W>
 int launch(const Params& p, cudaStream_t s) {
   auto* kernel = drift_vjp_kernel<DA, DZ, DC, H, W>;
@@ -122,6 +166,15 @@ int launch(const Params& p, cudaStream_t s) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_reduce_slabs(p.slab, p.gsum, p.slab_size, p.num_ctas, s);
+}
+
+void set_stage_weights(StageWeights& w, const void* const* wts,
+                       const void* ze, const void* zeT, int z, int zp,
+                       int num_blocks) {
+  set_weights(w, wts);
+  w.ze = static_cast<const bf16*>(ze);
+  w.zeT = static_cast<const bf16*>(zeT);
+  w.z = z; w.zp = zp; w.num_blocks = num_blocks;
 }
 
 }  // namespace
@@ -158,10 +211,7 @@ int ananke_drift_rhs_and_vjp(
   Params p;
   const void* wts[12] = {wqT, wq, w1xcT, w1xc, w1hT, w1h,
                          wrT, wr, br, w3T, w3, b3};
-  set_weights(p.w, wts);
-  p.w.ze = static_cast<const bf16*>(ze);
-  p.w.zeT = static_cast<const bf16*>(zeT);
-  p.w.z = z; p.w.zp = zp; p.w.num_blocks = num_blocks;
+  set_stage_weights(p.w, wts, ze, zeT, z, zp, num_blocks);
   p.x = static_cast<const float*>(x);
   p.h = static_cast<const float*>(h);
   p.a = static_cast<const float*>(a);
@@ -177,6 +227,45 @@ int ananke_drift_rhs_and_vjp(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return rows == 64 ? launch<32, 64, 32, 128, 4>(p, s)
                     : launch<32, 64, 32, 128, 2>(p, s);
+}
+
+// One drift evaluation (K8a) on `stream`: f (n, DA) from x, h, the zones
+// and the time row tf (H), the 12 weights as ananke_drift_rhs_and_vjp
+// takes them. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for widths this file was not compiled for or bad
+// sizes.
+int ananke_drift_rhs(const void* x, const void* h, const void* ze,
+                     const void* zeT, const void* tf, const void* wqT,
+                     const void* wq, const void* w1xcT, const void* w1xc,
+                     const void* w1hT, const void* w1h, const void* wrT,
+                     const void* wr, const void* br, const void* w3T,
+                     const void* w3, const void* b3, void* f, int n, int z,
+                     int zp, int num_blocks, int da, int dz, int dc,
+                     int hdim, void* stream) {
+  if (num_blocks < 1 || num_blocks > kMaxBlocks || n < 1 || z < 1 ||
+      zp % 16 != 0 || zp < z)
+    return (int)cudaErrorInvalidValue;
+  if (!(da == 32 && dz == 64 && dc == 32 && hdim == 128))
+    return (int)cudaErrorInvalidValue;
+  FwdParams p;
+  const void* wts[12] = {wqT, wq, w1xcT, w1xc, w1hT, w1h,
+                         wrT, wr, br, w3T, w3, b3};
+  set_stage_weights(p.w, wts, ze, zeT, z, zp, num_blocks);
+  p.x = static_cast<const float*>(x);
+  p.h = static_cast<const float*>(h);
+  p.tf = static_cast<const float*>(tf);
+  p.f = static_cast<float*>(f);
+  p.n = n;
+  auto* kernel = drift_rhs_kernel<32, 64, 32, 128, kFwdWarps>;
+  const size_t smem =
+      Layout<32, 64, 32, 128>::bytes_forward(16 * kFwdWarps, num_blocks);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = 16 * kFwdWarps;
+  kernel<<<(unsigned)((n + rows - 1) / rows), 32 * kFwdWarps, smem,
+           static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }
 
 const char* ananke_cuda_error_string(int err) {

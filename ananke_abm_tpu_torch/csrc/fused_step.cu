@@ -1,11 +1,19 @@
-// One output interval of the GAT-ODE serving rollout on Hopper (sm_90a):
-// `substeps` RK4 steps of the drift, then the decode and its first-index
-// argmax, for every agent, in one launch.
+// The GAT-ODE serving rollout's kernels on Hopper (sm_90a), one template
+// for both, for every agent in one launch:
+// - K1: one output interval, `substeps` RK4 steps of the drift, then the
+//   decode and its first-index argmax (ananke_rk4_interval_decode);
+// - K0: one RK4 step, the same stage code with the decode compiled out
+//   (ananke_rk4_step), for the per-step rollout, whose decode is a plain
+//   product after each interval.
 //
-// Replaces the Pallas TPU kernel
-//   ananke_abm_tpu/ops/pallas/fused_step.py::rk4_interval_decode_fused
-// (stage math: _stage_math in the same file). The plain PyTorch version is
-// ananke_abm_tpu_torch/ops/cuda/fused_step.py::rk4_interval_decode_reference.
+// Replaces the Pallas TPU kernels
+//   K1 ananke_abm_tpu/ops/pallas/fused_step.py::rk4_interval_decode_fused
+//   K0 ananke_abm_tpu/ops/pallas/fused_step.py::rk4_step_fused
+// (stage math: _stage_math in the same file). The plain PyTorch versions
+// are ananke_abm_tpu_torch/ops/cuda/fused_step.py::
+// rk4_interval_decode_reference and ::rk4_step_reference. K0 is K1 with
+// `stages` = 4 and no decode: per agent and step it reads x and h and
+// writes x, ~0.75 MFLOP against ~384 bytes, compute-bound as K1 is.
 //
 // What bounds it on the card. Per agent and interval the kernel does ~1.5
 // MFLOP of bf16 matmul work (8 drift evaluations of ~92k multiply-adds at
@@ -79,12 +87,13 @@ struct Params {
   const __nv_bfloat16* wdT;    // (DZ, DA)
   const float* tf;             // (stages, H)
   float* x_out;                // (n, DA)
-  int* ids;                    // (n)
+  int* ids;                    // (n), unless the decode is compiled out
   int n, z, zp, num_blocks, stages;
   float dt;
 };
 
-template <int DA, int DZ, int DC, int H>
+// kDecode: K1 (the stages, then the decode and argmax) or K0 (the stages)
+template <int DA, int DZ, int DC, int H, bool kDecode>
 __global__ void __launch_bounds__(32 * kWarps)
     interval_kernel(const Params p) {
   constexpr int NX = DA / 8, KX = DA / 16;
@@ -335,6 +344,8 @@ __global__ void __launch_bounds__(32 * kWarps)
     if (vb) *reinterpret_cast<float2*>(p.x_out + rb * DA + c) = make_float2(xs[j][2], xs[j][3]);
   }
 
+  if (!kDecode) return;
+
   // ---- decode: ids = argmax(bf16(bf16(x) @ Wd) @ ze^T), first index ------
   uint32_t xa[KX][4];
   c_to_a<DA>(xs, xa);
@@ -377,25 +388,31 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launch one interval on `stream`. Returns cudaGetLastError() after the
-// launch (0 on success), or cudaErrorInvalidValue for widths this file was
-// not compiled for or a bad block count.
-int ananke_rk4_interval_decode(
-    const void* x, const void* h, const void* ze, const void* zeT,
-    const void* wqT, const void* w1xcT, const void* w1hT, const void* wrT,
-    const void* br, const void* w3T, const void* b3, const void* wdT,
-    const void* tf, void* x_out, void* ids, int n, int z, int zp,
-    int num_blocks, int stages, float dt, int da, int dz, int dc, int hdim,
-    void* stream) {
-  if (num_blocks < 1 || num_blocks > kMaxBlocks || n < 1 || z < 1 ||
-      zp % 16 != 0 || zp < z || stages < 4 || stages % 4 != 0) {
+// the interval kernel over `p` on `stream`, for the widths it is compiled
+// for; cudaErrorInvalidValue for others
+template <bool kDecode>
+int launch(const Params& p, int da, int dz, int dc, int hdim,
+           cudaStream_t s) {
+  if (!(da == 32 && dz == 64 && dc == 32 && hdim == 128))
     return (int)cudaErrorInvalidValue;
-  }
-  Params p;
+  auto* kernel = interval_kernel<32, 64, 32, 128, kDecode>;
+  // the largest shared-memory carveout (smallest L1): weights are read
+  // from L2 either way, and on an H100 this ran faster than the default
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = 16 * kWarps;
+  kernel<<<(unsigned)((p.n + rows - 1) / rows), 32 * kWarps, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+void set_params(Params& p, const void* x, const void* h, const void* ze,
+                const void* zeT, const void* wqT, const void* w1xcT,
+                const void* w1hT, const void* wrT, const void* br,
+                const void* w3T, const void* b3, const void* tf,
+                void* x_out, int n, int z, int zp, int num_blocks,
+                int stages, float dt) {
   p.x = static_cast<const float*>(x);
   p.h = static_cast<const float*>(h);
   p.ze = static_cast<const __nv_bfloat16*>(ze);
@@ -407,29 +424,58 @@ int ananke_rk4_interval_decode(
   p.br = static_cast<const __nv_bfloat16*>(br);
   p.w3T = static_cast<const __nv_bfloat16*>(w3T);
   p.b3 = static_cast<const __nv_bfloat16*>(b3);
-  p.wdT = static_cast<const __nv_bfloat16*>(wdT);
   p.tf = static_cast<const float*>(tf);
   p.x_out = static_cast<float*>(x_out);
-  p.ids = static_cast<int*>(ids);
+  p.wdT = nullptr;
+  p.ids = nullptr;
   p.n = n; p.z = z; p.zp = zp; p.num_blocks = num_blocks; p.stages = stages;
   p.dt = dt;
-  const int rows = 16 * kWarps;
-  const dim3 grid((unsigned)((n + rows - 1) / rows));
-  const dim3 block(32 * kWarps);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (da == 32 && dz == 64 && dc == 32 && hdim == 128) {
-    auto* kernel = interval_kernel<32, 64, 32, 128>;
-    // the largest shared-memory carveout (smallest L1): weights are read
-    // from L2 either way, and on an H100 this ran faster than the default
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-        cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, block, 0, s>>>(p);
-  } else {
+}
+
+bool sizes_ok(int n, int z, int zp, int num_blocks, int stages) {
+  return num_blocks >= 1 && num_blocks <= kMaxBlocks && n >= 1 && z >= 1 &&
+         zp % 16 == 0 && zp >= z && stages >= 4 && stages % 4 == 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch one interval (K1) on `stream`. Returns cudaGetLastError() after
+// the launch (0 on success), or cudaErrorInvalidValue for widths this file
+// was not compiled for or a bad block count.
+int ananke_rk4_interval_decode(
+    const void* x, const void* h, const void* ze, const void* zeT,
+    const void* wqT, const void* w1xcT, const void* w1hT, const void* wrT,
+    const void* br, const void* w3T, const void* b3, const void* wdT,
+    const void* tf, void* x_out, void* ids, int n, int z, int zp,
+    int num_blocks, int stages, float dt, int da, int dz, int dc, int hdim,
+    void* stream) {
+  if (!sizes_ok(n, z, zp, num_blocks, stages))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  Params p;
+  set_params(p, x, h, ze, zeT, wqT, w1xcT, w1hT, wrT, br, w3T, b3, tf, x_out,
+             n, z, zp, num_blocks, stages, dt);
+  p.wdT = static_cast<const __nv_bfloat16*>(wdT);
+  p.ids = static_cast<int*>(ids);
+  return launch<true>(p, da, dz, dc, hdim, static_cast<cudaStream_t>(stream));
+}
+
+// Launch one RK4 step (K0) on `stream`: `tf` holds the step's 4 stage rows.
+// Returns as ananke_rk4_interval_decode.
+int ananke_rk4_step(const void* x, const void* h, const void* ze,
+                    const void* zeT, const void* wqT, const void* w1xcT,
+                    const void* w1hT, const void* wrT, const void* br,
+                    const void* w3T, const void* b3, const void* tf,
+                    void* x_out, int n, int z, int zp, int num_blocks,
+                    float dt, int da, int dz, int dc, int hdim,
+                    void* stream) {
+  if (!sizes_ok(n, z, zp, num_blocks, 4)) return (int)cudaErrorInvalidValue;
+  Params p;
+  set_params(p, x, h, ze, zeT, wqT, w1xcT, w1hT, wrT, br, w3T, b3, tf, x_out,
+             n, z, zp, num_blocks, 4, dt);
+  return launch<false>(p, da, dz, dc, hdim,
+                       static_cast<cudaStream_t>(stream));
 }
 
 const char* ananke_cuda_error_string(int err) {

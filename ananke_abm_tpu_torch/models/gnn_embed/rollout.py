@@ -5,14 +5,18 @@ The carry is the (N, Da) agent state and each output interval emits only
 the (N,) zone ids, so memory stays O(N * Da + N * T) whatever the zone
 count: the (N, T, Z) logits of ``GATODE.forward`` are never built.
 
-Two bodies, as in the reference:
+Three bodies, as in the reference:
 
 - the float32 body: ``GATODE.rhs`` under RK4 and ``GATODE.decode`` +
   argmax after every interval; a sparse edge-list zone graph always takes
   it;
 - the kernel body: bf16 weights packed once per call, a bf16 decode at
   t=0, then one :func:`rk4_interval_decode_fused` per output interval
-  (all substeps plus the decode and argmax).
+  (all substeps plus the decode and argmax);
+- the per-step body (:func:`make_pallas_rollout` with
+  ``fuse_decode=False``): the same set-up, then ``substeps``
+  :func:`rk4_step_fused` launches per interval and the bf16 decode
+  :func:`decode_ids_bf16` after each.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from ananke_abm_tpu_torch.ops.cuda.fused_step import (
     interval_stage_times,
     pack_weights_bf16,
     rk4_interval_decode_fused,
+    rk4_step_fused,
     time_feature_table,
 )
 
@@ -105,37 +110,102 @@ def _f32_body(model, substeps, edge_index=None):
     return body
 
 
+def make_pallas_rollout(model, zone_feats, adj, times, substeps=2,
+                        mesh=None, fuse_decode=False):
+    """The reference's kernel rollout: returns ``rollout(person_feats,
+    home_zone_ids) -> (N, T) int32`` zone ids.
+
+    ``fuse_decode=False`` (the reference's default) serves through the step
+    kernel: ``substeps`` launches of :func:`rk4_step_fused` per output
+    interval, then the bf16 decode :func:`decode_ids_bf16` (a plain
+    product, as the reference's ``jnp.dot`` outside its kernels);
+    ``fuse_decode=True`` through the interval kernel
+    :func:`rk4_interval_decode_fused`, as :func:`make_decoded_rollout`'s
+    kernel body. Both round the same bf16 decode, so on the plain versions
+    they give the same ids. CPU tensors run the kernels' plain versions.
+
+    Every call reads the module's current parameters. ``mesh`` (the
+    reference's multi-chip rollout) is not ported.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_pallas_rollout(mesh=...) over several cards is not ported "
+            "yet: ROADMAP.md queue 1 item 11")
+    body = (_kernel_body(model, substeps, rk4_interval_decode_fused)
+            if fuse_decode else _per_step_body(model, substeps))
+
+    def rollout(person_feats, home_zone_ids):
+        with torch.inference_mode():
+            return body(zone_feats, adj, times, person_feats,
+                        home_zone_ids)
+
+    return rollout
+
+
+def _kernel_setup(model, substeps, zone_feats, adj, times, person_feats,
+                  home_zone_ids):
+    """What the kernel bodies share: ``(ze_bf16, weights, wd_bf16, x, h,
+    dts, tf_all)``, the bf16 zones, packed weights and decode projection,
+    the initial state and context, the substep size of every interval
+    (float32 values) and its (4 substeps, H) stage rows."""
+    zone_emb = model.encode_zones(zone_feats, adj)
+    ze_bf16 = zone_emb.to(BF16)
+    weights = pack_weights_bf16(model)
+    wd_bf16 = model.decode_proj.weight.T.to(BF16)  # (Da, Dz)
+    x, h = model.initial_state(person_feats, home_zone_ids, zone_emb)
+
+    # interval starts and substep sizes in the reference's float32
+    # arithmetic, on the host: the kernels take dt as a scalar argument and
+    # the per-stage time table is built for all intervals at once
+    t_host = times.detach().cpu().numpy().astype(np.float32)
+    dts = (t_host[1:] - t_host[:-1]) / np.float32(substeps)
+    stage_t = np.asarray([
+        interval_stage_times(t0, dt, substeps)
+        for t0, dt in zip(t_host[:-1], dts)
+    ], np.float32).reshape(-1)
+    tf_all = time_feature_table(
+        torch.from_numpy(stage_t).to(x.device), weights[3], weights[4],
+    ).reshape(len(dts), 4 * substeps, -1)
+    return ze_bf16, weights, wd_bf16, x, h, dts, tf_all
+
+
 def _kernel_body(model, substeps, interval):
     """The kernel body with ``interval`` as its per-interval step:
     :func:`rk4_interval_decode_fused`, or its plain version
     ``rk4_interval_decode_reference`` to check and time the kernel
     against. Callers run it under ``torch.inference_mode()``."""
     def body(zone_feats, adj, times, person_feats, home_zone_ids):
-        zone_emb = model.encode_zones(zone_feats, adj)
-        ze_bf16 = zone_emb.to(BF16)
-        weights = pack_weights_bf16(model)
-        wd_bf16 = model.decode_proj.weight.T.to(BF16)  # (Da, Dz)
-        x, h = model.initial_state(person_feats, home_zone_ids, zone_emb)
-
-        # interval starts and substep sizes in the reference's float32
-        # arithmetic, on the host: the kernel takes dt as a scalar argument
-        # and the per-stage time table is built for all intervals at once
-        t_host = times.detach().cpu().numpy().astype(np.float32)
-        dts = (t_host[1:] - t_host[:-1]) / np.float32(substeps)
-        stage_t = np.asarray([
-            interval_stage_times(t0, dt, substeps)
-            for t0, dt in zip(t_host[:-1], dts)
-        ], np.float32).reshape(-1)
-        tf_all = time_feature_table(
-            torch.from_numpy(stage_t).to(x.device), weights[3], weights[4],
-        ).reshape(len(dts), 4 * substeps, -1)
-
+        ze_bf16, weights, wd_bf16, x, h, dts, tf_all = _kernel_setup(
+            model, substeps, zone_feats, adj, times, person_feats,
+            home_zone_ids)
         # the t=0 ids: the kernel's own bf16 decode, as the reference does
         ids = [decode_ids_bf16(x, wd_bf16, ze_bf16)]
         for i in range(len(dts)):
             x, ids_i = interval(x, h, ze_bf16, weights, wd_bf16, tf_all[i],
                                 float(dts[i]))
             ids.append(ids_i)
+        return torch.stack(ids, dim=1)
+
+    return body
+
+
+def _per_step_body(model, substeps, step=rk4_step_fused):
+    """The per-step body with ``step`` as its RK4 step:
+    :func:`rk4_step_fused`, or its plain version ``rk4_step_reference``.
+    Substep ``s`` of an interval takes rows ``4 s .. 4 s + 3`` of its stage
+    table: the stage times ``t0 + s dt + (0, dt/2, dt/2, dt)``, the
+    reference's per-step ``t0 + i dt`` and ``t + dt/2`` in float32. Callers
+    run it under ``torch.inference_mode()``."""
+    def body(zone_feats, adj, times, person_feats, home_zone_ids):
+        ze_bf16, weights, wd_bf16, x, h, dts, tf_all = _kernel_setup(
+            model, substeps, zone_feats, adj, times, person_feats,
+            home_zone_ids)
+        ids = [decode_ids_bf16(x, wd_bf16, ze_bf16)]
+        for i in range(len(dts)):
+            for s in range(substeps):
+                x = step(x, h, ze_bf16, weights, tf_all[i, 4 * s: 4 * s + 4],
+                         float(dts[i]))
+            ids.append(decode_ids_bf16(x, wd_bf16, ze_bf16))
         return torch.stack(ids, dim=1)
 
     return body

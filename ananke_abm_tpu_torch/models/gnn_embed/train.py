@@ -682,17 +682,21 @@ class _Rhs(torch.nn.Module):
         return self.model.rhs(t, x, h, zone_emb)
 
 
-def _adjoint_loss_fn(model, config, rhs_vjp, stats=None, discrete=None):
+def _adjoint_loss_fn(model, config, rhs_vjp, stats=None, discrete=None,
+                     rhs=None):
     """``loss_fn(pf, hz, targets, graph) -> (mean nll, accuracy)`` whose
     integration is adaptive DOPRI5 with adjoint gradients: continuous
     (``rhs_vjp`` its joint evaluator, or None), or discrete where
     ``discrete`` holds ``odeint_discrete_adjoint``'s keywords (its step
-    hooks and recording knobs).
+    hooks and recording knobs). ``rhs``: the continuous solve's forward
+    right-hand side in place of ``model.rhs`` (``make_fused_adjoint_rhs``'s
+    first half, whose forward is K8a; not differentiable, so it needs
+    ``rhs_vjp``).
 
     The solver's ``args`` are ``(params, h, zone_emb)`` with ``params``
     every model parameter in the reference's leaf order, as the reference
     threads its whole flax tree: the continuous backward's error norm
-    counts them all. ``rhs`` reads its weights from ``args``
+    counts them all. The default ``rhs`` reads its weights from ``args``
     (``functional_call``), so the generic backward differentiates the drift
     through them.
     """
@@ -708,10 +712,16 @@ def _adjoint_loss_fn(model, config, rhs_vjp, stats=None, discrete=None):
     names = ["model." + by_id[id(p)] for _, p in leaves]
     rhs_module = _Rhs(model)
 
-    def rhs(t, x, args):
+    def model_rhs(t, x, args):
         params, h, zone_emb = args
         return functional_call(rhs_module, dict(zip(names, params)),
                                (t, x, h, zone_emb))
+
+    if rhs is None:
+        rhs = model_rhs
+    elif discrete is not None or rhs_vjp is None:
+        raise ValueError("rhs= is the continuous adjoint's forward; it "
+                         "needs rhs_vjp")
 
     def loss_fn(pf, hz, targets, graph):
         zone_feats, adj, times, edge_index, edge_chunks = _unpack_static(

@@ -39,10 +39,13 @@ _ENTRY = {
     "fused_step": {
         "ananke_rk4_interval_decode": (
             [_P] * 15 + [_I] * 5 + [ctypes.c_float] + [_I] * 4 + [_P], _I),
+        "ananke_rk4_step": ([_P] * 13 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
+                            _I),
     },
     "fused_rhs": {
         "ananke_drift_rhs_and_vjp": ([_P] * 23 + [_I] * 9 + [_P], _I),
         "ananke_drift_rhs_tile_rows": ([_I], _I),
+        "ananke_drift_rhs": ([_P] * 18 + [_I] * 8 + [_P], _I),
     },
     "fused_train": {
         "ananke_day_forward": ([_P] * 19 + [_I] * 9 + [_P], _I),
@@ -62,6 +65,8 @@ _ENTRY = {
     "fused_dopri5": {
         "ananke_dopri5_step": (
             [_P] * 24 + [_I] * 6 + [_F] * 3 + [_I] * 4 + [_P], _I),
+        "ananke_dopri5_step_bf16": (
+            [_P] * 24 + [_I] * 6 + [_F] * 3 + [_I] * 4 + [_P], _I),
         "ananke_dopri5_step_vjp": (
             [_P] * 28 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
         "ananke_dopri5_backward_all": ([_P] * 26 + [_I] * 13 + [_P], _I),
@@ -72,6 +77,8 @@ _ENTRY = {
     "edge_segment": {
         "ananke_edge_csr_forward": ([_P] * 7 + [_I] * 3 + [_P], _I),
         "ananke_edge_csr_backward": ([_P] * 13 + [_I] * 5 + [_P], _I),
+        "ananke_segment_sum": ([_P] * 4 + [_L] + [_I] * 3 + [_P], _I),
+        "ananke_segment_sum_max_features": ([], _I),
     },
 }
 

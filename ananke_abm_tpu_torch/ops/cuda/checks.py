@@ -1,7 +1,7 @@
-"""The bounds the training kernels (K8, K2f, K2b, K3f, K3b, K4f, K4b, K5, K7,
-K6) are held to against their plain versions on the card, and the random operands of
-those checks: one copy, for ``chip_smoke.py`` and
-``tests/test_torch_cuda.py``.
+"""The bounds the kernels (K8, K8a, K2f, K2b, K3f, K3b, K4f, K4b, K5 at both
+precisions, K7, K6, the CSR edge pair and K9e) are held to against their
+plain versions on the card, and the random operands of those checks: one
+copy, for ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 
 Every bound is per output: mean |d| / mean |ref|, max |d| / max |ref| and
 1 - cosine, kernel against plain version. Kernel and plain version round at
@@ -129,6 +129,35 @@ DOPRI5_VJP_BF16_BOUNDS = ((1.2e-2, 1.25), (3e-2, 1), (8e-5, 2.5))
 K6_RECORD = (8, 6, 12)
 DOPRI5_BWD_BOUNDS = (5e-5, 5e-5, 1e-9)
 DOPRI5_BWD_BF16_BOUNDS = ((2.2e-2, 1.5), (6e-2, 1), (2.4e-4, 3))
+# K5 at bf16 (the bf16 stage math of drift_stage.cuh, the tableau and the
+# error in float32), per output: y1, f1, r5 and the error sum of
+# err_stats, through day_bounds: (bound at 2 blocks, power of s = (2 +
+# blocks) / 4). The control is K5's float32 kernel on the same operands
+# (it rounds no stage). Readings (chip_smoke.py --readings dopri5: its
+# DOPRI5_SHAPES, DOPRI5_READING_SHAPES and K5_BF16_READING_SHAPES x seeds
+# 0-2; H100 80GB HBM3, 700 W), r5 the worst output throughout (h
+# sum d_j k_j, whose large coefficients cancel): sound mean <= 3.2e-3 and
+# 1 - cos <= 3.0e-5 at 2 blocks, <= 1.12e-2 and 2.2e-4 at 8; control >=
+# 2.0e-2 and 2.0e-4 at 2, >= 4.0e-2 and 8.2e-4 at 8. The max does not part
+# them (sound <= 5.5e-2, control >= 5.4e-2 at 8 blocks): it catches rows
+# gone wrong. Against the float64 witness kernel and plain version lie as
+# far as from each other (kernel <= 9.9e-3 mean at 8 blocks), the control
+# outside.
+DOPRI5_STEP_BF16_BOUNDS = ((7e-3, 1.25), (6e-2, 1), (8e-5, 2))
+# K9e (the segment sum: values rounded to bf16, float32 sums in another
+# order), its one output: (mean, max, 1 - cosine). The control sums the
+# values unrounded. Readings (chip_smoke.py --readings segment:
+# SEGMENT_SHAPES x seeds 0-2; H100 80GB HBM3, 700 W): sound mean <= 8.6e-8,
+# max <= 4.7e-7, 1 - cos <= 9.5e-15 (rung 1: ~16,000 rows a segment;
+# 5e-11, 4e-8, 2e-16 with ~65 or fewer); control >= 1.64e-3, >= 1.55e-3,
+# >= 1.33e-6.
+SEGMENT_BOUNDS = (1e-5, 2e-5, 1e-10)
+# (kind, rows, features, segments) of the K9e checks (segment_operands):
+# rung 1's population by zone, rung 2's by BASELINE config 4's 500 zones,
+# and a random case of 2,048 segments with dropped ids (at or past Z, and
+# negative) and empty segments
+SEGMENT_SHAPES = (("rung1", 1_048_576, 32, 64), ("rung2", 32_768, 32, 500),
+                  ("random", 200_000, 32, 2_048))
 
 
 def bf16_product_dot(a16, b16):
@@ -412,6 +441,22 @@ def dopri5_vjp_outputs(out):
         items += list(zip([f"gWr1[{i}]", f"gbr1[{i}]", f"gWr2[{i}]",
                            f"gbr2[{i}]"], blk))
     return items + [("gW3", out[9]), ("gb3", out[10])]
+
+
+def segment_operands(kind, e, d, z, dev, seed):
+    """``(values, ids, num_segments)`` of a K9e check: standard normal
+    values and uniform int64 ids in [0, z) from ``seed``; for ``random``,
+    every fifth id moved past z, every seventh made negative, and the ids
+    of every fourth segment moved away (those segments are empty)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vals = torch.randn(e, d, device=dev, generator=g)
+    ids = torch.randint(0, z, (e,), device=dev, generator=g)
+    if kind == "random":
+        ids = torch.where(ids % 4 == 3, ids - 1, ids)  # empty segments
+        pos = torch.arange(e, device=dev)
+        ids = torch.where(pos % 5 == 0, ids + z, ids)
+        ids = torch.where(pos % 7 == 0, -1 - ids, ids)
+    return vals, ids, z
 
 
 def k8_bounds(num_blocks):

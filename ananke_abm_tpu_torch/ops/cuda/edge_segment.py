@@ -14,6 +14,11 @@ plain PyTorch version beside it:
 - :func:`gat_edge_csr_backward` and :func:`gat_edge_csr_backward_reference`
   replace ``gat_edge_backward_multihead_pallas`` (K9c) and K9d's VJP.
 
+A third kernel of the same source, :func:`segment_sum` with
+:func:`segment_sum_reference`, replaces ``segment_sum_pallas`` (K9e): the
+sum of bf16-rounded rows by segment id, float32 sums, ids outside
+``[0, num_segments)`` dropped.
+
 The function: for every destination row ``i`` and head ``h``, over the edges
 ``j -> i``, the scores ``s = leaky_relu(e_recv[i, h] + e_send[j, h], 0.2)``,
 a softmax with the exact per-destination max subtracted, and ``out[i, h] =
@@ -46,6 +51,17 @@ DEN_FLOOR = 1e-12
 # the widths the CUDA kernels are compiled for: H * d features per row, at
 # most MAX_KERNEL_FEATURES (eight 32-lane slots a row), heads of any width
 MAX_KERNEL_FEATURES = 256
+# the segment sum's widest row: one zone's row per warp in shared memory
+# (ananke_segment_sum_max_features in csrc/edge_segment.cu)
+MAX_SEGMENT_FEATURES = 3072
+# the segment sum's row chunks (each CTA sums one, then the chunks are summed
+# in order): one per SEGMENT_CHUNK_ROWS rows, at most SEGMENT_MAX_CHUNKS (two
+# CTAs per SM of an H100), and at most SEGMENT_PARTIAL_FLOATS / (Z D) so the
+# partial sums stay small. Constants: the order of every sum depends on E, Z
+# and D alone, and a repeat gives the same bits.
+SEGMENT_CHUNK_ROWS = 2048
+SEGMENT_MAX_CHUNKS = 264
+SEGMENT_PARTIAL_FLOATS = 1 << 22
 
 
 class CSRLayout(NamedTuple):
@@ -293,6 +309,97 @@ def gat_edge_csr_backward(g, wh, e_recv, e_send, lse, corr, layout):
 gat_edge_csr_backward.launches = 0
 
 
+def segment_sum_reference(values, segment_ids, num_segments):
+    """Plain PyTorch version of the segment-sum kernel: ``values`` (E, D)
+    float32 rounded to bf16, summed in float32 into (num_segments, D) by
+    ``segment_ids`` (E,) (any integer type, unsorted); ids outside
+    ``[0, num_segments)``, negative ones included, are dropped (as
+    ``jax.ops.segment_sum`` drops them) and an empty segment is 0."""
+    ids = segment_ids.long()
+    keep = (ids >= 0) & (ids < num_segments)
+    out = torch.zeros((num_segments, values.shape[1]), dtype=torch.float32,
+                      device=values.device)
+    return out.index_add_(0, ids[keep],
+                          values[keep].to(torch.bfloat16).float())
+
+
+def segment_sum_fits(d) -> bool:
+    """Whether the segment-sum kernel takes rows of ``d`` values: the rule
+    its wrapper enforces on CUDA tensors (any row and segment count)."""
+    return 1 <= d <= MAX_SEGMENT_FEATURES
+
+
+def segment_chunks(e, z, d) -> int:
+    """Row chunks of the segment sum of ``e`` rows of ``d`` values into ``z``
+    segments (the constants above)."""
+    cap = max(1, SEGMENT_PARTIAL_FLOATS // (z * d))
+    return max(1, min(-(-e // SEGMENT_CHUNK_ROWS), SEGMENT_MAX_CHUNKS, cap,
+                      e))
+
+
+def segment_sum(values, segment_ids, num_segments):
+    """The segment sum: port of ``segment_sum_pallas``. Arguments and result
+    as :func:`segment_sum_reference`.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel of
+    ``csrc/edge_segment.cu`` (float32 values, rows of at most
+    MAX_SEGMENT_FEATURES, any ``num_segments``), or raise; there is no
+    fallback. Ids are handed to the kernel as int32, those outside
+    ``[0, num_segments)`` sent to -1 first (the kernel drops every id
+    outside the range). No atomics: the same operands give the same bits.
+    ``.launches`` counts the kernel launches."""
+    name = "segment_sum"
+    if values.dim() != 2 or segment_ids.dim() != 1:
+        raise ValueError(f"{name}: values must be (E, D) and segment_ids "
+                         f"(E,), got {tuple(values.shape)} and "
+                         f"{tuple(segment_ids.shape)}")
+    E, D = values.shape
+    Z = int(num_segments)
+    if segment_ids.shape[0] != E:
+        raise ValueError(f"{name}: {segment_ids.shape[0]} ids for {E} rows")
+    if segment_ids.device != values.device:
+        raise ValueError(f"{name}: segment_ids is on {segment_ids.device}, "
+                         f"values on {values.device}")
+    if values.dtype != torch.float32:
+        raise TypeError(f"{name}: values must be float32, got "
+                        f"{values.dtype}")
+    if segment_ids.dtype.is_floating_point or segment_ids.dtype.is_complex \
+            or segment_ids.dtype == torch.bool:
+        raise TypeError(f"{name}: segment_ids must be integers, got "
+                        f"{segment_ids.dtype}")
+    if Z < 1:
+        raise ValueError(f"{name}: num_segments must be >= 1, got {Z}")
+    if values.device.type == "cpu":
+        return segment_sum_reference(values, segment_ids, Z)
+    if values.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {values.device}")
+    if not segment_sum_fits(D):
+        raise ValueError(f"{name}: the CUDA kernel takes rows of 1 to "
+                         f"{MAX_SEGMENT_FEATURES} values, got {D}")
+    dev = values.device
+    out = torch.empty((Z, D), dtype=torch.float32, device=dev)
+    if E == 0:
+        return out.zero_()
+    ids = segment_ids
+    if ids.dtype != torch.int32:
+        ids = torch.where((ids >= 0) & (ids < Z), ids, -1).to(torch.int32)
+    chunks = segment_chunks(E, Z, D)
+    partial = torch.empty((chunks if chunks > 1 else 0, Z, D),
+                          dtype=torch.float32, device=dev)
+    lib = _lib()
+    ops = [values.contiguous(), ids.contiguous(), partial, out]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.ananke_segment_sum(*[t.data_ptr() for t in ops], E, D, Z,
+                                     chunks, stream)
+    _raise_on(lib, err, name)
+    segment_sum.launches += 1
+    return out
+
+
+segment_sum.launches = 0
+
+
 KERNELS = (gat_edge_csr_forward, gat_edge_csr_backward)
 # the plain versions in the same places (to hold the kernels' route against)
 PLAIN = (gat_edge_csr_forward_reference, gat_edge_csr_backward_reference)
@@ -335,5 +442,6 @@ __all__ = [
     "CSRLayout", "kept_edges", "build_csr", "kernels_fit",
     "gat_edge_csr_forward_reference", "gat_edge_csr_forward",
     "gat_edge_csr_backward_reference", "gat_edge_csr_backward",
-    "gat_edge_csr", "KERNELS", "PLAIN",
+    "gat_edge_csr", "KERNELS", "PLAIN", "segment_sum_reference",
+    "segment_sum_fits", "segment_sum",
 ]

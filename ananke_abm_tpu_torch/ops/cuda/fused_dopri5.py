@@ -17,14 +17,14 @@ file, each with its plain PyTorch version beside it:
   carries between steps, in one launch.
 
 All run the shared stage math (``fused_step.stage_math`` /
-``stage_vjp_math``). K5 runs it in float32 throughout (``precision="f32"``,
-the identity cast): bf16 rounding of the stage activations is noise that
-does not cancel in the embedded 5(4) error and floors the step controller.
-K5's bf16 branch has no kernel (no trainer path runs a bf16 forward; ROADMAP.md
-queue 2): on CUDA it raises. K7 and K6 take ``precision="f32"`` (float32
-FFMA) or ``"bf16"`` (bf16 operands and float32 sums at the reference's
-rounding points, on ``csrc/drift_stage.cuh``): the backward replays the
-forward's float32 step sequence, so a bf16 backward costs gradient noise,
+``stage_vjp_math``) at ``precision="f32"`` (float32 FFMA, the identity
+cast) or ``"bf16"`` (bf16 operands and float32 sums at the reference's
+rounding points, on ``csrc/drift_stage.cuh``). The trainers' forward is
+float32: bf16 rounding of the stage activations is noise that does not
+cancel in the embedded 5(4) error and floors the step controller, so the
+reference keeps K5's bf16 branch for loose tolerances (rtol >= ~1e-3),
+reached through ``make_fused_dopri5_hooks(precision="bf16")``. A bf16
+backward replays the forward's step sequence, so it costs gradient noise,
 not a different solve.
 
 Each wrapper takes its plain version for tensors on the CPU; for CUDA
@@ -343,20 +343,14 @@ def _check(name, rows, ze, tf_rows, Wq, W1xc, W1h, blocks, W3, b3):
     return N, Da, Z, Dz, Dc, H
 
 
-def _kernel_device(name, x, widths, num_blocks, precision, bf16=True):
+def _kernel_device(name, x, widths, num_blocks, precision):
     """True for a CUDA tensor the kernel takes, False for a CPU tensor;
-    raises for anything else (``bf16``: whether the kernel has a bf16
-    branch)."""
+    raises for anything else."""
     _mk_cast(precision)
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if precision == "bf16" and not bf16:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel runs precision='f32' only; its bf16 "
-            "branch is still to port (ROADMAP.md queue 2, K5's bf16 "
-            "branch)")
     if not kernels_fit(*widths, num_blocks):
         if widths not in KERNEL_WIDTHS:
             raise ValueError(
@@ -390,14 +384,15 @@ def pack_weights_f32(Wq, W1xc, W1h, blocks, W3, b3):
 # zones per attention chunk of the float32 kernels (kZC in
 # csrc/fused_dopri5.cu); the bf16 ones take chunks of 16 (pad_zones)
 ZONE_CHUNK = 32
-# CTAs of K5 (two fit an SM's shared memory) and of K7 and K6 (one): each
+# CTAs of K5 (two fit an SM's shared memory) and of K7, K6 and K5-bf16
+# (one): each
 # sums its tiles into its own slab, summed in a fixed order; constants, so
 # the sums' order depends on N alone and a repeated launch gives the same
 # bits
 STEP_CTAS = 2 * NUM_SLABS
 VJP_CTAS = NUM_SLABS
 # the kernels' tile bodies (ananke_dopri5_tile_rows' `kind`)
-_K5, _F32_VJP, _BF16_VJP = 0, 1, 2
+_K5, _F32_VJP, _BF16_VJP, _BF16_K5 = 0, 1, 2, 3
 
 
 def _zones(ze):
@@ -441,10 +436,12 @@ def _packed(name, packed, ze, weights, precision="f32"):
 def dopri5_step_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3, b3,
                       h_step, precision="f32", err_stats=None, packed=None):
     """One DOPRI5 step. Arguments and result as
-    :func:`dopri5_step_reference`; on CUDA the kernel K5 (float32 only),
-    over ``packed`` (:func:`pack_operands` of these zones and weights) or a
-    packing made for this launch. With ``err_stats`` the sum of squares is
-    deterministic: the same operands give the same bits, and so the same
+    :func:`dopri5_step_reference`; on CUDA the kernel K5 at ``precision``
+    (float32 FFMA, or the bf16 stage math of ``drift_stage.cuh`` with the
+    tableau and the error in float32), over ``packed``
+    (:func:`pack_operands` of these zones and weights at the same precision)
+    or a packing made for this launch. With ``err_stats`` the sum of squares
+    is deterministic: the same operands give the same bits, and so the same
     step sequence."""
     rows = [("x", x, tuple(x.shape)), ("f0", f0, tuple(x.shape)),
             ("h", h, (x.shape[0], W1h.shape[0]))]
@@ -452,7 +449,7 @@ def dopri5_step_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3, b3,
                                  W1xc, W1h, blocks, W3, b3)
     nb = len(blocks)
     if not _kernel_device("dopri5_step_fused", x, (Da, Dz, Dc, H), nb,
-                          precision, bf16=False):
+                          precision):
         return dopri5_step_reference(x, f0, h, ze, tf_rows, Wq, W1xc, W1h,
                                      blocks, W3, b3, h_step, precision,
                                      err_stats)
@@ -464,16 +461,19 @@ def dopri5_step_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3, b3,
         return (*out[:2], err_sum if err_stats is not None else out[2],
                 out[3])
     lib = _lib()
-    num_ctas = min(STEP_CTAS, -(-N // lib.ananke_dopri5_tile_rows(nb, _K5)))
+    bf16 = precision == "bf16"
+    kind, ctas = (_BF16_K5, VJP_CTAS) if bf16 else (_K5, STEP_CTAS)
+    num_ctas = min(ctas, -(-N // lib.ananke_dopri5_tile_rows(nb, kind)))
     partial = torch.empty((num_ctas,), dtype=torch.float32, device=dev)
     rtol, atol = (F(v) for v in err_stats) if err_stats else (F(0), F(0))
     ze_p, zeT, *w = _packed("dopri5_step_fused", packed, ze,
-                            (Wq, W1xc, W1h, blocks, W3, b3))
+                            (Wq, W1xc, W1h, blocks, W3, b3), precision)
     ops = [x.contiguous(), f0.contiguous(), h.contiguous(), ze_p, zeT,
            tf_rows.contiguous(), *w, *out, partial, err_sum]
+    step = lib.ananke_dopri5_step_bf16 if bf16 else lib.ananke_dopri5_step
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.ananke_dopri5_step(
+        err = step(
             *[t.data_ptr() for t in ops], N, Z, ze_p.shape[0], nb, num_ctas,
             int(err_stats is not None), F(h_step), rtol, atol, Da, Dz, Dc,
             H, stream)
@@ -664,10 +664,10 @@ def make_fused_dopri5_hooks(model, precision="f32", bwd_precision=None,
     for the kernels (once per precision), once per solve: the forward's
     steps share one ``args`` tree, the backward's another.
 
-    ``precision`` is the forward's; ``bwd_precision`` (default the same)
-    the VJPs'. The forward kernel K5 runs float32 only: with the model on
-    CUDA ``precision="bf16"`` raises NotImplementedError here, before
-    anything launches; K7 and K6 take either. ``err_stats=(rtol, atol)``:
+    ``precision`` is the forward's (K5 takes either; the reference keeps a
+    bf16 forward for loose tolerances, rtol >= ~1e-3, where its stage noise
+    does not floor the controller); ``bwd_precision`` (default the same)
+    the VJPs' (K7 and K6 take either). ``err_stats=(rtol, atol)``:
     the step returns an ``ErrNormSq`` reduced with those tolerances (pass
     the solve's own), and the controller reads one scalar per attempted
     step. ``_plain``: the hooks run the plain versions (:data:`PLAIN`) on
@@ -680,11 +680,6 @@ def make_fused_dopri5_hooks(model, precision="f32", bwd_precision=None,
     leaves = flax_leaf_params(model)
     paths = [p for p, _ in leaves]
     split_drift_params(dict(leaves))  # raises early on a block-free drift
-    if (not _plain and leaves[0][1].device.type == "cuda"
-            and precision == "bf16"):
-        raise NotImplementedError(
-            "the CUDA kernel K5 runs precision='f32' only; its bf16 branch "
-            "is still to port (ROADMAP.md queue 2, K5's bf16 branch)")
     n_dense = 2 + 2 * model.num_blocks
     # its args tree, the params' versions, (weights, (W1t, b1), packings)
     solve = [None, None, None]

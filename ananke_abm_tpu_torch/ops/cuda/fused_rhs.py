@@ -1,18 +1,23 @@
-"""The GAT-ODE drift as the continuous adjoint's augmented right-hand side:
-one drift evaluation and its whole VJP in one launch.
+"""The GAT-ODE drift as the continuous adjoint's right-hand sides: one
+drift evaluation and its whole VJP in one launch (the backward's augmented
+right-hand side), and one drift evaluation alone (the forward's).
 
-Port of ``ananke_abm_tpu/ops/pallas/fused_rhs.py``. The kernel
-(:func:`drift_rhs_and_vjp`, CUDA C++ in ``csrc/fused_rhs.cu``) replaces
-the Pallas kernel ``drift_rhs_and_vjp`` of that file;
-:func:`drift_rhs_and_vjp_reference` is its plain PyTorch version, which
-the wrapper takes for tensors on the CPU. Both are one
-:func:`~ananke_abm_tpu_torch.ops.cuda.fused_step.stage_math` and one
-:func:`~ananke_abm_tpu_torch.ops.cuda.fused_step.stage_vjp_math`: bf16
-operands, float32 sums, the rounding points of the reference.
+Port of ``ananke_abm_tpu/ops/pallas/fused_rhs.py``. Two kernels (CUDA C++
+in ``csrc/fused_rhs.cu``) replace the two Pallas kernels of that file, each
+with its plain PyTorch version beside it, which the wrapper takes for
+tensors on the CPU:
 
-:func:`drift_rhs_fused` (the forward-only Pallas kernel) is ported as its
-plain version only: no trainer path calls it (the reference trainer keeps
-only ``rhs_vjp``), and on CUDA it raises.
+- :func:`drift_rhs_and_vjp` (K8, ``drift_rhs_and_vjp``) and
+  :func:`drift_rhs_and_vjp_reference`: one
+  :func:`~ananke_abm_tpu_torch.ops.cuda.fused_step.stage_math` and one
+  :func:`~ananke_abm_tpu_torch.ops.cuda.fused_step.stage_vjp_math`;
+- :func:`drift_rhs_fused` (K8a, ``drift_rhs_fused``) and
+  :func:`drift_rhs_reference`: the stage math alone.
+
+Both round as the reference does: bf16 operands, float32 sums.
+:func:`make_fused_adjoint_rhs` pairs them for ``ode.odeint_adjoint``; the
+trainer keeps only its ``rhs_vjp``, as the reference's does, and runs its
+forward through ``model.rhs`` in float32.
 
 Weights are passed as the reference passes them: float32, in the JAX
 package's layout (every matrix (in, out)), as :func:`split_drift_params`
@@ -28,10 +33,10 @@ import torch
 from ananke_abm_tpu_torch.models.gnn_embed.params import flax_leaf_params
 from ananke_abm_tpu_torch.ops.cuda.fused_step import (
     BF16,
-    KERNEL_WIDTHS,
-    MAX_KERNEL_BLOCKS,
     _dot,
+    _kernel_device,
     _nt_dot,
+    _raise_on,
     stage_kernels_fit,
     stage_math,
     stage_vjp_math,
@@ -98,24 +103,55 @@ def _scale(dz) -> float:
     return float(np.float32(1.0 / np.sqrt(float(dz))))
 
 
-def drift_rhs_fused(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3):
-    """dx/dt of the drift, forward only (plain version of the Pallas
-    kernel K8a). x (N, Da), h (N, Hc), ze (Z, Dz) float32; tf_row (1, H)
-    from :func:`time_row`; float32 weights. Returns (N, Da) float32.
-
-    On CUDA it raises: the kernel is not ported (ROADMAP.md queue 2, K8a),
-    because no trainer path calls it."""
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            "drift_rhs_fused (K8a) has no CUDA kernel yet: ROADMAP.md "
-            "queue 2 lists it; the continuous-adjoint trainer runs its "
-            "forward through model.rhs"
-        )
+def drift_rhs_reference(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3):
+    """Plain PyTorch version of K8a: dx/dt of the drift, forward only. x
+    (N, Da), h (N, Hc), ze (Z, Dz) float32; tf_row (1, H) from
+    :func:`time_row`; float32 weights, rounded to bf16 here. Returns (N, Da)
+    float32."""
     hpre = _dot(h.to(BF16), W1h.to(BF16))
     k, _ = stage_math(x.to(BF16), hpre, tf_row.float(), ze.to(BF16),
                       _scale(ze.shape[1]), Wq.to(BF16), W1xc.to(BF16),
                       _to16(blocks), W3.to(BF16), b3.to(BF16))
     return k
+
+
+def drift_rhs_fused(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3):
+    """dx/dt of the drift, forward only. Arguments and result as
+    :func:`drift_rhs_reference`.
+
+    CPU tensors take the plain version. CUDA tensors launch K8a of
+    ``csrc/fused_rhs.cu`` or raise (widths it is not compiled for, too many
+    blocks, a refused launch); there is no fallback. Not differentiable, as
+    the reference's: the continuous adjoint's forward solve and its initial
+    step probe, which nothing differentiates. ``.launches`` counts the
+    kernel launches."""
+    N, Da, Z, Dz, Dc, H = _check(x, h, ze, tf_row, Wq, W1xc, W1h, blocks,
+                                 W3, b3)
+    if not _kernel_device("drift_rhs_fused", x, (Da, Dz, Dc, H), blocks):
+        return drift_rhs_reference(x, h, ze, tf_row, Wq, W1xc, W1h, blocks,
+                                   W3, b3)
+    dev = x.device
+    f = torch.empty((N, Da), dtype=torch.float32, device=dev)
+    if N == 0:
+        return f
+    from ananke_abm_tpu_torch.ops.cuda._build import load_library
+
+    lib = load_library("fused_rhs")
+    ze_p, zeT = pad_zones(ze)
+    ops = [x.contiguous(), h.contiguous(), ze_p, zeT,
+           tf_row.float().contiguous(),
+           *pack_stage_weights(Wq, W1xc, W1h, blocks, W3, b3), f]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.ananke_drift_rhs(*[t.data_ptr() for t in ops], N, Z,
+                                   ze_p.shape[0], len(blocks), Da, Dz, Dc,
+                                   H, stream)
+    _raise_on(lib, err, "drift_rhs_fused")
+    drift_rhs_fused.launches += 1
+    return f
+
+
+drift_rhs_fused.launches = 0
 
 
 def drift_rhs_and_vjp_reference(x, h, ze, tf_row, Wq, W1xc, W1h, blocks,
@@ -154,18 +190,21 @@ def drift_rhs_and_vjp_reference(x, h, ze, tf_row, Wq, W1xc, W1h, blocks,
     return f, gx, gh, gze, gtf, gWq, gW1xc, gW1h, gblocks, gW3, gb3[0]
 
 
-def _check(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a):
-    """Validate the operands; returns (N, Da, Z, Dz, Dc, H)."""
+def _check(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a=None):
+    """Validate the operands (K8a's: no ``a``); returns (N, Da, Z, Dz, Dc,
+    H)."""
     N, Da = x.shape
     Z, Dz = ze.shape
     Dc = h.shape[1]
     H = W1xc.shape[1]
     want = {
-        "x": (x, (N, Da)), "h": (h, (N, Dc)), "a": (a, (N, Da)),
+        "x": (x, (N, Da)), "h": (h, (N, Dc)),
         "ze": (ze, (Z, Dz)), "tf_row": (tf_row, (1, H)),
         "Wq": (Wq, (Da, Dz)), "W1xc": (W1xc, (Da + Dz, H)),
         "W1h": (W1h, (Dc, H)), "W3": (W3, (H, Da)), "b3": (b3, (Da,)),
     }
+    if a is not None:
+        want["a"] = (a, (N, Da))
     for i, (wr1, br1, wr2, br2) in enumerate(blocks):
         want[f"Wr1[{i}]"] = (wr1, (H, H))
         want[f"br1[{i}]"] = (br1, (H,))
@@ -199,7 +238,8 @@ def grad_layout(Z, Dz, Da, Dc, H, num_blocks, time_shape=None):
     return out + [("gW3", (H, Da)), ("gb3", (Da,))]
 
 
-# whether K8 takes (agent, zone, context, hidden) widths and residual blocks
+# whether K8 and K8a take (agent, zone, context, hidden) widths and
+# residual blocks
 kernel_fits = stage_kernels_fit
 
 
@@ -215,20 +255,10 @@ def drift_rhs_and_vjp(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a):
     """
     N, Da, Z, Dz, Dc, H = _check(x, h, ze, tf_row, Wq, W1xc, W1h, blocks,
                                  W3, b3, a)
-    if x.device.type == "cpu":
+    if not _kernel_device("drift_rhs_and_vjp", x, (Da, Dz, Dc, H), blocks):
         return drift_rhs_and_vjp_reference(x, h, ze, tf_row, Wq, W1xc, W1h,
                                            blocks, W3, b3, a)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     nb = len(blocks)
-    if not kernel_fits(Da, Dz, Dc, H, nb):
-        if (Da, Dz, Dc, H) not in KERNEL_WIDTHS:
-            raise ValueError(
-                f"the CUDA adjoint RHS kernel is compiled for (agent, zone, "
-                f"context, hidden) widths {KERNEL_WIDTHS}, got "
-                f"{(Da, Dz, Dc, H)}")
-        raise ValueError(f"the CUDA adjoint RHS kernel takes at most "
-                         f"{MAX_KERNEL_BLOCKS} residual blocks")
     dev = x.device
     f = torch.empty((N, Da), dtype=torch.float32, device=dev)
     gx = torch.empty_like(f)
@@ -313,28 +343,26 @@ def _launch(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a,
             *[t.data_ptr() for t in ops], slabs.data_ptr(), gsum.data_ptr(),
             N, Z, zp, nb, num_ctas, Da, Dz, Dc, H, stream,
         )
-    if err != 0:
-        name = lib.ananke_cuda_error_string(err) or b"unknown"
-        raise RuntimeError(
-            f"drift_rhs_and_vjp: CUDA launch failed with error {err} "
-            f"({name.decode()})"
-        )
+    _raise_on(lib, err, "drift_rhs_and_vjp")
     drift_rhs_and_vjp.launches += 1
 
 
-def make_fused_adjoint_rhs(model, drift_vjp=None):
+def make_fused_adjoint_rhs(model, drift_vjp=None, drift_fwd=None):
     """``(rhs, rhs_vjp)`` for ``ode.odeint_adjoint`` over the GAT-ODE drift
     with ``args = (params, h, zone_emb)``, ``params`` the tuple of every
     model parameter in :func:`flax_leaf_params` order.
 
-    ``rhs`` runs :func:`drift_rhs_fused`. ``rhs_vjp`` runs ``drift_vjp``
-    (default :func:`drift_rhs_and_vjp`) and scatters the weight
-    cotangents into a gradient for every parameter in the same order:
-    the drift's from the kernel, Dense_0's time rows and bias through
-    :func:`time_row`, exact zeros for the parameters the drift never
-    reads (the encoder's, the context's, the decode's).
+    ``rhs`` runs ``drift_fwd`` (default :func:`drift_rhs_fused`, K8a on
+    the card). ``rhs_vjp`` runs ``drift_vjp`` (default
+    :func:`drift_rhs_and_vjp`, K8) and scatters the weight cotangents into
+    a gradient for every parameter in the same order: the drift's from the
+    kernel, Dense_0's time rows and bias through :func:`time_row`, exact
+    zeros for the parameters the drift never reads (the encoder's, the
+    context's, the decode's). The plain versions in their places give the
+    same pair without the kernels.
     """
     drift_vjp = drift_vjp or drift_rhs_and_vjp
+    drift_fwd = drift_fwd or drift_rhs_fused
     paths = [p for p, _ in flax_leaf_params(model)]
     split_drift_params(dict(flax_leaf_params(model)))  # raises early
     n_dense = 2 + 2 * model.num_blocks
@@ -347,7 +375,7 @@ def make_fused_adjoint_rhs(model, drift_vjp=None):
     def rhs(t, x, args):
         params, h, zone_emb = args
         w, tf = prep(params, t)
-        return drift_rhs_fused(x, h, zone_emb, tf, *w)
+        return drift_fwd(x, h, zone_emb, tf, *w)
 
     def rhs_vjp(t, x, args, a):
         params, h, zone_emb = args
@@ -378,7 +406,8 @@ def make_fused_adjoint_rhs(model, drift_vjp=None):
 
 
 __all__ = [
-    "split_drift_params", "time_row", "drift_rhs_fused", "kernel_fits",
+    "split_drift_params", "time_row", "drift_rhs_reference",
+    "drift_rhs_fused", "kernel_fits",
     "drift_rhs_and_vjp_reference", "drift_rhs_and_vjp",
     "make_fused_adjoint_rhs",
 ]

@@ -1,11 +1,17 @@
-"""One output interval of the GAT-ODE serving rollout: ``substeps`` RK4
-steps of the drift, then the decode and its argmax.
+"""The GAT-ODE serving rollout's kernels: one output interval (``substeps``
+RK4 steps of the drift, then the decode and its argmax), and one RK4 step.
 
-Port of ``ananke_abm_tpu/ops/pallas/fused_step.py``. The kernel
-(:func:`rk4_interval_decode_fused`, CUDA C++ in ``csrc/fused_step.cu``)
-replaces the Pallas kernel ``rk4_interval_decode_fused`` of that file;
-:func:`rk4_interval_decode_reference` is its plain PyTorch version, which
-the wrapper takes for tensors on the CPU and the tests compare against.
+Port of ``ananke_abm_tpu/ops/pallas/fused_step.py``. Two kernels (CUDA C++
+in ``csrc/fused_step.cu``, one template) replace the Pallas kernels of that
+file, each with its plain PyTorch version beside it, which the wrapper takes
+for tensors on the CPU and the tests compare against:
+
+- :func:`rk4_interval_decode_fused` (K1, ``rk4_interval_decode_fused``) and
+  :func:`rk4_interval_decode_reference`;
+- :func:`rk4_step_fused` (K0, ``rk4_step_fused``) and
+  :func:`rk4_step_reference`: one step, no decode; the per-step rollout
+  (``rollout.make_pallas_rollout(fuse_decode=False)``) decodes with
+  :func:`decode_ids_bf16` after each interval.
 
 Every rounding point of the reference stage math is kept: activations are
 rounded to bf16 before each matmul, products accumulate in float32, the
@@ -245,17 +251,9 @@ def _rk4_coefs(dt_sub):
     return float(step), float(step * f32(0.5)), float(step / f32(6.0))
 
 
-def rk4_interval_decode_reference(x, h, ze_bf16, weights_bf16, wd_bf16,
-                                  tf_pre, dt_sub):
-    """Plain PyTorch version of the interval kernel.
-
-    x: (N, Da) float32; h: (N, Dc) float32; ze_bf16: (Z, Dz) bf16;
-    weights_bf16: tuple from :func:`pack_weights_bf16`; wd_bf16: (Da, Dz)
-    bf16 decode projection; tf_pre: (substeps * 4, H) float32 from
-    :func:`time_feature_table`; dt_sub: the substep size. Returns
-    (x_new (N, Da) float32, ids (N,) int32), ids the FIRST index of the
-    largest logit.
-    """
+def _rk4_substeps(x, h, ze_bf16, weights_bf16, tf_pre, dt_sub):
+    """``tf_pre.shape[0] // 4`` RK4 substeps of the bf16 stage math from
+    float32 ``x``: the integration both plain versions share."""
     (Wq, W1xc, W1h, _W1t, _b1, blocks, W3, b3) = weights_bf16
     scale = float(np.float32(1.0 / np.sqrt(float(ze_bf16.shape[1]))))
     step, half, sixth = _rk4_coefs(dt_sub)
@@ -274,11 +272,40 @@ def rk4_interval_decode_reference(x, h, ze_bf16, weights_bf16, wd_bf16,
         k3 = rhs(xs + half * k2, 4 * s + 2)
         k4 = rhs(xs + step * k3, 4 * s + 3)
         xs = xs + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    return xs
+
+
+def rk4_interval_decode_reference(x, h, ze_bf16, weights_bf16, wd_bf16,
+                                  tf_pre, dt_sub):
+    """Plain PyTorch version of the interval kernel.
+
+    x: (N, Da) float32; h: (N, Dc) float32; ze_bf16: (Z, Dz) bf16;
+    weights_bf16: tuple from :func:`pack_weights_bf16`; wd_bf16: (Da, Dz)
+    bf16 decode projection; tf_pre: (substeps * 4, H) float32 from
+    :func:`time_feature_table`; dt_sub: the substep size. Returns
+    (x_new (N, Da) float32, ids (N,) int32), ids the FIRST index of the
+    largest logit.
+    """
+    xs = _rk4_substeps(x, h, ze_bf16, weights_bf16, tf_pre, dt_sub)
     return xs, decode_ids_bf16(xs, wd_bf16, ze_bf16)
 
 
+def rk4_step_reference(x, h, ze_bf16, weights_bf16, tf_pre, dt):
+    """Plain PyTorch version of the step kernel: one RK4 step ``x0 +
+    (dt/6)(k1 + 2 k2 + 2 k3 + k4)``, the stage inputs ``x0 + (dt/2) k`` and
+    ``x0 + dt k3``, every product in the bf16 stage math.
+
+    Operands as :func:`rk4_interval_decode_reference`, without the decode
+    projection; tf_pre: (4, H) float32, the step's stage rows at ``[t0, t0
+    + dt/2, t0 + dt/2, t0 + dt]`` (:func:`interval_stage_times` with one
+    substep). Returns x_new (N, Da) float32.
+    """
+    return _rk4_substeps(x, h, ze_bf16, weights_bf16, tf_pre, dt)
+
+
 def _check(x, h, ze, weights, wd, tf_pre):
-    """Validate the interval's operands; returns (N, Da, Z, Dz, Dc, H)."""
+    """Validate the interval's operands (the step's: ``wd`` None, 4 stage
+    rows); returns (N, Da, Z, Dz, Dc, H)."""
     (Wq, W1xc, W1h, W1t, b1, blocks, W3, b3) = weights
     if x.ndim != 2 or h.ndim != 2 or ze.ndim != 2 or tf_pre.ndim != 2:
         raise ValueError("x, h, ze and tf_pre must be 2-D")
@@ -301,8 +328,9 @@ def _check(x, h, ze, weights, wd, tf_pre):
         "b1": (b1, BF16, (H,)),
         "W3": (W3, BF16, (H, Da)),
         "b3": (b3, BF16, (Da,)),
-        "wd": (wd, BF16, (Da, Dz)),
     }
+    if wd is not None:
+        want["wd"] = (wd, BF16, (Da, Dz))
     for i, (wr1, br1, wr2, br2) in enumerate(blocks):
         want[f"Wr1[{i}]"] = (wr1, BF16, (H, H))
         want[f"br1[{i}]"] = (br1, BF16, (H,))
@@ -319,11 +347,29 @@ def _check(x, h, ze, weights, wd, tf_pre):
     for name in ("x", "h", "ze", "tf_pre"):
         if not want[name][0].is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if S < 4 or S % 4:
-        raise ValueError(f"tf_pre must have substeps * 4 rows, got {S}")
+    if S < 4 or S % 4 or (wd is None and S != 4):
+        want_rows = "4" if wd is None else "substeps * 4"
+        raise ValueError(f"tf_pre must have {want_rows} rows, got {S}")
     if Z < 1:
         raise ValueError("ze must hold at least one zone")
     return N, Da, Z, Dz, Dc, H
+
+
+def _kernel_device(name, x, widths, blocks):
+    """True for a CUDA tensor the kernels take, False for a CPU tensor;
+    raises for anything else."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if widths not in KERNEL_WIDTHS:
+        raise ValueError(
+            f"{name}: the CUDA kernel is compiled for (agent, zone, "
+            f"context, hidden) widths {KERNEL_WIDTHS}, got {widths}")
+    if len(blocks) > MAX_KERNEL_BLOCKS:
+        raise ValueError(f"{name}: the CUDA kernel takes at most "
+                         f"{MAX_KERNEL_BLOCKS} residual blocks")
+    return True
 
 
 def rk4_interval_decode_fused(x, h, ze_bf16, weights_bf16, wd_bf16, tf_pre,
@@ -339,75 +385,100 @@ def rk4_interval_decode_fused(x, h, ze_bf16, weights_bf16, wd_bf16, tf_pre,
     """
     N, Da, Z, Dz, Dc, H = _check(x, h, ze_bf16, weights_bf16, wd_bf16,
                                  tf_pre)
-    if x.device.type == "cpu":
+    if not _kernel_device("rk4_interval_decode_fused", x, (Da, Dz, Dc, H),
+                          weights_bf16[5]):
         return rk4_interval_decode_reference(
             x, h, ze_bf16, weights_bf16, wd_bf16, tf_pre, dt_sub
         )
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if (Da, Dz, Dc, H) not in KERNEL_WIDTHS:
-        raise ValueError(
-            f"the CUDA interval kernel is compiled for (agent, zone, "
-            f"context, hidden) widths {KERNEL_WIDTHS}, got "
-            f"{(Da, Dz, Dc, H)}"
-        )
-    blocks = weights_bf16[5]
-    if len(blocks) > MAX_KERNEL_BLOCKS:
-        raise ValueError(f"the CUDA interval kernel takes at most "
-                         f"{MAX_KERNEL_BLOCKS} residual blocks")
     x_new = torch.empty_like(x)
     ids = torch.empty((N,), dtype=torch.int32, device=x.device)
     if N == 0:
         return x_new, ids
-    _launch(x, h, ze_bf16, weights_bf16, wd_bf16, tf_pre, dt_sub,
-            x_new, ids)
+    lib, ops, sizes = _operands(x, h, ze_bf16, weights_bf16, tf_pre, x_new)
+    ops[11:11] = [wd_bf16.T.contiguous()]
+    step, _, _ = _rk4_coefs(dt_sub)
+    with torch.cuda.device(x.device):
+        err = lib.ananke_rk4_interval_decode(
+            *[t.data_ptr() for t in ops], ids.data_ptr(), *sizes,
+            tf_pre.shape[0], ctypes.c_float(step), Da, Dz, Dc, H,
+            _stream(x))
+    _raise_on(lib, err, "rk4_interval_decode_fused")
+    rk4_interval_decode_fused.launches += 1
     return x_new, ids
 
 
 rk4_interval_decode_fused.launches = 0
 
 
-def _launch(x, h, ze, weights, wd, tf_pre, dt_sub, x_new, ids):
+def rk4_step_fused(x, h, ze_bf16, weights_bf16, tf_pre, dt):
+    """One RK4 step, no decode. Arguments and result as
+    :func:`rk4_step_reference`.
+
+    CPU tensors take the plain version. CUDA tensors launch the step kernel
+    of ``csrc/fused_step.cu`` (the interval kernel's stage code with the
+    decode compiled out), or raise (unsupported widths, too many blocks, a
+    refused launch); there is no fallback. ``.launches`` counts the kernel
+    launches.
+    """
+    N, Da, Z, Dz, Dc, H = _check(x, h, ze_bf16, weights_bf16, None, tf_pre)
+    if not _kernel_device("rk4_step_fused", x, (Da, Dz, Dc, H),
+                          weights_bf16[5]):
+        return rk4_step_reference(x, h, ze_bf16, weights_bf16, tf_pre, dt)
+    x_new = torch.empty_like(x)
+    if N == 0:
+        return x_new
+    lib, ops, sizes = _operands(x, h, ze_bf16, weights_bf16, tf_pre, x_new)
+    step, _, _ = _rk4_coefs(dt)
+    with torch.cuda.device(x.device):
+        err = lib.ananke_rk4_step(*[t.data_ptr() for t in ops], *sizes,
+                                  ctypes.c_float(step), Da, Dz, Dc, H,
+                                  _stream(x))
+    _raise_on(lib, err, "rk4_step_fused")
+    rk4_step_fused.launches += 1
+    return x_new
+
+
+rk4_step_fused.launches = 0
+
+
+def _stream(x):
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _raise_on(lib, err, name):
+    if err != 0:
+        msg = lib.ananke_cuda_error_string(err) or b"unknown"
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
+                           f"({msg.decode()})")
+
+
+def _operands(x, h, ze, weights, tf_pre, x_new):
+    """(the library, the 13 operand tensors of the kernels' C interface but
+    the decode's, in its order, (N, Z, zp, blocks)). The kernels read
+    weights as (out, in) rows, so that the two bf16 of one mma B-fragment
+    register are adjacent; zones are padded to a multiple of 16 with zero
+    rows (masked in the kernels)."""
     from ananke_abm_tpu_torch.ops.cuda._build import load_library
 
     lib = load_library("fused_step")
     (Wq, W1xc, W1h, _W1t, _b1, blocks, W3, b3) = weights
-    N, Da = x.shape
     Z, Dz = ze.shape
-    H = W1xc.shape[1]
-    # the kernel reads weights as (out, in) rows, so that the two bf16 of
-    # one mma B-fragment register are adjacent; zones are padded to a
-    # multiple of 16 with zero rows (masked in the kernel)
     zp = -(-Z // 16) * 16
     ze_p = torch.zeros((zp, Dz), dtype=BF16, device=x.device)
     ze_p[:Z] = ze
-    zeT = ze_p.T.contiguous()
     wrT = torch.stack(
         [w.T for blk in blocks for w in (blk[0], blk[2])]
     ).contiguous()
     br = torch.stack([b for blk in blocks for b in (blk[1], blk[3])])
-    ops = [x, h, ze_p, zeT, Wq.T.contiguous(), W1xc.T.contiguous(),
-           W1h.T.contiguous(), wrT, br.contiguous(), W3.T.contiguous(),
-           b3.contiguous(), wd.T.contiguous(), tf_pre, x_new, ids]
-    step, _, _ = _rk4_coefs(dt_sub)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = lib.ananke_rk4_interval_decode(
-            *[t.data_ptr() for t in ops],
-            N, Z, zp, len(blocks), tf_pre.shape[0], ctypes.c_float(step),
-            Da, Dz, h.shape[1], H, stream,
-        )
-    if err != 0:
-        name = lib.ananke_cuda_error_string(err) or b"unknown"
-        raise RuntimeError(
-            f"rk4_interval_decode_fused: CUDA launch failed with error "
-            f"{err} ({name.decode()})"
-        )
-    rk4_interval_decode_fused.launches += 1
+    ops = [x, h, ze_p, ze_p.T.contiguous(), Wq.T.contiguous(),
+           W1xc.T.contiguous(), W1h.T.contiguous(), wrT, br.contiguous(),
+           W3.T.contiguous(), b3.contiguous(), tf_pre, x_new]
+    return lib, ops, (x.shape[0], Z, zp, len(blocks))
 
 
 __all__ = [
     "pack_weights_bf16", "interval_stage_times", "time_feature_table",
-    "keep", "stage_kernels_fit", "stage_math", "stage_vjp_math", "decode_ids_bf16", "rk4_interval_decode_reference",
-    "rk4_interval_decode_fused",
+    "keep", "stage_kernels_fit", "stage_math",
+    "stage_vjp_math", "decode_ids_bf16", "rk4_interval_decode_reference",
+    "rk4_interval_decode_fused", "rk4_step_reference", "rk4_step_fused",
 ]

@@ -44,6 +44,7 @@ from ananke_abm_tpu_torch.ops.cuda.fused_step import (
     MAX_KERNEL_BLOCKS,
     _dot,
     _nt_dot,
+    _raise_on,
     _rk4_coefs,
     stage_kernels_fit,
     stage_math,
@@ -190,13 +191,6 @@ def _kernel_device(name, x, fits, widths, compiled, num_blocks=None):
                          f"{MAX_KERNEL_BLOCKS} residual blocks, got "
                          f"{num_blocks}")
     return True
-
-
-def _raise_on(lib, err, name):
-    if err != 0:
-        msg = lib.ananke_cuda_error_string(err) or b"unknown"
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
-                           f"({msg.decode()})")
 
 
 def _lib():

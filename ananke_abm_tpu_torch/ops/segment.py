@@ -18,10 +18,10 @@ nothing on the card moves to the composition unasked. ``True`` forces the
 kernels' route (their plain versions on the CPU), ``False`` the
 composition.
 
-Segment ids at or past ``num_segments`` / ``num_nodes`` are dropped, as
-``jax.ops.segment_sum`` drops them. On either route of the edge attention
-a negative id, or a source id outside the node table, raises
-(``edge_segment.kept_edges``).
+Segment ids outside ``[0, num_segments)``, negative ones included, are
+dropped, as ``jax.ops.segment_sum`` drops them. On either route of the edge
+attention a negative id, or a source id outside the node table, raises
+(``edge_segment.kept_edges``) before any sum.
 """
 from __future__ import annotations
 
@@ -35,13 +35,13 @@ SLOPE = 0.2
 
 
 def _bucketed(ids, n):
-    """``ids`` with every id at or past ``n`` sent to the spare row ``n``."""
-    return torch.where(ids < n, ids, n)
+    """``ids`` with every id outside ``[0, n)`` sent to the spare row ``n``."""
+    return torch.where((ids >= 0) & (ids < n), ids, n)
 
 
 def _segment_sum(values, ids, n):
-    """(n,) + values.shape[1:] sums of ``values`` rows by ``ids``; ids at or
-    past ``n`` are dropped."""
+    """(n,) + values.shape[1:] sums of ``values`` rows by ``ids``; ids
+    outside ``[0, n)`` are dropped."""
     out = values.new_zeros((n + 1,) + tuple(values.shape[1:]))
     return out.index_add_(0, _bucketed(ids, n), values)[:n]
 
@@ -165,8 +165,11 @@ def gat_edge_attention_multihead(Wh, e_recv, e_send, edge_src, edge_dst,
 
 
 def person_zone_segment_sum(values, zone_ids, num_zones):
-    """Aggregate per-person values (N, D) into their zones: (num_zones, D).
-    Zone ids at or past ``num_zones`` are dropped."""
+    """Aggregate per-person values (N, D) into their zones: (num_zones, D),
+    float32 sums of the values as given. Zone ids outside ``[0,
+    num_zones)``, negative ones included, are dropped. (The bf16-rounding
+    segment sum of the TPU kernel ``segment_sum_pallas`` is
+    ``edge_segment.segment_sum``.)"""
     return _segment_sum(values, zone_ids.long(), int(num_zones))
 
 

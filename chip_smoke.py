@@ -6,8 +6,12 @@ fixed-step RK4 trainer (kernels K4f, K4b, K2f, K2b, K3f, K3b) and
 discrete-adjoint DOPRI5 trainer (kernels K5, K7) with
 ``train(method="dopri5")``, that trainer at bench rung 3's own settings,
 its whole backward one launch of K6 (K7's bf16 branch on the per-step bf16
-route), and sparse edge-list zone graphs (the CSR edge kernel pair):
-``serve()`` and ``train()`` of the Z=32,768 sparse world.
+route), sparse edge-list zone graphs (the CSR edge kernel pair):
+``serve()`` and ``train()`` of the Z=32,768 sparse world, and the last
+four kernels' paths: the per-step serving rollout (K0), the continuous
+adjoint over the fused pair (K8a forward, K8 backward), the discrete
+adjoint with a bf16 forward (K5's bf16 branch, K6) and the segment sum
+(K9e).
 
 Run from the repository root, on a machine with a CUDA device:
 
@@ -158,6 +162,42 @@ Phases (any failure raises and the script exits non-zero):
     step with the kernels and with their plain versions, and a dense plain
     RK4 step (Z=4,096, no kernel) with remat and without: its wall time
     and peak device memory at ``checkpoint=True`` and ``False``.
+34. serving step kernel: K0 against its plain version at KERNEL_SHAPES and
+    at the rung-1 operands (substep 0 of phase 4's day) within X_MEAN_ATOL
+    / X_MAX_RTOL, repeats that must give the same bits, and the
+    bf16-product control that must fail the same check;
+35. the per-step rollout ``make_pallas_rollout(fuse_decode=False)`` at
+    rung 1 (phase 4's weights and agents): K0 launched 94 times and K1
+    never, its ids against phase 4's K1 rollout (>= IDS_MIN), the first
+    CHECK_AGENTS served again with the plain step (>= SLICE_IDS_MIN),
+    wall time, agents/s beside phase 5's and peak device memory; K0's time;
+36. K8a against its plain version at K8_SHAPES within k8_bounds, repeats
+    that must give the same bits, the bf16-product control; then one loss
+    and gradient of the continuous adjoint over the fused pair
+    (``make_fused_adjoint_rhs``: K8a forward, K8 backward) at rung 3's
+    shape and rtol = atol = 1e-5, K8a launched 2 + 6 x (attempted forward
+    steps) times and K8 as phase 7 counts it, against phase 7's route
+    (``model.rhs`` forward, K8 backward) on the same batch: loss rel <=
+    TRAIN_LOSS_RTOL and gradient cosine > TRAIN_COS_MIN, held at 1e-3
+    where the fused forward's bf16 stage noise takes more than
+    FUSED_PAIR_STEP_RATIO times phase 7's forward steps; K8a's time;
+37. K5's bf16 branch against its plain version at DOPRI5_SHAPES (y1, f1,
+    r5 and the error sum, within checks.DOPRI5_STEP_BF16_BOUNDS), repeats
+    that must give the same bits, K5's float32 kernel on the same operands
+    as the control, and all three against a float64 witness at
+    DOPRI5_WITNESS_SHAPE; then the discrete adjoint with
+    ``make_fused_dopri5_hooks(precision="bf16", bwd_precision="bf16")`` at
+    rung 3's shape and recording (max_accepted 256, ckpt_every 1) at rtol
+    = atol = 1e-3: a finite loss, K5 once per attempted step, K6 once, K7
+    never; against the float32-forward route at the same tolerance
+    (gradient cosine > TRAIN_COS_MIN); K5-bf16's time;
+38. the segment sum K9e against its plain version at
+    checks.SEGMENT_SHAPES (rung 1's 1,048,576 x 32 into 64 zones, rung 2's
+    32,768 x 32 into 500, a random case of 2,048 segments with dropped and
+    negative ids and empty segments) within checks.SEGMENT_BOUNDS, repeats
+    with int32 ids that must give the same bits, the unrounded sum as the
+    control; the two real sizes once each; times of K9e, its plain version
+    and ``index_add_`` on the same bf16-rounded rows.
 
 ``python3 chip_smoke.py --readings`` runs phases 1-2 and then only the
 training kernels' checks of phase 10, at DAY_SHAPES and DEPTH_SHAPES for 3
@@ -170,7 +210,11 @@ and K4b and its plain version each against a float64 run;
 ``--readings dopri5`` those of K5, K7, K6 and K7-bf16 at DOPRI5_SHAPES
 and DOPRI5_READING_SHAPES for 3 seeds, with their controls and the float64
 witness; ``--readings edge`` those of the CSR edge kernels at EDGE_SHAPES
-for 3 seeds with their bf16-feature control.
+for 3 seeds with their bf16-feature control; ``--readings dopri5`` also
+K5-bf16's against K5's float32 kernel and the float64 witness;
+``--readings k0``, ``k8a`` and ``segment`` those of K0 (KERNEL_SHAPES),
+K8a (K8_SHAPES) and K9e (SEGMENT_SHAPES) for 3 seeds with their
+controls.
 ``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` runs phases 1-2 and then
 compares K8 of this checkout with K8 built from each checkout at DIR:
 ptxas and SASS counts of each build, bits at K8_SHAPES and alternating
@@ -183,8 +227,9 @@ larger of the bytes it must move over 3.35 TB/s and its operations over
 the peak of their type: for the bf16 kernels (K6 and K7-bf16 among them)
 their matmul operations over 989 TFLOP/s, the H100's dense bf16 peak; for
 the float32 encoder, DOPRI5 step and CSR edge kernels their operations over
-67 TFLOP/s, its FP32 peak outside the tensor cores), the line before that
-the card's name and power limit.
+67 TFLOP/s, its FP32 peak outside the tensor cores; K0, K8a and K5-bf16
+their stage products at the bf16 peak, K9e its bytes), eighteen entries,
+the line before that the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -299,22 +344,25 @@ def bound(flop, nbytes, peak=PEAK_BF16_FLOPS):
 
 
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms,
-                 plain_ms, flop, nbytes, peak=PEAK_BF16_FLOPS):
+                 plain_ms, flop, nbytes, peak=PEAK_BF16_FLOPS,
+                 library_ms=None):
     """One kernel's entry of the {"kernels": [...]} line. No single PyTorch
-    call computes any of the port's kernels' functions (each is a chain of
-    products, activations and reductions), so library_ms is null."""
+    call computes any of the stage kernels' functions (each is a chain of
+    products, activations and reductions), so their library_ms is null;
+    the segment sum's is ``index_add_``'s."""
     bound_ms, bound_by = bound(flop, nbytes, peak)
     return {"name": name, "route": "cuda",
             "source": f"ananke_abm_tpu_torch/csrc/{source}",
             "replaces": f"ananke_abm_tpu/ops/pallas/{replaces}",
             "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
 def compare(kernel_out, plain_out):
     """x_new's (max abs, mean abs, max abs / max |x|) difference and the
-    ids' agreement."""
+    ids' agreement (None for a step, which decodes nothing: ``(x_new,
+    None)``)."""
     (xk, ik), (xr, ir) = kernel_out, plain_out
     if not torch.isfinite(xk).all():
         fail("x_new is not finite")
@@ -322,29 +370,34 @@ def compare(kernel_out, plain_out):
     err = d.max().item()
     return {"max": err, "mean": d.mean().item(),
             "rel": err / xr.abs().max().item(),
-            "ids": (ik == ir).float().mean().item()}
+            "ids": None if ik is None else (ik == ir).float().mean().item()}
 
 
 def agrees(r):
     return (r["mean"] <= X_MEAN_ATOL and r["rel"] <= X_MAX_RTOL
-            and r["ids"] >= IDS_MIN)
+            and (r["ids"] is None or r["ids"] >= IDS_MIN))
 
 
 def describe(r):
     return (f"x_new max abs diff {r['max']:.3e}, mean {r['mean']:.3e} "
             f"(<= {X_MEAN_ATOL}), max / max|x| {r['rel']:.3e} "
-            f"(<= {X_MAX_RTOL}); ids agree {r['ids']:.6f} (>= {IDS_MIN})")
+            f"(<= {X_MAX_RTOL})" + ("" if r["ids"] is None else
+                                    f"; ids agree {r['ids']:.6f} (>= "
+                                    f"{IDS_MIN})"))
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--readings", nargs="?", const="training",
-                        choices=("training", "encoder", "dopri5", "edge"),
+                        choices=("training", "encoder", "dopri5", "edge",
+                                 "k0", "k8a", "segment"),
                         help="print the training (or the encoder, the "
-                        "DOPRI5 step or the CSR edge) kernels' readings only")
+                        "DOPRI5 step, the CSR edge, K0, K8a or the segment "
+                        "sum) kernels' readings only")
     parser.add_argument("--ab-k8", metavar="DIR", nargs="+",
                         help="time K8 against K8 of the checkouts at DIR")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this runs on a CUDA card")
     if not (ROOT / "ananke_abm_tpu_torch" / "csrc").is_dir():
@@ -412,6 +465,15 @@ def main():
         return
     if args.readings == "edge":
         edge_readings(dev)
+        return
+    if args.readings == "k0":
+        k0_readings(dev)
+        return
+    if args.readings == "k8a":
+        k8a_readings(dev)
+        return
+    if args.readings == "segment":
+        segment_readings(dev)
         return
     if args.ab_k8:
         ab_k8(dev, [Path(d) for d in args.ab_k8])
@@ -566,6 +628,7 @@ def main():
         print(f"rollout {name}: {N_AGENTS} agents x {NUM_TIMES} times, wall "
               f"{best:.4f} s (runs {', '.join(f'{s:.4f}' for s in w)}), "
               f"{N_AGENTS / best:.0f} agents/s [card {card}]", flush=True)
+    k1_rate = N_AGENTS / min(walls["kernel"])
 
     # per agent and interval: read x and h, write x and the id
     k1 = kernel_entry(
@@ -578,9 +641,17 @@ def main():
     k57, discrete_wall = dopri5_phases(dev, card, continuous_wall)
     k67 = backward_all_phases(dev, card, discrete_wall)
     k9 = edge_phases(dev, card)
+    k0 = serving_step_phases(dev, card, served_model, graph, agents, ids,
+                             k1_rate)
+    k8a = fused_pair_phases(dev, card)
+    k5b = bf16_forward_phases(dev, card)
+    k9e = segment_phases(dev, card)
+    print(f"smoke: phases 1-38 in {time.perf_counter() - t_start:.1f} s, "
+          f"the build included", flush=True)
 
     print(card)
-    print(json.dumps({"kernels": [k1, k8, *fixed, *k4, *k57, *k67, *k9]}))
+    print(json.dumps({"kernels": [k1, k8, *fixed, *k4, *k57, *k67, *k9, k0,
+                                  k8a, k5b, k9e]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -1740,7 +1811,8 @@ def dopri5_kernel_checks(dev, n, z, nb, seed, control, enforce=True,
 
 def dopri5_readings(dev):
     """``--readings dopri5``: K5 and K7 against their plain versions, the
-    TF32 control and the float64 witness at every shape of DOPRI5_SHAPES
+    TF32 control and the float64 witness, then K6 and K7-bf16 and K5-bf16
+    with their controls and the witness, at every shape of DOPRI5_SHAPES
     and DOPRI5_READING_SHAPES for seeds 0-2; nothing fails on a bound."""
     for seed in range(3):
         for n, z, nb in DOPRI5_SHAPES + DOPRI5_READING_SHAPES:
@@ -1748,6 +1820,10 @@ def dopri5_readings(dev):
                                  enforce=False, witness=n <= 4_096)
             backward_kernel_checks(dev, n, z, nb, seed, control=True,
                                    enforce=False, witness=n <= 4_096)
+            k5_bf16_checks(dev, n, z, nb, seed, enforce=False,
+                           witness=n <= 4_096)
+        for n, z, nb in K5_BF16_READING_SHAPES:
+            k5_bf16_checks(dev, n, z, nb, seed, enforce=False)
 
 
 def dopri5_flops(config, num_zones):
@@ -2754,6 +2830,620 @@ def edge_phases(dev, card):
             for name, src, n, e, m, p, fl, nb in zip(
                 names, ("edge_segment.py:428", "edge_segment.py:610"),
                 main_counts, errs, ms, plain_ms, flops, nbytes)]
+
+
+# ---- the last four TPU kernels: K0, K8a, K5's bf16 branch, K9e ------------
+
+# the continuous adjoint over the fused pair: held at the config's rtol =
+# atol = 1e-5, or at FUSED_PAIR_LOOSE_TOL where its bf16 forward takes more
+# than FUSED_PAIR_STEP_RATIO times the steps of phase 7's float32 one (it
+# took 186 against 16 at 1e-5: the bf16 stage noise floors the
+# controller). There the kernels' route is held against the same pair on
+# the plain versions at TRAIN_LOSS_RTOL / TRAIN_COS_MIN, and against phase
+# 7's route at FUSED_PAIR_LOSS_RTOL / TRAIN_COS_MIN: its forward rounds the
+# drift's weights and activations to bf16 where phase 7's is float32, a
+# model apart by the bf16 rounding (loss rel read 2.9e-3 at 1e-5 and
+# 3.1e-3 at 1e-3, cosine 0.99992; H100 80GB HBM3, 700 W)
+FUSED_PAIR_STEP_RATIO = 2
+FUSED_PAIR_LOOSE_TOL = 1e-3
+FUSED_PAIR_LOSS_RTOL = 1e-2
+# the discrete adjoint with a bf16 forward: the loose tolerance the
+# reference keeps that branch for (rtol >= ~1e-3)
+K5_BF16_TOL = 1e-3
+# K5-bf16's readings also at the deepest drifts, where its bounds are
+# widest (checks.DOPRI5_STEP_BF16_BOUNDS)
+K5_BF16_READING_SHAPES = ((98_304, 64, 8), (8_192, 64, 7))
+
+
+def step_operands(model, n, z, dev, seed):
+    """The operands of ``rk4_step_fused`` for a model: random states,
+    context and bf16 zones from ``seed``, the step of 0.125 at 6.5."""
+    from ananke_abm_tpu_torch.ops.cuda.fused_step import (
+        interval_stage_times,
+        pack_weights_bf16,
+        time_feature_table,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = pack_weights_bf16(model)
+    x = torch.randn(n, model.agent_dim, device=dev, generator=g)
+    h = torch.randn(n, w[2].shape[0], device=dev, generator=g)
+    ze = torch.randn(z, model.zone_dim, device=dev, generator=g).bfloat16()
+    tf = time_feature_table(torch.from_numpy(
+        interval_stage_times(6.5, 0.125, 1)).to(dev), w[3], w[4])
+    return x, h, ze, w, tf, 0.125
+
+
+def k0_check(label, args, control=True, enforce=True):
+    """K0 against its plain version on ``args`` (run twice: the same
+    bits), the bf16-product control where ``control``. Returns the
+    largest |d|."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_step as fs
+    from ananke_abm_tpu_torch.ops.cuda.checks import bf16_product_dot
+
+    with torch.inference_mode():
+        got = fs.rk4_step_fused(*args)
+        again = fs.rk4_step_fused(*args)
+        torch.cuda.synchronize()
+        if enforce and not torch.equal(got, again):
+            fail(f"K0 {label}: a repeat is not bit-identical")
+        want = fs.rk4_step_reference(*args)
+        r = compare((got, None), (want, None))
+        print(f"K0 {label}: {describe(r)}; repeat bit-identical",
+              flush=True)
+        if enforce and not agrees(r):
+            fail(f"K0 disagrees with its plain version at {label}")
+        if control:
+            plain_dot, fs._dot = fs._dot, bf16_product_dot
+            try:
+                c = compare((fs.rk4_step_reference(*args), None),
+                            (want, None))
+            finally:
+                fs._dot = plain_dot
+            print(f"K0 {label} control (bf16-rounded products): "
+                  f"{describe(c)}", flush=True)
+            if enforce and agrees(c):
+                fail("the K0 check passes the bf16-product control")
+    return r["max"]
+
+
+def k0_readings(dev):
+    """``--readings k0``: K0 against its plain version and the control at
+    KERNEL_SHAPES for seeds 0-2; nothing fails on a bound."""
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        init_params,
+    )
+
+    for seed in range(3):
+        for n, z, nb in KERNEL_SHAPES:
+            model = build_model(GATODEConfig(num_blocks=nb), 7, 8,
+                                device=dev)
+            init_params(model, torch.Generator().manual_seed(nb + 10 * seed))
+            k0_check(f"N={n} Z={z} num_blocks={nb} seed={seed}",
+                     step_operands(model, n, z, dev, n + seed),
+                     enforce=False)
+
+
+def serving_step_phases(dev, card, served_model, graph, agents, served_ids,
+                        k1_rate):
+    """Phases 34-35: K0 against its plain version, and the per-step
+    rollout ``make_pallas_rollout(fuse_decode=False)`` at rung 1 against
+    phase 4's K1 rollout and its own plain body. Returns K0's entry of the
+    {"kernels": [...]} line."""
+    from ananke_abm_tpu_torch.models.gnn_embed.rollout import (
+        _per_step_body,
+        make_pallas_rollout,
+    )
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        init_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import fused_step as fs
+
+    # ---- 34. K0 against its plain version --------------------------------
+    config = GATODEConfig()
+    max_err = 0.0
+    for n, z, nb in KERNEL_SHAPES:
+        model = build_model(dataclasses.replace(config, num_blocks=nb), 7, 8,
+                            device=dev)
+        init_params(model, torch.Generator().manual_seed(nb))
+        max_err = max(max_err, k0_check(
+            f"N={n} Z={z} num_blocks={nb}", step_operands(model, n, z, dev,
+                                                          n),
+            control=(n, z, nb) == KERNEL_SHAPES[0]))
+    # the rung-1 operands: substep 0 of interval 0 of phase 4's day
+    with torch.inference_mode():
+        zone_emb = served_model.encode_zones(*graph[:2])
+        x0, h = served_model.initial_state(*agents, zone_emb)
+        weights = fs.pack_weights_bf16(served_model)
+        t = graph[2].cpu().numpy().astype(np.float32)
+        dt = float((t[1] - t[0]) / np.float32(config.substeps))
+        tf = fs.time_feature_table(torch.from_numpy(
+            fs.interval_stage_times(t[0], dt, 1)).to(dev), weights[3],
+            weights[4])
+        main = (x0, h, zone_emb.bfloat16(), weights, tf, dt)
+    max_err = max(max_err, k0_check(
+        f"at the main path's operands (N={N_AGENTS}, Z={NUM_ZONES}, "
+        f"substep 0)", main))
+
+    # ---- 35. the per-step rollout at rung 1 ------------------------------
+    rollout = make_pallas_rollout(served_model, *graph,
+                                  substeps=config.substeps)
+    fs.rk4_step_fused.launches = 0
+    fs.rk4_interval_decode_fused.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ids = rollout(*agents)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fs.rk4_step_fused.launches
+    k1_launches = fs.rk4_interval_decode_fused.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = (NUM_TIMES - 1) * config.substeps
+    t0 = time.perf_counter()
+    rollout(*agents)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    print(f"per-step rollout: {N_AGENTS} agents x {NUM_TIMES} times x "
+          f"{NUM_ZONES} zones, K0 launches {launches} (expected {want}), K1 "
+          f"launches {k1_launches} (expected 0); wall {wall:.4f} s, again "
+          f"{wall2:.4f} s, {N_AGENTS / min(wall, wall2):.0f} agents/s "
+          f"against phase 5's K1 rollout {k1_rate:.0f} agents/s; peak "
+          f"device memory {peak:.2f} GB [card {card}]", flush=True)
+    if launches != want or k1_launches != 0:
+        fail(f"the per-step rollout launched K0 {launches} and K1 "
+             f"{k1_launches} times, expected {want} and 0")
+    if ids.shape != (N_AGENTS, NUM_TIMES) or ids.dtype != torch.int32:
+        fail(f"per-step ids {tuple(ids.shape)} {ids.dtype}")
+    got = ids.cpu().numpy()
+    agree = float(np.mean(got == served_ids))
+    print(f"per-step rollout ids vs phase 4's K1 rollout (the same weights "
+          f"and agents): agree {agree:.6f} (>= {IDS_MIN})", flush=True)
+    if agree < IDS_MIN:
+        fail("the per-step rollout disagrees with the interval rollout")
+    with torch.inference_mode():
+        ref = _per_step_body(served_model, config.substeps,
+                             fs.rk4_step_reference)(
+            *graph, *(a[:CHECK_AGENTS] for a in agents))
+    agree = float(np.mean(ref.cpu().numpy() == got[:CHECK_AGENTS]))
+    print(f"per-step rollout ids[:{CHECK_AGENTS}] vs its body on the plain "
+          f"step: agree {agree:.6f} (>= {SLICE_IDS_MIN})", flush=True)
+    if agree < SLICE_IDS_MIN:
+        fail("the per-step rollout disagrees with its plain-step body")
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: fs.rk4_step_fused(*main), 20)
+        plain_ms = cuda_ms(lambda: fs.rk4_step_reference(*main), 3)
+    fwd, _ = stage_flops(config.agent_dim, config.zone_dim,
+                         config.context_dim, config.hidden_dim, NUM_ZONES,
+                         config.num_blocks)
+    hrow = 2 * config.context_dim * config.hidden_dim
+    flop = (4 * (fwd - hrow) + hrow) * N_AGENTS
+    nbytes = N_AGENTS * 4 * (2 * config.agent_dim + config.context_dim)
+    print(f"K0 at N={N_AGENTS}: kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} "
+          f"TFLOP/s), plain version {plain_ms:.3f} ms [card {card}]",
+          flush=True)
+    # per agent: read x and h, write x
+    return kernel_entry("rk4_step_fused", "fused_step.cu",
+                        "fused_step.py:291", launches, max_err, ms, plain_ms,
+                        flop, nbytes)
+
+
+def k8a_checks(dev, n, z, nb, seed, control, enforce=True):
+    """K8a against its plain version at one shape (run twice: the same
+    bits), the bf16-product control where ``control``. Returns (the
+    largest |d|, the operands)."""
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        init_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        bf16_control,
+        k8_bounds,
+        k8_operands,
+    )
+    from ananke_abm_tpu_torch.ops.cuda.fused_rhs import (
+        drift_rhs_fused,
+        drift_rhs_reference,
+    )
+
+    model = build_model(GATODEConfig(method="dopri5", num_blocks=nb), 7, 8,
+                        device=dev)
+    init_params(model, torch.Generator().manual_seed(nb + 10 * seed))
+    args = k8_operands(model, n, z, dev, seed=n + seed)[:-1]
+    tag = f"N={n} Z={z} num_blocks={nb} seed={seed}"
+    with torch.inference_mode():
+        got = drift_rhs_fused(*args)
+        again = drift_rhs_fused(*args)
+        torch.cuda.synchronize()
+        if enforce and not torch.equal(got, again):
+            fail(f"K8a repeat at {tag} is not bit-identical")
+        want = drift_rhs_reference(*args)
+        ctl = ([("f", bf16_control(drift_rhs_reference, *args))]
+               if control else None)
+        err = check(f"K8a {tag} (repeat bit-identical)", [("f", got)],
+                    [("f", want)], k8_bounds(nb), ctl, enforce)
+    return err, args
+
+
+def k8a_readings(dev):
+    """``--readings k8a``: K8a against its plain version and the control
+    at K8_SHAPES for seeds 0-2; nothing fails on a bound."""
+    for seed in range(3):
+        for n, z, nb in K8_SHAPES:
+            k8a_checks(dev, n, z, nb, seed, control=True, enforce=False)
+
+
+def fused_pair_phases(dev, card):
+    """Phase 36: K8a against its plain version, then the continuous
+    adjoint over the fused pair (K8a forward, K8 backward) at rung 3's
+    shape against phase 7's route (``model.rhs`` forward, K8 backward).
+    Returns K8a's entry of the {"kernels": [...]} line."""
+    from ananke_abm_tpu_torch.data_generator import generate_agent_population
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        _adjoint_loss_fn,
+        build_model,
+        init_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda.fused_rhs import (
+        drift_rhs_and_vjp,
+        drift_rhs_and_vjp_reference,
+        drift_rhs_fused,
+        drift_rhs_reference,
+        make_fused_adjoint_rhs,
+    )
+
+    # ---- 36. K8a against its plain version -------------------------------
+    max_err, main_args = 0.0, None
+    for n, z, nb in K8_SHAPES:
+        err, args = k8a_checks(dev, n, z, nb, seed=0,
+                               control=(n, z, nb) == K8_SHAPES[0])
+        max_err = max(max_err, err)
+        main_args = main_args or args
+
+    # ---- 36. the continuous adjoint over the fused pair at rung 3 --------
+    config = GATODEConfig(method="dopri5")
+    data = generate_agent_population(ADAPT_N, num_times=ADAPT_TIMES,
+                                     seed=ADAPT_SEED, num_zones=ADAPT_ZONES)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)
+    static = (on(data["zone_features"]), on(data["adj"]), on(data["times"]))
+    batch = (on(data["person_feats"]), on(data["home_zone"], torch.long),
+             on(data["zone_ids"], torch.long))
+    model = build_model(config, data["zone_features"].shape[-1],
+                        data["person_feats"].shape[-1], device=dev)
+    init_params(model, torch.Generator().manual_seed(ADAPT_SEED))
+    pairs = {"fused pair": make_fused_adjoint_rhs(model),
+             "phase 7's route": (None, make_fused_adjoint_rhs(model)[1]),
+             "the fused pair on the plain versions": make_fused_adjoint_rhs(
+                 model, drift_rhs_and_vjp_reference, drift_rhs_reference)}
+    launches = None
+    tols = [config.rtol]
+    for tol in tols:
+        cfg = dataclasses.replace(config, rtol=tol, atol=tol)
+        runs = {}
+        for name, (fwd, vjp) in pairs.items():
+            if "plain" in name:
+                # held here, or at FUSED_PAIR_LOOSE_TOL where the bf16
+                # forward's steps outnumber phase 7's route's
+                held = (tol != config.rtol
+                        or runs["fused pair"][2]["n_steps"]
+                        <= FUSED_PAIR_STEP_RATIO
+                        * runs["phase 7's route"][2]["n_steps"])
+                if not held:
+                    tols.append(FUSED_PAIR_LOOSE_TOL)
+                    break
+            stats = {}
+            fn = _adjoint_loss_fn(model, cfg, vjp, stats, rhs=fwd)
+            drift_rhs_fused.launches = drift_rhs_and_vjp.launches = 0
+            model.zero_grad()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = fn(*batch, static)
+            loss.backward()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = (drift_rhs_fused.launches, drift_rhs_and_vjp.launches)
+            fwd_st, bwd_st = stats["forward"], stats["backward"]
+            want = ((2 + 6 * fwd_st["n_steps"]) if name == "fused pair"
+                    else 0,
+                    0 if "plain" in name else sum(2 + 6 * s["n_steps"]
+                                                  for s in bwd_st))
+            runs[name] = (loss.item(), grads_of(model), fwd_st)
+            print(f"{name} at rung 3, rtol = atol = {tol:g}: loss "
+                  f"{loss.item():.7f}, forward {fwd_st['n_steps']} steps "
+                  f"({fwd_st['n_accepted']} accepted), backward "
+                  f"{sum(s['n_steps'] for s in bwd_st)} steps; launches K8a "
+                  f"{counts[0]}, K8 {counts[1]} (expected {want[0]}, "
+                  f"{want[1]}); loss and gradient wall {wall:.3f} s (host "
+                  f"clock, synced) [card {card}]", flush=True)
+            if counts != want:
+                fail(f"{name} launched K8a / K8 {counts} times, "
+                     f"expected {want}")
+            if not (np.isfinite(loss.item()) and fwd_st["ok"]
+                    and all(s["ok"] for s in bwd_st)):
+                fail(f"{name} at rtol {tol:g}: a solve failed")
+            if launches is None and name == "fused pair":
+                launches = counts[0]
+        lf, gf, sf = runs["fused pair"]
+        for name, rtol in (("the fused pair on the plain versions",
+                            TRAIN_LOSS_RTOL),
+                           ("phase 7's route", FUSED_PAIR_LOSS_RTOL)):
+            if name not in runs:
+                continue
+            lp, gp, sp = runs[name]
+            cos = (torch.dot(gf.double(), gp.double())
+                   / (gf.double().norm() * gp.double().norm())).item()
+            rel = abs(lf - lp) / abs(lp)
+            print(f"fused pair against {name} at rtol {tol:g}: loss rel "
+                  f"{rel:.3e} (<= {rtol}), gradient cosine {cos:.9f} (> "
+                  f"{TRAIN_COS_MIN}); attempted forward steps "
+                  f"{sf['n_steps']} against {sp['n_steps']}"
+                  + ("" if held else f" (> {FUSED_PAIR_STEP_RATIO} x: held "
+                     f"at rtol {FUSED_PAIR_LOOSE_TOL:g} below)"), flush=True)
+            if held and not (rel <= rtol and cos > TRAIN_COS_MIN):
+                fail(f"the fused pair's loss or gradient disagrees with "
+                     f"{name}")
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: drift_rhs_fused(*main_args), 20)
+        plain_ms = cuda_ms(lambda: drift_rhs_reference(*main_args), 5)
+    fwd, _ = stage_flops(config.agent_dim, config.zone_dim,
+                         config.context_dim, config.hidden_dim, ADAPT_ZONES,
+                         config.num_blocks)
+    flop = fwd * ADAPT_N
+    print(f"K8a at N={ADAPT_N} Z={ADAPT_ZONES}: kernel {ms:.3f} ms "
+          f"({flop / ms / 1e9:.1f} TFLOP/s), plain version {plain_ms:.3f} ms "
+          f"[card {card}]", flush=True)
+    # per agent: read x and h, write f
+    nbytes = ADAPT_N * 4 * (2 * config.agent_dim + config.context_dim)
+    return kernel_entry("drift_rhs_fused", "fused_rhs.cu", "fused_rhs.py:119",
+                        launches, max_err, ms, plain_ms, flop, nbytes)
+
+
+def k5_bf16_checks(dev, n, z, nb, seed, enforce=True, witness=False):
+    """K5's bf16 branch against its plain version at one shape (y1, f1, r5
+    and the error sum; run twice: the same bits), K5's float32 kernel on
+    the same operands as the control (it rounds no stage); with
+    ``witness`` kernel, plain version and control against a float64 run.
+    Returns (the largest |d| of y1, f1 and r5, the operands)."""
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        init_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        DOPRI5_STEP_BF16_BOUNDS,
+        day_bounds,
+        dopri5_operands,
+        float64_witness,
+    )
+
+    model = build_model(GATODEConfig(num_blocks=nb), 7, 8, device=dev)
+    init_params(model, torch.Generator().manual_seed(nb + 10 * seed))
+    args, _ = dopri5_operands(model, n, z, dev, seed=n + seed)
+    tag = f"N={n} Z={z} num_blocks={nb} seed={seed}"
+    bounds = day_bounds(DOPRI5_STEP_BF16_BOUNDS, nb)
+    stats = (K5_BF16_TOL, K5_BF16_TOL)
+
+    def outs(fn, precision="bf16", on=args):
+        y1, f1, sq, r5 = fn(*on, precision=precision, err_stats=stats)
+        return [("y1", y1), ("f1", f1), ("r5", r5), ("err_sum", sq)]
+
+    with torch.no_grad():
+        got = outs(fd.dopri5_step_fused)
+        again = outs(fd.dopri5_step_fused)
+        torch.cuda.synchronize()
+        if enforce and not same_bits(got, again):
+            fail(f"K5-bf16 repeat at {tag} is not bit-identical")
+        want = outs(fd.dopri5_step_reference)
+        ctl = outs(fd.dopri5_step_fused, "f32")
+        check(f"K5-bf16 {tag} err_stats={stats} (repeat bit-identical)", got,
+              want, bounds, ctl, enforce, "K5's float32 kernel")
+        err = worst_of(got[:3], want[:3])[1]
+        if witness:
+            exact = outs(lambda *a, **kw: float64_witness(
+                lambda *b: fd.dopri5_step_reference(*b, **kw), *a))
+            far = {side: worst_of(o, exact)[0] for side, o in (
+                ("kernel", got), ("plain", want), ("control", ctl))}
+            print(f"K5-bf16 {tag} against the float64 witness: "
+                  + "; ".join(f"{side} {describe_far(w)}"
+                              for side, w in far.items()), flush=True)
+            if enforce and not within(far["kernel"], bounds):
+                fail(f"K5-bf16 lies outside {bounds} of the float64 witness")
+            if enforce and within(far["control"], bounds):
+                fail("K5-bf16's witness check passes its control")
+    return err, args
+
+
+def bf16_forward_phases(dev, card):
+    """Phase 37: K5's bf16 branch against its plain version, then the
+    discrete adjoint with a bf16 forward at rung 3's shape and its
+    recording (max_accepted 256, ckpt_every 1, the bf16 backward K6) at
+    rtol = atol = 1e-3, against the float32-forward route at the same
+    tolerance. Returns K5-bf16's entry of the {"kernels": [...]} line."""
+    from ananke_abm_tpu_torch.data_generator import generate_agent_population
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        _adjoint_loss_fn,
+        build_model,
+        init_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+    from ananke_abm_tpu_torch.ops.cuda.checks import dopri5_operands
+
+    # ---- 37. K5-bf16 against its plain version ---------------------------
+    max_err = 0.0
+    for n, z, nb in DOPRI5_SHAPES:
+        err, _ = k5_bf16_checks(dev, n, z, nb, seed=0,
+                                witness=(n, z, nb) == DOPRI5_WITNESS_SHAPE)
+        max_err = max(max_err, err)
+    if DOPRI5_WITNESS_SHAPE not in DOPRI5_SHAPES:
+        k5_bf16_checks(dev, *DOPRI5_WITNESS_SHAPE, seed=0, witness=True)
+
+    # ---- 37. the discrete adjoint with a bf16 forward at rung 3 ----------
+    config = GATODEConfig(method="dopri5", rtol=K5_BF16_TOL,
+                          atol=K5_BF16_TOL)
+    data = generate_agent_population(ADAPT_N, num_times=ADAPT_TIMES,
+                                     seed=ADAPT_SEED, num_zones=ADAPT_ZONES)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)
+    static = (on(data["zone_features"]), on(data["adj"]), on(data["times"]))
+    batch = (on(data["person_feats"]), on(data["home_zone"], torch.long),
+             on(data["zone_ids"], torch.long))
+    model = build_model(config, data["zone_features"].shape[-1],
+                        data["person_feats"].shape[-1], device=dev)
+    init_params(model, torch.Generator().manual_seed(ADAPT_SEED))
+    runs, launches = {}, None
+    for precision in ("bf16", "f32"):
+        stats = {}
+        step_impl, step_vjp = fd.make_fused_dopri5_hooks(
+            model, precision=precision, bwd_precision="bf16",
+            err_stats=(config.rtol, config.atol))
+        fn = _adjoint_loss_fn(model, config, None, stats, dict(
+            max_accepted=256, ckpt_every=1, store_f="bf16",
+            ckpt_dtype="bf16", step_impl=step_impl, step_vjp=step_vjp))
+        for k in fd.KERNELS:
+            k.launches = 0
+        model.zero_grad()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = fn(*batch, static)
+        loss.backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [k.launches for k in fd.KERNELS]
+        fwd = stats["forward"]
+        runs[precision] = (loss.item(), grads_of(model), fwd)
+        print(f"discrete adjoint with a {precision} forward at rung 3, rtol "
+              f"= atol = {K5_BF16_TOL:g} (max_accepted 256, ckpt_every 1, "
+              f"bf16 backward): loss {loss.item():.7f}, forward "
+              f"{fwd['n_steps']} steps ({fwd['n_accepted']} accepted); "
+              f"launches K5/K7/K6 {counts} (expected [{fwd['n_steps']}, 0, "
+              f"1]); loss and gradient wall {wall:.3f} s (host clock, "
+              f"synced) [card {card}]", flush=True)
+        if counts != [fwd["n_steps"], 0, 1]:
+            fail(f"the {precision}-forward route launched K5/K7/K6 {counts}")
+        if not (np.isfinite(loss.item()) and fwd["ok"]):
+            fail(f"the {precision}-forward route: the solve failed")
+        if launches is None:
+            launches = counts[0]
+    (lb, gb, sb), (lf, gf, sf) = runs["bf16"], runs["f32"]
+    cos = (torch.dot(gb.double(), gf.double())
+           / (gb.double().norm() * gf.double().norm())).item()
+    print(f"bf16 forward against the float32 forward at rtol "
+          f"{K5_BF16_TOL:g}: loss {lb:.7f} vs {lf:.7f} (rel "
+          f"{abs(lb - lf) / abs(lf):.3e}), gradient cosine {cos:.9f} (> "
+          f"{TRAIN_COS_MIN}); accepted forward steps {sb['n_accepted']} "
+          f"against {sf['n_accepted']}", flush=True)
+    if not cos > TRAIN_COS_MIN:
+        fail("the bf16-forward gradient disagrees with the float32 forward")
+    with torch.no_grad():
+        args, _ = dopri5_operands(model, ADAPT_N, ADAPT_ZONES, dev, seed=1)
+        kw = dict(precision="bf16", err_stats=(K5_BF16_TOL, K5_BF16_TOL))
+        packed = fd.pack_operands(args[3], *args[5:11], precision="bf16")
+        ms = cuda_ms(lambda: fd.dopri5_step_fused(*args, packed=packed, **kw),
+                     20)
+        plain_ms = cuda_ms(lambda: fd.dopri5_step_reference(*args, **kw), 3)
+    flop = dopri5_flops(config, ADAPT_ZONES)[0] * ADAPT_N
+    da, dc = config.agent_dim, config.context_dim
+    # per agent: read x, f0 and h, write y1, f1 and r5 (the error sum is
+    # one float)
+    nbytes = ADAPT_N * 4 * (5 * da + dc)
+    print(f"K5-bf16 at N={ADAPT_N} Z={ADAPT_ZONES}: kernel {ms:.3f} ms "
+          f"({flop / ms / 1e9:.1f} TFLOP/s), plain version {plain_ms:.3f} ms "
+          f"[card {card}]", flush=True)
+    return kernel_entry("dopri5_step_fused_bf16", "fused_dopri5.cu",
+                        "fused_dopri5.py:104", launches, max_err, ms,
+                        plain_ms, flop, nbytes)
+
+
+def segment_checks(dev, kind, e, d, z, seed, enforce=True):
+    """K9e against its plain version on one case (int64 ids, and int32 ids
+    for the same bits), the unrounded sum as the control. Returns the
+    largest |d|."""
+    from ananke_abm_tpu_torch.ops.cuda import edge_segment as es
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        SEGMENT_BOUNDS,
+        segment_operands,
+    )
+
+    vals, ids, z = segment_operands(kind, e, d, z, dev, seed)
+    tag = f"{kind} E={e} D={d} Z={z} seed={seed}"
+    got = es.segment_sum(vals, ids, z)
+    again = es.segment_sum(vals, ids.int(), z)
+    torch.cuda.synchronize()
+    if enforce and not torch.equal(got, again):
+        fail(f"K9e repeat at {tag} (int32 ids) is not bit-identical")
+    want = es.segment_sum_reference(vals, ids, z)
+    kept = (ids >= 0) & (ids < z)
+    ctl = torch.zeros_like(want).index_add_(0, ids[kept], vals[kept])
+    empty = torch.ones(z, dtype=torch.bool, device=dev)
+    empty[ids[kept]] = False
+    if enforce and not (got[empty] == 0).all():
+        fail(f"K9e at {tag}: an empty segment is not 0")
+    return check(f"K9e {tag} ({int(empty.sum())} empty segments, "
+                 f"{int((~kept).sum())} ids dropped; repeat bit-identical)",
+                 [("out", got)], [("out", want)], SEGMENT_BOUNDS,
+                 [("out", ctl)], enforce, "unrounded values")
+
+
+def segment_readings(dev):
+    """``--readings segment``: K9e against its plain version and the
+    control at SEGMENT_SHAPES for seeds 0-2; nothing fails on a bound."""
+    from ananke_abm_tpu_torch.ops.cuda.checks import SEGMENT_SHAPES
+
+    for seed in range(3):
+        for shape in SEGMENT_SHAPES:
+            segment_checks(dev, *shape, seed=seed, enforce=False)
+
+
+def segment_phases(dev, card):
+    """Phase 38: K9e against its plain version at SEGMENT_SHAPES, then the
+    segment sum at rung 1's and rung 2's sizes, and times. Returns K9e's
+    entry of the {"kernels": [...]} line."""
+    from ananke_abm_tpu_torch.ops.cuda import edge_segment as es
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        SEGMENT_SHAPES,
+        segment_operands,
+    )
+
+    max_err = max(segment_checks(dev, *shape, seed=0)
+                  for shape in SEGMENT_SHAPES)
+    sizes = [segment_operands(*shape, dev, seed=1)
+             for shape in SEGMENT_SHAPES[:2]]
+    es.segment_sum.launches = 0
+    outs = [es.segment_sum(v, i, z) for v, i, z in sizes]
+    torch.cuda.synchronize()
+    launches = es.segment_sum.launches
+    for (v, i, z), out in zip(sizes, outs):
+        if not torch.isfinite(out).all() or out.shape != (z, v.shape[1]):
+            fail("the segment sum is not finite or misshapen")
+    if launches != len(sizes):
+        fail(f"the segment sums launched K9e {launches} times")
+    v, i, z = sizes[0]
+    e, d = v.shape
+    i32 = i.int()
+    kept = (i >= 0) & (i < z)
+    kept_ids, kept16 = i[kept], v[kept].bfloat16().float()
+    out = torch.zeros(z, d, device=dev)
+    ms = graph_ms(lambda: es.segment_sum(v, i32, z), 50)
+    plain_ms = cuda_ms(lambda: es.segment_sum_reference(v, i, z), 10)
+    library_ms = graph_ms(lambda: out.index_add_(0, kept_ids, kept16), 50)
+    nbytes = e * d * 4 + e * 4 + z * d * 4
+    print(f"K9e at rung 1 (E={e}, D={d}, Z={z}, int32 ids): kernel "
+          f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, device time of a "
+          f"CUDA-graph replay), plain version {plain_ms:.4f} ms, index_add_ "
+          f"on the same bf16-rounded kept rows {library_ms:.4f} ms [card "
+          f"{card}]", flush=True)
+    return kernel_entry("segment_sum", "edge_segment.cu",
+                        "edge_segment.py:844", launches, max_err, ms,
+                        plain_ms, e * d, nbytes, PEAK_FP32_FLOPS,
+                        library_ms)
+
 
 if __name__ == "__main__":
     main()

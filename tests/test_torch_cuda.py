@@ -1,9 +1,11 @@
 """The CUDA kernels against their plain versions, on the card: the
-serving interval (K1), the adjoint RHS (K8) with the trainer around it, the
-training-day kernels (K2f, K2b, K3f, K3b) and the zone-encoder kernels
-(K4f, K4b) with the fixed-step trainer and ``train()``, the DOPRI5
-kernels (K5, K7 at float32 and bf16, K6) with the discrete-adjoint
-trainer, and the CSR edge kernels with ``train(sparse_world=True)``.
+serving interval (K1) and step (K0) with the per-step rollout, the adjoint
+RHS (K8) and the drift alone (K8a) with the trainer and the fused pair
+around them, the training-day kernels (K2f, K2b, K3f, K3b) and the
+zone-encoder kernels (K4f, K4b) with the fixed-step trainer and
+``train()``, the DOPRI5 kernels (K5 and K7 at float32 and bf16, K6) with
+the discrete-adjoint trainer and a bf16 forward, the CSR edge kernels with
+``train(sparse_world=True)``, and the segment sum (K9e).
 
 Marked ``cuda``: every test here skips on a host without a CUDA device.
 On a card without JAX installed, run them with
@@ -65,6 +67,7 @@ from ananke_abm_tpu_torch.ops.cuda.fused_rhs import (
     drift_rhs_and_vjp,
     drift_rhs_and_vjp_reference,
     drift_rhs_fused,
+    drift_rhs_reference,
     make_fused_adjoint_rhs,
 )
 from ananke_abm_tpu_torch.ops.cuda.fused_step import (
@@ -72,6 +75,8 @@ from ananke_abm_tpu_torch.ops.cuda.fused_step import (
     pack_weights_bf16,
     rk4_interval_decode_fused,
     rk4_interval_decode_reference,
+    rk4_step_fused,
+    rk4_step_reference,
     time_feature_table,
 )
 
@@ -286,10 +291,85 @@ def test_auto_adjoint_raises_where_the_kernel_cannot_serve(cuda, change,
         loss.backward()
 
 
-def test_drift_rhs_fused_has_no_cuda_kernel_yet(cuda):
-    args = k8_operands(_model(cuda, 1), 16, 8, cuda, seed=0)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        drift_rhs_fused(*args[:-1])
+@pytest.mark.parametrize("n,num_zones,num_blocks", [
+    (4_096, 64, 2), (17, 5, 1), (200, 64, 8),
+])
+def test_drift_rhs_fused_matches_plain_version(cuda, n, num_zones,
+                                               num_blocks):
+    """K8a: f within k8_bounds' bounds, the same bits on a repeat."""
+    args = k8_operands(_model(cuda, num_blocks), n, num_zones, cuda,
+                       seed=n)[:-1]
+    with torch.inference_mode():
+        before = drift_rhs_fused.launches
+        got = drift_rhs_fused(*args)
+        again = drift_rhs_fused(*args)
+        torch.cuda.synchronize()
+        assert drift_rhs_fused.launches == before + 2
+        want = drift_rhs_reference(*args)
+    assert torch.equal(got, again)
+    _assert_close([got], [want], k8_bounds(num_blocks))
+
+
+def test_drift_rhs_fused_rejects_what_it_is_not_compiled_for(cuda):
+    args = list(k8_operands(_model(cuda, 1), 16, 8, cuda, seed=0)[:-1])
+    before = drift_rhs_fused.launches
+    bad = list(args)
+    bad[1] = args[1].cpu()
+    with pytest.raises(ValueError, match="h is on cpu"):
+        drift_rhs_fused(*bad)
+    bad = list(args)
+    bad[2] = args[2].bfloat16()
+    with pytest.raises(TypeError, match="ze"):
+        drift_rhs_fused(*bad)
+    model = build_model(GATODEConfig(hidden_dim=64), 7, 8, device=cuda)
+    init_params(model, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="compiled for"):
+        drift_rhs_fused(*k8_operands(model, 16, 8, cuda, seed=0)[:-1])
+    assert drift_rhs_fused.launches == before
+
+
+def test_continuous_adjoint_over_the_fused_pair_runs_both_kernels(cuda):
+    """``odeint_adjoint`` with both halves of ``make_fused_adjoint_rhs`` at
+    rtol = atol = 1e-3: K8a once per forward evaluation (2 + 6 x attempted
+    steps), K8 as the trainer launches it; the loss and gradient of the
+    same pair on the plain versions (loss rel 2e-3, cosine > 0.999), and of
+    the trainer's route (``model.rhs`` forward in float32, K8 backward):
+    its forward rounds to bf16 where that one does not, a model apart by
+    the bf16 rounding (chip_smoke.py's FUSED_PAIR_LOSS_RTOL, cosine >
+    0.999)."""
+    config = GATODEConfig(method="dopri5", rtol=1e-3, atol=1e-3)
+    d = generate_agent_population(1_024, num_times=5, num_zones=64, seed=0)
+    model = _model(cuda, config.num_blocks)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(cuda)
+    static = (on(d["zone_features"]), on(d["adj"]), on(d["times"]))
+    batch = (on(d["person_feats"]), on(d["home_zone"], torch.long),
+             on(d["zone_ids"], torch.long))
+    stats = {}
+    loss_fn = _adjoint_loss_fn(model, config,
+                               make_fused_adjoint_rhs(model)[1], stats,
+                               rhs=make_fused_adjoint_rhs(model)[0])
+    before = (drift_rhs_fused.launches, drift_rhs_and_vjp.launches)
+    loss, _ = loss_fn(*batch, static)
+    loss.backward()
+    grads = torch.cat([p.grad.flatten() for p in model.parameters()])
+    assert drift_rhs_fused.launches - before[0] == \
+        2 + 6 * stats["forward"]["n_steps"]
+    assert drift_rhs_and_vjp.launches - before[1] == sum(
+        2 + 6 * s["n_steps"] for s in stats["backward"])
+    plain_rhs, plain_vjp = make_fused_adjoint_rhs(
+        model, drift_rhs_and_vjp_reference, drift_rhs_reference)
+    for (fwd, vjp), rtol in (((plain_rhs, plain_vjp), 2e-3),
+                             ((None, make_fused_adjoint_rhs(model)[1]),
+                              1e-2)):
+        model.zero_grad()
+        loss_r, _ = _adjoint_loss_fn(model, config, vjp, rhs=fwd)(*batch,
+                                                                   static)
+        loss_r.backward()
+        grads_r = torch.cat([p.grad.flatten() for p in model.parameters()])
+        assert abs(loss.item() - loss_r.item()) <= rtol * abs(loss_r.item())
+        cos = torch.dot(grads.double(), grads_r.double()) / (
+            grads.double().norm() * grads_r.double().norm())
+        assert cos > 0.999
 
 
 def _day_args(cuda, n, num_zones, num_blocks, num_times):
@@ -593,26 +673,36 @@ def test_dopri5_kernels_against_a_float64_witness(cuda):
 
 
 def test_dopri5_kernels_reject_what_they_are_not_compiled_for(cuda):
-    """A bf16 backward launches (K7 and K6 take bf16); K5's bf16 branch and
-    widths the kernels are not compiled for raise before anything
-    launches; the hooks refuse a bf16 forward when they are built."""
+    """A bf16 backward and a bf16 forward launch (K7, K6 and K5 take bf16),
+    and the hooks build at a bf16 forward; widths the kernels are not
+    compiled for, operands on another device and of another type raise
+    before anything launches."""
     from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
 
     args, cot = _dopri5_args(cuda, 64, 8, 1)
     before = fd.dopri5_step_vjp_fused.launches
     fd.dopri5_step_vjp_fused(*args, *cot, precision="bf16")
     assert fd.dopri5_step_vjp_fused.launches == before + 1
-    before = [k.launches for k in fd.KERNELS]
-    with pytest.raises(NotImplementedError, match="K5's bf16 branch"):
-        fd.dopri5_step_fused(*args, precision="bf16")
+    before = fd.dopri5_step_fused.launches
+    fd.dopri5_step_fused(*args, precision="bf16")
+    assert fd.dopri5_step_fused.launches == before + 1
     model = _model(cuda, 2)
     static = (torch.zeros(8, 7, device=cuda), torch.eye(8, device=cuda),
               torch.linspace(0.0, 1.0, 4, device=cuda))
-    with pytest.raises(NotImplementedError, match="K5's bf16 branch"):
-        fd.make_fused_dopri5_hooks(model, precision="bf16")
+    step_impl, step_vjp = fd.make_fused_dopri5_hooks(model, precision="bf16")
+    assert callable(step_impl) and callable(step_vjp.backward_all)
     assert callable(build_adjoint_loss_fn_g(
         model, GATODEConfig(method="dopri5"), static,
         adjoint_mode="discrete", bwd_precision="bf16"))
+    before = [k.launches for k in fd.KERNELS]
+    bad = list(args)
+    bad[2] = args[2].cpu()
+    with pytest.raises(ValueError, match="h is on cpu"):
+        fd.dopri5_step_fused(*bad, precision="bf16")
+    bad = list(args)
+    bad[1] = args[1].bfloat16()
+    with pytest.raises(TypeError, match="f0"):
+        fd.dopri5_step_fused(*bad, precision="bf16")
     model = build_model(GATODEConfig(hidden_dim=64), 7, 8, device=cuda)
     init_params(model, torch.Generator().manual_seed(0))
     from ananke_abm_tpu_torch.ops.cuda.checks import (
@@ -621,9 +711,9 @@ def test_dopri5_kernels_reject_what_they_are_not_compiled_for(cuda):
     )
 
     args, cot = dopri5_operands(model, 64, 8, cuda, seed=0)
-    with pytest.raises(ValueError, match="compiled for"):
-        fd.dopri5_step_fused(*args)
     for precision in ("f32", "bf16"):
+        with pytest.raises(ValueError, match="compiled for"):
+            fd.dopri5_step_fused(*args, precision=precision)
         with pytest.raises(ValueError, match="compiled for"):
             fd.dopri5_step_vjp_fused(*args, *cot, precision=precision)
         with pytest.raises(ValueError, match="compiled for"):
@@ -873,3 +963,204 @@ def test_sparse_train_runs_through_the_csr_kernels(cuda, tmp_path):
     assert load_checkpoint(res["ckpt"])["sparse_world"] is True
     assert [k.launches - b for k, b in zip(kernels, before)] == (
         [0] * 6 + [config.gat_layers * steps] * 2)
+
+
+# ---- K0: the serving step, and the per-step rollout -------------------------
+
+def _step_operands(cuda, n, num_zones, num_blocks, seed=0):
+    x, h, ze, w, _, tf, _ = _operands(_model(cuda, num_blocks), cuda, n,
+                                      num_zones, seed)
+    return x, h, ze, w, tf[:4].contiguous(), 0.125
+
+
+@pytest.mark.parametrize("n,num_zones,num_blocks", [
+    (65_536, 64, 2), (1_000, 500, 1), (17, 5, 3),
+])
+def test_step_kernel_matches_plain_version(cuda, n, num_zones, num_blocks):
+    """K0 within the interval kernel's bounds of its plain version, the
+    same bits on a repeat."""
+    ops = _step_operands(cuda, n, num_zones, num_blocks)
+    with torch.inference_mode():
+        before = rk4_step_fused.launches
+        xk = rk4_step_fused(*ops)
+        again = rk4_step_fused(*ops)
+        torch.cuda.synchronize()
+        assert rk4_step_fused.launches == before + 2
+        xr = rk4_step_reference(*ops)
+    assert torch.equal(xk, again)
+    d = (xk - xr).abs()
+    assert d.mean().item() <= X_MEAN_ATOL
+    assert d.max().item() <= X_MAX_RTOL * xr.abs().max().item()
+
+
+def test_step_kernel_rejects_what_it_is_not_compiled_for(cuda):
+    x, h, ze, w, tf, dt = _step_operands(cuda, 64, 8, 1)
+    before = rk4_step_fused.launches
+    with pytest.raises(ValueError, match="h is on cpu"):
+        rk4_step_fused(x, h.cpu(), ze, w, tf, dt)
+    with pytest.raises(TypeError, match="ze"):
+        rk4_step_fused(x, h, ze.float(), w, tf, dt)
+    model = build_model(GATODEConfig(hidden_dim=64), 7, 8, device=cuda)
+    init_params(model, torch.Generator().manual_seed(0))
+    w64 = pack_weights_bf16(model)
+    with pytest.raises(ValueError, match="compiled for"):
+        rk4_step_fused(x, h, ze, w64, torch.zeros(4, 64, device=cuda), dt)
+    assert rk4_step_fused.launches == before
+
+
+def test_per_step_rollout_runs_the_step_kernel(cuda):
+    """``make_pallas_rollout(fuse_decode=False)``: ``substeps`` K0 launches
+    per interval, no K1 launch; its ids against the interval body's (the
+    in-kernel decode sums in another order than the plain one: near ties)
+    and against its own body on the plain step."""
+    from ananke_abm_tpu_torch.models.gnn_embed.rollout import (
+        _per_step_body,
+        make_pallas_rollout,
+    )
+
+    config = GATODEConfig()
+    d = generate_agent_population(4_096, num_times=12, num_zones=64, seed=0)
+    model = _model(cuda, config.num_blocks)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(cuda)
+    args = (on(d["zone_features"]), on(d["adj"]), on(d["times"]))
+    agents = (on(d["person_feats"]), on(d["home_zone"], torch.long))
+    before = (rk4_step_fused.launches, rk4_interval_decode_fused.launches)
+    got = make_pallas_rollout(model, *args, substeps=config.substeps)(
+        *agents)
+    assert rk4_step_fused.launches - before[0] == 11 * config.substeps
+    assert rk4_interval_decode_fused.launches == before[1]
+    fused = make_pallas_rollout(model, *args, substeps=config.substeps,
+                                fuse_decode=True)(*agents)
+    with torch.inference_mode():
+        plain = _per_step_body(model, config.substeps,
+                               rk4_step_reference)(*args, *agents)
+    assert got.shape == (4_096, 12)
+    assert (got == fused).float().mean().item() >= ROLLOUT_IDS_MIN
+    assert (got == plain).float().mean().item() >= ROLLOUT_IDS_MIN
+
+
+# ---- K5 at bf16 ---------------------------------------------------------------
+
+@pytest.mark.parametrize("n,num_zones,num_blocks", [
+    (98_304, 64, 2), (333, 7, 5), (200, 64, 8),
+])
+def test_dopri5_bf16_step_kernel_matches_plain_version(cuda, n, num_zones,
+                                                       num_blocks):
+    """K5's bf16 branch within DOPRI5_STEP_BF16_BOUNDS of its plain version
+    (y1, f1, r5, and the error sum where it is asked for; the raw error, a
+    difference of sums that the bf16 stage noise dominates, only finite),
+    the same bits on a repeat; K5's float32 kernel on the same operands (it
+    rounds no stage) outside them."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        DOPRI5_STEP_BF16_BOUNDS,
+        dopri5_step_outputs,
+    )
+
+    bounds = day_bounds(DOPRI5_STEP_BF16_BOUNDS, num_blocks)
+    args, _ = _dopri5_args(cuda, n, num_zones, num_blocks)
+    with torch.no_grad():
+        for stats in (None, (1e-3, 1e-3)):
+            run = lambda fn, p="bf16": [o for o in dopri5_step_outputs(
+                fn(*args, precision=p, err_stats=stats))
+                if stats is not None or o[0] != "err"]
+            before = fd.dopri5_step_fused.launches
+            got, again = run(fd.dopri5_step_fused), run(fd.dopri5_step_fused)
+            assert fd.dopri5_step_fused.launches == before + 2
+            want = run(fd.dopri5_step_reference)
+            assert all(torch.equal(u, v) for (_, u), (_, v) in
+                       zip(got, again))
+            assert all(w <= b for w, b in zip(_worst(got, want), bounds))
+            if stats is None:
+                err = fd.dopri5_step_fused(*args, precision="bf16")[2]
+                assert torch.isfinite(err).all()
+            ctl = run(fd.dopri5_step_fused, "f32")
+            assert not all(w <= b for w, b in zip(_worst(ctl, want),
+                                                  bounds))
+
+
+def test_bf16_forward_discrete_adjoint_runs_k5_bf16_and_k6(cuda):
+    """``make_fused_dopri5_hooks(precision="bf16", bwd_precision="bf16")``
+    under ``odeint_discrete_adjoint`` at rtol = atol = 1e-3, bench rung 3's
+    recording (max_accepted=256, ckpt_every=1): K5 once per attempted
+    forward step, K6 once, K7 never; the gradient of the float32-forward
+    route at the same tolerance (cosine > 0.999)."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+
+    config = GATODEConfig(method="dopri5", rtol=1e-3, atol=1e-3)
+    d = generate_agent_population(1_024, num_times=6, num_zones=64, seed=0)
+    model = _model(cuda, config.num_blocks)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(cuda)
+    static = (on(d["zone_features"]), on(d["adj"]), on(d["times"]))
+    batch = (on(d["person_feats"]), on(d["home_zone"], torch.long),
+             on(d["zone_ids"], torch.long))
+    grads = []
+    for precision in ("bf16", "f32"):
+        stats = {}
+        step_impl, step_vjp = fd.make_fused_dopri5_hooks(
+            model, precision=precision, bwd_precision="bf16",
+            err_stats=(config.rtol, config.atol))
+        loss_fn = _adjoint_loss_fn(model, config, None, stats, dict(
+            max_accepted=256, ckpt_every=1, store_f="bf16",
+            ckpt_dtype="bf16", step_impl=step_impl, step_vjp=step_vjp))
+        before = [k.launches for k in fd.KERNELS]
+        model.zero_grad()
+        loss, _ = loss_fn(*batch, static)
+        loss.backward()
+        launched = [k.launches - b for k, b in zip(fd.KERNELS, before)]
+        assert stats["forward"]["ok"] and torch.isfinite(loss)
+        assert launched == [stats["forward"]["n_steps"], 0, 1]
+        grads.append(torch.cat([p.grad.flatten() for p in
+                                model.parameters()]).double())
+    cos = grads[0] @ grads[1] / (grads[0].norm() * grads[1].norm())
+    assert cos > 0.999
+
+
+# ---- K9e: the segment sum ---------------------------------------------------
+
+@pytest.mark.parametrize("kind,e,d,z", [
+    ("rung2", 32_768, 32, 500), ("random", 20_000, 32, 2_048),
+    ("random", 5, 3, 7), ("rung1", 100_000, 100, 64),
+])
+def test_segment_sum_kernel_matches_plain_version(cuda, kind, e, d, z):
+    """K9e within SEGMENT_BOUNDS of its plain version for int64 and int32
+    ids, the same bits on a repeat; empty segments and dropped ids 0; the
+    unrounded sum (the control) outside the bounds where the segments hold
+    many rows."""
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        SEGMENT_BOUNDS,
+        segment_operands,
+    )
+
+    vals, ids, z = segment_operands(kind, e, d, z, cuda, seed=e)
+    before = es.segment_sum.launches
+    got = es.segment_sum(vals, ids, z)
+    again = es.segment_sum(vals, ids.int(), z)
+    torch.cuda.synchronize()
+    assert es.segment_sum.launches == before + 2
+    want = es.segment_sum_reference(vals, ids, z)
+    assert torch.equal(got, again)
+    kept = (ids >= 0) & (ids < z)
+    empty = torch.ones(z, dtype=torch.bool, device=cuda)
+    empty[ids[kept]] = False
+    assert (got[empty] == 0).all()
+    _assert_close([got], [want], SEGMENT_BOUNDS)
+    if e >= 20_000:
+        ctl = torch.zeros_like(want).index_add_(0, ids[kept], vals[kept])
+        assert not _within([ctl], [want], SEGMENT_BOUNDS)
+
+
+def test_segment_sum_kernel_rejects_what_it_is_not_compiled_for(cuda):
+    vals = torch.randn(64, 8, device=cuda)
+    ids = torch.zeros(64, dtype=torch.long, device=cuda)
+    before = es.segment_sum.launches
+    with pytest.raises(ValueError, match="segment_ids is on cpu"):
+        es.segment_sum(vals, ids.cpu(), 4)
+    with pytest.raises(TypeError, match="float32"):
+        es.segment_sum(vals.bfloat16(), ids, 4)
+    with pytest.raises(ValueError, match="rows of 1 to"):
+        es.segment_sum(torch.zeros(4, es.MAX_SEGMENT_FEATURES + 1,
+                                   device=cuda), ids[:4], 4)
+    assert es.segment_sum.launches == before
+    assert es._lib().ananke_segment_sum_max_features() == \
+        es.MAX_SEGMENT_FEATURES

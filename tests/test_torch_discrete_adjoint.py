@@ -286,9 +286,8 @@ def test_fused_hooks_match_the_generic_vjp():
 
 def test_hooks_reject_a_bf16_backward_on_the_card_only():
     """A bf16 backward builds on any device and carries the whole-backward
-    hook (on the card K7 and K6 now take bf16; only a bf16 forward, which
-    K5 does not take, is refused there, test_torch_cuda.py); an unknown
-    precision is refused everywhere."""
+    hook (on the card K7 and K6 take bf16, and K5 a bf16 forward,
+    test_torch_cuda.py); an unknown precision is refused everywhere."""
     pair = make_pair(**SETUP)
     step_impl, step_vjp = tfd.make_fused_dopri5_hooks(
         pair.tmodel, bwd_precision="bf16")

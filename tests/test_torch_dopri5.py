@@ -33,6 +33,15 @@ from ananke_abm_tpu_torch.ops.cuda import (
 
 N, DA, DZ, DC, H, Z = 40, 8, 16, 8, 16, 10
 TILE = 16
+# K5's bf16 branch against the Pallas one, and the discrete adjoint with a
+# bf16 forward against JAX's (test_bf16_* below). Read on the CPU: y1 <=
+# 9e-8, f1 <= 1.0e-3, r5 <= 1.9e-3 of their largest |ref|, the error sum
+# 3.4e-4 relative (the float32 branch on the same operands: f1 4.0e-3, r5
+# 1.5e-2, the error sum 1.7e-2 to 3.5e-2 away); the trainer's loss 3.9e-4
+# relative, gradient 1 - cosine 1.1e-4.
+BF16_STEP_REL = 5e-3
+BF16_SQ_REL = 5e-3
+BF16_LOSS_REL = 1e-3
 
 
 def _operands(num_blocks, seed=0):
@@ -214,3 +223,78 @@ def test_fused_step_gate_follows_the_predicates():
     assert not fused_step_fits(GATODEConfig(hidden_dim=64))
     assert not fused_step_fits(GATODEConfig(num_blocks=9))
     assert not fused_step_fits(GATODEConfig(zone_dim=32))
+
+
+@pytest.mark.parametrize("num_blocks", [1, 2])
+def test_bf16_step_matches_pallas(num_blocks):
+    """K5's bf16 branch: every stage activation and weight rounded to
+    bf16, float32 sums; the tableau, y1, f1, r5 and the error sum float32.
+    Both round the same bf16 points, a float32 sum in another order now and
+    then rounds the other way: y1, f1 and r5 within BF16_STEP_REL of their
+    largest |ref|, the in-kernel error sum within BF16_SQ_REL."""
+    ops, _ = _operands(num_blocks, seed=20 + num_blocks)
+    jargs = _jax_args(ops, 6.5, 0.25)
+    want = jfd.dopri5_step_fused(*jargs, interpret=True, tile=TILE,
+                                 precision="bf16", err_stats=(1e-3, 1e-3))
+    got = tfd.dopri5_step_fused(*_port_args(ops, 6.5, 0.25),
+                                precision="bf16", err_stats=(1e-3, 1e-3))
+    for i in (0, 1, 3):
+        _close(got[i].numpy(), want[i], BF16_STEP_REL)
+    assert got[2].item() == pytest.approx(float(want[2][0, 0]),
+                                          rel=BF16_SQ_REL)
+    f32 = tfd.dopri5_step_fused(*_port_args(ops, 6.5, 0.25),
+                                err_stats=(1e-3, 1e-3))
+    assert not np.allclose(f32[1].numpy(), got[1].numpy(), rtol=0,
+                           atol=1e-6), "the bf16 branch rounded nothing"
+
+
+def test_bf16_forward_discrete_adjoint_matches_jax(monkeypatch):
+    """The discrete adjoint with a bf16 forward
+    (``make_fused_dopri5_hooks(precision="bf16")``, the reference's branch
+    for loose tolerances) at rtol = atol = 1e-3, against JAX's discrete
+    trainer on its hooks at the same precision (Pallas K5 / K7 in interpret
+    mode): loss within BF16_LOSS_REL, gradient cosine > 0.999."""
+    import optax
+
+    from _torch_port import make_pair, t32, tlong
+    from ananke_abm_tpu.models.gnn_embed import train as jtrain
+    from ananke_abm_tpu_torch.models.gnn_embed import train as ttrain
+    from ananke_abm_tpu_torch.models.gnn_embed.params import (
+        flax_leaf_params,
+    )
+
+    real_j, real_t = jfd.make_fused_dopri5_hooks, tfd.make_fused_dopri5_hooks
+    monkeypatch.setattr(jfd, "make_fused_dopri5_hooks",
+                        lambda *a, **kw: real_j(*a, precision="bf16", **kw))
+    monkeypatch.setattr(tfd, "make_fused_dopri5_hooks",
+                        lambda *a, **kw: real_t(*a, precision="bf16", **kw))
+    pair = make_pair(num_blocks=1, n_agents=48, num_times=5, num_zones=10,
+                     seed=11, substeps=1, rtol=1e-3, atol=1e-3)
+    d = pair.data
+    static = tuple(jnp.asarray(d[k]) for k in
+                   ("zone_features", "adj", "times"))
+    _, jloss = jtrain.make_adjoint_step_fns(
+        pair.jmodel, optax.adamw(1e-3), pair.jcfg, static, use_fused=True,
+        adjoint_mode="discrete")
+    (lj, _), gj = jax.value_and_grad(
+        lambda p: jloss(p, jnp.asarray(d["person_feats"]),
+                        jnp.asarray(d["home_zone"]),
+                        jnp.asarray(d["zone_ids"])), has_aux=True)(
+        pair.params)
+    gj = np.concatenate([np.ravel(np.asarray(v)) for v in
+                         jax.tree_util.tree_leaves(gj)])
+    tstatic = (t32(d["zone_features"]), t32(d["adj"]), t32(d["times"]))
+    stats = {}
+    loss_fn = ttrain.build_adjoint_loss_fn_g(
+        pair.tmodel, pair.tcfg, tstatic, use_fused=True,
+        adjoint_mode="discrete", stats=stats)
+    loss, _ = loss_fn(t32(d["person_feats"]), tlong(d["home_zone"]),
+                      tlong(d["zone_ids"]), tstatic)
+    loss.backward()
+    gt = np.concatenate([
+        np.ravel((p.grad.T if path[-1] == "kernel" else p.grad).numpy())
+        for path, p in flax_leaf_params(pair.tmodel)])
+    assert stats["forward"]["ok"]
+    assert abs(loss.item() - float(lj)) <= BF16_LOSS_REL * abs(float(lj))
+    assert gt @ gj / (np.linalg.norm(gt) * np.linalg.norm(gj)) > 0.999
+    assert tfd.dopri5_step_fused.launches == 0

@@ -1,6 +1,7 @@
-"""The adjoint RHS (kernel K8): the port's plain version against the JAX
-Pallas kernel run in interpret mode, through ``make_fused_adjoint_rhs`` on
-both sides, and the wrapper's CPU dispatch.
+"""The adjoint RHS (kernels K8 and K8a): the port's plain versions against
+the JAX Pallas kernels run in interpret mode, through
+``make_fused_adjoint_rhs`` on both sides, the continuous adjoint over the
+fused pair, and the wrappers' CPU dispatch.
 
 Tolerances, as tests/test_ops_kernels.py holds the Pallas kernel against
 the float32 model: both sides round at the same bf16 points but sum in
@@ -29,6 +30,7 @@ from ananke_abm_tpu_torch.ops.cuda.fused_rhs import (
     drift_rhs_and_vjp,
     drift_rhs_and_vjp_reference,
     drift_rhs_fused,
+    drift_rhs_reference,
     grad_layout,
     make_fused_adjoint_rhs,
     split_drift_params,
@@ -198,3 +200,65 @@ def test_block_free_drift_is_refused():
     pair = make_pair(num_blocks=0, n_agents=16)
     with pytest.raises(ValueError, match="num_blocks >= 1"):
         make_fused_adjoint_rhs(pair.tmodel)
+
+
+def _adjoint_pair_case(pair, n, num_zones, seed, rtol):
+    """Loss ``sum(w ys^2)`` of ``odeint_adjoint`` over each package's fused
+    pair (JAX: both Pallas kernels in interpret mode) from the same numpy
+    operands, and its gradient with respect to the drift's parameters
+    (flax order, kernels as JAX lays them out), x0, h and the zones."""
+    from ananke_abm_tpu.ode import odeint_adjoint as jax_odeint_adjoint
+    from ananke_abm_tpu_torch.ode import odeint_adjoint
+
+    x, h, ze, _ = _operands(pair, n, num_zones, seed)
+    ts = np.asarray([6.0, 6.5, 7.25, 8.0], np.float32)
+    w = np.random.default_rng(seed + 1).uniform(
+        0.5, 1.5, size=(len(ts), n, x.shape[1])).astype(np.float32)
+    rhs_j, vjp_j = jax_make_fused_adjoint_rhs(pair.params, interpret=True)
+
+    def jloss(p, x0, hh, zz):
+        ys = jax_odeint_adjoint(rhs_j, x0, jnp.asarray(ts), (p, hh, zz),
+                                rtol=rtol, atol=rtol, rhs_vjp=vjp_j)
+        return jnp.sum(ys * ys * jnp.asarray(w))
+
+    lj, gj = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3))(
+        pair.params, jnp.asarray(x), jnp.asarray(h), jnp.asarray(ze))
+    gj = [np.asarray(v) for v in jax.tree_util.tree_leaves(gj)]
+    leaves, params = _port_params(pair)
+    rhs_t, vjp_t = make_fused_adjoint_rhs(pair.tmodel)
+    xt, ht, zt = (t32(v).requires_grad_(True) for v in (x, h, ze))
+    pair.tmodel.zero_grad()
+    ys = odeint_adjoint(rhs_t, xt, torch.from_numpy(ts), (params, ht, zt),
+                        rtol=rtol, atol=rtol, rhs_vjp=vjp_t)
+    loss = torch.sum(ys * ys * t32(w))
+    loss.backward()
+    gt = [(p.grad.T if path[-1] == "kernel" else p.grad).numpy()
+          for path, p in leaves] + [v.grad.numpy() for v in (xt, ht, zt)]
+    return loss.item(), gt, float(lj), gj
+
+
+def test_continuous_adjoint_over_the_fused_pair_matches_jax():
+    """``odeint_adjoint`` with both halves of the fused pair (K8a forward,
+    K8 backward; their plain versions here) against JAX's same solve at
+    rtol = atol = 1e-3: loss within 1e-3 relative (read 2e-5 to 1e-4 at
+    1e-3 and 1e-4 on the CPU: the bf16 stage noise of the two forwards
+    moves the step controller a little), gradient cosine > 0.999 (read 1 -
+    cos <= 1.6e-6)."""
+    pair = make_pair(num_blocks=2, n_agents=16)
+    lt, gt, lj, gj = _adjoint_pair_case(pair, 40, 12, seed=6, rtol=1e-3)
+    assert abs(lt - lj) <= 1e-3 * abs(lj)
+    assert _cos(gt, gj) > COS_MIN
+    assert drift_rhs_fused.launches == drift_rhs_and_vjp.launches == 0
+
+
+def test_drift_rhs_wrapper_on_cpu_takes_the_plain_version():
+    pair = make_pair(num_blocks=2, n_agents=16)
+    args = _args(pair, 21, 9)[:-1]
+    got = drift_rhs_fused(*args)
+    torch.testing.assert_close(got, drift_rhs_reference(*args), rtol=0,
+                               atol=0)
+    bad = list(args)
+    bad[1] = args[1][:5]
+    with pytest.raises(ValueError, match="h must"):
+        drift_rhs_fused(*bad)
+    assert drift_rhs_fused.launches == 0
