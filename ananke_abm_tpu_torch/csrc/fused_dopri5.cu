@@ -45,32 +45,73 @@
 // and the output rows' cotangents). At bench rung 3 K6 at bf16 needs ~5.6
 // TFLOP, 5.7 ms at the dense bf16 peak, its bytes ~1 ms. The design:
 //
-// - The float32 body: a CTA of 8 warps owns a tile of R agent rows (32; 16
-//   for deep drifts) and walks tiles tile = blockIdx.x, + gridDim.x, ...
-//   Activations of the tile live in shared memory, float32 row-major.
-//   Every product out = A W runs as register tiles: warp w computes rows
-//   w, w + 8, ..., lane l a run of adjacent columns; A is read from shared
-//   memory four columns at a time (a broadcast within the warp), W is
-//   staged through two shared-memory buffers of 16 rows by cp.async, the
-//   next chunk's copy in flight while this one is multiplied (the weights,
-//   ~0.35 MB in float32, stay hot in L2). The attention runs by chunks of
-//   32 zones: no Z-wide row is stored, any zone count; the max-free
-//   softmax (exp clamped at 80) sums its rows chunk by chunk, the context
-//   is normalised after the product.
-// - The bf16 body: a CTA of W warps (4; 2 at 8 blocks, where 4 warps'
-//   stage buffers would not fit) owns 16 W rows, each warp its 16 rows end
-//   to end, as K2b's tiles. K5 at bf16 keeps its warp's x0 and k_1 .. k_7
-//   in shared memory (16 KB a warp) beside the stage's buffers.
+// - The float32 body (K5; K7 and K6 at "f32"): a CTA of 8 warps owns a
+//   tile of R agent rows (32; 16 for deep drifts) and walks tiles tile =
+//   blockIdx.x, + gridDim.x, ... Activations of the tile live in shared
+//   memory, float32 row-major. Every product out = A W runs as register
+//   tiles: warp w computes rows w, w + 8, ..., lane l a run of adjacent
+//   columns; A is read from shared memory four columns at a time (a
+//   broadcast within the warp), W is staged through two shared-memory
+//   buffers by cp.async (K5: 16 rows a buffer, two CTAs an SM; the step
+//   VJP: 32 rows, half the barriers), the next chunk's copy in flight while
+//   this one is multiplied (the weights, ~0.35 MB in float32, stay hot in
+//   L2). The step VJP's weight gradients are register-blocked outer
+//   products (ntdot; its predecessor issued two shared-memory loads for
+//   4-16 multiply-adds): each thread owns a TM x 4 block of the gradient
+//   (8 x 4 for the H x H ones, in two passes), so an agent row costs one
+//   vector load of A (a broadcast) and one float4 of B for 4 TM
+//   multiply-adds, and the block goes into the slab once per 32-row tile
+//   and product in float4 read-modify-writes, at 237 registers and no
+//   spills. The tile stays at 32 rows and one CTA an SM: its activations
+//   take ~5 KB a row at two blocks (~196 KB with the buffers), so neither
+//   two CTAs of 32 rows nor taller tiles fit, and two CTAs of 16 rows would
+//   flush the slab twice as often per row. The attention runs by chunks of 32 zones:
+//   no Z-wide row is stored, any zone count; the max-free softmax (exp
+//   clamped at 80) sums its rows chunk by chunk, the context is normalised
+//   after the product.
+// - The bf16 body (K7 and K6 at "bf16"): stage_sm90.cuh's stage and VJP.
+//   What held its drift_stage.cuh predecessor to ~1% of its bound, and what
+//   the body does about each:
+//   * weights from L2 per 16-row warp (~180 KB a stage forward, twice that
+//     a VJP, one dependent L2 load behind each mma): every weight operand
+//     (each product's weights, or half, or a 32-zone box of the zones and
+//     their transpose) goes once per CTA through a 3-slot cp.async ring in
+//     shared memory, 2 boxes ahead, and every warp reads its B fragments
+//     from there by ldmatrix: one copy from L2 serves 96 rows. The warps
+//     walk the step's fixed sequence of boxes in lockstep, one barrier a box;
+//   * one warp per SM sub-partition: a CTA of W warps (6, 96 rows, up to 2
+//     blocks; 4 up to 5; 2 beyond: the most whose rows fit beside the
+//     ring) owns 16 W rows, each warp its 16 rows end to end on mma.sync
+//     bf16 -> f32. Shared memory at two blocks: the ring 55 KB, per row
+//     feats, q, two work rows, bf16(h) and the 3-level block chain (1.75
+//     KB; the VJP's short-lived rows overlaid on the work rows), 230 KB for
+//     96 rows;
+//   * 255 registers and 1.5-1.9 KB of spill stores: the step body is a
+//     function of its own, called once a step (step_vjp_bf16), whose
+//     arguments are scalars and pointers; no weight pointer, shared-memory
+//     address or slab offset is held across it (all are constants or
+//     recomputed from the launch parameters), bf16(h) sits in shared
+//     memory and the stage's gx waits in its scratch slot through the
+//     attention VJP. At 6 warps the body spills nothing; the kernels save
+//     their few loop values around the call, once a step;
+//   * the step state in device memory: it stays in a warp-private scratch
+//     (x0, the k_j, their cotangents and the h-row sums, 36 KB a warp: no
+//     room beside the ring), coalesced, each array read at most once a
+//     stage;
+//   * a slab read-modify-write per 64 rows per product: once per 96 rows,
+//     by 16 x 32 output blocks whose slab values are read in one round trip
+//     before their products; the zones' gradient once per 32-zone box.
+//   K5 at bf16 keeps drift_stage.cuh's forward (4 warps; 2 at 8 blocks)
+//   with its warp's x0 and k_1 .. k_7 in shared memory.
 // - Neither can keep six stages of intermediates (~24 KB per agent): each
-//   keeps the stage outputs k_j (and the cotangents, in a per-CTA scratch
-//   in device memory, each element only ever touched by the thread that
-//   owns it) and recomputes stage i's intermediates just before its VJP:
-//   11 stage forwards and 6 stage VJPs per step.
+//   keeps the stage outputs k_j (and the cotangents) and recomputes stage
+//   i's intermediates just before its VJP: 11 stage forwards and 6 stage
+//   VJPs per step.
 // - K6: one CTA owns an agent tile for all steps, the step loop inside the
 //   block, so no grid-wide sync; the carries stay in registers (float32)
-//   or the warp's scratch (bf16) between steps; the recorded steps, output
-//   times and rows' steps sit in shared memory, and the fold skips the rows
-//   a step did not fill. One launch per backward.
+//   or the warp's scratch (bf16) between steps; the output times and rows'
+//   steps sit in shared memory, and the fold skips the rows a step did not
+//   fill. One launch per backward.
 // - Weight gradients are contractions over the tile's rows, added into the
 //   CTA's own slab in device memory (plain loads and stores); a second
 //   kernel sums the slabs in CTA order. K5's error sum is per CTA the same
@@ -90,13 +131,15 @@
 #include <stdint.h>
 
 #include "drift_stage.cuh"
+#include "stage_sm90.cuh"
 
 namespace {
 
 constexpr int DA = 32, DZ = 64, DC = 32, H = 128, DF = DA + DZ;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kKC = 16;   // rows of W in each of the two staging buffers
+constexpr int kKC = 16;   // rows of W in each of the two staging buffers (K5)
+constexpr int kVjpKC = 32;  // the same for the float32 step VJP's products
 constexpr int kZC = 32;   // zones per attention chunk
 constexpr int kMaxBlocks = 8;
 constexpr int kWbuf = 2 * kKC * H;  // floats of the two staging buffers
@@ -208,12 +251,12 @@ __device__ __forceinline__ float comp(const float4& v, int q) {
 // lane's adjacent columns. Starts with a barrier (A may come from other
 // threads), ends with one before ep (so ep may overwrite A or the staging
 // buffer). lda, A and (for N >= 64) the columns must be 16-byte aligned.
-template <int R, int K, int N, class Ep>
+template <int R, int K, int N, int KC = kKC, class Ep>
 __device__ __forceinline__ void mm(const float* A, int lda,
                                    const float* __restrict__ W, int ldw,
                                    float* wbuf, Ep ep) {
   constexpr int RPT = R / kWarps, CPT = N / 32;
-  static_assert(K % kKC == 0 && N % 32 == 0 && R % kWarps == 0, "shape");
+  static_assert(K % KC == 0 && N % 32 == 0 && R % kWarps == 0, "shape");
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float acc[RPT][CPT];
 #pragma unroll
@@ -223,14 +266,14 @@ __device__ __forceinline__ void mm(const float* A, int lda,
   // chunk c of W's rows into staging buffer c % 2, by cp.async: the copy
   // of chunk c + 1 runs while chunk c is multiplied
   auto stage = [&](int c) {
-    float* dst = wbuf + (c & 1) * kKC * N;
-    for (int e = threadIdx.x * 4; e < kKC * N; e += kThreads * 4) {
+    float* dst = wbuf + (c & 1) * KC * N;
+    for (int e = threadIdx.x * 4; e < KC * N; e += kThreads * 4) {
       const int kk = e / N, n = e % N;
-      cp_async16(dst + e, W + (size_t)(c * kKC + kk) * ldw + n);
+      cp_async16(dst + e, W + (size_t)(c * KC + kk) * ldw + n);
     }
     cp_commit();
   };
-  constexpr int NC = K / kKC;
+  constexpr int NC = K / KC;
   stage(0);
   for (int c = 0; c < NC; ++c) {
     if (c + 1 < NC) {
@@ -240,10 +283,10 @@ __device__ __forceinline__ void mm(const float* A, int lda,
       cp_wait<0>();
     }
     __syncthreads();
-    const float* wb = wbuf + (c & 1) * kKC * N;
-    const int k0 = c * kKC;
+    const float* wb = wbuf + (c & 1) * KC * N;
+    const int k0 = c * KC;
 #pragma unroll 2
-    for (int kk = 0; kk < kKC; kk += 4) {
+    for (int kk = 0; kk < KC; kk += 4) {
       float4 a[RPT];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
@@ -267,50 +310,84 @@ __device__ __forceinline__ void mm(const float* A, int lda,
   ep(acc);
 }
 
+// C consecutive floats of shared memory: float4 loads where C is a
+// multiple of 4 (16-byte aligned), else float2 loads (8-byte aligned)
+template <int C>
+__device__ __forceinline__ void lds_row(float (&v)[C], const float* p) {
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < C; c += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + c);
+      v[c] = t.x; v[c + 1] = t.y; v[c + 2] = t.z; v[c + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; c += 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p + c);
+      v[c] = t.x; v[c + 1] = t.y;
+    }
+  }
+}
+
+// the rows of a thread's block in ntdot: the largest even divisor of the
+// rows a row group owns in all, up to 8 (so at most 32 accumulators)
+__host__ __device__ constexpr int ntdot_rows(int per) {
+  return per % 8 == 0 ? 8 : per % 6 == 0 ? 6 : per % 4 == 0 ? 4 : 2;
+}
+
 // out[m][n] += sum_r A[r][m] B[r][n] (+ A2[r][m] B2[r][n]) for m < m_valid:
 // the agent contraction of a weight gradient, into the CTA's slab (row
-// stride N). Warp w owns rows 4 w .. 4 w + 3 (+ 32, ...), lane l the
-// columns ocol<N>(l, j). Each output has one owner thread: no atomics.
+// stride N), as register-blocked outer products. In each pass thread (mg,
+// ng) owns a TM x 4 block (TM <= 8) of the gradient: rows TM mg .. of the
+// pass, columns 4 ng ..; each agent row costs one load of its TM values of
+// A (a broadcast within the warp) and one float4 of B for 4 TM fused
+// multiply-adds, and the block goes into the slab once, in float4
+// read-modify-writes. Each output has one owner thread: no atomics.
 template <int R, int M, int N, bool TWO>
 __device__ __forceinline__ void ntdot(const float* A, int lda, const float* B,
                                       int ldb, const float* A2, int lda2,
                                       const float* B2, int ldb2, float* out,
                                       int m_valid) {
-  constexpr int CPT = N / 32;
-  static_assert(M % 32 == 0 && N % 32 == 0, "shape");
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int NG = N / 4, MG = kThreads / NG, PER = M / MG;
+  constexpr int TM = ntdot_rows(PER), PASSES = PER / TM;
+  static_assert(N % 4 == 0 && kThreads % NG == 0 && PER * MG == M &&
+                    PER % 2 == 0,
+                "tile");
+  const int ng = threadIdx.x % NG, mg = threadIdx.x / NG, n0 = 4 * ng;
   __syncthreads();
-  for (int m0 = 4 * w; m0 < M; m0 += 4 * kWarps) {
-    float acc[4][CPT];
+#pragma unroll 1
+  for (int pass = 0; pass < PASSES; ++pass) {
+    const int m0 = pass * TM * MG + TM * mg;
+    float acc[TM][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
     for (int r = 0; r < R; ++r) {
-      float a[4], b[CPT];
-      lds_vec<4>(a, A + r * lda + m0);
-      lds_vec<CPT>(b, B + r * ldb + CPT * lane);
+      float a[TM], b[4];
+      lds_row<TM>(a, A + r * lda + m0);
+      lds_row<4>(b, B + r * ldb + n0);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       if (TWO) {
-        lds_vec<4>(a, A2 + r * lda2 + m0);
-        lds_vec<CPT>(b, B2 + r * ldb2 + CPT * lane);
+        lds_row<TM>(a, A2 + r * lda2 + m0);
+        lds_row<4>(b, B2 + r * ldb2 + n0);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < TM; ++i)
 #pragma unroll
-          for (int j = 0; j < CPT; ++j)
-            acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < TM; ++i) {
       if (m0 + i >= m_valid) continue;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j)
-        out[(size_t)(m0 + i) * N + CPT * lane + j] += acc[i][j];
+      float4* o = reinterpret_cast<float4*>(out + (size_t)(m0 + i) * N + n0);
+      float4 v = *o;
+      v.x += acc[i][0]; v.y += acc[i][1]; v.z += acc[i][2]; v.w += acc[i][3];
+      *o = v;
     }
   }
 }
@@ -340,14 +417,14 @@ struct StageBufs {
 
 // k = stage_i(feats[:, :DA]) into kout ([R][DA]; its thread mapping is the
 // per-element one: row w + 8 m, column lane).
-template <int R>
+template <int R, int KC = kKC>
 __device__ void stage_forward(const Weights& w, const StageBufs& s, int stage,
                               float* kout) {
   constexpr int RPT = R / kWarps;
   constexpr int LQ = DZ + kZC;
   const int wp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // q = x Wq
-  mm<R, DA, DZ>(s.feats, DF, w.wq, DZ, s.wbuf, [&](float (&acc)[RPT][2]) {
+  mm<R, DA, DZ, KC>(s.feats, DF, w.wq, DZ, s.wbuf, [&](float (&acc)[RPT][2]) {
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -361,7 +438,7 @@ __device__ void stage_forward(const Weights& w, const StageBufs& s, int stage,
   for (int z0 = 0; z0 < w.zp; z0 += kZC) {
     const bool last = z0 + kZC >= w.zp;
     // p = exp(min(q ze^T scale, 80)) over the chunk's zones
-    mm<R, DZ, kZC>(s.q, LQ, w.zeT + z0, w.zp, s.wbuf,
+    mm<R, DZ, kZC, KC>(s.q, LQ, w.zeT + z0, w.zp, s.wbuf,
                    [&](float (&acc)[RPT][1]) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
@@ -372,7 +449,7 @@ __device__ void stage_forward(const Weights& w, const StageBufs& s, int stage,
       }
     });
     // ctx += p ze; normalised after the last chunk
-    mm<R, kZC, DZ>(p, LQ, w.ze + (size_t)z0 * DZ, DZ, s.wbuf,
+    mm<R, kZC, DZ, KC>(p, LQ, w.ze + (size_t)z0 * DZ, DZ, s.wbuf,
                    [&](float (&acc)[RPT][2]) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
@@ -391,7 +468,7 @@ __device__ void stage_forward(const Weights& w, const StageBufs& s, int stage,
   // z = tanh(feats W1xc + hpre + tf_i)
   const float* tfi = w.tf + stage * H;
   float* z0p = s.chain;
-  mm<R, DF, H>(s.feats, DF, w.w1xc, H, s.wbuf, [&](float (&acc)[RPT][4]) {
+  mm<R, DF, H, KC>(s.feats, DF, w.w1xc, H, s.wbuf, [&](float (&acc)[RPT][4]) {
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -405,7 +482,7 @@ __device__ void stage_forward(const Weights& w, const StageBufs& s, int stage,
     float* zout = s.chain + (b + 1) * s.chain_step;
     const float* br1 = w.br + (2 * b) * H;
     const float* br2 = w.br + (2 * b + 1) * H;
-    mm<R, H, H>(zin, H, w.wr + (size_t)(2 * b) * H * H, H, s.wbuf,
+    mm<R, H, H, KC>(zin, H, w.wr + (size_t)(2 * b) * H * H, H, s.wbuf,
                 [&](float (&acc)[RPT][4]) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
@@ -415,7 +492,7 @@ __device__ void stage_forward(const Weights& w, const StageBufs& s, int stage,
           s.rt[(wp + kWarps * i) * H + c] = tanhf(acc[i][j] + br1[c]);
         }
     });
-    mm<R, H, H>(s.rt, H, w.wr + (size_t)(2 * b + 1) * H * H, H, s.wbuf,
+    mm<R, H, H, KC>(s.rt, H, w.wr + (size_t)(2 * b + 1) * H * H, H, s.wbuf,
                 [&](float (&acc)[RPT][4]) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
@@ -427,7 +504,7 @@ __device__ void stage_forward(const Weights& w, const StageBufs& s, int stage,
     });
   }
   // k = z W3 + b3
-  mm<R, H, DA>(s.chain + w.nb * s.chain_step, H, w.w3, DA, s.wbuf,
+  mm<R, H, DA, KC>(s.chain + w.nb * s.chain_step, H, w.w3, DA, s.wbuf,
                [&](float (&acc)[RPT][1]) {
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
@@ -465,7 +542,7 @@ struct SlabLayout {
 // time row's at slab + gtf), ghp += the Dense_0 pre-activation's
 // cotangent, and gx ([R][DA], the per-element mapping) the cotangent of
 // the stage input.
-template <int R>
+template <int R, int KC>
 __device__ void stage_backward(const Weights& w, const StageBufs& s,
                                const SlabLayout& L, float* slab, long gtf,
                                const float* gk, float* gp, float* ta,
@@ -480,7 +557,7 @@ __device__ void stage_backward(const Weights& w, const StageBufs& s,
                          slab + L.gw3, H);
   colsum<R, DA>(gk, DA, slab + L.gb3);
   // gp = (gk W3^T) (1 - z^2): the last block's pre-activation cotangent
-  mm<R, DA, H>(gk, DA, w.w3T, H, s.wbuf, [&](float (&acc)[RPT][4]) {
+  mm<R, DA, H, KC>(gk, DA, w.w3T, H, s.wbuf, [&](float (&acc)[RPT][4]) {
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -493,7 +570,7 @@ __device__ void stage_backward(const Weights& w, const StageBufs& s,
     const float* zin = s.chain + b * s.chain_step;
     const float* br1 = w.br + (2 * b) * H;
     // rt = tanh(z_in Wr1 + br1), recomputed into ta
-    mm<R, H, H>(zin, H, w.wr + (size_t)(2 * b) * H * H, H, s.wbuf,
+    mm<R, H, H, KC>(zin, H, w.wr + (size_t)(2 * b) * H * H, H, s.wbuf,
                 [&](float (&acc)[RPT][4]) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
@@ -507,7 +584,7 @@ __device__ void stage_backward(const Weights& w, const StageBufs& s,
                           slab + L.wr2(b), H);
     colsum<R, H>(gp, H, slab + L.br2(b));
     // tb = (gp Wr2^T) (1 - rt^2)
-    mm<R, H, H>(gp, H, w.wrT + (size_t)(2 * b + 1) * H * H, H, s.wbuf,
+    mm<R, H, H, KC>(gp, H, w.wrT + (size_t)(2 * b + 1) * H * H, H, s.wbuf,
                 [&](float (&acc)[RPT][4]) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
@@ -521,7 +598,7 @@ __device__ void stage_backward(const Weights& w, const StageBufs& s,
                           slab + L.wr1(b), H);
     colsum<R, H>(tb, H, slab + L.br1(b));
     // gp = (gp + tb Wr1^T) (1 - z_in^2): the next pre-activation down
-    mm<R, H, H>(tb, H, w.wrT + (size_t)(2 * b) * H * H, H, s.wbuf,
+    mm<R, H, H, KC>(tb, H, w.wrT + (size_t)(2 * b) * H * H, H, s.wbuf,
                 [&](float (&acc)[RPT][4]) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
@@ -538,7 +615,7 @@ __device__ void stage_backward(const Weights& w, const StageBufs& s,
                          slab + L.gw1, H);
   colsum<R, H>(gp, H, slab + gtf);
   // ghp += gp; gf = gp W1xc^T into ta (cols 0..DF): gxb | gctx
-  mm<R, H, DF>(gp, H, w.w1xcT, DF, s.wbuf, [&](float (&acc)[RPT][3]) {
+  mm<R, H, DF, KC>(gp, H, w.w1xcT, DF, s.wbuf, [&](float (&acc)[RPT][3]) {
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = wp + kWarps * i;
@@ -562,7 +639,7 @@ __device__ void stage_backward(const Weights& w, const StageBufs& s,
   // ds = attn (gattn - sum) scale, gq = ds ze, gze += attn^T gctx + ds^T q
   for (int pass = 0; pass < 2; ++pass) {
     for (int z0 = 0; z0 < w.zp; z0 += kZC) {
-      mm<R, DZ, kZC>(s.q, LQ, w.zeT + z0, w.zp, s.wbuf,
+      mm<R, DZ, kZC, KC>(s.q, LQ, w.zeT + z0, w.zp, s.wbuf,
                      [&](float (&acc)[RPT][1]) {
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
@@ -571,7 +648,7 @@ __device__ void stage_backward(const Weights& w, const StageBufs& s,
               ? expf(fminf(acc[i][0] * w.scale, 80.f)) * s.inv[r] : 0.f;
         }
       });
-      mm<R, DZ, kZC>(gctx, H, w.zeT + z0, w.zp, s.wbuf,
+      mm<R, DZ, kZC, KC>(gctx, H, w.zeT + z0, w.zp, s.wbuf,
                      [&](float (&acc)[RPT][1]) {
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
@@ -585,7 +662,7 @@ __device__ void stage_backward(const Weights& w, const StageBufs& s,
         }
       });
       if (pass == 0) continue;
-      mm<R, kZC, DZ>(ds, H, w.ze + (size_t)z0 * DZ, DZ, s.wbuf,
+      mm<R, kZC, DZ, KC>(ds, H, w.ze + (size_t)z0 * DZ, DZ, s.wbuf,
                      [&](float (&acc)[RPT][2]) {
 #pragma unroll
         for (int i = 0; i < RPT; ++i)
@@ -602,7 +679,7 @@ __device__ void stage_backward(const Weights& w, const StageBufs& s,
   // q = x Wq: gWq += x^T gq; gx = gxb + gq Wq^T
   ntdot<R, DA, DZ, false>(s.feats, DF, gq, H, nullptr, 0, nullptr, 0,
                           slab + L.gwq, DA);
-  mm<R, DZ, DA>(gq, H, w.wqT, DA, s.wbuf, [&](float (&acc)[RPT][1]) {
+  mm<R, DZ, DA, KC>(gq, H, w.wqT, DA, s.wbuf, [&](float (&acc)[RPT][1]) {
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = wp + kWarps * i;
@@ -792,9 +869,12 @@ struct F32Vjp {
   float* tb;   // [R][H]
 };
 
+// the staging buffers of the float32 step VJP's products
+constexpr int kVjpWbuf = 2 * kVjpKC * H;
+
 template <int R>
 size_t f32_vjp_smem_floats(int nb) {
-  return kWbuf + (size_t)R * (DC + 3 * H + DF + DZ + kZC + DA + 1 +
+  return kVjpWbuf + (size_t)R * (DC + 3 * H + DF + DZ + kZC + DA + 1 +
                               2 * H + (size_t)(nb + 1) * H);
 }
 
@@ -802,7 +882,7 @@ template <int R>
 __device__ __forceinline__ F32Vjp f32_vjp_smem(float* sm) {
   F32Vjp t;
   t.s.wbuf = sm;
-  t.hin = t.s.wbuf + kWbuf;
+  t.hin = t.s.wbuf + kVjpWbuf;
   t.s.hpre = t.hin + R * DC;
   t.ghp = t.s.hpre + R * H;
   t.gp = t.ghp + R * H;
@@ -855,7 +935,7 @@ __device__ void step_vjp_f32(const Weights& w, const F32Vjp& t,
   };
   for (int st = 1; st < 6; ++st) {
     stage_input(st);
-    stage_forward<R>(w, t.s, st, t.gks);
+    stage_forward<R, kVjpKC>(w, t.s, st, t.gks);
     __syncthreads();
 #pragma unroll
     for (int m = 0; m < M; ++m) {
@@ -865,14 +945,14 @@ __device__ void step_vjp_f32(const Weights& w, const F32Vjp& t,
   }
   for (int st = 6; st >= 1; --st) {
     stage_input(st);
-    stage_forward<R>(w, t.s, st, t.gks);
+    stage_forward<R, kVjpKC>(w, t.s, st, t.gks);
     __syncthreads();
 #pragma unroll
     for (int m = 0; m < M; ++m) {
       const int o = (wp + kWarps * m) * DA + lane;
       t.gks[o] = gk[st * R * DA + o];
     }
-    stage_backward<R>(w, t.s, L, slab, gtf0 + (long)st * H, t.gks, t.gp,
+    stage_backward<R, kVjpKC>(w, t.s, L, slab, gtf0 + (long)st * H, t.gks, t.gp,
                       t.ta, t.tb, t.ghp, t.gks);
     // gx (in gks, the per-element mapping): into y0 and the earlier k_j
 #pragma unroll
@@ -895,7 +975,8 @@ template <int R>
 __device__ __forceinline__ void f32_hpre(const Weights& w, const F32Vjp& t) {
   constexpr int RPT = R / kWarps;
   const int wp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  mm<R, DC, H>(t.hin, DC, w.w1h, H, t.s.wbuf, [&](float (&acc)[RPT][4]) {
+  mm<R, DC, H, kVjpKC>(t.hin, DC, w.w1h, H, t.s.wbuf,
+                       [&](float (&acc)[RPT][4]) {
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -906,17 +987,19 @@ __device__ __forceinline__ void f32_hpre(const Weights& w, const F32Vjp& t) {
 
 // ---- the bf16 step VJP: K7 at precision "bf16", and K6's bf16 body ---------
 //
-// The stage math and its VJP are drift_stage.cuh's (K8's and K2b's): bf16
-// operands on mma.sync, float32 sums, the reference's rounding points. A
-// tile is 16 W agent rows, warp w owns rows 16 w .. 16 w + 15 end to end.
-// Each warp keeps its rows' float32 step state in fragment order
-// (frag_ld / frag_st) in a scratch of its own in device memory, FX floats
-// an array: 0 x0 | 1-6 k_1 .. k_6, each slot taking stage i's gx once
-// stage i + 1 no longer reads its k (slot i - 1 takes gx_i) | 7 g_dy | 8
-// g_r5 | 9 g_k1x | 10 g_k7x | 11 gy (g_y0_direct in, gy0 out) | 12 gf0 |
-// 13 K6's gh carry | then the step's per-row sum of the h-row
+// The stage math and its VJP are stage_sm90.cuh's (drift_stage.cuh's math,
+// rounding point for rounding point, with every weight operand shared by the
+// CTA's warps through a shared-memory ring). A tile is 16 W agent rows, warp
+// w owns rows 16 w .. 16 w + 15 end to end; the warps walk the step's weight
+// boxes in lockstep. Each warp keeps its rows' float32 step state in
+// fragment order (frag_ld / frag_st) in a scratch of its own in device
+// memory, FX floats an array: 0 x0 | 1-6 k_1 .. k_6, each slot taking stage
+// i's gx once stage i + 1 no longer reads its k (slot i - 1 takes gx_i) | 7
+// g_dy | 8 g_r5 | 9 g_k1x | 10 g_k7x | 11 gy (g_y0_direct in, gy0 out) | 12
+// gf0 | 13 K6's gh carry | then the step's per-row sum of the h-row
 // pre-activation's cotangent ([H/2][32]). Only the owning lane touches a
-// slot: no barrier guards them.
+// slot: no barrier guards them. A stage reads each array at most once,
+// coalesced (a lane's 16 floats of an array are 16 strided words).
 
 constexpr int kFX = (DA / 8) * 4 * 32;        // floats of one array
 constexpr int kGhp = 14 * kFX;                // offset of the ghp sum
@@ -926,12 +1009,17 @@ static_assert(DC == DA, "the gh carry takes one DA-wide array");
 using ananke::bf16;
 using ananke::StageSmem;
 using ananke::StageWeights;
-using BSlab = ananke::Slab<DA, DZ, DC, H>;
 using BLayout = ananke::Layout<DA, DZ, DC, H>;
+using HLayout = ananke::sm90::Layout<DA, DZ, DC, H>;
+template <int W>
+using HRing = ananke::sm90::Ring<DA, DZ, DC, H, W>;
 
-// warps of the bf16 tile: 4 (64 rows) while a tile's stage buffers fit the
-// SM's shared memory, 2 (32 rows) for 8 blocks
-inline int bf16_warps(int nb) { return nb <= 7 ? 4 : 2; }
+// warps of the bf16 step VJP's tile: the most whose rows fit the SM's
+// shared memory beside the ring (HLayout::bytes): 6 (96 rows) up to 2
+// blocks, 4 up to 5, 2 beyond
+inline int vjp_bf16_warps(int nb) { return nb <= 2 ? 6 : nb <= 5 ? 4 : 2; }
+// warps of K5-bf16's tile (drift_stage.cuh's forward): 4, 2 at 8 blocks
+inline int k5_bf16_warps(int nb) { return nb <= 7 ? 4 : 2; }
 
 // xa = bf16(x0 + sum_j (h a_st,j) k_j), summed in the tableau's order
 __device__ __forceinline__ void bf16_stage_input(uint32_t (&xa)[DA / 16][4],
@@ -976,77 +1064,86 @@ __device__ __forceinline__ void bf16_stage_cot(float (&gk)[DA / 8][4],
     }
 }
 
-// The VJP of one accepted step for the warp's 16 rows (fr: the warp's
-// scratch, its step inputs in place; ha: bf16(h)'s A fragments; tf: the
-// step's 7 time rows). Leaves gy0 in slot 11, gf0 in 12 and the step's ghp
-// sum at kGhp; the time rows' gradients go to slab + gtf0 + st H. Every
-// thread of the block calls it (stage_backward holds block barriers).
+// bf16(h) of the warp's rows ra, rb (rows past n read as zeros) into the
+// tile's hb rows in shared memory, where every stage reads it; the tile's
+// previous reader ended on a block barrier
 template <int W>
-__device__ void step_vjp_bf16(const StageWeights& w, const StageSmem& sm,
-                              float* fr, const uint32_t (&ha)[DC / 16][4],
-                              const float* tf, float hs, float* slab,
-                              const BSlab& sl, long gtf0, int warp,
-                              int lane) {
+__device__ __forceinline__ void stage_h_rows(const float* h, long ra, long rb,
+                                             bool va, bool vb, int warp,
+                                             int lane) {
+  uint32_t ha[DC / 16][4];
+  ananke::ldg_rows_a<DC>(ha, h, ra, rb, va, vb, lane & 3);
+  ananke::sts_a<DC>(ha, ananke::sm90::Smem<DA, DZ, DC, H, W>::hb() +
+                            warp * 16 * HLayout::SS,
+                    HLayout::SS, lane >> 2, lane & 3);
+}
+
+// The VJP of one accepted step for the warp's 16 rows (fr: the warp's
+// scratch, its step inputs in place; bf16(h) in the tile's hb rows; tf: the
+// step's 7 time rows), then the step's h rows: gh = bf16(ghp) @ W1h^T into
+// slot 13 (added to the slot's carry where carry_gh) and gW1h into the slab
+// (tf_rows time rows, the step's from gtf0 on: stage st's at gtf0 + st H).
+// Leaves gy0 in slot 11 and gf0 in 12. Consumes one period of the ring's
+// schedule, c0 (mod kSlots) boxes consumed before it. A call of its own,
+// one a step, whose arguments are scalars and pointers: its callers
+// recompute their row state after it rather than hold it across. Every
+// thread of the CTA calls it.
+template <int W>
+__device__ __noinline__ void step_vjp_bf16(const StageWeights& w, int c0,
+                                           float* fr, const float* tf,
+                                           float hs, float* slab, int tf_rows,
+                                           long gtf0, bool carry_gh, int warp,
+                                           int lane) {
   constexpr int NX = DA / 8;
   const int g = lane >> 2, t = lane & 3, wr0 = warp * 16;
+  HRing<W> ring = HRing<W>::at_step(c0);
   float* ghp = fr + kGhp;
   for (int i = 0; i < (H / 8) * 4; ++i) ghp[i * 32 + lane] = 0.f;
   for (int st = 1; st < 6; ++st) {
     uint32_t xa[DA / 16][4];
     bf16_stage_input(xa, fr, st, hs, lane);
     float k[NX][4], ia, ib;
-    ananke::stage_forward<DA, DZ, DC, H, W>(w, sm, xa, ha, tf + st * H, k, ia,
-                                            ib, wr0, g, t);
+    ananke::sm90::stage_forward<DA, DZ, DC, H, W>(w, ring, xa, tf + st * H,
+                                                  k, ia, ib, wr0, g, t);
     ananke::frag_st<NX>(k, fr + (1 + st) * kFX, lane);
   }
   for (int st = 6; st >= 1; --st) {
     uint32_t xa[DA / 16][4];
     bf16_stage_input(xa, fr, st, hs, lane);
+    float k[NX][4], ia, ib;
+    ananke::sm90::stage_forward<DA, DZ, DC, H, W>(w, ring, xa, tf + st * H,
+                                                  k, ia, ib, wr0, g, t);
     float gk[NX][4];
     bf16_stage_cot(gk, fr, st, hs, lane);
-    float k[NX][4], ia, ib, gx[NX][4];
-    ananke::stage_forward<DA, DZ, DC, H, W>(w, sm, xa, ha, tf + st * H, k, ia,
-                                            ib, wr0, g, t);
-    ananke::stage_backward<DA, DZ, DC, H, W, true>(
-        w, sm, gk, ha, ia, ib, slab, sl, gtf0 + (long)st * H, false, gx,
-        nullptr, 0, 0, false, false, ghp, warp, lane);
-    float gy[NX][4];
+    // gx_st goes to slot st (k_st's, read by no later stage)
+    ananke::sm90::stage_backward<DA, DZ, DC, H, W>(
+        w, ring, gk, ia, ib, slab, tf_rows, gtf0 + (long)st * H,
+        fr + st * kFX, ghp, warp, lane);
+    float gy[NX][4], gx[NX][4];
     ananke::frag_ld<NX>(gy, fr + 11 * kFX, lane);
+    ananke::frag_ld<NX>(gx, fr + st * kFX, lane);
 #pragma unroll
     for (int q = 0; q < NX; ++q)
 #pragma unroll
       for (int c = 0; c < 4; ++c) gy[q][c] = __fadd_rn(gy[q][c], gx[q][c]);
     ananke::frag_st<NX>(gy, fr + 11 * kFX, lane);
-    ananke::frag_st<NX>(gx, fr + st * kFX, lane);
   }
   float gf[NX][4];
   bf16_stage_cot(gf, fr, 0, hs, lane);
   ananke::frag_st<NX>(gf, fr + 12 * kFX, lane);
-}
-
-// hpre = bf16(h) @ W1h: the step's gh = bf16(ghp) @ W1h^T per row (into ghh,
-// accumulator fragments) and gW1h += bf16(h)^T bf16(ghp) into the slab, at
-// the reference's rounding points. Every thread of the block calls it.
-template <int W>
-__device__ void bf16_h_rows(const StageWeights& w, const StageSmem& sm,
-                            const float* ghp, const uint32_t (&ha)[DC / 16][4],
-                            float* slab, long gw1h, float (&ghh)[DC / 8][4],
-                            int warp, int lane) {
-  const int g = lane >> 2, t = lane & 3, wr0 = warp * 16;
-  float gp[H / 8][4];
-  ananke::frag_ld<H / 8>(gp, ghp, lane);
-  uint32_t g1a[H / 16][4];
-  ananke::c_to_a<H>(gp, g1a);
-  ananke::sts_a<H>(g1a, sm.g + wr0 * BLayout::SH, BLayout::SH, g, t);
-  ananke::sts_a<DC>(ha, sm.small + wr0 * BLayout::SS, BLayout::SS, g, t);
-  ananke::zero(ghh);
+  // hpre = bf16(h) @ W1h: gh = bf16(ghp) @ W1h^T, gW1h += bf16(h)^T bf16(ghp)
+  float ghh[DC / 8][4];
+  ananke::sm90::h_rows<DA, DZ, DC, H, W>(w, ring, ghp, slab, tf_rows, ghh,
+                                         warp, lane);
+  if (carry_gh) {
+    float acc[DC / 8][4];
+    ananke::frag_ld<DC / 8>(acc, fr + 13 * kFX, lane);
 #pragma unroll
-  for (int j = 0; j < DC / 8; ++j)
-    ananke::mma_nblocks<H, 1>(ghh, j, g1a, w.w1h + (size_t)8 * j * H, g, t);
-  __syncthreads();
-  ananke::nt_dot1<DC, H, 16 * W, W>(sm.small, BLayout::SS, sm.g, BLayout::SH,
-                                    slab + gw1h, false, warp, lane);
-  __syncthreads();
+    for (int q = 0; q < DC / 8; ++q)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ghh[q][c] = __fadd_rn(acc[q][c], ghh[q][c]);
+  }
+  ananke::frag_st<DC / 8>(ghh, fr + 13 * kFX, lane);
 }
 
 // ---- K7 -------------------------------------------------------------------
@@ -1119,7 +1216,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // hpre = h W1h: gh = ghp W1h^T, gW1h += h^T ghp
     ntdot<R, DC, H, false>(t.hin, DC, t.ghp, H, nullptr, 0, nullptr, 0,
                            slab + L.gw1h, DC);
-    mm<R, H, DC>(t.ghp, H, p.w.w1hT, DC, t.s.wbuf, [&](float (&acc)[RPT][1]) {
+    mm<R, H, DC, kVjpKC>(t.ghp, H, p.w.w1hT, DC, t.s.wbuf,
+                         [&](float (&acc)[RPT][1]) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         const long g = row0 + wp + kWarps * i;
@@ -1150,43 +1248,86 @@ struct VjpBf16Params {
   float hstep;
 };
 
+// the rows of a warp of a bf16 tile (from row0 on; rows past n read as
+// zeros), its scratch and its fragment mapping: element 4 q + c of a lane
+// is row g + 8 (c >> 1) of the warp's 16, column 8 q + 2 t + (c & 1)
+template <int W>
+struct Bf16Rows {
+  static constexpr int kElems = (DA / 8) * 4;
+  int warp, lane, t;
+  long ra, rb;
+  bool va, vb;
+  float* fr;
+
+  __device__ Bf16Rows(long row0, int n, float* scratch) {
+    warp = threadIdx.x / 32;
+    lane = threadIdx.x % 32;
+    t = lane & 3;
+    ra = row0 + warp * 16 + (lane >> 2);
+    rb = ra + 8;
+    va = ra < n;
+    vb = rb < n;
+    fr = scratch + ((size_t)blockIdx.x * W + warp) * kWarpFloats;
+  }
+  __device__ bool elem(int e, long& row, int& col) const {
+    const int c = e & 3;
+    row = (c & 2) ? rb : ra;
+    col = 8 * (e >> 2) + 2 * t + (c & 1);
+    return (c & 2) ? vb : va;
+  }
+  __device__ float carry_y(int e) const { return fr[11 * kFX + e * 32 + lane]; }
+  __device__ float carry_f(int e) const { return fr[12 * kFX + e * 32 + lane]; }
+  __device__ void set_step_input(int e, float x, float f0, const Gset& c,
+                                 float) {
+    const int i0 = e * 32 + lane;
+    fr[i0] = x;
+    fr[kFX + i0] = f0;
+    fr[7 * kFX + i0] = c.dy;
+    fr[8 * kFX + i0] = c.r5;
+    fr[9 * kFX + i0] = c.k1x;
+    fr[10 * kFX + i0] = c.k7x;
+    fr[11 * kFX + i0] = c.y0d;
+  }
+};
+
 template <int W>
 __global__ void __launch_bounds__(32 * W, 1)
     dopri5_vjp_bf16_kernel(const VjpBf16Params p) {
   constexpr int ROWS = 16 * W, NX = DA / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const StageSmem sm =
-      ananke::stage_smem<DA, DZ, DC, H, W>(smem_raw, p.w.num_blocks);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = lane & 3, g = lane >> 2;
-  const BSlab sl(p.w.z, p.w.num_blocks, 7);
-  float* slab = p.slab + (size_t)blockIdx.x * p.slab_size;
-  float* fr = p.scratch + ((size_t)blockIdx.x * W + warp) * kWarpFloats;
   const int n_tiles = (p.n + ROWS - 1) / ROWS;
-
+  const int period = HRing<W>::period(p.w);
+  HRing<W>().prime(p.w);
+  int c0 = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long ra = (long)tile * ROWS + warp * 16 + g, rb = ra + 8;
-    const bool va = ra < p.n, vb = rb < p.n;
-    uint32_t ha[DC / 16][4];
-    ananke::ldg_rows_a<DC>(ha, p.h, ra, rb, va, vb, t);
-    const float* in[7] = {p.x, p.f0, p.gdy, p.gr5, p.gk1, p.gk7, p.gy0d};
-    const int slot[7] = {0, 1, 7, 8, 9, 10, 11};
-    for (int i = 0; i < 7; ++i) {
-      float v[NX][4];
-      ananke::ldg_rows_c<NX>(v, in[i], ra, rb, va, vb, t);
-      ananke::frag_st<NX>(v, fr + slot[i] * kFX, lane);
+    {  // the tile's step inputs into the warps' scratch
+      const Bf16Rows<W> r((long)tile * ROWS, p.n, p.scratch);
+      stage_h_rows<W>(p.h, r.ra, r.rb, r.va, r.vb, r.warp, r.lane);
+      const float* in[7] = {p.x, p.f0, p.gdy, p.gr5, p.gk1, p.gk7, p.gy0d};
+      const int slot[7] = {0, 1, 7, 8, 9, 10, 11};
+#pragma unroll
+      for (int i = 0; i < 7; ++i) {
+        float v[NX][4];
+        ananke::ldg_rows_c<NX>(v, in[i], r.ra, r.rb, r.va, r.vb, r.t);
+        ananke::frag_st<NX>(v, r.fr + slot[i] * kFX, r.lane);
+      }
     }
-    step_vjp_bf16<W>(p.w, sm, fr, ha, p.tf, p.hstep, slab, sl, sl.gtf, warp,
-                     lane);
+    {
+      const Bf16Rows<W> r((long)tile * ROWS, p.n, p.scratch);
+      step_vjp_bf16<W>(p.w, c0, r.fr, p.tf, p.hstep,
+                       p.slab + (size_t)blockIdx.x * p.slab_size, 7,
+                       (long)p.w.z * DZ, false, r.warp, r.lane);
+    }
+    c0 = (c0 + period) % HLayout::kSlots;
+    const Bf16Rows<W> r((long)tile * ROWS, p.n, p.scratch);
     float v[NX][4];
-    ananke::frag_ld<NX>(v, fr + 11 * kFX, lane);
-    ananke::stg_rows_c<NX>(v, p.gy0, ra, rb, va, vb, t);
-    ananke::frag_ld<NX>(v, fr + 12 * kFX, lane);
-    ananke::stg_rows_c<NX>(v, p.gf0, ra, rb, va, vb, t);
-    float ghh[DC / 8][4];
-    bf16_h_rows<W>(p.w, sm, fr + kGhp, ha, slab, sl.gw1h, ghh, warp, lane);
-    ananke::stg_rows_c<DC / 8>(ghh, p.gh, ra, rb, va, vb, t);
+    ananke::frag_ld<NX>(v, r.fr + 11 * kFX, r.lane);
+    ananke::stg_rows_c<NX>(v, p.gy0, r.ra, r.rb, r.va, r.vb, r.t);
+    ananke::frag_ld<NX>(v, r.fr + 12 * kFX, r.lane);
+    ananke::stg_rows_c<NX>(v, p.gf0, r.ra, r.rb, r.va, r.vb, r.t);
+    ananke::frag_ld<NX>(v, r.fr + 13 * kFX, r.lane);
+    ananke::stg_rows_c<DC / 8>(v, p.gh, r.ra, r.rb, r.va, r.vb, r.t);
   }
+  HRing<W>::drain();
 }
 
 // ---- K5 at bf16 -------------------------------------------------------------
@@ -1330,7 +1471,8 @@ __global__ void __launch_bounds__(32 * W, 1)
 // time-row gradients go into the CTA's slab (time rows at slot 7 s + st),
 // summed over the CTAs in CTA order afterwards. The step body is a template
 // parameter: the float32 one (step_vjp_f32) or the bf16 one
-// (step_vjp_bf16); so is the checkpoints' storage type, widened as read.
+// (step_vjp_bf16). The checkpoints' storage type (float32 or bf16) is a
+// launch parameter, widened as read.
 
 template <class Wt>
 struct BwdParams {
@@ -1350,13 +1492,47 @@ struct BwdParams {
   long slab_size;
   size_t body_smem;       // bytes of the body's shared memory
   int n, n_acc, T;
+  int ckpt_bf16;          // the checkpoints' storage: bf16, else float32
 };
 
-__device__ __forceinline__ float widen(const float* p, size_t i) {
-  return p[i];
+// element i of a checkpoint buffer, widened from its storage type
+__device__ __forceinline__ float widen(const void* p, size_t i, bool b16) {
+  return b16 ? __bfloat162float(static_cast<const bf16*>(p)[i])
+             : static_cast<const float*>(p)[i];
 }
-__device__ __forceinline__ float widen(const bf16* p, size_t i) {
-  return __bfloat162float(p[i]);
+
+// K6's fold of step s: each of the thread's elements (rows, its body's
+// elem mapping) gets its checkpoint, FSAL eval and the step's cotangents,
+// folded from the body's carries and the output rows the step filled
+// (CONTD5 weights; tss, ost: the output times and the rows' steps in
+// shared memory)
+template <class Rows, class Params>
+__device__ __forceinline__ void fold_step(Rows& rows, const Params& p, int s,
+                                          const float* tss, const int* ost) {
+  const float hs = p.steps[p.n_acc + s], t0 = p.steps[s];
+  const bool b16 = p.ckpt_bf16;
+  const size_t plane = (size_t)s * p.n * DA;
+#pragma unroll
+  for (int e = 0; e < Rows::kElems; ++e) {
+    long row;
+    int col;
+    const bool v = rows.elem(e, row, col);
+    float gr[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int r = 0; r < p.T; ++r) {
+      if (ost[r] != s) continue;
+      float w[5];
+      contd5_weights(tss[r], t0, hs, w);
+      const float gv = v ? p.g[((size_t)r * p.n + row) * DA + col] : 0.f;
+#pragma unroll
+      for (int k = 0; k < 5; ++k)
+        gr[k] = __fadd_rn(gr[k], __fmul_rn(w[k], gv));
+    }
+    const size_t i = plane + (size_t)row * DA + col;
+    rows.set_step_input(e, v ? widen(p.ckpts, i, b16) : 0.f,
+                        v ? widen(p.ckpt_f, i, b16) : 0.f,
+                        fold_gset(rows.carry_y(e), rows.carry_f(e), gr, hs),
+                        hs);
+  }
 }
 
 // K6's float32 body: tiles of R rows, 8 warps, the per-element mapping
@@ -1417,7 +1593,9 @@ struct F32Body {
     for (int j = 0; j < 7; ++j) gk[j * R * DA + o] = stage_cot(j, hs, c);
     gy[e] = c.y0d;
   }
-  __device__ void step(int s, float hs) {
+  __device__ void step(int s, const float* tss, const int* ost) {
+    fold_step(*this, p, s, tss, ost);
+    const float hs = p.steps[p.n_acc + s];
     Weights ws = p.w;
     ws.tf = p.tf + (size_t)7 * s * H;
     step_vjp_f32<R>(ws, t, L, slab, L.gtf + (long)7 * s * H, hs, ks, gk, x0,
@@ -1430,8 +1608,8 @@ struct F32Body {
     // hpre = h W1h: gh += ghp W1h^T, gW1h += h^T ghp, once a step
     ntdot<R, DC, H, false>(t.hin, DC, t.ghp, H, nullptr, 0, nullptr, 0,
                            slab + L.gw1h, DC);
-    mm<R, H, DC>(t.ghp, H, p.w.w1hT, DC, t.s.wbuf,
-                 [&](float (&acc)[RPT][1]) {
+    mm<R, H, DC, kVjpKC>(t.ghp, H, p.w.w1hT, DC, t.s.wbuf,
+                         [&](float (&acc)[RPT][1]) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i) ghc[i] = __fadd_rn(ghc[i], acc[i][0]);
     });
@@ -1451,142 +1629,86 @@ struct F32Body {
       const long g = row0 + wp + kWarps * i;
       if (g < p.n) p.gh[g * DC + lane] = ghc[i];
     }
-  }
+  }  __device__ void finish() {}
 };
 
-// K6's bf16 body: tiles of 16 W rows, the fragment mapping (element 4 q + c
-// of a lane: row g + 8 (c >> 1) of its warp's 16, column 8 q + 2 t + (c & 1))
+// K6's bf16 body: tiles of 16 W rows
 template <int W>
 struct Bf16Body {
   static constexpr int kThreadsPerCta = 32 * W;
   static constexpr int kRows = 16 * W;
-  static constexpr int kElems = (DA / 8) * 4;
   using Params = BwdParams<StageWeights>;
-  static size_t smem_bytes(int nb) { return BLayout::bytes(kRows, W, nb); }
+  static size_t smem_bytes(int nb) { return HLayout::bytes(kRows, W, nb); }
 
   const Params& p;
-  StageSmem sm;
-  BSlab sl;
-  float *slab, *fr;
-  int warp, lane, g, t;
-  long ra, rb;
-  bool va, vb;
-  uint32_t ha[DC / 16][4];
+  int c0 = 0, period;  // the ring's boxes consumed (mod kSlots); a step's
+  long row0 = 0;
 
-  __device__ Bf16Body(const Params& p_, unsigned char* raw)
-      : p(p_), sl(p_.w.z, p_.w.num_blocks, 7 * p_.n_acc) {
-    sm = ananke::stage_smem<DA, DZ, DC, H, W>(raw, p.w.num_blocks);
-    warp = threadIdx.x / 32;
-    lane = threadIdx.x % 32;
-    g = lane >> 2;
-    t = lane & 3;
-    slab = p.slab + (size_t)blockIdx.x * p.slab_size;
-    fr = p.scratch + ((size_t)blockIdx.x * W + warp) * kWarpFloats;
+  __device__ Bf16Body(const Params& p_, unsigned char*) : p(p_) {
+    period = HRing<W>::period(p.w);
+    HRing<W>().prime(p.w);
   }
-  __device__ bool elem(int e, long& row, int& col) const {
-    const int c = e & 3;
-    row = (c & 2) ? rb : ra;
-    col = 8 * (e >> 2) + 2 * t + (c & 1);
-    return (c & 2) ? vb : va;
-  }
-  __device__ float carry_y(int e) const { return fr[11 * kFX + e * 32 + lane]; }
-  __device__ float carry_f(int e) const { return fr[12 * kFX + e * 32 + lane]; }
   __device__ void begin_tile(int tile) {
-    ra = (long)tile * kRows + warp * 16 + g;
-    rb = ra + 8;
-    va = ra < p.n;
-    vb = rb < p.n;
-    ananke::ldg_rows_a<DC>(ha, p.hc, ra, rb, va, vb, t);
-    for (int i = 0; i < kElems; ++i)
-      fr[11 * kFX + i * 32 + lane] = fr[12 * kFX + i * 32 + lane] =
-          fr[13 * kFX + i * 32 + lane] = 0.f;
+    row0 = (long)tile * kRows;
+    const Bf16Rows<W> r(row0, p.n, p.scratch);
+    stage_h_rows<W>(p.hc, r.ra, r.rb, r.va, r.vb, r.warp, r.lane);
+    for (int i = 0; i < Bf16Rows<W>::kElems; ++i)
+      r.fr[11 * kFX + i * 32 + r.lane] = r.fr[12 * kFX + i * 32 + r.lane] =
+          r.fr[13 * kFX + i * 32 + r.lane] = 0.f;
   }
-  __device__ void set_step_input(int e, float x, float f0, const Gset& c,
-                                 float) {
-    const int i0 = e * 32 + lane;
-    fr[i0] = x;
-    fr[kFX + i0] = f0;
-    fr[7 * kFX + i0] = c.dy;
-    fr[8 * kFX + i0] = c.r5;
-    fr[9 * kFX + i0] = c.k1x;
-    fr[10 * kFX + i0] = c.k7x;
-    fr[11 * kFX + i0] = c.y0d;
-  }
-  __device__ void step(int s, float hs) {
-    step_vjp_bf16<W>(p.w, sm, fr, ha, p.tf + (size_t)7 * s * H, hs, slab, sl,
-                     sl.gtf + (long)7 * s * H, warp, lane);
-    float ghh[DC / 8][4], acc[DC / 8][4];
-    bf16_h_rows<W>(p.w, sm, fr + kGhp, ha, slab, sl.gw1h, ghh, warp, lane);
-    ananke::frag_ld<DC / 8>(acc, fr + 13 * kFX, lane);
-#pragma unroll
-    for (int q = 0; q < DC / 8; ++q)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[q][c] = __fadd_rn(acc[q][c], ghh[q][c]);
-    ananke::frag_st<DC / 8>(acc, fr + 13 * kFX, lane);
+  // the fold of step s, then its VJP (the row state recomputed, not held
+  // across the call)
+  __device__ void step(int s, const float* tss, const int* ost) {
+    {
+      Bf16Rows<W> r(row0, p.n, p.scratch);
+      fold_step(r, p, s, tss, ost);
+    }
+    const Bf16Rows<W> r(row0, p.n, p.scratch);
+    step_vjp_bf16<W>(p.w, c0, r.fr, p.tf + (size_t)7 * s * H,
+                     p.steps[p.n_acc + s],
+                     p.slab + (size_t)blockIdx.x * p.slab_size, 7 * p.n_acc,
+                     (long)p.w.z * DZ + (long)7 * s * H, true, r.warp,
+                     r.lane);
+    c0 = (c0 + period) % HLayout::kSlots;
   }
   __device__ void end_tile() {
+    const Bf16Rows<W> r(row0, p.n, p.scratch);
     float v[DA / 8][4];
-    ananke::frag_ld<DA / 8>(v, fr + 11 * kFX, lane);
-    ananke::stg_rows_c<DA / 8>(v, p.gy0, ra, rb, va, vb, t);
-    ananke::frag_ld<DA / 8>(v, fr + 12 * kFX, lane);
-    ananke::stg_rows_c<DA / 8>(v, p.gf0, ra, rb, va, vb, t);
-    ananke::frag_ld<DA / 8>(v, fr + 13 * kFX, lane);
-    ananke::stg_rows_c<DC / 8>(v, p.gh, ra, rb, va, vb, t);
+    ananke::frag_ld<DA / 8>(v, r.fr + 11 * kFX, r.lane);
+    ananke::stg_rows_c<DA / 8>(v, p.gy0, r.ra, r.rb, r.va, r.vb, r.t);
+    ananke::frag_ld<DA / 8>(v, r.fr + 12 * kFX, r.lane);
+    ananke::stg_rows_c<DA / 8>(v, p.gf0, r.ra, r.rb, r.va, r.vb, r.t);
+    ananke::frag_ld<DA / 8>(v, r.fr + 13 * kFX, r.lane);
+    ananke::stg_rows_c<DC / 8>(v, p.gh, r.ra, r.rb, r.va, r.vb, r.t);
   }
+  __device__ void finish() { HRing<W>::drain(); }
 };
 
-// floats of shared memory K6 adds to its body's: the recorded steps' starts
-// and sizes, the output times and the rows' steps
-inline size_t bwd_extra_bytes(int n_acc, int T) {
-  return (size_t)(2 * n_acc + 2 * T) * sizeof(float);
-}
+// bytes of shared memory K6 adds to its body's: the output times and the
+// rows' steps (the recorded steps' starts and sizes are read from device
+// memory, one uniform load each a step)
+inline size_t bwd_extra_bytes(int T) { return (size_t)2 * T * sizeof(float); }
 
-template <class Body, class CkptT>
+template <class Body>
 __global__ void __launch_bounds__(Body::kThreadsPerCta, 1)
     dopri5_backward_kernel(const typename Body::Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Body body(p, smem_raw);
-  float* t0s = reinterpret_cast<float*>(smem_raw + p.body_smem);
-  float* hss = t0s + p.n_acc;
-  float* tss = hss + p.n_acc;
+  float* tss = reinterpret_cast<float*>(smem_raw + p.body_smem);
   int* ost = reinterpret_cast<int*>(tss + p.T);
-  for (int i = threadIdx.x; i < 2 * p.n_acc + p.T; i += blockDim.x)
-    t0s[i] = p.steps[i];
-  for (int i = threadIdx.x; i < p.T; i += blockDim.x) ost[i] = p.out_step[i];
+  for (int i = threadIdx.x; i < p.T; i += blockDim.x) {
+    tss[i] = p.steps[2 * p.n_acc + i];
+    ost[i] = p.out_step[i];
+  }
   __syncthreads();
-  const CkptT* ck = static_cast<const CkptT*>(p.ckpts);
-  const CkptT* ckf = static_cast<const CkptT*>(p.ckpt_f);
   const int n_tiles = (p.n + Body::kRows - 1) / Body::kRows;
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     body.begin_tile(tile);
-    for (int s = p.n_acc - 1; s >= 0; --s) {
-      const float hs = hss[s], t0 = t0s[s];
-      const size_t plane = (size_t)s * p.n * DA;
-#pragma unroll
-      for (int e = 0; e < Body::kElems; ++e) {
-        long row;
-        int col;
-        const bool v = body.elem(e, row, col);
-        float gr[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-        for (int r = 0; r < p.T; ++r) {
-          if (ost[r] != s) continue;
-          float w[5];
-          contd5_weights(tss[r], t0, hs, w);
-          const float gv = v ? p.g[((size_t)r * p.n + row) * DA + col] : 0.f;
-#pragma unroll
-          for (int k = 0; k < 5; ++k)
-            gr[k] = __fadd_rn(gr[k], __fmul_rn(w[k], gv));
-        }
-        const size_t i = plane + (size_t)row * DA + col;
-        body.set_step_input(
-            e, v ? widen(ck, i) : 0.f, v ? widen(ckf, i) : 0.f,
-            fold_gset(body.carry_y(e), body.carry_f(e), gr, hs), hs);
-      }
-      body.step(s, hs);
-    }
+    for (int s = p.n_acc - 1; s >= 0; --s) body.step(s, tss, ost);
     body.end_tile();
   }
+  body.finish();
 }
 
 bool widths_ok(int da, int dz, int dc, int hdim) {
@@ -1641,7 +1763,7 @@ int launch_vjp(const VjpParams& p, int num_ctas, cudaStream_t s) {
 template <int W>
 int launch_vjp_bf16(const VjpBf16Params& p, int num_ctas, cudaStream_t s) {
   auto* kernel = dopri5_vjp_bf16_kernel<W>;
-  const size_t bytes = BLayout::bytes(16 * W, W, p.w.num_blocks);
+  const size_t bytes = HLayout::bytes(16 * W, W, p.w.num_blocks);
   int err = set_smem(kernel, bytes);
   if (err) return err;
   kernel<<<num_ctas, 32 * W, bytes, s>>>(p);
@@ -1663,12 +1785,12 @@ int launch_step_bf16(StepBf16Params p, int num_ctas, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <class Body, class CkptT>
+template <class Body>
 int launch_backward(typename Body::Params p, int nb, int num_ctas,
                     cudaStream_t s) {
-  auto* kernel = dopri5_backward_kernel<Body, CkptT>;
+  auto* kernel = dopri5_backward_kernel<Body>;
   p.body_smem = Body::smem_bytes(nb);
-  const size_t bytes = p.body_smem + bwd_extra_bytes(p.n_acc, p.T);
+  const size_t bytes = p.body_smem + bwd_extra_bytes(p.T);
   int err = set_smem(kernel, bytes);
   if (err) return err;
   kernel<<<num_ctas, Body::kThreadsPerCta, bytes, s>>>(p);
@@ -1710,16 +1832,18 @@ extern "C" {
 // Agent rows per tile of a kernel's body: kind 0 K5 (32), kind 1 the
 // float32 step VJP (32 up to 4 residual blocks, 16 beyond: its chain of
 // block activations must fit in shared memory), kind 2 the bf16 step VJP
-// and kind 3 K5 at bf16 (64, or 32 at 8 blocks).
+// (96 up to 2 blocks, 64 up to 5, 32 beyond: vjp_bf16_warps) and kind 3 K5
+// at bf16 (64, or 32 at 8 blocks).
 int ananke_dopri5_tile_rows(int num_blocks, int kind) {
-  if (kind == 2 || kind == 3) return 16 * bf16_warps(num_blocks);
+  if (kind == 2) return 16 * vjp_bf16_warps(num_blocks);
+  if (kind == 3) return 16 * k5_bf16_warps(num_blocks);
   return kind == 1 && num_blocks > 4 ? 16 : 32;
 }
 
 // Floats of one CTA's scratch in device memory of a step-VJP body (kind 1
 // or 2, as ananke_dopri5_tile_rows).
 long ananke_dopri5_scratch_floats(int num_blocks, int kind) {
-  if (kind == 2) return (long)bf16_warps(num_blocks) * kWarpFloats;
+  if (kind == 2) return (long)vjp_bf16_warps(num_blocks) * kWarpFloats;
   return 14L * ananke_dopri5_tile_rows(num_blocks, 1) * DA;
 }
 
@@ -1815,7 +1939,7 @@ int ananke_dopri5_step_bf16(
   p.rtol = rtol;
   p.atol = atol;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int e = bf16_warps(num_blocks) == 4
+  const int e = k5_bf16_warps(num_blocks) == 4
                     ? launch_step_bf16<4>(p, num_ctas, s)
                     : launch_step_bf16<2>(p, num_ctas, s);
   if (e) return e;
@@ -1868,8 +1992,11 @@ int ananke_dopri5_step_vjp(
     p.slab_size = SlabLayout(z, num_blocks, 7).size;
     p.n = n;
     p.hstep = hstep;
-    return bf16_warps(num_blocks) == 4 ? launch_vjp_bf16<4>(p, num_ctas, s)
-                                       : launch_vjp_bf16<2>(p, num_ctas, s);
+    switch (vjp_bf16_warps(num_blocks)) {
+      case 6: return launch_vjp_bf16<6>(p, num_ctas, s);
+      case 4: return launch_vjp_bf16<4>(p, num_ctas, s);
+      default: return launch_vjp_bf16<2>(p, num_ctas, s);
+    }
   }
   VjpParams p;
   set_weights(p.w, wts, ze, zeT, tf, z, zp, num_blocks);
@@ -1925,25 +2052,20 @@ int ananke_dopri5_backward_all(
     set_weights_bf16(p.w, wts, ze, zeT, z, zp, num_blocks);
     set_bwd_params(p, ckpts, ckpt_f, g, hc, tf, steps, out_step, gy0, gf0,
                    gh, scratch, slab, size, n, n_acc, T);
-    if (bf16_warps(num_blocks) == 4)
-      return ckpt_bf16
-                 ? launch_backward<Bf16Body<4>, bf16>(p, num_blocks, num_ctas, s)
-                 : launch_backward<Bf16Body<4>, float>(p, num_blocks, num_ctas, s);
-    return ckpt_bf16
-               ? launch_backward<Bf16Body<2>, bf16>(p, num_blocks, num_ctas, s)
-               : launch_backward<Bf16Body<2>, float>(p, num_blocks, num_ctas, s);
+    p.ckpt_bf16 = ckpt_bf16;
+    switch (vjp_bf16_warps(num_blocks)) {
+      case 6: return launch_backward<Bf16Body<6>>(p, num_blocks, num_ctas, s);
+      case 4: return launch_backward<Bf16Body<4>>(p, num_blocks, num_ctas, s);
+      default: return launch_backward<Bf16Body<2>>(p, num_blocks, num_ctas, s);
+    }
   }
   BwdParams<Weights> p;
   set_weights(p.w, wts, ze, zeT, tf, z, zp, num_blocks);
   set_bwd_params(p, ckpts, ckpt_f, g, hc, tf, steps, out_step, gy0, gf0, gh,
                  scratch, slab, size, n, n_acc, T);
-  if (rows == 32)
-    return ckpt_bf16
-               ? launch_backward<F32Body<32>, bf16>(p, num_blocks, num_ctas, s)
-               : launch_backward<F32Body<32>, float>(p, num_blocks, num_ctas, s);
-  return ckpt_bf16
-             ? launch_backward<F32Body<16>, bf16>(p, num_blocks, num_ctas, s)
-             : launch_backward<F32Body<16>, float>(p, num_blocks, num_ctas, s);
+  p.ckpt_bf16 = ckpt_bf16;
+  return rows == 32 ? launch_backward<F32Body<32>>(p, num_blocks, num_ctas, s)
+                    : launch_backward<F32Body<16>>(p, num_blocks, num_ctas, s);
 }
 
 const char* ananke_cuda_error_string(int err) {

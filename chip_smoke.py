@@ -21,7 +21,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compiles every ``ananke_abm_tpu_torch/csrc/*.cu`` with nvcc, one
-   process per source, all at once, into ``build/ananke_abm_tpu_torch/``;
+   process per source, all at once, into ``build/ananke_abm_tpu_torch/``,
+   and prints ptxas's registers and spills per kernel;
 3. kernel: the interval kernel against its plain PyTorch version on the
    card at the three shapes of KERNEL_SHAPES and at the main path's own
    operands (x_new's mean and max difference within X_MEAN_ATOL and
@@ -95,7 +96,10 @@ Phases (any failure raises and the script exits non-zero):
     "discrete")`` at rung 3's shape with train()'s defaults (max_accepted
     512, ckpt_every 16): finite losses, the third below the first, K5
     launched once per attempted forward step and backward replay, K7 once
-    per accepted step; its step wall beside phase 7's;
+    per accepted step; its step wall beside phase 7's; then a fourth step
+    under ``torch.profiler``: the device's busy and idle share of its wall
+    time and its device time by kernel name (the model and optimizer put
+    back after it);
 20. discrete trainer check at 8,192 agents: the kernels against their
     plain versions (the same accepted steps, loss rel <= 1e-4, gradient
     cosine > 0.9999) and against the continuous adjoint (loss rel <= 2e-4,
@@ -120,7 +124,8 @@ Phases (any failure raises and the script exits non-zero):
     adjoint_mode="discrete", max_accepted=256, ckpt_every=1,
     bwd_precision="bf16")`` at 98,304 x 64 x 12, seed 7: finite losses,
     the third below the first, K6 launched once and K7 never per step, K5
-    once per attempted forward step; its step wall beside phase 19's;
+    once per attempted forward step; its step wall beside phase 19's; a
+    fourth step under ``torch.profiler`` as in phase 19;
 26. at 8,192 agents the K6 route against the same route with
     ``_plain=True`` (every plain version: loss rel <= 1e-4 as phase 20,
     the same accepted steps, cosine > 0.999), the per-step bf16 route
@@ -218,7 +223,13 @@ controls.
 ``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` runs phases 1-2 and then
 compares K8 of this checkout with K8 built from each checkout at DIR:
 ptxas and SASS counts of each build, bits at K8_SHAPES and alternating
-per-launch times.
+per-launch times. ``python3 chip_smoke.py --ab-dopri5 DIR [DIR ...]``
+does the same for the step VJP K7 (float32 and bf16) and the whole
+backward K6 (bf16 and float32 bodies): each DIR's ``fused_dopri5.cu``
+compiles beside phase 2, then ptxas's registers and spills of both
+builds, the bits at DOPRI5_SHAPES, and the per-launch times of K6 on the
+recording of one rung-3 step at its own settings and of K7 at phase 19's
+shape, in the order DIR..., this, this, ...DIR.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``{"kernels": [...]}`` (for every kernel its launches on the main path,
@@ -343,6 +354,59 @@ def bound(flop, nbytes, peak=PEAK_BF16_FLOPS):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def device_busy(label, fn, card):
+    """One call of ``fn`` (a training step) under torch.profiler: prints the
+    device's busy and idle share of its wall time (the sum of the device
+    time of its kernels, copies and fills, one stream, over the host clock
+    around the synced call) and the device time by kernel name, largest
+    first; "not measured" where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            ms, n = by_name.get(e.key, (0.0, 0))
+            by_name[e.key] = (ms + e.self_device_time_total / 1e3,
+                              n + e.count)
+    busy = sum(ms for ms, _ in by_name.values())
+    if busy == 0:
+        print(f"device busy share, {label}: not measured (the profiler "
+              f"recorded no device time in a {wall:.3f} ms step) "
+              f"[card {card}]", flush=True)
+        return
+    print(f"device busy share, {label}: {busy:.3f} ms of device time in a "
+          f"{wall:.3f} ms step (host clock, profiled): busy {busy / wall:.1%}"
+          f", idle {1 - busy / wall:.1%} [card {card}]", flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    print(f"device time by kernel, {label}: " + "; ".join(
+        f"{name[:48]} {ms:.3f} ms x{n}" for name, (ms, n) in top[:10]),
+        flush=True)
+
+
+@contextlib.contextmanager
+def state_kept(model, optimizer):
+    """The model's parameters and the optimizer's AdamW state put back as
+    they were before the block: a profiled step leaves no trace on the
+    phases after it."""
+    import copy
+
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    adamw = copy.deepcopy(optimizer.adamw.state_dict())
+    try:
+        yield
+    finally:
+        model.load_state_dict(params)
+        optimizer.adamw.load_state_dict(adamw)
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms,
                  plain_ms, flop, nbytes, peak=PEAK_BF16_FLOPS,
                  library_ms=None):
@@ -396,6 +460,9 @@ def main():
                         "sum) kernels' readings only")
     parser.add_argument("--ab-k8", metavar="DIR", nargs="+",
                         help="time K8 against K8 of the checkouts at DIR")
+    parser.add_argument("--ab-dopri5", metavar="DIR", nargs="+",
+                        help="compare and time K6 and K7 against those of "
+                        "the checkouts at DIR")
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -443,14 +510,16 @@ def main():
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
+    # the other checkouts' DOPRI5 kernels compile beside this one's
+    others = [start_build(Path(d).resolve(), f"other{i}", "fused_dopri5")
+              for i, d in enumerate(args.ab_dopri5 or ())]
     built = _build.build_all()
     print(f"build: {len(built)} libraries in "
           f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     for name, (path, log, seconds) in built.items():
         print(f"build: {path.relative_to(ROOT)} in {seconds:.1f} s")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(line.strip())
+        for line in ptxas_lines(log):
+            print(f"  {line}")
         _build.load_library(name)
     sys.stdout.flush()
 
@@ -477,6 +546,9 @@ def main():
         return
     if args.ab_k8:
         ab_k8(dev, [Path(d) for d in args.ab_k8])
+        return
+    if args.ab_dopri5:
+        ab_dopri5(dev, built["fused_dopri5"][1], others)
         return
 
     # ---- 3. kernel against its plain version --------------------------------
@@ -1132,49 +1204,117 @@ def witness_readings(dev, n, z, nb, num_times, seed):
                   + f"; kernel / plain worst mean {ratio:.3f}", flush=True)
 
 
-def build_k8(checkout, name):
-    """Compile ``checkout``'s ``csrc/fused_rhs.cu`` (its own headers) with
-    the port's flags into ``OUT/ab/<name>.so``, print ptxas's per-kernel
-    registers and spills and the kernels' SASS opcode counts, and load it
-    with the port's C interface."""
+def ptxas_lines(log):
+    """One line per kernel of an nvcc -Xptxas -v log: its name (demangled
+    where c++filt is at hand, without its parameter list), registers and
+    spill stores and loads; then one line per device function a kernel
+    calls (its spills, "called")."""
+    import re
+
+    rows, called, name, prop, spill = [], {}, None, None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            prop = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            text = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+            if prop == name:
+                spill = text
+            elif prop:
+                called[prop] = text
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append([name, f"{m.group(1)} registers, {spill}"])
+            name, spill = None, ""
+    rows += [[n, f"called: {text}"] for n, text in called.items()]
+    filt = shutil.which("c++filt")
+    if filt and rows:
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True).stdout
+        for r, d in zip(rows, out.splitlines()):
+            r[0] = d.replace("(anonymous namespace)::", "").split("(")[0]
+    return [f"{n}: {rest}" for n, rest in rows]
+
+
+def start_build(checkout, name, lib):
+    """Start nvcc on ``checkout``'s ``csrc/<lib>.cu`` (with its own
+    headers) with the port's flags, into ``OUT/ab/<name>-<lib>.so``; the
+    handle goes to :func:`finish_build`."""
+    from ananke_abm_tpu_torch.ops.cuda import _build
+
+    path = OUT / "ab" / f"{name}-{lib}.so"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    src = checkout / "ananke_abm_tpu_torch" / "csrc" / f"{lib}.cu"
+    proc = subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                             str(path), str(src)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, path, src, name, lib
+
+
+def finish_build(handle, sass=False):
+    """Wait for a :func:`start_build`, print ptxas's registers and spills
+    per kernel (and, with ``sass``, the kernels' SASS opcode counts) and
+    load the library with the port's C interface."""
     import ctypes
     import re
 
     from ananke_abm_tpu_torch.ops.cuda import _build
 
-    path = OUT / "ab" / f"{name}.so"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    src = checkout / "ananke_abm_tpu_torch" / "csrc" / "fused_rhs.cu"
-    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                           str(path), str(src)], capture_output=True,
-                          text=True, timeout=600)
+    proc, path, src, name, lib = handle
+    log, _ = proc.communicate(timeout=900)
     if proc.returncode != 0:
-        fail(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+        fail(f"nvcc failed on {src}:\n{log}")
     print(f"build [{name}]: {src}")
-    for line in (proc.stdout + proc.stderr).splitlines():
-        if ("Compiling entry" in line or "registers" in line
-                or "spill" in line):
-            print(f"  {line.strip()}")
-    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
-                          capture_output=True, text=True, timeout=300).stdout
-    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
-    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-        ops = {}
-        for m in op.finditer(fn):
-            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
-        keys = ("HMMA", "LDS", "STS", "LDSM", "LDG", "STG", "LDL", "STL",
-                "BAR", "SHFL", "MUFU")
-        print(f"  sass {fn.split(chr(10), 1)[0][:60]}: {sum(ops.values())} "
-              "instructions; " + ", ".join(f"{k} {ops.get(k, 0)}"
-                                           for k in keys))
-    lib = ctypes.CDLL(str(path))
-    for entry, (argtypes, restype) in _build._ENTRY["fused_rhs"].items():
-        getattr(lib, entry).argtypes = argtypes
-        getattr(lib, entry).restype = restype
-    lib.ananke_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.ananke_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    for line in ptxas_lines(log):
+        print(f"  {line}")
+    if sass:
+        cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+        out = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                             capture_output=True, text=True,
+                             timeout=300).stdout
+        op = re.compile(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
+        for fn in re.split(r"\n\s*Function : ", out)[1:]:
+            ops = {}
+            for m in op.finditer(fn):
+                ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+            keys = ("HMMA", "LDS", "STS", "LDSM", "LDG", "STG", "LDL", "STL",
+                    "BAR", "SHFL", "MUFU")
+            print(f"  sass {fn.split(chr(10), 1)[0][:60]}: "
+                  f"{sum(ops.values())} instructions; "
+                  + ", ".join(f"{k} {ops.get(k, 0)}" for k in keys))
+    so = ctypes.CDLL(str(path))
+    for entry, (argtypes, restype) in _build._ENTRY[lib].items():
+        getattr(so, entry).argtypes = argtypes
+        getattr(so, entry).restype = restype
+    so.ananke_cuda_error_string.argtypes = [ctypes.c_int]
+    so.ananke_cuda_error_string.restype = ctypes.c_char_p
+    return so
+
+
+@contextlib.contextmanager
+def library_of(lib, so):
+    """The port's wrappers launch from ``so`` (a build of another checkout's
+    ``csrc/<lib>.cu``) inside the block."""
+    from ananke_abm_tpu_torch.ops.cuda import _build
+
+    load = _build.load_library
+    _build.load_library = lambda name: so if name == lib else load(name)
+    try:
+        yield
+    finally:
+        _build.load_library = load
+
+
+def build_k8(checkout, name):
+    """``checkout``'s K8 library (``csrc/fused_rhs.cu``), with ptxas's and
+    the SASS counts printed."""
+    return finish_build(start_build(checkout, name, "fused_rhs"), sass=True)
 
 
 def ab_k8(dev, others):
@@ -1188,21 +1328,16 @@ def ab_k8(dev, others):
         build_model,
         init_params,
     )
-    from ananke_abm_tpu_torch.ops.cuda import _build
     from ananke_abm_tpu_torch.ops.cuda.checks import k8_operands
     from ananke_abm_tpu_torch.ops.cuda.fused_rhs import drift_rhs_and_vjp
 
     libs = {"this": build_k8(ROOT, "this")}
     for i, other in enumerate(others):
         libs[str(other)] = build_k8(other, f"other{i}")
-    load = _build.load_library
 
     def run(which, args):
-        _build.load_library = lambda name: libs[which]
-        try:
+        with library_of("fused_rhs", libs[which]):
             return drift_rhs_and_vjp(*args)
-        finally:
-            _build.load_library = load
 
     config = GATODEConfig(method="dopri5")
     main_args = None
@@ -1230,6 +1365,93 @@ def ab_k8(dev, others):
         print(f"K8 A/B at N={K8_SHAPES[0][0]} Z={K8_SHAPES[0][1]}: {w} "
               f"{', '.join(f'{m:.3f}' for m in t)} ms per launch",
               flush=True)
+
+
+def ab_dopri5(dev, this_log, handles):
+    """``--ab-dopri5 DIR [DIR ...]``: the step VJP K7 (float32 and bf16) and
+    the whole backward K6 (bf16 and float32 bodies) of this checkout
+    against those of each checkout at DIR (its ``csrc/fused_dopri5.cu`` and
+    headers, built with the port's flags and C interface; ``handles`` from
+    :func:`start_build`, started before phase 2): ptxas's registers and
+    spills per kernel, the bits at every shape of DOPRI5_SHAPES, then the
+    per-launch times at the main path's operands (K6 on the recording of a
+    rung-3 step at its own settings, K7 at phase 19's shape) in the order
+    DIR..., this, this, ...DIR."""
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        init_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import _build
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        K6_RECORD,
+        dopri5_backward_operands,
+        dopri5_operands,
+        dopri5_vjp_outputs,
+    )
+
+    print(f"build [this]: {ROOT / 'ananke_abm_tpu_torch/csrc/fused_dopri5.cu'}")
+    for line in ptxas_lines(this_log):
+        print(f"  {line}")
+    libs = {"this": _build.load_library("fused_dopri5")}
+    for h in handles:
+        libs[str(h[2].parents[2])] = finish_build(h)
+    others = [w for w in libs if w != "this"]
+
+    def run(which, fn, *a, **kw):
+        with library_of("fused_dopri5", libs[which]):
+            return fn(*a, **kw)
+
+    vjp, bwd = fd.dopri5_step_vjp_fused, fd.dopri5_backward_fused
+    with torch.no_grad():
+        for n, z, nb in DOPRI5_SHAPES:
+            model = build_model(GATODEConfig(num_blocks=nb), 7, 8, device=dev)
+            init_params(model, torch.Generator().manual_seed(nb))
+            args, cot = dopri5_operands(model, n, z, dev, seed=n)
+            cases = [("K7 f32", vjp, args + cot, "f32"),
+                     ("K7 bf16", vjp, args + cot, "bf16")]
+            for dt in (torch.bfloat16, torch.float32):
+                bargs = dopri5_backward_operands(model, n, z, dev, n,
+                                                 *K6_RECORD, ckpt_dtype=dt)
+                cases += [(f"K6 {p} checkpoints {str(dt)[6:]}", bwd, bargs, p)
+                          for p in ("bf16", "f32")]
+            for label, fn, a, prec in cases:
+                out = {w: dopri5_vjp_outputs(run(w, fn, *a, precision=prec))
+                       for w in libs}
+                for w in others:
+                    x, y = out["this"], out[w]
+                    same = same_bits(x, y)
+                    diff = max((u - v).abs().max().item()
+                               for (_, u), (_, v) in zip(x, y))
+                    print(f"{label} A/B N={n} Z={z} num_blocks={nb}: this "
+                          f"against {w}: same bits {same} (max |d| "
+                          f"{diff:.3e})", flush=True)
+                del out
+    model, a, n_acc = rung3_recording(dev)
+    args, cot = dopri5_operands(model, ADAPT_N, ADAPT_ZONES, dev, seed=1)
+    pk = {p: fd.pack_operands(args[3], *args[5:11], precision=p)
+          for p in ("f32", "bf16")}
+    kpk = {p: fd.pack_operands(a[3], *a[11:], precision=p)
+           for p in ("f32", "bf16")}
+    timed = [(f"K6 bf16 on rung 3's recording ({n_acc} steps)", bwd, a,
+              "bf16", kpk, 2),
+             (f"K6 f32 on rung 3's recording ({n_acc} steps)", bwd, a, "f32",
+              kpk, 2),
+             ("K7 f32 at phase 19's shape", vjp, args + cot, "f32", pk, 5),
+             ("K7 bf16 at rung 3's shape", vjp, args + cot, "bf16", pk, 5)]
+    card = card_line()
+    order = others + ["this", "this"] + others[::-1]
+    with torch.no_grad():
+        for label, fn, fa, prec, packs, reps in timed:
+            times = {w: [] for w in libs}
+            for w in order:
+                times[w].append(cuda_ms(lambda: run(
+                    w, fn, *fa, precision=prec, packed=packs[prec]), reps))
+            print(f"{label} (N={ADAPT_N}, Z={ADAPT_ZONES}) A/B: "
+                  + "; ".join(f"{w} {', '.join(f'{m:.3f}' for m in t)}"
+                              for w, t in times.items())
+                  + f" ms per launch [card {card}]", flush=True)
 
 
 def fixed_step_phases(dev, card):
@@ -1951,6 +2173,9 @@ def dopri5_phases(dev, card, continuous_wall):
           f"adjoint's {continuous_wall:.3f} s [card {card}]", flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"discrete training losses {losses}: not finite and falling")
+    with state_kept(model, opt):
+        device_busy("phase 19 step (train()'s defaults, K5 and K7)",
+                    lambda: step(*batch), card)
 
     # ---- 20. kernel trainer against plain versions and continuous mode ---
     sub = tuple(b[:CHECK_TRAIN_AGENTS] for b in batch)
@@ -2182,6 +2407,59 @@ def backward_kernel_checks(dev, n, z, nb, seed, control, enforce=True,
     return errs
 
 
+def rung3_trainer(dev):
+    """(config, a freshly seeded model, static, batch) of bench rung 3's
+    adaptive trainer: 98,304 agents x 64 zones x 12 times, seed 7."""
+    from ananke_abm_tpu_torch.data_generator import generate_agent_population
+    from ananke_abm_tpu_torch.models.gnn_embed import train as tr
+
+    config = tr.GATODEConfig(method="dopri5")
+    data = generate_agent_population(ADAPT_N, num_times=ADAPT_TIMES,
+                                     seed=ADAPT_SEED, num_zones=ADAPT_ZONES)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)
+    static = (on(data["zone_features"]), on(data["adj"]), on(data["times"]))
+    batch = (on(data["person_feats"]), on(data["home_zone"], torch.long),
+             on(data["zone_ids"], torch.long))
+    model = tr.build_model(config, data["zone_features"].shape[-1],
+                           data["person_feats"].shape[-1], device=dev)
+    tr.init_params(model, torch.Generator().manual_seed(ADAPT_SEED))
+    return config, model, static, batch
+
+
+def recording_operands(model, recorded):
+    """K6's operands (``dopri5_backward_fused``'s, without the precision)
+    from what a discrete backward passed to ``step_vjp.backward_all``
+    (``stats["backward_all"]``): the recording, the output rows'
+    cotangents, the time table of its steps and the drift's weights."""
+    from ananke_abm_tpu_torch.models.gnn_embed.params import (
+        flax_leaf_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+    from ananke_abm_tpu_torch.ops.cuda.fused_rhs import split_drift_params
+
+    (ckpts, ckpt_f, rec_t0, rec_h, n_acc, g, out_step, ts,
+     (params, hc, ze)) = recorded
+    (Wq, W1xc, W1h, W1t, b1, blocks, W3, b3) = split_drift_params(
+        dict(zip([p for p, _ in flax_leaf_params(model)], params)))
+    return (ckpts, ckpt_f, hc, ze,
+            fd.stage_time_table(rec_t0, rec_h, W1t, b1), rec_t0, rec_h,
+            n_acc, g, out_step, ts, Wq, W1xc, W1h, blocks, W3, b3)
+
+
+def rung3_recording(dev):
+    """(model, K6's operands, accepted steps) of one training step at bench
+    rung 3's own settings (RUNG3) from a freshly seeded model."""
+    from ananke_abm_tpu_torch.models.gnn_embed import train as tr
+
+    config, model, static, batch = rung3_trainer(dev)
+    step, _ = tr.make_adjoint_step_fns(
+        model, tr.make_optimizer(model, config), config, static, **RUNG3)
+    step.stats["keep_backward_all"] = True
+    step(*batch)
+    a = recording_operands(model, step.stats.pop("backward_all"))
+    return model, a, a[7]
+
+
 def backward_all_phases(dev, card, discrete_wall):
     """Phases 24-27: K6 and K7 at bf16 against their plain versions, the
     discrete trainer at bench rung 3's own settings, the K6 route against
@@ -2189,11 +2467,7 @@ def backward_all_phases(dev, card, discrete_wall):
     route, K6 against its plain version on the operands of rung 3's last
     step, and times. Returns K6's and K7-bf16's entries of the
     {"kernels": [...]} line."""
-    from ananke_abm_tpu_torch.data_generator import generate_agent_population
     from ananke_abm_tpu_torch.models.gnn_embed import train as tr
-    from ananke_abm_tpu_torch.models.gnn_embed.params import (
-        flax_leaf_params,
-    )
     from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
     from ananke_abm_tpu_torch.ops.cuda.checks import (
         DOPRI5_BWD_BF16_BOUNDS,
@@ -2201,7 +2475,6 @@ def backward_all_phases(dev, card, discrete_wall):
         dopri5_operands,
         dopri5_vjp_outputs,
     )
-    from ananke_abm_tpu_torch.ops.cuda.fused_rhs import split_drift_params
 
     # ---- 24. K6 and K7-bf16 against their plain versions -----------------
     errs = [0.0, 0.0]
@@ -2215,16 +2488,7 @@ def backward_all_phases(dev, card, discrete_wall):
                                control=False, witness=True)
 
     # ---- 25. the discrete trainer at bench rung 3's own settings ---------
-    config = tr.GATODEConfig(method="dopri5")
-    data = generate_agent_population(ADAPT_N, num_times=ADAPT_TIMES,
-                                     seed=ADAPT_SEED, num_zones=ADAPT_ZONES)
-    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)
-    static = (on(data["zone_features"]), on(data["adj"]), on(data["times"]))
-    batch = (on(data["person_feats"]), on(data["home_zone"], torch.long),
-             on(data["zone_ids"], torch.long))
-    model = tr.build_model(config, data["zone_features"].shape[-1],
-                           data["person_feats"].shape[-1], device=dev)
-    tr.init_params(model, torch.Generator().manual_seed(ADAPT_SEED))
+    config, model, static, batch = rung3_trainer(dev)
     opt = tr.make_optimizer(model, config)
     step, _ = tr.make_adjoint_step_fns(model, opt, config, static, **RUNG3)
     kernels = fd.KERNELS
@@ -2271,6 +2535,10 @@ def backward_all_phases(dev, card, discrete_wall):
           f"[card {card}]", flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"rung-3 training losses {losses}: not finite and falling")
+    step.stats["keep_backward_all"] = False
+    with state_kept(model, opt):
+        device_busy("phase 25 step (rung 3 at its own settings, K5 and K6)",
+                    lambda: step(*batch), card)
 
     # ---- 26. the K6 route against the plain, per-step and float32 routes --
     sub = tuple(b[:CHECK_TRAIN_AGENTS] for b in batch)
@@ -2319,15 +2587,10 @@ def backward_all_phases(dev, card, discrete_wall):
 
     # ---- 27. K6 on the main path's own operands, and times ---------------
     # the operands the hooks formed from the last rung-3 step's recording
-    (ckpts, ckpt_f, rec_t0, rec_h, n_acc, g, out_step, ts,
-     (params, hc, ze)) = recorded
-    (Wq, W1xc, W1h, W1t, b1, blocks, W3, b3) = split_drift_params(
-        dict(zip([p for p, _ in flax_leaf_params(model)], params)))
-    wts = (Wq, W1xc, W1h, blocks, W3, b3)
-    a = (ckpts, ckpt_f, hc, ze, fd.stage_time_table(rec_t0, rec_h, W1t, b1),
-         rec_t0, rec_h, n_acc, g, out_step, ts, *wts)
+    a = recording_operands(model, recorded)
+    ckpts, n_acc = a[0], a[7]
     kw = dict(precision="bf16",
-              packed=fd.pack_operands(ze, *wts, precision="bf16"))
+              packed=fd.pack_operands(a[3], *a[11:], precision="bf16"))
     tag = (f"on rung 3's last recording ({n_acc} of {ckpts.shape[0]} steps,"
            f" {str(ckpts.dtype)[6:]} checkpoints, N={ADAPT_N})")
     with torch.no_grad():
@@ -2379,6 +2642,18 @@ def backward_all_phases(dev, card, discrete_wall):
     print(f"rung-3 step at its own settings: {step_wall:.3f} s, K6 "
           f"{ms[0]:.3f} ms of it ({ms[0] / 1e3 / step_wall:.1%}) [card "
           f"{card}]", flush=True)
+    # K6's float32 body on the same recording (no main path launches it:
+    # rung 3 takes the bf16 body; checked in phase 24), at the FP32 peak
+    kw32 = dict(precision="f32",
+                packed=fd.pack_operands(a[3], *a[11:], precision="f32"))
+    with torch.no_grad():
+        m32 = cuda_ms(lambda: fd.dopri5_backward_fused(*a, **kw32), 2)
+        p32 = cuda_ms(lambda: fd.dopri5_backward_reference(
+            *a, precision="f32"), 1)
+    b, by = bound(flops[0], nbytes[0], PEAK_FP32_FLOPS)
+    print(f"dopri5_backward_fused (f32 body) on the same recording: kernel "
+          f"{m32:.3f} ms ({b / m32:.1%} of the FP32 {by} bound {b:.3f} ms),"
+          f" plain version {p32:.3f} ms [card {card}]", flush=True)
     return [kernel_entry(name, "fused_dopri5.cu", src, n_, e, m, p, f, nb_)
             for name, src, n_, e, m, p, f, nb_ in zip(
                 names, ("fused_dopri5.py:474", "fused_dopri5.py:254"),

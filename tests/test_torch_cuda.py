@@ -785,6 +785,37 @@ def test_dopri5_bf16_and_backward_kernels_match_plain_versions(
         assert all(w <= b for w, b in zip(_worst(got, want), bounds)), label
 
 
+@pytest.mark.parametrize("n,num_zones,num_blocks", [
+    (1_001, 64, 1), (1_001, 500, 1), (1_001, 40, 2), (999, 64, 4),
+    (999, 500, 4), (515, 64, 8), (515, 500, 8),
+])
+def test_step_vjp_bodies_match_plain_versions_at_ragged_tiles(
+        cuda, n, num_zones, num_blocks):
+    """The step VJP's bodies at agent counts no tile divides (the bf16
+    body's 96 rows up to 2 blocks, 64 up to 5, 32 beyond; the float32
+    body's 32, 16 past 4 blocks), 1, 2, 4 and 8 blocks, and zones that fill
+    2 or 16 of the bf16 body's 32-zone weight boxes or end in a half box
+    (40): K7 at float32 and K7-bf16 and K6 (both precisions, both
+    checkpoint types) within ``checks.py``'s bounds of their plain
+    versions, each repeat bit-identical."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        DOPRI5_VJP_BOUNDS,
+        dopri5_vjp_outputs,
+    )
+
+    args, cot = _dopri5_args(cuda, n, num_zones, num_blocks)
+    with torch.no_grad():
+        got = dopri5_vjp_outputs(fd.dopri5_step_vjp_fused(*args, *cot))
+        again = dopri5_vjp_outputs(fd.dopri5_step_vjp_fused(*args, *cot))
+        want = dopri5_vjp_outputs(fd.dopri5_step_vjp_reference(*args, *cot))
+    assert all(torch.equal(u, v) for (_, u), (_, v) in zip(got, again))
+    assert all(w <= b for w, b in zip(_worst(got, want), DOPRI5_VJP_BOUNDS))
+    for label, got, want, bounds, _ in _k6_k7_bf16_checks(
+            cuda, n, num_zones, num_blocks):
+        assert all(w <= b for w, b in zip(_worst(got, want), bounds)), label
+
+
 def test_dopri5_bf16_and_backward_controls_fail(cuda):
     """The bf16-product control fails K7-bf16's and K6-bf16's bounds, the
     TF32-product control K6-f32's: the bounds tell a kernel that lost its
