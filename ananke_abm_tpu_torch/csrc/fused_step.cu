@@ -12,52 +12,64 @@
 // (stage math: _stage_math in the same file). The plain PyTorch versions
 // are ananke_abm_tpu_torch/ops/cuda/fused_step.py::
 // rk4_interval_decode_reference and ::rk4_step_reference. K0 is K1 with
-// `stages` = 4 and no decode: per agent and step it reads x and h and
-// writes x, ~0.75 MFLOP against ~384 bytes, compute-bound as K1 is.
+// `stages` = 4 and no decode.
 //
 // What bounds it on the card. Per agent and interval the kernel does ~1.5
 // MFLOP of bf16 matmul work (8 drift evaluations of ~92k multiply-adds at
 // the shipping widths) against ~390 bytes of device-memory traffic (read x
-// and h, write x and the id): ~3,800 FLOP/byte, far above the H100's
-// ~295 FLOP/byte ridge. It is compute-bound, so the design keeps every
-// activation on chip and runs every product on the tensor cores:
+// and h, write x and the id): ~3,800 FLOP/byte, far above the H100's ~295
+// FLOP/byte ridge, so its bound is the tensor cores' (1.585 ms for K1 at
+// 1,048,576 agents, 0.790 ms for K0). What holds it above that bound is
+// what feeds the tensor cores: ~184 KB of bf16 weight operands a stage
+// (Wq, the zones twice, W1, two H x H matrices a residual block, W3), the
+// same for every row, and ~640 tanh a row a stage.
 //
-// - One warp owns 16 agent rows end to end; warps never communicate and
-//   the kernel has no block-wide barrier. A block is 4 warps (64 rows);
-//   the ragged tail is zero-filled on load and masked on store.
-// - Products are mma.sync.m16n8k16 bf16 x bf16 -> f32. An accumulator
-//   fragment (16x8, f32) has exactly the register layout of half of the
-//   next product's A fragment (16x16, bf16), so each activation goes from
-//   one matmul into the next in registers, rounded to bf16 on the way --
-//   the rounding points of the reference stage math.
-// - Weights are not staged in shared memory: the packed weights and zone
-//   table are ~180 KB of bf16, which leaves too little of the 227 KB for
-//   a useful agent tile. B fragments are read straight from device memory
-//   through the read-only path; every warp on the card reads the same
-//   ~180 KB, which stays resident in L2 (50 MB). Each
-//   weight matrix is stored (out, in), so one 32-bit load gives the two
-//   adjacent-k bf16 values of a B-fragment register.
-// - The h-row product of Dense_0 (h is constant over the interval) is
-//   computed once per interval and parked in shared memory, in fragment
-//   order, 8 KB per warp at hidden width 128.
-// - Zones are walked in chunks of 16, so any zone count works. The
-//   max-free softmax needs no rescaling across chunks: sum(exp) and
-//   sum(exp * ze) simply add. The decode argmax keeps a running maximum
-//   that a later zone replaces only when strictly greater, then reduces
-//   across the 4 threads that share a row, preferring the lower index on
-//   ties -- the first index, as in the reference.
-// - The 8 stages run in one loop with a runtime stage index, so the stage
-//   code is emitted once.
+// - The CTA's kWarps warps (16 kWarps rows, whole warpgroups) share every
+//   weight operand: the launch's products are one fixed sequence of weight
+//   boxes (ServeRing below: per stage Wq^T, the zones by chunks of ZC, W1
+//   by halves (W1xc^T and W1h^T rows), each residual matrix by halves,
+//   W3^T; K1 then Wd^T and the zones again for the decode), which one
+//   thread copies by TMA into a ring of kSlots shared-memory slots,
+//   kSlots - 1 boxes ahead. A box's full barrier (an mbarrier the copy
+//   completes) tells the warps it has landed, its empty barrier (one
+//   arrival a warp) tells the copying thread its slot is free: no block
+//   barrier. Read warp by warp from L2, as this kernel did until it was
+//   redesigned, the same operands asked ~97 GB of L2 an interval at
+//   1,048,576 agents; through the ring, ~8 GB.
+// - Each product is one warpgroup's wgmma.m64nNk16 chain: A (the warp's 16
+//   rows, bf16) from registers, B from the box in wgmma's K-major layout
+//   with 64-byte swizzle (as TMA writes it), the sums in f32 registers in
+//   mma.m16n8's accumulator layout, so each activation goes from one
+//   product into the next in registers, rounded to bf16 on the way -- the
+//   rounding points of the reference. Every accumulator starts at +0 and
+//   sums its k16 slices in order, as the mma.sync chains of the kernel
+//   this replaced did, and gives their bits. A zone box's 64 scores are one
+//   product and its context sum another; Dense_0's two products share one
+//   wait.
+// - The RK4 state (x, k and the running k1 + 2 k2 + 2 k3 + k4) and bf16(h)
+//   live per warp in shared memory: registers go to the activations, at
+//   168 a thread for 12 warps an SM. Dense_0's h-row product is redone
+//   each stage from the W1 box (the same bits; holding it would cost 512
+//   bytes a row).
+// - Zones are walked by boxes of ZC and chunks of 16 inside a box, so any
+//   zone count works (the copy fills a box past zp with zeros, and zones
+//   past z are masked). The max-free softmax needs no rescaling across
+//   chunks: sum(exp) and sum(exp * ze) simply add. The decode argmax keeps a running maximum that a later zone
+//   replaces only when strictly greater, then reduces across the 4 threads
+//   that share a row, preferring the lower index on ties -- the first
+//   index, as in the reference.
+// - The stages run in one loop with a runtime stage index, so the stage
+//   code is emitted once. Every warp walks the whole schedule, those whose
+//   rows are all past n included (their rows are zero): the ring's empty
+//   barriers and the warpgroup products need every warp of the CTA.
 //
-// Measured on an H100 (700 W): 25 ms per interval at 1,048,576 agents,
-// ~62 TFLOP/s, about 6% of the dense bf16 peak. The kernel uses 255
-// registers a thread, so an SM holds 2 blocks (8 warps), too few to hide
-// the latency of the mma chains and of the B-fragment loads. Neither more
-// independent accumulators (more registers, spills) nor a larger L1 helped;
-// the smallest L1 (largest shared carveout) gained ~2.5%, and is set at
-// launch. Fewer live registers (activations in shared memory) or wgmma
-// with TMA-staged weights are the next steps.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py --ab-step, the
+// rung-1 operands, one call): K1 9.7 ms against its 1.585 ms bound (the
+// kernel it replaced: 25.3 ms), K0 4.5 ms against 0.790 ms (12.6 ms), the
+// same bits as that kernel's at every checked shape; PERF.md section 6 has
+// the readings and what each part of the design moved.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,11 +80,22 @@
 namespace {
 
 using namespace ananke;
+using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 4;  // warps per block: 64 agent rows
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+constexpr int kWarps = 12;  // warps per CTA (whole warpgroups): 16 kWarps rows
 constexpr int kMaxBlocks = 8;
+static_assert(kWarps % 4 == 0, "the products are warpgroup-wide");
 
 struct Params {
+  // TMA maps of the weights and zones (box_map below): 64-byte swizzled
+  // boxes of 32 columns
+  CUtensorMap tm_wq, tm_ze, tm_zet, tm_w1xc, tm_w1h, tm_wr, tm_w3, tm_wd;
   const float* x;              // (n, DA)
   const float* h;              // (n, DC)
   const __nv_bfloat16* ze;     // (zp, DZ), zero rows past z
@@ -92,31 +115,399 @@ struct Params {
   float dt;
 };
 
+// The serving ring's boxes and its shared memory: kSlots slots, each the
+// largest box of the schedule, then each warp's RK4 state and bf16(h), then
+// the ring's barriers. A box of R rows x K columns lies in K / 32 panels of
+// R x 32, each as the TMA unit writes it with 64-byte swizzle (wgmma's
+// K-major SW64 layout).
+template <int DA, int DZ, int DC, int H>
+struct Boxes {
+  static constexpr int DF = DA + DZ;
+  static constexpr int HH = H / 2;  // output rows of a half box
+  static constexpr int ZC = 64;     // zones a box holds: ze rows | ze^T cols
+  static constexpr int kSlot =
+      cmax(cmax(2 * ZC * DZ, HH * H), cmax(HH * (DF + DC), cmax(DZ * DA, DA * H)));
+  static constexpr int kSlots = 2;
+  static constexpr int kRingBytes = kSlots * kSlot * 2;
+  // a warp's RK4 state (x, k, ksum; f32), bf16(h) and the zone loops' A
+  // fragments (bf16(q), or the decode's bf16(x @ Wd))
+  static constexpr int kWarpBytes = 16 * 3 * DA * 4 + 16 * (DC + DZ) * 2;
+  // then the ring's full and empty barriers
+  static constexpr int bytes(int warps) {
+    return kRingBytes + warps * kWarpBytes + 2 * kSlots * 8;
+  }
+  static_assert(DZ % 16 == 0 && H % 32 == 0 && HH <= 64 && DZ <= 64,
+                "box shapes: a product's N is at most 64");
+};
+
+__device__ __forceinline__ unsigned char* dyn_smem() {
+  extern __shared__ __align__(16) unsigned char smem[];
+  return smem;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of `bar` with this parity to complete. A box whose
+// copy never lands fails the launch (trap) rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  for (int i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred P;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, P;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i == (1 << 24)) __trap();
+  }
+}
+
+// rows [r0, r0 + R) x columns [c0, c0 + K) of the matrix behind `m` (whose
+// boxes are R x 32) into `dst` as K / 32 panels, completing on `bar`
+__device__ __forceinline__ void tma_box(bf16* dst, const CUtensorMap* m,
+                                        int r0, int c0, int R, int K,
+                                        uint64_t* bar) {
+  for (int pn = 0; pn < K / 32; ++pn)
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+            smem_addr(dst + pn * R * 32)),
+        "l"(reinterpret_cast<uint64_t>(m)), "r"(c0 + 32 * pn), "r"(r0),
+        "r"(smem_addr(bar))
+        : "memory");
+}
+
+// The launch's weight boxes, in the order the kernel consumes them:
+//   per stage: Wq^T, zones x nzc, W1 halves 0, 1, per block Wr1^T halves
+//   0, 1 and Wr2^T halves 0, 1, W3^T | the decode (K1 only): Wd^T, zones x
+//   nzc
+// A "zones" box is ZC rows of ze beside the same ZC columns of ze^T; a "W1
+// half" H/2 rows of W1xc^T beside the same rows of W1h^T (Dense_0's rows
+// for both its products). One thread (the CTA's first) copies every box by
+// TMA, kSlots - 1 boxes ahead: box j goes to slot j % kSlots once every
+// warp has released the box that held it (the slot's empty barrier), and
+// completes on the slot's full barrier, on which every warp waits. The
+// producer's cursor is (seg, k): box k of segment seg (0 .. stages - 1 a
+// stage, stages the decode); past the schedule it copies nothing.
+template <int DA, int DZ, int DC, int H, bool kDecode>
+struct ServeRing {
+  using B = Boxes<DA, DZ, DC, H>;
+  int c = 0;  // boxes consumed (the same in every thread)
+  int seg = 0, k = 0;
+
+  __device__ __forceinline__ static int nzc(const Params& p) {
+    return (p.zp + B::ZC - 1) / B::ZC;
+  }
+  __device__ __forceinline__ static bf16* slot(int ci) {
+    return reinterpret_cast<bf16*>(dyn_smem()) + (ci % B::kSlots) * B::kSlot;
+  }
+  __device__ __forceinline__ static uint64_t* full(int s) {
+    return reinterpret_cast<uint64_t*>(dyn_smem() + B::kRingBytes +
+                                       kWarps * B::kWarpBytes) + s;
+  }
+  __device__ __forceinline__ static uint64_t* empty(int s) {
+    return full(B::kSlots + s);
+  }
+
+  // the barriers, before any copy (every thread calls it)
+  __device__ static void init() {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < B::kSlots; ++s) {
+        mbar_init(full(s), 1);
+        mbar_init(empty(s), kWarps);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+
+  // the cursor's box into slot j % kSlots, and advance the cursor (the
+  // producer thread)
+  __device__ void issue(const Params& p, int j) {
+    const int s = j % B::kSlots, nz = nzc(p);
+    bf16* dst = slot(j);
+    uint64_t* bar = full(s);
+    // up to two parts: (map, first row, first column, rows, columns, at)
+    const CUtensorMap *m1 = nullptr, *m2 = nullptr;
+    int r1 = 0, c1 = 0, R1 = 0, K1 = 0, r2 = 0, c2 = 0, R2 = 0, K2 = 0;
+    int at2 = 0;
+    if (seg < p.stages) {
+      const int len = 4 + nz + 4 * p.num_blocks;
+      if (k == 0) {
+        m1 = &p.tm_wq; R1 = DZ; K1 = DA;
+      } else if (k <= nz) {
+        m1 = &p.tm_ze; r1 = (k - 1) * B::ZC; R1 = B::ZC; K1 = DZ;
+        m2 = &p.tm_zet; c2 = (k - 1) * B::ZC; R2 = DZ; K2 = B::ZC;
+        at2 = B::ZC * DZ;
+      } else if (k <= nz + 2) {
+        const int hh = k - nz - 1;
+        m1 = &p.tm_w1xc; r1 = hh * B::HH; R1 = B::HH; K1 = B::DF;
+        m2 = &p.tm_w1h; r2 = hh * B::HH; R2 = B::HH; K2 = DC;
+        at2 = B::HH * B::DF;
+      } else if (k < len - 1) {
+        const int kk = k - nz - 3;  // block kk / 4: Wr1, Wr2 by halves
+        m1 = &p.tm_wr;
+        r1 = (2 * (kk >> 2) + ((kk >> 1) & 1)) * H + (kk & 1) * B::HH;
+        R1 = B::HH; K1 = H;
+      } else {
+        m1 = &p.tm_w3; R1 = DA; K1 = H;
+      }
+      if (++k == len) {
+        k = 0;
+        ++seg;
+      }
+    } else if (kDecode && seg == p.stages) {
+      if (k == 0) {
+        m1 = &p.tm_wd; R1 = DZ; K1 = DA;
+      } else {
+        m1 = &p.tm_ze; r1 = (k - 1) * B::ZC; R1 = B::ZC; K1 = DZ;
+        m2 = &p.tm_zet; c2 = (k - 1) * B::ZC; R2 = DZ; K2 = B::ZC;
+        at2 = B::ZC * DZ;
+      }
+      if (++k == nz + 1) ++seg;
+    }
+    if (m1 == nullptr) return;  // past the schedule
+    if (j >= B::kSlots) mbar_wait(empty(s), (j / B::kSlots - 1) & 1);
+    mbar_expect(bar, 2 * 32 * (R1 * (K1 / 32) + R2 * (K2 / 32)));
+    tma_box(dst, m1, r1, c1, R1, K1, bar);
+    if (m2 != nullptr) tma_box(dst + at2, m2, r2, c2, R2, K2, bar);
+  }
+
+  // the barriers, then the first kSlots - 1 boxes (every thread calls it)
+  __device__ void prime(const Params& p) {
+    init();
+    if (threadIdx.x == 0)
+      for (int i = 0; i < B::kSlots - 1; ++i) issue(p, i);
+  }
+
+  // The next box, once its copy has landed; every thread of the CTA calls
+  // it at the same point of the sequence. Each warp first releases the box
+  // before it (its products are done: they wait for their sums), and the
+  // producer thread refills that slot kSlots - 1 boxes ahead.
+  __device__ const bf16* next(const Params& p) {
+    if (c > 0) {
+      __syncwarp();
+      if (threadIdx.x % 32 == 0) mbar_arrive(empty((c - 1) % B::kSlots));
+    }
+    if (threadIdx.x == 0) issue(p, c + B::kSlots - 1);
+    mbar_wait(full(c % B::kSlots), (c / B::kSlots) & 1);
+    __syncwarp();  // converged again for the warpgroup's products
+    return slot(c++);
+  }
+};
+
+// ---- the products: wgmma.m64nNk16, A from registers, B from a box -------
+
+// The shared-memory descriptor of a K-major panel with 64-byte swizzle:
+// rows of 32 bf16 (64 bytes), 8-row groups 512 bytes apart (SBO).
+__device__ __forceinline__ uint64_t sw64_desc(const bf16* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+// one wgmma.mma_async of N = 8 NB columns into n-blocks j0 .. j0 + NB - 1
+// of `d` (the warp's 16 rows in mma.m16n8's accumulator layout, n-block by
+// n-block), A the warp's 16 x 16 bf16 fragment; scale_d 1 adds onto d
+template <int NB>
+struct Wgmma;
+
+template <>
+struct Wgmma<4> {
+  template <int NOUT>
+  __device__ __forceinline__ static void run(float (&d)[NOUT][4], int j0,
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %20, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %21, p, 1, 1, 0;\n}\n"
+        : "+f"(d[j0 + 0][0]), "+f"(d[j0 + 0][1]), "+f"(d[j0 + 0][2]), "+f"(d[j0 + 0][3]),
+          "+f"(d[j0 + 1][0]), "+f"(d[j0 + 1][1]), "+f"(d[j0 + 1][2]), "+f"(d[j0 + 1][3]),
+          "+f"(d[j0 + 2][0]), "+f"(d[j0 + 2][1]), "+f"(d[j0 + 2][2]), "+f"(d[j0 + 2][3]),
+          "+f"(d[j0 + 3][0]), "+f"(d[j0 + 3][1]), "+f"(d[j0 + 3][2]), "+f"(d[j0 + 3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
+          "l"(desc));
+  }
+};
+
+template <>
+struct Wgmma<8> {
+  template <int NOUT>
+  __device__ __forceinline__ static void run(float (&d)[NOUT][4], int j0,
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %36, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %37, p, 1, 1, 0;\n}\n"
+        : "+f"(d[j0 + 0][0]), "+f"(d[j0 + 0][1]), "+f"(d[j0 + 0][2]), "+f"(d[j0 + 0][3]),
+          "+f"(d[j0 + 1][0]), "+f"(d[j0 + 1][1]), "+f"(d[j0 + 1][2]), "+f"(d[j0 + 1][3]),
+          "+f"(d[j0 + 2][0]), "+f"(d[j0 + 2][1]), "+f"(d[j0 + 2][2]), "+f"(d[j0 + 2][3]),
+          "+f"(d[j0 + 3][0]), "+f"(d[j0 + 3][1]), "+f"(d[j0 + 3][2]), "+f"(d[j0 + 3][3]),
+          "+f"(d[j0 + 4][0]), "+f"(d[j0 + 4][1]), "+f"(d[j0 + 4][2]), "+f"(d[j0 + 4][3]),
+          "+f"(d[j0 + 5][0]), "+f"(d[j0 + 5][1]), "+f"(d[j0 + 5][2]), "+f"(d[j0 + 5][3]),
+          "+f"(d[j0 + 6][0]), "+f"(d[j0 + 6][1]), "+f"(d[j0 + 6][2]), "+f"(d[j0 + 6][3]),
+          "+f"(d[j0 + 7][0]), "+f"(d[j0 + 7][1]), "+f"(d[j0 + 7][2]), "+f"(d[j0 + 7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
+          "l"(desc));
+  }
+};
+
+// Pin an accumulator's or an A fragment's registers at this point: a
+// wgmma reads and writes them after its issue, until its wait, so neither
+// may be moved or reused in between.
+template <int NOUT>
+__device__ __forceinline__ void fence_acc(float (&d)[NOUT][4]) {
+#pragma unroll
+  for (int j = 0; j < NOUT; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+f"(d[j][c])::"memory");
+}
+
+template <int KS>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+r"(a[s][c])::"memory");
+}
+
+// A product into n-blocks j0 .. j0 + NB - 1 of d (the warp's 16 rows in
+// mma.m16n8's accumulator layout): A the warp's rows, KS k16 slices; B the
+// box's first 8 NB rows (from `box`, its panels `panel` elements apart) at
+// k16 steps k0 .. k0 + KS - 1. Every n-block sums its k-slices in order
+// onto what d holds: wg_zero first starts it at +0, as the mma.sync chains
+// of the kernel this replaced started. The warpgroup's 4 warps issue it
+// together, between wg_open and wg_close (which returns when the sums are
+// in registers), every accumulator and A fragment of the group fenced on
+// both sides.
+template <int NB, int NOUT>
+__device__ __forceinline__ void wg_zero(float (&d)[NOUT][4], int j0) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) d[j0 + j][c] = 0.f;
+}
+
+__device__ __forceinline__ void wg_open() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_close() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+template <int NB, int KS, int NOUT>
+__device__ __forceinline__ void wg_issue(float (&d)[NOUT][4], int j0,
+                                         uint32_t (&a)[KS][4],
+                                         const bf16* box, int panel,
+                                         int k0 = 0) {
+  const uint64_t desc = sw64_desc(box);
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const int kk = k0 + s;  // panel kk / 2, its 32-byte half kk % 2
+    Wgmma<NB>::run(d, j0, a[s],
+                   desc + (((kk >> 1) * panel * 2 + (kk & 1) * 32) >> 4), 1);
+  }
+}
+
+// one product alone, its sums started at +0
+template <int NB, int KS, int NOUT>
+__device__ __forceinline__ void wg_product(float (&d)[NOUT][4], int j0,
+                                           uint32_t (&a)[KS][4],
+                                           const bf16* box, int panel) {
+  wg_zero<NB>(d, j0);
+  fence_acc(d);
+  fence_a(a);
+  wg_open();
+  wg_issue<NB, KS>(d, j0, a, box, panel);
+  wg_close();
+  fence_acc(d);
+  fence_a(a);
+}
+
+// A fragments <-> a warp's shared-memory copy in fragment order ([4 s + c]
+// [lane]), conflict-free
+template <int KS>
+__device__ __forceinline__ void frag_put(uint32_t (*dst)[32],
+                                         const uint32_t (&a)[KS][4],
+                                         int lane) {
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dst[4 * s + c][lane] = a[s][c];
+}
+
+template <int KS>
+__device__ __forceinline__ void frag_get(uint32_t (&a)[KS][4],
+                                         uint32_t (*src)[32], int lane) {
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a[s][c] = src[4 * s + c][lane];
+}
+
 // kDecode: K1 (the stages, then the decode and argmax) or K0 (the stages)
 template <int DA, int DZ, int DC, int H, bool kDecode>
 __global__ void __launch_bounds__(32 * kWarps)
-    interval_kernel(const Params p) {
+    interval_kernel(const __grid_constant__ Params p) {
+  using B = Boxes<DA, DZ, DC, H>;
   constexpr int NX = DA / 8, KX = DA / 16;
   constexpr int NZ = DZ / 8, KZ = DZ / 16;
   constexpr int KC = DC / 16;
   constexpr int NH = H / 8, KH = H / 16;
-  constexpr int KF = KX + KZ;  // feats = [x, ctx]
+  constexpr int DF = B::DF, KF = DF / 16;
+  constexpr int ZB = B::ZC / 8;  // n-blocks of a zone box's scores
   static_assert(DA % 16 == 0 && DZ % 16 == 0 && DC % 16 == 0 &&
                     H % 16 == 0,
                 "widths must be multiples of 16");
-
-  // h-row pre-activation of Dense_0, in accumulator-fragment order
-  __shared__ float hpre_s[kWarps][NH * 4][32];
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const long row0 = ((long)blockIdx.x * kWarps + warp) * 16;
   const long ra = row0 + g, rb = row0 + g + 8;
   const bool va = ra < p.n, vb = rb < p.n;
-  float (*hpre)[32] = hpre_s[warp];
+  // the warp's rows in shared memory, in fragment order ([4 j + c][lane]):
+  // xs, the substep's start state during its four stages; sk, the last
+  // stage's derivative; ss, the running k1 + 2 k2 + 2 k3 + k4 (f32
+  // accumulator fragments); hs, bf16(h), and zq, the A fragments the zone
+  // loops' products share (bf16(q), the decode's bf16(x Wd)), reloaded for
+  // each zone box so that no A fragment of an in-flight product is carried
+  // in registers from one box to the next. Kept out of the registers, which
+  // the products' activations need.
+  float (*xs)[32] = reinterpret_cast<float (*)[32]>(
+      dyn_smem() + B::kRingBytes + warp * B::kWarpBytes);
+  float (*sk)[32] = xs + 4 * NX;
+  float (*ss)[32] = sk + 4 * NX;
+  uint32_t (*hs)[32] = reinterpret_cast<uint32_t (*)[32]>(ss + 4 * NX);
+  uint32_t (*zq)[32] = hs + 4 * KC;
+
+  ServeRing<DA, DZ, DC, H, kDecode> ring;
+  ring.prime(p);
 
   // ---- load x (accumulator layout) -------------------------------------
-  float xs[NX][4];
 #pragma unroll
   for (int j = 0; j < NX; ++j) {
     const int c = 8 * j + 2 * t;
@@ -124,12 +515,12 @@ __global__ void __launch_bounds__(32 * kWarps)
                    : make_float2(0.f, 0.f);
     float2 hi = vb ? *reinterpret_cast<const float2*>(p.x + rb * DA + c)
                    : make_float2(0.f, 0.f);
-    xs[j][0] = lo.x; xs[j][1] = lo.y; xs[j][2] = hi.x; xs[j][3] = hi.y;
+    xs[4 * j][lane] = lo.x; xs[4 * j + 1][lane] = lo.y;
+    xs[4 * j + 2][lane] = hi.x; xs[4 * j + 3][lane] = hi.y;
   }
 
-  // ---- h_pre = bf16(h) @ W1h, once per interval ------------------------
+  // ---- bf16(h), the A fragments of Dense_0's h rows ----------------------
   {
-    uint32_t ha[KC][4];
 #pragma unroll
     for (int s = 0; s < KC; ++s) {
       const int c = 16 * s + 2 * t;
@@ -141,17 +532,10 @@ __global__ void __launch_bounds__(32 * kWarps)
                      : make_float2(0.f, 0.f);
       float2 a3 = vb ? *reinterpret_cast<const float2*>(p.h + rb * DC + c + 8)
                      : make_float2(0.f, 0.f);
-      ha[s][0] = pack_bf16(a0.x, a0.y);
-      ha[s][1] = pack_bf16(a1.x, a1.y);
-      ha[s][2] = pack_bf16(a2.x, a2.y);
-      ha[s][3] = pack_bf16(a3.x, a3.y);
-    }
-#pragma unroll
-    for (int j = 0; j < NH; ++j) {
-      float acc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
-      mma_nblocks<DC, 1>(acc, 0, ha, p.w1hT + (size_t)8 * j * DC, g, t);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) hpre[4 * j + c][lane] = acc[0][c];
+      hs[4 * s][lane] = pack_bf16(a0.x, a0.y);
+      hs[4 * s + 1][lane] = pack_bf16(a1.x, a1.y);
+      hs[4 * s + 2][lane] = pack_bf16(a2.x, a2.y);
+      hs[4 * s + 3][lane] = pack_bf16(a3.x, a3.y);
     }
   }
 
@@ -159,14 +543,6 @@ __global__ void __launch_bounds__(32 * kWarps)
   const float dt = p.dt;
   const float half = dt * 0.5f;
   const float sixth = dt / 6.0f;
-
-  // xs is the substep's start state during its four stages; k the last
-  // stage's derivative; ksum the running k1 + 2 k2 + 2 k3 + k4
-  float ksum[NX][4], k[NX][4];
-#pragma unroll
-  for (int j = 0; j < NX; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) { ksum[j][c] = 0.f; k[j][c] = 0.f; }
 
   for (int st = 0; st < p.stages; ++st) {
     const int r = st & 3;  // RK4 stage within the substep
@@ -180,54 +556,62 @@ __global__ void __launch_bounds__(32 * kWarps)
       for (int j = 0; j < NX; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          xin[j][c] = (r == 0) ? xs[j][c]
-                               : __fadd_rn(xs[j][c], __fmul_rn(cr, k[j][c]));
+          xin[j][c] = (r == 0) ? xs[4 * j + c][lane]
+                               : __fadd_rn(xs[4 * j + c][lane],
+                                           __fmul_rn(cr, sk[4 * j + c][lane]));
       c_to_a<DA>(xin, xa);
     }
 
     // ---- q = xb @ Wq -------------------------------------------------------
-    uint32_t qa[KZ][4];
     {
+      const bf16* bx = ring.next(p);  // Wq^T (DZ, DA)
       float q[NZ][4];
-      zero(q);
-#pragma unroll
-      for (int j = 0; j < NZ; ++j)
-        mma_nblocks<DA, 1>(q, j, xa, p.wqT + (size_t)8 * j * DA, g, t);
+      wg_product<NZ, KX>(q, 0, xa, bx, DZ * 32);
+      uint32_t qa[KZ][4];
       c_to_a<DZ>(q, qa);
+      frag_put(zq, qa, lane);
     }
 
     // ---- ctx = softmax(q ze^T * scale) @ ze, max-free, by zone chunks ---
     float ctx[NZ][4];
-#pragma unroll
-    for (int j = 0; j < NZ; ++j) ctx[j][0] = ctx[j][1] = ctx[j][2] = ctx[j][3] = 0.f;
+    zero(ctx);
     float rs_a = 0.f, rs_b = 0.f;
-    for (int z0 = 0; z0 < p.zp; z0 += 16) {
-      // scores of zones z0 .. z0+7 (sc[0]) and z0+8 .. z0+15 (sc[1])
-      float sc[2][4];
-      zero(sc);
-      mma_nblocks<DZ, 2>(sc, 0, qa, p.ze + (size_t)z0 * DZ, g, t);
-      float* s0 = sc[0];
-      float* s1 = sc[1];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int za = z0 + 2 * t + (c & 1);
-        s0[c] = za < p.z ? expf(fminf(s0[c] * scale, 80.f)) : 0.f;
-        s1[c] = za + 8 < p.z ? expf(fminf(s1[c] * scale, 80.f)) : 0.f;
+    for (int zc0 = 0; zc0 < p.zp; zc0 += B::ZC) {
+      const bf16* bx = ring.next(p);  // ze rows | ze^T columns
+      // the box's scores, zone zc0 + 8 j + 2 t + (c & 1) in sc[j][c] (the
+      // box's rows past zp are zero; their zones are masked)
+      float sc[ZB][4];
+      {
+        uint32_t qa[KZ][4];
+        frag_get(qa, zq, lane);
+        wg_product<ZB, KZ>(sc, 0, qa, bx, B::ZC * 32);
       }
-      rs_a += (s0[0] + s0[1]) + (s1[0] + s1[1]);
-      rs_b += (s0[2] + s0[3]) + (s1[2] + s1[3]);
-      uint32_t pa[1][4];
-      pa[0][0] = pack_bf16(s0[0], s0[1]);
-      pa[0][1] = pack_bf16(s0[2], s0[3]);
-      pa[0][2] = pack_bf16(s1[0], s1[1]);
-      pa[0][3] = pack_bf16(s1[2], s1[3]);
-      // zeT is (DZ, zp): the 16 zones of this chunk are k-slice z0 / 16
-      const __nv_bfloat16* zt = p.zeT + z0;
+      // by 16-zone chunks, in zone order: chunk i is ctx's k-slice i
+      uint32_t pa[ZB / 2][4];
 #pragma unroll
-      for (int j = 0; j < NZ; ++j) {
-        const __nv_bfloat16* rowp = zt + (size_t)(8 * j + g) * p.zp + 2 * t;
-        mma(ctx[j], pa[0], ldg32(rowp), ldg32(rowp + 8));
+      for (int i = 0; i < ZB / 2; ++i) {
+        float* s0 = sc[2 * i];
+        float* s1 = sc[2 * i + 1];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int za = zc0 + 16 * i + 2 * t + (c & 1);
+          s0[c] = za < p.z ? expf(fminf(s0[c] * scale, 80.f)) : 0.f;
+          s1[c] = za + 8 < p.z ? expf(fminf(s1[c] * scale, 80.f)) : 0.f;
+        }
+        rs_a += (s0[0] + s0[1]) + (s1[0] + s1[1]);
+        rs_b += (s0[2] + s0[3]) + (s1[2] + s1[3]);
+        pa[i][0] = pack_bf16(s0[0], s0[1]);
+        pa[i][1] = pack_bf16(s0[2], s0[3]);
+        pa[i][2] = pack_bf16(s1[0], s1[1]);
+        pa[i][3] = pack_bf16(s1[2], s1[3]);
       }
+      fence_acc(ctx);
+      fence_a(pa);
+      wg_open();
+      wg_issue<NZ, ZB / 2>(ctx, 0, pa, bx + B::ZC * DZ, DZ * 32);  // ze^T
+      wg_close();
+      fence_acc(ctx);
+      fence_a(pa);
     }
     rs_a += __shfl_xor_sync(0xffffffffu, rs_a, 1);
     rs_a += __shfl_xor_sync(0xffffffffu, rs_a, 2);
@@ -255,54 +639,88 @@ __global__ void __launch_bounds__(32 * kWarps)
         for (int c = 0; c < 4; ++c) fa[KX + s][c] = ca[s][c];
     }
 
-    // ---- z = tanh(feats @ W1xc + h_pre + tf[st]) --------------------------
+    // ---- z = tanh(feats @ W1xc + bf16(h) @ W1h + tf[st]), by halves of H --
+    // (the h-row product again each stage: its bits are the same, and
+    // holding it would cost 512 bytes a row)
     float zz[NH][4];
     const float* tfr = p.tf + (size_t)st * H;
-    zero(zz);
 #pragma unroll
-    for (int j = 0; j < NH; ++j) {
-      mma_nblocks<DA + DZ, 1>(zz, j, fa, p.w1xcT + (size_t)8 * j * (DA + DZ),
-                              g, t);
-      const float2 tv = __ldg(reinterpret_cast<const float2*>(tfr + 8 * j + 2 * t));
+    for (int hh = 0; hh < 2; ++hh) {
+      const bf16* bx = ring.next(p);  // W1xc^T rows | W1h^T rows
+      const bf16* bh = bx + B::HH * DF;
+      uint32_t ha[KC][4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        zz[j][c] = tanhf((zz[j][c] + hpre[4 * j + c][lane]) + ((c & 1) ? tv.y : tv.x));
+      for (int s = 0; s < KC; ++s)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) ha[s][c] = hs[4 * s + c][lane];
+      // both of Dense_0's products of this half in one group
+      float hp[NH / 2][4];
+      wg_zero<NH / 2>(zz, hh * (NH / 2));
+      wg_zero<NH / 2>(hp, 0);
+      fence_acc(zz);
+      fence_acc(hp);
+      fence_a(fa);
+      fence_a(ha);
+      wg_open();
+      wg_issue<NH / 2, KF>(zz, hh * (NH / 2), fa, bx, B::HH * 32);
+      wg_issue<NH / 2, KC>(hp, 0, ha, bh, B::HH * 32);
+      wg_close();
+      fence_acc(zz);
+      fence_acc(hp);
+      fence_a(fa);
+      fence_a(ha);
+#pragma unroll
+      for (int u = 0; u < NH / 2; ++u) {
+        const int j = hh * (NH / 2) + u;
+        const float2 tv =
+            __ldg(reinterpret_cast<const float2*>(tfr + 8 * j + 2 * t));
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          zz[j][c] = tanhf((zz[j][c] + hp[u][c]) + ((c & 1) ? tv.y : tv.x));
+      }
     }
 
     // ---- residual blocks: z = tanh(z + bf16(tanh(bf16(z) Wr1 + br1)) Wr2 + br2)
     for (int b = 0; b < p.num_blocks; ++b) {
-      const __nv_bfloat16* wr1 = p.wrT + (size_t)(2 * b) * H * H;
-      const __nv_bfloat16* wr2 = wr1 + (size_t)H * H;
-      const __nv_bfloat16* br1 = p.br + (size_t)(2 * b) * H;
-      const __nv_bfloat16* br2 = br1 + H;
+      const bf16* br1 = p.br + (size_t)(2 * b) * H;
+      const bf16* br2 = br1 + H;
       uint32_t za[KH][4];
       c_to_a<H>(zz, za);
-      uint32_t ra_[KH][4];
+      uint32_t rta[KH][4];
       // the two n-blocks 2s, 2s+1 of rt make its k-slice s for Wr2
 #pragma unroll
-      for (int s = 0; s < KH; ++s) {
-        float eo[2][4];
-        zero(eo);
-        mma_nblocks<H, 2>(eo, 0, za, wr1 + (size_t)16 * s * H, g, t);
-        const float2 be = unpack_bf16(ldg32(br1 + 16 * s + 2 * t));
-        const float2 bo = unpack_bf16(ldg32(br1 + 16 * s + 8 + 2 * t));
-        const float* e = eo[0];
-        const float* o = eo[1];
-        ra_[s][0] = pack_bf16(tanhf(e[0] + be.x), tanhf(e[1] + be.y));
-        ra_[s][1] = pack_bf16(tanhf(e[2] + be.x), tanhf(e[3] + be.y));
-        ra_[s][2] = pack_bf16(tanhf(o[0] + bo.x), tanhf(o[1] + bo.y));
-        ra_[s][3] = pack_bf16(tanhf(o[2] + bo.x), tanhf(o[3] + bo.y));
+      for (int hh = 0; hh < 2; ++hh) {
+        const bf16* bx = ring.next(p);  // Wr1^T rows of this half
+        float eo[NH / 2][4];
+        wg_product<NH / 2, KH>(eo, 0, za, bx, B::HH * 32);
+#pragma unroll
+        for (int u = 0; u < KH / 2; ++u) {
+          const int s = hh * (KH / 2) + u;
+          const float2 be = unpack_bf16(ldg32(br1 + 16 * s + 2 * t));
+          const float2 bo = unpack_bf16(ldg32(br1 + 16 * s + 8 + 2 * t));
+          const float* e = eo[2 * u];
+          const float* o = eo[2 * u + 1];
+          rta[s][0] = pack_bf16(tanhf(e[0] + be.x), tanhf(e[1] + be.y));
+          rta[s][1] = pack_bf16(tanhf(e[2] + be.x), tanhf(e[3] + be.y));
+          rta[s][2] = pack_bf16(tanhf(o[0] + bo.x), tanhf(o[1] + bo.y));
+          rta[s][3] = pack_bf16(tanhf(o[2] + bo.x), tanhf(o[3] + bo.y));
+        }
       }
 #pragma unroll
-      for (int j = 0; j < NH; ++j) {
-        float acc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
-        mma_nblocks<H, 1>(acc, 0, ra_, wr2 + (size_t)8 * j * H, g, t);
-        const float* a = acc[0];
-        const float2 bv = unpack_bf16(ldg32(br2 + 8 * j + 2 * t));
-        zz[j][0] = tanhf(zz[j][0] + (a[0] + bv.x));
-        zz[j][1] = tanhf(zz[j][1] + (a[1] + bv.y));
-        zz[j][2] = tanhf(zz[j][2] + (a[2] + bv.x));
-        zz[j][3] = tanhf(zz[j][3] + (a[3] + bv.y));
+      for (int hh = 0; hh < 2; ++hh) {
+        const bf16* bx = ring.next(p);  // Wr2^T rows of this half
+        float acc[NH / 2][4];
+        wg_product<NH / 2, KH>(acc, 0, rta, bx, B::HH * 32);
+#pragma unroll
+        for (int u = 0; u < NH / 2; ++u) {
+          const int j = hh * (NH / 2) + u;
+          const float* a = acc[u];
+          const float2 bv = unpack_bf16(ldg32(br2 + 8 * j + 2 * t));
+          zz[j][0] = tanhf(zz[j][0] + (a[0] + bv.x));
+          zz[j][1] = tanhf(zz[j][1] + (a[1] + bv.y));
+          zz[j][2] = tanhf(zz[j][2] + (a[2] + bv.x));
+          zz[j][3] = tanhf(zz[j][3] + (a[3] + bv.y));
+        }
       }
     }
 
@@ -310,11 +728,10 @@ __global__ void __launch_bounds__(32 * kWarps)
     {
       uint32_t za[KH][4];
       c_to_a<H>(zz, za);
+      const bf16* bx = ring.next(p);  // W3^T (DA, H)
       const float w = (r == 1 || r == 2) ? 2.0f : 1.0f;
-      zero(k);
-#pragma unroll
-      for (int j = 0; j < NX; ++j)
-        mma_nblocks<H, 1>(k, j, za, p.w3T + (size_t)8 * j * H, g, t);
+      float k[NX][4];
+      wg_product<NX, KH>(k, 0, za, bx, DA * 32);
 #pragma unroll
       for (int j = 0; j < NX; ++j) {
         const float2 bv = unpack_bf16(ldg32(p.b3 + 8 * j + 2 * t));
@@ -323,16 +740,15 @@ __global__ void __launch_bounds__(32 * kWarps)
         k[j][2] += bv.x;
         k[j][3] += bv.y;
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          ksum[j][c] = (r == 0) ? k[j][c] : __fadd_rn(ksum[j][c], __fmul_rn(w, k[j][c]));
+        for (int c = 0; c < 4; ++c) {
+          float* ks = &ss[4 * j + c][lane];
+          sk[4 * j + c][lane] = k[j][c];
+          *ks = (r == 0) ? k[j][c] : __fadd_rn(*ks, __fmul_rn(w, k[j][c]));
+          if (r == 3)
+            xs[4 * j + c][lane] =
+                __fadd_rn(xs[4 * j + c][lane], __fmul_rn(sixth, *ks));
+        }
       }
-    }
-    if (r == 3) {
-#pragma unroll
-      for (int j = 0; j < NX; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          xs[j][c] = __fadd_rn(xs[j][c], __fmul_rn(sixth, ksum[j][c]));
     }
   }
 
@@ -340,70 +756,140 @@ __global__ void __launch_bounds__(32 * kWarps)
 #pragma unroll
   for (int j = 0; j < NX; ++j) {
     const int c = 8 * j + 2 * t;
-    if (va) *reinterpret_cast<float2*>(p.x_out + ra * DA + c) = make_float2(xs[j][0], xs[j][1]);
-    if (vb) *reinterpret_cast<float2*>(p.x_out + rb * DA + c) = make_float2(xs[j][2], xs[j][3]);
+    if (va)
+      *reinterpret_cast<float2*>(p.x_out + ra * DA + c) =
+          make_float2(xs[4 * j][lane], xs[4 * j + 1][lane]);
+    if (vb)
+      *reinterpret_cast<float2*>(p.x_out + rb * DA + c) =
+          make_float2(xs[4 * j + 2][lane], xs[4 * j + 3][lane]);
   }
 
-  if (!kDecode) return;
-
-  // ---- decode: ids = argmax(bf16(bf16(x) @ Wd) @ ze^T), first index ------
-  uint32_t xa[KX][4];
-  c_to_a<DA>(xs, xa);
-  uint32_t dA[KZ][4];
-  {
-    float d[NZ][4];
-    zero(d);
+  if (kDecode) {
+    // ---- decode: ids = argmax(bf16(bf16(x) @ Wd) @ ze^T), first index ----
+    uint32_t xa[KX][4];
+    {
+      float xf[NX][4];
 #pragma unroll
-    for (int j = 0; j < NZ; ++j)
-      mma_nblocks<DA, 1>(d, j, xa, p.wdT + (size_t)8 * j * DA, g, t);
-    c_to_a<DZ>(d, dA);
-  }
-  float best_a = -INFINITY, best_b = -INFINITY;
-  int idx_a = 0, idx_b = 0;
-  for (int z0 = 0; z0 < p.zp; z0 += 8) {
-    float lg[1][4] = {{0.f, 0.f, 0.f, 0.f}};
-    mma_nblocks<DZ, 1>(lg, 0, dA, p.ze + (size_t)z0 * DZ, g, t);
-    const float* l = lg[0];
+      for (int j = 0; j < NX; ++j)
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int zi = z0 + 2 * t + c;
-      if (zi < p.z) {
-        if (l[c] > best_a) { best_a = l[c]; idx_a = zi; }
-        if (l[2 + c] > best_b) { best_b = l[2 + c]; idx_b = zi; }
+        for (int c = 0; c < 4; ++c) xf[j][c] = xs[4 * j + c][lane];
+      c_to_a<DA>(xf, xa);
+    }
+    {
+      const bf16* bx = ring.next(p);  // Wd^T (DZ, DA)
+      float d[NZ][4];
+      wg_product<NZ, KX>(d, 0, xa, bx, DZ * 32);
+      uint32_t dA[KZ][4];
+      c_to_a<DZ>(d, dA);
+      frag_put(zq, dA, lane);
+    }
+    float best_a = -INFINITY, best_b = -INFINITY;
+    int idx_a = 0, idx_b = 0;
+    for (int zc0 = 0; zc0 < p.zp; zc0 += B::ZC) {
+      const bf16* bx = ring.next(p);  // ze rows | ze^T columns
+      // the box's logits, zone zc0 + 8 i + 2 t + c in lg[i][c] (row g) and
+      // lg[i][2 + c] (row g + 8), taken in zone order
+      float lg[ZB][4];
+      {
+        uint32_t dA[KZ][4];
+        frag_get(dA, zq, lane);
+        wg_product<ZB, KZ>(lg, 0, dA, bx, B::ZC * 32);
       }
+#pragma unroll
+      for (int i = 0; i < ZB; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int zi = zc0 + 8 * i + 2 * t + c;
+          if (zi < p.z) {
+            if (lg[i][c] > best_a) { best_a = lg[i][c]; idx_a = zi; }
+            if (lg[i][2 + c] > best_b) { best_b = lg[i][2 + c]; idx_b = zi; }
+          }
+        }
+    }
+#pragma unroll
+    for (int m = 1; m <= 2; m <<= 1) {
+      const float ob_a = __shfl_xor_sync(0xffffffffu, best_a, m);
+      const int oi_a = __shfl_xor_sync(0xffffffffu, idx_a, m);
+      const float ob_b = __shfl_xor_sync(0xffffffffu, best_b, m);
+      const int oi_b = __shfl_xor_sync(0xffffffffu, idx_b, m);
+      if (ob_a > best_a || (ob_a == best_a && oi_a < idx_a)) { best_a = ob_a; idx_a = oi_a; }
+      if (ob_b > best_b || (ob_b == best_b && oi_b < idx_b)) { best_b = ob_b; idx_b = oi_b; }
+    }
+    if (t == 0) {
+      if (va) p.ids[ra] = idx_a;
+      if (vb) p.ids[rb] = idx_b;
     }
   }
-#pragma unroll
-  for (int m = 1; m <= 2; m <<= 1) {
-    const float ob_a = __shfl_xor_sync(0xffffffffu, best_a, m);
-    const int oi_a = __shfl_xor_sync(0xffffffffu, idx_a, m);
-    const float ob_b = __shfl_xor_sync(0xffffffffu, best_b, m);
-    const int oi_b = __shfl_xor_sync(0xffffffffu, idx_b, m);
-    if (ob_a > best_a || (ob_a == best_a && oi_a < idx_a)) { best_a = ob_a; idx_a = oi_a; }
-    if (ob_b > best_b || (ob_b == best_b && oi_b < idx_b)) { best_b = ob_b; idx_b = oi_b; }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
   }
-  if (t == 0) {
-    if (va) p.ids[ra] = idx_a;
-    if (vb) p.ids[rb] = idx_b;
-  }
+  return fn;
+}
+
+// a TMA map of a row-major (rows x cols) bf16 matrix: boxes of 32 columns x
+// box_rows rows, written with 64-byte swizzle, zeros past the matrix
+bool box_map(CUtensorMap* m, const void* base, int rows, int cols,
+             int box_rows) {
+  const EncodeTiled f = encoder();
+  if (f == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return f(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+           dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+           CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // the interval kernel over `p` on `stream`, for the widths it is compiled
 // for; cudaErrorInvalidValue for others
 template <bool kDecode>
-int launch(const Params& p, int da, int dz, int dc, int hdim,
-           cudaStream_t s) {
+int launch(Params& p, int da, int dz, int dc, int hdim, cudaStream_t s) {
   if (!(da == 32 && dz == 64 && dc == 32 && hdim == 128))
     return (int)cudaErrorInvalidValue;
+  constexpr int DA = 32, DZ = 64, DC = 32, H = 128;
+  using B = Boxes<DA, DZ, DC, H>;
+  const bool ok =
+      box_map(&p.tm_wq, p.wqT, DZ, DA, DZ) &&
+      box_map(&p.tm_ze, p.ze, p.zp, DZ, B::ZC) &&
+      box_map(&p.tm_zet, p.zeT, DZ, p.zp, DZ) &&
+      box_map(&p.tm_w1xc, p.w1xcT, H, B::DF, B::HH) &&
+      box_map(&p.tm_w1h, p.w1hT, H, DC, B::HH) &&
+      box_map(&p.tm_wr, p.wrT, 2 * p.num_blocks * H, H, B::HH) &&
+      box_map(&p.tm_w3, p.w3T, DA, H, DA) &&
+      (!kDecode || box_map(&p.tm_wd, p.wdT, DZ, DA, DZ));
+  if (!ok) return (int)cudaErrorNotSupported;
   auto* kernel = interval_kernel<32, 64, 32, 128, kDecode>;
-  // the largest shared-memory carveout (smallest L1): weights are read
-  // from L2 either way, and on an H100 this ran faster than the default
+  const int smem = Boxes<32, 64, 32, 128>::bytes(kWarps);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  // the largest shared-memory carveout (smallest L1): the weights come
+  // through the ring, and the more CTAs the SM holds the better
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const int rows = 16 * kWarps;
-  kernel<<<(unsigned)((p.n + rows - 1) / rows), 32 * kWarps, 0, s>>>(p);
+  kernel<<<(unsigned)((p.n + rows - 1) / rows), 32 * kWarps, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 

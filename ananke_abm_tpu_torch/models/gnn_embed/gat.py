@@ -98,14 +98,18 @@ class ZoneGAT(nn.Module):
 
     def forward(self, zone_feats, adj, edge_index=None, edge_chunks=None):
         """(Z, features) zone embeddings; ``edge_index`` / ``edge_chunks`` as
-        in :meth:`GATLayer.forward`. On the kernels' route the edges' CSR
-        layout is built once here and shared by every layer."""
+        in :meth:`GATLayer.forward`. On the kernels' route (the card, at
+        the widths ``edge_segment.kernels_fit`` takes) the edges' CSR
+        layout is built once here and shared by every layer; wider rows
+        take the composition and build none."""
         layout = None
         if edge_index is not None:
             Z, dev = zone_feats.shape[0], zone_feats.device
             edge_index = tuple(torch.as_tensor(e, device=dev).long()
                                for e in edge_index)
-            if zone_feats.is_cuda:
+            d = self.inp.out_features // self.heads
+            if zone_feats.is_cuda and edge_segment.kernels_fit(self.heads,
+                                                               d):
                 layout = edge_segment.build_csr(*edge_index, Z, Z)
         h = self.inp(zone_feats)
         for layer, norm in zip(self.layers, self.norms):

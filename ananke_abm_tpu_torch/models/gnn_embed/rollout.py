@@ -31,15 +31,21 @@ from ananke_abm_tpu_torch.ops.cuda.fused_step import (
     pack_weights_bf16,
     rk4_interval_decode_fused,
     rk4_step_fused,
+    stage_kernels_fit,
     time_feature_table,
 )
 
 
 def _kernel_eligible(config, device) -> bool:
     """The kernel body serves when the tensors are on a CUDA device and the
-    drift has residual blocks. Widths or block counts the CUDA kernel is
-    not compiled for raise from its wrapper; they never fall back."""
-    return torch.device(device).type == "cuda" and config.num_blocks >= 1
+    kernel is compiled for the configuration's widths and residual blocks
+    (:func:`stage_kernels_fit`); anything else takes the float32 body, as
+    the reference's ``_pallas_eligible`` sends it to its XLA body. The
+    route is chosen here, before anything launches: the wrapper itself
+    still raises on what the kernel does not take."""
+    return torch.device(device).type == "cuda" and stage_kernels_fit(
+        config.agent_dim, config.zone_dim, config.context_dim,
+        config.hidden_dim, config.num_blocks)
 
 
 def make_decoded_rollout(model, config, zone_feats, adj, times,

@@ -152,6 +152,21 @@ DOPRI5_STEP_BF16_BOUNDS = ((7e-3, 1.25), (6e-2, 1), (8e-5, 2))
 # 5e-11, 4e-8, 2e-16 with ~65 or fewer); control >= 1.64e-3, >= 1.55e-3,
 # >= 1.33e-6.
 SEGMENT_BOUNDS = (1e-5, 2e-5, 1e-10)
+# (agents, zones, residual blocks) where the serving kernels K1 and K0
+# reach the edges of their tiles: agents not a multiple of a CTA's rows
+# (and CTAs with warps past the last row), one 16-zone chunk (Z = 8), a
+# part-filled last zone box (Z = 500), 1 and 8 residual blocks
+SERVING_EDGE_SHAPES = ((1_000, 500, 1), (200, 8, 8), (129, 8, 1),
+                       (4_133, 500, 8), (70_001, 64, 2))
+# K1 and K0 past the depths X_MEAN_ATOL was read at (chip_smoke.py; 1-2
+# blocks): at 8 residual blocks even the plain version sits ~1.3e-4 (mean
+# |d|) from the float64 witness, so kernel and plain version are each held
+# to the witness instead: the kernel's mean |d| to it at most this many
+# times the plain version's. Readings (chip_smoke.py --readings serving:
+# SERVING_EDGE_SHAPES and 4,096 / 65,536 agents x 64 zones, the cases past
+# 2 blocks, 3 seeds; H100 80GB HBM3, 700 W): sound <= 1.19 (K1), <= 1.35
+# (K0); the bf16-product control >= 5.32 (K1), >= 10.6 (K0).
+SERVING_WITNESS_RATIO = 2.0
 # (kind, rows, features, segments) of the K9e checks (segment_operands):
 # rung 1's population by zone, rung 2's by BASELINE config 4's 500 zones,
 # and a random case of 2,048 segments with dropped ids (at or past Z, and

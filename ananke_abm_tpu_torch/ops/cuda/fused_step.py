@@ -38,10 +38,10 @@ MAX_KERNEL_BLOCKS = 8
 
 
 def stage_kernels_fit(da, dz, dc, hidden, num_blocks) -> bool:
-    """Whether the kernels compiled for this width set (K8, K2f / K2b, K5,
-    K7) take these (agent, zone, context, hidden) widths and residual
-    blocks: the rule their wrappers enforce on CUDA tensors, for callers to
-    choose a route before anything launches."""
+    """Whether the kernels compiled for this width set (K1, K0, K8, K2f /
+    K2b, K5, K7) take these (agent, zone, context, hidden) widths and
+    residual blocks: the rule their wrappers enforce on CUDA tensors, for
+    callers to choose a route before anything launches."""
     return ((da, dz, dc, hidden) in KERNEL_WIDTHS
             and 1 <= num_blocks <= MAX_KERNEL_BLOCKS)
 
@@ -455,9 +455,9 @@ def _raise_on(lib, err, name):
 def _operands(x, h, ze, weights, tf_pre, x_new):
     """(the library, the 13 operand tensors of the kernels' C interface but
     the decode's, in its order, (N, Z, zp, blocks)). The kernels read
-    weights as (out, in) rows, so that the two bf16 of one mma B-fragment
-    register are adjacent; zones are padded to a multiple of 16 with zero
-    rows (masked in the kernels)."""
+    weights as (out, in) rows, each output's inputs contiguous: the
+    K-major boxes their products take; zones are padded to a multiple of 16
+    with zero rows (masked in the kernels)."""
     from ananke_abm_tpu_torch.ops.cuda._build import load_library
 
     lib = load_library("fused_step")

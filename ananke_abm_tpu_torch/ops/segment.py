@@ -11,12 +11,13 @@ attention. Two routes compute one function:
   heads forward, one backward.
 
 ``use_kernel="auto"`` takes the kernel pair for CUDA tensors at any zone
-count and head width (the reference's Z cap and width floor were TPU
-measurements); the kernels raise for rows wider than
-``edge_segment.MAX_KERNEL_FEATURES`` (``edge_segment.kernels_fit``), and
-nothing on the card moves to the composition unasked. ``True`` forces the
-kernels' route (their plain versions on the CPU), ``False`` the
-composition.
+count and head width the kernels are compiled for (the reference's Z cap
+and width floor were TPU measurements), and the composition for rows wider
+than ``edge_segment.MAX_KERNEL_FEATURES`` (``edge_segment.kernels_fit``),
+as the reference's XLA path serves any width: the route is chosen before
+anything launches. ``True`` forces the kernels' route (their plain
+versions on the CPU; on the card the kernels raise on rows too wide),
+``False`` the composition.
 
 Segment ids outside ``[0, num_segments)``, negative ones included, are
 dropped, as ``jax.ops.segment_sum`` drops them. On either route of the edge
@@ -78,12 +79,14 @@ def edge_softmax_attention(values, scores, dst_ids, num_nodes):
                         int(num_nodes))
 
 
-def _use_kernel(use_kernel, t):
+def _use_kernel(use_kernel, t, heads, d):
+    """Whether the edge attention of ``heads`` heads of ``d`` features on
+    ``t``'s device takes the CSR kernels' route."""
     if use_kernel not in ("auto", True, False):
         raise ValueError(f"use_kernel must be 'auto', True or False, got "
                          f"{use_kernel!r}")
     if use_kernel == "auto":
-        return t.is_cuda
+        return t.is_cuda and edge_segment.kernels_fit(heads, d)
     return use_kernel
 
 
@@ -103,7 +106,7 @@ def gat_edge_layer(h, edge_src, edge_dst, W, a_src, a_dst, num_nodes=None,
     Wh = h @ W  # (Z, D)
     qs = Wh @ a_src  # (Z,)
     qd = Wh @ a_dst
-    if _use_kernel(use_kernel, Wh):
+    if _use_kernel(use_kernel, Wh, 1, Wh.shape[1]):
         layout = edge_segment.build_csr(edge_src, edge_dst, num_nodes, Z)
         out = edge_segment.gat_edge_csr(Wh[:, None, :], qd[:, None],
                                         qs[:, None], layout)
@@ -150,7 +153,7 @@ def gat_edge_attention_multihead(Wh, e_recv, e_send, edge_src, edge_dst,
     """
     Z, H, d = Wh.shape
     num_nodes = int(num_nodes)
-    if _use_kernel(use_kernel, Wh):
+    if _use_kernel(use_kernel, Wh, H, d):
         if layout is None:
             layout = edge_segment.build_csr(edge_src, edge_dst, num_nodes, Z,
                                             e_recv.shape[0])

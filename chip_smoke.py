@@ -109,7 +109,9 @@ Phases (any failure raises and the script exits non-zero):
     phase 19 summed over its steps;
 22. repair check: ``train()`` at ``gat_heads=2`` (no K4 launch, each day
     and cross-entropy kernel once a step) and ``hidden_dim=64`` (no kernel
-    launch);
+    launch); ``serve()`` of the ``hidden_dim=64`` checkpoint with
+    ``use_kernel="auto"``: no K1 launch, ids equal to the float32 body's
+    (``use_kernel=False``);
 23. times: K5 and K7 and their plain versions per launch at rung 3;
 24. whole-backward kernels: K6 (precision bf16 and f32, checkpoints bf16
     and float32, recordings of ``checks.K6_RECORD``, steps past the
@@ -219,7 +221,19 @@ for 3 seeds with their bf16-feature control; ``--readings dopri5`` also
 K5-bf16's against K5's float32 kernel and the float64 witness;
 ``--readings k0``, ``k8a`` and ``segment`` those of K0 (KERNEL_SHAPES),
 K8a (K8_SHAPES) and K9e (SEGMENT_SHAPES) for 3 seeds with their
-controls.
+controls; ``--readings serving`` (which builds only the serving kernels'
+library) those of K1 and K0 at checks.SERVING_EDGE_SHAPES and
+SERVING_READING_SHAPES against their plain versions and, with the plain
+versions and the bf16-product control, against the float64 witness
+(checks.SERVING_WITNESS_RATIO's readings).
+``python3 chip_smoke.py --ab-step DIR [DIR ...]`` builds only the serving
+kernels' library, with each DIR's ``fused_step.cu`` compiling beside it,
+then prints ptxas's registers and spills of every build (and the other
+builds' SASS counts), the bits of K1's x_new and ids and K0's x_new at
+KERNEL_SHAPES, checks.SERVING_EDGE_SHAPES and the rung-1 operands (phase
+4's weights and agents, interval 0) against this checkout, and the
+per-launch times of K1 and K0 at the rung-1 operands, in the order DIR...,
+this, this, ...DIR.
 ``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` runs phases 1-2 and then
 compares K8 of this checkout with K8 built from each checkout at DIR:
 ptxas and SASS counts of each build, bits at K8_SHAPES and alternating
@@ -281,6 +295,61 @@ IDS_MIN = 0.999
 SLICE_IDS_MIN = 0.995
 # (agents, zones, residual blocks) of the kernel check
 KERNEL_SHAPES = ((65_536, 64, 2), (1_000, 500, 1), (4_096, 2_048, 2))
+# --readings serving also reads K1 and K0 at the main path's zones and the
+# deepest drift, beside checks.SERVING_EDGE_SHAPES
+SERVING_READING_SHAPES = ((4_096, 64, 8), (65_536, 64, 8))
+
+
+def interval_operands(model, config, n, z, dev, seed=None):
+    """The operands of ``rk4_interval_decode_fused`` for a model: random
+    states, context and bf16 zones seeded from ``seed`` (``n`` unless
+    given), the interval of 0.25 at 6.5 in ``config.substeps`` substeps
+    (phase 3's check)."""
+    from ananke_abm_tpu_torch.ops.cuda.fused_step import (
+        interval_stage_times,
+        pack_weights_bf16,
+        time_feature_table,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(n if seed is None else seed)
+    x = torch.randn(n, config.agent_dim, device=dev, generator=g)
+    h = torch.randn(n, config.context_dim, device=dev, generator=g)
+    ze = torch.randn(z, config.zone_dim, device=dev, generator=g).bfloat16()
+    w = pack_weights_bf16(model)
+    wd = model.decode_proj.weight.T.bfloat16()
+    stage_t = torch.from_numpy(
+        interval_stage_times(6.5, 0.25, config.substeps)).to(dev)
+    return (x, h, ze, w, wd, time_feature_table(stage_t, w[3], w[4]), 0.25)
+
+
+def rung1_operands(model, substeps, graph, agents):
+    """The operands the rung-1 rollout gives its kernels at its first
+    interval: (K1's for interval 0, K0's for substep 0 of it), from the
+    zone graph ``(zone_feats, adj, times)`` and the agents ``(person_feats,
+    home_zone)`` on the card."""
+    from ananke_abm_tpu_torch.ops.cuda.fused_step import (
+        interval_stage_times,
+        pack_weights_bf16,
+        time_feature_table,
+    )
+
+    dev = graph[0].device
+    weights = pack_weights_bf16(model)
+    with torch.inference_mode():
+        zone_emb = model.encode_zones(*graph[:2])
+        x0, h = model.initial_state(*agents, zone_emb)
+    t = graph[2].cpu().numpy().astype(np.float32)
+    dt = float((t[1] - t[0]) / np.float32(substeps))
+    ze = zone_emb.bfloat16()
+
+    def table(n_sub):
+        return time_feature_table(torch.from_numpy(
+            interval_stage_times(t[0], dt, n_sub)).to(dev), weights[3],
+            weights[4])
+
+    return ((x0, h, ze, weights, model.decode_proj.weight.T.bfloat16(),
+             table(substeps), dt),
+            (x0, h, ze, weights, table(1), dt))
 
 
 def rollout_matmul_flops(da, dz, dc, hidden, num_zones, num_blocks,
@@ -454,14 +523,17 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--readings", nargs="?", const="training",
                         choices=("training", "encoder", "dopri5", "edge",
-                                 "k0", "k8a", "segment"),
+                                 "k0", "k8a", "segment", "serving"),
                         help="print the training (or the encoder, the "
-                        "DOPRI5 step, the CSR edge, K0, K8a or the segment "
-                        "sum) kernels' readings only")
+                        "DOPRI5 step, the CSR edge, K0, K8a, the segment "
+                        "sum or the serving) kernels' readings only")
     parser.add_argument("--ab-k8", metavar="DIR", nargs="+",
                         help="time K8 against K8 of the checkouts at DIR")
     parser.add_argument("--ab-dopri5", metavar="DIR", nargs="+",
                         help="compare and time K6 and K7 against those of "
+                        "the checkouts at DIR")
+    parser.add_argument("--ab-step", metavar="DIR", nargs="+",
+                        help="compare and time K1 and K0 against those of "
                         "the checkouts at DIR")
     args = parser.parse_args()
     t_start = time.perf_counter()
@@ -489,11 +561,8 @@ def main():
     from ananke_abm_tpu_torch.ops.cuda import _build, fused_step
     from ananke_abm_tpu_torch.ops.cuda.checks import bf16_product_dot
     from ananke_abm_tpu_torch.ops.cuda.fused_step import (
-        interval_stage_times,
-        pack_weights_bf16,
         rk4_interval_decode_fused,
         rk4_interval_decode_reference,
-        time_feature_table,
     )
     from ananke_abm_tpu_torch.utils.ckpt import (
         load_checkpoint,
@@ -510,10 +579,15 @@ def main():
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    # the other checkouts' DOPRI5 kernels compile beside this one's
+    # the other checkouts' DOPRI5 or serving kernels compile beside this
+    # one's; an A/B of the serving kernels builds only their library
     others = [start_build(Path(d).resolve(), f"other{i}", "fused_dopri5")
               for i, d in enumerate(args.ab_dopri5 or ())]
-    built = _build.build_all()
+    others += [start_build(Path(d).resolve(), f"other{i}", "fused_step")
+               for i, d in enumerate(args.ab_step or ())]
+    built = _build.build_all(
+        ("fused_step",) if args.ab_step or args.readings == "serving"
+        else _build.NAMES)
     print(f"build: {len(built)} libraries in "
           f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     for name, (path, log, seconds) in built.items():
@@ -544,11 +618,17 @@ def main():
     if args.readings == "segment":
         segment_readings(dev)
         return
+    if args.readings == "serving":
+        serving_readings(dev)
+        return
     if args.ab_k8:
         ab_k8(dev, [Path(d) for d in args.ab_k8])
         return
     if args.ab_dopri5:
         ab_dopri5(dev, built["fused_dopri5"][1], others)
+        return
+    if args.ab_step:
+        ab_step(dev, built["fused_step"][1], others)
         return
 
     # ---- 3. kernel against its plain version --------------------------------
@@ -559,17 +639,7 @@ def main():
             model = build_model(dataclasses.replace(config, num_blocks=nb),
                                 7, 8, device=dev)
             init_params(model, torch.Generator().manual_seed(nb))
-            g = torch.Generator(device=dev).manual_seed(n)
-            x = torch.randn(n, config.agent_dim, device=dev, generator=g)
-            h = torch.randn(n, config.context_dim, device=dev, generator=g)
-            ze = torch.randn(z, config.zone_dim, device=dev,
-                             generator=g).bfloat16()
-            w = pack_weights_bf16(model)
-            wd = model.decode_proj.weight.T.bfloat16()
-            stage_t = torch.from_numpy(
-                interval_stage_times(6.5, 0.25, config.substeps)).to(dev)
-            args = (x, h, ze, w, wd, time_feature_table(stage_t, w[3], w[4]),
-                    0.25)
+            args = interval_operands(model, config, n, z, dev)
             got = rk4_interval_decode_fused(*args)
             torch.cuda.synchronize()
             want = rk4_interval_decode_reference(*args)
@@ -637,18 +707,9 @@ def main():
         fail("served ids disagree with the plain-version body")
 
     # the kernel at the main path's own operands: interval 0 of the day
-    weights = pack_weights_bf16(served_model)
+    args, step_args = rung1_operands(served_model, config.substeps, graph,
+                                     agents)
     with torch.inference_mode():
-        zone_emb = served_model.encode_zones(*graph[:2])
-        x0, h = served_model.initial_state(*agents, zone_emb)
-        t = data["times"]
-        dt = float((np.float32(t[1]) - np.float32(t[0]))
-                   / np.float32(config.substeps))
-        stage_t = torch.from_numpy(
-            interval_stage_times(t[0], dt, config.substeps)).to(dev)
-        args = (x0, h, zone_emb.bfloat16(), weights,
-                served_model.decode_proj.weight.T.bfloat16(),
-                time_feature_table(stage_t, weights[3], weights[4]), dt)
         got = rk4_interval_decode_fused(*args)
         torch.cuda.synchronize()
         want = rk4_interval_decode_reference(*args)
@@ -714,7 +775,7 @@ def main():
     k67 = backward_all_phases(dev, card, discrete_wall)
     k9 = edge_phases(dev, card)
     k0 = serving_step_phases(dev, card, served_model, graph, agents, ids,
-                             k1_rate)
+                             k1_rate, step_args)
     k8a = fused_pair_phases(dev, card)
     k5b = bf16_forward_phases(dev, card)
     k9e = segment_phases(dev, card)
@@ -1449,6 +1510,153 @@ def ab_dopri5(dev, this_log, handles):
                 times[w].append(cuda_ms(lambda: run(
                     w, fn, *fa, precision=prec, packed=packs[prec]), reps))
             print(f"{label} (N={ADAPT_N}, Z={ADAPT_ZONES}) A/B: "
+                  + "; ".join(f"{w} {', '.join(f'{m:.3f}' for m in t)}"
+                              for w, t in times.items())
+                  + f" ms per launch [card {card}]", flush=True)
+
+
+def serving_readings(dev):
+    """``--readings serving``: K1 and K0 at checks.SERVING_EDGE_SHAPES and
+    SERVING_READING_SHAPES, for seeds 0-2: each
+    against its plain version (mean |d|, max |d| / max |ref|), and the
+    kernel, the plain version and the bf16-product control each against the
+    float64 witness (mean |d|); then, past 2 blocks, the largest ratio of
+    the kernel's witness distance to the plain version's and the smallest
+    of the control's (checks.SERVING_WITNESS_RATIO lies between). Nothing
+    fails on a bound."""
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        init_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import fused_step as fs
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        SERVING_EDGE_SHAPES,
+        bf16_control,
+        float64_witness,
+    )
+
+    def first(out):
+        return out[0] if isinstance(out, tuple) else out
+
+    def mean_d(a, b):
+        return (a.double() - b.double()).abs().mean().item()
+
+    config = GATODEConfig()
+    deep = {"K1": [], "K0": []}
+    with torch.inference_mode():
+        for seed in range(3):
+            for n, z, nb in SERVING_EDGE_SHAPES + SERVING_READING_SHAPES:
+                model = build_model(dataclasses.replace(config, num_blocks=nb),
+                                    7, 8, device=dev)
+                init_params(model,
+                            torch.Generator().manual_seed(nb + 10 * seed))
+                a1 = interval_operands(model, config, n, z, dev, n + seed)
+                a0 = (*a1[:4], a1[5][:4].contiguous(), 0.125)
+                for name, kern, ref, args in (
+                        ("K1", fs.rk4_interval_decode_fused,
+                         fs.rk4_interval_decode_reference, a1),
+                        ("K0", fs.rk4_step_fused, fs.rk4_step_reference, a0)):
+                    got, plain = first(kern(*args)), first(ref(*args))
+                    control = first(bf16_control(ref, *args))
+                    witness = first(float64_witness(ref, *args))
+                    d = (got - plain).abs()
+                    kw, pw, cw = (mean_d(t, witness)
+                                  for t in (got, plain, control))
+                    print(f"{name} N={n} Z={z} num_blocks={nb} seed={seed}: "
+                          f"against the plain version mean "
+                          f"{d.mean().item():.3e}, max / max|ref| "
+                          f"{d.max().item() / plain.abs().max().item():.3e};"
+                          f" against the float64 witness: kernel {kw:.3e},"
+                          f" plain {pw:.3e}, control {cw:.3e}", flush=True)
+                    if nb > 2:
+                        deep[name].append((kw / pw, cw / pw))
+    for name, r in deep.items():
+        print(f"{name} past 2 blocks: kernel / plain witness distance <= "
+              f"{max(k for k, _ in r):.3f}, control / plain >= "
+              f"{min(c for _, c in r):.3f} [card {card_line()}]", flush=True)
+
+
+def ab_step(dev, this_log, handles):
+    """``--ab-step DIR [DIR ...]``: the serving kernels K1 and K0 of this
+    checkout against those of each checkout at DIR (its
+    ``csrc/fused_step.cu`` and headers, built with the port's flags and C
+    interface; ``handles`` from :func:`start_build`, started before phase
+    2): ptxas's registers and spills per kernel, the bits of x_new and the
+    ids at every shape of KERNEL_SHAPES and checks.SERVING_EDGE_SHAPES and
+    at the rung-1 operands, then the
+    per-launch times of K1 and K0 at the rung-1 operands in the order
+    DIR..., this, this, ...DIR."""
+    from ananke_abm_tpu_torch.data_generator import generate_agent_population
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        init_params,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import _build
+    from ananke_abm_tpu_torch.ops.cuda import fused_step as fs
+    from ananke_abm_tpu_torch.ops.cuda.checks import SERVING_EDGE_SHAPES
+
+    print(f"build [this]: {ROOT / 'ananke_abm_tpu_torch/csrc/fused_step.cu'}")
+    for line in ptxas_lines(this_log):
+        print(f"  {line}")
+    libs = {"this": _build.load_library("fused_step")}
+    for h in handles:
+        libs[str(h[2].parents[2])] = finish_build(h, sass=True)
+    others = [w for w in libs if w != "this"]
+
+    def run(which, fn, args):
+        with library_of("fused_step", libs[which]):
+            return fn(*args)
+
+    config = GATODEConfig()
+    cases = []
+    for n, z, nb in KERNEL_SHAPES + SERVING_EDGE_SHAPES:
+        model = build_model(dataclasses.replace(config, num_blocks=nb), 7, 8,
+                            device=dev)
+        init_params(model, torch.Generator().manual_seed(nb))
+        cases.append((f"N={n} Z={z} num_blocks={nb}",
+                      interval_operands(model, config, n, z, dev),
+                      step_operands(model, n, z, dev, n)))
+    # the rung-1 operands: phase 4's weights and agents, interval 0
+    data = generate_agent_population(N_AGENTS, num_times=NUM_TIMES,
+                                     seed=AGENT_SEED, num_zones=NUM_ZONES,
+                                     world_seed=WORLD_SEED)
+    model = build_model(config, data["zone_features"].shape[-1],
+                        data["person_feats"].shape[-1], device=dev)
+    init_params(model, torch.Generator().manual_seed(0))
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)
+    graph = (on(data["zone_features"]), on(data["adj"]), on(data["times"]))
+    agents = (on(data["person_feats"]), on(data["home_zone"], torch.long))
+    main = rung1_operands(model, config.substeps, graph, agents)
+    cases.append((f"at the rung-1 operands (N={N_AGENTS}, Z={NUM_ZONES})",
+                  *main))
+    del data
+    with torch.inference_mode():
+        for label, a1, a0 in cases:
+            out = {w: (*run(w, fs.rk4_interval_decode_fused, a1),
+                       run(w, fs.rk4_step_fused, a0)) for w in libs}
+            torch.cuda.synchronize()
+            for w in others:
+                (x1, i1, x0), (y1, j1, y0) = out["this"], out[w]
+                print(f"K1 A/B {label}: this against {w}: x_new same bits "
+                      f"{torch.equal(x1, y1)} (max |d| "
+                      f"{(x1 - y1).abs().max().item():.3e}), ids same "
+                      f"{torch.equal(i1, j1)} (agree "
+                      f"{(i1 == j1).float().mean().item():.6f}); K0 x_new "
+                      f"same bits {torch.equal(x0, y0)} (max |d| "
+                      f"{(x0 - y0).abs().max().item():.3e})", flush=True)
+            del out
+    card = card_line()
+    order = others + ["this", "this"] + others[::-1]
+    with torch.inference_mode():
+        for name, fn, args in (("K1", fs.rk4_interval_decode_fused, main[0]),
+                               ("K0", fs.rk4_step_fused, main[1])):
+            times = {w: [] for w in libs}
+            for w in order:
+                times[w].append(cuda_ms(lambda: run(w, fn, args), 10))
+            print(f"{name} at the rung-1 operands (N={N_AGENTS}, "
+                  f"Z={NUM_ZONES}) A/B: "
                   + "; ".join(f"{w} {', '.join(f'{m:.3f}' for m in t)}"
                               for w, t in times.items())
                   + f" ms per launch [card {card}]", flush=True)
@@ -2264,6 +2472,25 @@ def dopri5_phases(dev, card, continuous_wall):
               flush=True)
         if got != want or not np.isfinite(res["final_loss"]):
             fail(f"train({change}) took the wrong kernel route")
+    # serve() of the hidden_dim=64 checkpoint: K1 is not compiled for its
+    # widths, so use_kernel="auto" serves through the float32 body
+    from ananke_abm_tpu_torch.ops.cuda import fused_step as fs
+
+    before = fs.rk4_interval_decode_fused.launches
+    served = {}
+    for use in ("auto", False):
+        path = d / f"served_{use}.npz"
+        tr.serve(res["ckpt"], str(path), n_agents=REPAIR_AGENTS,
+                 seed=APP_SEED, use_kernel=use, device=dev)
+        with np.load(path) as f:
+            served[use] = f["zone_ids"]
+    k1 = fs.rk4_interval_decode_fused.launches - before
+    same = bool(np.array_equal(served["auto"], served[False]))
+    print(f"serve() of the hidden_dim=64 checkpoint on the card: "
+          f"{served['auto'].shape} ids, K1 launches {k1} (expected 0), ids "
+          f"equal to the float32 body's {same}", flush=True)
+    if k1 != 0 or not same:
+        fail("serve() at hidden_dim=64 did not take the float32 body")
 
     # ---- 23. times -----------------------------------------------------------
     args, cot = main
@@ -3202,10 +3429,11 @@ def k0_readings(dev):
 
 
 def serving_step_phases(dev, card, served_model, graph, agents, served_ids,
-                        k1_rate):
-    """Phases 34-35: K0 against its plain version, and the per-step
-    rollout ``make_pallas_rollout(fuse_decode=False)`` at rung 1 against
-    phase 4's K1 rollout and its own plain body. Returns K0's entry of the
+                        k1_rate, main):
+    """Phases 34-35: K0 against its plain version (``main``: its rung-1
+    operands, substep 0 of phase 4's day), and the per-step rollout
+    ``make_pallas_rollout(fuse_decode=False)`` at rung 1 against phase 4's
+    K1 rollout and its own plain body. Returns K0's entry of the
     {"kernels": [...]} line."""
     from ananke_abm_tpu_torch.models.gnn_embed.rollout import (
         _per_step_body,
@@ -3229,17 +3457,6 @@ def serving_step_phases(dev, card, served_model, graph, agents, served_ids,
             f"N={n} Z={z} num_blocks={nb}", step_operands(model, n, z, dev,
                                                           n),
             control=(n, z, nb) == KERNEL_SHAPES[0]))
-    # the rung-1 operands: substep 0 of interval 0 of phase 4's day
-    with torch.inference_mode():
-        zone_emb = served_model.encode_zones(*graph[:2])
-        x0, h = served_model.initial_state(*agents, zone_emb)
-        weights = fs.pack_weights_bf16(served_model)
-        t = graph[2].cpu().numpy().astype(np.float32)
-        dt = float((t[1] - t[0]) / np.float32(config.substeps))
-        tf = fs.time_feature_table(torch.from_numpy(
-            fs.interval_stage_times(t[0], dt, 1)).to(dev), weights[3],
-            weights[4])
-        main = (x0, h, zone_emb.bfloat16(), weights, tf, dt)
     max_err = max(max_err, k0_check(
         f"at the main path's operands (N={N_AGENTS}, Z={NUM_ZONES}, "
         f"substep 0)", main))

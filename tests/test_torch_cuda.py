@@ -47,6 +47,8 @@ from ananke_abm_tpu_torch.ops.cuda.checks import (
     EDGE_FWD_BOUNDS,
     GAT_BWD_BOUNDS,
     GAT_FWD_BOUNDS,
+    SERVING_EDGE_SHAPES,
+    SERVING_WITNESS_RATIO,
     WITNESS_BWD_BOUNDS,
     bf16_control,
     bf16_features,
@@ -155,18 +157,28 @@ def test_kernel_rollout_matches_plain_rollout(cuda):
 ])
 def test_auto_rollout_raises_where_the_kernel_cannot_serve(cuda, change,
                                                           match):
-    """``use_kernel="auto"`` on the card never moves to the float32 body:
-    a configuration the kernel is not compiled for raises."""
+    """Where K1 is not compiled for the configuration, ``use_kernel="auto"``
+    on the card serves through the float32 body, as the reference's
+    ``_pallas_eligible`` sends it to its XLA body: no K1 launch, and the
+    float32 body's ids. ``use_kernel=True`` still raises."""
     config = GATODEConfig(**change)
     d = generate_agent_population(64, num_times=3, num_zones=8, seed=0)
     model = build_model(config, d["zone_features"].shape[-1],
                         d["person_feats"].shape[-1], device=cuda)
     init_params(model, torch.Generator().manual_seed(0))
     on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(cuda)
-    rollout = make_decoded_rollout(model, config, on(d["zone_features"]),
-                                   on(d["adj"]), on(d["times"]))
+    graph = (on(d["zone_features"]), on(d["adj"]), on(d["times"]))
+    agents = (on(d["person_feats"]), on(d["home_zone"], torch.long))
+    before = rk4_interval_decode_fused.launches
+    auto = make_decoded_rollout(model, config, *graph)(*agents)
+    f32 = make_decoded_rollout(model, config, *graph,
+                               use_kernel=False)(*agents)
+    assert rk4_interval_decode_fused.launches == before
+    assert torch.equal(auto, f32)
     with pytest.raises(ValueError, match=match):
-        rollout(on(d["person_feats"]), on(d["home_zone"], torch.long))
+        make_decoded_rollout(model, config, *graph,
+                             use_kernel=True)(*agents)
+    assert rk4_interval_decode_fused.launches == before
 
 
 def test_kernel_rejects_widths_it_is_not_compiled_for(cuda):
@@ -996,6 +1008,29 @@ def test_sparse_train_runs_through_the_csr_kernels(cuda, tmp_path):
         [0] * 6 + [config.gat_layers * steps] * 2)
 
 
+def test_sparse_train_takes_the_composition_past_the_kernels_width(
+        cuda, tmp_path):
+    """``train(sparse_world=True)`` at ``zone_dim=512`` (4 heads of 128
+    features, past the CSR kernels' 256 a row) on the card: the encoder
+    takes the float32 composition, chosen before anything launches, so no
+    CSR kernel runs; ``serve()`` of what it trained neither."""
+    from ananke_abm_tpu_torch.models.gnn_embed.train import serve
+
+    kernels = (es.gat_edge_csr_forward, es.gat_edge_csr_backward,
+               rk4_interval_decode_fused)
+    before = [k.launches for k in kernels]
+    config = GATODEConfig(batch_size=256, epochs=1, zone_dim=512)
+    res = train(str(tmp_path), n_agents=512, num_times=4, num_zones=300,
+                config=config, sparse_world=True, device=cuda)
+    assert np.isfinite(res["final_loss"])
+    out = tmp_path / "served.npz"
+    info = serve(res["ckpt"], str(out), n_agents=256, device=cuda)
+    assert info["n_agents"] == 256
+    with np.load(out) as f:
+        assert f["zone_ids"].shape == (256, 4)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 0]
+
+
 # ---- K0: the serving step, and the per-step rollout -------------------------
 
 def _step_operands(cuda, n, num_zones, num_blocks, seed=0):
@@ -1022,6 +1057,50 @@ def test_step_kernel_matches_plain_version(cuda, n, num_zones, num_blocks):
     d = (xk - xr).abs()
     assert d.mean().item() <= X_MEAN_ATOL
     assert d.max().item() <= X_MAX_RTOL * xr.abs().max().item()
+
+
+@pytest.mark.parametrize("n,num_zones,num_blocks", SERVING_EDGE_SHAPES)
+def test_serving_kernels_at_the_edges_of_their_tiles(cuda, n, num_zones,
+                                                     num_blocks):
+    """K1 and K0 against their plain versions where the CTA's agent rows
+    (N not a multiple of them, warps with no valid row), the zone boxes (Z
+    = 8: one 16-zone chunk; Z = 500: a part-filled last box) and the
+    residual blocks (1 and 8) reach their edges; a repeat on the same
+    operands gives the same bits. Past 2 blocks, where X_MEAN_ATOL was not
+    read, the mean is held to the float64 witness: the kernel within
+    SERVING_WITNESS_RATIO times the plain version's distance, the
+    bf16-product control not."""
+    ops = _operands(_model(cuda, num_blocks), cuda, n, num_zones, seed=n)
+    step = (*ops[:4], ops[5][:4].contiguous(), 0.125)
+    with torch.inference_mode():
+        xk, ik = rk4_interval_decode_fused(*ops)
+        xk2, ik2 = rk4_interval_decode_fused(*ops)
+        sk = rk4_step_fused(*step)
+        sk2 = rk4_step_fused(*step)
+        torch.cuda.synchronize()
+        xr, ir = rk4_interval_decode_reference(*ops)
+        sr = rk4_step_reference(*step)
+        deep = num_blocks > 2
+        if deep:
+            runs = ((rk4_interval_decode_reference, ops),
+                    (rk4_step_reference, step))
+            first = lambda out: out[0] if isinstance(out, tuple) else out
+            witness = [first(float64_witness(fn, *a)) for fn, a in runs]
+            control = [first(bf16_control(fn, *a)) for fn, a in runs]
+    assert torch.equal(xk, xk2) and torch.equal(ik, ik2)
+    assert torch.equal(sk, sk2)
+    for i, (got, want) in enumerate(((xk, xr), (sk, sr))):
+        assert torch.isfinite(got).all()
+        d = (got - want).abs()
+        assert d.max().item() <= X_MAX_RTOL * want.abs().max().item()
+        if not deep:
+            assert d.mean().item() <= X_MEAN_ATOL
+            continue
+        dist = lambda a: (a.double() - witness[i]).abs().mean().item()
+        assert dist(got) <= SERVING_WITNESS_RATIO * dist(want)
+        assert dist(control[i]) > SERVING_WITNESS_RATIO * dist(want)
+    assert (ik == ir).float().mean().item() >= IDS_MIN
+    assert 0 <= ik.min().item() and ik.max().item() < num_zones
 
 
 def test_step_kernel_rejects_what_it_is_not_compiled_for(cuda):

@@ -19,6 +19,7 @@ from ananke_abm_tpu_torch.models.gnn_embed.train import GATODEConfig
 from ananke_abm_tpu_torch.ops.cuda.fused_step import (
     rk4_interval_decode_fused,
     rk4_interval_decode_reference,
+    stage_kernels_fit,
 )
 
 # float32 body: the same math in both frameworks; an id moves only where
@@ -103,11 +104,29 @@ def test_kernel_eligibility():
     assert not _kernel_eligible(GATODEConfig(num_blocks=0), "cuda")
     # the TPU dispatch rules do not carry over: no zone cap, no N threshold
     assert _kernel_eligible(GATODEConfig(num_blocks=1), "cuda")
-    # widths or block counts the CUDA kernel is not compiled for still take
-    # the kernel body, whose wrapper raises on the card
-    # (tests/test_torch_cuda.py): no quiet move to the float32 body
-    assert _kernel_eligible(GATODEConfig(num_blocks=9), "cuda")
-    assert _kernel_eligible(GATODEConfig(hidden_dim=256), "cuda")
+    assert _kernel_eligible(GATODEConfig(num_blocks=8), "cuda")
+    # widths or block counts the CUDA kernel is not compiled for take the
+    # float32 body, chosen before anything launches, as the reference's
+    # _pallas_eligible sends them to its XLA body; use_kernel=True still
+    # raises on the card (tests/test_torch_cuda.py)
+    assert not _kernel_eligible(GATODEConfig(num_blocks=9), "cuda")
+    assert not _kernel_eligible(GATODEConfig(hidden_dim=256), "cuda")
+
+
+@pytest.mark.parametrize("change,want", [
+    ({}, True), ({"hidden_dim": 64}, False), ({"num_blocks": 9}, False),
+    ({"zone_dim": 32}, False), ({"agent_dim": 16}, False),
+    ({"context_dim": 64}, False),
+])
+def test_kernel_eligible_follows_the_kernel_widths(change, want):
+    """On the card the kernel body serves exactly where K1 is compiled for
+    the configuration (``fused_step.stage_kernels_fit``)."""
+    config = GATODEConfig(**change)
+    assert _kernel_eligible(config, "cuda") is want
+    assert want is stage_kernels_fit(config.agent_dim, config.zone_dim,
+                                     config.context_dim, config.hidden_dim,
+                                     config.num_blocks)
+    assert _kernel_eligible(config, "cpu") is False
 
 
 def test_auto_on_cpu_takes_the_f32_body():

@@ -14,6 +14,8 @@ Bounds:
   bound of tests/test_ops_kernels.py and tests/test_edge_gather.py for
   those kernels against the XLA composition.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -216,6 +218,23 @@ def test_kernels_fit():
     assert es.kernels_fit(85, 3)
     assert not es.kernels_fit(1, 288) and not es.kernels_fit(3, 96)
     assert not es.kernels_fit(0, 16) and not es.kernels_fit(4, 0)
+
+
+@pytest.mark.parametrize("heads,d,want", [
+    (4, 16, True), (4, 64, True), (1, 256, True), (85, 3, True),
+    (4, 128, False), (1, 257, False), (8, 64, False),
+])
+def test_auto_route_takes_the_kernels_only_where_they_fit(heads, d, want):
+    """``use_kernel="auto"`` takes the CSR kernels for tensors on the card
+    at the widths they are compiled for (``kernels_fit``), the composition
+    past ``MAX_KERNEL_FEATURES`` features a row, and the composition for
+    every CPU tensor; ``True`` forces the kernels' route."""
+    on_card = types.SimpleNamespace(is_cuda=True)
+    assert tseg._use_kernel("auto", on_card, heads, d) is want
+    assert want is es.kernels_fit(heads, d)
+    assert tseg._use_kernel("auto", torch.zeros(1), heads, d) is False
+    assert tseg._use_kernel(True, on_card, heads, d) is True
+    assert tseg._use_kernel(False, on_card, heads, d) is False
 
 
 # ---- the plain CSR versions against the Pallas kernels (interpret mode) ---
