@@ -1,8 +1,8 @@
 // One GAT-ODE drift evaluation ("stage") and its VJP as device functions
-// for a tile of 16 W agent rows (W warps), shared by the adjoint RHS kernel
-// (fused_rhs.cu: one stage and its VJP per launch) and the training-day
-// kernels (fused_train.cu: the whole RK4 day forward, and its reverse sweep
-// with four stage VJPs per substep).
+// for a tile of 16 W agent rows (W warps), shared by the adjoint RHS
+// kernels (fused_rhs.cu: K8, one stage and its VJP per launch; K8a, the
+// stage alone) and K5's bf16 branch (fused_dopri5.cu). The Hopper stage of
+// stage_sm90.cuh keeps this math with its weights in a shared ring.
 //
 // The math is the reference's stage (_stage_math / _stage_vjp_math in
 // ananke_abm_tpu/ops/pallas/fused_step.py) with every bf16 rounding point:
@@ -548,19 +548,16 @@ __device__ __forceinline__ void stage_forward(
 
 // The VJP of the last stage_forward at cotangent `ga` (f32, accumulator
 // fragments): returns gx (f32, accumulator fragments) and adds the summed
-// gradients into `slab` (the time row's at slab + gtf). With kSumHpre the
-// gradient of Dense_0's h-row pre-activation is added per row into `ghp`
-// (the warp's f32 [H/2][32] fragment array: the caller forms gh and gW1h
-// from the sum); without, gh = bf16(gpre1) @ W1h^T is stored to rows ra, rb
-// of `gh` and gW1h added into the slab. Every thread of the block calls
-// it: it holds block barriers.
-template <int DA, int DZ, int DC, int H, int W, bool kSumHpre>
+// gradients into `slab` (the time row's at slab + gtf); gh = bf16(gpre1) @
+// W1h^T is stored to rows ra, rb of `gh` and gW1h added into the slab.
+// Every thread of the block calls it: it holds block barriers.
+template <int DA, int DZ, int DC, int H, int W>
 __device__ __forceinline__ void stage_backward(
     const StageWeights& w, const StageSmem& sm, const float (&ga)[DA / 8][4],
     const uint32_t (&ha)[DC / 16][4], float inv_a, float inv_b, float* slab,
     const Slab<DA, DZ, DC, H>& sl, long gtf, bool first,
     float (&gxb)[DA / 8][4], float* gh, long ra, long rb, bool va, bool vb,
-    float* ghp, int warp, int lane) {
+    int warp, int lane) {
   constexpr int ROWS = 16 * W;
   constexpr int NX = DA / 8, KX = DA / 16;
   constexpr int NZ = DZ / 8, KZ = DZ / 16;
@@ -689,12 +686,7 @@ __device__ __forceinline__ void stage_backward(
     uint32_t g1a[KH][4];
     c_to_a<H>(gz, g1a);
     sts_a<H>(g1a, sm.g + wr0 * L::SH, L::SH, g, t);
-    if constexpr (kSumHpre) {
-#pragma unroll
-      for (int j = 0; j < NH; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) ghp[(4 * j + c) * 32 + lane] += gz[j][c];
-    } else {
+    {
       sts_a<DC>(ha, sm.small + wr0 * L::SS, L::SS, g, t);
       float ghh[NC][4];
       zero(ghh);
@@ -717,12 +709,11 @@ __device__ __forceinline__ void stage_backward(
     sts_a<DZ>(gca, sm.gctx + wr0 * L::SQ, L::SQ, g, t);
   }
   __syncthreads();
-  // gW1xc = feats^T bf16(gpre1) [, gW1h = bf16(h)^T bf16(gpre1)]
+  // gW1xc = feats^T bf16(gpre1), gW1h = bf16(h)^T bf16(gpre1)
   nt_dot1<DF, H, ROWS, W>(sm.feats, L::SF, sm.g, L::SH, slab + sl.gw1, first,
                           warp, lane);
-  if constexpr (!kSumHpre)
-    nt_dot1<DC, H, ROWS, W>(sm.small, L::SS, sm.g, L::SH, slab + sl.gw1h,
-                            first, warp, lane);
+  nt_dot1<DC, H, ROWS, W>(sm.small, L::SS, sm.g, L::SH, slab + sl.gw1h,
+                          first, warp, lane);
   flush_colsum<W, H>(sm.colsum, slab + gtf, H, first);
 
   // attention backward, recomputing attn16 by zone chunks:

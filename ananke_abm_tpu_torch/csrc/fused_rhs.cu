@@ -115,9 +115,9 @@ __global__ void __launch_bounds__(32 * W)
     // backward at gk = a
     float ga[NX][4], gx[NX][4];
     ldg_rows_c<NX>(ga, p.a, ra, rb, va, vb, t);
-    stage_backward<DA, DZ, DC, H, W, false>(
+    stage_backward<DA, DZ, DC, H, W>(
         p.w, sm, ga, ha, inv_a, inv_b, slab, sl, sl.gtf, first, gx, p.gh, ra,
-        rb, va, vb, nullptr, warp, lane);
+        rb, va, vb, warp, lane);
     stg_rows_c<NX>(gx, p.gx, ra, rb, va, vb, t);
     first = false;
   }

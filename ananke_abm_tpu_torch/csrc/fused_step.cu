@@ -1,18 +1,23 @@
-// The GAT-ODE serving rollout's kernels on Hopper (sm_90a), one template
-// for both, for every agent in one launch:
+// The GAT-ODE's RK4 rollout kernels on Hopper (sm_90a), one template for
+// all three, for every agent in one launch:
 // - K1: one output interval, `substeps` RK4 steps of the drift, then the
 //   decode and its first-index argmax (ananke_rk4_interval_decode);
 // - K0: one RK4 step, the same stage code with the decode compiled out
 //   (ananke_rk4_step), for the per-step rollout, whose decode is a plain
-//   product after each interval.
+//   product after each interval;
+// - K2f: the fixed-step training day's forward (ananke_day_forward): the
+//   stage code of S substeps, substep s of its own size dts[s], no decode,
+//   x0 and the carry after every substep stored into xs (S + 1, N, DA).
 //
 // Replaces the Pallas TPU kernels
 //   K1 ananke_abm_tpu/ops/pallas/fused_step.py::rk4_interval_decode_fused
 //   K0 ananke_abm_tpu/ops/pallas/fused_step.py::rk4_step_fused
-// (stage math: _stage_math in the same file). The plain PyTorch versions
+//   K2f ananke_abm_tpu/ops/pallas/fused_train.py::_day_fwd_impl
+// (stage math: _stage_math in fused_step.py). The plain PyTorch versions
 // are ananke_abm_tpu_torch/ops/cuda/fused_step.py::
-// rk4_interval_decode_reference and ::rk4_step_reference. K0 is K1 with
-// `stages` = 4 and no decode.
+// rk4_interval_decode_reference and ::rk4_step_reference, and
+// ananke_abm_tpu_torch/ops/cuda/fused_train.py::day_forward_reference. K0
+// is K1 with `stages` = 4 and no decode.
 //
 // What bounds it on the card. Per agent and interval the kernel does ~1.5
 // MFLOP of bf16 matmul work (8 drift evaluations of ~92k multiply-adds at
@@ -66,8 +71,10 @@
 // Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py --ab-step, the
 // rung-1 operands, one call): K1 9.7 ms against its 1.585 ms bound (the
 // kernel it replaced: 25.3 ms), K0 4.5 ms against 0.790 ms (12.6 ms), the
-// same bits as that kernel's at every checked shape; PERF.md section 6 has
-// the readings and what each part of the design moved.
+// same bits as that kernel's at every checked shape; K2f 7.8 ms at bench
+// rung 2 against its 0.863 ms bound (the kernel it replaced, drift_stage.cuh
+// per warp: 18.2 ms; --ab-train), the same bits as that kernel's. PERF.md
+// section 6 has the readings and what each part of the design moved.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -109,7 +116,8 @@ struct Params {
   const __nv_bfloat16* b3;     // (DA)
   const __nv_bfloat16* wdT;    // (DZ, DA)
   const float* tf;             // (stages, H)
-  float* x_out;                // (n, DA)
+  const float* dts;            // (stages / 4): the day's substep sizes (K2f)
+  float* x_out;                // (n, DA); K2f: xs (stages / 4 + 1, n, DA)
   int* ids;                    // (n), unless the decode is compiled out
   int n, z, zp, num_blocks, stages;
   float dt;
@@ -210,7 +218,7 @@ __device__ __forceinline__ void tma_box(bf16* dst, const CUtensorMap* m,
 // completes on the slot's full barrier, on which every warp waits. The
 // producer's cursor is (seg, k): box k of segment seg (0 .. stages - 1 a
 // stage, stages the decode); past the schedule it copies nothing.
-template <int DA, int DZ, int DC, int H, bool kDecode>
+template <int DA, int DZ, int DC, int H, bool kDecode, int W = kWarps>
 struct ServeRing {
   using B = Boxes<DA, DZ, DC, H>;
   int c = 0;  // boxes consumed (the same in every thread)
@@ -224,7 +232,7 @@ struct ServeRing {
   }
   __device__ __forceinline__ static uint64_t* full(int s) {
     return reinterpret_cast<uint64_t*>(dyn_smem() + B::kRingBytes +
-                                       kWarps * B::kWarpBytes) + s;
+                                       W * B::kWarpBytes) + s;
   }
   __device__ __forceinline__ static uint64_t* empty(int s) {
     return full(B::kSlots + s);
@@ -235,7 +243,7 @@ struct ServeRing {
     if (threadIdx.x == 0) {
       for (int s = 0; s < B::kSlots; ++s) {
         mbar_init(full(s), 1);
-        mbar_init(empty(s), kWarps);
+        mbar_init(empty(s), W);
       }
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
@@ -469,9 +477,31 @@ __device__ __forceinline__ void frag_get(uint32_t (&a)[KS][4],
     for (int c = 0; c < 4; ++c) a[s][c] = src[4 * s + c][lane];
 }
 
-// kDecode: K1 (the stages, then the decode and argmax) or K0 (the stages)
-template <int DA, int DZ, int DC, int H, bool kDecode>
-__global__ void __launch_bounds__(32 * kWarps)
+// the warp's x (its shared-memory rows, fragment order) into rows ra, rb
+// of dst
+template <int NX>
+__device__ __forceinline__ void store_x(float* dst, float (*xs)[32], long ra,
+                                        long rb, bool va, bool vb, int t,
+                                        int lane) {
+  constexpr int DA = 8 * NX;
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (va)
+      *reinterpret_cast<float2*>(dst + ra * DA + c) =
+          make_float2(xs[4 * j][lane], xs[4 * j + 1][lane]);
+    if (vb)
+      *reinterpret_cast<float2*>(dst + rb * DA + c) =
+          make_float2(xs[4 * j + 2][lane], xs[4 * j + 3][lane]);
+  }
+}
+
+// kDecode: K1 (the stages, then the decode and argmax) or K0 (the stages);
+// kDay: K2f (the stages of stages / 4 substeps, substep s of size dts[s],
+// x0 and every substep's carry into the planes of xs); W warps a CTA
+template <int DA, int DZ, int DC, int H, bool kDecode, bool kDay = false,
+          int W = kWarps>
+__global__ void __launch_bounds__(32 * W)
     interval_kernel(const __grid_constant__ Params p) {
   using B = Boxes<DA, DZ, DC, H>;
   constexpr int NX = DA / 8, KX = DA / 16;
@@ -486,7 +516,9 @@ __global__ void __launch_bounds__(32 * kWarps)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  const long row0 = ((long)blockIdx.x * kWarps + warp) * 16;
+  static_assert(!(kDecode && kDay), "K2f has no decode");
+  static_assert(W % 4 == 0, "the products are warpgroup-wide");
+  const long row0 = ((long)blockIdx.x * W + warp) * 16;
   const long ra = row0 + g, rb = row0 + g + 8;
   const bool va = ra < p.n, vb = rb < p.n;
   // the warp's rows in shared memory, in fragment order ([4 j + c][lane]):
@@ -504,7 +536,7 @@ __global__ void __launch_bounds__(32 * kWarps)
   uint32_t (*hs)[32] = reinterpret_cast<uint32_t (*)[32]>(ss + 4 * NX);
   uint32_t (*zq)[32] = hs + 4 * KC;
 
-  ServeRing<DA, DZ, DC, H, kDecode> ring;
+  ServeRing<DA, DZ, DC, H, kDecode, W> ring;
   ring.prime(p);
 
   // ---- load x (accumulator layout) -------------------------------------
@@ -518,6 +550,7 @@ __global__ void __launch_bounds__(32 * kWarps)
     xs[4 * j][lane] = lo.x; xs[4 * j + 1][lane] = lo.y;
     xs[4 * j + 2][lane] = hi.x; xs[4 * j + 3][lane] = hi.y;
   }
+  if (kDay) store_x<NX>(p.x_out, xs, ra, rb, va, vb, t, lane);  // xs[0]
 
   // ---- bf16(h), the A fragments of Dense_0's h rows ----------------------
   {
@@ -540,12 +573,17 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
 
   const float scale = 1.0f / sqrtf((float)DZ);
-  const float dt = p.dt;
-  const float half = dt * 0.5f;
-  const float sixth = dt / 6.0f;
+  float dt = p.dt;
+  float half = dt * 0.5f;
+  float sixth = dt / 6.0f;
 
   for (int st = 0; st < p.stages; ++st) {
     const int r = st & 3;  // RK4 stage within the substep
+    if (kDay && r == 0) {  // the substep's own size
+      dt = p.dts[st >> 2];
+      half = dt * 0.5f;
+      sixth = dt / 6.0f;
+    }
     // ---- stage input: xs + c_r * k_{r-1}, rounded to bf16 -------------
     // (separate multiply and add, no fma: the rounding of the reference)
     uint32_t xa[KX][4];
@@ -749,20 +787,14 @@ __global__ void __launch_bounds__(32 * kWarps)
                 __fadd_rn(xs[4 * j + c][lane], __fmul_rn(sixth, *ks));
         }
       }
+      if (kDay && r == 3)  // the substep's carry: xs[st / 4 + 1]
+        store_x<NX>(p.x_out + (size_t)((st >> 2) + 1) * p.n * DA, xs, ra, rb,
+                    va, vb, t, lane);
     }
   }
 
   // ---- store x_new ----------------------------------------------------------
-#pragma unroll
-  for (int j = 0; j < NX; ++j) {
-    const int c = 8 * j + 2 * t;
-    if (va)
-      *reinterpret_cast<float2*>(p.x_out + ra * DA + c) =
-          make_float2(xs[4 * j][lane], xs[4 * j + 1][lane]);
-    if (vb)
-      *reinterpret_cast<float2*>(p.x_out + rb * DA + c) =
-          make_float2(xs[4 * j + 2][lane], xs[4 * j + 3][lane]);
-  }
+  if (!kDay) store_x<NX>(p.x_out, xs, ra, rb, va, vb, t, lane);
 
   if (kDecode) {
     // ---- decode: ids = argmax(bf16(bf16(x) @ Wd) @ ze^T), first index ----
@@ -861,7 +893,7 @@ bool box_map(CUtensorMap* m, const void* base, int rows, int cols,
 
 // the interval kernel over `p` on `stream`, for the widths it is compiled
 // for; cudaErrorInvalidValue for others
-template <bool kDecode>
+template <bool kDecode, bool kDay = false, int W = kWarps>
 int launch(Params& p, int da, int dz, int dc, int hdim, cudaStream_t s) {
   if (!(da == 32 && dz == 64 && dc == 32 && hdim == 128))
     return (int)cudaErrorInvalidValue;
@@ -877,8 +909,8 @@ int launch(Params& p, int da, int dz, int dc, int hdim, cudaStream_t s) {
       box_map(&p.tm_w3, p.w3T, DA, H, DA) &&
       (!kDecode || box_map(&p.tm_wd, p.wdT, DZ, DA, DZ));
   if (!ok) return (int)cudaErrorNotSupported;
-  auto* kernel = interval_kernel<32, 64, 32, 128, kDecode>;
-  const int smem = Boxes<32, 64, 32, 128>::bytes(kWarps);
+  auto* kernel = interval_kernel<32, 64, 32, 128, kDecode, kDay, W>;
+  const int smem = Boxes<32, 64, 32, 128>::bytes(W);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -888,8 +920,8 @@ int launch(Params& p, int da, int dz, int dc, int hdim, cudaStream_t s) {
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  const int rows = 16 * kWarps;
-  kernel<<<(unsigned)((p.n + rows - 1) / rows), 32 * kWarps, smem, s>>>(p);
+  const int rows = 16 * W;
+  kernel<<<(unsigned)((p.n + rows - 1) / rows), 32 * W, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -914,6 +946,7 @@ void set_params(Params& p, const void* x, const void* h, const void* ze,
   p.x_out = static_cast<float*>(x_out);
   p.wdT = nullptr;
   p.ids = nullptr;
+  p.dts = nullptr;
   p.n = n; p.z = z; p.zp = zp; p.num_blocks = num_blocks; p.stages = stages;
   p.dt = dt;
 }
@@ -962,6 +995,33 @@ int ananke_rk4_step(const void* x, const void* h, const void* ze,
              n, z, zp, num_blocks, 4, dt);
   return launch<false>(p, da, dz, dc, hdim,
                        static_cast<cudaStream_t>(stream));
+}
+
+// Launch the fixed-step training day's forward (K2f) on `stream`: `steps`
+// RK4 substeps from x0, substep s of size dts[s] with the time rows tf[s]
+// (steps, 4, H), x0 and every substep's carry into xs (steps + 1, n, DA).
+// w0 .. w11 are the 12 stage weights in drift_stage.cuh's set_weights
+// order; the kernel reads the (out, in) ones: Wq^T (w0), W1xc^T (w2), W1h^T
+// (w4), the residual matrices' Wr^T (w6), their biases (w8), W3^T (w9) and
+// b3 (w11). Returns as ananke_rk4_interval_decode.
+int ananke_day_forward(const void* x0, const void* h, const void* ze,
+                       const void* zeT, const void* tf, const void* dts,
+                       const void* w0, const void* w1, const void* w2,
+                       const void* w3, const void* w4, const void* w5,
+                       const void* w6, const void* w7, const void* w8,
+                       const void* w9, const void* w10, const void* w11,
+                       void* xs, int n, int z, int zp, int num_blocks,
+                       int steps, int da, int dz, int dc, int hdim,
+                       void* stream) {
+  (void)w1; (void)w3; (void)w5; (void)w7; (void)w10;
+  if (steps < 1 || !sizes_ok(n, z, zp, num_blocks, 4 * steps))
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  set_params(p, x0, h, ze, zeT, w0, w2, w4, w6, w8, w9, w11, tf, xs, n, z,
+             zp, num_blocks, 4 * steps, 0.f);
+  p.dts = static_cast<const float*>(dts);
+  return launch<false, true>(p, da, dz, dc, hdim,
+                             static_cast<cudaStream_t>(stream));
 }
 
 const char* ananke_cuda_error_string(int err) {

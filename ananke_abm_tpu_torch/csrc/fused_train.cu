@@ -1,34 +1,49 @@
-// The fixed-step training day of the GAT-ODE on Hopper (sm_90a): four
-// kernels, each replacing a Pallas TPU kernel of
-// ananke_abm_tpu/ops/pallas/fused_train.py. Plain PyTorch versions:
-// ananke_abm_tpu_torch/ops/cuda/fused_train.py::*_reference.
+// The fixed-step training day of the GAT-ODE on Hopper (sm_90a): three
+// kernels here and one in fused_step.cu, each replacing a Pallas TPU
+// kernel of ananke_abm_tpu/ops/pallas/fused_train.py. Plain PyTorch
+// versions: ananke_abm_tpu_torch/ops/cuda/fused_train.py::*_reference.
 //
-// K2f day_fwd_kernel  <- _day_fwd_impl. The whole RK4 day per agent tile:
-//   S substeps of 4 stages (drift_stage.cuh's stage_forward), every substep
-//   carry written to xs_all (S+1, N, DA) f32. Work ~26 kFLOP per agent and
-//   stage at Z=500 against ~128 bytes of carry written per agent and
-//   substep: compute-bound, like the serving kernel. Each warp owns 16 rows
-//   end to end; the state and the RK4 sum stay in registers.
+// K2f <- _day_fwd_impl: the whole RK4 day per agent, every substep carry
+//   written to xs (S+1, N, DA). It is the serving kernels' work (the bf16
+//   stage, float32 carries) with a carry stored after each substep, so it
+//   is their template's third instantiation, in fused_step.cu
+//   (ananke_day_forward there): the TMA weight ring, wgmma products and the
+//   RK4 state in shared memory.
 //
 // K2b day_bwd_kernel  <- _day_bwd_impl. The reverse sweep. The Pallas
 //   kernel recomputes a substep's four stages and keeps all their
-//   intermediates on chip; one stage's take ~130 KB of shared memory per
-//   64-row tile here, so four do not fit in an SM's 227 KB. Per substep,
-//   in reverse, this kernel runs stages 1-3 forward keeping only their f32
-//   k (DA per row, in shared memory), then for stage 4 -> 1 recomputes the
-//   stage from its input x + c dt k (stage_forward) and runs its VJP
-//   (stage_backward). That is 7 stage forwards per substep where the
-//   Pallas kernel runs 4 (~+35% FLOPs). The row state (x, the cotangent
-//   carry g, the three k and the stage gx that replace them, and the per-row
-//   sum of Dense_0's h-row gradient) stays in shared memory in fragment
-//   order across the sweep. Summed gradients (zone embeddings, the (S, 4,
-//   H) time table, the weights) go into per-CTA slabs in device memory,
-//   zeroed by the caller, then summed in CTA order: no atomics, the same
-//   operands give the same bits. Every stage VJP adds into the slab (~130k
-//   floats at Z=500, read and written per stage and tile): at bench rung 2
-//   ~45 GB of traffic, about 14 ms at 3.35 TB/s, against a compute bound of
-//   ~2.4 ms and a kernel far slower than both (mma.sync at one 4-warp CTA
-//   per SM): the slab traffic is not what bounds it yet.
+//   intermediates on chip; here, per substep in reverse, stages 1-3 run
+//   forward keeping only their f32 k, then for stage 4 -> 1 the stage is
+//   recomputed from its input x + c dt k and its VJP run: 7 stage forwards
+//   a substep where the Pallas kernel runs 4 (~+35% FLOPs). The stage and
+//   its VJP are stage_sm90.cuh's, the discrete adjoint's bf16 step body's
+//   (K6): every weight box is copied once a CTA through its cp.async ring
+//   (on the ring's DaySchedule: per substep 3 stage forwards, then 4
+//   forward and VJP pairs, the tile's h rows after its last substep) and
+//   serves every warp's rows; B fragments come by ldmatrix; the weight
+//   gradients are contracted over the tile's rows by 16 x 32 blocks a warp.
+//
+//   Shared memory. The ring (3 slots of 18,432 bytes) and the rows the VJP
+//   keeps (feats, q, the block chain, the work rows, bf16(h)) take
+//   sm90::Layout::bytes: 230,400 bytes for 6 warps at 2 blocks, of the
+//   232,448 a CTA may hold. The row state the sweep carries (x, the
+//   cotangent g, three k slots and the h-row cotangent's sum: 18,432 bytes
+//   a warp) would not fit beside it at any warp count the ring's rows allow
+//   (4 warps with 3 slots: 245,760 bytes). It lives in a per-CTA scratch in
+//   device memory, read and written by the lane that owns it (14.6 MB for
+//   132 CTAs of 6 warps: L2-resident), as the K6 body keeps its step state.
+//   So the tile is 96 rows (6 warps) up to 2 blocks, 64 up to 5, 32 beyond.
+//   The ways that keep the row state in shared memory (two ring slots, or
+//   only the h-row sum in device memory) both cap the tile at 64 rows;
+//   64-row tiles of this kernel read 122 ms at bench rung 2 against 80 for
+//   96 rows (chip_smoke.py --ab-train, H100 80GB HBM3, 700 W).
+//
+//   Summed gradients (zone embeddings, the (S, 4, H) time table, the
+//   weights) go into per-CTA slabs in device memory, zeroed by the caller,
+//   then summed in CTA order: no atomics, the same operands give the same
+//   bits. Every stage VJP adds into the slab (~131,900 floats at Z=500,
+//   read and written per stage and tile): at bench rung 2 ~34 GB of traffic
+//   with 96-row tiles, ~10 ms at 3.35 TB/s, a floor under this design.
 //
 // K3f ce_fwd_kernel   <- _ce_fwd_impl. Per row: d = bf16(x) @ Wd, logits =
 //   bf16(d) @ ze^T by zone chunks, a max-subtracted log-sum-exp (one pass
@@ -50,25 +65,15 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "drift_stage.cuh"
+#include "stage_sm90.cuh"
 
 namespace {
 
 using namespace ananke;
 
 constexpr int kMaxBlocks = 8;
-constexpr int kFwdWarps = 4;  // K2f, K3f: 64 rows per block
+constexpr int kFwdWarps = 4;  // K3f: 64 rows per block
 constexpr int kCeWarps = 4;   // K3b: 64 rows per tile
-
-struct DayFwdParams {
-  StageWeights w;
-  const float* x0;   // (n, DA)
-  const float* h;    // (n, DC)
-  const float* tf;   // (steps, 4, H)
-  const float* dts;  // (steps)
-  float* xs;         // (steps + 1, n, DA)
-  int n, steps;
-};
 
 struct DayBwdParams {
   StageWeights w;
@@ -80,6 +85,7 @@ struct DayBwdParams {
   float* gx0;        // (n, DA), without gxs[0]
   float* gh;         // (n, DC)
   float* slab;       // (num_ctas, slab_size), zeroed
+  float* state;      // (num_ctas, warps, kDayWarpFloats): the row state
   float* gsum;       // (slab_size)
   int n, steps, num_ctas;
   long slab_size;
@@ -105,99 +111,67 @@ __device__ __forceinline__ void stage_input(uint32_t (&xa)[DA / 16][4],
   c_to_a<DA>(xin, xa);
 }
 
-// ---- K2f ---------------------------------------------------------------------
-template <int DA, int DZ, int DC, int H>
-__global__ void __launch_bounds__(32 * kFwdWarps)
-    day_fwd_kernel(const DayFwdParams p) {
-  constexpr int W = kFwdWarps, ROWS = 16 * W;
-  constexpr int NX = DA / 8, KC = DC / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const StageSmem sm = stage_smem_forward<DA, DZ, DC, H, W>(smem_raw);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3, wr0 = warp * 16;
-  const long ra = (long)blockIdx.x * ROWS + wr0 + g, rb = ra + 8;
-  const bool va = ra < p.n, vb = rb < p.n;
-  const size_t plane = (size_t)p.n * DA;
-
-  float xs[NX][4];
-  ldg_rows_c<NX>(xs, p.x0, ra, rb, va, vb, t);
-  stg_rows_c<NX>(xs, p.xs, ra, rb, va, vb, t);
-  uint32_t ha[KC][4];
-  ldg_rows_a<DC>(ha, p.h, ra, rb, va, vb, t);
-
-  // k: the last stage's derivative; ksum: k1 + 2 k2 + 2 k3 + k4
-  float k[NX][4], ksum[NX][4];
-  zero(k);
-  zero(ksum);
-  for (int st = 0; st < 4 * p.steps; ++st) {
-    const int r = st & 3, s = st >> 2;
-    const float dt = p.dts[s];
-    const float cr = (r == 0) ? 0.f : ((r == 3) ? dt : dt * 0.5f);
-    uint32_t xa[NX / 2][4];
-    {
-      float xin[NX][4];
-#pragma unroll
-      for (int j = 0; j < NX; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          xin[j][c] = (r == 0) ? xs[j][c]
-                               : __fadd_rn(xs[j][c], __fmul_rn(cr, k[j][c]));
-      c_to_a<DA>(xin, xa);
-    }
-    float inv_a, inv_b;
-    stage_forward<DA, DZ, DC, H, W>(p.w, sm, xa, ha, p.tf + (size_t)st * H,
-                                    k, inv_a, inv_b, wr0, g, t);
-    const float wgt = (r == 1 || r == 2) ? 2.0f : 1.0f;
-#pragma unroll
-    for (int j = 0; j < NX; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        ksum[j][c] = (r == 0) ? k[j][c]
-                              : __fadd_rn(ksum[j][c], __fmul_rn(wgt, k[j][c]));
-    if (r == 3) {
-      const float sixth = dt / 6.0f;
-#pragma unroll
-      for (int j = 0; j < NX; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          xs[j][c] = __fadd_rn(xs[j][c], __fmul_rn(sixth, ksum[j][c]));
-      stg_rows_c<NX>(xs, p.xs + (size_t)(s + 1) * plane, ra, rb, va, vb, t);
-    }
-  }
-}
-
 // ---- K2b ---------------------------------------------------------------------
+//
+// A tile is 16 W agent rows, warp w owns rows 16 w .. 16 w + 15 end to end;
+// the warps walk the tile's weight boxes in lockstep (stage_sm90.cuh's Ring
+// on its DaySchedule: one period a tile). Each warp keeps its rows' float32
+// state in fragment order (frag_ld / frag_st) in a scratch of its own in
+// device memory, kFX floats an array: 0 x (then stage 1's gx) | 1 the
+// cotangent carry g | 2-4 k slots 0-2 (k_1 .. k_3 forward; slot r - 1 takes
+// stage r's gx once stage r's input has read k_{r-1}) | then the per-row sum
+// of Dense_0's h-row pre-activation cotangent ([H/2][32]). Only the owning
+// lane touches a slot: no barrier guards them.
+
+constexpr int kFX = (32 / 8) * 4 * 32;                // floats of one array
+constexpr int kDayWarpFloats = 5 * kFX + (128 / 8) * 4 * 32;
+
+// warps of K2b's tile: the most whose rows fit the SM's shared memory beside
+// the ring (sm90::Layout::bytes): 6 (96 rows) up to 2 blocks, 4 up to 5, 2
+// beyond
+inline int day_bwd_warps(int nb) { return nb <= 2 ? 6 : nb <= 5 ? 4 : 2; }
+
 template <int DA, int DZ, int DC, int H, int W>
-__global__ void __launch_bounds__(32 * W)
+__global__ void __launch_bounds__(32 * W, 1)
     day_bwd_kernel(const DayBwdParams p) {
   constexpr int ROWS = 16 * W;
-  constexpr int NX = DA / 8, KX = DA / 16;
-  constexpr int NC = DC / 8, KC = DC / 16;
-  constexpr int NH = H / 8, KH = H / 16;
-  constexpr int FX = NX * 4 * 32;  // floats of one per-warp row array
-  using L = Layout<DA, DZ, DC, H>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nb = p.w.num_blocks;
-  const StageSmem sm = stage_smem<DA, DZ, DC, H, W>(smem_raw, nb);
+  constexpr int NX = DA / 8, KX = DA / 16, FX = kFX;
+  using Ring = sm90::Ring<DA, DZ, DC, H, W, sm90::DaySchedule>;
+  using L = sm90::Layout<DA, DZ, DC, H>;
+  using S = sm90::Smem<DA, DZ, DC, H, W>;
+  static_assert(FX == NX * 4 * 32, "the row arrays");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3, wr0 = warp * 16;
-  // the warp's row state in fragment order: x | g | k slots 0-2 | ghp
-  float* fx = reinterpret_cast<float*>(sm.end) + (size_t)warp * (5 * FX + NH * 4 * 32);
+  const int tf_rows = 4 * p.steps;
+  const long gtf = Slab<DA, DZ, DC, H>(p.w.z, p.w.num_blocks, tf_rows).gtf;
+  float* slab = p.slab + (size_t)blockIdx.x * p.slab_size;
+  float* fx = p.state + ((size_t)blockIdx.x * W + warp) * kDayWarpFloats;
   float* fg = fx + FX;
   float* fk = fg + FX;
-  float* fghp = fk + 3 * FX;
-  const Slab<DA, DZ, DC, H> sl(p.w.z, nb, 4 * p.steps);
-  float* slab = p.slab + (size_t)blockIdx.x * p.slab_size;
+  float* ghp = fk + 3 * FX;
   const int n_tiles = (p.n + ROWS - 1) / ROWS;
   const size_t plane = (size_t)p.n * DA;
+  sm90::DaySchedule sched;
+  sched.steps = p.steps;
+  const int period = Ring::period(p.w, p.steps);
+  {
+    Ring first;
+    first.steps = p.steps;
+    first.prime(p.w);
+  }
+  int c0 = 0;  // the ring's boxes consumed before the tile (mod kSlots)
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += p.num_ctas) {
     const long ra = (long)tile * ROWS + wr0 + g, rb = ra + 8;
     const bool va = ra < p.n, vb = rb < p.n;
-    uint32_t ha[KC][4];
-    ldg_rows_a<DC>(ha, p.h, ra, rb, va, vb, t);
-    for (int i = 0; i < NH * 4; ++i) fghp[i * 32 + lane] = 0.f;
+    {  // bf16(h) into the tile's hb rows, where every stage reads it
+      uint32_t ha[DC / 16][4];
+      ldg_rows_a<DC>(ha, p.h, ra, rb, va, vb, t);
+      sts_a<DC>(ha, S::hb() + wr0 * L::SS, L::SS, g, t);
+    }
+    for (int i = 0; i < (H / 8) * 4; ++i) ghp[i * 32 + lane] = 0.f;
     for (int i = 0; i < NX * 4; ++i) fg[i * 32 + lane] = 0.f;
+    Ring ring = Ring::at_step(c0, sched);
 
     for (int s = p.steps - 1; s >= 0; --s) {
       const float dt = p.dts[s];
@@ -217,18 +191,21 @@ __global__ void __launch_bounds__(32 * W)
         frag_st<NX>(gc, fg, lane);
       }
       // stages 1-3 forward: k_r = f(x + c_r k_{r-1}) into slot r
+#pragma unroll 1
       for (int r = 0; r < 3; ++r) {
         uint32_t xa[KX][4];
         stage_input<DA>(xa, fx, fk + (r > 0 ? r - 1 : 0) * FX, half, r == 0,
                         lane);
         float k[NX][4], ia, ib;
-        stage_forward<DA, DZ, DC, H, W>(p.w, sm, xa, ha, tfs + r * H, k, ia,
-                                        ib, wr0, g, t);
+        sm90::stage_forward<DA, DZ, DC, H, W>(p.w, ring, xa, tfs + r * H, k,
+                                              ia, ib, wr0, g, t);
         frag_st<NX>(k, fk + r * FX, lane);
       }
       // stages 4 -> 1: recompute the stage, then its VJP. The input of
       // stage r reads k_{r-1} (slot r-1); once read, the slot takes this
-      // stage's gx, which the next (earlier) stage's cotangent reads.
+      // stage's gx, which the next (earlier) stage's cotangent reads; stage
+      // 1's gx goes to the x array, read by no later stage of the substep.
+#pragma unroll 1
       for (int r = 3; r >= 0; --r) {
         uint32_t xa[KX][4];
         stage_input<DA>(xa, fx, fk + (r > 0 ? r - 1 : 0) * FX,
@@ -256,58 +233,43 @@ __global__ void __launch_bounds__(32 * W)
                                      __fmul_rn(cx, gn[j][c]));
           }
         }
-        float k[NX][4], ia, ib, gx[NX][4];
-        stage_forward<DA, DZ, DC, H, W>(p.w, sm, xa, ha, tfs + r * H, k, ia,
-                                        ib, wr0, g, t);
-        stage_backward<DA, DZ, DC, H, W, true>(
-            p.w, sm, gk, ha, ia, ib, slab, sl, sl.gtf + (long)(4 * s + r) * H,
-            false, gx, nullptr, ra, rb, va, vb, fghp, warp, lane);
-        if (r > 0) {
-          frag_st<NX>(gx, fk + (r - 1) * FX, lane);
-        } else {
-          // g = g + gx1 + gx2 + gx3 + gx4, in the reference's order
-          float gc[NX][4], v[NX][4];
-          frag_ld<NX>(gc, fg, lane);
+        float k[NX][4], ia, ib;
+        sm90::stage_forward<DA, DZ, DC, H, W>(p.w, ring, xa, tfs + r * H, k,
+                                              ia, ib, wr0, g, t);
+        float* gx_slot = r > 0 ? fk + (r - 1) * FX : fx;
+        sm90::stage_backward<DA, DZ, DC, H, W>(
+            p.w, ring, gk, ia, ib, slab, tf_rows, gtf + (long)(4 * s + r) * H,
+            gx_slot, ghp, warp, lane);
+      }
+      // g = g + gx1 + gx2 + gx3 + gx4, in the reference's order
+      {
+        float gc[NX][4], v[NX][4];
+        frag_ld<NX>(gc, fg, lane);
+        for (int i = 0; i < 4; ++i) {
+          frag_ld<NX>(v, i == 0 ? fx : fk + (i - 1) * FX, lane);
 #pragma unroll
           for (int j = 0; j < NX; ++j)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) gc[j][c] = gc[j][c] + gx[j][c];
-          for (int i = 0; i < 3; ++i) {
-            frag_ld<NX>(v, fk + i * FX, lane);
-#pragma unroll
-            for (int j = 0; j < NX; ++j)
-#pragma unroll
-              for (int c = 0; c < 4; ++c) gc[j][c] = gc[j][c] + v[j][c];
-          }
-          frag_st<NX>(gc, fg, lane);
+            for (int c = 0; c < 4; ++c) gc[j][c] = gc[j][c] + v[j][c];
         }
+        frag_st<NX>(gc, fg, lane);
       }
     }
 
-    // gx0 = g; hpre = bf16(h) @ W1h: gh = bf16(ghp) @ W1h^T per row,
-    // gW1h = bf16(h)^T bf16(ghp) summed
+    // gx0 = g; hpre = bf16(h) @ W1h: gh = bf16(ghp) @ W1h^T per row, gW1h
+    // = bf16(h)^T bf16(ghp) summed (the period's last box)
     {
       float gc[NX][4];
       frag_ld<NX>(gc, fg, lane);
       stg_rows_c<NX>(gc, p.gx0, ra, rb, va, vb, t);
-      float gp[NH][4];
-      frag_ld<NH>(gp, fghp, lane);
-      uint32_t g1a[KH][4];
-      c_to_a<H>(gp, g1a);
-      sts_a<H>(g1a, sm.g + wr0 * L::SH, L::SH, g, t);
-      sts_a<DC>(ha, sm.small + wr0 * L::SS, L::SS, g, t);
-      float ghh[NC][4];
-      zero(ghh);
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-        mma_nblocks<H, 1>(ghh, j, g1a, p.w.w1h + (size_t)8 * j * H, g, t);
-      stg_rows_c<NC>(ghh, p.gh, ra, rb, va, vb, t);
+      float ghh[DC / 8][4];
+      sm90::h_rows<DA, DZ, DC, H, W>(p.w, ring, ghp, slab, tf_rows, ghh,
+                                     warp, lane);
+      stg_rows_c<DC / 8>(ghh, p.gh, ra, rb, va, vb, t);
     }
-    __syncthreads();
-    nt_dot1<DC, H, ROWS, W>(sm.small, L::SS, sm.g, L::SH, slab + sl.gw1h,
-                            false, warp, lane);
-    __syncthreads();
+    c0 = (c0 + period) % L::kSlots;
   }
+  Ring::drain();
 }
 
 // ---- K3f / K3b: the decode head's cross-entropy -------------------------------
@@ -536,10 +498,8 @@ bool shipping_widths(int da, int dz, int dc, int hdim) {
 template <int W>
 int launch_day_bwd(const DayBwdParams& p, cudaStream_t s) {
   auto* kernel = day_bwd_kernel<32, 64, 32, 128, W>;
-  constexpr int ROWS = 16 * W;
   const size_t smem =
-      Layout<32, 64, 32, 128>::bytes(ROWS, W, p.w.num_blocks) +
-      (size_t)W * (5 * 32 + 128) * 16 * sizeof(float);
+      sm90::Layout<32, 64, 32, 128>::bytes(16 * W, W, p.w.num_blocks);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -554,10 +514,9 @@ int launch_day_bwd(const DayBwdParams& p, cudaStream_t s) {
 extern "C" {
 
 // Agent rows per tile of the day's reverse sweep for `num_blocks` residual
-// blocks: 64 (4 warps), or 32 (2 warps) where a 64-row tile's state would
-// not fit in shared memory.
+// blocks: 96 (6 warps) up to 2 blocks, 64 up to 5, 32 beyond (day_bwd_warps).
 int ananke_day_bwd_tile_rows(int num_blocks) {
-  return num_blocks <= 3 ? 64 : 32;
+  return 16 * day_bwd_warps(num_blocks);
 }
 
 // Agent rows per tile of the cross-entropy's backward.
@@ -568,49 +527,13 @@ long ananke_day_bwd_slab_size(int z, int num_blocks, int steps) {
   return Slab<32, 64, 32, 128>(z, num_blocks, 4 * steps).size;
 }
 
-// K2f on `stream`: the whole day's RK4 forward, every substep carry into
-// xs. `w` points at the 12 weights in set_weights' order. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for widths
-// this file was not compiled for or bad sizes.
-int ananke_day_forward(const void* x0, const void* h, const void* ze,
-                       const void* zeT, const void* tf, const void* dts,
-                       const void* w0, const void* w1, const void* w2,
-                       const void* w3, const void* w4, const void* w5,
-                       const void* w6, const void* w7, const void* w8,
-                       const void* w9, const void* w10, const void* w11,
-                       void* xs, int n, int z, int zp, int num_blocks,
-                       int steps, int da, int dz, int dc, int hdim,
-                       void* stream) {
-  if (num_blocks < 1 || num_blocks > kMaxBlocks || n < 1 || z < 1 ||
-      zp % 16 != 0 || zp < z || steps < 1 ||
-      !shipping_widths(da, dz, dc, hdim)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  DayFwdParams p;
-  const void* wts[12] = {w0, w1, w2, w3, w4, w5, w6, w7, w8, w9, w10, w11};
-  set_weights(p.w, wts);
-  p.w.ze = static_cast<const bf16*>(ze);
-  p.w.zeT = static_cast<const bf16*>(zeT);
-  p.w.z = z; p.w.zp = zp; p.w.num_blocks = num_blocks;
-  p.x0 = static_cast<const float*>(x0);
-  p.h = static_cast<const float*>(h);
-  p.tf = static_cast<const float*>(tf);
-  p.dts = static_cast<const float*>(dts);
-  p.xs = static_cast<float*>(xs);
-  p.n = n; p.steps = steps;
-  auto* kernel = day_fwd_kernel<32, 64, 32, 128>;
-  const int rows = 16 * kFwdWarps;
-  const size_t smem = Layout<32, 64, 32, 128>::bytes_forward(rows, num_blocks);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<(unsigned)((n + rows - 1) / rows), 32 * kFwdWarps, smem, s>>>(p);
-  return (int)cudaGetLastError();
-}
-
 // K2b on `stream`: the reverse sweep, then the slab reduction into gsum
-// (layout: Slab with 4 * steps time rows). The slabs must be zeroed.
+// (layout: Slab with 4 * steps time rows). `slab` holds num_ctas slabs,
+// zeroed, then num_ctas x ananke_day_bwd_tile_rows(num_blocks) x (5 da +
+// hdim) floats of row state the kernel overwrites. `w` points at the 12
+// weights in set_weights' order. Returns the first CUDA error of the
+// launches, or cudaErrorInvalidValue for widths this file was not compiled
+// for or bad sizes.
 int ananke_day_backward(const void* xs, const void* gxs, const void* h,
                         const void* ze, const void* zeT, const void* tf,
                         const void* dts, const void* w0, const void* w1,
@@ -645,8 +568,13 @@ int ananke_day_backward(const void* xs, const void* gxs, const void* h,
   p.gsum = static_cast<float*>(gsum);
   p.n = n; p.steps = steps; p.num_ctas = num_ctas;
   p.slab_size = ananke_day_bwd_slab_size(z, num_blocks, steps);
+  p.state = p.slab + (size_t)num_ctas * p.slab_size;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return rows == 64 ? launch_day_bwd<4>(p, s) : launch_day_bwd<2>(p, s);
+  switch (day_bwd_warps(num_blocks)) {
+    case 6: return launch_day_bwd<6>(p, s);
+    case 4: return launch_day_bwd<4>(p, s);
+    default: return launch_day_bwd<2>(p, s);
+  }
 }
 
 // K3f on `stream`: nll and the correct flag per row.

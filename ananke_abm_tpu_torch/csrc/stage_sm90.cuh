@@ -2,7 +2,9 @@
 // (16 W agent rows) whose warps share every weight operand through a ring
 // of shared-memory slots: the Hopper stage of the discrete adjoint's bf16
 // step body (fused_dopri5.cu: K6 at precision "bf16", and K7's bf16 branch,
-// the same step VJP launched once).
+// the same step VJP launched once) and of the fixed-step training day's
+// reverse sweep (fused_train.cu: K2b). Each walks its own fixed schedule of
+// weight boxes (StepSchedule, DaySchedule below).
 //
 // The math is drift_stage.cuh's, rounding point for rounding point (the
 // reference's _stage_math / _stage_vjp_math in
@@ -20,7 +22,9 @@
 //   transpose), copied by cp.async into a ring of kSlots slots (prefetch
 //   kSlots - 1 boxes ahead) and read by every warp of the CTA from shared
 //   memory: one copy serves 16 W rows (96 at two blocks). The warps walk
-//   the sequence in lockstep, one block barrier per box (Ring::next).
+//   the sequence in lockstep, one block barrier per box (Ring::next). The
+//   sequence repeats with a period: a DOPRI5 step's stages, or an RK4
+//   tile's substeps, then the h rows' box.
 // - B fragments come from shared memory at a row stride of the box width
 //   plus 8 bf16, so the 8 rows a fragment touches fall in distinct banks;
 //   one ldmatrix.x4 gives a k-slice's fragments of two n-blocks.
@@ -175,25 +179,45 @@ __device__ __forceinline__ void mma_s(float (&acc)[NOUT][4], int j0,
   }
 }
 
-// The step VJP's weight boxes, in the order the step consumes them (and
-// again for every step):
+// The order of a period of the ring's schedule (below): per step kF stage
+// forwards, then kP (forward, VJP) pairs; after the period's last step the
+// h rows' box.
+// - StepSchedule, the DOPRI5 step VJP (K6, K7-bf16): stages 1-5 forward,
+//   then stages 6 .. 1 recomputed and differentiated; one step a period.
+// - DaySchedule, the RK4 day's reverse sweep (K2b): per substep stages 1-3
+//   forward, then stages 4 .. 1 recomputed and differentiated; a period is
+//   a tile, its `steps` substeps, and ends with the tile's h rows.
+struct StepSchedule {
+  static constexpr int kF = 5, kP = 6;
+  static constexpr bool kOneStep = true;
+};
+
+struct DaySchedule {
+  static constexpr int kF = 3, kP = 4;
+  static constexpr bool kOneStep = false;
+  int steps = 1;
+};
+
+// A period's weight boxes, in the order it consumes them:
 //   F (a stage forward): Wq^T | zones x nzc | W1 halves 0, 1 | per block
 //     Wr1^T halves 0, 1, Wr2^T halves 0, 1 | W3^T
 //   B (a stage VJP): W3 | per block, last first: Wr1^T halves, Wr2 halves,
 //     Wr1 halves | W1xc rows 0-63, 64- | zones x nzc (the attention's first
 //     pass) | zones x nzc (its second) | Wq
-//   the step: F x 5 (stages 1-5), (F, B) x 6 (stages 6 .. 1), W1h (the
-//     step's h rows)
+//   a step: F x kF, (F, B) x kP; the period: its steps, then W1h (the h
+//     rows)
 // A "zones" box is ZC rows of ze beside the same ZC columns of ze^T; a "W1
 // half" H/2 rows of W1xc^T beside the same rows of W1h^T.
-template <int DA, int DZ, int DC, int H, int W>
-struct Ring {
+template <int DA, int DZ, int DC, int H, int W, class Sched = StepSchedule>
+struct Ring : Sched {
   using L = Layout<DA, DZ, DC, H>;
   static constexpr int DF = DA + DZ;
+  static constexpr int kH = Sched::kF + 2 * Sched::kP;  // the h rows' segment
   int c = 0;    // boxes consumed (the same in every thread)
-  // the producer's cursor: box k of segment seg of the step (segments 0-4
-  // F, then F and B by turns for stages 6 .. 1, then the h rows' box)
-  int seg = 0, k = 0;
+  // the producer's cursor: box k of segment seg of step rep of the period
+  // (segments 0 .. kF - 1 F, then F and B by turns, then segment kH, the h
+  // rows' box, after the last step)
+  int seg = 0, k = 0, rep = 0;
 
   // boxes of a stage forward, of a stage VJP
   __device__ __forceinline__ static int nzc(const StageWeights& w) {
@@ -205,15 +229,19 @@ struct Ring {
   __device__ __forceinline__ static int vjp(const StageWeights& w) {
     return 4 + 6 * w.num_blocks + 2 * nzc(w);
   }
-  // boxes of a step: its schedule's period
-  __device__ __forceinline__ static int period(const StageWeights& w) {
-    return 11 * fwd(w) + 6 * vjp(w) + 1;
+  // boxes of a period of `steps` steps
+  __device__ __forceinline__ static int period(const StageWeights& w,
+                                               int steps = 1) {
+    return steps * ((Sched::kF + Sched::kP) * fwd(w) + Sched::kP * vjp(w)) +
+           1;
   }
-  // The ring as a step finds it, c0 boxes consumed (mod kSlots) before it:
-  // its first kSlots - 1 boxes already in flight, the producer at the
-  // step's box kSlots - 1 (a stage forward has more boxes than that).
-  __device__ __forceinline__ static Ring at_step(int c0) {
+  // The ring as a period finds it, c0 boxes consumed (mod kSlots) before
+  // it: its first kSlots - 1 boxes already in flight, the producer at the
+  // period's box kSlots - 1 (a stage forward has more boxes than that).
+  __device__ __forceinline__ static Ring at_step(int c0,
+                                                 const Sched& s = Sched()) {
     Ring r;
+    static_cast<Sched&>(r) = s;
     r.c = c0;
     r.k = L::kSlots - 1;
     return r;
@@ -248,9 +276,10 @@ struct Ring {
     bf16* slot = Ring::slot(ci);
     const int nb = w.num_blocks, nz = nzc(w);
     const size_t HH2 = (size_t)L::HH * H;
-    const bool fw = seg < 5 || (seg < 17 && seg % 2 == 1);
+    const bool fw =
+        seg < Sched::kF || (seg < kH && seg % 2 == Sched::kF % 2);
     int len = 1;
-    if (seg == 17) {
+    if (seg == kH) {
       box(slot, 0, w.w1h, DC, H, H);
     } else if (fw) {  // a stage forward
       len = fwd(w);
@@ -293,7 +322,14 @@ struct Ring {
     cp_commit();
     if (++k == len) {
       k = 0;
-      seg = seg == 17 ? 0 : seg + 1;
+      if constexpr (Sched::kOneStep) {
+        seg = seg == kH ? 0 : seg + 1;
+      } else if (seg == kH) {
+        seg = 0;
+        rep = 0;
+      } else if (++seg == kH && ++rep < this->steps) {
+        seg = 0;  // the period's next step
+      }
     }
   }
 
@@ -394,9 +430,9 @@ __device__ __forceinline__ void nt_dot1(const bf16* A, int sa, const bf16* B,
 // F of the schedule). Leaves feats, q and the block chain of the warp's rows
 // in shared memory and returns the softmax's row normalisers. Every thread
 // of the CTA calls it (the ring's barriers).
-template <int DA, int DZ, int DC, int H, int W>
+template <int DA, int DZ, int DC, int H, int W, class Sched>
 __device__ __forceinline__ void stage_forward(
-    const StageWeights& w, Ring<DA, DZ, DC, H, W>& ring,
+    const StageWeights& w, Ring<DA, DZ, DC, H, W, Sched>& ring,
     const uint32_t (&xa)[DA / 16][4], const float* tf,
     float (&k)[DA / 8][4], float& inv_a, float& inv_b, int wr0, int g,
     int t) {
@@ -559,15 +595,15 @@ __device__ __forceinline__ void stage_forward(
 }
 
 // The VJP of the last stage_forward at cotangent `ga` (f32, accumulator
-// fragments), as drift_stage.cuh's stage_backward<..., kSumHpre = true>,
+// fragments), as drift_stage.cuh's stage_backward, but for the h rows,
 // with its weights from the ring (boxes B of the schedule): returns gx (f32,
 // accumulator fragments), adds the summed gradients into `slab` (the time
 // row's at slab + gtf) and the gradient of Dense_0's h-row pre-activation
 // per row into `ghp` (the warp's f32 [H/2][32] fragment array). Every
 // thread of the CTA calls it.
-template <int DA, int DZ, int DC, int H, int W>
+template <int DA, int DZ, int DC, int H, int W, class Sched>
 __device__ __forceinline__ void stage_backward(
-    const StageWeights& w, Ring<DA, DZ, DC, H, W>& ring,
+    const StageWeights& w, Ring<DA, DZ, DC, H, W, Sched>& ring,
     const float (&ga)[DA / 8][4], float inv_a, float inv_b, float* slab,
     int tf_rows, long gtf, float* gx_slot, float* ghp, int warp, int lane) {
   using L = Layout<DA, DZ, DC, H>;
@@ -849,9 +885,9 @@ __device__ __forceinline__ void stage_backward(
 // bf16(ghp) @ W1h^T per row (into ghh, accumulator fragments) and gW1h +=
 // bf16(h)^T bf16(ghp) into the slab, at the reference's rounding points.
 // Every thread of the CTA calls it.
-template <int DA, int DZ, int DC, int H, int W>
+template <int DA, int DZ, int DC, int H, int W, class Sched>
 __device__ __forceinline__ void h_rows(const StageWeights& w,
-                                       Ring<DA, DZ, DC, H, W>& ring,
+                                       Ring<DA, DZ, DC, H, W, Sched>& ring,
                                        const float* ghp, float* slab,
                                        int tf_rows, float (&ghh)[DC / 8][4],
                                        int warp, int lane) {

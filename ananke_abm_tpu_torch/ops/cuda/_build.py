@@ -41,6 +41,7 @@ _ENTRY = {
             [_P] * 15 + [_I] * 5 + [ctypes.c_float] + [_I] * 4 + [_P], _I),
         "ananke_rk4_step": ([_P] * 13 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
                             _I),
+        "ananke_day_forward": ([_P] * 19 + [_I] * 9 + [_P], _I),
     },
     "fused_rhs": {
         "ananke_drift_rhs_and_vjp": ([_P] * 23 + [_I] * 9 + [_P], _I),
@@ -48,7 +49,6 @@ _ENTRY = {
         "ananke_drift_rhs": ([_P] * 18 + [_I] * 8 + [_P], _I),
     },
     "fused_train": {
-        "ananke_day_forward": ([_P] * 19 + [_I] * 9 + [_P], _I),
         "ananke_day_backward": ([_P] * 23 + [_I] * 10 + [_P], _I),
         "ananke_day_bwd_tile_rows": ([_I], _I),
         "ananke_day_bwd_slab_size": ([_I] * 3, _L),

@@ -2,8 +2,10 @@
 and its VJP, and the decode head's cross-entropy and its VJP.
 
 Port of ``ananke_abm_tpu/ops/pallas/fused_train.py``. Four kernels (CUDA
-C++ in ``csrc/fused_train.cu``) replace the four Pallas kernels of that
-file, each with its plain PyTorch version beside it:
+C++: K2b, K3f and K3b in ``csrc/fused_train.cu``, K2f in
+``csrc/fused_step.cu`` beside the serving kernels whose template it
+shares) replace the four Pallas kernels of that file, each with its plain
+PyTorch version beside it:
 
 - :func:`day_forward_fused` (K2f, ``_day_fwd_impl``) and
   :func:`day_forward_reference`;
@@ -193,15 +195,17 @@ def _kernel_device(name, x, fits, widths, compiled, num_blocks=None):
     return True
 
 
-def _lib():
+def _lib(name="fused_train"):
     from ananke_abm_tpu_torch.ops.cuda._build import load_library
 
-    return load_library("fused_train")
+    return load_library(name)
 
 
 def day_forward_fused(x0, h, ze, tf_pre, dts, weights):
     """The day forward. Arguments and result as
-    :func:`day_forward_reference`; on CUDA the kernel K2f."""
+    :func:`day_forward_reference`; on CUDA the kernel K2f, the serving
+    kernels' template in ``csrc/fused_step.cu`` with a carry stored after
+    each substep."""
     N, Da, Z, Dz, Dc, H, S = _check_stage_operands(
         "day_forward_fused", x0, ze, tf_pre, dts, weights,
         [("x0", x0, x0.shape), ("h", h, (x0.shape[0], weights[2].shape[0]))])
@@ -213,7 +217,7 @@ def day_forward_fused(x0, h, ze, tf_pre, dts, weights):
     xs = torch.empty((S + 1, N, Da), dtype=torch.float32, device=x0.device)
     if N == 0:
         return xs
-    lib = _lib()
+    lib = _lib("fused_step")
     ze_p, zeT = pad_zones(ze)
     ops = [x0.contiguous(), h.contiguous(), ze_p, zeT, tf_pre.contiguous(),
            dts.contiguous(), *pack_stage_weights(*weights), xs]
@@ -322,9 +326,12 @@ def day_backward_fused(xs_all, g_xs, h, ze, tf_pre, dts, weights):
                                "layout differs from grad_layout")
         rows = lib.ananke_day_bwd_tile_rows(nb)
         num_ctas = min(NUM_SLABS, -(-N // rows))
-        # every stage's partial sums are added into the slabs: zeroed here
-        slabs = torch.zeros((num_ctas, size), dtype=torch.float32,
-                            device=dev)
+        # the slabs (every stage's partial sums are added into them: zeroed
+        # here), then each CTA's row state: x, g, three k and the h-row
+        # cotangent's sum per row of its tile
+        slabs = torch.empty((num_ctas * (size + rows * (5 * Da + H)),),
+                            dtype=torch.float32, device=dev)
+        slabs[: num_ctas * size].zero_()
         ze_p, zeT = pad_zones(ze)
         ops = [xs_all.contiguous(), g_xs.contiguous(), h.contiguous(), ze_p,
                zeT, tf_pre.contiguous(), dts.contiguous(),

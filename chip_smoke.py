@@ -234,6 +234,19 @@ KERNEL_SHAPES, checks.SERVING_EDGE_SHAPES and the rung-1 operands (phase
 4's weights and agents, interval 0) against this checkout, and the
 per-launch times of K1 and K0 at the rung-1 operands, in the order DIR...,
 this, this, ...DIR.
+``python3 chip_smoke.py --ab-train DIR [DIR ...]`` builds only the day
+kernels' libraries (``fused_step.cu``, which holds K2f, and
+``fused_train.cu``, which holds K2b), each DIR's beside them, then prints
+ptxas's registers and spills of every build, the bits of K2f's xs and
+K2b's ten outputs at DAY_SHAPES (the first: the rung-2 operands of phase
+13a) and DEPTH_SHAPES against this checkout, and the per-launch times of
+K2f and K2b at the rung-2 operands in the order DIR..., this, this,
+...DIR, with K2b's tile rows, tiles and CTAs per build. A DIR written
+``DIR+PROBE`` is a copy of DIR's kernel sources with PROBE's
+substitutions (PROBES: products, B loads, slab traffic or ``expf`` /
+``tanhf`` taken out; K2b's tile at 4 warps; K2f's CTAs at 4 warps),
+built under ``build/chip_smoke/variants/``: its results are wrong by
+design and only timed.
 ``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` runs phases 1-2 and then
 compares K8 of this checkout with K8 built from each checkout at DIR:
 ptxas and SASS counts of each build, bits at K8_SHAPES and alternating
@@ -535,6 +548,10 @@ def main():
     parser.add_argument("--ab-step", metavar="DIR", nargs="+",
                         help="compare and time K1 and K0 against those of "
                         "the checkouts at DIR")
+    parser.add_argument("--ab-train", metavar="DIR", nargs="+",
+                        help="compare and time K2f and K2b against those "
+                        "of the checkouts at DIR (DIR+PROBE: a probe "
+                        "variant of DIR's sources)")
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -585,8 +602,15 @@ def main():
               for i, d in enumerate(args.ab_dopri5 or ())]
     others += [start_build(Path(d).resolve(), f"other{i}", "fused_step")
                for i, d in enumerate(args.ab_step or ())]
+    train_others = []
+    for i, d in enumerate(args.ab_train or ()):
+        name, checkout = ab_checkout(d)
+        train_others.append((name, [start_build(checkout, f"train{i}", lib)
+                                    for lib in ("fused_step",
+                                                "fused_train")]))
     built = _build.build_all(
         ("fused_step",) if args.ab_step or args.readings == "serving"
+        else ("fused_step", "fused_train") if args.ab_train
         else _build.NAMES)
     print(f"build: {len(built)} libraries in "
           f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
@@ -594,7 +618,8 @@ def main():
         print(f"build: {path.relative_to(ROOT)} in {seconds:.1f} s")
         for line in ptxas_lines(log):
             print(f"  {line}")
-        _build.load_library(name)
+        if not args.ab_train:  # ab_train loads its own (declare_entries)
+            _build.load_library(name)
     sys.stdout.flush()
 
     if args.readings == "training":
@@ -629,6 +654,9 @@ def main():
         return
     if args.ab_step:
         ab_step(dev, built["fused_step"][1], others)
+        return
+    if args.ab_train:
+        ab_train(dev, built, train_others)
         return
 
     # ---- 3. kernel against its plain version --------------------------------
@@ -1349,12 +1377,23 @@ def finish_build(handle, sass=False):
             print(f"  sass {fn.split(chr(10), 1)[0][:60]}: "
                   f"{sum(ops.values())} instructions; "
                   + ", ".join(f"{k} {ops.get(k, 0)}" for k in keys))
-    so = ctypes.CDLL(str(path))
-    for entry, (argtypes, restype) in _build._ENTRY[lib].items():
-        getattr(so, entry).argtypes = argtypes
-        getattr(so, entry).restype = restype
+    so = declare_entries(ctypes.CDLL(str(path)))
     so.ananke_cuda_error_string.argtypes = [ctypes.c_int]
     so.ananke_cuda_error_string.restype = ctypes.c_char_p
+    return so
+
+
+def declare_entries(so):
+    """``so`` with the argument and result types of every entry of the
+    port's C interface it exports: another checkout's library may hold an
+    entry that this checkout's holds in another."""
+    from ananke_abm_tpu_torch.ops.cuda import _build
+
+    for entries in _build._ENTRY.values():
+        for entry, (argtypes, restype) in entries.items():
+            if hasattr(so, entry):
+                getattr(so, entry).argtypes = argtypes
+                getattr(so, entry).restype = restype
     return so
 
 
@@ -1513,6 +1552,166 @@ def ab_dopri5(dev, this_log, handles):
                   + "; ".join(f"{w} {', '.join(f'{m:.3f}' for m in t)}"
                               for w, t in times.items())
                   + f" ms per launch [card {card}]", flush=True)
+
+
+# Probes of ``--ab-train``: a DIR written ``DIR+NAME`` is DIR's
+# ``ananke_abm_tpu_torch/csrc`` with NAME's substitutions (file, regular
+# expression, replacement; each must match), built under
+# ``OUT/variants/``. Each takes one cost out of the day kernels (of the
+# stage code on csrc/drift_stage.cuh, K2b before it moved to
+# stage_sm90.cuh, unless named); the results are wrong by design and only
+# timed.
+PROBES = {
+    # no products: each mma.sync becomes one add that keeps its operands
+    # (and the loads behind them) live
+    "noproducts": [("mma_bf16.cuh",
+                    r"(?s)asm volatile\(\s*\"mma\.sync.*?\"r\"\(b1\)\);",
+                    "d[0] += __uint_as_float((a[0] ^ a[3] ^ b0 ^ b1) & "
+                    "0x007fffffu);")],
+    # the B fragments (and biases) read from device memory come from a
+    # constant of their address instead
+    "constb": [("mma_bf16.cuh",
+                r"return __ldg\(reinterpret_cast<const unsigned int\*>"
+                r"\(p\)\);",
+                "return (uint32_t)reinterpret_cast<uintptr_t>(p) & "
+                "0x3f803f80u;")],
+    # no slab traffic: the gradient sums are neither read nor written
+    "noslab": [("drift_stage.cuh", r"\*p = first \? v : \*p \+ v;",
+                "if (v == 1.2345e-30f) *p = v;"),
+               ("stage_sm90.cuh",
+                r"(v[ab]) \? \*reinterpret_cast<const float2\*>"
+                r"\(out \+ m[ab] \* N \+ c\) : z2", "z2"),
+               ("stage_sm90.cuh",
+                r"if \((v[ab])\)(\s*)\*reinterpret_cast<float2\*>\(out",
+                r"if (\1 && acc[j][0] == 1.2345e-30f)\2"
+                r"*reinterpret_cast<float2*>(out")],
+    # no expf / tanhf: the identity in their place
+    "nomath": [("mma_bf16.cuh", r"namespace ananke \{",
+                "namespace ananke {\n__device__ __forceinline__ float "
+                "probe_id(float x) { return x; }"),
+               ("drift_stage.cuh", r"\b(expf|tanhf)\(", "probe_id("),
+               ("stage_sm90.cuh", r"\b(expf|tanhf)\(", "probe_id("),
+               ("fused_train.cu", r"\b(expf|tanhf)\(", "probe_id(")],
+    # K2b's tile at 4 warps (64 rows) where it takes 6
+    "w4": [("fused_train.cu", r"return nb <= 2 \? 6 : nb <= 5 \? 4 : 2;",
+            "return nb <= 5 ? 4 : 2;")],
+    # K2f in CTAs of one warpgroup, 3 an SM, where it takes 12 warps, 1
+    "f4": [("fused_step.cu", r"__launch_bounds__\(32 \* W\)",
+            "__launch_bounds__(32 * W, kWarps / W)"),
+           ("fused_step.cu", r"launch<false, true>\(",
+            "launch<false, true, 4>(")],
+}
+
+
+def ab_checkout(arg):
+    """(a name, the checkout) of an ``--ab-train`` DIR: DIR itself, or for
+    ``DIR+NAME`` a copy of DIR's kernel sources with probe NAME's
+    substitutions under ``OUT/variants/``."""
+    import re
+
+    base, _, probe = str(arg).partition("+")
+    base = Path(base).resolve()
+    if not probe:
+        return str(base), base
+    if probe not in PROBES:
+        fail(f"unknown probe {probe!r}: one of {sorted(PROBES)}")
+    root = OUT / "variants" / f"{base.name}+{probe}"
+    csrc = root / "ananke_abm_tpu_torch" / "csrc"
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(base / "ananke_abm_tpu_torch" / "csrc", csrc)
+    for fname, pattern, repl in PROBES[probe]:
+        path = csrc / fname
+        text, n = re.subn(pattern, repl, path.read_text())
+        if n == 0:
+            fail(f"probe {probe}: no match of {pattern!r} in {path}")
+        path.write_text(text)
+    return f"{base}+{probe}", root
+
+
+def ab_train(dev, built, handles):
+    """``--ab-train DIR [DIR ...]``: the day kernels K2f and K2b of this
+    checkout against those of each checkout at DIR (``DIR+PROBE`` a probe
+    variant, :data:`PROBES`; its ``fused_train.cu`` and ``fused_step.cu``
+    and headers, built with the port's flags and C interface; ``handles``
+    from :func:`start_build`, started before phase 2, two a DIR): ptxas's
+    registers and spills per kernel, the bits of K2f's xs and K2b's ten
+    outputs at every shape of DAY_SHAPES and DEPTH_SHAPES (the first of
+    DAY_SHAPES: the rung-2 operands of phase 13a), then per-launch times of
+    K2f and K2b at the rung-2 operands in the order DIR..., this, this,
+    ...DIR, each beside K2b's tile rows, tiles and CTAs."""
+    import ctypes
+
+    from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
+    from ananke_abm_tpu_torch.ops.cuda.fused_rhs import NUM_SLABS
+
+    for lib in ("fused_step", "fused_train"):
+        print(f"build [this]: "
+              f"{ROOT / 'ananke_abm_tpu_torch/csrc' / (lib + '.cu')}")
+        for line in ptxas_lines(built[lib][1]):
+            print(f"  {line}")
+    libs = {"this": {lib: declare_entries(ctypes.CDLL(str(built[lib][0])))
+                     for lib in ("fused_step", "fused_train")}}
+    for so in libs["this"].values():
+        so.ananke_cuda_error_string.argtypes = [ctypes.c_int]
+        so.ananke_cuda_error_string.restype = ctypes.c_char_p
+    for name, hs in handles:
+        libs[name] = {h[4]: finish_build(h) for h in hs}
+    for pair in libs.values():
+        # K2f: in the serving kernels' library, or (before it moved there)
+        # beside K2b
+        pair["fused_step"] = next(
+            so for so in (pair["fused_step"], pair["fused_train"])
+            if hasattr(so, "ananke_day_forward"))
+    others = [w for w in libs if w != "this"]
+
+    def run(which, fn, args):
+        with library_of("fused_step", libs[which]["fused_step"]), \
+                library_of("fused_train", libs[which]["fused_train"]):
+            return fn(*args)
+
+    main = None
+    with torch.inference_mode():
+        for n, z, nb, num_times in DAY_SHAPES + DEPTH_SHAPES:
+            _, fargs, g = training_operands(dev, n, z, nb, num_times, 0)
+            xs_ref = ft.day_forward_reference(*fargs)
+            gxs = torch.randn(xs_ref.shape, device=dev, generator=g)
+            bargs = (xs_ref, gxs, *fargs[1:])
+            main = main or (fargs, bargs)
+            xs = {w: run(w, ft.day_forward_fused, fargs) for w in libs}
+            gr = {w: day_bwd_outputs(run(w, ft.day_backward_fused, bargs))
+                  for w in libs}
+            torch.cuda.synchronize()
+            for w in others:
+                bwd_d = max((u - v).abs().max().item()
+                            for (_, u), (_, v) in zip(gr["this"], gr[w]))
+                print(f"K2f / K2b A/B N={n} Z={z} num_blocks={nb} "
+                      f"T={num_times}: this against {w}: K2f xs same bits "
+                      f"{torch.equal(xs['this'], xs[w])} (max |d| "
+                      f"{(xs['this'] - xs[w]).abs().max().item():.3e}); K2b "
+                      f"same bits {same_bits(gr['this'], gr[w])} (max |d| "
+                      f"{bwd_d:.3e})", flush=True)
+            del xs, gr
+    card = card_line()
+    order = others + ["this", "this"] + others[::-1]
+    n, z, nb, num_times = DAY_SHAPES[0]
+    with torch.inference_mode():
+        for label, fn, args, reps in (("K2f", ft.day_forward_fused,
+                                       main[0], 5),
+                                      ("K2b", ft.day_backward_fused,
+                                       main[1], 3)):
+            times = {w: [] for w in libs}
+            for w in order:
+                times[w].append(cuda_ms(lambda: run(w, fn, args), reps))
+            print(f"{label} at the rung-2 operands (N={n}, Z={z}, "
+                  f"num_blocks={nb}, T={num_times}) A/B: "
+                  + "; ".join(f"{w} {', '.join(f'{m:.3f}' for m in t)}"
+                              for w, t in times.items())
+                  + f" ms per launch [card {card}]", flush=True)
+    for w in libs:
+        rows = libs[w]["fused_train"].ananke_day_bwd_tile_rows(nb)
+        tiles = -(-n // rows)
+        print(f"K2b [{w}] at N={n}: tiles of {rows} rows, {tiles} tiles on "
+              f"{min(NUM_SLABS, tiles)} CTAs", flush=True)
 
 
 def serving_readings(dev):
@@ -1818,11 +2017,14 @@ def fixed_step_phases(dev, card):
     print(f"fixed training step at rung 2: kernels {min(walls[1:]):.4f} s "
           f"(best of steps 2-{FIXED_STEPS}), plain versions {plain_wall:.4f} "
           f"s (one step, loss {loss:.6f}) [card {card}]", flush=True)
-    sources = ("fused_train.py:145", "fused_train.py:229",
-               "fused_train.py:486", "fused_train.py:537")
-    entries = [kernel_entry(*a, "fused_train.cu", *b)
-               for a, b in zip(zip(names), zip(sources, launches, errs, ms,
-                                               plain_ms, flops, nbytes))]
+    replaced = ("fused_train.py:145", "fused_train.py:229",
+                "fused_train.py:486", "fused_train.py:537")
+    # K2f is the serving kernels' template's third instantiation
+    sources = ("fused_step.cu", "fused_train.cu", "fused_train.cu",
+               "fused_train.cu")
+    entries = [kernel_entry(*a)
+               for a in zip(names, sources, replaced, launches, errs, ms,
+                            plain_ms, flops, nbytes)]
     return entries, (model, config, static, batch, opt)
 
 

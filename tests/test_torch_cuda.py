@@ -118,6 +118,7 @@ def _operands(model, cuda, n, num_zones, seed=0):
 
 @pytest.mark.parametrize("n,num_zones,num_blocks", [
     (65_536, 64, 2), (1_000, 500, 1), (4_096, 2_048, 2), (17, 5, 3),
+    (3_001, 300, 4),
 ])
 def test_kernel_matches_plain_version(cuda, n, num_zones, num_blocks):
     ops = _operands(_model(cuda, num_blocks), cuda, n, num_zones)
@@ -396,6 +397,11 @@ def _flat_day(out):
 
 @pytest.mark.parametrize("n,num_zones,num_blocks,num_times", [
     (1_000, 64, 1, 5), (4_096, 500, 2, 4), (70, 5, 3, 3), (4_096, 64, 8, 5),
+    # K2b's tiles of 96 rows (up to 2 blocks), 64 (up to 5) and 32: ragged
+    # row counts, and more tiles than CTAs (the weight ring carried from a
+    # CTA's tile into its next)
+    (1_001, 500, 1, 3), (203, 2_048, 2, 3), (13_001, 40, 2, 3),
+    (9_001, 40, 4, 3), (5_003, 64, 8, 3), (333, 2_048, 4, 2),
 ])
 def test_day_kernels_match_plain_versions(cuda, n, num_zones, num_blocks,
                                           num_times):
@@ -421,11 +427,16 @@ def test_day_kernels_match_plain_versions(cuda, n, num_zones, num_blocks,
     _assert_close(got, want, day_bounds(DAY_BWD_BOUNDS, num_blocks))
 
 
-def test_day_backward_kernel_against_a_float64_witness(cuda):
-    """200 agents and 8 blocks, where kernel and plain version read farther
-    apart than DAY_BWD_BOUNDS allow: each lies within WITNESS_BWD_BOUNDS of
-    the float64 witness, and the bf16-product control does not."""
-    _, args, g = _day_args(cuda, 200, 64, 8, 3)
+@pytest.mark.parametrize("n,num_zones,num_blocks,num_times", [
+    (200, 64, 8, 3), (201, 64, 8, 3), (233, 40, 8, 3), (150, 64, 7, 3),
+])
+def test_day_backward_kernel_against_a_float64_witness(cuda, n, num_zones,
+                                                       num_blocks, num_times):
+    """chip_smoke.py's WITNESS_SHAPES (the first, 200 agents and 8 blocks,
+    where kernel and plain version read farther apart than DAY_BWD_BOUNDS
+    allow): each lies within WITNESS_BWD_BOUNDS of the float64 witness, and
+    the bf16-product control does not."""
+    _, args, g = _day_args(cuda, n, num_zones, num_blocks, num_times)
     with torch.inference_mode():
         xs = ft.day_forward_reference(*args)
         gxs = torch.randn(xs.shape, device=cuda, generator=g)
@@ -785,7 +796,7 @@ def _k6_k7_bf16_checks(cuda, n, num_zones, num_blocks, control=False):
 
 @pytest.mark.parametrize("n,num_zones,num_blocks", [
     (98_304, 64, 2), (1_000, 500, 1), (2_000, 64, 8), (333, 7, 5),
-    (33, 3, 5),
+    (33, 3, 5), (9_001, 300, 3),
 ])
 def test_dopri5_bf16_and_backward_kernels_match_plain_versions(
         cuda, n, num_zones, num_blocks):
@@ -1040,7 +1051,7 @@ def _step_operands(cuda, n, num_zones, num_blocks, seed=0):
 
 
 @pytest.mark.parametrize("n,num_zones,num_blocks", [
-    (65_536, 64, 2), (1_000, 500, 1), (17, 5, 3),
+    (65_536, 64, 2), (1_000, 500, 1), (17, 5, 3), (3_001, 300, 4),
 ])
 def test_step_kernel_matches_plain_version(cuda, n, num_zones, num_blocks):
     """K0 within the interval kernel's bounds of its plain version, the

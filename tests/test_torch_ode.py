@@ -38,6 +38,18 @@ RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 
 
+def _xla_dot(y, a):
+    """``y @ a`` in float32 with the bits of XLA's CPU dot at these small
+    shapes: one fused multiply-add a term, in k order. torch's CPU matmul
+    sums in another order, and the controller's first error estimate (a
+    difference of nearly equal sums, at float32 rounding) turns that last
+    bit into a different step sequence."""
+    out = torch.zeros(y.shape[:-1] + a.shape[-1:], dtype=y.dtype)
+    for k in range(a.shape[0]):
+        out = torch.addcmul(out, y[..., k:k + 1], a[k])
+    return out
+
+
 def _linear(seed=0, n=3, d=4, scale=0.5):
     rng = np.random.default_rng(seed)
     A = (rng.normal(size=(d, d)) * scale).astype(np.float32)
@@ -75,8 +87,8 @@ def test_dopri5_linear_matches_jax(seed, t_end, num_out, rtol, atol):
     want, wst = jax_dopri5(lambda t, y, a: jnp.sin(t) * y + y @ a,
                            jnp.asarray(y0), jnp.asarray(ts), jnp.asarray(A),
                            rtol=rtol, atol=atol)
-    got, gst = dopri5_solve(lambda t, y, a: _fsin(t) * y + y @ a, t32(y0),
-                            t32(ts), t32(A), rtol=rtol, atol=atol)
+    got, gst = dopri5_solve(lambda t, y, a: _fsin(t) * y + _xla_dot(y, a),
+                            t32(y0), t32(ts), t32(A), rtol=rtol, atol=atol)
     assert tuple(got.shape) == (num_out, 3, 4) and got.dtype == torch.float32
     np.testing.assert_array_equal(got[0].numpy(), y0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,

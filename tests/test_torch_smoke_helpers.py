@@ -1,8 +1,9 @@
 """The host-side helpers of ``chip_smoke.py`` that need no card: the
 parser that turns ``nvcc -Xptxas -v`` output into one line per kernel (the
-registers and spills the smoke and ``--ab-dopri5`` report), and the
-profiler summary's refusal to report a device share where the profiler
-saw no device time."""
+registers and spills the smoke and ``--ab-dopri5`` report), the profiler
+summary's refusal to report a device share where the profiler saw no
+device time, and ``--ab-train``'s probe variants of a checkout's kernel
+sources."""
 import sys
 from pathlib import Path
 
@@ -53,3 +54,38 @@ def test_device_busy_reports_not_measured_without_device_time(capsys,
                            "no card")
     out = capsys.readouterr().out
     assert "not measured" in out and "busy" in out
+
+
+def test_ab_checkout_builds_a_probe_variant_and_refuses_a_stale_one(
+        tmp_path, monkeypatch):
+    """``DIR+noslab``: a copy of DIR's kernel sources under OUT/variants/
+    with every substitution of the probe made, DIR itself untouched; a
+    plain DIR is itself; an unknown probe, or one whose pattern no longer
+    matches the sources, fails rather than time an unchanged kernel."""
+    monkeypatch.setattr(chip_smoke, "OUT", tmp_path / "out")
+    csrc = tmp_path / "co" / "ananke_abm_tpu_torch" / "csrc"
+    csrc.mkdir(parents=True)
+    slab = "  *p = first ? v : *p + v;\n"
+    sm90 = ("      const float2 lo = va ? *reinterpret_cast<const float2*>"
+            "(out + ma * N + c) : z2;\n"
+            "      if (vb)\n        *reinterpret_cast<float2*>(out + mb * N"
+            " + c) =\n")
+    (csrc / "drift_stage.cuh").write_text(slab)
+    (csrc / "stage_sm90.cuh").write_text(sm90)
+    name, root = chip_smoke.ab_checkout(f"{tmp_path / 'co'}+noslab")
+    assert name.endswith("co+noslab")
+    assert root == tmp_path / "out" / "variants" / "co+noslab"
+    out = root / "ananke_abm_tpu_torch" / "csrc"
+    assert (out / "drift_stage.cuh").read_text() == (
+        "  if (v == 1.2345e-30f) *p = v;\n")
+    text = (out / "stage_sm90.cuh").read_text()
+    assert "const float2 lo = z2;" in text
+    assert "if (vb && acc[j][0] == 1.2345e-30f)" in text
+    assert (csrc / "drift_stage.cuh").read_text() == slab
+    assert chip_smoke.ab_checkout(tmp_path / "co") == (
+        str(tmp_path / "co"), tmp_path / "co")
+    with pytest.raises(SystemExit, match="unknown probe"):
+        chip_smoke.ab_checkout(f"{tmp_path / 'co'}+nothing")
+    (csrc / "drift_stage.cuh").write_text("  *p += v;\n")
+    with pytest.raises(SystemExit, match="no match"):
+        chip_smoke.ab_checkout(f"{tmp_path / 'co'}+noslab")
