@@ -31,7 +31,10 @@
 // trainers' forward): bf16 rounding of the stage activations is noise that
 // does not cancel in the embedded 5(4) error and floors the step
 // controller, and TF32 keeps three decimal digits, the same class; so every
-// product of this body is a float32 fused multiply-add on the CUDA cores.
+// product of the step VJP's float32 body is a float32 fused multiply-add on
+// the CUDA cores, and K5's products run in 3xTF32 on the tensor cores
+// (each operand split into two TF32 parts, three products, float32 sums:
+// the float32 class; the K5 section below).
 // bf16 (K7 and K6 at precision "bf16", the adaptive trainer's backward at
 // bench rung 3; K5 at "bf16", the forward the reference keeps for loose
 // tolerances, rtol >= ~1e-3): the stage and its VJP of drift_stage.cuh
@@ -45,15 +48,16 @@
 // and the output rows' cotangents). At bench rung 3 K6 at bf16 needs ~5.6
 // TFLOP, 5.7 ms at the dense bf16 peak, its bytes ~1 ms. The design:
 //
-// - The float32 body (K5; K7 and K6 at "f32"): a CTA of 8 warps owns a
+// - K5 at float32: 3xTF32 mma.sync products, a weight ring shared by a
+//   CTA's 8 warps (128 rows); the K5 section below.
+// - The float32 step-VJP body (K7 and K6 at "f32"): a CTA of 8 warps owns a
 //   tile of R agent rows (32; 16 for deep drifts) and walks tiles tile =
 //   blockIdx.x, + gridDim.x, ... Activations of the tile live in shared
 //   memory, float32 row-major. Every product out = A W runs as register
 //   tiles: warp w computes rows w, w + 8, ..., lane l a run of adjacent
 //   columns; A is read from shared memory four columns at a time (a
 //   broadcast within the warp), W is staged through two shared-memory
-//   buffers by cp.async (K5: 16 rows a buffer, two CTAs an SM; the step
-//   VJP: 32 rows, half the barriers), the next chunk's copy in flight while
+//   buffers of 32 rows by cp.async, the next chunk's copy in flight while
 //   this one is multiplied (the weights, ~0.35 MB in float32, stay hot in
 //   L2). The step VJP's weight gradients are register-blocked outer
 //   products (ntdot; its predecessor issued two shared-memory loads for
@@ -138,11 +142,10 @@ namespace {
 constexpr int DA = 32, DZ = 64, DC = 32, H = 128, DF = DA + DZ;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kKC = 16;   // rows of W in each of the two staging buffers (K5)
-constexpr int kVjpKC = 32;  // the same for the float32 step VJP's products
+constexpr int kVjpKC = 32;  // rows of W in each of the float32 step VJP's two
+                            // staging buffers
 constexpr int kZC = 32;   // zones per attention chunk
 constexpr int kMaxBlocks = 8;
-constexpr int kWbuf = 2 * kKC * H;  // floats of the two staging buffers
 constexpr unsigned kFull = 0xffffffffu;
 
 // the Dormand-Prince tableau, each weight rounded to float32 where used
@@ -251,7 +254,7 @@ __device__ __forceinline__ float comp(const float4& v, int q) {
 // lane's adjacent columns. Starts with a barrier (A may come from other
 // threads), ends with one before ep (so ep may overwrite A or the staging
 // buffer). lda, A and (for N >= 64) the columns must be 16-byte aligned.
-template <int R, int K, int N, int KC = kKC, class Ep>
+template <int R, int K, int N, int KC, class Ep>
 __device__ __forceinline__ void mm(const float* A, int lda,
                                    const float* __restrict__ W, int ldw,
                                    float* wbuf, Ep ep) {
@@ -405,7 +408,7 @@ __device__ __forceinline__ void colsum(const float* B, int ldb, float* out) {
 
 // the shared-memory buffers of one stage evaluation
 struct StageBufs {
-  float* wbuf;   // [kKC * H] staged weights
+  float* wbuf;   // [2 KC * H] staged weights
   float* feats;  // [R][DF]: the stage input (cols 0..DA), ctx (DA..DF)
   float* q;      // [R][DZ + kZC]: q, then one chunk of p
   float* rt;     // [R][H]: a block's inner activation
@@ -417,7 +420,7 @@ struct StageBufs {
 
 // k = stage_i(feats[:, :DA]) into kout ([R][DA]; its thread mapping is the
 // per-element one: row w + 8 m, column lane).
-template <int R, int KC = kKC>
+template <int R, int KC>
 __device__ void stage_forward(const Weights& w, const StageBufs& s, int stage,
                               float* kout) {
   constexpr int RPT = R / kWarps;
@@ -689,6 +692,33 @@ __device__ void stage_backward(const Weights& w, const StageBufs& s,
 }
 
 // ---- K5 -------------------------------------------------------------------
+//
+// The float32 step on the tensor cores in 3xTF32. The FFMA design it
+// replaces (32-row tiles, two CTAs an SM, every weight staged per tile
+// through two 16-row cp.async buffers, 36% of the FP32 rate) is taken apart
+// by probes in PERF.md. Here:
+// - products: mma.sync m16n8k8 TF32 with each operand split into a TF32
+//   part (its low mantissa bits cleared) and the rest, three products a
+//   tile (lo hi, hi lo, hi hi) summed in float32: about 22 bits of each
+//   operand, the float32 class the step controller needs (bf16 or TF32
+//   alone floor it), at the tensor cores' TF32 rate. Within an 8-column
+//   slice mma k t and t + 4 are the adjacent columns 2t and 2t + 1, so a
+//   thread's A and B values are float2 loads and the accumulators of one
+//   product are the A fragments of the next: q, the attention's p and
+//   context and the blocks' inner activation never leave registers.
+// - weights: a ring of 3 shared-memory slots that the CTA's 8 warps (128
+//   rows, each warp 16 end to end) share; every stage walks the same boxes
+//   (Wq^T, the zones by 32 beside their transpose, the halves of W1^T, of
+//   each block's Wr1^T and Wr2^T, then W3^T), each copied once a CTA by
+//   cp.async 2 boxes ahead, one block barrier a box. (A fourth slot, and
+//   A operands read from shared memory in rolled loops, both read slower
+//   on the card: PERF.md.)
+// - h joins the stage input: Dense_0 is one product over [x | ctx | h] and
+//   [W1xc; W1h], so no H-wide pre-activation row is kept.
+// - the step state (x0, k1 .. k7: 1 KB a row) lives in a warp-private
+//   scratch in device memory (16 KB a warp, L2-resident), each thread
+//   reading back only what it wrote; the block chain z and the h rows sit
+//   in shared memory by warp.
 
 struct StepParams {
   Weights w;
@@ -700,100 +730,387 @@ struct StepParams {
   float* err;       // (n, DA), unless err_stats
   float* r5;        // (n, DA)
   float* partial;   // (gridDim.x): each CTA's sum of scaled squares
+  float* scratch;   // (gridDim.x, k5::kW, k5::kState): the step state
   int n, err_stats;
   float hstep, rtol, atol;
 };
 
-constexpr int kStepRows = 32;
+namespace k5 {
 
-template <int R>
-size_t step_smem_floats() {
-  return kWbuf + (size_t)R * (DA + 7 * DA + H + DF + H + H);
+constexpr int kW = 8;                // warps a CTA
+constexpr int kRows = 16 * kW;       // agent rows a tile
+// CTAs at most, one an SM; a constant, so the error sum's order depends on
+// n alone
+constexpr int kCtas = 132;
+constexpr int SZ = H + 8;            // row strides (floats), 8 mod 32: the
+constexpr int SH = DC + 8;           //   8 rows a fragment reads hit
+constexpr int SB = H + 8;            //   distinct banks
+constexpr int kSlot = 64 * SB;       // floats of a ring slot: a half box
+constexpr int kSlots = 3;
+constexpr int kState = 8 * 16 * 32;  // floats of a warp's step state
+constexpr size_t kSmemBytes =
+    sizeof(float) * ((size_t)kSlots * kSlot + kRows * SZ + kRows * SH);
+static_assert(32 * (DZ + 8) + DZ * (32 + 8) <= kSlot && DA + DZ + DC == H,
+              "box shapes");
+static_assert(kSmemBytes + 32 * kW * sizeof(float) <= 232448,
+              "shared memory of a CTA");
+
+// x = hi + lo: hi is x with its low 13 mantissa bits cleared (a TF32
+// value), lo = x - hi exactly (13 significant bits, of which the tensor
+// core reads the top 11: x to about 2^-22 |x|)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-template <int R>
-__global__ void __launch_bounds__(kThreads, 2)
+// not volatile: the compiler may interleave independent products
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the A fragment of an 8-column slice whose values are the accumulators c
+// of an 8-column output tile (c: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8,
+// 2t + 1)): within a slice mma k t and t + 4 are the adjacent columns 2t
+// and 2t + 1, so one product's accumulators are the next one's A
+__device__ __forceinline__ void frag_regs(const float (&c)[4], float (&a)[4]) {
+  a[0] = c[0]; a[1] = c[2]; a[2] = c[1]; a[3] = c[3];
+}
+
+// the A fragment of slice s of 16 rows in shared memory (row stride S)
+__device__ __forceinline__ void frag_smem(const float* rows, int S, int s,
+                                          float (&a)[4], int g, int t) {
+  const float2 u =
+      *reinterpret_cast<const float2*>(rows + g * S + 8 * s + 2 * t);
+  const float2 v =
+      *reinterpret_cast<const float2*>(rows + (g + 8) * S + 8 * s + 2 * t);
+  a[0] = u.x; a[1] = v.x; a[2] = u.y; a[3] = v.y;
+}
+
+// acc[j] (j < NT) += A B in 3xTF32: A the warp's 16 rows by KS slices of 8
+// (af(s, a) gives slice s's fragment), B^T the NT 8-row tiles of a box at
+// row stride S (row n holds output column n's weights, k contiguous; a
+// thread's two values of a fragment are one float2). Per slice every B
+// fragment is loaded and split first, then the products go term by term
+// across the NT accumulators, so no two in a row depend.
+template <int KS, int NT, class AF>
+__device__ __forceinline__ void mma3(float (&acc)[NT][4], AF af,
+                                     const float* bt, int S, int g, int t) {
+  const float* bp = bt + g * S + 2 * t;
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    float a[4];
+    af(s, a);
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(a[e], ah[e], al[e]);
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 b =
+          *reinterpret_cast<const float2*>(bp + 8 * j * S + 8 * s);
+      split(b.x, bh[j][0], bl[j][0]);
+      split(b.y, bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32(acc[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32(acc[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32(acc[j], ah, bh[j][0], bh[j][1]);
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// rows x cols floats (row stride ss) -> shared memory (row stride ds) by
+// cp.async, every thread taking 16-byte pieces in turn
+__device__ __forceinline__ void copy_rows(float* dst, int ds, const float* src,
+                                          int ss, int rows, int cols) {
+  const int per = cols / 4, pieces = rows * per;
+  for (int e = threadIdx.x; e < pieces; e += 32 * kW) {
+    const int r = e / per, k = e - r * per;
+    cp_async16(dst + r * ds + 4 * k, src + (size_t)r * ss + 4 * k);
+  }
+}
+
+// The weight ring. Box i of a stage (period P = 4 + nzc + 4 nb):
+//   0 Wq^T (DZ x DA) | 1 .. nzc zones z0 = 32 (i - 1): ze rows z0 .. z0 + 31
+//   (32 x DZ, stride DZ + 8), then ze^T's columns z0 .. z0 + 31 (DZ x 32,
+//   stride 40) | the halves of W1^T (64 x [W1xc^T | W1h^T]) | per block
+//   the halves of Wr1^T, then of Wr2^T (64 x H) | W3^T (DA x H).
+// The warps consume boxes in that order, stage after stage, tile after
+// tile; boxes c + 1 .. c + kSlots - 1 are in flight while box c is read.
+struct Ring {
+  float* base;
+  int nzc, period, c, total;
+
+  __device__ void copy_box(const Weights& w, int i, float* dst) const {
+    if (i == 0) {
+      copy_rows(dst, DA + 8, w.wqT, DA, DZ, DA);
+    } else if (i <= nzc) {
+      const int z0 = 32 * (i - 1);
+      copy_rows(dst, DZ + 8, w.ze + (size_t)z0 * DZ, DZ, 32, DZ);
+      copy_rows(dst + 32 * (DZ + 8), 32 + 8, w.zeT + z0, w.zp, DZ, 32);
+    } else if (i <= nzc + 2) {
+      const int hf = i - nzc - 1;
+      copy_rows(dst, SB, w.w1xcT + (size_t)64 * hf * DF, DF, 64, DF);
+      copy_rows(dst + DF, SB, w.w1hT + (size_t)64 * hf * DC, DC, 64, DC);
+    } else if (i < period - 1) {
+      const int r = i - nzc - 3;  // block r / 4: Wr1 (r & 2 == 0) or Wr2
+      const int m = 2 * (r >> 2) + ((r >> 1) & 1), hf = r & 1;
+      copy_rows(dst, SB, w.wrT + ((size_t)m * H + 64 * hf) * H, H, 64, H);
+    } else {
+      copy_rows(dst, SB, w.w3T, H, DA, H);
+    }
+  }
+
+  __device__ void issue(const Weights& w, int i) {
+    if (i < total) copy_box(w, i % period, base + (i % kSlots) * kSlot);
+    cp_commit();  // an empty group past the end: the waits keep count
+  }
+
+  // the next box, landed and visible to every thread; the slot of the box
+  // before it refilled, kSlots - 1 boxes ahead
+  __device__ const float* next(const Weights& w) {
+    cp_wait<kSlots - 2>();
+    __syncthreads();
+    issue(w, c + kSlots - 1);
+    return base + (c++ % kSlots) * kSlot;
+  }
+};
+
+// k = stage_stg(x) for the warp's 16 rows: x and k 16 x DA tiles in
+// accumulator layout (x[j]: columns 8j .. 8j + 7), h the rows' context in
+// shared memory, z the rows' block chain (shared memory, updated in place)
+__device__ void stage(const Weights& w, Ring& ring, int stg,
+                      const float (&x)[4][4], const float* hrow, float* z,
+                      float (&k)[4][4], int g, int t) {
+  // q = x Wq
+  float q[8][4];
+  zero(q);
+  mma3<4>(q, [&](int s, float (&a)[4]) { frag_regs(x[s], a); },
+          ring.next(w), DA + 8, g, t);
+  // the attention by boxes of 32 zones: p = exp(min(q ze^T scale, 80)) (0
+  // past z), ctx = (sum of p ze) / (sum of p)
+  float ctx[8][4], rs_a = 0.f, rs_b = 0.f;
+  zero(ctx);
+#pragma unroll 1
+  for (int z0 = 0; z0 < w.zp; z0 += 32) {
+    const float* box = ring.next(w);
+    float sc[4][4];
+    zero(sc);
+    mma3<8>(sc, [&](int s, float (&a)[4]) { frag_regs(q[s], a); }, box,
+            DZ + 8, g, t);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int zi = z0 + 8 * j + 2 * t + (e & 1);
+        const float v =
+            zi < w.z ? expf(fminf(sc[j][e] * w.scale, 80.f)) : 0.f;
+        sc[j][e] = v;
+        if (e < 2) rs_a += v; else rs_b += v;
+      }
+    mma3<4>(ctx, [&](int s, float (&a)[4]) { frag_regs(sc[s], a); },
+            box + 32 * (DZ + 8), 32 + 8, g, t);
+  }
+#pragma unroll
+  for (int m = 1; m <= 2; m <<= 1) {
+    rs_a += __shfl_xor_sync(kFull, rs_a, m);
+    rs_b += __shfl_xor_sync(kFull, rs_b, m);
+  }
+  const float inv_a = 1.f / rs_a, inv_b = 1.f / rs_b;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    ctx[j][0] *= inv_a; ctx[j][1] *= inv_a;
+    ctx[j][2] *= inv_b; ctx[j][3] *= inv_b;
+  }
+  // z = tanh([x | ctx | h] [W1xc; W1h] + tf_stg), by halves of its columns
+  const float* tfs = w.tf + stg * H;
+#pragma unroll 1
+  for (int hf = 0; hf < 2; ++hf) {
+    const float* box = ring.next(w);
+    float acc[8][4];
+    zero(acc);
+    mma3<16>(acc, [&](int s, float (&a)[4]) {
+      if (s < 4) frag_regs(x[s & 3], a);
+      else if (s < 12) frag_regs(ctx[(s - 4) & 7], a);
+      else frag_smem(hrow, SH, (s - 12) & 3, a, g, t);
+    }, box, SB, g, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = 64 * hf + 8 * j + 2 * t;
+      const float2 tf = __ldg(reinterpret_cast<const float2*>(tfs + n));
+      *reinterpret_cast<float2*>(z + g * SZ + n) =
+          make_float2(tanhf(acc[j][0] + tf.x), tanhf(acc[j][1] + tf.y));
+      *reinterpret_cast<float2*>(z + (g + 8) * SZ + n) =
+          make_float2(tanhf(acc[j][2] + tf.x), tanhf(acc[j][3] + tf.y));
+    }
+  }
+  // residual blocks: rt = tanh(z Wr1 + br1) (registers), z = tanh(z + rt
+  // Wr2 + br2)
+#pragma unroll 1
+  for (int b = 0; b < w.nb; ++b) {
+    const float* br1 = w.br + (2 * b) * H;
+    const float* br2 = w.br + (2 * b + 1) * H;
+    float rt[16][4];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float* box = ring.next(w);
+      float acc[8][4];
+      zero(acc);
+      mma3<16>(acc, [&](int s, float (&a)[4]) {
+        frag_smem(z, SZ, s, a, g, t);
+      }, box, SB, g, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bb = __ldg(
+            reinterpret_cast<const float2*>(br1 + 64 * hf + 8 * j + 2 * t));
+        rt[8 * hf + j][0] = tanhf(acc[j][0] + bb.x);
+        rt[8 * hf + j][1] = tanhf(acc[j][1] + bb.y);
+        rt[8 * hf + j][2] = tanhf(acc[j][2] + bb.x);
+        rt[8 * hf + j][3] = tanhf(acc[j][3] + bb.y);
+      }
+    }
+#pragma unroll 1
+    for (int hf = 0; hf < 2; ++hf) {
+      const float* box = ring.next(w);
+      float acc[8][4];
+      zero(acc);
+      mma3<16>(acc, [&](int s, float (&a)[4]) { frag_regs(rt[s], a); }, box,
+               SB, g, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = 64 * hf + 8 * j + 2 * t;
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(br2 + n));
+        float2* za = reinterpret_cast<float2*>(z + g * SZ + n);
+        float2* zb = reinterpret_cast<float2*>(z + (g + 8) * SZ + n);
+        const float2 ua = *za, ub = *zb;
+        *za = make_float2(tanhf(ua.x + acc[j][0] + bb.x),
+                          tanhf(ua.y + acc[j][1] + bb.y));
+        *zb = make_float2(tanhf(ub.x + acc[j][2] + bb.x),
+                          tanhf(ub.y + acc[j][3] + bb.y));
+      }
+    }
+  }
+  // k = z W3 + b3
+  zero(k);
+  mma3<16>(k, [&](int s, float (&a)[4]) { frag_smem(z, SZ, s, a, g, t); },
+           ring.next(w), SB, g, t);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 bb =
+        __ldg(reinterpret_cast<const float2*>(w.b3 + 8 * j + 2 * t));
+    k[j][0] += bb.x; k[j][1] += bb.y; k[j][2] += bb.x; k[j][3] += bb.y;
+  }
+}
+
+// element e (< 16) of a thread's 16 x DA tile: row g (+ 8 for e & 2),
+// column 8 (e / 4) + 2t + (e & 1)
+__device__ __forceinline__ int tile_col(int e, int t) {
+  return 8 * (e >> 2) + 2 * t + (e & 1);
+}
+
+}  // namespace k5
+
+__global__ void __launch_bounds__(32 * k5::kW, 1)
     dopri5_step_kernel(const StepParams p) {
-  constexpr int M = R * DA / kThreads;  // elements per thread of a [R][DA]
+  using namespace k5;
   extern __shared__ __align__(16) float sm[];
-  StageBufs s;
-  s.wbuf = sm;
-  float* x0 = s.wbuf + kWbuf;          // [R][DA]
-  float* ks = x0 + R * DA;             // [7][R][DA]
-  s.hpre = ks + 7 * R * DA;            // [R][H]
-  s.feats = s.hpre + R * H;            // [R][DF]
-  s.q = s.feats + R * DF;              // [R][H]: q and p, then rt
-  s.rt = s.q;
-  s.chain = s.q + R * H;               // [R][H], updated in place
-  s.chain_step = 0;
-  __shared__ float inv[R];
-  __shared__ float red[kThreads];
-  s.inv = inv;
-  constexpr int RPT = R / kWarps;
-  const int wp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __shared__ float red[32 * kW];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* z = sm + kSlots * kSlot + warp * 16 * SZ;
+  float* hrow = sm + kSlots * kSlot + kRows * SZ + warp * 16 * SH;
+  // the thread's state: array a (x0, k1 .. k7), element e at
+  // st[(16 a + e) * 32], coalesced over the warp
+  float* st = p.scratch + ((size_t)blockIdx.x * kW + warp) * kState + lane;
+  const int n_tiles = (p.n + kRows - 1) / kRows;
+  const int mine = (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  Ring ring;
+  ring.base = sm;
+  ring.nzc = p.w.zp / 32;
+  ring.period = 4 + ring.nzc + 4 * p.w.nb;
+  ring.c = 0;
+  ring.total = mine * 6 * ring.period;
+  for (int i = 0; i + 1 < kSlots; ++i) ring.issue(p.w, i);
   const float hs = p.hstep;
-  const int n_tiles = (p.n + R - 1) / R;
   float sq = 0.f;
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long row0 = (long)tile * R;
-    __syncthreads();
-    // element m of this thread: row wp + 8 m, column lane
+    const long ra = (long)tile * kRows + warp * 16 + g, rb = ra + 8;
+    const bool va = ra < p.n, vb = rb < p.n;
+    // x0 -> state 0, f0 = k1 -> state 1, h -> the warp's h rows
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const int r = wp + kWarps * m;
-      const long g = row0 + r;
-      const bool v = g < p.n;
-      x0[r * DA + lane] = v ? p.x[g * DA + lane] : 0.f;
-      ks[r * DA + lane] = v ? p.f0[g * DA + lane] : 0.f;
-      s.feats[r * DF + lane] = v ? p.h[g * DC + lane] : 0.f;  // h, staged
+    for (int j = 0; j < 4; ++j) {
+      const int c = 8 * j + 2 * t;
+      const float2 zero2 = make_float2(0.f, 0.f);
+      const float2 xa = va ? *reinterpret_cast<const float2*>(p.x + ra * DA + c) : zero2;
+      const float2 xb = vb ? *reinterpret_cast<const float2*>(p.x + rb * DA + c) : zero2;
+      const float2 fa = va ? *reinterpret_cast<const float2*>(p.f0 + ra * DA + c) : zero2;
+      const float2 fb = vb ? *reinterpret_cast<const float2*>(p.f0 + rb * DA + c) : zero2;
+      const float2 ha = va ? *reinterpret_cast<const float2*>(p.h + ra * DC + c) : zero2;
+      const float2 hb = vb ? *reinterpret_cast<const float2*>(p.h + rb * DC + c) : zero2;
+      st[(4 * j + 0) * 32] = xa.x; st[(4 * j + 1) * 32] = xa.y;
+      st[(4 * j + 2) * 32] = xb.x; st[(4 * j + 3) * 32] = xb.y;
+      st[(16 + 4 * j + 0) * 32] = fa.x; st[(16 + 4 * j + 1) * 32] = fa.y;
+      st[(16 + 4 * j + 2) * 32] = fb.x; st[(16 + 4 * j + 3) * 32] = fb.y;
+      *reinterpret_cast<float2*>(hrow + g * SH + c) = ha;
+      *reinterpret_cast<float2*>(hrow + (g + 8) * SH + c) = hb;
     }
-    // hpre = h W1h: h is constant over the step, one product
-    mm<R, DC, H>(s.feats, DF, p.w.w1h, H, s.wbuf, [&](float (&acc)[RPT][4]) {
+#pragma unroll 1
+    for (int stg = 1; stg < 7; ++stg) {
+      // the stage input x0 + sum_j (h a_stg,j) k_j, in the reference's order
+      float x[4][4];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s.hpre[(wp + kWarps * i) * H + ocol<H>(lane, j)] = acc[i][j];
-    });
-    for (int st = 1; st < 7; ++st) {
-      __syncthreads();
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int o = (wp + kWarps * m) * DA + lane;
-        float y = x0[o];
-        for (int j = 0; j < st; ++j) {
-          const float a = cA[st][j];
-          if (a != 0.f) y = y + (hs * a) * ks[j * R * DA + o];
+      for (int e = 0; e < 16; ++e) {
+        float y = st[e * 32];
+        for (int j = 0; j < stg; ++j) {
+          const float a = cA[stg][j];
+          if (a != 0.f) y = y + (hs * a) * st[(16 * (1 + j) + e) * 32];
         }
-        s.feats[(wp + kWarps * m) * DF + lane] = y;
+        x[e >> 2][e & 3] = y;
       }
-      stage_forward<R>(p.w, s, st, ks + st * R * DA);
+      float k[4][4];
+      stage(p.w, ring, stg, x, hrow, z, k, g, t);
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        st[(16 * (1 + stg) + e) * 32] = k[e >> 2][e & 3];
     }
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const int r = wp + kWarps * m;
-      const int o = r * DA + lane;
-      float inc = 0.f, e = 0.f, d = 0.f;
+    for (int e = 0; e < 16; ++e) {
+      float inc = 0.f, er = 0.f, d = 0.f;
       for (int j = 0; j < 7; ++j) {
-        const float k = ks[j * R * DA + o];
-        if (cB5[j] != 0.f) inc = inc + cB5[j] * k;
-        if (cBE[j] != 0.f) e = e + cBE[j] * k;
-        if (cD[j] != 0.f) d = d + cD[j] * k;
+        const float kj = st[(16 * (1 + j) + e) * 32];
+        if (cB5[j] != 0.f) inc = inc + cB5[j] * kj;
+        if (cBE[j] != 0.f) er = er + cBE[j] * kj;
+        if (cD[j] != 0.f) d = d + cD[j] * kj;
       }
-      const float y1 = x0[o] + hs * inc;
-      e = hs * e;
-      const long g = row0 + r;
-      if (g < p.n) {
-        p.y1[g * DA + lane] = y1;
-        p.f1[g * DA + lane] = ks[6 * R * DA + o];
-        p.r5[g * DA + lane] = hs * d;
+      const float x0 = st[e * 32];
+      const float y1 = x0 + hs * inc;
+      er = hs * er;
+      const long row = (e & 2) ? rb : ra;
+      if ((e & 2) ? vb : va) {
+        const long o = row * DA + tile_col(e, t);
+        p.y1[o] = y1;
+        p.f1[o] = st[(16 * 7 + e) * 32];
+        p.r5[o] = hs * d;
         if (p.err_stats) {
           const float esc =
-              e / (p.atol + p.rtol * fmaxf(fabsf(x0[o]), fabsf(y1)));
+              er / (p.atol + p.rtol * fmaxf(fabsf(x0), fabsf(y1)));
           sq += esc * esc;
         } else {
-          p.err[g * DA + lane] = e;
+          p.err[o] = er;
         }
       }
     }
@@ -801,11 +1118,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   // the CTA's sum, in a fixed order
   red[threadIdx.x] = sq;
   __syncthreads();
-  for (int m = kThreads / 2; m >= 1; m >>= 1) {
+  for (int m = 16 * kW; m >= 1; m >>= 1) {
     if (threadIdx.x < m) red[threadIdx.x] += red[threadIdx.x + m];
     __syncthreads();
   }
   if (threadIdx.x == 0) p.partial[blockIdx.x] = red[0];
+  cp_wait<0>();
 }
 
 // ---- the step VJP's cotangents ---------------------------------------------
@@ -1829,7 +2147,7 @@ void set_bwd_params(BwdParams<Wt>& p, const void* ckpts, const void* ckpt_f,
 
 extern "C" {
 
-// Agent rows per tile of a kernel's body: kind 0 K5 (32), kind 1 the
+// Agent rows per tile of a kernel's body: kind 0 K5 (128), kind 1 the
 // float32 step VJP (32 up to 4 residual blocks, 16 beyond: its chain of
 // block activations must fit in shared memory), kind 2 the bf16 step VJP
 // (96 up to 2 blocks, 64 up to 5, 32 beyond: vjp_bf16_warps) and kind 3 K5
@@ -1837,12 +2155,14 @@ extern "C" {
 int ananke_dopri5_tile_rows(int num_blocks, int kind) {
   if (kind == 2) return 16 * vjp_bf16_warps(num_blocks);
   if (kind == 3) return 16 * k5_bf16_warps(num_blocks);
+  if (kind == 0) return k5::kRows;
   return kind == 1 && num_blocks > 4 ? 16 : 32;
 }
 
-// Floats of one CTA's scratch in device memory of a step-VJP body (kind 1
-// or 2, as ananke_dopri5_tile_rows).
+// Floats of one CTA's scratch in device memory of K5 (kind 0) or a
+// step-VJP body (kind 1 or 2, as ananke_dopri5_tile_rows).
 long ananke_dopri5_scratch_floats(int num_blocks, int kind) {
+  if (kind == 0) return (long)k5::kW * k5::kState;
   if (kind == 2) return (long)vjp_bf16_warps(num_blocks) * kWarpFloats;
   return 14L * ananke_dopri5_tile_rows(num_blocks, 1) * DA;
 }
@@ -1853,7 +2173,10 @@ long ananke_dopri5_slab_size(int z, int num_blocks, int tf_rows) {
 }
 
 // K5 on `stream`: the step kernel, then the sum of the CTAs' partial error
-// sums into err_sum (1 float). Returns cudaGetLastError() after the
+// sums into err_sum (1 float). `partial` holds num_ctas + 32 +
+// num_ctas x ananke_dopri5_scratch_floats(num_blocks, 0) floats: the CTAs'
+// sums, then the step state's scratch; the kernel runs on at most 132 of
+// the num_ctas CTAs (k5::kCtas). Returns cudaGetLastError() after the
 // launches (0 on success), or cudaErrorInvalidValue for widths this file
 // was not compiled for or bad sizes.
 int ananke_dopri5_step(
@@ -1865,7 +2188,7 @@ int ananke_dopri5_step(
     void* partial, void* err_sum, int n, int z, int zp, int num_blocks,
     int num_ctas, int err_stats, float hstep, float rtol, float atol, int da,
     int dz, int dc, int hdim, void* stream) {
-  const int n_tiles = (n + kStepRows - 1) / kStepRows;
+  const int n_tiles = (n + k5::kRows - 1) / k5::kRows;
   if (!widths_ok(da, dz, dc, hdim) || num_blocks < 1 ||
       num_blocks > kMaxBlocks || n < 1 || z < 1 || zp % kZC != 0 || zp < z ||
       num_ctas < 1 || num_ctas > n_tiles) {
@@ -1883,21 +2206,22 @@ int ananke_dopri5_step(
   p.err = static_cast<float*>(err);
   p.r5 = static_cast<float*>(r5);
   p.partial = static_cast<float*>(partial);
+  p.scratch = p.partial + (num_ctas + 31) / 32 * 32;
   p.n = n;
   p.err_stats = err_stats;
   p.hstep = hstep;
   p.rtol = rtol;
   p.atol = atol;
+  const int ctas = num_ctas < k5::kCtas ? num_ctas : k5::kCtas;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* kernel = dopri5_step_kernel<kStepRows>;
-  const size_t bytes = step_smem_floats<kStepRows>() * sizeof(float);
-  int e = set_smem(kernel, bytes);
+  auto* kernel = dopri5_step_kernel;
+  int e = set_smem(kernel, k5::kSmemBytes);
   if (e) return e;
-  kernel<<<num_ctas, kThreads, bytes, s>>>(p);
+  kernel<<<ctas, 32 * k5::kW, k5::kSmemBytes, s>>>(p);
   e = (int)cudaGetLastError();
   if (e) return e;
   return ananke::launch_reduce_slabs(
-      p.partial, static_cast<float*>(err_sum), 1, num_ctas, s);
+      p.partial, static_cast<float*>(err_sum), 1, ctas, s);
 }
 
 // K5 at bf16 on `stream`: as ananke_dopri5_step, but the 12 bf16 weights

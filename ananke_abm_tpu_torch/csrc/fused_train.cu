@@ -52,10 +52,19 @@
 //   ~70 kFLOP per row at Z=500 against ~140 bytes: compute-bound.
 //
 // K3b ce_bwd_kernel   <- _ce_bwd_impl. Per row it recomputes d and the
-//   log-sum-exp, then per 16-zone chunk grow = bf16((p - onehot) g_nll):
-//   gd += grow @ ze per row, gze += grow^T d16 summed over the tile's rows
-//   (ldmatrix.trans agent contraction into the CTA's slab); then gx =
-//   bf16(gd) @ Wd^T per row and gWd += bf16(x)^T bf16(gd). Slabs as K2b.
+//   log-sum-exp, then per zone box grow = bf16((p - onehot) g_nll): gd +=
+//   grow @ ze per row, gze += grow^T d16 summed over the tile's rows; then
+//   gx = bf16(gd) @ Wd^T per row and gWd += bf16(x)^T bf16(gd). What held
+//   its first design (64-row tiles, two CTAs an SM) to 1% of its bound:
+//   every B fragment an __ldg from L2, the logits computed three times, a
+//   slab read-modify-write of each 16-zone chunk's gze per tile between two
+//   block barriers. Now one persistent CTA an SM (8 warps, 128-row tiles)
+//   streams ze through a 3-slot cp.async ring of 32-zone boxes, B fragments
+//   by ldmatrix (.trans for gd: no ze^T copy), two passes over the logits
+//   (an online max and sum, then the gradient), one block barrier a box;
+//   gze accumulates in shared memory across the CTA's tiles (one owner per
+//   element, written once) for as many zones as fit beside the rest (576),
+//   the zones past that box by box into the slab; gWd in registers.
 //
 // The stage attention is max-free and clamped at 80; the decode's softmax
 // subtracts the max: both as in the reference.
@@ -73,7 +82,13 @@ using namespace ananke;
 
 constexpr int kMaxBlocks = 8;
 constexpr int kFwdWarps = 4;  // K3f: 64 rows per block
-constexpr int kCeWarps = 4;   // K3b: 64 rows per tile
+constexpr int kCeWarps = 8;   // K3b: 128 rows per tile
+constexpr int kCeZC = 32;     // zones of a K3b ring box
+// K3b's CTAs at most, one an SM; a constant, so the order of its sums
+// depends on the row count alone
+constexpr int kCeCtas = 132;
+// the largest dynamic shared memory a block can use
+constexpr size_t kCeMaxSmem = 232448;
 
 struct DayBwdParams {
   StageWeights w;
@@ -287,6 +302,7 @@ struct CeParams {
   float* slab;         // (num_ctas, slab_size): gze (z, DZ) | gWd (DA, DZ)
   float* gsum;         // (slab_size)
   int m, z, zp, num_ctas;
+  int zr;              // K3b: zones whose gze stays in shared memory
   long slab_size;
 };
 
@@ -397,98 +413,275 @@ __global__ void __launch_bounds__(32 * kFwdWarps) ce_fwd_kernel(const CeParams p
   }
 }
 
+// K3b's shared memory (byte offsets): the ring of ze boxes (kCeZC rows
+// each, row stride DZ + 8) | d16 and gd16 of the tile's rows | two grow
+// buffers (a box's zones) | bf16(x) of the tile's rows | the CTA's gze, f32
+// (zr, DZ): the zones whose gradient stays in shared memory
 template <int DA, int DZ, int W>
-__global__ void __launch_bounds__(32 * W) ce_bwd_kernel(const CeParams p) {
-  constexpr int ROWS = 16 * W;
-  constexpr int NX = DA / 8, KX = DA / 16;
-  constexpr int NZ = DZ / 8, KZ = DZ / 16;
-  constexpr int SX = DA + 8, SZ = DZ + 8, SC = 16 + 8;
-  __shared__ __align__(16) bf16 s_x[ROWS * SX];
-  __shared__ __align__(16) bf16 s_d[ROWS * SZ];
-  __shared__ __align__(16) bf16 s_gr[ROWS * SC];
-  __shared__ __align__(16) bf16 s_gd[ROWS * SZ];
+struct CeSmem {
+  static constexpr int ROWS = 16 * W;
+  static constexpr int SZE = DZ + 8;   // a ze box row, d16, gd16
+  static constexpr int SX = DA + 8;    // bf16(x)
+  static constexpr int SG = kCeZC + 8;  // grow
+  static constexpr int kSlot = kCeZC * SZE;  // bf16 elements
+  static constexpr int kSlots = 3;
+  static constexpr int kD = kSlots * kSlot * 2;
+  static constexpr int kGd = kD + ROWS * SZE * 2;
+  static constexpr int kG = kGd + ROWS * SZE * 2;
+  static constexpr int kX = kG + 2 * ROWS * SG * 2;
+  static constexpr int kGze = kX + ROWS * SX * 2;
+  static size_t bytes(int zr) { return kGze + (size_t)zr * DZ * sizeof(float); }
+  // the most zones whose gze fits beside the rest
+  static int max_resident() {
+    return (int)((kCeMaxSmem - kGze) / (DZ * sizeof(float)));
+  }
+};
+
+// K3b's ring: box i is the ze rows of zone box i mod nzc (a tile reads every
+// box twice: the log-sum-exp's pass, then the gradient's), copied by
+// cp.async 2 boxes ahead, rows past zp zeroed; one block barrier a box
+template <int DZ, int W>
+struct CeRing {
+  static constexpr int SZE = DZ + 8, kSlot = kCeZC * SZE;
+  bf16* base;
+  const bf16* ze;
+  int zp, nzc, c, total;
+
+  __device__ void issue(int i) {
+    if (i < total) {
+      bf16* dst = base + (i % 3) * kSlot;
+      const int z0 = (i % nzc) * kCeZC, nz = min(kCeZC, zp - z0);
+      constexpr int per = DZ / 8;
+      for (int e = threadIdx.x; e < kCeZC * per; e += 32 * W) {
+        const int r = e / per, k = e - r * per;
+        if (r < nz)
+          sm90::cp_async16(dst + r * SZE + 8 * k,
+                           ze + (size_t)(z0 + r) * DZ + 8 * k);
+        else
+          *reinterpret_cast<uint4*>(dst + r * SZE + 8 * k) =
+              make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    sm90::cp_commit();
+  }
+
+  __device__ const bf16* next() {
+    sm90::cp_wait<1>();
+    __syncthreads();
+    issue(c + 2);
+    return base + (c++ % 3) * kSlot;
+  }
+};
+
+// K3b. A persistent CTA of W warps (16 W rows a tile) streams ze through
+// its ring twice a tile: per row the max and the sum of exp of the logits
+// (online, one pass), then per box the logits again, grow = bf16((p -
+// onehot) g_nll), gd += grow ze (B fragments by ldmatrix.trans from the
+// box) and the box's gze = grow^T d16 over the tile's rows (one block of 8
+// dz columns a warp, deferred to the next box's barrier). gze stays in
+// shared memory for the first zr zones (every zone at rung 2), one owner
+// per element, written to the CTA's slab once; zones past zr go to the
+// slab box by box. gWd accumulates in registers (a warp's 8 columns) and
+// is written once.
+template <int DA, int DZ, int W>
+__global__ void __launch_bounds__(32 * W, 1) ce_bwd_kernel(const CeParams p) {
+  using S = CeSmem<DA, DZ, W>;
+  constexpr int ROWS = S::ROWS, SZE = S::SZE, SX = S::SX, SG = S::SG;
+  constexpr int KX = DA / 16, KZ = DZ / 16, NX = DA / 8, NZ = DZ / 8;
+  static_assert(NZ == W && kCeZC == 32, "a warp per 8 dz columns");
+  extern __shared__ __align__(16) unsigned char ce_smem[];
+  bf16* s_d = reinterpret_cast<bf16*>(ce_smem + S::kD);
+  bf16* s_gd = reinterpret_cast<bf16*>(ce_smem + S::kGd);
+  bf16* s_g = reinterpret_cast<bf16*>(ce_smem + S::kG);
+  bf16* s_x = reinterpret_cast<bf16*>(ce_smem + S::kX);
+  float* s_gze = reinterpret_cast<float*>(ce_smem + S::kGze);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3, wr0 = warp * 16;
+  const int q = lane >> 3, rr = lane & 7;
   float* slab = p.slab + (size_t)blockIdx.x * p.slab_size;
-  float* slab_gwd = slab + (size_t)p.z * DZ;
   const int n_tiles = (p.m + ROWS - 1) / ROWS;
-
+  const int nzc = (p.zp + kCeZC - 1) / kCeZC;
+  const int mine = (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  for (int i = threadIdx.x; i < p.zr * DZ; i += 32 * W) s_gze[i] = 0.f;
+  CeRing<DZ, W> ring{reinterpret_cast<bf16*>(ce_smem), p.ze, p.zp, nzc, 0,
+                     mine * 2 * nzc};
+  ring.issue(0);
+  ring.issue(1);
+  float gwd[2][4];
+  zero(gwd);
   bool first = true;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += p.num_ctas) {
+
+  // gze[box cc] += grow^T d16 over the tile's rows: this warp's 8 columns
+  auto contract = [&](int cc) {
+    const bf16* gb = s_g + (cc & 1) * ROWS * SG;
+    const int col = 8 * warp + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k0 = 0; k0 < ROWS; k0 += 16) {
+        uint32_t af[4], bfr[2];
+        ldsm_x4_trans(af, gb + (k0 + rr + 8 * (q >> 1)) * SG + 16 * i +
+                              8 * (q & 1));
+        ldsm_x2_trans(bfr, s_d + (k0 + rr + 8 * (q & 1)) * SZE + 8 * warp);
+        mma(acc, af, bfr[0], bfr[1]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int zi = cc * kCeZC + 16 * i + g + 8 * h;
+        if (zi >= p.z) continue;
+        if (zi < p.zr) {
+          float2* o = reinterpret_cast<float2*>(s_gze + zi * DZ + col);
+          const float2 v = *o;
+          *o = make_float2(v.x + acc[2 * h], v.y + acc[2 * h + 1]);
+        } else {
+          slab_put(slab + (size_t)zi * DZ + col, acc[2 * h], first);
+          slab_put(slab + (size_t)zi * DZ + col + 1, acc[2 * h + 1], first);
+        }
+      }
+    }
+  };
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long ra = (long)tile * ROWS + wr0 + g, rb = ra + 8;
     const bool va = ra < p.m, vb = rb < p.m;
     uint32_t xa[KX][4];
     ldg_rows_a<DA>(xa, p.x, ra, rb, va, vb, t);
-    sts_a<DA>(xa, s_x + wr0 * SX, SX, g, t);
     uint32_t dA[KZ][4];
     decode_rows<DA, DZ>(dA, xa, p.wdT, g, t);
-    sts_a<DZ>(dA, s_d + wr0 * SZ, SZ, g, t);
     const int ta = va ? p.tgt[ra] : -1, tb = vb ? p.tgt[rb] : -1;
     // padded rows carry a zero upstream gradient
     const float gn_a = va ? p.gnll[ra] : 0.f, gn_b = vb ? p.gnll[rb] : 0.f;
-    const RowMax m = row_max<DZ>(dA, p.ze, p.z, p.zp, ta, tb, g, t);
-    float s_a, s_b;
-    row_sumexp<DZ>(dA, p.ze, p.z, p.zp, m.mx_a, m.mx_b, s_a, s_b, g, t);
+    // the last tile's contractions are done with s_x, s_d and s_gd
+    __syncthreads();
+    sts_a<DA>(xa, s_x + wr0 * SX, SX, g, t);
+    sts_a<DZ>(dA, s_d + wr0 * SZE, SZE, g, t);
 
-    // per 16-zone chunk: grow = bf16((p - onehot) g_nll); gd += grow @ ze;
-    // gze[chunk] += grow^T d16
+    // pass 1: per row the max logit over valid zones and the sum of
+    // exp(logit - max), online over the boxes, then over the 4 lanes
+    float m_a = -INFINITY, m_b = -INFINITY, s_a = 0.f, s_b = 0.f;
+    for (int c = 0; c < nzc; ++c) {
+      const bf16* box = ring.next();
+      float sc[4][4];
+      zero(sc);
+      sm90::mma_s<DZ, 4, 4>(sc, 0, dA, box, SZE, g, t);
+      float ca = -INFINITY, cb = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c * kCeZC + 8 * j + 2 * t + (e & 1) < p.z) {
+            if (e < 2) ca = fmaxf(ca, sc[j][e]);
+            else cb = fmaxf(cb, sc[j][e]);
+          }
+      const float na = fmaxf(m_a, ca), nb = fmaxf(m_b, cb);
+      float pa = 0.f, pb = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c * kCeZC + 8 * j + 2 * t + (e & 1) < p.z) {
+            if (e < 2) pa += expf(sc[j][e] - na);
+            else pb += expf(sc[j][e] - nb);
+          }
+      if (na != -INFINITY) { s_a = s_a * expf(m_a - na) + pa; m_a = na; }
+      if (nb != -INFINITY) { s_b = s_b * expf(m_b - nb) + pb; m_b = nb; }
+    }
+    // the lanes' (max, sum) pairs, combined in lane order (the same bits on
+    // each lane); a lane with no valid zone holds (-inf, 0)
+    auto combine = [&](float& m, float& s, int x) {
+      const float om = __shfl_xor_sync(0xffffffffu, m, x);
+      const float os = __shfl_xor_sync(0xffffffffu, s, x);
+      const bool lo = (t & x) == 0;
+      const float ml = lo ? m : om, sl = lo ? s : os;
+      const float mh = lo ? om : m, sh = lo ? os : s;
+      const float nm = fmaxf(ml, mh);
+      s = (sl == 0.f ? 0.f : sl * expf(ml - nm)) +
+          (sh == 0.f ? 0.f : sh * expf(mh - nm));
+      m = nm;
+    };
+    combine(m_a, s_a, 1); combine(m_b, s_b, 1);
+    combine(m_a, s_a, 2); combine(m_b, s_b, 2);
+
+    // pass 2: per box grow = bf16((p - onehot) g_nll); gd += grow @ ze;
+    // the box's gze after the next barrier
     float gd[NZ][4];
     zero(gd);
-    for (int z0 = 0; z0 < p.zp; z0 += 16) {
-      float sc[2][4];
+    for (int c = 0; c < nzc; ++c) {
+      const bf16* box = ring.next();
+      if (c > 0) contract(c - 1);
+      float sc[4][4];
       zero(sc);
-      mma_nblocks<DZ, 2>(sc, 0, dA, p.ze + (size_t)z0 * DZ, g, t);
+      sm90::mma_s<DZ, 4, 4>(sc, 0, dA, box, SZE, g, t);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int zi = z0 + 8 * i + 2 * t + (c & 1);
-          const bool b = (c & 2) != 0;
+        for (int e = 0; e < 4; ++e) {
+          const int zi = c * kCeZC + 8 * j + 2 * t + (e & 1);
+          const bool b = (e & 2) != 0;
           float gr = 0.f;
           if (zi < p.z) {
-            const float pr = expf(sc[i][c] - (b ? m.mx_b : m.mx_a)) /
+            const float pr = expf(sc[j][e] - (b ? m_b : m_a)) /
                              (b ? s_b : s_a);
             const float oh = zi == (b ? tb : ta) ? 1.f : 0.f;
             gr = (pr - oh) * (b ? gn_b : gn_a);
           }
-          sc[i][c] = gr;
+          sc[j][e] = gr;
         }
-      uint32_t gra[1][4];
-      gra[0][0] = pack_bf16(sc[0][0], sc[0][1]);
-      gra[0][1] = pack_bf16(sc[0][2], sc[0][3]);
-      gra[0][2] = pack_bf16(sc[1][0], sc[1][1]);
-      gra[0][3] = pack_bf16(sc[1][2], sc[1][3]);
-      const bf16* zt = p.zeT + z0;
+      uint32_t gra[2][4];
+      c_to_a<kCeZC>(sc, gra);
 #pragma unroll
-      for (int j = 0; j < NZ; ++j) {
-        const bf16* rowp = zt + (size_t)(8 * j + g) * p.zp + 2 * t;
-        mma(gd[j], gra[0], ldg32(rowp), ldg32(rowp + 8));
-      }
-      sts_a<16>(gra, s_gr + wr0 * SC, SC, g, t);
-      __syncthreads();
-      nt_dot<16, DZ, ROWS, W, false>(s_gr, SC, s_d, SZ, nullptr, 0, nullptr,
-                                     0, slab + (size_t)z0 * DZ, p.z - z0,
-                                     first, warp, lane);
-      __syncthreads();
+      for (int s2 = 0; s2 < 2; ++s2)
+#pragma unroll
+        for (int j = 0; j < NZ; j += 2) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, box + (16 * s2 + 8 * (q & 1) + rr) * SZE + 8 * j +
+                               8 * (q >> 1));
+          mma(gd[j], gra[s2], b[0], b[1]);
+          mma(gd[j + 1], gra[s2], b[2], b[3]);
+        }
+      sts_a<kCeZC>(gra, s_g + (c & 1) * ROWS * SG + wr0 * SG, SG, g, t);
     }
 
-    // d = xb @ Wd: gx = bf16(gd) @ Wd^T; gWd += xb^T bf16(gd)
-    {
-      uint32_t gda[KZ][4];
-      c_to_a<DZ>(gd, gda);
-      sts_a<DZ>(gda, s_gd + wr0 * SZ, SZ, g, t);
-      float gx[NX][4];
-      zero(gx);
+    // d = xb @ Wd: gx = bf16(gd) @ Wd^T per row; gWd += xb^T bf16(gd)
+    uint32_t gda[KZ][4];
+    c_to_a<DZ>(gd, gda);
+    sts_a<DZ>(gda, s_gd + wr0 * SZE, SZE, g, t);
+    float gx[NX][4];
+    zero(gx);
 #pragma unroll
-      for (int j = 0; j < NX; ++j)
-        mma_nblocks<DZ, 1>(gx, j, gda, p.wd + (size_t)8 * j * DZ, g, t);
-      stg_rows_c<NX>(gx, p.gx, ra, rb, va, vb, t);
-    }
+    for (int j = 0; j < NX; ++j)
+      mma_nblocks<DZ, 1>(gx, j, gda, p.wd + (size_t)8 * j * DZ, g, t);
+    stg_rows_c<NX>(gx, p.gx, ra, rb, va, vb, t);
     __syncthreads();
-    nt_dot1<DA, DZ, ROWS, W>(s_x, SX, s_gd, SZ, slab_gwd, first, warp, lane);
-    __syncthreads();
+    contract(nzc - 1);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int k0 = 0; k0 < ROWS; k0 += 16) {
+        uint32_t af[4], bfr[2];
+        ldsm_x4_trans(af, s_x + (k0 + rr + 8 * (q >> 1)) * SX + 16 * i +
+                              8 * (q & 1));
+        ldsm_x2_trans(bfr, s_gd + (k0 + rr + 8 * (q & 1)) * SZE + 8 * warp);
+        mma(gwd[i], af, bfr[0], bfr[1]);
+      }
     first = false;
   }
+  // the CTA's sums into its slab: gze (the resident zones; the rest went
+  // box by box), then gWd
+  __syncthreads();
+  const int zres = p.z < p.zr ? p.z : p.zr;
+  for (int i = threadIdx.x; i < zres * DZ; i += 32 * W) slab[i] = s_gze[i];
+  float* sw = slab + (size_t)p.z * DZ;
+  const int col = 8 * warp + 2 * t;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sw[(16 * i + g) * DZ + col] = gwd[i][0];
+    sw[(16 * i + g) * DZ + col + 1] = gwd[i][1];
+    sw[(16 * i + g + 8) * DZ + col] = gwd[i][2];
+    sw[(16 * i + g + 8) * DZ + col + 1] = gwd[i][3];
+  }
+  sm90::cp_wait<0>();
 }
 
 bool shipping_widths(int da, int dz, int dc, int hdim) {
@@ -599,12 +792,14 @@ int ananke_ce_forward(const void* x, const void* tgt, const void* wdT,
 }
 
 // K3b on `stream`: gx per row, then gze | gWd summed over the rows into
-// gsum through num_ctas slabs (written, not added: need no zeroing).
+// gsum through at most 132 (kCeCtas) of the num_ctas slabs (written, not
+// added: need no zeroing).
 int ananke_ce_backward(const void* x, const void* tgt, const void* gnll,
                        const void* wdT, const void* wd, const void* ze,
                        const void* zeT, void* gx, void* slab, void* gsum,
                        int m, int z, int zp, int num_ctas, int da, int dz,
                        void* stream) {
+  using S = CeSmem<32, 64, kCeWarps>;
   const int rows = 16 * kCeWarps;
   const int n_tiles = (m + rows - 1) / rows;
   if (m < 1 || z < 1 || zp % 16 != 0 || zp < z || num_ctas < 1 ||
@@ -621,11 +816,18 @@ int ananke_ce_backward(const void* x, const void* tgt, const void* gnll,
   p.gx = static_cast<float*>(gx);
   p.slab = static_cast<float*>(slab);
   p.gsum = static_cast<float*>(gsum);
-  p.m = m; p.z = z; p.zp = zp; p.num_ctas = num_ctas;
+  p.m = m; p.z = z; p.zp = zp;
+  p.num_ctas = num_ctas < kCeCtas ? num_ctas : kCeCtas;
+  p.zr = z < S::max_resident() ? z : S::max_resident();
   p.slab_size = (long)(z + da) * dz;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ce_bwd_kernel<32, 64, kCeWarps><<<num_ctas, 32 * kCeWarps, 0, s>>>(p);
-  cudaError_t err = cudaGetLastError();
+  auto* kernel = ce_bwd_kernel<32, 64, kCeWarps>;
+  const size_t bytes = S::bytes(p.zr);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<p.num_ctas, 32 * kCeWarps, bytes, s>>>(p);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_reduce_slabs(p.slab, p.gsum, p.slab_size, p.num_ctas, s);
 }

@@ -245,6 +245,35 @@ def round_tf32(x):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def split_tf32(x):
+    """float32 ``x`` -> (hi, lo), the two TF32 parts K5's 3xTF32 products
+    take of each operand (``k5::split`` in csrc/fused_dopri5.cu): hi is x
+    with its 13 low mantissa bits cleared, lo the TF32 value the tensor
+    core reads of x - hi (its 13 low bits cleared too). hi + lo rebuilds x
+    within 2^-21 of |x|."""
+    bits = x.float().contiguous().view(torch.int32)
+    hi = (bits & -0x2000).view(torch.float32)
+    lo = ((x.float() - hi).contiguous().view(torch.int32) & -0x2000).view(
+        torch.float32)
+    return hi, lo
+
+
+def tf32x3_dot(a, b):
+    """``a @ b`` as K5 computes it: lo hi + hi lo + hi hi of the operands'
+    split_tf32 parts, float32 sums (the lo lo term dropped)."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def tf32x3_products(fn, *args):
+    """``fn(*args)``, a plain version of the float32 DOPRI5 step, with every
+    product in K5's 3xTF32 arithmetic (tf32x3_dot): the kernel's rounding
+    class without its order of sums."""
+    return _with_products(tf32x3_dot, lambda a, b: tf32x3_dot(a.T, b), fn,
+                          *args)
+
+
 class _Tf32MatMul(torch.autograd.Function):
     """``a @ b`` with both operands rounded to TF32 and float32 sums; its
     backward's two products likewise."""

@@ -17,9 +17,11 @@ file, each with its plain PyTorch version beside it:
   carries between steps, in one launch.
 
 All run the shared stage math (``fused_step.stage_math`` /
-``stage_vjp_math``) at ``precision="f32"`` (float32 FFMA, the identity
-cast) or ``"bf16"`` (bf16 operands and float32 sums at the reference's
-rounding points, on ``csrc/drift_stage.cuh``). The trainers' forward is
+``stage_vjp_math``) at ``precision="f32"`` (float32: the identity cast; K7
+and K6 on float32 FFMA, K5's products in 3xTF32 on the tensor cores, each
+operand split into two TF32 parts with float32 sums) or ``"bf16"`` (bf16
+operands and float32 sums at the reference's rounding points, on
+``csrc/drift_stage.cuh``). The trainers' forward is
 float32: bf16 rounding of the stage activations is noise that does not
 cancel in the embedded 5(4) error and floors the step controller, so the
 reference keeps K5's bf16 branch for loose tolerances (rtol >= ~1e-3),
@@ -384,11 +386,12 @@ def pack_weights_f32(Wq, W1xc, W1h, blocks, W3, b3):
 # zones per attention chunk of the float32 kernels (kZC in
 # csrc/fused_dopri5.cu); the bf16 ones take chunks of 16 (pad_zones)
 ZONE_CHUNK = 32
-# CTAs of K5 (two fit an SM's shared memory) and of K7, K6 and K5-bf16
-# (one): each
-# sums its tiles into its own slab, summed in a fixed order; constants, so
-# the sums' order depends on N alone and a repeated launch gives the same
-# bits
+# CTAs of the kernels: each sums its tiles into its own slab (K5: its own
+# partial error sum), summed in a fixed order; constants, so the sums'
+# order depends on N alone and a repeated launch gives the same bits. K7,
+# K6 and K5-bf16 take one an SM; K5 at float32 is offered two an SM (the
+# C interface's count, which an A/B against a build of two CTAs an SM
+# keeps) and its library runs on at most NUM_SLABS of them
 STEP_CTAS = 2 * NUM_SLABS
 VJP_CTAS = NUM_SLABS
 # the kernels' tile bodies (ananke_dopri5_tile_rows' `kind`)
@@ -437,8 +440,10 @@ def dopri5_step_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3, b3,
                       h_step, precision="f32", err_stats=None, packed=None):
     """One DOPRI5 step. Arguments and result as
     :func:`dopri5_step_reference`; on CUDA the kernel K5 at ``precision``
-    (float32 FFMA, or the bf16 stage math of ``drift_stage.cuh`` with the
-    tableau and the error in float32), over ``packed``
+    (float32: products in 3xTF32 on the tensor cores, each operand split
+    into two TF32 parts, float32 sums; or the bf16 stage math of
+    ``drift_stage.cuh`` with the tableau and the error in float32), over
+    ``packed``
     (:func:`pack_operands` of these zones and weights at the same precision)
     or a packing made for this launch. With ``err_stats`` the sum of squares
     is deterministic: the same operands give the same bits, and so the same
@@ -464,7 +469,10 @@ def dopri5_step_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3, b3,
     bf16 = precision == "bf16"
     kind, ctas = (_BF16_K5, VJP_CTAS) if bf16 else (_K5, STEP_CTAS)
     num_ctas = min(ctas, -(-N // lib.ananke_dopri5_tile_rows(nb, kind)))
-    partial = torch.empty((num_ctas,), dtype=torch.float32, device=dev)
+    # the CTAs' error sums; at float32 then the step state's scratch
+    size = num_ctas if bf16 else num_ctas + 32 + num_ctas * (
+        lib.ananke_dopri5_scratch_floats(nb, kind))
+    partial = torch.empty((size,), dtype=torch.float32, device=dev)
     rtol, atol = (F(v) for v in err_stats) if err_stats else (F(0), F(0))
     ze_p, zeT, *w = _packed("dopri5_step_fused", packed, ze,
                             (Wq, W1xc, W1h, blocks, W3, b3), precision)

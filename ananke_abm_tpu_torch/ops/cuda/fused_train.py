@@ -53,9 +53,10 @@ from ananke_abm_tpu_torch.ops.cuda.fused_step import (
     stage_vjp_math,
 )
 
-# CTAs of the cross-entropy's backward, each summing its tiles into its own
-# slab (2 per SM: its tile's shared memory is small). A constant, so the
-# sums' order depends on the row count alone.
+# CTAs offered to the cross-entropy's backward, each summing its tiles into
+# its own slab: two an SM (the C interface's count, which an A/B against a
+# build of two CTAs an SM keeps); its library runs on at most NUM_SLABS of
+# them. A constant, so the sums' order depends on the row count alone.
 CE_SLABS = 2 * NUM_SLABS
 
 

@@ -236,27 +236,32 @@ per-launch times of K1 and K0 at the rung-1 operands, in the order DIR...,
 this, this, ...DIR.
 ``python3 chip_smoke.py --ab-train DIR [DIR ...]`` builds only the day
 kernels' libraries (``fused_step.cu``, which holds K2f, and
-``fused_train.cu``, which holds K2b), each DIR's beside them, then prints
-ptxas's registers and spills of every build, the bits of K2f's xs and
-K2b's ten outputs at DAY_SHAPES (the first: the rung-2 operands of phase
-13a) and DEPTH_SHAPES against this checkout, and the per-launch times of
-K2f and K2b at the rung-2 operands in the order DIR..., this, this,
-...DIR, with K2b's tile rows, tiles and CTAs per build. A DIR written
-``DIR+PROBE`` is a copy of DIR's kernel sources with PROBE's
-substitutions (PROBES: products, B loads, slab traffic or ``expf`` /
-``tanhf`` taken out; K2b's tile at 4 warps; K2f's CTAs at 4 warps),
-built under ``build/chip_smoke/variants/``: its results are wrong by
-design and only timed.
+``fused_train.cu``, which holds K2b and the decode CE pair K3f / K3b),
+each DIR's beside them, then prints ptxas's registers and spills of every
+build, the bits of K2f's xs, K2b's ten outputs, K3f's nll and flags and
+K3b's three outputs at DAY_SHAPES (the first: the rung-2 operands of
+phases 10 and 13a) and DEPTH_SHAPES against this checkout, and the
+per-launch times of K2f, K2b, K3f and K3b at the rung-2 operands in the
+order DIR..., this, this, ...DIR, with K2b's tile rows, tiles and CTAs per
+build. A DIR written ``DIR+PROBE`` is a copy of DIR's kernel sources with
+PROBE's substitutions (PROBES: products, B loads, slab traffic or
+``expf`` / ``tanhf`` taken out, K3b's among them; K2b's tile at 4 warps;
+K2f's CTAs at 4 warps; for ``--ab-dopri5`` K5's float32 products as adds,
+its weights uncopied, one barrier a weight chunk), built under
+``build/chip_smoke/variants/``: its results are wrong by design and only
+timed.
 ``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` runs phases 1-2 and then
 compares K8 of this checkout with K8 built from each checkout at DIR:
 ptxas and SASS counts of each build, bits at K8_SHAPES and alternating
 per-launch times. ``python3 chip_smoke.py --ab-dopri5 DIR [DIR ...]``
-does the same for the step VJP K7 (float32 and bf16) and the whole
-backward K6 (bf16 and float32 bodies): each DIR's ``fused_dopri5.cu``
-compiles beside phase 2, then ptxas's registers and spills of both
-builds, the bits at DOPRI5_SHAPES, and the per-launch times of K6 on the
-recording of one rung-3 step at its own settings and of K7 at phase 19's
-shape, in the order DIR..., this, this, ...DIR.
+does the same for the step K5 (float32 and bf16), the step VJP K7
+(float32 and bf16) and the whole backward K6 (bf16 and float32 bodies):
+each DIR's ``fused_dopri5.cu`` (``DIR+PROBE`` a probe variant, as for
+``--ab-train``) compiles beside phase 2, then ptxas's registers and
+spills of both builds, the bits at DOPRI5_SHAPES, and the per-launch
+times of K5 (with the controller's error sum) and K7 at phase 19's shape
+(rung 3's) and of K6 on the recording of one rung-3 step at its own
+settings, in the order DIR..., this, this, ...DIR.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``{"kernels": [...]}`` (for every kernel its launches on the main path,
@@ -264,10 +269,14 @@ largest difference from its plain version, times, and ``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and its operations over
 the peak of their type: for the bf16 kernels (K6 and K7-bf16 among them)
 their matmul operations over 989 TFLOP/s, the H100's dense bf16 peak; for
-the float32 encoder, DOPRI5 step and CSR edge kernels their operations over
-67 TFLOP/s, its FP32 peak outside the tensor cores; K0, K8a and K5-bf16
-their stage products at the bf16 peak, K9e its bytes), eighteen entries,
-the line before that the card's name and power limit.
+the float32 encoder, step VJP and CSR edge kernels their operations over
+67 TFLOP/s, its FP32 peak outside the tensor cores; for K5 at float32,
+whose products run in 3xTF32 on the tensor cores, three times its
+products over 495 TFLOP/s, the dense TF32 peak, plus its elementwise
+operations over the FP32 peak (k5_tf32_flops; phase 23 prints its FP32
+bound beside it); K0, K8a and K5-bf16 their stage products at the bf16
+peak, K9e its bytes), eighteen entries, the line before that the card's
+name and power limit.
 """
 from __future__ import annotations
 
@@ -423,6 +432,7 @@ def graph_ms(fn, reps):
 # the H100 SXM's published peaks (700 W): dense bf16 tensor-core rate, FP32
 # rate outside the tensor cores and device-memory rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -543,8 +553,9 @@ def main():
     parser.add_argument("--ab-k8", metavar="DIR", nargs="+",
                         help="time K8 against K8 of the checkouts at DIR")
     parser.add_argument("--ab-dopri5", metavar="DIR", nargs="+",
-                        help="compare and time K6 and K7 against those of "
-                        "the checkouts at DIR")
+                        help="compare and time K5, K6 and K7 against those "
+                        "of the checkouts at DIR (DIR+PROBE: a probe "
+                        "variant of DIR's sources)")
     parser.add_argument("--ab-step", metavar="DIR", nargs="+",
                         help="compare and time K1 and K0 against those of "
                         "the checkouts at DIR")
@@ -598,7 +609,7 @@ def main():
     t0 = time.perf_counter()
     # the other checkouts' DOPRI5 or serving kernels compile beside this
     # one's; an A/B of the serving kernels builds only their library
-    others = [start_build(Path(d).resolve(), f"other{i}", "fused_dopri5")
+    others = [start_build(ab_checkout(d)[1], f"other{i}", "fused_dopri5")
               for i, d in enumerate(args.ab_dopri5 or ())]
     others += [start_build(Path(d).resolve(), f"other{i}", "fused_step")
                for i, d in enumerate(args.ab_step or ())]
@@ -1468,15 +1479,18 @@ def ab_k8(dev, others):
 
 
 def ab_dopri5(dev, this_log, handles):
-    """``--ab-dopri5 DIR [DIR ...]``: the step VJP K7 (float32 and bf16) and
-    the whole backward K6 (bf16 and float32 bodies) of this checkout
-    against those of each checkout at DIR (its ``csrc/fused_dopri5.cu`` and
-    headers, built with the port's flags and C interface; ``handles`` from
-    :func:`start_build`, started before phase 2): ptxas's registers and
-    spills per kernel, the bits at every shape of DOPRI5_SHAPES, then the
-    per-launch times at the main path's operands (K6 on the recording of a
-    rung-3 step at its own settings, K7 at phase 19's shape) in the order
-    DIR..., this, this, ...DIR."""
+    """``--ab-dopri5 DIR [DIR ...]``: the step K5 (float32 and bf16), the
+    step VJP K7 (float32 and bf16) and the whole backward K6 (bf16 and
+    float32 bodies) of this checkout against those of each checkout at DIR
+    (``DIR+PROBE`` a probe variant, :data:`PROBES`; its
+    ``csrc/fused_dopri5.cu`` and headers, built with the port's flags and C
+    interface; ``handles`` from :func:`start_build`, started before phase
+    2): ptxas's registers and spills per kernel, the bits at every shape of
+    DOPRI5_SHAPES, then the per-launch times at the main path's operands
+    (K6 on the recording of a rung-3 step at its own settings; K5 and K7 at
+    phase 19's shape, which is rung 3's: 98,304 agents, Z = 64, 2 blocks;
+    K5 with the error sum the controller reads) in the order DIR..., this,
+    this, ...DIR."""
     from ananke_abm_tpu_torch.models.gnn_embed.train import (
         GATODEConfig,
         build_model,
@@ -1488,6 +1502,7 @@ def ab_dopri5(dev, this_log, handles):
         K6_RECORD,
         dopri5_backward_operands,
         dopri5_operands,
+        dopri5_step_outputs,
         dopri5_vjp_outputs,
     )
 
@@ -1504,12 +1519,15 @@ def ab_dopri5(dev, this_log, handles):
             return fn(*a, **kw)
 
     vjp, bwd = fd.dopri5_step_vjp_fused, fd.dopri5_backward_fused
+    step = fd.dopri5_step_fused
     with torch.no_grad():
         for n, z, nb in DOPRI5_SHAPES:
             model = build_model(GATODEConfig(num_blocks=nb), 7, 8, device=dev)
             init_params(model, torch.Generator().manual_seed(nb))
             args, cot = dopri5_operands(model, n, z, dev, seed=n)
-            cases = [("K7 f32", vjp, args + cot, "f32"),
+            cases = [("K5 f32", step, args, "f32"),
+                     ("K5 bf16", step, args, "bf16"),
+                     ("K7 f32", vjp, args + cot, "f32"),
                      ("K7 bf16", vjp, args + cot, "bf16")]
             for dt in (torch.bfloat16, torch.float32):
                 bargs = dopri5_backward_operands(model, n, z, dev, n,
@@ -1517,7 +1535,9 @@ def ab_dopri5(dev, this_log, handles):
                 cases += [(f"K6 {p} checkpoints {str(dt)[6:]}", bwd, bargs, p)
                           for p in ("bf16", "f32")]
             for label, fn, a, prec in cases:
-                out = {w: dopri5_vjp_outputs(run(w, fn, *a, precision=prec))
+                outputs = (dopri5_step_outputs if fn is step
+                           else dopri5_vjp_outputs)
+                out = {w: outputs(run(w, fn, *a, precision=prec))
                        for w in libs}
                 for w in others:
                     x, y = out["this"], out[w]
@@ -1534,7 +1554,12 @@ def ab_dopri5(dev, this_log, handles):
           for p in ("f32", "bf16")}
     kpk = {p: fd.pack_operands(a[3], *a[11:], precision=p)
            for p in ("f32", "bf16")}
-    timed = [(f"K6 bf16 on rung 3's recording ({n_acc} steps)", bwd, a,
+    err_stats = {"err_stats": (1e-5, 1e-5)}
+    timed = [("K5 f32 at phase 19's shape", step, args, "f32", pk, 5,
+              err_stats),
+             ("K5 bf16 at rung 3's shape", step, args, "bf16", pk, 5,
+              err_stats),
+             (f"K6 bf16 on rung 3's recording ({n_acc} steps)", bwd, a,
               "bf16", kpk, 2),
              (f"K6 f32 on rung 3's recording ({n_acc} steps)", bwd, a, "f32",
               kpk, 2),
@@ -1543,24 +1568,28 @@ def ab_dopri5(dev, this_log, handles):
     card = card_line()
     order = others + ["this", "this"] + others[::-1]
     with torch.no_grad():
-        for label, fn, fa, prec, packs, reps in timed:
+        for label, fn, fa, prec, packs, reps, *kw in timed:
+            kw = kw[0] if kw else {}
             times = {w: [] for w in libs}
             for w in order:
                 times[w].append(cuda_ms(lambda: run(
-                    w, fn, *fa, precision=prec, packed=packs[prec]), reps))
+                    w, fn, *fa, precision=prec, packed=packs[prec], **kw),
+                    reps))
             print(f"{label} (N={ADAPT_N}, Z={ADAPT_ZONES}) A/B: "
                   + "; ".join(f"{w} {', '.join(f'{m:.3f}' for m in t)}"
                               for w, t in times.items())
                   + f" ms per launch [card {card}]", flush=True)
 
 
-# Probes of ``--ab-train``: a DIR written ``DIR+NAME`` is DIR's
-# ``ananke_abm_tpu_torch/csrc`` with NAME's substitutions (file, regular
-# expression, replacement; each must match), built under
-# ``OUT/variants/``. Each takes one cost out of the day kernels (of the
-# stage code on csrc/drift_stage.cuh, K2b before it moved to
-# stage_sm90.cuh, unless named); the results are wrong by design and only
-# timed.
+# Probes of ``--ab-train`` and ``--ab-dopri5``: a DIR written ``DIR+NAME``
+# is DIR's ``ananke_abm_tpu_torch/csrc`` with NAME's substitutions (file,
+# regular expression, replacement; each must match), built under
+# ``OUT/variants/``. Each takes one cost out of the day kernels and the
+# decode CE pair (of the stage code on csrc/drift_stage.cuh, K2b before it
+# moved to stage_sm90.cuh, unless named) or out of the float32 DOPRI5 step
+# K5 (``nofma``, ``constw``, ``onebar`` and ``nomath``: fused_dopri5.cu's
+# ``mm``, K5's products before its redesign, which K7's and K6's float32
+# body share); the results are wrong by design and only timed.
 PROBES = {
     # no products: each mma.sync becomes one add that keeps its operands
     # (and the loads behind them) live
@@ -1591,7 +1620,37 @@ PROBES = {
                 "probe_id(float x) { return x; }"),
                ("drift_stage.cuh", r"\b(expf|tanhf)\(", "probe_id("),
                ("stage_sm90.cuh", r"\b(expf|tanhf)\(", "probe_id("),
-               ("fused_train.cu", r"\b(expf|tanhf)\(", "probe_id(")],
+               ("fused_train.cu", r"\b(expf|tanhf)\(", "probe_id("),
+               ("fused_dopri5.cu", r"\b(expf|tanhf)\(",
+                "ananke::probe_id(")],
+    # fused_dopri5.cu's float32 products: each fmaf of mm one add that
+    # keeps both operands live
+    "nofma": [("fused_dopri5.cu",
+               r"acc\[i\]\[j\] = fmaf\(comp\(a\[i\], q\), b\[j\], "
+               r"acc\[i\]\[j\]\);",
+               "acc[i][j] += __uint_as_float((__float_as_uint(comp(a[i], q))"
+               " ^ __float_as_uint(b[j])) & 0x007fffffu);")],
+    # mm's weights from whatever the staging buffer holds: no cp.async copy
+    # from L2
+    "constw": [("fused_dopri5.cu",
+                r"cp_async16\(dst \+ e, W \+ \(size_t\)\(c \* KC \+ kk\) "
+                r"\* ldw \+ n\);", "(void)kk; (void)n;")],
+    # K5's 3xTF32 products (its redesign): each mma.sync one add that keeps
+    # its operands live
+    "nomma": [("fused_dopri5.cu",
+               r"(?s)asm\(\"mma\.sync\.aligned\.m16n8k8\.row\.col\.f32\.tf32.*?"
+               r"\"r\"\(b1\)\);",
+               "d[0] += __uint_as_float((a[0] ^ a[3] ^ b0 ^ b1) & "
+               "0x007fffffu);")],
+    # K5's weight ring without its cp.async copies
+    "nocopy": [("fused_dopri5.cu",
+                r"cp_async16\(dst \+ r \* ds \+ 4 \* k, src \+ \(size_t\)r \* "
+                r"ss \+ 4 \* k\);", "(void)src;")],
+    # mm with one block barrier a weight chunk where it takes two (the
+    # barrier before the epilogue kept): races by design
+    "onebar": [("fused_dopri5.cu",
+                r"__syncthreads\(\);\n  \}\n  ep\(acc\);",
+                "}\n  __syncthreads();\n  ep(acc);")],
     # K2b's tile at 4 warps (64 rows) where it takes 6
     "w4": [("fused_train.cu", r"return nb <= 2 \? 6 : nb <= 5 \? 4 : 2;",
             "return nb <= 5 ? 4 : 2;")],
@@ -1629,16 +1688,18 @@ def ab_checkout(arg):
 
 
 def ab_train(dev, built, handles):
-    """``--ab-train DIR [DIR ...]``: the day kernels K2f and K2b of this
-    checkout against those of each checkout at DIR (``DIR+PROBE`` a probe
-    variant, :data:`PROBES`; its ``fused_train.cu`` and ``fused_step.cu``
-    and headers, built with the port's flags and C interface; ``handles``
-    from :func:`start_build`, started before phase 2, two a DIR): ptxas's
-    registers and spills per kernel, the bits of K2f's xs and K2b's ten
-    outputs at every shape of DAY_SHAPES and DEPTH_SHAPES (the first of
-    DAY_SHAPES: the rung-2 operands of phase 13a), then per-launch times of
-    K2f and K2b at the rung-2 operands in the order DIR..., this, this,
-    ...DIR, each beside K2b's tile rows, tiles and CTAs."""
+    """``--ab-train DIR [DIR ...]``: the day kernels K2f and K2b and the
+    decode CE pair K3f and K3b of this checkout against those of each
+    checkout at DIR (``DIR+PROBE`` a probe variant, :data:`PROBES`; its
+    ``fused_train.cu`` and ``fused_step.cu`` and headers, built with the
+    port's flags and C interface; ``handles`` from :func:`start_build`,
+    started before phase 2, two a DIR): ptxas's registers and spills per
+    kernel, the bits of K2f's xs, K2b's ten outputs, K3f's nll and correct
+    flags and K3b's three outputs at every shape of DAY_SHAPES and
+    DEPTH_SHAPES (the first of DAY_SHAPES: the rung-2 operands of phases
+    10 and 13a), then per-launch times of the four at the rung-2 operands
+    in the order DIR..., this, this, ...DIR, beside K2b's tile rows, tiles
+    and CTAs."""
     import ctypes
 
     from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
@@ -1669,28 +1730,50 @@ def ab_train(dev, built, handles):
                 library_of("fused_train", libs[which]["fused_train"]):
             return fn(*args)
 
+    def max_d(a, b):
+        return max((u - v).abs().max().item() for (_, u), (_, v) in zip(a, b))
+
     main = None
     with torch.inference_mode():
         for n, z, nb, num_times in DAY_SHAPES + DEPTH_SHAPES:
-            _, fargs, g = training_operands(dev, n, z, nb, num_times, 0)
+            model, fargs, g = training_operands(dev, n, z, nb, num_times, 0)
             xs_ref = ft.day_forward_reference(*fargs)
             gxs = torch.randn(xs_ref.shape, device=dev, generator=g)
             bargs = (xs_ref, gxs, *fargs[1:])
-            main = main or (fargs, bargs)
+            # the decode CE pair on the day's carries, as phase 10 builds
+            # its operands
+            rows = xs_ref[::SUBSTEPS].transpose(0, 1).reshape(
+                -1, model.agent_dim).contiguous()
+            tgt = torch.randint(0, z, (rows.shape[0],), device=dev,
+                                generator=g, dtype=torch.int32)
+            cargs = (rows, tgt, model.decode_proj.weight.T.bfloat16(),
+                     fargs[2])
+            gnll = torch.rand(rows.shape[0], device=dev, generator=g) / (
+                rows.shape[0])
+            bcargs = (*cargs, gnll)
+            main = main or (fargs, bargs, cargs, bcargs)
             xs = {w: run(w, ft.day_forward_fused, fargs) for w in libs}
             gr = {w: day_bwd_outputs(run(w, ft.day_backward_fused, bargs))
                   for w in libs}
+            cf = {w: list(zip(("nll", "correct"),
+                              run(w, ft.ce_forward_fused, cargs)))
+                  for w in libs}
+            cb = {w: list(zip(("gx", "gWd", "gze"),
+                              run(w, ft.ce_backward_fused, bcargs)))
+                  for w in libs}
             torch.cuda.synchronize()
             for w in others:
-                bwd_d = max((u - v).abs().max().item()
-                            for (_, u), (_, v) in zip(gr["this"], gr[w]))
                 print(f"K2f / K2b A/B N={n} Z={z} num_blocks={nb} "
                       f"T={num_times}: this against {w}: K2f xs same bits "
                       f"{torch.equal(xs['this'], xs[w])} (max |d| "
                       f"{(xs['this'] - xs[w]).abs().max().item():.3e}); K2b "
                       f"same bits {same_bits(gr['this'], gr[w])} (max |d| "
-                      f"{bwd_d:.3e})", flush=True)
-            del xs, gr
+                      f"{max_d(gr['this'], gr[w]):.3e}); K3f same bits "
+                      f"{same_bits(cf['this'], cf[w])} (max |d| "
+                      f"{max_d(cf['this'][:1], cf[w][:1]):.3e}); K3b same "
+                      f"bits {same_bits(cb['this'], cb[w])} (max |d| "
+                      f"{max_d(cb['this'], cb[w]):.3e})", flush=True)
+            del xs, gr, cf, cb
     card = card_line()
     order = others + ["this", "this"] + others[::-1]
     n, z, nb, num_times = DAY_SHAPES[0]
@@ -1698,7 +1781,11 @@ def ab_train(dev, built, handles):
         for label, fn, args, reps in (("K2f", ft.day_forward_fused,
                                        main[0], 5),
                                       ("K2b", ft.day_backward_fused,
-                                       main[1], 3)):
+                                       main[1], 3),
+                                      ("K3f", ft.ce_forward_fused,
+                                       main[2], 10),
+                                      ("K3b", ft.ce_backward_fused,
+                                       main[3], 10)):
             times = {w: [] for w in libs}
             for w in order:
                 times[w].append(cuda_ms(lambda: run(w, fn, args), reps))
@@ -2378,6 +2465,7 @@ def dopri5_kernel_checks(dev, n, z, nb, seed, control, enforce=True,
         dopri5_vjp_outputs,
         float64_operands,
         tf32_products,
+        tf32x3_products,
     )
 
     model = build_model(GATODEConfig(num_blocks=nb), 7, 8, device=dev)
@@ -2426,10 +2514,15 @@ def dopri5_kernel_checks(dev, n, z, nb, seed, control, enforce=True,
                 plain = getattr(fd, f"{fn}_reference")
                 fargs = args if label == "K5" else args + cot
                 exact = outs(plain(*wargs))
+                sides = [("kernel", kernel), ("plain", plain),
+                         ("control", lambda *a: tf32_products(plain, *a))]
+                if label == "K5":
+                    # the plain version in K5's 3xTF32 arithmetic: the
+                    # kernel's rounding class in the plain version's order
+                    sides.append(("3xTF32 plain",
+                                  lambda *a: tf32x3_products(plain, *a)))
                 far = {side: worst_of(outs(f(*fargs)), exact)[0]
-                       for side, f in (
-                           ("kernel", kernel), ("plain", plain),
-                           ("control", lambda *a: tf32_products(plain, *a)))}
+                       for side, f in sides}
                 print(f"{label} {tag} against the float64 witness: "
                       + "; ".join(f"{side} {describe_far(w)}"
                                   for side, w in far.items()), flush=True)
@@ -2469,6 +2562,30 @@ def dopri5_flops(config, num_zones):
     hrow = 2 * config.context_dim * config.hidden_dim
     return (6 * (fwd - hrow) + hrow,
             6 * (fwd - hrow) + 6 * (bwd - 2 * hrow) + 3 * hrow)
+
+
+def k5_elementwise(config, num_zones):
+    """K5's operations per agent outside its products, each activation one
+    operation: per stage Dense_0's bias and tanh, each block's two biases,
+    residual add and two tanh, the attention's scale, clamp, exp and sum
+    per zone and its normalisation, W3's bias; the tableau's combinations
+    and the error's scaled square."""
+    h, da = config.hidden_dim, config.agent_dim
+    stage = (2 * h + 5 * h * config.num_blocks + 4 * num_zones
+             + config.zone_dim + da)
+    return 6 * stage + 2 * (21 + 6 + 7 + 5 + 7) * da
+
+
+def k5_tf32_flops(config, num_zones):
+    """K5's operations per agent as its route takes them, in TF32
+    tensor-core operations: its products three times (3xTF32: each operand
+    a TF32 part and its TF32 remainder), plus its elementwise operations
+    scaled by the TF32 peak over the FP32 one; over PEAK_TF32_FLOPS the
+    least time of its route."""
+    products = dopri5_flops(config, num_zones)[0]
+    return (3 * products
+            + k5_elementwise(config, num_zones) * PEAK_TF32_FLOPS
+            / PEAK_FP32_FLOPS)
 
 
 def folded_stats(build):
@@ -2729,11 +2846,20 @@ def dopri5_phases(dev, card, continuous_wall):
               f"FP32 {by} bound {b:.3f} ms), plain version {p:.3f} ms "
               f"({f / p / 1e9:.1f} TFLOP/s) of {f / 1e9:.1f} GFLOP "
               f"[card {card}]", flush=True)
-    return [kernel_entry(name, "fused_dopri5.cu", src, n_, e, m, p, f, nb_,
-                         PEAK_FP32_FLOPS)
-            for name, src, n_, e, m, p, f, nb_ in zip(
-                names, ("fused_dopri5.py:104", "fused_dopri5.py:254"),
-                launches, errs, ms, plain_ms, flops, nbytes)], min(walls[1:])
+    # K5 takes its products in 3xTF32 on the tensor cores: its bound is
+    # its route's (k5_tf32_flops at the TF32 peak), the FP32 one beside it
+    f5 = k5_tf32_flops(config, ADAPT_ZONES) * ADAPT_N
+    b, by = bound(f5, nbytes[0], PEAK_TF32_FLOPS)
+    print(f"dopri5_step_fused's 3xTF32 bound: {b:.3f} ms ({by}; "
+          f"{b / ms[0]:.1%} of it), against the FP32 bound "
+          f"{bound(flops[0], nbytes[0], PEAK_FP32_FLOPS)[0]:.3f} ms "
+          f"[card {card}]", flush=True)
+    return [kernel_entry(names[0], "fused_dopri5.cu", "fused_dopri5.py:104",
+                         launches[0], errs[0], ms[0], plain_ms[0], f5,
+                         nbytes[0], PEAK_TF32_FLOPS),
+            kernel_entry(names[1], "fused_dopri5.cu", "fused_dopri5.py:254",
+                         launches[1], errs[1], ms[1], plain_ms[1], flops[1],
+                         nbytes[1], PEAK_FP32_FLOPS)], min(walls[1:])
 
 
 # ---- the whole discrete-adjoint backward K6 and K7's bf16 branch ----------

@@ -162,3 +162,24 @@ def test_edge_operands_and_the_bf16_feature_control(kind, z, heads, d):
         ctl, _ = es.gat_edge_csr_forward_reference(
             checks.bf16_features(wh), er, esd, lay)
     assert _far(ctl, out) > 10 * checks.EDGE_FWD_BOUNDS[0]
+
+
+def test_split_tf32_rebuilds_float32_and_its_product_is_float32_class():
+    """K5's operand split: both parts are TF32 values (13 low mantissa bits
+    clear) that rebuild x within 2^-21 |x|; its three-term product lies as
+    near a float64 product as float32 does, a TF32 product ~1000x farther."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4096, generator=g) * torch.exp(
+        8 * torch.randn(4096, generator=g))
+    hi, lo = checks.split_tf32(x)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert ((hi.double() + lo.double() - x.double()).abs()
+            <= 2.0 ** -21 * x.double().abs()).all()
+    a = torch.randn(64, 128, generator=g)
+    b = torch.randn(128, 96, generator=g)
+    exact = a.double() @ b.double()
+    far = lambda u: _far(u, exact)
+    f32 = far(a @ b)
+    assert far(checks.tf32x3_dot(a, b)) <= 4 * f32
+    assert far(checks.round_tf32(a) @ checks.round_tf32(b)) >= 100 * f32

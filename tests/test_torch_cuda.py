@@ -477,6 +477,32 @@ def test_ce_kernels_match_plain_versions(cuda, m, num_zones):
     _assert_close(got, want, CE_BOUNDS)
 
 
+@pytest.mark.parametrize("m,num_zones", [(20_000, 500), (3_000, 700)])
+def test_ce_backward_inside_and_past_its_resident_zones(cuda, m, num_zones):
+    """K3b keeps gze in shared memory for as many zones as fit beside its
+    tiles (576) and sends the zones past them to its slab box by box: at
+    rung 2's Z = 500 and at Z = 700 within CE_BOUNDS of its plain version,
+    the same bits on a repeat, the bf16-product control outside."""
+    model = _model(cuda, 1)
+    g = torch.Generator(device=cuda).manual_seed(m)
+    rows = torch.randn(m, 32, device=cuda, generator=g)
+    tgt = torch.randint(0, num_zones, (m,), device=cuda, generator=g,
+                        dtype=torch.int32)
+    ze = torch.randn(num_zones, 64, device=cuda, generator=g).bfloat16()
+    wd = model.decode_proj.weight.T.detach().bfloat16()
+    gnll = torch.rand(m, device=cuda, generator=g) / m
+    args = (rows, tgt, wd, ze, gnll)
+    with torch.inference_mode():
+        got = ft.ce_backward_fused(*args)
+        again = ft.ce_backward_fused(*args)
+        torch.cuda.synchronize()
+        want = ft.ce_backward_reference(*args)
+        control = bf16_control(ft.ce_backward_reference, *args)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    _assert_close(got, want, CE_BOUNDS)
+    assert not _within(control, want, CE_BOUNDS)
+
+
 def test_training_kernels_reject_widths_they_are_not_compiled_for(cuda):
     config = GATODEConfig(hidden_dim=64)
     model = build_model(config, 7, 8, device=cuda)
@@ -663,6 +689,43 @@ def test_dopri5_kernels_match_plain_versions(cuda, n, num_zones, num_blocks):
         want = dopri5_vjp_outputs(fd.dopri5_step_vjp_reference(*args, *cot))
     assert all(torch.equal(u, v) for (_, u), (_, v) in zip(got, again))
     assert all(w <= b for w, b in zip(_worst(got, want), DOPRI5_VJP_BOUNDS))
+
+
+@pytest.mark.parametrize("n,num_zones,num_blocks", [
+    (3_001, 45, 1), (1_000, 77, 8),
+])
+def test_dopri5_step_kernel_at_ragged_zone_boxes(cuda, n, num_zones,
+                                                  num_blocks):
+    """K5 at float32 (3xTF32 products, its weights through a ring of boxes
+    of 32 zones) where no box is full at the end and no tile of 128 rows
+    at the last, at 1 and 8 blocks: within DOPRI5_STEP_BOUNDS of its plain
+    version with and without the error sum, the same bits on a repeat, the
+    TF32-product control outside."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        DOPRI5_STEP_BOUNDS,
+        dopri5_step_outputs,
+        tf32_products,
+    )
+
+    args, _ = _dopri5_args(cuda, n, num_zones, num_blocks)
+    with torch.no_grad():
+        for stats in (None, (1e-5, 1e-5)):
+            got = dopri5_step_outputs(fd.dopri5_step_fused(*args,
+                                                           err_stats=stats))
+            again = dopri5_step_outputs(fd.dopri5_step_fused(
+                *args, err_stats=stats))
+            want = dopri5_step_outputs(fd.dopri5_step_reference(
+                *args, err_stats=stats))
+            control = dopri5_step_outputs(tf32_products(
+                lambda *a: fd.dopri5_step_reference(*a, err_stats=stats),
+                *args))
+            assert all(torch.equal(u, v) for (_, u), (_, v) in
+                       zip(got, again))
+            assert all(w <= b for w, b in zip(_worst(got, want),
+                                              DOPRI5_STEP_BOUNDS))
+            assert not all(w <= b for w, b in zip(_worst(control, want),
+                                                  DOPRI5_STEP_BOUNDS))
 
 
 def test_dopri5_kernels_against_a_float64_witness(cuda):

@@ -8,14 +8,21 @@ Bounds are those of the JAX package's own tests of the same functions
 ``test_trainer_discrete_mode_matches_continuous``):
 
 - the recorded step sequence: the same accepted count and the same step
-  filling each row; start times and step sizes within rtol 1e-3 / atol
-  1e-4 (the last step, cut to end at the last time, is short). The two
-  controllers run the same float32 arithmetic, but the embedded error is a
-  difference of nearly equal sums, and the two frameworks' float32 drifts
-  (tanh, sin, sums in other orders) move it by ~1e-4 relative; each step
-  size carries that through err^(-1/5). The first step is given (0.3):
-  HINIT's first step is so short that its error sits at float32 rounding,
-  where the two packages' step sizes differ by 20%;
+  filling each row; start times and the steps the controller chose
+  (``rec_h[:n-1]``) within rtol 1e-3 / atol 1e-4. The two controllers run
+  the same float32 arithmetic, but the embedded error is a difference of
+  nearly equal sums, and the two frameworks' float32 drifts (tanh, sin,
+  sums in other orders) move it by ~1e-4 relative; each step size carries
+  that through err^(-1/5). The first step is given (0.3): HINIT's first
+  step is so short that its error sits at float32 rounding, where the two
+  packages' step sizes differ by 20%;
+- the last accepted step is the cut one, ``ts[-1] - rec_t0[n-1]`` in
+  float32, exactly, in each package (both take ``min(h, t_end - t)``). Its
+  value is held through ``rec_t0``'s bound: a cut step is a function of its
+  start, and at rtol 1e-6 a one-ulp change of the drift's tanh moves it by
+  up to 4.4e-4, past a bound of its own (1.5e-4 at its size);
+- the checkpoints within rtol 1e-4 / atol 1e-6, JAX's carried to the
+  port's step start (the same time difference moves the state by ~7e-5);
 - values equal ``dopri5_solve``'s exactly (the same solve);
 - gradients at rtol 2e-3 / atol 2e-5 against the JAX discrete adjoint;
 - the trainer: loss within 2e-4 relative and gradient cosine > 0.999;
@@ -77,13 +84,28 @@ def test_recorded_step_sequence_matches_jax():
                             (torch.from_numpy(W), torch.from_numpy(b)), **kw)
     n = int(jst["n_accepted"])
     assert tst["n_accepted"] == n and tst["ok"] and n > 3
-    for key in ("rec_t0", "rec_h"):
-        np.testing.assert_allclose(tst[key], np.asarray(jst[key]),
-                                   rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(tst["rec_t0"], np.asarray(jst["rec_t0"]),
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(tst["rec_h"][:n - 1],
+                               np.asarray(jst["rec_h"])[:n - 1],
+                               rtol=1e-3, atol=1e-4)
+    for t0, h in ((tst["rec_t0"], tst["rec_h"]),
+                  (np.asarray(jst["rec_t0"]), np.asarray(jst["rec_h"]))):
+        assert h[n - 1] == np.float32(ts[-1]) - t0[n - 1]
     np.testing.assert_array_equal(tst["out_step"], np.asarray(jst["out_step"]))
     assert tuple(tst["ckpts"].shape) == (16, 2, D)
-    np.testing.assert_allclose(tst["ckpts"].numpy(), np.asarray(jst["ckpts"]),
-                               rtol=1e-4, atol=1e-6)
+    # a checkpoint is the state at its step's start, which the two packages
+    # put up to rec_t0's bound apart: JAX's is carried to the port's start
+    # by one Euler step of the drift (the rest is O(|f'| dt^2) < 1e-7)
+    rows = np.arange(0, n, rec["ckpt_every"])
+    dt = (tst["rec_t0"][rows].astype(np.float64)
+          - np.asarray(jst["rec_t0"])[rows])
+    jc = np.asarray(jst["ckpts"]).astype(np.float64)
+    jt0 = np.asarray(jst["rec_t0"])[rows].astype(np.float64)
+    drift = (np.tanh(jc[:len(rows)] @ W + b) - 0.1 * jc[:len(rows)]
+             + 0.05 * np.sin(jt0)[:, None, None])
+    jc[:len(rows)] += drift * dt[:, None, None]
+    np.testing.assert_allclose(tst["ckpts"].numpy(), jc, rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(tys.numpy(), np.asarray(jys), rtol=1e-4,
                                atol=1e-6)
 
