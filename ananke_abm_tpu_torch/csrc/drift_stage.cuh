@@ -1,27 +1,25 @@
-// One GAT-ODE drift evaluation ("stage") and its VJP as device functions
-// for a tile of 16 W agent rows (W warps), shared by the adjoint RHS
-// kernels (fused_rhs.cu: K8, one stage and its VJP per launch; K8a, the
-// stage alone) and K5's bf16 branch (fused_dopri5.cu). The Hopper stage of
-// stage_sm90.cuh keeps this math with its weights in a shared ring.
+// One GAT-ODE drift evaluation ("stage") as a device function for a warp's
+// 16 agent rows of a tile of W warps, for K5's bf16 branch
+// (fused_dopri5.cu), and the helpers that the Hopper stage and its VJP
+// (stage_sm90.cuh: K2b, K6's bf16 body, K7-bf16, K8) and the decode CE
+// kernels share: fragment loads and stores, the slab layout of the summed
+// gradients, the column sums and the slab reduction.
 //
-// The math is the reference's stage (_stage_math / _stage_vjp_math in
+// The math is the reference's stage (_stage_math in
 // ananke_abm_tpu/ops/pallas/fused_step.py) with every bf16 rounding point:
 // bf16 operands, f32 sums, a max-free softmax clamped at 80 and normalised
-// after the context product.
+// after the context product. stage_sm90.cuh keeps it, rounding point for
+// rounding point, with its weights in a ring shared by the CTA's warps.
 //
 // - Per-row products run on mma.sync m16n8k16, activations in registers
 //   from one product into the next, B fragments read from weights in device
-//   memory (L2-resident). Each weight comes in two layouts: (out, in) rows
-//   for the forward products, (in, out) rows for the backward ones.
-// - What the VJP needs of the forward lives in shared memory per tile:
-//   feats = [bf16(x), bf16(ctx)], bf16(q), and the chain of block inputs
-//   bf16(z). A block's inner activation is recomputed from its input.
-// - The attention is recomputed by 16-zone chunks in the VJP (one pass for
-//   sum(attn * gattn), one for ds): no Z-wide row is stored, any zone count.
-// - Weight gradients are agent contractions A^T B of per-row intermediates
-//   in shared memory, loaded with ldmatrix.trans (the agent axis is mma's
-//   k), added into the CTA's own slab in device memory with plain loads and
-//   stores: no atomics, so the same operands give the same bits.
+//   memory (L2-resident), (out, in) rows.
+// - The forward's intermediates go to shared memory per tile (feats =
+//   [bf16(x), bf16(ctx)], bf16(q), the chain of block inputs bf16(z)), as a
+//   VJP of the stage would read them.
+// - Summed gradients go into a CTA's own slab in device memory with plain
+//   loads and stores, then the slabs are summed in CTA order: no atomics,
+//   so the same operands give the same bits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -208,54 +206,6 @@ __device__ __forceinline__ void flush_colsum(const float* colsum, float* slab,
   }
 }
 
-// out (M x N row-major, leading dim N) (+)= A1^T B1 [+ A2^T B2] over the
-// tile's ROWS agent rows; A (ROWS x M) and B (ROWS x N) row-major bf16 in
-// shared memory. Output tiles of 16 x 8 are dealt to the warps in turn;
-// rows of `out` at or past m_valid are not written.
-template <int M, int N, int ROWS, int W, bool TWO>
-__device__ __forceinline__ void nt_dot(const bf16* A1, int sa1, const bf16* B1,
-                                       int sb1, const bf16* A2, int sa2,
-                                       const bf16* B2, int sb2, float* out,
-                                       int m_valid, bool first, int warp,
-                                       int lane) {
-  constexpr int NT = N / 8, TILES = (M / 16) * NT;
-  const int g = lane >> 2, t = lane & 3;
-  const int q = lane >> 3, r = lane & 7;
-  for (int tile = warp; tile < TILES; tile += W) {
-    const int m0 = (tile / NT) * 16, n0 = (tile % NT) * 8;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int k0 = 0; k0 < ROWS; k0 += 16) {
-      uint32_t af[4], bfr[2];
-      ldsm_x4_trans(af, A1 + (k0 + r + 8 * (q >> 1)) * sa1 + m0 + 8 * (q & 1));
-      ldsm_x2_trans(bfr, B1 + (k0 + r + 8 * (q & 1)) * sb1 + n0);
-      mma(acc, af, bfr[0], bfr[1]);
-      if (TWO) {
-        ldsm_x4_trans(af, A2 + (k0 + r + 8 * (q >> 1)) * sa2 + m0 + 8 * (q & 1));
-        ldsm_x2_trans(bfr, B2 + (k0 + r + 8 * (q & 1)) * sb2 + n0);
-        mma(acc, af, bfr[0], bfr[1]);
-      }
-    }
-    const int ma = m0 + g, mb = m0 + g + 8, c = n0 + 2 * t;
-    if (ma < m_valid) {
-      slab_put(out + (size_t)ma * N + c, acc[0], first);
-      slab_put(out + (size_t)ma * N + c + 1, acc[1], first);
-    }
-    if (mb < m_valid) {
-      slab_put(out + (size_t)mb * N + c, acc[2], first);
-      slab_put(out + (size_t)mb * N + c + 1, acc[3], first);
-    }
-  }
-}
-
-template <int M, int N, int ROWS, int W>
-__device__ __forceinline__ void nt_dot1(const bf16* A, int sa, const bf16* B,
-                                        int sb, float* out, bool first,
-                                        int warp, int lane) {
-  nt_dot<M, N, ROWS, W, false>(A, sa, B, sb, nullptr, 0, nullptr, 0, out, M,
-                               first, warp, lane);
-}
-
 // out[i] = sum over CTAs, in order, of slab[c][i]
 __global__ void reduce_slabs(const float* slab, float* out, long size,
                              int num_ctas) {
@@ -279,18 +229,10 @@ inline int launch_reduce_slabs(const float* slab, float* out, long size,
 template <int DA, int DZ, int DC, int H>
 struct Layout {
   static constexpr int SF = DA + DZ + 8;  // feats
-  static constexpr int SQ = DZ + 8;       // q16, gctx16
-  static constexpr int SH = H + 8;        // block chain, G, R
-  static constexpr int SS = (DA > DC ? DA : DC) + 8;  // gk16, hb
-  static constexpr int SD = 16 + 8;       // one zone chunk of ds16, attn16
-  // bytes of dynamic shared memory of the stage and its VJP, for `rows`
+  static constexpr int SQ = DZ + 8;       // q16
+  static constexpr int SH = H + 8;        // block chain
+  // bytes of the forward's intermediates (feats, q, the chain) for `rows`
   // rows and nb blocks
-  static size_t bytes(int rows, int warps, int nb) {
-    return (size_t)warps * H * sizeof(float) +
-           (size_t)rows * sizeof(bf16) *
-               (SF + 2 * SQ + (size_t)(nb + 3) * SH + SS + 2 * SD);
-  }
-  // bytes of the forward alone (feats, q, the chain)
   static size_t bytes_forward(int rows, int nb) {
     return (size_t)rows * sizeof(bf16) * (SF + SQ + (size_t)(nb + 1) * SH);
   }
@@ -353,46 +295,19 @@ inline void set_weights(StageWeights& w, const void* const* p) {
   w.b3 = static_cast<const bf16*>(p[11]);
 }
 
-// a tile's shared memory for the stage and its VJP
+// a tile's shared memory for the stage (Layout::bytes_forward)
 struct StageSmem {
-  float* colsum;  // [W][H]
-  bf16* feats;    // [ROWS][SF]
-  bf16* q;        // [ROWS][SQ]
-  bf16* gctx;     // [ROWS][SQ]
-  bf16* chain;    // (nb + 1) x [ROWS][SH]
-  bf16* g;        // [ROWS][SH]
-  bf16* r;        // [ROWS][SH]
-  bf16* small;    // [ROWS][SS]
-  bf16* ds;       // [ROWS][SD]
-  bf16* at;       // [ROWS][SD]
-  unsigned char* end;  // the first byte past them (16-byte aligned)
+  bf16* feats;  // [ROWS][SF]
+  bf16* q;      // [ROWS][SQ]
+  bf16* chain;  // (nb + 1) x [ROWS][SH]
 };
 
-template <int DA, int DZ, int DC, int H, int W>
-__device__ __forceinline__ StageSmem stage_smem(unsigned char* raw, int nb) {
-  using L = Layout<DA, DZ, DC, H>;
-  constexpr int ROWS = 16 * W;
-  StageSmem s;
-  s.colsum = reinterpret_cast<float*>(raw);
-  s.feats = reinterpret_cast<bf16*>(s.colsum + W * H);
-  s.q = s.feats + ROWS * L::SF;
-  s.gctx = s.q + ROWS * L::SQ;
-  s.chain = s.gctx + ROWS * L::SQ;
-  s.g = s.chain + (size_t)(nb + 1) * ROWS * L::SH;
-  s.r = s.g + ROWS * L::SH;
-  s.small = s.r + ROWS * L::SH;
-  s.ds = s.small + ROWS * L::SS;
-  s.at = s.ds + ROWS * L::SD;
-  s.end = reinterpret_cast<unsigned char*>(s.at + ROWS * L::SD);
-  return s;
-}
-
-// the forward's part alone (Layout::bytes_forward): feats, q, the chain
+// the tile's stage buffers from `raw` on: feats, q, the chain
 template <int DA, int DZ, int DC, int H, int W>
 __device__ __forceinline__ StageSmem stage_smem_forward(unsigned char* raw) {
   using L = Layout<DA, DZ, DC, H>;
   constexpr int ROWS = 16 * W;
-  StageSmem s = {};
+  StageSmem s;
   s.feats = reinterpret_cast<bf16*>(raw);
   s.q = s.feats + ROWS * L::SF;
   s.chain = s.q + ROWS * L::SQ;
@@ -402,8 +317,8 @@ __device__ __forceinline__ StageSmem stage_smem_forward(unsigned char* raw) {
 // k = stage(xb): the drift at the bf16 stage input `xa` of the warp's 16
 // rows, with h's A fragments `ha` and the time row `tf` (H floats, Dense_0's
 // time rows and bias). Leaves feats, q and the block chain of the warp's
-// rows in shared memory and returns the softmax's row normalisers, for
-// stage_backward. Warp-local: no block barrier.
+// rows in shared memory and returns the softmax's row normalisers.
+// Warp-local: no block barrier.
 template <int DA, int DZ, int DC, int H, int W>
 __device__ __forceinline__ void stage_forward(
     const StageWeights& w, const StageSmem& sm,
@@ -544,264 +459,6 @@ __device__ __forceinline__ void stage_forward(
       k[j][0] += bv.x; k[j][1] += bv.y; k[j][2] += bv.x; k[j][3] += bv.y;
     }
   }
-}
-
-// The VJP of the last stage_forward at cotangent `ga` (f32, accumulator
-// fragments): returns gx (f32, accumulator fragments) and adds the summed
-// gradients into `slab` (the time row's at slab + gtf); gh = bf16(gpre1) @
-// W1h^T is stored to rows ra, rb of `gh` and gW1h added into the slab.
-// Every thread of the block calls it: it holds block barriers.
-template <int DA, int DZ, int DC, int H, int W>
-__device__ __forceinline__ void stage_backward(
-    const StageWeights& w, const StageSmem& sm, const float (&ga)[DA / 8][4],
-    const uint32_t (&ha)[DC / 16][4], float inv_a, float inv_b, float* slab,
-    const Slab<DA, DZ, DC, H>& sl, long gtf, bool first,
-    float (&gxb)[DA / 8][4], float* gh, long ra, long rb, bool va, bool vb,
-    int warp, int lane) {
-  constexpr int ROWS = 16 * W;
-  constexpr int NX = DA / 8, KX = DA / 16;
-  constexpr int NZ = DZ / 8, KZ = DZ / 16;
-  constexpr int NC = DC / 8;
-  constexpr int NH = H / 8, KH = H / 16;
-  constexpr int DF = DA + DZ;
-  using L = Layout<DA, DZ, DC, H>;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr0 = warp * 16;
-  const int nb = w.num_blocks;
-  const float scale = 1.0f / sqrtf((float)DZ);
-  float* cs = sm.colsum + warp * H;
-  const bf16* chain_out = sm.chain + (size_t)nb * ROWS * L::SH;
-
-  // k = z_out @ W3 + b3: gW3 = z_out^T bf16(gk), gb3 = sum gk,
-  // gz = bf16(gk) @ W3^T
-  float gz[NH][4];
-  {
-#pragma unroll
-    for (int j = 0; j < NX; ++j) warp_colsum(cs, j, ga[j], g, t);
-    uint32_t gka[KX][4];
-    c_to_a<DA>(ga, gka);
-    sts_a<DA>(gka, sm.small + wr0 * L::SS, L::SS, g, t);
-    zero(gz);
-#pragma unroll
-    for (int j = 0; j < NH; ++j)
-      mma_nblocks<DA, 1>(gz, j, gka, w.w3 + (size_t)8 * j * DA, g, t);
-  }
-  __syncthreads();
-  nt_dot1<H, DA, ROWS, W>(chain_out, L::SH, sm.small, L::SS, slab + sl.gw3,
-                          first, warp, lane);
-  flush_colsum<W, H>(sm.colsum, slab + sl.gb3, DA, first);
-  __syncthreads();
-
-  // residual blocks, reversed: z_out = tanh(z_in + bf16(rt) @ Wr2 + br2),
-  // rt = tanh(z_in @ Wr1 + br1)
-  for (int b = nb - 1; b >= 0; --b) {
-    const bf16* wr1T = w.wrT + (size_t)(2 * b) * H * H;
-    const bf16* wr1 = w.wr + (size_t)(2 * b) * H * H;
-    const bf16* wr2 = wr1 + (size_t)H * H;
-    const bf16* br1 = w.br + (size_t)(2 * b) * H;
-    const bf16* z_in = sm.chain + (size_t)b * ROWS * L::SH;
-    const bf16* z_out = z_in + (size_t)ROWS * L::SH;
-    // gpre = gz * (1 - zo^2), kept in gz
-#pragma unroll
-    for (int j = 0; j < NH; ++j) {
-      float zo[4];
-      lds_c(zo, z_out + wr0 * L::SH, L::SH, j, g, t);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        gz[j][c] = __fmul_rn(gz[j][c], __fsub_rn(1.f, __fmul_rn(zo[c], zo[c])));
-      warp_colsum(cs, j, gz[j], g, t);
-    }
-    uint32_t gpa[KH][4];
-    c_to_a<H>(gz, gpa);
-    sts_a<H>(gpa, sm.g + wr0 * L::SH, L::SH, g, t);
-    // recompute bf16(rt) into R
-    {
-      uint32_t za[KH][4];
-      lds_a<H>(za, z_in + wr0 * L::SH, L::SH, g, t);
-#pragma unroll
-      for (int s = 0; s < KH; ++s) {
-        float eo[2][4];
-        zero(eo);
-        mma_nblocks<H, 2>(eo, 0, za, wr1T + (size_t)16 * s * H, g, t);
-        const float2 be = unpack_bf16(ldg32(br1 + 16 * s + 2 * t));
-        const float2 bo = unpack_bf16(ldg32(br1 + 16 * s + 8 + 2 * t));
-        bf16* rp = sm.r + (wr0 + g) * L::SH + 16 * s + 2 * t;
-        sts32(rp, pack_bf16(tanhf(eo[0][0] + be.x), tanhf(eo[0][1] + be.y)));
-        sts32(rp + 8 * L::SH, pack_bf16(tanhf(eo[0][2] + be.x), tanhf(eo[0][3] + be.y)));
-        sts32(rp + 8, pack_bf16(tanhf(eo[1][0] + bo.x), tanhf(eo[1][1] + bo.y)));
-        sts32(rp + 8 * L::SH + 8, pack_bf16(tanhf(eo[1][2] + bo.x), tanhf(eo[1][3] + bo.y)));
-      }
-    }
-    __syncthreads();
-    // gWr2 = bf16(rt)^T bf16(gpre), gbr2 = sum gpre
-    nt_dot1<H, H, ROWS, W>(sm.r, L::SH, sm.g, L::SH, slab + sl.wr2(b), first,
-                           warp, lane);
-    flush_colsum<W, H>(sm.colsum, slab + sl.br2(b), H, first);
-    __syncthreads();
-    // gpre2 = (bf16(gpre) @ Wr2^T) * (1 - rt^2); bf16(gpre2) replaces rt
-#pragma unroll
-    for (int j = 0; j < NH; ++j) {
-      float acc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
-      mma_nblocks<H, 1>(acc, 0, gpa, wr2 + (size_t)8 * j * H, g, t);
-      float rt[4];
-      lds_c(rt, sm.r + wr0 * L::SH, L::SH, j, g, t);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        acc[0][c] = __fmul_rn(acc[0][c], __fsub_rn(1.f, __fmul_rn(rt[c], rt[c])));
-      warp_colsum(cs, j, acc[0], g, t);
-      bf16* rp = sm.r + (wr0 + g) * L::SH + 8 * j + 2 * t;
-      sts32(rp, pack_bf16(acc[0][0], acc[0][1]));
-      sts32(rp + 8 * L::SH, pack_bf16(acc[0][2], acc[0][3]));
-    }
-    __syncthreads();
-    // gWr1 = z_in^T bf16(gpre2), gbr1 = sum gpre2
-    nt_dot1<H, H, ROWS, W>(z_in, L::SH, sm.r, L::SH, slab + sl.wr1(b), first,
-                           warp, lane);
-    flush_colsum<W, H>(sm.colsum, slab + sl.br1(b), H, first);
-    // gz = gpre + bf16(gpre2) @ Wr1^T
-    {
-      uint32_t g2a[KH][4];
-      lds_a<H>(g2a, sm.r + wr0 * L::SH, L::SH, g, t);
-#pragma unroll
-      for (int j = 0; j < NH; ++j)
-        mma_nblocks<H, 1>(gz, j, g2a, wr1 + (size_t)8 * j * H, g, t);
-    }
-    __syncthreads();
-  }
-
-  // z1 = tanh(feats @ W1xc + hpre + tf), the chain's first entry:
-  // gpre1 = gz * (1 - z1^2); gtf = sum gpre1; gfeats = bf16(gpre1) @
-  // W1xc^T = [gxb, gctx]; hpre's gradient per row is gpre1
-  uint32_t gca[KZ][4];
-  {
-#pragma unroll
-    for (int j = 0; j < NH; ++j) {
-      float z1[4];
-      lds_c(z1, sm.chain + wr0 * L::SH, L::SH, j, g, t);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        gz[j][c] = __fmul_rn(gz[j][c], __fsub_rn(1.f, __fmul_rn(z1[c], z1[c])));
-      warp_colsum(cs, j, gz[j], g, t);
-    }
-    uint32_t g1a[KH][4];
-    c_to_a<H>(gz, g1a);
-    sts_a<H>(g1a, sm.g + wr0 * L::SH, L::SH, g, t);
-    {
-      sts_a<DC>(ha, sm.small + wr0 * L::SS, L::SS, g, t);
-      float ghh[NC][4];
-      zero(ghh);
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-        mma_nblocks<H, 1>(ghh, j, g1a, w.w1h + (size_t)8 * j * H, g, t);
-      stg_rows_c<NC>(ghh, gh, ra, rb, va, vb, t);
-    }
-    zero(gxb);
-#pragma unroll
-    for (int j = 0; j < NX; ++j)
-      mma_nblocks<H, 1>(gxb, j, g1a, w.w1xc + (size_t)8 * j * H, g, t);
-    float gctx[NZ][4];
-    zero(gctx);
-#pragma unroll
-    for (int j = 0; j < NZ; ++j)
-      mma_nblocks<H, 1>(gctx, j, g1a, w.w1xc + (size_t)(DA + 8 * j) * H, g,
-                        t);
-    c_to_a<DZ>(gctx, gca);
-    sts_a<DZ>(gca, sm.gctx + wr0 * L::SQ, L::SQ, g, t);
-  }
-  __syncthreads();
-  // gW1xc = feats^T bf16(gpre1), gW1h = bf16(h)^T bf16(gpre1)
-  nt_dot1<DF, H, ROWS, W>(sm.feats, L::SF, sm.g, L::SH, slab + sl.gw1, first,
-                          warp, lane);
-  nt_dot1<DC, H, ROWS, W>(sm.small, L::SS, sm.g, L::SH, slab + sl.gw1h,
-                          first, warp, lane);
-  flush_colsum<W, H>(sm.colsum, slab + gtf, H, first);
-
-  // attention backward, recomputing attn16 by zone chunks:
-  // gattn = bf16(gctx) @ ze^T; ds = attn (gattn - sum(attn gattn)) scale;
-  // gq = bf16(ds) @ ze; gze = bf16(attn)^T bf16(gctx) + bf16(ds)^T q16
-  uint32_t qa[KZ][4];
-  lds_a<DZ>(qa, sm.q + wr0 * L::SQ, L::SQ, g, t);
-  float S_a = 0.f, S_b = 0.f;
-  for (int z0 = 0; z0 < w.zp; z0 += 16) {
-    float sc[2][4], ga_[2][4];
-    zero(sc);
-    zero(ga_);
-    mma_nblocks<DZ, 2>(sc, 0, qa, w.ze + (size_t)z0 * DZ, g, t);
-    mma_nblocks<DZ, 2>(ga_, 0, gca, w.ze + (size_t)z0 * DZ, g, t);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int zi = z0 + 8 * i + 2 * t + (c & 1);
-        const float pr = zi < w.z ? expf(fminf(sc[i][c] * scale, 80.f)) : 0.f;
-        const float at = __bfloat162float(
-            __float2bfloat16_rn(pr * ((c & 2) ? inv_b : inv_a)));
-        if (c & 2) S_b += at * ga_[i][c]; else S_a += at * ga_[i][c];
-      }
-  }
-  S_a += __shfl_xor_sync(0xffffffffu, S_a, 1);
-  S_a += __shfl_xor_sync(0xffffffffu, S_a, 2);
-  S_b += __shfl_xor_sync(0xffffffffu, S_b, 1);
-  S_b += __shfl_xor_sync(0xffffffffu, S_b, 2);
-
-  float gq[NZ][4];
-  zero(gq);
-  for (int z0 = 0; z0 < w.zp; z0 += 16) {
-    float sc[2][4], ga_[2][4];
-    zero(sc);
-    zero(ga_);
-    mma_nblocks<DZ, 2>(sc, 0, qa, w.ze + (size_t)z0 * DZ, g, t);
-    mma_nblocks<DZ, 2>(ga_, 0, gca, w.ze + (size_t)z0 * DZ, g, t);
-    float at[2][4], ds[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int zi = z0 + 8 * i + 2 * t + (c & 1);
-        const float pr = zi < w.z ? expf(fminf(sc[i][c] * scale, 80.f)) : 0.f;
-        at[i][c] = __bfloat162float(
-            __float2bfloat16_rn(pr * ((c & 2) ? inv_b : inv_a)));
-        ds[i][c] = __fmul_rn(__fmul_rn(at[i][c],
-                                       __fsub_rn(ga_[i][c], (c & 2) ? S_b : S_a)),
-                             scale);
-      }
-    uint32_t da_[1][4], aa_[1][4];
-    da_[0][0] = pack_bf16(ds[0][0], ds[0][1]);
-    da_[0][1] = pack_bf16(ds[0][2], ds[0][3]);
-    da_[0][2] = pack_bf16(ds[1][0], ds[1][1]);
-    da_[0][3] = pack_bf16(ds[1][2], ds[1][3]);
-    aa_[0][0] = pack_bf16(at[0][0], at[0][1]);
-    aa_[0][1] = pack_bf16(at[0][2], at[0][3]);
-    aa_[0][2] = pack_bf16(at[1][0], at[1][1]);
-    aa_[0][3] = pack_bf16(at[1][2], at[1][3]);
-    sts_a<16>(da_, sm.ds + wr0 * L::SD, L::SD, g, t);
-    sts_a<16>(aa_, sm.at + wr0 * L::SD, L::SD, g, t);
-    const bf16* zt = w.zeT + z0;
-#pragma unroll
-    for (int j = 0; j < NZ; ++j) {
-      const bf16* rowp = zt + (size_t)(8 * j + g) * w.zp + 2 * t;
-      mma(gq[j], da_[0], ldg32(rowp), ldg32(rowp + 8));
-    }
-    __syncthreads();
-    nt_dot<16, DZ, ROWS, W, true>(sm.at, L::SD, sm.gctx, L::SQ, sm.ds, L::SD,
-                                  sm.q, L::SQ, slab + (size_t)z0 * DZ,
-                                  w.z - z0, first, warp, lane);
-    __syncthreads();
-  }
-
-  // q = xb @ Wq: gWq = xb^T bf16(gq); gx = gxb + bf16(gq) @ Wq^T
-  {
-    uint32_t gqa[KZ][4];
-    c_to_a<DZ>(gq, gqa);
-    sts_a<DZ>(gqa, sm.g + wr0 * L::SH, L::SH, g, t);
-#pragma unroll
-    for (int j = 0; j < NX; ++j)
-      mma_nblocks<DZ, 1>(gxb, j, gqa, w.wq + (size_t)8 * j * DZ, g, t);
-  }
-  __syncthreads();
-  nt_dot1<DA, DZ, ROWS, W>(sm.feats, L::SF, sm.g, L::SH, slab + sl.gwq, first,
-                           warp, lane);
-  __syncthreads();
 }
 
 }  // namespace ananke

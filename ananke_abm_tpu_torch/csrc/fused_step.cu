@@ -1,5 +1,5 @@
-// The GAT-ODE's RK4 rollout kernels on Hopper (sm_90a), one template for
-// all three, for every agent in one launch:
+// The GAT-ODE's RK4 rollout kernels and its drift on Hopper (sm_90a), one
+// template for all four, for every agent in one launch:
 // - K1: one output interval, `substeps` RK4 steps of the drift, then the
 //   decode and its first-index argmax (ananke_rk4_interval_decode);
 // - K0: one RK4 step, the same stage code with the decode compiled out
@@ -7,17 +7,22 @@
 //   product after each interval;
 // - K2f: the fixed-step training day's forward (ananke_day_forward): the
 //   stage code of S substeps, substep s of its own size dts[s], no decode,
-//   x0 and the carry after every substep stored into xs (S + 1, N, DA).
+//   x0 and the carry after every substep stored into xs (S + 1, N, DA);
+// - K8a: one drift evaluation, f = stage(bf16(x)) at one time row, the
+//   continuous adjoint's forward right-hand side (ananke_drift_rhs): one
+//   stage, no RK4 combination, its derivative stored.
 //
 // Replaces the Pallas TPU kernels
 //   K1 ananke_abm_tpu/ops/pallas/fused_step.py::rk4_interval_decode_fused
 //   K0 ananke_abm_tpu/ops/pallas/fused_step.py::rk4_step_fused
 //   K2f ananke_abm_tpu/ops/pallas/fused_train.py::_day_fwd_impl
+//   K8a ananke_abm_tpu/ops/pallas/fused_rhs.py::drift_rhs_fused
 // (stage math: _stage_math in fused_step.py). The plain PyTorch versions
 // are ananke_abm_tpu_torch/ops/cuda/fused_step.py::
-// rk4_interval_decode_reference and ::rk4_step_reference, and
-// ananke_abm_tpu_torch/ops/cuda/fused_train.py::day_forward_reference. K0
-// is K1 with `stages` = 4 and no decode.
+// rk4_interval_decode_reference and ::rk4_step_reference,
+// ananke_abm_tpu_torch/ops/cuda/fused_train.py::day_forward_reference and
+// ananke_abm_tpu_torch/ops/cuda/fused_rhs.py::drift_rhs_reference. K0 is K1
+// with `stages` = 4 and no decode.
 //
 // What bounds it on the card. Per agent and interval the kernel does ~1.5
 // MFLOP of bf16 matmul work (8 drift evaluations of ~92k multiply-adds at
@@ -73,7 +78,9 @@
 // kernel it replaced: 25.3 ms), K0 4.5 ms against 0.790 ms (12.6 ms), the
 // same bits as that kernel's at every checked shape; K2f 7.8 ms at bench
 // rung 2 against its 0.863 ms bound (the kernel it replaced, drift_stage.cuh
-// per warp: 18.2 ms; --ab-train), the same bits as that kernel's. PERF.md
+// per warp: 18.2 ms; --ab-train), the same bits as that kernel's; K8a
+// 0.17 ms of device time at bench rung 3's 98,304 agents (the kernel it
+// replaced: 0.43-0.45 ms; --ab-k8, CUDA graphs), the same bits. PERF.md
 // section 6 has the readings and what each part of the design moved.
 
 #include <cuda.h>
@@ -99,6 +106,14 @@ constexpr int kWarps = 12;  // warps per CTA (whole warpgroups): 16 kWarps rows
 constexpr int kMaxBlocks = 8;
 static_assert(kWarps % 4 == 0, "the products are warpgroup-wide");
 
+// what a launch of the template computes
+enum class Kind {
+  kInterval,  // K1: `stages` RK4 stages, then the decode and its argmax
+  kStep,      // K0: the RK4 stages alone
+  kDay,       // K2f: substeps of their own sizes, every carry stored
+  kRhs,       // K8a: one stage, its derivative stored
+};
+
 struct Params {
   // TMA maps of the weights and zones (box_map below): 64-byte swizzled
   // boxes of 32 columns
@@ -117,7 +132,8 @@ struct Params {
   const __nv_bfloat16* wdT;    // (DZ, DA)
   const float* tf;             // (stages, H)
   const float* dts;            // (stages / 4): the day's substep sizes (K2f)
-  float* x_out;                // (n, DA); K2f: xs (stages / 4 + 1, n, DA)
+  float* x_out;                // (n, DA); K2f: xs (stages / 4 + 1, n, DA);
+                               // K8a: f (n, DA)
   int* ids;                    // (n), unless the decode is compiled out
   int n, z, zp, num_blocks, stages;
   float dt;
@@ -496,13 +512,16 @@ __device__ __forceinline__ void store_x(float* dst, float (*xs)[32], long ra,
   }
 }
 
-// kDecode: K1 (the stages, then the decode and argmax) or K0 (the stages);
-// kDay: K2f (the stages of stages / 4 substeps, substep s of size dts[s],
-// x0 and every substep's carry into the planes of xs); W warps a CTA
-template <int DA, int DZ, int DC, int H, bool kDecode, bool kDay = false,
-          int W = kWarps>
+// kKind: K1 (the stages, then the decode and argmax), K0 (the stages), K2f
+// (the stages of stages / 4 substeps, substep s of size dts[s], x0 and
+// every substep's carry into the planes of xs) or K8a (one stage, its k
+// into x_out); W warps a CTA
+template <int DA, int DZ, int DC, int H, Kind kKind, int W = kWarps>
 __global__ void __launch_bounds__(32 * W)
     interval_kernel(const __grid_constant__ Params p) {
+  constexpr bool kDecode = kKind == Kind::kInterval;
+  constexpr bool kDay = kKind == Kind::kDay;
+  constexpr bool kRhs = kKind == Kind::kRhs;
   using B = Boxes<DA, DZ, DC, H>;
   constexpr int NX = DA / 8, KX = DA / 16;
   constexpr int NZ = DZ / 8, KZ = DZ / 16;
@@ -516,7 +535,6 @@ __global__ void __launch_bounds__(32 * W)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  static_assert(!(kDecode && kDay), "K2f has no decode");
   static_assert(W % 4 == 0, "the products are warpgroup-wide");
   const long row0 = ((long)blockIdx.x * W + warp) * 16;
   const long ra = row0 + g, rb = row0 + g + 8;
@@ -793,8 +811,9 @@ __global__ void __launch_bounds__(32 * W)
     }
   }
 
-  // ---- store x_new ----------------------------------------------------------
-  if (!kDay) store_x<NX>(p.x_out, xs, ra, rb, va, vb, t, lane);
+  // ---- store x_new (K8a: the stage's k) -----------------------------------
+  if (kRhs) store_x<NX>(p.x_out, sk, ra, rb, va, vb, t, lane);
+  if (!kDay && !kRhs) store_x<NX>(p.x_out, xs, ra, rb, va, vb, t, lane);
 
   if (kDecode) {
     // ---- decode: ids = argmax(bf16(bf16(x) @ Wd) @ ze^T), first index ----
@@ -893,8 +912,9 @@ bool box_map(CUtensorMap* m, const void* base, int rows, int cols,
 
 // the interval kernel over `p` on `stream`, for the widths it is compiled
 // for; cudaErrorInvalidValue for others
-template <bool kDecode, bool kDay = false, int W = kWarps>
+template <Kind kKind, int W = kWarps>
 int launch(Params& p, int da, int dz, int dc, int hdim, cudaStream_t s) {
+  constexpr bool kDecode = kKind == Kind::kInterval;
   if (!(da == 32 && dz == 64 && dc == 32 && hdim == 128))
     return (int)cudaErrorInvalidValue;
   constexpr int DA = 32, DZ = 64, DC = 32, H = 128;
@@ -909,7 +929,7 @@ int launch(Params& p, int da, int dz, int dc, int hdim, cudaStream_t s) {
       box_map(&p.tm_w3, p.w3T, DA, H, DA) &&
       (!kDecode || box_map(&p.tm_wd, p.wdT, DZ, DA, DZ));
   if (!ok) return (int)cudaErrorNotSupported;
-  auto* kernel = interval_kernel<32, 64, 32, 128, kDecode, kDay, W>;
+  auto* kernel = interval_kernel<32, 64, 32, 128, kKind, W>;
   const int smem = Boxes<32, 64, 32, 128>::bytes(W);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -951,10 +971,13 @@ void set_params(Params& p, const void* x, const void* h, const void* ze,
   p.dt = dt;
 }
 
-bool sizes_ok(int n, int z, int zp, int num_blocks, int stages) {
+bool sizes_ok(int n, int z, int zp, int num_blocks) {
   return num_blocks >= 1 && num_blocks <= kMaxBlocks && n >= 1 && z >= 1 &&
-         zp % 16 == 0 && zp >= z && stages >= 4 && stages % 4 == 0;
+         zp % 16 == 0 && zp >= z;
 }
+
+// whole RK4 steps
+bool stages_ok(int stages) { return stages >= 4 && stages % 4 == 0; }
 
 }  // namespace
 
@@ -970,14 +993,15 @@ int ananke_rk4_interval_decode(
     const void* tf, void* x_out, void* ids, int n, int z, int zp,
     int num_blocks, int stages, float dt, int da, int dz, int dc, int hdim,
     void* stream) {
-  if (!sizes_ok(n, z, zp, num_blocks, stages))
+  if (!sizes_ok(n, z, zp, num_blocks) || !stages_ok(stages))
     return (int)cudaErrorInvalidValue;
   Params p;
   set_params(p, x, h, ze, zeT, wqT, w1xcT, w1hT, wrT, br, w3T, b3, tf, x_out,
              n, z, zp, num_blocks, stages, dt);
   p.wdT = static_cast<const __nv_bfloat16*>(wdT);
   p.ids = static_cast<int*>(ids);
-  return launch<true>(p, da, dz, dc, hdim, static_cast<cudaStream_t>(stream));
+  return launch<Kind::kInterval>(p, da, dz, dc, hdim,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // Launch one RK4 step (K0) on `stream`: `tf` holds the step's 4 stage rows.
@@ -989,12 +1013,12 @@ int ananke_rk4_step(const void* x, const void* h, const void* ze,
                     void* x_out, int n, int z, int zp, int num_blocks,
                     float dt, int da, int dz, int dc, int hdim,
                     void* stream) {
-  if (!sizes_ok(n, z, zp, num_blocks, 4)) return (int)cudaErrorInvalidValue;
+  if (!sizes_ok(n, z, zp, num_blocks)) return (int)cudaErrorInvalidValue;
   Params p;
   set_params(p, x, h, ze, zeT, wqT, w1xcT, w1hT, wrT, br, w3T, b3, tf, x_out,
              n, z, zp, num_blocks, 4, dt);
-  return launch<false>(p, da, dz, dc, hdim,
-                       static_cast<cudaStream_t>(stream));
+  return launch<Kind::kStep>(p, da, dz, dc, hdim,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // Launch the fixed-step training day's forward (K2f) on `stream`: `steps`
@@ -1014,14 +1038,35 @@ int ananke_day_forward(const void* x0, const void* h, const void* ze,
                        int steps, int da, int dz, int dc, int hdim,
                        void* stream) {
   (void)w1; (void)w3; (void)w5; (void)w7; (void)w10;
-  if (steps < 1 || !sizes_ok(n, z, zp, num_blocks, 4 * steps))
+  if (steps < 1 || !sizes_ok(n, z, zp, num_blocks))
     return (int)cudaErrorInvalidValue;
   Params p;
   set_params(p, x0, h, ze, zeT, w0, w2, w4, w6, w8, w9, w11, tf, xs, n, z,
              zp, num_blocks, 4 * steps, 0.f);
   p.dts = static_cast<const float*>(dts);
-  return launch<false, true>(p, da, dz, dc, hdim,
-                             static_cast<cudaStream_t>(stream));
+  return launch<Kind::kDay>(p, da, dz, dc, hdim,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// Launch one drift evaluation (K8a) on `stream`: f (n, DA) = stage(bf16(x))
+// from x, h, the zones and the time row tf (H), the 12 stage weights in
+// drift_stage.cuh's set_weights order (the kernel reads the (out, in) ones,
+// as ananke_day_forward). Returns as ananke_rk4_interval_decode.
+int ananke_drift_rhs(const void* x, const void* h, const void* ze,
+                     const void* zeT, const void* tf, const void* w0,
+                     const void* w1, const void* w2, const void* w3,
+                     const void* w4, const void* w5, const void* w6,
+                     const void* w7, const void* w8, const void* w9,
+                     const void* w10, const void* w11, void* f, int n, int z,
+                     int zp, int num_blocks, int da, int dz, int dc,
+                     int hdim, void* stream) {
+  (void)w1; (void)w3; (void)w5; (void)w7; (void)w10;
+  if (!sizes_ok(n, z, zp, num_blocks)) return (int)cudaErrorInvalidValue;
+  Params p;
+  set_params(p, x, h, ze, zeT, w0, w2, w4, w6, w8, w9, w11, tf, f, n, z, zp,
+             num_blocks, 1, 0.f);
+  return launch<Kind::kRhs>(p, da, dz, dc, hdim,
+                            static_cast<cudaStream_t>(stream));
 }
 
 const char* ananke_cuda_error_string(int err) {

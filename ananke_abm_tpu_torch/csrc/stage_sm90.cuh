@@ -2,9 +2,10 @@
 // (16 W agent rows) whose warps share every weight operand through a ring
 // of shared-memory slots: the Hopper stage of the discrete adjoint's bf16
 // step body (fused_dopri5.cu: K6 at precision "bf16", and K7's bf16 branch,
-// the same step VJP launched once) and of the fixed-step training day's
-// reverse sweep (fused_train.cu: K2b). Each walks its own fixed schedule of
-// weight boxes (StepSchedule, DaySchedule below).
+// the same step VJP launched once), of the fixed-step training day's
+// reverse sweep (fused_train.cu: K2b) and of the continuous adjoint's
+// augmented right-hand side (fused_rhs.cu: K8). Each walks its own fixed
+// schedule of weight boxes (StepSchedule, DaySchedule, RhsSchedule below).
 //
 // The math is drift_stage.cuh's, rounding point for rounding point (the
 // reference's _stage_math / _stage_vjp_math in
@@ -23,8 +24,8 @@
 //   kSlots - 1 boxes ahead) and read by every warp of the CTA from shared
 //   memory: one copy serves 16 W rows (96 at two blocks). The warps walk
 //   the sequence in lockstep, one block barrier per box (Ring::next). The
-//   sequence repeats with a period: a DOPRI5 step's stages, or an RK4
-//   tile's substeps, then the h rows' box.
+//   sequence repeats with a period: a DOPRI5 step's stages, an RK4 tile's
+//   substeps, or one stage and its VJP, then the h rows' box.
 // - B fragments come from shared memory at a row stride of the box width
 //   plus 8 bf16, so the 8 rows a fragment touches fall in distinct banks;
 //   one ldmatrix.x4 gives a k-slice's fragments of two n-blocks.
@@ -187,6 +188,8 @@ __device__ __forceinline__ void mma_s(float (&acc)[NOUT][4], int j0,
 // - DaySchedule, the RK4 day's reverse sweep (K2b): per substep stages 1-3
 //   forward, then stages 4 .. 1 recomputed and differentiated; a period is
 //   a tile, its `steps` substeps, and ends with the tile's h rows.
+// - RhsSchedule, the continuous adjoint's right-hand side (K8): one stage
+//   forward and its VJP, then the h rows' box; a period is a tile.
 struct StepSchedule {
   static constexpr int kF = 5, kP = 6;
   static constexpr bool kOneStep = true;
@@ -196,6 +199,11 @@ struct DaySchedule {
   static constexpr int kF = 3, kP = 4;
   static constexpr bool kOneStep = false;
   int steps = 1;
+};
+
+struct RhsSchedule {
+  static constexpr int kF = 0, kP = 1;
+  static constexpr bool kOneStep = true;
 };
 
 // A period's weight boxes, in the order it consumes them:

@@ -42,11 +42,11 @@ _ENTRY = {
         "ananke_rk4_step": ([_P] * 13 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
                             _I),
         "ananke_day_forward": ([_P] * 19 + [_I] * 9 + [_P], _I),
+        "ananke_drift_rhs": ([_P] * 18 + [_I] * 8 + [_P], _I),
     },
     "fused_rhs": {
         "ananke_drift_rhs_and_vjp": ([_P] * 23 + [_I] * 9 + [_P], _I),
         "ananke_drift_rhs_tile_rows": ([_I], _I),
-        "ananke_drift_rhs": ([_P] * 18 + [_I] * 8 + [_P], _I),
     },
     "fused_train": {
         "ananke_day_backward": ([_P] * 23 + [_I] * 10 + [_P], _I),

@@ -2,10 +2,11 @@
 drift evaluation and its whole VJP in one launch (the backward's augmented
 right-hand side), and one drift evaluation alone (the forward's).
 
-Port of ``ananke_abm_tpu/ops/pallas/fused_rhs.py``. Two kernels (CUDA C++
-in ``csrc/fused_rhs.cu``) replace the two Pallas kernels of that file, each
-with its plain PyTorch version beside it, which the wrapper takes for
-tensors on the CPU:
+Port of ``ananke_abm_tpu/ops/pallas/fused_rhs.py``. Two kernels (CUDA C++:
+K8 in ``csrc/fused_rhs.cu`` on ``csrc/stage_sm90.cuh``'s weight ring, K8a
+in ``csrc/fused_step.cu``, the serving kernels' template) replace the two
+Pallas kernels of that file, each with its plain PyTorch version beside it,
+which the wrapper takes for tensors on the CPU:
 
 - :func:`drift_rhs_and_vjp` (K8, ``drift_rhs_and_vjp``) and
   :func:`drift_rhs_and_vjp_reference`: one
@@ -120,7 +121,7 @@ def drift_rhs_fused(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3):
     :func:`drift_rhs_reference`.
 
     CPU tensors take the plain version. CUDA tensors launch K8a of
-    ``csrc/fused_rhs.cu`` or raise (widths it is not compiled for, too many
+    ``csrc/fused_step.cu`` or raise (widths it is not compiled for, too many
     blocks, a refused launch); there is no fallback. Not differentiable, as
     the reference's: the continuous adjoint's forward solve and its initial
     step probe, which nothing differentiates. ``.launches`` counts the
@@ -136,7 +137,7 @@ def drift_rhs_fused(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3):
         return f
     from ananke_abm_tpu_torch.ops.cuda._build import load_library
 
-    lib = load_library("fused_rhs")
+    lib = load_library("fused_step")
     ze_p, zeT = pad_zones(ze)
     ops = [x.contiguous(), h.contiguous(), ze_p, zeT,
            tf_row.float().contiguous(),
@@ -335,8 +336,9 @@ def _launch(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a,
     # agent rows per tile: the kernel's choice for this depth
     rows = lib.ananke_drift_rhs_tile_rows(nb)
     num_ctas = min(NUM_SLABS, -(-N // rows))
-    slabs = torch.empty((num_ctas, gsum.numel()), dtype=torch.float32,
-                        device=dev)
+    # the CTAs' slabs, then their row scratch (Da + H floats a row)
+    slabs = torch.empty((num_ctas * (gsum.numel() + rows * (Da + H)),),
+                        dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.ananke_drift_rhs_and_vjp(

@@ -44,7 +44,11 @@ Phases (any failure raises and the script exits non-zero):
    ``use_fused="auto"``) with ``make_optimizer`` at bench rung 3's shape,
    98,304 agents x 64 zones x 12 times, GATODEConfig(method="dopri5"):
    finite losses, the third below the first, and exactly 2 + 6 x
-   (attempted steps) kernel launches per backward interval;
+   (attempted steps) kernel launches per backward interval; each step's
+   wall and the best of steps 2-3; then a fourth step under
+   ``torch.profiler``: the device's busy and idle share of its wall time
+   and its device time by kernel name (the model and optimizer put back
+   after it);
 8. trainer check: loss and full gradient of one step at 8,192 agents with
    the kernel against the same step with its plain version;
 9. times: the adjoint kernel and its plain version per launch at 98,304
@@ -187,7 +191,8 @@ Phases (any failure raises and the script exits non-zero):
     (``model.rhs`` forward, K8 backward) on the same batch: loss rel <=
     TRAIN_LOSS_RTOL and gradient cosine > TRAIN_COS_MIN, held at 1e-3
     where the fused forward's bf16 stage noise takes more than
-    FUSED_PAIR_STEP_RATIO times phase 7's forward steps; K8a's time;
+    FUSED_PAIR_STEP_RATIO times phase 7's forward steps; K8a's time (the
+    device's, each call captured in a CUDA graph, and per call eager);
 37. K5's bf16 branch against its plain version at DOPRI5_SHAPES (y1, f1,
     r5 and the error sum, within checks.DOPRI5_STEP_BF16_BOUNDS), repeats
     that must give the same bits, K5's float32 kernel on the same operands
@@ -250,10 +255,14 @@ K2f's CTAs at 4 warps; for ``--ab-dopri5`` K5's float32 products as adds,
 its weights uncopied, one barrier a weight chunk), built under
 ``build/chip_smoke/variants/``: its results are wrong by design and only
 timed.
-``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` runs phases 1-2 and then
-compares K8 of this checkout with K8 built from each checkout at DIR:
-ptxas and SASS counts of each build, bits at K8_SHAPES and alternating
-per-launch times. ``python3 chip_smoke.py --ab-dopri5 DIR [DIR ...]``
+``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` builds only K8's library
+(``fused_rhs.cu``) and the serving kernels' (``fused_step.cu``, where K8a
+lives), each DIR's beside them (``DIR+PROBE`` a probe variant, as for
+``--ab-train``), then prints ptxas's registers and spills of every build
+(SASS counts of each DIR's K8), the bits of K8's per-row outputs, its
+summed gradients and K8a's f at K8_SHAPES against this checkout, and the
+per-launch times of K8 and K8a at rung 3's operands in the order DIR...,
+this, this, ...DIR. ``python3 chip_smoke.py --ab-dopri5 DIR [DIR ...]``
 does the same for the step K5 (float32 and bf16), the step VJP K7
 (float32 and bf16) and the whole backward K6 (bf16 and float32 bodies):
 each DIR's ``fused_dopri5.cu`` (``DIR+PROBE`` a probe variant, as for
@@ -551,7 +560,9 @@ def main():
                         "DOPRI5 step, the CSR edge, K0, K8a, the segment "
                         "sum or the serving) kernels' readings only")
     parser.add_argument("--ab-k8", metavar="DIR", nargs="+",
-                        help="time K8 against K8 of the checkouts at DIR")
+                        help="compare and time K8 and K8a against those of "
+                        "the checkouts at DIR (DIR+PROBE: a probe variant "
+                        "of DIR's sources)")
     parser.add_argument("--ab-dopri5", metavar="DIR", nargs="+",
                         help="compare and time K5, K6 and K7 against those "
                         "of the checkouts at DIR (DIR+PROBE: a probe "
@@ -613,6 +624,11 @@ def main():
               for i, d in enumerate(args.ab_dopri5 or ())]
     others += [start_build(Path(d).resolve(), f"other{i}", "fused_step")
                for i, d in enumerate(args.ab_step or ())]
+    k8_others = []
+    for i, d in enumerate(args.ab_k8 or ()):
+        name, checkout = ab_checkout(d)
+        k8_others.append((name, [start_build(checkout, f"k8{i}", lib)
+                                 for lib in K8_LIBS]))
     train_others = []
     for i, d in enumerate(args.ab_train or ()):
         name, checkout = ab_checkout(d)
@@ -622,6 +638,7 @@ def main():
     built = _build.build_all(
         ("fused_step",) if args.ab_step or args.readings == "serving"
         else ("fused_step", "fused_train") if args.ab_train
+        else K8_LIBS if args.ab_k8
         else _build.NAMES)
     print(f"build: {len(built)} libraries in "
           f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
@@ -629,7 +646,7 @@ def main():
         print(f"build: {path.relative_to(ROOT)} in {seconds:.1f} s")
         for line in ptxas_lines(log):
             print(f"  {line}")
-        if not args.ab_train:  # ab_train loads its own (declare_entries)
+        if not (args.ab_train or args.ab_k8):  # these load their own
             _build.load_library(name)
     sys.stdout.flush()
 
@@ -658,7 +675,7 @@ def main():
         serving_readings(dev)
         return
     if args.ab_k8:
-        ab_k8(dev, [Path(d) for d in args.ab_k8])
+        ab_k8(dev, built, k8_others)
         return
     if args.ab_dopri5:
         ab_dopri5(dev, built["fused_dopri5"][1], others)
@@ -920,19 +937,47 @@ def grads_of(model):
     return torch.cat([p.grad.flatten() for p in model.parameters()])
 
 
+def rung3_continuous(dev):
+    """Phase 7's trainer: a seeded model at GATODEConfig(method="dopri5"),
+    its optimizer and ``make_adjoint_step_fns``'s step with its defaults
+    (the continuous adjoint, ``use_fused="auto"``) on bench rung 3's data.
+    Returns (model, optimizer, step, static, batch)."""
+    from ananke_abm_tpu_torch.data_generator import generate_agent_population
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        init_params,
+        make_adjoint_step_fns,
+        make_optimizer,
+    )
+
+    config = GATODEConfig(method="dopri5")
+    data = generate_agent_population(ADAPT_N, num_times=ADAPT_TIMES,
+                                     seed=ADAPT_SEED, num_zones=ADAPT_ZONES)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)
+    static = (on(data["zone_features"]), on(data["adj"]), on(data["times"]))
+    batch = (on(data["person_feats"]), on(data["home_zone"], torch.long),
+             on(data["zone_ids"], torch.long))
+    model = build_model(config, data["zone_features"].shape[-1],
+                        data["person_feats"].shape[-1], device=dev)
+    init_params(model, torch.Generator().manual_seed(ADAPT_SEED))
+    opt = make_optimizer(model, config)
+    step, _ = make_adjoint_step_fns(model, opt, config, static,
+                                    adjoint_mode="continuous",
+                                    use_fused="auto")
+    return model, opt, step, static, batch
+
+
 def adjoint_phases(dev, card):
     """Phases 6-9: K8 against its plain version, the trainer at rung 3,
     the kernel trainer against the plain-version trainer, and times.
     Returns K8's entry of the {"kernels": [...]} line and the best wall
     time of a rung-3 training step."""
-    from ananke_abm_tpu_torch.data_generator import generate_agent_population
     from ananke_abm_tpu_torch.models.gnn_embed.train import (
         GATODEConfig,
         _adjoint_loss_fn,
         build_model,
         init_params,
-        make_adjoint_step_fns,
-        make_optimizer,
     )
     from ananke_abm_tpu_torch.ops.cuda.checks import (
         bf16_control,
@@ -985,20 +1030,8 @@ def adjoint_phases(dev, card):
         fail("the adjoint kernel check passes the bf16-product control")
 
     # ---- 7. the trainer at bench rung 3 ---------------------------------
-    data = generate_agent_population(ADAPT_N, num_times=ADAPT_TIMES,
-                                     seed=ADAPT_SEED, num_zones=ADAPT_ZONES)
-    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)
-    static = (on(data["zone_features"]), on(data["adj"]), on(data["times"]))
-    batch = (on(data["person_feats"]), on(data["home_zone"], torch.long),
-             on(data["zone_ids"], torch.long))
-    model = build_model(config, data["zone_features"].shape[-1],
-                        data["person_feats"].shape[-1], device=dev)
-    init_params(model, torch.Generator().manual_seed(ADAPT_SEED))
+    model, opt, step, static, batch = rung3_continuous(dev)
     n_params = sum(p.numel() for p in model.parameters())
-    opt = make_optimizer(model, config)
-    step, _ = make_adjoint_step_fns(model, opt, config, static,
-                                    adjoint_mode="continuous",
-                                    use_fused="auto")
     flop = drift_vjp_flops(config.agent_dim, config.zone_dim,
                            config.context_dim, config.hidden_dim,
                            ADAPT_ZONES, config.num_blocks) * ADAPT_N
@@ -1037,8 +1070,15 @@ def adjoint_phases(dev, card):
     print(f"trainer: {ADAPT_N} agents x {ADAPT_ZONES} zones x {ADAPT_TIMES} "
           f"times, {n_params} parameters, {TRAIN_STEPS} steps, losses "
           f"{losses}, kernel launches {k8_launches}", flush=True)
+    print(f"continuous step wall: steps "
+          f"{', '.join(f'{w:.3f}' for w in walls)} s, best of steps "
+          f"2-{TRAIN_STEPS} {min(walls[1:]):.3f} s (host clock, synced) "
+          f"[card {card}]", flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"training losses {losses}: not finite and falling")
+    with state_kept(model, opt):
+        device_busy("phase 7 step (the continuous adjoint, K8)",
+                    lambda: step(*batch), card)
 
     # ---- 8. kernel trainer against the plain-version trainer -------------
     sub = tuple(b[:CHECK_TRAIN_AGENTS] for b in batch)
@@ -1422,60 +1462,143 @@ def library_of(lib, so):
         _build.load_library = load
 
 
-def build_k8(checkout, name):
-    """``checkout``'s K8 library (``csrc/fused_rhs.cu``), with ptxas's and
-    the SASS counts printed."""
-    return finish_build(start_build(checkout, name, "fused_rhs"), sass=True)
+# the libraries ``--ab-k8`` builds of every checkout: K8's, and the serving
+# kernels', where K8a lives since it moved beside K1, K0 and K2f
+K8_LIBS = ("fused_rhs", "fused_step")
+# slab counts (CTAs) at which ``--ab-k8`` also times this checkout's K8,
+# beside fused_rhs.NUM_SLABS
+K8_SLAB_COUNTS = (99, 66)
 
 
-def ab_k8(dev, others):
-    """``--ab-k8 DIR [DIR ...]``: K8 of this checkout against K8 of each
-    checkout at DIR (its ``csrc/fused_rhs.cu`` and headers, the same flags
-    and C interface): the bits at every shape of K8_SHAPES, then the
-    per-launch time at the main path's shape in the order DIR..., this,
-    this, ...DIR."""
+def k8_libraries(built, handles):
+    """{name: {"k8": library, "k8a": library}} of ``--ab-k8``: this
+    checkout's from ``built`` (phase 2's build of K8_LIBS), each DIR's from
+    its :func:`start_build` handles. K8a is the
+    library of each checkout that defines ``ananke_drift_rhs``: the
+    serving kernels' here, K8's in a checkout from before K8a moved."""
+    import ctypes
+
+    libs = {"this": {}}
+    for lib in K8_LIBS:
+        so = declare_entries(ctypes.CDLL(str(built[lib][0])))
+        so.ananke_cuda_error_string.argtypes = [ctypes.c_int]
+        so.ananke_cuda_error_string.restype = ctypes.c_char_p
+        libs["this"][lib] = so
+    for name, hs in handles:
+        libs[name] = {h[4]: finish_build(h, sass=h[4] == "fused_rhs")
+                      for h in hs}
+    return {name: {"k8": pair["fused_rhs"],
+                   "k8a": next(so for so in pair.values()
+                               if hasattr(so, "ananke_drift_rhs"))}
+            for name, pair in libs.items()}
+
+
+def ab_k8(dev, built, handles):
+    """``--ab-k8 DIR [DIR ...]``: K8 and K8a of this checkout against those
+    of each checkout at DIR (``DIR+PROBE`` a probe variant, :data:`PROBES`;
+    its ``fused_rhs.cu``, ``fused_step.cu`` and headers, built with the
+    port's flags and C interface beside phase 2; ``handles`` from
+    :func:`start_build`, two a DIR): ptxas's registers and spills per
+    kernel, the bits of K8's per-row outputs (f, gx, gh), its summed
+    gradients and K8a's f at every shape of K8_SHAPES, then the per-launch
+    times of K8 and K8a at the first shape (rung 3's: 98,304 agents, Z =
+    64, 2 blocks) in the order DIR..., this, this, ...DIR (the device's
+    time, each launch captured in a CUDA graph, then per call with the
+    host's packing and enqueue), this checkout's K8 on K8_SLAB_COUNTS
+    CTAs, and the wall of phase 7's continuous step with each checkout's
+    K8 in the same order."""
     from ananke_abm_tpu_torch.models.gnn_embed.train import (
         GATODEConfig,
         build_model,
         init_params,
     )
+    from ananke_abm_tpu_torch.ops.cuda import fused_rhs as fr
     from ananke_abm_tpu_torch.ops.cuda.checks import k8_operands
-    from ananke_abm_tpu_torch.ops.cuda.fused_rhs import drift_rhs_and_vjp
 
-    libs = {"this": build_k8(ROOT, "this")}
-    for i, other in enumerate(others):
-        libs[str(other)] = build_k8(other, f"other{i}")
+    libs = k8_libraries(built, handles)
+    others = [w for w in libs if w != "this"]
 
-    def run(which, args):
-        with library_of("fused_rhs", libs[which]):
-            return drift_rhs_and_vjp(*args)
+    def run(which, kernel, args):
+        lib = libs[which][kernel]
+        if kernel == "k8":
+            with library_of("fused_rhs", lib):
+                return fr.drift_rhs_and_vjp(*args)
+        with library_of("fused_rhs", lib), library_of("fused_step", lib):
+            return fr.drift_rhs_fused(*args[:-1])
+
+    def max_d(a, b):
+        return max((u - v).abs().max().item() for (_, u), (_, v) in zip(a, b))
 
     config = GATODEConfig(method="dopri5")
     main_args = None
-    for n, z, nb in K8_SHAPES:
-        model = build_model(dataclasses.replace(config, num_blocks=nb), 7, 8,
-                            device=dev)
-        init_params(model, torch.Generator().manual_seed(nb))
-        args = k8_operands(model, n, z, dev, seed=n)
-        main_args = main_args or args
-        with torch.inference_mode():
-            out = {w: k8_outputs(run(w, args)) for w in libs}
-        for w in others:
-            a, b = out["this"], out[str(w)]
-            same = all(torch.equal(u, v) for (_, u), (_, v) in zip(a, b))
-            diff = max((u - v).abs().max().item()
-                       for (_, u), (_, v) in zip(a, b))
-            print(f"K8 A/B N={n} Z={z} num_blocks={nb}: this against {w}: "
-                  f"same bits {same} (max |d| {diff:.3e})", flush=True)
-    times = {w: [] for w in libs}
-    order = [str(w) for w in others]
     with torch.inference_mode():
-        for w in order + ["this", "this"] + order[::-1]:
-            times[w].append(cuda_ms(lambda: run(w, main_args), 20))
-    for w, t in times.items():
-        print(f"K8 A/B at N={K8_SHAPES[0][0]} Z={K8_SHAPES[0][1]}: {w} "
-              f"{', '.join(f'{m:.3f}' for m in t)} ms per launch",
-              flush=True)
+        for n, z, nb in K8_SHAPES:
+            model = build_model(dataclasses.replace(config, num_blocks=nb), 7,
+                                8, device=dev)
+            init_params(model, torch.Generator().manual_seed(nb))
+            args = k8_operands(model, n, z, dev, seed=n)
+            main_args = main_args or args
+            k8 = {w: k8_outputs(run(w, "k8", args)) for w in libs}
+            k8a = {w: run(w, "k8a", args) for w in libs}
+            torch.cuda.synchronize()
+            for w in others:
+                a, b = k8["this"], k8[w]
+                rows = "; ".join(
+                    f"{name} {torch.equal(u, v)}"
+                    for (name, u), (_, v) in zip(a[:3], b[:3]))
+                print(f"K8 / K8a A/B N={n} Z={z} num_blocks={nb}: this "
+                      f"against {w}: K8 per-row same bits: {rows} (max |d| "
+                      f"{max_d(a[:3], b[:3]):.3e}); summed gradients same "
+                      f"bits {same_bits(a[3:], b[3:])} (max |d| "
+                      f"{max_d(a[3:], b[3:]):.3e}); K8a f same bits "
+                      f"{torch.equal(k8a['this'], k8a[w])} (max |d| "
+                      f"{(k8a['this'] - k8a[w]).abs().max().item():.3e})",
+                      flush=True)
+            del k8, k8a
+    card = card_line()
+    order = others + ["this", "this"] + others[::-1]
+    n, z, nb = K8_SHAPES[0]
+    with torch.inference_mode():
+        for label, kernel, reps in (("K8", "k8", 20), ("K8a", "k8a", 50)):
+            for how, timer in (("device time, CUDA graph", graph_ms),
+                               ("per call, eager", cuda_ms)):
+                times = {w: [] for w in libs}
+                for w in order:
+                    times[w].append(timer(
+                        lambda: run(w, kernel, main_args), reps))
+                print(f"{label} at rung 3's operands (N={n}, Z={z}, "
+                      f"num_blocks={nb}) A/B ({how}): "
+                      + "; ".join(f"{w} {', '.join(f'{m:.3f}' for m in t)}"
+                                  for w, t in times.items())
+                      + f" ms per launch [card {card}]", flush=True)
+        # this checkout's K8 on fewer CTAs: fewer slabs in L2, fewer SMs
+        kept, times = fr.NUM_SLABS, []
+        counts = (kept, *K8_SLAB_COUNTS, kept)
+        try:
+            for c in counts:
+                fr.NUM_SLABS = c
+                times.append(cuda_ms(lambda: run("this", "k8", main_args),
+                                     20))
+        finally:
+            fr.NUM_SLABS = kept
+        print(f"K8 [this] at rung 3's operands by slab count (CTAs): "
+              + ", ".join(f"{c} {m:.3f}" for c, m in zip(counts, times))
+              + f" ms per launch [card {card}]", flush=True)
+    # phase 7's step with each checkout's K8, every one from the same
+    # parameters and optimizer state
+    model, opt, step, _, batch = rung3_continuous(dev)
+    step(*batch)  # warm-up
+    walls = {w: [] for w in libs}
+    for w in order:
+        with state_kept(model, opt), library_of("fused_rhs", libs[w]["k8"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*batch)[0].item()
+            walls[w].append(time.perf_counter() - t0)
+    print(f"phase 7's continuous step at rung 3 A/B: "
+          + "; ".join(f"{w} {', '.join(f'{t:.3f}' for t in ts)}"
+                      for w, ts in walls.items())
+          + f" s (host clock, synced) [card {card}]", flush=True)
 
 
 def ab_dopri5(dev, this_log, handles):
@@ -1581,12 +1704,13 @@ def ab_dopri5(dev, this_log, handles):
                   + f" ms per launch [card {card}]", flush=True)
 
 
-# Probes of ``--ab-train`` and ``--ab-dopri5``: a DIR written ``DIR+NAME``
-# is DIR's ``ananke_abm_tpu_torch/csrc`` with NAME's substitutions (file,
-# regular expression, replacement; each must match), built under
-# ``OUT/variants/``. Each takes one cost out of the day kernels and the
-# decode CE pair (of the stage code on csrc/drift_stage.cuh, K2b before it
-# moved to stage_sm90.cuh, unless named) or out of the float32 DOPRI5 step
+# Probes of ``--ab-train``, ``--ab-dopri5`` and ``--ab-k8``: a DIR written
+# ``DIR+NAME`` is DIR's ``ananke_abm_tpu_torch/csrc`` with NAME's
+# substitutions (file, regular expression, replacement; each must match),
+# built under ``OUT/variants/``. Each takes one cost out of the day
+# kernels, the decode CE pair and the adjoint RHS pair K8 / K8a (of the
+# stage code on csrc/drift_stage.cuh, K2b and K8 before they moved to
+# stage_sm90.cuh, unless named) or out of the float32 DOPRI5 step
 # K5 (``nofma``, ``constw``, ``onebar`` and ``nomath``: fused_dopri5.cu's
 # ``mm``, K5's products before its redesign, which K7's and K6's float32
 # body share); the results are wrong by design and only timed.
@@ -1657,8 +1781,8 @@ PROBES = {
     # K2f in CTAs of one warpgroup, 3 an SM, where it takes 12 warps, 1
     "f4": [("fused_step.cu", r"__launch_bounds__\(32 \* W\)",
             "__launch_bounds__(32 * W, kWarps / W)"),
-           ("fused_step.cu", r"launch<false, true>\(",
-            "launch<false, true, 4>(")],
+           ("fused_step.cu", r"launch<(false, true|Kind::kDay)>\(",
+            r"launch<\1, 4>(")],
 }
 
 
@@ -4008,20 +4132,25 @@ def fused_pair_phases(dev, card):
             if held and not (rel <= rtol and cos > TRAIN_COS_MIN):
                 fail(f"the fused pair's loss or gradient disagrees with "
                      f"{name}")
+    # the device's time (each call captured in a CUDA graph): a call's host
+    # work, the weights' packing and the launch, outlasts its kernel
     with torch.inference_mode():
-        ms = cuda_ms(lambda: drift_rhs_fused(*main_args), 20)
+        ms = graph_ms(lambda: drift_rhs_fused(*main_args), 50)
+        eager_ms = cuda_ms(lambda: drift_rhs_fused(*main_args), 50)
         plain_ms = cuda_ms(lambda: drift_rhs_reference(*main_args), 5)
     fwd, _ = stage_flops(config.agent_dim, config.zone_dim,
                          config.context_dim, config.hidden_dim, ADAPT_ZONES,
                          config.num_blocks)
     flop = fwd * ADAPT_N
     print(f"K8a at N={ADAPT_N} Z={ADAPT_ZONES}: kernel {ms:.3f} ms "
-          f"({flop / ms / 1e9:.1f} TFLOP/s), plain version {plain_ms:.3f} ms "
+          f"({flop / ms / 1e9:.1f} TFLOP/s; device time, CUDA graph), "
+          f"{eager_ms:.3f} ms a call eager, plain version {plain_ms:.3f} ms "
           f"[card {card}]", flush=True)
     # per agent: read x and h, write f
     nbytes = ADAPT_N * 4 * (2 * config.agent_dim + config.context_dim)
-    return kernel_entry("drift_rhs_fused", "fused_rhs.cu", "fused_rhs.py:119",
-                        launches, max_err, ms, plain_ms, flop, nbytes)
+    return kernel_entry("drift_rhs_fused", "fused_step.cu",
+                        "fused_rhs.py:119", launches, max_err, ms, plain_ms,
+                        flop, nbytes)
 
 
 def k5_bf16_checks(dev, n, z, nb, seed, enforce=True, witness=False):

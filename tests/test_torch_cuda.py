@@ -223,9 +223,18 @@ def _k8_flat(out):
     return [*out[:8], *[w for b in out[8] for w in b], out[9], out[10]]
 
 
+# K8's tile heights (96 rows up to 2 blocks, 64 up to 5, 32 beyond) at
+# 1,000 rows, which no tile divides; zones ending half-way into the ring's
+# last 32-zone box (Z = 40, 72, 8: zp = 48, 80, 16) with a last tile of
+# one row
+RHS_TILE_CASES = [(1_000, z, nb) for nb in (1, 2, 5, 8)
+                  for z in (64, 500, 2_048)]
+RAGGED_CASES = [(97, 40, 2), (65, 72, 3), (33, 8, 8)]
+
+
 @pytest.mark.parametrize("n,num_zones,num_blocks", [
-    (4_096, 64, 2), (1_000, 500, 1), (4_096, 2_048, 2), (17, 5, 1),
-    (200, 64, 8),
+    (4_096, 64, 2), (4_096, 2_048, 2), (17, 5, 1), (200, 64, 8),
+    *RHS_TILE_CASES, *RAGGED_CASES,
 ])
 def test_adjoint_kernel_matches_plain_version(cuda, n, num_zones,
                                               num_blocks):
@@ -305,7 +314,7 @@ def test_auto_adjoint_raises_where_the_kernel_cannot_serve(cuda, change,
 
 
 @pytest.mark.parametrize("n,num_zones,num_blocks", [
-    (4_096, 64, 2), (17, 5, 1), (200, 64, 8),
+    (4_096, 64, 2), (17, 5, 1), (200, 64, 8), *RHS_TILE_CASES,
 ])
 def test_drift_rhs_fused_matches_plain_version(cuda, n, num_zones,
                                                num_blocks):

@@ -89,3 +89,22 @@ def test_ab_checkout_builds_a_probe_variant_and_refuses_a_stale_one(
     (csrc / "drift_stage.cuh").write_text("  *p += v;\n")
     with pytest.raises(SystemExit, match="no match"):
         chip_smoke.ab_checkout(f"{tmp_path / 'co'}+noslab")
+
+
+@pytest.mark.parametrize("probe", sorted(chip_smoke.PROBES))
+def test_probes_match_this_checkouts_sources(tmp_path, monkeypatch, probe):
+    """``.+PROBE`` (for ``--ab-k8``: ``constb``, ``noslab``, ``nomath``,
+    ``noproducts`` on K8's and K8a's sources) is this checkout's kernel
+    sources with every substitution of the probe made: each pattern still
+    matches them (a stale one would be refused), and the variant differs
+    from them only in the files the probe names."""
+    monkeypatch.setattr(chip_smoke, "OUT", tmp_path / "out")
+    csrc = ROOT / "ananke_abm_tpu_torch" / "csrc"
+    name, root = chip_smoke.ab_checkout(f"{ROOT}+{probe}")
+    assert name == f"{ROOT}+{probe}"
+    out = root / "ananke_abm_tpu_torch" / "csrc"
+    changed = {p.name for p in csrc.iterdir()
+               if p.read_text() != (out / p.name).read_text()}
+    assert changed == {f for f, _, _ in chip_smoke.PROBES[probe]}
+    assert {"fused_rhs.cu", "fused_step.cu"} <= {p.name
+                                                 for p in out.iterdir()}
