@@ -1,25 +1,14 @@
-// One GAT-ODE drift evaluation ("stage") as a device function for a warp's
-// 16 agent rows of a tile of W warps, for K5's bf16 branch
-// (fused_dopri5.cu), and the helpers that the Hopper stage and its VJP
-// (stage_sm90.cuh: K2b, K6's bf16 body, K7-bf16, K8) and the decode CE
-// kernels share: fragment loads and stores, the slab layout of the summed
-// gradients, the column sums and the slab reduction.
+// The helpers that the Hopper stage and its VJP (stage_sm90.cuh: K2b, K6's
+// and K7's bf16 body, K8), the float32 DOPRI5 kernels (fused_dopri5.cu) and
+// the decode CE kernels (fused_train.cu) share: ldmatrix and shared-memory
+// fragment loads and stores, A and C fragments of a warp's rows from and to
+// device memory, fragment-order scratch arrays, the column sums, the slab
+// layout of the summed gradients, and the drift's bf16 weights as the C
+// entry points take them.
 //
-// The math is the reference's stage (_stage_math in
-// ananke_abm_tpu/ops/pallas/fused_step.py) with every bf16 rounding point:
-// bf16 operands, f32 sums, a max-free softmax clamped at 80 and normalised
-// after the context product. stage_sm90.cuh keeps it, rounding point for
-// rounding point, with its weights in a ring shared by the CTA's warps.
-//
-// - Per-row products run on mma.sync m16n8k16, activations in registers
-//   from one product into the next, B fragments read from weights in device
-//   memory (L2-resident), (out, in) rows.
-// - The forward's intermediates go to shared memory per tile (feats =
-//   [bf16(x), bf16(ctx)], bf16(q), the chain of block inputs bf16(z)), as a
-//   VJP of the stage would read them.
-// - Summed gradients go into a CTA's own slab in device memory with plain
-//   loads and stores, then the slabs are summed in CTA order: no atomics,
-//   so the same operands give the same bits.
+// Summed gradients go into a CTA's own slab in device memory with plain
+// loads and stores, then the slabs are summed in CTA order
+// (reduce_slabs.cuh): no atomics, so the same operands give the same bits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,6 +17,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "reduce_slabs.cuh"
 
 namespace ananke {
 
@@ -206,38 +196,6 @@ __device__ __forceinline__ void flush_colsum(const float* colsum, float* slab,
   }
 }
 
-// out[i] = sum over CTAs, in order, of slab[c][i]
-__global__ void reduce_slabs(const float* slab, float* out, long size,
-                             int num_ctas) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= size) return;
-  float s = 0.f;
-  for (int c = 0; c < num_ctas; ++c) s += slab[(size_t)c * size + i];
-  out[i] = s;
-}
-
-inline int launch_reduce_slabs(const float* slab, float* out, long size,
-                               int num_ctas, cudaStream_t s) {
-  const int threads = 256;
-  reduce_slabs<<<(unsigned)((size + threads - 1) / threads), threads, 0, s>>>(
-      slab, out, size, num_ctas);
-  return (int)cudaGetLastError();
-}
-
-// shared-memory row strides (bf16): the width plus 8, so that the 8 rows
-// an ldmatrix or a fragment access touches fall in distinct banks
-template <int DA, int DZ, int DC, int H>
-struct Layout {
-  static constexpr int SF = DA + DZ + 8;  // feats
-  static constexpr int SQ = DZ + 8;       // q16
-  static constexpr int SH = H + 8;        // block chain
-  // bytes of the forward's intermediates (feats, q, the chain) for `rows`
-  // rows and nb blocks
-  static size_t bytes_forward(int rows, int nb) {
-    return (size_t)rows * sizeof(bf16) * (SF + SQ + (size_t)(nb + 1) * SH);
-  }
-};
-
 // a slab's layout (floats): gze (Z, DZ) | gtf (tf_rows, H) | gWq (DA, DZ) |
 // gW1xc (DA+DZ, H) | gW1h (DC, H) | per block gWr1 (H, H), gbr1 (H),
 // gWr2 (H, H), gbr2 (H) | gW3 (H, DA) | gb3 (DA)
@@ -293,172 +251,6 @@ inline void set_weights(StageWeights& w, const void* const* p) {
   w.w3T = static_cast<const bf16*>(p[9]);
   w.w3 = static_cast<const bf16*>(p[10]);
   w.b3 = static_cast<const bf16*>(p[11]);
-}
-
-// a tile's shared memory for the stage (Layout::bytes_forward)
-struct StageSmem {
-  bf16* feats;  // [ROWS][SF]
-  bf16* q;      // [ROWS][SQ]
-  bf16* chain;  // (nb + 1) x [ROWS][SH]
-};
-
-// the tile's stage buffers from `raw` on: feats, q, the chain
-template <int DA, int DZ, int DC, int H, int W>
-__device__ __forceinline__ StageSmem stage_smem_forward(unsigned char* raw) {
-  using L = Layout<DA, DZ, DC, H>;
-  constexpr int ROWS = 16 * W;
-  StageSmem s;
-  s.feats = reinterpret_cast<bf16*>(raw);
-  s.q = s.feats + ROWS * L::SF;
-  s.chain = s.q + ROWS * L::SQ;
-  return s;
-}
-
-// k = stage(xb): the drift at the bf16 stage input `xa` of the warp's 16
-// rows, with h's A fragments `ha` and the time row `tf` (H floats, Dense_0's
-// time rows and bias). Leaves feats, q and the block chain of the warp's
-// rows in shared memory and returns the softmax's row normalisers.
-// Warp-local: no block barrier.
-template <int DA, int DZ, int DC, int H, int W>
-__device__ __forceinline__ void stage_forward(
-    const StageWeights& w, const StageSmem& sm,
-    const uint32_t (&xa)[DA / 16][4], const uint32_t (&ha)[DC / 16][4],
-    const float* tf, float (&k)[DA / 8][4], float& inv_a, float& inv_b,
-    int wr0, int g, int t) {
-  constexpr int ROWS = 16 * W;
-  constexpr int NX = DA / 8;
-  constexpr int NZ = DZ / 8, KZ = DZ / 16;
-  constexpr int NH = H / 8, KH = H / 16;
-  constexpr int DF = DA + DZ, KF = DF / 16;
-  using L = Layout<DA, DZ, DC, H>;
-  static_assert(DA % 16 == 0 && DZ % 16 == 0 && DC % 16 == 0 &&
-                    H % 16 == 0,
-                "widths must be multiples of 16");
-  const int nb = w.num_blocks;
-  const float scale = 1.0f / sqrtf((float)DZ);
-  bf16* chain_out = sm.chain + (size_t)nb * ROWS * L::SH;
-
-  sts_a<DA>(xa, sm.feats + wr0 * L::SF, L::SF, g, t);
-  uint32_t qa[KZ][4];
-  {
-    float q[NZ][4];
-    zero(q);
-#pragma unroll
-    for (int j = 0; j < NZ; ++j)
-      mma_nblocks<DA, 1>(q, j, xa, w.wqT + (size_t)8 * j * DA, g, t);
-    c_to_a<DZ>(q, qa);
-    sts_a<DZ>(qa, sm.q + wr0 * L::SQ, L::SQ, g, t);
-  }
-
-  // ctx = softmax(q ze^T * scale) @ ze, max-free, by zone chunks
-  {
-    float ctx[NZ][4];
-    zero(ctx);
-    float rs_a = 0.f, rs_b = 0.f;
-    for (int z0 = 0; z0 < w.zp; z0 += 16) {
-      float sc[2][4];
-      zero(sc);
-      mma_nblocks<DZ, 2>(sc, 0, qa, w.ze + (size_t)z0 * DZ, g, t);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int za = z0 + 2 * t + (c & 1);
-        sc[0][c] = za < w.z ? expf(fminf(sc[0][c] * scale, 80.f)) : 0.f;
-        sc[1][c] = za + 8 < w.z ? expf(fminf(sc[1][c] * scale, 80.f)) : 0.f;
-      }
-      rs_a += (sc[0][0] + sc[0][1]) + (sc[1][0] + sc[1][1]);
-      rs_b += (sc[0][2] + sc[0][3]) + (sc[1][2] + sc[1][3]);
-      uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]),
-                        pack_bf16(sc[0][2], sc[0][3]),
-                        pack_bf16(sc[1][0], sc[1][1]),
-                        pack_bf16(sc[1][2], sc[1][3])};
-      const bf16* zt = w.zeT + z0;
-#pragma unroll
-      for (int j = 0; j < NZ; ++j) {
-        const bf16* rowp = zt + (size_t)(8 * j + g) * w.zp + 2 * t;
-        mma(ctx[j], pa, ldg32(rowp), ldg32(rowp + 8));
-      }
-    }
-    rs_a += __shfl_xor_sync(0xffffffffu, rs_a, 1);
-    rs_a += __shfl_xor_sync(0xffffffffu, rs_a, 2);
-    rs_b += __shfl_xor_sync(0xffffffffu, rs_b, 1);
-    rs_b += __shfl_xor_sync(0xffffffffu, rs_b, 2);
-    inv_a = 1.0f / rs_a;
-    inv_b = 1.0f / rs_b;
-#pragma unroll
-    for (int j = 0; j < NZ; ++j) {
-      ctx[j][0] *= inv_a; ctx[j][1] *= inv_a;
-      ctx[j][2] *= inv_b; ctx[j][3] *= inv_b;
-    }
-    uint32_t ca[KZ][4];
-    c_to_a<DZ>(ctx, ca);
-    sts_a<DZ>(ca, sm.feats + wr0 * L::SF + DA, L::SF, g, t);
-  }
-
-  // z = tanh(feats @ W1xc + bf16(h) @ W1h + tf)
-  float zz[NH][4];
-  {
-    uint32_t fa[KF][4];
-    __syncwarp();
-    lds_a<DF>(fa, sm.feats + wr0 * L::SF, L::SF, g, t);
-#pragma unroll
-    for (int j = 0; j < NH; ++j) {
-      float acc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
-      float hp[1][4] = {{0.f, 0.f, 0.f, 0.f}};
-      mma_nblocks<DF, 1>(acc, 0, fa, w.w1xcT + (size_t)8 * j * DF, g, t);
-      mma_nblocks<DC, 1>(hp, 0, ha, w.w1hT + (size_t)8 * j * DC, g, t);
-      const float2 tv = *reinterpret_cast<const float2*>(tf + 8 * j + 2 * t);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        zz[j][c] = tanhf((acc[0][c] + hp[0][c]) + ((c & 1) ? tv.y : tv.x));
-    }
-  }
-
-  // residual blocks; the chain keeps each block's bf16 input
-  for (int b = 0; b < nb; ++b) {
-    const bf16* wr1T = w.wrT + (size_t)(2 * b) * H * H;
-    const bf16* wr2T = wr1T + (size_t)H * H;
-    const bf16* br1 = w.br + (size_t)(2 * b) * H;
-    const bf16* br2 = br1 + H;
-    uint32_t za[KH][4];
-    c_to_a<H>(zz, za);
-    sts_a<H>(za, sm.chain + (size_t)b * ROWS * L::SH + wr0 * L::SH, L::SH,
-             g, t);
-    uint32_t rta[KH][4];
-#pragma unroll
-    for (int s = 0; s < KH; ++s) {
-      float eo[2][4];
-      zero(eo);
-      mma_nblocks<H, 2>(eo, 0, za, wr1T + (size_t)16 * s * H, g, t);
-      const float2 be = unpack_bf16(ldg32(br1 + 16 * s + 2 * t));
-      const float2 bo = unpack_bf16(ldg32(br1 + 16 * s + 8 + 2 * t));
-      rta[s][0] = pack_bf16(tanhf(eo[0][0] + be.x), tanhf(eo[0][1] + be.y));
-      rta[s][1] = pack_bf16(tanhf(eo[0][2] + be.x), tanhf(eo[0][3] + be.y));
-      rta[s][2] = pack_bf16(tanhf(eo[1][0] + bo.x), tanhf(eo[1][1] + bo.y));
-      rta[s][3] = pack_bf16(tanhf(eo[1][2] + bo.x), tanhf(eo[1][3] + bo.y));
-    }
-#pragma unroll
-    for (int j = 0; j < NH; ++j) {
-      float acc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
-      mma_nblocks<H, 1>(acc, 0, rta, wr2T + (size_t)8 * j * H, g, t);
-      const float2 bv = unpack_bf16(ldg32(br2 + 8 * j + 2 * t));
-      zz[j][0] = tanhf(zz[j][0] + (acc[0][0] + bv.x));
-      zz[j][1] = tanhf(zz[j][1] + (acc[0][1] + bv.y));
-      zz[j][2] = tanhf(zz[j][2] + (acc[0][2] + bv.x));
-      zz[j][3] = tanhf(zz[j][3] + (acc[0][3] + bv.y));
-    }
-  }
-  {
-    uint32_t za[KH][4];
-    c_to_a<H>(zz, za);
-    sts_a<H>(za, chain_out + wr0 * L::SH, L::SH, g, t);
-    zero(k);
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      mma_nblocks<H, 1>(k, j, za, w.w3T + (size_t)8 * j * H, g, t);
-      const float2 bv = unpack_bf16(ldg32(w.b3 + 8 * j + 2 * t));
-      k[j][0] += bv.x; k[j][1] += bv.y; k[j][2] += bv.x; k[j][3] += bv.y;
-    }
-  }
 }
 
 }  // namespace ananke

@@ -1,9 +1,12 @@
 // The discrete adjoint's kernels on Hopper (sm_90a): one DOPRI5 5(4) step
-// of the GAT-ODE drift (K5), the VJP of one accepted step (K7) and the whole
-// backward over every accepted step (K6).
+// of the GAT-ODE drift at float32 (K5), the VJP of one accepted step (K7)
+// and the whole backward over every accepted step (K6). K5 at bf16 is the
+// serving kernels' template's fifth kind, in fused_step.cu
+// (ananke_dopri5_step_bf16 there).
 //
 // Replaces the Pallas TPU kernels
-//   K5 ananke_abm_tpu/ops/pallas/fused_dopri5.py::dopri5_step_fused
+//   K5 ananke_abm_tpu/ops/pallas/fused_dopri5.py::dopri5_step_fused (at
+//     precision="f32")
 //   K7 ananke_abm_tpu/ops/pallas/fused_dopri5.py::dopri5_step_vjp_fused
 //   K6 ananke_abm_tpu/ops/pallas/fused_dopri5.py::dopri5_backward_fused
 // (stage math and stage VJP: _stage_math and _stage_vjp_math in
@@ -36,11 +39,12 @@
 // (each operand split into two TF32 parts, three products, float32 sums:
 // the float32 class; the K5 section below).
 // bf16 (K7 and K6 at precision "bf16", the adaptive trainer's backward at
-// bench rung 3; K5 at "bf16", the forward the reference keeps for loose
-// tolerances, rtol >= ~1e-3): the stage and its VJP of drift_stage.cuh
-// (K8's and K2b's), bf16 operands on mma.sync with float32 sums at the
-// reference's rounding points; a bf16 backward replays the forward's
-// steps, so the noise moves the gradient, not the step sequence.
+// bench rung 3): the stage and its VJP of stage_sm90.cuh (K8's and K2b's),
+// bf16 operands on mma.sync with float32 sums at the reference's rounding
+// points; a bf16 backward replays the forward's steps, so the noise moves
+// the gradient, not the step sequence. (K5 at "bf16", the forward the
+// reference keeps for loose tolerances, rtol >= ~1e-3, runs the same
+// stage math on the serving template: fused_step.cu.)
 //
 // What bounds them on the card: operations. One stage is ~92 kMAC per agent
 // at the shipping widths and Z = 64, its VJP about twice that; the bytes
@@ -105,8 +109,6 @@
 //   * a slab read-modify-write per 64 rows per product: once per 96 rows,
 //     by 16 x 32 output blocks whose slab values are read in one round trip
 //     before their products; the zones' gradient once per 32-zone box.
-//   K5 at bf16 keeps drift_stage.cuh's forward (4 warps; 2 at 8 blocks)
-//   with its warp's x0 and k_1 .. k_7 in shared memory.
 // - Neither can keep six stages of intermediates (~24 KB per agent): each
 //   keeps the stage outputs k_j (and the cotangents) and recomputes stage
 //   i's intermediates just before its VJP: 11 stage forwards and 6 stage
@@ -134,6 +136,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dopri5_tableau.cuh"
 #include "drift_stage.cuh"
 #include "stage_sm90.cuh"
 
@@ -148,35 +151,11 @@ constexpr int kZC = 32;   // zones per attention chunk
 constexpr int kMaxBlocks = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
-// the Dormand-Prince tableau, each weight rounded to float32 where used
-__constant__ float cA[7][6] = {
-    {0, 0, 0, 0, 0, 0},
-    {(float)(1.0 / 5), 0, 0, 0, 0, 0},
-    {(float)(3.0 / 40), (float)(9.0 / 40), 0, 0, 0, 0},
-    {(float)(44.0 / 45), (float)(-56.0 / 15), (float)(32.0 / 9), 0, 0, 0},
-    {(float)(19372.0 / 6561), (float)(-25360.0 / 2187),
-     (float)(64448.0 / 6561), (float)(-212.0 / 729), 0, 0},
-    {(float)(9017.0 / 3168), (float)(-355.0 / 33), (float)(46732.0 / 5247),
-     (float)(49.0 / 176), (float)(-5103.0 / 18656), 0},
-    {(float)(35.0 / 384), 0, (float)(500.0 / 1113), (float)(125.0 / 192),
-     (float)(-2187.0 / 6784), (float)(11.0 / 84)},
-};
-__constant__ float cB5[7] = {(float)(35.0 / 384), 0, (float)(500.0 / 1113),
-                             (float)(125.0 / 192), (float)(-2187.0 / 6784),
-                             (float)(11.0 / 84), 0};
-__constant__ float cBE[7] = {
-    (float)(35.0 / 384 - 5179.0 / 57600), 0,
-    (float)(500.0 / 1113 - 7571.0 / 16695),
-    (float)(125.0 / 192 - 393.0 / 640),
-    (float)(-2187.0 / 6784 + 92097.0 / 339200),
-    (float)(11.0 / 84 - 187.0 / 2100), (float)(-1.0 / 40)};
-__constant__ float cD[7] = {
-    (float)(-12715105075.0 / 11282082432.0), 0,
-    (float)(87487479700.0 / 32700410799.0),
-    (float)(-10690763975.0 / 1880347072.0),
-    (float)(701980252875.0 / 199316789632.0),
-    (float)(-1453857185.0 / 822651844.0),
-    (float)(69997945.0 / 29380423.0)};
+// the Dormand-Prince tableau (dopri5_tableau.cuh)
+using ananke::cA;
+using ananke::cB5;
+using ananke::cBE;
+using ananke::cD;
 
 // the drift's float32 weights, each matrix (in, out) and its transpose
 struct Weights {
@@ -1325,9 +1304,7 @@ constexpr int kWarpFloats = kGhp + (H / 8) * 4 * 32;
 static_assert(DC == DA, "the gh carry takes one DA-wide array");
 
 using ananke::bf16;
-using ananke::StageSmem;
 using ananke::StageWeights;
-using BLayout = ananke::Layout<DA, DZ, DC, H>;
 using HLayout = ananke::sm90::Layout<DA, DZ, DC, H>;
 template <int W>
 using HRing = ananke::sm90::Ring<DA, DZ, DC, H, W>;
@@ -1336,8 +1313,6 @@ using HRing = ananke::sm90::Ring<DA, DZ, DC, H, W>;
 // shared memory beside the ring (HLayout::bytes): 6 (96 rows) up to 2
 // blocks, 4 up to 5, 2 beyond
 inline int vjp_bf16_warps(int nb) { return nb <= 2 ? 6 : nb <= 5 ? 4 : 2; }
-// warps of K5-bf16's tile (drift_stage.cuh's forward): 4, 2 at 8 blocks
-inline int k5_bf16_warps(int nb) { return nb <= 7 ? 4 : 2; }
 
 // xa = bf16(x0 + sum_j (h a_st,j) k_j), summed in the tableau's order
 __device__ __forceinline__ void bf16_stage_input(uint32_t (&xa)[DA / 16][4],
@@ -1646,136 +1621,6 @@ __global__ void __launch_bounds__(32 * W, 1)
     ananke::stg_rows_c<DC / 8>(v, p.gh, r.ra, r.rb, r.va, r.vb, r.t);
   }
   HRing<W>::drain();
-}
-
-// ---- K5 at bf16 -------------------------------------------------------------
-//
-// The step of K5 with the bf16 stage math of drift_stage.cuh (the reference's
-// precision="bf16": every stage activation and weight narrowed to bf16,
-// float32 sums), the tableau, y1, f1, err (or its masked sum of scaled
-// squares) and r5 in float32 as K5's float32 body forms them. A tile is 16 W
-// rows, warp w owns rows 16 w .. 16 w + 15 end to end, as the bf16 step
-// VJP's tiles: the stage inputs are bf16_stage_input's, each stage is
-// stage_forward, and the warp keeps its rows' step state in shared memory in
-// fragment order, kStepFr floats: 0 x0 | 1-7 k_1 .. k_7. No block barrier
-// but the CTA's error sum at the end.
-
-constexpr int kStepFr = 8 * kFX;  // floats of a warp's step state
-
-struct StepBf16Params {
-  StageWeights w;
-  const float* tf;  // (7, H)
-  const float* x;   // (n, DA)
-  const float* f0;  // (n, DA)
-  const float* h;   // (n, DC)
-  float* y1;        // (n, DA)
-  float* f1;        // (n, DA)
-  float* err;       // (n, DA), unless err_stats
-  float* r5;        // (n, DA)
-  float* partial;   // (gridDim.x): each CTA's sum of scaled squares
-  size_t state_off; // bytes of shared memory before the warps' step states
-  int n, err_stats;
-  float hstep, rtol, atol;
-};
-
-// bytes of K5-bf16's shared memory: the stage forward's buffers, then the
-// warps' step states
-inline size_t step_bf16_smem(int W, int nb) {
-  return BLayout::bytes_forward(16 * W, nb) +
-         (size_t)W * kStepFr * sizeof(float);
-}
-
-template <int W>
-__global__ void __launch_bounds__(32 * W, 1)
-    dopri5_step_bf16_kernel(const StepBf16Params p) {
-  constexpr int ROWS = 16 * W, NX = DA / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float red[32 * W];
-  const StageSmem sm = ananke::stage_smem_forward<DA, DZ, DC, H, W>(smem_raw);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3, wr0 = warp * 16;
-  float* fr = reinterpret_cast<float*>(smem_raw + p.state_off) +
-              (size_t)warp * kStepFr;
-  const float hs = p.hstep;
-  const int n_tiles = (p.n + ROWS - 1) / ROWS;
-  float sq = 0.f;
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long ra = (long)tile * ROWS + wr0 + g, rb = ra + 8;
-    const bool va = ra < p.n, vb = rb < p.n;
-    uint32_t ha[DC / 16][4];
-    ananke::ldg_rows_a<DC>(ha, p.h, ra, rb, va, vb, t);
-    float x0[NX][4], v[NX][4];
-    ananke::ldg_rows_c<NX>(x0, p.x, ra, rb, va, vb, t);
-    ananke::frag_st<NX>(x0, fr, lane);
-    ananke::ldg_rows_c<NX>(v, p.f0, ra, rb, va, vb, t);
-    ananke::frag_st<NX>(v, fr + kFX, lane);
-    for (int st = 1; st < 7; ++st) {
-      uint32_t xa[DA / 16][4];
-      bf16_stage_input(xa, fr, st, hs, lane);
-      float k[NX][4], ia, ib;
-      ananke::stage_forward<DA, DZ, DC, H, W>(p.w, sm, xa, ha, p.tf + st * H,
-                                              k, ia, ib, wr0, g, t);
-      ananke::frag_st<NX>(k, fr + (1 + st) * kFX, lane);
-    }
-    // the tableau in the reference's order, each operation rounded alone
-    float inc[NX][4], e[NX][4], d[NX][4];
-    ananke::zero(inc);
-    ananke::zero(e);
-    ananke::zero(d);
-    for (int j = 0; j < 7; ++j) {
-      ananke::frag_ld<NX>(v, fr + (1 + j) * kFX, lane);
-#pragma unroll
-      for (int q = 0; q < NX; ++q)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (cB5[j] != 0.f)
-            inc[q][c] = __fadd_rn(inc[q][c], __fmul_rn(cB5[j], v[q][c]));
-          if (cBE[j] != 0.f)
-            e[q][c] = __fadd_rn(e[q][c], __fmul_rn(cBE[j], v[q][c]));
-          if (cD[j] != 0.f)
-            d[q][c] = __fadd_rn(d[q][c], __fmul_rn(cD[j], v[q][c]));
-        }
-    }
-    // v holds k_7 = f1
-#pragma unroll
-    for (int q = 0; q < NX; ++q)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        inc[q][c] = __fadd_rn(x0[q][c], __fmul_rn(hs, inc[q][c]));  // y1
-        e[q][c] = __fmul_rn(hs, e[q][c]);
-        d[q][c] = __fmul_rn(hs, d[q][c]);                            // r5
-      }
-    ananke::stg_rows_c<NX>(inc, p.y1, ra, rb, va, vb, t);
-    ananke::stg_rows_c<NX>(v, p.f1, ra, rb, va, vb, t);
-    ananke::stg_rows_c<NX>(d, p.r5, ra, rb, va, vb, t);
-    if (p.err_stats) {
-#pragma unroll
-      for (int q = 0; q < NX; ++q)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          // elements 0, 1 of a fragment are row ra's, 2, 3 row rb's
-          if (c < 2 ? va : vb) {
-            const float esc = __fdiv_rn(
-                e[q][c],
-                __fadd_rn(p.atol,
-                          __fmul_rn(p.rtol, fmaxf(fabsf(x0[q][c]),
-                                                  fabsf(inc[q][c])))));
-            sq = __fadd_rn(sq, __fmul_rn(esc, esc));
-          }
-        }
-    } else {
-      ananke::stg_rows_c<NX>(e, p.err, ra, rb, va, vb, t);
-    }
-  }
-  // the CTA's sum, in a fixed order
-  red[threadIdx.x] = sq;
-  __syncthreads();
-  for (int m = 16 * W; m >= 1; m >>= 1) {
-    if (threadIdx.x < m) red[threadIdx.x] += red[threadIdx.x + m];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) p.partial[blockIdx.x] = red[0];
 }
 
 // ---- K6 -------------------------------------------------------------------
@@ -2092,17 +1937,6 @@ int launch_vjp_bf16(const VjpBf16Params& p, int num_ctas, cudaStream_t s) {
       s);
 }
 
-template <int W>
-int launch_step_bf16(StepBf16Params p, int num_ctas, cudaStream_t s) {
-  auto* kernel = dopri5_step_bf16_kernel<W>;
-  const size_t bytes = step_bf16_smem(W, p.w.num_blocks);
-  p.state_off = BLayout::bytes_forward(16 * W, p.w.num_blocks);
-  int err = set_smem(kernel, bytes);
-  if (err) return err;
-  kernel<<<num_ctas, 32 * W, bytes, s>>>(p);
-  return (int)cudaGetLastError();
-}
-
 template <class Body>
 int launch_backward(typename Body::Params p, int nb, int num_ctas,
                     cudaStream_t s) {
@@ -2149,12 +1983,10 @@ extern "C" {
 
 // Agent rows per tile of a kernel's body: kind 0 K5 (128), kind 1 the
 // float32 step VJP (32 up to 4 residual blocks, 16 beyond: its chain of
-// block activations must fit in shared memory), kind 2 the bf16 step VJP
-// (96 up to 2 blocks, 64 up to 5, 32 beyond: vjp_bf16_warps) and kind 3 K5
-// at bf16 (64, or 32 at 8 blocks).
+// block activations must fit in shared memory) and kind 2 the bf16 step VJP
+// (96 up to 2 blocks, 64 up to 5, 32 beyond: vjp_bf16_warps).
 int ananke_dopri5_tile_rows(int num_blocks, int kind) {
   if (kind == 2) return 16 * vjp_bf16_warps(num_blocks);
-  if (kind == 3) return 16 * k5_bf16_warps(num_blocks);
   if (kind == 0) return k5::kRows;
   return kind == 1 && num_blocks > 4 ? 16 : 32;
 }
@@ -2222,53 +2054,6 @@ int ananke_dopri5_step(
   if (e) return e;
   return ananke::launch_reduce_slabs(
       p.partial, static_cast<float*>(err_sum), 1, ctas, s);
-}
-
-// K5 at bf16 on `stream`: as ananke_dopri5_step, but the 12 bf16 weights
-// of drift_stage.cuh's set_weights and zones padded to a multiple of 16
-// (the order of the bf16 step VJP's operands), tiles of
-// ananke_dopri5_tile_rows(num_blocks, 3) rows.
-int ananke_dopri5_step_bf16(
-    const void* x, const void* f0, const void* h, const void* ze,
-    const void* zeT, const void* tf, const void* wqT, const void* wq,
-    const void* w1xcT, const void* w1xc, const void* w1hT, const void* w1h,
-    const void* wrT, const void* wr, const void* br, const void* w3T,
-    const void* w3, const void* b3, void* y1, void* f1, void* err, void* r5,
-    void* partial, void* err_sum, int n, int z, int zp, int num_blocks,
-    int num_ctas, int err_stats, float hstep, float rtol, float atol, int da,
-    int dz, int dc, int hdim, void* stream) {
-  const int rows = ananke_dopri5_tile_rows(num_blocks, 3);
-  const int n_tiles = (n + rows - 1) / rows;
-  if (!widths_ok(da, dz, dc, hdim) || num_blocks < 1 ||
-      num_blocks > kMaxBlocks || n < 1 || z < 1 || zp % 16 != 0 || zp < z ||
-      num_ctas < 1 || num_ctas > n_tiles) {
-    return (int)cudaErrorInvalidValue;
-  }
-  StepBf16Params p;
-  const void* wts[12] = {wqT, wq, w1xcT, w1xc, w1hT, w1h,
-                         wrT, wr, br, w3T, w3, b3};
-  set_weights_bf16(p.w, wts, ze, zeT, z, zp, num_blocks);
-  p.tf = static_cast<const float*>(tf);
-  p.x = static_cast<const float*>(x);
-  p.f0 = static_cast<const float*>(f0);
-  p.h = static_cast<const float*>(h);
-  p.y1 = static_cast<float*>(y1);
-  p.f1 = static_cast<float*>(f1);
-  p.err = static_cast<float*>(err);
-  p.r5 = static_cast<float*>(r5);
-  p.partial = static_cast<float*>(partial);
-  p.n = n;
-  p.err_stats = err_stats;
-  p.hstep = hstep;
-  p.rtol = rtol;
-  p.atol = atol;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int e = k5_bf16_warps(num_blocks) == 4
-                    ? launch_step_bf16<4>(p, num_ctas, s)
-                    : launch_step_bf16<2>(p, num_ctas, s);
-  if (e) return e;
-  return ananke::launch_reduce_slabs(
-      p.partial, static_cast<float*>(err_sum), 1, num_ctas, s);
 }
 
 // K7 on `stream` at float32 (bf16 = 0: the 12 float32 weights of

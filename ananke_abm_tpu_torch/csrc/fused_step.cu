@@ -1,5 +1,6 @@
-// The GAT-ODE's RK4 rollout kernels and its drift on Hopper (sm_90a), one
-// template for all four, for every agent in one launch:
+// The GAT-ODE's RK4 rollout kernels, its drift and its bf16 DOPRI5 step on
+// Hopper (sm_90a), one template for all five, for every agent in one
+// launch:
 // - K1: one output interval, `substeps` RK4 steps of the drift, then the
 //   decode and its first-index argmax (ananke_rk4_interval_decode);
 // - K0: one RK4 step, the same stage code with the decode compiled out
@@ -10,19 +11,27 @@
 //   x0 and the carry after every substep stored into xs (S + 1, N, DA);
 // - K8a: one drift evaluation, f = stage(bf16(x)) at one time row, the
 //   continuous adjoint's forward right-hand side (ananke_drift_rhs): one
-//   stage, no RK4 combination, its derivative stored.
+//   stage, no RK4 combination, its derivative stored;
+// - K5-bf16: one DOPRI5 5(4) step at precision "bf16"
+//   (ananke_dopri5_step_bf16): from (x0, f0 = k_1) the six stages k_2 ..
+//   k_7, each at bf16(x0 + sum_j (h a_sj) k_j), then in float32 y1, f1 =
+//   k_7, r5 and the embedded error (or each CTA's sum of its scaled
+//   squares), every operation rounded alone in the reference's order.
 //
 // Replaces the Pallas TPU kernels
 //   K1 ananke_abm_tpu/ops/pallas/fused_step.py::rk4_interval_decode_fused
 //   K0 ananke_abm_tpu/ops/pallas/fused_step.py::rk4_step_fused
 //   K2f ananke_abm_tpu/ops/pallas/fused_train.py::_day_fwd_impl
 //   K8a ananke_abm_tpu/ops/pallas/fused_rhs.py::drift_rhs_fused
+//   K5-bf16 ananke_abm_tpu/ops/pallas/fused_dopri5.py::dopri5_step_fused
+//     at precision="bf16"
 // (stage math: _stage_math in fused_step.py). The plain PyTorch versions
 // are ananke_abm_tpu_torch/ops/cuda/fused_step.py::
 // rk4_interval_decode_reference and ::rk4_step_reference,
-// ananke_abm_tpu_torch/ops/cuda/fused_train.py::day_forward_reference and
-// ananke_abm_tpu_torch/ops/cuda/fused_rhs.py::drift_rhs_reference. K0 is K1
-// with `stages` = 4 and no decode.
+// ananke_abm_tpu_torch/ops/cuda/fused_train.py::day_forward_reference,
+// ananke_abm_tpu_torch/ops/cuda/fused_rhs.py::drift_rhs_reference and
+// ananke_abm_tpu_torch/ops/cuda/fused_dopri5.py::dopri5_step_reference. K0
+// is K1 with `stages` = 4 and no decode.
 //
 // What bounds it on the card. Per agent and interval the kernel does ~1.5
 // MFLOP of bf16 matmul work (8 drift evaluations of ~92k multiply-adds at
@@ -61,6 +70,14 @@
 //   168 a thread for 12 warps an SM. Dense_0's h-row product is redone
 //   each stage from the W1 box (the same bits; holding it would cost 512
 //   bytes a row).
+// - K5-bf16's step state (x0 and k_1 .. k_6, 1 KB a row in float32) does
+//   not fit beside the ring for 12 warps. k_7 feeds no stage input (the
+//   step's outputs are formed in registers once it is known), and x0 and
+//   k_1 are the launch's inputs x and f0: each warp keeps k_2 .. k_6 in
+//   shared memory (10 KB) and reads x0 and k_1 again from the inputs (L2)
+//   where a stage input or the outputs need them. The error sum is one per
+//   CTA (a tile of 16 kWarps rows), summed in CTA order afterwards
+//   (reduce_slabs): repeated launches give the same bits.
 // - Zones are walked by boxes of ZC and chunks of 16 inside a box, so any
 //   zone count works (the copy fills a box past zp with zeros, and zones
 //   past z are masked). The max-free softmax needs no rescaling across
@@ -80,8 +97,11 @@
 // rung 2 against its 0.863 ms bound (the kernel it replaced, drift_stage.cuh
 // per warp: 18.2 ms; --ab-train), the same bits as that kernel's; K8a
 // 0.17 ms of device time at bench rung 3's 98,304 agents (the kernel it
-// replaced: 0.43-0.45 ms; --ab-k8, CUDA graphs), the same bits. PERF.md
-// section 6 has the readings and what each part of the design moved.
+// replaced: 0.43-0.45 ms; --ab-k8, CUDA graphs), the same bits; K5-bf16
+// 0.75 ms at bench rung 3's 98,304 agents, Z = 64, 2 blocks (the kernel it
+// replaced, drift_stage.cuh per warp: 2.29 ms; in 8-warp CTAs that kept
+// the whole step state in shared memory: 0.94; --ab-dopri5), the same bits. PERF.md section 6 has the
+// readings and what each part of the design moved.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -89,7 +109,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dopri5_tableau.cuh"
 #include "mma_bf16.cuh"
+#include "reduce_slabs.cuh"
 
 namespace {
 
@@ -112,7 +134,15 @@ enum class Kind {
   kStep,      // K0: the RK4 stages alone
   kDay,       // K2f: substeps of their own sizes, every carry stored
   kRhs,       // K8a: one stage, its derivative stored
+  kDopri5,    // K5-bf16: the six stages of a DOPRI5 step, its outputs
 };
+
+// float32 fragment arrays (16 rows x DA) a warp keeps in shared memory: the
+// RK4 state (x, k, ksum), or K5-bf16's step state k_2 .. k_6
+template <Kind kKind>
+__host__ __device__ constexpr int state_arrays() {
+  return kKind != Kind::kDopri5 ? 3 : 5;
+}
 
 struct Params {
   // TMA maps of the weights and zones (box_map below): 64-byte swizzled
@@ -135,6 +165,13 @@ struct Params {
   float* x_out;                // (n, DA); K2f: xs (stages / 4 + 1, n, DA);
                                // K8a: f (n, DA)
   int* ids;                    // (n), unless the decode is compiled out
+  // K5-bf16: x is x0; f0 = k_1 (n, DA); the outputs y1, f1, err (unless
+  // err_stats), r5 (n, DA); partial (gridDim.x): each CTA's sum of scaled
+  // squares (with err_stats)
+  const float* f0;
+  float *y1, *f1, *err, *r5, *partial;
+  int err_stats;
+  float hstep, rtol, atol;
   int n, z, zp, num_blocks, stages;
   float dt;
 };
@@ -153,12 +190,14 @@ struct Boxes {
       cmax(cmax(2 * ZC * DZ, HH * H), cmax(HH * (DF + DC), cmax(DZ * DA, DA * H)));
   static constexpr int kSlots = 2;
   static constexpr int kRingBytes = kSlots * kSlot * 2;
-  // a warp's RK4 state (x, k, ksum; f32), bf16(h) and the zone loops' A
-  // fragments (bf16(q), or the decode's bf16(x @ Wd))
-  static constexpr int kWarpBytes = 16 * 3 * DA * 4 + 16 * (DC + DZ) * 2;
+  // a warp's state (`arrays` f32 fragment arrays: state_arrays), bf16(h)
+  // and the zone loops' A fragments (bf16(q), or the decode's bf16(x @ Wd))
+  __host__ __device__ static constexpr int warp_bytes(int arrays) {
+    return 16 * arrays * DA * 4 + 16 * (DC + DZ) * 2;
+  }
   // then the ring's full and empty barriers
-  static constexpr int bytes(int warps) {
-    return kRingBytes + warps * kWarpBytes + 2 * kSlots * 8;
+  __host__ __device__ static constexpr int bytes(int warps, int arrays) {
+    return kRingBytes + warps * warp_bytes(arrays) + 2 * kSlots * 8;
   }
   static_assert(DZ % 16 == 0 && H % 32 == 0 && HH <= 64 && DZ <= 64,
                 "box shapes: a product's N is at most 64");
@@ -234,7 +273,7 @@ __device__ __forceinline__ void tma_box(bf16* dst, const CUtensorMap* m,
 // completes on the slot's full barrier, on which every warp waits. The
 // producer's cursor is (seg, k): box k of segment seg (0 .. stages - 1 a
 // stage, stages the decode); past the schedule it copies nothing.
-template <int DA, int DZ, int DC, int H, bool kDecode, int W = kWarps>
+template <int DA, int DZ, int DC, int H, bool kDecode, int W, int kArrays>
 struct ServeRing {
   using B = Boxes<DA, DZ, DC, H>;
   int c = 0;  // boxes consumed (the same in every thread)
@@ -248,7 +287,7 @@ struct ServeRing {
   }
   __device__ __forceinline__ static uint64_t* full(int s) {
     return reinterpret_cast<uint64_t*>(dyn_smem() + B::kRingBytes +
-                                       W * B::kWarpBytes) + s;
+                                       W * B::warp_bytes(kArrays)) + s;
   }
   __device__ __forceinline__ static uint64_t* empty(int s) {
     return full(B::kSlots + s);
@@ -472,11 +511,10 @@ __device__ __forceinline__ void wg_product(float (&d)[NOUT][4], int j0,
   fence_a(a);
 }
 
-// A fragments <-> a warp's shared-memory copy in fragment order ([4 s + c]
-// [lane]), conflict-free
-template <int KS>
-__device__ __forceinline__ void frag_put(uint32_t (*dst)[32],
-                                         const uint32_t (&a)[KS][4],
+// A fragments (uint32_t) or accumulator fragments (float) <-> a warp's
+// shared-memory copy in fragment order ([4 s + c][lane]), conflict-free
+template <class T, int KS>
+__device__ __forceinline__ void frag_put(T (*dst)[32], const T (&a)[KS][4],
                                          int lane) {
 #pragma unroll
   for (int s = 0; s < KS; ++s)
@@ -484,13 +522,48 @@ __device__ __forceinline__ void frag_put(uint32_t (*dst)[32],
     for (int c = 0; c < 4; ++c) dst[4 * s + c][lane] = a[s][c];
 }
 
-template <int KS>
-__device__ __forceinline__ void frag_get(uint32_t (&a)[KS][4],
-                                         uint32_t (*src)[32], int lane) {
+template <class T, int KS>
+__device__ __forceinline__ void frag_get(T (&a)[KS][4], T (*src)[32],
+                                         int lane) {
 #pragma unroll
   for (int s = 0; s < KS; ++s)
 #pragma unroll
     for (int c = 0; c < 4; ++c) a[s][c] = src[4 * s + c][lane];
+}
+
+// rows ra, rb of a row-major (n, 8 NX) f32 matrix into accumulator
+// fragments (rows past n read as zeros), and back
+template <int NX>
+__device__ __forceinline__ void load_rows(float (&v)[NX][4], const float* src,
+                                          long ra, long rb, bool va, bool vb,
+                                          int t) {
+  constexpr int DA = 8 * NX;
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+    const int c = 8 * j + 2 * t;
+    const float2 lo = va ? *reinterpret_cast<const float2*>(src + ra * DA + c)
+                         : make_float2(0.f, 0.f);
+    const float2 hi = vb ? *reinterpret_cast<const float2*>(src + rb * DA + c)
+                         : make_float2(0.f, 0.f);
+    v[j][0] = lo.x; v[j][1] = lo.y; v[j][2] = hi.x; v[j][3] = hi.y;
+  }
+}
+
+template <int NX>
+__device__ __forceinline__ void store_rows(float* dst,
+                                           const float (&v)[NX][4], long ra,
+                                           long rb, bool va, bool vb, int t) {
+  constexpr int DA = 8 * NX;
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (va)
+      *reinterpret_cast<float2*>(dst + ra * DA + c) =
+          make_float2(v[j][0], v[j][1]);
+    if (vb)
+      *reinterpret_cast<float2*>(dst + rb * DA + c) =
+          make_float2(v[j][2], v[j][3]);
+  }
 }
 
 // the warp's x (its shared-memory rows, fragment order) into rows ra, rb
@@ -499,29 +572,24 @@ template <int NX>
 __device__ __forceinline__ void store_x(float* dst, float (*xs)[32], long ra,
                                         long rb, bool va, bool vb, int t,
                                         int lane) {
-  constexpr int DA = 8 * NX;
-#pragma unroll
-  for (int j = 0; j < NX; ++j) {
-    const int c = 8 * j + 2 * t;
-    if (va)
-      *reinterpret_cast<float2*>(dst + ra * DA + c) =
-          make_float2(xs[4 * j][lane], xs[4 * j + 1][lane]);
-    if (vb)
-      *reinterpret_cast<float2*>(dst + rb * DA + c) =
-          make_float2(xs[4 * j + 2][lane], xs[4 * j + 3][lane]);
-  }
+  float v[NX][4];
+  frag_get(v, xs, lane);
+  store_rows<NX>(dst, v, ra, rb, va, vb, t);
 }
 
 // kKind: K1 (the stages, then the decode and argmax), K0 (the stages), K2f
 // (the stages of stages / 4 substeps, substep s of size dts[s], x0 and
-// every substep's carry into the planes of xs) or K8a (one stage, its k
-// into x_out); W warps a CTA
+// every substep's carry into the planes of xs), K8a (one stage, its k
+// into x_out) or K5-bf16 (the six stages of a DOPRI5 step from x0 and
+// f0, then its outputs); W warps a CTA
 template <int DA, int DZ, int DC, int H, Kind kKind, int W = kWarps>
 __global__ void __launch_bounds__(32 * W)
     interval_kernel(const __grid_constant__ Params p) {
   constexpr bool kDecode = kKind == Kind::kInterval;
   constexpr bool kDay = kKind == Kind::kDay;
   constexpr bool kRhs = kKind == Kind::kRhs;
+  constexpr bool kDopri5 = kKind == Kind::kDopri5;
+  constexpr int kArrays = state_arrays<kKind>();
   using B = Boxes<DA, DZ, DC, H>;
   constexpr int NX = DA / 8, KX = DA / 16;
   constexpr int NZ = DZ / 8, KZ = DZ / 16;
@@ -542,33 +610,43 @@ __global__ void __launch_bounds__(32 * W)
   // the warp's rows in shared memory, in fragment order ([4 j + c][lane]):
   // xs, the substep's start state during its four stages; sk, the last
   // stage's derivative; ss, the running k1 + 2 k2 + 2 k3 + k4 (f32
-  // accumulator fragments); hs, bf16(h), and zq, the A fragments the zone
-  // loops' products share (bf16(q), the decode's bf16(x Wd)), reloaded for
-  // each zone box so that no A fragment of an in-flight product is carried
-  // in registers from one box to the next. Kept out of the registers, which
+  // accumulator fragments) -- for K5-bf16 the step state instead
+  // (state_arrays); hs, bf16(h), and zq, the A fragments the zone loops'
+  // products share (bf16(q), the decode's bf16(x Wd)), reloaded for each
+  // zone box so that no A fragment of an in-flight product is carried in
+  // registers from one box to the next. Kept out of the registers, which
   // the products' activations need.
   float (*xs)[32] = reinterpret_cast<float (*)[32]>(
-      dyn_smem() + B::kRingBytes + warp * B::kWarpBytes);
+      dyn_smem() + B::kRingBytes + warp * B::warp_bytes(kArrays));
   float (*sk)[32] = xs + 4 * NX;
   float (*ss)[32] = sk + 4 * NX;
-  uint32_t (*hs)[32] = reinterpret_cast<uint32_t (*)[32]>(ss + 4 * NX);
+  uint32_t (*hs)[32] =
+      reinterpret_cast<uint32_t (*)[32]>(xs + 4 * NX * kArrays);
   uint32_t (*zq)[32] = hs + 4 * KC;
 
-  ServeRing<DA, DZ, DC, H, kDecode, W> ring;
+  // K5-bf16: array i of the step (0 x0, 1 .. 6 k_1 .. k_6) of the warp's
+  // rows, x0 and k_1 from the inputs x and f0, the rest from their
+  // shared-memory slots
+  const float* const x_in = p.x;
+  const float* const f0_in = p.f0;
+  auto step_array = [&](float (&v)[NX][4], int i) {
+    if (i < 2)
+      load_rows<NX>(v, i == 0 ? x_in : f0_in, ra, rb, va, vb, t);
+    else
+      frag_get(v, xs + 4 * NX * (i - 2), lane);
+  };
+
+  ServeRing<DA, DZ, DC, H, kDecode, W, kArrays> ring;
   ring.prime(p);
 
   // ---- load x (accumulator layout) -------------------------------------
-#pragma unroll
-  for (int j = 0; j < NX; ++j) {
-    const int c = 8 * j + 2 * t;
-    float2 lo = va ? *reinterpret_cast<const float2*>(p.x + ra * DA + c)
-                   : make_float2(0.f, 0.f);
-    float2 hi = vb ? *reinterpret_cast<const float2*>(p.x + rb * DA + c)
-                   : make_float2(0.f, 0.f);
-    xs[4 * j][lane] = lo.x; xs[4 * j + 1][lane] = lo.y;
-    xs[4 * j + 2][lane] = hi.x; xs[4 * j + 3][lane] = hi.y;
+  if constexpr (!kDopri5) {
+    float x0[NX][4];
+    load_rows<NX>(x0, p.x, ra, rb, va, vb, t);
+    frag_put(xs, x0, lane);
+    if (kDay) store_x<NX>(p.x_out, xs, ra, rb, va, vb, t, lane);  // xs[0]
   }
-  if (kDay) store_x<NX>(p.x_out, xs, ra, rb, va, vb, t, lane);  // xs[0]
+  float sq = 0.f;  // K5-bf16: the thread's sum of scaled squares
 
   // ---- bf16(h), the A fragments of Dense_0's h rows ----------------------
   {
@@ -603,9 +681,27 @@ __global__ void __launch_bounds__(32 * W)
       sixth = dt / 6.0f;
     }
     // ---- stage input: xs + c_r * k_{r-1}, rounded to bf16 -------------
-    // (separate multiply and add, no fma: the rounding of the reference)
+    // (separate multiply and add, no fma: the rounding of the reference);
+    // K5-bf16: bf16(x0 + sum_j (h a_sj) k_j) of stage s = st + 1, summed in
+    // the tableau's order
     uint32_t xa[KX][4];
-    {
+    if constexpr (kDopri5) {
+      float xin[NX][4];
+      step_array(xin, 0);
+      for (int j = 0; j <= st; ++j) {
+        const float a = cA[st + 1][j];
+        if (a == 0.f) continue;
+        const float ha = __fmul_rn(p.hstep, a);
+        float k[NX][4];
+        step_array(k, j + 1);
+#pragma unroll
+        for (int q = 0; q < NX; ++q)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            xin[q][c] = __fadd_rn(xin[q][c], __fmul_rn(ha, k[q][c]));
+      }
+      c_to_a<DA>(xin, xa);
+    } else {
       const float cr = (r == 0) ? 0.f : ((r == 3) ? dt : half);
       float xin[NX][4];
 #pragma unroll
@@ -795,25 +891,109 @@ __global__ void __launch_bounds__(32 * W)
         k[j][1] += bv.y;
         k[j][2] += bv.x;
         k[j][3] += bv.y;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float* ks = &ss[4 * j + c][lane];
-          sk[4 * j + c][lane] = k[j][c];
-          *ks = (r == 0) ? k[j][c] : __fadd_rn(*ks, __fmul_rn(w, k[j][c]));
-          if (r == 3)
-            xs[4 * j + c][lane] =
-                __fadd_rn(xs[4 * j + c][lane], __fmul_rn(sixth, *ks));
-        }
       }
-      if (kDay && r == 3)  // the substep's carry: xs[st / 4 + 1]
-        store_x<NX>(p.x_out + (size_t)((st >> 2) + 1) * p.n * DA, xs, ra, rb,
-                    va, vb, t, lane);
+      if constexpr (kDopri5) {
+        if (st + 1 < p.stages) {  // k_2 .. k_6 into their slots
+          frag_put(xs + 4 * NX * st, k, lane);
+        } else {
+          // ---- k is k_7 = f1: the step's outputs, the tableau in the
+          // reference's order, each operation rounded alone ---------------
+          float inc[NX][4], e[NX][4], d[NX][4], x0[NX][4];
+          zero(inc);
+          zero(e);
+          zero(d);
+          for (int j = 0; j < 7; ++j) {
+            float v[NX][4];
+            if (j < 6) {
+              step_array(v, j + 1);
+            } else {
+#pragma unroll
+              for (int q = 0; q < NX; ++q)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) v[q][c] = k[q][c];
+            }
+#pragma unroll
+            for (int q = 0; q < NX; ++q)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                if (cB5[j] != 0.f)
+                  inc[q][c] = __fadd_rn(inc[q][c], __fmul_rn(cB5[j], v[q][c]));
+                if (cBE[j] != 0.f)
+                  e[q][c] = __fadd_rn(e[q][c], __fmul_rn(cBE[j], v[q][c]));
+                if (cD[j] != 0.f)
+                  d[q][c] = __fadd_rn(d[q][c], __fmul_rn(cD[j], v[q][c]));
+              }
+          }
+          step_array(x0, 0);
+          const float hs5 = p.hstep;
+#pragma unroll
+          for (int q = 0; q < NX; ++q)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              inc[q][c] = __fadd_rn(x0[q][c], __fmul_rn(hs5, inc[q][c]));  // y1
+              e[q][c] = __fmul_rn(hs5, e[q][c]);
+              d[q][c] = __fmul_rn(hs5, d[q][c]);  // r5
+            }
+          store_rows<NX>(p.y1, inc, ra, rb, va, vb, t);
+          store_rows<NX>(p.f1, k, ra, rb, va, vb, t);
+          store_rows<NX>(p.r5, d, ra, rb, va, vb, t);
+          if (p.err_stats) {
+#pragma unroll
+            for (int q = 0; q < NX; ++q)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                // elements 0, 1 of a fragment are row ra's, 2, 3 row rb's
+                if (c < 2 ? va : vb) {
+                  const float esc = __fdiv_rn(
+                      e[q][c],
+                      __fadd_rn(p.atol,
+                                __fmul_rn(p.rtol, fmaxf(fabsf(x0[q][c]),
+                                                        fabsf(inc[q][c])))));
+                  sq = __fadd_rn(sq, __fmul_rn(esc, esc));
+                }
+              }
+          } else {
+            store_rows<NX>(p.err, e, ra, rb, va, vb, t);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NX; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float* ks = &ss[4 * j + c][lane];
+            sk[4 * j + c][lane] = k[j][c];
+            *ks = (r == 0) ? k[j][c] : __fadd_rn(*ks, __fmul_rn(w, k[j][c]));
+            if (r == 3)
+              xs[4 * j + c][lane] =
+                  __fadd_rn(xs[4 * j + c][lane], __fmul_rn(sixth, *ks));
+          }
+        if (kDay && r == 3)  // the substep's carry: xs[st / 4 + 1]
+          store_x<NX>(p.x_out + (size_t)((st >> 2) + 1) * p.n * DA, xs, ra,
+                      rb, va, vb, t, lane);
+      }
+    }
+  }
+
+  if constexpr (kDopri5) {
+    // ---- the CTA's sum of scaled squares: the warp's lanes, then the
+    // warps, in a fixed order (the warps' sums after the ring's barriers)
+    float* red = reinterpret_cast<float*>(dyn_smem() + B::bytes(W, kArrays));
+#pragma unroll
+    for (int m = 16; m >= 1; m >>= 1) sq += __shfl_down_sync(0xffffffffu, sq, m);
+    if (lane == 0) red[warp] = sq;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float s = 0.f;
+      for (int w = 0; w < W; ++w) s += red[w];
+      p.partial[blockIdx.x] = s;
     }
   }
 
   // ---- store x_new (K8a: the stage's k) -----------------------------------
   if (kRhs) store_x<NX>(p.x_out, sk, ra, rb, va, vb, t, lane);
-  if (!kDay && !kRhs) store_x<NX>(p.x_out, xs, ra, rb, va, vb, t, lane);
+  if (!kDay && !kRhs && !kDopri5)
+    store_x<NX>(p.x_out, xs, ra, rb, va, vb, t, lane);
 
   if (kDecode) {
     // ---- decode: ids = argmax(bf16(bf16(x) @ Wd) @ ze^T), first index ----
@@ -930,7 +1110,9 @@ int launch(Params& p, int da, int dz, int dc, int hdim, cudaStream_t s) {
       (!kDecode || box_map(&p.tm_wd, p.wdT, DZ, DA, DZ));
   if (!ok) return (int)cudaErrorNotSupported;
   auto* kernel = interval_kernel<32, 64, 32, 128, kKind, W>;
-  const int smem = Boxes<32, 64, 32, 128>::bytes(W);
+  // K5-bf16: then its warps' error sums
+  const int smem = B::bytes(W, state_arrays<kKind>()) +
+                   (kKind == Kind::kDopri5 ? W * (int)sizeof(float) : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -967,6 +1149,10 @@ void set_params(Params& p, const void* x, const void* h, const void* ze,
   p.wdT = nullptr;
   p.ids = nullptr;
   p.dts = nullptr;
+  p.f0 = nullptr;
+  p.y1 = p.f1 = p.err = p.r5 = p.partial = nullptr;
+  p.err_stats = 0;
+  p.hstep = p.rtol = p.atol = 0.f;
   p.n = n; p.z = z; p.zp = zp; p.num_blocks = num_blocks; p.stages = stages;
   p.dt = dt;
 }
@@ -1067,6 +1253,58 @@ int ananke_drift_rhs(const void* x, const void* h, const void* ze,
              num_blocks, 1, 0.f);
   return launch<Kind::kRhs>(p, da, dz, dc, hdim,
                             static_cast<cudaStream_t>(stream));
+}
+
+// CTAs of K5-bf16 over n rows (tiles of 16 kWarps rows): the count of
+// partial error sums its launch writes
+int ananke_dopri5_step_bf16_ctas(int n) {
+  const int rows = 16 * kWarps;
+  return (n + rows - 1) / rows;
+}
+
+// Launch one DOPRI5 step at precision "bf16" (K5-bf16) on `stream`, then
+// the sum of the CTAs' partial error sums into err_sum (1 float): from x0
+// (n, DA) and f0 = k_1 (n, DA), the time rows tf (7, H) of its stages, h,
+// the zones padded to a multiple of 16 and their transpose, and the 12 bf16
+// stage weights in drift_stage.cuh's set_weights order (the kernel reads
+// the (out, in) ones, as ananke_day_forward), the outputs y1, f1, r5 and
+// err (n, DA) -- or, with err_stats, the sum over every real element of
+// (err / (atol + rtol max(|x0|, |y1|)))^2 into err_sum, err untouched.
+// `partial` holds num_ctas = ananke_dopri5_step_bf16_ctas(n) floats.
+// Returns as ananke_rk4_interval_decode.
+int ananke_dopri5_step_bf16(
+    const void* x, const void* f0, const void* h, const void* ze,
+    const void* zeT, const void* tf, const void* w0, const void* w1,
+    const void* w2, const void* w3, const void* w4, const void* w5,
+    const void* w6, const void* w7, const void* w8, const void* w9,
+    const void* w10, const void* w11, void* y1, void* f1, void* err,
+    void* r5, void* partial, void* err_sum, int n, int z, int zp,
+    int num_blocks, int num_ctas, int err_stats, float hstep, float rtol,
+    float atol, int da, int dz, int dc, int hdim, void* stream) {
+  (void)w1; (void)w3; (void)w5; (void)w7; (void)w10;
+  if (!sizes_ok(n, z, zp, num_blocks) ||
+      num_ctas != ananke_dopri5_step_bf16_ctas(n))
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  // the stages k_2 .. k_7 read the time rows 1 .. 6
+  set_params(p, x, h, ze, zeT, w0, w2, w4, w6, w8, w9, w11,
+             static_cast<const float*>(tf) + hdim, nullptr, n, z, zp,
+             num_blocks, 6, 0.f);
+  p.f0 = static_cast<const float*>(f0);
+  p.y1 = static_cast<float*>(y1);
+  p.f1 = static_cast<float*>(f1);
+  p.err = static_cast<float*>(err);
+  p.r5 = static_cast<float*>(r5);
+  p.partial = static_cast<float*>(partial);
+  p.err_stats = err_stats;
+  p.hstep = hstep;
+  p.rtol = rtol;
+  p.atol = atol;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int e = launch<Kind::kDopri5>(p, da, dz, dc, hdim, s);
+  if (e) return e;
+  return ananke::launch_reduce_slabs(
+      p.partial, static_cast<float*>(err_sum), 1, num_ctas, s);
 }
 
 const char* ananke_cuda_error_string(int err) {

@@ -49,7 +49,17 @@
 //   bf16(d) @ ze^T by zone chunks, a max-subtracted log-sum-exp (one pass
 //   for the max, the first-index argmax and the target logit, one for the
 //   sum), nll and the correct flag. The logits never reach device memory.
-//   ~70 kFLOP per row at Z=500 against ~140 bytes: compute-bound.
+//   ~70 kFLOP per row at Z=500 against ~140 bytes: compute-bound. Its first
+//   design (64-row CTAs, every B fragment of Wd and ze an __ldg from L2 per
+//   warp, ~3.2 GB of L2 reads at bench rung 2) ran at 3% of its bound. Now
+//   it is K3b's structure: persistent 8-warp CTAs (128-row tiles) stream
+//   ze through K3b's 3-slot cp.async ring of 32-zone boxes, one block
+//   barrier a box, B fragments by ldmatrix; Wd^T sits in shared memory for
+//   the CTA's life. Its 19 KB of shared memory and 79 registers let three
+//   CTAs share an SM, so one CTA's barrier wait hides behind the others'
+//   products (one CTA an SM read 0.67 ms at bench rung 2, three 0.41). The
+//   two passes (max, then sum) are kept: nll and the flags have the bits
+//   of the first design.
 //
 // K3b ce_bwd_kernel   <- _ce_bwd_impl. Per row it recomputes d and the
 //   log-sum-exp, then per zone box grow = bf16((p - onehot) g_nll): gd +=
@@ -81,12 +91,15 @@ namespace {
 using namespace ananke;
 
 constexpr int kMaxBlocks = 8;
-constexpr int kFwdWarps = 4;  // K3f: 64 rows per block
-constexpr int kCeWarps = 8;   // K3b: 128 rows per tile
-constexpr int kCeZC = 32;     // zones of a K3b ring box
+constexpr int kCeWarps = 8;   // K3f, K3b: 128 rows per tile
+constexpr int kCeZC = 32;     // zones of a ring box
 // K3b's CTAs at most, one an SM; a constant, so the order of its sums
 // depends on the row count alone
 constexpr int kCeCtas = 132;
+// K3f's, three an SM: it sums nothing across CTAs, and the SM's other CTAs
+// work while one waits at its ring's barrier (one an SM: 0.67 ms at bench
+// rung 2, three: 0.41; chip_smoke.py --ab-train, H100 80GB HBM3, 700 W)
+constexpr int kCeFwdCtas = 3 * kCeCtas;
 // the largest dynamic shared memory a block can use
 constexpr size_t kCeMaxSmem = 232448;
 
@@ -319,104 +332,12 @@ __device__ __forceinline__ void decode_rows(uint32_t (&dA)[DZ / 16][4],
   c_to_a<DZ>(d, dA);
 }
 
-// per row (g: .a, g+8: .b) the max logit over valid zones, its first index
-// and the target's logit, reduced over the 4 lanes that share the rows
-struct RowMax {
-  float mx_a, mx_b, lt_a, lt_b;
-  int id_a, id_b;
-};
-
-template <int DZ>
-__device__ __forceinline__ RowMax row_max(const uint32_t (&dA)[DZ / 16][4],
-                                          const bf16* ze, int z, int zp,
-                                          int ta, int tb, int g, int t) {
-  RowMax m = {-INFINITY, -INFINITY, 0.f, 0.f, 0, 0};
-  for (int z0 = 0; z0 < zp; z0 += 8) {
-    float lg[1][4] = {{0.f, 0.f, 0.f, 0.f}};
-    mma_nblocks<DZ, 1>(lg, 0, dA, ze + (size_t)z0 * DZ, g, t);
-    const float* l = lg[0];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int zi = z0 + 2 * t + c;
-      if (zi < z) {
-        if (l[c] > m.mx_a) { m.mx_a = l[c]; m.id_a = zi; }
-        if (l[2 + c] > m.mx_b) { m.mx_b = l[2 + c]; m.id_b = zi; }
-        if (zi == ta) m.lt_a = l[c];
-        if (zi == tb) m.lt_b = l[2 + c];
-      }
-    }
-  }
-#pragma unroll
-  for (int s = 1; s <= 2; s <<= 1) {
-    const float oa = __shfl_xor_sync(0xffffffffu, m.mx_a, s);
-    const int ia = __shfl_xor_sync(0xffffffffu, m.id_a, s);
-    const float ob = __shfl_xor_sync(0xffffffffu, m.mx_b, s);
-    const int ib = __shfl_xor_sync(0xffffffffu, m.id_b, s);
-    if (oa > m.mx_a || (oa == m.mx_a && ia < m.id_a)) { m.mx_a = oa; m.id_a = ia; }
-    if (ob > m.mx_b || (ob == m.mx_b && ib < m.id_b)) { m.mx_b = ob; m.id_b = ib; }
-    m.lt_a += __shfl_xor_sync(0xffffffffu, m.lt_a, s);
-    m.lt_b += __shfl_xor_sync(0xffffffffu, m.lt_b, s);
-  }
-  return m;
-}
-
-// per row sum over valid zones of exp(logit - max), reduced over the lanes
-template <int DZ>
-__device__ __forceinline__ void row_sumexp(const uint32_t (&dA)[DZ / 16][4],
-                                           const bf16* ze, int z, int zp,
-                                           float mx_a, float mx_b, float& s_a,
-                                           float& s_b, int g, int t) {
-  s_a = 0.f;
-  s_b = 0.f;
-  for (int z0 = 0; z0 < zp; z0 += 8) {
-    float lg[1][4] = {{0.f, 0.f, 0.f, 0.f}};
-    mma_nblocks<DZ, 1>(lg, 0, dA, ze + (size_t)z0 * DZ, g, t);
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      if (z0 + 2 * t + c < z) {
-        s_a += expf(lg[0][c] - mx_a);
-        s_b += expf(lg[0][2 + c] - mx_b);
-      }
-    }
-  }
-#pragma unroll
-  for (int s = 1; s <= 2; s <<= 1) {
-    s_a += __shfl_xor_sync(0xffffffffu, s_a, s);
-    s_b += __shfl_xor_sync(0xffffffffu, s_b, s);
-  }
-}
-
-template <int DA, int DZ>
-__global__ void __launch_bounds__(32 * kFwdWarps) ce_fwd_kernel(const CeParams p) {
-  constexpr int KX = DA / 16, KZ = DZ / 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const long ra = ((long)blockIdx.x * kFwdWarps + warp) * 16 + g, rb = ra + 8;
-  const bool va = ra < p.m, vb = rb < p.m;
-  uint32_t xa[KX][4];
-  ldg_rows_a<DA>(xa, p.x, ra, rb, va, vb, t);
-  uint32_t dA[KZ][4];
-  decode_rows<DA, DZ>(dA, xa, p.wdT, g, t);
-  const int ta = va ? p.tgt[ra] : -1, tb = vb ? p.tgt[rb] : -1;
-  const RowMax m = row_max<DZ>(dA, p.ze, p.z, p.zp, ta, tb, g, t);
-  float s_a, s_b;
-  row_sumexp<DZ>(dA, p.ze, p.z, p.zp, m.mx_a, m.mx_b, s_a, s_b, g, t);
-  if (t == 0) {
-    if (va) {
-      p.nll[ra] = (logf(s_a) + m.mx_a) - m.lt_a;
-      p.correct[ra] = m.id_a == ta ? 1 : 0;
-    }
-    if (vb) {
-      p.nll[rb] = (logf(s_b) + m.mx_b) - m.lt_b;
-      p.correct[rb] = m.id_b == tb ? 1 : 0;
-    }
-  }
-}
-
 // K3b's shared memory (byte offsets): the ring of ze boxes (kCeZC rows
 // each, row stride DZ + 8) | d16 and gd16 of the tile's rows | two grow
 // buffers (a box's zones) | bf16(x) of the tile's rows | the CTA's gze, f32
-// (zr, DZ): the zones whose gradient stays in shared memory
+// (zr, DZ): the zones whose gradient stays in shared memory. K3f's: the
+// ring | Wd^T (DZ rows of DA, row stride SX) where K3b keeps d16, kFwd
+// bytes in all.
 template <int DA, int DZ, int W>
 struct CeSmem {
   static constexpr int ROWS = 16 * W;
@@ -430,6 +351,8 @@ struct CeSmem {
   static constexpr int kG = kGd + ROWS * SZE * 2;
   static constexpr int kX = kG + 2 * ROWS * SG * 2;
   static constexpr int kGze = kX + ROWS * SX * 2;
+  static constexpr int kFwd = kD + DZ * SX * 2;
+  static_assert(DZ * SX <= ROWS * SZE, "K3f's Wd^T in K3b's d16 region");
   static size_t bytes(int zr) { return kGze + (size_t)zr * DZ * sizeof(float); }
   // the most zones whose gze fits beside the rest
   static int max_resident() {
@@ -472,6 +395,125 @@ struct CeRing {
     return base + (c++ % 3) * kSlot;
   }
 };
+
+// K3f. A persistent CTA of W warps (16 W rows a tile), three an SM,
+// streams ze through its ring twice a tile, as K3b does. Per tile, d = bf16(x) @ Wd (B
+// fragments by ldmatrix from Wd^T, copied into shared memory once a CTA);
+// the first walk keeps per row the max logit over valid zones (a later
+// zone replaces it only when strictly greater), its first index and the
+// target's logit, reduced over the 4 lanes that share the row (the lower
+// index on ties); the second sums exp(logit - max), each lane its zones in
+// zone order, then over the lanes. nll = (log(sum) + max) - logit[target].
+// Lane t of a row holds zones 8 j + 2 t + {0, 1} of every box, in the
+// order of the kernel this replaced (8 zones a product, per warp from L2):
+// the same bits.
+template <int DA, int DZ, int W>
+__global__ void __launch_bounds__(32 * W, kCeFwdCtas / kCeCtas)
+    ce_fwd_kernel(const CeParams p) {
+  using S = CeSmem<DA, DZ, W>;
+  constexpr int ROWS = S::ROWS, SZE = S::SZE, SX = S::SX;
+  constexpr int KZ = DZ / 16, NZ = DZ / 8;
+  static_assert(kCeZC == 32, "4 n-blocks of logits a box");
+  extern __shared__ __align__(16) unsigned char ce_smem[];
+  bf16* s_wd = reinterpret_cast<bf16*>(ce_smem + S::kD);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, wr0 = warp * 16;
+  const int n_tiles = (p.m + ROWS - 1) / ROWS;
+  const int nzc = (p.zp + kCeZC - 1) / kCeZC;
+  const int mine = (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  CeRing<DZ, W> ring{reinterpret_cast<bf16*>(ce_smem), p.ze, p.zp, nzc, 0,
+                     mine * 2 * nzc};
+  ring.issue(0);
+  ring.issue(1);
+  // Wd^T into shared memory, 16 bytes a thread at a time
+  for (int e = threadIdx.x; e < DZ * (DA / 8); e += 32 * W) {
+    const int r = e / (DA / 8), k = e - r * (DA / 8);
+    *reinterpret_cast<uint4*>(s_wd + r * SX + 8 * k) =
+        *reinterpret_cast<const uint4*>(p.wdT + (size_t)r * DA + 8 * k);
+  }
+  __syncthreads();
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long ra = (long)tile * ROWS + wr0 + g, rb = ra + 8;
+    const bool va = ra < p.m, vb = rb < p.m;
+    uint32_t dA[KZ][4];
+    {
+      uint32_t xa[DA / 16][4];
+      ldg_rows_a<DA>(xa, p.x, ra, rb, va, vb, t);
+      float d[NZ][4];
+      zero(d);
+      sm90::mma_s<DA, NZ>(d, 0, xa, s_wd, SX, g, t);
+      c_to_a<DZ>(d, dA);
+    }
+    const int ta = va ? p.tgt[ra] : -1, tb = vb ? p.tgt[rb] : -1;
+
+    // walk 1: the max logit, its first index, the target's logit
+    float mx_a = -INFINITY, mx_b = -INFINITY, lt_a = 0.f, lt_b = 0.f;
+    int id_a = 0, id_b = 0;
+    for (int c = 0; c < nzc; ++c) {
+      const bf16* box = ring.next();
+      float sc[4][4];
+      zero(sc);
+      sm90::mma_s<DZ, 4, 4>(sc, 0, dA, box, SZE, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int zi = c * kCeZC + 8 * j + 2 * t + e;
+          if (zi < p.z) {
+            if (sc[j][e] > mx_a) { mx_a = sc[j][e]; id_a = zi; }
+            if (sc[j][2 + e] > mx_b) { mx_b = sc[j][2 + e]; id_b = zi; }
+            if (zi == ta) lt_a = sc[j][e];
+            if (zi == tb) lt_b = sc[j][2 + e];
+          }
+        }
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      const float oa = __shfl_xor_sync(0xffffffffu, mx_a, x);
+      const int ia = __shfl_xor_sync(0xffffffffu, id_a, x);
+      const float ob = __shfl_xor_sync(0xffffffffu, mx_b, x);
+      const int ib = __shfl_xor_sync(0xffffffffu, id_b, x);
+      if (oa > mx_a || (oa == mx_a && ia < id_a)) { mx_a = oa; id_a = ia; }
+      if (ob > mx_b || (ob == mx_b && ib < id_b)) { mx_b = ob; id_b = ib; }
+      lt_a += __shfl_xor_sync(0xffffffffu, lt_a, x);
+      lt_b += __shfl_xor_sync(0xffffffffu, lt_b, x);
+    }
+
+    // walk 2: the sum of exp(logit - max) over valid zones
+    float s_a = 0.f, s_b = 0.f;
+    for (int c = 0; c < nzc; ++c) {
+      const bf16* box = ring.next();
+      float sc[4][4];
+      zero(sc);
+      sm90::mma_s<DZ, 4, 4>(sc, 0, dA, box, SZE, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (c * kCeZC + 8 * j + 2 * t + e < p.z) {
+            s_a += expf(sc[j][e] - mx_a);
+            s_b += expf(sc[j][2 + e] - mx_b);
+          }
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      s_a += __shfl_xor_sync(0xffffffffu, s_a, x);
+      s_b += __shfl_xor_sync(0xffffffffu, s_b, x);
+    }
+    if (t == 0) {
+      if (va) {
+        p.nll[ra] = (logf(s_a) + mx_a) - lt_a;
+        p.correct[ra] = id_a == ta ? 1 : 0;
+      }
+      if (vb) {
+        p.nll[rb] = (logf(s_b) + mx_b) - lt_b;
+        p.correct[rb] = id_b == tb ? 1 : 0;
+      }
+    }
+  }
+  sm90::cp_wait<0>();
+}
 
 // K3b. A persistent CTA of W warps (16 W rows a tile) streams ze through
 // its ring twice a tile: per row the max and the sum of exp of the logits
@@ -770,12 +812,14 @@ int ananke_day_backward(const void* xs, const void* gxs, const void* h,
   }
 }
 
-// K3f on `stream`: nll and the correct flag per row.
+// K3f on `stream`: nll and the correct flag per row, on at most 396
+// (kCeFwdCtas) persistent CTAs.
 int ananke_ce_forward(const void* x, const void* tgt, const void* wdT,
                       const void* ze, void* nll, void* correct, int m, int z,
                       int zp, int da, int dz, void* stream) {
   if (m < 1 || z < 1 || zp % 16 != 0 || zp < z || da != 32 || dz != 64)
     return (int)cudaErrorInvalidValue;
+  using S = CeSmem<32, 64, kCeWarps>;
   CeParams p = {};
   p.x = static_cast<const float*>(x);
   p.tgt = static_cast<const int*>(tgt);
@@ -784,10 +828,10 @@ int ananke_ce_forward(const void* x, const void* tgt, const void* wdT,
   p.nll = static_cast<float*>(nll);
   p.correct = static_cast<int*>(correct);
   p.m = m; p.z = z; p.zp = zp;
-  const int rows = 16 * kFwdWarps;
+  const int n_tiles = (m + S::ROWS - 1) / S::ROWS;
+  const int ctas = n_tiles < kCeFwdCtas ? n_tiles : kCeFwdCtas;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ce_fwd_kernel<32, 64><<<(unsigned)((m + rows - 1) / rows), 32 * kFwdWarps,
-                          0, s>>>(p);
+  ce_fwd_kernel<32, 64, kCeWarps><<<ctas, 32 * kCeWarps, S::kFwd, s>>>(p);
   return (int)cudaGetLastError();
 }
 

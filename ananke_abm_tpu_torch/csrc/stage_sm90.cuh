@@ -7,16 +7,17 @@
 // augmented right-hand side (fused_rhs.cu: K8). Each walks its own fixed
 // schedule of weight boxes (StepSchedule, DaySchedule, RhsSchedule below).
 //
-// The math is drift_stage.cuh's, rounding point for rounding point (the
-// reference's _stage_math / _stage_vjp_math in
+// The math is the reference's, rounding point for rounding point
+// (_stage_math / _stage_vjp_math in
 // ananke_abm_tpu/ops/pallas/fused_step.py): bf16 operands, float32 sums,
 // the max-free softmax clamped at 80 and normalised after the context
 // product, the block inputs kept as bf16, the attention recomputed by
 // 16-zone chunks in the VJP. What differs is where the operands live:
 //
-// - drift_stage.cuh reads every mma's B fragments from the weights in
-//   device memory, warp by warp: each 16-row warp streams ~180 KB of bf16
-//   weights through L2 for a stage forward and about twice that for a VJP,
+// - The per-warp stage this replaced (once in drift_stage.cuh) read every
+//   mma's B fragments from the weights in device memory, warp by warp:
+//   each 16-row warp streamed ~180 KB of bf16 weights through L2 for a
+//   stage forward and about twice that for a VJP,
 //   one dependent L2 load behind each mma. Here the step's products are one
 //   fixed sequence of weight boxes (Ring below: each box one product's
 //   weights, or half of them, or one 32-zone chunk of the zones and their
@@ -434,7 +435,7 @@ __device__ __forceinline__ void nt_dot1(const bf16* A, int sa, const bf16* B,
 }
 
 // k = stage(xb) for the warp's 16 rows (wr0: its first row in the tile), as
-// drift_stage.cuh's stage_forward, with its weights from the ring (boxes
+// the per-warp stage this replaced, with its weights from the ring (boxes
 // F of the schedule). Leaves feats, q and the block chain of the warp's rows
 // in shared memory and returns the softmax's row normalisers. Every thread
 // of the CTA calls it (the ring's barriers).
@@ -603,7 +604,7 @@ __device__ __forceinline__ void stage_forward(
 }
 
 // The VJP of the last stage_forward at cotangent `ga` (f32, accumulator
-// fragments), as drift_stage.cuh's stage_backward, but for the h rows,
+// fragments), as the per-warp stage VJP this replaced, but for the h rows,
 // with its weights from the ring (boxes B of the schedule): returns gx (f32,
 // accumulator fragments), adds the summed gradients into `slab` (the time
 // row's at slab + gtf) and the gradient of Dense_0's h-row pre-activation

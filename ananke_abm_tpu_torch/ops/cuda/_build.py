@@ -43,6 +43,9 @@ _ENTRY = {
                             _I),
         "ananke_day_forward": ([_P] * 19 + [_I] * 9 + [_P], _I),
         "ananke_drift_rhs": ([_P] * 18 + [_I] * 8 + [_P], _I),
+        "ananke_dopri5_step_bf16": (
+            [_P] * 24 + [_I] * 6 + [_F] * 3 + [_I] * 4 + [_P], _I),
+        "ananke_dopri5_step_bf16_ctas": ([_I], _I),
     },
     "fused_rhs": {
         "ananke_drift_rhs_and_vjp": ([_P] * 23 + [_I] * 9 + [_P], _I),
@@ -64,8 +67,6 @@ _ENTRY = {
     },
     "fused_dopri5": {
         "ananke_dopri5_step": (
-            [_P] * 24 + [_I] * 6 + [_F] * 3 + [_I] * 4 + [_P], _I),
-        "ananke_dopri5_step_bf16": (
             [_P] * 24 + [_I] * 6 + [_F] * 3 + [_I] * 4 + [_P], _I),
         "ananke_dopri5_step_vjp": (
             [_P] * 28 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),

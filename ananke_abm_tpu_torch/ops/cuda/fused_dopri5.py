@@ -20,8 +20,9 @@ All run the shared stage math (``fused_step.stage_math`` /
 ``stage_vjp_math``) at ``precision="f32"`` (float32: the identity cast; K7
 and K6 on float32 FFMA, K5's products in 3xTF32 on the tensor cores, each
 operand split into two TF32 parts with float32 sums) or ``"bf16"`` (bf16
-operands and float32 sums at the reference's rounding points, on
-``csrc/drift_stage.cuh``). The trainers' forward is
+operands and float32 sums at the reference's rounding points: K7 and K6 on
+``csrc/stage_sm90.cuh``, K5 on the serving kernels' template in
+``csrc/fused_step.cu``). The trainers' forward is
 float32: bf16 rounding of the stage activations is noise that does not
 cancel in the embedded 5(4) error and floors the step controller, so the
 reference keeps K5's bf16 branch for loose tolerances (rtol >= ~1e-3),
@@ -363,10 +364,10 @@ def _kernel_device(name, x, widths, num_blocks, precision):
     return True
 
 
-def _lib():
+def _lib(name="fused_dopri5"):
     from ananke_abm_tpu_torch.ops.cuda._build import load_library
 
-    return load_library("fused_dopri5")
+    return load_library(name)
 
 
 def pack_weights_f32(Wq, W1xc, W1h, blocks, W3, b3):
@@ -388,14 +389,15 @@ def pack_weights_f32(Wq, W1xc, W1h, blocks, W3, b3):
 ZONE_CHUNK = 32
 # CTAs of the kernels: each sums its tiles into its own slab (K5: its own
 # partial error sum), summed in a fixed order; constants, so the sums'
-# order depends on N alone and a repeated launch gives the same bits. K7,
-# K6 and K5-bf16 take one an SM; K5 at float32 is offered two an SM (the
-# C interface's count, which an A/B against a build of two CTAs an SM
-# keeps) and its library runs on at most NUM_SLABS of them
+# order depends on N alone and a repeated launch gives the same bits. K7
+# and K6 take one an SM; K5 at float32 is offered two an SM (the C
+# interface's count, which an A/B against a build of two CTAs an SM keeps)
+# and its library runs on at most NUM_SLABS of them. K5-bf16 runs a CTA a
+# tile, its count (ananke_dopri5_step_bf16_ctas) a function of N alone
 STEP_CTAS = 2 * NUM_SLABS
 VJP_CTAS = NUM_SLABS
 # the kernels' tile bodies (ananke_dopri5_tile_rows' `kind`)
-_K5, _F32_VJP, _BF16_VJP, _BF16_K5 = 0, 1, 2, 3
+_K5, _F32_VJP, _BF16_VJP = 0, 1, 2
 
 
 def _zones(ze):
@@ -441,8 +443,9 @@ def dopri5_step_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3, b3,
     """One DOPRI5 step. Arguments and result as
     :func:`dopri5_step_reference`; on CUDA the kernel K5 at ``precision``
     (float32: products in 3xTF32 on the tensor cores, each operand split
-    into two TF32 parts, float32 sums; or the bf16 stage math of
-    ``drift_stage.cuh`` with the tableau and the error in float32), over
+    into two TF32 parts, float32 sums; or the bf16 stage math of the
+    serving kernels' template, ``csrc/fused_step.cu``, with the tableau and
+    the error in float32), over
     ``packed``
     (:func:`pack_operands` of these zones and weights at the same precision)
     or a packing made for this launch. With ``err_stats`` the sum of squares
@@ -465,20 +468,25 @@ def dopri5_step_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3, b3,
     if N == 0:
         return (*out[:2], err_sum if err_stats is not None else out[2],
                 out[3])
-    lib = _lib()
-    bf16 = precision == "bf16"
-    kind, ctas = (_BF16_K5, VJP_CTAS) if bf16 else (_K5, STEP_CTAS)
-    num_ctas = min(ctas, -(-N // lib.ananke_dopri5_tile_rows(nb, kind)))
-    # the CTAs' error sums; at float32 then the step state's scratch
-    size = num_ctas if bf16 else num_ctas + 32 + num_ctas * (
-        lib.ananke_dopri5_scratch_floats(nb, kind))
+    if precision == "bf16":
+        lib = _lib("fused_step")
+        step = lib.ananke_dopri5_step_bf16
+        num_ctas = lib.ananke_dopri5_step_bf16_ctas(N)
+        size = num_ctas  # the CTAs' error sums
+    else:
+        lib = _lib()
+        step = lib.ananke_dopri5_step
+        num_ctas = min(STEP_CTAS,
+                       -(-N // lib.ananke_dopri5_tile_rows(nb, _K5)))
+        # the CTAs' error sums, then the step state's scratch
+        size = num_ctas + 32 + num_ctas * lib.ananke_dopri5_scratch_floats(
+            nb, _K5)
     partial = torch.empty((size,), dtype=torch.float32, device=dev)
     rtol, atol = (F(v) for v in err_stats) if err_stats else (F(0), F(0))
     ze_p, zeT, *w = _packed("dopri5_step_fused", packed, ze,
                             (Wq, W1xc, W1h, blocks, W3, b3), precision)
     ops = [x.contiguous(), f0.contiguous(), h.contiguous(), ze_p, zeT,
            tf_rows.contiguous(), *w, *out, partial, err_sum]
-    step = lib.ananke_dopri5_step_bf16 if bf16 else lib.ananke_dopri5_step
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = step(

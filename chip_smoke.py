@@ -620,10 +620,13 @@ def main():
     t0 = time.perf_counter()
     # the other checkouts' DOPRI5 or serving kernels compile beside this
     # one's; an A/B of the serving kernels builds only their library
-    others = [start_build(ab_checkout(d)[1], f"other{i}", "fused_dopri5")
-              for i, d in enumerate(args.ab_dopri5 or ())]
-    others += [start_build(Path(d).resolve(), f"other{i}", "fused_step")
-               for i, d in enumerate(args.ab_step or ())]
+    others = [start_build(Path(d).resolve(), f"other{i}", "fused_step")
+              for i, d in enumerate(args.ab_step or ())]
+    dopri5_others = []
+    for i, d in enumerate(args.ab_dopri5 or ()):
+        name, checkout = ab_checkout(d)
+        dopri5_others.append((name, [start_build(checkout, f"dopri5{i}", lib)
+                                     for lib in DOPRI5_LIBS]))
     k8_others = []
     for i, d in enumerate(args.ab_k8 or ()):
         name, checkout = ab_checkout(d)
@@ -678,7 +681,7 @@ def main():
         ab_k8(dev, built, k8_others)
         return
     if args.ab_dopri5:
-        ab_dopri5(dev, built["fused_dopri5"][1], others)
+        ab_dopri5(dev, built, dopri5_others)
         return
     if args.ab_step:
         ab_step(dev, built["fused_step"][1], others)
@@ -1377,7 +1380,10 @@ def ptxas_lines(log):
         out = subprocess.run([filt], input="\n".join(r[0] for r in rows),
                              capture_output=True, text=True).stdout
         for r, d in zip(rows, out.splitlines()):
-            r[0] = d.replace("(anonymous namespace)::", "").split("(")[0]
+            # the name without its parameter list (template arguments may
+            # hold parentheses: an enum's value prints as "(Kind)4")
+            d = d.replace("(anonymous namespace)::", "")
+            r[0] = d[:d.rindex("(")] if d.endswith(")") else d
     return [f"{n}: {rest}" for n, rest in rows]
 
 
@@ -1601,19 +1607,46 @@ def ab_k8(dev, built, handles):
           + f" s (host clock, synced) [card {card}]", flush=True)
 
 
-def ab_dopri5(dev, this_log, handles):
+# the libraries ``--ab-dopri5`` builds of every checkout: the discrete
+# adjoint's, and the serving kernels', where K5-bf16 lives since it moved
+# onto their template
+DOPRI5_LIBS = ("fused_dopri5", "fused_step")
+
+
+class K5Bf16Before:
+    """A checkout's ``fused_dopri5`` library from before K5-bf16 moved to
+    the serving kernels' library, as this checkout's K5 wrapper calls it:
+    the count of K5-bf16's CTAs, which the wrapper asks the library for,
+    from that library's own tile rows (one CTA an SM at most, as its
+    wrapper sized them); everything else is the library's."""
+
+    def __init__(self, so, num_blocks):
+        self.so, self.num_blocks = so, num_blocks
+
+    def __getattr__(self, name):
+        return getattr(self.so, name)
+
+    def ananke_dopri5_step_bf16_ctas(self, n):
+        from ananke_abm_tpu_torch.ops.cuda.fused_dopri5 import VJP_CTAS
+
+        rows = self.so.ananke_dopri5_tile_rows(self.num_blocks, 3)
+        return min(VJP_CTAS, -(-n // rows))
+
+
+def ab_dopri5(dev, built, handles):
     """``--ab-dopri5 DIR [DIR ...]``: the step K5 (float32 and bf16), the
     step VJP K7 (float32 and bf16) and the whole backward K6 (bf16 and
     float32 bodies) of this checkout against those of each checkout at DIR
     (``DIR+PROBE`` a probe variant, :data:`PROBES`; its
-    ``csrc/fused_dopri5.cu`` and headers, built with the port's flags and C
-    interface; ``handles`` from :func:`start_build`, started before phase
-    2): ptxas's registers and spills per kernel, the bits at every shape of
-    DOPRI5_SHAPES, then the per-launch times at the main path's operands
-    (K6 on the recording of a rung-3 step at its own settings; K5 and K7 at
-    phase 19's shape, which is rung 3's: 98,304 agents, Z = 64, 2 blocks;
-    K5 with the error sum the controller reads) in the order DIR..., this,
-    this, ...DIR."""
+    ``csrc/fused_dopri5.cu`` and ``csrc/fused_step.cu`` and headers, built
+    with the port's flags and C interface; ``handles`` from
+    :func:`start_build`, started before phase 2; K5-bf16 from whichever of
+    a checkout's two libraries exports it): ptxas's registers and spills
+    per kernel, the bits at every shape of DOPRI5_SHAPES, then the
+    per-launch times at the main path's operands (K6 on the recording of a
+    rung-3 step at its own settings; K5 and K7 at phase 19's shape, which
+    is rung 3's: 98,304 agents, Z = 64, 2 blocks; K5 with the error sum
+    the controller reads) in the order DIR..., this, this, ...DIR."""
     from ananke_abm_tpu_torch.models.gnn_embed.train import (
         GATODEConfig,
         build_model,
@@ -1629,16 +1662,23 @@ def ab_dopri5(dev, this_log, handles):
         dopri5_vjp_outputs,
     )
 
-    print(f"build [this]: {ROOT / 'ananke_abm_tpu_torch/csrc/fused_dopri5.cu'}")
-    for line in ptxas_lines(this_log):
-        print(f"  {line}")
-    libs = {"this": _build.load_library("fused_dopri5")}
-    for h in handles:
-        libs[str(h[2].parents[2])] = finish_build(h)
+    for lib in DOPRI5_LIBS:
+        print(f"build [this]: "
+              f"{ROOT / 'ananke_abm_tpu_torch/csrc' / (lib + '.cu')}")
+        for line in ptxas_lines(built[lib][1]):
+            print(f"  {line}")
+    libs = {"this": {lib: _build.load_library(lib) for lib in DOPRI5_LIBS}}
+    for name, hs in handles:
+        libs[name] = {h[4]: finish_build(h) for h in hs}
     others = [w for w in libs if w != "this"]
 
-    def run(which, fn, *a, **kw):
-        with library_of("fused_dopri5", libs[which]):
+    def run(which, nb, fn, *a, **kw):
+        pair = libs[which]
+        k5 = pair["fused_step"]
+        if not hasattr(k5, "ananke_dopri5_step_bf16"):
+            k5 = K5Bf16Before(pair["fused_dopri5"], nb)
+        with library_of("fused_dopri5", pair["fused_dopri5"]), \
+                library_of("fused_step", k5):
             return fn(*a, **kw)
 
     vjp, bwd = fd.dopri5_step_vjp_fused, fd.dopri5_backward_fused
@@ -1660,7 +1700,7 @@ def ab_dopri5(dev, this_log, handles):
             for label, fn, a, prec in cases:
                 outputs = (dopri5_step_outputs if fn is step
                            else dopri5_vjp_outputs)
-                out = {w: outputs(run(w, fn, *a, precision=prec))
+                out = {w: outputs(run(w, nb, fn, *a, precision=prec))
                        for w in libs}
                 for w in others:
                     x, y = out["this"], out[w]
@@ -1690,13 +1730,14 @@ def ab_dopri5(dev, this_log, handles):
              ("K7 bf16 at rung 3's shape", vjp, args + cot, "bf16", pk, 5)]
     card = card_line()
     order = others + ["this", "this"] + others[::-1]
+    nb = len(args[8])
     with torch.no_grad():
         for label, fn, fa, prec, packs, reps, *kw in timed:
             kw = kw[0] if kw else {}
             times = {w: [] for w in libs}
             for w in order:
                 times[w].append(cuda_ms(lambda: run(
-                    w, fn, *fa, precision=prec, packed=packs[prec], **kw),
+                    w, nb, fn, *fa, precision=prec, packed=packs[prec], **kw),
                     reps))
             print(f"{label} (N={ADAPT_N}, Z={ADAPT_ZONES}) A/B: "
                   + "; ".join(f"{w} {', '.join(f'{m:.3f}' for m in t)}"
@@ -1707,13 +1748,29 @@ def ab_dopri5(dev, this_log, handles):
 # Probes of ``--ab-train``, ``--ab-dopri5`` and ``--ab-k8``: a DIR written
 # ``DIR+NAME`` is DIR's ``ananke_abm_tpu_torch/csrc`` with NAME's
 # substitutions (file, regular expression, replacement; each must match),
-# built under ``OUT/variants/``. Each takes one cost out of the day
-# kernels, the decode CE pair and the adjoint RHS pair K8 / K8a (of the
-# stage code on csrc/drift_stage.cuh, K2b and K8 before they moved to
-# stage_sm90.cuh, unless named) or out of the float32 DOPRI5 step
-# K5 (``nofma``, ``constw``, ``onebar`` and ``nomath``: fused_dopri5.cu's
-# ``mm``, K5's products before its redesign, which K7's and K6's float32
-# body share); the results are wrong by design and only timed.
+# built under ``OUT/variants/``. Each but ``k3f1`` takes one
+# cost out of the kernels it reaches, and their results are wrong by design
+# and only timed. What each reaches in this checkout:
+# - ``noproducts``, ``constb``: mma_bf16.cuh's mma.sync and its __ldg
+#   loads. ``noproducts`` reaches the products of every mma.sync kernel
+#   (stage_sm90.cuh's K2b, K6/K7-bf16 and K8; K3f and K3b), not the
+#   serving template's wgmma (K1, K0, K2f, K8a, K5-bf16). ``constb``
+#   reaches K3b's d and gx products and the bias reads of stage_sm90.cuh
+#   and of the serving template: no kernel's weight boxes any more. In a
+#   checkout from before a kernel's redesign both reach its per-warp
+#   L2-fed products (drift_stage.cuh's stage forward: K5-bf16 before it
+#   moved to fused_step.cu; K3f's first design).
+# - ``noslab``: the slab traffic of the summed gradients (K2b, K6/K7-bf16,
+#   K8; K3b's zones past its resident ones).
+# - ``nomath``: the expf / tanhf of stage_sm90.cuh, fused_train.cu (K3f,
+#   K3b) and fused_dopri5.cu's float32 bodies (K5, K7, K6 at "f32"); in a
+#   checkout from before K5-bf16's move also drift_stage.cuh's.
+# - ``nofma``, ``constw``, ``onebar``: fused_dopri5.cu's ``mm``, K5's
+#   products before its redesign, which K7's and K6's float32 body share;
+#   ``nomma``, ``nocopy``: K5's 3xTF32 products and its ring's copies.
+# - ``w4``: K2b at 4 warps; ``f4``: K2f in 4-warp CTAs.
+# - ``k3f1``: K3f on one CTA an SM where it takes three. A design
+#   alternative, right by design.
 PROBES = {
     # no products: each mma.sync becomes one add that keeps its operands
     # (and the loads behind them) live
@@ -1742,7 +1799,6 @@ PROBES = {
     "nomath": [("mma_bf16.cuh", r"namespace ananke \{",
                 "namespace ananke {\n__device__ __forceinline__ float "
                 "probe_id(float x) { return x; }"),
-               ("drift_stage.cuh", r"\b(expf|tanhf)\(", "probe_id("),
                ("stage_sm90.cuh", r"\b(expf|tanhf)\(", "probe_id("),
                ("fused_train.cu", r"\b(expf|tanhf)\(", "probe_id("),
                ("fused_dopri5.cu", r"\b(expf|tanhf)\(",
@@ -1783,6 +1839,10 @@ PROBES = {
             "__launch_bounds__(32 * W, kWarps / W)"),
            ("fused_step.cu", r"launch<(false, true|Kind::kDay)>\(",
             r"launch<\1, 4>(")],
+    # K3f on one CTA an SM where it takes three
+    "k3f1": [("fused_train.cu",
+              r"constexpr int kCeFwdCtas = 3 \* kCeCtas;",
+              "constexpr int kCeFwdCtas = kCeCtas;")],
 }
 
 
@@ -4305,7 +4365,7 @@ def bf16_forward_phases(dev, card):
     print(f"K5-bf16 at N={ADAPT_N} Z={ADAPT_ZONES}: kernel {ms:.3f} ms "
           f"({flop / ms / 1e9:.1f} TFLOP/s), plain version {plain_ms:.3f} ms "
           f"[card {card}]", flush=True)
-    return kernel_entry("dopri5_step_fused_bf16", "fused_dopri5.cu",
+    return kernel_entry("dopri5_step_fused_bf16", "fused_step.cu",
                         "fused_dopri5.py:104", launches, max_err, ms,
                         plain_ms, flop, nbytes)
 

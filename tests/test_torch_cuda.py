@@ -486,6 +486,42 @@ def test_ce_kernels_match_plain_versions(cuda, m, num_zones):
     _assert_close(got, want, CE_BOUNDS)
 
 
+@pytest.mark.parametrize("num_zones", [1, 31, 500, 577, 2_048])
+def test_ce_forward_kernel_at_ragged_tiles_boxes_and_ties(cuda, num_zones):
+    """K3f on K3b's ring at 1,000 rows (no 128-row tile divides them) and
+    zone counts that fill one box in part (1, 31), end in a part box (500,
+    577) or fill many (2,048): nll within CE_BOUNDS of its plain version,
+    the flags within CE_CORRECT_MIN, both the same bits on a repeat. With
+    every zone the same every logit ties at the max: the flag is the first
+    index's, correct exactly where the target is zone 0."""
+    m = 1_000
+    model = _model(cuda, 1)
+    g = torch.Generator(device=cuda).manual_seed(num_zones)
+    rows = torch.randn(m, 32, device=cuda, generator=g)
+    tgt = torch.randint(0, num_zones, (m,), device=cuda, generator=g,
+                        dtype=torch.int32)
+    ze = torch.randn(num_zones, 64, device=cuda, generator=g).bfloat16()
+    tied = ze[:1].expand(num_zones, 64).contiguous()
+    wd = model.decode_proj.weight.T.detach().bfloat16()
+    with torch.inference_mode():
+        before = ft.ce_forward_fused.launches
+        got = ft.ce_forward_fused(rows, tgt, wd, ze)
+        again = ft.ce_forward_fused(rows, tgt, wd, ze)
+        tie = ft.ce_forward_fused(rows, tgt, wd, tied)
+        torch.cuda.synchronize()
+        want = ft.ce_forward_reference(rows, tgt, wd, ze)
+        tie_want = ft.ce_forward_reference(rows, tgt, wd, tied)
+    assert ft.ce_forward_fused.launches == before + 3
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    assert (got[1] == want[1]).float().mean() >= CE_CORRECT_MIN
+    assert torch.equal(tie[1], (tgt == 0).to(torch.int32))
+    assert torch.equal(tie_want[1], tie[1])
+    if num_zones == 1:  # one zone: every nll is log(1) + l - l
+        assert (got[0] == 0).all() and (tie[0] == 0).all()
+    else:
+        _assert_close([got[0], tie[0]], [want[0], tie_want[0]], CE_BOUNDS)
+
+
 @pytest.mark.parametrize("m,num_zones", [(20_000, 500), (3_000, 700)])
 def test_ce_backward_inside_and_past_its_resident_zones(cuda, m, num_zones):
     """K3b keeps gze in shared memory for as many zones as fit beside its
@@ -1236,6 +1272,7 @@ def test_per_step_rollout_runs_the_step_kernel(cuda):
 
 @pytest.mark.parametrize("n,num_zones,num_blocks", [
     (98_304, 64, 2), (333, 7, 5), (200, 64, 8),
+    (1_000, 77, 1), (1_000, 77, 2), (1_000, 77, 5), (1_000, 77, 8),
 ])
 def test_dopri5_bf16_step_kernel_matches_plain_version(cuda, n, num_zones,
                                                        num_blocks):
@@ -1243,7 +1280,9 @@ def test_dopri5_bf16_step_kernel_matches_plain_version(cuda, n, num_zones,
     (y1, f1, r5, and the error sum where it is asked for; the raw error, a
     difference of sums that the bf16 stage noise dominates, only finite),
     the same bits on a repeat; K5's float32 kernel on the same operands (it
-    rounds no stage) outside them."""
+    rounds no stage) outside them. 1,000 agents at every depth: no tile of
+    192 rows, nor of 128, divides them, and 77 zones fill a second 64-zone
+    box mostly past the zones."""
     from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
     from ananke_abm_tpu_torch.ops.cuda.checks import (
         DOPRI5_STEP_BF16_BOUNDS,
