@@ -35,10 +35,25 @@
 // destination role) or of g (the source role) and a few scalars, against 2-5
 // FLOP per byte. At the sparse world (Z = 32,768, E = 264,678, H d = 64) the
 // node tables are 8.4 MB each and stay in the 50 MB L2, so the gathers hit
-// L2; the design keeps each row's state in registers, reads every table
-// once per edge and writes every output once. The in-edge loops are short
-// (degree 7-15) and serial in their loads; deeper unrolling or a row per
-// half-warp are later work.
+// L2; the forward keeps each row's state in registers, reads every table
+// once per edge and writes every output once.
+//
+// The backward's first design (a warp a row, lane l features l, l + 32, ...)
+// spent most of its time in the instruction stream of its edge loop, not in
+// its gathers (H100 probes, PERF.md): per edge each lane shuffled 8 times
+// and took 2 expf, and the next edge's index was loaded only after the
+// last edge's sums. Its layout now: a group of G = 8, 16 or 32 lanes owns
+// a row, each lane V = 4 contiguous features of one head in each slot
+// (16-byte loads; V = 1 where d is not a multiple of 4), so a 64-feature
+// row is a half-warp and a warp walks two rows; a head's sum is the lane's
+// products in registers, then a butterfly over the head's d / V lanes. A
+// group loads up to G of its edge indices in one coalesced load, hands
+// them out by shuffle, and starts the gathers of 4 / S edges of a
+// destination row or 2 / S of a source row (their rows and scalars) before
+// it sums any; 4-warp CTAs, 8 an SM (64 registers) at the main path's
+// one slot. Latency still bounds it, not its bytes: a row's loads are a
+// chain of L2 round trips (its offsets, its edge indices, then its gathers
+// a few edges at a time), and 32 warps an SM hide part of them.
 //
 // Compiled for H * d <= 256 features, heads of any width d.
 //
@@ -65,6 +80,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -80,53 +96,6 @@ __device__ __forceinline__ float lrelu(float s) {
 
 __device__ __forceinline__ float lrelu_grad(float s) {
   return s >= 0.f ? 1.f : kSlope;
-}
-
-// Per slot, the sum of v over the features of the lane's head, in every lane
-// of that head. d divides 32: a butterfly over the head's d lanes. d a
-// multiple of 32: the whole warp, then the head's d / 32 slots. Any other d
-// (a head straddles lanes and slots): through the warp's row `buf` of
-// 32 * S floats in shared memory, each lane summing its head in feature
-// order. All three are fixed orders: the same operands give the same bits.
-template <int S>
-__device__ __forceinline__ void head_sums(float (&v)[S], int d, int hd,
-                                          float* buf) {
-  const int lane = threadIdx.x & 31;
-  if (32 % d != 0 && d % 32 != 0) {
-#pragma unroll
-    for (int k = 0; k < S; ++k)
-      if (k * 32 + lane < hd) buf[k * 32 + lane] = v[k];
-    __syncwarp();
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      const int f = k * 32 + lane;
-      if (f >= hd) continue;
-      const float* head = buf + (f / d) * d;
-      float t = 0.f;
-      for (int q = 0; q < d; ++q) t += head[q];
-      v[k] = t;
-    }
-    __syncwarp();
-    return;
-  }
-  const int width = d < 32 ? d : 32;
-  for (int off = width >> 1; off > 0; off >>= 1) {
-#pragma unroll
-    for (int k = 0; k < S; ++k) v[k] += __shfl_xor_sync(kFull, v[k], off);
-  }
-  if (d > 32) {
-    const int per = d >> 5;
-    float t[S];
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      t[k] = 0.f;
-#pragma unroll
-      for (int q = 0; q < S; ++q)
-        if (q / per == k / per) t[k] += v[q];
-    }
-#pragma unroll
-    for (int k = 0; k < S; ++k) v[k] = t[k];
-  }
 }
 
 struct Lanes {
@@ -221,91 +190,248 @@ struct Bwd {
   int zd, zr, zs, H, d, recv_blocks;
 };
 
-template <int S>
-__global__ void __launch_bounds__(32 * kWarps)
-csr_backward_kernel(const Bwd b) {
-  __shared__ float rows[kWarps][32 * S];  // head_sums' rows, one a warp
-  const int hd = b.H * b.d;
-  Lanes ln;
-  lanes_of<S>(ln, hd, b.d);
-  const int warp = threadIdx.x >> 5;
-  float* buf = rows[warp];
-  if ((int)blockIdx.x < b.recv_blocks) {
-    // destination role: d_recv[i] = sum over i's in-edges of ds
-    const int i = blockIdx.x * kWarps + warp;
-    if (i >= b.zr) return;
-    const int beg = i < b.zd ? b.row_ptr[i] : 0;
-    const int end = i < b.zd ? b.row_ptr[i + 1] : 0;
-    float gi[S], er[S], ls[S], cr[S], acc[S];
+// K9c's layout: a row of hd features over a group of G lanes (32 / G rows
+// a warp), V contiguous features a lane in each of S slots: lane q of its
+// group holds features (k G + q) V .. (k G + q) V + V - 1 in slot k, all
+// of one head. V = 4 reads rows as 16-byte loads (d a multiple of 4); V =
+// 1 takes heads of any width.
+template <int V, int G, int S>
+struct Slots {
+  int f0[S];  // first feature of the lane in each slot
+  int h[S];   // its head
+  bool on[S];
+  __device__ __forceinline__ Slots(int hd, int d) {
+    const int q = (threadIdx.x & 31) % G;
 #pragma unroll
     for (int k = 0; k < S; ++k) {
-      acc[k] = 0.f;
-      const bool use = ln.on[k] && beg < end;
-      const long r = (long)i * b.H + ln.h[k];
-      gi[k] = use ? b.g[(long)i * hd + ln.f[k]] : 0.f;
-      er[k] = use ? b.e_recv[r] : 0.f;
-      ls[k] = use ? b.lse[r] : 0.f;
-      cr[k] = use ? b.corr[r] : 0.f;
+      f0[k] = (k * G + q) * V;
+      on[k] = f0[k] < hd;
+      h[k] = on[k] ? f0[k] / d : 0;
     }
-    for (int p = beg; p < end; ++p) {
-      const long j = b.src[p];
-      float t[S];
+  }
+};
+
+// x = the V features at p where `use`, else 0
+template <int V>
+__device__ __forceinline__ void load_row(bool use, const float* p,
+                                         float (&x)[V]) {
+  if constexpr (V == 4) {
+    const float4 v = use ? __ldg(reinterpret_cast<const float4*>(p))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else {
 #pragma unroll
-      for (int k = 0; k < S; ++k)
-        t[k] = ln.on[k] ? gi[k] * b.wh[j * hd + ln.f[k]] : 0.f;
-      head_sums<S>(t, b.d, hd, buf);
+    for (int v = 0; v < V; ++v) x[v] = use ? __ldg(p + v) : 0.f;
+  }
+}
+
+// For each of U edges and each slot, <a, b> over the lane's head, in every
+// lane of the head: a the group's own row, b the edge's other end. Heads of
+// d / V lanes, a power of two within the group: the lane's V products in
+// order, then a butterfly over the head's lanes, the U edges' shuffles
+// interleaved. Heads of whole slots (d / V a multiple of G = 32): the
+// butterfly over the group, then the head's slots. Any other d: edge by
+// edge through the group's row `buf` in shared memory, each lane summing
+// its head in feature order. Fixed orders all: the same operands give the
+// same bits. Every lane of the warp calls it.
+template <int V, int G, int S, int U>
+__device__ __forceinline__ void head_sums(const float (&a)[S][V],
+                                          const float (&b)[U][S][V],
+                                          float (&t)[U][S],
+                                          const Slots<V, G, S>& sl, int d,
+                                          float* buf) {
+  const int lph = d / V;
+  const bool butterfly = (lph & (lph - 1)) == 0 && lph <= G;
+  if (butterfly || lph % G == 0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
 #pragma unroll
       for (int k = 0; k < S; ++k) {
-        if (!ln.on[k]) continue;
-        const float s = er[k] + b.e_send[j * b.H + ln.h[k]];
-        const float alpha = expf(lrelu(s) - ls[k]);
-        acc[k] += alpha * (t[k] - cr[k]) * lrelu_grad(s);
-      }
-    }
+        t[u][k] = a[k][0] * b[u][k][0];
 #pragma unroll
-    for (int k = 0; k < S; ++k)
-      if (ln.on[k] && ln.f[k] % b.d == 0)
-        b.d_recv[(long)i * b.H + ln.h[k]] = acc[k];
+        for (int v = 1; v < V; ++v) t[u][k] += a[k][v] * b[u][k][v];
+      }
+    for (int off = (butterfly ? lph : G) >> 1; off > 0; off >>= 1) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int k = 0; k < S; ++k)
+          t[u][k] += __shfl_xor_sync(kFull, t[u][k], off);
+    }
+    if (butterfly) return;
+    const int per = lph / G;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float m[S];
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        m[k] = 0.f;
+#pragma unroll
+        for (int q = 0; q < S; ++q)
+          if (q / per == k / per) m[k] += t[u][q];
+      }
+#pragma unroll
+      for (int k = 0; k < S; ++k) t[u][k] = m[k];
+    }
     return;
   }
-  // source role: d_wh[j] = sum_i alpha g_i, d_send[j] = sum_i ds
-  const int j = (blockIdx.x - b.recv_blocks) * kWarps + warp;
-  if (j >= b.zs) return;
-  const int beg = b.col_ptr[j], end = b.col_ptr[j + 1];
-  float wj[S], es[S], gw[S], gs[S];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int k = 0; k < S; ++k)
+      if (sl.on[k]) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) buf[sl.f0[k] + v] = a[k][v] * b[u][k][v];
+      }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      t[u][k] = 0.f;
+      if (!sl.on[k]) continue;
+      const float* head = buf + sl.h[k] * d;
+      for (int q = 0; q < d; ++q) t[u][k] += head[q];
+    }
+    __syncwarp();
+  }
+}
+
+constexpr int kBwdWarps = 4;
+// CTAs an SM at one slot: registers for 32 warps (64 a thread); rows of
+// S slots get S times the registers, so that they do not spill
+constexpr int kBwdBlocks = 8;
+// edges a group gathers before it sums any: a destination row's edges
+// gather a row and one scalar each, a source row's a row and three
+constexpr int kRecvInFlight = 4;
+constexpr int kSendInFlight = 2;
+
+// K9c. A group of G lanes owns a row: a destination row i in the first
+// recv_blocks blocks (d_recv[i] = sum over i's in-edges of ds), a source
+// row j in the others (d_wh[j] = sum over j's out-edges of alpha g_i,
+// d_send[j] = of ds). A group loads up to G of its edge indices at once,
+// one coalesced load, hands them out by shuffle, and starts the gathers of
+// a few edges (the other end's row, 16 bytes a lane, and its scalars)
+// before it sums any. The warp walks the largest edge count of its rows;
+// each sum runs in edge order. backward_rows walks block `block` of one
+// role, fixed at compile time; `buf` is the warp's row of shared memory.
+template <bool recv, int V, int G, int S>
+__device__ __forceinline__ void backward_rows(const Bwd& b, int block,
+                                              float* buf) {
+  constexpr int R = 32 / G;      // rows a warp
+  constexpr int flight = recv ? kRecvInFlight : kSendInFlight;
+  constexpr int U = S < flight ? flight / S : 1;
+  const int hd = b.H * b.d;
+  const Slots<V, G, S> sl(hd, b.d);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane % G, grp = lane / G;
+  buf += grp * (G * S * V);
+  const int row = block * (kBwdWarps * R) + warp * R + grp;
+  const bool ok = row < (recv ? b.zr : b.zs);
+  // the row's edges: destination-major in the first role, source-major in
+  // the second (rows of d_recv at or past zd have none)
+  int beg = 0, cnt = 0;
+  if (ok && (!recv || row < b.zd)) {
+    const int* ptr = recv ? b.row_ptr : b.col_ptr;
+    beg = ptr[row];
+    cnt = ptr[row + 1] - beg;
+  }
+  const int* ends = recv ? b.src : b.dst_by_src;
+  // its own row and scalars: g_i, e_recv, lse, corr (destination); Wh_j,
+  // e_send (source)
+  const float* own = recv ? b.g : b.wh;
+  const float* far = recv ? b.wh : b.g;
+  float mine[S][V], e_own[S], ls[S], cr[S];
 #pragma unroll
   for (int k = 0; k < S; ++k) {
-    const bool use = ln.on[k] && beg < end;
-    wj[k] = use ? b.wh[(long)j * hd + ln.f[k]] : 0.f;
-    es[k] = use ? b.e_send[(long)j * b.H + ln.h[k]] : 0.f;
-    gw[k] = 0.f;
+    const bool use = sl.on[k] && cnt > 0;
+    const long r = (long)row * b.H + sl.h[k];
+    load_row<V>(use, own + (long)row * hd + sl.f0[k], mine[k]);
+    e_own[k] = use ? (recv ? b.e_recv[r] : b.e_send[r]) : 0.f;
+    ls[k] = use && recv ? b.lse[r] : 0.f;
+    cr[k] = use && recv ? b.corr[r] : 0.f;
+  }
+  int most = cnt;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    most = max(most, __shfl_xor_sync(kFull, most, off));
+  float gs[S], gw[S][V];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
     gs[k] = 0.f;
-  }
-  for (int p = beg; p < end; ++p) {
-    const long i = b.dst_by_src[p];
-    float gi[S], t[S];
 #pragma unroll
-    for (int k = 0; k < S; ++k) {
-      gi[k] = ln.on[k] ? b.g[i * hd + ln.f[k]] : 0.f;
-      t[k] = gi[k] * wj[k];
-    }
-    head_sums<S>(t, b.d, hd, buf);
+    for (int v = 0; v < V; ++v) gw[k][v] = 0.f;
+  }
+  for (int base = 0; base < most; base += G) {
+    const int batch = base + q < cnt ? __ldg(ends + beg + base + q) : 0;
+    const int n = min(G, most - base);
+    for (int u0 = 0; u0 < n; u0 += U) {
+      // the gathers of U edges, then their sums
+      float x[U][S][V], sa[U][S], sb[U][S], sc[U][S];
+      bool live[U];
 #pragma unroll
-    for (int k = 0; k < S; ++k) {
-      if (!ln.on[k]) continue;
-      const long r = i * b.H + ln.h[k];
-      const float s = b.e_recv[r] + es[k];
-      const float alpha = expf(lrelu(s) - b.lse[r]);
-      gw[k] += alpha * gi[k];
-      gs[k] += alpha * (t[k] - b.corr[r]) * lrelu_grad(s);
+      for (int u = 0; u < U; ++u) {
+        const long e = __shfl_sync(kFull, batch, u0 + u, G);
+        live[u] = base + u0 + u < cnt;
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          const bool use = live[u] && sl.on[k];
+          const long r = e * b.H + sl.h[k];
+          load_row<V>(use, far + e * hd + sl.f0[k], x[u][k]);
+          sa[u][k] = use ? __ldg((recv ? b.e_send : b.e_recv) + r) : 0.f;
+          sb[u][k] = use && !recv ? __ldg(b.lse + r) : ls[k];
+          sc[u][k] = use && !recv ? __ldg(b.corr + r) : cr[k];
+        }
+      }
+      float t[U][S];
+      head_sums<V, G, S, U>(mine, x, t, sl, b.d, buf);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!live[u]) continue;
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          if (!sl.on[k]) continue;
+          // e_recv[i] + e_send[j] in either role
+          const float s = recv ? e_own[k] + sa[u][k] : sa[u][k] + e_own[k];
+          const float alpha = expf(lrelu(s) - sb[u][k]);
+          if (!recv) {
+#pragma unroll
+            for (int v = 0; v < V; ++v) gw[k][v] += alpha * x[u][k][v];
+          }
+          gs[k] += alpha * (t[u][k] - sc[u][k]) * lrelu_grad(s);
+        }
+      }
     }
   }
+  if (!ok) return;
 #pragma unroll
   for (int k = 0; k < S; ++k) {
-    if (!ln.on[k]) continue;
-    b.d_wh[(long)j * hd + ln.f[k]] = gw[k];
-    if (ln.f[k] % b.d == 0) b.d_send[(long)j * b.H + ln.h[k]] = gs[k];
+    if (!sl.on[k]) continue;
+    const bool first = sl.f0[k] % b.d == 0;  // the head's first lane
+    if (recv) {
+      if (first) b.d_recv[(long)row * b.H + sl.h[k]] = gs[k];
+      continue;
+    }
+    float* out = b.d_wh + (long)row * hd + sl.f0[k];
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(out) =
+          make_float4(gw[k][0], gw[k][1], gw[k][2], gw[k][3]);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) out[v] = gw[k][v];
+    }
+    if (first) b.d_send[(long)row * b.H + sl.h[k]] = gs[k];
   }
+}
+
+template <int V, int G, int S>
+__global__ void __launch_bounds__(32 * kBwdWarps,
+                                  S < kBwdBlocks ? kBwdBlocks / S : 1)
+csr_backward_kernel(const Bwd b) {
+  __shared__ float rows[kBwdWarps][32 * S * V];  // head_sums' general path
+  float* buf = rows[threadIdx.x >> 5];
+  if ((int)blockIdx.x < b.recv_blocks)
+    backward_rows<true, V, G, S>(b, blockIdx.x, buf);
+  else
+    backward_rows<false, V, G, S>(b, blockIdx.x - b.recv_blocks, buf);
 }
 
 // ---- K9e: the segment sum --------------------------------------------------
@@ -458,21 +584,34 @@ int ananke_edge_csr_backward(const void* g, const void* wh,
   b.d_recv = static_cast<float*>(d_recv);
   b.d_send = static_cast<float*>(d_send);
   b.zd = zd; b.zr = zr; b.zs = zs; b.H = H; b.d = d;
-  b.recv_blocks = (int)blocks(zr);
-  const unsigned grid = blocks(zr) + blocks(zs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int slots = (H * d + 31) / 32;
-#define ANANKE_BWD(S)                                                     \
-  case S:                                                                 \
-    csr_backward_kernel<S><<<grid, 32 * kWarps, 0, s>>>(b);               \
-    break;
-  switch (slots) {
-    ANANKE_BWD(1) ANANKE_BWD(2) ANANKE_BWD(3) ANANKE_BWD(4)
-    ANANKE_BWD(5) ANANKE_BWD(6) ANANKE_BWD(7) ANANKE_BWD(8)
-    default: return (int)cudaErrorInvalidValue;
+  const int hd = H * d;
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  // 16-byte rows where heads hold whole float4s and the rows are aligned
+  const bool v4 = d % 4 == 0 && aligned(g) && aligned(wh) && aligned(d_wh);
+  const int vecs = v4 ? hd / 4 : hd;
+  const int width = v4 ? (vecs <= 8 ? 8 : vecs <= 16 ? 16 : 32) : 32;
+  const int slots = (vecs + width - 1) / width;
+  const int per_block = kBwdWarps * (32 / width);
+  const auto bwd_blocks = [per_block](int rows) {
+    return (unsigned)((rows + per_block - 1) / per_block);
+  };
+  b.recv_blocks = (int)bwd_blocks(zr);
+  const unsigned grid = bwd_blocks(zr) + bwd_blocks(zs);
+#define ANANKE_BWD(V, G, S)                                               \
+  if (v4 == (V == 4) && width == G && slots == S) {                       \
+    csr_backward_kernel<V, G, S><<<grid, 32 * kBwdWarps, 0, s>>>(b);      \
+    return (int)cudaGetLastError();                                       \
   }
+  ANANKE_BWD(4, 8, 1) ANANKE_BWD(4, 16, 1) ANANKE_BWD(4, 32, 1)
+  ANANKE_BWD(4, 32, 2)
+  ANANKE_BWD(1, 32, 1) ANANKE_BWD(1, 32, 2) ANANKE_BWD(1, 32, 3)
+  ANANKE_BWD(1, 32, 4) ANANKE_BWD(1, 32, 5) ANANKE_BWD(1, 32, 6)
+  ANANKE_BWD(1, 32, 7) ANANKE_BWD(1, 32, 8)
+  return (int)cudaErrorInvalidValue;
 #undef ANANKE_BWD
-  return (int)cudaGetLastError();
 }
 
 // The largest row width the segment sum takes: one zone's row for every

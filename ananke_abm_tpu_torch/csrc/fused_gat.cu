@@ -20,49 +20,66 @@
 //   normalised x and 1/std.
 //
 // K4b ananke_gat_backward <- _gat_bwd_impl. The VJP with respect to every
-//   parameter, layers in reverse, three grids per layer and one reduction:
+//   parameter, layers in reverse: one grid that lists the graph's entries,
+//   three grids per layer and one reduction (3 L + 2 launches):
+//   - lists: every row's on-graph columns and every column's on-graph rows
+//     as bitmasks of ceil(Z / 32) words (one ballot a row of each 32 x 32
+//     block of adj), and the rows with no entry. An off-graph score is
+//     -1e30 and its alpha exp(-1e30 - max) an exact 0, so the passes skip
+//     those terms and compute the same function; a row with no entry
+//     attends uniformly to every column (every score -1e30), so it walks
+//     every column and every column walks it;
 //   - row pass (warp per destination row i): LayerNorm, residual and elu
-//     VJPs, then over all source rows j the recomputed alpha_ij and
-//     g_alpha = g_out_i . Wh_j, summed per head into D_i = sum_j alpha
-//     g_alpha (the softmax VJP's) and, over the edges whose score lies on
-//     each side of the leaky-relu's kink, A+- = sum alpha g_alpha and B+- =
-//     sum alpha. As sum_j alpha = 1 on the edges, g_e_src_i = sum_j on
-//     lrelu' alpha (g_alpha - D_i) = 0.8 (A+ - D B+) = -0.8 (A- - D B-),
-//     taken from the side with less weight. The row's softmax is invariant
-//     to e_src_i apart from the kink, so its gradient is small against
-//     D_i: a form that relies on the computed sum of alpha being 1 (A - D B
-//     over all edges) carries that sum's rounding times D_i, up to 1e-4 of
-//     a_src's gradient at Z = 2048; this one is exactly 0 where all the
-//     edges lie on one side, as autograd's VJP through the row max is;
+//     VJPs, then over i's entries, 32 at a time (lane e the e-th, Wh_j in
+//     its registers), the recomputed alpha_ij and g_alpha = g_out_i .
+//     Wh_j, summed per head into D_i = sum_j alpha g_alpha (the softmax
+//     VJP's) and, over the edges whose score lies on each side of the
+//     leaky-relu's kink, A+- = sum alpha g_alpha and B+- = sum alpha. As
+//     sum_j alpha = 1 on the edges, g_e_src_i = sum_j on lrelu' alpha
+//     (g_alpha - D_i) = 0.8 (A+ - D B+) = -0.8 (A- - D B-), taken from the
+//     side with less weight. The row's softmax is invariant to e_src_i
+//     apart from the kink, so its gradient is small against D_i: a form
+//     that relies on the computed sum of alpha being 1 (A - D B over all
+//     edges) carries that sum's rounding times D_i, up to 1e-4 of a_src's
+//     gradient at Z = 2048; this one is exactly 0 where all the edges lie
+//     on one side, as autograd's VJP through the row max is;
 //   - column pass (warp per source row j, the FlashAttention-2 backward
-//     pattern): over all destination rows i the same alpha and g_s, giving
-//     g_Wh_j = sum_i alpha_ij g_out_i and g_e_dst_j = sum_i g_s. Both passes
-//     recompute alpha = exp(s - max) / sum from the forward's saved max and
-//     sum by one rule (score()), so their row and column sums agree;
-//   - projection pass (CTA per 32-row tile): g_Wh += g_e_src a_src +
-//     g_e_dst a_dst, g_h = g_res + g_Wh W^T, and the tile's partial sums of
-//     every parameter gradient (W, a_src, a_dst, scale, bias and, at layer
-//     0, Win and bin) into the tile's slab;
-//   - one reduction sums the slabs in tile order. No atomics: the same
-//     operands give the same bits.
+//     pattern): over j's entries, 32 at a time, the same alpha and g_s,
+//     giving g_Wh_j = sum_i alpha_ij g_out_i (in entry order, through
+//     shared memory) and g_e_dst_j = sum_i g_s. Both passes recompute alpha
+//     = exp(s - max) / sum from the forward's saved max and sum by one
+//     rule (score()), so their row and column sums agree;
+//   - projection pass (4 CTAs per 32-row tile, 16 output columns each):
+//     g_Wh += g_e_src a_src + g_e_dst a_dst, g_h = g_res + g_Wh W^T, and
+//     the tile's partial sums of every parameter gradient (W, a_src,
+//     a_dst, scale, bias and, at layer 0, Win and bin) into the tile's
+//     slab;
+//   - one reduction (reduce_slabs.cuh) sums the slabs in tile order. No
+//     atomics: the same operands give the same bits.
 //
 // Everything is float32: products as FFMA on the CUDA cores, no bf16 and no
 // TF32 (the LayerNorm and softmax gradients are precision-sensitive, and the
 // encoder is a small share of the training step). At bench rung 2 (Z = 500,
 // 2 layers) the forward is ~45 MFLOP and reads ~1 MB (the adjacency): less
-// than 2 us of FP32 FFMA or memory. What bounds it on this card is launch
-// latency and the serial chunk loops of a few hundred CTAs: the design
-// keeps each pass one grid and the working set (at Z = 2048, 512 KB per
-// (Z, 64) array) in L2, and leaves fusing the grids into one persistent
-// launch to later work. The exp of every score (Z^2 per head, two or three
-// times) is the next cost; each is computed once per pass and shared
-// through shared memory where a row's 64 features need it.
+// than 2 us of FP32 FFMA or memory. What bounds both kernels on this card is
+// latency: launches and the dependent loads of a few hundred warps. K4f
+// walks all Z columns in chunks of 64 through shared memory (its exp of
+// every score is its next cost). K4b's first design did the same and spent
+// ~70% of its time there, though rung 2's zone world holds ~7-12 entries a
+// row of 500 (H100 probes, PERF.md); it now walks the entries alone, each
+// warp's gathers one round trip, and its projection pass register-blocks
+// its products (each shared-memory load feeds 4 or more FMAs) and loads
+// every row's operand before it sums them, on four CTAs a tile. On a dense
+// graph the lists are full length and K4b does the first design's work,
+// its walks in the same lanes and order: the same bits.
 //
 // Compiled for 64 features in 4 heads of 16, 1-4 layers, 1-64 zone
 // features and any zone count the caller's memory holds.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "reduce_slabs.cuh"
 
 namespace {
 
@@ -74,7 +91,9 @@ constexpr int kMaxF = 64;      // zone features
 constexpr int kInRows = 8;     // input grid: rows (warps) per CTA
 constexpr int kRows = 4;       // row / column passes: rows (warps) per CTA
 constexpr int kChunk = 64;     // rows staged through shared memory at once
-constexpr int kTile = 32;      // projection pass: rows per CTA (and slab)
+constexpr int kTile = 32;      // projection pass: rows a tile (and slab)
+constexpr int kProjParts = 4;  // projection pass: CTAs a tile
+constexpr int kPartCols = D / kProjParts;  // output columns a CTA
 constexpr int kProjThreads = 256;
 constexpr float kNeg = -1e30f;
 constexpr float kSlope = 0.2f;
@@ -111,6 +130,11 @@ struct Bwd {
   float* GED;      // (z, NH): cotangent of e_dst
   float* slab;     // (num_tiles, param size), written, not added
   float* gsum;     // (param size)
+  // the graph's entries as bitmasks of `words` = ceil(z / 32) words: each
+  // row's on-graph columns (z, words), each column's on-graph rows (z,
+  // words), then the rows with no entry (words)
+  unsigned* lists;
+  int words;
 };
 
 __device__ __forceinline__ float sum16(float v) {
@@ -132,6 +156,12 @@ __device__ __forceinline__ float max16(float v) {
   return fmaxf(v, __shfl_xor_sync(kFull, v, 1));
 }
 
+// the bits of word w of a list over z indices that stand for an index
+__device__ __forceinline__ unsigned valid_bits(int z, int w) {
+  const int n = z - 32 * w;
+  return n >= 32 ? kFull : (1u << n) - 1u;
+}
+
 // the masked leaky-relu score of pre = e_src_i + e_dst_j: one rule for the
 // forward and both backward passes
 __device__ __forceinline__ float score(float pre, bool on) {
@@ -145,6 +175,24 @@ __device__ __forceinline__ float score(float pre, bool on) {
 // and 3; a 16-lane sum is a head's.
 __device__ __forceinline__ float pick(const float (&v)[NH], int head) {
   return head == 0 ? v[0] : head == 1 ? v[1] : head == 2 ? v[2] : v[3];
+}
+
+__device__ __forceinline__ float pick(const float4& v, int head) {
+  return head == 0 ? v.x : head == 1 ? v.y : head == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// x = the N floats at p (16-byte aligned), as N / 4 loads all in flight
+template <int N>
+__device__ __forceinline__ void load_floats(const float* p, float (&x)[N]) {
+#pragma unroll
+  for (int c = 0; c < N; c += 4) {
+    const float4 v = ldg4(p + c);
+    x[c] = v.x; x[c + 1] = v.y; x[c + 2] = v.z; x[c + 3] = v.w;
+  }
 }
 
 // Wh = h W of one row (h in `row`, W in shared memory), its e_src and
@@ -329,7 +377,90 @@ __global__ void __launch_bounds__(32 * kRows)
                 p.prm + layer_off(p.f, k + 1), lane);
 }
 
-// ---- K4b ---------------------------------------------------------------------
+// ---- K4b: the graph's entries -----------------------------------------------
+
+constexpr int kListWarps = 16;  // list kernel: 32 x 32 blocks (warps) a CTA
+
+// K4b's lists from adj (> 0: on the graph): a CTA per strip of 32 rows, a
+// warp per 32 x 32 block of it at a time, one ballot a row of the block:
+// lane r keeps row i0 + r's word of the block, lane c builds column j0 +
+// c's word of the strip. The strip's rows without an entry: the warps'
+// words ORed through shared memory.
+__global__ void __launch_bounds__(32 * kListWarps)
+    gat_bwd_lists_kernel(const Bwd b) {
+  __shared__ unsigned filled[kListWarps];
+  const int z = b.p.z, nw = b.words;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int strip = blockIdx.x, i0 = strip * 32;
+  unsigned* rows = b.lists;
+  unsigned* cols = rows + (long)z * nw;
+  bool some = false;  // lane r: row i0 + r has an entry in this warp's blocks
+  for (int cb = warp; cb < nw; cb += kListWarps) {
+    const int j = cb * 32 + lane;
+    float a[32];
+#pragma unroll
+    for (int r = 0; r < 32; ++r)
+      a[r] = i0 + r < z && j < z ? b.p.adj[(long)(i0 + r) * z + j] : 0.f;
+    unsigned mine = 0, col = 0;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const unsigned m = __ballot_sync(kFull, a[r] > 0.f);
+      if (lane == r) mine = m;
+      col |= ((m >> lane) & 1u) << r;
+    }
+    if (i0 + lane < z) rows[(long)(i0 + lane) * nw + cb] = mine;
+    if (j < z) cols[(long)j * nw + strip] = col;
+    some |= mine != 0;
+  }
+  const unsigned has = __ballot_sync(kFull, some);
+  if (lane == 0) filled[warp] = has;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned f = 0;
+    for (int w = 0; w < kListWarps; ++w) f |= filled[w];
+    cols[(long)z * nw + strip] = ~f & valid_bits(z, strip);
+  }
+}
+
+// The entries of up to 32 words of a list, lane L holding word L (0 past
+// the list), in index order: entry t is bit entry_bit(t) of word
+// entry_word(t).
+struct Walk {
+  unsigned word;
+  int before;  // entries in the words below the lane's
+  int total;   // entries in all 32 words
+  __device__ __forceinline__ explicit Walk(unsigned w) : word(w) {
+    const int lane = threadIdx.x & 31;
+    int incl = __popc(w);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += v;
+    }
+    before = incl - __popc(w);
+    total = __shfl_sync(kFull, incl, 31);
+  }
+  // the word holding entry t (t < total): the last lane whose words below
+  // hold at most t entries; every lane of the warp calls it
+  __device__ __forceinline__ int entry_word(int t) const {
+    int w = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)
+      if (__shfl_sync(kFull, before, w + step) <= t) w += step;
+    return w;
+  }
+  // entry t's bit in word m of the walk, given m's words below: the bit
+  // with rank t - below among m's set bits
+  __device__ __forceinline__ static int entry_bit(unsigned m, int rank) {
+    int bit = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)
+      if (__popc(m & ((1u << (bit + step)) - 1u)) <= rank) bit += step;
+    return bit;
+  }
+};
+
+// ---- K4b: the passes --------------------------------------------------------
 
 // the cotangent of layer k's output
 __device__ __forceinline__ const float* layer_gout(const Bwd& b, int k) {
@@ -337,24 +468,33 @@ __device__ __forceinline__ const float* layer_gout(const Bwd& b, int k) {
 }
 
 // row pass of layer k: LayerNorm / residual / elu VJPs, D and g_e_src; a
-// warp per destination row
+// warp per destination row i, over i's on-graph columns (every column for
+// a row with none) in index order, 32 at a time: lane e the e-th
 __global__ void __launch_bounds__(32 * kRows)
     gat_bwd_row_kernel(const Bwd b, const int k) {
-  __shared__ float wh_s[kChunk][D + 1];
-  __shared__ float ed_s[kChunk][NH + 1];
   __shared__ float go_s[kRows][D];
   const Fwd& p = b.p;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int i = blockIdx.x * kRows + warp;
-  const bool row_ok = i < p.z;
+  if (i >= p.z) return;  // warp-uniform; no block barrier below
   const long zd = (long)p.z * D, zh = (long)p.z * NH;
   const float* WH = p.WH + k * zd;
   const float* ED = p.ST + (p.layers + k) * zh;
-  const float* adj_row = p.adj + (long)(row_ok ? i : 0) * p.z;
   const int hA = lane >> 4, hB = 2 + hA;
+  // the row's list (its first 32 words loaded now, before any store)
+  const unsigned* list = b.lists + (long)i * b.words;
+  const bool lonely =
+      (b.lists[2L * p.z * b.words + (i >> 5)] >> (i & 31)) & 1u;
+  const unsigned first = lane < b.words ? list[lane] : 0u;
 
   float es[NH], m[NH], l[NH];
-  if (row_ok) {
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    es[h] = p.ST[k * zh + (long)i * NH + h];
+    m[h] = p.ST[(2 * p.layers + k) * zh + (long)i * NH + h];
+    l[h] = p.ST[(3 * p.layers + k) * zh + (long)i * NH + h];
+  }
+  {
     const long o = (long)i * D;
     const float* gout = layer_gout(b, k) + o;
     const float* xh = p.GX + (p.layers + k) * zd + o;
@@ -377,58 +517,53 @@ __global__ void __launch_bounds__(32 * kRows)
     b.GO[o + lane + 32] = goB;
     go_s[warp][lane] = goA;
     go_s[warp][lane + 32] = goB;
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      es[h] = p.ST[k * zh + (long)i * NH + h];
-      m[h] = p.ST[(2 * p.layers + k) * zh + (long)i * NH + h];
-      l[h] = p.ST[(3 * p.layers + k) * zh + (long)i * NH + h];
-    }
+    __syncwarp();
   }
 
-  // a lane per source row of the chunk, all heads; per head D and, by side
-  // of the kink, sum alpha g_alpha and sum alpha over the edges
+  // per head D and, by side of the kink, sum alpha g_alpha and sum alpha
+  // over the edges; a row with no entry walks every column, all off
+  const bool on = !lonely;
   float sum_d[NH] = {0.f, 0.f, 0.f, 0.f};
   float ag_pos[NH] = {0.f, 0.f, 0.f, 0.f}, al_pos[NH] = {0.f, 0.f, 0.f, 0.f};
   float ag_neg[NH] = {0.f, 0.f, 0.f, 0.f}, al_neg[NH] = {0.f, 0.f, 0.f, 0.f};
-  for (int j0 = 0; j0 < p.z; j0 += kChunk) {
-    const int n = min(kChunk, p.z - j0);
-    __syncthreads();
-    for (int idx = tid; idx < kChunk * D; idx += 32 * kRows) {
-      const int r = idx / D, c = idx % D;
-      wh_s[r][c] = r < n ? WH[(long)(j0 + r) * D + c] : 0.f;
-    }
-    for (int idx = tid; idx < kChunk * NH; idx += 32 * kRows) {
-      const int r = idx / NH, h = idx % NH;
-      ed_s[r][h] = r < n ? ED[(long)(j0 + r) * NH + h] : 0.f;
-    }
-    __syncthreads();
-    if (!row_ok) continue;
+  for (int w0 = 0; w0 < b.words; w0 += 32) {
+    const int w = w0 + lane;
+    const Walk walk(w >= b.words ? 0u
+                    : lonely    ? valid_bits(p.z, w)
+                    : w0 == 0   ? first
+                                : list[w]);
+    for (int t0 = 0; t0 < walk.total; t0 += 32) {
+      const int n = min(32, walk.total - t0);
+      const int t = min(t0 + lane, walk.total - 1);
+      const int ew = walk.entry_word(t);
+      const int j = (w0 + ew) * 32 +
+                    Walk::entry_bit(__shfl_sync(kFull, walk.word, ew),
+                                    t - __shfl_sync(kFull, walk.before, ew));
+      float wh[D];
+      load_floats<D>(WH + (long)j * D, wh);
+      const float4 ed = ldg4(ED + (long)j * NH);
+      if (lane < n) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int q = lane + 32 * half;
-      if (q >= n) continue;
-      const bool on = adj_row[j0 + q] > 0.f;
+        for (int h = 0; h < NH; ++h) {
+          const float pre = es[h] + pick(ed, h);
+          const float alpha = expf(score(pre, on) - m[h]) / l[h];
+          float ga = 0.f;
 #pragma unroll
-      for (int h = 0; h < NH; ++h) {
-        const float pre = es[h] + ed_s[q][h];
-        const float alpha = expf(score(pre, on) - m[h]) / l[h];
-        float ga = 0.f;
-#pragma unroll
-        for (int t = 0; t < DH; ++t)
-          ga = fmaf(go_s[warp][h * DH + t], wh_s[q][h * DH + t], ga);
-        const float ag = alpha * ga;
-        sum_d[h] += ag;
-        if (on && pre >= 0.f) {
-          ag_pos[h] += ag;
-          al_pos[h] += alpha;
-        } else if (on) {
-          ag_neg[h] += ag;
-          al_neg[h] += alpha;
+          for (int u = 0; u < DH; ++u)
+            ga = fmaf(go_s[warp][h * DH + u], wh[h * DH + u], ga);
+          const float ag = alpha * ga;
+          sum_d[h] += ag;
+          if (on && pre >= 0.f) {
+            ag_pos[h] += ag;
+            al_pos[h] += alpha;
+          } else if (on) {
+            ag_neg[h] += ag;
+            al_neg[h] += alpha;
+          }
         }
       }
     }
   }
-  if (!row_ok) return;
 #pragma unroll
   for (int h = 0; h < NH; ++h) {
     const float d = sum32(sum_d[h]);
@@ -443,18 +578,18 @@ __global__ void __launch_bounds__(32 * kRows)
 }
 
 // column pass of layer k: g_Wh_j = sum_i alpha_ij g_out_i and g_e_dst; a
-// warp per source row
+// warp per source row j, over the rows i with j on the graph and the rows
+// with no entry (which attend to every column), in index order, 32 at a
+// time
 __global__ void __launch_bounds__(32 * kRows)
     gat_bwd_col_kernel(const Bwd b, const int k) {
-  __shared__ float go_s[kChunk][D + 1];
-  __shared__ float st_s[kChunk][4 * NH + 1];  // e_src, max, sum, D of row i
-  __shared__ float adj_s[kChunk][kRows + 1];
+  __shared__ float go_s[kRows][32][D + 1];
+  __shared__ float al_s[kRows][NH][32 + 1];
   __shared__ float v_s[kRows][D];
-  __shared__ float al_s[kRows][NH][kChunk + 1];
   const Fwd& p = b.p;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int j0 = blockIdx.x * kRows, j = j0 + warp;
-  const bool col_ok = j < p.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int j = blockIdx.x * kRows + warp;
+  if (j >= p.z) return;  // warp-uniform; no block barrier below
   const long zd = (long)p.z * D, zh = (long)p.z * NH;
   const float* WH = p.WH + k * zd;
   const float* ES = p.ST + k * zh;
@@ -463,67 +598,59 @@ __global__ void __launch_bounds__(32 * kRows)
   const int hA = lane >> 4, hB = 2 + hA;
 
   float ed[NH];
-  if (col_ok) {
-    v_s[warp][lane] = WH[(long)j * D + lane];
-    v_s[warp][lane + 32] = WH[(long)j * D + lane + 32];
+  v_s[warp][lane] = WH[(long)j * D + lane];
+  v_s[warp][lane + 32] = WH[(long)j * D + lane + 32];
+  __syncwarp();
 #pragma unroll
-    for (int h = 0; h < NH; ++h)
-      ed[h] = p.ST[(p.layers + k) * zh + (long)j * NH + h];
-  }
+  for (int h = 0; h < NH; ++h)
+    ed[h] = p.ST[(p.layers + k) * zh + (long)j * NH + h];
+  const unsigned* list = b.lists + ((long)p.z + j) * b.words;
+  const unsigned* lonely = b.lists + 2L * p.z * b.words;
   float accA = 0.f, accB = 0.f;
   float ged[NH] = {0.f, 0.f, 0.f, 0.f};
-  for (int i0 = 0; i0 < p.z; i0 += kChunk) {
-    const int n = min(kChunk, p.z - i0);
-    __syncthreads();
-    for (int idx = tid; idx < kChunk * D; idx += 32 * kRows) {
-      const int r = idx / D, c = idx % D;
-      go_s[r][c] = r < n ? b.GO[(long)(i0 + r) * D + c] : 0.f;
-    }
-    for (int idx = tid; idx < kChunk * NH; idx += 32 * kRows) {
-      const int r = idx / NH, h = idx % NH;
-      const bool in = r < n;
-      const long o = (long)(i0 + r) * NH + h;
-      st_s[r][h] = in ? ES[o] : 0.f;
-      st_s[r][NH + h] = in ? MX[o] : 0.f;
-      st_s[r][2 * NH + h] = in ? SM[o] : 1.f;
-      st_s[r][3 * NH + h] = in ? b.DD[o] : 0.f;
-    }
-    for (int idx = tid; idx < kChunk * kRows; idx += 32 * kRows) {
-      const int r = idx / kRows, w = idx % kRows;
-      adj_s[r][w] = (r < n && j0 + w < p.z)
-                        ? p.adj[(long)(i0 + r) * p.z + j0 + w] : 0.f;
-    }
-    __syncthreads();
-    if (!col_ok) continue;
+  for (int w0 = 0; w0 < b.words; w0 += 32) {
+    const int w = w0 + lane;
+    const unsigned ons = w < b.words ? list[w] : 0u;
+    const Walk walk(w < b.words ? ons | lonely[w] : 0u);
+    for (int t0 = 0; t0 < walk.total; t0 += 32) {
+      const int n = min(32, walk.total - t0);
+      const int t = min(t0 + lane, walk.total - 1);
+      const int ew = walk.entry_word(t);
+      const int bit =
+          Walk::entry_bit(__shfl_sync(kFull, walk.word, ew),
+                          t - __shfl_sync(kFull, walk.before, ew));
+      const int i = (w0 + ew) * 32 + bit;
+      const bool on = (__shfl_sync(kFull, ons, ew) >> bit) & 1u;
+      float go[D];
+      load_floats<D>(b.GO + (long)i * D, go);
+      const long o = (long)i * NH;
+      const float4 se = ldg4(ES + o), mx = ldg4(MX + o), sm = ldg4(SM + o),
+                   dd = ldg4(b.DD + o);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int q = lane + 32 * half;
-      const bool in = q < n;
-      const bool on = in && adj_s[q][warp] > 0.f;
+      for (int c = 0; c < D; ++c) go_s[warp][lane][c] = go[c];
+      if (lane < n) {
 #pragma unroll
-      for (int h = 0; h < NH; ++h) {
-        float alpha = 0.f;
-        if (in) {
-          const float pre = st_s[q][h] + ed[h];
-          alpha = expf(score(pre, on) - st_s[q][NH + h]) / st_s[q][2 * NH + h];
+        for (int h = 0; h < NH; ++h) {
+          const float pre = pick(se, h) + ed[h];
+          const float alpha =
+              expf(score(pre, on) - pick(mx, h)) / pick(sm, h);
           float ga = 0.f;
 #pragma unroll
-          for (int t = 0; t < DH; ++t)
-            ga = fmaf(go_s[q][h * DH + t], v_s[warp][h * DH + t], ga);
-          const float gs = alpha * (ga - st_s[q][3 * NH + h]);
+          for (int u = 0; u < DH; ++u)
+            ga = fmaf(go[h * DH + u], v_s[warp][h * DH + u], ga);
+          const float gs = alpha * (ga - pick(dd, h));
           ged[h] += on ? (pre >= 0.f ? gs : kSlope * gs) : 0.f;
+          al_s[warp][h][lane] = alpha;
         }
-        al_s[warp][h][q] = alpha;
       }
+      __syncwarp();
+      for (int e = 0; e < n; ++e) {
+        accA = fmaf(al_s[warp][hA][e], go_s[warp][e][lane], accA);
+        accB = fmaf(al_s[warp][hB][e], go_s[warp][e][lane + 32], accB);
+      }
+      __syncwarp();
     }
-    __syncwarp();
-    for (int ii = 0; ii < n; ++ii) {
-      accA = fmaf(al_s[warp][hA][ii], go_s[ii][lane], accA);
-      accB = fmaf(al_s[warp][hB][ii], go_s[ii][lane + 32], accB);
-    }
-    __syncwarp();
   }
-  if (!col_ok) return;
   b.GV[(long)j * D + lane] = accA;
   b.GV[(long)j * D + lane + 32] = accB;
 #pragma unroll
@@ -533,19 +660,24 @@ __global__ void __launch_bounds__(32 * kRows)
   }
 }
 
-// projection pass of layer k over a tile of kTile rows: g_Wh, the
-// cotangent of the layer's input, and the tile's partial parameter
-// gradients into its slab
+// projection pass of layer k over a tile of kTile rows, one CTA for each
+// kPartCols of its D output columns: g_Wh, the cotangent of the layer's
+// input, and the tile's partial parameter gradients into its slab (each
+// CTA of the tile writes its own columns)
 __global__ void __launch_bounds__(kProjThreads)
     gat_bwd_proj_kernel(const Bwd b, const int k) {
-  __shared__ float w_s[D][D + 1];
-  __shared__ float h_s[kTile][D];
-  __shared__ float gwh_s[kTile][D];
-  __shared__ float gh_s[kTile][D];
+  __shared__ float w_s[kPartCols][D + 1];  // W's rows of the part's inputs
+  __shared__ __align__(16) float h_s[kTile][D];
+  __shared__ __align__(16) float gwh_s[kTile][D];
+  __shared__ float gh_s[kTile][kPartCols];
   const Fwd& p = b.p;
-  const int tid = threadIdx.x, c = tid % D, grp = tid / D;
-  constexpr int kGroups = kProjThreads / D;
-  const int row0 = blockIdx.x * kTile;
+  constexpr int kGroups = kProjThreads / kPartCols;
+  constexpr int kRowsPer = kTile / kGroups;  // rows of g_h a thread
+  constexpr int kInPer = D / kGroups;        // rows of g_W a thread
+  const int tid = threadIdx.x, cl = tid % kPartCols, grp = tid / kPartCols;
+  const int part = blockIdx.x % kProjParts;
+  const int c = part * kPartCols + cl;
+  const int row0 = blockIdx.x / kProjParts * kTile;
   const int n = min(kTile, p.z - row0);
   const long zd = (long)p.z * D, zh = (long)p.z * NH;
   const float* lw = p.prm + layer_off(p.f, k);
@@ -555,76 +687,132 @@ __global__ void __launch_bounds__(kProjThreads)
   const float* WH = p.WH + k * zd;
   const float* XH = p.GX + (p.layers + k) * zd;
   const float* gout = layer_gout(b, k);
+  // the operands no shared-memory step feeds, loaded first: the vectors'
+  // (groups 0-3), Win's (layer 0, the thread's first zone feature) and
+  // g_res
   const int hd = c / DH;
-  for (int idx = tid; idx < D * D; idx += kProjThreads)
-    w_s[idx / D][idx % D] = lw[idx];
-  for (int r = grp; r < kTile; r += kGroups) {
+  float x[kTile], y[kTile], zx[kTile], gres[kRowsPer];
+#pragma unroll
+  for (int r = 0; r < kTile; ++r) {
     const long row = row0 + r, o = row * D + c;
+    const bool in = r < n && grp < 4;
+    x[r] = !in ? 0.f : grp == 0 ? b.GES[row * NH + hd]
+                     : grp == 1 ? b.GED[row * NH + hd] : gout[o];
+    y[r] = !in || grp == 3 ? 0.f : grp < 2 ? WH[o] : XH[o];
+    zx[r] = r < n && k == 0 && grp < p.f ? p.zf[row * p.f + grp] : 0.f;
+  }
+#pragma unroll
+  for (int rr = 0; rr < kRowsPer; ++rr) {
+    const int r = grp * kRowsPer + rr;
+    gres[rr] = r < n ? b.GRES[(long)(row0 + r) * D + c] : 0.f;
+  }
+#pragma unroll
+  for (int q = 0; q < kPartCols * D / kProjThreads; ++q) {
+    const int idx = tid + q * kProjThreads;
+    w_s[idx / D][idx % D] = lw[(long)(part * kPartCols) * D + idx];
+  }
+#pragma unroll
+  for (int q = 0; q < kTile * D / kProjThreads; ++q) {
+    const int idx = tid + q * kProjThreads, r = idx / D, cc = idx % D;
+    const long row = row0 + r, o = row * D + cc;
+    const int hc = cc / DH;
     const bool in = r < n;
-    h_s[r][c] = in ? H[o] : 0.f;
-    gwh_s[r][c] = in ? b.GV[o] + b.GES[row * NH + hd] * asrc[c] +
-                           b.GED[row * NH + hd] * adst[c]
-                     : 0.f;
+    h_s[r][cc] = in ? H[o] : 0.f;
+    gwh_s[r][cc] = in ? b.GV[o] + b.GES[row * NH + hc] * asrc[cc] +
+                            b.GED[row * NH + hc] * adst[cc]
+                      : 0.f;
   }
   __syncthreads();
-  // g_h = g_res + g_Wh W^T, row-local
-  for (int r = grp; r < kTile; r += kGroups) {
-    float gh = 0.f;
-    if (r < n) {
-      float acc = 0.f;
-#pragma unroll 8
-      for (int cc = 0; cc < D; ++cc) acc = fmaf(gwh_s[r][cc], w_s[c][cc], acc);
-      const long o = (long)(row0 + r) * D + c;
-      gh = b.GRES[o] + acc;
-      b.GH[k * zd + o] = gh;
-    }
-    gh_s[r][c] = gh;
-  }
-  __syncthreads();
-  float* slab = b.slab + (long)blockIdx.x * layer_off(p.f, p.layers);
-  float* ls = slab + layer_off(p.f, k);
-  // g_W[in][out] = sum_r h[r][in] g_Wh[r][out]
-  for (int kin = grp; kin < D; kin += kGroups) {
-    float acc = 0.f;
-#pragma unroll 8
-    for (int r = 0; r < kTile; ++r) acc = fmaf(h_s[r][kin], gwh_s[r][c], acc);
-    ls[kin * D + c] = acc;
-  }
-  // the vectors: group 0 a_src, 1 a_dst, 2 scale, 3 bias
+  // g_h = g_res + g_Wh W^T, row-local: the thread's kRowsPer rows of
+  // column c, each a sum over cc in order
   {
+    float acc[kRowsPer];
+#pragma unroll
+    for (int rr = 0; rr < kRowsPer; ++rr) acc[rr] = 0.f;
+#pragma unroll 4
+    for (int cc = 0; cc < D; cc += 4) {
+      float w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) w[q] = w_s[cl][cc + q];
+#pragma unroll
+      for (int rr = 0; rr < kRowsPer; ++rr) {
+        const float4 g =
+            *reinterpret_cast<const float4*>(&gwh_s[grp * kRowsPer + rr][cc]);
+        acc[rr] = fmaf(g.x, w[0], acc[rr]);
+        acc[rr] = fmaf(g.y, w[1], acc[rr]);
+        acc[rr] = fmaf(g.z, w[2], acc[rr]);
+        acc[rr] = fmaf(g.w, w[3], acc[rr]);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRowsPer; ++rr) {
+      const int r = grp * kRowsPer + rr;
+      float gh = 0.f;
+      if (r < n) {
+        gh = gres[rr] + acc[rr];
+        b.GH[k * zd + (long)(row0 + r) * D + c] = gh;
+      }
+      gh_s[r][cl] = gh;
+    }
+  }
+  __syncthreads();
+  float* slab = b.slab + (long)(blockIdx.x / kProjParts) *
+                              layer_off(p.f, p.layers);
+  float* ls = slab + layer_off(p.f, k);
+  // g_W[in][out] = sum_r h[r][in] g_Wh[r][out]: the thread's kInPer inputs
+  // of output c, each a sum over the tile's rows in order
+  {
+    float acc[kInPer];
+#pragma unroll
+    for (int q = 0; q < kInPer; ++q) acc[q] = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < kTile; ++r) {
+      const float g = gwh_s[r][c];
+#pragma unroll
+      for (int q = 0; q < kInPer; q += 4) {
+        const float4 h =
+            *reinterpret_cast<const float4*>(&h_s[r][grp * kInPer + q]);
+        acc[q] = fmaf(h.x, g, acc[q]);
+        acc[q + 1] = fmaf(h.y, g, acc[q + 1]);
+        acc[q + 2] = fmaf(h.z, g, acc[q + 2]);
+        acc[q + 3] = fmaf(h.w, g, acc[q + 3]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kInPer; ++q) ls[(grp * kInPer + q) * D + c] = acc[q];
+  }
+  // the vectors, groups 0-3: a_src, a_dst, scale, bias, summed in row
+  // order
+  if (grp < 4) {
     float acc = 0.f;
-    for (int r = 0; r < n; ++r) {
-      const long row = row0 + r, o = row * D + c;
-      if (grp == 0) acc = fmaf(b.GES[row * NH + hd], WH[o], acc);
-      else if (grp == 1) acc = fmaf(b.GED[row * NH + hd], WH[o], acc);
-      else if (grp == 2) acc = fmaf(gout[o], XH[o], acc);
-      else acc += gout[o];
+#pragma unroll
+    for (int r = 0; r < kTile; ++r) {
+      if (r >= n) break;
+      acc = grp == 3 ? acc + x[r] : fmaf(x[r], y[r], acc);
     }
     ls[D * D + grp * D + c] = acc;
   }
   if (k != 0) return;
   // h0 = zf Win + bin
   for (int fi = grp; fi < p.f; fi += kGroups) {
+    if (fi != grp) {
+#pragma unroll
+      for (int r = 0; r < kTile; ++r)
+        zx[r] = r < n ? p.zf[(long)(row0 + r) * p.f + fi] : 0.f;
+    }
     float acc = 0.f;
-    for (int r = 0; r < n; ++r)
-      acc = fmaf(p.zf[(long)(row0 + r) * p.f + fi], gh_s[r][c], acc);
+#pragma unroll
+    for (int r = 0; r < kTile; ++r) {
+      if (r >= n) break;
+      acc = fmaf(zx[r], gh_s[r][cl], acc);
+    }
     slab[fi * D + c] = acc;
   }
   if (grp == 0) {
     float acc = 0.f;
-    for (int r = 0; r < n; ++r) acc += gh_s[r][c];
+    for (int r = 0; r < n; ++r) acc += gh_s[r][cl];
     slab[(long)p.f * D + c] = acc;
   }
-}
-
-// gsum = the slabs summed in tile order
-__global__ void gat_reduce_kernel(const float* slab, float* gsum, long size,
-                                  int tiles) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= size) return;
-  float acc = 0.f;
-  for (int t = 0; t < tiles; ++t) acc += slab[t * size + idx];
-  gsum[idx] = acc;
 }
 
 bool compiled_for(int z, int f, int layers, int d, int heads) {
@@ -672,8 +860,10 @@ int ananke_gat_forward(const void* zf, const void* adj, const void* prm,
 
 // K4b on `stream`: the gradient of every parameter at the output's
 // cotangent g, packed as prm, into gsum, from the forward's residuals.
-// GH (layers, z, D), GRES, GO, GV (z, D) each and DD, GES, GED (z, NH) each
-// are scratch; slab is (num_tiles, param size), num_tiles = ceil(z / 32).
+// GH (layers, z, D), GRES, GO, GV (z, D) each are scratch, and so is
+// scratch_nh: DD, GES, GED (z, NH) each, then the lists (2 z w + w words,
+// w = ceil(z / 32)); slab is (num_tiles, param size), num_tiles =
+// ceil(z / 32).
 int ananke_gat_backward(const void* zf, const void* adj, const void* prm,
                         const void* H, const void* WH, const void* ST,
                         const void* GX, const void* RS, const void* g,
@@ -705,9 +895,12 @@ int ananke_gat_backward(const void* zf, const void* adj, const void* prm,
   b.GED = b.GES + zh;
   b.slab = static_cast<float*>(slab);
   b.gsum = static_cast<float*>(gsum);
+  b.lists = reinterpret_cast<unsigned*>(b.GED + zh);
+  b.words = (z + 31) / 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned rows_grid = (z + kRows - 1) / kRows;
-  cudaError_t err = cudaSuccess;
+  gat_bwd_lists_kernel<<<b.words, 32 * kListWarps, 0, s>>>(b);
+  cudaError_t err = cudaGetLastError();
   for (int k = layers - 1; k >= 0 && err == cudaSuccess; --k) {
     gat_bwd_row_kernel<<<rows_grid, 32 * kRows, 0, s>>>(b, k);
     err = cudaGetLastError();
@@ -715,14 +908,13 @@ int ananke_gat_backward(const void* zf, const void* adj, const void* prm,
     gat_bwd_col_kernel<<<rows_grid, 32 * kRows, 0, s>>>(b, k);
     err = cudaGetLastError();
     if (err != cudaSuccess) break;
-    gat_bwd_proj_kernel<<<num_tiles, kProjThreads, 0, s>>>(b, k);
+    gat_bwd_proj_kernel<<<num_tiles * kProjParts, kProjThreads, 0, s>>>(b,
+                                                                         k);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return (int)err;
-  const long size = layer_off(f, layers);
-  gat_reduce_kernel<<<(unsigned)((size + 255) / 256), 256, 0, s>>>(
-      b.slab, b.gsum, size, num_tiles);
-  return (int)cudaGetLastError();
+  return ananke::launch_reduce_slabs(b.slab, b.gsum, layer_off(f, layers),
+                                     num_tiles, s);
 }
 
 const char* ananke_cuda_error_string(int err) {

@@ -1,8 +1,9 @@
 // The ordered sum of per-CTA partial sums: each CTA writes its own slab of
 // `size` floats with plain stores, and one launch sums the slabs in CTA
 // order, so the same operands give the same bits (no atomics). The summed
-// gradients of the drift's VJPs (drift_stage.cuh's slab layout) and
-// K5-bf16's error sum (fused_step.cu, one float a CTA) use it.
+// gradients of the drift's VJPs (drift_stage.cuh's slab layout), the zone
+// encoder's VJP (fused_gat.cu, a slab a 32-row tile) and K5-bf16's error
+// sum (fused_step.cu, one float a CTA) use it.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -345,13 +345,16 @@ def float64_encoder(fn, *args):
     return fn(*(up(a) for a in args))
 
 
-def gat_operands(z, f, num_layers, dev, seed, isolated=None, graph=None):
+def gat_operands(z, f, num_layers, dev, seed, isolated=None, graph=None,
+                 density=0.1):
     """``(zf, adj, flat, heads, num_layers)`` and a cotangent ``g`` of the
     encoder kernels' checks at the shipping widths (64 features, 4 heads):
     a model's encoder initialised as :func:`init_params` does, its
     LayerNorm scale and bias moved off 1 and 0, random zone features and a
-    random graph with self loops (the row ``isolated`` zeroed), all from
-    ``seed``; ``graph``: (zf, adj) to use instead of the random ones."""
+    random graph with self loops holding each other entry with probability
+    ``density`` (1: every entry on), the row or rows ``isolated`` zeroed,
+    all from ``seed``; ``graph``: (zf, adj) to use instead of the random
+    ones."""
     from ananke_abm_tpu_torch.models.gnn_embed.train import (
         GATODEConfig,
         build_model,
@@ -370,7 +373,7 @@ def gat_operands(z, f, num_layers, dev, seed, isolated=None, graph=None):
             norm.bias.add_(0.1 * torch.randn(norm.bias.shape, device=dev,
                                              generator=g))
         zf = torch.randn(z, f, device=dev, generator=g)
-        adj = (torch.rand(z, z, device=dev, generator=g) < 0.1).float()
+        adj = (torch.rand(z, z, device=dev, generator=g) < density).float()
         adj.fill_diagonal_(1.0)
         if graph is not None:
             zf, adj = (t.to(dev, torch.float32) for t in graph)
@@ -596,6 +599,9 @@ EDGE_BWD_BOUNDS = (5e-6, 1e-5, 1e-11)
 EDGE_SHAPES = (("world", 32_768, 4, 16), ("rung2", 500, 4, 16),
                ("random", 3_000, 2, 32), ("random", 3_000, 3, 48),
                ("single", 4_096, 1, 64))
+# a random graph around a hub whose in- and out-degree pass 32 (one batch
+# of the backward's edge indices), with destinations and sources of no edge
+EDGE_HUB_SHAPE = ("hub", 3_000, 4, 16)
 
 
 def edge_operands(kind, z, heads, d, dev, seed):
@@ -643,7 +649,20 @@ def edge_operands(kind, z, heads, d, dev, seed):
             wh, e_recv, e_send = rnd(z, heads, d), rnd(z, heads), rnd(z,
                                                                       heads)
             src = ids(z, 8 * z)
-            if kind == "random":
+            if kind == "hub":
+                # destinations that are multiples of 7 and sources that
+                # are multiples of 5 get no random edge; then zone 0, a
+                # hub, gets 128 edges each way
+                dst = ids(z, 8 * z)
+                dst = torch.clamp(torch.where(dst % 7 == 0, dst + 1, dst),
+                                  max=z - 1)
+                src = torch.clamp(torch.where(src % 5 == 0, src + 1, src),
+                                  max=z - 1)
+                many, hub = ids(z, 128), torch.zeros(128, dtype=torch.long,
+                                                     device=dev)
+                src = torch.cat([src, many, hub])
+                dst = torch.cat([dst, hub, many])
+            elif kind == "random":
                 num_nodes = z - z // 6
                 dst = ids(num_nodes + z // 12, 8 * z)  # some dropped
                 dst = torch.where(dst % 7 == 0, dst + 1, dst)  # isolated

@@ -20,7 +20,7 @@ Each wrapper takes its plain version for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises (widths it is not compiled for, a
 refused launch); there is no fallback. ``.launches`` counts the wrapper's
 calls that launched the kernel (K4f runs ``num_layers + 1`` grids a call,
-K4b ``3 * num_layers + 1``). :func:`zone_gat_fused` is the differentiable
+K4b ``3 * num_layers + 2``). :func:`zone_gat_fused` is the differentiable
 entry point. The TPU module's ``fits_vmem`` and ``probe_lowering`` have no
 counterpart: the first is a VMEM budget, and the second demotes to the flax
 encoder when a lowering fails, where the port raises.
@@ -168,6 +168,16 @@ def kernels_fit(z, f, d, heads, num_layers) -> bool:
             and 1 <= z <= MAX_KERNEL_ZONES)
 
 
+def bwd_list_words(z) -> int:
+    """32-bit words of K4b's lists of the graph's entries at ``z`` zones
+    (``Bwd::lists`` in ``csrc/fused_gat.cu``), which the wrapper puts in
+    the kernel's scratch: each row's on-graph columns and each column's
+    on-graph rows as bitmasks of ceil(z / 32) words, then one bit a row
+    for the rows with no entry."""
+    words = -(-z // 32)
+    return 2 * z * words + words
+
+
 def _kernel_device(name, zf, Z, F, D, heads, num_layers):
     """True for a CUDA tensor the kernel takes, False for a CPU tensor;
     raises for anything else."""
@@ -245,8 +255,9 @@ def gat_backward_fused(zf, adj, flat, g, heads, num_layers, res):
                                        device=dev)
     gsum = empty(size)
     ops = [zf.contiguous(), adj.contiguous(), *res, g.contiguous(),
-           empty(L, Z, D), empty(3, Z, D), empty(3, Z, heads),
-           empty(tiles, size), gsum]
+           empty(L, Z, D), empty(3, Z, D),
+           empty(3 * Z * heads + bwd_list_words(Z)), empty(tiles, size),
+           gsum]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.ananke_gat_backward(*[t.data_ptr() for t in ops], Z, F, L,
@@ -307,7 +318,7 @@ def zone_gat_fused(zone_feats, adj, zone_gat, *, heads, num_layers,
 
 
 __all__ = [
-    "flatten_gat_params", "kernels_fit",
+    "flatten_gat_params", "kernels_fit", "bwd_list_words",
     "gat_forward_reference", "gat_forward_fused",
     "gat_backward_reference", "gat_backward_fused",
     "zone_gat_fused", "KERNELS", "PLAIN",

@@ -72,7 +72,8 @@ Phases (any failure raises and the script exits non-zero):
     each;
 14. encoder kernels: K4f and K4b against their plain versions at the
     shapes of GAT_SHAPES (the first the main path's zone world; the last
-    with a zone whose adjacency row is all zero): the output and every
+    with a zone whose adjacency row is all zero) and GAT_GRAPH_SHAPES (a
+    dense adjacency; rows without an entry at Z > 64): the output and every
     parameter gradient within ``ops/cuda/checks.py``'s GAT_FWD_BOUNDS /
     GAT_BWD_BOUNDS, repeats that must give the same bits, and a control
     whose products run in TF32 that must fail each check;
@@ -148,7 +149,9 @@ Phases (any failure raises and the script exits non-zero):
     ``ops/cuda/checks.py``'s EDGE_SHAPES (the Z=32,768 sparse world, rung
     2's Z=500 world as an edge list, a random graph with isolated
     destinations, duplicate edges and num_nodes below the source count, in
-    heads of 32 and of 48, which straddle lanes; one head of 64) within EDGE_FWD_BOUNDS / EDGE_BWD_BOUNDS, repeats that
+    heads of 32 and of 48, which straddle lanes; one head of 64) and
+    EDGE_HUB_SHAPE (a hub of 128 edges each way, destinations and sources
+    of no edge) within EDGE_FWD_BOUNDS / EDGE_BWD_BOUNDS, repeats that
     must give the same bits, and a control whose features round to bf16
     (the TPU kernels' own) that must fail each check;
 29. the sparse encoder against the dense one at rung 2's world:
@@ -217,13 +220,15 @@ seeds with the control everywhere, printing the readings the bounds were
 set from and failing on none of them; then, at WITNESS_SHAPES, the day
 kernels, their plain versions and the control each against a float64
 witness. ``python3 chip_smoke.py --readings encoder`` prints the same
-readings of K4f and K4b, at GAT_SHAPES and GAT_READING_SHAPES for 3 seeds,
-and K4b and its plain version each against a float64 run;
+readings of K4f and K4b, at GAT_SHAPES, GAT_READING_SHAPES and
+GAT_GRAPH_SHAPES for 3 seeds, and K4b and its plain version each against a
+float64 run;
 ``--readings dopri5`` those of K5, K7, K6 and K7-bf16 at DOPRI5_SHAPES
 and DOPRI5_READING_SHAPES for 3 seeds, with their controls and the float64
 witness; ``--readings edge`` those of the CSR edge kernels at EDGE_SHAPES
-for 3 seeds with their bf16-feature control; ``--readings dopri5`` also
-K5-bf16's against K5's float32 kernel and the float64 witness;
+and EDGE_HUB_SHAPE for 3 seeds with their bf16-feature control;
+``--readings dopri5`` also K5-bf16's against K5's float32 kernel and the
+float64 witness;
 ``--readings k0``, ``k8a`` and ``segment`` those of K0 (KERNEL_SHAPES),
 K8a (K8_SHAPES) and K9e (SEGMENT_SHAPES) for 3 seeds with their
 controls; ``--readings serving`` (which builds only the serving kernels'
@@ -255,6 +260,20 @@ K2f's CTAs at 4 warps; for ``--ab-dopri5`` K5's float32 products as adds,
 its weights uncopied, one barrier a weight chunk), built under
 ``build/chip_smoke/variants/``: its results are wrong by design and only
 timed.
+``python3 chip_smoke.py --ab-gat DIR [DIR ...]`` builds only the
+zone-graph kernels' libraries (``fused_gat.cu``: K4f, K4b;
+``edge_segment.cu``: the CSR forward, K9c, K9e), each DIR's beside them
+(``DIR+PROBE`` a probe variant, as for ``--ab-train``: K9c's gathers, K4b's
+walk, every K4b grid's work or ``expf`` taken out), then prints ptxas's
+registers and spills of every build, the bits of K4f's output, K4b's
+every gradient, the CSR forward's out and lse, K9c's three gradients and
+K9e's sums at GAT_SHAPES, GAT_GRAPH_SHAPES, EDGE_SHAPES, EDGE_HUB_SHAPE and
+SEGMENT_SHAPES against this checkout, the device time of one call of each
+(a CUDA-graph replay; K4b also eager and at a dense adjacency) on rung 2's
+world and the Z=32,768 sparse world in the order DIR..., this, this,
+...DIR, and this checkout's K4b and K9c grid by grid under
+``torch.profiler``. ``--readings encoder``, ``edge`` and ``segment``
+build only these two libraries too.
 ``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` builds only K8's library
 (``fused_rhs.cu``) and the serving kernels' (``fused_step.cu``, where K8a
 lives), each DIR's beside them (``DIR+PROBE`` a probe variant, as for
@@ -574,6 +593,11 @@ def main():
                         help="compare and time K2f and K2b against those "
                         "of the checkouts at DIR (DIR+PROBE: a probe "
                         "variant of DIR's sources)")
+    parser.add_argument("--ab-gat", metavar="DIR", nargs="+",
+                        help="compare and time the zone-graph kernels "
+                        "(K4f, K4b, the CSR pair, K9e) against those of "
+                        "the checkouts at DIR (DIR+PROBE: a probe variant "
+                        "of DIR's sources)")
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -638,9 +662,16 @@ def main():
         train_others.append((name, [start_build(checkout, f"train{i}", lib)
                                     for lib in ("fused_step",
                                                 "fused_train")]))
+    gat_others = []
+    for i, d in enumerate(args.ab_gat or ()):
+        name, checkout = ab_checkout(d)
+        gat_others.append((name, [start_build(checkout, f"gat{i}", lib)
+                                  for lib in GAT_LIBS]))
     built = _build.build_all(
         ("fused_step",) if args.ab_step or args.readings == "serving"
         else ("fused_step", "fused_train") if args.ab_train
+        else GAT_LIBS + ("fused_step", "fused_train") if args.ab_gat
+        else GAT_LIBS if args.readings in ("encoder", "edge", "segment")
         else K8_LIBS if args.ab_k8
         else _build.NAMES)
     print(f"build: {len(built)} libraries in "
@@ -688,6 +719,9 @@ def main():
         return
     if args.ab_train:
         ab_train(dev, built, train_others)
+        return
+    if args.ab_gat:
+        ab_gat(dev, gat_others)
         return
 
     # ---- 3. kernel against its plain version --------------------------------
@@ -1745,7 +1779,8 @@ def ab_dopri5(dev, built, handles):
                   + f" ms per launch [card {card}]", flush=True)
 
 
-# Probes of ``--ab-train``, ``--ab-dopri5`` and ``--ab-k8``: a DIR written
+# Probes of ``--ab-train``, ``--ab-dopri5``, ``--ab-k8`` and ``--ab-gat``:
+# a DIR written
 # ``DIR+NAME`` is DIR's ``ananke_abm_tpu_torch/csrc`` with NAME's
 # substitutions (file, regular expression, replacement; each must match),
 # built under ``OUT/variants/``. Each but ``k3f1`` takes one
@@ -1771,6 +1806,10 @@ def ab_dopri5(dev, built, handles):
 # - ``w4``: K2b at 4 warps; ``f4``: K2f in 4-warp CTAs.
 # - ``k3f1``: K3f on one CTA an SM where it takes three. A design
 #   alternative, right by design.
+# - ``k9nogather``, ``k4chunk``, ``k4empty``, ``noexp`` (``--ab-gat``):
+#   K9c's dependent gathers, K4b's walk past 64 rows or entries, every K4b
+#   grid's work, and the expf of fused_gat.cu and edge_segment.cu (K4f,
+#   K4b, the CSR pair).
 PROBES = {
     # no products: each mma.sync becomes one add that keeps its operands
     # (and the loads behind them) live
@@ -1843,6 +1882,34 @@ PROBES = {
     "k3f1": [("fused_train.cu",
               r"constexpr int kCeFwdCtas = 3 \* kCeCtas;",
               "constexpr int kCeFwdCtas = kCeCtas;")],
+    # K9c gathers row 0's features and scalars in place of each edge's
+    # other end: what its dependent gathers cost
+    # (before its redesign: each edge's index; since: each batch's)
+    "k9nogather": [("edge_segment.cu",
+                    r"(const long [ij] = )b\.(?:src|dst_by_src)\[p\];|"
+                    r"(const long e = )__shfl_sync\(kFull, batch, [^;]*;",
+                    r"\g<1>\g<2>0;")],
+    # K4b's row and column passes walk their first 64 rows (before its
+    # redesign) or 64 entries of each 32-word group of a list (since)
+    "k4chunk": [("fused_gat.cu",
+                 r"(?:(al_neg\[NH\] = \{[^}]*\};\s*for \(int j0 = 0; "
+                 r"j0 < )(p\.z)|(for \(int i0 = 0; i0 < )(p\.z)|"
+                 r"(t0 < )(walk\.total))(;)",
+                 r"\g<1>\g<3>\g<5>min(\g<2>\g<4>\g<6>, 64)\g<7>")],
+    # every grid of K4b returns on entry: the floor of its launches (its
+    # slab sum on reduce_slabs.cuh since its redesign)
+    "k4empty": [("fused_gat.cu",
+                 r"((?:gat_bwd_\w+|gat_reduce)_kernel\([^)]*\) \{)",
+                 "\\g<1>\n  return;"),
+                ("reduce_slabs.cuh", r"(void reduce_slabs\([^)]*\) \{)",
+                 "\\g<1>\n  return;")],
+    # no expf in the zone-graph kernels (edge_segment.cu, fused_gat.cu):
+    # the identity in its place
+    "noexp": [(f, pattern, repl) for f in ("edge_segment.cu", "fused_gat.cu")
+              for pattern, repl in (
+                  (r"namespace \{", "namespace {\n__device__ "
+                   "__forceinline__ float probe_id(float x) { return x; }"),
+                  (r"\bexpf\(", "probe_id("))],
 }
 
 
@@ -1983,6 +2050,183 @@ def ab_train(dev, built, handles):
         tiles = -(-n // rows)
         print(f"K2b [{w}] at N={n}: tiles of {rows} rows, {tiles} tiles on "
               f"{min(NUM_SLABS, tiles)} CTAs", flush=True)
+
+
+# the libraries ``--ab-gat`` builds of every checkout: the dense zone
+# encoder's (K4f, K4b) and the CSR edge kernels' with the segment sum (the
+# CSR forward, K9c, K9e)
+GAT_LIBS = ("fused_gat", "edge_segment")
+
+
+def ab_gat(dev, handles):
+    """``--ab-gat DIR [DIR ...]``: the zone-graph kernels of this checkout
+    against those of each checkout at DIR (``DIR+PROBE`` a probe variant,
+    :data:`PROBES`; its ``fused_gat.cu`` and ``edge_segment.cu`` and
+    headers, built with the port's flags and C interface; ``handles`` from
+    :func:`start_build`, two a DIR): ptxas's registers and spills per
+    kernel, the bits of K4f's output and K4b's every gradient at
+    GAT_SHAPES and GAT_GRAPH_SHAPES, of the CSR forward and of K9c's d_wh,
+    d_recv and d_send (fed this checkout's forward) at checks.EDGE_SHAPES
+    and the hub graph, and of K9e at checks.SEGMENT_SHAPES; then the
+    device time of one call (a CUDA-graph replay) of K4f and K4b on rung
+    2's zone world (Z = 500, 2 layers; K4b also eager and at a dense
+    adjacency), of the CSR forward and K9c on the sparse world (Z =
+    32,768) and of K9e at rung 1, in the order DIR..., this, this,
+    ...DIR; then this checkout's K4b and K9c under torch.profiler, device
+    time by kernel name; then phase 17's rung-2 training step and phase
+    33's sparse training step with each checkout's kernels, in the same
+    order (the rung-2 step also runs this checkout's day and decode
+    kernels, whose libraries build beside the others)."""
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_fused_loss_fn,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import _build
+    from ananke_abm_tpu_torch.ops.cuda import edge_segment as es
+    from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        EDGE_HUB_SHAPE,
+        EDGE_SHAPES,
+        SEGMENT_SHAPES,
+        edge_operands,
+        gat_grad_outputs,
+        segment_operands,
+    )
+
+    libs = {"this": {lib: _build.load_library(lib) for lib in GAT_LIBS}}
+    for name, hs in handles:
+        libs[name] = {h[4]: finish_build(h) for h in hs}
+    others = [w for w in libs if w != "this"]
+
+    def run(which, fn, *a):
+        with library_of("fused_gat", libs[which]["fused_gat"]), \
+                library_of("edge_segment", libs[which]["edge_segment"]):
+            return fn(*a)
+
+    def report(label, outs):
+        for w in others:
+            x, y = outs["this"], outs[w]
+            differ = [n for (n, u), (_, v) in zip(x, y)
+                      if not torch.equal(u, v)]
+            diff = max((u - v).abs().max().item()
+                       for (_, u), (_, v) in zip(x, y))
+            which = f" (not: {', '.join(differ)})" if differ else ""
+            print(f"{label}: this against {w}: same bits {not differ}"
+                  f"{which} (max |d| {diff:.3e})", flush=True)
+
+    def encoder(z, f, num_layers, isolated, density):
+        return encoder_operands(dev, z, f, num_layers, isolated, 0, density)
+
+    with torch.no_grad():
+        for z, f, num_layers, isolated, *dens in (
+                [(*s, 0.1) for s in GAT_SHAPES] + list(GAT_GRAPH_SHAPES)):
+            args, g = encoder(z, f, num_layers, isolated, dens[0])
+            bargs = (*args[:3], g, *args[3:])
+            fwd = {w: run(w, fg.gat_forward_fused, *args) for w in libs}
+            tag = (f"Z={z} F={f} layers={num_layers} isolated={isolated} "
+                   f"density={dens[0]}")
+            report(f"K4f A/B {tag}", {w: [("out", o)]
+                                      for w, (o, _) in fwd.items()})
+            report(f"K4b A/B {tag}", {
+                w: gat_grad_outputs(run(w, fg.gat_backward_fused, *bargs,
+                                        fwd[w][1]), num_layers)
+                for w in libs})
+            del fwd
+        names = ("d_wh", "d_recv", "d_send")
+        for kind, z, heads, d in EDGE_SHAPES + (EDGE_HUB_SHAPE,):
+            (wh, er, esd, lay), g = edge_operands(kind, z, heads, d, dev, 0)
+            tag = (f"{kind} Zs={z} E={lay.src.numel()} H={heads} d={d}")
+            fwd = {w: run(w, es.gat_edge_csr_forward, wh, er, esd, lay)
+                   for w in libs}
+            report(f"CSR forward A/B {tag}",
+                   {w: [("out", o), ("lse", l)] for w, (o, l) in fwd.items()})
+            out, lse = fwd["this"]
+            bargs = (g, wh, er, esd, lse, torch.sum(g * out, dim=-1), lay)
+            report(f"K9c A/B {tag}", {
+                w: list(zip(names, run(w, es.gat_edge_csr_backward, *bargs)))
+                for w in libs})
+        for shape in SEGMENT_SHAPES:
+            v, i, z = segment_operands(*shape, dev, seed=0)
+            report(f"K9e A/B {shape[0]}", {
+                w: [("out", run(w, es.segment_sum, v, i, z))] for w in libs})
+        torch.cuda.synchronize()
+
+    card = card_line()
+    order = others + ["this", "this"] + others[::-1]
+    main_args, main_g = encoder(TRAIN_ZONES, 7, 2, None, 0.1)
+    dense_args, dense_g = encoder(*GAT_GRAPH_SHAPES[0])
+    (wh, er, esd, lay), g = edge_operands("world", SPARSE_ZONES, 4, 16, dev,
+                                          0)
+    with torch.no_grad():
+        out, lse = es.gat_edge_csr_forward(wh, er, esd, lay)
+        ebargs = (g, wh, er, esd, lse, torch.sum(g * out, dim=-1), lay)
+        seg = segment_operands(*SEGMENT_SHAPES[0], dev, seed=1)
+        res = {w: {key: run(w, fg.gat_forward_fused, *a)[1]
+                   for key, a in (("main", main_args), ("dense", dense_args))}
+               for w in libs}
+        bwd = lambda a, cot, r: (*a[:3], cot, *a[3:], r)
+        timed = [
+            ("K4f on rung 2's world (Z=500, 2 layers)", graph_ms,
+             lambda w: run(w, fg.gat_forward_fused, *main_args), 50),
+            ("K4b on rung 2's world (Z=500, 2 layers)", graph_ms,
+             lambda w: run(w, fg.gat_backward_fused,
+                           *bwd(main_args, main_g, res[w]["main"])), 50),
+            ("K4b on rung 2's world, eager", cuda_ms,
+             lambda w: run(w, fg.gat_backward_fused,
+                           *bwd(main_args, main_g, res[w]["main"])), 20),
+            ("K4b at a dense adjacency (Z=500, 2 layers)", graph_ms,
+             lambda w: run(w, fg.gat_backward_fused,
+                           *bwd(dense_args, dense_g, res[w]["dense"])), 20),
+            (f"CSR forward on the sparse world (Z={SPARSE_ZONES}, "
+             f"E={lay.src.numel()})", graph_ms,
+             lambda w: run(w, es.gat_edge_csr_forward, wh, er, esd, lay), 50),
+            (f"K9c on the sparse world (Z={SPARSE_ZONES}, "
+             f"E={lay.src.numel()})", graph_ms,
+             lambda w: run(w, es.gat_edge_csr_backward, *ebargs), 50),
+            (f"K9e at rung 1 ({SEGMENT_SHAPES[0][1]} rows)", graph_ms,
+             lambda w: run(w, es.segment_sum, *seg), 50),
+        ]
+        for label, timer, call, reps in timed:
+            times = {w: [] for w in libs}
+            for w in order:
+                times[w].append(timer(lambda: call(w), reps))
+            print(f"{label} A/B: "
+                  + "; ".join(f"{w} {', '.join(f'{m:.4f}' for m in t)}"
+                              for w, t in times.items())
+                  + f" ms a call [card {card}]", flush=True)
+        # this checkout's grids one by one: device time by kernel name
+        for label, _, call, _ in (timed[1], timed[5]):
+            device_busy(f"{label}, 10 calls [this]",
+                        lambda: [call("this") for _ in range(10)], card)
+    # end to end, each checkout's zone-graph kernels in turn: phase 17's
+    # fixed training step at rung 2 (K4f and K4b inside the fused step) and
+    # phase 33's sparse training step (the CSR pair), CUDA events around
+    # 3 and 2 steps after a warm-up
+    config = GATODEConfig(substeps=SUBSTEPS, num_blocks=2)
+    model, opt, static, batch = rung2_trainer(dev, config)
+    loss_fn = build_fused_loss_fn(model, config, *static)
+
+    def rung2_step():
+        opt.zero_grad()
+        loss_fn(*batch)[0].backward()
+        opt.step()
+
+    sparse_config = GATODEConfig()
+    sparse_step, sparse_batch = sparse_trainer(dev, sparse_config)
+    for label, fn, reps in (
+            (f"phase 17's fixed training step at rung 2 ({TRAIN_N} agents)",
+             rung2_step, 3),
+            (f"phase 33's sparse training step ({sparse_config.batch_size} "
+             f"agents x {SPARSE_TRAIN_TIMES} times x {SPARSE_ZONES} zones)",
+             lambda: sparse_step(*sparse_batch), 2)):
+        run("this", fn)  # warm-up
+        walls = {w: [] for w in libs}
+        for w in order:
+            walls[w].append(run(w, cuda_ms, fn, reps))
+        print(f"{label} A/B: "
+              + "; ".join(f"{w} {', '.join(f'{m:.3f}' for m in t)}"
+                          for w, t in walls.items())
+              + f" ms a step [card {card}]", flush=True)
 
 
 def serving_readings(dev):
@@ -2132,18 +2376,40 @@ def ab_step(dev, this_log, handles):
                   + f" ms per launch [card {card}]", flush=True)
 
 
+def rung2_trainer(dev, config):
+    """(model, optimizer, static, batch) of the fixed-step trainer at bench
+    rung 2 (phases 11-13 and 17): 32,768 agents x 500 zones x 12 times,
+    seeded weights, AdamW as bench.py's optax.adamw(1e-3) (betas (0.9,
+    0.999), eps 1e-8, decoupled weight decay 1e-4)."""
+    from ananke_abm_tpu_torch.data_generator import generate_agent_population
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        build_model,
+        init_params,
+    )
+
+    data = generate_agent_population(TRAIN_N, num_times=TRAIN_TIMES,
+                                     seed=TRAIN_SEED, num_zones=TRAIN_ZONES)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)
+    static = (on(data["zone_features"]), on(data["adj"]), on(data["times"]))
+    batch = (on(data["person_feats"]), on(data["home_zone"], torch.long),
+             on(data["zone_ids"], torch.long))
+    model = build_model(config, data["zone_features"].shape[-1],
+                        data["person_feats"].shape[-1], device=dev)
+    init_params(model, torch.Generator().manual_seed(TRAIN_WEIGHT_SEED))
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4)
+    return model, opt, static, batch
+
+
 def fixed_step_phases(dev, card):
     """Phases 10-13: K2f, K2b, K3f and K3b against their plain versions,
     the fixed-step trainer at rung 2, the kernel trainer against the
     plain-version trainer, and times. Returns the four kernels' entries of
     the {"kernels": [...]} line and (model, config, static, batch,
     optimizer) of the rung-2 trainer."""
-    from ananke_abm_tpu_torch.data_generator import generate_agent_population
     from ananke_abm_tpu_torch.models.gnn_embed.train import (
         GATODEConfig,
         build_fused_loss_fn,
-        build_model,
-        init_params,
         make_fused_train_step,
     )
     from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
@@ -2174,20 +2440,8 @@ def fixed_step_phases(dev, card):
                     for p, a in zip(plains, main)]
 
     # ---- 11. the fixed-step trainer at bench rung 2 -----------------------
-    data = generate_agent_population(TRAIN_N, num_times=TRAIN_TIMES,
-                                     seed=TRAIN_SEED, num_zones=TRAIN_ZONES)
-    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)
-    static = (on(data["zone_features"]), on(data["adj"]), on(data["times"]))
-    batch = (on(data["person_feats"]), on(data["home_zone"], torch.long),
-             on(data["zone_ids"], torch.long))
-    model = build_model(config, data["zone_features"].shape[-1],
-                        data["person_feats"].shape[-1], device=dev)
-    init_params(model, torch.Generator().manual_seed(TRAIN_WEIGHT_SEED))
+    model, opt, static, batch = rung2_trainer(dev, config)
     n_params = sum(p.numel() for p in model.parameters())
-    # optax.adamw(1e-3) as bench.py uses it: betas (0.9, 0.999), eps 1e-8,
-    # decoupled weight decay 1e-4
-    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=1e-4)
     step, _ = make_fused_train_step(model, opt, config, static)
     losses, walls = [], []
     for k in kernels + encoder:
@@ -2309,6 +2563,10 @@ GAT_SHAPES = ((500, 7, 2, None), (64, 7, 2, None), (2048, 7, 2, None),
 # more shapes for the readings: depth, many zone features, one zone
 GAT_READING_SHAPES = ((500, 7, 4, None), (1000, 16, 3, 7), (1, 7, 2, None),
                       (129, 64, 1, 0))
+# the encoder checks past GAT_SHAPES, with the graph's density: rung 2's
+# zone count with every adjacency entry on (the lists of K4b's passes full
+# length), and rows without an entry at Z > 64 (every column walks them)
+GAT_GRAPH_SHAPES = ((500, 7, 2, None, 1.0), (300, 7, 2, (0, 17, 150), 0.1))
 # train() at rung 2's widths: 2 steps per epoch
 APP_AGENTS = 65_536
 APP_BATCH = 32_768
@@ -2336,29 +2594,32 @@ def encoder_flops(z, f, num_layers, nnz, d=64, heads=4):
     return fwd, bwd
 
 
-def encoder_operands(dev, z, f, num_layers, isolated, seed):
-    """``gat_operands`` at one shape; at the main path's shape, rung 2's own
-    zone world."""
+def encoder_operands(dev, z, f, num_layers, isolated, seed, density=0.1):
+    """``gat_operands`` at one shape (``isolated``: a row or a tuple of
+    rows); at the main path's shape, rung 2's own zone world."""
     from ananke_abm_tpu_torch.data_generator import generate_agent_population
     from ananke_abm_tpu_torch.ops.cuda.checks import gat_operands
 
     graph = None
-    if (z, f, isolated) == (TRAIN_ZONES, 7, None):
+    if isinstance(isolated, tuple):
+        isolated = list(isolated)
+    elif (z, f, isolated, density) == (TRAIN_ZONES, 7, None, 0.1):
         world = generate_agent_population(1, num_times=TRAIN_TIMES,
                                           seed=TRAIN_SEED,
                                           num_zones=TRAIN_ZONES)
         graph = tuple(torch.as_tensor(world[k]) for k in ("zone_features",
                                                           "adj"))
-    return gat_operands(z, f, num_layers, dev, seed, isolated, graph)
+    return gat_operands(z, f, num_layers, dev, seed, isolated, graph,
+                        density)
 
 
 def encoder_kernel_checks(dev, z, f, num_layers, isolated, seed, control,
-                          enforce=True, witness=False):
-    """K4f and K4b against their plain versions at one shape, each run
-    twice (the same bits), with the TF32 control where ``control``; with
-    ``witness``, kernel and plain version each against a float64 run too.
-    Returns (the largest |d| of each kernel, (operands, residuals,
-    cotangent))."""
+                          enforce=True, witness=False, density=0.1):
+    """K4f and K4b against their plain versions at one shape (a graph of
+    ``density``), each run twice (the same bits), with the TF32 control
+    where ``control``; with ``witness``, kernel and plain version each
+    against a float64 run too. Returns (the largest |d| of each kernel,
+    (operands, residuals, cotangent))."""
     from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
     from ananke_abm_tpu_torch.ops.cuda.checks import (
         GAT_BWD_BOUNDS,
@@ -2370,8 +2631,10 @@ def encoder_kernel_checks(dev, z, f, num_layers, isolated, seed, control,
         tf32_control,
     )
 
-    args, g = encoder_operands(dev, z, f, num_layers, isolated, seed)
-    tag = f"Z={z} F={f} layers={num_layers} isolated={isolated} seed={seed}"
+    args, g = encoder_operands(dev, z, f, num_layers, isolated, seed,
+                               density)
+    tag = (f"Z={z} F={f} layers={num_layers} isolated={isolated} "
+           f"density={density} seed={seed}")
     params = lambda grads: gat_grad_outputs(grads, num_layers)
     kind = "TF32 products"
     with torch.no_grad():
@@ -2413,12 +2676,15 @@ def encoder_kernel_checks(dev, z, f, num_layers, isolated, seed, control,
 
 def encoder_readings(dev):
     """``--readings encoder``: K4f and K4b against their plain versions and
-    the TF32 control at every shape of GAT_SHAPES and GAT_READING_SHAPES
-    for seeds 0-2, printed against the bounds; nothing fails on a bound."""
+    the TF32 control at every shape of GAT_SHAPES, GAT_READING_SHAPES and
+    GAT_GRAPH_SHAPES (a dense graph, rows without an entry at Z > 64) for
+    seeds 0-2, printed against the bounds; nothing fails on a bound."""
     for seed in range(3):
-        for z, f, num_layers, isolated in GAT_SHAPES + GAT_READING_SHAPES:
+        for z, f, num_layers, isolated, *density in (
+                GAT_SHAPES + GAT_READING_SHAPES + GAT_GRAPH_SHAPES):
             encoder_kernel_checks(dev, z, f, num_layers, isolated, seed,
-                                  control=True, enforce=False, witness=True)
+                                  control=True, enforce=False, witness=True,
+                                  density=density[0] if density else 0.1)
 
 
 @contextlib.contextmanager
@@ -2457,9 +2723,11 @@ def encoder_phases(dev, card, rung2):
     # ---- 14. the encoder kernels against their plain versions ------------
     errs = [0.0, 0.0]
     main = None
-    for z, f, num_layers, isolated in GAT_SHAPES:
-        e, operands = encoder_kernel_checks(dev, z, f, num_layers, isolated,
-                                            seed=0, control=True)
+    for z, f, num_layers, isolated, *density in (GAT_SHAPES
+                                                 + GAT_GRAPH_SHAPES):
+        e, operands = encoder_kernel_checks(
+            dev, z, f, num_layers, isolated, seed=0, control=True,
+            density=density[0] if density else 0.1)
         errs = [max(a, b) for a, b in zip(errs, e)]
         main = main or operands
 
@@ -3472,11 +3740,13 @@ def edge_work(wh, e_recv, layout):
 
 
 def edge_kernel_checks(dev, kind, z, heads, d, seed, control=True,
-                       enforce=True):
+                       enforce=True, witness=False):
     """The CSR forward and backward against their plain versions at one
     shape (``checks.edge_operands``), each run twice (the same bits), with
-    the bf16-feature control. Returns (the largest |d| of each kernel,
-    (operands, lse, corr, cotangent))."""
+    the bf16-feature control; with ``witness``, kernel and plain version
+    each against the plain version in float64 on the same operands too.
+    Returns (the largest |d| of each kernel, (operands, lse, corr,
+    cotangent))."""
     from ananke_abm_tpu_torch.ops.cuda import edge_segment as es
     from ananke_abm_tpu_torch.ops.cuda.checks import (
         EDGE_BWD_BOUNDS,
@@ -3495,11 +3765,11 @@ def edge_kernel_checks(dev, kind, z, heads, d, seed, control=True,
         torch.cuda.synchronize()
         if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
             fail(f"CSR forward repeat at {tag} is not bit-identical")
-        want, _ = es.gat_edge_csr_forward_reference(wh, er, esd, lay)
+        want_f, _ = es.gat_edge_csr_forward_reference(wh, er, esd, lay)
         ctl = ([("out", es.gat_edge_csr_forward_reference(
             bf16_features(wh), er, esd, lay)[0])] if control else None)
         e_f = check(f"CSR forward {tag} (repeat bit-identical)",
-                    [("out", out)], [("out", want)], EDGE_FWD_BOUNDS, ctl,
+                    [("out", out)], [("out", want_f)], EDGE_FWD_BOUNDS, ctl,
                     enforce, kind_c)
         corr = torch.sum(g * out, dim=-1)
         names = ("d_wh", "d_recv", "d_send")
@@ -3515,18 +3785,37 @@ def edge_kernel_checks(dev, kind, z, heads, d, seed, control=True,
             if control else None)
         e_b = check(f"CSR backward {tag} (repeat bit-identical)", got, want,
                     EDGE_BWD_BOUNDS, ctl, enforce, kind_c)
+        if witness:
+            up = lambda *a: [t.double() for t in a]
+            exact_f = es.gat_edge_csr_forward_reference(*up(wh, er, esd),
+                                                        lay)[0]
+            exact_b = list(zip(names, es.gat_edge_csr_backward_reference(
+                *up(*bargs[:-1]), lay)))
+            for label, k_out, p_out, exact in (
+                    ("CSR forward", [("out", out)], [("out", want_f)],
+                     [("out", exact_f)]),
+                    ("CSR backward", got, want, exact_b)):
+                print(f"{label} {tag} against the float64 witness: kernel "
+                      f"{describe_far(worst_of(k_out, exact)[0])}; plain "
+                      f"{describe_far(worst_of(p_out, exact)[0])}",
+                      flush=True)
     return (e_f, e_b), ((wh, er, esd, lay), lse, corr, g)
 
 
 def edge_readings(dev):
     """``--readings edge``: the CSR kernels against their plain versions
-    and the bf16-feature control at every shape of EDGE_SHAPES for seeds
-    0-2, printed against the bounds; nothing fails on a bound."""
-    from ananke_abm_tpu_torch.ops.cuda.checks import EDGE_SHAPES
+    and the bf16-feature control at every shape of EDGE_SHAPES and the hub
+    graph for seeds 0-2, printed against the bounds, and kernel and plain
+    version each against a float64 run; nothing fails on a bound."""
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        EDGE_HUB_SHAPE,
+        EDGE_SHAPES,
+    )
 
     for seed in range(3):
-        for shape in EDGE_SHAPES:
-            edge_kernel_checks(dev, *shape, seed, enforce=False)
+        for shape in EDGE_SHAPES + (EDGE_HUB_SHAPE,):
+            edge_kernel_checks(dev, *shape, seed, enforce=False,
+                               witness=True)
 
 
 def close(name, got, want, tol):
@@ -3538,6 +3827,33 @@ def close(name, got, want, tol):
     if not bool((d <= atol + rtol * want.abs()).all()):
         fail(f"{name}: |d| up to {err:.3e} outside rtol {rtol}, atol {atol}")
     return err
+
+
+def sparse_trainer(dev, config):
+    """(step, batch) of phase 33's sparse training step: ``make_step_fns``
+    at the Z = 32,768 sparse world, one batch of ``config.batch_size``
+    agents x 12 times, seeded weights."""
+    from ananke_abm_tpu_torch.data_generator import generate_agent_population
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        build_model,
+        init_params,
+        make_optimizer,
+        make_step_fns,
+    )
+
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)
+    data = generate_agent_population(
+        config.batch_size, num_times=SPARSE_TRAIN_TIMES, seed=WORLD_SEED,
+        num_zones=SPARSE_ZONES, sparse_world=True)
+    static = (on(data["zone_features"]), None, on(data["times"]),
+              tuple(on(e, torch.long) for e in data["edge_index"]))
+    batch = (on(data["person_feats"]), on(data["home_zone"], torch.long),
+             on(data["zone_ids"], torch.long))
+    model = build_model(config, 7, 8, device=dev)
+    init_params(model, torch.Generator().manual_seed(0))
+    step, _ = make_step_fns(model, make_optimizer(model, config), config,
+                            static)
+    return step, batch
 
 
 def edge_phases(dev, card):
@@ -3560,7 +3876,6 @@ def edge_phases(dev, card):
         build_model,
         init_params,
         make_optimizer,
-        make_step_fns,
         serve,
         train,
     )
@@ -3568,7 +3883,10 @@ def edge_phases(dev, card):
     from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
     from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
     from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
-    from ananke_abm_tpu_torch.ops.cuda.checks import EDGE_SHAPES
+    from ananke_abm_tpu_torch.ops.cuda.checks import (
+        EDGE_HUB_SHAPE,
+        EDGE_SHAPES,
+    )
     from ananke_abm_tpu_torch.ops.segment import edges_from_adj
     from ananke_abm_tpu_torch.utils.ckpt import load_checkpoint, \
         save_checkpoint
@@ -3580,7 +3898,7 @@ def edge_phases(dev, card):
     # ---- 28. the CSR kernels against their plain versions -----------------
     errs = [0.0, 0.0]
     main = None
-    for shape in EDGE_SHAPES:
+    for shape in EDGE_SHAPES + (EDGE_HUB_SHAPE,):
         e, operands = edge_kernel_checks(dev, *shape, seed=0)
         errs = [max(a, b) for a, b in zip(errs, e)]
         main = main or operands
@@ -3784,17 +4102,7 @@ def edge_phases(dev, card):
               f"eager) [card {card}]", flush=True)
     # the sparse training step, encoder through the kernels and through
     # their plain versions
-    data = generate_agent_population(
-        config.batch_size, num_times=SPARSE_TRAIN_TIMES, seed=WORLD_SEED,
-        num_zones=SPARSE_ZONES, sparse_world=True)
-    static = (on(data["zone_features"]), None, on(data["times"]),
-              tuple(on(e, torch.long) for e in data["edge_index"]))
-    batch = (on(data["person_feats"]), on(data["home_zone"], torch.long),
-             on(data["zone_ids"], torch.long))
-    model = build_model(config, 7, 8, device=dev)
-    init_params(model, torch.Generator().manual_seed(0))
-    step, _ = make_step_fns(model, make_optimizer(model, config), config,
-                            static)
+    step, batch = sparse_trainer(dev, config)
     walls = {"plain": [], "kernels": []}
     for name in ("plain", "kernels", "kernels", "plain"):
         with (edge_plain() if name == "plain" else contextlib.nullcontext()):

@@ -99,6 +99,25 @@ def test_tf32_control_lies_farther_from_float64_than_the_plain_encoder(
     assert _far(control, witness) > 10 * _far(plain, witness)
 
 
+@pytest.mark.parametrize("density,isolated", [(1.0, None), (0.1, [0, 5]),
+                                              (0.0, None)])
+def test_gat_operands_graph_density_and_rows_without_entries(density,
+                                                             isolated):
+    """The encoder checks' graph: self loops and each other entry with
+    probability ``density`` (1: every entry), the rows ``isolated`` all
+    zero."""
+    (zf, adj, *_), _ = checks.gat_operands(40, 7, 1, CPU, seed=2,
+                                           isolated=isolated,
+                                           density=density)
+    rows = [r for r in range(40) if r not in (isolated or [])]
+    assert bool((adj[rows, rows] == 1).all())
+    off = adj[rows][:, rows].sum().item() - len(rows)
+    assert off == (len(rows) ** 2 - len(rows) if density == 1.0 else
+                   0.0 if density == 0.0 else pytest.approx(
+                       0.1 * len(rows) ** 2, rel=0.3))
+    assert isolated is None or not adj[isolated].any()
+
+
 def test_gat_grad_outputs_join_the_heads_into_module_parameters():
     args, _ = checks.gat_operands(9, 7, 2, CPU, seed=0)
     out = dict(checks.gat_grad_outputs(args[2], 2))
@@ -142,11 +161,14 @@ def test_kink_sides_from_residuals_steer_the_plain_encoder():
 
 @pytest.mark.parametrize("kind,z,heads,d", [("rung2", 500, 4, 16),
                                             ("random", 300, 2, 32),
-                                            ("random", 300, 3, 48)])
+                                            ("random", 300, 3, 48),
+                                            ("hub", 300, 4, 16)])
 def test_edge_operands_and_the_bf16_feature_control(kind, z, heads, d):
     """The CSR checks' operands (a random graph: rows past num_nodes
-    dropped, isolated rows, duplicates) and their control, whose
-    bf16-rounded features lie outside the forward's mean bound."""
+    dropped, isolated rows, duplicates; the hub graph: zone 0 with more
+    than one 32-edge batch each way, destinations and sources of no edge)
+    and their control, whose bf16-rounded features lie outside the
+    forward's mean bound."""
     from ananke_abm_tpu_torch.ops.cuda import edge_segment as es
 
     (wh, er, esd, lay), g = checks.edge_operands(kind, z, heads, d, CPU,
@@ -157,6 +179,10 @@ def test_edge_operands_and_the_bf16_feature_control(kind, z, heads, d):
     if kind == "random":
         assert lay.num_nodes < z and (deg == 0).any()
         assert lay.src.numel() < 9 * z  # some of the 9 z edges dropped
+    if kind == "hub":
+        out_deg = lay.col_ptr[1:] - lay.col_ptr[:-1]
+        assert deg[0] > 32 and out_deg[0] > 32
+        assert (deg == 0).any() and (out_deg == 0).any()
     with torch.no_grad():
         out, _ = es.gat_edge_csr_forward_reference(wh, er, esd, lay)
         ctl, _ = es.gat_edge_csr_forward_reference(

@@ -45,6 +45,7 @@ from ananke_abm_tpu_torch.ops.cuda.checks import (
     DAY_FWD_BOUNDS,
     EDGE_BWD_BOUNDS,
     EDGE_FWD_BOUNDS,
+    EDGE_HUB_SHAPE,
     GAT_BWD_BOUNDS,
     GAT_FWD_BOUNDS,
     SERVING_EDGE_SHAPES,
@@ -608,8 +609,23 @@ def test_encoder_kernels_match_plain_versions(cuda, num_zones, num_layers,
     """K4f and K4b within the bounds, every parameter gradient (the plain
     backward on the kernel's side of each leaky-relu's kink); each twice
     gives the same bits; the TF32 control fails the same bounds."""
+    _encoder_case(cuda, num_zones, num_layers, isolated, 0.1)
+
+
+@pytest.mark.parametrize("num_zones,num_layers,isolated,density", [
+    (500, 2, None, 1.0), (300, 2, [0, 17, 150], 0.1), (129, 1, [5], 0.02),
+])
+def test_encoder_kernels_at_dense_graphs_and_rows_without_entries(
+        cuda, num_zones, num_layers, isolated, density):
+    """K4b's lists of the graph's entries full length (every adjacency
+    entry on) and rows with no entry at Z > 64, where every column's list
+    takes those rows: the same bounds, control and repeats."""
+    _encoder_case(cuda, num_zones, num_layers, isolated, density)
+
+
+def _encoder_case(cuda, num_zones, num_layers, isolated, density):
     args, g = gat_operands(num_zones, 7, num_layers, cuda, seed=num_zones,
-                           isolated=isolated)
+                           isolated=isolated, density=density)
     bargs = (*args[:3], g, *args[3:])
     with torch.no_grad():
         before = (fg.gat_forward_fused.launches,
@@ -1056,6 +1072,25 @@ def test_edge_kernels_match_plain_versions(cuda, kind, z, heads, d):
     """The CSR forward and backward within the bounds of their plain
     versions; each twice gives the same bits; the bf16-feature control
     fails the same bounds."""
+    _edge_case(cuda, kind, z, heads, d)
+
+
+@pytest.mark.parametrize("kind,z,heads,d", [
+    EDGE_HUB_SHAPE, ("random", 700, 3, 5), ("random", 700, 2, 16),
+    ("single", 1_000, 1, 256), ("random", 700, 3, 48)])
+def test_edge_backward_at_hubs_and_every_row_layout(cuda, kind, z, heads,
+                                                    d):
+    """The backward's edge indices past one batch (a hub of in- and
+    out-degree 128), destinations and sources with no edge, and each of
+    its row layouts: 16-byte rows in groups of 8 lanes (32 features) and
+    of 32 lanes in two slots (a head of 256 features: one head over both
+    slots; heads of 48: summed through shared memory), and rows of single
+    features (heads of 5: summed through shared memory). The same bounds,
+    control and repeats."""
+    _edge_case(cuda, kind, z, heads, d)
+
+
+def _edge_case(cuda, kind, z, heads, d):
     (wh, er, esd, lay), g = edge_operands(kind, z, heads, d, cuda, seed=0)
     before = (es.gat_edge_csr_forward.launches,
               es.gat_edge_csr_backward.launches)

@@ -173,3 +173,12 @@ def test_refusals(bad, match):
         call = lambda: fg.gat_forward_fused(tzf, tadj[:-1], flat, 2, 1)
     with pytest.raises((ValueError, TypeError), match=match):
         call()
+
+
+@pytest.mark.parametrize("z,words", [(1, 1), (32, 1), (33, 2), (500, 16),
+                                     (16_384, 512)])
+def test_bwd_list_words_hold_both_lists_and_the_rows_of_no_entry(z, words):
+    """K4b's scratch for the graph's entries: a bitmask of ceil(z / 32)
+    words for each row's columns and for each column's rows, and one
+    bitmask of the rows with no entry."""
+    assert fg.bwd_list_words(z) == 2 * z * words + words
