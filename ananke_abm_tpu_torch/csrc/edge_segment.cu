@@ -7,14 +7,13 @@
 // ananke_edge_csr_forward <- edge_segment.py gat_edge_aggregate_pallas (K9a,
 //   one head), gat_edge_aggregate_multihead_pallas (K9b, all heads) and
 //   edge_gather.py gat_edge_aggregate_gather_pallas (K9d, the large-Z
-//   block-pair form): one function. A warp owns a destination row i and all
-//   H * d features (lane l holds features l, l + 32, ...; feature f belongs
-//   to head f / d). Over i's in-edges (row_ptr[i] .. row_ptr[i + 1], sources
-//   in src[]) it scores s = lrelu(e_recv[i, h] + e_send[j, h], 0.2), takes
-//   the exact per-destination max m in a first pass and, in a second,
-//   p = exp(s - m), its sum and sum_j p Wh[j]. It writes out[i] =
-//   sum_j p Wh[j] / max(sum_j p, 1e-12) and lse[i, h] = m + log(sum_j p)
-//   (0 for a row with no edge, whose output is 0).
+//   block-pair form): one function. Over each destination row i's in-edges
+//   (row_ptr[i] .. row_ptr[i + 1], sources in src[]) it scores s =
+//   lrelu(e_recv[i, h] + e_send[j, h], 0.2), takes the exact
+//   per-destination max m in a first walk and, in a second, p = exp(s - m),
+//   its sum and sum_j p Wh[j], in edge order. It writes out[i] = sum_j p
+//   Wh[j] / max(sum_j p, 1e-12) and lse[i, h] = m + log(sum_j p) (0 for a
+//   row with no edge, whose output is 0).
 //
 // ananke_edge_csr_backward <- edge_segment.py
 //   gat_edge_backward_multihead_pallas (K9c) and K9d's VJP. With corr[i, h]
@@ -38,22 +37,30 @@
 // L2; the forward keeps each row's state in registers, reads every table
 // once per edge and writes every output once.
 //
-// The backward's first design (a warp a row, lane l features l, l + 32, ...)
-// spent most of its time in the instruction stream of its edge loop, not in
-// its gathers (H100 probes, PERF.md): per edge each lane shuffled 8 times
-// and took 2 expf, and the next edge's index was loaded only after the
-// last edge's sums. Its layout now: a group of G = 8, 16 or 32 lanes owns
-// a row, each lane V = 4 contiguous features of one head in each slot
-// (16-byte loads; V = 1 where d is not a multiple of 4), so a 64-feature
-// row is a half-warp and a warp walks two rows; a head's sum is the lane's
-// products in registers, then a butterfly over the head's d / V lanes. A
-// group loads up to G of its edge indices in one coalesced load, hands
-// them out by shuffle, and starts the gathers of 4 / S edges of a
-// destination row or 2 / S of a source row (their rows and scalars) before
-// it sums any; 4-warp CTAs, 8 an SM (64 registers) at the main path's
-// one slot. Latency still bounds it, not its bytes: a row's loads are a
-// chain of L2 round trips (its offsets, its edge indices, then its gathers
-// a few edges at a time), and 32 warps an SM hide part of them.
+// Both kernels' first designs (a warp a row, lane l features l, l + 32,
+// ...) spent most of their time in the instruction stream and the latency
+// chain of their edge loops, not in their gathers (H100 probes, PERF.md):
+// per edge each lane loaded the edge's index, then its scalars and its row,
+// one edge at a time, and took 2 expf (the forward: 64 expf a destination
+// an edge where its 4 heads need 4); the forward's index loads and gathers
+// cost ~0.022 of its 0.054 ms, its max walk ~0.013. Their layout now: a
+// group of G = 8, 16 or 32 lanes owns a row, each lane V = 4 contiguous
+// features of one head in each slot (16-byte loads; V = 1 where d is not a
+// multiple of 4), so a 64-feature row is a half-warp and a warp walks two
+// rows. A group loads up to G of its edge indices in one coalesced load and
+// hands them out by shuffle. The backward sums a head as the lane's
+// products in registers, then a butterfly over the head's d / V lanes, and
+// starts the gathers of 4 / S edges of a destination row or 2 / S of a
+// source row (their rows and scalars) before it sums any. The forward
+// gathers 8 / S edges' scores at once for the max, then 4 / S edges' rows
+// and scores before it sums any; each lane takes its head's exp once an
+// edge (16 expf a destination an edge at 4 heads of 16), and keeps the
+// first batch of indices for the second walk. Both: 4-warp CTAs, 8 an SM at
+// the main path's one slot (backward 64 registers, forward 54). Latency
+// still bounds them, not their bytes: a row's loads are a chain of L2 round
+// trips (its offsets, its edge indices, the forward's scores, then the
+// gathers a few edges at a time), and 32 warps an SM hide part of them;
+// more edges in flight (8) or more CTAs an SM (12) spill and lose.
 //
 // Compiled for H * d <= 256 features, heads of any width d.
 //
@@ -67,15 +74,23 @@
 //   slices. A CTA of 8 warps owns a contiguous chunk of rows; each warp a
 //   contiguous part of it, walked in order, lane l adding column l (+ 32,
 //   ...) of each row whose id falls in the CTA's zone slice into the warp's
-//   own (slice, D) float32 table in shared memory; 16 rows' loads are in
-//   flight at a time. The warps' tables are summed in warp order into the
-//   chunk's partial sums in device memory, and a second kernel sums the
-//   chunks in chunk order. No atomics: the order of every sum depends on
-//   E, Z and D alone, so the same operands give the same bits. Zone
-//   slices keep a warp's table within kSegSliceBytes of shared memory (96
-//   zones at D = 32: rung 1's 64 zones take one slice, BASELINE config 4's
-//   500 take 6, each re-reading the ids but not the values of other
-//   slices).
+//   own (slice, D) float32 table in shared memory. The warps' tables are
+//   summed in warp order into the chunk's partial sums in device memory,
+//   and a second kernel sums the chunks in chunk order, a CTA a tile of 32
+//   outputs with every chunk's loads in flight. No atomics: the order of
+//   every sum depends on E, Z and D alone, so the same operands give the
+//   same bits. Zone slices keep a warp's table within kSegSliceBytes of
+//   shared memory (96 zones at D = 32: rung 1's 64 zones take one slice,
+//   BASELINE config 4's 500 take 6, each re-reading the ids and values).
+//   Its first design ran each 16-row batch as one serial chain (ids, then
+//   the values loaded only for rows in the slice, then the adds), at 40
+//   registers: 0.22 ms at rung 1 where the values alone need 0.041. Now a
+//   warp loads every value of a 32-row batch whatever its id (a row is
+//   dropped at its add), and issues the next batch's loads before this
+//   batch's adds; at D = 32 the batch's loads take immediate offsets. At
+//   rung 1 the adds cost ~0.0025 ms and the stream runs at ~2.3 TB/s;
+//   three batches in flight, an interleaved partition, 16-row batches or
+//   predicated adds are no faster (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,7 +99,6 @@
 
 namespace {
 
-constexpr int kWarps = 8;     // rows (warps) per CTA
 constexpr int kMaxSlots = 8;  // 32-feature slots per row: H * d <= 256
 constexpr float kSlope = 0.2f;
 constexpr float kDenFloor = 1e-12f;
@@ -96,81 +110,6 @@ __device__ __forceinline__ float lrelu(float s) {
 
 __device__ __forceinline__ float lrelu_grad(float s) {
   return s >= 0.f ? 1.f : kSlope;
-}
-
-struct Lanes {
-  int f[kMaxSlots];  // feature of the lane in each slot
-  int h[kMaxSlots];  // its head
-  bool on[kMaxSlots];
-};
-
-template <int S>
-__device__ __forceinline__ void lanes_of(Lanes& ln, int hd, int d) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    ln.f[k] = k * 32 + lane;
-    ln.on[k] = ln.f[k] < hd;
-    ln.h[k] = ln.on[k] ? ln.f[k] / d : 0;
-  }
-}
-
-template <int S>
-__global__ void __launch_bounds__(32 * kWarps)
-csr_forward_kernel(const float* __restrict__ wh,
-                   const float* __restrict__ e_recv,
-                   const float* __restrict__ e_send,
-                   const int* __restrict__ row_ptr,
-                   const int* __restrict__ src, float* __restrict__ out,
-                   float* __restrict__ lse, int zd, int H, int d) {
-  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (i >= zd) return;  // warp-uniform
-  const int hd = H * d;
-  Lanes ln;
-  lanes_of<S>(ln, hd, d);
-  const int beg = row_ptr[i], end = row_ptr[i + 1];
-  float* orow = out + (long)i * hd;
-  if (beg == end) {
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      if (!ln.on[k]) continue;
-      orow[ln.f[k]] = 0.f;
-      if (ln.f[k] % d == 0) lse[(long)i * H + ln.h[k]] = 0.f;
-    }
-    return;
-  }
-  float er[S], m[S], acc[S], den[S];
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    er[k] = ln.on[k] ? e_recv[(long)i * H + ln.h[k]] : 0.f;
-    m[k] = -INFINITY;
-    acc[k] = 0.f;
-    den[k] = 0.f;
-  }
-  for (int p = beg; p < end; ++p) {
-    const long j = src[p];
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      if (!ln.on[k]) continue;
-      m[k] = fmaxf(m[k], lrelu(er[k] + e_send[j * H + ln.h[k]]));
-    }
-  }
-  for (int p = beg; p < end; ++p) {
-    const long j = src[p];
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      if (!ln.on[k]) continue;
-      const float w = expf(lrelu(er[k] + e_send[j * H + ln.h[k]]) - m[k]);
-      den[k] += w;
-      acc[k] += w * wh[j * hd + ln.f[k]];
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    if (!ln.on[k]) continue;
-    orow[ln.f[k]] = acc[k] / fmaxf(den[k], kDenFloor);
-    if (ln.f[k] % d == 0) lse[(long)i * H + ln.h[k]] = m[k] + logf(den[k]);
-  }
 }
 
 struct Bwd {
@@ -190,11 +129,11 @@ struct Bwd {
   int zd, zr, zs, H, d, recv_blocks;
 };
 
-// K9c's layout: a row of hd features over a group of G lanes (32 / G rows
-// a warp), V contiguous features a lane in each of S slots: lane q of its
-// group holds features (k G + q) V .. (k G + q) V + V - 1 in slot k, all
-// of one head. V = 4 reads rows as 16-byte loads (d a multiple of 4); V =
-// 1 takes heads of any width.
+// The CSR kernels' row layout: a row of hd features over a group of G
+// lanes (32 / G rows a warp), V contiguous features a lane in each of S
+// slots: lane q of its group holds features (k G + q) V .. (k G + q) V + V
+// - 1 in slot k, all of one head. V = 4 reads rows as 16-byte loads (d a
+// multiple of 4); V = 1 takes heads of any width.
 template <int V, int G, int S>
 struct Slots {
   int f0[S];  // first feature of the lane in each slot
@@ -434,20 +373,211 @@ csr_backward_kernel(const Bwd b) {
     backward_rows<false, V, G, S>(b, blockIdx.x - b.recv_blocks, buf);
 }
 
+struct Fwd {
+  const float* wh;      // (zs, H d)
+  const float* e_recv;  // (>= zd rows with edges, H)
+  const float* e_send;  // (zs, H)
+  const int* row_ptr;   // (zd + 1) destination-major
+  const int* src;       // (E) sources in destination-major order
+  float* out;           // (zd, H d)
+  float* lse;           // (zd, H)
+  int zd, H, d;
+};
+
+constexpr int kFwdWarps = 4;
+// CTAs an SM at one slot, as the backward's
+constexpr int kFwdBlocks = 8;
+// scores a lane gathers at once in the max pass, and edges whose source
+// rows it gathers before it sums any in the second pass (over its slots)
+constexpr int kScoresInFlight = 8;
+constexpr int kFwdInFlight = 4;
+
+// The forward on K9c's layout: a group of G lanes owns a destination row
+// i, lane q V contiguous features of one head in each of S slots. The
+// group loads up to G of i's edge indices at once (one coalesced load),
+// hands them out by shuffle, and walks them twice: the exact per-head max
+// m of the scores s = lrelu(e_recv[i] + e_send[j]), then, in edge order,
+// w = exp(s - m), den += w and acc += w Wh[j], the gathers of a few edges
+// (the source row's V features and its score) issued before any is
+// summed. Every lane takes its own head's w once an edge. The batch of
+// the first G edges is kept for the second walk. The warp walks the
+// largest edge count of its rows.
+template <int V, int G, int S>
+__global__ void __launch_bounds__(32 * kFwdWarps,
+                                  S < kFwdBlocks ? kFwdBlocks / S : 1)
+csr_forward_kernel(const Fwd f) {
+  constexpr int R = 32 / G;  // rows a warp
+  constexpr int P = S < kScoresInFlight ? kScoresInFlight / S : 1;
+  constexpr int U = S < kFwdInFlight ? kFwdInFlight / S : 1;
+  const int H = f.H, hd = H * f.d;
+  const Slots<V, G, S> sl(hd, f.d);
+  const int lane = threadIdx.x & 31, q = lane % G;
+  const int row = blockIdx.x * (kFwdWarps * R) + (threadIdx.x >> 5) * R +
+                  lane / G;
+  int beg = 0, cnt = 0;
+  if (row < f.zd) {
+    beg = f.row_ptr[row];
+    cnt = f.row_ptr[row + 1] - beg;
+  }
+  float er[S], m[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    er[k] = sl.on[k] && cnt > 0 ? __ldg(f.e_recv + (long)row * H + sl.h[k])
+                                : 0.f;
+    m[k] = -INFINITY;
+  }
+  int most = cnt;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    most = max(most, __shfl_xor_sync(kFull, most, off));
+  const int* ends = f.src + beg;
+  int first = 0;  // the first batch of edge indices
+  for (int base = 0; base < most; base += G) {
+    const int idx = base + q < cnt ? __ldg(ends + base + q) : 0;
+    if (base == 0) first = idx;
+    const int n = min(G, most - base);
+    for (int u0 = 0; u0 < n; u0 += P) {
+      // the scores of P edges (-inf past the row's edges), then their max
+      float sc[P][S];
+#pragma unroll
+      for (int u = 0; u < P; ++u) {
+        const long j = __shfl_sync(kFull, idx, u0 + u, G);
+        const bool live = base + u0 + u < cnt;
+#pragma unroll
+        for (int k = 0; k < S; ++k)
+          sc[u][k] = live && sl.on[k] ? __ldg(f.e_send + j * H + sl.h[k])
+                                      : -INFINITY;
+      }
+#pragma unroll
+      for (int u = 0; u < P; ++u)
+#pragma unroll
+        for (int k = 0; k < S; ++k)
+          m[k] = fmaxf(m[k], lrelu(er[k] + sc[u][k]));
+    }
+  }
+  float den[S], acc[S][V];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    den[k] = 0.f;
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[k][v] = 0.f;
+  }
+  for (int base = 0; base < most; base += G) {
+    const int idx = base == 0 ? first
+                    : base + q < cnt ? __ldg(ends + base + q) : 0;
+    const int n = min(G, most - base);
+    for (int u0 = 0; u0 < n; u0 += U) {
+      // the gathers of U edges, then their sums
+      float x[U][S][V], sc[U][S];
+      bool live[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const long j = __shfl_sync(kFull, idx, u0 + u, G);
+        live[u] = base + u0 + u < cnt;
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          const bool use = live[u] && sl.on[k];
+          load_row<V>(use, f.wh + j * hd + sl.f0[k], x[u][k]);
+          sc[u][k] = use ? __ldg(f.e_send + j * H + sl.h[k]) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!live[u]) continue;
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          if (!sl.on[k]) continue;
+          const float w = expf(lrelu(er[k] + sc[u][k]) - m[k]);
+          den[k] += w;
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[k][v] += w * x[u][k][v];
+        }
+      }
+    }
+  }
+  if (row >= f.zd) return;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    if (!sl.on[k]) continue;
+    float o[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      o[v] = cnt > 0 ? acc[k][v] / fmaxf(den[k], kDenFloor) : 0.f;
+    float* orow = f.out + (long)row * hd + sl.f0[k];
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(orow) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) orow[v] = o[v];
+    }
+    if (sl.f0[k] % f.d == 0)  // the head's first lane
+      f.lse[(long)row * H + sl.h[k]] = cnt > 0 ? m[k] + logf(den[k]) : 0.f;
+  }
+}
+
 // ---- K9e: the segment sum --------------------------------------------------
 
-constexpr int kSegWarps = 8;    // warps per CTA, each with its own table
-constexpr int kSegUnroll = 16;  // rows whose loads are in flight at a time
+constexpr int kSegWarps = 8;   // warps per CTA, each with its own table
+constexpr int kSegRows = 32;   // rows of a batch: an id a lane
 // the warps' tables of one CTA: 96 KB, so that 2 CTAs share an SM
 constexpr int kSegSliceBytes = 96 * 1024;
+// the chunk sum: outputs a CTA, and chunks each of its 8 column groups
+// loads at once (SEGMENT_MAX_CHUNKS = 264 = 8 x 33: one round)
+constexpr int kSumCols = 32;
+constexpr int kSumDepth = 33;
+constexpr int kSumThreads = 256;
+// chunks whose partial sums of a CTA's outputs fit 48 KB of shared memory
+constexpr int kMaxChunks = 48 * 1024 / (kSumCols * (int)sizeof(float));
 
-// (values, ids) rows [r0, r1) of this CTA's chunk -> the chunk's partial
-// sums (z, d) of the zone slice [z0, z0 + zn), blockIdx.y = slice index
+// A batch of a warp's rows, in flight while the batch before it adds:
+// lane u the id of row r + u (-1 past r1), every lane its column of each
+// row (0 past r1 or d). The value loads do not wait for the ids.
+struct SegBatch {
+  int id;
+  float v[kSegRows];
+};
+
+// batch rows [r, min(r + kSegRows, r1)); vcol: the lane's column of row 0
+__device__ __forceinline__ void seg_load(SegBatch& b, const float* vcol,
+                                         const int* ids, long r, long r1,
+                                         int d, bool cv, int lane) {
+  const long left = r1 - r;  // rows of the batch before r1
+  b.id = lane < left ? __ldg(ids + r + lane) : -1;
+  const float* p = vcol + r * d;
+#pragma unroll
+  for (int u = 0; u < kSegRows; ++u)
+    b.v[u] = cv && u < left ? __ldg(p + u * d) : 0.f;
+}
+
+// the batch's values, rounded to bf16, added in row order into the warp's
+// table `mine` of the zone slice [z0, z0 + zn); a row whose id falls
+// outside the slice (or past r1) is dropped here
+__device__ __forceinline__ void seg_add(const SegBatch& b, float* mine,
+                                        int z0, int zn, int d, int col,
+                                        bool cv) {
+  // unsigned: an id of -1, a negative one or one below z0 wraps past zn
+  const unsigned rel = min((unsigned)b.id - (unsigned)z0, (unsigned)zn);
+#pragma unroll
+  for (int u = 0; u < kSegRows; ++u) {
+    const unsigned ru = __shfl_sync(kFull, rel, u);
+    const float x = __bfloat162float(__float2bfloat16_rn(b.v[u]));
+    if (cv && ru < (unsigned)zn) mine[ru * d + col] += x;
+  }
+}
+
+// (values, ids) rows [c0, c1) of this CTA's chunk -> the chunk's partial
+// sums (z, d) of the zone slice [z0, z0 + zn), blockIdx.y = slice index.
+// Warp w walks rows [r0, r1) of the chunk in order, two batches at a time:
+// the loads of one batch are issued before the adds of the one before.
+// kD: the row width where it is fixed at compile time (the main path's
+// 32, so that a batch's loads take immediate offsets), else 0 (d_arg).
+template <int kD>
 __global__ void __launch_bounds__(32 * kSegWarps)
     segment_sum_kernel(const float* __restrict__ vals,
                        const int* __restrict__ ids, float* partial, long e,
-                       int d, int z, int zs, int num_chunks) {
+                       int d_arg, int z, int zs, int num_chunks) {
   extern __shared__ float tab[];  // [kSegWarps][zs][d]
+  const int d = kD > 0 ? kD : d_arg;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int z0 = blockIdx.y * zs;
   const int zn = min(zs, z - z0);
@@ -461,28 +591,14 @@ __global__ void __launch_bounds__(32 * kSegWarps)
   for (int col0 = 0; col0 < d; col0 += 32) {
     const int col = col0 + lane;
     const bool cv = col < d;
-    for (long r = r0; r < r1; r += kSegUnroll) {
-      // lane u < kSegUnroll holds row r + u's id relative to the slice;
-      // a row past r1, or an id outside the slice, reads as zn (dropped).
-      // Unsigned: a negative id or one below z0 wraps past zn.
-      unsigned rel = (unsigned)zn;
-      if (lane < kSegUnroll && r + lane < r1)
-        rel = min((unsigned)__ldg(ids + r + lane) - (unsigned)z0,
-                  (unsigned)zn);
-      float v[kSegUnroll];
-#pragma unroll
-      for (int u = 0; u < kSegUnroll; ++u) {
-        const unsigned ru = __shfl_sync(0xffffffffu, rel, u);
-        v[u] = (cv && ru < (unsigned)zn)
-                   ? __bfloat162float(__float2bfloat16_rn(
-                         __ldg(vals + (r + u) * d + col)))
-                   : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kSegUnroll; ++u) {
-        const unsigned ru = __shfl_sync(0xffffffffu, rel, u);
-        if (cv && ru < (unsigned)zn) mine[ru * d + col] += v[u];
-      }
+    const float* vcol = vals + col;
+    SegBatch a, b;
+    seg_load(a, vcol, ids, r0, r1, d, cv, lane);
+    for (long r = r0; r < r1; r += 2 * kSegRows) {
+      seg_load(b, vcol, ids, r + kSegRows, r1, d, cv, lane);
+      seg_add(a, mine, z0, zn, d, col, cv);
+      seg_load(a, vcol, ids, r + 2 * kSegRows, r1, d, cv, lane);
+      seg_add(b, mine, z0, zn, d, col, cv);
     }
   }
   __syncthreads();
@@ -495,13 +611,37 @@ __global__ void __launch_bounds__(32 * kSegWarps)
   }
 }
 
-// out[i] = sum over chunks, in order, of partial[c][i]
-__global__ void segment_sum_chunks(const float* partial, float* out,
-                                   long size, int num_chunks) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= size) return;
+// out[i] = sum over chunks, in order, of partial[c][i]. A CTA owns
+// kSumCols outputs: its 8 column groups load every chunk's partial sums
+// of them into shared memory (group g chunks g, g + 8, ..., all loads in
+// flight before any is stored), then one warp sums each output's column
+// in chunk order.
+__global__ void __launch_bounds__(kSumThreads)
+    segment_sum_chunks(const float* __restrict__ partial,
+                       float* __restrict__ out, long size, int num_chunks) {
+  extern __shared__ float st[];  // [num_chunks][kSumCols]
+  constexpr int kGroups = kSumThreads / kSumCols;
+  const int col = threadIdx.x % kSumCols, grp = threadIdx.x / kSumCols;
+  const long i = (long)blockIdx.x * kSumCols + col;
+  const bool ok = i < size;
+  for (int c0 = grp; c0 < num_chunks; c0 += kGroups * kSumDepth) {
+    float x[kSumDepth];
+#pragma unroll
+    for (int k = 0; k < kSumDepth; ++k) {
+      const int c = c0 + k * kGroups;
+      x[k] = ok && c < num_chunks ? __ldg(partial + (size_t)c * size + i)
+                                  : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kSumDepth; ++k) {
+      const int c = c0 + k * kGroups;
+      if (c < num_chunks) st[c * kSumCols + col] = x[k];
+    }
+  }
+  __syncthreads();
+  if (grp != 0 || !ok) return;
   float acc = 0.f;
-  for (int c = 0; c < num_chunks; ++c) acc += partial[(size_t)c * size + i];
+  for (int c = 0; c < num_chunks; ++c) acc += st[c * kSumCols + col];
   out[i] = acc;
 }
 
@@ -518,7 +658,29 @@ bool compiled_for(int H, int d) {
   return H >= 1 && d >= 1 && H * d <= 32 * kMaxSlots;
 }
 
-unsigned blocks(int rows) { return (unsigned)((rows + kWarps - 1) / kWarps); }
+// The row layout of the CSR kernels for rows of hd = H d features: V = 4
+// (16-byte rows) where heads hold whole float4s and the rows are aligned,
+// else 1; groups of G = 8, 16 or 32 lanes a row; S slots a lane.
+struct RowLayout {
+  bool v4;
+  int width, slots;
+  RowLayout(int H, int d, bool aligned) {
+    v4 = d % 4 == 0 && aligned;
+    const int vecs = v4 ? H * d / 4 : H * d;
+    width = v4 ? (vecs <= 8 ? 8 : vecs <= 16 ? 16 : 32) : 32;
+    slots = (vecs + width - 1) / width;
+  }
+};
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// the layouts the kernels are compiled for: H d <= 256 features
+#define ANANKE_LAYOUTS(X)                                                  \
+  X(4, 8, 1) X(4, 16, 1) X(4, 32, 1) X(4, 32, 2)                            \
+  X(1, 32, 1) X(1, 32, 2) X(1, 32, 3) X(1, 32, 4) X(1, 32, 5) X(1, 32, 6)  \
+  X(1, 32, 7) X(1, 32, 8)
 
 }  // namespace
 
@@ -533,27 +695,27 @@ int ananke_edge_csr_forward(const void* wh, const void* e_recv,
                             const void* src, void* out, void* lse, int zd,
                             int H, int d, void* stream) {
   if (!compiled_for(H, d) || zd < 1) return (int)cudaErrorInvalidValue;
+  Fwd f;
+  f.wh = static_cast<const float*>(wh);
+  f.e_recv = static_cast<const float*>(e_recv);
+  f.e_send = static_cast<const float*>(e_send);
+  f.row_ptr = static_cast<const int*>(row_ptr);
+  f.src = static_cast<const int*>(src);
+  f.out = static_cast<float*>(out);
+  f.lse = static_cast<float*>(lse);
+  f.zd = zd; f.H = H; f.d = d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int slots = (H * d + 31) / 32;
-  const auto* w = static_cast<const float*>(wh);
-  const auto* er = static_cast<const float*>(e_recv);
-  const auto* es = static_cast<const float*>(e_send);
-  const auto* rp = static_cast<const int*>(row_ptr);
-  const auto* sr = static_cast<const int*>(src);
-  auto* o = static_cast<float*>(out);
-  auto* l = static_cast<float*>(lse);
-#define ANANKE_FWD(S)                                                     \
-  case S:                                                                 \
-    csr_forward_kernel<S><<<blocks(zd), 32 * kWarps, 0, s>>>(             \
-        w, er, es, rp, sr, o, l, zd, H, d);                               \
-    break;
-  switch (slots) {
-    ANANKE_FWD(1) ANANKE_FWD(2) ANANKE_FWD(3) ANANKE_FWD(4)
-    ANANKE_FWD(5) ANANKE_FWD(6) ANANKE_FWD(7) ANANKE_FWD(8)
-    default: return (int)cudaErrorInvalidValue;
+  const RowLayout lay(H, d, aligned16(wh) && aligned16(out));
+  const int per_block = kFwdWarps * (32 / lay.width);
+  const unsigned grid = (unsigned)((zd + per_block - 1) / per_block);
+#define ANANKE_FWD(V, G, S)                                               \
+  if (lay.v4 == (V == 4) && lay.width == G && lay.slots == S) {           \
+    csr_forward_kernel<V, G, S><<<grid, 32 * kFwdWarps, 0, s>>>(f);       \
+    return (int)cudaGetLastError();                                       \
   }
+  ANANKE_LAYOUTS(ANANKE_FWD)
 #undef ANANKE_FWD
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 // The backward on `stream`: d_wh (zs, H d), d_recv (zr, H) and d_send (zs, H)
@@ -585,33 +747,21 @@ int ananke_edge_csr_backward(const void* g, const void* wh,
   b.d_send = static_cast<float*>(d_send);
   b.zd = zd; b.zr = zr; b.zs = zs; b.H = H; b.d = d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int hd = H * d;
-  const auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  // 16-byte rows where heads hold whole float4s and the rows are aligned
-  const bool v4 = d % 4 == 0 && aligned(g) && aligned(wh) && aligned(d_wh);
-  const int vecs = v4 ? hd / 4 : hd;
-  const int width = v4 ? (vecs <= 8 ? 8 : vecs <= 16 ? 16 : 32) : 32;
-  const int slots = (vecs + width - 1) / width;
-  const int per_block = kBwdWarps * (32 / width);
+  const RowLayout lay(H, d, aligned16(g) && aligned16(wh) && aligned16(d_wh));
+  const int per_block = kBwdWarps * (32 / lay.width);
   const auto bwd_blocks = [per_block](int rows) {
     return (unsigned)((rows + per_block - 1) / per_block);
   };
   b.recv_blocks = (int)bwd_blocks(zr);
   const unsigned grid = bwd_blocks(zr) + bwd_blocks(zs);
 #define ANANKE_BWD(V, G, S)                                               \
-  if (v4 == (V == 4) && width == G && slots == S) {                       \
+  if (lay.v4 == (V == 4) && lay.width == G && lay.slots == S) {           \
     csr_backward_kernel<V, G, S><<<grid, 32 * kBwdWarps, 0, s>>>(b);      \
     return (int)cudaGetLastError();                                       \
   }
-  ANANKE_BWD(4, 8, 1) ANANKE_BWD(4, 16, 1) ANANKE_BWD(4, 32, 1)
-  ANANKE_BWD(4, 32, 2)
-  ANANKE_BWD(1, 32, 1) ANANKE_BWD(1, 32, 2) ANANKE_BWD(1, 32, 3)
-  ANANKE_BWD(1, 32, 4) ANANKE_BWD(1, 32, 5) ANANKE_BWD(1, 32, 6)
-  ANANKE_BWD(1, 32, 7) ANANKE_BWD(1, 32, 8)
-  return (int)cudaErrorInvalidValue;
+  ANANKE_LAYOUTS(ANANKE_BWD)
 #undef ANANKE_BWD
+  return (int)cudaErrorInvalidValue;
 }
 
 // The largest row width the segment sum takes: one zone's row for every
@@ -622,7 +772,8 @@ int ananke_segment_sum_max_features() {
 
 // The segment sum on `stream`: out (z, d) from vals (e, d) and ids (e),
 // through `partial` (num_chunks, z, d) when num_chunks > 1 (the caller
-// chooses num_chunks from e, z and d alone; at 1 the CTAs write `out`).
+// chooses num_chunks <= 384 from e, z and d alone; at 1 the CTAs write
+// `out`).
 // Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
 // for a width this file does not take or bad sizes.
 int ananke_segment_sum(const void* vals, const void* ids, void* partial,
@@ -630,23 +781,25 @@ int ananke_segment_sum(const void* vals, const void* ids, void* partial,
                        void* stream) {
   const int zs = segment_slice(z, d);
   if (e < 1 || d < 1 || z < 1 || zs < 1 || num_chunks < 1 ||
-      num_chunks > e)
+      num_chunks > e || num_chunks > kMaxChunks)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t bytes = (size_t)kSegWarps * zs * d * sizeof(float);
+  const auto kernel = d == 32 ? segment_sum_kernel<32> : segment_sum_kernel<0>;
   cudaError_t err = cudaFuncSetAttribute(
-      segment_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   float* dst = static_cast<float*>(num_chunks > 1 ? partial : out);
   const dim3 grid((unsigned)num_chunks, (unsigned)((z + zs - 1) / zs));
-  segment_sum_kernel<<<grid, 32 * kSegWarps, bytes, s>>>(
+  kernel<<<grid, 32 * kSegWarps, bytes, s>>>(
       static_cast<const float*>(vals), static_cast<const int*>(ids), dst, e,
       d, z, zs, num_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess || num_chunks == 1) return (int)err;
   const long size = (long)z * d;
-  segment_sum_chunks<<<(unsigned)((size + 255) / 256), 256, 0, s>>>(
+  segment_sum_chunks<<<(unsigned)((size + kSumCols - 1) / kSumCols),
+                       kSumThreads,
+                       (size_t)num_chunks * kSumCols * sizeof(float), s>>>(
       dst, static_cast<float*>(out), size, num_chunks);
   return (int)cudaGetLastError();
 }

@@ -56,7 +56,8 @@ MAX_KERNEL_FEATURES = 256
 MAX_SEGMENT_FEATURES = 3072
 # the segment sum's row chunks (each CTA sums one, then the chunks are summed
 # in order): one per SEGMENT_CHUNK_ROWS rows, at most SEGMENT_MAX_CHUNKS (two
-# CTAs per SM of an H100), and at most SEGMENT_PARTIAL_FLOATS / (Z D) so the
+# CTAs per SM of an H100; the kernel takes up to 384, the chunk sum's tiles
+# in shared memory), and at most SEGMENT_PARTIAL_FLOATS / (Z D) so the
 # partial sums stay small. Constants: the order of every sum depends on E, Z
 # and D alone, and a repeat gives the same bits.
 SEGMENT_CHUNK_ROWS = 2048
@@ -249,7 +250,11 @@ def _lib():
 
 def gat_edge_csr_forward(wh, e_recv, e_send, layout):
     """The forward. Arguments and result as
-    :func:`gat_edge_csr_forward_reference`; on CUDA the forward kernel."""
+    :func:`gat_edge_csr_forward_reference`; on CUDA the forward kernel: a
+    group of lanes owns a destination row, loads its edge indices in
+    batches and walks them twice, for the exact max and then for the
+    sums in edge order. No atomics: the same operands give the same
+    bits."""
     Zs, H, d = _check("gat_edge_csr_forward", wh, e_recv, e_send, layout)
     if not _kernel_device("gat_edge_csr_forward", wh, H, d):
         return gat_edge_csr_forward_reference(wh, e_recv, e_send, layout)
@@ -346,8 +351,11 @@ def segment_sum(values, segment_ids, num_segments):
     MAX_SEGMENT_FEATURES, any ``num_segments``), or raise; there is no
     fallback. Ids are handed to the kernel as int32, those outside
     ``[0, num_segments)`` sent to -1 first (the kernel drops every id
-    outside the range). No atomics: the same operands give the same bits.
-    ``.launches`` counts the kernel launches."""
+    outside the range). Each warp streams its rows in batches whose value
+    loads do not wait for the ids and overlap the previous batch's adds;
+    the chunks' partial sums are summed in order by a second grid. No
+    atomics: the same operands give the same bits. ``.launches`` counts
+    the kernel launches (both grids of a call count once)."""
     name = "segment_sum"
     if values.dim() != 2 or segment_ids.dim() != 1:
         raise ValueError(f"{name}: values must be (E, D) and segment_ids "

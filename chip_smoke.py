@@ -263,15 +263,17 @@ timed.
 ``python3 chip_smoke.py --ab-gat DIR [DIR ...]`` builds only the
 zone-graph kernels' libraries (``fused_gat.cu``: K4f, K4b;
 ``edge_segment.cu``: the CSR forward, K9c, K9e), each DIR's beside them
-(``DIR+PROBE`` a probe variant, as for ``--ab-train``: K9c's gathers, K4b's
-walk, every K4b grid's work or ``expf`` taken out), then prints ptxas's
+(``DIR+PROBE`` a probe variant, as for ``--ab-train``: K9c's or the CSR
+forward's gathers, the forward's max walk, K9e's table adds or the
+dependence of its loads on the ids, K4b's walk, every K4b grid's work or
+``expf`` taken out), then prints ptxas's
 registers and spills of every build, the bits of K4f's output, K4b's
 every gradient, the CSR forward's out and lse, K9c's three gradients and
 K9e's sums at GAT_SHAPES, GAT_GRAPH_SHAPES, EDGE_SHAPES, EDGE_HUB_SHAPE and
 SEGMENT_SHAPES against this checkout, the device time of one call of each
 (a CUDA-graph replay; K4b also eager and at a dense adjacency) on rung 2's
 world and the Z=32,768 sparse world in the order DIR..., this, this,
-...DIR, and this checkout's K4b and K9c grid by grid under
+...DIR, and this checkout's K4b, K9c and K9e grid by grid under
 ``torch.profiler``. ``--readings encoder``, ``edge`` and ``segment``
 build only these two libraries too.
 ``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` builds only K8's library
@@ -1810,6 +1812,12 @@ def ab_dopri5(dev, built, handles):
 #   K9c's dependent gathers, K4b's walk past 64 rows or entries, every K4b
 #   grid's work, and the expf of fused_gat.cu and edge_segment.cu (K4f,
 #   K4b, the CSR pair).
+# - ``k9fnogather``, ``k9fonepass`` (``--ab-gat``): the CSR forward's
+#   dependent gathers (each edge's source row and scalars) and its max pass
+#   over a row's edges.
+# - ``k9enoadd``, ``k9epred`` (``--ab-gat``): K9e's adds into its
+#   shared-memory tables, and the dependence of its value loads on the ids
+#   (taken out before its redesign, put back since).
 PROBES = {
     # no products: each mma.sync becomes one add that keeps its operands
     # (and the loads behind them) live
@@ -1903,6 +1911,37 @@ PROBES = {
                  "\\g<1>\n  return;"),
                 ("reduce_slabs.cuh", r"(void reduce_slabs\([^)]*\) \{)",
                  "\\g<1>\n  return;")],
+    # the CSR forward gathers source row 0's scalars and features in place
+    # of each edge's source: what its dependent gathers cost (before its
+    # redesign each edge's index load went too; since, the batch's stays)
+    "k9fnogather": [("edge_segment.cu",
+                     r"(const long j = )(?:src\[p\]|"
+                     r"__shfl_sync\(kFull, idx, [^;]*\));", r"\g<1>0;")],
+    # the CSR forward without its max pass (m = 0): what its first walk
+    # over a row's edges costs
+    "k9fonepass": [("edge_segment.cu", r"m\[k\] = -INFINITY;", "m[k] = 0.f;"),
+                   ("edge_segment.cu",
+                    r"m\[k\] = fmaxf\(m\[k\], lrelu\(er\[k\] \+ "
+                    r"(?:e_send\[j \* H \+ ln\.h\[k\]\]|sc\[u\]\[k\])\)\);",
+                    "(void)0;")],
+    # K9e's table adds become a register sum that keeps the loads live:
+    # what its shared-memory read-modify-writes cost
+    "k9enoadd": [("edge_segment.cu",
+                  r"(float v\[kSegUnroll\];|const unsigned rel = "
+                  r"min\(\(unsigned\)b\.id[^;]*;)",
+                  r"\g<1> float probe_sum = 0.f;"),
+                 ("edge_segment.cu",
+                  r"mine\[ru \* d \+ col\] \+= (v\[u\]|x);",
+                  r"probe_sum += \g<1>;" "\n"
+                  r"        if (probe_sum == 1.2345e-30f) mine[col] = "
+                  r"probe_sum;")],
+    # what the id -> value dependence of K9e's loads costs: before its
+    # redesign, the values loaded whatever their id; since, each value's
+    # load waits for its row's id, as it did before (either way a design
+    # alternative, right by design)
+    "k9epred": [("edge_segment.cu", r"b\.v\[u\] = cv && u < left \?",
+                 "b.v[u] = (__shfl_sync(kFull, b.id, u) != -2) & cv && "
+                 "u < left ?")],
     # no expf in the zone-graph kernels (edge_segment.cu, fused_gat.cu):
     # the identity in its place
     "noexp": [(f, pattern, repl) for f in ("edge_segment.cu", "fused_gat.cu")
@@ -2072,8 +2111,8 @@ def ab_gat(dev, handles):
     2's zone world (Z = 500, 2 layers; K4b also eager and at a dense
     adjacency), of the CSR forward and K9c on the sparse world (Z =
     32,768) and of K9e at rung 1, in the order DIR..., this, this,
-    ...DIR; then this checkout's K4b and K9c under torch.profiler, device
-    time by kernel name; then phase 17's rung-2 training step and phase
+    ...DIR; then this checkout's K4b, K9c and K9e under torch.profiler,
+    device time by kernel name; then phase 17's rung-2 training step and phase
     33's sparse training step with each checkout's kernels, in the same
     order (the rung-2 step also runs this checkout's day and decode
     kernels, whose libraries build beside the others)."""
@@ -2195,7 +2234,7 @@ def ab_gat(dev, handles):
                               for w, t in times.items())
                   + f" ms a call [card {card}]", flush=True)
         # this checkout's grids one by one: device time by kernel name
-        for label, _, call, _ in (timed[1], timed[5]):
+        for label, _, call, _ in (timed[1], timed[5], timed[6]):
             device_busy(f"{label}, 10 calls [this]",
                         lambda: [call("this") for _ in range(10)], card)
     # end to end, each checkout's zone-graph kernels in turn: phase 17's
@@ -3765,12 +3804,15 @@ def edge_kernel_checks(dev, kind, z, heads, d, seed, control=True,
         torch.cuda.synchronize()
         if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
             fail(f"CSR forward repeat at {tag} is not bit-identical")
-        want_f, _ = es.gat_edge_csr_forward_reference(wh, er, esd, lay)
+        want_f, want_lse = es.gat_edge_csr_forward_reference(wh, er, esd,
+                                                              lay)
+        # the control moves out only: lse reads no feature
         ctl = ([("out", es.gat_edge_csr_forward_reference(
             bf16_features(wh), er, esd, lay)[0])] if control else None)
         e_f = check(f"CSR forward {tag} (repeat bit-identical)",
-                    [("out", out)], [("out", want_f)], EDGE_FWD_BOUNDS, ctl,
-                    enforce, kind_c)
+                    [("out", out), ("lse", lse)],
+                    [("out", want_f), ("lse", want_lse)], EDGE_FWD_BOUNDS,
+                    ctl, enforce, kind_c)
         corr = torch.sum(g * out, dim=-1)
         names = ("d_wh", "d_recv", "d_send")
         bargs = (g, wh, er, esd, lse, corr, lay)

@@ -1078,15 +1078,17 @@ def test_edge_kernels_match_plain_versions(cuda, kind, z, heads, d):
 @pytest.mark.parametrize("kind,z,heads,d", [
     EDGE_HUB_SHAPE, ("random", 700, 3, 5), ("random", 700, 2, 16),
     ("single", 1_000, 1, 256), ("random", 700, 3, 48)])
-def test_edge_backward_at_hubs_and_every_row_layout(cuda, kind, z, heads,
-                                                    d):
-    """The backward's edge indices past one batch (a hub of in- and
-    out-degree 128), destinations and sources with no edge, and each of
-    its row layouts: 16-byte rows in groups of 8 lanes (32 features) and
-    of 32 lanes in two slots (a head of 256 features: one head over both
-    slots; heads of 48: summed through shared memory), and rows of single
-    features (heads of 5: summed through shared memory). The same bounds,
-    control and repeats."""
+def test_edge_kernels_at_hubs_and_every_row_layout(cuda, kind, z, heads, d):
+    """Both CSR kernels walk a row's edge indices in batches of one
+    lane group: a hub of in- and out-degree 128 takes several batches (the
+    forward walks them twice, for its max and for its sums), and
+    destinations and sources with no edge take none (the forward writes
+    out and lse 0). Both share the row layouts: 16-byte rows in groups of
+    8 lanes (32 features) and of 32 lanes in two slots (a head of 256
+    features: one head over both slots; heads of 48: the backward sums
+    them through shared memory), and rows of single features (heads of 5;
+    the backward's head sums through shared memory). The same bounds on
+    out, lse and the gradients, control and repeats."""
     _edge_case(cuda, kind, z, heads, d)
 
 
@@ -1106,9 +1108,9 @@ def _edge_case(cuda, kind, z, heads, d):
                                                    before[1] + 2)
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
     assert all(torch.equal(u, v) for u, v in zip(got, got2))
-    want, _ = es.gat_edge_csr_forward_reference(wh, er, esd, lay)
+    want, want_lse = es.gat_edge_csr_forward_reference(wh, er, esd, lay)
     want_g = es.gat_edge_csr_backward_reference(*bargs)
-    _assert_close([out], [want], EDGE_FWD_BOUNDS)
+    _assert_close([out, lse], [want, want_lse], EDGE_FWD_BOUNDS)
     _assert_close(got, want_g, EDGE_BWD_BOUNDS)
     wh16 = bf16_features(wh)
     control = es.gat_edge_csr_forward_reference(wh16, er, esd, lay)[0]
@@ -1388,12 +1390,17 @@ def test_bf16_forward_discrete_adjoint_runs_k5_bf16_and_k6(cuda):
 @pytest.mark.parametrize("kind,e,d,z", [
     ("rung2", 32_768, 32, 500), ("random", 20_000, 32, 2_048),
     ("random", 5, 3, 7), ("rung1", 100_000, 100, 64),
+    ("random", 200, 7, 3), ("random", 70_001, 33, 130),
 ])
 def test_segment_sum_kernel_matches_plain_version(cuda, kind, e, d, z):
     """K9e within SEGMENT_BOUNDS of its plain version for int64 and int32
     ids, the same bits on a repeat; empty segments and dropped ids 0; the
     unrounded sum (the control) outside the bounds where the segments hold
-    many rows."""
+    many rows. The stream's edges: warps of fewer rows than one batch (5
+    and 200 rows), of rows not a multiple of it (70,001 rows in 35
+    chunks, none a multiple of 8 chunk groups), rows of D % 4 != 0 and of
+    more than one 32-column pass (D = 33, 100), and a chunk sum whose last
+    CTA holds fewer than 32 outputs (130 x 33)."""
     from ananke_abm_tpu_torch.ops.cuda.checks import (
         SEGMENT_BOUNDS,
         segment_operands,
