@@ -8,15 +8,29 @@
 //   scores s_ij = lrelu(e_src_i + e_dst_j) masked to -1e30 off the graph, a
 //   max-subtracted softmax over j, out_i = sum_j alpha_ij Wh_j, elu, the
 //   residual and flax's LayerNorm (var = E[x^2] - E[x]^2, eps in the
-//   rsqrt). Grids: one for the input Dense and layer 0's projection, then
-//   one per layer (L + 1 launches). A warp owns a destination row and all
-//   four heads; a CTA of 4 warps streams the source rows in chunks of 64
-//   through shared memory (Wh and e_dst), in two passes: the row max, then
-//   p = exp(s - max), its sum and sum_j p Wh_j. The epilogue does elu, the
-//   residual, the LayerNorm (warp reductions over the 64 features) and the
-//   next layer's projection and e_src / e_dst (row-local, W in shared
-//   memory). It keeps what the backward reads: each layer's input, Wh,
-//   e_src, e_dst, the row max and sum per head, the attention output, the
+//   rsqrt). Grids: one for the input Dense, the graph's entries and layer
+//   0's projection, then one per layer (L + 1 launches), a warp a row:
+//   - input grid: each row's on-graph columns as a bitmask of ceil(Z / 32)
+//     words (one ballot a word of adj[i, :]; the layout of the row half of
+//     K4b's lists), in RS's tail: adj is read once a call;
+//   - attention grid: row i's entries in index order, 32 at a time (lane e
+//     the e-th, its e_dst a float4; RowWalk). The row max per head: a row
+//     of at most 32 entries (rung 2's: ~7-12 of 500) takes it over its one
+//     batch by shuffles and keeps the scores in registers for the sum;
+//     a longer row scans every column, 8 words' e_dst at a time, with no
+//     walk. Then each batch's p = exp(s - max) goes through shared memory
+//     and, entry by entry, into its sum and sum_j p Wh_j, the batch's 32
+//     Wh rows loaded before their FMAs and the next batch's columns and
+//     e_dst fetched before those. An off-graph term is exp(-1e30 - max) =
+//     0 exactly, so the walk sums the same terms in the same order as one
+//     over every column: the first design's bits. A row with no entry (all
+//     words 0) has every score -1e30, max -1e30 and every p 1, and walks
+//     every column. The epilogue does elu, the residual, the LayerNorm
+//     (warp reductions over the 64 features) and the next layer's
+//     projection and e_src / e_dst (row-local, W in shared memory, copied
+//     by cp.async during the walk).
+//   It keeps what the backward reads: each layer's input, Wh, e_src,
+//   e_dst, the row max and sum per head, the attention output, the
 //   normalised x and 1/std.
 //
 // K4b ananke_gat_backward <- _gat_bwd_impl. The VJP with respect to every
@@ -60,18 +74,17 @@
 // Everything is float32: products as FFMA on the CUDA cores, no bf16 and no
 // TF32 (the LayerNorm and softmax gradients are precision-sensitive, and the
 // encoder is a small share of the training step). At bench rung 2 (Z = 500,
-// 2 layers) the forward is ~45 MFLOP and reads ~1 MB (the adjacency): less
-// than 2 us of FP32 FFMA or memory. What bounds both kernels on this card is
-// latency: launches and the dependent loads of a few hundred warps. K4f
-// walks all Z columns in chunks of 64 through shared memory (its exp of
-// every score is its next cost). K4b's first design did the same and spent
-// ~70% of its time there, though rung 2's zone world holds ~7-12 entries a
-// row of 500 (H100 probes, PERF.md); it now walks the entries alone, each
-// warp's gathers one round trip, and its projection pass register-blocks
-// its products (each shared-memory load feeds 4 or more FMAs) and loads
-// every row's operand before it sums them, on four CTAs a tile. On a dense
-// graph the lists are full length and K4b does the first design's work,
-// its walks in the same lanes and order: the same bits.
+// 2 layers) the forward is ~45 MFLOP over every column and reads ~1 MB (the
+// adjacency): less than 2 us of FP32 FFMA or memory. What bounds both
+// kernels on this card is latency: launches and the dependent loads of a
+// few hundred warps. Their first designs walked all Z columns in chunks of
+// 64 through shared memory, though rung 2's zone world holds ~7-12 entries
+// a row of 500 (H100 probes, PERF.md); both now walk the entries alone,
+// each warp's gathers a round trip or two. K4b's projection pass
+// register-blocks its products (each shared-memory load feeds 4 or more
+// FMAs) and loads every row's operand before it sums them, on four CTAs a
+// tile. On a dense graph the lists are full length and both kernels do the
+// first designs' work, their sums in the same order: the same bits.
 //
 // Compiled for 64 features in 4 heads of 16, 1-4 layers, 1-64 zone
 // features and any zone count the caller's memory holds.
@@ -90,7 +103,7 @@ constexpr int kMaxLayers = 4;
 constexpr int kMaxF = 64;      // zone features
 constexpr int kInRows = 8;     // input grid: rows (warps) per CTA
 constexpr int kRows = 4;       // row / column passes: rows (warps) per CTA
-constexpr int kChunk = 64;     // rows staged through shared memory at once
+constexpr int kScan = 8;       // attention grid: words of e_dst in flight
 constexpr int kTile = 32;      // projection pass: rows a tile (and slab)
 constexpr int kProjParts = 4;  // projection pass: CTAs a tile
 constexpr int kPartCols = D / kProjParts;  // output columns a CTA
@@ -115,7 +128,10 @@ struct Fwd {
   float* ST;         // (4, layers, z, NH): e_src, e_dst, row max, row sum
   float* GX;         // (2, layers, z, D): attention output, normalised x
   float* RS;         // (layers, z): 1 / std of the LayerNorm
-  int z, f, layers;
+  // row i's on-graph columns as a bitmask of `words` = ceil(z / 32) words
+  // (z, words), the layout of the row half of Bwd::lists; in RS's tail
+  unsigned* rows;
+  int z, f, layers, words;
 };
 
 struct Bwd {
@@ -230,20 +246,116 @@ __device__ void project_row(const Fwd& p, int k, int i, float hA, float hB,
   }
 }
 
+// 16 bytes global -> shared, asynchronously (cp.async, L2 only)
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// n floats (a multiple of 4, both ends 16-byte aligned) into shared memory
+// by the CTA's nthreads threads, as one committed group of cp.async
+__device__ __forceinline__ void copy_to_shared(float* dst, const float* src,
+                                               int n, int nthreads) {
+  for (int idx = 4 * threadIdx.x; idx < n; idx += 4 * nthreads)
+    cp_async16(dst + idx, src + idx);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// every copy_to_shared of the thread landed; a block barrier then makes
+// the CTA's visible to all its threads
+__device__ __forceinline__ void copies_landed() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The entries of up to 32 words of a list, lane L holding word L (0 past
+// the list), in index order: entry t is bit entry_bit(t) of word
+// entry_word(t).
+struct Walk {
+  unsigned word;
+  int before;  // entries in the words below the lane's
+  int total;   // entries in all 32 words
+  __device__ __forceinline__ explicit Walk(unsigned w) : word(w) {
+    const int lane = threadIdx.x & 31;
+    int incl = __popc(w);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += v;
+    }
+    before = incl - __popc(w);
+    total = __shfl_sync(kFull, incl, 31);
+  }
+  // the word holding entry t (t < total): the last lane whose words below
+  // hold at most t entries; every lane of the warp calls it
+  __device__ __forceinline__ int entry_word(int t) const {
+    int w = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)
+      if (__shfl_sync(kFull, before, w + step) <= t) w += step;
+    return w;
+  }
+  // entry t's bit in word m of the walk, given m's words below: the bit
+  // with rank t - below among m's set bits
+  __device__ __forceinline__ static int entry_bit(unsigned m, int rank) {
+    int bit = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)
+      if (__popc(m & ((1u << (bit + step)) - 1u)) <= rank) bit += step;
+    return bit;
+  }
+  // the column of entry t of this walk over words w0.. (every lane calls
+  // it; t < total)
+  __device__ __forceinline__ int column(int w0, int t) const {
+    const int ew = entry_word(t);
+    return (w0 + ew) * 32 +
+           entry_bit(__shfl_sync(kFull, word, ew),
+                     t - __shfl_sync(kFull, before, ew));
+  }
+};
+
 // ---- K4f ---------------------------------------------------------------------
 
-// h0 = zf Win + bin, then layer 0's projection; a warp per row
+// h0 = zf Win + bin, row i's list of on-graph columns, then layer 0's
+// projection; a warp per row. Win and W come by cp.async while the warp
+// builds its row's list.
 __global__ void __launch_bounds__(32 * kInRows) gat_input_kernel(const Fwd p) {
-  __shared__ float win_s[kMaxF * D];
-  __shared__ float w_s[D * D];
+  __shared__ __align__(16) float win_s[kMaxF * D];
+  __shared__ __align__(16) float w_s[D * D];
   __shared__ float row_s[kInRows][D];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const float* lw = p.prm + layer_off(p.f, 0);
-  for (int idx = tid; idx < p.f * D; idx += 32 * kInRows) win_s[idx] = p.prm[idx];
-  for (int idx = tid; idx < D * D; idx += 32 * kInRows) w_s[idx] = lw[idx];
-  __syncthreads();
+  copy_to_shared(win_s, p.prm, p.f * D, 32 * kInRows);
+  copy_to_shared(w_s, lw, D * D, 32 * kInRows);
   const int i = blockIdx.x * kInRows + warp;
-  if (i >= p.z) return;
+  const bool row_ok = i < p.z;  // warp-uniform
+  if (row_ok) {
+    // the list: one ballot a word of 32 columns, 8 words' loads at once;
+    // lane L keeps word w0 + L
+    const float* adj_row = p.adj + (long)i * p.z;
+    unsigned* list = p.rows + (long)i * p.words;
+    for (int w0 = 0; w0 < p.words; w0 += 32) {
+      const int nw = min(32, p.words - w0);
+      unsigned mine = 0u;
+      for (int w = 0; w < nw; w += 8) {
+        float a[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int j = (w0 + w + u) * 32 + lane;
+          a[u] = j < p.z ? adj_row[j] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const unsigned m = __ballot_sync(kFull, a[u] > 0.f);
+          if (lane == w + u) mine = m;
+        }
+      }
+      if (lane < nw) list[w0 + lane] = mine;
+    }
+  }
+  copies_landed();
+  __syncthreads();
+  if (!row_ok) return;
   const float* bin = p.prm + (long)p.f * D;
   float hA = 0.f, hB = 0.f;
   for (int k = 0; k < p.f; ++k) {
@@ -258,121 +370,228 @@ __global__ void __launch_bounds__(32 * kInRows) gat_input_kernel(const Fwd p) {
   project_row(p, 0, i, hA, hB, row_s[warp], w_s, lw, lane);
 }
 
-// one layer: attention, elu, residual, LayerNorm, and the next layer's
-// projection; a warp per destination row
+// A cursor over row i's entries in index order, 32 at a time: batch() is
+// the number n of the batch's entries, and column() the column of entry
+// t0 + lane (lanes past n: the batch's last entry). A row with no entry
+// walks every column. Every lane of the warp calls each member.
+struct RowWalk {
+  const unsigned* list;
+  int words, z;
+  bool on;
+  int w0 = 0, t0 = 0;  // the walk's first word and the batch's first entry
+  Walk walk;
+  __device__ __forceinline__ RowWalk(const Fwd& p, const unsigned* l,
+                                     unsigned first, bool o)
+      : list(l), words(p.words), z(p.z), on(o), walk(group(0, first)) {
+    skip_empty();
+  }
+  // lane L's word of the group of 32 words from w (first: the group at 0)
+  __device__ __forceinline__ unsigned group(int w, unsigned first) const {
+    const int wl = w + (threadIdx.x & 31);
+    return wl >= words ? 0u
+           : !on       ? valid_bits(z, wl)
+           : w == 0    ? first
+                       : list[wl];
+  }
+  __device__ __forceinline__ void skip_empty() {
+    while (walk.total == 0 && w0 + 32 < words) {
+      w0 += 32;
+      walk = Walk(group(w0, 0u));
+    }
+  }
+  __device__ __forceinline__ int batch() const {
+    return max(0, min(32, walk.total - t0));
+  }
+  __device__ __forceinline__ int column() const {
+    return walk.column(w0, min(t0 + (int)(threadIdx.x & 31), walk.total - 1));
+  }
+  __device__ __forceinline__ void advance() {
+    t0 += 32;
+    if (t0 < walk.total || w0 + 32 >= words) return;
+    w0 += 32;
+    t0 = 0;
+    walk = Walk(group(w0, 0u));
+    skip_empty();
+  }
+};
+
+// one layer: attention over row i's entries, elu, residual, LayerNorm, and
+// the next layer's projection; a warp per destination row. An off-graph
+// score is -1e30 and its p = exp(-1e30 - max) an exact 0, so a walk over
+// the entries alone sums the same terms in the same order as one over
+// every column; a row with no entry has every score -1e30, max -1e30 and
+// every p 1, and walks every column.
 __global__ void __launch_bounds__(32 * kRows)
     gat_attn_kernel(const Fwd p, const int k) {
-  __shared__ float wh_s[kChunk][D + 1];
-  __shared__ float ed_s[kChunk][NH + 1];
-  __shared__ float p_s[kRows][NH][kChunk + 1];
-  __shared__ float wn_s[D * D];
+  __shared__ __align__(16) float wn_s[D * D];
   __shared__ float row_s[kRows][D];
+  __shared__ float p_s[kRows][NH][33];  // a batch's weights by head
+  __shared__ int j_s[kRows][32];        // a batch's columns
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int i = blockIdx.x * kRows + warp;
-  const bool row_ok = i < p.z;
+  const bool row_ok = i < p.z;  // warp-uniform
   const bool has_next = k + 1 < p.layers;
-  if (has_next) {
-    const float* nw = p.prm + layer_off(p.f, k + 1);
-    for (int idx = tid; idx < D * D; idx += 32 * kRows) wn_s[idx] = nw[idx];
-  }
+  if (has_next)  // the next layer's W lands while the walk runs
+    copy_to_shared(wn_s, p.prm + layer_off(p.f, k + 1), D * D, 32 * kRows);
   const long zd = (long)p.z * D, zh = (long)p.z * NH;
-  const float* WH = p.WH + k * zd;
-  const float* ES = p.ST + k * zh;
-  const float* ED = p.ST + (p.layers + k) * zh;
-  float* MX = p.ST + (2 * p.layers + k) * zh;
-  float* SM = p.ST + (3 * p.layers + k) * zh;
-  const float* adj_row = p.adj + (long)(row_ok ? i : 0) * p.z;
   const int hA = lane >> 4, hB = 2 + hA;
-
-  // pass 1: the row max per head, 16 lanes a head, j strided by 16
-  float es[NH], m[NH];
-  float mA = -INFINITY, mB = -INFINITY;
+  float oA = 0.f, oB = 0.f;
   if (row_ok) {
+    const float* WH = p.WH + k * zd;
+    const float* ED = p.ST + (p.layers + k) * zh;
+    const unsigned* list = p.rows + (long)i * p.words;
+    const unsigned first = lane < p.words ? list[lane] : 0u;
+    const long o = (long)i * D;
+    // the epilogue's operands, loaded before the walk
+    const float* hin = p.H + k * zd + o;
+    const float inA = hin[lane], inB = hin[lane + 32];
+    const float* sc = p.prm + layer_off(p.f, k) + D * D + 2 * D;
+    const float* bi = sc + D;
+    const float scA = sc[lane], scB = sc[lane + 32];
+    const float biA = bi[lane], biB = bi[lane + 32];
+    const float4 es4 = ldg4(p.ST + k * zh + (long)i * NH);
+    const float es[NH] = {es4.x, es4.y, es4.z, es4.w};
+    // a row whose words are all 0 has no entry
+    unsigned any = first;
+    for (int w = 32 + lane; w < p.words; w += 32) any |= list[w];
+    const bool on = __any_sync(kFull, any != 0u);
+    const int count = __reduce_add_sync(kFull, __popc(first));
+    // one batch (rung 2's rows): its scores stay in registers from the max
+    // to the sum
+    const bool one = on && p.words <= 32 && count <= 32;
+    const auto scores = [&](const float4& ed, float (&s)[NH]) {
 #pragma unroll
-    for (int h = 0; h < NH; ++h) es[h] = ES[(long)i * NH + h];
-    const float esA = pick(es, hA), esB = pick(es, hB);
-    for (int j = lane & 15; j < p.z; j += 16) {
-      const bool on = adj_row[j] > 0.f;
-      mA = fmaxf(mA, score(esA + ED[(long)j * NH + hA], on));
-      mB = fmaxf(mB, score(esB + ED[(long)j * NH + hB], on));
-    }
-    mA = max16(mA);
-    mB = max16(mB);
-    m[0] = __shfl_sync(kFull, mA, 0);
-    m[1] = __shfl_sync(kFull, mA, 16);
-    m[2] = __shfl_sync(kFull, mB, 0);
-    m[3] = __shfl_sync(kFull, mB, 16);
-  }
+      for (int h = 0; h < NH; ++h) s[h] = score(es[h] + pick(ed, h), on);
+    };
 
-  // pass 2: p = exp(s - max) by chunks of source rows, computed once per
-  // (row, head, j) into shared memory, then summed per feature
-  float accA = 0.f, accB = 0.f, lA = 0.f, lB = 0.f;
-  for (int j0 = 0; j0 < p.z; j0 += kChunk) {
-    const int n = min(kChunk, p.z - j0);
-    __syncthreads();
-    for (int idx = tid; idx < kChunk * D; idx += 32 * kRows) {
-      const int r = idx / D, c = idx % D;
-      wh_s[r][c] = r < n ? WH[(long)(j0 + r) * D + c] : 0.f;
-    }
-    for (int idx = tid; idx < kChunk * NH; idx += 32 * kRows) {
-      const int r = idx / NH, h = idx % NH;
-      ed_s[r][h] = r < n ? ED[(long)(j0 + r) * NH + h] : 0.f;
-    }
-    __syncthreads();
-    if (!row_ok) continue;
+    // the row max per head (-1e30 for a row with no entry): over the one
+    // batch's entries, or else over every column in turn, lane L column
+    // 32 c + L of word c, kScan words' e_dst loaded at once
+    float m[NH], s1[NH];
+    int j1 = 0;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int q = lane + 32 * half;
-      const bool in = q < n;
-      const bool on = in && adj_row[j0 + q] > 0.f;
+    for (int h = 0; h < NH; ++h) m[h] = on ? -INFINITY : kNeg;
+    if (one) {
+      const RowWalk rw(p, list, first, on);
+      j1 = rw.column();
+      scores(ldg4(ED + (long)j1 * NH), s1);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) m[h] = lane < count ? s1[h] : -INFINITY;
+    } else if (on) {
+      for (int c0 = 0; c0 < p.words; c0 += kScan) {
+        unsigned wd[kScan];
+        float4 ed[kScan];
+#pragma unroll
+        for (int u = 0; u < kScan; ++u) {
+          const int c = min(c0 + u, p.words - 1), j = 32 * c + lane;
+          wd[u] = c0 + u < p.words ? list[c] : 0u;
+          ed[u] = ldg4(ED + (long)min(j, p.z - 1) * NH);
+        }
+#pragma unroll
+        for (int u = 0; u < kScan; ++u) {
+          float s[NH];
+          scores(ed[u], s);
+          if ((wd[u] >> lane) & 1u) {
+#pragma unroll
+            for (int h = 0; h < NH; ++h) m[h] = fmaxf(m[h], s[h]);
+          }
+        }
+      }
+    }
+    if (on) {
 #pragma unroll
       for (int h = 0; h < NH; ++h)
-        p_s[warp][h][q] = in ? expf(score(es[h] + ed_s[q][h], on) - m[h]) : 0.f;
+        m[h] = max16(fmaxf(m[h], __shfl_xor_sync(kFull, m[h], 16)));
     }
-    __syncwarp();
-    for (int jj = 0; jj < n; ++jj) {
-      const float pa = p_s[warp][hA][jj], pb = p_s[warp][hB][jj];
-      accA = fmaf(pa, wh_s[jj][lane], accA);
-      accB = fmaf(pb, wh_s[jj][lane + 32], accB);
-      lA += pa;
-      lB += pb;
-    }
-    __syncwarp();
-  }
-  if (!row_ok) return;
 
-  // epilogue: elu, residual, LayerNorm
-  const long o = (long)i * D;
-  const float gA = accA / lA, gB = accB / lB;
-  float* G = p.GX + k * zd;
-  float* XH = p.GX + (p.layers + k) * zd;
-  G[o + lane] = gA;
-  G[o + lane + 32] = gB;
-  if ((lane & 15) == 0) {
-    MX[(long)i * NH + hA] = mA;
-    MX[(long)i * NH + hB] = mB;
-    SM[(long)i * NH + hA] = lA;
-    SM[(long)i * NH + hB] = lB;
+    // p = exp(s - max) of a batch's entries into shared memory, then in
+    // entry order their sum and sum_j p Wh_j per feature, the batch's Wh
+    // rows all loaded before the FMAs; the next batch's columns and e_dst
+    // are fetched in between
+    float accA = 0.f, accB = 0.f, lA = 0.f, lB = 0.f;
+    const auto stage = [&](int n, int j, const float (&s)[NH]) {
+      if (lane < n) {
+#pragma unroll
+        for (int h = 0; h < NH; ++h) p_s[warp][h][lane] = expf(s[h] - m[h]);
+        j_s[warp][lane] = j;
+      }
+      __syncwarp();
+    };
+    const auto sum = [&](int n) {
+      // every lane loads 32 rows, the last entry's again past n: loads
+      // under a predicate cost registers and spills (H100, PERF.md)
+      float va[32], vb[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const float* wh = WH + (long)j_s[warp][min(e, n - 1)] * D;
+        va[e] = wh[lane];
+        vb[e] = wh[lane + 32];
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        if (e < n) {
+          const float pa = p_s[warp][hA][e], pb = p_s[warp][hB][e];
+          accA = fmaf(pa, va[e], accA);
+          accB = fmaf(pb, vb[e], accB);
+          lA += pa;
+          lB += pb;
+        }
+      }
+      __syncwarp();
+    };
+    if (one) {
+      stage(count, j1, s1);
+      sum(count);
+    } else {
+      RowWalk rw(p, list, first, on);
+      int j = rw.column();
+      float4 ed = ldg4(ED + (long)j * NH);
+      for (int n = rw.batch(); n > 0; n = rw.batch()) {
+        float s[NH];
+        scores(ed, s);
+        stage(n, j, s);
+        rw.advance();
+        j = rw.column();
+        ed = ldg4(ED + (long)j * NH);
+        sum(n);
+      }
+    }
+
+    // epilogue: elu, residual, LayerNorm
+    const float mA = hA == 0 ? m[0] : m[1], mB = hA == 0 ? m[2] : m[3];
+    const float gA = accA / lA, gB = accB / lB;
+    float* G = p.GX + k * zd;
+    float* XH = p.GX + (p.layers + k) * zd;
+    G[o + lane] = gA;
+    G[o + lane + 32] = gB;
+    if ((lane & 15) == 0) {
+      float* MX = p.ST + (2 * p.layers + k) * zh;
+      float* SM = p.ST + (3 * p.layers + k) * zh;
+      MX[(long)i * NH + hA] = mA;
+      MX[(long)i * NH + hB] = mB;
+      SM[(long)i * NH + hA] = lA;
+      SM[(long)i * NH + hB] = lB;
+    }
+    const float yA = gA > 0.f ? gA : expf(fminf(gA, 0.f)) - 1.f;
+    const float yB = gB > 0.f ? gB : expf(fminf(gB, 0.f)) - 1.f;
+    const float xA = inA + yA, xB = inB + yB;
+    const float mu = sum32(xA + xB) / D;
+    const float var = fmaxf(sum32(xA * xA + xB * xB) / D - mu * mu, 0.f);
+    const float r = 1.f / sqrtf(var + kLnEps);
+    const float xhA = (xA - mu) * r, xhB = (xB - mu) * r;
+    oA = xhA * scA + biA;
+    oB = xhB * scB + biB;
+    XH[o + lane] = xhA;
+    XH[o + lane + 32] = xhB;
+    if (lane == 0) p.RS[(long)k * p.z + i] = r;
+    float* hout = p.H + (k + 1) * zd + o;
+    hout[lane] = oA;
+    hout[lane + 32] = oB;
   }
-  const float yA = gA > 0.f ? gA : expf(fminf(gA, 0.f)) - 1.f;
-  const float yB = gB > 0.f ? gB : expf(fminf(gB, 0.f)) - 1.f;
-  const float* hin = p.H + k * zd + o;
-  const float xA = hin[lane] + yA, xB = hin[lane + 32] + yB;
-  const float mu = sum32(xA + xB) / D;
-  const float var = fmaxf(sum32(xA * xA + xB * xB) / D - mu * mu, 0.f);
-  const float r = 1.f / sqrtf(var + kLnEps);
-  const float xhA = (xA - mu) * r, xhB = (xB - mu) * r;
-  const float* sc = p.prm + layer_off(p.f, k) + D * D + 2 * D;
-  const float* bi = sc + D;
-  const float oA = xhA * sc[lane] + bi[lane];
-  const float oB = xhB * sc[lane + 32] + bi[lane + 32];
-  XH[o + lane] = xhA;
-  XH[o + lane + 32] = xhB;
-  if (lane == 0) p.RS[(long)k * p.z + i] = r;
-  float* hout = p.H + (k + 1) * zd + o;
-  hout[lane] = oA;
-  hout[lane + 32] = oB;
-  if (has_next)
+  if (!has_next) return;  // block-uniform
+  copies_landed();
+  __syncthreads();
+  if (row_ok)
     project_row(p, k + 1, i, oA, oB, row_s[warp], wn_s,
                 p.prm + layer_off(p.f, k + 1), lane);
 }
@@ -421,44 +640,6 @@ __global__ void __launch_bounds__(32 * kListWarps)
     cols[(long)z * nw + strip] = ~f & valid_bits(z, strip);
   }
 }
-
-// The entries of up to 32 words of a list, lane L holding word L (0 past
-// the list), in index order: entry t is bit entry_bit(t) of word
-// entry_word(t).
-struct Walk {
-  unsigned word;
-  int before;  // entries in the words below the lane's
-  int total;   // entries in all 32 words
-  __device__ __forceinline__ explicit Walk(unsigned w) : word(w) {
-    const int lane = threadIdx.x & 31;
-    int incl = __popc(w);
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(kFull, incl, off);
-      if (lane >= off) incl += v;
-    }
-    before = incl - __popc(w);
-    total = __shfl_sync(kFull, incl, 31);
-  }
-  // the word holding entry t (t < total): the last lane whose words below
-  // hold at most t entries; every lane of the warp calls it
-  __device__ __forceinline__ int entry_word(int t) const {
-    int w = 0;
-#pragma unroll
-    for (int step = 16; step > 0; step >>= 1)
-      if (__shfl_sync(kFull, before, w + step) <= t) w += step;
-    return w;
-  }
-  // entry t's bit in word m of the walk, given m's words below: the bit
-  // with rank t - below among m's set bits
-  __device__ __forceinline__ static int entry_bit(unsigned m, int rank) {
-    int bit = 0;
-#pragma unroll
-    for (int step = 16; step > 0; step >>= 1)
-      if (__popc(m & ((1u << (bit + step)) - 1u)) <= rank) bit += step;
-    return bit;
-  }
-};
 
 // ---- K4b: the passes --------------------------------------------------------
 
@@ -831,7 +1012,9 @@ long ananke_gat_param_size(int f, int layers) { return layer_off(f, layers); }
 int ananke_gat_bwd_tile_rows() { return kTile; }
 
 // K4f on `stream`: the encoder's forward, its output in H[layers] and the
-// residuals the backward reads in H, WH, ST, GX, RS (shapes as struct Fwd).
+// residuals the backward reads in H, WH, ST, GX, RS (shapes as struct Fwd;
+// RS holds layers * z floats, then the lists of the graph's entries, z *
+// ceil(z / 32) words).
 // Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
 // for widths this file was not compiled for.
 int ananke_gat_forward(const void* zf, const void* adj, const void* prm,
@@ -848,6 +1031,8 @@ int ananke_gat_forward(const void* zf, const void* adj, const void* prm,
   p.GX = static_cast<float*>(GX);
   p.RS = static_cast<float*>(RS);
   p.z = z; p.f = f; p.layers = layers;
+  p.rows = reinterpret_cast<unsigned*>(p.RS + (long)layers * z);
+  p.words = (z + 31) / 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   gat_input_kernel<<<(z + kInRows - 1) / kInRows, 32 * kInRows, 0, s>>>(p);
   cudaError_t err = cudaGetLastError();

@@ -16,6 +16,15 @@ over the neighbours, elu and the residual, and LayerNorm with flax's
 statistics (var = E[x^2] - E[x]^2, eps 1e-6 inside the rsqrt). A row with
 no neighbour at all attends uniformly over every zone, as there.
 
+Both kernels walk the graph's entries alone: an off-graph term of the
+softmax is an exact 0, so the sums over the entries in index order are the
+sums over every column. K4f's first grid (the input Dense and layer 0's
+projection) also writes each row's on-graph columns as bitmask words
+(:func:`fwd_list_words`) into the tail of its 1/std residual; then one
+attention grid a layer, a warp a destination row, walks the row's entries.
+K4b builds its own lists of rows and columns in a grid of its own, then
+three grids a layer and one slab sum.
+
 Each wrapper takes its plain version for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises (widths it is not compiled for, a
 refused launch); there is no fallback. ``.launches`` counts the wrapper's
@@ -178,6 +187,15 @@ def bwd_list_words(z) -> int:
     return 2 * z * words + words
 
 
+def fwd_list_words(z) -> int:
+    """32-bit words of K4f's lists of the graph's entries at ``z`` zones
+    (``Fwd::rows`` in ``csrc/fused_gat.cu``), which the wrapper puts after
+    the 1/std residual: each row's on-graph columns as a bitmask of
+    ceil(z / 32) words, the layout of the row half of K4b's lists. A row
+    whose words are all 0 has no entry."""
+    return z * -(-z // 32)
+
+
 def _kernel_device(name, zf, Z, F, D, heads, num_layers):
     """True for a CUDA tensor the kernel takes, False for a CPU tensor;
     raises for anything else."""
@@ -205,7 +223,12 @@ def gat_forward_fused(zf, adj, flat, heads, num_layers):
     """The encoder forward. Arguments as :func:`gat_forward_reference`; on
     CUDA the kernel K4f. Returns ``(out (Z, D), residuals)``: on CUDA the
     packed parameters and the forward's saved activations, which
-    :func:`gat_backward_fused` reads; on the CPU ``None``."""
+    :func:`gat_backward_fused` reads; on the CPU ``None``. The residuals
+    are ``(prm, H (L + 1, Z, D), WH (L, Z, D), ST (4, L, Z, heads), GX (2,
+    L, Z, D), RS)``: each layer's input (``H[L]`` the output), Wh, e_src,
+    e_dst, the row max and sum per head, the attention output and the
+    normalised x; ``RS`` is flat, ``L * Z`` floats of 1/std, then the
+    graph's entries (:func:`fwd_list_words` words)."""
     Z, F, D = _check("gat_forward_fused", zf, adj, flat, heads, num_layers)
     if not _kernel_device("gat_forward_fused", zf, Z, F, D, heads,
                           num_layers):
@@ -219,7 +242,7 @@ def gat_forward_fused(zf, adj, flat, heads, num_layers):
                                        device=zf.device)
     L = num_layers
     res = (prm, empty(L + 1, Z, D), empty(L, Z, D), empty(4, L, Z, heads),
-           empty(2, L, Z, D), empty(L, Z))
+           empty(2, L, Z, D), empty(L * Z + fwd_list_words(Z)))
     ops = [zf.contiguous(), adj.contiguous(), *res]
     stream = torch.cuda.current_stream(zf.device).cuda_stream
     with torch.cuda.device(zf.device):
@@ -318,7 +341,7 @@ def zone_gat_fused(zone_feats, adj, zone_gat, *, heads, num_layers,
 
 
 __all__ = [
-    "flatten_gat_params", "kernels_fit", "bwd_list_words",
+    "flatten_gat_params", "kernels_fit", "fwd_list_words", "bwd_list_words",
     "gat_forward_reference", "gat_forward_fused",
     "gat_backward_reference", "gat_backward_fused",
     "zone_gat_fused", "KERNELS", "PLAIN",

@@ -265,17 +265,17 @@ zone-graph kernels' libraries (``fused_gat.cu``: K4f, K4b;
 ``edge_segment.cu``: the CSR forward, K9c, K9e), each DIR's beside them
 (``DIR+PROBE`` a probe variant, as for ``--ab-train``: K9c's or the CSR
 forward's gathers, the forward's max walk, K9e's table adds or the
-dependence of its loads on the ids, K4b's walk, every K4b grid's work or
-``expf`` taken out), then prints ptxas's
-registers and spills of every build, the bits of K4f's output, K4b's
-every gradient, the CSR forward's out and lse, K9c's three gradients and
-K9e's sums at GAT_SHAPES, GAT_GRAPH_SHAPES, EDGE_SHAPES, EDGE_HUB_SHAPE and
-SEGMENT_SHAPES against this checkout, the device time of one call of each
-(a CUDA-graph replay; K4b also eager and at a dense adjacency) on rung 2's
-world and the Z=32,768 sparse world in the order DIR..., this, this,
-...DIR, and this checkout's K4b, K9c and K9e grid by grid under
-``torch.profiler``. ``--readings encoder``, ``edge`` and ``segment``
-build only these two libraries too.
+dependence of its loads on the ids, K4b's walk, every K4b grid's work,
+K4f's walk or its epilogue's projection, or ``expf`` taken out), then
+prints ptxas's registers and spills of every build, the bits of K4f's
+output and every residual, K4b's every gradient, the CSR forward's out and
+lse, K9c's three gradients and K9e's sums at GAT_SHAPES, GAT_GRAPH_SHAPES,
+EDGE_SHAPES, EDGE_HUB_SHAPE and SEGMENT_SHAPES against this checkout, the
+device time of one call of each (a CUDA-graph replay; K4f and K4b also at
+a dense adjacency, K4b eager) on rung 2's world and the Z=32,768 sparse
+world in the order DIR..., this, this, ...DIR, and this checkout's K4f,
+K4b, K9c and K9e grid by grid under ``torch.profiler``. ``--readings
+encoder``, ``edge`` and ``segment`` build only these two libraries too.
 ``python3 chip_smoke.py --ab-k8 DIR [DIR ...]`` builds only K8's library
 (``fused_rhs.cu``) and the serving kernels' (``fused_step.cu``, where K8a
 lives), each DIR's beside them (``DIR+PROBE`` a probe variant, as for
@@ -1818,6 +1818,10 @@ def ab_dopri5(dev, built, handles):
 # - ``k9enoadd``, ``k9epred`` (``--ab-gat``): K9e's adds into its
 #   shared-memory tables, and the dependence of its value loads on the ids
 #   (taken out before its redesign, put back since).
+# - ``k4fchunk``, ``k4fnoproj`` (``--ab-gat``): K4f's attention walks past
+#   their first 64 columns (before its redesign) or its sums' walk past 64
+#   entries of each 32-word group (since), and the next layer's projection
+#   in its attention grid's epilogue.
 PROBES = {
     # no products: each mma.sync becomes one add that keeps its operands
     # (and the loads behind them) live
@@ -1942,6 +1946,20 @@ PROBES = {
     "k9epred": [("edge_segment.cu", r"b\.v\[u\] = cv && u < left \?",
                  "b.v[u] = (__shfl_sync(kFull, b.id, u) != -2) & cv && "
                  "u < left ?")],
+    # K4f's attention grid walks the first 64 columns of each row (before
+    # its redesign: both passes over all Z) or its sums' walk over 64
+    # entries of each 32-word group of its list (since)
+    "k4fchunk": [("fused_gat.cu",
+                  r"(?:(for \(int j = lane & 15; j < |"
+                  r"for \(int j0 = 0; j0 < )(p\.z)|"
+                  r"(max\(0, min\(32, )(walk\.total))(;| - t0\))",
+                  r"\g<1>\g<3>min(\g<2>\g<4>, 64)\g<5>")],
+    # K4f's attention grid does not project its output for the next layer:
+    # what the epilogue's project_row costs (its W still copied)
+    "k4fnoproj": [("fused_gat.cu",
+                   r"(if \()(?:has_next|row_ok)(\)\s*project_row\(p, "
+                   r"k \+ 1)",
+                   r"\g<1>false\g<2>")],
     # no expf in the zone-graph kernels (edge_segment.cu, fused_gat.cu):
     # the identity in its place
     "noexp": [(f, pattern, repl) for f in ("edge_segment.cu", "fused_gat.cu")
@@ -2091,6 +2109,17 @@ def ab_train(dev, built, handles):
               f"{min(NUM_SLABS, tiles)} CTAs", flush=True)
 
 
+def gat_fwd_outputs(out, res, num_layers, z):
+    """(name, tensor) of K4f's output and every residual it writes
+    (``gat_forward_fused``'s): each layer's input H, WH, ST (e_src, e_dst,
+    row max, row sum), GX (attention output, normalised x) and RS's first
+    ``num_layers * z`` floats (1 / std; the rest is the forward's lists of
+    the graph's entries, which a checkout from before them leaves
+    unwritten)."""
+    return [("out", out), ("H", res[1]), ("WH", res[2]), ("ST", res[3]),
+            ("GX", res[4]), ("RS", res[5].reshape(-1)[:num_layers * z])]
+
+
 # the libraries ``--ab-gat`` builds of every checkout: the dense zone
 # encoder's (K4f, K4b) and the CSR edge kernels' with the segment sum (the
 # CSR forward, K9c, K9e)
@@ -2103,19 +2132,21 @@ def ab_gat(dev, handles):
     :data:`PROBES`; its ``fused_gat.cu`` and ``edge_segment.cu`` and
     headers, built with the port's flags and C interface; ``handles`` from
     :func:`start_build`, two a DIR): ptxas's registers and spills per
-    kernel, the bits of K4f's output and K4b's every gradient at
-    GAT_SHAPES and GAT_GRAPH_SHAPES, of the CSR forward and of K9c's d_wh,
+    kernel, the bits of K4f's output and every residual
+    (:func:`gat_fwd_outputs`) and K4b's every gradient at GAT_SHAPES and
+    GAT_GRAPH_SHAPES, of the CSR forward and of K9c's d_wh,
     d_recv and d_send (fed this checkout's forward) at checks.EDGE_SHAPES
     and the hub graph, and of K9e at checks.SEGMENT_SHAPES; then the
     device time of one call (a CUDA-graph replay) of K4f and K4b on rung
-    2's zone world (Z = 500, 2 layers; K4b also eager and at a dense
-    adjacency), of the CSR forward and K9c on the sparse world (Z =
+    2's zone world (Z = 500, 2 layers; both also at a dense adjacency, K4b
+    also eager), of the CSR forward and K9c on the sparse world (Z =
     32,768) and of K9e at rung 1, in the order DIR..., this, this,
-    ...DIR; then this checkout's K4b, K9c and K9e under torch.profiler,
-    device time by kernel name; then phase 17's rung-2 training step and phase
-    33's sparse training step with each checkout's kernels, in the same
-    order (the rung-2 step also runs this checkout's day and decode
-    kernels, whose libraries build beside the others)."""
+    ...DIR; then this checkout's K4f, K4b, K9c and K9e under
+    torch.profiler, device time by kernel name; then phase 17's rung-2
+    training step and phase 33's sparse training step with each
+    checkout's kernels, in the same order (the rung-2 step also runs this
+    checkout's day and decode kernels, whose libraries build beside the
+    others)."""
     from ananke_abm_tpu_torch.models.gnn_embed.train import (
         GATODEConfig,
         build_fused_loss_fn,
@@ -2164,8 +2195,8 @@ def ab_gat(dev, handles):
             fwd = {w: run(w, fg.gat_forward_fused, *args) for w in libs}
             tag = (f"Z={z} F={f} layers={num_layers} isolated={isolated} "
                    f"density={dens[0]}")
-            report(f"K4f A/B {tag}", {w: [("out", o)]
-                                      for w, (o, _) in fwd.items()})
+            report(f"K4f A/B {tag}", {w: gat_fwd_outputs(o, r, num_layers, z)
+                                      for w, (o, r) in fwd.items()})
             report(f"K4b A/B {tag}", {
                 w: gat_grad_outputs(run(w, fg.gat_backward_fused, *bargs,
                                         fwd[w][1]), num_layers)
@@ -2207,6 +2238,8 @@ def ab_gat(dev, handles):
         timed = [
             ("K4f on rung 2's world (Z=500, 2 layers)", graph_ms,
              lambda w: run(w, fg.gat_forward_fused, *main_args), 50),
+            ("K4f at a dense adjacency (Z=500, 2 layers)", graph_ms,
+             lambda w: run(w, fg.gat_forward_fused, *dense_args), 20),
             ("K4b on rung 2's world (Z=500, 2 layers)", graph_ms,
              lambda w: run(w, fg.gat_backward_fused,
                            *bwd(main_args, main_g, res[w]["main"])), 50),
@@ -2234,7 +2267,7 @@ def ab_gat(dev, handles):
                               for w, t in times.items())
                   + f" ms a call [card {card}]", flush=True)
         # this checkout's grids one by one: device time by kernel name
-        for label, _, call, _ in (timed[1], timed[5], timed[6]):
+        for label, _, call, _ in (timed[0], timed[2], timed[6], timed[7]):
             device_busy(f"{label}, 10 calls [this]",
                         lambda: [call("this") for _ in range(10)], card)
     # end to end, each checkout's zone-graph kernels in turn: phase 17's

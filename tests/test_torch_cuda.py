@@ -198,7 +198,10 @@ def test_kernel_rejects_widths_it_is_not_compiled_for(cuda):
 
 def _readings(u, v):
     """(mean |d| / mean |ref|, max |d| / max |ref|, 1 - cosine) of ``u``
-    against the reference ``v``."""
+    against the reference ``v``; 0 each where they are equal (a reference
+    of zeros, as a_src's gradient at one zone, would read 0 / 0)."""
+    if torch.equal(u, v):
+        return 0.0, 0.0, 0.0
     u, v = u.double(), v.double()
     d = (u - v).abs()
     cos = torch.dot(u.flatten(), v.flatten()) / (u.norm() * v.norm())
@@ -614,24 +617,51 @@ def test_encoder_kernels_match_plain_versions(cuda, num_zones, num_layers,
 
 @pytest.mark.parametrize("num_zones,num_layers,isolated,density", [
     (500, 2, None, 1.0), (300, 2, [0, 17, 150], 0.1), (129, 1, [5], 0.02),
+    (2_048, 2, None, 1.0), (1, 2, None, 0.1), (70, 2, [0, 33, 69], 0.1),
 ])
 def test_encoder_kernels_at_dense_graphs_and_rows_without_entries(
         cuda, num_zones, num_layers, isolated, density):
-    """K4b's lists of the graph's entries full length (every adjacency
-    entry on) and rows with no entry at Z > 64, where every column's list
-    takes those rows: the same bounds, control and repeats."""
+    """The kernels' lists of the graph's entries full length (every
+    adjacency entry on; at Z = 2048 a row's list runs past 32 words, so the
+    walks loop), one zone, and rows with no entry at Z > 64 and at a Z that
+    is not a multiple of 32, where every column's list takes those rows:
+    the same bounds, control and repeats."""
     _encoder_case(cuda, num_zones, num_layers, isolated, density)
 
 
-def _encoder_case(cuda, num_zones, num_layers, isolated, density):
+@pytest.mark.parametrize("num_zones,num_layers,hub", [
+    (100, 2, 3), (70, 1, 69),
+])
+def test_encoder_kernels_at_a_long_row_beside_self_loops(
+        cuda, num_zones, num_layers, hub):
+    """A row of more than 32 entries (K4f's max by its scan of every
+    column, its sums in two batches) beside rows whose only entry is the
+    self loop: the same bounds, control and repeats."""
+    _encoder_case(cuda, num_zones, num_layers, None, 0.0, hub=hub)
+
+
+def _list_words(adj):
+    """Each row's on-graph columns as ceil(Z / 32) bitmask words, as int64
+    holding the unsigned words."""
+    z = adj.shape[0]
+    words = -(-z // 32)
+    on = torch.zeros(z, 32 * words, dtype=torch.int64, device=adj.device)
+    on[:, :z] = (adj > 0).long()
+    bits = 2 ** torch.arange(32, dtype=torch.int64, device=adj.device)
+    return (on.view(z, words, 32) * bits).sum(-1)
+
+
+def _encoder_case(cuda, num_zones, num_layers, isolated, density, hub=None):
     args, g = gat_operands(num_zones, 7, num_layers, cuda, seed=num_zones,
                            isolated=isolated, density=density)
+    if hub is not None:
+        args[1][hub, :48] = 1.0
     bargs = (*args[:3], g, *args[3:])
     with torch.no_grad():
         before = (fg.gat_forward_fused.launches,
                   fg.gat_backward_fused.launches)
         out, res = fg.gat_forward_fused(*args)
-        again, _ = fg.gat_forward_fused(*args)
+        again, res2 = fg.gat_forward_fused(*args)
         got = fg.gat_backward_fused(*bargs, res)
         got2 = fg.gat_backward_fused(*bargs, res)
         torch.cuda.synchronize()
@@ -647,6 +677,13 @@ def _encoder_case(cuda, num_zones, num_layers, isolated, density):
         control_g = tf32_control(plain, *bargs)
     assert out.shape == (num_zones, 64)
     assert torch.equal(out, again)
+    # every residual repeats bit for bit, and RS's tail holds each row's
+    # on-graph columns
+    assert all(torch.equal(u.view(torch.int32), v.view(torch.int32))
+               for u, v in zip(res, res2))
+    lists = res[5][num_layers * num_zones:].view(torch.int32)
+    assert torch.equal(lists.long().view(num_zones, -1) & 0xFFFFFFFF,
+                       _list_words(args[1]))
     assert all(torch.equal(u, v) for u, v in zip(got, got2))
     params = lambda grads: [t for _, t in gat_grad_outputs(grads,
                                                            num_layers)]

@@ -29,18 +29,33 @@ CASES = [
                  id="narrow-isolated-row"),
     pytest.param(dict(FULL, num_layers=2, isolated=0),
                  id="full-isolated-row"),
+    # the graphs the kernels' walks over a row's entries must get right, at
+    # a Z that is not a multiple of 32: a row of more than 32 entries, a row
+    # whose only entry is its self loop and a row with no entry
+    pytest.param(dict(FULL, Z=70, num_layers=2, walk=True),
+                 id="full-long-self-and-empty-rows"),
+    pytest.param(dict(NARROW, Z=70, num_layers=1, walk=True),
+                 id="narrow-long-self-and-empty-rows"),
 ]
 
 
-def _setup(Z, F, feat, heads, num_layers, isolated=None, seed=0):
-    """Zone features, adjacency (self loops; row ``isolated`` zeroed), the
-    flax parameters and the port's module holding them."""
+def _setup(Z, F, feat, heads, num_layers, isolated=None, walk=False,
+           seed=0):
+    """Zone features, adjacency (self loops; row ``isolated`` zeroed; with
+    ``walk``, row 0 on at its first 40 columns, row 1 at its self loop
+    alone and row 2 at none), the flax parameters and the port's module
+    holding them."""
     rng = np.random.default_rng(seed)
     zf = rng.normal(size=(Z, F)).astype(np.float32)
     adj = (rng.uniform(size=(Z, Z)) < 0.3).astype(np.float32)
     np.fill_diagonal(adj, 1.0)
     if isolated is not None:
         adj[isolated] = 0.0
+    if walk:
+        adj[0, :40] = 1.0
+        adj[1] = 0.0
+        adj[1, 1] = 1.0
+        adj[2] = 0.0
     gat = JaxZoneGAT(features=feat, heads=heads, num_layers=num_layers)
     gp = gat.init(jax.random.PRNGKey(seed), jnp.asarray(zf),
                   jnp.asarray(adj))["params"]
@@ -173,6 +188,14 @@ def test_refusals(bad, match):
         call = lambda: fg.gat_forward_fused(tzf, tadj[:-1], flat, 2, 1)
     with pytest.raises((ValueError, TypeError), match=match):
         call()
+
+
+@pytest.mark.parametrize("z,words", [(1, 1), (32, 1), (33, 2), (70, 3),
+                                     (500, 16), (16_384, 512)])
+def test_fwd_list_words_hold_each_rows_columns(z, words):
+    """K4f's lists of the graph's entries, after its 1/std residual: a
+    bitmask of ceil(z / 32) words for each row's on-graph columns."""
+    assert fg.fwd_list_words(z) == z * words
 
 
 @pytest.mark.parametrize("z,words", [(1, 1), (32, 1), (33, 2), (500, 16),
