@@ -38,12 +38,13 @@ from ananke_abm_tpu_torch.models.gnn_embed.rollout import (
 from ananke_abm_tpu_torch.ops.segment import edges_from_adj
 from ananke_abm_tpu_torch.utils.cfg import ensure_dir
 from ananke_abm_tpu_torch.utils.ckpt import (
-    OPT_STATE_FORMAT,
     adamw_state,
     load_adamw_state,
     load_checkpoint,
+    load_training_checkpoint,
     save_checkpoint,
 )
+from ananke_abm_tpu_torch.utils.optim import ClippedAdamW
 
 
 @dataclasses.dataclass
@@ -197,46 +198,6 @@ def serve(
         "seconds": elapsed,
         "out": out_npz,
     }
-
-
-class ClippedAdamW:
-    """``optax.chain(clip_by_global_norm(grad_clip), adamw(lr,
-    weight_decay))`` on a model's ``.grad``s.
-
-    The clip is optax's: when the global norm ``g`` of all gradients
-    reaches ``max_norm``, each gradient becomes ``grad / g * max_norm``
-    (``torch.nn.utils.clip_grad_norm_`` would add 1e-6 to ``g``). AdamW
-    takes optax's defaults: betas (0.9, 0.999), eps 1e-8, decoupled weight
-    decay ``config.weight_decay`` (torch's own default is 1e-2). The clip
-    decides on the device: no host sync.
-    """
-
-    def __init__(self, params, lr: float, weight_decay: float,
-                 max_norm: float):
-        self.params = list(params)
-        self.max_norm = float(max_norm)
-        self.adamw = torch.optim.AdamW(self.params, lr=lr,
-                                       betas=(0.9, 0.999), eps=1e-8,
-                                       weight_decay=weight_decay)
-
-    @property
-    def param_groups(self):
-        return self.adamw.param_groups
-
-    def zero_grad(self):
-        self.adamw.zero_grad(set_to_none=True)
-
-    @torch.no_grad()
-    def step(self):
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        keep = g_norm < self.max_norm
-        for g in grads:
-            g.copy_(torch.where(keep, g, g / g_norm * self.max_norm))
-        self.adamw.step()
 
 
 def make_optimizer(model, config: GATODEConfig) -> ClippedAdamW:
@@ -474,15 +435,7 @@ def _resume_checkpoint(path, config, run):
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"resume=True but no {path}; run with ckpt_every to produce one")
-    refuse = (f"{path} holds an optax optimizer state (a checkpoint of the "
-              "JAX package); the port resumes only the checkpoints it wrote")
-    try:
-        ck = load_checkpoint(path)
-    except ModuleNotFoundError as e:  # optax's classes, where optax is absent
-        raise ValueError(f"{refuse} (unpickling needs {e.name!r})") from e
-    opt = ck.get("opt_state")
-    if not (isinstance(opt, dict) and opt.get("format") == OPT_STATE_FORMAT):
-        raise ValueError(refuse)
+    ck = load_training_checkpoint(path)
     # everything but the epoch target must match, or the continued run
     # silently diverges from the uninterrupted one
     got = {k: ck.get(k) for k in run}

@@ -8,8 +8,10 @@ file first and is renamed into place, so a crash never leaves a torn file.
 
 The one exception is a training run's optimizer state: the JAX package
 pickles optax's state objects, which this package cannot rebuild without
-optax; this package writes its AdamW moments as numpy under
-:data:`OPT_STATE_FORMAT` (:func:`adamw_state`, :func:`load_adamw_state`).
+optax (where optax is absent they load as :class:`Unavailable`, so the
+rest of such a checkpoint still serves); this package writes its AdamW
+moments as numpy under :data:`OPT_STATE_FORMAT` (:func:`adamw_state`,
+:func:`load_adamw_state`).
 """
 from __future__ import annotations
 
@@ -43,11 +45,43 @@ def save_checkpoint(obj: dict, path: str):
     os.replace(tmp, path)
 
 
+# the JAX stack's packages, whose classes a checkpoint of the JAX package
+# may name (optax's optimizer states); the card's machine has none of them
+_JAX_STACK = ("optax", "chex", "flax", "jax", "jaxlib")
+
+
+class Unavailable(tuple):
+    """Stands in for an object whose class lives in a package of the JAX
+    stack that this machine lacks: the arguments it was rebuilt from, as a
+    tuple (``.name``: the class's dotted name)."""
+
+    name = "?"
+
+    def __new__(cls, *args, **kwargs):
+        return super().__new__(cls, args)
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        try:
+            return super().find_class(module, name)
+        except ModuleNotFoundError:
+            if module.split(".")[0] not in _JAX_STACK:
+                raise
+        return type(name, (Unavailable,), {"name": f"{module}.{name}"})
+
+
 def load_checkpoint(path: str) -> dict:
-    """Load a checkpoint written by either package. Unpickling runs code
+    """Load a checkpoint written by either package. Where the JAX stack is
+    absent (the card's machine), the objects of its classes in a JAX
+    checkpoint (the optax ``opt_state``) load as :class:`Unavailable`; the
+    arrays, params, config and meta load as always. Unpickling runs code
     named in the file: load only checkpoints this project wrote."""
     with open(path, "rb") as f:
-        return pickle.load(f)
+        return _Unpickler(f).load()
 
 
 # the ``opt_state`` of this package's training checkpoints
@@ -92,3 +126,16 @@ def load_adamw_state(optimizer: torch.optim.Optimizer, state: dict,
         for i, (m, v) in enumerate(zip(state["exp_avg"],
                                        state["exp_avg_sq"]))}
     optimizer.load_state_dict(sd)
+
+
+def load_training_checkpoint(path: str) -> dict:
+    """Load a training run's last checkpoint to resume it. Refuses a
+    checkpoint of the JAX package, whose ``opt_state`` is optax's: the port
+    resumes only the checkpoints it wrote (:data:`OPT_STATE_FORMAT`)."""
+    ck = load_checkpoint(path)
+    opt = ck.get("opt_state")
+    if not (isinstance(opt, dict) and opt.get("format") == OPT_STATE_FORMAT):
+        raise ValueError(
+            f"{path} holds an optax optimizer state (a checkpoint of the JAX "
+            "package); the port resumes only the checkpoints it wrote")
+    return ck

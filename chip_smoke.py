@@ -11,7 +11,8 @@ route), sparse edge-list zone graphs (the CSR edge kernel pair):
 four kernels' paths: the per-step serving rollout (K0), the continuous
 adjoint over the fused pair (K8a forward, K8 backward), the discrete
 adjoint with a bf16 forward (K5's bf16 branch, K6) and the segment sum
-(K9e).
+(K9e); then the schedule-VAE population pipeline (no hand-written kernel):
+synthesize, rasterize, fit, sample, the CRF, evaluate.
 
 Run from the repository root, on a machine with a CUDA device:
 
@@ -213,7 +214,40 @@ Phases (any failure raises and the script exits non-zero):
     with int32 ids that must give the same bits, the unrounded sum as the
     control; the two real sizes once each; times of K9e, its plain version
     and ``index_add_`` on the same bf16-rounded rows.
+39. schedule data: ``generate_population_activities(42_817)`` (VISTA's
+    person count), its CSV, ``prepare_from_csv`` at a 5-minute grid (L =
+    288, P = 7) and ``compute_pds``, each on the host clock;
+40. one VAE step at the phase1 and phase2 widths (SCHEDULE_CONFIGS: z 16,
+    emb 256, channels [64, 64], kernel 5; phase2 auto_pds with its
+    calibration terms) on SCHED_STEP_ROWS rows, dropout off, the same
+    carried weights and injected noise on the card and on the CPU: every
+    loss component within SCHED_STEP_RTOL, every parameter's gradient at
+    cosine > SCHED_STEP_COS_MIN;
+41. ``train()`` of phase1 for SCHED_EPOCHS epochs on the card (finite
+    losses, ``last.ckpt`` and ``best_val.ckpt``, seconds an epoch, peak
+    memory); with PyTorch's deterministic algorithms (cuDNN's too), a run
+    of SCHED_EPOCHS - 1 epochs resumed for one more against a straight
+    run's last epoch (every log column equal); an
+    epoch's wall and one step under torch.profiler; phase2 for one epoch
+    (tod, presence and share finite and positive);
+42. ``sample()`` of SCHED_SAMPLES schedules by argmax with
+    ``reject_all_home`` (agents/s, peak memory, no all-home row); the decode
+    ids of the same SCHED_CHECK_Z latents on the card and on the CPU agree
+    on >= SCHED_IDS_MIN of entries;
+43. ``prepare_crf_data`` over every row, then ``train_crf`` at
+    crf_config's batch 32, lr 1e-3, weight decay 1e-4 for CRF_EPOCHS epochs
+    on the first CRF_TRAIN_ROWS training rows (cut by the time limit), and
+    one of its steps under torch.profiler;
+44. ``crf_log_partition`` and the two Viterbi decodes on CRF_CHECK_ROWS
+    validation rows, card against CPU: log Z and the paths' scores
+    (``crf_path_score``) within CRF_RTOL, no all-home constrained row;
+45. ``sample(decode_mode="crf", enforce_nonhome=True)`` of CRF_SAMPLES
+    schedules (agents/s, every row holds a non-home state);
+46. ``evaluate()`` of phase 42's samples against the grid: the report's
+    keys and host seconds; then each schedule phase's wall.
 
+``python3 chip_smoke.py --schedule`` runs phase 1 and phases 39-46 only,
+with no kernel build (their path launches no hand-written kernel).
 ``python3 chip_smoke.py --readings`` runs phases 1-2 and then only the
 training kernels' checks of phase 10, at DAY_SHAPES and DEPTH_SHAPES for 3
 seeds with the control everywhere, printing the readings the bounds were
@@ -595,6 +629,9 @@ def main():
                         help="compare and time K2f and K2b against those "
                         "of the checkouts at DIR (DIR+PROBE: a probe "
                         "variant of DIR's sources)")
+    parser.add_argument("--schedule", action="store_true",
+                        help="run phase 1 and the schedule-VAE phases "
+                        "39-46 only (no kernel build)")
     parser.add_argument("--ab-gat", metavar="DIR", nargs="+",
                         help="compare and time the zone-graph kernels "
                         "(K4f, K4b, the CSR pair, K9e) against those of "
@@ -641,6 +678,10 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}", flush=True)
+
+    if args.schedule:
+        schedule_phases(dev, card)
+        return
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -874,7 +915,8 @@ def main():
     k8a = fused_pair_phases(dev, card)
     k5b = bf16_forward_phases(dev, card)
     k9e = segment_phases(dev, card)
-    print(f"smoke: phases 1-38 in {time.perf_counter() - t_start:.1f} s, "
+    schedule_phases(dev, card)
+    print(f"smoke: phases 1-46 in {time.perf_counter() - t_start:.1f} s, "
           f"the build included", flush=True)
 
     print(card)
@@ -4835,6 +4877,510 @@ def segment_phases(dev, card):
                         "edge_segment.py:844", launches, max_err, ms,
                         plain_ms, e * d, nbytes, PEAK_FP32_FLOPS,
                         library_ms)
+
+
+# ---- the schedule-VAE population pipeline (phases 39-46) ------------------
+
+# configs/phase1.yaml, phase2.yaml and crf_config.yaml as dicts: the card's
+# machine has no PyYAML (tests/test_torch_schedule_pipeline.py holds them
+# equal to the files)
+SCHEDULE_CONFIGS = {
+    "phase1": {
+        "data": {"npz": "runs/data/train_5min.npz"},
+        "train": {"epochs": 500, "min_epochs": 500, "patience": 0,
+                  "batch_size": 1024, "lr": 0.001, "weight_decay": 0.0001,
+                  "grad_clip": 1.0, "beta_target": 1.0,
+                  "beta_warm_frac": 0.3, "lambda_tv": 0, "lambda_home": 0},
+        "model": {"method": "baseline_cnn", "z_dim": 16, "emb_dim": 256,
+                  "cnn_channels": [64, 64], "cnn_kernel": 5,
+                  "cnn_dropout": 0.1},
+    },
+    "phase2": {
+        "data": {"npz": "runs/data/train_5min.npz"},
+        "train": {"epochs": 500, "min_epochs": 500, "patience": 0,
+                  "batch_size": 1024, "lr": 0.001, "weight_decay": 0.0001,
+                  "grad_clip": 5.0, "beta_target": 2.0,
+                  "beta_warm_frac": 0.1, "lambda_tv": 0.02,
+                  "lambda_home": 0.2, "lambda_tod": 0.3,
+                  "lambda_presence": 0.3, "lambda_share": 0.3},
+        "model": {"method": "auto_pds", "z_dim": 16, "emb_dim": 256,
+                  "cnn_channels": [64, 64], "cnn_kernel": 5,
+                  "cnn_dropout": 0.1, "pds_path": "runs/pds/pds_pds.npz"},
+    },
+    "crf_config": {
+        "crf": {"train_npz": "runs/crf_data/crf_train.npz",
+                "val_npz": "runs/crf_data/crf_val.npz",
+                "save_path": "runs/crf_data/crf_linear.ckpt",
+                "meta_json": "runs/crf_data/crf_meta.json",
+                "num_epochs": 500, "batch_size": 32, "lr": "1e-3",
+                "weight_decay": "1e-4", "log_every": 10},
+    },
+}
+# the keys the smoke replaces: its own run's files, and the epoch counts,
+# which the time limit cuts
+SCHEDULE_CUTS = {
+    "phase1": ("data.npz", "train.epochs"),
+    "phase2": ("data.npz", "model.pds_path", "train.epochs"),
+    "crf_config": ("crf.train_npz", "crf.val_npz", "crf.save_path",
+                   "crf.meta_json", "crf.num_epochs"),
+}
+SCHED_PERSONS = 42_817  # VISTA's person count (the README's quick start)
+SCHED_SEED = 0
+SCHED_GRID_MIN = 5  # L = 288 bins
+SCHED_EPOCHS = 3
+SCHED_SAMPLES = 1_048_576
+SCHED_CHECK_Z = 65_536
+SCHED_IDS_MIN = 0.999
+# one VAE step, card against CPU: every loss component, every gradient
+SCHED_STEP_ROWS = 1_024
+SCHED_STEP_RTOL = 1e-4
+SCHED_STEP_COS_MIN = 0.9999
+# train_crf on the first CRF_TRAIN_ROWS training rows: at a batch of 32 an
+# epoch over all ~38,500 is ~1,200 eager steps of 287-step scans, ~0.1 s each
+CRF_TRAIN_ROWS = 4_096
+CRF_EPOCHS = 2
+CRF_SAMPLES = 65_536
+CRF_CHECK_ROWS = 1_024
+CRF_RTOL = 1e-5
+
+
+def schedule_config(name, **values):
+    """A copy of SCHEDULE_CONFIGS[name] with the SCHEDULE_CUTS keys given
+    as ``section__key=value``; raises on a key outside the cuts."""
+    import copy
+
+    cfg = copy.deepcopy(SCHEDULE_CONFIGS[name])
+    for key, value in values.items():
+        section, leaf = key.split("__")
+        if f"{section}.{leaf}" not in SCHEDULE_CUTS[name]:
+            raise KeyError(f"{name}: {section}.{leaf} is not a listed cut")
+        cfg[section][leaf] = value
+    return cfg
+
+
+def read_log(path):
+    """training_log.csv as a list of {column: float}."""
+    import csv
+
+    with open(path, newline="", encoding="utf-8") as f:
+        return [{k: float(v) for k, v in row.items()}
+                for row in csv.DictReader(f)]
+
+
+def max_rel(got, want):
+    """max |got - want| / max |want| over two equal-length sequences."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want))
+                 / max(np.max(np.abs(want)), 1e-30))
+
+
+def cosine(a, b):
+    """Cosine of two tensors taken as vectors (1 where both are zero)."""
+    a, b = a.double().flatten(), b.double().flatten()
+    na, nb = a.norm().item(), b.norm().item()
+    if na == 0 and nb == 0:
+        return 1.0
+    return float((a @ b).item() / max(na * nb, 1e-300))
+
+
+def step_check(dev, card, name, cfg, meta, Y):
+    """One VAE step (its loss components and every parameter's gradient)
+    on the card against the same step on the CPU: the same carried weights,
+    rows, injected noise, dropout off."""
+    from ananke_abm_tpu_torch.models.gen_schedule import factory, params
+    from ananke_abm_tpu_torch.models.gen_schedule.pipeline import train
+    from ananke_abm_tpu_torch.models.gen_schedule.vae import init_params
+
+    cfg = dict(cfg, model=dict(cfg["model"], cnn_dropout=0.0))
+    home = meta["purpose_map"]["Home"]
+    rows = torch.as_tensor(Y[:SCHED_STEP_ROWS])
+    eps = torch.as_tensor(np.random.default_rng(SCHED_SEED).standard_normal(
+        (SCHED_STEP_ROWS, cfg["model"]["z_dim"])).astype(np.float32))
+    out = {}
+    weights = None
+    for where in ("cpu", dev):
+        model, pds = factory.build_model(cfg, meta, device=where)
+        if weights is None:
+            init_params(model, torch.Generator().manual_seed(SCHED_SEED))
+            weights = params.to_flax_params(model)
+        params.load_flax_params(model, weights)
+        loss_fn = train.make_loss_fn(model, home, train.loss_weights(cfg),
+                                     train.load_pds_arrays(cfg, pds))
+        model.train()
+        t0 = time.perf_counter()
+        loss, comps = loss_fn(rows.to(where),
+                              torch.ones(SCHED_STEP_ROWS, device=where), 1.0,
+                              eps=eps.to(where))
+        loss.backward()
+        if where != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[str(where)] = ({k: v.item() for k, v in comps.items()},
+                           {n: p.grad.cpu() for n, p in
+                            model.named_parameters()}, wall)
+    (cc, cg, cw), (gc, gg, gw) = out["cpu"], out[str(dev)]
+    rels = {k: abs(gc[k] - cc[k]) / max(abs(cc[k]), 1e-30) for k in cc
+            if cc[k] != 0.0}
+    cos = {n: cosine(gg[n], cg[n]) for n in cg}
+    worst = min(cos, key=cos.get)
+    print(f"step check {name} ({SCHED_STEP_ROWS} rows, L={Y.shape[1]}): "
+          + ", ".join(f"{k} {cc[k]:.6f} rel {r:.2e}" for k, r in
+                      rels.items())
+          + f"; gradient cosine min {cos[worst]:.8f} ({worst}) over "
+          f"{len(cos)} parameters; forward+backward card {gw:.4f} s, CPU "
+          f"{cw:.4f} s [card {card}]", flush=True)
+    if max(rels.values()) > SCHED_STEP_RTOL:
+        fail(f"{name}: a loss component differs from the CPU's by more than "
+             f"{SCHED_STEP_RTOL}")
+    if cos[worst] <= SCHED_STEP_COS_MIN:
+        fail(f"{name}: gradient of {worst} at cosine {cos[worst]} against "
+             f"the CPU's")
+
+
+def vae_epoch(dev, card, cfg, meta, Y):
+    """A phase1 training epoch's wall (make_epoch_fns, the second of two,
+    synchronised around it), then one more step under torch.profiler."""
+    from ananke_abm_tpu_torch.models.gen_schedule import factory
+    from ananke_abm_tpu_torch.models.gen_schedule.pipeline import train
+    from ananke_abm_tpu_torch.models.gen_schedule.vae import init_params
+    from ananke_abm_tpu_torch.utils.optim import ClippedAdamW
+    from ananke_abm_tpu_torch.utils.seed import generator
+
+    tr = cfg["train"]
+    model, _ = factory.build_model(cfg, meta, device=dev)
+    init_params(model, torch.Generator().manual_seed(SCHED_SEED))
+    optimizer = ClippedAdamW(model.parameters(), tr["lr"], tr["weight_decay"],
+                             tr["grad_clip"])
+    loss_fn = train.make_loss_fn(model, meta["purpose_map"]["Home"],
+                                 train.loss_weights(cfg), None)
+    bs = tr["batch_size"]
+    train_epoch, _ = train.make_epoch_fns(model, optimizer, loss_fn, bs)
+    Yd = torch.as_tensor(Y).to(dev)
+    n_batches = -(-len(Y) // bs)
+    walls = []
+    for epoch in (1, 2):
+        gen = generator(dev, SCHED_SEED, epoch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_epoch(Yd, gen, 1.0, n_batches).tolist()
+        walls.append(time.perf_counter() - t0)
+    print(f"phase1 epoch (make_epoch_fns, {n_batches} steps of {bs} rows): "
+          f"{walls[1]:.4f} s ({walls[1] / n_batches * 1e3:.2f} ms a step; "
+          f"the first epoch {walls[0]:.4f} s) [card {card}]", flush=True)
+    gen = generator(dev, SCHED_SEED, 3)
+    batch = Yd[:bs]
+    mask = torch.ones(bs, device=dev)
+
+    def step():
+        optimizer.zero_grad()
+        loss, _ = loss_fn(batch, mask, 1.0, gen)
+        loss.backward()
+        optimizer.step()
+
+    device_busy("phase1 training step", step, card)
+
+
+def crf_step_profile(dev, card, train_npz):
+    """One train_crf step on a batch of 32 (the NLL over a 287-step scan,
+    its backward, AdamW) under torch.profiler."""
+    from ananke_abm_tpu_torch.models.gen_schedule.crf.model import (
+        crf_nll_loss,
+        init_crf_params,
+    )
+    from ananke_abm_tpu_torch.utils.seed import generator
+
+    with np.load(train_npz) as d:
+        U = torch.as_tensor(d["U"][:32]).to(dev)
+        Y = torch.as_tensor(d["Y"][:32]).to(dev)
+    params = init_crf_params(generator(dev, SCHED_SEED), U.shape[-1])
+    for v in params.values():
+        v.requires_grad_(True)
+    optimizer = torch.optim.AdamW(list(params.values()), lr=1e-3,
+                                  weight_decay=1e-4)
+
+    def step():
+        optimizer.zero_grad()
+        crf_nll_loss(params, U, Y).backward()
+        optimizer.step()
+
+    step()
+    device_busy("train_crf step", step, card)
+
+
+def schedule_phases(dev, card):
+    """Phases 39-46: the schedule-VAE pipeline of the README's quick start
+    at the phase1 / phase2 / crf_config widths on 42,817 persons x 288
+    bins. Every phase raises on failure."""
+    from ananke_abm_tpu_torch.data_generator.population import (
+        COLUMNS,
+        generate_population_activities,
+        write_csv,
+    )
+    from ananke_abm_tpu_torch.dataio.rasterize import prepare_from_csv
+    from ananke_abm_tpu_torch.models.gen_schedule.crf.model import (
+        crf_decode,
+    )
+    from ananke_abm_tpu_torch.models.gen_schedule.crf.prepare import (
+        prepare_crf_data,
+    )
+    from ananke_abm_tpu_torch.models.gen_schedule.crf.train import train_crf
+    from ananke_abm_tpu_torch.models.gen_schedule.pds import compute_pds
+    from ananke_abm_tpu_torch.models.gen_schedule.pipeline.eval import (
+        evaluate,
+    )
+    from ananke_abm_tpu_torch.models.gen_schedule.pipeline.sample import (
+        load_vae,
+        sample,
+    )
+    from ananke_abm_tpu_torch.models.gen_schedule.pipeline.train import train
+    from ananke_abm_tpu_torch.ops.crf import (
+        crf_log_partition,
+        crf_path_score,
+        viterbi_decode,
+        viterbi_decode_no_all_home,
+    )
+    from ananke_abm_tpu_torch.utils.ckpt import load_checkpoint
+
+    root = OUT / "schedule"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    walls = {}
+
+    # ---- 39. data --------------------------------------------------------
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    acts = generate_population_activities(SCHED_PERSONS, seed=SCHED_SEED)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csv_path = write_csv(str(root / "activities.csv"),
+                         {k: acts[k] for k in COLUMNS})
+    t_csv = time.perf_counter() - t0
+    grid = str(root / "train_5min.npz")
+    t0 = time.perf_counter()
+    _, meta = prepare_from_csv(csv_path, grid, grid_min=SCHED_GRID_MIN)
+    t_prep = time.perf_counter() - t0
+    P = len(meta["purpose_map"])
+    if (meta["N"], meta["L"], P) != (SCHED_PERSONS,
+                                     1440 // SCHED_GRID_MIN, 7):
+        fail(f"prepared grid N={meta['N']} L={meta['L']} P={P}")
+    t0 = time.perf_counter()
+    compute_pds(grid, str(root / "pds"), SCHED_GRID_MIN,
+                grid.replace(".npz", "_purpose_map.json"))
+    t_pds = time.perf_counter() - t0
+    pds_path = str(root / "pds_pds.npz")
+    walls[39] = time.perf_counter() - t_phase
+    print(f"schedule data: {len(acts['persid'])} activities of "
+          f"{SCHED_PERSONS} persons, grid {meta['N']} x {meta['L']}, P={P}; "
+          f"generate {t_gen:.3f} s, CSV {t_csv:.3f} s, prepare_from_csv "
+          f"{t_prep:.3f} s, compute_pds {t_pds:.3f} s (host clock)",
+          flush=True)
+
+    # ---- 40. one VAE step, card against CPU --------------------------------
+    t_phase = time.perf_counter()
+    with np.load(grid) as g, np.load(grid.replace(".npz", "_splits.npz")) \
+            as sp:
+        Y_train = g["Y"][sp["train_idx"]]
+    p1 = schedule_config("phase1", data__npz=grid, train__epochs=SCHED_EPOCHS)
+    p2 = schedule_config("phase2", data__npz=grid, model__pds_path=pds_path,
+                         train__epochs=1)
+    for name, cfg in (("phase1", p1), ("phase2", p2)):
+        step_check(dev, card, name, cfg, meta, Y_train)
+    walls[40] = time.perf_counter() - t_phase
+
+    # ---- 41. train() -------------------------------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    run = root / "vae"
+    res = train(p1, str(run), seed=SCHED_SEED, device=dev)
+    log = read_log(str(run / "training_log.csv"))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if len(log) != SCHED_EPOCHS or not all(
+            np.isfinite(list(row.values())).all() for row in log):
+        fail(f"phase1 train(): {len(log)} epochs, or a loss not finite")
+    for name in ("last.ckpt", "best_val.ckpt"):
+        if not (run / "checkpoints" / name).exists():
+            fail(f"phase1 train() wrote no {name}")
+    print(f"train() phase1: {SCHED_EPOCHS} epochs of "
+          f"{-(-len(Y_train) // 1024)} batches in {res['seconds']:.3f} s "
+          f"({res['seconds'] / SCHED_EPOCHS:.3f} s an epoch, host clock, "
+          f"data load and model build included); losses "
+          + ", ".join(f"{row['train_loss']:.5f}" for row in log)
+          + f"; val {log[-1]['val_loss']:.5f}; peak {peak:.2f} GB "
+          f"[card {card}]", flush=True)
+    # the default kernels (cuDNN's weight gradients among them) sum in no
+    # fixed order, so separately trained runs drift apart (the resumed run
+    # read up to 6.9e-05 of a log column off the straight one, 1.07e-04 on
+    # cuDNN's deterministic algorithms alone): both train with PyTorch's
+    # deterministic algorithms, and then a resume repeats the straight run
+    # bit for bit
+    deterministic = (torch.are_deterministic_algorithms_enabled(),
+                     torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight, split = root / "vae_straight", root / "vae_resumed"
+        train(p1, str(straight), seed=SCHED_SEED, device=dev)
+        train(schedule_config("phase1", data__npz=grid,
+                              train__epochs=SCHED_EPOCHS - 1), str(split),
+              seed=SCHED_SEED, device=dev)
+        train(p1, str(split), seed=SCHED_SEED, resume=True, device=dev)
+    finally:
+        torch.use_deterministic_algorithms(deterministic[0])
+        torch.backends.cudnn.deterministic = deterministic[1]
+    want = read_log(str(straight / "training_log.csv"))[-1]
+    resumed = read_log(str(split / "training_log.csv"))[-1]
+    keys = [k for k in want if k != "epoch"]
+    rel = max_rel([resumed[k] for k in keys], [want[k] for k in keys])
+    print(f"train() resumed (deterministic algorithms): epochs 1-"
+          f"{SCHED_EPOCHS - 1}, then epoch {int(resumed['epoch'])} from "
+          f"last.ckpt against a straight run's: max rel difference "
+          f"{rel:.3e} over {len(keys)} columns (must be 0)", flush=True)
+    if rel != 0.0:
+        fail("the resumed run departs from the straight run")
+    vae_epoch(dev, card, p1, meta, Y_train)
+    res2 = train(p2, str(root / "vae_pds"), seed=SCHED_SEED, device=dev)
+    row = read_log(str(root / "vae_pds" / "training_log.csv"))[-1]
+    for k in ("train_tod", "train_presence", "train_share"):
+        if not (np.isfinite(row[k]) and row[k] > 0):
+            fail(f"phase2 {k} = {row[k]}")
+    print(f"train() phase2 (auto_pds): 1 epoch in {res2['seconds']:.3f} s; "
+          f"loss {row['train_loss']:.5f}, tod {row['train_tod']:.3e}, "
+          f"presence {row['train_presence']:.3e}, share "
+          f"{row['train_share']:.3e} [card {card}]", flush=True)
+    walls[41] = time.perf_counter() - t_phase
+
+    # ---- 42. sample() --------------------------------------------------------
+    t_phase = time.perf_counter()
+    ckpt = str(run / "checkpoints" / "best_val.ckpt")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    info = sample(ckpt, SCHED_SAMPLES, str(root / "samples" / "s"),
+                  seed=SCHED_SEED, reject_all_home=True, device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with np.load(root / "samples" / "s.npz") as d:
+        Y_gen = d["Y_generated"]
+        if Y_gen.shape != (SCHED_SAMPLES, meta["L"]) or \
+                Y_gen.dtype != np.int64:
+            fail(f"samples {Y_gen.shape} {Y_gen.dtype}")
+        if (Y_gen == meta["purpose_map"]["Home"]).all(axis=1).any():
+            fail("reject_all_home kept an all-home row")
+    print(f"sample() argmax: {SCHED_SAMPLES} schedules in "
+          f"{info['seconds']:.3f} s ({SCHED_SAMPLES / info['seconds']:.0f} "
+          f"agents/s; {wall:.3f} s with the artifacts written), peak "
+          f"{peak:.2f} GB [card {card}]", flush=True)
+    obj = load_checkpoint(ckpt)
+    z = torch.randn((SCHED_CHECK_Z, obj["cfg"]["model"]["z_dim"]),
+                    generator=torch.Generator().manual_seed(SCHED_SEED))
+    ids = {}
+    for where in ("cpu", dev):
+        model, pds = load_vae(obj, where)
+        with torch.inference_mode():
+            ids[str(where)] = torch.argmax(model.decode(z.to(where), pds),
+                                           dim=-1).cpu()
+    agree = (ids["cpu"] == ids[str(dev)]).float().mean().item()
+    print(f"decode ids of the same {SCHED_CHECK_Z} z, card against CPU: "
+          f"agree {agree:.6f} (>= {SCHED_IDS_MIN})", flush=True)
+    if agree < SCHED_IDS_MIN:
+        fail("the card's decode disagrees with the CPU's")
+    walls[42] = time.perf_counter() - t_phase
+
+    # ---- 43. the CRF data and trainer ----------------------------------------
+    t_phase = time.perf_counter()
+    crf_dir = root / "crf_data"
+    t0 = time.perf_counter()
+    crf_meta = prepare_crf_data(ckpt, grid.replace(".npz", "_splits.npz"),
+                                str(crf_dir), device=dev)
+    t_prep = time.perf_counter() - t0
+    with np.load(crf_dir / "crf_train.npz") as d:
+        n_train = d["U"].shape[0]
+        np.savez(crf_dir / "crf_train_cut.npz", U=d["U"][:CRF_TRAIN_ROWS],
+                 Y=d["Y"][:CRF_TRAIN_ROWS])
+    crf_cfg = schedule_config(
+        "crf_config", crf__train_npz=str(crf_dir / "crf_train_cut.npz"),
+        crf__val_npz=str(crf_dir / "crf_val.npz"),
+        crf__save_path=str(crf_dir / "crf_linear.ckpt"),
+        crf__meta_json=str(crf_dir / "crf_meta.json"),
+        crf__num_epochs=CRF_EPOCHS)
+    t0 = time.perf_counter()
+    crf_res = train_crf(crf_cfg, seed=SCHED_SEED, device=dev)
+    t_crf = time.perf_counter() - t0
+    if not np.isfinite(crf_res["best_val_nll"]):
+        fail("train_crf's validation NLL is not finite")
+    crf_step_profile(dev, card, crf_dir / "crf_train_cut.npz")
+    print(f"prepare_crf_data: {n_train} train and {SCHED_PERSONS - n_train} "
+          f"val rows in {t_prep:.3f} s; train_crf: {CRF_EPOCHS} epochs over "
+          f"the first {CRF_TRAIN_ROWS} train rows (batch 32, "
+          f"{CRF_TRAIN_ROWS // 32} steps an epoch) in {t_crf:.3f} s "
+          f"({t_crf / CRF_EPOCHS:.3f} s an epoch with its validation NLL), "
+          f"best val NLL {crf_res['best_val_nll']:.4f} [card {card}]",
+          flush=True)
+    walls[43] = time.perf_counter() - t_phase
+
+    # ---- 44. the CRF recursions, card against CPU ----------------------------
+    t_phase = time.perf_counter()
+    crf_params = {k: torch.tensor(np.asarray(v)) for k, v in
+                  load_checkpoint(str(crf_dir / "crf_linear.ckpt"))
+                  ["params"].items()}
+    with np.load(crf_dir / "crf_val.npz") as d:
+        U = torch.as_tensor(d["U"][:CRF_CHECK_ROWS]) + crf_params["bias"]
+    A = crf_params["A"]
+    home = crf_meta["home_idx"]
+    got = {}
+    for where in ("cpu", dev):
+        u, a = U.to(where), A.to(where)
+        got[str(where)] = (crf_log_partition(u, a).cpu(),
+                           viterbi_decode(u, a).cpu(),
+                           viterbi_decode_no_all_home(u, a, home).cpu())
+    (zc, pc, qc), (zg, pg, qg) = got["cpu"], got[str(dev)]
+    rel_z = max_rel(zg, zc)
+    rel_p = max_rel(crf_path_score(U, pg, A), crf_path_score(U, pc, A))
+    rel_q = max_rel(crf_path_score(U, qg, A), crf_path_score(U, qc, A))
+    print(f"CRF on {CRF_CHECK_ROWS} val rows, card against CPU: log Z rel "
+          f"{rel_z:.2e}, Viterbi path scores rel {rel_p:.2e} (paths equal "
+          f"{(pg == pc).float().mean().item():.6f}), constrained {rel_q:.2e}"
+          f" (<= {CRF_RTOL})", flush=True)
+    if max(rel_z, rel_p, rel_q) > CRF_RTOL:
+        fail("the card's CRF recursions disagree with the CPU's")
+    if ((qg == home).all(dim=1)).any():
+        fail("the constrained decode left an all-home row")
+    walls[44] = time.perf_counter() - t_phase
+
+    # ---- 45. sample() through the CRF ----------------------------------------
+    t_phase = time.perf_counter()
+    info = sample(ckpt, CRF_SAMPLES, str(root / "samples" / "c"),
+                  seed=SCHED_SEED, decode_mode="crf",
+                  crf_path=str(crf_dir / "crf_linear.ckpt"),
+                  enforce_nonhome=True, device=dev)
+    with np.load(root / "samples" / "c.npz") as d:
+        if (d["Y_generated"] == home).all(axis=1).any():
+            fail("the CRF samples hold an all-home row")
+    print(f"sample() crf, enforce_nonhome: {CRF_SAMPLES} schedules in "
+          f"{info['seconds']:.3f} s ({CRF_SAMPLES / info['seconds']:.0f} "
+          f"agents/s) [card {card}]", flush=True)
+    walls[45] = time.perf_counter() - t_phase
+
+    # ---- 46. evaluate() ------------------------------------------------------
+    t_phase = time.perf_counter()
+    report = evaluate(str(root / "samples" / "s.npz"),
+                      str(root / "samples" / "s_meta.json"), grid,
+                      str(root / "report.json"))
+    walls[46] = time.perf_counter() - t_phase
+    missing = {"P", "L", "home_idx", "minutes_share", "bigram",
+               "tod_jsd_macro", "all_home_rate", "start_home_rate",
+               "end_home_rate", "diversity_ratio"} - set(report)
+    if missing or report["all_home_rate"] != 0.0:
+        fail(f"evaluate(): missing {missing}, all-home rate "
+             f"{report['all_home_rate']}")
+    print(f"evaluate(): {SCHED_SAMPLES} samples against the grid in "
+          f"{walls[46]:.3f} s (host); tod_jsd_macro "
+          f"{report['tod_jsd_macro']:.5f}, bigram L1 "
+          f"{report['bigram']['L1']:.5f}, diversity "
+          f"{report['diversity_ratio']:.5f}", flush=True)
+    print("schedule phases wall: " + ", ".join(
+        f"{k}: {v:.1f} s" for k, v in walls.items())
+        + f"; {sum(walls.values()):.1f} s in all", flush=True)
 
 
 if __name__ == "__main__":

@@ -108,3 +108,28 @@ def test_probes_match_this_checkouts_sources(tmp_path, monkeypatch, probe):
     assert changed == {f for f, _, _ in chip_smoke.PROBES[probe]}
     assert {"fused_rhs.cu", "fused_step.cu"} <= {p.name
                                                  for p in out.iterdir()}
+
+
+def test_schedule_config_replaces_only_the_listed_cuts():
+    cfg = chip_smoke.schedule_config("phase2", data__npz="g.npz",
+                                     model__pds_path="p.npz",
+                                     train__epochs=1)
+    assert cfg["data"]["npz"] == "g.npz" and cfg["train"]["epochs"] == 1
+    assert cfg["model"]["pds_path"] == "p.npz"
+    assert chip_smoke.SCHEDULE_CONFIGS["phase2"]["train"]["epochs"] == 500
+    with pytest.raises(KeyError, match="train.lr"):
+        chip_smoke.schedule_config("phase1", train__lr=1.0)
+
+
+def test_read_log_max_rel_and_cosine(tmp_path):
+    torch = pytest.importorskip("torch")
+    path = tmp_path / "training_log.csv"
+    path.write_text("epoch,beta,train_loss\n1,0.5,2.25\n2,1.0,2.0\n")
+    rows = chip_smoke.read_log(str(path))
+    assert rows == [{"epoch": 1.0, "beta": 0.5, "train_loss": 2.25},
+                    {"epoch": 2.0, "beta": 1.0, "train_loss": 2.0}]
+    assert chip_smoke.max_rel([1.0, 2.2], [1.0, 2.0]) == pytest.approx(0.1)
+    a = torch.tensor([[1.0, 0.0], [0.0, 2.0]])
+    assert chip_smoke.cosine(a, 3 * a) == pytest.approx(1.0)
+    assert chip_smoke.cosine(a, -a) == pytest.approx(-1.0)
+    assert chip_smoke.cosine(torch.zeros(3), torch.zeros(3)) == 1.0
