@@ -1,6 +1,5 @@
 """Activities CSV -> (N, L) purpose-id grid, numpy (a copy of
-``ananke_abm_tpu/dataio/rasterize.py`` without pandas; the numpy branch of
-its rasterizer, not the native one).
+``ananke_abm_tpu/dataio/rasterize.py`` without pandas).
 
 - purpose map = sorted unique purpose names -> contiguous ids.
 - per person (activities ordered by ``stopno``): every positive-duration
@@ -15,11 +14,14 @@ its rasterizer, not the native one).
   ``<out>_purpose_map.json``, ``<out>_splits.npz{train_idx, val_idx}``.
 
 The activities are a dict of equal-length numpy columns (``read_csv``).
-Bin assignment is the closed-form prefix recurrence
+Bin assignment is one linear pass of the native host kernel
+(``ops/native.py::rasterize_fill``) when the library is built, as in the
+reference, else the closed-form prefix recurrence
 
     start_i = cumbins_i + running_max_j<=i (nominal_j - cumbins_j)
 
-with the per-person cumsum / cummax taken over contiguous person runs.
+with the per-person cumsum / cummax taken over contiguous person runs
+(the same grid for stops in time order; see ``rasterize_fill_numpy``).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import os
 import numpy as np
 
 from ananke_abm_tpu_torch.dataio.splits import seeded_split
+from ananke_abm_tpu_torch.ops import native
 
 PURPOSE_COL = "purpose"
 HOME_NAME = "Home"
@@ -128,10 +131,25 @@ def rasterize_frame(
     bins = np.maximum(1, -(-dur // grid_min))  # ceil
 
     pid = _purpose_ids(cols[PURPOSE_COL][order], purpose_map)
+    home_idx = purpose_map.get(HOME_NAME, 0)
 
-    # prefix recurrence per person: start_i = max(nominal_i, end_{i-1}),
-    # end_i = start_i + bins_i (pre-clip): grouped cumsum and cummax over
-    # each person's contiguous run of rows
+    Y = native.rasterize_fill(person_row, nominal, bins, pid, n_persons, L)
+    if Y is None:
+        Y = rasterize_fill_numpy(person_row, nominal, bins, pid, n_persons, L)
+    return ensure_homebound(Y, home_idx, copy=False), uniq_pers.tolist()
+
+
+def rasterize_fill_numpy(person_row, nominal, bins, pid, n_persons, L):
+    """The numpy equivalent of ``native.rasterize_fill``: activities sorted
+    by (person, stop) -> the (n_persons, L) int64 grid, 0 where unfilled.
+    As in the reference, the two differ only where a stop that starts past
+    the horizon precedes one that starts earlier: the native pass places
+    the later stop after the last one placed, this recurrence after the
+    dropped one.
+
+    Prefix recurrence per person: start_i = max(nominal_i, end_{i-1}),
+    end_i = start_i + bins_i (pre-clip), as grouped cumsum and cummax over
+    each person's contiguous run of rows."""
     cumbins = _segmented_cumsum(bins, _run_starts(person_row)) - bins
     runmax = _segmented_cummax(nominal - cumbins, person_row)
     a = cumbins + runmax
@@ -152,10 +170,7 @@ def rasterize_frame(
             np.concatenate([[0], np.cumsum(lv)[:-1]]), lv
         )
         Y.reshape(-1)[np.repeat(starts_flat, lv) + offsets] = np.repeat(pv, lv)
-
-    home_idx = purpose_map.get(HOME_NAME, 0)
-    Y = ensure_homebound(Y, home_idx, copy=False)
-    return Y, uniq_pers.tolist()
+    return Y
 
 
 def ensure_homebound(

@@ -1,24 +1,20 @@
-"""Population metrics over (N, T) purpose grids, numpy (a copy of the
-numpy branches of ``ananke_abm_tpu/models/gen_schedule/evals/metrics.py``;
-the port does not bind the native library):
+"""Population metrics over (N, T) purpose grids (the port's copy of
+``ananke_abm_tpu/models/gen_schedule/evals/metrics.py``):
 - minutes_share (P,), tod_marginals (T, P)
 - joint bigram matrix (P, P) and row-conditional bigram
 - L1 distance between matrices
+
+The occupancy and bigram counts take the native host kernels
+(``ops/native.py``) when the library is built, as the reference does, and
+numpy bincounts over blocks of ROW_BLOCK rows otherwise.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ananke_abm_tpu_torch.ops import native
+
 ROW_BLOCK = 65536
-
-
-def check_labels(Y: np.ndarray, P: int) -> None:
-    """Reject labels outside [0, P): bincount would alias base-P codes."""
-    if Y.size and (Y.min() < 0 or Y.max() >= P):
-        raise ValueError(
-            f"labels out of range: expected 0 <= Y < {P}, "
-            f"got [{Y.min()}, {Y.max()}]"
-        )
 
 
 def minutes_share(Y: np.ndarray, P: int) -> np.ndarray:
@@ -29,8 +25,10 @@ def minutes_share(Y: np.ndarray, P: int) -> np.ndarray:
 
 def tod_marginals(Y: np.ndarray, P: int) -> np.ndarray:
     """m[t, p] = Pr(y_t == p) across persons. (T, P)"""
-    check_labels(Y, P)
+    native.check_labels(Y, P)
     N, T = Y.shape
+    if native.available():
+        return native.tod_counts(Y, P).astype(np.float64) / N
     offsets = np.arange(T)[None, :] * P
     counts = sum(np.bincount((offsets + Y[s:s + ROW_BLOCK]).ravel(),
                              minlength=T * P)
@@ -40,7 +38,9 @@ def tod_marginals(Y: np.ndarray, P: int) -> np.ndarray:
 
 def _bigram_counts(Y: np.ndarray, P: int) -> np.ndarray:
     """(P, P) counts of adjacent within-row pairs."""
-    check_labels(Y, P)
+    native.check_labels(Y, P)
+    if native.available():
+        return native.count_ngrams_dense(Y, 2, P).reshape(P, P)
     counts = sum(np.bincount((Y[s:s + ROW_BLOCK, :-1] * P
                               + Y[s:s + ROW_BLOCK, 1:]).ravel(),
                              minlength=P * P)

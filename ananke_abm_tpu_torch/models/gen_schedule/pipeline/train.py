@@ -199,12 +199,27 @@ def _snapshot(model, optimizer):
             copy.deepcopy(optimizer.adamw.state_dict()))
 
 
+def _last_ckpt_due(epoch, start_epoch, num_epochs, ckpt_every, chunk, stop):
+    """Whether ``last.ckpt`` is written after ``epoch``: at every
+    ``ckpt_every``-th epoch; with ``chunk`` (``train.epochs_per_jit``) > 1
+    on the cadence of the reference's fused scan, which writes it at the
+    end of a chunk of ``chunk`` epochs from ``start_epoch`` (or at the
+    run's last or stopping epoch) when that chunk crossed a multiple of
+    ``ckpt_every`` (its ``train.py:484-540``)."""
+    if chunk <= 1:
+        return epoch % ckpt_every == 0
+    chunk_start = start_epoch + (epoch - start_epoch) // chunk * chunk
+    chunk_end = stop or epoch in (num_epochs, chunk_start + chunk - 1)
+    return chunk_end and epoch // ckpt_every > (chunk_start - 1) // ckpt_every
+
+
 def train(config, output_dir: str, seed: int = 123, resume: bool = False,
           mesh=None, *, device="cuda"):
     """Train a schedule VAE. ``config`` is a path or a dict. The reference's
     ``train()``: same keys, checkpoints, log and early stop.
-    ``train.epochs_per_jit`` is accepted and runs this same per-epoch loop
-    (the reference's fused multi-epoch scan reproduces it). ``resume=True``
+    ``train.epochs_per_jit`` > 1 runs this same per-epoch loop (the
+    reference's fused multi-epoch scan reproduces it) and writes
+    ``last.ckpt`` on that scan's cadence (``_last_ckpt_due``). ``resume=True``
     continues from ``checkpoints/last.ckpt`` when it exists (the port's own;
     a JAX-written one holds an optax state and is refused). ``mesh`` raises:
     data-parallel training is ROADMAP.md queue 1 item 11. ``device``: the
@@ -273,6 +288,7 @@ def train(config, output_dir: str, seed: int = 123, resume: bool = False,
     n_tb = -(-Y_train.shape[0] // batch_size)
     n_vb = max(1, -(-Y_val.shape[0] // batch_size))
     ckpt_every = int(tr.get("ckpt_every", 25))
+    chunk = int(tr.get("epochs_per_jit", 1))
 
     def ckpt(epoch):
         return {"params": to_flax_params(model),
@@ -295,9 +311,6 @@ def train(config, output_dir: str, seed: int = 123, resume: bool = False,
         tr_v = dict(zip(COMPONENTS, values[:len(COMPONENTS)]))
         va_v = dict(zip(COMPONENTS, values[len(COMPONENTS):]))
 
-        if epoch % ckpt_every == 0:
-            save_checkpoint(ckpt(epoch), last_ckpt)
-
         logs.append({"epoch": epoch, "beta": beta,
                      **{f"train_{k}": v for k, v in tr_v.items()},
                      **{f"val_{k}": v for k, v in va_v.items()}})
@@ -310,7 +323,11 @@ def train(config, output_dir: str, seed: int = 123, resume: bool = False,
         # the reference's semantics (train.py:249-253): past min_epochs,
         # stop once `wait` reaches `patience` (0 stops right at min_epochs)
         wait += 1
-        if epoch >= min_epochs and wait >= patience:
+        stop = epoch >= min_epochs and wait >= patience
+        if _last_ckpt_due(epoch, start_epoch, num_epochs, ckpt_every, chunk,
+                          stop):
+            save_checkpoint(ckpt(epoch), last_ckpt)
+        if stop:
             print(f"No improvement for {patience} epochs, stopping.")
             break
         if improved:

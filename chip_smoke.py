@@ -11,8 +11,12 @@ route), sparse edge-list zone graphs (the CSR edge kernel pair):
 four kernels' paths: the per-step serving rollout (K0), the continuous
 adjoint over the fused pair (K8a forward, K8 backward), the discrete
 adjoint with a bf16 forward (K5's bf16 branch, K6) and the segment sum
-(K9e); then the schedule-VAE population pipeline (no hand-written kernel):
-synthesize, rasterize, fit, sample, the CRF, evaluate.
+(K9e); and the schedule-VAE population pipeline (no hand-written kernel):
+synthesize, rasterize, fit, sample, the CRF, evaluate, the metric tables
+over the native host counters, ``compare_samples`` and the
+``rgen_schedule`` CLI. Phases 39-50, which launch no hand-written kernel,
+run right after phase 1, on the card and the host while phase 2's nvcc
+processes compile; the kernel phases 3-38 follow the build.
 
 Run from the repository root, on a machine with a CUDA device:
 
@@ -244,10 +248,30 @@ Phases (any failure raises and the script exits non-zero):
 45. ``sample(decode_mode="crf", enforce_nonhome=True)`` of CRF_SAMPLES
     schedules (agents/s, every row holds a non-home state);
 46. ``evaluate()`` of phase 42's samples against the grid: the report's
-    keys and host seconds; then each schedule phase's wall.
+    keys and host seconds;
+47. the native host counters (``ops/native.py``, ``csrc/ananke_host.cpp``
+    built with g++): ``available()`` required; on phase 39's grid and
+    phase 42's 1,048,576 samples every entry point equal to its numpy
+    branch (integers and shapes; ``rasterize_fill`` rebuilding the grid
+    from its own segments, ``rasterize_frame`` of phase 39's activities
+    on both branches equal to the grid), and both walls of each at 1M;
+48. ``metric_tables``: all 14 registered metric functions (24 CSVs) over
+    the million samples against the grid through the native counters
+    (wall, peak RSS), then at TABLES_CHECK_ROWS rows the same CSVs
+    byte-equal through the numpy branches;
+49. ``compare_samples`` of phase 42's and phase 45's samples (two report
+    JSONs, the aggregate CSV's two rows); whether matplotlib and click are
+    installed; with matplotlib, its plots, ``plot_overview`` and
+    ``visualize`` and their PNGs (without it the plot calls are not run);
+50. ``python -m ananke_abm_tpu_torch.cli.rgen_schedule`` as subprocesses:
+    ``--help`` lists the eleven commands; ``prepare`` of phase 39's CSV
+    equal to phase 39's grid and splits; ``compute-pds``, ``fit`` (phase1,
+    1 epoch), ``sample-population`` (CLI_SAMPLES), ``eval-population``,
+    ``metric-tables``; ``fit --data-parallel`` exits non-zero naming item
+    11; each command's wall; then each schedule phase's wall.
 
-``python3 chip_smoke.py --schedule`` runs phase 1 and phases 39-46 only,
-with no kernel build (their path launches no hand-written kernel).
+``python3 chip_smoke.py --schedule`` runs phase 1 and phases 39-50 only,
+with no CUDA kernel build (their path launches no hand-written kernel).
 ``python3 chip_smoke.py --readings`` runs phases 1-2 and then only the
 training kernels' checks of phase 10, at DAY_SHAPES and DEPTH_SHAPES for 3
 seeds with the control everywhere, printing the readings the bounds were
@@ -345,9 +369,12 @@ name and power limit.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
+import csv
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -631,7 +658,7 @@ def main():
                         "variant of DIR's sources)")
     parser.add_argument("--schedule", action="store_true",
                         help="run phase 1 and the schedule-VAE phases "
-                        "39-46 only (no kernel build)")
+                        "39-50 only (no CUDA kernel build)")
     parser.add_argument("--ab-gat", metavar="DIR", nargs="+",
                         help="compare and time the zone-graph kernels "
                         "(K4f, K4b, the CSR pair, K9e) against those of "
@@ -710,15 +737,33 @@ def main():
         name, checkout = ab_checkout(d)
         gat_others.append((name, [start_build(checkout, f"gat{i}", lib)
                                   for lib in GAT_LIBS]))
-    built = _build.build_all(
+    names = (
         ("fused_step",) if args.ab_step or args.readings == "serving"
         else ("fused_step", "fused_train") if args.ab_train
         else GAT_LIBS + ("fused_step", "fused_train") if args.ab_gat
         else GAT_LIBS if args.readings in ("encoder", "edge", "segment")
         else K8_LIBS if args.ab_k8
         else _build.NAMES)
-    print(f"build: {len(built)} libraries in "
-          f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
+    smoke = not (args.readings or args.ab_k8 or args.ab_dopri5
+                 or args.ab_step or args.ab_train or args.ab_gat)
+
+    def build():
+        t = time.perf_counter()
+        return _build.build_all(names), time.perf_counter() - t
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(build)
+        if smoke:
+            # phases 39-50 launch no hand-written kernel: they run on the
+            # card and the host while nvcc compiles
+            t_sched = time.perf_counter()
+            schedule_phases(dev, card)
+            print(f"schedule phases 39-50 in "
+                  f"{time.perf_counter() - t_sched:.1f} s, beside the build",
+                  flush=True)
+        built, t_build = building.result()
+    print(f"build: {len(built)} libraries in {t_build:.1f} s (nvcc in "
+          f"parallel); {time.perf_counter() - t0:.1f} s since it started")
     for name, (path, log, seconds) in built.items():
         print(f"build: {path.relative_to(ROOT)} in {seconds:.1f} s")
         for line in ptxas_lines(log):
@@ -915,8 +960,7 @@ def main():
     k8a = fused_pair_phases(dev, card)
     k5b = bf16_forward_phases(dev, card)
     k9e = segment_phases(dev, card)
-    schedule_phases(dev, card)
-    print(f"smoke: phases 1-46 in {time.perf_counter() - t_start:.1f} s, "
+    print(f"smoke: phases 1-50 in {time.perf_counter() - t_start:.1f} s, "
           f"the build included", flush=True)
 
     print(card)
@@ -4960,8 +5004,6 @@ def schedule_config(name, **values):
 
 def read_log(path):
     """training_log.csv as a list of {column: float}."""
-    import csv
-
     with open(path, newline="", encoding="utf-8") as f:
         return [{k: float(v) for k, v in row.items()}
                 for row in csv.DictReader(f)]
@@ -5377,10 +5419,358 @@ def schedule_phases(dev, card):
           f"{walls[46]:.3f} s (host); tod_jsd_macro "
           f"{report['tod_jsd_macro']:.5f}, bigram L1 "
           f"{report['bigram']['L1']:.5f}, diversity "
-          f"{report['diversity_ratio']:.5f}", flush=True)
+          f"{report['diversity_ratio']:.5f} [card {card}]", flush=True)
+    comparison_phases(card, root, grid, csv_path, walls)
     print("schedule phases wall: " + ", ".join(
         f"{k}: {v:.1f} s" for k, v in walls.items())
         + f"; {sum(walls.values()):.1f} s in all", flush=True)
+
+
+
+# ---- the comparison layer, the host counters and the CLI (phases 47-50) ---
+
+# phase 47: each n of the n-gram counters at the grid's 42,817 rows; at the
+# samples' 1,048,576 the metrics' bigram (the numpy branches' unique sort
+# of 300M codes takes ~10 s an n there)
+NATIVE_GRID_NS = (1, 2, 3, 4)
+NATIVE_SAMPLE_NS = (2,)
+# phase 48: the rows of the samples on which the tables' CSVs through the
+# numpy branches must equal those through the native counters
+TABLES_CHECK_ROWS = 65_536
+# the registry's functions and the CSV files they write (the README's
+# "15-family" suite)
+TABLES_FUNCS = 14
+TABLES_CSVS = 24
+CLI_SAMPLES = 65_536
+CLI_COMMANDS = ("prepare", "fit", "sample-population", "eval-population",
+                "viz-population", "compute-pds", "prepare-crf-data",
+                "train-crf", "compare-samples", "metric-tables",
+                "plot-overview")
+
+
+@contextlib.contextmanager
+def numpy_branch():
+    """The host counters' numpy branches: ``native.available()`` False
+    inside the block."""
+    from ananke_abm_tpu_torch.ops import native
+
+    load = native._load
+    native._load = lambda: None
+    try:
+        yield
+    finally:
+        native._load = load
+
+
+def same_arrays(a, b):
+    """Equal shapes, dtypes and values, of arrays or tuples of arrays."""
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and np.array_equal(x, y)
+        for x, y in zip(a, b))
+
+
+def native_checks(label, Y, ns):
+    """Every host counter on ``Y`` through the native library and through
+    its numpy branch: equal integers and shapes, or fail. ``rasterize_fill``
+    rebuilds Y from Y's own run-length segments (both fills must give Y).
+    Returns {entry point: (native s, numpy s)}."""
+    from ananke_abm_tpu_torch.dataio.rasterize import rasterize_fill_numpy
+    from ananke_abm_tpu_torch.ops import native
+
+    P = 7
+    Y = np.ascontiguousarray(Y, dtype=np.int64)
+    N, T = Y.shape
+    calls = {"tod_counts": lambda: native.tod_counts(Y, P),
+             "run_length_segments": lambda: native.run_length_segments(Y)}
+    for n in ns:
+        calls[f"count_ngrams_dense n={n}"] = (
+            lambda n=n: native.count_ngrams_dense(Y, n, P))
+        calls[f"ngram_start_hist_dense n={n}"] = (
+            lambda n=n: native.ngram_start_hist_dense(Y, n, P))
+    walls = {}
+    for name, fn in calls.items():
+        t0 = time.perf_counter()
+        got = fn()
+        t_native = time.perf_counter() - t0
+        with numpy_branch():
+            t0 = time.perf_counter()
+            want = fn()
+            walls[name] = (t_native, time.perf_counter() - t0)
+        if not same_arrays(got, want):
+            fail(f"{label}: native {name} differs from its numpy branch")
+    person, purpose, length = native.run_length_segments(Y)
+    start = np.cumsum(length) - length - person * T
+    args = (person, start, length, purpose, N, T)
+    t0 = time.perf_counter()
+    got = native.rasterize_fill(*args)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = rasterize_fill_numpy(*args)
+    walls["rasterize_fill"] = (t_native, time.perf_counter() - t0)
+    if not (same_arrays(got, want) and same_arrays(got, Y)):
+        fail(f"{label}: rasterize_fill of Y's segments is not Y on both "
+             f"branches")
+    native.check_labels(Y, P)
+    keep = Y[0, 0]
+    Y[0, 0] = P
+    try:
+        for branch in (contextlib.nullcontext, numpy_branch):
+            with branch():
+                with contextlib.suppress(ValueError):
+                    native.tod_counts(Y, P)
+                    fail(f"{label}: a label of {P} passed check_labels")
+    finally:
+        Y[0, 0] = keep
+    return walls
+
+
+def cli_run(argv, timeout=900):
+    """``python -m ananke_abm_tpu_torch.cli.rgen_schedule *argv`` from the
+    checkout's root on the card (no ANANKE_PLATFORM): (process, wall)."""
+    env = {k: v for k, v in os.environ.items() if k != "ANANKE_PLATFORM"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ananke_abm_tpu_torch.cli.rgen_schedule",
+         *map(str, argv)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=timeout)
+    return proc, time.perf_counter() - t0
+
+
+def cli_ok(argv):
+    proc, wall = cli_run(argv)
+    if proc.returncode != 0:
+        fail(f"rgen_schedule {argv[0]} exited {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc, wall
+
+
+def comparison_phases(card, root, grid, csv_path, walls):
+    """Phases 47-50: the native host counters against their numpy
+    branches, ``metric_tables`` over the million samples,
+    ``compare_samples`` / ``plot_overview`` / ``visualize``, and the
+    ``rgen_schedule`` CLI as subprocesses. Every phase raises on
+    failure."""
+    import importlib.util
+    import resource
+
+    from ananke_abm_tpu_torch.dataio.rasterize import (
+        rasterize_frame,
+        read_csv,
+    )
+    from ananke_abm_tpu_torch.models.gen_schedule.compare.plot_viz import (
+        plot_overview,
+    )
+    from ananke_abm_tpu_torch.models.gen_schedule.compare.tables import (
+        metric_tables,
+    )
+    from ananke_abm_tpu_torch.models.gen_schedule.pipeline.comparisons import (
+        compare_samples,
+    )
+    from ananke_abm_tpu_torch.models.gen_schedule.pipeline.viz import (
+        visualize,
+    )
+    from ananke_abm_tpu_torch.ops import native
+
+    grid_meta = grid.replace(".npz", "_meta.json")
+    samples = root / "samples"
+    with np.load(grid) as g:
+        Y_grid = g["Y"]
+    with open(grid_meta, encoding="utf-8") as f:
+        purpose_map = json.load(f)["purpose_map"]
+
+    # ---- 47. the native host counters --------------------------------------
+    t_phase = time.perf_counter()
+    if not native.available():
+        fail("the native host library did not build (g++) or load")
+    print(f"native host library: {native.library_path().relative_to(ROOT)} "
+          f"(built with g++ at its first use, phase 46's metrics)",
+          flush=True)
+    cols = read_csv(csv_path)
+    t0 = time.perf_counter()
+    Y_native, _ = rasterize_frame(cols, purpose_map, SCHED_GRID_MIN)
+    t_native = time.perf_counter() - t0
+    with numpy_branch():
+        t0 = time.perf_counter()
+        Y_numpy, _ = rasterize_frame(cols, purpose_map, SCHED_GRID_MIN)
+        t_numpy = time.perf_counter() - t0
+    if not (same_arrays(Y_native, Y_numpy) and same_arrays(Y_native, Y_grid)):
+        fail("rasterize_frame of the activities differs between the branches "
+             "or from phase 39's grid")
+    print(f"rasterize_frame of {len(cols['persid'])} activities: native "
+          f"{t_native:.3f} s, numpy {t_numpy:.3f} s, equal grids",
+          flush=True)
+    native_checks(f"the grid {Y_grid.shape}", Y_grid, NATIVE_GRID_NS)
+    with np.load(samples / "s.npz") as d:
+        Y_gen = d["Y_generated"]
+    timed = native_checks(f"the samples {Y_gen.shape}", Y_gen,
+                          NATIVE_SAMPLE_NS)
+    walls[47] = time.perf_counter() - t_phase
+    print(f"native host counters equal their numpy branches on the grid "
+          f"{Y_grid.shape} (n = {NATIVE_GRID_NS}) and the samples "
+          f"{Y_gen.shape} (n = {NATIVE_SAMPLE_NS}); walls at "
+          f"{len(Y_gen)} rows, native / numpy: " + ", ".join(
+              f"{k} {a:.3f} / {b:.3f} s" for k, (a, b) in timed.items())
+          + " (host)", flush=True)
+
+    # ---- 48. metric_tables over the million samples -----------------------
+    t_phase = time.perf_counter()
+    sample_meta = (samples / "s_meta.json").read_text()
+    compare_dirs = {}
+    for cut, rows in (("full", len(Y_gen)), ("cut", TABLES_CHECK_ROWS)):
+        d = root / "compare" / cut
+        d.mkdir(parents=True)
+        np.savez(d / "vae_argmax.npz",
+                 Y_generated=Y_gen[:rows].astype(np.uint8))
+        (d / "vae_argmax_meta.json").write_text(sample_meta)
+        compare_dirs[cut] = d
+
+    def tables(cut, name):
+        out = root / "tables" / name
+        t0 = time.perf_counter()
+        ran = metric_tables(grid, grid_meta, str(compare_dirs[cut]),
+                            str(out))
+        wall = time.perf_counter() - t0
+        csvs = {f: (out / f).read_bytes() for f in sorted(os.listdir(out))}
+        if len(ran) != TABLES_FUNCS or len(csvs) != TABLES_CSVS:
+            fail(f"metric_tables {name}: {len(ran)} metrics, {len(csvs)} "
+                 f"CSVs")
+        return csvs, wall
+
+    _, wall = tables("full", "full")
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    print(f"metric_tables: {TABLES_FUNCS} metric functions, {TABLES_CSVS} "
+          f"CSVs, {len(Y_gen)} samples against the grid's {len(Y_grid)} "
+          f"rows x {Y_grid.shape[1]} bins, native counters, in {wall:.3f} s "
+          f"(host); the process's peak RSS so far {rss:.2f} GB", flush=True)
+    native_csvs, t_native = tables("cut", "cut_native")
+    with numpy_branch():
+        numpy_csvs, t_numpy = tables("cut", "cut_numpy")
+    differ = [f for f in native_csvs if native_csvs[f] != numpy_csvs[f]]
+    if differ or list(native_csvs) != list(numpy_csvs):
+        fail(f"metric_tables at {TABLES_CHECK_ROWS} rows: CSVs differ "
+             f"between the native and numpy branches: {differ}")
+    walls[48] = time.perf_counter() - t_phase
+    print(f"metric_tables at {TABLES_CHECK_ROWS} rows: the {TABLES_CSVS} "
+          f"CSVs byte-equal between the native counters ({t_native:.3f} s) "
+          f"and the numpy branches ({t_numpy:.3f} s)", flush=True)
+
+    # ---- 49. compare_samples, plot_overview, visualize ----------------------
+    t_phase = time.perf_counter()
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("matplotlib", "click")}
+    print("on this machine: " + ", ".join(
+        f"{m} {'installed' if ok else 'absent'}" for m, ok in found.items()),
+        flush=True)
+    plots = found["matplotlib"]
+    out = root / "compare_samples"
+    specs = [(name, str(samples / f"{p}.npz"), str(samples / f"{p}_meta.json"))
+             for name, p in (("vae_argmax", "s"), ("vae_crf", "c"))]
+    t0 = time.perf_counter()
+    reports = compare_samples(specs, grid, str(out), make_plots=plots)
+    t_cmp = time.perf_counter() - t0
+    with open(out / "comparison_aggregate.csv", newline="",
+              encoding="utf-8") as f:
+        rows = list(csv.DictReader(f))
+    if [r["model"] for r in rows] != ["vae_argmax", "vae_crf"] or             [r["model"] for r in reports] != ["vae_argmax", "vae_crf"] or             not all(np.isfinite(float(v)) for r in rows
+                    for k, v in r.items() if k != "model"):
+        fail(f"compare_samples: aggregate rows {rows}")
+    for name, _, _ in specs:
+        if not (out / f"report_{name}.json").exists():
+            fail(f"compare_samples wrote no report_{name}.json")
+    print(f"compare_samples: {len(Y_gen)} argmax and {CRF_SAMPLES} CRF "
+          f"samples against the grid in {t_cmp:.3f} s (host); "
+          + "; ".join(f"{r['model']}: bigram L1 {float(r['bigram_L1']):.5f},"
+                      f" tod_jsd {float(r['tod_jsd_macro']):.5f}"
+                      for r in rows), flush=True)
+    if plots:
+        t0 = time.perf_counter()
+        plot_overview(grid, grid_meta, str(compare_dirs["full"]),
+                      str(root / "overview"))
+        visualize(str(samples / "s.npz"), str(samples / "s_meta.json"),
+                  str(root / "viz"), grid)
+        t_plots = time.perf_counter() - t0
+        pngs = {d: sorted(p.name for p in (root / d).glob("*.png"))
+                for d in ("compare_samples", "overview", "viz")}
+        want = {"compare_samples": 6, "overview": 1 + 2 * len(purpose_map),
+                "viz": 4}
+        if {d: len(v) for d, v in pngs.items()} != want or any(
+                (root / d / p).stat().st_size == 0
+                for d, v in pngs.items() for p in v):
+            fail(f"plots: {pngs}, want counts {want}")
+        print(f"plots: {sum(map(len, pngs.values()))} PNGs "
+              f"({', '.join(f'{d} {len(v)}' for d, v in pngs.items())}); "
+              f"plot_overview and visualize in {t_plots:.3f} s", flush=True)
+    else:
+        print("matplotlib is absent: the plot calls (compare_samples' "
+              "plots, plot_overview, visualize) were not run", flush=True)
+    walls[49] = time.perf_counter() - t_phase
+
+    # ---- 50. the CLI as subprocesses ------------------------------------------
+    t_phase = time.perf_counter()
+    cli = root / "cli"
+    cli.mkdir()
+    cli_grid = cli / "train_5min.npz"
+    cli_walls = {}
+    proc, cli_walls["--help"] = cli_ok(["--help"])
+    missing = [c for c in CLI_COMMANDS if c not in proc.stdout]
+    if missing:
+        fail(f"rgen_schedule --help lists no {missing}")
+    # phase 39 prepared with prepare_from_csv's val_frac 0.1 and seed 42
+    _, cli_walls["prepare"] = cli_ok(
+        ["prepare", "--activities", csv_path, "--grid", SCHED_GRID_MIN,
+         "--out", cli_grid, "--val-frac", "0.1", "--seed", "42"])
+    for suffix, keys in ((".npz", ("Y",)),
+                         ("_splits.npz", ("train_idx", "val_idx"))):
+        with np.load(str(cli_grid).replace(".npz", suffix)) as a, \
+                np.load(grid.replace(".npz", suffix)) as b:
+            if not all(same_arrays(a[k], b[k]) for k in keys):
+                fail(f"rgen_schedule prepare: {suffix} differs from phase "
+                     f"39's")
+    _, cli_walls["compute-pds"] = cli_ok(
+        ["compute-pds", "--grid", cli_grid, "--out", cli / "pds",
+         "--grid-min", SCHED_GRID_MIN, "--purpose-json",
+         str(cli_grid).replace(".npz", "_purpose_map.json")])
+    config = cli / "phase1.json"
+    config.write_text(json.dumps(schedule_config(
+        "phase1", data__npz=str(cli_grid), train__epochs=1)))
+    _, cli_walls["fit"] = cli_ok(["fit", "--config", config, "--output-dir",
+                                  cli / "vae", "--seed", SCHED_SEED])
+    if len(read_log(str(cli / "vae" / "training_log.csv"))) != 1:
+        fail("rgen_schedule fit: the log holds no single epoch")
+    prefix = cli / "samples" / "s"
+    _, cli_walls["sample-population"] = cli_ok(
+        ["sample-population", "--ckpt",
+         cli / "vae" / "checkpoints" / "best_val.ckpt", "--num-samples",
+         CLI_SAMPLES, "--outprefix", prefix, "--seed", SCHED_SEED,
+         "--reject-all-home"])
+    _, cli_walls["eval-population"] = cli_ok(
+        ["eval-population", "--samples", f"{prefix}.npz", "--samples-meta",
+         f"{prefix}_meta.json", "--reference", cli_grid, "--out-json",
+         cli / "report.json"])
+    report = json.loads((cli / "report.json").read_text())
+    if report["all_home_rate"] != 0.0 or report["L"] != Y_grid.shape[1]:
+        fail(f"rgen_schedule eval-population: {report}")
+    proc, cli_walls["metric-tables"] = cli_ok(
+        ["metric-tables", "--ref-npz", cli_grid, "--ref-meta",
+         str(cli_grid).replace(".npz", "_meta.json"), "--compare-dir",
+         cli / "samples", "--outdir", cli / "tables"])
+    if len(os.listdir(cli / "tables")) != TABLES_CSVS or \
+            not proc.stdout.startswith("Ran metrics: "):
+        fail(f"rgen_schedule metric-tables: {proc.stdout}")
+    proc, cli_walls["fit --data-parallel"] = cli_run(
+        ["fit", "--config", config, "--output-dir", cli / "dp",
+         "--data-parallel"])
+    if proc.returncode == 0 or "item 11" not in proc.stderr:
+        fail(f"rgen_schedule fit --data-parallel exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    walls[50] = time.perf_counter() - t_phase
+    print(f"rgen_schedule (python -m, one process each, on the card): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in cli_walls.items())
+          + f"; prepare's grid and splits equal phase 39's; fit "
+          f"--data-parallel exits {proc.returncode} naming item 11 "
+          f"[card {card}]", flush=True)
 
 
 if __name__ == "__main__":

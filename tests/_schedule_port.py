@@ -5,11 +5,13 @@ import copy
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from ananke_abm_tpu.models.gen_schedule.vae import ScheduleVAE as JVAE
 from ananke_abm_tpu_torch.models.gen_schedule.params import load_flax_params
 from ananke_abm_tpu_torch.models.gen_schedule.vae import ScheduleVAE as TVAE
+from ananke_abm_tpu_torch.ops import native as tnative
 
 L, P, Z, E, HOME = 24, 7, 4, 16, 2
 
@@ -84,3 +86,20 @@ def _pair(kind, seed=0, stats_seed=None):
 
 def _jvars(var):
     return {k: v for k, v in var.items() if v}
+
+
+def numpy_branch(monkeypatch):
+    """Force the port's host counters and rasterizer onto their numpy
+    branches: ``ops/native.available()`` False for the test."""
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+    assert not tnative.available()
+
+
+@pytest.fixture(params=["native", "numpy"])
+def host_branch(request, monkeypatch):
+    """The port's host counters and rasterizer through its native library,
+    or through their numpy branches."""
+    if request.param == "numpy":
+        numpy_branch(monkeypatch)
+    assert tnative.available() == (request.param == "native")
+    return request.param

@@ -1475,3 +1475,111 @@ def test_segment_sum_kernel_rejects_what_it_is_not_compiled_for(cuda):
     assert es.segment_sum.launches == before
     assert es._lib().ananke_segment_sum_max_features() == \
         es.MAX_SEGMENT_FEATURES
+
+
+# ---- the schedule VAE and its CRF (chip_smoke.py phases 40 and 44) ---------
+
+def _smoke():
+    """chip_smoke.py's module (its configs and bounds)."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    na, nb = a.norm().item(), b.norm().item()
+    if na == 0 and nb == 0:
+        return 1.0
+    return float((a @ b).item() / max(na * nb, 1e-300))
+
+
+def test_schedule_vae_step_matches_the_cpu(cuda):
+    """One VAE step at phase1's widths on 288 bins, card against CPU: the
+    same weights, rows and noise, dropout off; every loss component within
+    SCHED_STEP_RTOL and every gradient at cosine above SCHED_STEP_COS_MIN
+    (phase 40's check)."""
+    from ananke_abm_tpu_torch.models.gen_schedule import factory, params
+    from ananke_abm_tpu_torch.models.gen_schedule.pipeline import (
+        train as strain,
+    )
+    from ananke_abm_tpu_torch.models.gen_schedule.vae import (
+        init_params as init_vae,
+    )
+
+    cs = _smoke()
+    cfg = cs.schedule_config("phase1")
+    cfg["model"]["cnn_dropout"] = 0.0
+    names = ["Education", "Escort", "Home", "Other", "Shopping", "Social",
+             "Work"]
+    meta = {"purpose_map": {k: i for i, k in enumerate(names)}, "L": 288,
+            "grid_min": 5, "horizon_min": 1440}
+    rows = cs.SCHED_STEP_ROWS
+    rng = np.random.default_rng(0)
+    Y = torch.as_tensor(rng.integers(0, 7, size=(rows, 288)))
+    eps = torch.as_tensor(rng.standard_normal(
+        (rows, cfg["model"]["z_dim"])).astype(np.float32))
+    weights, out = None, {}
+    for where in ("cpu", cuda):
+        model, pds = factory.build_model(cfg, meta, device=where)
+        if weights is None:
+            init_vae(model, torch.Generator().manual_seed(0))
+            weights = params.to_flax_params(model)
+        params.load_flax_params(model, weights)
+        loss_fn = strain.make_loss_fn(model, 2, strain.loss_weights(cfg),
+                                      None)
+        model.train()
+        _, comps = loss_fn(Y.to(where), torch.ones(rows, device=where), 1.0,
+                           eps=eps.to(where))
+        comps["loss"].backward()
+        out[str(where)] = ({k: v.item() for k, v in comps.items()},
+                           {n: p.grad.cpu()
+                            for n, p in model.named_parameters()})
+    (cc, cg), (gc, gg) = out["cpu"], out[str(cuda)]
+    for k, v in cc.items():
+        if v != 0.0:
+            assert abs(gc[k] - v) / abs(v) <= cs.SCHED_STEP_RTOL, k
+    for n in cg:
+        assert _cosine(gg[n], cg[n]) > cs.SCHED_STEP_COS_MIN, n
+
+
+def test_crf_recursions_match_the_cpu(cuda):
+    """log Z, the Viterbi decode and the constrained decode on
+    CRF_CHECK_ROWS rows of 288 x 7 unaries, card against CPU: log Z and the
+    paths' scores within CRF_RTOL, no all-home constrained path (phase
+    44's check)."""
+    from ananke_abm_tpu_torch.ops.crf import (
+        crf_log_partition,
+        crf_path_score,
+        viterbi_decode,
+        viterbi_decode_no_all_home,
+    )
+
+    cs = _smoke()
+    g = torch.Generator().manual_seed(0)
+    U = torch.randn(cs.CRF_CHECK_ROWS, 288, 7, generator=g) * 2.0
+    U[:, :, 2] += 3.0  # home-heavy unaries: the constraint binds
+    A = torch.randn(7, 7, generator=g)
+    got = {}
+    for where in ("cpu", cuda):
+        u, a = U.to(where), A.to(where)
+        got[str(where)] = (crf_log_partition(u, a).cpu(),
+                           viterbi_decode(u, a).cpu(),
+                           viterbi_decode_no_all_home(u, a, 2).cpu())
+    (zc, pc, qc), (zg, pg, qg) = got["cpu"], got[str(cuda)]
+
+    def rel(x, y):
+        return ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+
+    assert rel(zg, zc) <= cs.CRF_RTOL
+    assert rel(crf_path_score(U, pg, A), crf_path_score(U, pc, A)) <= \
+        cs.CRF_RTOL
+    assert rel(crf_path_score(U, qg, A), crf_path_score(U, qc, A)) <= \
+        cs.CRF_RTOL
+    assert not (qg == 2).all(dim=1).any()

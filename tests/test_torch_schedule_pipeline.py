@@ -17,7 +17,14 @@ import pandas as pd
 import pytest
 import yaml
 
-from _schedule_port import HOME, L, P, _rel, _t  # noqa: E402
+from _schedule_port import (  # noqa: E402,F401
+    HOME,
+    L,
+    P,
+    _rel,
+    _t,
+    host_branch,
+)
 from ananke_abm_tpu.data_generator import population as jpop
 from ananke_abm_tpu.dataio import rasterize as jrast
 from ananke_abm_tpu.dataio import splits as jsplits
@@ -265,6 +272,7 @@ def test_segments_equal_jax():
 
 # ---- host copies ---------------------------------------------------------
 
+
 @pytest.mark.parametrize("n,seed", [(64, 7), (500, 0), (1, 3)])
 def test_population_equals_jax(n, seed, tmp_path):
     df = jpop.generate_population_activities(n, seed=seed)
@@ -321,7 +329,7 @@ RASTER_CASES = {
 
 @pytest.mark.parametrize("case", list(RASTER_CASES))
 @pytest.mark.parametrize("grid_min", [5, 60])
-def test_rasterizer_cases_equal_jax(case, grid_min):
+def test_rasterizer_cases_equal_jax(case, grid_min, host_branch):
     rows, pm = RASTER_CASES[case]
     df, cols = _frame(rows)
     Yj, pj = jrast.rasterize_frame(df, pm, grid_min=grid_min)
@@ -339,7 +347,7 @@ def test_ensure_homebound_equals_jax(Y):
                                   jrast.ensure_homebound(Y, 0))
 
 
-def test_population_grid_equals_jax(prepared, tmp_path):
+def test_population_grid_equals_jax(prepared, tmp_path, host_branch):
     root, grid = prepared
     df = pd.read_csv(root / "activities.csv")
     cols = trast.read_csv(str(root / "activities.csv"))
@@ -353,6 +361,11 @@ def test_population_grid_equals_jax(prepared, tmp_path):
     jout = str(tmp_path / "j.npz")
     jrast.prepare_from_csv(str(root / "activities.csv"), jout, grid_min=60,
                            val_frac=0.2, seed=5)
+    tout = str(tmp_path / "t.npz")
+    trast.prepare_from_csv(str(root / "activities.csv"), tout, grid_min=60,
+                           val_frac=0.2, seed=5)
+    with np.load(tout) as a, np.load(grid) as b:
+        np.testing.assert_array_equal(a["Y"], b["Y"])
     for suffix in ("_meta.json", "_purpose_map.json"):
         assert Path(jout.replace(".npz", suffix)).read_text() == \
             Path(grid.replace(".npz", suffix)).read_text()
@@ -376,7 +389,7 @@ def test_population_grid_equals_jax(prepared, tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
-def test_pds_and_metrics_equal_jax(prepared, tmp_path):
+def test_pds_and_metrics_equal_jax(prepared, tmp_path, host_branch):
     root, grid = prepared
     pm = grid.replace(".npz", "_purpose_map.json")
     sj = jpds.compute_pds(grid, str(tmp_path / "j"), 60, pm)

@@ -3,6 +3,8 @@
 the JAX package's ``make_loss_fn`` and ``make_epoch_fns`` on the same
 seeded inputs, on the CPU."""
 import copy
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ from _schedule_port import (  # noqa: E402
     JVAE,
     L,
     P,
+    TVAE,
     Z,
     _jvars,
     _labels,
@@ -32,6 +35,7 @@ from ananke_abm_tpu_torch.models.gen_schedule.params import (
     to_flax_params,
 )
 from ananke_abm_tpu_torch.models.gen_schedule.pipeline import train as ttrain
+from ananke_abm_tpu_torch.utils.ckpt import load_checkpoint
 from ananke_abm_tpu_torch.utils.optim import ClippedAdamW
 
 
@@ -219,3 +223,120 @@ def test_epoch_matches_jax_train_and_eval_epochs(kind, batch_size):
     for i, k in enumerate(ttrain.COMPONENTS):
         if abs(float(va_m[k])) > 0:
             assert _rel(got_va[i], va_m[k]) <= 1e-5, k
+
+
+# ---- train.epochs_per_jit against the reference's chunked scan ---------------
+
+def _grid(tmp_path, n=56):
+    names = ["A", "B", "Home", "C", "D", "E", "F"]  # "Home" at HOME
+    pm = {k: i for i, k in enumerate(names)}
+    grid = str(tmp_path / "grid.npz")
+    np.savez(grid, Y=_labels(31, n=n))
+    with open(grid.replace(".npz", "_meta.json"), "w") as f:
+        json.dump({"purpose_map": pm, "L": L, "grid_min": 1440 // L,
+                   "horizon_min": 1440}, f)
+    idx = np.random.default_rng(32).permutation(n)
+    np.savez(grid.replace(".npz", "_splits.npz"), train_idx=idx[:40],
+             val_idx=idx[40:])
+    return grid
+
+
+def _saves(module, monkeypatch):
+    """Record (file, epoch) of each checkpoint ``module``'s train() writes."""
+    seen = []
+    real = module.save_checkpoint
+
+    def save(obj, path):
+        seen.append((os.path.basename(path), int(obj["epoch"])))
+        real(obj, path)
+
+    monkeypatch.setattr(module, "save_checkpoint", save)
+    return seen
+
+
+def test_epochs_per_jit_matches_the_reference_chunked_scan(tmp_path,
+                                                          monkeypatch):
+    """``train.epochs_per_jit: 2`` in both packages with JAX's initial
+    weights, permutations and noise injected into the port: the same
+    per-epoch log (the reference's bound between two float32
+    trajectories), ``last.ckpt`` written at the same chunk ends (a chunk
+    that crossed a multiple of ckpt_every, and the stop inside the last
+    chunk), and the same final checkpoints."""
+    seed = 3
+    cfg = {"data": {"npz": _grid(tmp_path)},
+           "train": {"epochs": 7, "min_epochs": 5, "patience": 0,
+                     "batch_size": 20, "lr": 1e-3, "weight_decay": 1e-4,
+                     "grad_clip": 5.0, "beta_target": 1.0,
+                     "beta_warm_frac": 0.3, "lambda_tv": 0.02,
+                     "lambda_home": 0.2, "ckpt_every": 3,
+                     "epochs_per_jit": 2},
+           "model": {"method": "baseline_cnn", "z_dim": Z, "emb_dim": 16,
+                     "cnn_channels": [8], "cnn_kernel": 3,
+                     "cnn_dropout": 0.0}}
+    with open(cfg["data"]["npz"].replace(".npz", "_meta.json")) as f:
+        meta = json.load(f)
+    jsaves, tsaves = _saves(jtrain, monkeypatch), _saves(ttrain, monkeypatch)
+    jres = jtrain.train(copy.deepcopy(cfg), str(tmp_path / "jax"), seed=seed)
+
+    # the port, fed the reference's initial weights, permutations and noise
+    base = jax.random.PRNGKey(seed)
+    k0 = jax.random.fold_in(base, 0)
+    jm, _ = jtrain.build_model(cfg, meta)
+    init = _np(jm.init({"params": k0, "dropout": k0},
+                       jnp.zeros((2, L), jnp.int32), k0, pds_features=None,
+                       deterministic=True))
+    monkeypatch.setattr(ttrain, "init_params", lambda model, gen:
+                        load_flax_params(model, init["params"],
+                                         init.get("batch_stats")))
+    monkeypatch.setattr(ttrain, "generator", lambda device, seed, epoch:
+                        jax.random.fold_in(base, epoch))
+    make_epoch_fns = ttrain.make_epoch_fns
+
+    def keyed_epoch_fns(model, optimizer, loss_fn, batch_size):
+        tr, ev = make_epoch_fns(model, optimizer, loss_fn, batch_size)
+
+        def eps(key, nb):
+            return [_t(jax.random.normal(jax.random.fold_in(key, i + 1),
+                                         (batch_size, Z))) for i in range(nb)]
+
+        def train_epoch(Y, key, beta, nb):
+            perm = _t(jax.random.permutation(jax.random.fold_in(key, 0),
+                                             Y.shape[0]), torch.long)
+            return tr(Y, None, beta, nb, perm=perm, eps=eps(key, nb))
+
+        def eval_epoch(Y, key, beta, nb):
+            return ev(Y, None, beta, nb, eps=eps(key, nb))
+
+        return train_epoch, eval_epoch
+
+    monkeypatch.setattr(ttrain, "make_epoch_fns", keyed_epoch_fns)
+    tres = ttrain.train(copy.deepcopy(cfg), str(tmp_path / "port"),
+                        seed=seed, device="cpu")
+
+    # epochs 1-5 (stopping at min_epochs, inside the chunk 5-6); last.ckpt
+    # after the chunk 3-4, which crossed epoch 3, then at exit
+    assert jsaves[:2] == [("last.ckpt", 4), ("last.ckpt", 5)]
+    assert tsaves == jsaves
+    assert tres["epochs_ran"] == jres["epochs_ran"] == 5
+    np.testing.assert_allclose(tres["best_val_loss"], jres["best_val_loss"],
+                               **TRAJ_LOSS)
+    jlog = np.genfromtxt(tmp_path / "jax" / "training_log.csv",
+                         delimiter=",", names=True)
+    tlog = np.genfromtxt(tmp_path / "port" / "training_log.csv",
+                         delimiter=",", names=True)
+    assert tlog.dtype.names == jlog.dtype.names
+    for name in jlog.dtype.names:
+        np.testing.assert_allclose(tlog[name], jlog[name], err_msg=name,
+                                   **TRAJ_LOSS)
+    for name in ("last.ckpt", "best_val.ckpt"):
+        j = load_checkpoint(str(tmp_path / "jax" / "checkpoints" / name))
+        t = load_checkpoint(str(tmp_path / "port" / "checkpoints" / name))
+        assert t["epoch"] == j["epoch"], name
+        load_flax_params(tm := TVAE(L, P, Z, 16, encoder_kind="cnn",
+                                    cnn_channels=(8,), cnn_kernel=3,
+                                    cnn_dropout=0.0), t["params"])
+        var_j = {"params": j["params"], "batch_stats": {}}
+        want, got = _outputs(jm, tm, var_j, None)
+        for out, a, b in zip(("mu", "logvar", "logits"), want, got):
+            np.testing.assert_allclose(b, a, err_msg=f"{name} {out}",
+                                       **TRAJ_PARAMS)
