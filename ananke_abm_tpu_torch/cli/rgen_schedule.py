@@ -19,33 +19,8 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 
-DEVICES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
-# what --data-parallel hands the entry points as their ``mesh``: the
-# reference builds a mesh over every attached device there
-DATA_PARALLEL = "every attached device"
-
-
-def platform_device() -> str:
-    """The device that ``ANANKE_PLATFORM`` names (the card when unset)."""
-    name = os.environ.get("ANANKE_PLATFORM")
-    if not name:
-        return "cuda"
-    if name not in DEVICES:
-        raise ValueError(f"ANANKE_PLATFORM={name!r}: expected one of "
-                         f"{sorted(DEVICES)}")
-    return DEVICES[name]
-
-
-def _mesh(data_parallel: bool):
-    return DATA_PARALLEL if data_parallel else None
-
-
-def _existing(path: str) -> str:
-    if not os.path.exists(path):
-        raise argparse.ArgumentTypeError(f"Path '{path}' does not exist.")
-    return path
+from ananke_abm_tpu_torch.cli import _existing, _mesh, platform_device
 
 
 def prepare(args):

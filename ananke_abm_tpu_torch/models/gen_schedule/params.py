@@ -72,11 +72,11 @@ def _norm_name(norm):
     return "SyncBatchNorm" if isinstance(norm, nn.BatchNorm1d) else "GroupNorm"
 
 
-def param_entries(model) -> dict:
-    """flax path -> (layout, [PyTorch views]) for every parameter."""
+def encoder_entries(enc) -> dict:
+    """flax path -> (layout, [PyTorch views]) for every parameter of a CNN
+    or RNN schedule encoder, under ``encoder``."""
     out = {}
-    enc, dec = model.encoder, model.decoder
-    E, D = ("encoder",), ("decoder",)
+    E = ("encoder",)
     out[E + ("Embed_0", "embedding")] = ("=", [enc.embed.weight])
     if isinstance(enc, ScheduleEncoderCNN):
         for i, block in enumerate(enc.blocks):
@@ -98,6 +98,14 @@ def param_entries(model) -> dict:
                     _rnn_entries(enc.rnn, enc.cell).items()})
     _linear(E + ("Dense_0",), enc.mu, out)
     _linear(E + ("Dense_1",), enc.logvar, out)
+    return out
+
+
+def param_entries(model) -> dict:
+    """flax path -> (layout, [PyTorch views]) for every parameter."""
+    out = encoder_entries(model.encoder)
+    dec = model.decoder
+    D = ("decoder",)
     out[D + ("time_basis",)] = ("=", [dec.time_basis])
     if model.use_pds:
         _linear(D + ("latent_proj_in",), dec.latent_proj_in, out)
@@ -166,11 +174,10 @@ def _set(tree, path, value):
 
 
 @torch.no_grad()
-def load_flax_params(model, params: dict, batch_stats: dict | None = None):
-    """Copy a flax ``params`` tree (and ``batch_stats``, where the model has
-    batch norm) into ``model``. Raises on a missing, extra or misshapen
-    leaf."""
-    entries = param_entries(model)
+def load_entries(entries: dict, params: dict):
+    """Copy a flax ``params`` tree into the views that ``entries`` (flax
+    path -> (layout, [views])) names. Raises on a missing, extra or
+    misshapen leaf."""
     extra = set(_leaf_paths(params)) - set(entries)
     if extra:
         raise KeyError(f"flax tree has leaves the model lacks: "
@@ -183,6 +190,14 @@ def load_flax_params(model, params: dict, batch_stats: dict | None = None):
         views[0].copy_(value)
         for other in views[1:]:
             other.zero_()
+
+
+@torch.no_grad()
+def load_flax_params(model, params: dict, batch_stats: dict | None = None):
+    """Copy a flax ``params`` tree (and ``batch_stats``, where the model has
+    batch norm) into ``model``. Raises on a missing, extra or misshapen
+    leaf."""
+    load_entries(param_entries(model), params)
     stats = stats_entries(model)
     if stats:
         if not batch_stats:
@@ -191,15 +206,21 @@ def load_flax_params(model, params: dict, batch_stats: dict | None = None):
             buf.copy_(torch.tensor(np.asarray(_get(batch_stats, path))))
 
 
-def to_flax_params(model) -> dict:
-    """The model's parameters as a flax ``params`` tree of numpy arrays."""
+def entries_to_flax(entries: dict) -> dict:
+    """The views that ``entries`` names as a flax ``params`` tree of numpy
+    arrays."""
     out = {}
-    for path, (layout, views) in param_entries(model).items():
+    for path, (layout, views) in entries.items():
         total = views[0].detach()
         for other in views[1:]:
             total = total + other.detach()
         _set(out, path, _to_flax(total, layout))
     return out
+
+
+def to_flax_params(model) -> dict:
+    """The model's parameters as a flax ``params`` tree of numpy arrays."""
+    return entries_to_flax(param_entries(model))
 
 
 def to_flax_batch_stats(model) -> dict:

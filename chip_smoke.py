@@ -14,9 +14,12 @@ adjoint with a bf16 forward (K5's bf16 branch, K6) and the segment sum
 (K9e); and the schedule-VAE population pipeline (no hand-written kernel):
 synthesize, rasterize, fit, sample, the CRF, evaluate, the metric tables
 over the native host counters, ``compare_samples`` and the
-``rgen_schedule`` CLI. Phases 39-50, which launch no hand-written kernel,
-run right after phase 1, on the card and the host while phase 2's nvcc
-processes compile; the kernel phases 3-38 follow the build.
+``rgen_schedule`` CLI; the traj_syn family (the purposes catalog, the
+buffer grid, the semi-CRF, the TrajEmbed VAE's train -> generate ->
+validate) and the ``ananke`` CLI. Phases 39-55, which launch no
+hand-written kernel, run right after phase 1, on the card and the host
+while phase 2's nvcc processes compile; the kernel phases 3-38 follow the
+build, then phase 56 (the ``ananke`` CLI's GAT-ODE commands).
 
 Run from the repository root, on a machine with a CUDA device:
 
@@ -268,9 +271,48 @@ Phases (any failure raises and the script exits non-zero):
     equal to phase 39's grid and splits; ``compute-pds``, ``fit`` (phase1,
     1 epoch), ``sample-population`` (CLI_SAMPLES), ``eval-population``,
     ``metric-tables``; ``fit --data-parallel`` exits non-zero naming item
-    11; each command's wall; then each schedule phase's wall.
+    11; each command's wall;
+51. the traj_syn family's host copies on phase 39's activities: the
+    purposes catalog (``build_purposes_catalog``: LEAD_COLUMNS, 7
+    purposes) and the 5-minute buffer grid over 1800 minutes (42,817 x
+    360, the last bin Home) through the native and the numpy rasterizer,
+    equal; their walls;
+52. the semi-CRF at TrajEmbedConfig's full width, card against CPU on
+    TRAJ_CHECK_ROWS rows of that grid (P = 7, D = 60; seeded unaries,
+    durations and transitions): log Z at both ``allow_self``, the gold
+    marginal, the path score and ``semicrf_nll`` (both modes) within
+    SEMI_RTOL, the NLL's gradients into the unaries, the durations and A
+    at cosine > SEMI_COS_MIN, the decoded labels at both ``allow_self``
+    agreeing at SEMI_LABELS_MIN with their path scores within SEMI_RTOL,
+    no run longer than Dmax without ``allow_self``; each call's time on
+    the card;
+53. ``train_traj_embed`` at full width (L = 360, z 16, emb 128, CNN (64,
+    64), batch 32), ``semi`` with ``exact_long`` and ``linear``, for
+    TRAJ_EPOCHS epochs on the first TRAJ_TRAIN_ROWS persons (a cut of
+    depth): finite losses, ``ckpt_best.ckpt`` written, the epoch walls;
+    one step of each mode under ``torch.profiler`` (busy share, device
+    operations);
+54. from phase 53's checkpoints: ``generate_trajectories`` (schedules a
+    second) and ``gen_n_val_traj`` of TRAJ_GEN schedules in each decode
+    mode (semi, linear, none) against the activities; one chunk decoded
+    on the card and on the CPU with the same z (labels at
+    SEMI_LABELS_MIN); ``synthesize_vae`` and ``analyze_vae``;
+55. ``python -m ananke_abm_tpu_torch.cli.main`` as subprocesses: ``--help``
+    lists the seven commands, ``make-purposes`` equal to phase 51's
+    catalog, ``traj-embed`` (semi, 1 epoch on the cut) then ``gval-traj``,
+    ``traj-embed --data-parallel`` exits non-zero naming item 11,
+    ``visualize-combined-traj`` (its PNGs, or a non-zero exit naming
+    matplotlib where it is absent), ``info``; each command's wall; then
+    each schedule phase's wall;
+56. (after the build) ``ananke gatode-train`` (GATODE_CLI_EPOCHS epochs,
+    its other options at their defaults) and ``gatode-serve --use-pallas
+    on`` / ``off`` as subprocesses of the CLI's main that print their
+    kernel launches (K2f, K2b, K3f, K3b, K4f, K4b once a step; K1 47 times
+    on, none off); each served grid bit-equal to ``serve()`` in this
+    process; the kernel's ids against its plain version's body at
+    SLICE_IDS_MIN, and against the float32 body (off) printed.
 
-``python3 chip_smoke.py --schedule`` runs phase 1 and phases 39-50 only,
+``python3 chip_smoke.py --schedule`` runs phase 1 and phases 39-55 only,
 with no CUDA kernel build (their path launches no hand-written kernel).
 ``python3 chip_smoke.py --readings`` runs phases 1-2 and then only the
 training kernels' checks of phase 10, at DAY_SHAPES and DEPTH_SHAPES for 3
@@ -542,7 +584,8 @@ def device_busy(label, fn, card):
     device's busy and idle share of its wall time (the sum of the device
     time of its kernels, copies and fills, one stream, over the host clock
     around the synced call) and the device time by kernel name, largest
-    first; "not measured" where the profiler saw no device time."""
+    first; "not measured" where the profiler saw no device time. Returns
+    (busy ms, wall ms, device operations), or None where not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -560,11 +603,12 @@ def device_busy(label, fn, card):
             by_name[e.key] = (ms + e.self_device_time_total / 1e3,
                               n + e.count)
     busy = sum(ms for ms, _ in by_name.values())
+    launches = sum(n for _, n in by_name.values())
     if busy == 0:
         print(f"device busy share, {label}: not measured (the profiler "
               f"recorded no device time in a {wall:.3f} ms step) "
               f"[card {card}]", flush=True)
-        return
+        return None
     print(f"device busy share, {label}: {busy:.3f} ms of device time in a "
           f"{wall:.3f} ms step (host clock, profiled): busy {busy / wall:.1%}"
           f", idle {1 - busy / wall:.1%} [card {card}]", flush=True)
@@ -572,6 +616,7 @@ def device_busy(label, fn, card):
     print(f"device time by kernel, {label}: " + "; ".join(
         f"{name[:48]} {ms:.3f} ms x{n}" for name, (ms, n) in top[:10]),
         flush=True)
+    return busy, wall, launches
 
 
 @contextlib.contextmanager
@@ -657,8 +702,8 @@ def main():
                         "of the checkouts at DIR (DIR+PROBE: a probe "
                         "variant of DIR's sources)")
     parser.add_argument("--schedule", action="store_true",
-                        help="run phase 1 and the schedule-VAE phases "
-                        "39-50 only (no CUDA kernel build)")
+                        help="run phase 1 and the host and schedule phases "
+                        "39-55 only (no CUDA kernel build)")
     parser.add_argument("--ab-gat", metavar="DIR", nargs="+",
                         help="compare and time the zone-graph kernels "
                         "(K4f, K4b, the CSR pair, K9e) against those of "
@@ -754,11 +799,11 @@ def main():
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         building = pool.submit(build)
         if smoke:
-            # phases 39-50 launch no hand-written kernel: they run on the
+            # phases 39-55 launch no hand-written kernel: they run on the
             # card and the host while nvcc compiles
             t_sched = time.perf_counter()
             schedule_phases(dev, card)
-            print(f"schedule phases 39-50 in "
+            print(f"schedule phases 39-55 in "
                   f"{time.perf_counter() - t_sched:.1f} s, beside the build",
                   flush=True)
         built, t_build = building.result()
@@ -960,7 +1005,8 @@ def main():
     k8a = fused_pair_phases(dev, card)
     k5b = bf16_forward_phases(dev, card)
     k9e = segment_phases(dev, card)
-    print(f"smoke: phases 1-50 in {time.perf_counter() - t_start:.1f} s, "
+    gatode_cli_phase(card)
+    print(f"smoke: phases 1-56 in {time.perf_counter() - t_start:.1f} s, "
           f"the build included", flush=True)
 
     print(card)
@@ -5421,6 +5467,7 @@ def schedule_phases(dev, card):
           f"{report['bigram']['L1']:.5f}, diversity "
           f"{report['diversity_ratio']:.5f} [card {card}]", flush=True)
     comparison_phases(card, root, grid, csv_path, walls)
+    traj_phases(dev, card, root, acts, csv_path, walls)
     print("schedule phases wall: " + ", ".join(
         f"{k}: {v:.1f} s" for k, v in walls.items())
         + f"; {sum(walls.values()):.1f} s in all", flush=True)
@@ -5771,6 +5818,537 @@ def comparison_phases(card, root, grid, csv_path, walls):
           + f"; prepare's grid and splits equal phase 39's; fit "
           f"--data-parallel exits {proc.returncode} naming item 11 "
           f"[card {card}]", flush=True)
+
+
+# ---- the traj_syn family and the ananke CLI (phases 51-56) -----------------
+
+# TrajEmbedConfig's full width: L = 1800 / 5 = 360 bins, z 16, emb 128, CNN
+# (64, 64) kernel 5, batch 32; the semi-CRF's Dmax = 300 / 5 = 60 bins
+TRAJ_GRID_MIN = 5
+TRAJ_DMAX_MIN = 300
+# phase 52: the rows of the semi-CRF's card-against-CPU check (the CPU's
+# recursions at 32 x 360 x 60 x 7 x 7 take seconds), the bounds (float32
+# against float32, the reference's recursions in another summation order):
+# log Z, the gold marginal, the path score and the NLL relative; the NLL's
+# gradients' cosine; the decoded labels' agreement (a tie broken the other
+# way moves a segment's end) and their path scores relative
+TRAJ_CHECK_ROWS = 32
+SEMI_RTOL = 1e-5
+SEMI_COS_MIN = 0.99999
+SEMI_LABELS_MIN = 0.999
+# phase 53 (a cut of depth): train_traj_embed on the first TRAJ_TRAIN_ROWS
+# persons of phase 39's 42,817 for TRAJ_EPOCHS epochs (the reference runs
+# 1,000-3,000 epochs on VISTA; an eager semi-CRF step takes ~1.1 s)
+TRAJ_TRAIN_ROWS = 128
+TRAJ_EPOCHS = 2
+# phase 54: schedules generated in each decode mode; phase 55: by the CLI
+TRAJ_GEN = 4_096
+CLI_TRAJ_GEN = 1_024
+ANANKE_COMMANDS = ("traj-embed", "gval-traj", "visualize-combined-traj",
+                   "make-purposes", "gatode-train", "gatode-serve", "info")
+# phase 56: gatode-train's epochs (its other options at their defaults)
+GATODE_CLI_EPOCHS = 2
+# the CLI's main in a process of its own that prints, as its last line, the
+# launch counts of the kernel wrappers after the command
+CLI_PROBE = (
+    "import json, sys\n"
+    "from ananke_abm_tpu_torch.cli.main import main\n"
+    "from ananke_abm_tpu_torch.ops.cuda import fused_gat, fused_step, "
+    "fused_train\n"
+    "main(sys.argv[1:])\n"
+    "ks = {'K1': fused_step.rk4_interval_decode_fused,\n"
+    "      'K2f': fused_train.day_forward_fused,\n"
+    "      'K2b': fused_train.day_backward_fused,\n"
+    "      'K3f': fused_train.ce_forward_fused,\n"
+    "      'K3b': fused_train.ce_backward_fused,\n"
+    "      'K4f': fused_gat.gat_forward_fused,\n"
+    "      'K4b': fused_gat.gat_backward_fused}\n"
+    "print(json.dumps({k: f.launches for k, f in ks.items()}))\n")
+
+
+def ananke_run(argv, timeout=900, probe=False):
+    """``python -m ananke_abm_tpu_torch.cli.main *argv`` (or, with
+    ``probe``, the same main under CLI_PROBE) from the checkout's root on
+    the card (no ANANKE_PLATFORM): (process, wall)."""
+    env = {k: v for k, v in os.environ.items() if k != "ANANKE_PLATFORM"}
+    head = ["-c", CLI_PROBE] if probe else ["-m",
+                                            "ananke_abm_tpu_torch.cli.main"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *head, *map(str, argv)], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    return proc, time.perf_counter() - t0
+
+
+def ananke_ok(argv, probe=False):
+    proc, wall = ananke_run(argv, probe=probe)
+    if proc.returncode != 0:
+        fail(f"ananke {argv[0]} exited {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc, wall
+
+
+def labels_agree(a, b):
+    return (a == b).float().mean().item()
+
+
+def longest_run(labels):
+    """The longest run of one label in any row of a (B, T) tensor."""
+    Y = labels.cpu().numpy()
+    best = 0
+    for row in Y:
+        change = np.flatnonzero(np.r_[True, row[1:] != row[:-1], True])
+        best = max(best, int(np.diff(change).max()))
+    return best
+
+
+def semi_crf_checks(dev, card, Y_grid):
+    """Phase 52: the semi-CRF at full width, card against CPU, on
+    TRAJ_CHECK_ROWS rows of the L = 360 grid; returns the card's times."""
+    from ananke_abm_tpu_torch.ops import semi_crf as sc
+
+    B, D = TRAJ_CHECK_ROWS, TRAJ_DMAX_MIN // TRAJ_GRID_MIN
+    P = int(Y_grid.max()) + 1
+    g = torch.Generator().manual_seed(SCHED_SEED)
+    U = torch.randn(B, Y_grid.shape[1], P, generator=g) * 2.0
+    dur = torch.randn(P, D, generator=g) * 0.5
+    A = torch.randn(P, P, generator=g) * 0.5
+    y = torch.as_tensor(Y_grid[:B], dtype=torch.int64)
+    out = {}
+    for where in ("cpu", dev):
+        u, d, a, lab = (t.to(where) for t in (U, dur, A, y))
+        res = {"logZ": sc.semicrf_log_partition(u, d, a).cpu(),
+               "logZ_self": sc.semicrf_log_partition(u, d, a, True).cpu(),
+               "gold": sc.semicrf_gold_log_marginal(u, lab, d, a).cpu(),
+               "path": sc.semicrf_path_score(u, lab, d, a).cpu()}
+        for exact in (False, True):
+            leaves = [t.clone().requires_grad_(True) for t in (u, d, a)]
+            nll = sc.semicrf_nll(leaves[0], lab, leaves[1], leaves[2],
+                                 exact_long=exact)
+            nll.backward()
+            res[f"nll_{exact}"] = nll.detach().cpu().reshape(1)
+            res[f"grads_{exact}"] = [t.grad.cpu() for t in leaves]
+        for self_ in (False, True):
+            res[f"decode_{self_}"] = sc.semicrf_decode(u, d, a, self_).cpu()
+        out[str(where)] = res
+    cpu, card_out = out["cpu"], out[str(dev)]
+    rels = {k: max_rel(card_out[k], cpu[k])
+            for k in ("logZ", "logZ_self", "gold", "path", "nll_False",
+                      "nll_True")}
+    coss = {f"{k} {n}": cosine(gg, cg)
+            for k in ("grads_False", "grads_True")
+            for n, gg, cg in zip(("U", "dur", "A"), card_out[k], cpu[k])}
+    agree = {k: labels_agree(card_out[k], cpu[k])
+             for k in ("decode_False", "decode_True")}
+    path_rel = max_rel(sc.semicrf_path_score(U, card_out["decode_False"].long(),
+                                             dur, A),
+                       sc.semicrf_path_score(U, cpu["decode_False"].long(),
+                                             dur, A))
+    run = longest_run(card_out["decode_False"])
+    print(f"semi-CRF at L={Y_grid.shape[1]}, D={D}, P={P} on {B} rows, card "
+          f"against CPU: " + ", ".join(f"{k} rel {v:.2e}"
+                                       for k, v in rels.items())
+          + f" (<= {SEMI_RTOL}); gradient cosines " + ", ".join(
+              f"{k} {v:.9f}" for k, v in coss.items())
+          + f" (> {SEMI_COS_MIN}); decoded labels agree " + ", ".join(
+              f"allow_self={k[7:]} {v:.6f}" for k, v in agree.items())
+          + f" (>= {SEMI_LABELS_MIN}), their path scores rel {path_rel:.2e};"
+          f" longest decoded run without allow_self {run} bins (<= {D})",
+          flush=True)
+    if max(rels.values()) > SEMI_RTOL or path_rel > SEMI_RTOL:
+        fail("the card's semi-CRF recursions disagree with the CPU's")
+    if min(coss.values()) <= SEMI_COS_MIN:
+        fail("the card's semi-CRF gradients disagree with the CPU's")
+    if min(agree.values()) < SEMI_LABELS_MIN:
+        fail("the card's semi-CRF decode disagrees with the CPU's")
+    if run > D:
+        fail(f"a decoded run of {run} bins exceeds Dmax = {D} bins")
+
+    # the card's times: the recursions at the training batch (32 rows), the
+    # decode at the generation chunk (512 rows)
+    u32, d, a, lab32 = (t.to(dev) for t in (U[:32], dur, A, y[:32]))
+    u512 = torch.randn(512, Y_grid.shape[1], P, device=dev) * 2.0
+
+    def nll_step():
+        leaf = u32.clone().requires_grad_(True)
+        sc.semicrf_nll(leaf, lab32, d, a, exact_long=True).backward()
+
+    times = {
+        "log Z (32 rows)": cuda_ms(lambda: sc.semicrf_log_partition(
+            u32, d, a, True), 3),
+        "gold marginal (32)": cuda_ms(lambda: sc.semicrf_gold_log_marginal(
+            u32, lab32, d, a), 3),
+        "path score (32)": cuda_ms(lambda: sc.semicrf_path_score(
+            u32, lab32, d, a), 3),
+        "NLL exact_long + backward (32)": cuda_ms(nll_step, 3),
+        "decode allow_self (512)": cuda_ms(lambda: sc.semicrf_decode(
+            u512, d, a, True), 3),
+        "decode (512)": cuda_ms(lambda: sc.semicrf_decode(u512, d, a), 3),
+    }
+    print("semi-CRF on the card (CUDA events, eager): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in times.items()) + f" [card {card}]",
+        flush=True)
+    return times
+
+
+def cut_activities(acts, n_persons):
+    """The activities of the first ``n_persons`` persons."""
+    keep = np.isin(acts["persid"], np.unique(acts["persid"])[:n_persons])
+    return {k: v[keep] for k, v in acts.items()}
+
+
+def traj_step_profile(dev, card, mode, Y):
+    """One traj_embed step at full width in ``mode`` under torch.profiler:
+    (busy ms, wall ms, device operations) or None."""
+    from ananke_abm_tpu_torch.models.traj_syn.configs import (
+        CRFConfig,
+        TrajEmbedConfig,
+    )
+    from ananke_abm_tpu_torch.models.traj_syn.model import init_params
+    from ananke_abm_tpu_torch.models.traj_syn.pipeline import train_full as tf
+    from ananke_abm_tpu_torch.utils.optim import ClippedAdamW
+    from ananke_abm_tpu_torch.utils.seed import generator
+
+    cfg = TrajEmbedConfig()
+    crf_cfg = CRFConfig(crf_mode=mode, semi_Dmax_minutes=TRAJ_DMAX_MIN)
+    P = int(Y.max()) + 1
+    model = tf.build_model(cfg, Y.shape[1], P, dev)
+    init_params(model, torch.Generator().manual_seed(0))
+    crf = tf.init_crf_head(generator(dev, 0, 1), P, crf_cfg)
+    for v in crf.values():
+        v.requires_grad_(True)
+    opt = ClippedAdamW(list(model.parameters()) + list(crf.values()),
+                       cfg.lr, cfg.weight_decay, cfg.grad_clip)
+    feats = torch.rand(P, 8, device=dev)
+    loss_fn = tf.make_loss_fn(model, crf, crf_cfg, cfg.lambda_crf, feats)
+    batch = torch.as_tensor(Y[:32], dtype=torch.int64, device=dev)
+    mask = torch.ones(32, device=dev)
+    gen = generator(dev, 0, 2)
+    model.train()
+
+    def step():
+        opt.zero_grad()
+        loss_fn(batch, mask, 1.0, gen)[0].backward()
+        opt.step()
+
+    step()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"traj_embed step, {mode}, batch 32 x {Y.shape[1]} bins at full "
+          f"width: {wall * 1e3:.1f} ms (host clock, synced)", flush=True)
+    return device_busy(f"traj_embed {mode} step", step, card)
+
+
+def traj_phases(dev, card, root, acts, csv_path, walls):
+    """Phases 51-55: the purposes catalog and the buffer grid, the
+    semi-CRF card against CPU, ``train_traj_embed`` at TrajEmbedConfig's
+    full width, generation and validation, and the ``ananke`` CLI as
+    subprocesses. None launches a hand-written kernel. Every phase raises
+    on failure."""
+    import importlib.util
+
+    from ananke_abm_tpu_torch.data_generator.population import (
+        COLUMNS,
+        write_csv,
+    )
+    from ananke_abm_tpu_torch.models.traj_syn.configs import TrajEmbedConfig
+    from ananke_abm_tpu_torch.models.traj_syn.pipeline.train_full import (
+        train_traj_embed,
+    )
+    from ananke_abm_tpu_torch.models.traj_syn.pipeline.vae_only import (
+        analyze_vae,
+        synthesize_vae,
+    )
+    from ananke_abm_tpu_torch.models.traj_syn.pipeline.validate import (
+        CHUNK,
+        gen_n_val_traj,
+        generate_trajectories,
+        load_generator,
+    )
+    from ananke_abm_tpu_torch.utils.make_purposes import (
+        LEAD_COLUMNS,
+        build_purposes_catalog,
+    )
+    from ananke_abm_tpu_torch.utils.traj_fig.make_buffer_grid import (
+        make_buffer_grid,
+    )
+
+    traj = root / "traj"
+    traj.mkdir()
+
+    # ---- 51. the purposes catalog and the buffer grid -------------------
+    t_phase = time.perf_counter()
+    catalog_csv = traj / "purposes.csv"
+    t0 = time.perf_counter()
+    catalog = build_purposes_catalog(csv_path, str(catalog_csv))
+    t_cat = time.perf_counter() - t0
+    if list(catalog)[:len(LEAD_COLUMNS)] != LEAD_COLUMNS or \
+            len(catalog["purpose"]) != 7 or not np.isfinite(
+                catalog["person_day_participation_rate"]).all():
+        fail(f"the purposes catalog: columns {list(catalog)}, purposes "
+             f"{catalog['purpose'].tolist()}")
+    t0 = time.perf_counter()
+    Y_traj, pm, persids = make_buffer_grid(csv_path, TRAJ_GRID_MIN)
+    t_native = time.perf_counter() - t0
+    with numpy_branch():
+        t0 = time.perf_counter()
+        Y_numpy, pm_numpy, _ = make_buffer_grid(csv_path, TRAJ_GRID_MIN)
+        t_numpy = time.perf_counter() - t0
+    if not (same_arrays(Y_traj, Y_numpy) and pm == pm_numpy):
+        fail("make_buffer_grid differs between the native and numpy "
+             "branches")
+    L = 1800 // TRAJ_GRID_MIN
+    if Y_traj.shape != (SCHED_PERSONS, L) or not (
+            Y_traj[:, -1] == pm["Home"]).all():
+        fail(f"the buffer grid {Y_traj.shape}, or a last bin not Home")
+    walls[51] = time.perf_counter() - t_phase
+    print(f"purposes catalog of {len(acts['persid'])} activities: "
+          f"{len(catalog['purpose'])} purposes x {len(catalog)} columns in "
+          f"{t_cat:.3f} s; buffer grid {Y_traj.shape} native {t_native:.3f} "
+          f"s, numpy {t_numpy:.3f} s, equal (host clock)", flush=True)
+
+    # ---- 52. the semi-CRF, card against CPU ----------------------------------
+    t_phase = time.perf_counter()
+    semi_crf_checks(dev, card, Y_traj)
+    walls[52] = time.perf_counter() - t_phase
+
+    # ---- 53. train_traj_embed at full width ------------------------------------
+    t_phase = time.perf_counter()
+    cut_csv = write_csv(str(traj / "activities_cut.csv"),
+                        {k: v for k, v in cut_activities(
+                            acts, TRAJ_TRAIN_ROWS).items() if k in COLUMNS})
+    runs, epoch_walls, busy = {}, {}, {}
+    for mode in ("semi", "linear"):
+        run = traj / f"run_{mode}"
+        res = train_traj_embed(cut_csv, str(catalog_csv), epochs=TRAJ_EPOCHS,
+                               outdir=str(run), crf_mode=mode,
+                               seed=SCHED_SEED, device=dev)
+        log = read_log(str(run / "training_log.csv"))
+        if len(log) != TRAJ_EPOCHS or not all(
+                np.isfinite(list(row.values())).all() for row in log) or \
+                not (run / "ckpt_best.ckpt").exists():
+            fail(f"train_traj_embed {mode}: {len(log)} epochs, a loss not "
+                 f"finite, or no ckpt_best.ckpt")
+        runs[mode] = str(run / "ckpt_best.ckpt")
+        epoch_walls[mode] = res["seconds"] / TRAJ_EPOCHS
+        print(f"train_traj_embed {mode} (exact_long: {mode == 'semi'}): "
+              f"{TRAJ_EPOCHS} epochs on the first {TRAJ_TRAIN_ROWS} persons "
+              f"(a cut of depth; batch 32, L={L}) in {res['seconds']:.3f} s "
+              f"({epoch_walls[mode]:.3f} s an epoch, its validation pass "
+              f"included); losses " + ", ".join(
+                  f"{row['loss']:.4f}" for row in log) + f" [card {card}]",
+              flush=True)
+        busy[mode] = traj_step_profile(dev, card, mode, Y_traj)
+    walls[53] = time.perf_counter() - t_phase
+
+    # ---- 54. generation, validation and the VAE's synthesis -------------------
+    t_phase = time.perf_counter()
+    rates = {}
+    for name, ckpt, mode in (("semi", runs["semi"], "semi"),
+                             ("linear", runs["linear"], "linear"),
+                             ("none", runs["semi"], "none")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Y_gen, meta = generate_trajectories(ckpt, TRAJ_GEN, seed=SCHED_SEED,
+                                            crf_mode=mode, device=dev)
+        t_gen = time.perf_counter() - t0
+        rates[name] = TRAJ_GEN / t_gen
+        t0 = time.perf_counter()
+        summary = gen_n_val_traj(ckpt, TRAJ_GEN, str(traj / f"gen_{name}.csv"),
+                                 csv_path, 5, mode,
+                                 summary_json=str(traj / f"s_{name}.json"),
+                                 seed=SCHED_SEED, device=dev)
+        t_val = time.perf_counter() - t0
+        v = summary["validation"]
+        if Y_gen.shape != (TRAJ_GEN, L) or Y_gen.min() < 0 or \
+                Y_gen.max() >= len(meta["purpose_map"]) or v["L"] != L or \
+                not np.isfinite(v["tod_jsd_macro"]):
+            fail(f"generation {name}: {Y_gen.shape}, validation {v}")
+        print(f"generate {name}: {TRAJ_GEN} schedules in {t_gen:.3f} s "
+              f"({rates[name]:.0f} schedules/s, chunks of {CHUNK}); "
+              f"gen_n_val_traj with the segment CSV and the report against "
+              f"the {SCHED_PERSONS} persons in {t_val:.3f} s: tod_jsd_macro "
+              f"{v['tod_jsd_macro']:.5f}, mean segments "
+              f"{summary['generated_stats']['mean_segments_per_person']:.2f}"
+              f" [card {card}]", flush=True)
+    z = torch.randn(CHUNK, TrajEmbedConfig().z_dim,
+                    generator=torch.Generator().manual_seed(SCHED_SEED))
+    for mode in ("semi", "linear"):
+        got = {}
+        for where in ("cpu", dev):
+            decode, _, _ = load_generator(runs[mode], mode, device=where)
+            got[str(where)] = decode(z.to(where)).cpu()
+        agree = labels_agree(got[str(dev)], got["cpu"])
+        print(f"one chunk of {CHUNK} decoded {mode}, card against CPU, the "
+              f"same z: labels agree {agree:.6f} (>= {SEMI_LABELS_MIN})",
+              flush=True)
+        if agree < SEMI_LABELS_MIN:
+            fail(f"the card's {mode} decode disagrees with the CPU's")
+    t0 = time.perf_counter()
+    npz = synthesize_vae(runs["semi"], TRAJ_GEN, str(traj / "vae" / "s.npz"),
+                         seed=SCHED_SEED, device=dev)
+    stats = analyze_vae(npz, str(traj / "vae" / "analysis.json"))
+    t_vae = time.perf_counter() - t0
+    if stats["N"] != TRAJ_GEN or abs(sum(stats["minutes_share"].values())
+                                     - 1.0) > 1e-6:
+        fail(f"analyze_vae: {stats}")
+    walls[54] = time.perf_counter() - t_phase
+    print(f"synthesize_vae + analyze_vae: {TRAJ_GEN} schedules in "
+          f"{t_vae:.3f} s, {stats['unique_schedules']} unique", flush=True)
+
+    # ---- 55. the ananke CLI as subprocesses ---------------------------------
+    t_phase = time.perf_counter()
+    cli = traj / "cli"
+    cli.mkdir()
+    cli_walls = {}
+    proc, cli_walls["--help"] = ananke_ok(["--help"])
+    missing = [c for c in ANANKE_COMMANDS if c not in proc.stdout]
+    if missing:
+        fail(f"ananke --help lists no {missing}")
+    _, cli_walls["make-purposes"] = ananke_ok(
+        ["make-purposes", "--activities-csv", csv_path, "--out-csv",
+         cli / "purposes.csv"])
+    if (cli / "purposes.csv").read_bytes() != catalog_csv.read_bytes():
+        fail("ananke make-purposes differs from phase 51's catalog")
+    _, cli_walls["traj-embed"] = ananke_ok(
+        ["traj-embed", "--activities-csv", cut_csv, "--crf-mode", "semi",
+         "--epochs", 1, "--outdir", cli / "run"])
+    _, cli_walls["gval-traj"] = ananke_ok(
+        ["gval-traj", "--ckpt", cli / "run" / "ckpt_best.ckpt", "--num-gen",
+         CLI_TRAJ_GEN, "--gen-csv", cli / "gen.csv", "--val-csv", cut_csv,
+         "--summary-json", cli / "summary.json"])
+    summary = json.loads((cli / "summary.json").read_text())
+    if summary["num_gen"] != CLI_TRAJ_GEN or "validation" not in summary:
+        fail(f"ananke gval-traj: {summary}")
+    proc, cli_walls["traj-embed --data-parallel"] = ananke_run(
+        ["traj-embed", "--activities-csv", cut_csv, "--outdir", cli / "dp",
+         "--data-parallel"])
+    if proc.returncode == 0 or "item 11" not in proc.stderr:
+        fail(f"ananke traj-embed --data-parallel exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    plots = importlib.util.find_spec("matplotlib") is not None
+    proc, cli_walls["visualize-combined-traj"] = ananke_run(
+        ["visualize-combined-traj", "--trajectory-csv", cli / "gen.csv",
+         "--outdir", cli / "figs"])
+    pngs = sorted(p.name for p in (cli / "figs").glob("*.png")) \
+        if plots else []
+    if plots and (proc.returncode != 0 or "stacked_traj.png" not in pngs):
+        fail(f"ananke visualize-combined-traj: {proc.returncode}, {pngs}")
+    if not plots and (proc.returncode == 0 or
+                      "matplotlib" not in proc.stderr):
+        fail(f"ananke visualize-combined-traj without matplotlib exited "
+             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    proc, cli_walls["info"] = ananke_ok(["info"])
+    if torch.cuda.get_device_name(0) not in proc.stdout:
+        fail(f"ananke info: {proc.stdout}")
+    walls[55] = time.perf_counter() - t_phase
+    print("ananke (python -m, one process each, on the card): " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in cli_walls.items())
+        + f"; make-purposes equal to phase 51's catalog; "
+        f"visualize-combined-traj "
+        + (f"{len(pngs)} PNGs" if plots else "exits naming matplotlib "
+           "(absent)") + f"; info: {proc.stdout.strip().splitlines()[-1]} "
+        f"[card {card}]", flush=True)
+    print("traj_syn on the card: semi-CRF step busy "
+          + ", ".join(f"{m} " + ("not measured" if b is None else
+                                 f"{b[0] / b[1]:.1%} of {b[1]:.1f} ms, "
+                                 f"{b[2]} device operations")
+                      for m, b in busy.items())
+          + "; epoch walls " + ", ".join(f"{m} {w:.3f} s"
+                                         for m, w in epoch_walls.items())
+          + "; schedules/s " + ", ".join(f"{m} {r:.0f}"
+                                         for m, r in rates.items())
+          + f" [card {card}]", flush=True)
+
+
+def gatode_cli_phase(card):
+    """Phase 56 (after the build): ``ananke gatode-train`` for
+    GATODE_CLI_EPOCHS epochs at its other defaults, then ``gatode-serve``
+    with the kernel on and off, as subprocesses of the CLI's main that
+    print their kernel launches. Each served grid equals ``serve()`` in this
+    process on the same checkpoint, seed and route, bit for bit; the
+    kernel's ids agree with its plain version's body (bf16 products, as
+    phase 4) at SLICE_IDS_MIN. ``--use-pallas off`` runs the float32 body,
+    a different model by its rounding: its agreement with the kernel's ids
+    is printed, not bounded."""
+    from ananke_abm_tpu_torch.data_generator import generate_agent_population
+    from ananke_abm_tpu_torch.models.gnn_embed.params import (
+        load_flax_params,
+    )
+    from ananke_abm_tpu_torch.models.gnn_embed.rollout import _kernel_body
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        serve,
+    )
+    from ananke_abm_tpu_torch.ops.cuda.fused_step import (
+        rk4_interval_decode_reference,
+    )
+    from ananke_abm_tpu_torch.utils.ckpt import load_checkpoint
+
+    t_phase = time.perf_counter()
+    out = OUT / "ananke_gatode"
+    if out.exists():
+        shutil.rmtree(out)
+    proc, t_train = ananke_ok(["gatode-train", "--outdir", out, "--epochs",
+                               GATODE_CLI_EPOCHS], probe=True)
+    lines = proc.stdout.strip().splitlines()
+    train_launches = json.loads(lines[-1])
+    ckpt = lines[-2].rsplit("; ckpt ", 1)[1]
+    steps = GATODE_CLI_EPOCHS * (8192 // 4096)
+    for k in ("K2f", "K2b", "K3f", "K3b", "K4f", "K4b"):
+        if train_launches[k] != steps:
+            fail(f"ananke gatode-train launched {k} {train_launches[k]} "
+                 f"times, not once a step ({steps})")
+    ids, serve_walls = {}, {}
+    for use in ("on", "off"):
+        proc, serve_walls[use] = ananke_ok(
+            ["gatode-serve", "--ckpt", ckpt, "--out-npz", out / f"{use}.npz",
+             "--use-pallas", use], probe=True)
+        k1 = json.loads(proc.stdout.strip().splitlines()[-1])["K1"]
+        with np.load(out / f"{use}.npz") as d:
+            ids[use] = d["zone_ids"]
+        want = ids[use].shape[1] - 1 if use == "on" else 0
+        if k1 != want:
+            fail(f"ananke gatode-serve --use-pallas {use} launched K1 {k1} "
+                 f"times, not {want}")
+        serve(ckpt, str(out / "in_process.npz"), use_kernel=use == "on",
+              device="cuda")
+        with np.load(out / "in_process.npz") as d:
+            if not np.array_equal(d["zone_ids"], ids[use]):
+                fail(f"ananke gatode-serve --use-pallas {use}: ids differ "
+                     f"from serve() in this process")
+    # the kernel's plain version over the same agents (serve()'s defaults)
+    ck = load_checkpoint(ckpt)
+    config = GATODEConfig(**ck["config"])
+    data = generate_agent_population(
+        4096, num_times=int(ck["num_times"]), seed=1,
+        num_zones=int(ck["num_zones"]), world_seed=int(ck["world_seed"]))
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to("cuda")
+    model = build_model(config, data["zone_features"].shape[-1],
+                        data["person_feats"].shape[-1], device="cuda")
+    load_flax_params(model, ck["params"])
+    body = _kernel_body(model, config.substeps, rk4_interval_decode_reference)
+    with torch.inference_mode():
+        plain = body(on(data["zone_features"]), on(data["adj"]),
+                     on(data["times"]), on(data["person_feats"]),
+                     on(data["home_zone"], torch.long)).cpu().numpy()
+    agree = float(np.mean(ids["on"] == plain))
+    f32 = float(np.mean(ids["on"] == ids["off"]))
+    print(f"ananke gatode-train ({GATODE_CLI_EPOCHS} epochs, 8,192 agents x "
+          f"48 times, batch 4,096; launches {train_launches}) "
+          f"{t_train:.3f} s; gatode-serve 4,096 agents --use-pallas on "
+          f"{serve_walls['on']:.3f} s, off {serve_walls['off']:.3f} s "
+          f"(one process each); both equal to serve() in this process, bit "
+          f"for bit; the kernel's ids against its plain version's body agree "
+          f"{agree:.6f} (>= {SLICE_IDS_MIN}), against the float32 body "
+          f"(off) {f32:.6f}; phase 56 in {time.perf_counter() - t_phase:.1f} "
+          f"s [card {card}]", flush=True)
+    if agree < SLICE_IDS_MIN:
+        fail("gatode-serve's kernel ids disagree with its plain version's")
 
 
 if __name__ == "__main__":

@@ -5,7 +5,9 @@ around them, the training-day kernels (K2f, K2b, K3f, K3b) and the
 zone-encoder kernels (K4f, K4b) with the fixed-step trainer and
 ``train()``, the DOPRI5 kernels (K5 and K7 at float32 and bf16, K6) with
 the discrete-adjoint trainer and a bf16 forward, the CSR edge kernels with
-``train(sparse_world=True)``, and the segment sum (K9e).
+``train(sparse_world=True)``, and the segment sum (K9e); and, card against
+CPU, the plain-PyTorch paths of the schedule VAE (a step, the CRF) and of
+the traj_syn family (the semi-CRF, a traj_embed step).
 
 Marked ``cuda``: every test here skips on a host without a CUDA device.
 On a card without JAX installed, run them with
@@ -1583,3 +1585,90 @@ def test_crf_recursions_match_the_cpu(cuda):
     assert rel(crf_path_score(U, qg, A), crf_path_score(U, qc, A)) <= \
         cs.CRF_RTOL
     assert not (qg == 2).all(dim=1).any()
+
+
+def test_semi_crf_matches_the_cpu(cuda):
+    """log Z at both ``allow_self``, the gold marginal, the NLL and its
+    gradients, and the decode on 16 rows of 360 x 7 unaries with D = 60,
+    card against CPU (phase 52's check and bounds)."""
+    from ananke_abm_tpu_torch.ops import semi_crf as sc
+
+    cs = _smoke()
+    g = torch.Generator().manual_seed(0)
+    U = torch.randn(16, 360, 7, generator=g) * 2.0
+    dur = torch.randn(7, 60, generator=g) * 0.5
+    A = torch.randn(7, 7, generator=g) * 0.5
+    y = torch.repeat_interleave(torch.randint(0, 7, (16, 12), generator=g),
+                                30, dim=1)  # runs of 30 bins
+    y[:, :90] = 2  # a 90-bin run: longer than D
+    out = {}
+    for where in ("cpu", cuda):
+        u, d, a, lab = (t.to(where) for t in (U, dur, A, y))
+        leaves = [t.clone().requires_grad_(True) for t in (u, d, a)]
+        nll = sc.semicrf_nll(leaves[0], lab, leaves[1], leaves[2],
+                             exact_long=True)
+        nll.backward()
+        out[str(where)] = (
+            [sc.semicrf_log_partition(u, d, a).cpu(),
+             sc.semicrf_log_partition(u, d, a, True).cpu(),
+             sc.semicrf_gold_log_marginal(u, lab, d, a).cpu(),
+             nll.detach().cpu().reshape(1)],
+            [t.grad.cpu() for t in leaves],
+            [sc.semicrf_decode(u, d, a, s).cpu() for s in (False, True)])
+    (vc, gc, dc), (vg, gg, dg) = out["cpu"], out[str(cuda)]
+    for a, b in zip(vg, vc):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= cs.SEMI_RTOL
+    for a, b in zip(gg, gc):
+        assert _cosine(a, b) > cs.SEMI_COS_MIN
+    for a, b in zip(dg, dc):
+        assert (a == b).float().mean().item() >= cs.SEMI_LABELS_MIN
+
+
+def test_traj_embed_step_matches_the_cpu(cuda):
+    """One semi-CRF traj_embed step (exact_long) at full width on 32 rows,
+    card against CPU: the same weights, rows and noise, dropout off; the
+    loss components within SEMI_RTOL, every gradient at cosine above
+    SEMI_COS_MIN."""
+    from ananke_abm_tpu_torch.models.traj_syn import model as tmodel
+    from ananke_abm_tpu_torch.models.traj_syn.configs import (
+        CRFConfig,
+        TrajEmbedConfig,
+    )
+    from ananke_abm_tpu_torch.models.traj_syn.pipeline import (
+        train_full as tf,
+    )
+
+    cs = _smoke()
+    cfg = TrajEmbedConfig(cnn_dropout=0.0)
+    crf_cfg = CRFConfig("semi")
+    rng = np.random.default_rng(0)
+    Y = torch.as_tensor(np.repeat(rng.integers(0, 7, (32, 12)), 30, axis=1))
+    eps = torch.as_tensor(rng.standard_normal((32, cfg.z_dim)),
+                          dtype=torch.float32)
+    feats = torch.as_tensor(rng.random((7, 8)), dtype=torch.float32)
+    crf0 = {"A": torch.as_tensor(rng.standard_normal((7, 7)) * 0.1,
+                                 dtype=torch.float32),
+            "dur": torch.as_tensor(rng.standard_normal((7, 60)) * 0.1,
+                                   dtype=torch.float32)}
+    weights, out = None, {}
+    for where in ("cpu", cuda):
+        model = tf.build_model(cfg, 360, 7, where)
+        if weights is None:
+            tmodel.init_params(model, torch.Generator().manual_seed(0))
+            weights = tmodel.to_flax_params(model)
+        tmodel.load_flax_params(model, weights)
+        crf = {k: v.detach().to(where).requires_grad_(True)
+               for k, v in crf0.items()}
+        loss_fn = tf.make_loss_fn(model, crf, crf_cfg, 1.0, feats.to(where))
+        model.train()
+        _, comps = loss_fn(Y.to(where), torch.ones(32, device=where), 1.0,
+                           eps=eps.to(where))
+        comps["loss"].backward()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        grads.update({k: v.grad.cpu() for k, v in crf.items()})
+        out[str(where)] = ({k: v.item() for k, v in comps.items()}, grads)
+    (cc, cg), (gc, gg) = out["cpu"], out[str(cuda)]
+    for k, v in cc.items():
+        assert abs(gc[k] - v) <= cs.SEMI_RTOL * abs(v), k
+    for n in cg:
+        assert _cosine(gg[n], cg[n]) > cs.SEMI_COS_MIN, n
