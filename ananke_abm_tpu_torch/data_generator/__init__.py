@@ -2,8 +2,9 @@
 numpy-only host code.
 
 A copy of the JAX package's ``data_generator.agent_trajectories``,
-``mock_world`` and ``population`` (and the two id maps of its
-``features``), so that the port imports nothing of the JAX package. The
+``mock_world``, ``population``, ``features`` and (numpy and ``csv``, no
+pandas) ``export_csvs``, so that the port imports nothing of the JAX
+package. The
 same seeds give the same arrays in both packages
 (``tests/test_torch_data_generator.py``,
 ``tests/test_torch_schedule_pipeline.py``).

@@ -148,7 +148,8 @@ def _to_flax(t, layout):
         a = a.T
     elif layout == "conv":
         a = a.transpose(2, 1, 0)
-    return np.ascontiguousarray(a)
+    # np.ascontiguousarray makes a 0-d array 1-d
+    return np.ascontiguousarray(a) if a.ndim else a.copy()
 
 
 def _get(tree, path):

@@ -5,9 +5,10 @@
 - :func:`dopri5_solve`: adaptive, dense output, forward only;
 - :func:`odeint_adjoint`: adaptive with continuous-adjoint gradients;
 - :func:`odeint_discrete_adjoint`: adaptive with discrete-adjoint gradients
-  (the reference's ``odeint`` has no discrete mode either).
-
-Not ported yet: ``euler_maruyama_solve`` (ROADMAP.md queue 1 item 10).
+  (the reference's ``odeint`` has no discrete mode either);
+- :func:`euler_maruyama_solve`: diagonal-noise Itô SDEs, per output
+  interval or on a fixed internal grid, its noise from an explicit
+  ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from ananke_abm_tpu_torch.ode.adjoint import odeint_adjoint
 from ananke_abm_tpu_torch.ode.discrete_adjoint import odeint_discrete_adjoint
 from ananke_abm_tpu_torch.ode.dopri5 import dopri5_solve
 from ananke_abm_tpu_torch.ode.rk4 import euler_solve, rk4_solve
+from ananke_abm_tpu_torch.ode.sde import euler_maruyama_solve
 
 
 def odeint(rhs, y0, ts, args=None, *, method: str = "dopri5",
@@ -58,4 +60,5 @@ def odeint(rhs, y0, ts, args=None, *, method: str = "dopri5",
 
 
 __all__ = ["odeint", "odeint_adjoint", "odeint_discrete_adjoint",
-           "dopri5_solve", "rk4_solve", "euler_solve"]
+           "dopri5_solve", "rk4_solve", "euler_solve",
+           "euler_maruyama_solve"]

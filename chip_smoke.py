@@ -16,10 +16,13 @@ synthesize, rasterize, fit, sample, the CRF, evaluate, the metric tables
 over the native host counters, ``compare_samples`` and the
 ``rgen_schedule`` CLI; the traj_syn family (the purposes catalog, the
 buffer grid, the semi-CRF, the TrajEmbed VAE's train -> generate ->
-validate) and the ``ananke`` CLI. Phases 39-55, which launch no
-hand-written kernel, run right after phase 1, on the card and the host
-while phase 2's nvcc processes compile; the kernel phases 3-38 follow the
-build, then phase 56 (the ``ananke`` CLI's GAT-ODE commands).
+validate) and the ``ananke`` CLI; the trajectory-ODE families (the
+Euler-Maruyama solver, latent_ode's train -> infer -> evaluate, mode_sep's
+on the mock world's CSVs). Phases 39-60, which launch no hand-written
+kernel, run right after phase 1, on the card and the host while phase 2's
+nvcc processes compile (57-60 in a process of their own); the kernel
+phases 3-38 follow the build, then phase 56 (the ``ananke`` CLI's GAT-ODE
+commands).
 
 Run from the repository root, on a machine with a CUDA device:
 
@@ -54,7 +57,8 @@ Phases (any failure raises and the script exits non-zero):
    finite losses, the third below the first, and exactly 2 + 6 x
    (attempted steps) kernel launches per backward interval; each step's
    wall and the best of steps 2-3; then a fourth step under
-   ``torch.profiler``: the device's busy and idle share of its wall time
+   ``torch.profiler`` (as every profiled step, device activity alone:
+   ``device_busy``): the device's busy and idle share of its wall time
    and its device time by kernel name (the model and optimizer put back
    after it);
 8. trainer check: loss and full gradient of one step at 8,192 agents with
@@ -310,10 +314,40 @@ Phases (any failure raises and the script exits non-zero):
     kernel launches (K2f, K2b, K3f, K3b, K4f, K4b once a step; K1 47 times
     on, none off); each served grid bit-equal to ``serve()`` in this
     process; the kernel's ids against its plain version's body at
-    SLICE_IDS_MIN, and against the float32 body (off) printed.
+    SLICE_IDS_MIN, and against the float32 body (off) printed;
+57. (phases 57-60: the trajectory-ODE families, no hand-written kernel,
+    in a process of their own, ``--trajectory-ode``, beside phases 39-55
+    and the build; their output printed after phase 55) the GenerativeODE
+    at ``GenerativeODEConfig()`` on the two personas, one
+    loss-and-gradient through the fixed-grid Euler-Maruyama solver (2,401
+    steps, one injected noise tensor) on the card and the CPU: the loss
+    components within ODE_RTOL, the positions, mu and logvar's difference
+    printed, every parameter's gradient at cosine above ODE_COS_MIN, the
+    decoded zone, purpose and mode ids agreeing at ODE_IDS_MIN (on a
+    failure, the float64 CPU witness printed);
+58. latent_ode ``train()`` at its defaults, LODE_ITERS iterations in calls
+    of LODE_STEPS_PER_CALL (a cut of depth): finite totals, the
+    checkpoint, the wall an iteration; one more step under
+    ``torch.profiler``: busy share and device operations;
+59. ``BatchedInferenceEngine``: ``predict_trajectories`` (LODE_SAMPLES
+    samples on LODE_EVAL_POINTS times), ``benchmark_performance`` at
+    LODE_BATCH_SIZES persons (people/s, ``projected_1M_people_hours``),
+    ``evaluate()`` at its defaults;
+60. mode_sep on the mock world's CSV family (``write_mock_world_csvs``):
+    one ``ModeSepModel`` loss-and-gradient at ``ModeSepConfig()`` card
+    against CPU at phase 57's bounds, the travel-margin component within
+    ODE_RTOL of the travel points' distances (MODESEP_SCALED), the float64
+    witness printed beside it; ``train()`` MODESEP_EPOCHS epochs (RK4) and
+    MODESEP_SDE_EPOCHS of the SDE variant (cuts of depth);
+    ``run_inference`` and ``evaluate``; the walls.
 
-``python3 chip_smoke.py --schedule`` runs phase 1 and phases 39-55 only,
-with no CUDA kernel build (their path launches no hand-written kernel).
+``python3 chip_smoke.py --schedule`` runs phase 1 and phases 39-60 only,
+with no CUDA kernel build (their path launches no hand-written kernel):
+57-60 in their own process after 39-55, so that each set's walls and busy
+shares are read with the card and the host to itself (in the whole smoke
+57-60 run beside 39-55 and the build, and both sets' walls and busy
+shares are read on a shared card and host); ``--trajectory-ode`` phase 1
+and phases 57-60 alone.
 ``python3 chip_smoke.py --readings`` runs phases 1-2 and then only the
 training kernels' checks of phase 10, at DAY_SHAPES and DEPTH_SHAPES for 3
 seeds with the control everywhere, printing the readings the bounds were
@@ -580,28 +614,39 @@ def bound(flop, nbytes, peak=PEAK_BF16_FLOPS):
 
 
 def device_busy(label, fn, card):
-    """One call of ``fn`` (a training step) under torch.profiler: prints the
-    device's busy and idle share of its wall time (the sum of the device
-    time of its kernels, copies and fills, one stream, over the host clock
-    around the synced call) and the device time by kernel name, largest
-    first; "not measured" where the profiler saw no device time. Returns
-    (busy ms, wall ms, device operations), or None where not measured."""
+    """One call of ``fn`` (a training step) under torch.profiler, recording
+    the device activity alone: prints the device's busy and idle share of
+    its wall time (the sum of the device time of its kernels, copies and
+    fills, one stream, over the host clock around the synced call) and the
+    device time by kernel name, largest first; "not measured" where the
+    profiler saw no device time. Returns (busy ms, wall ms, device
+    operations), or None where not measured. The device events are summed
+    from the profiler's raw results: ``key_averages()`` over a step of
+    ~10^5 eager operations takes minutes."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, supported_activities
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            ms, n = by_name.get(e.key, (0.0, 0))
-            by_name[e.key] = (ms + e.self_device_time_total / 1e3,
-                              n + e.count)
+    t0 = time.perf_counter()
+    if ProfilerActivity.CUDA not in supported_activities():
+        # a PyTorch without CUDA: the profiler cannot see a device
+        fn()
+        wall = (time.perf_counter() - t0) * 1e3
+    else:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        raw = getattr(prof.profiler, "kineto_results", None)
+        if raw is None:
+            fail(f"device busy share, {label}: this PyTorch's profiler has "
+                 f"no kineto_results to read the device events from")
+        for e in raw.events():
+            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+                ms, n = by_name.get(e.name(), (0.0, 0))
+                by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
     busy = sum(ms for ms, _ in by_name.values())
     launches = sum(n for _, n in by_name.values())
     if busy == 0:
@@ -703,7 +748,12 @@ def main():
                         "variant of DIR's sources)")
     parser.add_argument("--schedule", action="store_true",
                         help="run phase 1 and the host and schedule phases "
-                        "39-55 only (no CUDA kernel build)")
+                        "39-60 only (no CUDA kernel build)")
+    parser.add_argument("--trajectory-ode", action="store_true",
+                        help="run phase 1 and the trajectory-ODE phases "
+                        "57-60 only (no CUDA kernel build); the smoke and "
+                        "--schedule run them so, in a process of their "
+                        "own beside phases 39-55")
     parser.add_argument("--ab-gat", metavar="DIR", nargs="+",
                         help="compare and time the zone-graph kernels "
                         "(K4f, K4b, the CSR pair, K9e) against those of "
@@ -751,8 +801,16 @@ def main():
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}", flush=True)
 
+    if args.trajectory_ode:
+        # the phases' CPU runs are batch-2 operations: one thread keeps
+        # them off the cores of the process and the build beside them
+        torch.set_num_threads(1)
+        trajectory_ode_phases(dev, card, OUT, {})
+        return
     if args.schedule:
+        # one set after the other: the readings of each alone on the card
         schedule_phases(dev, card)
+        finish_trajectory_ode(start_trajectory_ode())
         return
 
     # ---- 2. build ---------------------------------------------------------
@@ -799,13 +857,18 @@ def main():
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         building = pool.submit(build)
         if smoke:
-            # phases 39-55 launch no hand-written kernel: they run on the
-            # card and the host while nvcc compiles
+            # phases 39-60 launch no hand-written kernel: they run on the
+            # card and the host while nvcc compiles, 57-60 in a process of
+            # their own
             t_sched = time.perf_counter()
+            ode = start_trajectory_ode()
             schedule_phases(dev, card)
             print(f"schedule phases 39-55 in "
                   f"{time.perf_counter() - t_sched:.1f} s, beside the build",
                   flush=True)
+            finish_trajectory_ode(ode)
+            print(f"phases 39-60 in {time.perf_counter() - t_sched:.1f} s, "
+                  f"beside the build", flush=True)
         built, t_build = building.result()
     print(f"build: {len(built)} libraries in {t_build:.1f} s (nvcc in "
           f"parallel); {time.perf_counter() - t0:.1f} s since it started")
@@ -1006,7 +1069,7 @@ def main():
     k5b = bf16_forward_phases(dev, card)
     k9e = segment_phases(dev, card)
     gatode_cli_phase(card)
-    print(f"smoke: phases 1-56 in {time.perf_counter() - t_start:.1f} s, "
+    print(f"smoke: phases 1-60 in {time.perf_counter() - t_start:.1f} s, "
           f"the build included", flush=True)
 
     print(card)
@@ -6349,6 +6412,465 @@ def gatode_cli_phase(card):
           f"s [card {card}]", flush=True)
     if agree < SLICE_IDS_MIN:
         fail("gatode-serve's kernel ids disagree with its plain version's")
+
+
+# ---- the trajectory ODE families (phases 57-60) ----------------------------
+
+# phase 57 and tests/test_torch_cuda.py: card against CPU over one step,
+# float32 against float32 (the schedule phases' class of bounds); the
+# GenerativeODE's fixed grid is 2,401 internal steps at its defaults
+ODE_RTOL = 1e-4
+ODE_COS_MIN = 0.9999
+ODE_IDS_MIN = 0.999
+ODE_SEED = 0
+# phase 60: mode_sep's travel-margin component is a masked mean of hinges
+# max(m - (d_prev - d_dest), 0), with d_prev - d_dest a difference of two
+# distances far larger than the hinges: float32 rounding moves it by up to
+# ~4e-2 of itself, on the CPU as on the card (H100 80GB HBM3, 700 W: card
+# against CPU 2.0e-4, 3.8e-2, 9.9e-3 over 3 seeds; from the float64
+# witness the CPU 1.6e-4, 1.3e-2, 1.8e-2, the card 3.6e-4, 2.5e-2,
+# 8.4e-3). The hinge is 1-Lipschitz in d_prev - d_dest, so distances
+# within ODE_RTOL of themselves move the mean by at most ODE_RTOL x the
+# masked mean of d_prev + d_dest ("travel_distances", itself held to
+# ODE_RTOL): its bound, with the float64 witness printed beside it; every
+# other component to ODE_RTOL of itself.
+MODESEP_SCALED = {"travel_margin": "travel_distances"}
+# phase 58 (a cut of depth: the reference runs 25,000 iterations)
+LODE_ITERS = 6
+LODE_STEPS_PER_CALL = 3
+# phase 59: the inference engine
+LODE_SAMPLES = 3
+LODE_EVAL_POINTS = 500
+LODE_BATCH_SIZES = (1, 10, 50, 100, 4_096, 65_536)
+# phase 60 (cuts of depth: the reference runs 2,000 epochs)
+MODESEP_EPOCHS = 3
+MODESEP_SDE_EPOCHS = 1
+# the longest wait for phases 57-60's process after phase 55
+TRAJECTORY_ODE_TIMEOUT = 600
+
+
+def card_cpu_readings(step, dev, scaled=None):
+    """Run ``step(device, witness)`` (which returns ({component: 0-d
+    tensor}, {parameter: gradient}, {name: output tensor}, {name: ids})) on
+    ``dev`` and on the CPU: each component's relative difference, the
+    largest of an output, the least gradient cosine and the least ids
+    agreement. ``scaled`` {component: scale}: that component's difference
+    is taken relative to the CPU's value of the component ``scale``
+    instead of to itself. ``witness`` True runs the step in float64 on the
+    CPU."""
+    cuda_out = step(dev, False)
+    cpu_out = step(torch.device("cpu"), False)
+    (cc, gc, oc, ic), (kc, kg, ko, ki) = cpu_out, cuda_out
+    scaled = scaled or {}
+    rel = {k: abs(kc[k].item() - v.item()) / max(abs(v.item()), 1e-30)
+           for k, v in cc.items()}
+    per = {k: (abs(kc[k].item() - cc[k].item())
+               / max(abs(cc[scaled[k]].item()), 1e-30) if k in scaled
+               else v)
+           for k, v in rel.items()}
+    r = {"per": per, "rel": rel, "scaled": scaled,
+         "comps": max(per.values()),
+         "outputs": max(max_rel(ko[k].cpu(), v) for k, v in oc.items()),
+         "cos": min(cosine(kg[k].cpu(), v) for k, v in gc.items()),
+         "ids": min(float((ki[k].cpu() == v).float().mean())
+                    for k, v in ic.items())}
+    r["ok"] = (r["comps"] <= ODE_RTOL and r["cos"] > ODE_COS_MIN
+               and r["ids"] >= ODE_IDS_MIN)
+    r["outputs_of"] = {"cpu": cpu_out, "cuda": cuda_out}
+    return r
+
+
+def ode_witness_readings(step, r):
+    """The float64 CPU witness of a card-against-CPU check: each
+    component's relative distance from it, on the CPU and on the card, and
+    the outputs' and gradients' (the line printed beside a component held
+    relative to another's scale)."""
+    wc, wg, wo, wi = step(torch.device("cpu"), True)
+    out = {}
+    for where in ("cpu", "cuda"):
+        c, g, o, i = r["outputs_of"][where]
+        out[where] = {
+            "comps": {k: abs(c[k].item() - v.item()) / max(abs(v.item()),
+                                                           1e-300)
+                      for k, v in wc.items()},
+            "outputs": max(max_rel(o[k].cpu(), v) for k, v in wo.items()),
+            "cos": min(cosine(g[k].cpu(), v.float()) for k, v in wg.items()),
+            "ids": min(float((i[k].cpu() == v).float().mean())
+                       for k, v in wi.items())}
+    return out
+
+
+def describe_witness(w):
+    return "; ".join(
+        f"{where}: " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                 w[where]["comps"].items())
+        + f"; outputs {w[where]['outputs']:.3e}, least gradient cosine "
+        f"{w[where]['cos']:.7f}, ids {w[where]['ids']:.6f}"
+        for where in ("cpu", "cuda"))
+
+
+def latent_ode_step(config, person_ids=(1, 2), seed=ODE_SEED):
+    """``step(device, witness)`` for card_cpu_readings: one GenerativeODE
+    loss-and-gradient at ``config`` on the personas' batch, the same
+    weights and draws (eps and the SDE's step noise, made on the CPU from
+    ``seed``) on every device."""
+    from ananke_abm_tpu_torch.models.latent_ode import model as lmodel
+    from ananke_abm_tpu_torch.models.latent_ode import train as ltrain
+
+    state = {}
+
+    def step(where, witness):
+        model, b, host = ltrain.build_model_and_batch(config, person_ids,
+                                                      device=where)
+        if "weights" not in state:
+            lmodel.init_params(model, torch.Generator().manual_seed(seed))
+            state["weights"] = lmodel.to_flax_params(model)
+            g = torch.Generator().manual_seed(seed + 1)
+            B = b["person_features"].shape[0]
+            D = config.state_dim + config.hidden_dim
+            steps = int(round(config.sde_span_hours / config.sde_dt)) + 1
+            state["eps"] = torch.randn((B, config.hidden_dim), generator=g)
+            state["noise"] = torch.randn((steps, B, D), generator=g)
+        lmodel.load_flax_params(model, state["weights"])
+        eps, noise = state["eps"], state["noise"]
+        if witness:
+            model = model.double()
+            b = {k: (v.double() if v.is_floating_point() else v)
+                 for k, v in b.items()}
+            eps, noise = eps.double(), noise.double()
+        forward = ltrain.make_forward(model)
+        times = host["t_unified"].astype(np.float32)
+        out = forward(b, None, eps.to(where), noise.to(where), times)
+        cand = model.encode_zones(b["all_zone_features"])
+        total, comps = ltrain.calculate_composite_loss(b, out, cand, config)
+        total.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        outputs = dict(zip(("loc_embed", "purpose_feat", "mode_feat", "mu",
+                            "logvar"), (out[1], out[4], out[5], out[6],
+                                        out[7])))
+        ids = {"zone": out[0].argmax(-1), "purpose": out[2].argmax(-1),
+               "mode": out[3].argmax(-1)}
+        return ({k: v.detach() for k, v in comps.items()}, grads,
+                {k: v.detach() for k, v in outputs.items()}, ids)
+
+    return step
+
+
+def mode_sep_step(csvs, config, seed=ODE_SEED):
+    """``step(device, witness)`` for card_cpu_readings: one ModeSepModel
+    loss-and-gradient over every person of the CSV family at ``config``,
+    the same weights (the drift's output layer drawn, so the dynamics
+    move) on every device."""
+    from ananke_abm_tpu_torch.models.mode_sep import model as mmodel
+    from ananke_abm_tpu_torch.models.mode_sep import train as mtrain
+    from ananke_abm_tpu_torch.models.mode_sep.batching import (
+        build_union_batch,
+    )
+    from ananke_abm_tpu_torch.models.mode_sep.data import (
+        load_trajectory_csvs,
+    )
+    from ananke_abm_tpu_torch.models.mode_sep.losses import total_loss
+
+    people, shared = load_trajectory_csvs(*csvs)
+    union = build_union_batch(people, config.K_internal,
+                              config.time_match_tol)
+    state = {}
+
+    def step(where, witness):
+        model = mmodel.ModeSepModel(shared.id_maps.Z, config).to(where)
+        if "weights" not in state:
+            g = torch.Generator().manual_seed(seed)
+            mmodel.init_params(model, g)
+            with torch.no_grad():
+                model.drift.out.weight.copy_(0.1 * torch.randn(
+                    model.drift.out.weight.shape, generator=g))
+            state["weights"] = mmodel.to_flax_params(model)
+        mmodel.load_flax_params(model, state["weights"])
+        times, b = mtrain.union_to_device(union, where)
+        dist = torch.as_tensor(shared.dist_mat).to(where)
+        if witness:
+            model = model.double()
+            times, dist = times.double(), dist.double()
+            b = {k: (v.double() if v.is_floating_point() else v)
+                 for k, v in b.items()}
+        pred_emb, logits, v = model(times, b["home_idx"], b["work_idx"],
+                                    b["traits"])
+        total, comps = total_loss(config, logits, pred_emb, v,
+                                  model.class_table, dist, b)
+        total.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        comps = {k: c.detach() for k, c in comps.items() if k != "acc"}
+        with torch.no_grad():
+            # the travel margin's scale: the masked mean of d_prev + d_dest
+            d = sum(torch.sqrt(((pred_emb - model.class_table[
+                b[k].clamp_min(0)]) ** 2).sum(-1) + 1e-12)
+                for k in ("prev_zone", "dest_zone"))
+            m = b["travel_mask"].to(d.dtype)
+            comps["travel_distances"] = (d * m).sum() / m.sum().clamp_min(1)
+        return (comps, grads, {"pred_emb": pred_emb.detach(),
+                               "v": v.detach()},
+                {"zone": logits.argmax(-1)})
+
+    return step
+
+
+def mode_sep_readings(step, dev):
+    """phase 60's check: the components of MODESEP_SCALED within ODE_RTOL
+    of their scale, the others within ODE_RTOL of themselves, with the
+    float64 witness read beside them; (readings, witness, ok)."""
+    r = card_cpu_readings(step, dev, MODESEP_SCALED)
+    return r, ode_witness_readings(step, r), r["ok"]
+
+
+def describe_readings(r):
+    return ("components rel diff " + ", ".join(
+        f"{k} {v:.3e}" + (f" of {r['scaled'][k]} ({r['rel'][k]:.3e} of "
+                          f"itself)" if k in r["scaled"] else "")
+        for k, v in r["per"].items())
+            + f" (<= {ODE_RTOL}), "
+            f"outputs {r['outputs']:.3e}, least gradient cosine "
+            f"{r['cos']:.7f} (> {ODE_COS_MIN}), ids agree {r['ids']:.6f} "
+            f"(>= {ODE_IDS_MIN})")
+
+
+def start_trajectory_ode():
+    """Start phases 57-60 (``--trajectory-ode``) in a process of their own:
+    their eager loops are host dispatch on one core, which runs beside the
+    schedule phases' process and the build. Its output goes to a log that
+    :func:`finish_trajectory_ode` prints; the process is killed if this one
+    exits first."""
+    import atexit
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    log = OUT / "trajectory_ode.log"
+    f = open(log, "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--trajectory-ode"],
+        stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT))
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, f, log, time.perf_counter(), stop
+
+
+def finish_trajectory_ode(handle, timeout=TRAJECTORY_ODE_TIMEOUT):
+    """Wait for phases 57-60's process, print its output, fail if it
+    failed."""
+    proc, f, log, t0, stop = handle
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        stop()
+        f.close()
+    text = log.read_text()
+    print(text, end="" if text.endswith("\n") else "\n", flush=True)
+    if rc != 0:
+        fail(f"phases 57-60 (python3 chip_smoke.py --trajectory-ode) "
+             f"exited {rc} after {time.perf_counter() - t0:.1f} s")
+    print(f"phases 57-60 in their own process: "
+          f"{time.perf_counter() - t0:.1f} s from its start", flush=True)
+
+
+def trajectory_ode_phases(dev, card, root, walls):
+    """Phases 57-60: the Euler-Maruyama solver and the GenerativeODE card
+    against CPU, latent_ode ``train()``, its inference engine and
+    ``evaluate()``, and mode_sep's train -> infer -> evaluate on the mock
+    world's CSV family. No phase launches a hand-written kernel. Every
+    phase raises on failure."""
+    from ananke_abm_tpu_torch.data_generator.export_csvs import (
+        write_mock_world_csvs,
+    )
+    from ananke_abm_tpu_torch.models.latent_ode import train as ltrain
+    from ananke_abm_tpu_torch.models.latent_ode.config import (
+        GenerativeODEConfig,
+    )
+    from ananke_abm_tpu_torch.models.latent_ode.evaluate import (
+        evaluate as lode_evaluate,
+    )
+    from ananke_abm_tpu_torch.models.latent_ode.inference import (
+        BatchedInferenceEngine,
+    )
+    from ananke_abm_tpu_torch.models.latent_ode.model import load_flax_params
+    from ananke_abm_tpu_torch.models.mode_sep import train as mtrain
+    from ananke_abm_tpu_torch.models.mode_sep.config import ModeSepConfig
+    from ananke_abm_tpu_torch.models.mode_sep.evaluate import (
+        evaluate as ms_evaluate,
+    )
+    from ananke_abm_tpu_torch.models.mode_sep.inference import run_inference
+    from ananke_abm_tpu_torch.utils.ckpt import load_checkpoint
+    from ananke_abm_tpu_torch.utils.seed import generator
+
+    ode = root / "trajectory_ode"
+    if ode.exists():
+        shutil.rmtree(ode)
+    ode.mkdir(parents=True)
+    config = GenerativeODEConfig()
+    steps = int(round(config.sde_span_hours / config.sde_dt)) + 1
+
+    # ---- 57. the solver and GenerativeODE, card against CPU ---------------
+    t_phase = time.perf_counter()
+    step = latent_ode_step(config)
+    t0 = time.perf_counter()
+    r = card_cpu_readings(step, dev)
+    print(f"GenerativeODE step at its defaults (hidden 32, encoder 64, ODE "
+          f"hidden 128, zone embedding 8, 2 blocks; the two personas; the "
+          f"fixed grid, {steps} Euler-Maruyama steps, one injected noise "
+          f"tensor), card against CPU: {describe_readings(r)}; states "
+          f"(positions, mu, logvar) max rel diff {r['outputs']:.3e}; both "
+          f"runs {time.perf_counter() - t0:.3f} s [card {card}]", flush=True)
+    if not r["ok"]:
+        print("GenerativeODE step: float64 CPU witness: "
+              + describe_witness(ode_witness_readings(step, r)),
+              flush=True)
+        fail("the GenerativeODE step on the card disagrees with the CPU")
+    walls[57] = time.perf_counter() - t_phase
+
+    # ---- 58. latent_ode train() ---------------------------------------------
+    t_phase = time.perf_counter()
+    run = ode / "latent_ode"
+    res = ltrain.train(str(run), config=config, num_iterations=LODE_ITERS,
+                       steps_per_call=LODE_STEPS_PER_CALL, log_every=0,
+                       device=dev)
+    hist = np.load(run / "loss_history.npz")
+    if not (run / "latent_ode_best_model.ckpt").exists() or \
+            hist["total"].shape != (LODE_ITERS,) or \
+            not np.isfinite(hist["total"]).all():
+        fail(f"latent_ode train(): history {hist['total']}, or no "
+             f"checkpoint")
+    lode_iter = res["seconds"] / LODE_ITERS
+    print(f"latent_ode train() at its defaults: {LODE_ITERS} iterations in "
+          f"calls of {LODE_STEPS_PER_CALL} (a cut of depth; the reference "
+          f"runs {config.num_iterations}) in {res['seconds']:.3f} s, "
+          f"{lode_iter:.3f} s an iteration (host clock); totals "
+          f"{', '.join(f'{v:.3f}' for v in hist['total'])} [card {card}]",
+          flush=True)
+    model, b, host = ltrain.build_model_and_batch(config, device=dev)
+    load_flax_params(model, load_checkpoint(
+        str(run / "latent_ode_best_model.ckpt"))["params"])
+    optimizer = ltrain.make_optimizer(model, config)
+    loss_fn = ltrain.make_loss_fn(model, config)
+    times = host["t_unified"].astype(np.float32)
+
+    def one_step():
+        optimizer.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(b, generator(dev, 0, LODE_ITERS), times=times)
+        loss.backward()
+        optimizer.step()
+
+    t0 = time.perf_counter()
+    lode_busy = device_busy("latent_ode training step (2,401 SDE steps)",
+                            one_step, card)
+    print(f"the profiled step and its summary: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    walls[58] = time.perf_counter() - t_phase
+
+    # ---- 59. the inference engine and evaluate() ----------------------------
+    t_phase = time.perf_counter()
+    ckpt = str(run / "latent_ode_best_model.ckpt")
+    engine = BatchedInferenceEngine(ckpt, device=dev)
+    eval_times = np.linspace(0.0, 24.0, LODE_EVAL_POINTS).astype(np.float32)
+    t0 = time.perf_counter()
+    preds = engine.predict_trajectories(num_samples=LODE_SAMPLES,
+                                        times=eval_times)
+    t_pred = time.perf_counter() - t0
+    if preds["zones"].shape != (2, LODE_SAMPLES, LODE_EVAL_POINTS) or \
+            preds["zones"].min() < 0 or preds["zones"].max() >= 8:
+        fail(f"predict_trajectories: zones {preds['zones'].shape}")
+    bench = engine.benchmark_performance(batch_sizes=LODE_BATCH_SIZES,
+                                         times=eval_times)
+    print(f"latent_ode predict_trajectories: {LODE_SAMPLES} samples x 2 "
+          f"persons x {LODE_EVAL_POINTS} times in {t_pred:.3f} s; "
+          f"benchmark_performance on {LODE_EVAL_POINTS} times: " + ", ".join(
+              f"{bs} persons {bench[bs]['people_per_s']:.1f} people/s "
+              f"({bench[bs]['s_per_batch']:.3f} s a batch)"
+              for bs in LODE_BATCH_SIZES)
+          + f"; projected_1M_people_hours "
+          f"{bench['projected_1M_people_hours']:.4f} [card {card}]",
+          flush=True)
+    t0 = time.perf_counter()
+    metrics = lode_evaluate(ckpt, str(ode / "latent_eval"), device=dev)
+    if set(metrics["persons"]) != {"Ava", "Theo"}:
+        fail(f"latent_ode evaluate(): {metrics}")
+    print(f"latent_ode evaluate() at its defaults ({LODE_SAMPLES} samples, "
+          f"{LODE_EVAL_POINTS} points) in {time.perf_counter() - t0:.3f} s: "
+          + ", ".join(f"{k} zone acc {v['zone_accuracy']:.3f}, purpose acc "
+                      f"{v['purpose_accuracy']:.3f}"
+                      for k, v in metrics["persons"].items())
+          + f" [card {card}]", flush=True)
+    walls[59] = time.perf_counter() - t_phase
+
+    # ---- 60. mode_sep -------------------------------------------------------
+    t_phase = time.perf_counter()
+    paths = write_mock_world_csvs(str(ode / "mock_world"))
+    csvs = tuple(paths[k] for k in ("periods.csv", "snaps.csv", "zones.csv",
+                                    "persons.csv", "dist_mat.csv"))
+    ms_cfg = ModeSepConfig()
+    step = mode_sep_step(csvs, ms_cfg)
+    t0 = time.perf_counter()
+    r, w, ok = mode_sep_readings(step, dev)
+    print(f"ModeSepModel step at its defaults (E 64, context 32, zone "
+          f"embedding 8, hidden 128, 2 blocks, K_internal 8, RK4 x 4), card "
+          f"against CPU: {describe_readings(r)}; the float64 CPU witness's "
+          f"distance: {describe_witness(w)}; the three runs "
+          f"{time.perf_counter() - t0:.3f} s [card {card}]", flush=True)
+    if not ok:
+        fail("the ModeSepModel step on the card disagrees with the CPU")
+    ms_walls = {}
+    for name, cfg in (("rk4", dataclasses.replace(
+            ms_cfg, max_epochs=MODESEP_EPOCHS)),
+                      ("sde", dataclasses.replace(
+                          ms_cfg, max_epochs=MODESEP_SDE_EPOCHS,
+                          enable_sde=True))):
+        out = ode / f"mode_sep_{name}"
+        res = mtrain.train(*csvs[:2], str(out), config=cfg,
+                           zones_csv=csvs[2], persons_csv=csvs[3],
+                           dist_mat_csv=csvs[4], device=dev)
+        if not (np.isfinite(res["best_loss"]) and
+                (out / "best.ckpt").exists()):
+            fail(f"mode_sep train() {name}: best loss {res['best_loss']}")
+        ms_walls[name] = res["seconds"] / cfg.max_epochs
+        print(f"mode_sep train() {name}: {cfg.max_epochs} epochs in "
+              f"{res['seconds']:.3f} s (host clock) [card {card}]",
+              flush=True)
+    ckpt = str(ode / "mode_sep_rk4" / "best.ckpt")
+    t0 = time.perf_counter()
+    pred = run_inference(ckpt, *csvs[:2], str(ode / "mode_sep_inf"),
+                         zones_csv=csvs[2], persons_csv=csvs[3],
+                         dist_mat_csv=csvs[4], device=dev)
+    t_inf = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ms_metrics = ms_evaluate(ckpt, *csvs[:2], str(ode / "mode_sep_eval"),
+                             zones_csv=csvs[2], persons_csv=csvs[3],
+                             dist_mat_csv=csvs[4], device=dev)
+    t_eval = time.perf_counter() - t0
+    if len(pred["time"]) == 0 or not (ode / "mode_sep_inf" /
+                                      "dense_rollout.npz").exists():
+        fail("mode_sep run_inference wrote no predictions")
+    walls[60] = time.perf_counter() - t_phase
+    print(f"mode_sep on the mock world's CSVs: an epoch {ms_walls['rk4']:.3f}"
+          f" s (RK4, {MODESEP_EPOCHS} epochs; the reference runs "
+          f"{ms_cfg.max_epochs}), {ms_walls['sde']:.3f} s (the SDE variant, "
+          f"{MODESEP_SDE_EPOCHS} epoch, fixed grid of {steps} steps); "
+          f"run_inference {len(pred['time'])} predictions in {t_inf:.3f} s; "
+          f"evaluate {t_eval:.3f} s: snap accuracy "
+          f"{ms_metrics['snap_accuracy']:.3f}, velocity AUC "
+          f"{ms_metrics['velocity_stay_travel_auc']:.3f} [card {card}]",
+          flush=True)
+    print("trajectory ODEs on the card: latent_ode iteration "
+          f"{lode_iter:.3f} s, step busy " + (
+              "not measured" if lode_busy is None else
+              f"{lode_busy[0] / lode_busy[1]:.1%} of {lode_busy[1]:.1f} ms, "
+              f"{lode_busy[2]} device operations")
+          + f"; mode_sep epoch {ms_walls['rk4']:.3f} s (SDE "
+          f"{ms_walls['sde']:.3f} s); phases 57-60 "
+          + ", ".join(f"{walls[k]:.1f}" for k in (57, 58, 59, 60))
+          + f" s [card {card}]", flush=True)
 
 
 if __name__ == "__main__":

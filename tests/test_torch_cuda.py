@@ -6,8 +6,10 @@ zone-encoder kernels (K4f, K4b) with the fixed-step trainer and
 ``train()``, the DOPRI5 kernels (K5 and K7 at float32 and bf16, K6) with
 the discrete-adjoint trainer and a bf16 forward, the CSR edge kernels with
 ``train(sparse_world=True)``, and the segment sum (K9e); and, card against
-CPU, the plain-PyTorch paths of the schedule VAE (a step, the CRF) and of
-the traj_syn family (the semi-CRF, a traj_embed step).
+CPU, the plain-PyTorch paths of the schedule VAE (a step, the CRF), of
+the traj_syn family (the semi-CRF, a traj_embed step) and of the
+trajectory ODE families (a latent_ode step over 2,401 Euler-Maruyama
+steps, a mode_sep RK4 step).
 
 Marked ``cuda``: every test here skips on a host without a CUDA device.
 On a card without JAX installed, run them with
@@ -1672,3 +1674,39 @@ def test_traj_embed_step_matches_the_cpu(cuda):
         assert abs(gc[k] - v) <= cs.SEMI_RTOL * abs(v), k
     for n in cg:
         assert _cosine(gg[n], cg[n]) > cs.SEMI_COS_MIN, n
+
+
+# ---- the trajectory ODE families (chip_smoke.py phases 57 and 60) -----------
+
+def test_latent_ode_step_matches_the_cpu(cuda):
+    """One GenerativeODE loss-and-gradient at its defaults (the fixed grid,
+    2,401 Euler-Maruyama steps, the same injected draws), card against
+    CPU: components within ODE_RTOL, every gradient at cosine above
+    ODE_COS_MIN, the decoded ids agreeing at ODE_IDS_MIN (phase 57)."""
+    from ananke_abm_tpu_torch.models.latent_ode.config import (
+        GenerativeODEConfig,
+    )
+
+    cs = _smoke()
+    r = cs.card_cpu_readings(cs.latent_ode_step(GenerativeODEConfig()),
+                             cuda)
+    assert r["ok"], cs.describe_readings(r)
+
+
+def test_mode_sep_step_matches_the_cpu(cuda, tmp_path):
+    """One ModeSepModel loss-and-gradient at its defaults (RK4 x 4 over the
+    mock world's union grid, K_internal 8), card against CPU, at phase
+    57's bounds, the travel-margin component within ODE_RTOL of the travel
+    points' distances (phase 60)."""
+    from ananke_abm_tpu_torch.data_generator.export_csvs import (
+        write_mock_world_csvs,
+    )
+    from ananke_abm_tpu_torch.models.mode_sep.config import ModeSepConfig
+
+    cs = _smoke()
+    paths = write_mock_world_csvs(str(tmp_path))
+    csvs = tuple(paths[k] for k in ("periods.csv", "snaps.csv", "zones.csv",
+                                    "persons.csv", "dist_mat.csv"))
+    r, w, ok = cs.mode_sep_readings(cs.mode_sep_step(csvs, ModeSepConfig()),
+                                    cuda)
+    assert ok, cs.describe_readings(r) + "; " + cs.describe_witness(w)

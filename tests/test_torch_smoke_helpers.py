@@ -2,8 +2,10 @@
 parser that turns ``nvcc -Xptxas -v`` output into one line per kernel (the
 registers and spills the smoke and ``--ab-dopri5`` report), the profiler
 summary's refusal to report a device share where the profiler saw no
-device time, and ``--ab-train``'s probe variants of a checkout's kernel
-sources."""
+device time, ``--ab-train``'s probe variants of a checkout's kernel
+sources, and the script's module-level names, each defined once."""
+import ast
+import inspect
 import sys
 from pathlib import Path
 
@@ -54,6 +56,17 @@ def test_device_busy_reports_not_measured_without_device_time(capsys,
                            "no card")
     out = capsys.readouterr().out
     assert "not measured" in out and "busy" in out
+
+
+def test_module_level_names_are_defined_once():
+    """A second ``def`` of a name replaces the first for every caller: the
+    ``--readings`` witness step once lost its 6-argument function so."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = [n.name for n in tree.body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    assert sorted({n for n in names if names.count(n) > 1}) == []
+    assert list(inspect.signature(chip_smoke.witness_readings).parameters) \
+        == ["dev", "n", "z", "nb", "num_times", "seed"]
 
 
 def test_ab_checkout_builds_a_probe_variant_and_refuses_a_stale_one(
