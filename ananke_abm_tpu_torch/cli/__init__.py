@@ -2,16 +2,19 @@
 (``python -m ananke_abm_tpu_torch.cli.main``, ``python -m
 ananke_abm_tpu_torch.cli.rgen_schedule``), and what they share: the
 device that ``ANANKE_PLATFORM`` names, the ``--data-parallel`` mesh and
-the existing-path argument type."""
+the existing-path argument type.
+
+``--data-parallel`` runs one process a device under ``torchrun``::
+
+    torchrun --nproc-per-node=N -m ananke_abm_tpu_torch.cli.main ...
+
+(gloo on the CPU with ``ANANKE_PLATFORM=cpu``, NCCL on the cards)."""
 from __future__ import annotations
 
 import argparse
 import os
 
 DEVICES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
-# what --data-parallel hands the entry points as their ``mesh``: the
-# reference builds a mesh over every attached device there
-DATA_PARALLEL = "every attached device"
 
 
 def platform_device() -> str:
@@ -26,7 +29,37 @@ def platform_device() -> str:
 
 
 def _mesh(data_parallel: bool):
-    return DATA_PARALLEL if data_parallel else None
+    """What ``--data-parallel`` hands the entry points as their ``mesh``.
+    Under ``torchrun`` the process group starts on ``ANANKE_PLATFORM``'s
+    device (``parallel.maybe_initialize``) and the mesh spans its ranks
+    with ``zone_parallel=1``, as the reference's CLI builds it over every
+    device. A process that runs alone takes no mesh (the single-device
+    run), unless the host has more than one card: that raises, naming
+    ``torchrun``, since the reference would use them all."""
+    if not data_parallel:
+        return None
+    import torch
+
+    from ananke_abm_tpu_torch.parallel import make_mesh, maybe_initialize
+
+    device = platform_device()
+    maybe_initialize(device="cpu" if device == "cpu" else None)
+    if torch.distributed.is_initialized():
+        return make_mesh(zone_parallel=1)
+    if device == "cuda" and torch.cuda.device_count() > 1:
+        raise RuntimeError(
+            f"--data-parallel on a host with {torch.cuda.device_count()} "
+            "cards runs one process a card: torchrun --nproc-per-node=N -m "
+            "ananke_abm_tpu_torch.cli.<main|rgen_schedule> ...")
+    return None
+
+
+def finish():
+    """End the process group a ``--data-parallel`` command started."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _existing(path: str) -> str:

@@ -9,10 +9,12 @@ with the same option strings, defaults, flags and printed lines, on
 ``argparse``. An error exits non-zero with its message.
 
 Commands run on the card; ``ANANKE_PLATFORM=cpu`` asks for the CPU
-(``cli/__init__.py::platform_device``). ``traj-embed --data-parallel`` is
-handed on as a mesh, which the trainer refuses, naming ROADMAP.md queue 1
-item 11; ``gatode-train --data-parallel`` is ``train(data_parallel=True)``,
-the single-card step on one card, as in the reference.
+(``cli/__init__.py::platform_device``). ``traj-embed --data-parallel``
+hands the trainer a mesh over the ranks ``torchrun`` starts
+(``cli/__init__.py::_mesh``); ``gatode-train --data-parallel`` starts the
+same process group and is ``train(data_parallel=True)``. A process that
+runs alone takes the single-card step, as the reference does on one
+device.
 ``gatode-serve --use-pallas {auto,on,off}`` is ``serve(use_kernel=)``: the
 serving kernel K1 where "on".
 """
@@ -23,7 +25,12 @@ import importlib.util
 import json
 import os
 
-from ananke_abm_tpu_torch.cli import _existing, _mesh, platform_device
+from ananke_abm_tpu_torch.cli import (
+    _existing,
+    _mesh,
+    finish,
+    platform_device,
+)
 
 
 def traj_embed(args):
@@ -99,6 +106,7 @@ def gatode_train(args):
     config = GATODEConfig(epochs=args.epochs, lr=args.lr,
                           batch_size=args.batch_size,
                           num_blocks=args.num_blocks, method=args.method)
+    _mesh(args.data_parallel)  # the process group, under torchrun
     res = train(args.outdir, n_agents=args.n_agents,
                 num_times=args.num_times, config=config, seed=args.seed,
                 num_zones=args.num_zones, sparse_world=args.sparse_world,
@@ -252,7 +260,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    args.func(args)
+    try:
+        args.func(args)
+    finally:
+        finish()
 
 
 if __name__ == "__main__":

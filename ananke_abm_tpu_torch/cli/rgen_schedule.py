@@ -12,15 +12,21 @@ exits non-zero with its message.
 Commands run on the card. ``ANANKE_PLATFORM=cpu`` asks for the CPU
 (``gpu`` or ``cuda``: the card); it is passed as the ``device=`` of
 ``train``, ``sample``, ``prepare_crf_data`` and ``train_crf``.
-``--data-parallel`` is handed on as a mesh, which those entry points
-refuse, naming ROADMAP.md queue 1 item 11.
+``--data-parallel`` hands them a mesh over the ranks ``torchrun`` starts
+(``cli/__init__.py::_mesh``); a process that runs alone takes the
+single-device run.
 """
 from __future__ import annotations
 
 import argparse
 import json
 
-from ananke_abm_tpu_torch.cli import _existing, _mesh, platform_device
+from ananke_abm_tpu_torch.cli import (
+    _existing,
+    _mesh,
+    finish,
+    platform_device,
+)
 
 
 def prepare(args):
@@ -257,7 +263,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    args.func(args)
+    try:
+        args.func(args)
+    finally:
+        finish()
 
 
 if __name__ == "__main__":

@@ -24,9 +24,9 @@ def init_crf_params(generator: torch.Generator, num_purposes: int,
             "bias": torch.zeros(num_purposes, device=dev)}
 
 
-def crf_nll_loss(params, unaries_btp, labels_bt):
+def crf_nll_loss(params, unaries_btp, labels_bt, group=None):
     u = unaries_btp + params["bias"][None, None, :]
-    return crf_nll(u, labels_bt, params["A"])
+    return crf_nll(u, labels_bt, params["A"], group=group)
 
 
 def crf_decode(params, unaries_btp, home_idx=None, enforce_nonhome=False):

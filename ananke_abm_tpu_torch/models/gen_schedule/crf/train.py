@@ -6,6 +6,11 @@ AdamW (optax's defaults and ``weight_decay``, no clip) on the CRF NLL over
 ``(seed, epoch)``, its remainder of rows dropped; the validation NLL over
 the whole split; the best-by-val checkpoint holding {params, P, T,
 home_idx}. The data lives on the device; one host read per epoch.
+
+Under a mesh each batch's rows (and the validation split's) split over
+the ``agents`` axis; the NLL means and the gradients are summed over the
+``agents`` group, so every rank steps the single-device run's parameters.
+Rank 0 writes the checkpoint.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from ananke_abm_tpu_torch.models.gen_schedule.crf.model import (
     crf_nll_loss,
     init_crf_params,
 )
+from ananke_abm_tpu_torch.parallel.collectives import all_reduce_grads
+from ananke_abm_tpu_torch.parallel.mesh import AGENT_AXIS, row_slice
 from ananke_abm_tpu_torch.utils.ckpt import save_checkpoint
 from ananke_abm_tpu_torch.utils.seed import generator
 
@@ -30,14 +37,16 @@ def train_crf(cfg: dict, seed: int = 0, log_every: int | None = None,
     """``cfg`` carries the reference crf_config.yaml's ``crf`` section keys:
     train_npz, val_npz, save_path, meta_json, num_epochs, batch_size, lr,
     weight_decay, log_every. ``init``: initial {"A", "bias"} arrays
-    (default ``init_crf_params`` from ``seed``). ``mesh`` raises (ROADMAP.md
-    queue 1 item 11). ``device``: the card unless the caller asks for the
-    CPU."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel CRF training is not ported yet: ROADMAP.md "
-            "queue 1 item 11")
+    (default ``init_crf_params`` from ``seed``). ``mesh``: data-parallel
+    over its ``agents`` axis (the module's notes); every rank returns the
+    same dict. ``device``: the card unless the caller asks for the CPU."""
     device = resolve_device(device)
+    group = None if mesh is None else mesh.get_group(AGENT_AXIS)
+
+    def local(x):
+        """This rank's rows of ``x`` (all of them without a mesh)."""
+        return x if mesh is None else x[row_slice(x.shape[0], mesh)]
+
     c = cfg["crf"] if "crf" in cfg else cfg
     with open(c["meta_json"], "r", encoding="utf-8") as f:
         crf_meta = json.load(f)
@@ -75,10 +84,12 @@ def train_crf(cfg: dict, seed: int = 0, log_every: int | None = None,
         perm = torch.randperm(U_train.shape[0], generator=gen, device=device)
         losses = []
         for i in range(n_tb):
-            bidx = perm[i * batch_size:(i + 1) * batch_size]
+            bidx = local(perm[i * batch_size:(i + 1) * batch_size])
             optimizer.zero_grad(set_to_none=True)
-            loss = crf_nll_loss(params, U_train[bidx], Y_train[bidx])
+            loss = crf_nll_loss(params, U_train[bidx], Y_train[bidx], group)
             loss.backward()
+            if group is not None:
+                all_reduce_grads(list(params.values()), group)
             optimizer.step()
             losses.append(loss.detach())
         return torch.stack(losses).mean()
@@ -93,7 +104,8 @@ def train_crf(cfg: dict, seed: int = 0, log_every: int | None = None,
     for epoch in range(1, num_epochs + 1):
         tr_loss = train_epoch(generator(device, seed, epoch))
         with torch.no_grad():
-            va_loss = (crf_nll_loss(params, U_val, Y_val)
+            va_loss = (crf_nll_loss(params, local(U_val), local(Y_val),
+                                    group)
                        if U_val.shape[0] else tr_loss)
         tr_v, mean_val = torch.stack([tr_loss, va_loss]).tolist()
 
@@ -102,11 +114,12 @@ def train_crf(cfg: dict, seed: int = 0, log_every: int | None = None,
                               "val_nll": mean_val}))
         if best_val is None or mean_val < best_val:
             best_val = mean_val
-            save_checkpoint(
-                {"params": {k: v.detach() for k, v in params.items()},
-                 "P": P, "T": T, "home_idx": home_idx},
-                save_path,
-            )
+            if group is None or torch.distributed.get_rank() == 0:
+                save_checkpoint(
+                    {"params": {k: v.detach() for k, v in params.items()},
+                     "P": P, "T": T, "home_idx": home_idx},
+                    save_path,
+                )
     print(f"Training CRF completed in {time.time() - t0:.2f} seconds.")
     print(f"Saved best CRF to {save_path} with val_nll={best_val:.4f}")
     return {"best_val_nll": best_val}

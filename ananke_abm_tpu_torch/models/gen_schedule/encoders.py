@@ -8,7 +8,9 @@ padding, which pads as flax's ``padding="SAME"`` does.
 - ``norm="group"``: ``nn.GroupNorm(min(8, C), C)`` with flax's eps 1e-6.
 - ``norm="batch"``: ``nn.BatchNorm1d`` (momentum 0.1, eps 1e-5), which the
   reference's ``SyncBatchNorm`` reproduces: its running ``mean`` / ``var``
-  ride ``batch_stats`` in the checkpoints (``params.py``).
+  ride ``batch_stats`` in the checkpoints (``params.py``). Under a mesh
+  (:func:`set_batch_norm_group`) its statistics run over the whole batch
+  (:class:`SyncBatchNorm1d`).
 - Dropout is a mask drawn from an explicit ``torch.Generator`` (the
   reference draws it from its ``dropout`` key), applied only in training
   mode and only at a rate above 0.
@@ -26,25 +28,72 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ananke_abm_tpu_torch.utils.seed import draw
+
 
 def dropout(h, rate: float, training: bool,
             generator: Optional[torch.Generator]):
-    """Inverted dropout with a mask drawn from ``generator``."""
+    """Inverted dropout with a mask drawn from ``generator`` (a
+    ``utils.seed.RowDraws`` draws the whole batch's mask and keeps its
+    rows)."""
     if not training or rate == 0.0:
         return h
     if generator is None:
         raise ValueError("dropout in training mode needs a generator")
     keep = 1.0 - rate
-    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    mask = draw(torch.rand, h.shape, generator, h.device) < keep
     return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype,
                                                    device=h.device))
+
+
+class SyncBatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` over (B, C, T) whose training-mode statistics,
+    with ``group`` set, run over the rows of every rank of that process
+    group (the reference's ``SyncBatchNorm`` under a mesh): the sums of x
+    and x^2 and the count are summed over the group with their gradient
+    (``parallel.collectives.all_reduce_sum``); the normalisation takes the
+    biased variance, the running update the unbiased one, as
+    ``nn.BatchNorm1d``. ``torch.nn.SyncBatchNorm`` refuses CPU tensors.
+    With ``group`` None it is ``nn.BatchNorm1d``."""
+
+    group = None
+
+    def forward(self, x):
+        if not (self.training and self.group is not None):
+            return super().forward(x)
+        from ananke_abm_tpu_torch.parallel.collectives import all_reduce_sum
+
+        C = x.shape[1]
+        stats = all_reduce_sum(torch.cat([
+            x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2)),
+            x.new_tensor([x.shape[0] * x.shape[2]])]), self.group)
+        s, ss, n = stats[:C], stats[C:2 * C], stats[2 * C].detach()
+        mean = s / n
+        var = ss / n - mean * mean  # biased, for the normalisation
+        with torch.no_grad():
+            m = self.momentum
+            unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(m * unbiased)
+            self.num_batches_tracked.add_(1)
+        inv = torch.rsqrt(var + self.eps)
+        return ((x - mean[None, :, None]) * (inv * self.weight)[None, :, None]
+                + self.bias[None, :, None])
+
+
+def set_batch_norm_group(model: nn.Module, group) -> None:
+    """Point every :class:`SyncBatchNorm1d` of ``model`` at ``group`` (the
+    mesh's ``agents`` group; None: per-rank statistics)."""
+    for m in model.modules():
+        if isinstance(m, SyncBatchNorm1d):
+            m.group = group
 
 
 def make_norm(norm: str, features: int) -> nn.Module:
     if norm == "group":
         return nn.GroupNorm(min(8, features), features, eps=1e-6)
     if norm == "batch":
-        return nn.BatchNorm1d(features, eps=1e-5, momentum=0.1)
+        return SyncBatchNorm1d(features, eps=1e-5, momentum=0.1)
     raise ValueError(f"Unknown norm {norm!r}; use group|batch")
 
 
@@ -151,6 +200,5 @@ def reparameterize(mu, logvar, generator=None, eps=None):
     """mu + exp(logvar / 2) * eps, eps ~ N(0, I) from ``generator`` unless
     given (tests pass the reference's draw)."""
     if eps is None:
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device,
-                          dtype=mu.dtype)
+        eps = draw(torch.randn, mu.shape, generator, mu.device, mu.dtype)
     return mu + torch.exp(0.5 * logvar) * eps

@@ -11,6 +11,11 @@ mask -> the chunk's masked count / mean / M2 and latent sums) has a fixed
 shape on the device; rejection never changes a device shape. The chunk
 summaries are float32 on the device; their merge (Chan's parallel
 Welford update) is float64 on the host.
+
+Under a mesh the chunk is rounded up to a multiple of the ``agents`` axis
+and every rank draws the whole chunk's z from the same generator and keeps
+its rows; the ids, the kept rows and each rank's summaries are gathered,
+and the summaries merged in rank order. Rank 0 writes the artifacts.
 """
 from __future__ import annotations
 
@@ -117,11 +122,9 @@ def sample(
 ):
     """The reference's ``sample()``: same arguments, artifacts and meta
     keys. Chunks of DEFAULT_CHUNK, or 8192 past 16,384 samples; z from a
-    generator seeded by ``seed``. ``mesh`` raises (ROADMAP.md queue 1 item
-    11). ``device``: the card unless the caller asks for the CPU."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded sampling is not ported yet: ROADMAP.md queue 1 item 11")
+    generator seeded by ``seed``. ``mesh``: the chunks' rows split over its
+    ``agents`` axis (the module's notes); every rank returns the same dict.
+    ``device``: the card unless the caller asks for the CPU."""
     device = resolve_device(device)
     obj = load_checkpoint(ckpt_path)
     cfg, meta = obj["cfg"], obj["meta"]
@@ -138,6 +141,17 @@ def sample(
     if chunk_size is None:
         chunk_size = DEFAULT_CHUNK if num_samples <= 16384 else 8192
     CHUNK = int(chunk_size)
+    rows = agents = None
+    if mesh is not None:
+        from ananke_abm_tpu_torch.parallel.mesh import (
+            AGENT_AXIS,
+            axis_size,
+            row_slice,
+        )
+
+        n_agent = axis_size(mesh, AGENT_AXIS)
+        CHUNK = -(-CHUNK // n_agent) * n_agent
+        rows, agents = row_slice(CHUNK, mesh), mesh.get_group(AGENT_AXIS)
 
     t0 = time.time()
     model, pds = load_vae(obj, device)
@@ -170,7 +184,17 @@ def sample(
     remaining = num_samples
     while remaining > 0:
         z = torch.randn((CHUNK, z_dim), generator=gen, device=device)
+        if rows is not None:
+            z = z[rows]
         y, keep, cnt, mean, m2, zs, zq = chunk_fn(z)
+        summ = torch.cat([cnt[None], mean.reshape(-1), m2.reshape(-1), zs,
+                          zq])[None]
+        if agents is not None:
+            from ananke_abm_tpu_torch.parallel.collectives import gather_rows
+
+            y = gather_rows(y, CHUNK, agents)
+            keep = gather_rows(keep.to(torch.uint8), CHUNK, agents).bool()
+            summ = gather_rows(summ, summ.shape[0] * n_agent, agents)
         # the chunk's host read: its kept ids (one byte each) and summaries
         keep_np = keep.cpu().numpy()
         n_keep = int(keep_np.sum())
@@ -181,16 +205,15 @@ def sample(
         accepted.append(y_keep[:take])
 
         # merge full-chunk stats (acceptance stats use all accepted rows of
-        # the chunk, as the reference's do)
-        summ = torch.cat([cnt[None], mean.reshape(-1), m2.reshape(-1), zs,
-                          zq]).double().cpu().numpy()
-        c_mean, c_m2, zs, zq = np.split(
-            summ[1:], np.cumsum([T * P, T * P, z_dim]))
-        W_count, W_mean, W_m2 = _merge_welford(
-            W_count, W_mean, W_m2, int(summ[0]), c_mean.reshape(T, P),
-            c_m2.reshape(T, P))
-        z_sum += zs
-        z_sq += zq
+        # the chunk, as the reference's do); one summary a rank
+        for part in summ.double().cpu().numpy():
+            c_mean, c_m2, zs, zq = np.split(
+                part[1:], np.cumsum([T * P, T * P, z_dim]))
+            W_count, W_mean, W_m2 = _merge_welford(
+                W_count, W_mean, W_m2, int(part[0]), c_mean.reshape(T, P),
+                c_m2.reshape(T, P))
+            z_sum += zs
+            z_sq += zq
         z_n += n_keep
         remaining -= take
 
@@ -211,6 +234,8 @@ def sample(
 
     elapsed = time.time() - t0
     print(f"[sample:{decode_mode}] Sampling completed in {elapsed:.2f} seconds.")
+    if agents is not None and torch.distributed.get_rank() != 0:
+        return {"seconds": elapsed, "generated": int(Y_gen.shape[0])}
 
     d = os.path.dirname(outprefix)
     if d:

@@ -16,6 +16,13 @@ masked out of every loss mean. The loss components stay on the device:
 one host read per epoch. Every random draw (the permutation, the dropout
 masks, the reparameterisation noise) comes from a generator seeded by
 ``(seed, epoch)``, so a resumed run repeats the uninterrupted one.
+
+Under a mesh every rank holds the whole grid and the same generator: each
+batch's rows split over the ``agents`` axis, every draw is made at the
+whole batch's shape and each rank keeps its rows (``utils.seed.RowDraws``),
+the losses' means, the batch-norm statistics and the gradients are summed
+over the ``agents`` group: the single-device run's numbers. Rank 0 writes
+the files.
 """
 from __future__ import annotations
 
@@ -53,7 +60,7 @@ from ananke_abm_tpu_torch.utils.ckpt import (
     save_checkpoint,
 )
 from ananke_abm_tpu_torch.utils.optim import ClippedAdamW
-from ananke_abm_tpu_torch.utils.seed import generator, set_seed
+from ananke_abm_tpu_torch.utils.seed import RowDraws, generator, set_seed
 
 IMPROVEMENT_THRESHOLD = 0.003  # the reference's train.py:250
 
@@ -97,7 +104,7 @@ def load_pds_arrays(cfg: dict, pds_features):
             "share_emp": m_tod.mean(dim=1).to(dev)}
 
 
-def make_loss_fn(model, home_idx, lambdas, pds_arrays):
+def make_loss_fn(model, home_idx, lambdas, pds_arrays, group=None):
     """The composite masked loss. ``pds_arrays`` is None or a dict with
     pds_features (P, T, D), m_tod (P, T), presence (P,), share_emp (P,).
 
@@ -105,26 +112,30 @@ def make_loss_fn(model, home_idx, lambdas, pds_arrays):
     comps)``: ``generator`` draws the dropout masks and the noise, ``eps``
     (B, z_dim) replaces the noise. Training mode is the model's
     (``model.train()``: dropout, batch statistics and their running
-    update)."""
+    update). ``group``: the batch's rows lie on that process group's ranks
+    and every mean runs over all of them (``losses.schedule``)."""
 
     def loss_fn(batch_y, mask, beta, generator=None, eps=None):
         pds = pds_arrays["pds_features"] if pds_arrays is not None else None
         logits, mu, logvar = model(batch_y, generator, pds, eps)
-        ce = cross_entropy_masked(logits, batch_y, mask)
-        kl = kl_gaussian(mu, logvar, mask)
-        tv = time_total_variation(logits, mask)
-        home = start_end_home_loss(logits, home_idx, mask)
+        ce = cross_entropy_masked(logits, batch_y, mask, group)
+        kl = kl_gaussian(mu, logvar, mask, group)
+        tv = time_total_variation(logits, mask, group)
+        home = start_end_home_loss(logits, home_idx, mask, group)
         loss = ce + beta * kl + lambdas["tv"] * tv + lambdas["home"] * home
         zero = logits.new_zeros(())
         comps = {"ce": ce, "kl": kl, "tv": tv, "home": home,
                  "tod": zero, "presence": zero, "share": zero}
         if pds_arrays is not None:
-            tod = time_of_day_marginal_loss(logits, pds_arrays["m_tod"], mask)
-            pres = presence_rate_loss(logits, pds_arrays["presence"], mask)
+            tod = time_of_day_marginal_loss(logits, pds_arrays["m_tod"], mask,
+                                            group)
+            pres = presence_rate_loss(logits, pds_arrays["presence"], mask,
+                                      group)
             loss = loss + lambdas["tod"] * tod + lambdas["presence"] * pres
             comps["tod"], comps["presence"] = tod, pres
             if lambdas.get("share", 0.0) > 0.0:
-                shr = minutes_share_loss(logits, pds_arrays["share_emp"], mask)
+                shr = minutes_share_loss(logits, pds_arrays["share_emp"],
+                                         mask, group)
                 loss = loss + lambdas["share"] * shr
                 comps["share"] = shr
         comps["loss"] = loss
@@ -146,9 +157,55 @@ def _padded(order, n_batches, batch_size, wrap=True):
     return idx, mask
 
 
-def make_epoch_fns(model, optimizer, loss_fn, batch_size):
+class BatchRows:
+    """How a batch of ``batch_size`` rows splits over a mesh's ``agents``
+    axis: this rank's ``rows`` of it, the ``generator`` its draws come from
+    (a ``RowDraws`` of the whole batch) and the gradients' sum over the
+    ``agents`` group. Without a mesh every row is this process's."""
+
+    def __init__(self, batch_size, mesh=None):
+        self.group = self.rows = None
+        if mesh is not None:
+            from ananke_abm_tpu_torch.parallel.mesh import (
+                AGENT_AXIS,
+                row_slice,
+            )
+
+            self.group = mesh.get_group(AGENT_AXIS)
+            self.rows = row_slice(batch_size, mesh)
+        self.batch_size = batch_size
+
+    def local(self, x):
+        """This rank's rows of a tensor holding the whole batch."""
+        return x if self.rows is None else x[self.rows]
+
+    def rows_of(self, i):
+        """This rank's rows of batch ``i``: a slice of the epoch's padded
+        order."""
+        lo = i * self.batch_size
+        if self.rows is None:
+            return slice(lo, lo + self.batch_size)
+        return slice(lo + self.rows.start, lo + self.rows.stop)
+
+    def generator(self, gen):
+        if self.rows is None or gen is None:
+            return gen
+        return RowDraws(gen, self.rows, self.batch_size, self.group)
+
+    def reduce_grads(self, params):
+        if self.group is not None:
+            from ananke_abm_tpu_torch.parallel.collectives import (
+                all_reduce_grads,
+            )
+
+            all_reduce_grads(params, self.group)
+
+
+def make_epoch_fns(model, optimizer, loss_fn, batch_size, mesh=None):
     """(train_epoch, eval_epoch). Each returns the epoch's mean loss
-    components as one (len(COMPONENTS),) device tensor.
+    components as one (len(COMPONENTS),) device tensor. ``mesh``: each
+    batch splits over its ``agents`` axis (:class:`BatchRows`); ``loss_fn``
+    must then reduce over the ``agents`` group.
 
     ``train_epoch(Y, generator, beta, n_batches, perm=None, eps=None)``:
     shuffles (``perm`` replaces the generator's permutation), steps the
@@ -157,6 +214,9 @@ def make_epoch_fns(model, optimizer, loss_fn, batch_size):
     the components weighted by each batch's valid rows. ``eps``: one noise
     tensor per batch, replacing the draws."""
 
+    split = BatchRows(batch_size, mesh)
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+
     def train_epoch(Y, gen, beta, n_batches, perm=None, eps=None):
         model.train()
         if perm is None:
@@ -164,11 +224,14 @@ def make_epoch_fns(model, optimizer, loss_fn, batch_size):
         idx, mask = _padded(perm, n_batches, batch_size)
         rows = []
         for i in range(n_batches):
-            sl = slice(i * batch_size, (i + 1) * batch_size)
+            sl = split.rows_of(i)
             optimizer.zero_grad()
-            loss, comps = loss_fn(Y[idx[sl]], mask[sl], beta, gen,
-                                  None if eps is None else eps[i])
+            loss, comps = loss_fn(Y[idx[sl]], mask[sl], beta,
+                                  split.generator(gen),
+                                  None if eps is None else split.local(
+                                      eps[i]))
             loss.backward()
+            split.reduce_grads(params)
             optimizer.step()
             rows.append(torch.stack([comps[k].detach() for k in COMPONENTS]))
         return torch.stack(rows).mean(dim=0)
@@ -180,11 +243,13 @@ def make_epoch_fns(model, optimizer, loss_fn, batch_size):
                             n_batches, batch_size, wrap=False)
         rows, weights = [], []
         for i in range(n_batches):
-            sl = slice(i * batch_size, (i + 1) * batch_size)
-            _, comps = loss_fn(Y[idx[sl]], mask[sl], beta, gen,
-                               None if eps is None else eps[i])
+            whole = slice(i * batch_size, (i + 1) * batch_size)
+            sl = split.rows_of(i)
+            _, comps = loss_fn(Y[idx[sl]], mask[sl], beta,
+                               split.generator(gen),
+                               None if eps is None else split.local(eps[i]))
             rows.append(torch.stack([comps[k] for k in COMPONENTS]))
-            weights.append(mask[sl].sum())
+            weights.append(mask[whole].sum())
         w = torch.stack(weights)
         return (torch.stack(rows) * w[:, None]).sum(0) / torch.clamp(
             w.sum(), min=1.0)
@@ -221,21 +286,23 @@ def train(config, output_dir: str, seed: int = 123, resume: bool = False,
     reference's fused multi-epoch scan reproduces it) and writes
     ``last.ckpt`` on that scan's cadence (``_last_ckpt_due``). ``resume=True``
     continues from ``checkpoints/last.ckpt`` when it exists (the port's own;
-    a JAX-written one holds an optax state and is refused). ``mesh`` raises:
-    data-parallel training is ROADMAP.md queue 1 item 11. ``device``: the
-    card unless the caller asks for the CPU (no fallback).
+    a JAX-written one holds an optax state and is refused). ``mesh``: an
+    (agents, zones) ``parallel.make_mesh`` mesh; data-parallel training with
+    the single-device run's numbers (the module's notes), rank 0 writing
+    the checkpoints and the log. ``device``: the card unless the caller
+    asks for the CPU (no fallback).
 
-    Returns {best_val_loss, epochs_ran, seconds}."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel schedule-VAE training is not ported yet: "
-            "ROADMAP.md queue 1 item 11")
+    Returns {best_val_loss, epochs_ran, seconds}, the same on every
+    rank."""
     device = resolve_device(device)
+    writer = mesh is None or torch.distributed.get_rank() == 0
     cfg = load_config(config) if isinstance(config, str) else config
     set_seed(seed)
 
-    outdir = ensure_dir(output_dir)
-    ensure_dir(os.path.join(outdir, "checkpoints"))
+    outdir = output_dir
+    if writer:
+        ensure_dir(outdir)
+        ensure_dir(os.path.join(outdir, "checkpoints"))
 
     data_npz = cfg["data"]["npz"]
     with open(data_npz.replace(".npz", "_meta.json"), "r",
@@ -275,9 +342,19 @@ def train(config, output_dir: str, seed: int = 123, resume: bool = False,
         load_adamw_state(optimizer.adamw, obj["opt_state"], names)
         start_epoch = int(obj.get("epoch", 0)) + 1
 
+    group = None
+    if mesh is not None:
+        from ananke_abm_tpu_torch.models.gen_schedule.encoders import (
+            set_batch_norm_group,
+        )
+        from ananke_abm_tpu_torch.parallel.mesh import AGENT_AXIS
+
+        group = mesh.get_group(AGENT_AXIS)
+        set_batch_norm_group(model, group)
     train_epoch, eval_epoch = make_epoch_fns(
         model, optimizer,
-        make_loss_fn(model, home_idx, lambdas, pds_arrays), batch_size)
+        make_loss_fn(model, home_idx, lambdas, pds_arrays, group),
+        batch_size, **({} if mesh is None else {"mesh": mesh}))
 
     num_epochs = int(tr["epochs"])
     min_epochs = int(tr.get("min_epochs", num_epochs))
@@ -289,6 +366,10 @@ def train(config, output_dir: str, seed: int = 123, resume: bool = False,
     n_vb = max(1, -(-Y_val.shape[0] // batch_size))
     ckpt_every = int(tr.get("ckpt_every", 25))
     chunk = int(tr.get("epochs_per_jit", 1))
+
+    def save(obj, path):
+        if writer:
+            save_checkpoint(obj, path)
 
     def ckpt(epoch):
         return {"params": to_flax_params(model),
@@ -326,31 +407,32 @@ def train(config, output_dir: str, seed: int = 123, resume: bool = False,
         stop = epoch >= min_epochs and wait >= patience
         if _last_ckpt_due(epoch, start_epoch, num_epochs, ckpt_every, chunk,
                           stop):
-            save_checkpoint(ckpt(epoch), last_ckpt)
+            save(ckpt(epoch), last_ckpt)
         if stop:
             print(f"No improvement for {patience} epochs, stopping.")
             break
         if improved:
             wait = 0
 
-    save_checkpoint(ckpt(epoch), last_ckpt)
+    save(ckpt(epoch), last_ckpt)
     if best_state is not None:
         model_state, opt_state, b_epoch = best_state
         model.load_state_dict(model_state)
         optimizer.adamw.load_state_dict(opt_state)
-        save_checkpoint(ckpt(b_epoch), best_ckpt)
+        save(ckpt(b_epoch), best_ckpt)
 
     elapsed = time.time() - t_start
     print(f"Training completed in {elapsed:.2f} seconds.")
 
-    if not os.path.exists(best_ckpt):
-        save_checkpoint(ckpt(num_epochs), best_ckpt)
+    if writer and not os.path.exists(best_ckpt):
+        save(ckpt(num_epochs), best_ckpt)
 
-    with open(os.path.join(outdir, "training_log.csv"), "w", newline="",
-              encoding="utf-8") as f:
-        if logs:
-            w = csv.DictWriter(f, fieldnames=list(logs[0]))
-            w.writeheader()
-            w.writerows(logs)
+    if writer:
+        with open(os.path.join(outdir, "training_log.csv"), "w", newline="",
+                  encoding="utf-8") as f:
+            if logs:
+                w = csv.DictWriter(f, fieldnames=list(logs[0]))
+                w.writeheader()
+                w.writerows(logs)
     return {"best_val_loss": best_val_loss, "epochs_ran": len(logs),
             "seconds": elapsed}

@@ -48,9 +48,44 @@ def _kernel_eligible(config, device) -> bool:
         config.hidden_dim, config.num_blocks)
 
 
+def _on_rows(body, mesh, zone_feats, adj, times):
+    """``rollout(person_feats, home_zone_ids)`` running ``body`` under
+    ``torch.inference_mode()``; with ``mesh``, on this rank's agent rows
+    (``parallel.mesh.local_rows``) and the ids gathered over ``agents``:
+    the whole (N, T) grid on every rank."""
+    if mesh is None:
+        def rollout(person_feats, home_zone_ids):
+            with torch.inference_mode():
+                return body(zone_feats, adj, times, person_feats,
+                            home_zone_ids)
+
+        return rollout
+
+    from ananke_abm_tpu_torch.parallel.collectives import gather_rows
+    from ananke_abm_tpu_torch.parallel.mesh import (
+        AGENT_AXIS,
+        local_rows,
+    )
+
+    agents = mesh.get_group(AGENT_AXIS)
+
+    def rollout_sh(person_feats, home_zone_ids):
+        (pf, n), (hz, _) = (local_rows(person_feats, mesh),
+                            local_rows(home_zone_ids, mesh))
+        with torch.inference_mode():
+            if pf.shape[0]:
+                ids = body(zone_feats, adj, times, pf, hz)
+            else:  # fewer rows than ranks: this one holds none
+                ids = torch.zeros((0, times.shape[0]), dtype=torch.int32,
+                                  device=times.device)
+            return gather_rows(ids, n, agents)
+
+    return rollout_sh
+
+
 def make_decoded_rollout(model, config, zone_feats, adj, times,
                          use_kernel: str | bool = "auto", edge_index=None,
-                         edge_chunks=None):
+                         edge_chunks=None, mesh=None):
     """Returns ``rollout(person_feats, home_zone_ids) -> (N, T) int32``
     zone ids, with the decode fused into the integration.
 
@@ -69,6 +104,11 @@ def make_decoded_rollout(model, config, zone_feats, adj, times,
     reference it forces the float32 body, whatever ``use_kernel`` says: the
     kernel body's zone-encode is dense. ``edge_chunks`` is accepted for the
     reference's signature and ignored (the CSR kernels need no chunks).
+
+    ``mesh``: an (agents, zones) ``parallel.make_mesh`` mesh; each rank
+    runs the chosen body on its agent rows (a DTensor sharded over
+    ``agents`` gives its local rows, a whole-batch tensor this rank's
+    slice) and every rank returns the whole (N, T) grid.
     """
     if use_kernel not in ("auto", True, False):
         raise ValueError(f"use_kernel must be 'auto', True or False, got "
@@ -83,13 +123,7 @@ def make_decoded_rollout(model, config, zone_feats, adj, times,
         body = _kernel_body(model, substeps, rk4_interval_decode_fused)
     else:
         body = _f32_body(model, substeps, edge_index)
-
-    def rollout(person_feats, home_zone_ids):
-        with torch.inference_mode():
-            return body(zone_feats, adj, times, person_feats,
-                        home_zone_ids)
-
-    return rollout
+    return _on_rows(body, mesh, zone_feats, adj, times)
 
 
 def _f32_body(model, substeps, edge_index=None):
@@ -130,22 +164,14 @@ def make_pallas_rollout(model, zone_feats, adj, times, substeps=2,
     kernel body. Both round the same bf16 decode, so on the plain versions
     they give the same ids. CPU tensors run the kernels' plain versions.
 
-    Every call reads the module's current parameters. ``mesh`` (the
-    reference's multi-chip rollout) is not ported.
+    Every call reads the module's current parameters. ``mesh``: each rank
+    launches the kernels on its agent rows and returns the whole (N, T)
+    grid, as :func:`make_decoded_rollout` does (the reference's
+    ``shard_map`` over ``agents``).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_pallas_rollout(mesh=...) over several cards is not ported "
-            "yet: ROADMAP.md queue 1 item 11")
     body = (_kernel_body(model, substeps, rk4_interval_decode_fused)
             if fuse_decode else _per_step_body(model, substeps))
-
-    def rollout(person_feats, home_zone_ids):
-        with torch.inference_mode():
-            return body(zone_feats, adj, times, person_feats,
-                        home_zone_ids)
-
-    return rollout
+    return _on_rows(body, mesh, zone_feats, adj, times)
 
 
 def _kernel_setup(model, substeps, zone_feats, adj, times, person_feats,

@@ -7,8 +7,8 @@ epoch function and ``train()`` (port of
 A zone graph is dense, ``static = (zone_feats, adj, times)``, or a sparse
 edge list, ``static = (zone_feats, adj_or_None, times, edge_index)`` with
 an optional fifth element (the reference's ``EdgeChunks``, ignored here:
-the CSR kernels need no chunks). Not ported yet: the data-parallel step
-across cards (ROADMAP.md queue 1 item 11).
+the CSR kernels need no chunks). ``train(data_parallel=True)`` under a
+process group takes the sharded steps of ``parallel/sharded.py``.
 """
 from __future__ import annotations
 
@@ -265,7 +265,7 @@ def make_step_fns(model, optimizer, config, static):
 
 
 def build_fused_loss_fn(model, config, zone_feats, adj, times,
-                        _plain=False):
+                        global_rows=None, _plain=False):
     """``loss_fn(pf, hz, targets) -> (loss, acc)`` of the fused fixed-step
     trainer: the zone encoder through the encoder kernels
     (``zone_gat_fused``, K4f/K4b), the initial state in plain PyTorch, the
@@ -284,7 +284,10 @@ def build_fused_loss_fn(model, config, zone_feats, adj, times,
     elsewhere, as the reference drops back to flax where its kernel does
     not fit.
 
-    Loss and accuracy are means over the agent-time rows. ``_plain``: run
+    Loss and accuracy are means over the agent-time rows: the batch's sums
+    over its ``N * T`` rows, or over ``global_rows`` where given (a rank's
+    share of a sharded batch, whose shares the caller sums: the
+    reference's ``global_rows``). ``_plain``: run
     the kernels' plain versions wherever the tensors lie (to hold the
     kernels' step against).
     """
@@ -341,7 +344,8 @@ def build_fused_loss_fn(model, config, zone_feats, adj, times,
         nll, correct = decode_ce(rows, targets.reshape(-1).to(torch.int32),
                                  model.decode_proj.weight.T, zone_emb,
                                  _impl=ce_impl)
-        return nll.sum() / (N * T), correct.float().sum() / (N * T)
+        denom = N * T if global_rows is None else global_rows
+        return nll.sum() / denom, correct.float().sum() / denom
 
     return loss_fn
 
@@ -429,6 +433,22 @@ def fused_step_fits(config) -> bool:
             and ce_kernels_fit(config.agent_dim, config.zone_dim))
 
 
+def _data_parallel_ranks(device) -> int:
+    """The ranks a ``data_parallel`` run spans: the world size of the
+    initialised process group; 1 without one, unless the host has more
+    than one card, where the reference would use them all: that raises,
+    naming ``torchrun``."""
+    if torch.distributed.is_initialized():
+        return torch.distributed.get_world_size()
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise RuntimeError(
+            f"data_parallel on a host with {torch.cuda.device_count()} cards "
+            "needs one process a card: run under torchrun "
+            "--nproc-per-node=N (or call "
+            "ananke_abm_tpu_torch.parallel.maybe_initialize first)")
+    return 1
+
+
 def _resume_checkpoint(path, config, run):
     """The ``gatode_last.ckpt`` at ``path`` if this package wrote it for the
     same run (``run``: the world keys; ``config`` but its ``epochs``)."""
@@ -495,9 +515,19 @@ def train(
     (its encoder is dense), as in the reference. ``sparse_world=True``
     (implies ``sparse_zones``) has the generator build the graph as an edge
     list (``sparse_zone_world``), so no O(Z^2) array exists at any stage.
-    ``data_parallel`` over more than one card raises (ROADMAP.md queue 1
-    item 11); with one card it runs the single-device step, as the
-    reference does with one device.
+    ``data_parallel``: under an initialised process group of more than one
+    rank (``torchrun``, ``parallel.maybe_initialize``), every rank builds
+    the same world and model and takes the reference's per-batch sharded
+    step over ``make_mesh(world, zone_parallel=1)``: the fused step where
+    the single-device gate takes it
+    (``parallel.make_sharded_fused_train_step``), else
+    ``parallel.make_sharded_train_step`` (dopri5 through its discrete
+    adjoint); the batch is cut to a multiple of the world size; rank 0
+    alone writes the checkpoints and every rank returns the same dict.
+    With one rank it runs the single-device step, as the reference does
+    with one device; on a host with more than one card and no process
+    group it raises, naming ``torchrun`` (the reference would use every
+    card).
 
     ``ckpt_every=k`` writes ``gatode_last.ckpt`` (flax-layout params, this
     package's AdamW state, epoch, history, world keys) every k epochs;
@@ -515,17 +545,15 @@ def train(
     sparse_zones = sparse_zones or sparse_world
     config = config or GATODEConfig()
     device = resolve_device(device)
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    n_dev = _data_parallel_ranks(device) if data_parallel else 1
     data_parallel = data_parallel and n_dev > 1
     if accum_steps > 1 and data_parallel:
         raise ValueError(
             "accum_steps > 1 is a single-device feature; the data-parallel "
             "step scales its effective batch across chips instead")
-    if data_parallel:
-        raise NotImplementedError(
-            f"data_parallel over {n_dev} cards is not ported yet: "
-            "ROADMAP.md queue 1 item 11")
-    ensure_dir(outdir)
+    writer = not data_parallel or torch.distributed.get_rank() == 0
+    if writer:
+        ensure_dir(outdir)
     data = generate_agent_population(n_agents, num_times=num_times,
                                      seed=seed, num_zones=num_zones,
                                      sparse_world=sparse_world)
@@ -543,8 +571,27 @@ def train(
               else edges_from_adj(data["adj"]))
         static += (tuple(on(e, torch.long) for e in ei),)
     Z = int(static[0].shape[0])
-    if (config.method == "rk4" and device.type == "cuda" and not sparse_zones
-            and Z <= FUSED_MAX_ZONES and fused_step_fits(config)):
+    fused_ok = (config.method == "rk4" and device.type == "cuda"
+                and not sparse_zones and Z <= FUSED_MAX_ZONES
+                and fused_step_fits(config))
+    train_step = epoch_fn = None
+    if data_parallel:
+        from ananke_abm_tpu_torch.parallel import (
+            make_mesh,
+            make_sharded_fused_train_step,
+            make_sharded_train_step,
+        )
+
+        mesh = make_mesh(n_dev, zone_parallel=1)
+        make_step = (make_sharded_fused_train_step if fused_ok
+                     else make_sharded_train_step)
+        train_step = make_step(model, optimizer, config, mesh, static)
+        if bsz < n_dev:
+            raise ValueError(
+                f"data_parallel over {n_dev} devices needs a batch of at "
+                f"least {n_dev} agents; got batch_size={bsz}")
+        bsz -= bsz % n_dev  # the agent mesh axis must divide the batch
+    elif fused_ok:
         fused_loss = build_fused_loss_fn(model, config, *static)
         epoch_fn = make_epoch_fn(
             optimizer, lambda pf, hz, tg, _g: fused_loss(pf, hz, tg),
@@ -589,11 +636,18 @@ def train(
         perm = np.random.default_rng(seed + epoch).permutation(n_agents)
         batches = on(perm[: n_batches * bsz].reshape(n_batches, bsz),
                      torch.long)
-        losses, accs = epoch_fn(pf, hz, tg, batches)
+        if epoch_fn is not None:
+            losses, accs = epoch_fn(pf, hz, tg, batches)
+        else:
+            # the reference's per-batch step: the data-parallel path
+            steps = [train_step(pf[rows], hz[rows], tg[rows])
+                     for rows in batches]
+            losses = torch.stack([loss for loss, _ in steps])
+            accs = torch.stack([acc for _, acc in steps])
         # the epoch's one host sync
         hist.append({"epoch": epoch, "loss": float(losses.mean()),
                      "acc": float(accs.mean())})
-        if ckpt_every and epoch % ckpt_every == 0:
+        if writer and ckpt_every and epoch % ckpt_every == 0:
             save_checkpoint({
                 "params": to_flax_params(model),
                 "opt_state": adamw_state(optimizer.adamw, names),
@@ -604,18 +658,23 @@ def train(
             }, last_ckpt)
     sync()
     elapsed = time.time() - t0
+    if data_parallel:  # the slowest rank's wall, the same on every rank
+        wall = torch.tensor([elapsed], device=device)
+        torch.distributed.all_reduce(wall, op=torch.distributed.ReduceOp.MAX)
+        elapsed = wall.item()
 
     ckpt = os.path.join(outdir, "gatode_best.ckpt")
-    save_checkpoint({
-        "params": to_flax_params(model),
-        "config": dataclasses.asdict(config),
-        "num_zones": Z,
-        "num_times": num_times,
-        "history": hist,
-        # world reconstruction keys for serve()
-        "world_seed": seed,
-        "sparse_world": bool(sparse_world),
-    }, ckpt)
+    if writer:
+        save_checkpoint({
+            "params": to_flax_params(model),
+            "config": dataclasses.asdict(config),
+            "num_zones": Z,
+            "num_times": num_times,
+            "history": hist,
+            # world reconstruction keys for serve()
+            "world_seed": seed,
+            "sparse_world": bool(sparse_world),
+        }, ckpt)
     return {
         "final_loss": hist[-1]["loss"],
         "final_acc": hist[-1]["acc"],
@@ -633,6 +692,27 @@ class _Rhs(torch.nn.Module):
 
     def forward(self, t, x, h, zone_emb):
         return self.model.rhs(t, x, h, zone_emb)
+
+
+def functional_rhs(model):
+    """``(leaves, rhs)``: the model's parameters in the reference's leaf
+    order (``flax_leaf_params``), and ``rhs(t, x, (params, h, zone_emb))``,
+    ``model.rhs`` with its weights read from ``params`` (a tuple in that
+    order) through ``functional_call``, so a solver that differentiates
+    its ``args`` differentiates the drift's weights."""
+    from torch.func import functional_call
+
+    leaves = flax_leaf_params(model)
+    by_id = {id(p): name for name, p in model.named_parameters()}
+    names = ["model." + by_id[id(p)] for _, p in leaves]
+    rhs_module = _Rhs(model)
+
+    def model_rhs(t, x, args):
+        params, h, zone_emb = args
+        return functional_call(rhs_module, dict(zip(names, params)),
+                               (t, x, h, zone_emb))
+
+    return leaves, model_rhs
 
 
 def _adjoint_loss_fn(model, config, rhs_vjp, stats=None, discrete=None,
@@ -653,23 +733,12 @@ def _adjoint_loss_fn(model, config, rhs_vjp, stats=None, discrete=None,
     (``functional_call``), so the generic backward differentiates the drift
     through them.
     """
-    from torch.func import functional_call
-
     from ananke_abm_tpu_torch.ode import (
         odeint_adjoint,
         odeint_discrete_adjoint,
     )
 
-    leaves = flax_leaf_params(model)
-    by_id = {id(p): name for name, p in model.named_parameters()}
-    names = ["model." + by_id[id(p)] for _, p in leaves]
-    rhs_module = _Rhs(model)
-
-    def model_rhs(t, x, args):
-        params, h, zone_emb = args
-        return functional_call(rhs_module, dict(zip(names, params)),
-                               (t, x, h, zone_emb))
-
+    leaves, model_rhs = functional_rhs(model)
     if rhs is None:
         rhs = model_rhs
     elif discrete is not None or rhs_vjp is None:

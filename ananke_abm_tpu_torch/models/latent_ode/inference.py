@@ -11,6 +11,12 @@
 The reference vmaps its samples inside one program; here the samples run
 one after another, sample ``s`` drawing from ``utils.seed.generator(
 device, seed, s)``.
+
+Under a mesh the person axis of every batch array (``PERSON_AXIS_KEYS``)
+splits over the ``agents`` axis: each rank runs its people, drawing the
+whole batch's noise and keeping its rows (``utils.seed.RowDraws``, whose
+group also carries a dopri5 solve's one controller), and the ids are
+gathered, so every rank returns the single-device arrays.
 """
 from __future__ import annotations
 
@@ -58,14 +64,11 @@ def _cfg_from_dict(d: dict) -> GenerativeODEConfig:
 class BatchedInferenceEngine:
     def __init__(self, ckpt_path: str, person_ids=(1, 2), mesh=None, *,
                  device="cuda"):
-        """``mesh`` raises: sharding the person axis is ROADMAP.md queue 1
-        item 11. ``device``: the card unless the caller asks for the CPU
-        (no fallback)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded latent_ode inference engine is not ported yet: "
-                "ROADMAP.md queue 1 item 11")
+        """``mesh``: an (agents, zones) ``parallel.make_mesh`` mesh over
+        which the person axis shards (the module's notes). ``device``: the
+        card unless the caller asks for the CPU (no fallback)."""
         self.device = resolve_device(device)
+        self.mesh = mesh
         obj = load_checkpoint(ckpt_path)
         self.config = _cfg_from_dict(obj["config"])
         self.person_ids = list(person_ids)
@@ -84,6 +87,32 @@ class BatchedInferenceEngine:
     def _times(self, times):
         return self.times if times is None else np.asarray(times, np.float32)
 
+    def _run(self, b, gen, eps=None, noise=None, times=None):
+        """The forward's outputs (0, 2, 3) (zone, purpose and mode logits)
+        of batch ``b``, the argmax ids; under the mesh on this rank's
+        people (``eps`` (B, ...) and ``noise`` (steps, B, ...) whole-batch
+        draws), the ids gathered."""
+        if self.mesh is None:
+            o = self._forward(b, gen, eps, noise, times)
+            return [torch.argmax(o[k], -1) for k in (0, 2, 3)]
+        from ananke_abm_tpu_torch.parallel.collectives import gather_rows
+        from ananke_abm_tpu_torch.parallel.mesh import (
+            AGENT_AXIS,
+            row_slice,
+        )
+        from ananke_abm_tpu_torch.utils.seed import RowDraws
+
+        n = b["person_features"].shape[0]
+        rows, agents = row_slice(n, self.mesh), self.mesh.get_group(AGENT_AXIS)
+        local = {k: v[rows] if k in PERSON_AXIS_KEYS else v
+                 for k, v in b.items()}
+        o = self._forward(
+            local, RowDraws(gen, rows, n, agents),
+            None if eps is None else eps[rows],
+            None if noise is None else noise[:, rows], times)
+        return [gather_rows(torch.argmax(o[k], -1), n, agents)
+                for k in (0, 2, 3)]
+
     def predict_trajectories(self, num_samples: int = 3, times=None,
                              seed: int = 0, draws=None):
         """Returns a dict of (people, samples, times) int32 argmax ids
@@ -94,11 +123,9 @@ class BatchedInferenceEngine:
         with torch.inference_mode():
             for s in range(num_samples):
                 eps, noise = (None, None) if draws is None else draws[s]
-                o = self._forward(self.batch,
-                                  generator(self.device, seed, s), eps,
-                                  noise, times)
-                out.append(torch.stack([torch.argmax(o[k], -1)
-                                        for k in (0, 2, 3)]))
+                out.append(torch.stack(self._run(
+                    self.batch, generator(self.device, seed, s), eps, noise,
+                    times)))
         ids = torch.stack(out, dim=2).to(torch.int32).cpu().numpy()
         return {"zones": ids[0], "purposes": ids[1], "modes": ids[2],
                 "times": times}
@@ -115,8 +142,7 @@ class BatchedInferenceEngine:
 
         def run(b, gen):
             with torch.inference_mode():
-                return torch.argmax(self._forward(b, gen, times=times)[0],
-                                    -1)
+                return self._run(b, gen, times=times)[0]
 
         for bs in batch_sizes:
             reps = int(np.ceil(bs / n0))

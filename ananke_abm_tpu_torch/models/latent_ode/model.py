@@ -18,7 +18,10 @@
 Randomness: ``forward(..., generator)`` draws the reparameterisation noise
 (``mu.shape``) and then the SDE's step noise from ``generator``; ``eps``
 and ``noise`` replace those draws (the reference draws them from
-``fold_in(rng, 0)`` and ``fold_in(rng, 1)``).
+``fold_in(rng, 0)`` and ``fold_in(rng, 1)``). A ``utils.seed.RowDraws``
+generator (a batch sharded over ranks) draws the whole batch's noise and
+keeps its rows; a dopri5 solve's controller then reads the error norms over
+the ranks of its group.
 
 Weights across packages: :func:`load_flax_params` / :func:`to_flax_params`
 read and write the JAX package's flax tree: ``zone_feature_encoder``,
@@ -41,6 +44,7 @@ from ananke_abm_tpu_torch.models.gen_schedule.params import (
 from ananke_abm_tpu_torch.models.gen_schedule.vae import _variance_scaling
 from ananke_abm_tpu_torch.models.latent_ode.config import GenerativeODEConfig
 from ananke_abm_tpu_torch.ode import euler_maruyama_solve, odeint
+from ananke_abm_tpu_torch.utils.seed import draw
 
 
 class ResidualBlock(nn.Module):
@@ -138,8 +142,8 @@ class GenerativeODE(nn.Module):
              initial_purpose_features, initial_mode_features], -1))
         mu, logvar = torch.chunk(out, 2, dim=-1)
         if eps is None:
-            eps = torch.randn(mu.shape, generator=generator,
-                              device=mu.device, dtype=mu.dtype)
+            eps = draw(torch.randn, mu.shape, generator, mu.device,
+                       mu.dtype)
         return mu + torch.exp(0.5 * logvar) * eps, mu, logvar
 
     def forward(self, person_features, home_zone_features,
@@ -185,7 +189,8 @@ class GenerativeODE(nn.Module):
         else:
             ts = torch.as_tensor(times, dtype=torch.float32).to(y0.device)
             ys = odeint(rhs, y0, ts, method=c.ode_method, rtol=c.rtol,
-                        atol=c.atol, substeps=c.rk4_substeps, adjoint=False)
+                        atol=c.atol, substeps=c.rk4_substeps, adjoint=False,
+                        group=getattr(generator, "group", None))
         ys = ys.transpose(0, 1)  # (B, T, D)
         pred_p = ys[..., :c.position_dim]
         zs, pf = c.zone_embed_dim, c.purpose_feature_dim

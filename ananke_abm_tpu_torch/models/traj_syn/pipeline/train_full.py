@@ -16,6 +16,11 @@ validation loss is one pass over all validation rows in eval mode, still
 drawing the reparameterisation noise. Every draw (the permutation, the
 dropout masks, the noise) comes from a generator seeded by ``(seed,
 epoch)``. One host read per epoch.
+
+Under a mesh each batch's rows (and the validation split's) split over the
+``agents`` axis as in the schedule trainer
+(``gen_schedule.pipeline.train.BatchRows``): whole-batch draws, means and
+gradients summed over the ``agents`` group, rank 0 writing the files.
 """
 from __future__ import annotations
 
@@ -32,7 +37,10 @@ import torch
 from ananke_abm_tpu_torch.device import resolve_device
 from ananke_abm_tpu_torch.losses import cross_entropy_masked, kl_gaussian
 from ananke_abm_tpu_torch.models.gen_schedule.crf.model import init_crf_params
-from ananke_abm_tpu_torch.models.gen_schedule.pipeline.train import _padded
+from ananke_abm_tpu_torch.models.gen_schedule.pipeline.train import (
+    BatchRows,
+    _padded,
+)
 from ananke_abm_tpu_torch.models.traj_syn.configs import (
     CRFConfig,
     TrajEmbedConfig,
@@ -112,27 +120,30 @@ def init_crf_head(gen: torch.Generator, P: int, crf_cfg: CRFConfig) -> dict:
 
 
 def make_loss_fn(model, crf_params, crf_cfg: CRFConfig, lambda_crf: float,
-                 purpose_feats):
+                 purpose_feats, group=None):
     """``loss_fn(batch_y, mask, beta, generator=None, eps=None) -> (loss,
     comps)``: CE + beta KL [+ lambda_crf CRF NLL]. ``crf_params`` None
     trains the VAE alone (``crf_nll`` logged as 0). ``generator`` draws the
     dropout masks and the noise, ``eps`` (B, z_dim) replaces the noise.
-    Training mode is the model's."""
+    Training mode is the model's. ``group``: the batch's rows lie on that
+    process group's ranks; every mean runs over all of them."""
 
     def loss_fn(batch_y, mask, beta, generator=None, eps=None):
         logits, mu, logvar = model(batch_y, purpose_feats, generator, eps)
-        ce = cross_entropy_masked(logits, batch_y, mask)
-        kl = kl_gaussian(mu, logvar, mask)
+        ce = cross_entropy_masked(logits, batch_y, mask, group)
+        kl = kl_gaussian(mu, logvar, mask, group)
         loss = ce + beta * kl
         comps = {"ce": ce, "kl": kl}
         if crf_params is not None:
             if crf_cfg.crf_mode == "semi":
                 nll = semicrf_nll(logits, batch_y, crf_params["dur"],
                                   crf_params["A"], mask_b=mask,
-                                  exact_long=crf_cfg.exact_long)
+                                  exact_long=crf_cfg.exact_long,
+                                  group=group)
             else:
                 nll = crf_nll(logits + crf_params["bias"][None, None, :],
-                              batch_y, crf_params["A"], mask_b=mask)
+                              batch_y, crf_params["A"], mask_b=mask,
+                              group=group)
             loss = loss + lambda_crf * nll
             comps["crf_nll"] = nll
         else:
@@ -143,7 +154,7 @@ def make_loss_fn(model, crf_params, crf_cfg: CRFConfig, lambda_crf: float,
     return loss_fn
 
 
-def make_epoch_fns(model, optimizer, loss_fn, batch_size):
+def make_epoch_fns(model, optimizer, loss_fn, batch_size, mesh=None):
     """(train_epoch, val_loss). Each returns device tensors.
 
     ``train_epoch(Y, generator, beta, n_batches, perm=None, eps=None)``:
@@ -151,7 +162,11 @@ def make_epoch_fns(model, optimizer, loss_fn, batch_size):
     batch; the (len(COMPONENTS),) unweighted mean of the components over
     the batches. ``val_loss(Y, generator, beta, eps=None)``: the loss of
     one pass over all of Y in eval mode, the noise still drawn (``eps``
-    replaces it)."""
+    replaces it). ``mesh``: the batches' and Y's rows split over its
+    ``agents`` axis; ``loss_fn`` must then reduce over the ``agents``
+    group."""
+    split = BatchRows(batch_size, mesh)
+    params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def train_epoch(Y, gen, beta, n_batches, perm=None, eps=None):
         model.train()
@@ -160,11 +175,14 @@ def make_epoch_fns(model, optimizer, loss_fn, batch_size):
         idx, mask = _padded(perm, n_batches, batch_size)
         rows = []
         for i in range(n_batches):
-            sl = slice(i * batch_size, (i + 1) * batch_size)
+            sl = split.rows_of(i)
             optimizer.zero_grad()
-            loss, comps = loss_fn(Y[idx[sl]], mask[sl], beta, gen,
-                                  None if eps is None else eps[i])
+            loss, comps = loss_fn(Y[idx[sl]], mask[sl], beta,
+                                  split.generator(gen),
+                                  None if eps is None else split.local(
+                                      eps[i]))
             loss.backward()
+            split.reduce_grads(params)
             optimizer.step()
             rows.append(torch.stack([comps[k].detach() for k in COMPONENTS]))
         return torch.stack(rows).mean(dim=0)
@@ -172,8 +190,11 @@ def make_epoch_fns(model, optimizer, loss_fn, batch_size):
     @torch.no_grad()
     def val_loss(Y, gen, beta, eps=None):
         model.eval()
+        whole = BatchRows(Y.shape[0], mesh)
         mask = torch.ones(Y.shape[0], device=Y.device)
-        return loss_fn(Y, mask, beta, gen, eps)[0]
+        return loss_fn(whole.local(Y), whole.local(mask), beta,
+                       whole.generator(gen),
+                       None if eps is None else whole.local(eps))[0]
 
     return train_epoch, val_loss
 
@@ -202,16 +223,18 @@ def train_traj_embed(
     device="cuda",
 ):
     """Train the TrajEmbed model (the reference's arguments, files and
-    printed line). ``mesh`` raises: data-parallel training is ROADMAP.md
-    queue 1 item 11. ``device``: the card unless the caller asks for the
-    CPU (no fallback).
+    printed line). ``mesh``: data-parallel over its ``agents`` axis (the
+    module's notes); every rank returns the same dict. ``device``: the card
+    unless the caller asks for the CPU (no fallback).
 
     Returns {best_val_loss, seconds, ckpt}."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel traj_embed training is not ported yet: ROADMAP.md "
-            "queue 1 item 11")
     device = resolve_device(device)
+    writer = mesh is None or torch.distributed.get_rank() == 0
+    group = None
+    if mesh is not None:
+        from ananke_abm_tpu_torch.parallel.mesh import AGENT_AXIS
+
+        group = mesh.get_group(AGENT_AXIS)
     cfg = config or TrajEmbedConfig(lr=lr)
     crf_cfg = CRFConfig(crf_mode=crf_mode,
                         semi_Dmax_minutes=semi_Dmax_minutes,
@@ -243,8 +266,9 @@ def train_traj_embed(
     optimizer = ClippedAdamW(list(model.parameters()) + crf_list, cfg.lr,
                              cfg.weight_decay, cfg.grad_clip)
     loss_fn = make_loss_fn(model, crf_params, crf_cfg, cfg.lambda_crf,
-                           purpose_feats)
-    train_epoch, val_loss = make_epoch_fns(model, optimizer, loss_fn, bsz)
+                           purpose_feats, group)
+    train_epoch, val_loss = make_epoch_fns(model, optimizer, loss_fn, bsz,
+                                           mesh)
     n_tb = max(1, -(-Y_train.shape[0] // bsz))
 
     meta = {"purpose_map": purpose_map, "grid_min": cfg.grid_min,
@@ -263,7 +287,8 @@ def train_traj_embed(
 
     def flush_best():
         nonlocal last_flushed
-        if best_state is None or best_state[2] == last_flushed:
+        if (not writer or best_state is None
+                or best_state[2] == last_flushed):
             return
         state, crf_best, bepoch = best_state
         shadow = copy.deepcopy(model)
@@ -301,15 +326,17 @@ def train_traj_embed(
     flush_best()
     elapsed = time.time() - t0
 
-    with open(os.path.join(outdir, "training_log.csv"), "w", newline="",
-              encoding="utf-8") as f:
-        if logs:
-            w = csv.DictWriter(f, fieldnames=list(logs[0]),
-                               lineterminator="\n")
-            w.writeheader()
-            w.writerows(logs)
-    with open(os.path.join(outdir, "meta.json"), "w", encoding="utf-8") as f:
-        json.dump(meta, f, indent=2)
+    if writer:
+        with open(os.path.join(outdir, "training_log.csv"), "w", newline="",
+                  encoding="utf-8") as f:
+            if logs:
+                w = csv.DictWriter(f, fieldnames=list(logs[0]),
+                                   lineterminator="\n")
+                w.writeheader()
+                w.writerows(logs)
+        with open(os.path.join(outdir, "meta.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(meta, f, indent=2)
     print(f"traj_embed training completed in {elapsed:.2f}s, best val "
           f"{best:.4f}")
     return {"best_val_loss": best, "seconds": elapsed, "ckpt": ckpt_path}

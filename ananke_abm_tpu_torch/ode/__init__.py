@@ -24,7 +24,8 @@ from ananke_abm_tpu_torch.ode.sde import euler_maruyama_solve
 def odeint(rhs, y0, ts, args=None, *, method: str = "dopri5",
            rtol: float = 1e-5, atol: float = 1e-5, substeps: int = 1,
            max_steps: int = 16384, adjoint: bool = True,
-           return_stats: bool = False, checkpoint: bool = True):
+           return_stats: bool = False, checkpoint: bool = True,
+           group=None):
     """Unified ODE solve.
 
     ``method="rk4"``/``"euler"``: fixed step, ``substeps`` per output
@@ -33,7 +34,9 @@ def odeint(rhs, y0, ts, args=None, *, method: str = "dopri5",
     forward only. ``return_stats=True`` returns ``(ys, stats)`` with
     ``n_steps``, ``n_accepted`` and ``ok``; the adjoint mode reports no
     step counts and takes ``ok`` from the last row being finite (a
-    ``max_steps`` exhaustion NaN-poisons the unfilled rows).
+    ``max_steps`` exhaustion NaN-poisons the unfilled rows). ``group``:
+    the forward-only adaptive solve's controller reads the error norms
+    over the rows of every rank of that process group (``dopri5_solve``).
     """
 
     def fixed_stats():
@@ -47,6 +50,10 @@ def odeint(rhs, y0, ts, args=None, *, method: str = "dopri5",
         return (ys, fixed_stats()) if return_stats else ys
     if method == "dopri5":
         if adjoint:
+            if group is not None:
+                raise ValueError("the continuous adjoint takes no group: "
+                                 "a sharded solve trains through "
+                                 "odeint_discrete_adjoint")
             ys = odeint_adjoint(rhs, y0, ts, args, rtol=rtol, atol=atol,
                                 max_steps=max_steps)
             if not return_stats:
@@ -54,7 +61,7 @@ def odeint(rhs, y0, ts, args=None, *, method: str = "dopri5",
             ok = bool(torch.isfinite(ys[-1]).all())
             return ys, {"n_steps": None, "n_accepted": None, "ok": ok}
         ys, stats = dopri5_solve(rhs, y0, ts, args, rtol=rtol, atol=atol,
-                                 max_steps=max_steps)
+                                 max_steps=max_steps, group=group)
         return (ys, stats) if return_stats else ys
     raise ValueError(f"Unknown ODE method: {method!r}")
 

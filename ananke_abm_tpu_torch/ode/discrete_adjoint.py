@@ -103,12 +103,12 @@ class _OdeintDiscrete(torch.autograd.Function):
     def forward(ctx, rhs, step_impl, step_vjp, cfg, args, stats, y0, ts,
                 *leaves):
         (rtol, atol, max_steps, max_accepted, ckpt_every, store_f,
-         ckpt_dtype) = cfg
+         ckpt_dtype, group) = cfg
         # the value-only call records too, so the max_accepted cap poisons
         # the same rows whether or not a gradient is asked for
         ys, st = dopri5_solve(
             rhs, y0, ts, args, rtol=rtol, atol=atol, max_steps=max_steps,
-            step_impl=step_impl,
+            step_impl=step_impl, group=group,
             record={"max_accepted": max_accepted, "ckpt_every": ckpt_every,
                     "store_f": store_f, "ckpt_dtype": ckpt_dtype})
         if stats is not None:
@@ -213,7 +213,8 @@ def odeint_discrete_adjoint(rhs, y0, ts, args=None, *, rtol: float = 1e-5,
                             atol: float = 1e-5, max_steps: int = 16384,
                             max_accepted: int = 512, ckpt_every: int = 16,
                             store_f=False, ckpt_dtype=None, step_impl=None,
-                            step_vjp=None, stats: dict | None = None):
+                            step_vjp=None, stats: dict | None = None,
+                            group=None):
     """Adaptive DOPRI5 solve with discrete-adjoint gradients.
 
     ``y0`` is one tensor; ``args`` a tree of tensors (or None). Returns
@@ -233,6 +234,10 @@ def odeint_discrete_adjoint(rhs, y0, ts, args=None, *, rtol: float = 1e-5,
     reverse-differentiable custom ``step_impl`` opts into the generic VJP
     with ``step_vjp="generic"``; a custom ``step_vjp`` pairs with the
     tableau step through ``step_impl="tableau"``.
+
+    ``group``: the ranks that hold the batch's other rows; the forward
+    solve's controller reads the error norms of the whole batch (see
+    ``dopri5_solve``), so every rank records one step sequence.
 
     ``stats``: a dict to fill with the forward solve's ``n_steps``,
     ``n_accepted``, ``ok`` and ``h_next`` (``stats["forward"]``) and, once
@@ -262,7 +267,7 @@ def odeint_discrete_adjoint(rhs, y0, ts, args=None, *, rtol: float = 1e-5,
         step_impl = None
     args = () if args is None else args
     cfg = (rtol, atol, max_steps, int(max_accepted), int(ckpt_every),
-           store_f, ckpt_dtype)
+           store_f, ckpt_dtype, group)
     return _OdeintDiscrete.apply(rhs, step_impl, step_vjp, cfg, args, stats,
                                  y0, ts, *tree_leaves(args))
 

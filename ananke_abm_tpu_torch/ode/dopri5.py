@@ -23,6 +23,7 @@ import torch
 
 from ananke_abm_tpu_torch.ode.tree import (
     tree_axpy,
+    sq_sum_norm,
     tree_error_norm,
     tree_leaves,
     tree_lincomb,
@@ -134,26 +135,27 @@ def _step(rhs, t0, h, y0, f0, args):
     return y1, f1, err, _Interp(F(t0), F(h), y0, ks[0], y1, f1, r5)
 
 
-def _norm(tree, scale) -> torch.Tensor:
+def _norm(tree, scale, group=None) -> torch.Tensor:
     sq = None
     n = 0
     for leaf, s in zip(tree_leaves(tree), tree_leaves(scale)):
         v = torch.sum((leaf / s) ** 2)
         sq = v if sq is None else sq + v
         n += leaf.numel()
-    return torch.sqrt(sq / n)
+    return sq_sum_norm(sq, n, group)
 
 
-def _initial_step(rhs, t0, y0, f0, args, rtol, atol):
+def _initial_step(rhs, t0, y0, f0, args, rtol, atol, group=None):
     """Hairer's automatic initial step size (HINIT): one probe eval of
-    ``rhs``; the exponent is 1/(p+1) = 1/6 for the DOPRI5 pair."""
+    ``rhs``; the exponent is 1/(p+1) = 1/6 for the DOPRI5 pair. The three
+    norms run over the rows of every rank of ``group``."""
     scale = tree_map(lambda y: atol + rtol * y.abs(), y0)
     d0, d1 = (F(v) for v in torch.stack(
-        [_norm(y0, scale), _norm(f0, scale)]).tolist())
+        [_norm(y0, scale, group), _norm(f0, scale, group)]).tolist())
     h0 = F(1e-6) if (d0 < 1e-5 or d1 < 1e-5) else F(F(F(0.01) * d0) / d1)
     y1 = tree_axpy(float(h0), f0, y0)
     f1 = rhs(float(F(t0) + h0), y1, args)
-    d2 = F(F(_norm(tree_map(torch.sub, f1, f0), scale).item()) / h0)
+    d2 = F(F(_norm(tree_map(torch.sub, f1, f0), scale, group).item()) / h0)
     dm = max(d1, d2)
     if dm <= 1e-15:
         h1 = max(F(1e-6), F(h0 * F(1e-3)))
@@ -208,7 +210,7 @@ def _record_buffers(record, y0, f0, num_out):
 
 def dopri5_solve(rhs, y0, ts, args=None, *, rtol: float = 1e-5,
                  atol: float = 1e-5, max_steps: int = 16384,
-                 first_step=None, step_impl=None, record=None):
+                 first_step=None, step_impl=None, record=None, group=None):
     """Integrate ``dy/dt = rhs(t, y, args)`` with adaptive DOPRI5 and
     return dense output at ``ts``.
 
@@ -236,6 +238,12 @@ def dopri5_solve(rhs, y0, ts, args=None, *, rtol: float = 1e-5,
     A solve that would take more than m accepted steps stops there: the
     unfilled rows are NaN and ``ok`` is False, as at ``max_steps``.
 
+    ``group``: a process group whose ranks each hold some rows of one
+    batch: every error norm (the step's and HINIT's) sums its squares and
+    its count over the group before the host reads it, so each rank takes
+    the step sequence of the whole batch (one controller), the
+    single-device solve's.
+
     Returns (ys, stats): ``ys`` with leaves of shape ``(T,) + leaf.shape``;
     ``stats`` with ``n_steps`` and ``n_accepted`` (ints), ``ok`` (bool) and
     ``h_next`` (the controller's next proposal, float32), and the record.
@@ -246,7 +254,7 @@ def dopri5_solve(rhs, y0, ts, args=None, *, rtol: float = 1e-5,
 
     f0 = rhs(float(t0), y0, args)
     if first_step is None:
-        h = _initial_step(rhs, t0, y0, f0, args, rtol, atol)
+        h = _initial_step(rhs, t0, y0, f0, args, rtol, atol, group)
     else:
         h = F(first_step)
     h = min(h, F(t_end - t0))
@@ -272,9 +280,15 @@ def dopri5_solve(rhs, y0, ts, args=None, *, rtol: float = 1e-5,
             y1, f1, err, interp = step_impl(t, h, y, f, args)
         if isinstance(err, ErrNormSq):
             # the step pre-reduced the scaled error: one scalar read
-            err_norm = F(np.sqrt(F(F(err.sq_sum.item()) / F(err.count))))
+            if group is None:
+                err_norm = F(np.sqrt(F(F(err.sq_sum.item())
+                                       / F(err.count))))
+            else:
+                err_norm = F(sq_sum_norm(err.sq_sum, err.count,
+                                         group).item())
         else:
-            err_norm = F(tree_error_norm(err, y, y1, rtol, atol).item())
+            err_norm = F(tree_error_norm(err, y, y1, rtol, atol,
+                                         group).item())
         # a NaN error is a rejection with the largest shrink
         bad = not np.isfinite(err_norm)
         if bad:

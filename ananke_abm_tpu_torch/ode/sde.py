@@ -37,6 +37,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint as _remat
 
+from ananke_abm_tpu_torch.utils.seed import draw
+
 
 def _host_f32(ts) -> np.ndarray:
     if isinstance(ts, torch.Tensor):
@@ -47,8 +49,7 @@ def _host_f32(ts) -> np.ndarray:
 def _draw(noise, i, y, generator):
     if noise is not None:
         return noise[i]
-    return torch.randn(y.shape, generator=generator, device=y.device,
-                       dtype=y.dtype)
+    return draw(torch.randn, y.shape, generator, y.device, y.dtype)
 
 
 def euler_maruyama_solve(drift, diffusion, y0, ts, generator=None,

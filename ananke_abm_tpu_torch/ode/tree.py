@@ -45,13 +45,29 @@ def tree_where(pred: bool, a, b):
     return a if pred else b
 
 
-def tree_error_norm(err, y0, y1, rtol, atol):
+def sq_sum_norm(sq_sum, count, group=None):
+    """``sqrt(sq_sum / count)``, the sum and the count first summed over
+    the ranks of ``group`` (each holding some of the batch's rows), so
+    every rank reads the one norm of the whole batch."""
+    if group is not None:
+        import torch.distributed as dist
+
+        both = torch.stack([sq_sum.reshape(()).float(),
+                            sq_sum.new_tensor(float(count)).float()])
+        dist.all_reduce(both, group=group)
+        sq_sum, count = both[0], both[1]
+    return torch.sqrt(sq_sum / count)
+
+
+def tree_error_norm(err, y0, y1, rtol, atol, group=None):
     """Hairer's scaled RMS error norm over every element of the tree:
 
         sqrt(mean_i (err_i / (atol + rtol * max(|y0_i|, |y1_i|)))^2)
 
     Zeros count in the mean. One norm for the whole batched state: one
-    step controller for the batch. Returns a float32 0-d tensor.
+    step controller for the batch; with ``group`` the batch's rows lie on
+    its ranks and the mean runs over all of them. Returns a float32 0-d
+    tensor.
     """
     total = None
     n = 0
@@ -61,8 +77,8 @@ def tree_error_norm(err, y0, y1, rtol, atol):
         s = torch.sum(r * r)
         total = s if total is None else total + s
         n += r.numel()
-    return torch.sqrt(total / n)
+    return sq_sum_norm(total, n, group)
 
 
 __all__ = ["tree_leaves", "tree_map", "tree_axpy", "tree_zeros_like",
-           "tree_lincomb", "tree_where", "tree_error_norm"]
+           "tree_lincomb", "tree_where", "tree_error_norm", "sq_sum_norm"]

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ananke_abm_tpu_torch.parallel.collectives import sum_to_replicated
+
 NEG_INF = -1e30
 
 
@@ -37,14 +39,26 @@ def crf_path_score(unaries_btp, labels_bt, A_pp):
     return unary + pair
 
 
-def crf_nll(unaries_btp, labels_bt, A_pp, mask_b=None):
+def _row_mean(per_row, mask_b, group):
+    """The mean of (B,) ``per_row`` over the rows ``mask_b`` weights (all
+    where None); with ``group`` over the rows of every rank of that process
+    group, a value each rank then holds
+    (``parallel.collectives.sum_to_replicated``)."""
+    if group is None and mask_b is None:
+        return per_row.mean()
+    if mask_b is None:
+        mask_b = torch.ones_like(per_row)
+    return sum_to_replicated(torch.sum(per_row * mask_b), group) / \
+        torch.clamp(sum_to_replicated(mask_b.sum(), group), min=1.0)
+
+
+def crf_nll(unaries_btp, labels_bt, A_pp, mask_b=None, group=None):
     """Mean negative log-likelihood over the batch; ``mask_b`` optional (B,)
-    row weights (padded rows 0)."""
+    row weights (padded rows 0); ``group``: the batch's rows lie on that
+    process group's ranks (:func:`_row_mean`)."""
     per_row = (crf_log_partition(unaries_btp, A_pp)
                - crf_path_score(unaries_btp, labels_bt, A_pp))
-    if mask_b is None:
-        return per_row.mean()
-    return torch.sum(per_row * mask_b) / torch.clamp(mask_b.sum(), min=1.0)
+    return _row_mean(per_row, mask_b, group)
 
 
 def crf_marginals(unaries_btp, A_pp):

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from ananke_abm_tpu_torch.ops.crf import _row_mean
+
 NEG_INF = -1e30
 
 
@@ -152,7 +154,7 @@ def semicrf_gold_log_marginal(unaries_btp, labels_bt, dur_scores_pd, A_pp):
 
 
 def semicrf_nll(unaries_btp, labels_bt, dur_scores_pd, A_pp, mask_b=None,
-                exact_long=False):
+                exact_long=False, group=None):
     """Mean NLL of the gold label grids.
 
     ``exact_long=True``: the exact likelihood of the dense grid under the
@@ -160,7 +162,8 @@ def semicrf_nll(unaries_btp, labels_bt, dur_scores_pd, A_pp, mask_b=None,
     minus :func:`semicrf_gold_log_marginal`). ``exact_long=False``: the
     no-self-transition model with the gold runs clip-scored into the
     duration table (a bound where a gold run exceeds Dmax). ``mask_b``:
-    optional (B,) row weights (padded rows 0)."""
+    optional (B,) row weights (padded rows 0); ``group``: the batch's rows
+    lie on that process group's ranks (``ops.crf._row_mean``)."""
     if exact_long:
         logZ = semicrf_log_partition(unaries_btp, dur_scores_pd, A_pp,
                                      allow_self=True)
@@ -171,9 +174,7 @@ def semicrf_nll(unaries_btp, labels_bt, dur_scores_pd, A_pp, mask_b=None,
         gold = semicrf_path_score(unaries_btp, labels_bt, dur_scores_pd,
                                   A_pp)
     per_row = logZ - gold
-    if mask_b is None:
-        return per_row.mean()
-    return torch.sum(per_row * mask_b) / torch.clamp(mask_b.sum(), min=1.0)
+    return _row_mean(per_row, mask_b, group)
 
 
 def semicrf_decode(unaries_btp, dur_scores_pd, A_pp, allow_self=False):

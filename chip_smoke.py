@@ -274,8 +274,9 @@ Phases (any failure raises and the script exits non-zero):
     ``--help`` lists the eleven commands; ``prepare`` of phase 39's CSV
     equal to phase 39's grid and splits; ``compute-pds``, ``fit`` (phase1,
     1 epoch), ``sample-population`` (CLI_SAMPLES), ``eval-population``,
-    ``metric-tables``; ``fit --data-parallel`` exits non-zero naming item
-    11; each command's wall;
+    ``metric-tables``; ``fit --data-parallel`` in one process on the one
+    card is the single-device run (fit's train loss within
+    MESH_ENTRY_RTOL); each command's wall;
 51. the traj_syn family's host copies on phase 39's activities: the
     purposes catalog (``build_purposes_catalog``: LEAD_COLUMNS, 7
     purposes) and the 5-minute buffer grid over 1800 minutes (42,817 x
@@ -304,7 +305,8 @@ Phases (any failure raises and the script exits non-zero):
 55. ``python -m ananke_abm_tpu_torch.cli.main`` as subprocesses: ``--help``
     lists the seven commands, ``make-purposes`` equal to phase 51's
     catalog, ``traj-embed`` (semi, 1 epoch on the cut) then ``gval-traj``,
-    ``traj-embed --data-parallel`` exits non-zero naming item 11,
+    ``traj-embed --data-parallel`` (one process: the single-device run)
+    writes its checkpoint,
     ``visualize-combined-traj`` (its PNGs, or a non-zero exit naming
     matplotlib where it is absent), ``info``; each command's wall; then
     each schedule phase's wall;
@@ -340,9 +342,40 @@ Phases (any failure raises and the script exits non-zero):
     witness printed beside it; ``train()`` MODESEP_EPOCHS epochs (RK4) and
     MODESEP_SDE_EPOCHS of the SDE variant (cuts of depth);
     ``run_inference`` and ``evaluate``; the walls.
+61. (after phase 56) the GAT-ODE under a one-rank NCCL mesh
+    (``init_process_group("nccl")`` at a ``file://`` rendezvous, world 1):
+    ``make_sharded_fused_train_step`` against ``make_fused_train_step`` at
+    rung 2, two steps each: the single device's loss, accuracy and
+    parameters bit for bit, K2f/K2b/K3f/K3b/K4f/K4b once each a step, the
+    steps' walls with and without the mesh; ``make_pallas_rollout(mesh)``
+    (interval kernel and per-step kernel) and ``make_decoded_rollout(mesh)``
+    at rung 1: the single device's ids, K1 47 launches (K0 94), walls;
+    ``make_sharded_train_step`` (rk4, and one dopri5 step at
+    MESH_DOPRI5_TOL) at SHARDED_N agents against ``make_step_fns`` /
+    ``make_adjoint_step_fns``: loss within MESH_LOSS_RTOL, gradient cosine
+    above MESH_COS_MIN, the same DOPRI5 steps; ``make_sharded_rollout``
+    against ``GATODE.forward``'s argmax (>= IDS_MIN);
+62. two processes share the card (``--parallel-rank``), gloo reducing
+    their CUDA tensors (probed first: where gloo refuses them the phase
+    says so and is left out): the data-parallel fused step on 2 x 16,384
+    rows against this process's step on the same 32,768: loss within
+    P62_LOSS_RTOL, every parameter's gradient cosine above P62_COS_MIN,
+    the accuracy equal, each rank's kernels launched once; the control
+    (rank 1's gradient left out of the reduction) must fail them;
+63. (in the schedule process, after phase 55) the schedule trainer (one
+    epoch of phase1), ``sample`` (CRF_SAMPLES), ``train_crf`` (one epoch
+    on CRF_TRAIN_ROWS), ``train_traj_embed`` (linear, one epoch on the
+    cut) and ``BatchedInferenceEngine`` (one sample) with ``mesh=`` under a
+    one-rank NCCL mesh against their single-device calls: the trainer's
+    train columns within MESH_ENTRY_RTOL, the samples' ids equal, the NLL
+    and the loss within MESH_ENTRY_RTOL, the engine's ids equal.
 
-``python3 chip_smoke.py --schedule`` runs phase 1 and phases 39-60 only,
-with no CUDA kernel build (their path launches no hand-written kernel):
+``python3 chip_smoke.py --parallel`` runs phase 1, builds the kernels and
+runs phases 63 (on inputs of its own at PARALLEL_PERSONS persons), 61 and
+62 only.
+
+``python3 chip_smoke.py --schedule`` runs phase 1 and phases 39-60 and 63
+only, with no CUDA kernel build (their path launches no hand-written kernel):
 57-60 in their own process after 39-55, so that each set's walls and busy
 shares are read with the card and the host to itself (in the whole smoke
 57-60 run beside 39-55 and the build, and both sets' walls and busy
@@ -748,12 +781,16 @@ def main():
                         "variant of DIR's sources)")
     parser.add_argument("--schedule", action="store_true",
                         help="run phase 1 and the host and schedule phases "
-                        "39-60 only (no CUDA kernel build)")
+                        "39-60 and 63 only (no CUDA kernel build)")
     parser.add_argument("--trajectory-ode", action="store_true",
                         help="run phase 1 and the trajectory-ODE phases "
                         "57-60 only (no CUDA kernel build); the smoke and "
                         "--schedule run them so, in a process of their "
                         "own beside phases 39-55")
+    parser.add_argument("--parallel", action="store_true",
+                        help="run phase 1 and the mesh phases 61-63 only")
+    parser.add_argument("--parallel-rank", nargs=2, metavar=("RANK", "DIR"),
+                        help=argparse.SUPPRESS)
     parser.add_argument("--ab-gat", metavar="DIR", nargs="+",
                         help="compare and time the zone-graph kernels "
                         "(K4f, K4b, the CSR pair, K9e) against those of "
@@ -767,6 +804,9 @@ def main():
         fail(f"no ananke_abm_tpu_torch/csrc beside {Path(__file__).name}: "
              f"run it from the root of a checkout of the repository")
     sys.path.insert(0, str(ROOT))
+    if args.parallel_rank:
+        parallel_rank(int(args.parallel_rank[0]), Path(args.parallel_rank[1]))
+        return
     from ananke_abm_tpu_torch.data_generator import generate_agent_population
     from ananke_abm_tpu_torch.models.gnn_embed.params import (
         load_flax_params,
@@ -811,6 +851,25 @@ def main():
         # one set after the other: the readings of each alone on the card
         schedule_phases(dev, card)
         finish_trajectory_ode(start_trajectory_ode())
+        return
+    if args.parallel:
+        t0 = time.perf_counter()
+        built = _build.build_all(_build.NAMES)
+        for name in built:
+            _build.load_library(name)
+        print(f"build: {len(built)} libraries in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        mesh_entry_phase(dev, card, mesh_entry_inputs(dev, OUT / "parallel"))
+        mesh_phases(dev, card)
+        two_rank_phase(dev, card)
+        print(f"--parallel: phases 1, 61-63 in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
         return
 
     # ---- 2. build ---------------------------------------------------------
@@ -1069,7 +1128,9 @@ def main():
     k5b = bf16_forward_phases(dev, card)
     k9e = segment_phases(dev, card)
     gatode_cli_phase(card)
-    print(f"smoke: phases 1-60 in {time.perf_counter() - t_start:.1f} s, "
+    mesh_phases(dev, card, rung1=(served_model, graph, agents))
+    two_rank_phase(dev, card)
+    print(f"smoke: phases 1-63 in {time.perf_counter() - t_start:.1f} s, "
           f"the build included", flush=True)
 
     print(card)
@@ -5530,7 +5591,14 @@ def schedule_phases(dev, card):
           f"{report['bigram']['L1']:.5f}, diversity "
           f"{report['diversity_ratio']:.5f} [card {card}]", flush=True)
     comparison_phases(card, root, grid, csv_path, walls)
-    traj_phases(dev, card, root, acts, csv_path, walls)
+    cut_csv, catalog_csv = traj_phases(dev, card, root, acts, csv_path,
+                                       walls)
+    # ---- 63. the entry points with mesh= -----------------------------------
+    t_phase = time.perf_counter()
+    mesh_entry_phase(dev, card, {"root": root, "grid": grid, "ckpt": ckpt,
+                                 "crf_dir": crf_dir, "cut_csv": cut_csv,
+                                 "catalog_csv": str(catalog_csv)})
+    walls[63] = time.perf_counter() - t_phase
     print("schedule phases wall: " + ", ".join(
         f"{k}: {v:.1f} s" for k, v in walls.items())
         + f"; {sum(walls.values()):.1f} s in all", flush=True)
@@ -5869,18 +5937,24 @@ def comparison_phases(card, root, grid, csv_path, walls):
     if len(os.listdir(cli / "tables")) != TABLES_CSVS or \
             not proc.stdout.startswith("Ran metrics: "):
         fail(f"rgen_schedule metric-tables: {proc.stdout}")
-    proc, cli_walls["fit --data-parallel"] = cli_run(
-        ["fit", "--config", config, "--output-dir", cli / "dp",
-         "--data-parallel"])
-    if proc.returncode == 0 or "item 11" not in proc.stderr:
-        fail(f"rgen_schedule fit --data-parallel exited {proc.returncode}: "
-             f"{proc.stderr[-2000:]}")
+    # one process on one card: --data-parallel is the single-device run
+    _, cli_walls["fit --data-parallel"] = cli_ok(
+        ["fit", "--config", config, "--output-dir", cli / "dp", "--seed",
+         SCHED_SEED, "--data-parallel"])
+    dp_rel = max_rel(
+        [r["train_loss"] for r in read_log(str(cli / "dp" /
+                                               "training_log.csv"))],
+        [r["train_loss"] for r in read_log(str(cli / "vae" /
+                                               "training_log.csv"))])
+    if dp_rel > MESH_ENTRY_RTOL:
+        fail(f"rgen_schedule fit --data-parallel (one process): train loss "
+             f"rel {dp_rel:.3e} from fit's")
     walls[50] = time.perf_counter() - t_phase
     print(f"rgen_schedule (python -m, one process each, on the card): "
           + ", ".join(f"{k} {v:.3f} s" for k, v in cli_walls.items())
           + f"; prepare's grid and splits equal phase 39's; fit "
-          f"--data-parallel exits {proc.returncode} naming item 11 "
-          f"[card {card}]", flush=True)
+          f"--data-parallel in one process: fit's train loss (rel "
+          f"{dp_rel:.3e}) [card {card}]", flush=True)
 
 
 # ---- the traj_syn family and the ananke CLI (phases 51-56) -----------------
@@ -6286,12 +6360,12 @@ def traj_phases(dev, card, root, acts, csv_path, walls):
     summary = json.loads((cli / "summary.json").read_text())
     if summary["num_gen"] != CLI_TRAJ_GEN or "validation" not in summary:
         fail(f"ananke gval-traj: {summary}")
-    proc, cli_walls["traj-embed --data-parallel"] = ananke_run(
-        ["traj-embed", "--activities-csv", cut_csv, "--outdir", cli / "dp",
-         "--data-parallel"])
-    if proc.returncode == 0 or "item 11" not in proc.stderr:
-        fail(f"ananke traj-embed --data-parallel exited {proc.returncode}: "
-             f"{proc.stderr[-2000:]}")
+    # one process on one card: --data-parallel is the single-device run
+    proc, cli_walls["traj-embed --data-parallel"] = ananke_ok(
+        ["traj-embed", "--activities-csv", cut_csv, "--crf-mode", "semi",
+         "--epochs", 1, "--outdir", cli / "dp", "--data-parallel"])
+    if not (cli / "dp" / "ckpt_best.ckpt").exists():
+        fail("ananke traj-embed --data-parallel wrote no checkpoint")
     plots = importlib.util.find_spec("matplotlib") is not None
     proc, cli_walls["visualize-combined-traj"] = ananke_run(
         ["visualize-combined-traj", "--trajectory-csv", cli / "gen.csv",
@@ -6325,6 +6399,7 @@ def traj_phases(dev, card, root, acts, csv_path, walls):
           + "; schedules/s " + ", ".join(f"{m} {r:.0f}"
                                          for m, r in rates.items())
           + f" [card {card}]", flush=True)
+    return cut_csv, catalog_csv
 
 
 def gatode_cli_phase(card):
@@ -6871,6 +6946,545 @@ def trajectory_ode_phases(dev, card, root, walls):
           f"{ms_walls['sde']:.3f} s); phases 57-60 "
           + ", ".join(f"{walls[k]:.1f}" for k in (57, 58, 59, 60))
           + f" s [card {card}]", flush=True)
+
+
+# ---- the parallel layer under a mesh (phases 61-63) ------------------------
+
+# phase 61: the plain sharded step and rollout at a cut of rung 2's agents;
+# its one DOPRI5 step at these tolerances (the rollout's rk4 at the config's)
+SHARDED_N = 8_192
+MESH_DOPRI5_TOL = (1e-3, 1e-4)
+# the plain step at world 1: only the cross-entropy's form moves (a
+# logsumexp from the zone group's maximum in place of log_softmax)
+MESH_LOSS_RTOL = 1e-5
+MESH_COS_MIN = 0.99999
+# phase 62: two ranks on the card, gloo reducing CUDA tensors, against the
+# one-process step on the same rows (PERF.md section 2's fixed-step bound)
+RANKS62 = 2
+P62_LOSS_RTOL = 1e-5
+P62_COS_MIN = 0.99999
+P62_TIMEOUT = 600
+# phase 63: the entry points at world 1 against their single-device calls
+MESH_ENTRY_RTOL = 1e-4
+# --parallel runs phase 63 on inputs of its own at this many persons
+PARALLEL_PERSONS = 4_096
+
+
+@contextlib.contextmanager
+def nccl_mesh(dev, tag):
+    """A one-rank NCCL process group on the card (a ``file://`` rendezvous
+    under OUT) and its (1, 1) mesh; the group ends on exit."""
+    from ananke_abm_tpu_torch.parallel import make_mesh, maybe_initialize
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    rdv = OUT / f"rendezvous_{tag}"
+    rdv.unlink(missing_ok=True)
+    maybe_initialize(f"file://{rdv}", 1, 0, backend="nccl", device=dev,
+                     timeout_s=300)
+    try:
+        yield make_mesh()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def event_wall(fn):
+    """``fn()``'s wall in seconds between CUDA events, and its result."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3, out
+
+
+def flat_of(tensors):
+    return torch.cat([t.detach().reshape(-1).double() for t in tensors])
+
+
+def mesh_phases(dev, card, rung1=None):
+    """Phase 61: the GAT-ODE under a one-rank NCCL mesh. ``rung1``: phase
+    4's (model, graph, agents) at rung 1, else built here."""
+    from ananke_abm_tpu_torch.models.gnn_embed.rollout import (
+        make_decoded_rollout,
+        make_pallas_rollout,
+    )
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        make_adjoint_step_fns,
+        make_fused_train_step,
+        make_step_fns,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
+    from ananke_abm_tpu_torch.ops.cuda import fused_step as fs
+    from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
+    from ananke_abm_tpu_torch.parallel import (
+        make_sharded_fused_train_step,
+        make_sharded_rollout,
+        make_sharded_train_step,
+    )
+
+    kernels = (ft.day_forward_fused, ft.day_backward_fused,
+               ft.ce_forward_fused, ft.ce_backward_fused,
+               fg.gat_forward_fused, fg.gat_backward_fused)
+    config = GATODEConfig(substeps=SUBSTEPS, num_blocks=2)
+    t_phase = time.perf_counter()
+    with nccl_mesh(dev, "61") as mesh:
+        # ---- 61a. the fused step at rung 2: the single-device bits --------
+        steps = {}
+        for tag in ("single", "mesh"):
+            model, opt, static, batch = rung2_trainer(dev, config)
+            step = (make_fused_train_step(model, opt, config, static)[0]
+                    if tag == "single" else make_sharded_fused_train_step(
+                        model, opt, config, mesh, static))
+            steps[tag] = (model, step, batch)
+        walls = {"single": [], "mesh": []}
+        results = {}
+        for tag in ("single", "mesh", "mesh", "single"):
+            model, step, batch = steps[tag]
+            before = [k.launches for k in kernels]
+            wall, (loss, acc) = event_wall(lambda: step(*batch))
+            launched = [k.launches - b for k, b in zip(kernels, before)]
+            if launched != [1] * 6:
+                fail(f"phase 61 {tag} fused step launched K2f/K2b/K3f/K3b/"
+                     f"K4f/K4b {launched} times, expected once each")
+            walls[tag].append(wall)
+            results.setdefault(tag, []).append(
+                (loss.reshape(()).float(), acc.reshape(()).float(),
+                 flat_of(model.parameters())))
+        same = all(torch.equal(a, b) for ra, rb in zip(results["single"],
+                                                      results["mesh"])
+                   for a, b in zip(ra, rb))
+        print(f"phase 61 fused step at rung 2 ({TRAIN_N} x {TRAIN_ZONES} x "
+              f"{TRAIN_TIMES}) under a one-rank NCCL mesh: loss, accuracy "
+              f"and parameters after each of 2 steps the single device's "
+              f"bits: {same}; K2f/K2b/K3f/K3b/K4f/K4b once each a step; "
+              f"walls (CUDA events) single "
+              + ", ".join(f"{w:.4f}" for w in walls["single"]) + " s, mesh "
+              + ", ".join(f"{w:.4f}" for w in walls["mesh"])
+              + f" s [card {card}]", flush=True)
+        if not same:
+            fail("the sharded fused step at world 1 differs from the single "
+                 "device's")
+
+        # ---- 61b. the kernel rollouts at rung 1 ---------------------------
+        if rung1 is None:
+            rung1 = rung1_setup(dev)
+        model, graph, agents = rung1
+        serve_cfg = GATODEConfig()
+        k1, k0 = fs.rk4_interval_decode_fused, fs.rk4_step_fused
+        routes = {
+            "interval": lambda m: make_pallas_rollout(
+                model, *graph, substeps=serve_cfg.substeps, mesh=m,
+                fuse_decode=True),
+            "decoded": lambda m: make_decoded_rollout(model, serve_cfg,
+                                                      *graph, mesh=m),
+            "step": lambda m: make_pallas_rollout(
+                model, *graph, substeps=serve_cfg.substeps, mesh=m),
+        }
+        ids, r_walls, launches = {}, {}, {}
+        for name, make in routes.items():
+            order = (("single", "mesh", "mesh", "single")
+                     if name == "interval" else ("single", "mesh"))
+            for tag in order:
+                rollout = make(None if tag == "single" else mesh)
+                before = (k1.launches, k0.launches)
+                wall, out = event_wall(lambda: rollout(*agents))
+                launches[name, tag] = (k1.launches - before[0],
+                                       k0.launches - before[1])
+                r_walls.setdefault((name, tag), []).append(wall)
+                ids[name, tag] = out
+        want = {"interval": (NUM_TIMES - 1, 0), "decoded": (NUM_TIMES - 1, 0),
+                "step": (0, (NUM_TIMES - 1) * serve_cfg.substeps)}
+        for name in routes:
+            if launches[name, "mesh"] != want[name]:
+                fail(f"phase 61 {name} rollout under the mesh launched "
+                     f"(K1, K0) {launches[name, 'mesh']}, expected "
+                     f"{want[name]}")
+            if not torch.equal(ids[name, "mesh"], ids[name, "single"]):
+                fail(f"phase 61 {name} rollout under the mesh: ids differ "
+                     f"from the single device's")
+        n = agents[0].shape[0]
+        print(f"phase 61 rollouts at rung 1 ({n} x {NUM_TIMES}, "
+              f"{graph[0].shape[0]} zones) under the mesh: the single "
+              f"device's ids on every route; launches (K1, K0) "
+              + ", ".join(f"{k} {launches[k, 'mesh']}" for k in routes)
+              + "; walls (CUDA events) " + ", ".join(
+                  f"{k} {t} " + "/".join(f"{w:.4f}" for w in r_walls[k, t])
+                  for k in routes for t in ("single", "mesh"))
+              + f" s [card {card}]", flush=True)
+
+        # ---- 61c. the plain sharded step and rollout at SHARDED_N ---------
+        checks = []
+        for method in ("rk4", "dopri5"):
+            cfg = (config if method == "rk4" else dataclasses.replace(
+                config, method="dopri5", rtol=MESH_DOPRI5_TOL[0],
+                atol=MESH_DOPRI5_TOL[1]))
+            out = {}
+            for tag in ("single", "mesh"):
+                model, opt, static, batch = rung2_trainer(dev, cfg)
+                batch = tuple(b[:SHARDED_N] for b in batch)
+                if tag == "mesh":
+                    step = make_sharded_train_step(model, opt, cfg, mesh,
+                                                   static)
+                elif method == "rk4":
+                    step, _ = make_step_fns(model, opt, cfg, static)
+                else:
+                    step, _ = make_adjoint_step_fns(
+                        model, opt, cfg, static, use_fused=False,
+                        adjoint_mode="discrete")
+                wall, (loss, acc) = event_wall(lambda: step(*batch))
+                fwd = getattr(step, "stats", {}).get("forward", {})
+                out[tag] = (loss.item(), acc.item(),
+                            flat_of(p.grad for p in model.parameters()),
+                            (fwd.get("n_steps"), fwd.get("n_accepted")),
+                            wall)
+            (ls, as_, gs, ss, ws), (lm, am, gm, sm, wm) = (out["single"],
+                                                            out["mesh"])
+            rel, cos = abs(lm - ls) / abs(ls), cosine(gm, gs)
+            checks.append(rel <= MESH_LOSS_RTOL and cos > MESH_COS_MIN
+                          and abs(am - as_) <= 1.0 / (SHARDED_N * TRAIN_TIMES)
+                          and ss == sm)
+            print(f"phase 61 plain sharded step ({method}, {SHARDED_N} "
+                  f"agents): loss {lm:.7f} against {ls:.7f} (rel {rel:.3e} "
+                  f"<= {MESH_LOSS_RTOL}), accuracy {am:.6f} against "
+                  f"{as_:.6f}, gradient cosine {cos:.9f} (> {MESH_COS_MIN})"
+                  + (f", steps (attempted, accepted) {sm} against {ss}"
+                     if method == "dopri5" else "")
+                  + f"; walls {ws:.4f} s single, {wm:.4f} s mesh (CUDA "
+                  f"events) [card {card}]", flush=True)
+        model, _, static, batch = rung2_trainer(dev, config)
+        pf, hz = batch[0][:SHARDED_N], batch[1][:SHARDED_N]
+        got = make_sharded_rollout(model, config, mesh, static)(pf, hz)
+        with torch.inference_mode():
+            logits, _ = model(*static[:2], pf, hz, static[2],
+                              ode_method=config.method,
+                              substeps=config.substeps)
+        agree = (got == torch.argmax(logits, -1).to(torch.int32)
+                 ).float().mean().item()
+        print(f"phase 61 make_sharded_rollout ({SHARDED_N} agents, rk4): "
+              f"ids agree with GATODE.forward's argmax {agree:.6f} (>= "
+              f"{IDS_MIN})", flush=True)
+        if not all(checks) or agree < IDS_MIN:
+            fail("phase 61: the plain sharded step or rollout at world 1 "
+                 "is out of its bounds")
+    print(f"phase 61 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def rung1_setup(dev):
+    """(model, graph, agents) of phase 4's rollout at rung 1, for
+    ``--parallel``."""
+    from ananke_abm_tpu_torch.data_generator import generate_agent_population
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        build_model,
+        init_params,
+    )
+
+    data = generate_agent_population(N_AGENTS, num_times=NUM_TIMES,
+                                     seed=AGENT_SEED, num_zones=NUM_ZONES,
+                                     world_seed=WORLD_SEED)
+    model = build_model(GATODEConfig(), data["zone_features"].shape[-1],
+                        data["person_feats"].shape[-1], device=dev)
+    init_params(model, torch.Generator().manual_seed(0))
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)
+    return (model, (on(data["zone_features"]), on(data["adj"]),
+                    on(data["times"])),
+            (on(data["person_feats"]), on(data["home_zone"], torch.long)))
+
+
+def parallel_rank(rank, d):
+    """One of phase 62's ranks (``--parallel-rank RANK DIR``): the card
+    shared, gloo reducing its CUDA tensors; the sharded fused step at rung
+    2 and its control (this rank's gradient left out of the reduction on
+    rank 1), written to DIR/rank{RANK}.pt."""
+    import torch.distributed as dist
+
+    from ananke_abm_tpu_torch.models.gnn_embed.train import GATODEConfig
+    from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
+    from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
+    from ananke_abm_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_fused_train_step,
+        maybe_initialize,
+    )
+    from ananke_abm_tpu_torch.parallel import sharded
+
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    maybe_initialize(f"file://{d / 'rendezvous'}", RANKS62, rank,
+                     backend="gloo", device=dev, timeout_s=300)
+    probe = torch.full((1,), float(rank + 1), device=dev)
+    try:
+        dist.all_reduce(probe)
+    except RuntimeError as e:
+        torch.save({"gloo_cuda": str(e)}, d / f"rank{rank}.pt")
+        dist.destroy_process_group()
+        return
+    out = {"gloo_cuda": probe.item()}
+    mesh = make_mesh()
+    kernels = (ft.day_forward_fused, ft.day_backward_fused,
+               ft.ce_forward_fused, ft.ce_backward_fused,
+               fg.gat_forward_fused, fg.gat_backward_fused)
+    config = GATODEConfig(substeps=SUBSTEPS, num_blocks=2)
+    reduce = sharded.all_reduce_grads
+
+    def control(params, group):
+        if dist.get_rank() == 1:
+            for p in params:
+                p.grad = torch.zeros_like(p)
+        reduce(params, group)
+
+    for tag in ("step", "control"):
+        model, opt, static, batch = rung2_trainer(dev, config)
+        step = make_sharded_fused_train_step(model, opt, config, mesh,
+                                             static)
+        sharded.all_reduce_grads = control if tag == "control" else reduce
+        before = [k.launches for k in kernels]
+        try:
+            loss, acc = step(*batch)
+        finally:
+            sharded.all_reduce_grads = reduce
+        torch.cuda.synchronize()
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        print(f"rank {rank} {tag}: K2f/K2b/K3f/K3b/K4f/K4b launched "
+              f"{launched}", flush=True)
+        out[tag] = {"loss": loss.item(), "acc": acc.item(),
+                    "launches": launched,
+                    "grads": [p.grad.detach().double().cpu()
+                              for p in model.parameters()]}
+    torch.save(out, d / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def two_rank_phase(dev, card):
+    """Phase 62: the data-parallel fused step of two processes that share
+    the card, gloo reducing the CUDA tensors, against this process's step
+    on the same 32,768 rows; and the control that must fail."""
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        make_fused_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    d = OUT / "phase62"
+    if d.exists():
+        shutil.rmtree(d)
+    d.mkdir(parents=True)
+    logs = [open(d / f"rank{r}.log", "w") for r in range(RANKS62)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--parallel-rank",
+         str(r), str(d)], stdout=logs[r], stderr=subprocess.STDOUT,
+        cwd=str(ROOT)) for r in range(RANKS62)]
+    try:
+        deadline = time.monotonic() + P62_TIMEOUT
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+               for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r in range(RANKS62):
+        print((d / f"rank{r}.log").read_text().rstrip(), flush=True)
+    if rcs is None or any(rcs):
+        fail(f"phase 62's ranks exited {rcs}")
+    ranks = [torch.load(d / f"rank{r}.pt") for r in range(RANKS62)]
+    if any(isinstance(r["gloo_cuda"], str) for r in ranks):
+        print(f"phase 62 left out: gloo refused CUDA tensors for all_reduce "
+              f"on torch {torch.__version__}: {ranks[0]['gloo_cuda']} "
+              f"[card {card}]", flush=True)
+        return
+    if [r["gloo_cuda"] for r in ranks] != [3.0] * RANKS62:
+        fail(f"phase 62 probe: gloo's all_reduce gave "
+             f"{[r['gloo_cuda'] for r in ranks]}, expected 3.0")
+    config = GATODEConfig(substeps=SUBSTEPS, num_blocks=2)
+    model, opt, static, batch = rung2_trainer(dev, config)
+    loss, acc = make_fused_train_step(model, opt, config, static)[0](*batch)
+    want = (loss.item(), acc.item(),
+            [p.grad.detach().double().cpu() for p in model.parameters()])
+
+    def judge(res):
+        rel = abs(res["loss"] - want[0]) / abs(want[0])
+        cos = min(cosine(g, w) for g, w in zip(res["grads"], want[2]))
+        ok = (rel <= P62_LOSS_RTOL and cos > P62_COS_MIN
+              and res["acc"] == want[1] and res["launches"] == [1] * 6)
+        return ok, (f"loss rel {rel:.3e} (<= {P62_LOSS_RTOL}), accuracy "
+                    f"{res['acc']:.6f} against {want[1]:.6f}, the least "
+                    f"parameter gradient cosine {cos:.9f} (> {P62_COS_MIN})")
+
+    for r, res in enumerate(ranks):
+        ok, text = judge(res["step"])
+        print(f"phase 62 rank {r} of {RANKS62} (gloo, CUDA tensors, one "
+              f"card): {text}", flush=True)
+        if not ok:
+            fail(f"phase 62 rank {r}'s step is out of its bounds")
+        ok, text = judge(res["control"])
+        print(f"phase 62 control (rank 1's gradient left out) on rank {r}: "
+              f"{text}", flush=True)
+        if ok:
+            fail("phase 62's control passes the bounds")
+    print(f"phase 62 in {time.perf_counter() - t_phase:.1f} s (two "
+          f"processes and this one's step) [card {card}]", flush=True)
+
+
+def mesh_entry_inputs(dev, root):
+    """Phase 63's inputs when it runs alone (``--parallel``):
+    PARALLEL_PERSONS persons through phase 39's data, phase 41's trainer
+    (one epoch) and phase 43's CRF data, and phase 53's cut CSV."""
+    from ananke_abm_tpu_torch.data_generator.population import (
+        COLUMNS,
+        generate_population_activities,
+        write_csv,
+    )
+    from ananke_abm_tpu_torch.dataio.rasterize import prepare_from_csv
+    from ananke_abm_tpu_torch.models.gen_schedule.crf.prepare import (
+        prepare_crf_data,
+    )
+    from ananke_abm_tpu_torch.models.gen_schedule.pipeline.train import train
+
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    acts = generate_population_activities(PARALLEL_PERSONS, seed=SCHED_SEED)
+    csv_path = write_csv(str(root / "activities.csv"),
+                         {k: acts[k] for k in COLUMNS})
+    grid = str(root / "grid.npz")
+    prepare_from_csv(csv_path, grid, grid_min=SCHED_GRID_MIN)
+    p1 = schedule_config("phase1", data__npz=grid, train__epochs=1)
+    train(p1, str(root / "vae"), seed=SCHED_SEED, device=dev)
+    ckpt = str(root / "vae" / "checkpoints" / "best_val.ckpt")
+    crf_dir = root / "crf_data"
+    prepare_crf_data(ckpt, grid.replace(".npz", "_splits.npz"),
+                     str(crf_dir), device=dev)
+    cut_csv = write_csv(str(root / "activities_cut.csv"),
+                        {k: v for k, v in cut_activities(
+                            acts, TRAJ_TRAIN_ROWS).items() if k in COLUMNS})
+    return {"root": root, "grid": grid, "ckpt": ckpt, "crf_dir": crf_dir,
+            "cut_csv": cut_csv, "catalog_csv": None}
+
+
+def mesh_entry_phase(dev, card, files):
+    """Phase 63: the schedule trainer, sampler and CRF trainer,
+    ``train_traj_embed`` and ``BatchedInferenceEngine`` with ``mesh=`` under
+    a one-rank NCCL mesh, against their single-device calls."""
+    import dataclasses as dc
+
+    from ananke_abm_tpu_torch.models.gen_schedule.crf.train import train_crf
+    from ananke_abm_tpu_torch.models.gen_schedule.pipeline.sample import (
+        sample,
+    )
+    from ananke_abm_tpu_torch.models.gen_schedule.pipeline.train import train
+    from ananke_abm_tpu_torch.models.latent_ode.config import (
+        GenerativeODEConfig,
+    )
+    from ananke_abm_tpu_torch.models.latent_ode.inference import (
+        BatchedInferenceEngine,
+    )
+    from ananke_abm_tpu_torch.models.latent_ode.model import (
+        init_params as lode_init,
+    )
+    from ananke_abm_tpu_torch.models.latent_ode.model import to_flax_params
+    from ananke_abm_tpu_torch.models.latent_ode.train import (
+        build_model_and_batch,
+    )
+    from ananke_abm_tpu_torch.models.traj_syn.pipeline.train_full import (
+        train_traj_embed,
+    )
+    from ananke_abm_tpu_torch.utils.ckpt import save_checkpoint
+
+    t_phase = time.perf_counter()
+    root = Path(files["root"]) / "mesh"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    p1 = schedule_config("phase1", data__npz=files["grid"], train__epochs=1)
+    crf_cfg = schedule_config(
+        "crf_config", crf__train_npz=str(files["crf_dir"] / "crf_train.npz"),
+        crf__val_npz=str(files["crf_dir"] / "crf_val.npz"),
+        crf__meta_json=str(files["crf_dir"] / "crf_meta.json"),
+        crf__num_epochs=1)
+    cut = str(files["crf_dir"] / "crf_train_phase63.npz")
+    with np.load(files["crf_dir"] / "crf_train.npz") as z:
+        np.savez(cut, U=z["U"][:CRF_TRAIN_ROWS], Y=z["Y"][:CRF_TRAIN_ROWS])
+    crf_cfg["crf"]["train_npz"] = cut
+    lode_cfg = GenerativeODEConfig()
+    lode_model, _, _ = build_model_and_batch(lode_cfg, device=dev)
+    lode_init(lode_model, torch.Generator().manual_seed(SCHED_SEED))
+    lode_ckpt = str(root / "latent_ode.ckpt")
+    save_checkpoint({"params": to_flax_params(lode_model),
+                     "config": dc.asdict(lode_cfg)}, lode_ckpt)
+
+    def run(mesh, tag):
+        out, walls = {}, {}
+        t0 = time.perf_counter()
+        train(p1, str(root / f"vae_{tag}"), seed=SCHED_SEED, mesh=mesh,
+              device=dev)
+        out["train"] = np.array([list(r.values()) for r in read_log(
+            str(root / f"vae_{tag}" / "training_log.csv"))], np.float64)
+        walls["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sample(files["ckpt"], CRF_SAMPLES, str(root / f"s_{tag}"),
+               seed=SCHED_SEED, reject_all_home=True, mesh=mesh, device=dev)
+        with np.load(root / f"s_{tag}.npz") as z:
+            out["sample"] = (z["Y_generated"], z["U_mean_logits"])
+        walls["sample"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        crf_cfg["crf"]["save_path"] = str(root / f"crf_{tag}.ckpt")
+        out["crf"] = train_crf(crf_cfg, seed=SCHED_SEED, mesh=mesh,
+                               device=dev)["best_val_nll"]
+        walls["train_crf"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["traj"] = train_traj_embed(
+            files["cut_csv"], files["catalog_csv"], epochs=1,
+            outdir=str(root / f"traj_{tag}"), crf_mode="linear",
+            seed=SCHED_SEED, mesh=mesh, device=dev)["best_val_loss"]
+        walls["train_traj_embed"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred = BatchedInferenceEngine(lode_ckpt, mesh=mesh, device=dev
+                                      ).predict_trajectories(num_samples=1)
+        out["engine"] = [pred[k] for k in ("zones", "purposes", "modes")]
+        walls["engine"] = time.perf_counter() - t0
+        return out, walls
+
+    single, s_walls = run(None, "single")
+    with nccl_mesh(dev, "63") as mesh:
+        sharded, m_walls = run(mesh, "mesh")
+    # the train_* columns: epoch, beta and the eight train components
+    log_rel = np.max(np.abs(sharded["train"][:, :10] - single["train"][:, :10])
+                     / np.maximum(np.abs(single["train"][:, :10]), 1e-12))
+    checks = {
+        "trainer log (train columns)": log_rel <= MESH_ENTRY_RTOL,
+        "sampler ids": np.array_equal(sharded["sample"][0],
+                                      single["sample"][0]),
+        "sampler logits' mean": np.allclose(sharded["sample"][1],
+                                            single["sample"][1], rtol=1e-5,
+                                            atol=1e-6),
+        "train_crf": abs(sharded["crf"] - single["crf"]) <= MESH_ENTRY_RTOL
+        * abs(single["crf"]),
+        "train_traj_embed": abs(sharded["traj"] - single["traj"])
+        <= MESH_ENTRY_RTOL * abs(single["traj"]),
+        "engine ids": all(np.array_equal(a, b) for a, b in
+                          zip(sharded["engine"], single["engine"])),
+    }
+    print(f"phase 63 entry points with mesh= under a one-rank NCCL mesh "
+          f"against their single-device calls: "
+          + ", ".join(f"{k} {'ok' if v else 'OUT'}" for k, v in checks.items())
+          + f" (trainer log rel {log_rel:.3e}, train_crf "
+          f"{sharded['crf']:.6f}/{single['crf']:.6f}, traj "
+          f"{sharded['traj']:.6f}/{single['traj']:.6f}); walls single/mesh "
+          + ", ".join(f"{k} {s_walls[k]:.2f}/{m_walls[k]:.2f}"
+                      for k in s_walls)
+          + f" s (host clock); {time.perf_counter() - t_phase:.1f} s "
+          f"[card {card}]", flush=True)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"phase 63: {bad} differ from the single-device calls")
 
 
 if __name__ == "__main__":

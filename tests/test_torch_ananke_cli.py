@@ -3,8 +3,8 @@ against the JAX package's click group ``ananke_abm_tpu.cli.main.main``:
 the same seven commands, option strings, defaults and flags; make-purposes
 equal to the JAX CLI's output and file; traj-embed -> gval-traj,
 visualize-combined-traj, gatode-train -> gatode-serve and info on the CPU
-(``ANANKE_PLATFORM=cpu``) at tiny widths; the refusals (--data-parallel,
-matplotlib absent, no card)."""
+(``ANANKE_PLATFORM=cpu``) at tiny widths; ``--data-parallel`` under
+``torchrun``; the refusals (matplotlib absent, no card)."""
 import argparse
 import importlib.util
 import json
@@ -19,6 +19,7 @@ import pytest
 import torch
 from click.testing import CliRunner
 
+from _torch_parallel_worker import torchrun
 from ananke_abm_tpu.cli.main import main as jmain
 from ananke_abm_tpu.data_generator.population import (
     generate_population_activities,
@@ -142,15 +143,43 @@ def test_traj_embed_then_gval_traj_on_the_cpu(acts, tmp_path, capsys,
     assert len({json.dumps(v) for v in per_person.values()}) == 1
 
 
-def test_traj_embed_data_parallel_exits_naming_item_11(acts, tmp_path):
-    env = dict(os.environ, ANANKE_PLATFORM="cpu")
-    proc = subprocess.run(
-        [sys.executable, "-m", "ananke_abm_tpu_torch.cli.main", "traj-embed",
-         "--activities-csv", acts, "--epochs", "1", "--outdir",
-         str(tmp_path / "dp"), "--data-parallel"], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0
-    assert "item 11" in proc.stderr
+def test_traj_embed_data_parallel_exits_naming_item_11(acts, tmp_path,
+                                                       capsys, monkeypatch):
+    """``traj-embed --data-parallel`` under ``torchrun`` on 2 gloo ranks
+    prints the single-device run's best validation loss."""
+    monkeypatch.setenv("ANANKE_PLATFORM", "cpu")
+    args = ["traj-embed", "--activities-csv", acts, "--epochs", "1",
+            "--batch", "16"]
+    proc = torchrun("ananke_abm_tpu_torch.cli.main",
+                    [*args, "--outdir", str(tmp_path / "dp"),
+                     "--data-parallel"], 2, ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    single = _run([*args, "--outdir", str(tmp_path / "one")], capsys)
+    best = lambda out: [float(l.split(";")[0].rsplit(" ", 1)[1])  # noqa
+                        for l in out.splitlines()
+                        if l.startswith("Best val loss ")]
+    got, (want,) = best(proc.stdout), best(single)
+    assert len(got) == 2  # every rank prints it
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert (tmp_path / "dp" / "ckpt_best.ckpt").exists()
+
+
+def test_gatode_train_data_parallel_under_torchrun(tmp_path, capsys,
+                                                   monkeypatch):
+    """``gatode-train --data-parallel`` on 2 gloo ranks: the sharded
+    per-batch step gives the single-device run's loss and accuracy."""
+    monkeypatch.setenv("ANANKE_PLATFORM", "cpu")
+    args = ["gatode-train", "--n-agents", "64", "--num-times", "6",
+            "--epochs", "1", "--batch", "32", "--seed", "2"]
+    proc = torchrun("ananke_abm_tpu_torch.cli.main",
+                    [*args, "--outdir", str(tmp_path / "dp"),
+                     "--data-parallel"], 2, ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    single = _run([*args, "--outdir", str(tmp_path / "one")], capsys)
+    want = single.split(" in ")[0]
+    assert want.startswith("Final loss ")
+    assert proc.stdout.count(want) == 2
+    assert (tmp_path / "dp" / "gatode_best.ckpt").exists()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a host "

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parallel_worker import one_rank_mesh
 from ananke_abm_tpu.models.gen_schedule.crf import model as jcrf_model
 from ananke_abm_tpu.models.gen_schedule.crf.train import (
     train_crf as jtrain_crf,
@@ -228,7 +229,12 @@ def test_train_crf_drops_the_remainder_and_keeps_the_best(tmp_path):
             {k: _t(a) for k, a in ck["params"].items()}, _t(v["U"]),
             _t(v["Y"]))
     np.testing.assert_allclose(float(nll), res["best_val_nll"], rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttrain_crf({"train_npz": paths["train"], "val_npz": paths["val"],
-                    "meta_json": meta, "save_path": save, "num_epochs": 1,
-                    "batch_size": 8, "lr": 1e-2}, device="cpu", mesh=object())
+    # the same run under a (one-rank) mesh: the same best NLL
+    with one_rank_mesh(tmp_path) as mesh:
+        sharded = ttrain_crf({"crf": {
+            "train_npz": paths["train"], "val_npz": paths["val"],
+            "meta_json": meta, "save_path": str(tmp_path / "m.ckpt"),
+            "num_epochs": 3, "batch_size": 8, "lr": 1e-2,
+            "weight_decay": 0.0}}, seed=3, device="cpu", mesh=mesh)
+    np.testing.assert_allclose(sharded["best_val_nll"], res["best_val_nll"],
+                               rtol=1e-6)

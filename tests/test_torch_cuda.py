@@ -603,6 +603,55 @@ def test_fixed_step_trainer_runs_through_the_kernels(cuda):
     assert cos > 0.999
 
 
+def test_one_rank_nccl_mesh_fused_step_gives_the_single_device_bits(
+        cuda, tmp_path):
+    """``make_sharded_fused_train_step`` under a one-rank NCCL mesh: the
+    loss, the accuracy and the updated parameters of
+    ``make_fused_train_step``, bit for bit (a sum over one rank is a
+    copy); each kernel launched once a step."""
+    import torch.distributed as dist
+
+    from ananke_abm_tpu_torch.models.gnn_embed.train import make_optimizer
+    from ananke_abm_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_fused_train_step,
+        maybe_initialize,
+    )
+
+    config = GATODEConfig()
+    d = generate_agent_population(1_024, num_times=6, num_zones=64, seed=0)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(cuda)
+    static = (on(d["zone_features"]), on(d["adj"]), on(d["times"]))
+    batch = (on(d["person_feats"]), on(d["home_zone"], torch.long),
+             on(d["zone_ids"], torch.long))
+    kernels = (ft.day_forward_fused, ft.day_backward_fused,
+               ft.ce_forward_fused, ft.ce_backward_fused,
+               fg.gat_forward_fused, fg.gat_backward_fused)
+    maybe_initialize(f"file://{tmp_path / 'rendezvous'}", 1, 0,
+                     backend="nccl", device=cuda, timeout_s=60)
+    try:
+        mesh = make_mesh()
+        out = {}
+        for tag in ("single", "mesh"):
+            model = _model(cuda, config.num_blocks)
+            opt = make_optimizer(model, config)
+            if tag == "single":
+                step, _ = make_fused_train_step(model, opt, config, static)
+            else:
+                step = make_sharded_fused_train_step(model, opt, config,
+                                                     mesh, static)
+            before = [k.launches for k in kernels]
+            loss, acc = step(*batch)
+            assert [k.launches - b for k, b in zip(kernels, before)] == \
+                [1] * 6
+            out[tag] = (loss.reshape(()), acc.reshape(()), torch.cat(
+                [p.detach().flatten() for p in model.parameters()]))
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(out["single"], out["mesh"]):
+        assert torch.equal(a.float(), b.float())
+
+
 def test_build_model_defaults_to_the_card(cuda):
     model = build_model(GATODEConfig(), 7, 8)
     assert next(model.parameters()).device.type == "cuda"

@@ -17,6 +17,7 @@ import optax
 import pytest
 import torch
 
+from _torch_parallel_worker import one_rank_mesh
 from ananke_abm_tpu.data_generator import features as jfeat
 from ananke_abm_tpu.models.latent_ode import data as jdata
 from ananke_abm_tpu.models.latent_ode.config import GenerativeODEConfig as JC
@@ -425,8 +426,14 @@ def test_entry_points_refuse_a_missing_device(tmp_path):
                             "config": dataclasses.asdict(TC(**TINY))}, path)
     with pytest.raises(ValueError, match="device is required"):
         TEngine(path, device=None)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TEngine(path, mesh=object(), device="cpu")
+    # a mesh shards the person axis: a one-rank mesh's engine predicts the
+    # single-device engine's ids (2-rank meshes: test_torch_parallel_*.py)
+    want = TEngine(path, device="cpu").predict_trajectories(num_samples=1)
+    with one_rank_mesh(tmp_path) as mesh:
+        got = TEngine(path, mesh=mesh, device="cpu").predict_trajectories(
+            num_samples=1)
+    for k in ("zones", "purposes", "modes"):
+        np.testing.assert_array_equal(got[k], want[k])
     with pytest.raises(ValueError, match="device is required"):
         tevaluate.evaluate(path, str(tmp_path / "ev"), device=None)
     if not torch.cuda.is_available():

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parallel_worker import one_rank_mesh
 from _torch_port import make_pair, t32
 from ananke_abm_tpu.ops.pallas.fused_step import (
     make_pallas_rollout as jax_make_pallas_rollout,
@@ -175,7 +176,9 @@ def test_per_step_body_is_the_plain_step():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-def test_per_step_rollout_sees_updated_params_and_refuses_a_mesh():
+def test_per_step_rollout_sees_updated_params_and_refuses_a_mesh(tmp_path):
+    """The updated parameters serve at once, with and without a mesh (a
+    one-rank mesh here; 2- and 4-rank meshes in test_torch_parallel*.py)."""
     pair = make_pair(num_blocks=1, n_agents=32, num_times=4)
     zf, adj, times, pf, hz = pair.tensors()
     rollout = make_pallas_rollout(pair.tmodel, zf, adj, times)
@@ -183,6 +186,9 @@ def test_per_step_rollout_sees_updated_params_and_refuses_a_mesh():
     with torch.no_grad():
         for p in pair.tmodel.parameters():
             p.add_(0.5)
-    assert (rollout(pf, hz) != out0).any()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_pallas_rollout(pair.tmodel, zf, adj, times, mesh=object())
+    out1 = rollout(pf, hz)
+    assert (out1 != out0).any()
+    with one_rank_mesh(tmp_path) as mesh:
+        sharded = make_pallas_rollout(pair.tmodel, zf, adj, times,
+                                      mesh=mesh)(pf, hz)
+    torch.testing.assert_close(sharded, out1, rtol=0, atol=0)

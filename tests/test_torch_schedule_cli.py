@@ -2,8 +2,8 @@
 (``ananke_abm_tpu_torch/cli/rgen_schedule.py``) against the JAX package's
 click group: the same commands, option strings, defaults and flags; the
 whole workflow on the CPU (``ANANKE_PLATFORM=cpu``) at tiny widths;
-``prepare``'s files equal to the JAX CLI's; ``--data-parallel`` exiting
-non-zero with the item-11 message."""
+``prepare``'s files equal to the JAX CLI's; ``--data-parallel`` under
+``torchrun``."""
 import argparse
 import json
 import os
@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 from click.testing import CliRunner
 
+from _torch_parallel_worker import torchrun
 from ananke_abm_tpu.cli.rgen_schedule import main as jmain
 from ananke_abm_tpu_torch.cli import rgen_schedule as tcli
 from ananke_abm_tpu_torch.data_generator.population import (
@@ -232,23 +233,50 @@ def test_whole_workflow_on_the_cpu(acts, tmp_path, capsys, monkeypatch):
 
 def test_data_parallel_exits_non_zero_naming_item_11(acts, tmp_path,
                                                      capsys, monkeypatch):
+    """``fit --data-parallel`` under ``torchrun`` on 2 gloo ranks trains
+    the single-device run (the same log); ``sample-population`` and
+    ``train-crf --data-parallel`` in a process that runs alone take the
+    single-device run (the reference's mesh of one device)."""
     monkeypatch.setenv("ANANKE_PLATFORM", "cpu")
     grid = str(tmp_path / "grid.npz")
     _run(["prepare", "--activities", acts, "--grid", "60", "--out", grid],
          capsys)
     cfg = tmp_path / "cfg.json"
-    cfg.write_text(json.dumps({"data": {"npz": grid}, "train": {},
-                               "model": {}}))
-    proc = subprocess.run(
-        [sys.executable, "-m", "ananke_abm_tpu_torch.cli.rgen_schedule",
-         "fit", "--config", str(cfg), "--output-dir", str(tmp_path / "r"),
-         "--data-parallel"], cwd=ROOT, capture_output=True, text=True,
-        timeout=120, env=dict(os.environ, ANANKE_PLATFORM="cpu"))
-    assert proc.returncode != 0
-    assert "item 11" in proc.stderr
-    # the sampler's and the CRF trainer's flags refuse the same way
-    for argv in (["sample-population", "--ckpt", grid, "--outprefix",
-                  str(tmp_path / "s"), "--data-parallel"],
-                 ["train-crf", "--cfg", str(cfg), "--data-parallel"]):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tcli.main(argv)
+    cfg.write_text(json.dumps({
+        "data": {"npz": grid},
+        "train": {"epochs": 1, "min_epochs": 1, "patience": 0,
+                  "batch_size": 16, "lr": 1e-3},
+        "model": {"method": "baseline_cnn", "z_dim": 4, "emb_dim": 8,
+                  "cnn_channels": [8], "cnn_kernel": 3,
+                  "cnn_dropout": 0.1}}))
+    dp, single = str(tmp_path / "dp"), str(tmp_path / "single")
+    proc = torchrun("ananke_abm_tpu_torch.cli.rgen_schedule",
+                    ["fit", "--config", str(cfg), "--output-dir", dp,
+                     "--data-parallel"], 2, ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"Training complete in {dp}" in proc.stdout
+    _run(["fit", "--config", str(cfg), "--output-dir", single], capsys)
+    logs = [np.genfromtxt(os.path.join(r, "training_log.csv"),
+                          delimiter=",", skip_header=1) for r in (dp, single)]
+    np.testing.assert_allclose(logs[0], logs[1], rtol=1e-5, atol=1e-7)
+    ckpt = os.path.join(single, "checkpoints", "best_val.ckpt")
+    for flag in ((), ("--data-parallel",)):
+        _run(["sample-population", "--ckpt", ckpt, "--num-samples", "8",
+              "--outprefix", str(tmp_path / f"s{len(flag)}"), *flag], capsys)
+    with np.load(tmp_path / "s0.npz") as a, np.load(tmp_path / "s1.npz") as b:
+        np.testing.assert_array_equal(a["Y_generated"], b["Y_generated"])
+    rng = np.random.default_rng(3)
+    for tag in ("train", "val"):
+        y = rng.integers(0, 7, size=(12, 6))
+        np.savez(tmp_path / f"crf_{tag}.npz", Y=y,
+                 U=rng.standard_normal((12, 6, 7)).astype(np.float32))
+    (tmp_path / "crf_meta.json").write_text('{"home_idx": 0}')
+    crf_cfg = tmp_path / "crf.json"
+    crf_cfg.write_text(json.dumps({"crf": {
+        "train_npz": str(tmp_path / "crf_train.npz"),
+        "val_npz": str(tmp_path / "crf_val.npz"),
+        "save_path": str(tmp_path / "crf.ckpt"),
+        "meta_json": str(tmp_path / "crf_meta.json"),
+        "num_epochs": 1, "batch_size": 6, "lr": 1e-2}}))
+    _run(["train-crf", "--cfg", str(crf_cfg), "--data-parallel"], capsys)
+    assert (tmp_path / "crf.ckpt").exists()

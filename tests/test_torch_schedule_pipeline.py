@@ -25,6 +25,7 @@ from _schedule_port import (  # noqa: E402,F401
     _t,
     host_branch,
 )
+from _torch_parallel_worker import one_rank_mesh
 from ananke_abm_tpu.data_generator import population as jpop
 from ananke_abm_tpu.dataio import rasterize as jrast
 from ananke_abm_tpu.dataio import splits as jsplits
@@ -240,13 +241,31 @@ def test_resume_repeats_the_straight_run(prepared, jax_run):
         ttrain.train(cfg3, jdir, seed=6, resume=True, device="cpu")
 
 
-def test_sharded_entry_points_raise_naming_item_11(prepared, jax_run):
+def test_sharded_entry_points_raise_naming_item_11(prepared, jax_run,
+                                                   tmp_path):
+    """The trainer and the sampler take a mesh: under a one-rank mesh they
+    give the single-device run's log and samples (2-rank meshes:
+    test_torch_parallel_pipelines.py)."""
     _, grid = prepared
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttrain.train(_cfg(grid), "unused", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsample.sample(os.path.join(jax_run, "last.ckpt"), 4, "unused",
-                       mesh=object(), device="cpu")
+    logs = []
+    for tag in ("single", "mesh"):
+        out = str(tmp_path / tag)
+        if tag == "mesh":
+            with one_rank_mesh(tmp_path) as mesh:
+                ttrain.train(_cfg(grid), out, seed=2, mesh=mesh,
+                             device="cpu")
+                tsample.sample(os.path.join(jax_run, "last.ckpt"), 4,
+                               out + "_s", mesh=mesh, device="cpu")
+        else:
+            ttrain.train(_cfg(grid), out, seed=2, device="cpu")
+            tsample.sample(os.path.join(jax_run, "last.ckpt"), 4, out + "_s",
+                           device="cpu")
+        logs.append(pd.read_csv(os.path.join(out, "training_log.csv")))
+    np.testing.assert_allclose(logs[1].to_numpy(), logs[0].to_numpy(),
+                               rtol=1e-6)
+    with np.load(str(tmp_path / "single_s.npz")) as a, \
+            np.load(str(tmp_path / "mesh_s.npz")) as b:
+        np.testing.assert_array_equal(a["Y_generated"], b["Y_generated"])
 
 
 def test_merge_welford_equals_jax():
