@@ -81,6 +81,10 @@ class SyncBatchNorm1d(nn.BatchNorm1d):
                 + self.bias[None, :, None])
 
 
+# the reference's name for the same layer
+SyncBatchNorm = SyncBatchNorm1d
+
+
 def set_batch_norm_group(model: nn.Module, group) -> None:
     """Point every :class:`SyncBatchNorm1d` of ``model`` at ``group`` (the
     mesh's ``agents`` group; None: per-rank statistics)."""

@@ -45,6 +45,7 @@ from typing import NamedTuple
 import torch
 
 from ananke_abm_tpu_torch.ops.cuda.fused_train import _raise_on
+from ananke_abm_tpu_torch.utils.profiling import check_nan
 
 SLOPE = 0.2
 DEN_FLOOR = 1e-12
@@ -272,6 +273,7 @@ def gat_edge_csr_forward(wh, e_recv, e_send, layout):
                                           H, d, stream)
     _raise_on(lib, err, "gat_edge_csr_forward")
     gat_edge_csr_forward.launches += 1
+    check_nan("gat_edge_csr_forward", out, lse)
     return out, lse
 
 
@@ -308,6 +310,7 @@ def gat_edge_csr_backward(g, wh, e_recv, e_send, lse, corr, layout):
                                            Zr, Zs, H, d, stream)
     _raise_on(lib, err, "gat_edge_csr_backward")
     gat_edge_csr_backward.launches += 1
+    check_nan("gat_edge_csr_backward", d_wh, d_recv, d_send)
     return d_wh, d_recv, d_send
 
 
@@ -402,6 +405,7 @@ def segment_sum(values, segment_ids, num_segments):
                                      chunks, stream)
     _raise_on(lib, err, name)
     segment_sum.launches += 1
+    check_nan("segment_sum", out)
     return out
 
 

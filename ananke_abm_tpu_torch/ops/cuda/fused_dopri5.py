@@ -78,6 +78,7 @@ from ananke_abm_tpu_torch.ops.cuda.fused_step import (
     time_feature_table,
 )
 from ananke_abm_tpu_torch.ops.cuda.fused_train import _raise_on
+from ananke_abm_tpu_torch.utils.profiling import check_nan
 
 # embedded-error weights b5 - b4 (k7's b5 is 0)
 _BE = tuple(b5 - b4 for b5, b4 in zip(_B5, _B4))
@@ -495,6 +496,7 @@ def dopri5_step_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3, b3,
             H, stream)
     _raise_on(lib, err, "dopri5_step_fused")
     dopri5_step_fused.launches += 1
+    check_nan("dopri5_step_fused", out[0], out[1])
     y1, f1, e, r5 = out
     return y1, f1, (err_sum if err_stats is not None else e), r5
 
@@ -568,6 +570,7 @@ def dopri5_step_vjp_fused(x, f0, h, ze, tf_rows, Wq, W1xc, W1h, blocks, W3,
         _raise_on(lib, err, "dopri5_step_vjp_fused")
         dopri5_step_vjp_fused.launches += 1
         gsum = slabs[num_ctas]
+        check_nan("dopri5_step_vjp_fused", gy0, gf0, gh, gsum)
     gze, gtf, gWq, gW1xc, gW1h, gblocks, gW3, gb3 = split_grads(gsum, layout,
                                                                 nb)
     return gy0, gf0, gh, gze, gtf, gWq, gW1xc, gW1h, gblocks, gW3, gb3
@@ -646,6 +649,7 @@ def dopri5_backward_fused(ckpts, ckpt_f, hc, ze, tf_all, rec_t0, rec_h,
         _raise_on(lib, err, "dopri5_backward_fused")
         dopri5_backward_fused.launches += 1
         gsum = slabs[num_ctas]
+        check_nan("dopri5_backward_fused", gy0, gf0, gh, gsum)
     gze, gtf, gWq, gW1xc, gW1h, gblocks, gW3, gb3 = split_grads(gsum, layout,
                                                                 nb)
     gtf_all = torch.zeros((max_acc, 7, H), dtype=torch.float32, device=dev)

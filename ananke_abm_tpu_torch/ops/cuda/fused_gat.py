@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from ananke_abm_tpu_torch.ops.cuda.fused_train import _raise_on
+from ananke_abm_tpu_torch.utils.profiling import check_nan
 
 NEG = -1e30
 LN_EPS = 1e-6
@@ -250,7 +251,9 @@ def gat_forward_fused(zf, adj, flat, heads, num_layers):
                                      D, heads, stream)
     _raise_on(lib, err, "gat_forward_fused")
     gat_forward_fused.launches += 1
-    return res[1][L], res
+    out = res[1][L]
+    check_nan("gat_forward_fused", out)
+    return out, res
 
 
 gat_forward_fused.launches = 0
@@ -287,6 +290,7 @@ def gat_backward_fused(zf, adj, flat, g, heads, num_layers, res):
                                       tiles, D, heads, stream)
     _raise_on(lib, err, "gat_backward_fused")
     gat_backward_fused.launches += 1
+    check_nan("gat_backward_fused", gsum)
     sizes = [w.numel() for w in flat]
     return tuple(part.view(w.shape)
                  for part, w in zip(torch.split(gsum, sizes), flat))

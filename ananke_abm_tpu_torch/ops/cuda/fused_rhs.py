@@ -42,6 +42,7 @@ from ananke_abm_tpu_torch.ops.cuda.fused_step import (
     stage_math,
     stage_vjp_math,
 )
+from ananke_abm_tpu_torch.utils.profiling import check_nan
 
 # CTAs of the kernel, each summing its share of agent tiles into its own
 # partial slab of the weight gradients; the slabs are then summed in a
@@ -149,6 +150,7 @@ def drift_rhs_fused(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3):
                                    H, stream)
     _raise_on(lib, err, "drift_rhs_fused")
     drift_rhs_fused.launches += 1
+    check_nan("drift_rhs_fused", f)
     return f
 
 
@@ -347,6 +349,7 @@ def _launch(x, h, ze, tf_row, Wq, W1xc, W1h, blocks, W3, b3, a,
         )
     _raise_on(lib, err, "drift_rhs_and_vjp")
     drift_rhs_and_vjp.launches += 1
+    check_nan("drift_rhs_and_vjp", f, gx, gh, gsum)
 
 
 def make_fused_adjoint_rhs(model, drift_vjp=None, drift_fwd=None):

@@ -28,6 +28,8 @@ import ctypes
 import numpy as np
 import torch
 
+from ananke_abm_tpu_torch.utils.profiling import check_nan
+
 BF16 = torch.bfloat16
 # (agent_dim, zone_dim, context_dim, hidden_dim) the CUDA kernel is
 # compiled for: the shipping GATODEConfig widths. Must match the template
@@ -404,6 +406,7 @@ def rk4_interval_decode_fused(x, h, ze_bf16, weights_bf16, wd_bf16, tf_pre,
             _stream(x))
     _raise_on(lib, err, "rk4_interval_decode_fused")
     rk4_interval_decode_fused.launches += 1
+    check_nan("rk4_interval_decode_fused", x_new)
     return x_new, ids
 
 
@@ -435,6 +438,7 @@ def rk4_step_fused(x, h, ze_bf16, weights_bf16, tf_pre, dt):
                                   _stream(x))
     _raise_on(lib, err, "rk4_step_fused")
     rk4_step_fused.launches += 1
+    check_nan("rk4_step_fused", x_new)
     return x_new
 
 

@@ -52,6 +52,7 @@ from ananke_abm_tpu_torch.ops.cuda.fused_step import (
     stage_math,
     stage_vjp_math,
 )
+from ananke_abm_tpu_torch.utils.profiling import check_nan
 
 # CTAs offered to the cross-entropy's backward, each summing its tiles into
 # its own slab: two an SM (the C interface's count, which an A/B against a
@@ -229,6 +230,7 @@ def day_forward_fused(x0, h, ze, tf_pre, dts, weights):
             S, Da, Dz, Dc, H, stream)
     _raise_on(lib, err, "day_forward_fused")
     day_forward_fused.launches += 1
+    check_nan("day_forward_fused", xs)
     return xs
 
 
@@ -344,6 +346,7 @@ def day_backward_fused(xs_all, g_xs, h, ze, tf_pre, dts, weights):
                 num_ctas, Da, Dz, Dc, H, stream)
         _raise_on(lib, err, "day_backward_fused")
         day_backward_fused.launches += 1
+        check_nan("day_backward_fused", gx0, gh, gsum)
     gze, gtfp, gWq, gW1xc, gW1h, gblocks, gW3, gb3 = split_grads(
         gsum, layout, nb)
     return (gx0 + g_xs[0], gh, gze, gWq, gW1xc, gW1h, gtfp, gblocks, gW3,
@@ -439,6 +442,7 @@ def ce_forward_fused(rows, targets, wd, ze):
                                     ze_p.shape[0], Da, Dz, stream)
     _raise_on(lib, err, "ce_forward_fused")
     ce_forward_fused.launches += 1
+    check_nan("ce_forward_fused", nll)
     return nll, correct
 
 
@@ -473,6 +477,7 @@ def ce_backward_fused(rows, targets, wd, ze, g_nll):
                                          stream)
         _raise_on(lib, err, "ce_backward_fused")
         ce_backward_fused.launches += 1
+        check_nan("ce_backward_fused", gx, gsum)
     return gx, gsum[Z * Dz:].view(Da, Dz), gsum[: Z * Dz].view(Z, Dz)
 
 

@@ -22,14 +22,21 @@ import numpy as np
 import torch
 
 
-def _to_host(obj):
+def _to_host(obj, copy: bool = False):
+    """``obj`` with its tensors (nested in dicts / lists / tuples) as host
+    numpy arrays. With ``copy``, nothing of the result shares memory with
+    ``obj`` (a CPU tensor or numpy array is copied, a CUDA tensor's copy
+    to the host is synchronous), so in-place updates of ``obj`` after this
+    returns (an optimizer's next step) do not reach it."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu().numpy()
+        return obj.detach().to("cpu", copy=copy).numpy()
     if isinstance(obj, dict):
-        return {k: _to_host(v) for k, v in obj.items()}
+        return {k: _to_host(v, copy) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_to_host(v) for v in obj)
-    if hasattr(obj, "shape") and not isinstance(obj, np.ndarray):
+        return type(obj)(_to_host(v, copy) for v in obj)
+    if isinstance(obj, np.ndarray):
+        return np.array(obj, copy=True) if copy else obj
+    if hasattr(obj, "shape"):
         return np.asarray(obj)
     return obj
 
@@ -43,6 +50,35 @@ def save_checkpoint(obj: dict, path: str):
     with open(tmp, "wb") as f:
         pickle.dump(_to_host(obj), f, protocol=pickle.HIGHEST_PROTOCOL)
     os.replace(tmp, path)
+
+
+class AsyncCheckpointer:
+    """Asynchronous checkpointing (the JAX package's ``AsyncCheckpointer``):
+    the device-to-host copy happens on the caller's thread before
+    :meth:`save` returns (a synchronous copy into memory of its own, so
+    the parameters the next ``optimizer.step()`` updates in place are
+    saved as they were at ``save``); the file is written on a daemon
+    thread through :func:`save_checkpoint` (atomic ``os.replace``), so
+    training does not block on IO. :meth:`wait` joins the write in flight;
+    a new save waits for the previous one first."""
+
+    def __init__(self):
+        self._thread = None
+
+    def save(self, obj: dict, path: str):
+        import threading
+
+        self.wait()
+        host_obj = _to_host(obj, copy=True)
+        self._thread = threading.Thread(
+            target=save_checkpoint, args=(host_obj, path), daemon=True
+        )
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
 
 
 # the JAX stack's packages, whose classes a checkpoint of the JAX package

@@ -174,14 +174,15 @@ def _with_missing(kind: str) -> str:
     return {"int": "float", "bool": "object"}.get(kind, kind)
 
 
-def read_table(path: str) -> dict:
-    """A CSV with a header row as {name: :class:`Column`}, in file
-    order."""
+def read_table(path: str, columns=None) -> dict:
+    """A CSV with a header row as {name: :class:`Column`}, in file order;
+    only the columns named in ``columns``, where given (the others are not
+    typed)."""
     with open(path, "r", newline="", encoding="utf-8") as f:
         rows = list(csv.reader(f))
-    names = rows[0]
-    cols = list(zip(*rows[1:])) if len(rows) > 1 else [()] * len(names)
-    return {n: Column.parse(list(c)) for n, c in zip(names, cols)}
+    return {n: Column.parse([r[i] for r in rows[1:]])
+            for i, n in enumerate(rows[0])
+            if columns is None or n in columns}
 
 
 def read_catalog(path: str) -> dict:

@@ -265,7 +265,9 @@ Phases (any failure raises and the script exits non-zero):
 48. ``metric_tables``: all 14 registered metric functions (24 CSVs) over
     the million samples against the grid through the native counters
     (wall, peak RSS), then at TABLES_CHECK_ROWS rows the same CSVs
-    byte-equal through the numpy branches;
+    byte-equal through the numpy branches (those in a process of their
+    own, beside the million's tables: host work off the smoke's longest
+    path);
 49. ``compare_samples`` of phase 42's and phase 45's samples (two report
     JSONs, the aggregate CSV's two rows); whether matplotlib and click are
     installed; with matplotlib, its plots, ``plot_overview`` and
@@ -369,18 +371,49 @@ Phases (any failure raises and the script exits non-zero):
     one-rank NCCL mesh against their single-device calls: the trainer's
     train columns within MESH_ENTRY_RTOL, the samples' ids equal, the NLL
     and the loss within MESH_ENTRY_RTOL, the engine's ids equal.
+64. (in phases 57-60's process, after phase 60, beside the build: the
+    schedule process is the smoke's longest path) VISTA cleaning at the real
+    survey's population: a seeded raw stops table in VISTA's columns
+    (``vista_raw_tables``: VISTA_RAW_PERSONS persons, every cleaning rule
+    dropping or changing some), written with ``csv``; ``clean_vista_csv``
+    with the persons table (the cleaned CSV's sha256 equal to
+    VISTA_CLEAN_SHA256, the JAX package's output, and at least
+    VISTA_KEPT_MIN persons kept; the persons each rule drops or changes,
+    by the generator's kinds and traits, printed and checked),
+    ``sample_population`` at VISTA_FRACS, ``prepare_from_csv`` on the
+    288-bin grid and ``sample_coverage_table`` over the nine samples, each
+    step's wall;
+65. (the same process) ``load_mock_data`` and ``analyze_transitions``
+    (their digests equal to MOCK_DATA_SHA256 and TRANSITIONS_SHA256, the
+    JAX package's) and the mock-data and coverage plots where matplotlib
+    is installed (a line saying they did not run where it is not);
+66. (last) the profiling layer on the kernel paths: ``throughput`` of the
+    rung-1 rollout (K1) alternated with CUDA events (within
+    THROUGHPUT_RTOL of the events' best), ``trace`` of one rollout (the
+    Chrome trace holds K1's 47 launches), ``debug_nan_mode`` raising on
+    ``torch.log(-1)``, on a NaN gradient and on K0's output for a state
+    with one NaN, rung 2's fixed step off, off and under the mode from one
+    state with the same bits (walls, the mode's overhead) inside
+    ``PhaseTimes`` and logged by ``JsonlLogger``, and an
+    ``AsyncCheckpointer`` save of the trainer's parameters and AdamW
+    moments with the next step launched before ``wait()``: the file holds
+    the state at save, bit for bit.
 
 ``python3 chip_smoke.py --parallel`` runs phase 1, builds the kernels and
 runs phases 63 (on inputs of its own at PARALLEL_PERSONS persons), 61 and
 62 only.
 
-``python3 chip_smoke.py --schedule`` runs phase 1 and phases 39-60 and 63
-only, with no CUDA kernel build (their path launches no hand-written kernel):
-57-60 in their own process after 39-55, so that each set's walls and busy
-shares are read with the card and the host to itself (in the whole smoke
-57-60 run beside 39-55 and the build, and both sets' walls and busy
-shares are read on a shared card and host); ``--trajectory-ode`` phase 1
-and phases 57-60 alone.
+``python3 chip_smoke.py --host-tools`` runs phase 1, builds the kernels
+and runs phases 64-66 only.
+
+``python3 chip_smoke.py --schedule`` runs phase 1 and phases 39-60 and
+63-65 only, with no CUDA kernel build (their path launches no
+hand-written kernel): 57-60 and 64-65 in their own process after 39-55
+and 63, so that each set's walls and busy shares are read with the card
+and the host to itself (in the whole smoke that process runs beside
+39-55 and the build, and both sets' walls and busy shares are read on a
+shared card and host); ``--trajectory-ode`` phase 1 and phases 57-60 and
+64-65 alone.
 ``python3 chip_smoke.py --readings`` runs phases 1-2 and then only the
 training kernels' checks of phase 10, at DAY_SHAPES and DEPTH_SHAPES for 3
 seeds with the control everywhere, printing the readings the bounds were
@@ -482,7 +515,10 @@ import concurrent.futures
 import contextlib
 import csv
 import dataclasses
+import hashlib
+import io
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -781,14 +817,18 @@ def main():
                         "variant of DIR's sources)")
     parser.add_argument("--schedule", action="store_true",
                         help="run phase 1 and the host and schedule phases "
-                        "39-60 and 63 only (no CUDA kernel build)")
+                        "39-60 and 63-65 only (no CUDA kernel build)")
     parser.add_argument("--trajectory-ode", action="store_true",
-                        help="run phase 1 and the trajectory-ODE phases "
-                        "57-60 only (no CUDA kernel build); the smoke and "
-                        "--schedule run them so, in a process of their "
-                        "own beside phases 39-55")
+                        help="run phase 1, the trajectory-ODE phases 57-60 "
+                        "and the host-tool phases 64-65 only (no CUDA "
+                        "kernel build); the smoke and --schedule run them "
+                        "so, in a process of their own beside phases "
+                        "39-55")
     parser.add_argument("--parallel", action="store_true",
                         help="run phase 1 and the mesh phases 61-63 only")
+    parser.add_argument("--host-tools", action="store_true",
+                        help="run phase 1, the build and the host-tool and "
+                        "profiling phases 64-66 only")
     parser.add_argument("--parallel-rank", nargs=2, metavar=("RANK", "DIR"),
                         help=argparse.SUPPRESS)
     parser.add_argument("--ab-gat", metavar="DIR", nargs="+",
@@ -846,11 +886,41 @@ def main():
         # them off the cores of the process and the build beside them
         torch.set_num_threads(1)
         trajectory_ode_phases(dev, card, OUT, {})
+        # the host tools' phases, host work with slack in this process
+        root = OUT / "host_tools"
+        if root.exists():
+            shutil.rmtree(root)
+        host_tool_phases(card, root, {})
         return
     if args.schedule:
         # one set after the other: the readings of each alone on the card
         schedule_phases(dev, card)
         finish_trajectory_ode(start_trajectory_ode())
+        return
+    if args.host_tools:
+        # phases 64-65 beside the build of the libraries phase 66 launches
+        t0 = time.perf_counter()
+        root = OUT / "host_tools"
+        if root.exists():
+            shutil.rmtree(root)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            building = pool.submit(_build.build_all, HOST_TOOLS_LIBS)
+            host_tool_phases(card, root, {})
+            built = building.result()
+        for name in built:
+            _build.load_library(name)
+        print(f"build: {len(built)} libraries, "
+              f"{time.perf_counter() - t0:.1f} s since it started",
+              flush=True)
+        profiling_phase(dev, card, rung1_setup(dev), None)
+        print(f"--host-tools: phases 1, 64-66 in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
         return
     if args.parallel:
         t0 = time.perf_counter()
@@ -1130,7 +1200,8 @@ def main():
     gatode_cli_phase(card)
     mesh_phases(dev, card, rung1=(served_model, graph, agents))
     two_rank_phase(dev, card)
-    print(f"smoke: phases 1-63 in {time.perf_counter() - t_start:.1f} s, "
+    profiling_phase(dev, card, (served_model, graph, agents), k1_rate)
+    print(f"smoke: phases 1-66 in {time.perf_counter() - t_start:.1f} s, "
           f"the build included", flush=True)
 
     print(card)
@@ -5704,6 +5775,21 @@ def native_checks(label, Y, ns):
     return walls
 
 
+def numpy_tables(grid, grid_meta, samples_dir, out):
+    """``metric_tables`` through the host counters' numpy branches (phase
+    48, in a process of its own): (metrics run, {CSV: bytes}, wall)."""
+    from ananke_abm_tpu_torch.models.gen_schedule.compare.tables import (
+        metric_tables,
+    )
+
+    with numpy_branch():
+        t0 = time.perf_counter()
+        ran = metric_tables(grid, grid_meta, samples_dir, out)
+        wall = time.perf_counter() - t0
+    return len(ran), {f: (Path(out) / f).read_bytes()
+                      for f in sorted(os.listdir(out))}, wall
+
+
 def cli_run(argv, timeout=900):
     """``python -m ananke_abm_tpu_torch.cli.rgen_schedule *argv`` from the
     checkout's root on the card (no ANANKE_PLATFORM): (process, wall)."""
@@ -5816,15 +5902,23 @@ def comparison_phases(card, root, grid, csv_path, walls):
                  f"CSVs")
         return csvs, wall
 
-    _, wall = tables("full", "full")
-    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
-    print(f"metric_tables: {TABLES_FUNCS} metric functions, {TABLES_CSVS} "
-          f"CSVs, {len(Y_gen)} samples against the grid's {len(Y_grid)} "
-          f"rows x {Y_grid.shape[1]} bins, native counters, in {wall:.3f} s "
-          f"(host); the process's peak RSS so far {rss:.2f} GB", flush=True)
-    native_csvs, t_native = tables("cut", "cut_native")
-    with numpy_branch():
-        numpy_csvs, t_numpy = tables("cut", "cut_numpy")
+    spawn = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        numpy_run = pool.submit(numpy_tables, grid, grid_meta,
+                                str(compare_dirs["cut"]),
+                                str(root / "tables" / "cut_numpy"))
+        _, wall = tables("full", "full")
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+        print(f"metric_tables: {TABLES_FUNCS} metric functions, "
+              f"{TABLES_CSVS} CSVs, {len(Y_gen)} samples against the grid's "
+              f"{len(Y_grid)} rows x {Y_grid.shape[1]} bins, native "
+              f"counters, in {wall:.3f} s (host); the process's peak RSS so "
+              f"far {rss:.2f} GB", flush=True)
+        native_csvs, t_native = tables("cut", "cut_native")
+        ran, numpy_csvs, t_numpy = numpy_run.result()
+    if ran != TABLES_FUNCS or len(numpy_csvs) != TABLES_CSVS:
+        fail(f"metric_tables cut_numpy: {ran} metrics, {len(numpy_csvs)} "
+             f"CSVs")
     differ = [f for f in native_csvs if native_csvs[f] != numpy_csvs[f]]
     if differ or list(native_csvs) != list(numpy_csvs):
         fail(f"metric_tables at {TABLES_CHECK_ROWS} rows: CSVs differ "
@@ -5832,7 +5926,8 @@ def comparison_phases(card, root, grid, csv_path, walls):
     walls[48] = time.perf_counter() - t_phase
     print(f"metric_tables at {TABLES_CHECK_ROWS} rows: the {TABLES_CSVS} "
           f"CSVs byte-equal between the native counters ({t_native:.3f} s) "
-          f"and the numpy branches ({t_numpy:.3f} s)", flush=True)
+          f"and the numpy branches ({t_numpy:.3f} s, in a process of their "
+          f"own beside the million's tables)", flush=True)
 
     # ---- 49. compare_samples, plot_overview, visualize ----------------------
     t_phase = time.perf_counter()
@@ -6709,8 +6804,8 @@ def describe_readings(r):
 
 
 def start_trajectory_ode():
-    """Start phases 57-60 (``--trajectory-ode``) in a process of their own:
-    their eager loops are host dispatch on one core, which runs beside the
+    """Start phases 57-60 and 64-65 (``--trajectory-ode``) in a process of
+    their own: their eager loops and host work run on one core, beside the
     schedule phases' process and the build. Its output goes to a log that
     :func:`finish_trajectory_ode` prints; the process is killed if this one
     exits first."""
@@ -6733,8 +6828,8 @@ def start_trajectory_ode():
 
 
 def finish_trajectory_ode(handle, timeout=TRAJECTORY_ODE_TIMEOUT):
-    """Wait for phases 57-60's process, print its output, fail if it
-    failed."""
+    """Wait for phases 57-60 and 64-65's process, print its output, fail
+    if it failed."""
     proc, f, log, t0, stop = handle
     try:
         rc = proc.wait(timeout=timeout)
@@ -6746,9 +6841,9 @@ def finish_trajectory_ode(handle, timeout=TRAJECTORY_ODE_TIMEOUT):
     text = log.read_text()
     print(text, end="" if text.endswith("\n") else "\n", flush=True)
     if rc != 0:
-        fail(f"phases 57-60 (python3 chip_smoke.py --trajectory-ode) "
+        fail(f"phases 57-60, 64-65 (python3 chip_smoke.py --trajectory-ode) "
              f"exited {rc} after {time.perf_counter() - t0:.1f} s")
-    print(f"phases 57-60 in their own process: "
+    print(f"phases 57-60, 64-65 in their own process: "
           f"{time.perf_counter() - t0:.1f} s from its start", flush=True)
 
 
@@ -7174,7 +7269,7 @@ def mesh_phases(dev, card, rung1=None):
 
 def rung1_setup(dev):
     """(model, graph, agents) of phase 4's rollout at rung 1, for
-    ``--parallel``."""
+    ``--parallel`` and ``--host-tools``."""
     from ananke_abm_tpu_torch.data_generator import generate_agent_population
     from ananke_abm_tpu_torch.models.gnn_embed.train import (
         GATODEConfig,
@@ -7485,6 +7580,624 @@ def mesh_entry_phase(dev, card, files):
     bad = [k for k, v in checks.items() if not v]
     if bad:
         fail(f"phase 63: {bad} differ from the single-device calls")
+
+
+
+# ---- the host tools and the profiling layer (phases 64-66) -----------------
+
+# phase 64: a seeded raw VISTA stops table in VISTA's raw columns, sized so
+# that at least VISTA_KEPT_MIN persons survive cleaning (the real survey's
+# population, SURVEY.md), with persons of every kind that one of the 14
+# cleaning rules drops or changes
+VISTA_RAW_PERSONS = 64_000
+VISTA_SEED = 0
+VISTA_KEPT_MIN = 42_817
+VISTA_FRACS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9)
+# sha256 of the activities CSV that the JAX package's pandas cleaning
+# writes from vista_raw_tables(VISTA_RAW_PERSONS, VISTA_SEED)
+# (tests/test_torch_host_tools.py derives it)
+VISTA_CLEAN_SHA256 = (
+    "86347cfe9a99b72cdc58144025e04555d542a55d831fa34cc5bc054d2d2264a4")
+VISTA_STOP_COLS = ("persid", "hhid", "stopno", "origplace1", "destplace1",
+                   "destpurp1", "startime", "arrtime", "duration",
+                   "travtime", "wdstopwgt_sa3")
+VISTA_PERSON_COLS = ("persid", "hhid", "age", "sex", "persinc", "nolicence",
+                     "fulltimework", "parttimework", "casualwork", "anywork",
+                     "studying", "worktype", "homesa1")
+VISTA_PLACES = ("Workplace", "Shops", "School", "Someplace", "Station")
+VISTA_PURPOSES = ("Work Related", "Education", "Buy Something",
+                  "Personal Business", "Pick-up or Deliver Something",
+                  "Social", "Recreational", "Pick-up or Drop-off Someone",
+                  "Accompany Someone", "Other Purpose", "Not Stated",
+                  "Unknown Purpose", "At or Go Home")
+# (kind, share, the cleaning rules that act on it): the kept persons, then
+# one kind for each way a person drops out
+VISTA_KINDS = (
+    ("kept", 0.72, ()),
+    ("unweighted", 0.02, (1,)),          # every stop without a weight
+    ("row_unweighted", 0.02, (1, 5)),    # the last stop without one,
+                                         # the one before it not Home
+    ("from_stop2", 0.02, (2,)),          # no stopno 1
+    ("away_start", 0.02, (3,)),          # the first origin not home
+    ("away_end", 0.02, (3,)),            # the last destination not home
+    ("ends_away", 0.02, (5,)),           # the last stop not Home
+    ("one_stop", 0.02, (5,)),            # a single stop
+    ("negative", 0.02, (6, 9)),          # a negative duration
+    ("no_arrival", 0.02, (6, 9)),        # arrtime and duration missing
+    ("no_travel", 0.02, (7, 9)),         # travtime missing
+    ("gap", 0.02, (9,)),                 # the day does not tile 1440
+    ("home_all_day", 0.02, (13,)),       # one 1440-minute Home row
+    ("ends_zero", 0.02, (13, 14)),       # the 1440-minute Home row goes
+    ("away_all_day", 0.02, (13, 14)),    # the 1440-minute Work row goes
+)
+# (trait, share, the cleaning rule that folds or changes it, None for a
+# trap that no rule drops): the kept persons' traits, a Change Mode stop,
+# two stops of one purpose, a purpose outside the groups or missing, the
+# first origin missing (first skips it), a day starting at 0, a gap in
+# stopno, hhid missing on the first stop, and (where asked) the last
+# stop's startime missing
+VISTA_TRAITS = (("transit", 0.15, 11), ("twice", 0.10, 12),
+                ("unknown", 0.03, 4), ("orig_missing", 0.02, 3),
+                ("start_zero", 0.02, 8), ("stopno_gap", 0.05, 10),
+                ("hhid_missing", 0.02, None),
+                ("startime_missing", 0.02, None))
+
+
+def vista_raw_tables(n_persons, seed, startime_missing=False):
+    """(stops, persons, labels): a raw VISTA stops table and its persons
+    table as {column: list} (None where missing), rows shuffled, made from
+    ``seed``. Persons are kinds of VISTA_KINDS; the kept ones carry
+    VISTA_TRAITS (a missing last startime only with ``startime_missing``,
+    which leaves float startimes in the cleaned table). persids are
+    unpadded (``Y12P1`` sorts before ``Y2P1``). ``labels``: each person's
+    ``persid``, ``kind`` and ``traits`` (a bool row over VISTA_TRAITS, set
+    where the trait was applied), for :func:`vista_rule_report`."""
+    rng = np.random.default_rng(seed)
+    names, shares, _ = zip(*VISTA_KINDS)
+    kinds = rng.choice(len(names), n_persons,
+                       p=np.array(shares) / sum(shares))
+    n_stops = rng.integers(2, 7, n_persons)
+    traits = rng.random((n_persons, len(VISTA_TRAITS))) < np.array(
+        [p for _, p, _ in VISTA_TRAITS])
+    applied = np.zeros_like(traits)
+    draws = rng.integers(0, 1 << 30, (n_persons, 8, 4))
+    weights = np.round(rng.uniform(10.0, 400.0, (n_persons, 8)), 2)
+    stops = {c: [] for c in VISTA_STOP_COLS}
+    persons = {c: [] for c in VISTA_PERSON_COLS}
+    for i in range(n_persons):
+        kind = names[kinds[i]]
+        trait = dict(zip((t for t, _, _ in VISTA_TRAITS), traits[i]
+                         if kind == "kept" else [False] * len(VISTA_TRAITS)))
+        used = {"hhid_missing", "orig_missing", "start_zero"}
+        pid, hh = f"Y{i // 3}P{i % 3 + 1}", f"Y{i // 3}"
+        d = draws[i]
+        rows = []  # (purpose, orig, dest, start, arr, duration, travel)
+        if kind in ("home_all_day", "ends_zero", "away_all_day"):
+            first = {"home_all_day": "At or Go Home", "ends_zero": "Social",
+                     "away_all_day": "Work Related"}[kind]
+            end = 1440 if kind == "away_all_day" else 0
+            rows = [(first, "Accommodation", "Someplace", 0, 0, end, 0),
+                    ("At or Go Home", "Someplace", "Accommodation", end, end,
+                     None, 0)]
+        else:
+            k = 1 if kind == "one_stop" else max(int(n_stops[i]), 3) \
+                if kind in ("negative", "no_arrival", "no_travel", "gap") \
+                else int(n_stops[i])
+            s = 0 if trait["start_zero"] else 300 + int(d[0, 3]) % 241
+            orig = "Accommodation"
+            for j in range(k):
+                trav = 5 + int(d[j, 0]) % 36
+                last = j == k - 1
+                purp = "At or Go Home" if last else VISTA_PURPOSES[
+                    int(d[j, 2]) % len(VISTA_PURPOSES)]
+                dest = "Accommodation" if last or purp == "At or Go Home" \
+                    else VISTA_PLACES[int(d[j, 3]) % len(VISTA_PLACES)]
+                dur = None if last else 20 + int(d[j, 1]) % 101
+                rows.append([purp, orig, dest, s, s + trav, dur, trav])
+                if not last:
+                    s += trav + dur
+                orig = dest
+            mid = 1 + int(d[7, 0]) % (k - 2) if k > 2 else 0
+            if trait["transit"] and k > 2:
+                rows[mid][0] = "Change Mode"
+                used.add("transit")
+            if trait["twice"] and k > 3:
+                rows[mid + 1][0] = rows[mid][0] = "Work Related"
+                used.add("twice")
+            if trait["unknown"] and k > 2:
+                rows[mid][0] = None if d[7, 1] % 2 else "Mystery Purpose"
+                used.add("unknown")
+            if trait["startime_missing"] and startime_missing:
+                rows[-1][3] = None
+                used.add("startime_missing")
+            if len(rows) > 2:
+                used.add("stopno_gap")
+            if kind == "row_unweighted":  # home-bound and not Home
+                rows[-2][0], rows[-2][2] = "Social", "Accommodation"
+            if kind == "ends_away":
+                rows[-1][0] = "Social"
+            if kind == "away_end":
+                rows[-1][2] = "Shops"
+            if kind == "away_start":
+                rows[0][1] = "Workplace"
+            if kind == "negative":
+                rows[mid][5] = -5
+            if kind == "no_arrival":
+                rows[mid][4] = rows[mid][5] = None
+            if kind == "no_travel":
+                rows[mid][6] = None
+            if kind == "gap":
+                rows[mid][5] += 10
+        first_no = 2 if kind == "from_stop2" else 1
+        for j, (purp, orig, dest, start, arr, dur, trav) in enumerate(rows):
+            no = first_no + j + (j >= 2 and trait["stopno_gap"])
+            weighted = not (kind == "unweighted" or kind == "row_unweighted"
+                            and j == len(rows) - 1)
+            values = (pid, None if trait["hhid_missing"] and j == 0 else hh,
+                      no, None if trait["orig_missing"] and j == 0 else orig,
+                      dest, purp, start, arr, dur, trav,
+                      float(weights[i, j]) if weighted else None)
+            if trait["orig_missing"] and j == 1:
+                values = values[:3] + ("Accommodation",) + values[4:]
+            for c, v in zip(VISTA_STOP_COLS, values):
+                stops[c].append(v)
+        applied[i] = [trait[t] and t in used for t, _, _ in VISTA_TRAITS]
+        work = ("Yes", "No")[int(d[6, 0]) % 2]
+        for c, v in zip(VISTA_PERSON_COLS, (
+                pid, hh, int(d[6, 1]) % 91, ("M", "F")[int(d[6, 2]) % 2],
+                None if d[6, 3] % 10 == 0 else float(d[6, 3] % 3000) + 0.5,
+                ("Yes", "No")[int(d[5, 0]) % 2], work, "No", "No", work,
+                ("No Study", "Full-time", "Part-time")[int(d[5, 1]) % 3],
+                None if work == "No" else ("Public", "Private")[
+                    int(d[5, 2]) % 2], f"SA{int(d[5, 3]) % 500}")):
+            persons[c].append(v)
+    order = rng.permutation(len(stops["persid"]))
+    stops = {c: [v[r] for r in order] for c, v in stops.items()}
+    labels = {"persid": np.array(persons["persid"]),
+              "kind": np.array(names)[kinds], "traits": applied}
+    return stops, persons, labels
+
+
+def vista_rule_report(labels, kept):
+    """How the persons of :func:`vista_raw_tables` fared in the cleaning
+    that kept the persids ``kept``, rule by rule: (rows, faults). A row
+    ``(rule, what, made, left)`` counts the persons of a kind that the rule
+    drops (none may be left) or of a trait that it folds or changes (some
+    must be left, so the rule acted on persons that stay). A fault is a
+    kind with persons left, a trait with none, or one of the 14 rules that
+    no kind or trait reaches."""
+    left = np.isin(labels["persid"], np.array(sorted(set(kept)), dtype=str))
+    rows, faults = [], []
+    for name, _, rules in VISTA_KINDS:
+        of = labels["kind"] == name
+        made, stay = int(of.sum()), int((of & left).sum())
+        rows += [(r, f"drops kind {name}", made, stay) for r in rules]
+        if rules and (made == 0 or stay):
+            faults.append(f"kind {name}: {stay} of {made} persons left")
+    for j, (name, _, rule) in enumerate(VISTA_TRAITS):
+        of = labels["traits"][:, j]
+        made, stay = int(of.sum()), int((of & left).sum())
+        if rule is not None:
+            rows.append((rule, f"folds or changes trait {name}", made, stay))
+            if stay == 0:
+                faults.append(f"trait {name}: none of {made} persons left")
+    reached = {r for r, *_ in rows}
+    if reached != set(range(1, 15)):
+        faults.append(f"rules {sorted(set(range(1, 15)) - reached)} reach "
+                      "no person")
+    return sorted(rows), faults
+
+
+def write_raw_csv(table, path):
+    """{column: list} with the ``csv`` module: None as an empty cell,
+    floats by their repr."""
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(list(table))
+        w.writerows(zip(*([("" if v is None else repr(v)
+                            if isinstance(v, float) else str(v)) for v in col]
+                          for col in table.values())))
+
+
+
+# phase 65: the mock-data tools' outputs, digested (mock_data_digest); a CPU
+# test (tests/test_torch_host_tools.py) takes both from the JAX package
+MOCK_DATA_SHA256 = (
+    "3852d583a2203a7e20139f9c340847150c03cf32f25ebcf25d030b1d5ed1e686")
+TRANSITIONS_SHA256 = (
+    "ba2d44336614f27b76fa03b59c182b4cc2b3d550e601f988804ed038280bd94e")
+
+
+def mock_data_digest(data):
+    """sha256 of ``load_mock_data``'s output in either package's form:
+    the people and zones tables column by column as Python values (a
+    pandas frame or {column: array}), every array's dtype, shape and
+    bytes, the zone names and the trajectories in their order."""
+    h = hashlib.sha256()
+
+    def array(a):
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype.str}{a.shape}".encode() + a.tobytes())
+
+    for key, value in data.items():
+        h.update(key.encode())
+        if key in ("people", "zones"):
+            for c in value:
+                h.update(repr((c, value[c].tolist())).encode())
+        elif key == "trajectories":
+            for pid, tl in value.items():
+                h.update(repr(pid).encode())
+                for k, v in tl.items():
+                    h.update(k.encode())
+                    if isinstance(v, np.ndarray):
+                        array(v)
+                    else:
+                        h.update(repr(v).encode())
+        elif key == "zone_names":
+            h.update(repr(list(value)).encode())
+        else:
+            array(value)
+    return h.hexdigest()
+
+
+def host_tool_phases(card, root, walls):
+    """Phases 64-65: VISTA cleaning at the real survey's population, the
+    fraction samples, their grid and their sequence coverage; the
+    mock-data tools. No hand-written kernel: host work beside the build.
+    Every phase raises on failure."""
+    from ananke_abm_tpu_torch.data_generator.analyze_transitions import (
+        analyze_transitions,
+    )
+    from ananke_abm_tpu_torch.data_generator.load_data import load_mock_data
+    from ananke_abm_tpu_torch.dataio.rasterize import prepare_from_csv
+    from ananke_abm_tpu_torch.dataio.vista import (
+        clean_vista_csv,
+        read_csv,
+        sample_population,
+        write_csv,
+    )
+    from ananke_abm_tpu_torch.utils.sample_coverage import (
+        plot_sample_coverage,
+        sample_coverage_table,
+    )
+
+    # ---- 64. VISTA at its real size ----------------------------------------
+    t_phase = time.perf_counter()
+    d = root / "vista"
+    d.mkdir(parents=True, exist_ok=True)
+    wall = {}
+    t0 = time.perf_counter()
+    stops, persons, labels = vista_raw_tables(VISTA_RAW_PERSONS, VISTA_SEED)
+    wall["generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_raw_csv(stops, str(d / "stops.csv"))
+    write_raw_csv(persons, str(d / "persons.csv"))
+    wall["write raw CSVs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    acts = clean_vista_csv(str(d / "stops.csv"), str(d / "activities.csv"),
+                           str(d / "persons.csv"),
+                           str(d / "persons_clean.csv"))
+    wall["clean_vista_csv"] = time.perf_counter() - t0
+    digest = hashlib.sha256((d / "activities.csv").read_bytes()).hexdigest()
+    kept = len(set(acts["persid"].tolist()))
+    rows = len(stops["persid"])
+    print(f"phase 64 VISTA: {VISTA_RAW_PERSONS} raw persons, {rows} stops "
+          f"-> {kept} persons, {len(acts['persid'])} activities kept (>= "
+          f"{VISTA_KEPT_MIN}); cleaned CSV sha256 {digest[:16]}... "
+          f"({'equal to' if digest == VISTA_CLEAN_SHA256 else 'NOT'} the "
+          f"JAX package's)", flush=True)
+    report, faults = vista_rule_report(labels, acts["persid"].tolist())
+    for rule, what, made, left in report:
+        print(f"  rule {rule:2d} {what}: {made} persons made, {left} left",
+              flush=True)
+    if digest != VISTA_CLEAN_SHA256 or kept < VISTA_KEPT_MIN:
+        fail("phase 64: the cleaned VISTA CSV differs from the JAX "
+             "package's, or too few persons were kept")
+    if faults:
+        fail(f"phase 64: a cleaning rule acted on no person: {faults}")
+    t0 = time.perf_counter()
+    people = read_csv(str(d / "persons_clean.csv"))
+    if len(people["persid"]) != kept:
+        fail(f"phase 64: {len(people['persid'])} persons in the persons "
+             f"subset for {kept} kept")
+    samples = []
+    for frac in VISTA_FRACS:
+        sp, sa = sample_population(people, acts, frac)
+        if len(sp["persid"]) != round(frac * kept) or \
+                set(sa["persid"].tolist()) != set(sp["persid"].tolist()):
+            fail(f"phase 64: the sample at {frac} holds other persons")
+        path = d / f"activities_{frac}.csv"
+        write_csv(sa, str(path))
+        samples.append((frac, str(path)))
+    wall["sample_population x9"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, meta = prepare_from_csv(str(d / "activities.csv"),
+                               str(d / "grid.npz"), grid_min=SCHED_GRID_MIN)
+    wall["prepare_from_csv"] = time.perf_counter() - t0
+    if (meta["N"], meta["L"]) != (kept, 1440 // SCHED_GRID_MIN):
+        fail(f"phase 64: grid N={meta['N']} L={meta['L']}")
+    t0 = time.perf_counter()
+    table = sample_coverage_table(str(d / "activities.csv"), samples,
+                                  out_csv=str(d / "coverage.csv"))
+    wall["sample_coverage_table"] = time.perf_counter() - t0
+    cov = table["sampled_sequence_coverage"]
+    if len(cov) != len(VISTA_FRACS) + 2 or not np.all(np.diff(cov) >= 0) \
+            or not np.all(np.diff(table["sampled_unique_sequences"]) >= 0):
+        fail(f"phase 64: coverage not rising with the sample rate: {table}")
+    walls[64] = time.perf_counter() - t_phase
+    print("phase 64 coverage (rate: unique sequences, person-days): "
+          + ", ".join(f"{r:.1f}: {u:.4f}, {c:.4f}" for r, u, c in zip(
+              *table.values())), flush=True)
+    print("phase 64 walls (host clock): " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in wall.items())
+        + f"; {walls[64]:.1f} s in all; grid {meta['N']} x {meta['L']} "
+        f"[card {card}]", flush=True)
+
+    # ---- 65. the mock-data tools --------------------------------------------
+    t_phase = time.perf_counter()
+    data_digest = mock_data_digest(load_mock_data())
+    with contextlib.redirect_stdout(io.StringIO()):
+        result = analyze_transitions()
+    trans_digest = hashlib.sha256(repr(result).encode()).hexdigest()
+    print(f"phase 65 load_mock_data sha256 {data_digest[:16]}..., "
+          f"analyze_transitions sha256 {trans_digest[:16]}... (their "
+          f"{len(result['purpose_transitions'])} purpose and "
+          f"{len(result['mode_transitions'])} mode transitions, "
+          f"{len(result['forbidden'])} forbidden)", flush=True)
+    if (data_digest, trans_digest) != (MOCK_DATA_SHA256, TRANSITIONS_SHA256):
+        fail("phase 65: the mock-data tools differ from the JAX package's")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print("phase 65 plots: not run (no matplotlib on this machine): "
+              "plot_zone_graph, plot_persona_trajectories, "
+              "plot_sample_coverage", flush=True)
+    else:
+        from ananke_abm_tpu_torch.data_generator.data_visualization import (
+            plot_persona_trajectories,
+            plot_zone_graph,
+        )
+
+        outs = [plot_zone_graph(str(root / "mock" / "zones.png")),
+                *plot_persona_trajectories(str(root / "mock"))]
+        plot_sample_coverage(table, str(d / "coverage.png"))
+        outs.append(str(d / "coverage.png"))
+        if not all(os.path.getsize(o) > 0 for o in outs):
+            fail("phase 65: a plot was not written")
+        print(f"phase 65 plots: {', '.join(Path(o).name for o in outs)}",
+              flush=True)
+    walls[65] = time.perf_counter() - t_phase
+
+
+# phase 66: throughput against CUDA events around rung 1's rollout
+THROUGHPUT_RTOL = 0.05
+# the kernel libraries phase 66 launches (K0, K1, K2f; K2b, K3f, K3b; K4f,
+# K4b): what --host-tools builds
+HOST_TOOLS_LIBS = ("fused_step", "fused_train", "fused_gat")
+
+
+def chrome_kernels(trace_dir, name):
+    """(launches of kernels whose name holds ``name``, the distinct names)
+    in the newest Chrome trace of ``trace_dir``."""
+    newest = max(Path(trace_dir).glob("*.json"), key=os.path.getmtime)
+    with open(newest) as f:
+        events = json.load(f)["traceEvents"]
+    hits = [e["name"] for e in events
+            if e.get("cat") == "kernel" and name in e.get("name", "")]
+    return len(hits), sorted(set(hits))
+
+
+def profiling_phase(dev, card, rung1, k1_rate):
+    """Phase 66: the profiling layer and the asynchronous checkpoint on the
+    kernel paths. Raises on failure."""
+    import copy
+
+    from ananke_abm_tpu_torch.models.gnn_embed.rollout import (
+        make_decoded_rollout,
+    )
+    from ananke_abm_tpu_torch.models.gnn_embed.train import (
+        GATODEConfig,
+        make_fused_train_step,
+    )
+    from ananke_abm_tpu_torch.ops.cuda import fused_gat as fg
+    from ananke_abm_tpu_torch.ops.cuda import fused_train as ft
+    from ananke_abm_tpu_torch.ops.cuda.fused_step import (
+        rk4_interval_decode_fused,
+        rk4_step_fused,
+    )
+    from ananke_abm_tpu_torch.utils.ckpt import (
+        AsyncCheckpointer,
+        load_checkpoint,
+    )
+    from ananke_abm_tpu_torch.utils.profiling import (
+        JsonlLogger,
+        PhaseTimes,
+        debug_nan_mode,
+        throughput,
+        trace,
+    )
+
+    t_phase = time.perf_counter()
+    d = OUT / "profiling"
+    if d.exists():
+        shutil.rmtree(d)
+    d.mkdir(parents=True)
+    model, graph, agents = rung1
+    rollout = make_decoded_rollout(model, GATODEConfig(), *graph,
+                                   use_kernel=True)
+
+    # throughput against CUDA events, alternated
+    events, rates = [], []
+    with torch.inference_mode():
+        rollout(*agents)
+        for kind in ("events", "throughput", "events", "throughput"):
+            if kind == "events":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                rollout(*agents)
+                end.record()
+                torch.cuda.synchronize()
+                events.append(start.elapsed_time(end) / 1e3)
+            else:
+                rates.append(throughput(rollout, *agents, items=N_AGENTS,
+                                        iters=3, warmup=1))
+    ev_rate = N_AGENTS / min(events)
+    tp_rate = max(r["items_per_s"] for r in rates)
+    per_call = ", ".join(f"{r['ms_per_call']:.3f}" for r in rates)
+    print(f"phase 66 throughput() of the rung-1 rollout (K1, {N_AGENTS} "
+          f"agents x {NUM_TIMES} times): "
+          + ", ".join(f"{r['items_per_s']:.0f}" for r in rates)
+          + f" agents/s ({per_call} ms a call); "
+          f"CUDA events {', '.join(f'{N_AGENTS / e:.0f}' for e in events)} "
+          f"agents/s; best {tp_rate:.0f} against {ev_rate:.0f} (rel "
+          f"{tp_rate / ev_rate - 1:+.4f}, within {THROUGHPUT_RTOL}); phase "
+          f"5's rollout "
+          + (f"{k1_rate:.0f} agents/s" if k1_rate else "not run")
+          + f" [card {card}]", flush=True)
+    if abs(tp_rate / ev_rate - 1) > THROUGHPUT_RTOL:
+        fail("phase 66: throughput() differs from the CUDA events' timing")
+
+    # trace around one rollout
+    rk4_interval_decode_fused.launches = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode(), trace(str(d / "trace")):
+        rollout(*agents)
+    t_trace = time.perf_counter() - t0
+    launched = rk4_interval_decode_fused.launches
+    n_k1, names = chrome_kernels(d / "trace", "interval_kernel")
+    print(f"phase 66 trace() of one rung-1 rollout: {n_k1} K1 launches in "
+          f"the Chrome trace ({names}), {launched} counted by the wrapper; "
+          f"{t_trace:.3f} s with the trace's export [card {card}]",
+          flush=True)
+    if not n_k1 == launched == NUM_TIMES - 1:
+        fail(f"phase 66: the trace holds {n_k1} K1 launches, the wrapper "
+             f"counted {launched}, the rollout makes {NUM_TIMES - 1}")
+
+    # the NaN-check mode
+    with debug_nan_mode():
+        try:
+            torch.log(torch.tensor([-1.0, 2.0], device=dev))
+        except FloatingPointError as e:
+            log_msg = str(e)
+        else:
+            fail("phase 66: torch.log(-1) on the card did not raise")
+        x = torch.tensor([0.0, 1.0], device=dev, requires_grad=True)
+        y = (torch.sqrt(x) * 0).sum()
+        try:
+            y.backward()
+        except FloatingPointError as e:
+            bwd_msg = str(e)
+        else:
+            fail("phase 66: a NaN gradient on the card did not raise")
+    step_args = step_operands(model, 65_536, NUM_ZONES, dev, seed=3)
+    bad = step_args[0].clone()
+    bad[11, 5] = float("nan")
+    before = rk4_step_fused.launches
+    with torch.inference_mode(), debug_nan_mode():
+        try:
+            rk4_step_fused(bad, *step_args[1:])
+        except FloatingPointError as e:
+            k0_msg = str(e)
+        else:
+            fail("phase 66: K0 on a NaN state did not raise in the mode")
+    if rk4_step_fused.launches != before + 1 or "rk4_step_fused" not in k0_msg:
+        fail(f"phase 66: K0 launched {rk4_step_fused.launches - before} "
+             f"times, raised {k0_msg!r}")
+    print(f"phase 66 debug_nan_mode raises: {log_msg!r} (torch.log(-1)), "
+          f"{bwd_msg!r} (a backward on autograd's device thread), "
+          f"{k0_msg!r} (K0 on a state with one NaN, after its launch)",
+          flush=True)
+
+    # rung 2's fixed step: off, off, on from one state: the same bits
+    config = GATODEConfig(substeps=SUBSTEPS, num_blocks=2)
+    tmodel, opt, static, batch = rung2_trainer(dev, config)
+    step, _ = make_fused_train_step(tmodel, opt, config, static)
+    step(*batch)  # warm-up
+    kernels = (ft.day_forward_fused, ft.day_backward_fused,
+               ft.ce_forward_fused, ft.ce_backward_fused,
+               fg.gat_forward_fused, fg.gat_backward_fused)
+    params0 = {k: v.detach().clone() for k, v in tmodel.state_dict().items()}
+    opt0 = copy.deepcopy(opt.state_dict())
+    phases = PhaseTimes()
+    logger = JsonlLogger(str(d / "steps.jsonl"))
+    runs = []
+    for label, mode in (("off", False), ("off again", False), ("on", True)):
+        tmodel.load_state_dict(params0)
+        opt.load_state_dict(copy.deepcopy(opt0))
+        before = [k.launches for k in kernels]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with phases.phase(f"fixed step, mode {label}"), \
+                debug_nan_mode(mode):
+            loss, acc = step(*batch)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        logger.log({"run": label, "loss": loss, "acc": acc, "wall_s": wall})
+        runs.append((loss.detach().clone(), [p.detach().clone() for p in
+                                             tmodel.parameters()],
+                     [opt.state[p][k].clone() for p in tmodel.parameters()
+                      for k in ("exp_avg", "exp_avg_sq")], wall,
+                     [k.launches - b for k, b in zip(kernels, before)]))
+    same = [torch.equal(runs[0][0], r[0])
+            and all(torch.equal(a, b) for a, b in zip(runs[0][1], r[1]))
+            and all(torch.equal(a, b) for a, b in zip(runs[0][2], r[2]))
+            for r in runs[1:]]
+    logged = [json.loads(line) for line in open(d / "steps.jsonl")]
+    print(f"phase 66 rung-2 fixed step ({TRAIN_N} x {TRAIN_ZONES} x "
+          f"{TRAIN_TIMES}): loss {runs[0][0].item():.7f}; off again the "
+          f"same bits {same[0]}, under debug_nan_mode the same bits "
+          f"{same[1]}; walls off {runs[0][3]:.4f} / {runs[1][3]:.4f} s, on "
+          f"{runs[2][3]:.4f} s (host clock, synced; the mode's overhead "
+          f"{runs[2][3] / min(runs[0][3], runs[1][3]):.1f}x); launches "
+          f"K2f/K2b/K3f/K3b/K4f/K4b {[r[4] for r in runs]}; PhaseTimes "
+          f"{phases.summary()}; JsonlLogger losses "
+          f"{[r['loss'] for r in logged]} [card {card}]", flush=True)
+    if not all(same) or any(r[4] != [1] * 6 for r in runs):
+        fail("phase 66: the fixed step under debug_nan_mode changed its "
+             "bits, or a run launched another kernel count")
+    if [r["loss"] for r in logged] != [r[0].item() for r in runs] or \
+            not all(isinstance(r["acc"], float) for r in logged):
+        fail("phase 66: JsonlLogger did not log the CUDA scalars as floats")
+
+    # the asynchronous checkpoint, the next step launched before wait()
+    names = [n for n, _ in tmodel.named_parameters()]
+    params = [p for _, p in tmodel.named_parameters()]
+    state = lambda: {"params": dict(zip(names, params)),
+                     "exp_avg": [opt.state[p]["exp_avg"] for p in params],
+                     "exp_avg_sq": [opt.state[p]["exp_avg_sq"]
+                                    for p in params]}
+    at_save = {"params": {n: p.detach().clone() for n, p in
+                          zip(names, params)},
+               **{k: [opt.state[p][k].clone() for p in params]
+                  for k in ("exp_avg", "exp_avg_sq")}}
+    ck = AsyncCheckpointer()
+    path = str(d / "async.ckpt")
+    t0 = time.perf_counter()
+    ck.save(state(), path)
+    t_save = time.perf_counter() - t0
+    step(*batch)  # updates every parameter and moment in place
+    t0 = time.perf_counter()
+    ck.wait()
+    t_wait = time.perf_counter() - t0
+    loaded = load_checkpoint(path)
+    host = lambda t: t.cpu().numpy()
+    held = all(np.array_equal(loaded["params"][n],
+                              host(at_save["params"][n])) for n in names) \
+        and all(np.array_equal(a, host(b)) for key in ("exp_avg",
+                                                        "exp_avg_sq")
+                for a, b in zip(loaded[key], at_save[key]))
+    moved = not all(torch.equal(p, at_save["params"][n])
+                    for n, p in zip(names, params))
+    print(f"phase 66 AsyncCheckpointer: save {t_save:.3f} s (the copy to "
+          f"the host), wait {t_wait:.3f} s after the next step; the file "
+          f"holds the state at save bit for bit {held}, the step moved the "
+          f"parameters {moved}; phase 66 in "
+          f"{time.perf_counter() - t_phase:.1f} s [card {card}]", flush=True)
+    if not (held and moved):
+        fail("phase 66: the asynchronous checkpoint does not hold the state "
+             "at save")
 
 
 if __name__ == "__main__":

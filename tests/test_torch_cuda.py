@@ -1759,3 +1759,54 @@ def test_mode_sep_step_matches_the_cpu(cuda, tmp_path):
     r, w, ok = cs.mode_sep_readings(cs.mode_sep_step(csvs, ModeSepConfig()),
                                     cuda)
     assert ok, cs.describe_readings(r) + "; " + cs.describe_witness(w)
+
+
+# ---- the NaN-check mode on the kernels, throughput's sync -------------------
+
+def test_nan_mode_sees_the_step_kernels_output(cuda):
+    """Under ``debug_nan_mode``, K0 on a state holding one NaN raises
+    before it returns (its wrapper checks the kernel's output, which the
+    dispatcher never sees); without the mode it returns the state with
+    its NaN; both calls launch the kernel."""
+    from ananke_abm_tpu_torch.utils.profiling import debug_nan_mode
+
+    x, h, ze, w, tf, dt = _step_operands(cuda, 4_096, 64, 2)
+    x[7, 3] = float("nan")
+    with torch.inference_mode():
+        before = rk4_step_fused.launches
+        assert torch.isnan(rk4_step_fused(x, h, ze, w, tf, dt)).any()
+        with debug_nan_mode(), pytest.raises(FloatingPointError,
+                                             match="rk4_step_fused"):
+            rk4_step_fused(x, h, ze, w, tf, dt)
+        assert rk4_step_fused.launches == before + 2
+
+
+def test_nan_mode_sees_a_backward_on_the_cards_threads(cuda):
+    """A NaN that first appears in a CUDA gradient, in the backward that
+    autograd's engine runs on a device thread of its own, raises."""
+    from ananke_abm_tpu_torch.utils.profiling import debug_nan_mode
+
+    x = torch.tensor([0.0, 1.0], device=cuda, requires_grad=True)
+    with debug_nan_mode():
+        y = (torch.sqrt(x) * 0).sum()
+        with pytest.raises(FloatingPointError):
+            y.backward()
+
+
+def test_throughput_waits_for_the_kernels(cuda):
+    """``throughput``'s one sync ends its timed calls: its time per call
+    is no less than the device time CUDA events read over the same calls
+    (K0 at 65,536 agents)."""
+    from ananke_abm_tpu_torch.utils.profiling import throughput
+
+    ops = _step_operands(cuda, 65_536, 64, 2)
+    with torch.inference_mode():
+        r = throughput(rk4_step_fused, *ops, items=65_536, iters=20)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            rk4_step_fused(*ops)
+        end.record()
+        torch.cuda.synchronize()
+    assert r["ms_per_call"] >= 0.95 * start.elapsed_time(end) / 20

@@ -153,12 +153,13 @@ def test_period_snap_segment_builders_match_pandas(events, tmp_path):
 
 
 def test_port_imports_no_pandas_and_plots_lazily():
-    """No module of the two families or the data generator imports pandas;
-    matplotlib and yaml are imported only inside functions."""
+    """No module of the two families, the data generator, the solvers,
+    dataio or utils imports pandas; matplotlib and yaml are imported only
+    inside functions."""
     import ananke_abm_tpu_torch
     root = os.path.dirname(ananke_abm_tpu_torch.__file__)
     for sub in ("models/mode_sep", "models/latent_ode", "data_generator",
-                "ode"):
+                "ode", "dataio", "utils"):
         for f in os.listdir(os.path.join(root, sub)):
             if not f.endswith(".py"):
                 continue
