@@ -31,13 +31,13 @@
 //   their own.
 //
 // Two step bodies. float32 (K5, K7 and K6 at precision "f32", the
-// trainers' forward): bf16 rounding of the stage activations is noise that
-// does not cancel in the embedded 5(4) error and floors the step
-// controller, and TF32 keeps three decimal digits, the same class; so every
-// product of the step VJP's float32 body is a float32 fused multiply-add on
-// the CUDA cores, and K5's products run in 3xTF32 on the tensor cores
-// (each operand split into two TF32 parts, three products, float32 sums:
-// the float32 class; the K5 section below).
+// trainers' forward and their float32 backward): bf16 rounding of the stage
+// activations is noise that does not cancel in the embedded 5(4) error and
+// floors the step controller, and TF32 alone keeps three decimal digits,
+// the same class; so every product runs in 3xTF32 on the tensor cores:
+// each operand split into a TF32 part and its remainder, three mma.sync
+// products (lo hi, hi lo, hi hi), float32 sums, about 22 bits of each
+// operand, the float32 class (checks.py's bounds part it from TF32 alone).
 // bf16 (K7 and K6 at precision "bf16", the adaptive trainer's backward at
 // bench rung 3): the stage and its VJP of stage_sm90.cuh (K8's and K2b's),
 // bf16 operands on mma.sync with float32 sums at the reference's rounding
@@ -54,29 +54,18 @@
 //
 // - K5 at float32: 3xTF32 mma.sync products, a weight ring shared by a
 //   CTA's 8 warps (128 rows); the K5 section below.
-// - The float32 step-VJP body (K7 and K6 at "f32"): a CTA of 8 warps owns a
-//   tile of R agent rows (32; 16 for deep drifts) and walks tiles tile =
-//   blockIdx.x, + gridDim.x, ... Activations of the tile live in shared
-//   memory, float32 row-major. Every product out = A W runs as register
-//   tiles: warp w computes rows w, w + 8, ..., lane l a run of adjacent
-//   columns; A is read from shared memory four columns at a time (a
-//   broadcast within the warp), W is staged through two shared-memory
-//   buffers of 32 rows by cp.async, the next chunk's copy in flight while
-//   this one is multiplied (the weights, ~0.35 MB in float32, stay hot in
-//   L2). The step VJP's weight gradients are register-blocked outer
-//   products (ntdot; its predecessor issued two shared-memory loads for
-//   4-16 multiply-adds): each thread owns a TM x 4 block of the gradient
-//   (8 x 4 for the H x H ones, in two passes), so an agent row costs one
-//   vector load of A (a broadcast) and one float4 of B for 4 TM
-//   multiply-adds, and the block goes into the slab once per 32-row tile
-//   and product in float4 read-modify-writes, at 237 registers and no
-//   spills. The tile stays at 32 rows and one CTA an SM: its activations
-//   take ~5 KB a row at two blocks (~196 KB with the buffers), so neither
-//   two CTAs of 32 rows nor taller tiles fit, and two CTAs of 16 rows would
-//   flush the slab twice as often per row. The attention runs by chunks of 32 zones:
-//   no Z-wide row is stored, any zone count; the max-free softmax (exp
-//   clamped at 80) sums its rows chunk by chunk, the context is normalised
-//   after the product.
+// - The float32 step-VJP body (K7 and K6 at "f32"): the vjp32 section
+//   below. Its FFMA predecessor ran at 14% of the FP32 rate, bound by
+//   instruction issue on the CUDA cores (its products as adds ran slower,
+//   PERF.md), its weights copied per 32-row tile (20% of its time). Here
+//   one mma.sync does 256 of its multiply-adds (three a 3xTF32 product
+//   tile), the weight gradients are contractions on the tensor cores too,
+//   every weight box is split into its TF32 parts once a launch
+//   (split_boxes) and copied once per 128-row tile by one bulk copy into a
+//   ring that 8 warps share. What bounds it now is the work around the
+//   products, not the tensor cores: the A operands' loads and splits, the
+//   sums, the contractions' operand traffic, the transcendentals (PERF.md's
+//   probes).
 // - The bf16 body (K7 and K6 at "bf16"): stage_sm90.cuh's stage and VJP.
 //   What held its drift_stage.cuh predecessor to ~1% of its bound, and what
 //   the body does about each:
@@ -114,8 +103,8 @@
 //   i's intermediates just before its VJP: 11 stage forwards and 6 stage
 //   VJPs per step.
 // - K6: one CTA owns an agent tile for all steps, the step loop inside the
-//   block, so no grid-wide sync; the carries stay in registers (float32)
-//   or the warp's scratch (bf16) between steps; the output times and rows'
+//   block, so no grid-wide sync; the carries stay in the warp's scratch
+//   between steps; the output times and rows'
 //   steps sit in shared memory, and the fold skips the rows a step did not
 //   fill. One launch per backward.
 // - Weight gradients are contractions over the tile's rows, added into the
@@ -143,13 +132,11 @@
 namespace {
 
 constexpr int DA = 32, DZ = 64, DC = 32, H = 128, DF = DA + DZ;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kVjpKC = 32;  // rows of W in each of the float32 step VJP's two
-                            // staging buffers
 constexpr int kZC = 32;   // zones per attention chunk
 constexpr int kMaxBlocks = 8;
 constexpr unsigned kFull = 0xffffffffu;
+// the largest dynamic shared memory a block can use
+constexpr size_t kMaxSmem = 232448;
 
 // the Dormand-Prince tableau (dopri5_tableau.cuh)
 using ananke::cA;
@@ -174,22 +161,13 @@ struct Weights {
   const float* ze;     // (zp, DZ), zero rows past z
   const float* zeT;    // (DZ, zp)
   const float* tf;     // (7, H) time rows
+  // the float32 step VJP's weight boxes, each split into its TF32 parts
+  // (vjp32::split_boxes)
+  float* bank;
   int z, zp, nb;
   float scale;
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int m = 16; m >= 1; m >>= 1) v += __shfl_xor_sync(kFull, v, m);
-  return v;
-}
-
-// the column of a thread's j-th output in an N-wide product: lane l owns
-// the N / 32 adjacent columns from l N / 32 (for N = 32, column l)
-template <int N>
-__device__ __forceinline__ int ocol(int lane, int j) {
-  return (N / 32) * lane + j;
-}
 
 // 16 bytes global -> shared, asynchronously (cp.async, L2 only)
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -205,293 +183,6 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// C consecutive floats of shared memory, in the widest load they allow
-template <int C>
-__device__ __forceinline__ void lds_vec(float (&v)[C], const float* p) {
-  if constexpr (C == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else if constexpr (C == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x; v[1] = t.y;
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; ++c) v[c] = p[c];
-  }
-}
-
-__device__ __forceinline__ float comp(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
-// out = A (R x K, row stride lda, shared memory) times W (K x N, row stride
-// ldw, device memory); ep(acc) receives the thread's register tile:
-// acc[i][j] is row w + 8 i, column ocol<N>(lane, j). A is read four
-// columns at a time (float4, a broadcast within the warp), W's rows as the
-// lane's adjacent columns. Starts with a barrier (A may come from other
-// threads), ends with one before ep (so ep may overwrite A or the staging
-// buffer). lda, A and (for N >= 64) the columns must be 16-byte aligned.
-template <int R, int K, int N, int KC, class Ep>
-__device__ __forceinline__ void mm(const float* A, int lda,
-                                   const float* __restrict__ W, int ldw,
-                                   float* wbuf, Ep ep) {
-  constexpr int RPT = R / kWarps, CPT = N / 32;
-  static_assert(K % KC == 0 && N % 32 == 0 && R % kWarps == 0, "shape");
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float acc[RPT][CPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-  // chunk c of W's rows into staging buffer c % 2, by cp.async: the copy
-  // of chunk c + 1 runs while chunk c is multiplied
-  auto stage = [&](int c) {
-    float* dst = wbuf + (c & 1) * KC * N;
-    for (int e = threadIdx.x * 4; e < KC * N; e += kThreads * 4) {
-      const int kk = e / N, n = e % N;
-      cp_async16(dst + e, W + (size_t)(c * KC + kk) * ldw + n);
-    }
-    cp_commit();
-  };
-  constexpr int NC = K / KC;
-  stage(0);
-  for (int c = 0; c < NC; ++c) {
-    if (c + 1 < NC) {
-      stage(c + 1);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const float* wb = wbuf + (c & 1) * KC * N;
-    const int k0 = c * KC;
-#pragma unroll 2
-    for (int kk = 0; kk < KC; kk += 4) {
-      float4 a[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-        a[i] = *reinterpret_cast<const float4*>(
-            A + (w + kWarps * i) * lda + k0 + kk);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float b[CPT];
-        lds_vec<CPT>(b, wb + (kk + q) * N + CPT * lane);
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int j = 0; j < CPT; ++j)
-            acc[i][j] = fmaf(comp(a[i], q), b[j], acc[i][j]);
-      }
-    }
-    // every warp is done with this buffer (and with A, for ep) before
-    // chunk c + 2 refills it
-    __syncthreads();
-  }
-  ep(acc);
-}
-
-// C consecutive floats of shared memory: float4 loads where C is a
-// multiple of 4 (16-byte aligned), else float2 loads (8-byte aligned)
-template <int C>
-__device__ __forceinline__ void lds_row(float (&v)[C], const float* p) {
-  if constexpr (C % 4 == 0) {
-#pragma unroll
-    for (int c = 0; c < C; c += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + c);
-      v[c] = t.x; v[c + 1] = t.y; v[c + 2] = t.z; v[c + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; c += 2) {
-      const float2 t = *reinterpret_cast<const float2*>(p + c);
-      v[c] = t.x; v[c + 1] = t.y;
-    }
-  }
-}
-
-// the rows of a thread's block in ntdot: the largest even divisor of the
-// rows a row group owns in all, up to 8 (so at most 32 accumulators)
-__host__ __device__ constexpr int ntdot_rows(int per) {
-  return per % 8 == 0 ? 8 : per % 6 == 0 ? 6 : per % 4 == 0 ? 4 : 2;
-}
-
-// out[m][n] += sum_r A[r][m] B[r][n] (+ A2[r][m] B2[r][n]) for m < m_valid:
-// the agent contraction of a weight gradient, into the CTA's slab (row
-// stride N), as register-blocked outer products. In each pass thread (mg,
-// ng) owns a TM x 4 block (TM <= 8) of the gradient: rows TM mg .. of the
-// pass, columns 4 ng ..; each agent row costs one load of its TM values of
-// A (a broadcast within the warp) and one float4 of B for 4 TM fused
-// multiply-adds, and the block goes into the slab once, in float4
-// read-modify-writes. Each output has one owner thread: no atomics.
-template <int R, int M, int N, bool TWO>
-__device__ __forceinline__ void ntdot(const float* A, int lda, const float* B,
-                                      int ldb, const float* A2, int lda2,
-                                      const float* B2, int ldb2, float* out,
-                                      int m_valid) {
-  constexpr int NG = N / 4, MG = kThreads / NG, PER = M / MG;
-  constexpr int TM = ntdot_rows(PER), PASSES = PER / TM;
-  static_assert(N % 4 == 0 && kThreads % NG == 0 && PER * MG == M &&
-                    PER % 2 == 0,
-                "tile");
-  const int ng = threadIdx.x % NG, mg = threadIdx.x / NG, n0 = 4 * ng;
-  __syncthreads();
-#pragma unroll 1
-  for (int pass = 0; pass < PASSES; ++pass) {
-    const int m0 = pass * TM * MG + TM * mg;
-    float acc[TM][4];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-    for (int r = 0; r < R; ++r) {
-      float a[TM], b[4];
-      lds_row<TM>(a, A + r * lda + m0);
-      lds_row<4>(b, B + r * ldb + n0);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      if (TWO) {
-        lds_row<TM>(a, A2 + r * lda2 + m0);
-        lds_row<4>(b, B2 + r * ldb2 + n0);
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      if (m0 + i >= m_valid) continue;
-      float4* o = reinterpret_cast<float4*>(out + (size_t)(m0 + i) * N + n0);
-      float4 v = *o;
-      v.x += acc[i][0]; v.y += acc[i][1]; v.z += acc[i][2]; v.w += acc[i][3];
-      *o = v;
-    }
-  }
-}
-
-// out[n] += sum_r B[r][n]: a bias (or time-row) gradient
-template <int R, int N>
-__device__ __forceinline__ void colsum(const float* B, int ldb, float* out) {
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < R; ++r) s += B[r * ldb + n];
-    out[n] += s;
-  }
-}
-
-// the shared-memory buffers of one stage evaluation
-struct StageBufs {
-  float* wbuf;   // [2 KC * H] staged weights
-  float* feats;  // [R][DF]: the stage input (cols 0..DA), ctx (DA..DF)
-  float* q;      // [R][DZ + kZC]: q, then one chunk of p
-  float* rt;     // [R][H]: a block's inner activation
-  float* chain;  // level b at chain + b * chain_step: [R][H]
-  int chain_step;
-  float* hpre;   // [R][H]
-  float* inv;    // [R]: 1 / the softmax's row sum
-};
-
-// k = stage_i(feats[:, :DA]) into kout ([R][DA]; its thread mapping is the
-// per-element one: row w + 8 m, column lane).
-template <int R, int KC>
-__device__ void stage_forward(const Weights& w, const StageBufs& s, int stage,
-                              float* kout) {
-  constexpr int RPT = R / kWarps;
-  constexpr int LQ = DZ + kZC;
-  const int wp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // q = x Wq
-  mm<R, DA, DZ, KC>(s.feats, DF, w.wq, DZ, s.wbuf, [&](float (&acc)[RPT][2]) {
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        s.q[(wp + kWarps * i) * LQ + ocol<DZ>(lane, j)] = acc[i][j];
-  });
-  float* p = s.q + DZ;
-  float rs[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) rs[i] = 0.f;
-  for (int z0 = 0; z0 < w.zp; z0 += kZC) {
-    const bool last = z0 + kZC >= w.zp;
-    // p = exp(min(q ze^T scale, 80)) over the chunk's zones
-    mm<R, DZ, kZC, KC>(s.q, LQ, w.zeT + z0, w.zp, s.wbuf,
-                   [&](float (&acc)[RPT][1]) {
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float v = z0 + lane < w.z
-                            ? expf(fminf(acc[i][0] * w.scale, 80.f)) : 0.f;
-        p[(wp + kWarps * i) * LQ + lane] = v;
-        rs[i] += warp_sum(v);
-      }
-    });
-    // ctx += p ze; normalised after the last chunk
-    mm<R, kZC, DZ, KC>(p, LQ, w.ze + (size_t)z0 * DZ, DZ, s.wbuf,
-                   [&](float (&acc)[RPT][2]) {
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int r = wp + kWarps * i;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float* c = s.feats + r * DF + DA + ocol<DZ>(lane, j);
-          float v = (z0 == 0 ? 0.f : *c) + acc[i][j];
-          if (last) v *= 1.f / rs[i];
-          *c = v;
-        }
-        if (last && lane == 0) s.inv[r] = 1.f / rs[i];
-      }
-    });
-  }
-  // z = tanh(feats W1xc + hpre + tf_i)
-  const float* tfi = w.tf + stage * H;
-  float* z0p = s.chain;
-  mm<R, DF, H, KC>(s.feats, DF, w.w1xc, H, s.wbuf, [&](float (&acc)[RPT][4]) {
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = ocol<H>(lane, j), o = (wp + kWarps * i) * H + c;
-        z0p[o] = tanhf(acc[i][j] + s.hpre[o] + tfi[c]);
-      }
-  });
-  for (int b = 0; b < w.nb; ++b) {
-    const float* zin = s.chain + b * s.chain_step;
-    float* zout = s.chain + (b + 1) * s.chain_step;
-    const float* br1 = w.br + (2 * b) * H;
-    const float* br2 = w.br + (2 * b + 1) * H;
-    mm<R, H, H, KC>(zin, H, w.wr + (size_t)(2 * b) * H * H, H, s.wbuf,
-                [&](float (&acc)[RPT][4]) {
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = ocol<H>(lane, j);
-          s.rt[(wp + kWarps * i) * H + c] = tanhf(acc[i][j] + br1[c]);
-        }
-    });
-    mm<R, H, H, KC>(s.rt, H, w.wr + (size_t)(2 * b + 1) * H * H, H, s.wbuf,
-                [&](float (&acc)[RPT][4]) {
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = ocol<H>(lane, j), o = (wp + kWarps * i) * H + c;
-          zout[o] = tanhf(zin[o] + acc[i][j] + br2[c]);
-        }
-    });
-  }
-  // k = z W3 + b3
-  mm<R, H, DA, KC>(s.chain + w.nb * s.chain_step, H, w.w3, DA, s.wbuf,
-               [&](float (&acc)[RPT][1]) {
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-      kout[(wp + kWarps * i) * DA + lane] = acc[i][0] + w.b3[lane];
-  });
 }
 
 // offsets (floats) of the summed gradients in a slab: gze (z, DZ) | gtf
@@ -518,157 +209,6 @@ struct SlabLayout {
   __host__ __device__ long wr2(int b) const { return br1(b) + H; }
   __host__ __device__ long br2(int b) const { return wr2(b) + H * H; }
 };
-
-// the VJP of a stage at gk ([R][DA] in shared memory), its forward just
-// recomputed into s (every chain level kept): gradients into the slab (the
-// time row's at slab + gtf), ghp += the Dense_0 pre-activation's
-// cotangent, and gx ([R][DA], the per-element mapping) the cotangent of
-// the stage input.
-template <int R, int KC>
-__device__ void stage_backward(const Weights& w, const StageBufs& s,
-                               const SlabLayout& L, float* slab, long gtf,
-                               const float* gk, float* gp, float* ta,
-                               float* tb, float* ghp, float* gx) {
-  constexpr int RPT = R / kWarps;
-  constexpr int LQ = DZ + kZC;
-  const int wp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nb = w.nb;
-  const float* zlast = s.chain + nb * s.chain_step;
-  // k = z W3 + b3
-  ntdot<R, H, DA, false>(zlast, H, gk, DA, nullptr, 0, nullptr, 0,
-                         slab + L.gw3, H);
-  colsum<R, DA>(gk, DA, slab + L.gb3);
-  // gp = (gk W3^T) (1 - z^2): the last block's pre-activation cotangent
-  mm<R, DA, H, KC>(gk, DA, w.w3T, H, s.wbuf, [&](float (&acc)[RPT][4]) {
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int o = (wp + kWarps * i) * H + ocol<H>(lane, j);
-        gp[o] = acc[i][j] * (1.f - zlast[o] * zlast[o]);
-      }
-  });
-  for (int b = nb - 1; b >= 0; --b) {
-    const float* zin = s.chain + b * s.chain_step;
-    const float* br1 = w.br + (2 * b) * H;
-    // rt = tanh(z_in Wr1 + br1), recomputed into ta
-    mm<R, H, H, KC>(zin, H, w.wr + (size_t)(2 * b) * H * H, H, s.wbuf,
-                [&](float (&acc)[RPT][4]) {
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = ocol<H>(lane, j);
-          ta[(wp + kWarps * i) * H + c] = tanhf(acc[i][j] + br1[c]);
-        }
-    });
-    ntdot<R, H, H, false>(ta, H, gp, H, nullptr, 0, nullptr, 0,
-                          slab + L.wr2(b), H);
-    colsum<R, H>(gp, H, slab + L.br2(b));
-    // tb = (gp Wr2^T) (1 - rt^2)
-    mm<R, H, H, KC>(gp, H, w.wrT + (size_t)(2 * b + 1) * H * H, H, s.wbuf,
-                [&](float (&acc)[RPT][4]) {
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int o = (wp + kWarps * i) * H + ocol<H>(lane, j);
-          tb[o] = acc[i][j] * (1.f - ta[o] * ta[o]);
-        }
-    });
-    ntdot<R, H, H, false>(zin, H, tb, H, nullptr, 0, nullptr, 0,
-                          slab + L.wr1(b), H);
-    colsum<R, H>(tb, H, slab + L.br1(b));
-    // gp = (gp + tb Wr1^T) (1 - z_in^2): the next pre-activation down
-    mm<R, H, H, KC>(tb, H, w.wrT + (size_t)(2 * b) * H * H, H, s.wbuf,
-                [&](float (&acc)[RPT][4]) {
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int o = (wp + kWarps * i) * H + ocol<H>(lane, j);
-          gp[o] = (gp[o] + acc[i][j]) * (1.f - zin[o] * zin[o]);
-        }
-    });
-  }
-  // z1 = tanh(feats W1xc + hpre + tf_i): gp is its pre-activation's
-  // cotangent
-  ntdot<R, DF, H, false>(s.feats, DF, gp, H, nullptr, 0, nullptr, 0,
-                         slab + L.gw1, H);
-  colsum<R, H>(gp, H, slab + gtf);
-  // ghp += gp; gf = gp W1xc^T into ta (cols 0..DF): gxb | gctx
-  mm<R, H, DF, KC>(gp, H, w.w1xcT, DF, s.wbuf, [&](float (&acc)[RPT][3]) {
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = wp + kWarps * i;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) ta[r * H + ocol<DF>(lane, j)] = acc[i][j];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int o = r * H + ocol<H>(lane, j);
-        ghp[o] += gp[o];
-      }
-    }
-  });
-  const float* gctx = ta + DA;
-  float* at = tb;          // [R][H] cols 0..kZC: attn of the chunk
-  float* ds = tb + kZC;    // cols kZC..2 kZC: ds of the chunk
-  float* gq = gp;          // [R][H] cols 0..DZ
-  float rd[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) rd[i] = 0.f;
-  // attention VJP, two passes over the zone chunks: sum(attn gattn), then
-  // ds = attn (gattn - sum) scale, gq = ds ze, gze += attn^T gctx + ds^T q
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int z0 = 0; z0 < w.zp; z0 += kZC) {
-      mm<R, DZ, kZC, KC>(s.q, LQ, w.zeT + z0, w.zp, s.wbuf,
-                     [&](float (&acc)[RPT][1]) {
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const int r = wp + kWarps * i;
-          at[r * H + lane] = z0 + lane < w.z
-              ? expf(fminf(acc[i][0] * w.scale, 80.f)) * s.inv[r] : 0.f;
-        }
-      });
-      mm<R, DZ, kZC, KC>(gctx, H, w.zeT + z0, w.zp, s.wbuf,
-                     [&](float (&acc)[RPT][1]) {
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const int r = wp + kWarps * i;
-          const float a = at[r * H + lane];
-          if (pass == 0) {
-            rd[i] += warp_sum(a * acc[i][0]);
-          } else {
-            ds[r * H + lane] = a * (acc[i][0] - rd[i]) * w.scale;
-          }
-        }
-      });
-      if (pass == 0) continue;
-      mm<R, kZC, DZ, KC>(ds, H, w.ze + (size_t)z0 * DZ, DZ, s.wbuf,
-                     [&](float (&acc)[RPT][2]) {
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            float* g = gq + (wp + kWarps * i) * H + ocol<DZ>(lane, j);
-            *g = (z0 == 0 ? 0.f : *g) + acc[i][j];
-          }
-      });
-      ntdot<R, kZC, DZ, true>(at, H, gctx, H, ds, H, s.q, LQ,
-                              slab + (size_t)z0 * DZ, w.z - z0);
-    }
-  }
-  // q = x Wq: gWq += x^T gq; gx = gxb + gq Wq^T
-  ntdot<R, DA, DZ, false>(s.feats, DF, gq, H, nullptr, 0, nullptr, 0,
-                          slab + L.gwq, DA);
-  mm<R, DZ, DA, KC>(gq, H, w.wqT, DA, s.wbuf, [&](float (&acc)[RPT][1]) {
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = wp + kWarps * i;
-      gx[r * DA + lane] = ta[r * H + lane] + acc[i][0];
-    }
-  });
-}
 
 // ---- K5 -------------------------------------------------------------------
 //
@@ -769,15 +309,16 @@ __device__ __forceinline__ void frag_smem(const float* rows, int S, int s,
   a[0] = u.x; a[1] = v.x; a[2] = u.y; a[3] = v.y;
 }
 
-// acc[j] (j < NT) += A B in 3xTF32: A the warp's 16 rows by KS slices of 8
-// (af(s, a) gives slice s's fragment), B^T the NT 8-row tiles of a box at
-// row stride S (row n holds output column n's weights, k contiguous; a
+// acc[j0 + j] (j < NT) += A B in 3xTF32: A the warp's 16 rows by KS slices
+// of 8 (af(s, a) gives slice s's fragment), B^T the NT 8-row tiles of a box
+// at row stride S (row n holds output column n's weights, k contiguous; a
 // thread's two values of a fragment are one float2). Per slice every B
 // fragment is loaded and split first, then the products go term by term
 // across the NT accumulators, so no two in a row depend.
-template <int KS, int NT, class AF>
-__device__ __forceinline__ void mma3(float (&acc)[NT][4], AF af,
-                                     const float* bt, int S, int g, int t) {
+template <int KS, int NT, int NOUT, class AF>
+__device__ __forceinline__ void mma3_at(float (&acc)[NOUT][4], int j0, AF af,
+                                        const float* bt, int S, int g,
+                                        int t) {
   const float* bp = bt + g * S + 2 * t;
 #pragma unroll
   for (int s = 0; s < KS; ++s) {
@@ -795,12 +336,22 @@ __device__ __forceinline__ void mma3(float (&acc)[NT][4], AF af,
       split(b.y, bh[j][1], bl[j][1]);
     }
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(acc[j], al, bh[j][0], bh[j][1]);
+    for (int j = 0; j < NT; ++j)
+      mma_tf32(acc[j0 + j], al, bh[j][0], bh[j][1]);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(acc[j], ah, bl[j][0], bl[j][1]);
+    for (int j = 0; j < NT; ++j)
+      mma_tf32(acc[j0 + j], ah, bl[j][0], bl[j][1]);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(acc[j], ah, bh[j][0], bh[j][1]);
+    for (int j = 0; j < NT; ++j)
+      mma_tf32(acc[j0 + j], ah, bh[j][0], bh[j][1]);
   }
+}
+
+// acc += A B in 3xTF32, every accumulator of acc (mma3_at)
+template <int KS, int NT, class AF>
+__device__ __forceinline__ void mma3(float (&acc)[NT][4], AF af,
+                                     const float* bt, int S, int g, int t) {
+  mma3_at<KS, NT, NT>(acc, 0, af, bt, S, g, t);
 }
 
 template <int NT>
@@ -812,11 +363,11 @@ __device__ __forceinline__ void zero(float (&acc)[NT][4]) {
 }
 
 // rows x cols floats (row stride ss) -> shared memory (row stride ds) by
-// cp.async, every thread taking 16-byte pieces in turn
+// cp.async, every thread of the CTA taking 16-byte pieces in turn
 __device__ __forceinline__ void copy_rows(float* dst, int ds, const float* src,
                                           int ss, int rows, int cols) {
   const int per = cols / 4, pieces = rows * per;
-  for (int e = threadIdx.x; e < pieces; e += 32 * kW) {
+  for (int e = threadIdx.x; e < pieces; e += blockDim.x) {
     const int r = e / per, k = e - r * per;
     cp_async16(dst + r * ds + 4 * k, src + (size_t)r * ss + 4 * k);
   }
@@ -1153,135 +704,6 @@ __device__ __forceinline__ void contd5_weights(float ts, float t0, float hs,
   w[4] = __fmul_rn(w[3], om);
 }
 
-// ---- the float32 step VJP: K7 at precision "f32", and K6's f32 body --------
-
-// a tile's shared memory for the float32 step VJP
-struct F32Vjp {
-  StageBufs s;
-  float* hin;  // [R][DC]
-  float* ghp;  // [R][H]
-  float* gp;   // [R][H]
-  float* gks;  // [R][DA]: gk_i, then gx
-  float* ta;   // [R][H], the forward's rt too
-  float* tb;   // [R][H]
-};
-
-// the staging buffers of the float32 step VJP's products
-constexpr int kVjpWbuf = 2 * kVjpKC * H;
-
-template <int R>
-size_t f32_vjp_smem_floats(int nb) {
-  return kVjpWbuf + (size_t)R * (DC + 3 * H + DF + DZ + kZC + DA + 1 +
-                              2 * H + (size_t)(nb + 1) * H);
-}
-
-template <int R>
-__device__ __forceinline__ F32Vjp f32_vjp_smem(float* sm) {
-  F32Vjp t;
-  t.s.wbuf = sm;
-  t.hin = t.s.wbuf + kVjpWbuf;
-  t.s.hpre = t.hin + R * DC;
-  t.ghp = t.s.hpre + R * H;
-  t.gp = t.ghp + R * H;
-  t.s.feats = t.gp + R * H;
-  t.s.q = t.s.feats + R * DF;              // [R][DZ + kZC]
-  t.gks = t.s.q + R * (DZ + kZC);
-  t.s.inv = t.gks + R * DA;                // [R]
-  t.ta = t.s.inv + R;
-  t.tb = t.ta + R * H;
-  t.s.rt = t.ta;
-  t.s.chain = t.tb + R * H;                // (nb + 1) x [R][H]
-  t.s.chain_step = R * H;
-  return t;
-}
-
-// The VJP of one accepted step for a tile of R rows. On entry t.s.hpre holds
-// h W1h for the tile's rows (h is constant over the step), ks[0] = f0 and
-// gk[j] stage j's initial cotangent (stage_cot) in the CTA's scratch ([7][R]
-// [DA] each, the per-element mapping: element m of a thread is row wp + 8 m,
-// column lane, and only that thread touches it); x0 and gy (= g_y0_direct)
-// the thread's elements. The forward stages 1-5 keep their k (k7 feeds no
-// stage input); then for stages 6 -> 1 the stage is recomputed from its
-// input and its VJP runs: gk_j += h a_ij gx_i, gy += gx_i. On return gy =
-// gy0, gk[0] = gf0 and t.ghp the step's sum of the h-row pre-activation's
-// cotangent. The time rows are w.tf (7, H); their gradients go to slab +
-// gtf0 + st H.
-template <int R>
-__device__ void step_vjp_f32(const Weights& w, const F32Vjp& t,
-                             const SlabLayout& L, float* slab, long gtf0,
-                             float hs, float* ks, float* gk,
-                             const float (&x0)[R * DA / kThreads],
-                             float (&gy)[R * DA / kThreads]) {
-  constexpr int M = R * DA / kThreads;
-  const int wp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < R * H; i += kThreads) t.ghp[i] = 0.f;
-  // the stage input of stage st, x0 + sum_j (h a_st,j) k_j, into feats
-  auto stage_input = [&](int st) {
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const int o = (wp + kWarps * m) * DA + lane;
-      float y = x0[m];
-      for (int j = 0; j < st; ++j) {
-        const float a = cA[st][j];
-        if (a != 0.f)
-          y = __fadd_rn(y, __fmul_rn(__fmul_rn(hs, a), ks[j * R * DA + o]));
-      }
-      t.s.feats[(wp + kWarps * m) * DF + lane] = y;
-    }
-  };
-  for (int st = 1; st < 6; ++st) {
-    stage_input(st);
-    stage_forward<R, kVjpKC>(w, t.s, st, t.gks);
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const int o = (wp + kWarps * m) * DA + lane;
-      ks[st * R * DA + o] = t.gks[o];
-    }
-  }
-  for (int st = 6; st >= 1; --st) {
-    stage_input(st);
-    stage_forward<R, kVjpKC>(w, t.s, st, t.gks);
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const int o = (wp + kWarps * m) * DA + lane;
-      t.gks[o] = gk[st * R * DA + o];
-    }
-    stage_backward<R, kVjpKC>(w, t.s, L, slab, gtf0 + (long)st * H, t.gks, t.gp,
-                      t.ta, t.tb, t.ghp, t.gks);
-    // gx (in gks, the per-element mapping): into y0 and the earlier k_j
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const int o = (wp + kWarps * m) * DA + lane;
-      const float gx = t.gks[o];
-      gy[m] = __fadd_rn(gy[m], gx);
-      for (int j = 0; j < st; ++j) {
-        const float a = cA[st][j];
-        if (a != 0.f)
-          gk[j * R * DA + o] = __fadd_rn(gk[j * R * DA + o],
-                                         __fmul_rn(__fmul_rn(hs, a), gx));
-      }
-    }
-  }
-}
-
-// h W1h for the tile's rows (in hin) into t.s.hpre
-template <int R>
-__device__ __forceinline__ void f32_hpre(const Weights& w, const F32Vjp& t) {
-  constexpr int RPT = R / kWarps;
-  const int wp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  mm<R, DC, H, kVjpKC>(t.hin, DC, w.w1h, H, t.s.wbuf,
-                       [&](float (&acc)[RPT][4]) {
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        t.s.hpre[(wp + kWarps * i) * H + ocol<H>(lane, j)] = acc[i][j];
-  });
-}
-
 // ---- the bf16 step VJP: K7 at precision "bf16", and K6's bf16 body ---------
 //
 // The stage math and its VJP are stage_sm90.cuh's (drift_stage.cuh's math,
@@ -1314,11 +736,10 @@ using HRing = ananke::sm90::Ring<DA, DZ, DC, H, W>;
 // blocks, 4 up to 5, 2 beyond
 inline int vjp_bf16_warps(int nb) { return nb <= 2 ? 6 : nb <= 5 ? 4 : 2; }
 
-// xa = bf16(x0 + sum_j (h a_st,j) k_j), summed in the tableau's order
-__device__ __forceinline__ void bf16_stage_input(uint32_t (&xa)[DA / 16][4],
+// xin = x0 + sum_j (h a_st,j) k_j, summed in the tableau's order
+__device__ __forceinline__ void frag_stage_input(float (&xin)[DA / 8][4],
                                                  const float* fr, int st,
                                                  float hs, int lane) {
-  float xin[DA / 8][4];
   ananke::frag_ld<DA / 8>(xin, fr, lane);
   for (int j = 0; j < st; ++j) {
     const float a = cA[st][j];
@@ -1332,12 +753,20 @@ __device__ __forceinline__ void bf16_stage_input(uint32_t (&xa)[DA / 16][4],
       for (int c = 0; c < 4; ++c)
         xin[q][c] = __fadd_rn(xin[q][c], __fmul_rn(ha, k[q][c]));
   }
+}
+
+// xa = bf16(the stage input)
+__device__ __forceinline__ void bf16_stage_input(uint32_t (&xa)[DA / 16][4],
+                                                 const float* fr, int st,
+                                                 float hs, int lane) {
+  float xin[DA / 8][4];
+  frag_stage_input(xin, fr, st, hs, lane);
   ananke::c_to_a<DA>(xin, xa);
 }
 
 // stage st's cotangent: stage_cot, then h a_i,st gx_i for i = 6 .. st + 1 in
 // the order the reference adds them (gx_i in slot i - 1)
-__device__ __forceinline__ void bf16_stage_cot(float (&gk)[DA / 8][4],
+__device__ __forceinline__ void frag_stage_cot(float (&gk)[DA / 8][4],
                                                const float* fr, int st,
                                                float hs, int lane) {
 #pragma unroll
@@ -1407,7 +836,7 @@ __device__ __noinline__ void step_vjp_bf16(const StageWeights& w, int c0,
     ananke::sm90::stage_forward<DA, DZ, DC, H, W>(w, ring, xa, tf + st * H,
                                                   k, ia, ib, wr0, g, t);
     float gk[NX][4];
-    bf16_stage_cot(gk, fr, st, hs, lane);
+    frag_stage_cot(gk, fr, st, hs, lane);
     // gx_st goes to slot st (k_st's, read by no later stage)
     ananke::sm90::stage_backward<DA, DZ, DC, H, W>(
         w, ring, gk, ia, ib, slab, tf_rows, gtf0 + (long)st * H,
@@ -1422,7 +851,7 @@ __device__ __noinline__ void step_vjp_bf16(const StageWeights& w, int c0,
     ananke::frag_st<NX>(gy, fr + 11 * kFX, lane);
   }
   float gf[NX][4];
-  bf16_stage_cot(gf, fr, 0, hs, lane);
+  frag_stage_cot(gf, fr, 0, hs, lane);
   ananke::frag_st<NX>(gf, fr + 12 * kFX, lane);
   // hpre = bf16(h) @ W1h: gh = bf16(ghp) @ W1h^T, gW1h += bf16(h)^T bf16(ghp)
   float ghh[DC / 8][4];
@@ -1437,6 +866,1051 @@ __device__ __noinline__ void step_vjp_bf16(const StageWeights& w, int c0,
       for (int c = 0; c < 4; ++c) ghh[q][c] = __fadd_rn(acc[q][c], ghh[q][c]);
   }
   ananke::frag_st<DC / 8>(ghh, fr + 13 * kFX, lane);
+}
+
+// ---- the float32 step VJP: K7 at precision "f32", and K6's f32 body --------
+//
+// The bf16 body's walk (stage_sm90.cuh: a CTA of W warps, 16 W agent rows,
+// each warp its 16 rows end to end, every weight box shared through one
+// ring in shared memory, the step state in a warp-private scratch) with
+// 3xTF32 products on mma.sync, the weight gradients' contractions over the
+// tile's rows among them, float32 sums at the plain version's points but in
+// other orders. What sets its shape:
+// - 8 warps (128 rows), two a sub-partition as in K5: one warp a
+//   sub-partition (3 warps, 48 rows, when every activation row sat in
+//   shared memory) left each warp's latencies exposed and ran slower than
+//   the FFMA body. Shared memory holds the ring and two H-wide rows a tile
+//   row, X and Y (139 KB at 128 rows), at any depth: the stage's chain
+//   lives in X in place as in K5's stage, and X and Y hold the two
+//   operands of each contraction over the tile's rows.
+// - what the VJP reads of its stage's forward (x, ctx, q and the chain's
+//   levels 0 .. nb, 2.2 KB a row at two blocks) is kept in the warp's
+//   scratch in device memory (fragment order, coalesced, each thread
+//   reading back only what it wrote) and copied into X or Y where a
+//   contraction or a product takes it.
+// - the weights are split into their TF32 parts once a launch
+//   (split_boxes), box by box in a ring slot's layout (the bank), so no
+//   warp splits a weight; a box goes to its slot by one bulk copy (TMA)
+//   that one thread issues, one box ahead (two slots of 39 KB: the parts
+//   take twice the float32 box), one block barrier a box.
+// - the sums: the tensor core's accumulation truncates, and over a 48-term
+//   chain (3 terms of 16 slices) that bias took K6's readings at 8 blocks
+//   past DOPRI5_BWD_BOUNDS' max (PERF.md); so each pair of slices
+//   goes into a zeroed partial that a float32 add rounds into the sum, and
+//   each operand's TF32 part is its rounding to nearest, not its
+//   truncation (split_rn). The contractions over the tile's rows, whose
+//   error reaches no later product, keep K5's split and one chain.
+// - accumulators are the next product's A operand where one product feeds
+//   the next (q, the scores, the context, the blocks' inner activation,
+//   the stage's cotangents through W3 and W1xc): the rest come from the
+//   warp's own rows of X or Y (frag_smem), read as float2, each thread
+//   reading the positions it wrote.
+// - the weight gradients are 16 x 32 or 32 x 32 output blocks dealt to the
+//   warps in turn (nt_dot), read-modify-written in the CTA's slab once a
+//   tile and product; the bias and time-row gradients are column sums over
+//   the tile's rows in a fixed order. No atomics.
+namespace vjp32 {
+
+using k5::frag_regs;
+using k5::frag_smem;
+using k5::mma_tf32;
+using k5::split;
+using k5::zero;
+
+constexpr int SQ = DZ + 8;    // row strides (floats), 8 mod 32, so that the
+constexpr int SH = H + 8;     //   8 rows a fragment reads hit distinct
+constexpr int SX = DA + 8;    //   banks: the zones' box, X and Y, DA rows
+constexpr int kZB = 32;       // zones a box
+// floats of a box's TF32 parts, and again of their remainders (kPlane on):
+// the largest box, the zones'
+constexpr int kPlane = kZB * SQ + DZ * (kZB + 8);
+constexpr int kBox = 2 * kPlane;  // floats of a box, and of a ring slot
+constexpr int kSlots = 2;
+constexpr int kMaxW = 8;      // warps a CTA at most
+static_assert(DZ * SX <= kPlane && 32 * SH <= kPlane && 64 * SX <= kPlane &&
+                  DA * SQ <= kPlane && kPlane % 4 == 0,
+              "box shapes");
+static_assert(DF + DC == H && DF == 3 * 32 && DC == 32 && kZB == kZC &&
+                  2 * DZ == H,
+              "the W1 quarters hold [W1xc^T | W1h^T]; W1xc by 32 rows; Y "
+              "holds [gctx | q]");
+
+// a warp's saved stage, after its step state in its scratch (fragment
+// order): x | ctx | q | the chain's levels 0 .. nb
+constexpr int kFQ = (DZ / 8) * 4 * 32;   // floats of a DZ-wide array
+constexpr int kFH = (H / 8) * 4 * 32;    // floats of an H-wide array
+constexpr int kSvCtx = kFX, kSvQ = kFX + kFQ, kSvLevels = kFX + 2 * kFQ;
+
+// floats of a warp's scratch at nb blocks: the step state, its saved stage
+__host__ __device__ constexpr long warp_floats(int nb) {
+  return kWarpFloats + kSvLevels + (long)(nb + 1) * kFH;
+}
+
+// floats of a CTA's dynamic shared memory at `warps` warps: the ring, the
+// X and Y rows, the ring's mbarriers
+__host__ __device__ constexpr size_t smem_floats(int warps) {
+  return (size_t)kSlots * kBox + (size_t)2 * 16 * warps * SH + 2 * kSlots;
+}
+
+// the most warps (up to kMaxW) whose rows fit the SM's shared memory beside
+// the ring and `extra` bytes (K6's output times): 8 with none; 0 if not
+// even one fits
+inline int warps_for(size_t extra) {
+  for (int w = kMaxW; w >= 1; --w)
+    if (smem_floats(w) * sizeof(float) + extra <= kMaxSmem) return w;
+  return 0;
+}
+
+// A tile's shared memory (16 rows a warp): the ring | X [rows][SH] | Y
+// [rows][SH] | the ring's mbarriers
+struct Smem {
+  __device__ __forceinline__ static float* base() {
+    extern __shared__ __align__(16) float vjp32_smem[];
+    return vjp32_smem;
+  }
+  __device__ __forceinline__ static int rows() { return blockDim.x >> 1; }
+  __device__ __forceinline__ static float* ring() { return base(); }
+  __device__ __forceinline__ static float* x() {
+    return base() + kSlots * kBox;
+  }
+  __device__ __forceinline__ static float* y() { return x() + rows() * SH; }
+  __device__ __forceinline__ static float* bars() {
+    return y() + rows() * SH;
+  }
+};
+
+// x = hi + lo: hi is x rounded to TF32 (the nearest value with the low 13
+// mantissa bits clear, ties away from zero), lo = x - hi exactly, of either
+// sign and at most half hi's last place, of which the tensor core reads
+// the top 11 bits: x to about 2^-23 |x|, without a bias toward zero
+__device__ __forceinline__ void split_rn(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// acc[j0 + j] (j < NT) += A B in 3xTF32: A the warp's 16 rows by KS slices
+// of 8 (af(s, a) gives slice s's fragment, split here), B^T the NT 8-row
+// tiles of a ring box at row stride S, its TF32 parts there and their
+// remainders kPlane floats on (row n holds output column n's weights, k
+// contiguous; a thread's two values of a fragment are one float2). The
+// tensor core's sums truncate, so two slices at a time go into a zeroed
+// partial that a float32 add then rounds into acc.
+template <int KS, int NT, int NOUT, class AF>
+__device__ __forceinline__ void mma3_at(float (&acc)[NOUT][4], int j0, AF af,
+                                        const float* bt, int S, int g,
+                                        int t) {
+  static_assert(KS % 2 == 0, "slices in pairs");
+  const float* bp = bt + g * S + 2 * t;
+#pragma unroll
+  for (int s0 = 0; s0 < KS; s0 += 2) {
+    float pt[NT][4];
+    zero(pt);
+#pragma unroll
+    for (int s = s0; s < s0 + 2; ++s) {
+      float a[4];
+      af(s, a);
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_rn(a[e], ah[e], al[e]);
+      uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 h =
+            *reinterpret_cast<const float2*>(bp + 8 * j * S + 8 * s);
+        const float2 l = *reinterpret_cast<const float2*>(
+            bp + kPlane + 8 * j * S + 8 * s);
+        bh[j][0] = __float_as_uint(h.x); bh[j][1] = __float_as_uint(h.y);
+        bl[j][0] = __float_as_uint(l.x); bl[j][1] = __float_as_uint(l.y);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_tf32(pt[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_tf32(pt[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_tf32(pt[j], ah, bh[j][0], bh[j][1]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j0 + j][e] += pt[j][e];
+  }
+}
+
+// acc += A B in 3xTF32, every accumulator of acc (mma3_at)
+template <int KS, int NT, class AF>
+__device__ __forceinline__ void mma3(float (&acc)[NT][4], AF af,
+                                     const float* bt, int S, int g, int t) {
+  mma3_at<KS, NT, NT>(acc, 0, af, bt, S, g, t);
+}
+
+// The weight boxes. A period, one step, consumes the boxes of 5 stage
+// forwards (F), then of 6 (F, B) pairs, then the h rows' box:
+//   F: Wq^T (DZ x DA) | zones x nzc | W1 quarters (32 rows of [W1xc^T |
+//      W1h^T]) | per block the quarters of Wr1^T, then of Wr2^T (32 x H) |
+//      W3^T (DA x H)
+//   B: W3 halves (64 x DA) | per block, last first: the quarters of Wr1^T,
+//      Wr2, Wr1 | W1xc by 32 rows | zones x nzc (the attention VJP's first
+//      pass), again (its second) | Wq (DA x DZ)
+//   h: W1h (DC x H)
+// A zones box is 32 rows of ze (stride SQ) beside ze^T's same 32 columns
+// (DZ x 32, stride 40). The distinct boxes sit in the bank (w.bank) in the
+// layout a ring slot takes, kBox floats each, their TF32 parts and then
+// their remainders: the F boxes in that order (ids 0 .. fwd - 1), then the
+// W3 halves, per block the quarters of Wr2 and of Wr1, W1xc's three, Wq and
+// W1h. split_boxes writes it once a launch; a ring slot takes a box by one
+// linear copy.
+struct Boxes {
+  __host__ __device__ static int nzc(int zp) { return zp / kZB; }
+  __host__ __device__ static int fwd(int zp, int nb) {
+    return 6 + nzc(zp) + 8 * nb;
+  }
+  __host__ __device__ static int vjp(int zp, int nb) {
+    return 6 + 12 * nb + 2 * nzc(zp);
+  }
+  __host__ __device__ static int period(int zp, int nb) {
+    return 11 * fwd(zp, nb) + 6 * vjp(zp, nb) + 1;
+  }
+  // boxes in the bank
+  __host__ __device__ static int count(int zp, int nb) {
+    return fwd(zp, nb) + 7 + 8 * nb;
+  }
+
+  // the bank's box for box i of a period
+  __device__ static int id(const Weights& w, int i) {
+    const int nz = nzc(w.zp), nb = w.nb, nf = fwd(w.zp, nb),
+              nv = vjp(w.zp, nb);
+    if (i >= 5 * nf + 6 * (nf + nv)) return nf + 6 + 8 * nb;  // W1h
+    int k = i % nf;
+    if (i >= 5 * nf) {
+      k = (i - 5 * nf) % (nf + nv);
+      if (k < nf) return k;
+      k -= nf;
+    } else {
+      return k;
+    }
+    if (k < 2) return nf + k;  // W3 halves
+    if (k < 2 + 12 * nb) {
+      const int kk = k - 2, b = nb - 1 - kk / 12, r = kk % 12;
+      return r < 4 ? nz + 5 + 8 * b + r : nf + 2 + 8 * b + (r - 4);
+    }
+    if (k < 5 + 12 * nb) return nf + 2 + 8 * nb + (k - 2 - 12 * nb);
+    if (k < nv - 1) {
+      const int zc = k - 5 - 12 * nb;
+      return 1 + (zc < nz ? zc : zc - nz);
+    }
+    return nf + 5 + 8 * nb;  // Wq
+  }
+
+  // piece `seg` (0 or 1) of bank box `b`: rows x cols floats from src (row
+  // stride ss) to the box's plane from float `at` (row stride ds); false
+  // past the box's pieces
+  __device__ static bool piece(const Weights& w, int b, int seg,
+                               const float*& src, int& ss, int& rows,
+                               int& cols, int& ds, int& at) {
+    const int nz = nzc(w.zp), nb = w.nb, nf = fwd(w.zp, nb);
+    at = 0;
+    if (b >= 1 && b <= nz) {  // zones: ze's rows, then ze^T's columns
+      const int z0 = kZB * (b - 1);
+      if (seg == 0) {
+        src = w.ze + (size_t)z0 * DZ; ss = DZ; rows = kZB; cols = DZ;
+        ds = SQ;
+      } else {
+        src = w.zeT + z0; ss = w.zp; rows = DZ; cols = kZB; ds = kZB + 8;
+        at = kZB * SQ;
+      }
+      return true;
+    }
+    if (b > nz && b <= nz + 4) {  // W1 quarters: [W1xc^T | W1h^T]
+      const int qq = b - nz - 1;
+      if (seg == 0) {
+        src = w.w1xcT + (size_t)32 * qq * DF; ss = DF; cols = DF;
+      } else {
+        src = w.w1hT + (size_t)32 * qq * DC; ss = DC; cols = DC; at = DF;
+      }
+      rows = 32; ds = SH;
+      return true;
+    }
+    if (seg) return false;
+    rows = 32; cols = H; ss = H; ds = SH;
+    if (b == 0) {
+      src = w.wqT; ss = DA; rows = DZ; cols = DA; ds = SX;
+    } else if (b < nf - 1) {  // F: Wr1^T, Wr2^T quarters
+      const int kk = b - nz - 5, m = 2 * (kk >> 3) + ((kk >> 2) & 1);
+      src = w.wrT + ((size_t)m * H + 32 * (kk & 3)) * H;
+    } else if (b == nf - 1) {
+      src = w.w3T; rows = DA;
+    } else if (b < nf + 2) {  // W3 halves
+      src = w.w3 + (size_t)64 * (b - nf) * DA; ss = DA; rows = 64;
+      cols = DA; ds = SX;
+    } else if (b < nf + 2 + 8 * nb) {  // Wr2, then Wr1 quarters
+      const int kk = b - nf - 2, blk = kk >> 3, r = kk & 7;
+      src = w.wr + ((size_t)(2 * blk + (r < 4)) * H + 32 * (r & 3)) * H;
+    } else if (b < nf + 5 + 8 * nb) {  // W1xc by 32 rows
+      src = w.w1xc + (size_t)32 * (b - nf - 2 - 8 * nb) * H;
+    } else if (b == nf + 5 + 8 * nb) {
+      src = w.wq; ss = DZ; rows = DA; cols = DZ; ds = SQ;
+    } else {
+      src = w.w1h; rows = DC;
+    }
+    return true;
+  }
+};
+
+// the bank: every weight box of the step VJP split into its TF32 parts
+// (split_rn), box blockIdx.x a CTA
+__global__ void __launch_bounds__(256)
+    split_boxes(const Weights w) {
+  float* box = w.bank + (size_t)blockIdx.x * kBox;
+  for (int seg = 0; seg < 2; ++seg) {
+    const float* src;
+    int ss, rows, cols, ds, at;
+    if (!Boxes::piece(w, blockIdx.x, seg, src, ss, rows, cols, ds, at))
+      break;
+    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+      const int r = e / cols, c = e - r * cols;
+      uint32_t hi, lo;
+      split_rn(src[(size_t)r * ss + c], hi, lo);
+      box[at + r * ds + c] = __uint_as_float(hi);
+      box[kPlane + at + r * ds + c] = __uint_as_float(lo);
+    }
+  }
+}
+
+// The weight ring: box i of the launch goes to slot i % kSlots, one box
+// ahead of the one the warps read, by one bulk copy (TMA, no tensor map) of
+// its bank box that the CTA's first thread issues and the slot's mbarrier
+// counts in; every thread takes the boxes in that order, one block barrier
+// a box.
+struct Ring {
+  int c;  // boxes consumed, the same in every thread
+
+  __device__ __forceinline__ static int period(const Weights& w) {
+    return Boxes::period(w.zp, w.nb);
+  }
+  __device__ __forceinline__ static float* slot(int i) {
+    return Smem::ring() + (i % kSlots) * kBox;
+  }
+  __device__ __forceinline__ static uint32_t bar(int i) {
+    return static_cast<uint32_t>(
+               __cvta_generic_to_shared(Smem::bars())) + 8 * (i % kSlots);
+  }
+  // box i into its slot (the CTA's first thread, once every thread is done
+  // with the box the slot held: a block barrier, then this proxy fence)
+  __device__ static void issue(const Weights& w, int i) {
+    const float* src = w.bank + (size_t)Boxes::id(w, i % period(w)) * kBox;
+    const uint32_t dst =
+        static_cast<uint32_t>(__cvta_generic_to_shared(slot(i)));
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar(i)), "r"(kBox * 4) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+        "l"(src), "r"(kBox * 4), "r"(bar(i))
+        : "memory");
+  }
+  // box i landed (every thread); a copy that never lands fails the launch
+  // (trap) rather than hang the card
+  __device__ static void wait(int i) {
+    const int parity = (i / kSlots) & 1;
+    for (int k = 0;; ++k) {
+      uint32_t done;
+      asm volatile(
+          "{\n.reg .pred P;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+          "selp.b32 %0, 1, 0, P;\n}\n"
+          : "=r"(done)
+          : "r"(bar(i)), "r"(parity)
+          : "memory");
+      if (done) return;
+      if (k == (1 << 24)) __trap();
+    }
+  }
+  // the slots' barriers and the launch's first box (every thread)
+  __device__ static void prime(const Weights& w) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kSlots; ++s)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar(s))
+                     : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      issue(w, 0);
+    }
+    __syncthreads();
+  }
+  // box i, issued and not consumed, landed before the CTA exits (every
+  // thread)
+  __device__ static void drain(int i) { wait(i); }
+  // The next box, landed. The barrier before it tells that every warp is
+  // done with the box before, whose slot then takes the next box's copy.
+  __device__ const float* next(const Weights& w) {
+    __syncthreads();
+    if (threadIdx.x == 0) issue(w, c + 1);
+    wait(c);
+    return slot(c++);
+  }
+};
+
+// accumulator tiles -> the warp's 16 rows in shared memory (row stride S),
+// tile j at column 8 j
+template <int NT>
+__device__ __forceinline__ void st_c(const float (&c)[NT][4], float* rows,
+                                     int S, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    *reinterpret_cast<float2*>(rows + g * S + 8 * j + 2 * t) =
+        make_float2(c[j][0], c[j][1]);
+    *reinterpret_cast<float2*>(rows + (g + 8) * S + 8 * j + 2 * t) =
+        make_float2(c[j][2], c[j][3]);
+  }
+}
+
+// the accumulator-layout values of the 8 columns from `col` of the warp's
+// rows in shared memory
+__device__ __forceinline__ void ld_c(float (&v)[4], const float* rows, int S,
+                                     int col, int g, int t) {
+  const float2 a = *reinterpret_cast<const float2*>(rows + g * S + col + 2 * t);
+  const float2 b =
+      *reinterpret_cast<const float2*>(rows + (g + 8) * S + col + 2 * t);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// the NT tiles of a saved array (fragment order) -> the warp's 16 rows in
+// shared memory from column `col` (row stride S)
+template <int NT>
+__device__ __forceinline__ void sv_to_rows(const float* sv, float* rows,
+                                           int S, int col, int g, int t,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float* p = sv + 4 * j * 32 + lane;
+    *reinterpret_cast<float2*>(rows + g * S + col + 8 * j + 2 * t) =
+        make_float2(p[0], p[32]);
+    *reinterpret_cast<float2*>(rows + (g + 8) * S + col + 8 * j + 2 * t) =
+        make_float2(p[64], p[96]);
+  }
+}
+
+// tile j of an accumulator-layout array -> its slots of a saved array
+__device__ __forceinline__ void sv_st(const float (&c)[4], float* sv, int j,
+                                      int lane) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) sv[(4 * j + e) * 32 + lane] = c[e];
+}
+
+// out (M x N, row stride N) += A1^T B1 [+ A2^T B2] over the tile's rows, in
+// 3xTF32: A (rows x M) and B (rows x N) row-major in shared memory. Output
+// blocks of 16 MT x 32 are dealt to the warps in turn (MT 2 where there are
+// blocks for every warp: a B fragment split once serves twice the
+// products); a block's 8-row slice takes one A fragment (split once) for
+// its four tiles of each 16 rows, and the block's slab values are read in
+// one round trip before its products. Rows of out at or past m_valid are
+// neither read nor written. Every thread calls it, after a barrier that
+// lands the operands.
+template <int M, int N, bool TWO, int MT = 1>
+__device__ __forceinline__ void nt_dot(const float* A1, int sa1,
+                                       const float* B1, int sb1,
+                                       const float* A2, int sa2,
+                                       const float* B2, int sb2, float* out,
+                                       int m_valid) {
+  static_assert(N % 32 == 0 && M % (16 * MT) == 0, "blocks");
+  constexpr int NB = N / 32, BLOCKS = (M / (16 * MT)) * NB;
+  const int warps = blockDim.x >> 5, rows = 16 * warps;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int blk = threadIdx.x >> 5; blk < BLOCKS; blk += warps) {
+    const int m0 = (blk / NB) * 16 * MT, n0 = (blk % NB) * 32;
+    float acc[MT][4][4], old[MT][4][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int ma = m0 + 16 * i + g, mb = ma + 8;
+      const bool va = ma < m_valid, vb = mb < m_valid;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n0 + 8 * j + 2 * t;
+        const float2 z2 = make_float2(0.f, 0.f);
+        const float2 lo =
+            va ? *reinterpret_cast<const float2*>(out + ma * N + c) : z2;
+        const float2 hi =
+            vb ? *reinterpret_cast<const float2*>(out + mb * N + c) : z2;
+        old[i][j][0] = lo.x; old[i][j][1] = lo.y;
+        old[i][j][2] = hi.x; old[i][j][3] = hi.y;
+        acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+      }
+    }
+    // one 8-row slice of A^T B: row k0 + t is mma k t, k0 + t + 4 is t + 4
+    auto slice = [&](const float* A, int sa, const float* B, int sb,
+                     int k0) {
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float* a0 = A + (k0 + t) * sa + m0 + 16 * i + g;
+        const float* a1 = a0 + 4 * sa;
+        split(a0[0], ah[i][0], al[i][0]);
+        split(a0[8], ah[i][1], al[i][1]);
+        split(a1[0], ah[i][2], al[i][2]);
+        split(a1[8], ah[i][3], al[i][3]);
+      }
+      const float* b0 = B + (k0 + t) * sb + n0 + g;
+      const float* b1 = b0 + 4 * sb;
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        split(b0[8 * j], bh[j][0], bl[j][0]);
+        split(b1[8 * j], bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_tf32(acc[i][j], al[i], bh[j][0], bh[j][1]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_tf32(acc[i][j], ah[i], bl[j][0], bl[j][1]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_tf32(acc[i][j], ah[i], bh[j][0], bh[j][1]);
+    };
+#pragma unroll 2
+    for (int k0 = 0; k0 < rows; k0 += 8) {
+      slice(A1, sa1, B1, sb1, k0);
+      if (TWO) slice(A2, sa2, B2, sb2, k0);
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int ma = m0 + 16 * i + g, mb = ma + 8;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n0 + 8 * j + 2 * t;
+        if (ma < m_valid)
+          *reinterpret_cast<float2*>(out + ma * N + c) = make_float2(
+              old[i][j][0] + acc[i][j][0], old[i][j][1] + acc[i][j][1]);
+        if (mb < m_valid)
+          *reinterpret_cast<float2*>(out + mb * N + c) = make_float2(
+              old[i][j][2] + acc[i][j][2], old[i][j][3] + acc[i][j][3]);
+      }
+    }
+  }
+}
+
+template <int M, int N, int MT = 1>
+__device__ __forceinline__ void nt_dot1(const float* A, int sa, const float* B,
+                                        int sb, float* out) {
+  nt_dot<M, N, false, MT>(A, sa, B, sb, nullptr, 0, nullptr, 0, out, M);
+}
+
+// out[n] += the sum over the tile's rows of B[r][n], n < N, in a fixed
+// order (four running sums over the rows mod 4): a bias or time-row
+// gradient. Every thread calls it, after a barrier that lands B.
+template <int N>
+__device__ __forceinline__ void colsum(const float* B, int sb, float* out) {
+  const int rows = Smem::rows();
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+    for (int r = 0; r < rows; r += 4) {
+      s0 += B[r * sb + n];
+      s1 += B[(r + 1) * sb + n];
+      s2 += B[(r + 2) * sb + n];
+      s3 += B[(r + 3) * sb + n];
+    }
+    out[n] += (s0 + s1) + (s2 + s3);
+  }
+}
+
+// k = stage(x) for the warp's 16 rows (wr0: its first row in the tile): x,
+// k 16 x DA tiles in accumulator layout, h the rows' context (read from
+// device memory, rows past n as zeros), tfs the stage's time row; the
+// chain in the warp's rows of X, in place. With sv, what the VJP reads is
+// kept there: x, ctx, q and the chain's levels. Returns the softmax's row
+// normalisers. Every thread of the CTA calls it (the ring's barriers).
+__device__ __forceinline__ void stage_fwd(const Weights& w, Ring& ring,
+                                          const float (&x)[4][4],
+                                          const float* h, long ra, long rb,
+                                          bool va, bool vb, const float* tfs,
+                                          float (&k)[4][4], float& inv_a,
+                                          float& inv_b, float* sv, int wr0,
+                                          int g, int t, int lane) {
+  float* zr = Smem::x() + wr0 * SH;
+  // q = x Wq
+  float q[8][4];
+  zero(q);
+  mma3<4>(q, [&](int s, float (&a)[4]) { frag_regs(x[s], a); },
+          ring.next(w), SX, g, t);
+  if (sv) {
+    ananke::frag_st<4>(x, sv, lane);
+    ananke::frag_st<8>(q, sv + kSvQ, lane);
+  }
+  // the attention by boxes of 32 zones: p = exp(min(q ze^T scale, 80)) (0
+  // past z), ctx = (sum of p ze) / (sum of p)
+  float ctx[8][4], rs_a = 0.f, rs_b = 0.f;
+  zero(ctx);
+#pragma unroll 1
+  for (int z0 = 0; z0 < w.zp; z0 += kZB) {
+    const float* box = ring.next(w);
+    float sc[4][4];
+    zero(sc);
+    mma3<8>(sc, [&](int s, float (&a)[4]) { frag_regs(q[s], a); }, box, SQ,
+            g, t);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int zi = z0 + 8 * j + 2 * t + (e & 1);
+        const float v =
+            zi < w.z ? expf(fminf(sc[j][e] * w.scale, 80.f)) : 0.f;
+        sc[j][e] = v;
+        if (e < 2) rs_a += v; else rs_b += v;
+      }
+    mma3<4>(ctx, [&](int s, float (&a)[4]) { frag_regs(sc[s], a); },
+            box + kZB * SQ, kZB + 8, g, t);
+  }
+#pragma unroll
+  for (int m = 1; m <= 2; m <<= 1) {
+    rs_a += __shfl_xor_sync(kFull, rs_a, m);
+    rs_b += __shfl_xor_sync(kFull, rs_b, m);
+  }
+  inv_a = 1.f / rs_a;
+  inv_b = 1.f / rs_b;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    ctx[j][0] *= inv_a; ctx[j][1] *= inv_a;
+    ctx[j][2] *= inv_b; ctx[j][3] *= inv_b;
+  }
+  if (sv) ananke::frag_st<8>(ctx, sv + kSvCtx, lane);
+  // z = tanh([x | ctx | h] [W1xc; W1h] + tf), by quarters of its columns:
+  // chain level 0
+  float hf[DC / 8][4];
+  ananke::ldg_rows_c<DC / 8>(hf, h, ra, rb, va, vb, t);
+  float* lv = sv ? sv + kSvLevels : nullptr;
+#pragma unroll 1
+  for (int qq = 0; qq < 4; ++qq) {
+    const float* box = ring.next(w);
+    float acc[4][4];
+    zero(acc);
+    mma3<16>(acc, [&](int s, float (&a)[4]) {
+      if (s < 4) frag_regs(x[s & 3], a);
+      else if (s < 12) frag_regs(ctx[(s - 4) & 7], a);
+      else frag_regs(hf[(s - 12) & 3], a);
+    }, box, SH, g, t);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = 32 * qq + 8 * j + 2 * t;
+      const float2 tf = __ldg(reinterpret_cast<const float2*>(tfs + n));
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[j][e] = tanhf(acc[j][e] + ((e & 1) ? tf.y : tf.x));
+      *reinterpret_cast<float2*>(zr + g * SH + n) =
+          make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(zr + (g + 8) * SH + n) =
+          make_float2(acc[j][2], acc[j][3]);
+      if (lv) sv_st(acc[j], lv, 4 * qq + j, lane);
+    }
+  }
+  // residual blocks: rt = tanh(z Wr1 + br1) (registers), then z = tanh(z +
+  // rt Wr2 + br2) in place: the next level
+#pragma unroll 1
+  for (int b = 0; b < w.nb; ++b) {
+    const float* br1 = w.br + (2 * b) * H;
+    const float* br2 = w.br + (2 * b + 1) * H;
+    float rt[16][4];
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      const float* box = ring.next(w);
+      float acc[4][4];
+      zero(acc);
+      mma3<16>(acc, [&](int s, float (&a)[4]) {
+        frag_smem(zr, SH, s, a, g, t);
+      }, box, SH, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 bb = __ldg(
+            reinterpret_cast<const float2*>(br1 + 32 * qq + 8 * j + 2 * t));
+        rt[4 * qq + j][0] = tanhf(acc[j][0] + bb.x);
+        rt[4 * qq + j][1] = tanhf(acc[j][1] + bb.y);
+        rt[4 * qq + j][2] = tanhf(acc[j][2] + bb.x);
+        rt[4 * qq + j][3] = tanhf(acc[j][3] + bb.y);
+      }
+    }
+#pragma unroll 1
+    for (int qq = 0; qq < 4; ++qq) {
+      const float* box = ring.next(w);
+      float acc[4][4];
+      zero(acc);
+      mma3<16>(acc, [&](int s, float (&a)[4]) { frag_regs(rt[s], a); }, box,
+               SH, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = 32 * qq + 8 * j;
+        const float2 bb =
+            __ldg(reinterpret_cast<const float2*>(br2 + n + 2 * t));
+        float zi[4];
+        ld_c(zi, zr, SH, n, g, t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[j][e] = tanhf(zi[e] + acc[j][e] + ((e & 1) ? bb.y : bb.x));
+        *reinterpret_cast<float2*>(zr + g * SH + n + 2 * t) =
+            make_float2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<float2*>(zr + (g + 8) * SH + n + 2 * t) =
+            make_float2(acc[j][2], acc[j][3]);
+        if (lv) sv_st(acc[j], lv + (b + 1) * kFH, 4 * qq + j, lane);
+      }
+    }
+  }
+  // k = z W3 + b3
+  zero(k);
+  mma3<16>(k, [&](int s, float (&a)[4]) { frag_smem(zr, SH, s, a, g, t); },
+           ring.next(w), SH, g, t);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 bb =
+        __ldg(reinterpret_cast<const float2*>(w.b3 + 8 * j + 2 * t));
+    k[j][0] += bb.x; k[j][1] += bb.y; k[j][2] += bb.x; k[j][3] += bb.y;
+  }
+}
+
+// The VJP of the last stage_fwd (which kept its stage in sv; the chain's
+// level nb in X) at cotangent gk (the warp's rows, 16 x DA in accumulator
+// layout; inv_a, inv_b its softmax normalisers): gx (accumulator layout)
+// into gx_slot (the warp's scratch, fragment order), the cotangent of
+// Dense_0's h-row pre-activation added into ghp ([H / 8 * 4][32], fragment
+// order), the summed gradients into the slab (the time row's at gtf).
+// Each contraction's operands go into X and Y (zr, or: the rows holding
+// the chain's level, which alternate between X and Y down the blocks),
+// every warp's own rows, before a barrier. Every thread of the CTA calls
+// it.
+__device__ __forceinline__ void stage_bwd(const Weights& w, Ring& ring,
+                                          const float (&gk)[4][4],
+                                          float inv_a, float inv_b,
+                                          float* slab, const SlabLayout& L,
+                                          long gtf, float* gx_slot,
+                                          float* ghp, const float* sv,
+                                          int wr0, int g, int t, int lane) {
+  const int nb = w.nb;
+  float* zr = Smem::x();  // the chain's level nb, every warp's rows
+  float* orr = Smem::y();
+  const int o = wr0 * SH;  // the warp's rows
+  // k = z W3 + b3: gW3 += z^T gk, gb3 += sum gk, gz = gk W3^T (gk in Y;
+  // every warp's rows land before the W3 boxes' barriers)
+  st_c(gk, orr + o, SH, g, t);
+  float gz[16][4];
+  zero(gz);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    mma3_at<4, 8>(gz, 8 * hf,
+                  [&](int s, float (&a)[4]) { frag_regs(gk[s], a); },
+                  ring.next(w), SX, g, t);
+  nt_dot1<H, DA>(zr, SH, orr, SH, slab + L.gw3);
+  colsum<DA>(orr, SH, slab + L.gb3);
+  // residual blocks, reversed: z_out = tanh(z_in + rt Wr2 + br2), rt =
+  // tanh(z_in Wr1 + br1); z_out in zr's rows, the other rows free
+#pragma unroll 1
+  for (int b = nb - 1; b >= 0; --b) {
+    const float* br1 = w.br + (2 * b) * H;
+    const float* zin = sv + kSvLevels + b * kFH;
+    // gpre = gz (1 - z_out^2) into the other rows, z_in into zr's (every
+    // warp done with both: the barrier)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float zo[4];
+      ld_c(zo, zr + o, SH, 8 * j, g, t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        gz[j][e] = __fmul_rn(gz[j][e], __fsub_rn(1.f, __fmul_rn(zo[e], zo[e])));
+    }
+    __syncthreads();
+    st_c(gz, orr + o, SH, g, t);
+    sv_to_rows<16>(zin, zr + o, SH, 0, g, t, lane);
+    // rt recomputed (registers), then in zr's rows over z_in
+    float rt[16][4];
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      const float* box = ring.next(w);
+      float acc[4][4];
+      zero(acc);
+      mma3<16>(acc, [&](int s, float (&a)[4]) {
+        frag_smem(zr + o, SH, s, a, g, t);
+      }, box, SH, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 bb = __ldg(
+            reinterpret_cast<const float2*>(br1 + 32 * qq + 8 * j + 2 * t));
+        rt[4 * qq + j][0] = tanhf(acc[j][0] + bb.x);
+        rt[4 * qq + j][1] = tanhf(acc[j][1] + bb.y);
+        rt[4 * qq + j][2] = tanhf(acc[j][2] + bb.x);
+        rt[4 * qq + j][3] = tanhf(acc[j][3] + bb.y);
+      }
+    }
+    st_c(rt, zr + o, SH, g, t);
+    __syncthreads();
+    // gWr2 += rt^T gpre, gbr2 += sum gpre
+    nt_dot1<H, H, 2>(zr, SH, orr, SH, slab + L.wr2(b));
+    colsum<H>(orr, SH, slab + L.br2(b));
+    // gpre2 = (gpre Wr2^T) (1 - rt^2) in place of rt (the boxes' barriers
+    // order it after every warp's nt_dot)
+#pragma unroll 1
+    for (int qq = 0; qq < 4; ++qq) {
+      const float* box = ring.next(w);
+      float acc[4][4];
+      zero(acc);
+      mma3<16>(acc, [&](int s, float (&a)[4]) {
+        frag_smem(orr + o, SH, s, a, g, t);
+      }, box, SH, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = 32 * qq + 8 * j;
+        float rv[4];
+        ld_c(rv, zr + o, SH, n, g, t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[j][e] = __fmul_rn(acc[j][e],
+                                __fsub_rn(1.f, __fmul_rn(rv[e], rv[e])));
+        *reinterpret_cast<float2*>(zr + o + g * SH + n + 2 * t) =
+            make_float2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<float2*>(zr + o + (g + 8) * SH + n + 2 * t) =
+            make_float2(acc[j][2], acc[j][3]);
+      }
+    }
+    // gz = gpre + gpre2 Wr1^T
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      const float* box = ring.next(w);
+      float acc[4][4];
+      zero(acc);
+      mma3<16>(acc, [&](int s, float (&a)[4]) {
+        frag_smem(zr + o, SH, s, a, g, t);
+      }, box, SH, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float gp[4];
+        ld_c(gp, orr + o, SH, 32 * qq + 8 * j, g, t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gz[4 * qq + j][e] = gp[e] + acc[j][e];
+      }
+    }
+    // gWr1 += z_in^T gpre2, gbr1 += sum gpre2: z_in into the other rows
+    // (this warp's gpre there read for the last time above)
+    sv_to_rows<16>(zin, orr + o, SH, 0, g, t, lane);
+    __syncthreads();
+    nt_dot1<H, H, 2>(orr, SH, zr, SH, slab + L.wr1(b));
+    colsum<H>(zr, SH, slab + L.br1(b));
+    // z_in, the next block's z_out, is in the other rows
+    float* sw = zr;
+    zr = orr;
+    orr = sw;
+  }
+  // z1 = tanh(feats W1xc + h W1h + tf), level 0 in zr's rows: gpre1 = gz (1
+  // - z1^2) (in gz and the other rows); ghp += gpre1; gtf += sum gpre1;
+  // gW1xc += feats^T gpre1 (feats [x | ctx] into zr's rows); [gxb | gctx] =
+  // gpre1 W1xc^T
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float zv[4];
+    ld_c(zv, zr + o, SH, 8 * j, g, t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      gz[j][e] = __fmul_rn(gz[j][e], __fsub_rn(1.f, __fmul_rn(zv[e], zv[e])));
+      ghp[(4 * j + e) * 32 + lane] += gz[j][e];
+    }
+  }
+  __syncthreads();
+  st_c(gz, orr + o, SH, g, t);
+  sv_to_rows<DA / 8>(sv, zr + o, SH, 0, g, t, lane);
+  sv_to_rows<DZ / 8>(sv + kSvCtx, zr + o, SH, DA, g, t, lane);
+  {
+    // gxb waits in the stage's gx slot through the attention VJP
+    float gxb[4][4];
+    zero(gxb);
+    mma3<16>(gxb, [&](int s, float (&a)[4]) { frag_regs(gz[s], a); },
+             ring.next(w), SH, g, t);
+    ananke::frag_st<4>(gxb, gx_slot, lane);
+  }
+  float gctx[8][4];
+  zero(gctx);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    mma3_at<16, 4>(gctx, 4 * hf,
+                   [&](int s, float (&a)[4]) { frag_regs(gz[s], a); },
+                   ring.next(w), SH, g, t);
+  nt_dot1<DF, H>(zr, SH, orr, SH, slab + L.gw1);
+  colsum<H>(orr, SH, slab + gtf);
+  // the attention's VJP by boxes of 32 zones, [gctx | q] in the other rows
+  // (after every warp's nt_dot), attn recomputed; two passes: S =
+  // sum(attn gattn) per row, then ds = attn (gattn - S) scale, gq += ds
+  // ze, gze += attn^T gctx + ds^T q ([attn | ds] in zr's rows)
+  __syncthreads();
+  st_c(gctx, orr + o, SH, g, t);
+  sv_to_rows<DZ / 8>(sv + kSvQ, orr + o, SH, DZ, g, t, lane);
+  auto scores = [&](const float* box, int z0, float (&at)[4][4],
+                    float (&ga)[4][4]) {
+    zero(at);
+    zero(ga);
+    mma3<8>(at, [&](int s, float (&a)[4]) {
+      frag_smem(orr + o + DZ, SH, s, a, g, t);
+    }, box, SQ, g, t);
+    mma3<8>(ga, [&](int s, float (&a)[4]) {
+      frag_smem(orr + o, SH, s, a, g, t);
+    }, box, SQ, g, t);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int zi = z0 + 8 * j + 2 * t + (e & 1);
+        at[j][e] = zi < w.z ? expf(fminf(at[j][e] * w.scale, 80.f)) *
+                                  ((e & 2) ? inv_b : inv_a)
+                            : 0.f;
+      }
+  };
+  float S_a = 0.f, S_b = 0.f;
+#pragma unroll 1
+  for (int z0 = 0; z0 < w.zp; z0 += kZB) {
+    float at[4][4], ga[4][4];
+    scores(ring.next(w), z0, at, ga);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      S_a += at[j][0] * ga[j][0] + at[j][1] * ga[j][1];
+      S_b += at[j][2] * ga[j][2] + at[j][3] * ga[j][3];
+    }
+  }
+#pragma unroll
+  for (int m = 1; m <= 2; m <<= 1) {
+    S_a += __shfl_xor_sync(kFull, S_a, m);
+    S_b += __shfl_xor_sync(kFull, S_b, m);
+  }
+  float gq[8][4];
+  zero(gq);
+#pragma unroll 1
+  for (int z0 = 0; z0 < w.zp; z0 += kZB) {
+    const float* box = ring.next(w);
+    float at[4][4], ds[4][4];
+    scores(box, z0, at, ds);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[j][e] = __fmul_rn(
+            __fmul_rn(at[j][e], __fsub_rn(ds[j][e], (e & 2) ? S_b : S_a)),
+            w.scale);
+    st_c(at, zr + o, SH, g, t);
+    st_c(ds, zr + o + kZB, SH, g, t);
+    mma3<4>(gq, [&](int s, float (&a)[4]) { frag_regs(ds[s], a); },
+            box + kZB * SQ, kZB + 8, g, t);
+    __syncthreads();
+    // gze's rows of this box: zones past z are neither read nor written
+    nt_dot<kZB, DZ, true>(zr, SH, orr, SH, zr + kZB, SH, orr + DZ, SH,
+                          slab + (size_t)z0 * DZ, w.z - z0);
+  }
+  // q = x Wq: gx = gxb + gq Wq^T into the gx slot, gWq += x^T gq (gq in the
+  // other rows, x in zr's, after the box's barrier: every warp is done
+  // with the last gze's operands)
+  {
+    const float* box = ring.next(w);
+    st_c(gq, orr + o, SH, g, t);
+    sv_to_rows<DA / 8>(sv, zr + o, SH, 0, g, t, lane);
+    float gx[4][4];
+    ananke::frag_ld<4>(gx, gx_slot, lane);
+    mma3<8>(gx, [&](int s, float (&a)[4]) { frag_regs(gq[s], a); }, box, SQ,
+            g, t);
+    ananke::frag_st<4>(gx, gx_slot, lane);
+  }
+  __syncthreads();
+  nt_dot1<DA, DZ>(zr, SH, orr, SH, slab + L.gwq);
+  __syncthreads();
+}
+
+// The VJP of one accepted step for the warp's 16 rows of the tile from row0
+// (fr: the warp's scratch, its step inputs in place, its saved stage
+// after them; h the context rows, (n, DC); tf the step's 7 time rows),
+// then the step's h rows: gh = ghp W1h^T into slot 13 (added to the slot's
+// carry where carry_gh), gW1h += h^T ghp into the slab (tf_rows time rows,
+// the step's from gtf0 on: stage st's at gtf0 + st H). Leaves gy0 in slot
+// 11 and gf0 in 12. Consumes one period of the ring's boxes, c0 consumed
+// before it. A call of its own, one a step, whose arguments are scalars
+// and pointers. Every thread of the CTA calls it.
+__device__ __noinline__ void step_vjp_tf32(const Weights& w, int c0,
+                                           float* fr, const float* tf,
+                                           const float* h, float hs,
+                                           float* slab, int tf_rows,
+                                           long gtf0, bool carry_gh,
+                                           long row0, int n) {
+  constexpr int NX = DA / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, wr0 = 16 * warp;
+  const long ra = row0 + wr0 + g, rb = ra + 8;
+  const bool va = ra < n, vb = rb < n;
+  const SlabLayout L(w.z, w.nb, tf_rows);
+  Ring ring{c0};
+  float* ghp = fr + kGhp;
+  float* sv = fr + kWarpFloats;
+  for (int i = 0; i < (H / 8) * 4; ++i) ghp[i * 32 + lane] = 0.f;
+#pragma unroll 1
+  for (int st = 1; st < 6; ++st) {
+    float x[NX][4], k[NX][4], ia, ib;
+    frag_stage_input(x, fr, st, hs, lane);
+    stage_fwd(w, ring, x, h, ra, rb, va, vb, tf + st * H, k, ia, ib,
+              nullptr, wr0, g, t, lane);
+    ananke::frag_st<NX>(k, fr + (1 + st) * kFX, lane);
+  }
+#pragma unroll 1
+  for (int st = 6; st >= 1; --st) {
+    float gk[NX][4];
+    {
+      float x[NX][4], ia, ib;
+      frag_stage_input(x, fr, st, hs, lane);
+      stage_fwd(w, ring, x, h, ra, rb, va, vb, tf + st * H, gk, ia, ib, sv,
+                wr0, g, t, lane);
+      frag_stage_cot(gk, fr, st, hs, lane);
+      // gx_st goes to slot st (k_st's, read by no later stage)
+      stage_bwd(w, ring, gk, ia, ib, slab, L, gtf0 + (long)st * H,
+                fr + st * kFX, ghp, sv, wr0, g, t, lane);
+    }
+    float gy[NX][4], gx[NX][4];
+    ananke::frag_ld<NX>(gy, fr + 11 * kFX, lane);
+    ananke::frag_ld<NX>(gx, fr + st * kFX, lane);
+#pragma unroll
+    for (int q = 0; q < NX; ++q)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) gy[q][c] = __fadd_rn(gy[q][c], gx[q][c]);
+    ananke::frag_st<NX>(gy, fr + 11 * kFX, lane);
+  }
+  float gf[NX][4];
+  frag_stage_cot(gf, fr, 0, hs, lane);
+  ananke::frag_st<NX>(gf, fr + 12 * kFX, lane);
+  // hpre = h W1h: gh = ghp W1h^T, gW1h += h^T ghp (ghp in Y, h in X, after
+  // the box's barrier)
+  float ghh[DC / 8][4];
+  {
+    const float* box = ring.next(w);  // W1h (DC, H)
+    float gp[H / 8][4], hf[DC / 8][4];
+    ananke::frag_ld<H / 8>(gp, ghp, lane);
+    ananke::ldg_rows_c<DC / 8>(hf, h, ra, rb, va, vb, t);
+    st_c(gp, Smem::y() + wr0 * SH, SH, g, t);
+    st_c(hf, Smem::x() + wr0 * SH, SH, g, t);
+    zero(ghh);
+    mma3<16>(ghh, [&](int s, float (&a)[4]) { frag_regs(gp[s], a); }, box,
+             SH, g, t);
+  }
+  __syncthreads();
+  nt_dot1<DC, H>(Smem::x(), SH, Smem::y(), SH, slab + L.gw1h);
+  __syncthreads();
+  if (carry_gh) {
+    float acc[DC / 8][4];
+    ananke::frag_ld<DC / 8>(acc, fr + 13 * kFX, lane);
+#pragma unroll
+    for (int q = 0; q < DC / 8; ++q)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ghh[q][c] = __fadd_rn(acc[q][c], ghh[q][c]);
+  }
+  ananke::frag_st<DC / 8>(ghh, fr + 13 * kFX, lane);
+}
+
+}  // namespace vjp32
+
+// vjp32::split_boxes on `s`: the weight bank of w (w.bank) from its weights
+inline int launch_split_boxes(const Weights& w, cudaStream_t s) {
+  vjp32::split_boxes<<<vjp32::Boxes::count(w.zp, w.nb), 256, 0, s>>>(w);
+  return (int)cudaGetLastError();
 }
 
 // ---- K7 -------------------------------------------------------------------
@@ -1454,70 +1928,103 @@ struct VjpParams {
   float* gy0;        // (n, DA)
   float* gf0;        // (n, DA)
   float* gh;         // (n, DC)
-  float* scratch;    // (gridDim.x, 14, R, DA): the tile's k_j and gk_j
+  float* scratch;    // (gridDim.x, warps, vjp32::warp_floats(nb)): the
+                     // warps' step state and saved stage
   float* slab;       // (gridDim.x, slab size), zeroed by the caller
   long slab_size;
   int n;
   float hstep;
 };
 
-template <int R>
-__global__ void __launch_bounds__(kThreads, 1)
-    dopri5_vjp_kernel(const VjpParams p) {
-  constexpr int M = R * DA / kThreads;
-  constexpr int RPT = R / kWarps;
-  extern __shared__ __align__(16) float sm[];
-  const F32Vjp t = f32_vjp_smem<R>(sm);
-  const int wp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float hs = p.hstep;
-  const SlabLayout L(p.w.z, p.w.nb, 7);
-  float* slab = p.slab + (size_t)blockIdx.x * p.slab_size;
-  float* ks = p.scratch + (size_t)blockIdx.x * 14 * R * DA;  // [7][R][DA]
-  float* gk = ks + 7 * R * DA;                                // [7][R][DA]
-  const int n_tiles = (p.n + R - 1) / R;
+// the rows of a warp of a step-VJP tile (from row0 on; rows past n read as
+// zeros), its scratch (`stride` floats a warp) and its fragment mapping:
+// element 4 q + c of a lane is row g + 8 (c >> 1) of the warp's 16, column
+// 8 q + 2 t + (c & 1)
+struct StepRows {
+  static constexpr int kElems = (DA / 8) * 4;
+  int warp, lane, t;
+  long ra, rb;
+  bool va, vb;
+  float* fr;
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long row0 = (long)tile * R;
-    __syncthreads();
-    float x0[M], gy[M];
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const int r = wp + kWarps * m;
-      const long g = row0 + r;
-      const bool v = g < p.n;
-      const int o = r * DA + lane;
-      const long go = g * DA + lane;
-      x0[m] = v ? p.x[go] : 0.f;
-      ks[o] = v ? p.f0[go] : 0.f;
-      t.hin[r * DC + lane] = v ? p.h[g * DC + lane] : 0.f;
-      const Gset c = {v ? p.gdy[go] : 0.f, v ? p.gr5[go] : 0.f,
-                      v ? p.gk1[go] : 0.f, v ? p.gk7[go] : 0.f, 0.f};
-      for (int j = 0; j < 7; ++j) gk[j * R * DA + o] = stage_cot(j, hs, c);
-      gy[m] = v ? p.gy0d[go] : 0.f;
-    }
-    f32_hpre<R>(p.w, t);
-    step_vjp_f32<R>(p.w, t, L, slab, L.gtf, hs, ks, gk, x0, gy);
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const int r = wp + kWarps * m;
-      const long g = row0 + r;
-      if (g < p.n) {
-        p.gy0[g * DA + lane] = gy[m];
-        p.gf0[g * DA + lane] = gk[r * DA + lane];
-      }
-    }
-    // hpre = h W1h: gh = ghp W1h^T, gW1h += h^T ghp
-    ntdot<R, DC, H, false>(t.hin, DC, t.ghp, H, nullptr, 0, nullptr, 0,
-                           slab + L.gw1h, DC);
-    mm<R, H, DC, kVjpKC>(t.ghp, H, p.w.w1hT, DC, t.s.wbuf,
-                         [&](float (&acc)[RPT][1]) {
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const long g = row0 + wp + kWarps * i;
-        if (g < p.n) p.gh[g * DC + lane] = acc[i][0];
-      }
-    });
+  __device__ StepRows(long row0, int n, float* scratch,
+                      long stride = kWarpFloats) {
+    warp = threadIdx.x / 32;
+    lane = threadIdx.x % 32;
+    t = lane & 3;
+    ra = row0 + warp * 16 + (lane >> 2);
+    rb = ra + 8;
+    va = ra < n;
+    vb = rb < n;
+    fr = scratch +
+         ((size_t)blockIdx.x * (blockDim.x / 32) + warp) * stride;
   }
+  __device__ bool elem(int e, long& row, int& col) const {
+    const int c = e & 3;
+    row = (c & 2) ? rb : ra;
+    col = 8 * (e >> 2) + 2 * t + (c & 1);
+    return (c & 2) ? vb : va;
+  }
+  __device__ float carry_y(int e) const { return fr[11 * kFX + e * 32 + lane]; }
+  __device__ float carry_f(int e) const { return fr[12 * kFX + e * 32 + lane]; }
+  __device__ void set_step_input(int e, float x, float f0, const Gset& c,
+                                 float) {
+    const int i0 = e * 32 + lane;
+    fr[i0] = x;
+    fr[kFX + i0] = f0;
+    fr[7 * kFX + i0] = c.dy;
+    fr[8 * kFX + i0] = c.r5;
+    fr[9 * kFX + i0] = c.k1x;
+    fr[10 * kFX + i0] = c.k7x;
+    fr[11 * kFX + i0] = c.y0d;
+  }
+  // the tile's step inputs (x, f0 and the five folded cotangents, (n, DA)
+  // each) into the warp's scratch
+  __device__ void load_inputs(const float* const (&in)[7]) const {
+    const int slot[7] = {0, 1, 7, 8, 9, 10, 11};
+#pragma unroll
+    for (int i = 0; i < 7; ++i) {
+      float v[DA / 8][4];
+      ananke::ldg_rows_c<DA / 8>(v, in[i], ra, rb, va, vb, t);
+      ananke::frag_st<DA / 8>(v, fr + slot[i] * kFX, lane);
+    }
+  }
+  // gy0 (slot 11), gf0 (12) and gh (13) out to rows ra, rb
+  __device__ void store_outputs(float* gy0, float* gf0, float* gh) const {
+    float v[DA / 8][4];
+    ananke::frag_ld<DA / 8>(v, fr + 11 * kFX, lane);
+    ananke::stg_rows_c<DA / 8>(v, gy0, ra, rb, va, vb, t);
+    ananke::frag_ld<DA / 8>(v, fr + 12 * kFX, lane);
+    ananke::stg_rows_c<DA / 8>(v, gf0, ra, rb, va, vb, t);
+    ananke::frag_ld<DA / 8>(v, fr + 13 * kFX, lane);
+    ananke::stg_rows_c<DC / 8>(v, gh, ra, rb, va, vb, t);
+  }
+};
+
+// K7 at float32: CTAs of vjp32::warps_for(0) warps, a tile of 16 rows a
+// warp, the step body step_vjp_tf32 once a tile
+__global__ void __launch_bounds__(32 * vjp32::kMaxW, 1)
+    dopri5_vjp_kernel(const VjpParams p) {
+  const int rows = blockDim.x / 2;
+  const long stride = vjp32::warp_floats(p.w.nb);
+  const int n_tiles = (p.n + rows - 1) / rows;
+  const int period = vjp32::Ring::period(p.w);
+  vjp32::Ring::prime(p.w);
+  int c0 = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long row0 = (long)tile * rows;
+    StepRows(row0, p.n, p.scratch, stride).load_inputs(
+        {p.x, p.f0, p.gdy, p.gr5, p.gk1, p.gk7, p.gy0d});
+    vjp32::step_vjp_tf32(p.w, c0, StepRows(row0, p.n, p.scratch, stride).fr,
+                         p.w.tf,
+                         p.h, p.hstep,
+                         p.slab + (size_t)blockIdx.x * p.slab_size, 7,
+                         (long)p.w.z * DZ, false, row0, p.n);
+    c0 += period;
+    StepRows(row0, p.n, p.scratch, stride).store_outputs(p.gy0, p.gf0,
+                                                         p.gh);
+  }
+  vjp32::Ring::drain(c0);
 }
 
 struct VjpBf16Params {
@@ -1541,84 +2048,29 @@ struct VjpBf16Params {
   float hstep;
 };
 
-// the rows of a warp of a bf16 tile (from row0 on; rows past n read as
-// zeros), its scratch and its fragment mapping: element 4 q + c of a lane
-// is row g + 8 (c >> 1) of the warp's 16, column 8 q + 2 t + (c & 1)
-template <int W>
-struct Bf16Rows {
-  static constexpr int kElems = (DA / 8) * 4;
-  int warp, lane, t;
-  long ra, rb;
-  bool va, vb;
-  float* fr;
-
-  __device__ Bf16Rows(long row0, int n, float* scratch) {
-    warp = threadIdx.x / 32;
-    lane = threadIdx.x % 32;
-    t = lane & 3;
-    ra = row0 + warp * 16 + (lane >> 2);
-    rb = ra + 8;
-    va = ra < n;
-    vb = rb < n;
-    fr = scratch + ((size_t)blockIdx.x * W + warp) * kWarpFloats;
-  }
-  __device__ bool elem(int e, long& row, int& col) const {
-    const int c = e & 3;
-    row = (c & 2) ? rb : ra;
-    col = 8 * (e >> 2) + 2 * t + (c & 1);
-    return (c & 2) ? vb : va;
-  }
-  __device__ float carry_y(int e) const { return fr[11 * kFX + e * 32 + lane]; }
-  __device__ float carry_f(int e) const { return fr[12 * kFX + e * 32 + lane]; }
-  __device__ void set_step_input(int e, float x, float f0, const Gset& c,
-                                 float) {
-    const int i0 = e * 32 + lane;
-    fr[i0] = x;
-    fr[kFX + i0] = f0;
-    fr[7 * kFX + i0] = c.dy;
-    fr[8 * kFX + i0] = c.r5;
-    fr[9 * kFX + i0] = c.k1x;
-    fr[10 * kFX + i0] = c.k7x;
-    fr[11 * kFX + i0] = c.y0d;
-  }
-};
-
 template <int W>
 __global__ void __launch_bounds__(32 * W, 1)
     dopri5_vjp_bf16_kernel(const VjpBf16Params p) {
-  constexpr int ROWS = 16 * W, NX = DA / 8;
+  constexpr int ROWS = 16 * W;
   const int n_tiles = (p.n + ROWS - 1) / ROWS;
   const int period = HRing<W>::period(p.w);
   HRing<W>().prime(p.w);
   int c0 = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     {  // the tile's step inputs into the warps' scratch
-      const Bf16Rows<W> r((long)tile * ROWS, p.n, p.scratch);
+      const StepRows r((long)tile * ROWS, p.n, p.scratch);
       stage_h_rows<W>(p.h, r.ra, r.rb, r.va, r.vb, r.warp, r.lane);
-      const float* in[7] = {p.x, p.f0, p.gdy, p.gr5, p.gk1, p.gk7, p.gy0d};
-      const int slot[7] = {0, 1, 7, 8, 9, 10, 11};
-#pragma unroll
-      for (int i = 0; i < 7; ++i) {
-        float v[NX][4];
-        ananke::ldg_rows_c<NX>(v, in[i], r.ra, r.rb, r.va, r.vb, r.t);
-        ananke::frag_st<NX>(v, r.fr + slot[i] * kFX, r.lane);
-      }
+      r.load_inputs({p.x, p.f0, p.gdy, p.gr5, p.gk1, p.gk7, p.gy0d});
     }
     {
-      const Bf16Rows<W> r((long)tile * ROWS, p.n, p.scratch);
+      const StepRows r((long)tile * ROWS, p.n, p.scratch);
       step_vjp_bf16<W>(p.w, c0, r.fr, p.tf, p.hstep,
                        p.slab + (size_t)blockIdx.x * p.slab_size, 7,
                        (long)p.w.z * DZ, false, r.warp, r.lane);
     }
     c0 = (c0 + period) % HLayout::kSlots;
-    const Bf16Rows<W> r((long)tile * ROWS, p.n, p.scratch);
-    float v[NX][4];
-    ananke::frag_ld<NX>(v, r.fr + 11 * kFX, r.lane);
-    ananke::stg_rows_c<NX>(v, p.gy0, r.ra, r.rb, r.va, r.vb, r.t);
-    ananke::frag_ld<NX>(v, r.fr + 12 * kFX, r.lane);
-    ananke::stg_rows_c<NX>(v, p.gf0, r.ra, r.rb, r.va, r.vb, r.t);
-    ananke::frag_ld<NX>(v, r.fr + 13 * kFX, r.lane);
-    ananke::stg_rows_c<DC / 8>(v, p.gh, r.ra, r.rb, r.va, r.vb, r.t);
+    StepRows((long)tile * ROWS, p.n, p.scratch)
+        .store_outputs(p.gy0, p.gf0, p.gh);
   }
   HRing<W>::drain();
 }
@@ -1633,7 +2085,7 @@ __global__ void __launch_bounds__(32 * W, 1)
 // rows a step did not fill are skipped), and every step's weight, zone and
 // time-row gradients go into the CTA's slab (time rows at slot 7 s + st),
 // summed over the CTAs in CTA order afterwards. The step body is a template
-// parameter: the float32 one (step_vjp_f32) or the bf16 one
+// parameter: the float32 one (step_vjp_tf32) or the bf16 one
 // (step_vjp_bf16). The checkpoints' storage type (float32 or bf16) is a
 // launch parameter, widened as read.
 
@@ -1698,102 +2150,56 @@ __device__ __forceinline__ void fold_step(Rows& rows, const Params& p, int s,
   }
 }
 
-// K6's float32 body: tiles of R rows, 8 warps, the per-element mapping
-template <int R>
-struct F32Body {
-  static constexpr int kThreadsPerCta = kThreads;
-  static constexpr int kRows = R;
-  static constexpr int kElems = R * DA / kThreads;
-  static constexpr int RPT = R / kWarps;
+// K6's float32 body: tiles of 16 rows a warp, vjp32::warps_for warps
+struct Tf32Body {
+  static constexpr int kThreadsPerCta = 32 * vjp32::kMaxW;
   using Params = BwdParams<Weights>;
-  static size_t smem_bytes(int nb) {
-    return f32_vjp_smem_floats<R>(nb) * sizeof(float);
+  static int warps(int, size_t extra) { return vjp32::warps_for(extra); }
+  static size_t smem_bytes(int, int warps) {
+    return vjp32::smem_floats(warps) * sizeof(float);
   }
 
   const Params& p;
-  F32Vjp t;
-  SlabLayout L;
-  float *slab, *ks, *gk;
-  int wp, lane;
-  long row0;
-  float x0[kElems], gy[kElems], cy[kElems], cf[kElems], ghc[RPT];
+  int c0 = 0, period;  // the ring's boxes consumed; a step's
+  long row0 = 0, stride;
 
-  __device__ F32Body(const Params& p_, unsigned char* raw)
-      : p(p_), L(p_.w.z, p_.w.nb, 7 * p_.n_acc) {
-    t = f32_vjp_smem<R>(reinterpret_cast<float*>(raw));
-    slab = p.slab + (size_t)blockIdx.x * p.slab_size;
-    ks = p.scratch + (size_t)blockIdx.x * 14 * R * DA;
-    gk = ks + 7 * R * DA;
-    wp = threadIdx.x >> 5;
-    lane = threadIdx.x & 31;
+  __device__ Tf32Body(const Params& p_, unsigned char*) : p(p_) {
+    period = vjp32::Ring::period(p.w);
+    stride = vjp32::warp_floats(p.w.nb);
+    vjp32::Ring::prime(p.w);
   }
-  __device__ bool elem(int e, long& row, int& col) const {
-    row = row0 + wp + kWarps * e;
-    col = lane;
-    return row < p.n;
-  }
-  __device__ float carry_y(int e) const { return cy[e]; }
-  __device__ float carry_f(int e) const { return cf[e]; }
+  __device__ int rows() const { return blockDim.x / 2; }
   __device__ void begin_tile(int tile) {
-    row0 = (long)tile * R;
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < kElems; ++e) {
-      const int r = wp + kWarps * e;
-      const long g = row0 + r;
-      t.hin[r * DC + lane] = g < p.n ? p.hc[g * DC + lane] : 0.f;
-      cy[e] = cf[e] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) ghc[i] = 0.f;
-    f32_hpre<R>(p.w, t);
+    row0 = (long)tile * rows();
+    const StepRows r(row0, p.n, p.scratch, stride);
+    for (int i = 0; i < StepRows::kElems; ++i)
+      r.fr[11 * kFX + i * 32 + r.lane] = r.fr[12 * kFX + i * 32 + r.lane] =
+          r.fr[13 * kFX + i * 32 + r.lane] = 0.f;
   }
-  __device__ void set_step_input(int e, float x, float f0, const Gset& c,
-                                 float hs) {
-    const int o = (wp + kWarps * e) * DA + lane;
-    x0[e] = x;
-    ks[o] = f0;
-    for (int j = 0; j < 7; ++j) gk[j * R * DA + o] = stage_cot(j, hs, c);
-    gy[e] = c.y0d;
-  }
+  // the fold of step s, then its VJP
   __device__ void step(int s, const float* tss, const int* ost) {
-    fold_step(*this, p, s, tss, ost);
-    const float hs = p.steps[p.n_acc + s];
-    Weights ws = p.w;
-    ws.tf = p.tf + (size_t)7 * s * H;
-    step_vjp_f32<R>(ws, t, L, slab, L.gtf + (long)7 * s * H, hs, ks, gk, x0,
-                    gy);
-#pragma unroll
-    for (int e = 0; e < kElems; ++e) {
-      cy[e] = gy[e];
-      cf[e] = gk[(wp + kWarps * e) * DA + lane];
+    {
+      StepRows r(row0, p.n, p.scratch, stride);
+      fold_step(r, p, s, tss, ost);
     }
-    // hpre = h W1h: gh += ghp W1h^T, gW1h += h^T ghp, once a step
-    ntdot<R, DC, H, false>(t.hin, DC, t.ghp, H, nullptr, 0, nullptr, 0,
-                           slab + L.gw1h, DC);
-    mm<R, H, DC, kVjpKC>(t.ghp, H, p.w.w1hT, DC, t.s.wbuf,
-                         [&](float (&acc)[RPT][1]) {
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) ghc[i] = __fadd_rn(ghc[i], acc[i][0]);
-    });
+    vjp32::step_vjp_tf32(p.w, c0, StepRows(row0, p.n, p.scratch, stride).fr,
+                         p.tf + (size_t)7 * s * H, p.hc,
+                         p.steps[p.n_acc + s],
+                         p.slab + (size_t)blockIdx.x * p.slab_size,
+                         7 * p.n_acc, (long)p.w.z * DZ + (long)7 * s * H,
+                         true, row0, p.n);
+    c0 += period;
   }
   __device__ void end_tile() {
-#pragma unroll
-    for (int e = 0; e < kElems; ++e) {
-      long g;
-      int c;
-      if (elem(e, g, c)) {
-        p.gy0[g * DA + c] = cy[e];
-        p.gf0[g * DA + c] = cf[e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const long g = row0 + wp + kWarps * i;
-      if (g < p.n) p.gh[g * DC + lane] = ghc[i];
-    }
-  }  __device__ void finish() {}
+    StepRows(row0, p.n, p.scratch, stride).store_outputs(p.gy0, p.gf0, p.gh);
+  }
+  __device__ void finish() { vjp32::Ring::drain(c0); }
+  // the weight bank, before the kernel
+  static int prepare(const Params& p, cudaStream_t s) {
+    return launch_split_boxes(p.w, s);
+  }
 };
+
 
 // K6's bf16 body: tiles of 16 W rows
 template <int W>
@@ -1801,7 +2207,10 @@ struct Bf16Body {
   static constexpr int kThreadsPerCta = 32 * W;
   static constexpr int kRows = 16 * W;
   using Params = BwdParams<StageWeights>;
-  static size_t smem_bytes(int nb) { return HLayout::bytes(kRows, W, nb); }
+  static int warps(int, size_t) { return W; }
+  static size_t smem_bytes(int nb, int) {
+    return HLayout::bytes(kRows, W, nb);
+  }
 
   const Params& p;
   int c0 = 0, period;  // the ring's boxes consumed (mod kSlots); a step's
@@ -1811,11 +2220,12 @@ struct Bf16Body {
     period = HRing<W>::period(p.w);
     HRing<W>().prime(p.w);
   }
+  __device__ int rows() const { return kRows; }
   __device__ void begin_tile(int tile) {
     row0 = (long)tile * kRows;
-    const Bf16Rows<W> r(row0, p.n, p.scratch);
+    const StepRows r(row0, p.n, p.scratch);
     stage_h_rows<W>(p.hc, r.ra, r.rb, r.va, r.vb, r.warp, r.lane);
-    for (int i = 0; i < Bf16Rows<W>::kElems; ++i)
+    for (int i = 0; i < StepRows::kElems; ++i)
       r.fr[11 * kFX + i * 32 + r.lane] = r.fr[12 * kFX + i * 32 + r.lane] =
           r.fr[13 * kFX + i * 32 + r.lane] = 0.f;
   }
@@ -1823,10 +2233,10 @@ struct Bf16Body {
   // across the call)
   __device__ void step(int s, const float* tss, const int* ost) {
     {
-      Bf16Rows<W> r(row0, p.n, p.scratch);
+      StepRows r(row0, p.n, p.scratch);
       fold_step(r, p, s, tss, ost);
     }
-    const Bf16Rows<W> r(row0, p.n, p.scratch);
+    const StepRows r(row0, p.n, p.scratch);
     step_vjp_bf16<W>(p.w, c0, r.fr, p.tf + (size_t)7 * s * H,
                      p.steps[p.n_acc + s],
                      p.slab + (size_t)blockIdx.x * p.slab_size, 7 * p.n_acc,
@@ -1835,16 +2245,10 @@ struct Bf16Body {
     c0 = (c0 + period) % HLayout::kSlots;
   }
   __device__ void end_tile() {
-    const Bf16Rows<W> r(row0, p.n, p.scratch);
-    float v[DA / 8][4];
-    ananke::frag_ld<DA / 8>(v, r.fr + 11 * kFX, r.lane);
-    ananke::stg_rows_c<DA / 8>(v, p.gy0, r.ra, r.rb, r.va, r.vb, r.t);
-    ananke::frag_ld<DA / 8>(v, r.fr + 12 * kFX, r.lane);
-    ananke::stg_rows_c<DA / 8>(v, p.gf0, r.ra, r.rb, r.va, r.vb, r.t);
-    ananke::frag_ld<DA / 8>(v, r.fr + 13 * kFX, r.lane);
-    ananke::stg_rows_c<DC / 8>(v, p.gh, r.ra, r.rb, r.va, r.vb, r.t);
+    StepRows(row0, p.n, p.scratch).store_outputs(p.gy0, p.gf0, p.gh);
   }
   __device__ void finish() { HRing<W>::drain(); }
+  static int prepare(const Params&, cudaStream_t) { return 0; }
 };
 
 // bytes of shared memory K6 adds to its body's: the output times and the
@@ -1864,7 +2268,7 @@ __global__ void __launch_bounds__(Body::kThreadsPerCta, 1)
     ost[i] = p.out_step[i];
   }
   __syncthreads();
-  const int n_tiles = (p.n + Body::kRows - 1) / Body::kRows;
+  const int n_tiles = (p.n + body.rows() - 1) / body.rows();
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     body.begin_tile(tile);
@@ -1887,6 +2291,7 @@ void set_weights(Weights& w, const void* const* p, const void* ze,
   w.ze = static_cast<const float*>(ze);
   w.zeT = static_cast<const float*>(zeT);
   w.tf = static_cast<const float*>(tf);
+  w.bank = nullptr;
   w.z = z; w.zp = zp; w.nb = nb;
   w.scale = 0.125f;  // 1 / sqrt(DZ)
 }
@@ -1899,8 +2304,6 @@ void set_weights_bf16(StageWeights& w, const void* const* p, const void* ze,
   w.z = z; w.zp = zp; w.num_blocks = nb;
 }
 
-// the largest dynamic shared memory a block can use
-constexpr size_t kMaxSmem = 232448;
 
 template <class K>
 int set_smem(K kernel, size_t bytes) {
@@ -1909,19 +2312,22 @@ int set_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int R>
 int launch_vjp(const VjpParams& p, int num_ctas, cudaStream_t s) {
-  auto* kernel = dopri5_vjp_kernel<R>;
-  const size_t bytes = f32_vjp_smem_floats<R>(p.w.nb) * sizeof(float);
+  auto* kernel = dopri5_vjp_kernel;
+  const int warps = vjp32::warps_for(0);
+  const size_t bytes = vjp32::smem_floats(warps) * sizeof(float);
   int err = set_smem(kernel, bytes);
   if (err) return err;
-  kernel<<<num_ctas, kThreads, bytes, s>>>(p);
+  err = launch_split_boxes(p.w, s);
+  if (err) return err;
+  kernel<<<num_ctas, 32 * warps, bytes, s>>>(p);
   err = (int)cudaGetLastError();
   if (err) return err;
   return ananke::launch_reduce_slabs(
       p.slab, p.slab + (size_t)num_ctas * p.slab_size, p.slab_size, num_ctas,
       s);
 }
+
 
 template <int W>
 int launch_vjp_bf16(const VjpBf16Params& p, int num_ctas, cudaStream_t s) {
@@ -1941,11 +2347,16 @@ template <class Body>
 int launch_backward(typename Body::Params p, int nb, int num_ctas,
                     cudaStream_t s) {
   auto* kernel = dopri5_backward_kernel<Body>;
-  p.body_smem = Body::smem_bytes(nb);
-  const size_t bytes = p.body_smem + bwd_extra_bytes(p.T);
+  const size_t extra = bwd_extra_bytes(p.T);
+  const int warps = Body::warps(nb, extra);
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  p.body_smem = Body::smem_bytes(nb, warps);
+  const size_t bytes = p.body_smem + extra;
   int err = set_smem(kernel, bytes);
   if (err) return err;
-  kernel<<<num_ctas, Body::kThreadsPerCta, bytes, s>>>(p);
+  err = Body::prepare(p, s);
+  if (err) return err;
+  kernel<<<num_ctas, 32 * warps, bytes, s>>>(p);
   err = (int)cudaGetLastError();
   if (err) return err;
   return ananke::launch_reduce_slabs(
@@ -1982,13 +2393,13 @@ void set_bwd_params(BwdParams<Wt>& p, const void* ckpts, const void* ckpt_f,
 extern "C" {
 
 // Agent rows per tile of a kernel's body: kind 0 K5 (128), kind 1 the
-// float32 step VJP (32 up to 4 residual blocks, 16 beyond: its chain of
-// block activations must fit in shared memory) and kind 2 the bf16 step VJP
+// float32 step VJP (128 at any depth: vjp32::warps_for; K6 at float32 takes
+// fewer where its output times leave no room) and kind 2 the bf16 step VJP
 // (96 up to 2 blocks, 64 up to 5, 32 beyond: vjp_bf16_warps).
 int ananke_dopri5_tile_rows(int num_blocks, int kind) {
   if (kind == 2) return 16 * vjp_bf16_warps(num_blocks);
   if (kind == 0) return k5::kRows;
-  return kind == 1 && num_blocks > 4 ? 16 : 32;
+  return 16 * vjp32::warps_for(0);
 }
 
 // Floats of one CTA's scratch in device memory of K5 (kind 0) or a
@@ -1996,7 +2407,13 @@ int ananke_dopri5_tile_rows(int num_blocks, int kind) {
 long ananke_dopri5_scratch_floats(int num_blocks, int kind) {
   if (kind == 0) return (long)k5::kW * k5::kState;
   if (kind == 2) return (long)vjp_bf16_warps(num_blocks) * kWarpFloats;
-  return 14L * ananke_dopri5_tile_rows(num_blocks, 1) * DA;
+  return (long)vjp32::warps_for(0) * vjp32::warp_floats(num_blocks);
+}
+
+// Floats of the float32 step VJP's weight bank at zp padded zones, which
+// follows the num_ctas CTAs' scratch in its scratch buffer.
+long ananke_dopri5_bank_floats(int zp, int num_blocks) {
+  return (long)vjp32::Boxes::count(zp, num_blocks) * vjp32::kBox;
 }
 
 // Floats of one CTA's slab with `tf_rows` time rows (K7 7, K6 7 n_acc).
@@ -2109,6 +2526,8 @@ int ananke_dopri5_step_vjp(
   }
   VjpParams p;
   set_weights(p.w, wts, ze, zeT, tf, z, zp, num_blocks);
+  p.w.bank = static_cast<float*>(scratch) +
+             (size_t)num_ctas * ananke_dopri5_scratch_floats(num_blocks, 1);
   p.x = static_cast<const float*>(x);
   p.f0 = static_cast<const float*>(f0);
   p.h = static_cast<const float*>(h);
@@ -2125,8 +2544,7 @@ int ananke_dopri5_step_vjp(
   p.slab_size = SlabLayout(z, num_blocks, 7).size;
   p.n = n;
   p.hstep = hstep;
-  return rows == 32 ? launch_vjp<32>(p, num_ctas, s)
-                    : launch_vjp<16>(p, num_ctas, s);
+  return launch_vjp(p, num_ctas, s);
 }
 
 // K6 on `stream`: the whole backward over the n_acc recorded steps, then the
@@ -2170,11 +2588,12 @@ int ananke_dopri5_backward_all(
   }
   BwdParams<Weights> p;
   set_weights(p.w, wts, ze, zeT, tf, z, zp, num_blocks);
+  p.w.bank = static_cast<float*>(scratch) +
+             (size_t)num_ctas * ananke_dopri5_scratch_floats(num_blocks, 1);
   set_bwd_params(p, ckpts, ckpt_f, g, hc, tf, steps, out_step, gy0, gf0, gh,
                  scratch, slab, size, n, n_acc, T);
   p.ckpt_bf16 = ckpt_bf16;
-  return rows == 32 ? launch_backward<F32Body<32>>(p, num_blocks, num_ctas, s)
-                    : launch_backward<F32Body<16>>(p, num_blocks, num_ctas, s);
+  return launch_backward<Tf32Body>(p, num_blocks, num_ctas, s);
 }
 
 const char* ananke_cuda_error_string(int err) {

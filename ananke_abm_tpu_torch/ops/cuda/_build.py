@@ -73,6 +73,7 @@ _ENTRY = {
         "ananke_dopri5_backward_all": ([_P] * 26 + [_I] * 13 + [_P], _I),
         "ananke_dopri5_tile_rows": ([_I] * 2, _I),
         "ananke_dopri5_scratch_floats": ([_I] * 2, _L),
+        "ananke_dopri5_bank_floats": ([_I] * 2, _L),
         "ananke_dopri5_slab_size": ([_I] * 3, _L),
     },
     "edge_segment": {

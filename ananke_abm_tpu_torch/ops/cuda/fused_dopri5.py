@@ -506,8 +506,8 @@ dopri5_step_fused.launches = 0
 
 def _slabs(lib, dev, N, Z, nb, tf_rows, kind, layout):
     """(num_ctas, zeroed slabs (num_ctas + 1, size): the CTAs' and their
-    sum, tile scratch) of a VJP launch; checks the kernel's slab layout
-    against ``layout``."""
+    sum, scratch: the tiles', then at float32 the weight bank) of a VJP
+    launch; checks the kernel's slab layout against ``layout``."""
     size = sum(int(np.prod(s)) for _, s in layout)
     if lib.ananke_dopri5_slab_size(Z, nb, tf_rows) != size:
         raise RuntimeError("fused_dopri5: the kernel's gradient layout "
@@ -515,8 +515,10 @@ def _slabs(lib, dev, N, Z, nb, tf_rows, kind, layout):
     num_ctas = min(VJP_CTAS, -(-N // lib.ananke_dopri5_tile_rows(nb, kind)))
     slabs = torch.zeros((num_ctas + 1, size), dtype=torch.float32,
                         device=dev)
+    bank = (lib.ananke_dopri5_bank_floats(-(-Z // ZONE_CHUNK) * ZONE_CHUNK,
+                                          nb) if kind == _F32_VJP else 0)
     scratch = torch.empty(
-        (num_ctas, lib.ananke_dopri5_scratch_floats(nb, kind)),
+        (num_ctas * lib.ananke_dopri5_scratch_floats(nb, kind) + bank,),
         dtype=torch.float32, device=dev)
     return num_ctas, slabs, scratch
 

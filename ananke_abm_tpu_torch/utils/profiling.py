@@ -150,16 +150,34 @@ def check_nan(name: str, *outputs) -> None:
         _raise_on_nan(name, outputs)
 
 
+def _written(func, args, kwargs) -> list:
+    """The arguments that ``func``'s schema marks as written (``Tensor(a!)``
+    or a list of them): what an in-place or ``out=`` operation changes,
+    which the ``_foreach_*_`` operations do not return."""
+    found = []
+    for i, arg in enumerate(func._schema.arguments):
+        if arg.alias_info is not None and arg.alias_info.is_write:
+            found.append(args[i] if i < len(args) else kwargs.get(arg.name))
+    return found
+
+
 class _NanCheck(TorchDispatchMode):
-    """Checks the floating outputs of every operation that computes them:
-    not views (they compute nothing) and not the allocations of unwritten
-    memory, whose bits may read as NaN."""
+    """Checks the floating outputs of every operation that computes them,
+    and the tensors that a mutating operation writes in place: not views
+    (they compute nothing) and not the allocations of unwritten memory,
+    whose bits may read as NaN."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
         if _NAN_MODE and not func.is_view \
                 and func.overloadpacket.__name__ not in _UNWRITTEN:
-            _raise_on_nan(str(func), out)
+            checked = out
+            if func._schema.is_mutable:
+                seen = {id(t) for t in tree_leaves(out)}
+                checked = [out] + [t for t in tree_leaves(
+                    _written(func, args, kwargs)) if id(t) not in seen]
+            _raise_on_nan(str(func), checked)
         return out
 
 

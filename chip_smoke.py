@@ -129,7 +129,8 @@ Phases (any failure raises and the script exits non-zero):
     launch); ``serve()`` of the ``hidden_dim=64`` checkpoint with
     ``use_kernel="auto"``: no K1 launch, ids equal to the float32 body's
     (``use_kernel=False``);
-23. times: K5 and K7 and their plain versions per launch at rung 3;
+23. times: K5 and K7 and their plain versions per launch at rung 3, each
+    kernel beside its 3xTF32 route's bound and the FP32 one;
 24. whole-backward kernels: K6 (precision bf16 and f32, checkpoints bf16
     and float32, recordings of ``checks.K6_RECORD``, steps past the
     accepted count among them) and K7's bf16 branch against their plain
@@ -456,10 +457,17 @@ order DIR..., this, this, ...DIR, with K2b's tile rows, tiles and CTAs per
 build. A DIR written ``DIR+PROBE`` is a copy of DIR's kernel sources with
 PROBE's substitutions (PROBES: products, B loads, slab traffic or
 ``expf`` / ``tanhf`` taken out, K3b's among them; K2b's tile at 4 warps;
-K2f's CTAs at 4 warps; for ``--ab-dopri5`` K5's float32 products as adds,
-its weights uncopied, one barrier a weight chunk), built under
+K2f's CTAs at 4 warps; for ``--ab-dopri5`` the 3xTF32 products as adds,
+K5's weight ring uncopied or the step VJP's contractions taken out, and
+in a checkout from before the float32 bodies moved to the tensor cores
+their FFMA products or weight gradients as adds, their weights uncopied,
+one barrier a weight chunk), built under
 ``build/chip_smoke/variants/``: its results are wrong by design and only
-timed.
+timed; but for the design alternatives of PROBES_RIGHT (K3f on one CTA
+an SM; the float32 step VJP's sums in one chain, its TF32 parts by
+truncation, its H x H contractions in 16-row blocks), whose results
+``--ab-dopri5`` reads, beside each checkout's, against the plain
+versions at every shape of DOPRI5_SHAPES.
 ``python3 chip_smoke.py --ab-gat DIR [DIR ...]`` builds only the
 zone-graph kernels' libraries (``fused_gat.cu``: K4f, K4b;
 ``edge_segment.cu``: the CSR forward, K9c, K9e), each DIR's beside them
@@ -499,12 +507,12 @@ largest difference from its plain version, times, and ``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and its operations over
 the peak of their type: for the bf16 kernels (K6 and K7-bf16 among them)
 their matmul operations over 989 TFLOP/s, the H100's dense bf16 peak; for
-the float32 encoder, step VJP and CSR edge kernels their operations over
-67 TFLOP/s, its FP32 peak outside the tensor cores; for K5 at float32,
-whose products run in 3xTF32 on the tensor cores, three times its
-products over 495 TFLOP/s, the dense TF32 peak, plus its elementwise
-operations over the FP32 peak (k5_tf32_flops; phase 23 prints its FP32
-bound beside it); K0, K8a and K5-bf16 their stage products at the bf16
+the float32 encoder and CSR edge kernels their operations over
+67 TFLOP/s, its FP32 peak outside the tensor cores; for K5 and K7 at
+float32, whose products run in 3xTF32 on the tensor cores, three times
+their products over 495 TFLOP/s, the dense TF32 peak, plus their
+elementwise operations over the FP32 peak (k5_tf32_flops,
+k7_tf32_flops; phase 23 prints their FP32 bounds beside them); K0, K8a and K5-bf16 their stage products at the bf16
 peak, K9e its bytes), eighteen entries, the line before that the card's
 name and power limit.
 """
@@ -1996,6 +2004,21 @@ class K5Bf16Before:
         return min(VJP_CTAS, -(-n // rows))
 
 
+class BankBefore:
+    """A checkout's ``fused_dopri5`` library from before the float32 step
+    VJP's weight bank, as this checkout's wrappers call it: no bank floats
+    (its scratch is the tiles' alone); everything else is the library's."""
+
+    def __init__(self, so):
+        self.so = so
+
+    def __getattr__(self, name):
+        return getattr(self.so, name)
+
+    def ananke_dopri5_bank_floats(self, zp, num_blocks):
+        return 0
+
+
 def ab_dopri5(dev, built, handles):
     """``--ab-dopri5 DIR [DIR ...]``: the step K5 (float32 and bf16), the
     step VJP K7 (float32 and bf16) and the whole backward K6 (bf16 and
@@ -2040,12 +2063,21 @@ def ab_dopri5(dev, built, handles):
         k5 = pair["fused_step"]
         if not hasattr(k5, "ananke_dopri5_step_bf16"):
             k5 = K5Bf16Before(pair["fused_dopri5"], nb)
-        with library_of("fused_dopri5", pair["fused_dopri5"]), \
-                library_of("fused_step", k5):
+        k7 = pair["fused_dopri5"]
+        if not hasattr(k7, "ananke_dopri5_bank_floats"):
+            k7 = BankBefore(k7)
+        with library_of("fused_dopri5", k7), library_of("fused_step", k5):
             return fn(*a, **kw)
 
     vjp, bwd = fd.dopri5_step_vjp_fused, fd.dopri5_backward_fused
     step = fd.dopri5_step_fused
+    plain_of = {step: fd.dopri5_step_reference,
+                vjp: fd.dopri5_step_vjp_reference,
+                bwd: fd.dopri5_backward_reference}
+    # the builds whose outputs are right by design: checkouts, and the
+    # probes that are design alternatives
+    right = [w for w in libs
+             if "+" not in w or w.partition("+")[2] in PROBES_RIGHT]
     with torch.no_grad():
         for n, z, nb in DOPRI5_SHAPES:
             model = build_model(GATODEConfig(num_blocks=nb), 7, 8, device=dev)
@@ -2073,7 +2105,12 @@ def ab_dopri5(dev, built, handles):
                     print(f"{label} A/B N={n} Z={z} num_blocks={nb}: this "
                           f"against {w}: same bits {same} (max |d| "
                           f"{diff:.3e})", flush=True)
-                del out
+                want = outputs(plain_of[fn](*a, precision=prec))
+                print(f"{label} N={n} Z={z} num_blocks={nb} against its "
+                      f"plain version: " + "; ".join(
+                          f"{w} {describe_far(worst_of(out[w], want)[0])}"
+                          for w in right), flush=True)
+                del out, want
     model, a, n_acc = rung3_recording(dev)
     args, cot = dopri5_operands(model, ADAPT_N, ADAPT_ZONES, dev, seed=1)
     pk = {p: fd.pack_operands(args[3], *args[5:11], precision=p)
@@ -2129,9 +2166,20 @@ def ab_dopri5(dev, built, handles):
 # - ``nomath``: the expf / tanhf of stage_sm90.cuh, fused_train.cu (K3f,
 #   K3b) and fused_dopri5.cu's float32 bodies (K5, K7, K6 at "f32"); in a
 #   checkout from before K5-bf16's move also drift_stage.cuh's.
-# - ``nofma``, ``constw``, ``onebar``: fused_dopri5.cu's ``mm``, K5's
-#   products before its redesign, which K7's and K6's float32 body share;
-#   ``nomma``, ``nocopy``: K5's 3xTF32 products and its ring's copies.
+# - ``nofma``, ``constw``, ``onebar``, ``nontdot``: fused_dopri5.cu's
+#   FFMA products (``mm``, and ``ntdot``'s weight gradients): K5's before
+#   its redesign, K7's and K6's float32 body's before theirs. This
+#   checkout has neither, so they reach nothing here and fail for want of
+#   a match: give them a checkout from before (``PARENT+nofma``).
+#   ``nomma``: the 3xTF32 products (``k5::mma_tf32``) of K5 and of the
+#   float32 step-VJP body; ``nocopy``: K5's weight ring's copies
+#   (``k5::copy_rows``; the step-VJP body's ring takes a box by one bulk
+#   copy); ``nont``: the step-VJP body's weight-gradient contractions.
+# - ``nopromote``, ``trunc``, ``nt16``: the float32 step-VJP body's sums in
+#   one truncating tensor-core chain, its TF32 parts by truncation, its
+#   H x H contractions in 16-row blocks. Design alternatives, right by
+#   design (PROBES_RIGHT): ``--ab-dopri5`` reads them against the plain
+#   versions.
 # - ``w4``: K2b at 4 warps; ``f4``: K2f in 4-warp CTAs.
 # - ``k3f1``: K3f on one CTA an SM where it takes three. A design
 #   alternative, right by design.
@@ -2188,13 +2236,19 @@ PROBES = {
                r"acc\[i\]\[j\]\);",
                "acc[i][j] += __uint_as_float((__float_as_uint(comp(a[i], q))"
                " ^ __float_as_uint(b[j])) & 0x007fffffu);")],
+    # the weight gradients' outer products of fused_dopri5.cu's ntdot: each
+    # fmaf one add that keeps both operands live
+    "nontdot": [("fused_dopri5.cu",
+                 r"acc\[i\]\[j\] = fmaf\(a\[i\], b\[j\], acc\[i\]\[j\]\);",
+                 "acc[i][j] += __uint_as_float((__float_as_uint(a[i]) ^ "
+                 "__float_as_uint(b[j])) & 0x007fffffu);")],
     # mm's weights from whatever the staging buffer holds: no cp.async copy
     # from L2
     "constw": [("fused_dopri5.cu",
                 r"cp_async16\(dst \+ e, W \+ \(size_t\)\(c \* KC \+ kk\) "
                 r"\* ldw \+ n\);", "(void)kk; (void)n;")],
-    # K5's 3xTF32 products (its redesign): each mma.sync one add that keeps
-    # its operands live
+    # the 3xTF32 products of K5 and of the float32 step-VJP body: each
+    # mma.sync one add that keeps its operands live
     "nomma": [("fused_dopri5.cu",
                r"(?s)asm\(\"mma\.sync\.aligned\.m16n8k8\.row\.col\.f32\.tf32.*?"
                r"\"r\"\(b1\)\);",
@@ -2204,6 +2258,26 @@ PROBES = {
     "nocopy": [("fused_dopri5.cu",
                 r"cp_async16\(dst \+ r \* ds \+ 4 \* k, src \+ \(size_t\)r \* "
                 r"ss \+ 4 \* k\);", "(void)src;")],
+    # the float32 step VJP's products summed in one chain of the tensor
+    # core's truncating sums (no float32 add a pair of slices): a design
+    # alternative, right by design
+    "nopromote": [("fused_dopri5.cu", r"mma_tf32\(pt\[j\],",
+                   "mma_tf32(acc[j0 + j],"),
+                  ("fused_dopri5.cu",
+                   r"for \(int e = 0; e < 4; \+\+e\) acc\[j0 \+ j\]\[e\] "
+                   r"\+= pt\[j\]\[e\];", "(void)0;")],
+    # the float32 step VJP's TF32 parts by truncation, as K5's: a design
+    # alternative, right by design
+    "trunc": [("fused_dopri5.cu",
+               r"hi = \(__float_as_uint\(x\) \+ 0x1000u\) & 0xffffe000u;",
+               "hi = __float_as_uint(x) & 0xffffe000u;")],
+    # the H x H weight gradients in 16 x 32 output blocks, not 32 x 32:
+    # the same sums in the same order, the same bits
+    "nt16": [("fused_dopri5.cu", r"nt_dot1<H, H, 2>", "nt_dot1<H, H, 1>")],
+    # the weight gradients' contractions taken out
+    "nont": [("fused_dopri5.cu",
+              r"(static_assert\(N % 32 == 0 && M % \(16 \* MT\) == 0, "
+              r"\"blocks\"\);)", r"\1\n  if (M > 0) return;")],
     # mm with one block barrier a weight chunk where it takes two (the
     # barrier before the epilogue kept): races by design
     "onebar": [("fused_dopri5.cu",
@@ -2295,6 +2369,12 @@ PROBES = {
                    "__forceinline__ float probe_id(float x) { return x; }"),
                   (r"\bexpf\(", "probe_id("))],
 }
+# the probes of code this checkout no longer has (the FFMA float32 bodies):
+# they fail here for want of a match and take a checkout from before
+PROBES_BEFORE = frozenset({"nofma", "constw", "onebar", "nontdot"})
+# the probes whose results are right by design (design alternatives):
+# --ab-dopri5 reads them against the plain versions
+PROBES_RIGHT = frozenset({"k3f1", "nopromote", "trunc", "nt16"})
 
 
 def ab_checkout(arg):
@@ -3367,11 +3447,10 @@ def dopri5_kernel_checks(dev, n, z, nb, seed, control, enforce=True,
                 exact = outs(plain(*wargs))
                 sides = [("kernel", kernel), ("plain", plain),
                          ("control", lambda *a: tf32_products(plain, *a))]
-                if label == "K5":
-                    # the plain version in K5's 3xTF32 arithmetic: the
-                    # kernel's rounding class in the plain version's order
-                    sides.append(("3xTF32 plain",
-                                  lambda *a: tf32x3_products(plain, *a)))
+                # the plain version in the kernels' 3xTF32 arithmetic: the
+                # kernel's rounding class in the plain version's order
+                sides.append(("3xTF32 plain",
+                              lambda *a: tf32x3_products(plain, *a)))
                 far = {side: worst_of(outs(f(*fargs)), exact)[0]
                        for side, f in sides}
                 print(f"{label} {tag} against the float64 witness: "
@@ -3436,6 +3515,31 @@ def k5_tf32_flops(config, num_zones):
     products = dopri5_flops(config, num_zones)[0]
     return (3 * products
             + k5_elementwise(config, num_zones) * PEAK_TF32_FLOPS
+            / PEAK_FP32_FLOPS)
+
+
+def k7_elementwise(config, num_zones):
+    """K7's operations per agent outside its products, each activation one
+    operation: the six stage forwards' (k5_elementwise's per stage); per
+    stage VJP each activation's derivative (1 - a^2 and its product, three)
+    and its bias or time-row sum, the cotangent of h's pre-activation, the
+    attention's recomputed weights (scale, clamp, exp, normalisation), its
+    row sum and ds, W3's bias sum; the tableau's stage inputs and cotangent
+    chain."""
+    h, da, nb = config.hidden_dim, config.agent_dim, config.num_blocks
+    fwd = 2 * h + 5 * h * nb + 4 * num_zones + config.zone_dim + da
+    vjp = 8 * h * nb + 5 * h + 9 * num_zones + da
+    return 6 * (fwd + vjp) + (30 + 60 + 6) * da
+
+
+def k7_tf32_flops(config, num_zones):
+    """K7's operations per agent as its route takes them (the float32
+    step-VJP body, K6's float32 body too), in TF32 tensor-core operations:
+    its products three times (3xTF32), plus its elementwise operations
+    scaled by the TF32 peak over the FP32 one; over PEAK_TF32_FLOPS the
+    least time of its route."""
+    return (3 * dopri5_flops(config, num_zones)[1]
+            + k7_elementwise(config, num_zones) * PEAK_TF32_FLOPS
             / PEAK_FP32_FLOPS)
 
 
@@ -3697,20 +3801,22 @@ def dopri5_phases(dev, card, continuous_wall):
               f"FP32 {by} bound {b:.3f} ms), plain version {p:.3f} ms "
               f"({f / p / 1e9:.1f} TFLOP/s) of {f / 1e9:.1f} GFLOP "
               f"[card {card}]", flush=True)
-    # K5 takes its products in 3xTF32 on the tensor cores: its bound is
-    # its route's (k5_tf32_flops at the TF32 peak), the FP32 one beside it
-    f5 = k5_tf32_flops(config, ADAPT_ZONES) * ADAPT_N
-    b, by = bound(f5, nbytes[0], PEAK_TF32_FLOPS)
-    print(f"dopri5_step_fused's 3xTF32 bound: {b:.3f} ms ({by}; "
-          f"{b / ms[0]:.1%} of it), against the FP32 bound "
-          f"{bound(flops[0], nbytes[0], PEAK_FP32_FLOPS)[0]:.3f} ms "
-          f"[card {card}]", flush=True)
-    return [kernel_entry(names[0], "fused_dopri5.cu", "fused_dopri5.py:104",
-                         launches[0], errs[0], ms[0], plain_ms[0], f5,
-                         nbytes[0], PEAK_TF32_FLOPS),
-            kernel_entry(names[1], "fused_dopri5.cu", "fused_dopri5.py:254",
-                         launches[1], errs[1], ms[1], plain_ms[1], flops[1],
-                         nbytes[1], PEAK_FP32_FLOPS)], min(walls[1:])
+    # K5 and K7 take their products in 3xTF32 on the tensor cores: their
+    # bounds are their route's (k5_tf32_flops, k7_tf32_flops at the TF32
+    # peak), the FP32 ones beside them
+    tf32 = [k5_tf32_flops(config, ADAPT_ZONES) * ADAPT_N,
+            k7_tf32_flops(config, ADAPT_ZONES) * ADAPT_N]
+    for name, f3, f, nb_, m in zip(names, tf32, flops, nbytes, ms):
+        b, by = bound(f3, nb_, PEAK_TF32_FLOPS)
+        print(f"{name}'s 3xTF32 bound: {b:.3f} ms ({by}; {b / m:.1%} of "
+              f"it), against the FP32 bound "
+              f"{bound(f, nb_, PEAK_FP32_FLOPS)[0]:.3f} ms [card {card}]",
+              flush=True)
+    return [kernel_entry(name, "fused_dopri5.cu", src, n_, e, m, p, f3, nb_,
+                         PEAK_TF32_FLOPS)
+            for name, src, n_, e, m, p, f3, nb_ in zip(
+                names, ("fused_dopri5.py:104", "fused_dopri5.py:254"),
+                launches, errs, ms, plain_ms, tf32, nbytes)], min(walls[1:])
 
 
 # ---- the whole discrete-adjoint backward K6 and K7's bf16 branch ----------
@@ -3757,6 +3863,7 @@ def backward_kernel_checks(dev, n, z, nb, seed, control, enforce=True,
         float64_operands,
         float64_witness,
         tf32_products,
+        tf32x3_products,
     )
 
     model = build_model(GATODEConfig(num_blocks=nb), 7, 8, device=dev)
@@ -3800,9 +3907,13 @@ def backward_kernel_checks(dev, n, z, nb, seed, control, enforce=True,
             if not witness:
                 continue
             ref = outs(exact(plain)(*a))
-            far = {side: worst_of(outs(f(*a)), ref)[0] for side, f in (
-                ("kernel", kernel), ("plain", plain),
-                ("control", lambda *b: ctl(plain, *b)))}
+            sides = [("kernel", kernel), ("plain", plain),
+                     ("control", lambda *b: ctl(plain, *b))]
+            if ctl is tf32_products:
+                # K6-f32's plain version in its body's 3xTF32 arithmetic
+                sides.append(("3xTF32 plain",
+                              lambda *b: tf32x3_products(plain, *b)))
+            far = {side: worst_of(outs(f(*a)), ref)[0] for side, f in sides}
             print(f"{label} {tag} against the float64 witness: "
                   + "; ".join(f"{side} {describe_far(w)}"
                               for side, w in far.items()), flush=True)
@@ -4049,17 +4160,22 @@ def backward_all_phases(dev, card, discrete_wall):
           f"{ms[0]:.3f} ms of it ({ms[0] / 1e3 / step_wall:.1%}) [card "
           f"{card}]", flush=True)
     # K6's float32 body on the same recording (no main path launches it:
-    # rung 3 takes the bf16 body; checked in phase 24), at the FP32 peak
+    # rung 3 takes the bf16 body; checked in phase 24), at its 3xTF32
+    # route's bound (K7's, a step of the recording each), the FP32 one
+    # beside it
     kw32 = dict(precision="f32",
                 packed=fd.pack_operands(a[3], *a[11:], precision="f32"))
     with torch.no_grad():
         m32 = cuda_ms(lambda: fd.dopri5_backward_fused(*a, **kw32), 2)
         p32 = cuda_ms(lambda: fd.dopri5_backward_reference(
             *a, precision="f32"), 1)
-    b, by = bound(flops[0], nbytes[0], PEAK_FP32_FLOPS)
+    b, by = bound(n_acc * ADAPT_N * k7_tf32_flops(config, ADAPT_ZONES),
+                  nbytes[0], PEAK_TF32_FLOPS)
     print(f"dopri5_backward_fused (f32 body) on the same recording: kernel "
-          f"{m32:.3f} ms ({b / m32:.1%} of the FP32 {by} bound {b:.3f} ms),"
-          f" plain version {p32:.3f} ms [card {card}]", flush=True)
+          f"{m32:.3f} ms ({b / m32:.1%} of the 3xTF32 {by} bound {b:.3f} "
+          f"ms; the FP32 bound "
+          f"{bound(flops[0], nbytes[0], PEAK_FP32_FLOPS)[0]:.3f} ms), plain "
+          f"version {p32:.3f} ms [card {card}]", flush=True)
     return [kernel_entry(name, "fused_dopri5.cu", src, n_, e, m, p, f, nb_)
             for name, src, n_, e, m, p, f, nb_ in zip(
                 names, ("fused_dopri5.py:474", "fused_dopri5.py:254"),

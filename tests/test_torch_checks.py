@@ -1,6 +1,7 @@
 """The helpers the kernel checks share (``ops/cuda/checks.py``), on the CPU:
 the float64 witness and the bf16-product control of a plain version, and
 the depth scaling of the bounds."""
+import numpy as np
 import pytest
 import torch
 
@@ -209,3 +210,80 @@ def test_split_tf32_rebuilds_float32_and_its_product_is_float32_class():
     f32 = far(a @ b)
     assert far(checks.tf32x3_dot(a, b)) <= 4 * f32
     assert far(checks.round_tf32(a) @ checks.round_tf32(b)) >= 100 * f32
+
+
+def _dopri5_small(num_blocks, num_zones, seed):
+    """K7's and K6's float32 operands at narrow widths (Da 8, Dz 16, Hc 8,
+    H 16; 40 agents), from numpy: the step's (args, cotangents) and a
+    recording of 6 of 8 steps with 12 output rows and their cotangents
+    (checks.dopri5_backward_operands' recording, drawn the same way)."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+
+    n, da, dz, dc, hd = 40, 8, 16, 8, 16
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: torch.from_numpy(
+        (rng.normal(size=s) * scale).astype(np.float32))
+    w = lambda i, o: f(i, o, scale=1.0 / np.sqrt(i))
+    W1t, b1 = w(2, hd), f(hd, scale=0.1)
+    weights = (w(da, dz), w(da + dz, hd), w(dc, hd),
+               tuple((w(hd, hd), f(hd, scale=0.1), w(hd, hd),
+                      f(hd, scale=0.1)) for _ in range(num_blocks)),
+               w(hd, da), f(da, scale=0.1))
+    x, f0, h, ze = f(n, da), f(n, da, scale=0.3), f(n, dc), f(num_zones, dz)
+    args = (x, f0, h, ze, fd.stage_time_rows(3.0, 0.4, W1t, b1), *weights,
+            0.4)
+    cot = tuple(f(n, da) for _ in range(5))
+    max_acc, n_acc, num_times = checks.K6_RECORD
+    rec_h = np.zeros(max_acc, np.float32)
+    rec_t0 = np.zeros(max_acc, np.float32)
+    rec_h[:n_acc] = rng.uniform(0.2, 2.0, n_acc).astype(np.float32)
+    rec_t0[1:n_acc] = np.cumsum(rec_h[:n_acc - 1], dtype=np.float32)
+    steps = np.sort(rng.integers(0, n_acc, num_times - 2))
+    theta = rng.uniform(0.05, 1.0, num_times - 2).astype(np.float32)
+    out_step = np.concatenate([[-1], steps, [n_acc - 1]])
+    ts = np.concatenate([[0.0], rec_t0[steps] + theta * rec_h[steps],
+                         [rec_t0[n_acc - 1] + rec_h[n_acc - 1]]]).astype(
+        np.float32)
+    bargs = (f(max_acc, n, da), f(max_acc, n, da, scale=0.3), h, ze,
+             fd.stage_time_table(rec_t0, rec_h, W1t, b1), rec_t0, rec_h,
+             n_acc, f(num_times, n, da, scale=0.1), out_step, ts, *weights)
+    return args, cot, bargs
+
+
+def _worst(got, want):
+    """(mean |d| / mean |ref|, max |d| / max |ref|, 1 - cosine), the worst
+    over the outputs, as the card's checks read them."""
+    worst = [0.0, 0.0, 0.0]
+    for (_, u), (_, v) in zip(got, want):
+        u, v = u.double().flatten(), v.double().flatten()
+        d = (u - v).abs()
+        worst[0] = max(worst[0], (d.mean() / v.abs().mean()).item())
+        worst[1] = max(worst[1], (d.max() / v.abs().max()).item())
+        worst[2] = max(worst[2], 1 - (u @ v / (u.norm() * v.norm())).item())
+    return worst
+
+
+@pytest.mark.parametrize("num_zones", [10, 37])
+@pytest.mark.parametrize("num_blocks", [1, 2, 4])
+def test_tf32x3_products_lie_within_the_step_vjp_bounds(num_blocks,
+                                                        num_zones):
+    """The rounding class of the float32 step-VJP body on the tensor cores
+    (K7 and K6 at "f32": every product in 3xTF32, float32 sums) against a
+    float64 run of the plain versions: K7's within DOPRI5_VJP_BOUNDS, K6's
+    within DOPRI5_BWD_BOUNDS; with every product in TF32 alone each lies
+    outside its bounds."""
+    from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
+
+    args, cot, bargs = _dopri5_small(num_blocks, num_zones,
+                                     seed=10 * num_blocks + num_zones)
+    out = checks.dopri5_vjp_outputs
+    vjp = fd.dopri5_step_vjp_reference
+    bwd = lambda *a: fd.dopri5_backward_reference(*a, precision="f32")
+    with torch.no_grad():
+        for fn, a, bounds in ((vjp, args + cot, checks.DOPRI5_VJP_BOUNDS),
+                              (bwd, bargs, checks.DOPRI5_BWD_BOUNDS)):
+            exact = out(fn(*checks.float64_operands(a)))
+            sound = _worst(out(checks.tf32x3_products(fn, *a)), exact)
+            control = _worst(out(checks.tf32_products(fn, *a)), exact)
+            assert all(w <= b for w, b in zip(sound, bounds)), sound
+            assert not all(w <= b for w, b in zip(control, bounds)), control

@@ -1024,17 +1024,18 @@ def test_dopri5_bf16_and_backward_kernels_match_plain_versions(
 
 @pytest.mark.parametrize("n,num_zones,num_blocks", [
     (1_001, 64, 1), (1_001, 500, 1), (1_001, 40, 2), (999, 64, 4),
-    (999, 500, 4), (515, 64, 8), (515, 500, 8),
+    (999, 500, 4), (515, 64, 8), (515, 500, 8), (1_001, 40, 1),
+    (2_017, 64, 2), (2_017, 500, 2), (999, 40, 4), (515, 40, 8),
 ])
 def test_step_vjp_bodies_match_plain_versions_at_ragged_tiles(
         cuda, n, num_zones, num_blocks):
     """The step VJP's bodies at agent counts no tile divides (the bf16
     body's 96 rows up to 2 blocks, 64 up to 5, 32 beyond; the float32
-    body's 32, 16 past 4 blocks), 1, 2, 4 and 8 blocks, and zones that fill
-    2 or 16 of the bf16 body's 32-zone weight boxes or end in a half box
-    (40): K7 at float32 and K7-bf16 and K6 (both precisions, both
-    checkpoint types) within ``checks.py``'s bounds of their plain
-    versions, each repeat bit-identical."""
+    body's 128 at any depth), 1, 2, 4 and 8 blocks, and zones that fill 2
+    or 16 of the 32-zone weight boxes or end in a part box (40): K7 at
+    float32 and K7-bf16 and K6 (both precisions, both checkpoint types)
+    within ``checks.py``'s bounds of their plain versions, each repeat
+    bit-identical."""
     from ananke_abm_tpu_torch.ops.cuda import fused_dopri5 as fd
     from ananke_abm_tpu_torch.ops.cuda.checks import (
         DOPRI5_VJP_BOUNDS,

@@ -180,6 +180,38 @@ def test_nan_mode_checks_floating_outputs_only():
         assert _raises_nan(lambda: x * 2) is not None
 
 
+def _adamw_step_with_an_inf_gradient(foreach):
+    p = torch.nn.Parameter(torch.ones(4))
+    opt = torch.optim.AdamW([p], foreach=foreach)
+    p.grad = torch.tensor([1.0, float("inf"), 1.0, 1.0])
+    return p, opt.step
+
+
+def test_nan_mode_sees_in_place_foreach_writes():
+    """The ``_foreach_*_`` operations write their lists in place and return
+    nothing: AdamW's foreach step (PyTorch's default for CUDA parameters)
+    with an inf gradient entry raises naming the foreach operation that
+    wrote the NaN, as ``jax_debug_nans`` raises on the same step; the
+    per-tensor step raises at ``addcdiv_``. With the mode off the step runs
+    and leaves the bits of a step outside the mode."""
+    p, step = _adamw_step_with_an_inf_gradient(foreach=True)
+    with tprof.debug_nan_mode():
+        msg = _raises_nan(step)
+    assert msg is not None and "_foreach_" in msg, msg
+    p, step = _adamw_step_with_an_inf_gradient(foreach=False)
+    with tprof.debug_nan_mode():
+        msg = _raises_nan(step)
+    assert msg is not None and "addcdiv_" in msg and "_foreach_" not in msg
+    bare, step = _adamw_step_with_an_inf_gradient(foreach=True)
+    step()
+    off, step = _adamw_step_with_an_inf_gradient(foreach=True)
+    with tprof.debug_nan_mode(False):
+        step()
+    assert torch.isnan(off.detach()[1])
+    assert torch.equal(off.detach().view(torch.int32),
+                       bare.detach().view(torch.int32))
+
+
 def test_check_nan_acts_only_in_the_mode():
     bad = torch.tensor([1.0, float("nan")])
     tprof.check_nan("kernel", bad)  # off: returns at once
